@@ -1,5 +1,5 @@
 """The port's config copy against the JAX package's: same defaults, same
-yaml loading, and chip_smoke's --opts list equal to the main-path yaml."""
+yaml loading, and chip_smoke's --opts lists equal to their yamls."""
 
 import pathlib
 import types
@@ -12,6 +12,7 @@ import vtm_torch.config as tcfg
 REPO = pathlib.Path(__file__).resolve().parents[1]
 YAMLS = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").rglob("*.yaml"))
 MAIN_YAML = "configs/videomae/kinetics/tome_VideoMAE_B_16_224_K400.yaml"
+MOTIONFORMER_YAML = "configs/motionformer/kinetics/tome_motionformer_224_16x4.yaml"
 
 
 def test_defaults_equal():
@@ -31,6 +32,14 @@ def test_chip_smoke_opts_equal_main_yaml():
     args = types.SimpleNamespace(opts=["TEST.CHECKPOINT_FILE_PATH", ""])
     want = jcfg.load_config(args, str(REPO / MAIN_YAML)).to_dict()
     assert chip_smoke.main_cfg().to_dict() == want
+
+
+def test_chip_smoke_motionformer_opts_equal_yaml():
+    import chip_smoke
+
+    args = types.SimpleNamespace(opts=["TEST.CHECKPOINT_FILE_PATH", ""])
+    want = jcfg.load_config(args, str(REPO / MOTIONFORMER_YAML)).to_dict()
+    assert chip_smoke.mf_cfg().to_dict() == want
 
 
 def test_defaults_and_opts_need_no_yaml(monkeypatch):

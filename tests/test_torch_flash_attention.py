@@ -72,10 +72,28 @@ def test_kernel_args_rejected(q, k, bias, match):
 
 
 def test_build_command_targets_hopper():
-    cmd = build.nvcc_command(build.sources(), build.library_path())
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert [s.name for s in build.sources()] == ["flash_attention_fwd.cu"]
+    srcs = build.sources()
+    assert [s.name for s in srcs] == ["flash_attention_fwd.cu", "frame_attention_fwd.cu"]
+    objs = [build.BUILD_DIR / f"{s.stem}.o" for s in srcs]
+    for src, obj in zip(srcs, objs):
+        cmd = build.compile_command(src, obj)
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd and cmd[-1] == str(src)
+    link = build.link_command(objs, build.library_path())
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
     assert build.library_path().parent == build.BUILD_DIR
+
+
+def test_library_name_follows_every_source(monkeypatch, tmp_path):
+    """A changed kernel or shared header names a new library, so a stale
+    build is never loaded."""
+    for src in build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    names = {build.library_path().name}
+    for changed in ("frame_attention_fwd.cu", "attention_tiles.cuh"):
+        (tmp_path / changed).write_text((tmp_path / changed).read_text() + "\n")
+        names.add(build.library_path().name)
+    assert len(names) == 3
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -68,8 +68,11 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 
 def test_build_targets_sm90a_into_ignored_dir():
-    cmd = build.nvcc_command(build.sources(), build.library_path())
-    assert cmd[1:3] == ["-gencode", "arch=compute_90a,code=sm_90a"]
+    for src in build.sources():
+        cmd = build.compile_command(src, build.BUILD_DIR / f"{src.stem}.o")
+        assert cmd[1:3] == ["-gencode", "arch=compute_90a,code=sm_90a"]
+    link = build.link_command([], build.library_path())
+    assert link[1:3] == ["-gencode", "arch=compute_90a,code=sm_90a"]
     rel = build.library_path().relative_to(REPO)
     ignored = [line.strip() for line in (REPO / ".gitignore").read_text().splitlines()]
     assert rel.parts[0] + "/" in ignored

@@ -11,7 +11,7 @@ torch.set_num_threads(2)
 
 KEYS = {
     "split", "avg_frame_time_ms", "fps", "clips_per_sec", "batch_size", "iterations",
-    "attention_kernel_launches", "device",
+    "attention_kernel_launches", "frame_attention_kernel_launches", "device",
 }
 
 
@@ -33,8 +33,47 @@ def test_entry_point_returns_stats_keys(capsys):
     assert set(stats) == KEYS
     assert stats["device"] == "cpu" and stats["batch_size"] == 2 and stats["iterations"] == 2
     assert stats["attention_kernel_launches"] == 0  # CPU: plain version only
+    assert stats["frame_attention_kernel_launches"] == 0
     assert stats["clips_per_sec"] > 0
     assert "json_stats: " in capsys.readouterr().out
+
+
+def _tiny_mf_cfg(*opts):
+    """A tiny Motionformer: 2 frames of 4 tokens, 2 layers."""
+    cfg = get_cfg()
+    cfg.merge_from_list([
+        "MODEL.MODEL_NAME", "Motionformer",
+        "MOTIONFORMER.EMBED_DIM", "32", "MOTIONFORMER.DEPTH", "2", "MOTIONFORMER.NUM_HEADS", "2",
+        "MOTIONFORMER.MLP_RATIO", "2", "MOTIONFORMER.TEMPORAL_RESOLUTION", "2",
+        "MOTIONFORMER.USE_MLP", "True",
+        "DATA.TEST_CROP_SIZE", "32", "DATA.TRAIN_CROP_SIZE", "32", "DATA.NUM_FRAMES", "4",
+        "MODEL.NUM_CLASSES", "7", "TEST.BATCH_SIZE", "2", "MODEL_BENCHMARK.ITERATIONS", "2",
+        "TOME.ENABLE", "True", "TOME.R_VALUE", "1", "TOME.PROP_ATTN", "True",
+        "TPU.COMPUTE_DTYPE", "float32", *opts,
+    ])
+    return cfg
+
+
+def test_motionformer_entry_point_returns_stats_keys(capsys):
+    stats = mb.model_benchmark(_tiny_mf_cfg(), device="cpu")
+    assert set(stats) == KEYS
+    assert stats["device"] == "cpu" and stats["batch_size"] == 2
+    assert stats["attention_kernel_launches"] == stats["frame_attention_kernel_launches"] == 0
+    assert stats["clips_per_sec"] > 0
+    assert "json_stats: " in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cfg_fn", [_tiny_cfg, _tiny_mf_cfg], ids=["VideoMAE", "Motionformer"])
+def test_saved_checkpoint_round_trips(cfg_fn, tmp_path):
+    """A saved state dict (DDP-style ``module.`` keys inside the
+    reference's ``model_state`` container) loads back bit for bit."""
+    source = build_model(cfg_fn("RNG_SEED", "5"), "cpu").module
+    path = tmp_path / "tiny.pyth"
+    torch.save({"model_state": {f"module.{k}": v for k, v in source.state_dict().items()}}, path)
+    cfg = cfg_fn("TEST.CHECKPOINT_FILE_PATH", str(path))
+    bundle = mb.load_test_checkpoint(cfg, build_model(cfg, "cpu"))
+    for k, v in source.state_dict().items():
+        assert torch.equal(bundle.module.state_dict()[k], v), k
 
 
 def test_saved_checkpoint_loads(tmp_path):

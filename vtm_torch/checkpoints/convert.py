@@ -1,13 +1,17 @@
-"""VideoMAE weights into the PyTorch package's state-dict layout.
+"""Checkpoints into the PyTorch package's state-dict layout.
 
-The port names its modules after the original MCG-NJU VideoMAE layout,
-so an original state dict loads as it is. This module adds:
+The port names its modules after the upstream layouts (original MCG-NJU
+VideoMAE, upstream Motionformer), so an upstream state dict loads as it
+is. This module adds:
   * ``load_videomae_state_dict``: original or HuggingFace names (and
     ``module.`` / ``model.`` / ``backbone.`` wrapper prefixes) -> the
     port's names;
-  * ``state_dict_from_vtm_params``: the JAX package's VideoMAE param tree
-    (numpy arrays) -> the port's state dict, the inverse of
-    ``vtm.checkpoints.convert.convert_videomae``;
+  * ``load_motionformer_state_dict``: an upstream Motionformer state dict
+    with its wrapper prefixes stripped;
+  * ``state_dict_from_vtm_params`` / ``motionformer_state_dict_from_vtm_params``:
+    the JAX package's param tree (numpy arrays) -> the port's state dict,
+    the inverses of ``vtm.checkpoints.convert.convert_videomae`` /
+    ``convert_motionformer``;
   * ``load_torch_state_dict``: a checkpoint file -> a flat state dict.
 """
 
@@ -112,38 +116,76 @@ def load_videomae_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Tensor
     return {k: _t(v) for k, v in sd.items()}
 
 
+def _dense(p, name) -> Dict[str, torch.Tensor]:
+    """flax Dense params -> torch Linear entries."""
+    out = {f"{name}.weight": _t(np.asarray(p["kernel"]).T.copy())}
+    if "bias" in p:
+        out[f"{name}.bias"] = _t(np.asarray(p["bias"]))
+    return out
+
+
+def _layernorm(p, name) -> Dict[str, torch.Tensor]:
+    return {f"{name}.weight": _t(np.asarray(p["scale"])), f"{name}.bias": _t(np.asarray(p["bias"]))}
+
+
+def _conv3d(p, name) -> Dict[str, torch.Tensor]:
+    """flax [kt, kh, kw, C, D] -> torch [D, C, kt, kh, kw]."""
+    return {
+        f"{name}.weight": _t(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2).copy()),
+        f"{name}.bias": _t(np.asarray(p["bias"])),
+    }
+
+
+def _blocks(params: Mapping):
+    """(index, params) of the ``blocks_{i}`` entries, in layer order."""
+    return sorted((int(k.split("_")[1]), v) for k, v in params.items() if k.startswith("blocks_"))
+
+
 def state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's VideoMAE params (nested dict of arrays) -> the
     port's state dict. Inverse of ``convert_videomae``."""
-
-    def dense(p, name):
-        out = {f"{name}.weight": _t(np.asarray(p["kernel"]).T.copy())}
-        if "bias" in p:
-            out[f"{name}.bias"] = _t(np.asarray(p["bias"]))
-        return out
-
-    def layernorm(p, name):
-        return {f"{name}.weight": _t(np.asarray(p["scale"])), f"{name}.bias": _t(np.asarray(p["bias"]))}
-
-    pe = params["patch_embed"]
-    # flax [kt, kh, kw, C, D] -> torch [D, C, kt, kh, kw]
-    sd = {
-        "patch_embed.proj.weight": _t(np.asarray(pe["kernel"]).transpose(4, 3, 0, 1, 2).copy()),
-        "patch_embed.proj.bias": _t(np.asarray(pe["bias"])),
-    }
-    blocks = sorted(
-        (int(k.split("_")[1]), v) for k, v in params.items() if k.startswith("blocks_")
-    )
-    for i, blk in blocks:
+    sd = _conv3d(params["patch_embed"], "patch_embed.proj")
+    for i, blk in _blocks(params):
         pre = f"blocks.{i}"
-        sd.update(layernorm(blk["norm1"], f"{pre}.norm1"))
-        sd.update(layernorm(blk["norm2"], f"{pre}.norm2"))
-        sd.update(dense(blk["attn"]["qkv"], f"{pre}.attn.qkv"))
-        sd.update(dense(blk["attn"]["proj"], f"{pre}.attn.proj"))
+        sd.update(_layernorm(blk["norm1"], f"{pre}.norm1"))
+        sd.update(_layernorm(blk["norm2"], f"{pre}.norm2"))
+        sd.update(_dense(blk["attn"]["qkv"], f"{pre}.attn.qkv"))
+        sd.update(_dense(blk["attn"]["proj"], f"{pre}.attn.proj"))
         for name in ("q_bias", "v_bias"):
             sd[f"{pre}.attn.{name}"] = _t(np.asarray(blk["attn"][name]))
-        sd.update(dense(blk["mlp"]["fc1"], f"{pre}.mlp.fc1"))
-        sd.update(dense(blk["mlp"]["fc2"], f"{pre}.mlp.fc2"))
-    sd.update(layernorm(params["fc_norm"], "fc_norm"))
-    sd.update(dense(params["head"], "head"))
+        sd.update(_dense(blk["mlp"]["fc1"], f"{pre}.mlp.fc1"))
+        sd.update(_dense(blk["mlp"]["fc2"], f"{pre}.mlp.fc2"))
+    sd.update(_layernorm(params["fc_norm"], "fc_norm"))
+    sd.update(_dense(params["head"], "head"))
+    return sd
+
+
+def load_motionformer_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """Upstream Motionformer state dict -> the port's state dict (torch
+    tensors), ready for ``Motionformer.load_state_dict``: the names are
+    upstream's, so only the wrapper prefixes go."""
+    return {k: _t(v) for k, v in strip_prefixes(sd).items()}
+
+
+def motionformer_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's trajectory Motionformer params -> the port's
+    state dict. Inverse of ``convert_motionformer``."""
+    sd = {
+        "cls_token": _t(np.asarray(params["cls_token"])),
+        "pos_embed": _t(np.asarray(params["pos_embed"])),
+        "temp_embed": _t(np.asarray(params["temp_embed"])),
+    }
+    sd.update(_conv3d(params["patch_embed_3d"], "patch_embed_3d.proj"))
+    for i, blk in _blocks(params):
+        pre = f"blocks.{i}"
+        sd.update(_layernorm(blk["norm1"], f"{pre}.norm1"))
+        sd.update(_layernorm(blk["norm2"], f"{pre}.norm2"))
+        for name in ("qkv", "proj_q", "proj_kv", "proj"):
+            sd.update(_dense(blk["attn"][name], f"{pre}.attn.{name}"))
+        sd.update(_dense(blk["mlp"]["fc1"], f"{pre}.mlp.fc1"))
+        sd.update(_dense(blk["mlp"]["fc2"], f"{pre}.mlp.fc2"))
+    sd.update(_layernorm(params["norm"], "norm"))
+    if "pre_logits_fc" in params:
+        sd.update(_dense(params["pre_logits_fc"], "pre_logits.fc"))
+    sd.update(_dense(params["head"], "head"))
     return sd

@@ -1,2 +1,2 @@
 from vtm_torch.models.build import MODEL_REGISTRY, ModelBundle, build_model  # noqa: F401
-from vtm_torch.models import videomae  # noqa: F401  (registers VideoMAE)
+from vtm_torch.models import motionformer, videomae  # noqa: F401  (register their models)

@@ -1,0 +1,304 @@
+"""Motionformer — trajectory-attention ViT, in PyTorch.
+
+Port of ``vtm/models/motionformer.py`` for inference with trajectory
+attention (``ATTN_LAYER: trajectory``, the 3-D tubelet patch embed,
+separate position and temporal embeddings). Token merging runs per
+pseudo-frame between attention and MLP of each block.
+
+The reference's quirks are kept exactly, since they produced the
+paper's numbers:
+  * the body sequence is frame-major ``(f n)``, and the spatial
+    attention groups keys into contiguous frames (frame = index // s);
+  * the matching metric, the per-pseudo-frame merge and the
+    proportional-attention size use the ``(s f)`` fold of the same
+    sequence (``_fold_space``: pseudo-frame = index % F);
+  * with ``use_original_code`` the temporal values are the spatial
+    output ``xq`` itself (the reference's ``v=x`` typo), so only the k
+    half of ``proj_kv`` is contracted; its weight keeps the full
+    [2D, D] shape;
+  * at inference the head applies a softmax.
+
+Modules are named after the upstream state-dict layout
+(``patch_embed_3d.proj``, ``cls_token``, ``pos_embed``, ``temp_embed``,
+``blocks.{i}.attn.{qkv,proj_q,proj_kv,proj}``, ``norm``,
+``pre_logits.fc``, ``head``), so an upstream checkpoint loads with
+``load_state_dict``. Weights are drawn in fp32 from a
+``torch.Generator``; linear and conv weights (not the head) are then cast
+to the compute dtype, and norms and the head stay fp32, as in VideoMAE.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vtm_torch.merge.policy import MergePolicy, MergeState, reduce_tokens
+from vtm_torch.models.build import ModelBundle, compute_dtype, make_policy, register_model
+from vtm_torch.models.common import (
+    _FLASH_MAX_SEQ,
+    _FLASH_MIN_SEQ,
+    LayerNorm,
+    Mlp,
+    TubeletEmbed,
+    merge_heads,
+    split_heads,
+)
+from vtm_torch.models.timesformer import _fold_space, _unfold_space
+from vtm_torch.ops.flash_attention import _reference, tome_frame_attention
+
+NOT_PORTED = "not ported yet (ROADMAP.md Queue 1, item 6: Motionformer)"
+
+@dataclasses.dataclass(frozen=True)
+class MotionformerConfig:
+    img_size: int = 224
+    patch_size: int = 16
+    patch_size_temp: int = 2
+    in_chans: int = 3
+    num_classes: Union[int, Tuple[int, int]] = 400
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    temporal_resolution: int = 8  # frames AFTER temporal patching
+    use_mlp: bool = False
+    head_act: str = "tanh"
+    pos_embed_type: str = "separate"  # separate | joint
+    attn_layer: str = "trajectory"  # trajectory | joint | divided
+    use_original_code: bool = True
+    approx_attn_type: str = "none"
+    layer_norm_eps: float = 1e-6
+
+    @property
+    def spatial_tokens(self) -> int:
+        return (self.img_size // self.patch_size) ** 2
+
+    @property
+    def multi_head(self) -> bool:
+        return isinstance(self.num_classes, (tuple, list))
+
+
+def _check_ported(c: MotionformerConfig, train_mode: bool) -> None:
+    unported = [
+        (c.attn_layer != "trajectory", f"attn_layer {c.attn_layer!r}"),
+        (c.approx_attn_type != "none", f"approx_attn_type {c.approx_attn_type!r}"),
+        (c.head_act != "tanh", f"head_act {c.head_act!r}"),
+        (c.multi_head, "twin verb/noun heads (tuple num_classes)"),
+        (c.pos_embed_type != "separate", f"pos_embed_type {c.pos_embed_type!r}"),
+        (c.patch_size_temp == 1, "the 2-D patch embed (patch_size_temp 1)"),
+        (train_mode, "training (train_mode)"),
+    ]
+    for bad, what in unported:
+        if bad:
+            raise NotImplementedError(f"Motionformer {what} is {NOT_PORTED}")
+
+
+class TrajectoryAttention(nn.Module):
+    """Trajectory attention returning (out, metric): a per-frame spatial
+    attention (K3 on CUDA for 256 to 4096 body tokens) followed by a
+    temporal attention along each token's trajectory. ``use_kernel=False``
+    sends every call to the plain product, so the kernel can be checked
+    against it inside a model."""
+
+    def __init__(self, config: MotionformerConfig):
+        super().__init__()
+        c = config
+        d = c.embed_dim
+        self.num_heads = c.num_heads
+        self.scale = (d // c.num_heads) ** -0.5
+        self.use_original_code = c.use_original_code
+        self.use_kernel = True
+        self.qkv = nn.Linear(d, d * 3, bias=c.qkv_bias)
+        self.proj_q = nn.Linear(d, d, bias=c.qkv_bias)
+        self.proj_kv = nn.Linear(d, d * 2, bias=c.qkv_bias)
+        self.proj = nn.Linear(d, d)
+
+    def forward(self, x: torch.Tensor, num_frames: int, size: Optional[torch.Tensor] = None):
+        """x [B, 1 + F*s, D]; ``size`` [(B*F), s, 1] per-pseudo-frame token
+        sizes or None. Returns (out [B, 1 + F*s, D], metric [(B*F), s, hd])."""
+        b, n, d = x.shape
+        h = self.num_heads
+        hd = d // h
+        f = num_frames
+        nb = n - 1
+        s = nb // f
+        scale = self.scale
+
+        q, k, v = (split_heads(t, h) for t in self.qkv(x).chunk(3, dim=-1))
+        # the CLS row attends over every token, itself included
+        cls_out = merge_heads(_reference(q[:, :, :1], k, v, None, scale))
+
+        q_, k_, v_ = q[:, :, 1:], k[:, :, 1:], v[:, :, 1:]
+        # keys are grouped (f n) for the spatial softmax, but the size is
+        # (s f)-folded: the reference patch's inconsistency, kept
+        key_bias = None if size is None else torch.log(_unfold_space(size, b, f)[:, :, 0])
+        if self.use_kernel and x.is_cuda and _FLASH_MIN_SEQ <= nb <= _FLASH_MAX_SEQ:
+            xfa = tome_frame_attention(q_, k_, v_, key_bias, scale, f)
+        else:
+            logits = torch.matmul(q_.float(), k_.float().transpose(-2, -1)) * scale
+            if key_bias is not None:
+                logits = logits + key_bias[:, None, None, :]
+            attn = torch.softmax(logits.view(b, h, nb, f, s), dim=-1).to(v.dtype)
+            xfa = torch.einsum("bhqfn,bhfnd->bqfhd", attn, v_.reshape(b, h, f, s, hd))
+
+        # temporal attention; the query is the token's own-frame slice
+        xq = xfa.reshape(b, nb, f, d)  # token-major [B, N', F, D]
+        tokens = torch.arange(nb, device=x.device)
+        x_diag = xq[:, tokens, tokens // s]  # [B, N', D]
+        q2 = self.proj_q(x_diag)
+        if self.use_original_code:
+            # v=x typo: proj_kv's v half is never used
+            w, bias = self.proj_kv.weight, self.proj_kv.bias
+            k2 = F.linear(xq, w[:d], None if bias is None else bias[:d])
+            val2 = xq
+        else:
+            k2, val2 = self.proj_kv(xq).chunk(2, dim=-1)
+        # per-head logits: products in the compute dtype, summed in fp32
+        z = (q2 * scale)[:, :, None, :] * k2  # [B, N', F, D]
+        logits2 = z.float().view(b, nb, f, h, hd).sum(dim=-1)  # [B, N', F, h]
+        attn2 = torch.softmax(logits2, dim=2).to(v.dtype)
+        out = (attn2[..., None] * val2.reshape(b, nb, f, h, hd)).sum(dim=2).reshape(b, nb, d)
+        out = self.proj(torch.cat([cls_out, out], dim=1))
+
+        # metric: (s f) fold of the body keys, mean over heads
+        return out, _fold_space(k_.mean(dim=1), b, f)
+
+
+class MotionformerBlock(nn.Module):
+    """Pre-norm block; merging runs per (s f)-folded pseudo-frame between
+    attention and MLP."""
+
+    def __init__(self, config: MotionformerConfig, policy: MergePolicy):
+        super().__init__()
+        c = config
+        self.policy = policy
+        self.norm1 = LayerNorm(c.embed_dim, eps=c.layer_norm_eps)
+        self.attn = TrajectoryAttention(c)
+        self.norm2 = LayerNorm(c.embed_dim, eps=c.layer_norm_eps)
+        self.mlp = Mlp(c.embed_dim, int(c.embed_dim * c.mlp_ratio), c.embed_dim)
+
+    def forward(
+        self, x: torch.Tensor, state: MergeState, layer: int, num_frames: int
+    ) -> Tuple[torch.Tensor, MergeState]:
+        out, metric = self.attn(self.norm1(x), num_frames, state.attn_size(self.policy.prop_attn))
+        x = x + out
+        if self.policy.mode != "none" and self.policy.r_at(layer) > 0:
+            b = x.shape[0]
+            folded = _fold_space(x[:, 1:], b, num_frames)
+            folded, state = reduce_tokens(self.policy, layer, metric, folded, state)
+            x = torch.cat([x[:, :1], _unfold_space(folded, b, num_frames)], dim=1)
+        return x + self.mlp(self.norm2(x)), state
+
+
+class Motionformer(nn.Module):
+    """Full model, inference only. Input: [B, T, H, W, C] channels-last
+    video (T raw frames; the tubelet embed reduces them to
+    ``temporal_resolution``). Returns (class probabilities [B,
+    num_classes] fp32, MergeState)."""
+
+    def __init__(
+        self,
+        config: MotionformerConfig,
+        policy: MergePolicy = MergePolicy(),
+        dtype: torch.dtype = torch.float32,
+        seed: int = 0,
+        train_mode: bool = False,
+    ):
+        super().__init__()
+        _check_ported(config, train_mode)
+        c = config
+        d = c.embed_dim
+        self.config = config
+        self.policy = policy
+        self.patch_embed_3d = TubeletEmbed(c.in_chans, d, c.patch_size_temp, c.patch_size)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        self.pos_embed = nn.Parameter(torch.zeros(1, c.spatial_tokens + 1, d))
+        self.temp_embed = nn.Parameter(torch.zeros(1, c.temporal_resolution, d))
+        self.blocks = nn.ModuleList(MotionformerBlock(c, policy) for _ in range(c.depth))
+        self.norm = LayerNorm(d, eps=c.layer_norm_eps)
+        if c.use_mlp:
+            self.pre_logits = nn.Sequential(
+                collections.OrderedDict(fc=nn.Linear(d, d), act=nn.Tanh())
+            )
+        else:
+            self.pre_logits = nn.Identity()
+        self.head = nn.Linear(d, c.num_classes)
+        self._init_weights(torch.Generator().manual_seed(seed))
+        for name, module in self.named_modules():
+            if isinstance(module, (nn.Linear, nn.Conv3d)) and name != "head":
+                module.to(dtype)
+
+    @torch.no_grad()
+    def _init_weights(self, generator: torch.Generator) -> None:
+        """Truncated-normal (std 0.02) linear and conv weights, class token
+        and position embedding; zero biases and temporal embedding."""
+        for module in self.modules():
+            if isinstance(module, (nn.Linear, nn.Conv3d)):
+                nn.init.trunc_normal_(module.weight, std=0.02, generator=generator)
+                if module.bias is not None:
+                    nn.init.zeros_(module.bias)
+        for p in (self.cls_token, self.pos_embed):
+            nn.init.trunc_normal_(p, std=0.02, generator=generator)
+
+    def embed(self, video: torch.Tensor) -> torch.Tensor:
+        """[B, T, H, W, C] -> the first block's input [B, 1 + F*s, D]: CLS
+        token, then the tubelets frame-major, plus the position embedding
+        tiled over frames and the temporal one repeated over space."""
+        c = self.config
+        emb = self.patch_embed_3d(video)
+        cls = self.cls_token.to(emb.dtype).expand(emb.shape[0], -1, -1)
+        x = torch.cat([cls, emb], dim=1)
+        pos = self.pos_embed
+        tiled = pos[:, 1:].repeat(1, c.temporal_resolution, 1) + self.temp_embed.repeat_interleave(
+            c.spatial_tokens, dim=1
+        )
+        return x + torch.cat([pos[:, :1], tiled], dim=1).to(x.dtype)
+
+    def forward(
+        self, x: torch.Tensor, state: Optional[MergeState] = None
+    ) -> Tuple[torch.Tensor, MergeState]:
+        if state is None:
+            state = MergeState()
+        x = self.embed(x)
+        for i, block in enumerate(self.blocks):
+            x, state = block(x, state, layer=i, num_frames=self.config.temporal_resolution)
+        feats = self.pre_logits(self.norm(x)[:, 0])
+        return torch.softmax(self.head(feats.float()), dim=-1), state
+
+
+@register_model("Motionformer")
+def _build_motionformer(cfg) -> ModelBundle:
+    """Construct from a config (the keys ``vtm.models.motionformer._build_motionformer`` reads)."""
+    num_classes = (
+        cfg.MODEL.NUM_CLASSES
+        if cfg.EPICKITCHENS.NUM_CLASSES is None
+        else tuple(cfg.EPICKITCHENS.NUM_CLASSES)
+    )
+    m = cfg.MOTIONFORMER
+    config = MotionformerConfig(
+        img_size=cfg.DATA.TRAIN_CROP_SIZE,
+        patch_size=m.PATCH_SIZE,
+        patch_size_temp=m.PATCH_SIZE_TEMP,
+        in_chans=m.CHANNELS,
+        num_classes=num_classes,
+        embed_dim=m.EMBED_DIM,
+        depth=m.DEPTH,
+        num_heads=m.NUM_HEADS,
+        mlp_ratio=float(m.MLP_RATIO),
+        qkv_bias=m.QKV_BIAS,
+        temporal_resolution=m.TEMPORAL_RESOLUTION,
+        use_mlp=m.USE_MLP,
+        head_act=m.HEAD_ACT,
+        pos_embed_type=m.POS_EMBED,
+        attn_layer=m.ATTN_LAYER,
+        use_original_code=m.USE_ORIGINAL_TRAJ_ATTN_CODE,
+        approx_attn_type=m.APPROX_ATTN_TYPE,
+    )
+    policy = make_policy(cfg, config.depth, n_protected_class_token=False)
+    module = Motionformer(config, policy=policy, dtype=compute_dtype(cfg), seed=cfg.RNG_SEED)
+    return ModelBundle(module=module, policy=policy, name="Motionformer")

@@ -155,13 +155,17 @@ class VideoMAE(nn.Module):
                 if module.bias is not None:
                     nn.init.zeros_(module.bias)
 
+    def embed(self, video: torch.Tensor) -> torch.Tensor:
+        """[B, T, H, W, C] -> the first block's input [B, N, D]."""
+        x = self.patch_embed(video)
+        return x + self.pos_embed.to(x.dtype)
+
     def forward(
         self, x: torch.Tensor, state: Optional[MergeState] = None
     ) -> Tuple[torch.Tensor, MergeState]:
         if state is None:
             state = MergeState()
-        x = self.patch_embed(x)
-        x = x + self.pos_embed.to(x.dtype)
+        x = self.embed(x)
         for i, block in enumerate(self.blocks):
             x, state = block(x, state, layer=i)
         return self.head(self.fc_norm(x.mean(dim=1)).float()), state

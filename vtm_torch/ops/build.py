@@ -1,14 +1,17 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled for Hopper into one shared library
-with a plain C interface:
+Every ``csrc/*.cu`` file is compiled for Hopper into an object, all of
+them at once (one nvcc process per source), and the objects are linked
+into one shared library with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
 
 The library lands in ``build/vtm_torch_kernels/`` at the root of the
-checkout, named by a hash of the sources and the command, so a changed
-source rebuilds and an unchanged one is reused. It is built at first
-use. Nothing here runs at import time.
+checkout, named by a hash of the sources (``*.cu`` and the ``*.cuh``
+headers they include) and the commands, so a changed source rebuilds and
+an unchanged one is reused. It is built at first use. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -26,10 +29,9 @@ from typing import List, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "vtm_torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 def sources() -> List[pathlib.Path]:
@@ -45,16 +47,39 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def nvcc_command(srcs: Sequence[pathlib.Path], output: pathlib.Path) -> List[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(output), *(str(s) for s in srcs)]
+def compile_command(src: pathlib.Path, obj: pathlib.Path) -> List[str]:
+    return [nvcc_path(), *COMPILE_FLAGS, "-o", str(obj), str(src)]
+
+
+def link_command(objs: Sequence[pathlib.Path], output: pathlib.Path) -> List[str]:
+    return [nvcc_path(), *LINK_FLAGS, "-o", str(output), *(str(o) for o in objs)]
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvtm_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: Sequence[List[str]]) -> None:
+    """Start every command at once, wait for all; raise RuntimeError on
+    the first that fails."""
+    try:
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for cmd in cmds
+        ]
+    except FileNotFoundError as e:
+        raise RuntimeError(f"nvcc not found ({cmds[0][0]}): the CUDA kernels cannot be built") from e
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> float:
@@ -64,25 +89,16 @@ def build() -> float:
     if path.exists():
         return 0.0
     path.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builds never
-    # see a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = nvcc_command(sources(), pathlib.Path(tmp))
+    # compile into a private directory and rename the library into place:
+    # concurrent builds never see a half-written library
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc not found ({cmd[0]}): the CUDA kernels cannot be built") from e
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return seconds
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in sources()]
+        _run_all([compile_command(src, obj) for src, obj in zip(sources(), objs)])
+        lib = pathlib.Path(tmp) / path.name
+        _run_all([link_command(objs, lib)])
+        os.replace(lib, path)
+    return time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,4 +116,13 @@ def load_library() -> ctypes.CDLL:
         p,              # cudaStream_t
     ]
     lib.vtm_attention_fwd.restype = i
+    lib.vtm_frame_attention_fwd.argtypes = [
+        i, i,           # dtype, head_dim
+        p, p, p, p, p,  # q, k, v, key_bias, out
+        i, i, i, i,     # batch, num_heads, n, frames
+        ctypes.c_float,  # scale
+        p,              # strides (13 x int64, host memory)
+        p,              # cudaStream_t
+    ]
+    lib.vtm_frame_attention_fwd.restype = i
     return lib

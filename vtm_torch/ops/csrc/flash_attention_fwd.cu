@@ -39,16 +39,20 @@
 #include <cstring>
 #include <type_traits>
 
+#include "attention_tiles.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using vtm::from_float;
+using vtm::load_tile;
 
-constexpr int kBlockQ = 64;  // query rows per thread block
-constexpr int kBlockK = 64;  // keys per tile
-constexpr int kWarps = 4;    // each warp owns 16 query rows
+constexpr int kBlockQ = vtm::kTileRows;  // query rows per thread block
+constexpr int kBlockK = vtm::kTileRows;  // keys per tile
+constexpr int kWarps = 4;                // each warp owns 16 query rows
 constexpr int kThreads = kWarps * 32;
+static_assert(kThreads == vtm::kTileThreads, "load_tile strides by the block's thread count");
 constexpr float kMask = -1e30f;
-static_assert(kBlockQ == kBlockK, "load_tile stages q, k and v tiles of one height");
 static_assert(kBlockQ == kWarps * 16, "each warp owns a 16-row strip");
 
 // Element strides (batch, head, row) of q, k, v and out; the last dim is
@@ -57,18 +61,6 @@ static_assert(kBlockQ == kWarps * 16, "each warp owns a 16-row strip");
 struct Strides {
   long long q[3], k[3], v[3], o[3];
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Shared-memory layout. Row pads of 16 bytes break bank conflicts and keep
 // every 16-row fragment origin 32-byte aligned, as wmma requires.
@@ -94,31 +86,6 @@ struct Layout {
                     p_bytes % 128 == 0,
                 "shared regions must stay 128-byte aligned");
 };
-
-// Stage rows [row0, row0 + 64) of one (b, h) slice into shared memory with
-// 16-byte loads, zero-filling rows at or past n. When `scale` is given the
-// values are multiplied by it and rounded back to T (q * scale in T).
-template <typename T, int D, bool kScale>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_stride, int row0,
-                                          int n, float scale) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecsPerRow = D / kVec;
-  constexpr int ld = Layout<T, D>::ld_qkv;
-  for (int i = threadIdx.x; i < kBlockK * kVecsPerRow; i += kThreads) {
-    const int r = i / kVecsPerRow;
-    const int c = (i % kVecsPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-      if constexpr (kScale) {
-        T* e = reinterpret_cast<T*>(&val);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) e[j] = from_float<T>(to_float(e[j]) * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -150,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row = wrow + (lane >> 1);     // the row this lane's softmax owns
   const int half = lane & 1;              // which half of the row it owns
 
-  load_tile<T, D, true>(qs, qb, st.q[2], q0, n, scale);
+  load_tile<T, D, true>(qs, L::ld_qkv, qb, st.q[2], q0, n, scale);
   for (int i = threadIdx.x; i < kBlockQ * L::ld_o; i += kThreads) os[i] = 0.f;
   __syncthreads();
 
@@ -158,8 +125,8 @@ __global__ void __launch_bounds__(kThreads)
   float l_i = 0.f;    // running denominator of this lane's row
 
   for (int k0 = 0; k0 < n; k0 += kBlockK) {
-    load_tile<T, D, false>(ks, kb, st.k[2], k0, n, 0.f);
-    load_tile<T, D, false>(vs, vb, st.v[2], k0, n, 0.f);
+    load_tile<T, D, false>(ks, L::ld_qkv, kb, st.k[2], k0, n, 0.f);
+    load_tile<T, D, false>(vs, L::ld_qkv, vb, st.v[2], k0, n, 0.f);
     __syncthreads();
 
     // ---- s = (q * scale) k^T for this warp's 16 rows --------------------

@@ -1,15 +1,21 @@
-"""Fused dense attention forward (K1) for the ToMe video transformers.
+"""Fused attention forwards for the ToMe video transformers.
 
-``tome_flash_attention`` computes softmax(q k^T * sm_scale + key_bias) v
-over [B, H, N, d] without writing the [B, H, N, N] logits to device
-memory. It is the counterpart of ``vtm/ops/flash_attention.py::
-tome_flash_attention`` (forward only); the kernel is CUDA C++ for
-Hopper in ``csrc/flash_attention_fwd.cu``, built and bound by
-``vtm_torch/ops/build.py``.
+K1, ``tome_flash_attention``: softmax(q k^T * sm_scale + key_bias) v over
+[B, H, N, d], the counterpart of ``vtm/ops/flash_attention.py::
+tome_flash_attention`` (forward only); kernel ``csrc/flash_attention_fwd.cu``.
 
-A tensor on the CPU goes to ``_reference``, the plain PyTorch version of
-the same math. A CUDA tensor goes to the kernel, or the call raises:
-there is no fallback.
+K3, ``tome_frame_attention``: the same with a separate softmax over each
+frame's contiguous key segment, returning token-major [B, N, F, H, d]
+(Motionformer's trajectory attention), the counterpart of ``vtm``'s
+``tome_frame_attention`` (forward only); kernel
+``csrc/frame_attention_fwd.cu``.
+
+Neither writes the [B, H, N, N] logits to device memory. Both kernels are
+CUDA C++ for Hopper, built and bound by ``vtm_torch/ops/build.py``.
+
+A tensor on the CPU goes to the plain PyTorch version of the same math
+(``_reference``, ``_frame_reference``). A CUDA tensor goes to the
+kernel, or the call raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -19,13 +25,16 @@ from typing import Optional
 
 import torch
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset them to 0):
+# K1 (tome_flash_attention) and K3 (tome_frame_attention).
 LAUNCHES = 0
+FRAME_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 _ALIGN = 16  # bytes: the kernel stages rows with 16-byte loads
 _MAX_GRID_Y = 65535  # batch * heads is the grid's y extent
+MAX_FRAME_LEN = 512  # K3 keeps one frame's [64 x s] fp32 logits in shared memory
 
 
 def _reference(q, k, v, key_bias, sm_scale):
@@ -53,8 +62,6 @@ def check_kernel_args(q, k, v, key_bias) -> None:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if n < 1 or b * h < 1 or b * h > _MAX_GRID_Y:
         raise ValueError(f"unsupported B*H={b * h}, N={n}")
-    if not (q.device == k.device == v.device and q.device.type == "cuda"):
-        raise ValueError(f"q, k, v must share one CUDA device, got {q.device}, {k.device}, {v.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         size = t.element_size()
         if t.stride(-1) != 1:
@@ -66,6 +73,8 @@ def check_kernel_args(q, k, v, key_bias) -> None:
             raise ValueError(f"key_bias must be float32 [{b}, {n}], got {key_bias.dtype} {tuple(key_bias.shape)}")
         if key_bias.device != q.device or not key_bias.is_contiguous():
             raise ValueError("key_bias must be contiguous on q's device")
+    if not (q.device == k.device == v.device and q.device.type == "cuda"):
+        raise ValueError(f"q, k, v must share one CUDA device, got {q.device}, {k.device}, {v.device}")
 
 
 def tome_flash_attention(
@@ -108,4 +117,76 @@ def tome_flash_attention(
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed with cudaError_t {err}")
     LAUNCHES += 1
+    return out
+
+
+def _frame_reference(q, k, v, key_bias, sm_scale, frames):
+    """Plain version of K3 (vtm/ops/flash_attention.py:1276-1286): q*scale
+    in q's dtype, fp32 logits plus the key bias, a softmax per frame's
+    contiguous key segment in fp32, probabilities in v's dtype before the
+    product with v. Returns [B, N, F, H, d]."""
+    b, h, n, d = q.shape
+    s = n // frames
+    logits = torch.matmul((q * sm_scale).float(), k.float().transpose(-2, -1))
+    if key_bias is not None:
+        logits = logits + key_bias.float()[:, None, None, :]
+    probs = torch.softmax(logits.view(b, h, n, frames, s), dim=-1).to(v.dtype)
+    return torch.einsum("bhqfn,bhfnd->bqfhd", probs, v.reshape(b, h, frames, s, d))
+
+
+def check_frame_kernel_args(q, k, v, key_bias, frames: int) -> None:
+    """Raise ValueError on anything the K3 kernel does not take."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, H, N, d], got shape {tuple(q.shape)}")
+    n = q.shape[2]
+    if frames < 1 or n % frames:
+        raise ValueError(f"frames={frames} does not divide N={n}")
+    if n // frames > MAX_FRAME_LEN:
+        raise ValueError(f"{n // frames} keys per frame exceed the kernel's {MAX_FRAME_LEN}")
+    check_kernel_args(q, k, v, key_bias)
+
+
+def tome_frame_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    sm_scale: float = 1.0,
+    frames: int = 8,
+) -> torch.Tensor:
+    """Per-frame softmax attention: for each query and each frame f, a
+    softmax over the keys [f*s, (f+1)*s) (s = N / frames) of
+    q k^T * sm_scale + key_bias, times those keys' values.
+
+    q, k, v: [B, H, N, d] in bfloat16 or float32, last dim contiguous (the
+    ``split_heads`` views of a fused projection go in without a copy).
+    key_bias: float32 [B, N] or None. Returns token-major [B, N, F, H, d]
+    in q's dtype, so the [B, N, F, H*d] view is free.
+    """
+    global FRAME_LAUNCHES
+    if not q.is_cuda:
+        return _frame_reference(q, k, v, key_bias, sm_scale, frames)
+    check_frame_kernel_args(q, k, v, key_bias, frames)
+    from vtm_torch.ops.build import load_library
+
+    lib = load_library()
+    b, h, n, d = q.shape
+    out = torch.empty((b, n, frames, h, d), dtype=q.dtype, device=q.device)
+    ob, orow, oframe, ohead = out.stride()[:4]
+    strides = (ctypes.c_longlong * 13)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], ob, ohead, orow, oframe
+    )
+    with torch.cuda.device(q.device):
+        err = lib.vtm_frame_attention_fwd(
+            _DTYPE_CODES[q.dtype], d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if key_bias is None else key_bias.data_ptr(),
+            out.data_ptr(),
+            b, h, n, frames, float(sm_scale),
+            ctypes.addressof(strides),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"frame attention kernel launch failed with cudaError_t {err}")
+    FRAME_LAUNCHES += 1
     return out

@@ -5,8 +5,10 @@
 Random input batches of ``TEST.BATCH_SIZE`` clips, warm-up, then
 ``MODEL_BENCHMARK.ITERATIONS`` timed forwards (CUDA events). Prints one
 ``json_stats:`` line with the JAX tool's keys (avg_frame_time_ms, fps,
-clips_per_sec, batch_size, iterations) plus ``attention_kernel_launches``
-(attention-kernel launches per forward) and ``device``.
+clips_per_sec, batch_size, iterations) plus the kernel launches per
+forward, ``attention_kernel_launches`` (K1, dense attention) and
+``frame_attention_kernel_launches`` (K3, per-frame attention), and
+``device``. VideoMAE and Motionformer are ported.
 
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``device="cpu"``, plain versions of the kernels) is for tests only.
@@ -20,11 +22,20 @@ import os
 import numpy as np
 import torch
 
-from vtm_torch.checkpoints.convert import load_torch_state_dict, load_videomae_state_dict
+from vtm_torch.checkpoints.convert import (
+    load_motionformer_state_dict,
+    load_torch_state_dict,
+    load_videomae_state_dict,
+)
 from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
 from vtm_torch.models import ModelBundle, build_model
 from vtm_torch.ops import flash_attention
 from vtm_torch.utils.benchmark import device_seconds
+
+CHECKPOINT_LOADERS = {
+    "VideoMAE": load_videomae_state_dict,
+    "Motionformer": load_motionformer_state_dict,
+}
 
 
 def load_test_checkpoint(cfg, bundle: ModelBundle) -> ModelBundle:
@@ -35,11 +46,15 @@ def load_test_checkpoint(cfg, bundle: ModelBundle) -> ModelBundle:
         return bundle
     if not os.path.isfile(path):
         raise FileNotFoundError(f"TEST.CHECKPOINT_FILE_PATH {path!r} does not exist")
-    if bundle.name != "VideoMAE":
+    if bundle.name not in CHECKPOINT_LOADERS:
         raise NotImplementedError(f"no checkpoint converter for {bundle.name}")
-    sd = load_videomae_state_dict(load_torch_state_dict(path))
+    sd = CHECKPOINT_LOADERS[bundle.name](load_torch_state_dict(path))
     bundle.module.load_state_dict(sd)
     return bundle
+
+
+def _per_forward(x: float):
+    return int(x) if x.is_integer() else x
 
 
 def perform_benchmark(module: torch.nn.Module, cfg, device: torch.device) -> dict:
@@ -51,10 +66,12 @@ def perform_benchmark(module: torch.nn.Module, cfg, device: torch.device) -> dic
     iters = max(1, cfg.MODEL_BENCHMARK.ITERATIONS)
     warmup = max(1, cfg.MODEL_BENCHMARK.WARMUP_ITERATIONS)
 
-    launches_before = flash_attention.LAUNCHES
+    before = flash_attention.LAUNCHES, flash_attention.FRAME_LAUNCHES
     with torch.inference_mode():
         elapsed = device_seconds(lambda: module(video), iters, warmup, device)
-    launches = (flash_attention.LAUNCHES - launches_before) / (warmup + iters)
+    forwards = warmup + iters
+    launches = (flash_attention.LAUNCHES - before[0]) / forwards
+    frame_launches = (flash_attention.FRAME_LAUNCHES - before[1]) / forwards
 
     frame_time_ms = elapsed / (batch * t * iters) * 1000.0
     return {
@@ -64,7 +81,8 @@ def perform_benchmark(module: torch.nn.Module, cfg, device: torch.device) -> dic
         "clips_per_sec": batch * iters / elapsed,
         "batch_size": batch,
         "iterations": iters,
-        "attention_kernel_launches": int(launches) if launches.is_integer() else launches,
+        "attention_kernel_launches": _per_forward(launches),
+        "frame_attention_kernel_launches": _per_forward(frame_launches),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
 
