@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths with random weights from a seed, in
-bf16 at batch 8, merged and unmerged, through the entry point a user
-calls (``vtm_torch.tools.model_benchmark.model_benchmark``):
+Drives the port's paths with random weights from a seed, in bf16 at
+batch 8, merged and unmerged, through the entry points a user calls.
+Serving (``vtm_torch.tools.model_benchmark.model_benchmark``):
   * VideoMAE ViT-B/16 at 16x224, merged with constant r=150 and no
     proportional attention (``MAIN_PATH_OPTS``: the values of
     configs/videomae/kinetics/tome_VideoMAE_B_16_224_K400.yaml);
@@ -13,6 +13,11 @@ calls (``vtm_torch.tools.model_benchmark.model_benchmark``):
     pseudo-frame with r=18 and proportional attention
     (``MOTIONFORMER_OPTS``: the values of
     configs/motionformer/kinetics/tome_motionformer_224_16x4.yaml).
+Training (``vtm_torch.tools.train_net``):
+  * VideoMAE ViT-B/16 fine-tuning through the merge (``TRAIN_OPTS``: the
+    values of configs/videomae/epickitchens/
+    tome_train_VideoMAE_B_16_224_EPICKITCHENS.yaml) on the synthetic
+    dataset: fp32 parameters, bf16 compute, AdamW.
 The configs are ``get_cfg()`` plus those --opts lists (no yaml parser
 needed).
 
@@ -20,16 +25,29 @@ Phases, each printing one JSON line:
   1. device    -- fails without CUDA; prints nvidia-smi's name and power limit
   2. build     -- compiles the kernels from vtm_torch/ops/csrc with nvcc
   3. kernel    -- the dense attention kernel (K1) against its plain version
+     bwd_kernel -- its backward (K2) against its plain version
      frame_kernel -- the per-frame attention kernel (K3) against its plain
                   version
+     Each is also timed against its plain version and against the one
+     PyTorch call that computes the same function
+     (scaled_dot_product_attention, its autograd backward for K2), beside
+     the least time the card could take (``bound_ms``).
   4. blocks    -- teacher-forced VideoMAE ViT-B blocks, fp32: kernel path vs
                   plain path
      mf_blocks -- the same for Motionformer ViT-B blocks
+     train_blocks -- loss and every parameter's gradient of the fp32 VideoMAE
+                  ViT-B through K1 and K2 against the plain path
   5. serve     -- VideoMAE model_benchmark merged and unmerged; launch counts,
                   token counts, finite logits, clips/s
      mf_serve  -- the same for Motionformer; probabilities sum to 1
-Each serve phase sets the kernels' launch counts to 0 just before it and
-reads them just after. Then a ``{"kernels": [...]}`` line and, last,
+     train     -- VideoMAE train steps merged and unmerged (AdamW 1e-4, wd
+                  0.05, cross-entropy, one fixed synthetic batch): the loss
+                  falls, K2 launches per step, a checkpoint reloads to the
+                  same next loss, train clips/s; then ``train(cfg)`` itself
+                  on the EPIC-KITCHENS config (twin heads, layer decay,
+                  stochastic depth) for two short epochs
+Each serve or train phase sets the kernels' launch counts to 0 just before
+it and reads them just after. Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and the script exits
 nonzero without the last line.
 """
@@ -38,26 +56,37 @@ from __future__ import annotations
 
 import functools
 import json
+import pathlib
+import shutil
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from vtm_torch.checkpoints import checkpoint as checkpoints
 from vtm_torch.config import get_cfg
+from vtm_torch.data import construct_loader
 from vtm_torch.merge import MergeState, bipartite_soft_matching
+from vtm_torch.merge import bipartite as merge_bipartite
 from vtm_torch.models import build_model
 from vtm_torch.models.common import split_heads
 from vtm_torch.ops import build as kernel_build
 from vtm_torch.ops import flash_attention
 from vtm_torch.ops.flash_attention import (
+    _backward_reference,
     _frame_reference,
     _reference,
     tome_flash_attention,
+    tome_flash_attention_backward,
     tome_frame_attention,
 )
 from vtm_torch.tools.model_benchmark import model_benchmark
+from vtm_torch.tools.train_net import build_trainer, train
+from vtm_torch.train.optimizer import set_lr
+from vtm_torch.utils.benchmark import device_seconds
 
 # configs/videomae/kinetics/tome_VideoMAE_B_16_224_K400.yaml, key by key,
 # with the checkpoint placeholder replaced by "" (random weights).
@@ -189,15 +218,133 @@ MOTIONFORMER_OPTS = [
     "OUTPUT_DIR", ".",
 ]
 
+# configs/videomae/epickitchens/tome_train_VideoMAE_B_16_224_EPICKITCHENS.yaml,
+# key by key, with the test-checkpoint placeholder replaced by "".
+TRAIN_OPTS = [
+    "TRAIN.AUTO_RESUME", "True",
+    "TRAIN.BATCH_SIZE", "128",
+    "TRAIN.CHECKPOINT_FILE_PATH", "<TRAIN-CHECKPOINT>",
+    "TRAIN.CHECKPOINT_PERIOD", "5",
+    "TRAIN.DATASET", "epickitchens",
+    "TRAIN.ENABLE", "True",
+    "TRAIN.EVAL_PERIOD", "5",
+    "DATA.INPUT_CHANNEL_NUM", "[3]",
+    "DATA.MEAN", "[0.485, 0.456, 0.406]",
+    "DATA.NUM_FRAMES", "16",
+    "DATA.PATH_PREFIX", "None",
+    "DATA.PATH_TO_DATA_DIR", "None",
+    "DATA.RANDOM_FLIP", "False",
+    "DATA.SAMPLING_RATE", "2",
+    "DATA.STD", "[0.229, 0.224, 0.225]",
+    "DATA.TEST_CROP_SIZE", "224",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TRAIN_JITTER_SCALES", "[256, 320]",
+    "AUG.AA_TYPE", "rand-m7-n4-mstd0.5-inc1",
+    "AUG.ENABLE", "True",
+    "EPICKITCHENS.ANNOTATIONS_DIR", "<EPIC-KITCHENS-100-ANNOTATIONS>",
+    "EPICKITCHENS.NUM_CLASSES", "[97, 300]",
+    "EPICKITCHENS.PARTICIPANT_FIRST", "False",
+    "EPICKITCHENS.TEST_LIST", "EPIC_100_validation.pkl",
+    "EPICKITCHENS.TEST_SPLIT", "validation",
+    "EPICKITCHENS.TRAIN_LIST", "EPIC_100_train.pkl",
+    "EPICKITCHENS.TRAIN_PLUS_VAL", "False",
+    "EPICKITCHENS.VAL_LIST", "EPIC_100_validation.pkl",
+    "EPICKITCHENS.VISUAL_DATA_DIR", "<EPIC-KITCHENS-100-VIDEO>",
+    "SOLVER.BASE_LR", "0.001",
+    "SOLVER.COSINE_AFTER_WARMUP", "True",
+    "SOLVER.COSINE_END_LR", "'2e-06'",  # PyYAML reads the yaml's 2e-06 as a string
+    "SOLVER.LAYER_DECAY", "0.75",
+    "SOLVER.LRS", "[]",
+    "SOLVER.LR_POLICY", "cosine",
+    "SOLVER.MAX_EPOCH", "50",
+    "SOLVER.MOMENTUM", "0.9",
+    "SOLVER.OPTIMIZING_METHOD", "adamw",
+    "SOLVER.STEPS", "[]",
+    "SOLVER.WARMUP_EPOCHS", "5.0",
+    "SOLVER.WARMUP_START_LR", "0.0",
+    "SOLVER.WEIGHT_DECAY", "0.05",
+    "MODEL.ARCH", "videomae",
+    "MODEL.LOSS_FUNC", "cross_entropy",
+    "MODEL.MODEL_NAME", "VideoMAE",
+    "MODEL.NUM_CLASSES", "400",
+    "VIDEOMAE.ATTN_DROP_RATE", "0.0",
+    "VIDEOMAE.DROP_PATH_RATE", "0.1",
+    "VIDEOMAE.DROP_RATE", "0.0",
+    "VIDEOMAE.FC_DROP_RATE", "0.0",
+    "VIDEOMAE.INIT_SCALE", "0.001",
+    "VIDEOMAE.MODEL", "vit_base_patch16_224",
+    "VIDEOMAE.TUBELET_SIZE", "2",
+    "VIDEOMAE.USE_MEAN_POOLING", "True",
+    "TOME.ENABLE", "True",
+    "TOME.MODE", "merge",
+    "TOME.PROP_ATTN", "False",
+    "TOME.R_VALUE", "150",
+    "TEST.BATCH_SIZE", "128",
+    "TEST.CHECKPOINT_FILE_PATH", "",
+    "TEST.DATASET", "epickitchens",
+    "TEST.ENABLE", "True",
+    "TEST.NUM_ENSEMBLE_VIEWS", "1",
+    "TEST.NUM_SPATIAL_CROPS", "1",
+    "DATA_LOADER.NUM_WORKERS", "12",
+    "DATA_LOADER.PIN_MEMORY", "True",
+    "TPU.COMPUTE_DTYPE", "bfloat16",
+    "NUM_GPUS", "1",
+    "NUM_SHARDS", "1",
+    "RNG_SEED", "0",
+    "OUTPUT_DIR", "<OUTPUT-DIR>",
+]
+
+# What every training run here changes in that config: no files (random
+# weights, the synthetic dataset's 16 clips), batch 8, output under build/.
+TRAIN_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+TRAIN_RUN_OPTS = [
+    "SOLVER.COSINE_END_LR", "2e-06",  # as a number: the cosine schedule compares it
+    "TRAIN.CHECKPOINT_FILE_PATH", "",
+    "TRAIN.DATASET", "synthetic",
+    "TRAIN.BATCH_SIZE", "8",
+    "DATA_LOADER.NUM_WORKERS", "4",
+]
+# The step that is timed: one head of 400 classes, AdamW at a constant 1e-4
+# with weight decay 0.05, no layer decay, no stochastic depth.
+TRAIN_STEP_OPTS = TRAIN_RUN_OPTS + [
+    "EPICKITCHENS.NUM_CLASSES", "None",
+    "SOLVER.BASE_LR", "0.0001",
+    "SOLVER.LR_POLICY", "steps_with_relative_lrs",
+    "SOLVER.LRS", "[1]",
+    "SOLVER.STEPS", "[0]",
+    "SOLVER.WARMUP_EPOCHS", "0.0",
+    "SOLVER.LAYER_DECAY", "1.0",
+    "VIDEOMAE.DROP_PATH_RATE", "0.0",
+]
+# The entry point's own run: the config as shipped (twin heads, layer decay
+# 0.75, stochastic depth 0.1, cosine schedule) cut to two epochs of two
+# steps, one of them warm-up.
+TRAIN_ENTRY_OPTS = TRAIN_RUN_OPTS + [
+    "SOLVER.MAX_EPOCH", "2",
+    "SOLVER.WARMUP_EPOCHS", "1.0",
+    "TRAIN.CHECKPOINT_PERIOD", "2",
+    "TRAIN.EVAL_PERIOD", "2",
+]
+# the first steps still grow the allocator's pools (every merged layer has
+# its own shapes), so the warm-up is longer than the serve phases'
+TRAIN_WARMUP, TRAIN_ITERS = 4, 8
+
 # Tokens entering each of the 12 layers at r=150, and the final count.
 MERGED_COUNTS = (1568, 1418, 1268, 1118, 968, 818, 668, 518, 368, 218, 109, 55, 28)
 MERGED_K1_PER_FORWARD = 9  # K1 runs for N >= 256: layers 0-8
 KERNEL_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 256, 3137)] + [(2, 2, 37, 16)]
 TIMED = ((1568, False), (368, False))  # (N, biased)
+# K2 at the training path's shapes, and a small odd one
+BWD_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 257)] + [(2, 3, 296, 16)]
 FP32_TOL = 1e-4
 BF16_FLOOR = 1e-2
 BLOCK_TOL = 1e-4
+GRAD_TOL = 1e-4  # of the largest entry of each gradient tensor
 SERVE_WARMUP, SERVE_ITERS = 2, 10
+# Published peaks of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor
+# cores, and device memory.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 # Unmerged / merged GFLOP per clip, 365.6 / 151.7, from XLA's cost
 # analysis of the same two programs (BENCH_DETAIL.json): the ratio's
 # device-independent ceiling.
@@ -232,6 +379,12 @@ def main_cfg(*opts):
 def mf_cfg(*opts):
     cfg = get_cfg()
     cfg.merge_from_list(MOTIONFORMER_OPTS + list(opts))
+    return cfg
+
+
+def train_cfg(*opts):
+    cfg = get_cfg()
+    cfg.merge_from_list(TRAIN_OPTS + list(opts))
     return cfg
 
 
@@ -329,31 +482,158 @@ def check_against_plain(kernel, plain, shapes):
     return rows, worst_vs_plain
 
 
-def time_against_plain(kernel, plain, cases) -> dict:
-    """ms per call at B8 H12 d64 bf16 for each (N, biased) case, taken in
-    turns: plain, kernel, kernel, plain."""
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor-core peak and the bytes (each input read once,
+    each output written once) over the device-memory rate."""
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def in_turns(kernel, plain, library) -> dict:
+    """ms per call, taken in turns: plain, kernel, library, kernel, plain."""
+    p1, k1, lib, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(library), cuda_ms(kernel), cuda_ms(plain)
+    return dict(kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib)
+
+
+def timed_inputs(gen, n: int, biased: bool):
+    """B8 H12 d64 bf16 q, k, v as split_heads views of a fused projection,
+    and the key bias."""
+    q, k, v = heads(torch.randn((8, n, 3 * 768), generator=gen, device="cuda").to(torch.bfloat16), 12)
+    bias = torch.log(torch.rand((8, n), generator=gen, device="cuda") * 4 + 1) if biased else None
+    return q, k, v, bias
+
+
+def sdpa_bias(bias):
+    return None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
+
+
+def dense_sdpa(q, k, v, bias):
+    """The one PyTorch call that computes K1: the yardstick, never on a
+    model's path."""
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    mask = sdpa_bias(bias)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.125)
+
+
+def frame_sdpa(q, k, v, bias):
+    """K3 as one scaled_dot_product_attention call: the frames become a
+    batch dim, q repeated for each of them ([B*F, H, N, d] against
+    [B*F, H, s, d]); the output comes frame-major, not token-major."""
+    b, h, n, d = q.shape
+    s_ = n // MF_FRAMES
+    qf = q[:, None].expand(b, MF_FRAMES, h, n, d).reshape(b * MF_FRAMES, h, n, d)
+    kf, vf = (t.reshape(b, h, MF_FRAMES, s_, d).transpose(1, 2).reshape(b * MF_FRAMES, h, s_, d)
+              for t in (k, v))
+    mask = None if bias is None else bias.reshape(b * MF_FRAMES, 1, 1, s_).to(torch.bfloat16)
+    return lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask, scale=0.125)
+
+
+def time_against_plain(kernel, plain, library, cases, out_factor: int) -> dict:
+    """ms per call at B8 H12 d64 bf16 for each (N, biased) case: the kernel,
+    its plain version and the library call, with the kernel's bound
+    (4 B H N^2 d operations; q, k, v read and an ``out_factor`` times
+    larger output written, plus the bias)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     times = {}
     for n, biased in cases:
-        q, k, v = heads(torch.randn((8, n, 3 * 768), generator=gen, device="cuda").to(torch.bfloat16), 12)
-        bias = torch.log(torch.rand((8, n), generator=gen, device="cuda") * 4 + 1) if biased else None
-        kern = lambda: kernel(q, k, v, bias, 0.125)  # noqa: E731
-        base = lambda: plain(q, k, v, bias, 0.125)  # noqa: E731
-        p1, k1, k2, p2 = cuda_ms(base), cuda_ms(kern), cuda_ms(kern), cuda_ms(base)
+        q, k, v, bias = timed_inputs(gen, n, biased)
+        with torch.inference_mode():
+            t = in_turns(lambda: kernel(q, k, v, bias, 0.125), lambda: plain(q, k, v, bias, 0.125),
+                         library(q, k, v, bias))
         flops = 4 * 8 * 12 * n * n * 64
-        times[str(n)] = dict(biased=biased, kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                             kernel_tflops=flops / ((k1 + k2) / 2) / 1e9)
+        nbytes = (3 + out_factor) * 8 * 12 * n * 64 * 2 + (8 * n * 4 if biased else 0)
+        times[str(n)] = dict(biased=biased, **t, kernel_tflops=flops / t["kernel_ms"] / 1e9,
+                             **bound(flops, nbytes))
     return times
 
 
-def phase_kernel(phase: str, kernel, plain, shapes, timed) -> dict:
+def phase_kernel(phase: str, smi: str, kernel, plain, library, shapes, timed, out_factor: int) -> dict:
     """A kernel against its plain version at its path's shapes; returns
     the largest difference and the times of the first timed case."""
     rows, worst_vs_plain = check_against_plain(kernel, plain, shapes)
-    times = time_against_plain(kernel, plain, timed)
-    emit(phase, checks=rows, max_abs_err_vs_plain=worst_vs_plain, timing_bf16_B8_H12_d64=times)
+    times = time_against_plain(kernel, plain, library, timed, out_factor)
+    emit(phase, checks=rows, max_abs_err_vs_plain=worst_vs_plain, timing_bf16_B8_H12_d64=times,
+         nvidia_smi=smi)
     first = times[str(timed[0][0])]
-    return dict(max_abs_err=worst_vs_plain, ms=first["kernel_ms"], plain_ms=first["plain_ms"])
+    return dict(max_abs_err=worst_vs_plain, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
+
+
+def grad_errors(got, want):
+    """Per gradient (dq, dk, dv, dbias): the largest difference, absolute
+    and relative to the largest entry of ``want``."""
+    out = {}
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is not None:
+            err = (a.float() - w.float()).abs().max().item()
+            out[name] = (err, err / w.float().abs().max().item())
+    return out
+
+
+def phase_bwd_kernel(smi: str) -> dict:
+    """K2 against its plain version: biased and unbiased, fp32 and bf16, on
+    split_heads views offset by one row with a token-major (strided) do.
+    fp32 gradients must agree within FP32_TOL of their largest entry; bf16
+    gradients must stay within bf16_tol of an fp32 computation, relative
+    to the largest entry. The kernel must give the same bits twice."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows, worst_abs = [], 0.0
+    for b, h, n, d in BWD_SHAPES:
+        scale = d ** -0.5
+        for biased in (False, True):
+            bias = torch.log(torch.rand((b, n), generator=gen, device="cuda") * 4 + 1) if biased else None
+            fused = torch.randn((b, n + 1, 3 * h * d), generator=gen, device="cuda")
+            do_tok = torch.randn((b, n, h, d), generator=gen, device="cuda")
+            q32, k32, v32 = heads(fused[:, 1:], h)
+            do32 = do_tok.transpose(1, 2)
+            check(not do32.is_contiguous() and not q32.is_contiguous(), "inputs are strided views")
+            got32 = tome_flash_attention_backward(q32, k32, v32, bias, do32, scale)
+            err32 = grad_errors(got32, _backward_reference(q32, k32, v32, bias, do32, scale))
+            check(len(err32) == (4 if biased else 3), "dbias comes with a bias and only then")
+            for name, (_, rel) in err32.items():
+                check(rel <= FP32_TOL, f"fp32 {name} err {rel} > {FP32_TOL} at {(b, h, n, d)} bias={biased}")
+            q, k, v = heads(fused.to(torch.bfloat16)[:, 1:], h)
+            do = do_tok.to(torch.bfloat16).transpose(1, 2)
+            got = tome_flash_attention_backward(q, k, v, bias, do, scale)
+            again = tome_flash_attention_backward(q, k, v, bias, do, scale)
+            check(all(torch.equal(x, y) for x, y in zip(got[:3], again[:3])), "K2 differs from run to run")
+            ref = _backward_reference(q.float(), k.float(), v.float(), bias, do.float(), scale)
+            base = _backward_reference(q, k, v, bias, do, scale)
+            err_k, err_p = grad_errors(got, ref), grad_errors(base, ref)
+            for name in err_k:
+                tol = bf16_tol(err_p[name][1])
+                check(err_k[name][1] <= tol,
+                      f"bf16 {name} err {err_k[name][1]} > {tol} at {(b, h, n, d)} bias={biased}")
+            vs_plain = grad_errors(got, base)
+            worst_abs = max([worst_abs] + [e for e, _ in vs_plain.values()] + [e for e, _ in err32.values()])
+            rows.append(dict(shape=[b, h, n, d], biased=biased,
+                             fp32_rel_err={k_: r for k_, (_, r) in err32.items()},
+                             bf16_rel_err={k_: r for k_, (_, r) in err_k.items()},
+                             bf16_plain_rel_err={k_: r for k_, (_, r) in err_p.items()}))
+    torch.cuda.synchronize()
+
+    # times at B8 H12 d64 bf16, unbiased as on the training path: 10 B H N^2 d
+    # operations; q, k, v, do read and dq, dk, dv written
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    times = {}
+    for n in (1568, 368):
+        q, k, v, _ = timed_inputs(gen, n, False)
+        do = torch.randn((8, n, 12, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+        leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=0.125)
+        do_c = do.contiguous()
+        t = in_turns(lambda: tome_flash_attention_backward(q, k, v, None, do, 0.125),
+                     lambda: _backward_reference(q, k, v, None, do, 0.125),
+                     lambda: torch.autograd.grad(out, leaves, do_c, retain_graph=True))
+        flops = 10 * 8 * 12 * n * n * 64
+        times[str(n)] = dict(biased=False, **t, kernel_tflops=flops / t["kernel_ms"] / 1e9,
+                             **bound(flops, 7 * 8 * 12 * n * 64 * 2))
+    emit("bwd_kernel", checks=rows, max_abs_err_vs_plain=worst_abs, timing_bf16_B8_H12_d64=times,
+         nvidia_smi=smi)
+    first = times["1568"]
+    return dict(max_abs_err=worst_abs, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
 
 
 def phase_blocks(phase: str, cfg, seed: int, block_kwargs: dict, launch_count, final_tokens: int,
@@ -397,6 +677,71 @@ def phase_blocks(phase: str, cfg, seed: int, block_kwargs: dict, launch_count, f
     launches = launch_count() - launches0
     check(launches == launches_expected, f"{phase}: {launches} kernel launches")
     emit(phase, layers=rows, kernel_launches=launches)
+
+
+def phase_train_blocks() -> None:
+    """Loss and every parameter's gradient of the full-width fp32 VideoMAE
+    (TF32 off, B2, r=150, drop rates 0) through K1 and K2 against the
+    plain path, gradients within GRAD_TOL of each tensor's largest entry.
+
+    Both runs merge by the plain run's Matching objects: a layer's metric
+    is computed before its attention, so on the same input both paths
+    match identically (the ``blocks`` phase and layer 0 here hold that),
+    but the 1e-6 that K1 differs by reaches later layers' metrics and can
+    swap two near-tied tokens, after which gradients are of two different
+    programs. How many layers matched identically on their own is
+    reported."""
+    cfg = main_cfg("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2")
+    model = build_model(cfg, "cuda", fp32_params=True).module.train()
+    rng = np.random.default_rng(7)
+    video = torch.from_numpy(rng.random((2, 16, 224, 224, 3), dtype=np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 400, 2)).cuda()
+    match = merge_bipartite.bipartite_soft_matching
+    plain_matchings, own_matchings = [], []
+
+    def record(metric, r, *args):
+        plain_matchings.append(match(metric, r, *args))
+        return plain_matchings[-1]
+
+    def forced(metric, r, *args):
+        own_matchings.append(match(metric, r, *args))
+        return plain_matchings[len(own_matchings) - 1]
+
+    before = flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES
+    runs = {}
+    try:
+        for path, matcher in (("plain", record), ("kernel", forced)):
+            merge_bipartite.bipartite_soft_matching = matcher
+            for blk in model.blocks:
+                blk.attn.use_kernel = path == "kernel"
+            model.zero_grad(set_to_none=True)
+            logits, state = model(video)
+            loss = F.cross_entropy(logits, labels)
+            loss.backward()
+            runs[path] = (loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()},
+                          state.size)
+    finally:
+        merge_bipartite.bipartite_soft_matching = match
+    launches = flash_attention.LAUNCHES - before[0], flash_attention.BWD_LAUNCHES - before[1]
+    check(launches == (MERGED_K1_PER_FORWARD, MERGED_K1_PER_FORWARD),
+          f"train_blocks: (K1, K2) launches {launches}")
+    check(len(plain_matchings) == len(own_matchings) == 12, "train_blocks: one matching per layer")
+    same = [all(torch.equal(getattr(a_, name), getattr(b_, name))
+                for name in ("unm_idx", "src_idx", "dst_idx"))
+            for a_, b_ in zip(own_matchings, plain_matchings)]
+    check(same[0], "train_blocks: layer 0 matches differently on the same input")
+    (lk, gk, sk), (lp, gp, sp) = runs["kernel"], runs["plain"]
+    check(torch.equal(sk, sp) and sk.shape[1] == MERGED_COUNTS[-1], "train_blocks: sizes differ")
+    check(abs(lk - lp) <= BLOCK_TOL, f"train_blocks: loss {lk} vs {lp}")
+    worst, worst_name = 0.0, ""
+    for name, g in gp.items():
+        rel = ((gk[name] - g).abs().max() / g.abs().max()).item()
+        check(rel <= GRAD_TOL, f"train_blocks: gradient of {name} off by {rel} of its largest entry")
+        if rel > worst:
+            worst, worst_name = rel, name
+    emit("train_blocks", loss_kernel=lk, loss_plain=lp, parameters=len(gp), worst_grad_rel_err=worst,
+         worst_grad=worst_name, k1_launches=launches[0], k2_launches=launches[1],
+         layers_matching_identically_unforced=sum(same))
 
 
 def flops_per_clip(counts, c: int = 768, mlp: int = 3072) -> float:
@@ -520,20 +865,134 @@ def phase_mf_serve(smi: str) -> int:
     return total
 
 
+def fixed_batch(cfg):
+    """The first training batch of the synthetic dataset, on the card."""
+    batch = next(iter(construct_loader(cfg, "train")))
+    return torch.from_numpy(batch["frames"]).cuda(), torch.from_numpy(np.asarray(batch["label"])).cuda()
+
+
+def phase_train(smi: str) -> int:
+    """Train steps on one fixed batch, merged and unmerged, then the train
+    entry point on the shipped config. Returns the K2 launches of the
+    whole phase."""
+    shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    runs = {}
+    # this path's counts start here
+    flash_attention.LAUNCHES = flash_attention.BWD_LAUNCHES = flash_attention.FRAME_LAUNCHES = 0
+    for label, opts, per_step in (
+        ("merged", (), MERGED_K1_PER_FORWARD),
+        ("unmerged", ("TOME.ENABLE", "False"), 12),
+    ):
+        out = str(TRAIN_OUT / label)
+        cfg = train_cfg(*TRAIN_STEP_OPTS, "OUTPUT_DIR", out, *opts)
+        trainer = build_trainer(cfg)
+        frames, labels = fixed_batch(cfg)
+        check(tuple(frames.shape) == (8, 16, 224, 224, 3), f"batch shape {tuple(frames.shape)}")
+        start = {n: p.detach().clone() for n, p in trainer.module.named_parameters()}
+        check(all(p.dtype == torch.float32 for p in start.values()), "training parameters are fp32")
+        loss_before = F.cross_entropy(trainer.eval_step(frames), labels).item()
+        set_lr(trainer.optimizer, trainer.lr_at(0.0))
+        losses = []
+        before = flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES
+
+        def step():
+            losses.append(trainer.train_step(frames, labels)[0])
+
+        seconds = device_seconds(step, TRAIN_ITERS, TRAIN_WARMUP, torch.device("cuda"))
+        steps = TRAIN_WARMUP + TRAIN_ITERS
+        k1 = flash_attention.LAUNCHES - before[0]
+        k2 = flash_attention.BWD_LAUNCHES - before[1]
+        check(k2 == per_step * steps, f"train {label}: {k2} K2 launches in {steps} steps")
+        check(k1 == per_step * steps, f"train {label}: {k1} K1 launches in {steps} steps")
+        loss_after = F.cross_entropy(trainer.eval_step(frames), labels).item()
+        step_losses = [l.item() for l in losses]
+        check(all(np.isfinite(step_losses)) and np.isfinite(loss_after), f"train {label}: loss not finite")
+        check(loss_after < loss_before, f"train {label}: loss {loss_before} -> {loss_after}")
+        moved = 0
+        for n, p in trainer.module.named_parameters():
+            check(bool(torch.isfinite(p).all()), f"train {label}: {n} is not finite")
+            moved += int(not torch.equal(p, start[n]))
+        check(moved == len(start), f"train {label}: only {moved} of {len(start)} parameters changed")
+        run = dict(train_clips_per_sec=8 * TRAIN_ITERS / seconds, step_ms=seconds / TRAIN_ITERS * 1e3,
+                   loss_before=loss_before, loss_after=loss_after, step_losses=step_losses,
+                   k1_launches_per_step=k1 // steps, k2_launches_per_step=k2 // steps)
+        if label == "merged":
+            # a checkpoint saved and reloaded gives the same next losses: the
+            # first shows the parameters came back, the second the moments
+            path = checkpoints.save_checkpoint(out, trainer.module, trainer.optimizer, 0, cfg)
+            twin = build_trainer(cfg)
+            epoch, restored = checkpoints.load_checkpoint(
+                checkpoints.get_last_checkpoint(out), twin.module, twin.optimizer)
+            check((epoch, restored) == (0, True), f"checkpoint {path}: epoch {epoch}, optimizer {restored}")
+            nxt = [[t.train_step(frames, labels)[0].item() for _ in range(2)] for t in (trainer, twin)]
+            check(nxt[0][0] == nxt[1][0], f"next loss after reload {nxt[1][0]} != {nxt[0][0]}")
+            check(abs(nxt[0][1] - nxt[1][1]) <= 1e-3 * abs(nxt[0][1]),
+                  f"second loss after reload {nxt[1][1]} != {nxt[0][1]}")
+            run["next_losses"], run["next_losses_reloaded"] = nxt
+            del twin
+            shutil.rmtree(out)  # a ViT-B checkpoint with its moments is 1 GB
+        runs[label] = run
+        del trainer
+        torch.cuda.empty_cache()
+
+    # the entry point itself, on the config as shipped: two epochs of two steps
+    out = str(TRAIN_OUT / "entry")
+    cfg = train_cfg(*TRAIN_ENTRY_OPTS, "OUTPUT_DIR", out)
+    before = flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES
+    t0 = time.perf_counter()
+    module = train(cfg)
+    torch.cuda.synchronize()
+    entry_seconds = time.perf_counter() - t0
+    k1 = flash_attention.LAUNCHES - before[0]
+    k2 = flash_attention.BWD_LAUNCHES - before[1]
+    # 4 train steps; the eval epoch's 2 forwards launch K1 only
+    check(k2 == 4 * MERGED_K1_PER_FORWARD, f"train entry point: {k2} K2 launches")
+    check(k1 == 6 * MERGED_K1_PER_FORWARD, f"train entry point: {k1} K1 launches")
+    check(module.config.multi_head and module.head0.out_features == 97 and module.head1.out_features == 300,
+          "train entry point: twin heads")
+    check(all(bool(torch.isfinite(p).all()) for p in module.parameters()), "train entry point: NaN")
+    last = checkpoints.get_last_checkpoint(out)
+    check(last is not None and last.endswith("epoch_00001.pyth"), f"train entry point: checkpoint {last}")
+    total = flash_attention.BWD_LAUNCHES  # read right after the path ran
+    check(total > 0 and flash_attention.FRAME_LAUNCHES == 0, "the training path's kernels")
+    shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    emit(
+        "train",
+        merged=runs["merged"],
+        unmerged=runs["unmerged"],
+        speedup=runs["merged"]["train_clips_per_sec"] / runs["unmerged"]["train_clips_per_sec"],
+        entry_point=dict(seconds=entry_seconds, k1_launches=k1, k2_launches=k2, epochs=2, steps=4),
+        batch=8, dtype="bfloat16 compute, float32 parameters", optimizer="adamw(1e-4, wd 0.05)",
+        nvidia_smi=smi,
+    )
+    return total
+
+
+def kernel_row(name: str, source: str, replaces: str, launches: int, r: dict) -> dict:
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
-    # full fp32 for every fp32 product and convolution (the block check)
+    # full fp32 for every fp32 product and convolution (the block checks)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    kernel = phase_kernel("kernel", tome_flash_attention, _reference, KERNEL_SHAPES, TIMED)
+    kernel = phase_kernel("kernel", smi, tome_flash_attention, _reference, dense_sdpa,
+                          KERNEL_SHAPES, TIMED, out_factor=1)
+    bwd_kernel = phase_bwd_kernel(smi)
     frame_kernel = phase_kernel(
         "frame_kernel",
+        smi,
         functools.partial(tome_frame_attention, frames=MF_FRAMES),
         functools.partial(_frame_reference, frames=MF_FRAMES),
+        frame_sdpa,
         FRAME_SHAPES,
         FRAME_TIMED,
+        out_factor=MF_FRAMES,
     )
     fp32_b2 = ("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2")
     phase_blocks("blocks", main_cfg(*fp32_b2), 1, {}, lambda: flash_attention.LAUNCHES,
@@ -541,30 +1000,19 @@ def main() -> int:
     phase_blocks("mf_blocks", mf_cfg(*fp32_b2), 4, {"num_frames": MF_FRAMES},
                  lambda: flash_attention.FRAME_LAUNCHES, MF_BODY_COUNTS[-1] + 1,
                  MF_K3_PER_FORWARD["merged"])
+    phase_train_blocks()
     launches = phase_serve(smi)
     frame_launches = phase_mf_serve(smi)
+    bwd_launches = phase_train(smi)
     emit("done", seconds=time.perf_counter() - t0)
+    csrc = "vtm_torch/ops/csrc/"
     print(json.dumps({"kernels": [
-        {
-            "name": "tome_flash_attention",
-            "route": "cuda",
-            "source": "vtm_torch/ops/csrc/flash_attention_fwd.cu",
-            "replaces": "vtm/ops/flash_attention.py:269",
-            "launches": launches,
-            "max_abs_err": kernel["max_abs_err"],
-            "ms": kernel["ms"],
-            "plain_ms": kernel["plain_ms"],
-        },
-        {
-            "name": "tome_frame_attention",
-            "route": "cuda",
-            "source": "vtm_torch/ops/csrc/frame_attention_fwd.cu",
-            "replaces": "vtm/ops/flash_attention.py:915",
-            "launches": frame_launches,
-            "max_abs_err": frame_kernel["max_abs_err"],
-            "ms": frame_kernel["ms"],
-            "plain_ms": frame_kernel["plain_ms"],
-        },
+        kernel_row("tome_flash_attention", csrc + "flash_attention_fwd.cu",
+                   "vtm/ops/flash_attention.py:269", launches, kernel),
+        kernel_row("tome_flash_attention_backward", csrc + "flash_attention_bwd.cu",
+                   "vtm/ops/flash_attention.py:505", bwd_launches, bwd_kernel),
+        kernel_row("tome_frame_attention", csrc + "frame_attention_fwd.cu",
+                   "vtm/ops/flash_attention.py:915", frame_launches, frame_kernel),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

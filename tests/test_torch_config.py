@@ -13,6 +13,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 YAMLS = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").rglob("*.yaml"))
 MAIN_YAML = "configs/videomae/kinetics/tome_VideoMAE_B_16_224_K400.yaml"
 MOTIONFORMER_YAML = "configs/motionformer/kinetics/tome_motionformer_224_16x4.yaml"
+TRAIN_YAML = "configs/videomae/epickitchens/tome_train_VideoMAE_B_16_224_EPICKITCHENS.yaml"
 
 
 def test_defaults_equal():
@@ -40,6 +41,45 @@ def test_chip_smoke_motionformer_opts_equal_yaml():
     args = types.SimpleNamespace(opts=["TEST.CHECKPOINT_FILE_PATH", ""])
     want = jcfg.load_config(args, str(REPO / MOTIONFORMER_YAML)).to_dict()
     assert chip_smoke.mf_cfg().to_dict() == want
+
+
+def test_chip_smoke_train_opts_equal_yaml():
+    import chip_smoke
+
+    args = types.SimpleNamespace(opts=["TEST.CHECKPOINT_FILE_PATH", ""])
+    want = jcfg.load_config(args, str(REPO / TRAIN_YAML)).to_dict()
+    assert chip_smoke.train_cfg().to_dict() == want
+
+
+def test_chip_smoke_train_runs_change_only_what_they_say():
+    """The timed step is the shipped config with one 400-class head, a
+    constant 1e-4 AdamW, no layer decay and no stochastic depth, on the
+    synthetic dataset at batch 8; the entry-point run keeps the shipped
+    heads, layer decay and stochastic depth."""
+    import chip_smoke
+
+    base = chip_smoke.train_cfg().to_dict()
+    step = chip_smoke.train_cfg(*chip_smoke.TRAIN_STEP_OPTS)
+    entry = chip_smoke.train_cfg(*chip_smoke.TRAIN_ENTRY_OPTS)
+
+    def changed(cfg):
+        out = set()
+        for sec, node in cfg.to_dict().items():
+            if isinstance(node, dict):
+                out |= {f"{sec}.{k}" for k, v in node.items() if base[sec][k] != v}
+        return out
+
+    common = {"SOLVER.COSINE_END_LR", "TRAIN.CHECKPOINT_FILE_PATH", "TRAIN.DATASET", "TRAIN.BATCH_SIZE", "DATA_LOADER.NUM_WORKERS"}
+    assert changed(step) == common | {
+        "EPICKITCHENS.NUM_CLASSES", "SOLVER.BASE_LR", "SOLVER.LR_POLICY", "SOLVER.LRS", "SOLVER.STEPS",
+        "SOLVER.WARMUP_EPOCHS", "SOLVER.LAYER_DECAY", "VIDEOMAE.DROP_PATH_RATE"}
+    assert changed(entry) == common | {
+        "SOLVER.MAX_EPOCH", "SOLVER.WARMUP_EPOCHS", "TRAIN.CHECKPOINT_PERIOD", "TRAIN.EVAL_PERIOD"}
+    from vtm_torch.train.lr_policy import get_lr_at_epoch
+
+    assert [get_lr_at_epoch(step, e) for e in (0.0, 0.5, 3.0)] == [1e-4] * 3
+    assert step.SOLVER.WEIGHT_DECAY == 0.05 and step.SOLVER.OPTIMIZING_METHOD == "adamw"
+    assert entry.EPICKITCHENS.NUM_CLASSES == [97, 300] and entry.SOLVER.LAYER_DECAY == 0.75
 
 
 def test_defaults_and_opts_need_no_yaml(monkeypatch):

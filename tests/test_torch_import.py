@@ -1,11 +1,13 @@
-"""The PyTorch package stands alone: it never imports jax, flax or vtm;
-chip_smoke.py refuses to run without CUDA; kernels build into an ignored
-directory, for Hopper."""
+"""The PyTorch package stands alone: it never imports jax, flax, optax,
+orbax, simplejson or vtm; chip_smoke.py and the entry points refuse to run
+without CUDA; kernels build into an ignored directory, for Hopper."""
 
 import os
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 from vtm_torch.ops import build
 
@@ -17,10 +19,29 @@ import vtm_torch
 names = [m.name for m in pkgutil.walk_packages(vtm_torch.__path__, "vtm_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vtm"))
+foreign = ("jax", "jaxlib", "flax", "optax", "orbax", "simplejson", "vtm")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in foreign)
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+
+# modules of the training path, each of which must be found and imported
+TRAINING_MODULES = (
+    "vtm_torch.checkpoints.checkpoint",
+    "vtm_torch.data.loader",
+    "vtm_torch.data.synthetic",
+    "vtm_torch.eval.meters",
+    "vtm_torch.eval.metrics",
+    "vtm_torch.tools.train_net",
+    "vtm_torch.tools.trace_train",
+    "vtm_torch.train.losses",
+    "vtm_torch.train.lr_policy",
+    "vtm_torch.train.mixup",
+    "vtm_torch.train.optimizer",
+    "vtm_torch.train.train_step",
+    "vtm_torch.utils.logging",
+    "vtm_torch.utils.timer",
+)
 
 
 def _env():
@@ -35,11 +56,16 @@ def test_every_module_imports_without_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    names = proc.stdout.split()
+    assert len(names) >= 30
+    assert not set(TRAINING_MODULES) - set(names)
 
 
 def test_chip_smoke_imports_without_jax():
-    code = "import sys, chip_smoke; assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'vtm')]"
+    code = (
+        "import sys, chip_smoke; assert not [m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'simplejson', 'vtm')]"
+    )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300
     )
@@ -54,6 +80,21 @@ def test_chip_smoke_without_cuda_fails():
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("module", ["vtm_torch.tools.train_net", "vtm_torch.tools.model_benchmark",
+                                    "vtm_torch.tools.trace_train"])
+def test_entry_points_refuse_to_run_without_cuda(module):
+    """No CUDA device and no request for the CPU: the entry points raise
+    instead of carrying on on the CPU."""
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run(
+        [sys.executable, "-m", module, "--opts", "MODEL.MODEL_NAME", "VideoMAE"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "CUDA device" in proc.stderr
 
 
 def test_chip_smoke_alone_fails(tmp_path):

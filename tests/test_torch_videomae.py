@@ -192,3 +192,49 @@ def test_compute_dtype_cast_keeps_norms_and_head_fp32():
     with torch.no_grad():
         logits, _ = model(torch.from_numpy(_video(TINY, 2, 4)))
     assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+
+
+def test_twin_heads_logits_match_vtm():
+    """The EPIC-KITCHENS verb/noun heads: same features, two fp32 heads."""
+    kw = dict(rs=(1, 1), mode="merge", prop_attn=False)
+    classes = (5, 9)
+    jmodel = JVideoMAE(config=JConfig(num_classes=classes, **TINY), policy=JPolicy(**kw))
+    video = _video(TINY, 2, 6)
+    params = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.key(2), jnp.asarray(video))["params"])
+    tmodel = VideoMAE(VideoMAEConfig(num_classes=classes, **TINY), policy=MergePolicy(**kw)).eval()
+    assert tmodel.config.multi_head and not hasattr(tmodel, "head")
+    tmodel.load_state_dict(state_dict_from_vtm_params(params))
+    with jax.default_matmul_precision("highest"):
+        want, _ = jmodel.apply({"params": params}, jnp.asarray(video))
+    with torch.no_grad():
+        got, _ = tmodel(torch.from_numpy(video))
+    assert len(got) == len(want) == 2
+    for g, w, n in zip(got, want, classes):
+        assert g.shape == (2, n) and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+def test_build_from_config_carries_heads_and_drop_rates():
+    from vtm_torch.config import get_cfg
+    from vtm_torch.models import build_model
+
+    cfg = get_cfg()
+    cfg.merge_from_list([
+        "MODEL.MODEL_NAME", "VideoMAE", "VIDEOMAE.MODEL", "vit_small_patch16_224", "DATA.NUM_FRAMES", "4",
+        "DATA.TRAIN_CROP_SIZE", "32", "EPICKITCHENS.NUM_CLASSES", "[97, 300]", "VIDEOMAE.DROP_PATH_RATE", "0.1",
+        "VIDEOMAE.DROP_RATE", "0.05", "VIDEOMAE.FC_DROP_RATE", "0.5", "TPU.COMPUTE_DTYPE", "bfloat16",
+    ])
+    serve = build_model(cfg, "cpu").module
+    assert not serve.training
+    assert (serve.head0.out_features, serve.head1.out_features) == (97, 300)
+    assert serve.head0.weight.dtype == torch.float32 and serve.head1.weight.dtype == torch.float32
+    assert serve.blocks[0].attn.qkv.weight.dtype == torch.bfloat16
+    c = serve.config
+    assert (c.drop_rate, c.drop_path_rate, c.fc_drop_rate) == (0.05, 0.1, 0.5)
+    assert serve.blocks[-1].drop_path_rate == pytest.approx(0.1) and serve.blocks[0].drop_path_rate == 0.0
+    assert serve.blocks[3].mlp.drop == 0.05
+    learn = build_model(cfg, "cpu", fp32_params=True).module
+    assert all(p.dtype == torch.float32 for p in learn.parameters())
+    cfg.VIDEOMAE.USE_MEAN_POOLING = False
+    with pytest.raises(NotImplementedError, match="CLS pooling"):
+        build_model(cfg, "cpu")

@@ -12,6 +12,9 @@ is. This module adds:
     the JAX package's param tree (numpy arrays) -> the port's state dict,
     the inverses of ``vtm.checkpoints.convert.convert_videomae`` /
     ``convert_motionformer``;
+  * ``named_arrays_from_vtm_tree``: any tree shaped like the JAX package's
+    VideoMAE params (parameters, gradients, updated parameters) -> numpy
+    arrays under the port's parameter names, for name-by-name comparison;
   * ``load_torch_state_dict``: a checkpoint file -> a flat state dict.
 """
 
@@ -156,8 +159,19 @@ def state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
         sd.update(_dense(blk["mlp"]["fc1"], f"{pre}.mlp.fc1"))
         sd.update(_dense(blk["mlp"]["fc2"], f"{pre}.mlp.fc2"))
     sd.update(_layernorm(params["fc_norm"], "fc_norm"))
-    sd.update(_dense(params["head"], "head"))
+    # single head, or the EPIC-KITCHENS twin verb/noun heads
+    for name in ("head", "head0", "head1"):
+        if name in params:
+            sd.update(_dense(params[name], name))
     return sd
+
+
+def named_arrays_from_vtm_tree(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A tree with the structure of the JAX package's VideoMAE params (the
+    params themselves, their gradients, or params after an update) as
+    numpy arrays under the port's parameter names, with the ``nn.Dense``
+    kernels and the tubelet kernel transposed to torch's layouts."""
+    return {k: v.numpy() for k, v in state_dict_from_vtm_params(tree).items()}
 
 
 def load_motionformer_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Tensor]:

@@ -2,7 +2,8 @@
 
 ``build_model(cfg, device)`` returns a ``ModelBundle`` whose module holds
 weights drawn from ``cfg.RNG_SEED``, cast to the compute dtype and moved
-to ``device``, in eval mode.
+to ``device``, in eval mode. ``fp32_params=True`` (training) keeps every
+parameter in fp32 and casts at use instead.
 """
 
 from __future__ import annotations
@@ -63,12 +64,16 @@ def make_policy(cfg, depth: int, n_protected_class_token: bool) -> MergePolicy:
     )
 
 
-def build_model(cfg, device: torch.device | str) -> ModelBundle:
+def build_model(cfg, device: torch.device | str, fp32_params: bool = False) -> ModelBundle:
     name = cfg.MODEL.MODEL_NAME
     if name not in MODEL_REGISTRY:
         raise KeyError(
             f"Unknown MODEL.MODEL_NAME {name!r}; registered: {sorted(MODEL_REGISTRY)}"
         )
-    bundle = MODEL_REGISTRY[name](cfg)
+    if fp32_params and name != "VideoMAE":
+        raise NotImplementedError(
+            f"training parameters (fp32, cast at use) are ported for VideoMAE only, not {name}"
+        )
+    bundle = MODEL_REGISTRY[name](cfg, fp32_params) if fp32_params else MODEL_REGISTRY[name](cfg)
     bundle.module.to(device).eval()
     return bundle

@@ -6,7 +6,12 @@ Conventions, as in the JAX package:
   * video tensors are channels-last [B, T, H, W, C];
   * attention takes [B, H, N, hd] and attention modules return
     ``(out, metric)``, where metric is the head-aggregated key tensor
-    used for token matching.
+    used for token matching;
+  * parameters may be kept in fp32 while the activations are bf16 (the
+    training layout): ``Linear`` and ``TubeletEmbed`` cast their weights
+    to the activation dtype at use, so gradients and optimizer state stay
+    fp32. When the weights already have that dtype (serving) the cast is
+    a no-op.
 """
 
 from __future__ import annotations
@@ -52,31 +57,75 @@ def proportional_attn_bias(size: Optional[torch.Tensor]) -> Optional[torch.Tenso
     return torch.log(size[:, :, 0])[:, None, None, :]
 
 
+def dropout(
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Elementwise dropout with an explicit generator: Bernoulli(1 - rate)
+    keep mask, kept values scaled by 1 / (1 - rate). Identity outside
+    training or at rate 0."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return x * mask.to(x.dtype) / keep
+
+
+def drop_path(
+    z: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Stochastic depth on a residual branch: a per-sample Bernoulli keep,
+    scaled by 1 / keep. Identity outside training or at rate 0."""
+    if not training or rate <= 0.0:
+        return z
+    keep = 1.0 - rate
+    shape = (z.shape[0],) + (1,) * (z.dim() - 1)
+    mask = torch.rand(shape, generator=generator, device=z.device) < keep
+    return z * mask.to(z.dtype) / keep
+
+
+class Linear(nn.Linear):
+    """nn.Linear that computes in its input's dtype: weight and bias are
+    cast at use (a no-op when they already have that dtype)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class TubeletEmbed(nn.Module):
     """Tubelet embedding [B, T, H, W, C] -> [B, T/t * H/p * W/p, dim]: a
-    Conv3d with kernel = stride = (t, p, p), tokens in (t, h, w) order."""
+    Conv3d with kernel = stride = (t, p, p), tokens in (t, h, w) order.
+    Computes in ``dtype``, or in the weight's dtype when that is None."""
 
-    def __init__(self, in_chans: int, features: int, tubelet: int, patch: int):
+    def __init__(self, in_chans: int, features: int, tubelet: int, patch: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.proj = nn.Conv3d(
             in_chans, features, kernel_size=(tubelet, patch, patch), stride=(tubelet, patch, patch)
         )
 
     def forward(self, v: torch.Tensor) -> torch.Tensor:
-        x = self.proj(v.permute(0, 4, 1, 2, 3).to(self.proj.weight.dtype))
+        p = self.proj
+        dtype = self.dtype or p.weight.dtype
+        x = F.conv3d(
+            v.permute(0, 4, 1, 2, 3).to(dtype), p.weight.to(dtype), p.bias.to(dtype), stride=p.stride
+        )
         return x.flatten(2).transpose(1, 2)
 
 
 class Mlp(nn.Module):
-    """Transformer MLP: fc1 -> exact GELU -> fc2."""
+    """Transformer MLP: fc1 -> exact GELU -> fc2 (+ dropout when training)."""
 
-    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 drop: float = 0.0):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.drop = drop
+        self.fc1 = Linear(in_features, hidden_features)
+        self.fc2 = Linear(hidden_features, out_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(self.fc2(F.gelu(self.fc1(x))), self.drop, self.training, generator)
 
 
 class LayerNorm(nn.LayerNorm):

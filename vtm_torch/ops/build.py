@@ -125,4 +125,14 @@ def load_library() -> ctypes.CDLL:
         p,              # cudaStream_t
     ]
     lib.vtm_frame_attention_fwd.restype = i
+    lib.vtm_attention_bwd.argtypes = [
+        i, i,           # dtype, head_dim
+        p, p, p, p, p,  # q, k, v, key_bias, do
+        p, p, p, p, p,  # dq, dk, dv, dbias, stats
+        i, i, i,        # batch, num_heads, n
+        ctypes.c_float,  # scale
+        p,              # strides (21 x int64, host memory)
+        p,              # cudaStream_t
+    ]
+    lib.vtm_attention_bwd.restype = i
     return lib

@@ -1,6 +1,7 @@
 // Tile helpers shared by the attention kernels of this directory
-// (flash_attention_fwd.cu, frame_attention_fwd.cu): dtype conversion and
-// the 16-byte staging of a 64-row tile of q, k or v into shared memory.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, frame_attention_fwd.cu):
+// dtype conversion and the 16-byte staging of a 64-row tile of q, k, v or
+// do into shared memory.
 
 #pragma once
 

@@ -1,0 +1,535 @@
+// Dense attention backward for Hopper (sm_90a): the gradients of
+//   out = softmax(q k^T * scale + key_bias[b, key]) v      over [B, H, N, d]
+// with respect to q, k, v and key_bias, given do = d(loss)/d(out).
+//
+// Replaces the Pallas TPU kernel of vtm/ops/flash_attention.py::_backward_impl
+// (kernel _bwd_kernel, the custom_vjp of tome_flash_attention). The math and
+// its rounding points are that kernel's:
+//   s  = (q k^T) * scale + bias          fp32, from the unscaled q
+//   p  = softmax(s)                      fp32, normalised
+//   dp = do v^T                          fp32
+//   delta = rowsum(p * dp),  ds = p * (dp - delta)
+//   dq = scale * (ds_lo k)               ds_lo, p_lo: ds, p rounded to the
+//   dk = scale * (ds_lo^T q)             input dtype before the products;
+//   dv = p_lo^T do                       fp32 sums, cast once at the end
+//   dbias[b, h, key] = sum over queries of the unrounded ds
+// The sum of dbias over heads is left to the caller.
+//
+// What bounds it on the H100: at B8 H12 N1568 d64 the five products are
+// 10*B*H*N^2*d = 151 GFLOP against about 135 MB of q/k/v/do/dq/dk/dv, far
+// above the card's ~295 FLOP/byte bf16 ridge: the tensor cores bound it,
+// not device memory, as long as no [N, N] tile leaves the chip.
+//
+// Design (first version: simple, right and the same from run to run):
+//   The TPU program keeps a whole K/V row and four [blk_q, N] fp32 tiles in
+//   VMEM and leans on its grid running the q blocks in order, so that
+//   dk/dv/dbias stay resident. Here blocks run in any order and shared
+//   memory holds [64 x 64] tiles, so each sum has one owner and there are
+//   no atomics:
+//   * attention_bwd_dq_kernel, one block per (b*h, 64-row q tile), walks
+//     the key tiles twice. Pass 1 finds each row's max m, denominator l and
+//     delta with an online softmax (keys past N get the logit -1e30) and
+//     writes them to [3, B, H, N] fp32 scratch. Pass 2 recomputes s and dp,
+//     forms ds, and sums dq over the keys in registers.
+//   * attention_bwd_dkdv_kernel, one block per (b*h, 64-key tile), keeps
+//     its K/V tile in shared memory, walks the q tiles in order, recomputes
+//     s and dp from the saved row statistics, and sums dk, dv (registers)
+//     and the dbias column sums over the queries. Query rows past N are
+//     staged as zeros and weigh nothing.
+//   That is nine [64 x 64 x d] products per tile pair where five are needed
+//   (s and dp are computed three times); the price of owning every sum.
+//   * bf16 runs the products on the tensor cores (nvcuda::wmma 16x16x16,
+//     fp32 accumulation); fp32 runs them as FMAs on the CUDA cores so that
+//     fp32 gradients stay within fp32 rounding of the plain version.
+// wgmma, TMA, saved log-sum-exp from the forward and a fused single pass
+// are left for later versions.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
+
+#include "attention_tiles.cuh"
+
+namespace {
+
+using namespace nvcuda;
+using vtm::from_float;
+using vtm::load_tile;
+
+constexpr int kTile = vtm::kTileRows;  // rows of a q tile and keys of a k tile
+constexpr int kWarps = 4;              // each warp owns a 16-row strip
+constexpr int kThreads = kWarps * 32;
+static_assert(kThreads == vtm::kTileThreads, "load_tile strides by the block's thread count");
+static_assert(kTile == kWarps * 16, "each warp owns a 16-row strip");
+constexpr float kMask = -1e30f;
+
+// Element strides (batch, head, row) of q, k, v, do and of the outputs dq,
+// dk, dv; the last dim is contiguous everywhere.
+struct Strides {
+  long long q[3], k[3], v[3], go[3], dq[3], dk[3], dv[3];
+};
+
+template <typename T>
+struct Args {
+  const T* q;
+  const T* k;
+  const T* v;
+  const float* key_bias;  // [B, N] or null
+  const T* go;
+  T* dq;
+  T* dk;
+  T* dv;
+  float* dbias;  // [B, H, N] or null
+  float* stats;  // [3, B, H, N]: row max, row denominator, delta
+  int batch, num_heads, n;
+  float scale;
+  Strides st;
+};
+
+// Shared-memory layout: four staged [64 x D] tiles in T, the fp32 s and dp
+// tiles, and p_lo / ds_lo in T. Row pads of 16 bytes break bank conflicts
+// and keep every 16-row fragment origin 32-byte aligned, as wmma requires.
+// After the main loop the s and dp regions together stage one [64 x D]
+// fp32 result on its way to device memory.
+template <typename T, int D>
+struct Layout {
+  static constexpr int kPad = 16 / sizeof(T);
+  static constexpr int ld_x = D + kPad;      // q, k, v, do tiles (T)
+  static constexpr int ld_s = kTile + 4;     // s, dp (fp32)
+  static constexpr int ld_p = kTile + kPad;  // p_lo, ds_lo (T)
+  static constexpr int ld_o = D + 4;         // staged result (fp32)
+  static constexpr size_t x_bytes = size_t(kTile) * ld_x * sizeof(T);
+  static constexpr size_t s_bytes = size_t(kTile) * ld_s * sizeof(float);
+  static constexpr size_t p_bytes = size_t(kTile) * ld_p * sizeof(T);
+  static constexpr size_t s_off = 4 * x_bytes;
+  static constexpr size_t dp_off = s_off + s_bytes;
+  static constexpr size_t p_off = dp_off + s_bytes;
+  static constexpr size_t ds_off = p_off + p_bytes;
+  static constexpr size_t bytes = ds_off + p_bytes;
+  static_assert(x_bytes % 128 == 0 && s_bytes % 128 == 0 && p_bytes % 128 == 0,
+                "shared regions must stay 128-byte aligned");
+  static_assert(size_t(kTile) * ld_o * sizeof(float) <= 2 * s_bytes,
+                "the staged result must fit the s and dp regions");
+};
+
+// out[r, j] = sum_d a[r, d] * b[j, d] for this warp's 16 rows r and all 64
+// rows j of b, in fp32. a, b: [64 x D] tiles with leading dimension ld_x;
+// out: [64 x 64] with leading dimension ld_s.
+template <typename T, int D>
+__device__ __forceinline__ void product_abt(const T* a, const T* b, float* out, int wrow, int row,
+                                            int half) {
+  using L = Layout<T, D>;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+#pragma unroll
+    for (int nt = 0; nt < kTile / 16; ++nt) {
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wmma::load_matrix_sync(fa, a + wrow * L::ld_x + kk * 16, L::ld_x);
+        // b^T as a column-major [d, j] operand: element (d, j) at b[j * ld + d]
+        wmma::load_matrix_sync(fb, b + nt * 16 * L::ld_x + kk * 16, L::ld_x);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      wmma::store_matrix_sync(out + wrow * L::ld_s + nt * 16, acc, L::ld_s, wmma::mem_row_major);
+    }
+  } else {
+    const T* ar = a + row * L::ld_x;
+    for (int j = half * 32; j < half * 32 + 32; ++j) {
+      const T* br = b + j * L::ld_x;
+      float acc = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) acc = fmaf(ar[d], br[d], acc);
+      out[row * L::ld_s + j] = acc;
+    }
+  }
+}
+
+// A [16 x D] fp32 sum held in registers: this warp's 16 rows of
+//   acc += a b        (kTransA false: a is [64 rows x 64], row-major)
+//   acc += a^T b      (kTransA true:  a is [64 x 64 rows], so a^T's row r is a's column r)
+// with b a [64 x D] tile. bf16: wmma fragments; fp32: each lane keeps half
+// a row.
+template <typename T, int D>
+struct Accum;
+
+template <int D>
+struct Accum<__nv_bfloat16, D> {
+  using T = __nv_bfloat16;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[D / 16];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int dt = 0; dt < D / 16; ++dt) wmma::fill_fragment(f[dt], 0.f);
+  }
+
+  template <bool kTransA>
+  __device__ __forceinline__ void add(const T* a, int lda, const T* b, int ldb, int wrow, int,
+                                      int) {
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      if constexpr (kTransA) {
+        // a^T as a column-major operand: element (r, j) at a[j * lda + r]
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> fa;
+        wmma::load_matrix_sync(fa, a + kk * 16 * lda + wrow, lda);
+#pragma unroll
+        for (int dt = 0; dt < D / 16; ++dt) {
+          wmma::load_matrix_sync(fb, b + kk * 16 * ldb + dt * 16, ldb);
+          wmma::mma_sync(f[dt], fa, fb, f[dt]);
+        }
+      } else {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, a + wrow * lda + kk * 16, lda);
+#pragma unroll
+        for (int dt = 0; dt < D / 16; ++dt) {
+          wmma::load_matrix_sync(fb, b + kk * 16 * ldb + dt * 16, ldb);
+          wmma::mma_sync(f[dt], fa, fb, f[dt]);
+        }
+      }
+    }
+  }
+
+  // stage[r, :] = acc * scale for this warp's rows
+  __device__ __forceinline__ void store(float* stage, int ld, int wrow, int, int, float scale) {
+#pragma unroll
+    for (int dt = 0; dt < D / 16; ++dt) {
+#pragma unroll
+      for (int i = 0; i < f[dt].num_elements; ++i) f[dt].x[i] *= scale;
+      wmma::store_matrix_sync(stage + wrow * ld + dt * 16, f[dt], ld, wmma::mem_row_major);
+    }
+  }
+};
+
+template <int D>
+struct Accum<float, D> {
+  float f[D / 2];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int d = 0; d < D / 2; ++d) f[d] = 0.f;
+  }
+
+  template <bool kTransA>
+  __device__ __forceinline__ void add(const float* a, int lda, const float* b, int ldb, int,
+                                      int row, int half) {
+    const float* bh = b + half * (D / 2);
+    for (int j = 0; j < kTile; ++j) {
+      const float aj = kTransA ? a[j * lda + row] : a[row * lda + j];
+#pragma unroll
+      for (int d = 0; d < D / 2; ++d) f[d] = fmaf(aj, bh[j * ldb + d], f[d]);
+    }
+  }
+
+  __device__ __forceinline__ void store(float* stage, int ld, int, int row, int half,
+                                        float scale) {
+#pragma unroll
+    for (int d = 0; d < D / 2; ++d) stage[row * ld + half * (D / 2) + d] = f[d] * scale;
+  }
+};
+
+// Rows [row0, row0 + 64) of a staged [64 x D] fp32 result -> device memory
+// in T, skipping rows at or past `end`.
+template <typename T, int D>
+__device__ __forceinline__ void write_rows(T* dst, long long row_stride, const float* stage,
+                                           int ld, int row0, int end) {
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D;
+    const int c = i % D;
+    if (row0 + r < end) dst[(row0 + r) * row_stride + c] = from_float<T>(stage[r * ld + c]);
+  }
+}
+
+__device__ __forceinline__ float logit(float qk, float scale, const float* bias, int key) {
+  return fmaf(qk, scale, bias ? bias[key] : 0.f);
+}
+
+// ---- dq, and the row statistics every tile of ds needs -------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(Args<T> p) {
+  using L = Layout<T, D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = reinterpret_cast<T*>(smem + L::x_bytes);
+  T* ks = reinterpret_cast<T*>(smem + 2 * L::x_bytes);
+  T* vs = reinterpret_cast<T*>(smem + 3 * L::x_bytes);
+  float* ss = reinterpret_cast<float*>(smem + L::s_off);
+  float* dps = reinterpret_cast<float*>(smem + L::dp_off);
+  T* dss = reinterpret_cast<T*>(smem + L::ds_off);
+
+  const int n = p.n;
+  const int bh = blockIdx.y;
+  const int b = bh / p.num_heads;
+  const int h = bh % p.num_heads;
+  const int q0 = blockIdx.x * kTile;
+  const T* qb = p.q + b * p.st.q[0] + h * p.st.q[1];
+  const T* kb = p.k + b * p.st.k[0] + h * p.st.k[1];
+  const T* vb = p.v + b * p.st.v[0] + h * p.st.v[1];
+  const T* gob = p.go + b * p.st.go[0] + h * p.st.go[1];
+  const float* bias = p.key_bias ? p.key_bias + static_cast<long long>(b) * n : nullptr;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wrow = warp * 16;          // first row of this warp's strip
+  const int row = wrow + (lane >> 1);  // the row this lane owns
+  const int half = lane & 1;           // which half of the row's 64 keys
+
+  load_tile<T, D, false>(qs, L::ld_x, qb, p.st.q[2], q0, n, 0.f);
+  load_tile<T, D, false>(dos, L::ld_x, gob, p.st.go[2], q0, n, 0.f);
+
+  float* srow = ss + row * L::ld_s + half * 32;
+  const float* dprow = dps + row * L::ld_s + half * 32;
+
+  // ---- pass 1: m, l and delta = sum_j p_j dp_j of this lane's row --------
+  float m_i = kMask, l_i = 0.f, a_i = 0.f;
+  for (int k0 = 0; k0 < n; k0 += kTile) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D, false>(ks, L::ld_x, kb, p.st.k[2], k0, n, 0.f);
+    load_tile<T, D, false>(vs, L::ld_x, vb, p.st.v[2], k0, n, 0.f);
+    __syncthreads();
+    product_abt<T, D>(qs, ks, ss, wrow, row, half);
+    product_abt<T, D>(dos, vs, dps, wrow, row, half);
+    __syncwarp();
+    float mx = kMask;
+    for (int j = 0; j < 32; ++j) {
+      const int key = k0 + half * 32 + j;
+      const float s = key < n ? logit(srow[j], p.scale, bias, key) : kMask;
+      srow[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    const float m_new = fmaxf(m_i, mx);
+    const float corr = expf(m_i - m_new);
+    float sum = 0.f, acc = 0.f;
+    for (int j = 0; j < 32; ++j) {
+      const float e = expf(srow[j] - m_new);
+      sum += e;
+      acc = fmaf(e, dprow[j], acc);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    l_i = l_i * corr + sum;
+    a_i = a_i * corr + acc;
+    m_i = m_new;
+  }
+  const float delta = a_i / l_i;
+  if (half == 0 && q0 + row < n) {
+    const long long plane = static_cast<long long>(p.batch) * p.num_heads * n;
+    float* st = p.stats + static_cast<long long>(bh) * n + q0 + row;
+    st[0] = m_i;
+    st[plane] = l_i;
+    st[2 * plane] = delta;
+  }
+
+  // ---- pass 2: dq = scale * sum over key tiles of ds_lo k ----------------
+  Accum<T, D> dq;
+  dq.zero();
+  T* dsrow = dss + row * L::ld_p + half * 32;
+  for (int k0 = 0; k0 < n; k0 += kTile) {
+    __syncthreads();
+    load_tile<T, D, false>(ks, L::ld_x, kb, p.st.k[2], k0, n, 0.f);
+    load_tile<T, D, false>(vs, L::ld_x, vb, p.st.v[2], k0, n, 0.f);
+    __syncthreads();
+    product_abt<T, D>(qs, ks, ss, wrow, row, half);
+    product_abt<T, D>(dos, vs, dps, wrow, row, half);
+    __syncwarp();
+    for (int j = 0; j < 32; ++j) {
+      const int key = k0 + half * 32 + j;
+      float ds = 0.f;
+      if (key < n) {
+        const float prob = expf(logit(srow[j], p.scale, bias, key) - m_i) / l_i;
+        ds = prob * (dprow[j] - delta);
+      }
+      dsrow[j] = from_float<T>(ds);
+    }
+    __syncwarp();
+    dq.template add<false>(dss, L::ld_p, ks, L::ld_x, wrow, row, half);
+  }
+  __syncthreads();  // every warp is done with s and dp: they become the stage
+  dq.store(ss, L::ld_o, wrow, row, half, p.scale);
+  __syncthreads();
+  write_rows<T, D>(p.dq + b * p.st.dq[0] + h * p.st.dq[1], p.st.dq[2], ss, L::ld_o, q0, n);
+}
+
+// ---- dk, dv and dbias: one block owns a key tile's sums over all queries --
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) attention_bwd_dkdv_kernel(Args<T> p) {
+  using L = Layout<T, D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = reinterpret_cast<T*>(smem + L::x_bytes);
+  T* ks = reinterpret_cast<T*>(smem + 2 * L::x_bytes);
+  T* vs = reinterpret_cast<T*>(smem + 3 * L::x_bytes);
+  float* ss = reinterpret_cast<float*>(smem + L::s_off);
+  float* dps = reinterpret_cast<float*>(smem + L::dp_off);
+  T* ps = reinterpret_cast<T*>(smem + L::p_off);
+  T* dss = reinterpret_cast<T*>(smem + L::ds_off);
+
+  const int n = p.n;
+  const int bh = blockIdx.y;
+  const int b = bh / p.num_heads;
+  const int h = bh % p.num_heads;
+  const int k0 = blockIdx.x * kTile;
+  const T* qb = p.q + b * p.st.q[0] + h * p.st.q[1];
+  const T* kb = p.k + b * p.st.k[0] + h * p.st.k[1];
+  const T* vb = p.v + b * p.st.v[0] + h * p.st.v[1];
+  const T* gob = p.go + b * p.st.go[0] + h * p.st.go[1];
+  const float* bias = p.key_bias ? p.key_bias + static_cast<long long>(b) * n : nullptr;
+  const long long plane = static_cast<long long>(p.batch) * p.num_heads * n;
+  const float* stats = p.stats + static_cast<long long>(bh) * n;
+  const bool want_dbias = p.dbias != nullptr;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wrow = warp * 16;  // s, dp: this warp's query rows; dk, dv: its key rows
+  const int row = wrow + (lane >> 1);
+  const int half = lane & 1;
+
+  load_tile<T, D, false>(ks, L::ld_x, kb, p.st.k[2], k0, n, 0.f);
+  load_tile<T, D, false>(vs, L::ld_x, vb, p.st.v[2], k0, n, 0.f);
+
+  Accum<T, D> dk, dv;
+  dk.zero();
+  dv.zero();
+  float db = 0.f;  // threads 0..63: the column sum of ds for key k0 + threadIdx.x
+
+  const float* srow = ss + row * L::ld_s + half * 32;
+  float* dprow = dps + row * L::ld_s + half * 32;
+  T* prow = ps + row * L::ld_p + half * 32;
+  T* dsrow = dss + row * L::ld_p + half * 32;
+
+  for (int q0 = 0; q0 < n; q0 += kTile) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D, false>(qs, L::ld_x, qb, p.st.q[2], q0, n, 0.f);
+    load_tile<T, D, false>(dos, L::ld_x, gob, p.st.go[2], q0, n, 0.f);
+    __syncthreads();
+    product_abt<T, D>(qs, ks, ss, wrow, row, half);
+    product_abt<T, D>(dos, vs, dps, wrow, row, half);
+    __syncwarp();
+    const bool valid = q0 + row < n;
+    const float m_i = valid ? stats[q0 + row] : 0.f;
+    const float l_i = valid ? stats[plane + q0 + row] : 1.f;
+    const float delta = valid ? stats[2 * plane + q0 + row] : 0.f;
+    for (int j = 0; j < 32; ++j) {
+      const int key = k0 + half * 32 + j;
+      float prob = 0.f, ds = 0.f;
+      if (valid && key < n) {
+        prob = expf(logit(srow[j], p.scale, bias, key) - m_i) / l_i;
+        ds = prob * (dprow[j] - delta);
+      }
+      prow[j] = from_float<T>(prob);
+      dsrow[j] = from_float<T>(ds);
+      dprow[j] = ds;  // unrounded, for the dbias column sums
+    }
+    __syncthreads();  // dk, dv and dbias read every query row of the tile
+    dv.template add<true>(ps, L::ld_p, dos, L::ld_x, wrow, row, half);
+    dk.template add<true>(dss, L::ld_p, qs, L::ld_x, wrow, row, half);
+    if (want_dbias && threadIdx.x < kTile) {
+      for (int r = 0; r < kTile; ++r) db += dps[r * L::ld_s + threadIdx.x];
+    }
+  }
+  if (want_dbias && threadIdx.x < kTile && k0 + threadIdx.x < n)
+    p.dbias[static_cast<long long>(bh) * n + k0 + threadIdx.x] = db;
+
+  __syncthreads();  // every warp is done with s and dp: they become the stage
+  dk.store(ss, L::ld_o, wrow, row, half, p.scale);
+  __syncthreads();
+  write_rows<T, D>(p.dk + b * p.st.dk[0] + h * p.st.dk[1], p.st.dk[2], ss, L::ld_o, k0, n);
+  __syncthreads();
+  dv.store(ss, L::ld_o, wrow, row, half, 1.f);
+  __syncthreads();
+  write_rows<T, D>(p.dv + b * p.st.dv[0] + h * p.st.dv[1], p.st.dv[2], ss, L::ld_o, k0, n);
+}
+
+template <typename T, int D>
+cudaError_t launch(const Args<T>& args, cudaStream_t stream) {
+  using L = Layout<T, D>;
+  auto dq_kernel = attention_bwd_dq_kernel<T, D>;
+  auto dkdv_kernel = attention_bwd_dkdv_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::bytes));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L::bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((args.n + kTile - 1) / kTile, args.batch * args.num_heads);
+  dq_kernel<<<grid, kThreads, L::bytes, stream>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // reads the row statistics the first kernel wrote: same stream, in order
+  dkdv_kernel<<<grid, kThreads, L::bytes, stream>>>(args);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_head_dim(int head_dim, const Args<T>& args, cudaStream_t stream) {
+  switch (head_dim) {
+    case 16: return launch<T, 16>(args, stream);
+    case 32: return launch<T, 32>(args, stream);
+    case 64: return launch<T, 64>(args, stream);
+    case 128: return launch<T, 128>(args, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+Args<T> make_args(const void* q, const void* k, const void* v, const void* key_bias,
+                  const void* go, void* dq, void* dk, void* dv, void* dbias, void* stats,
+                  int batch, int num_heads, int n, float scale, const long long* strides) {
+  Args<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.key_bias = static_cast<const float*>(key_bias);
+  a.go = static_cast<const T*>(go);
+  a.dq = static_cast<T*>(dq);
+  a.dk = static_cast<T*>(dk);
+  a.dv = static_cast<T*>(dv);
+  a.dbias = static_cast<float*>(dbias);
+  a.stats = static_cast<float*>(stats);
+  a.batch = batch;
+  a.num_heads = num_heads;
+  a.n = n;
+  a.scale = scale;
+  std::memcpy(&a.st, strides, sizeof(a.st));
+  return a;
+}
+
+}  // namespace
+
+// C entry point, bound with ctypes by vtm_torch/ops/flash_attention.py.
+//   dtype: 0 = bf16, 1 = fp32 (q, k, v, go, dq, dk and dv share it)
+//   key_bias: fp32 [batch, n] contiguous, or null for the unbiased form
+//   dbias: fp32 [batch, num_heads, n] contiguous, or null when not wanted
+//   stats: fp32 [3, batch, num_heads, n] scratch
+//   strides: 21 element strides, (batch, head, row) of q, k, v, go, dq, dk, dv
+// Returns the cudaError_t of the launches (0 on success).
+extern "C" int vtm_attention_bwd(int dtype, int head_dim, const void* q, const void* k,
+                                 const void* v, const void* key_bias, const void* go, void* dq,
+                                 void* dk, void* dv, void* dbias, void* stats, int batch,
+                                 int num_heads, int n, float scale, const long long* strides,
+                                 void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return dispatch_head_dim<__nv_bfloat16>(
+          head_dim,
+          make_args<__nv_bfloat16>(q, k, v, key_bias, go, dq, dk, dv, dbias, stats, batch,
+                                   num_heads, n, scale, strides),
+          s);
+    case 1:
+      return dispatch_head_dim<float>(
+          head_dim,
+          make_args<float>(q, k, v, key_bias, go, dq, dk, dv, dbias, stats, batch, num_heads, n,
+                           scale, strides),
+          s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

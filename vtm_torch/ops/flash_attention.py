@@ -1,8 +1,13 @@
-"""Fused attention forwards for the ToMe video transformers.
+"""Fused attention kernels for the ToMe video transformers.
 
 K1, ``tome_flash_attention``: softmax(q k^T * sm_scale + key_bias) v over
 [B, H, N, d], the counterpart of ``vtm/ops/flash_attention.py::
-tome_flash_attention`` (forward only); kernel ``csrc/flash_attention_fwd.cu``.
+tome_flash_attention``; kernel ``csrc/flash_attention_fwd.cu``. It is
+differentiable: a ``torch.autograd.Function`` whose backward is K2.
+
+K2, ``tome_flash_attention_backward``: dq, dk, dv and dbias of K1 from
+(q, k, v, key_bias, do), recomputing the softmax (the counterpart of
+``vtm``'s ``_backward``); kernel ``csrc/flash_attention_bwd.cu``.
 
 K3, ``tome_frame_attention``: the same with a separate softmax over each
 frame's contiguous key segment, returning token-major [B, N, F, H, d]
@@ -10,12 +15,12 @@ frame's contiguous key segment, returning token-major [B, N, F, H, d]
 ``tome_frame_attention`` (forward only); kernel
 ``csrc/frame_attention_fwd.cu``.
 
-Neither writes the [B, H, N, N] logits to device memory. Both kernels are
+None writes the [B, H, N, N] logits to device memory. The kernels are
 CUDA C++ for Hopper, built and bound by ``vtm_torch/ops/build.py``.
 
 A tensor on the CPU goes to the plain PyTorch version of the same math
-(``_reference``, ``_frame_reference``). A CUDA tensor goes to the
-kernel, or the call raises: there is no fallback.
+(``_reference``, ``_backward_reference``, ``_frame_reference``). A CUDA
+tensor goes to the kernel, or the call raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -26,8 +31,9 @@ from typing import Optional
 import torch
 
 # Kernel launches since import (or since a caller reset them to 0):
-# K1 (tome_flash_attention) and K3 (tome_frame_attention).
+# K1 (tome_flash_attention), K2 (its backward) and K3 (tome_frame_attention).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 FRAME_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
@@ -77,21 +83,8 @@ def check_kernel_args(q, k, v, key_bias) -> None:
         raise ValueError(f"q, k, v must share one CUDA device, got {q.device}, {k.device}, {v.device}")
 
 
-def tome_flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    key_bias: Optional[torch.Tensor] = None,
-    sm_scale: float = 1.0,
-) -> torch.Tensor:
-    """softmax(q k^T * sm_scale + key_bias[:, None, None, :]) v.
-
-    q, k, v: [B, H, N, d] in bfloat16 or float32, last dim contiguous
-    (row strides are passed to the kernel, so the ``split_heads`` view of
-    a fused qkv projection needs no copy). key_bias: float32 [B, N] (log
-    token sizes) or None. Returns [B, H, N, d] in q's dtype, a view of a
-    token-major [B, N, H, d] buffer so ``merge_heads`` needs no copy.
-    """
+def _forward(q, k, v, key_bias, sm_scale):
+    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
     global LAUNCHES
     if not q.is_cuda:
         return _reference(q, k, v, key_bias, sm_scale)
@@ -118,6 +111,148 @@ def tome_flash_attention(
         raise RuntimeError(f"attention kernel launch failed with cudaError_t {err}")
     LAUNCHES += 1
     return out
+
+
+def _backward_reference(q, k, v, key_bias, do, sm_scale):
+    """Plain version of K2, step by step with the TPU kernel's rounding
+    points (vtm/ops/flash_attention.py:386-440, 535-542): fp32 logits from
+    the unscaled q, fp32 softmax, dp and ds; p and ds rounded to the input
+    dtype before the three products, whose fp32 sums are cast at the end;
+    dbias from the unrounded ds, summed over queries and heads.
+    Returns (dq, dk, dv, dbias); dbias is None without a key_bias."""
+    dtype = q.dtype
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-2, -1)) * sm_scale
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    dp = torch.matmul(dof, vf.transpose(-2, -1))
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    p_lo = p.to(dtype).float()
+    ds_lo = ds.to(dtype).float()
+    dq = (torch.matmul(ds_lo, kf) * sm_scale).to(dtype)
+    dk = (torch.matmul(ds_lo.transpose(-2, -1), qf) * sm_scale).to(dtype)
+    dv = torch.matmul(p_lo.transpose(-2, -1), dof).to(dtype)
+    dbias = None if key_bias is None else ds.sum(dim=(1, 2)).to(key_bias.dtype)
+    return dq, dk, dv, dbias
+
+
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it (last dim contiguous, 16-byte aligned
+    rows), copied only when it is not already so."""
+    size = t.element_size()
+    if (
+        t.stride(-1) != 1
+        or t.data_ptr() % _ALIGN
+        or any((s * size) % _ALIGN for s in t.stride()[:3])
+    ):
+        return t.contiguous()
+    return t
+
+
+def tome_flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor],
+    do: torch.Tensor,
+    sm_scale: float = 1.0,
+    need_dbias: bool = True,
+):
+    """Gradients of ``tome_flash_attention`` given ``do`` = d loss / d out.
+
+    q, k, v, key_bias as in the forward; do: [B, H, N, d] in q's dtype, any
+    strides (the gradient of the token-major output view needs no copy).
+    Returns (dq, dk, dv, dbias): dq, dk, dv are [B, H, N, d] views of one
+    token-major [B, N, 3, H, d] buffer, so the gradient of a fused qkv
+    projection's ``chunk`` is that buffer; dbias is float32 [B, N] (summed
+    over heads and queries), or None when there is no key_bias or
+    ``need_dbias`` is False.
+    """
+    global BWD_LAUNCHES
+    if not q.is_cuda:
+        dq, dk, dv, dbias = _backward_reference(q, k, v, key_bias, do, sm_scale)
+        return dq, dk, dv, dbias if need_dbias else None
+    check_kernel_args(q, k, v, key_bias)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"do must match q: {do.dtype} {tuple(do.shape)} on {do.device} "
+            f"against {q.dtype} {tuple(q.shape)} on {q.device}"
+        )
+    do = _kernel_operand(do)
+    from vtm_torch.ops.build import load_library
+
+    lib = load_library()
+    b, h, n, d = q.shape
+    grads = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+    dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
+    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
+    want_dbias = need_dbias and key_bias is not None
+    dbias_heads = (
+        torch.empty((b, h, n), dtype=torch.float32, device=q.device) if want_dbias else None
+    )
+    strides = (ctypes.c_longlong * 21)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+    )
+    with torch.cuda.device(q.device):
+        err = lib.vtm_attention_bwd(
+            _DTYPE_CODES[q.dtype], d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if key_bias is None else key_bias.data_ptr(),
+            do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if dbias_heads is None else dbias_heads.data_ptr(),
+            stats.data_ptr(),
+            b, h, n, float(sm_scale),
+            ctypes.addressof(strides),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed with cudaError_t {err}")
+    BWD_LAUNCHES += 1
+    dbias = None if dbias_heads is None else dbias_heads.sum(dim=1).to(key_bias.dtype)
+    return dq, dk, dv, dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 backward. Saves (q, k, v, key_bias) only: the
+    backward recomputes the softmax, as ``vtm``'s custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, sm_scale):
+        ctx.save_for_backward(q, k, v, key_bias)
+        ctx.sm_scale = sm_scale
+        return _forward(q, k, v, key_bias, sm_scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_bias = ctx.saved_tensors
+        dq, dk, dv, dbias = tome_flash_attention_backward(
+            q, k, v, key_bias, do, ctx.sm_scale, need_dbias=ctx.needs_input_grad[3]
+        )
+        return dq, dk, dv, dbias, None
+
+
+def tome_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    sm_scale: float = 1.0,
+) -> torch.Tensor:
+    """softmax(q k^T * sm_scale + key_bias[:, None, None, :]) v.
+
+    q, k, v: [B, H, N, d] in bfloat16 or float32, last dim contiguous
+    (row strides are passed to the kernel, so the ``split_heads`` view of
+    a fused qkv projection needs no copy). key_bias: float32 [B, N] (log
+    token sizes) or None. Returns [B, H, N, d] in q's dtype, a view of a
+    token-major [B, N, H, d] buffer so ``merge_heads`` needs no copy.
+    Gradients with respect to q, k, v and key_bias come from K2
+    (``tome_flash_attention_backward``).
+    """
+    return _FlashAttention.apply(q, k, v, key_bias, sm_scale)
 
 
 def _frame_reference(q, k, v, key_bias, sm_scale, frames):
