@@ -13,11 +13,14 @@ Serving (``vtm_torch.tools.model_benchmark.model_benchmark``):
     pseudo-frame with r=18 and proportional attention
     (``MOTIONFORMER_OPTS``: the values of
     configs/motionformer/kinetics/tome_motionformer_224_16x4.yaml).
-Training (``vtm_torch.tools.train_net``):
+Training (``vtm_torch.tools.train_net``), on the synthetic dataset with
+fp32 parameters, bf16 compute and AdamW:
   * VideoMAE ViT-B/16 fine-tuning through the merge (``TRAIN_OPTS``: the
     values of configs/videomae/epickitchens/
-    tome_train_VideoMAE_B_16_224_EPICKITCHENS.yaml) on the synthetic
-    dataset: fp32 parameters, bf16 compute, AdamW.
+    tome_train_VideoMAE_B_16_224_EPICKITCHENS.yaml);
+  * Motionformer ViT-B/16 fine-tuning through the merge
+    (``MF_TRAIN_OPTS``: the values of configs/motionformer/epickitchens/
+    tome_motionformer_224_16x4.yaml).
 The configs are ``get_cfg()`` plus those --opts lists (no yaml parser
 needed).
 
@@ -28,15 +31,18 @@ Phases, each printing one JSON line:
      bwd_kernel -- its backward (K2) against its plain version
      frame_kernel -- the per-frame attention kernel (K3) against its plain
                   version
+     frame_bwd_kernel -- its backward (K4) against its plain version
      Each is also timed against its plain version and against the one
      PyTorch call that computes the same function
-     (scaled_dot_product_attention, its autograd backward for K2), beside
+     (scaled_dot_product_attention, its autograd backward for K2 and K4), beside
      the least time the card could take (``bound_ms``).
   4. blocks    -- teacher-forced VideoMAE ViT-B blocks, fp32: kernel path vs
                   plain path
      mf_blocks -- the same for Motionformer ViT-B blocks
      train_blocks -- loss and every parameter's gradient of the fp32 VideoMAE
                   ViT-B through K1 and K2 against the plain path
+     mf_train_blocks -- the same for the fp32 Motionformer ViT-B through K3
+                  and K4
   5. serve     -- VideoMAE model_benchmark merged and unmerged; launch counts,
                   token counts, finite logits, clips/s
      mf_serve  -- the same for Motionformer; probabilities sum to 1
@@ -46,6 +52,9 @@ Phases, each printing one JSON line:
                   same next loss, train clips/s; then ``train(cfg)`` itself
                   on the EPIC-KITCHENS config (twin heads, layer decay,
                   stochastic depth) for two short epochs
+     mf_train  -- the same for Motionformer (K3 and K4 launches per step,
+                  peak device memory; ``train(cfg)`` on its EPIC-KITCHENS
+                  config with the twin heads)
 Each serve or train phase sets the kernels' launch counts to 0 just before
 it and reads them just after. Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and the script exits
@@ -77,11 +86,13 @@ from vtm_torch.ops import build as kernel_build
 from vtm_torch.ops import flash_attention
 from vtm_torch.ops.flash_attention import (
     _backward_reference,
+    _frame_backward_reference,
     _frame_reference,
     _reference,
     tome_flash_attention,
     tome_flash_attention_backward,
     tome_frame_attention,
+    tome_frame_attention_backward,
 )
 from vtm_torch.tools.model_benchmark import model_benchmark
 from vtm_torch.tools.train_net import build_trainer, train
@@ -294,6 +305,88 @@ TRAIN_OPTS = [
     "OUTPUT_DIR", "<OUTPUT-DIR>",
 ]
 
+# configs/motionformer/epickitchens/tome_motionformer_224_16x4.yaml, key by
+# key, with the test-checkpoint placeholder replaced by "".
+MF_TRAIN_OPTS = [
+    "TRAIN.AUTO_RESUME", "True",
+    "TRAIN.BATCH_SIZE", "32",
+    "TRAIN.CHECKPOINT_EPOCH_RESET", "True",
+    "TRAIN.CHECKPOINT_PERIOD", "5",
+    "TRAIN.DATASET", "epickitchens",
+    "TRAIN.ENABLE", "True",
+    "TRAIN.EVAL_PERIOD", "5",
+    "TRAIN.MIXED_PRECISION", "True",
+    "DATA.INPUT_CHANNEL_NUM", "[3]",
+    "DATA.MEAN", "[0.5, 0.5, 0.5]",
+    "DATA.NUM_FRAMES", "16",
+    "DATA.PATH_PREFIX", "None",
+    "DATA.PATH_TO_DATA_DIR", "None",
+    "DATA.SAMPLING_RATE", "4",
+    "DATA.STD", "[0.5, 0.5, 0.5]",
+    "DATA.TEST_CROP_SIZE", "224",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TRAIN_JITTER_SCALES", "[256, 320]",
+    "MIXUP.LABEL_SMOOTH_VALUE", "0.2",
+    "EPICKITCHENS.ANNOTATIONS_DIR", "<EPIC-KITCHENS-100-ANNOTATIONS>",
+    "EPICKITCHENS.NUM_CLASSES", "[97, 300]",
+    "EPICKITCHENS.PARTICIPANT_FIRST", "False",
+    "EPICKITCHENS.TEST_LIST", "EPIC_100_validation.pkl",
+    "EPICKITCHENS.TEST_SPLIT", "validation",
+    "EPICKITCHENS.TRAIN_LIST", "EPIC_100_train.pkl",
+    "EPICKITCHENS.TRAIN_PLUS_VAL", "False",
+    "EPICKITCHENS.VAL_LIST", "EPIC_100_validation.pkl",
+    "EPICKITCHENS.VISUAL_DATA_DIR", "<EPIC-KITCHENS-100-VIDEO>",
+    "SOLVER.BASE_LR", "0.0001",
+    "SOLVER.LRS", "[1, 0.1, 0.01]",
+    "SOLVER.LR_POLICY", "steps_with_relative_lrs",
+    "SOLVER.MAX_EPOCH", "50",
+    "SOLVER.MOMENTUM", "0.9",
+    "SOLVER.OPTIMIZING_METHOD", "adamw",
+    "SOLVER.STEPS", "[0, 30, 40]",
+    "SOLVER.WARMUP_EPOCHS", "0.0",
+    "SOLVER.WEIGHT_DECAY", "0.05",
+    "MODEL.ARCH", "motionformer",
+    "MODEL.LOSS_FUNC", "cross_entropy",
+    "MODEL.MODEL_NAME", "Motionformer",
+    "MODEL.NUM_CLASSES", "400",
+    "MOTIONFORMER.ATTN_LAYER", "trajectory",
+    "MOTIONFORMER.CHANNELS", "3",
+    "MOTIONFORMER.DEPTH", "12",
+    "MOTIONFORMER.DROP", "0.0",
+    "MOTIONFORMER.DROP_PATH", "0.0",
+    "MOTIONFORMER.EMBED_DIM", "768",
+    "MOTIONFORMER.HEAD_ACT", "tanh",
+    "MOTIONFORMER.HEAD_DROPOUT", "0.0",
+    "MOTIONFORMER.IM_PRETRAINED", "True",
+    "MOTIONFORMER.MLP_RATIO", "4",
+    "MOTIONFORMER.NUM_HEADS", "12",
+    "MOTIONFORMER.PATCH_SIZE", "16",
+    "MOTIONFORMER.PATCH_SIZE_TEMP", "2",
+    "MOTIONFORMER.POS_DROPOUT", "0.0",
+    "MOTIONFORMER.PRETRAINED_WEIGHTS", "vit_1k",
+    "MOTIONFORMER.QKV_BIAS", "True",
+    "MOTIONFORMER.TEMPORAL_RESOLUTION", "8",
+    "MOTIONFORMER.USE_MLP", "True",
+    "MOTIONFORMER.VIDEO_INPUT", "True",
+    "TOME.ENABLE", "True",
+    "TOME.MODE", "merge",
+    "TOME.PROP_ATTN", "True",
+    "TOME.R_VALUE", "18",
+    "TEST.BATCH_SIZE", "32",
+    "TEST.CHECKPOINT_FILE_PATH", "",
+    "TEST.DATASET", "epickitchens",
+    "TEST.ENABLE", "True",
+    "TEST.NUM_ENSEMBLE_VIEWS", "1",
+    "TEST.NUM_SPATIAL_CROPS", "1",
+    "DATA_LOADER.NUM_WORKERS", "4",
+    "DATA_LOADER.PIN_MEMORY", "True",
+    "TPU.COMPUTE_DTYPE", "bfloat16",
+    "NUM_GPUS", "1",
+    "NUM_SHARDS", "1",
+    "RNG_SEED", "0",
+    "OUTPUT_DIR", ".",
+]
+
 # What every training run here changes in that config: no files (random
 # weights, the synthetic dataset's 16 clips), batch 8, output under build/.
 TRAIN_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_train"
@@ -322,6 +415,19 @@ TRAIN_STEP_OPTS = TRAIN_RUN_OPTS + [
 TRAIN_ENTRY_OPTS = TRAIN_RUN_OPTS + [
     "SOLVER.MAX_EPOCH", "2",
     "SOLVER.WARMUP_EPOCHS", "1.0",
+    "TRAIN.CHECKPOINT_PERIOD", "2",
+    "TRAIN.EVAL_PERIOD", "2",
+]
+# The same three for Motionformer: the config's AdamW is already 1e-4 with
+# weight decay 0.05, and it has no layer decay or stochastic depth.
+MF_TRAIN_RUN_OPTS = ["TRAIN.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "8"]
+MF_TRAIN_STEP_OPTS = MF_TRAIN_RUN_OPTS + [
+    "EPICKITCHENS.NUM_CLASSES", "None",
+    "SOLVER.LRS", "[1]",
+    "SOLVER.STEPS", "[0]",
+]
+MF_TRAIN_ENTRY_OPTS = MF_TRAIN_RUN_OPTS + [
+    "SOLVER.MAX_EPOCH", "2",
     "TRAIN.CHECKPOINT_PERIOD", "2",
     "TRAIN.EVAL_PERIOD", "2",
 ]
@@ -360,6 +466,10 @@ MF_K3_PER_FORWARD = {"merged": 10, "unmerged": 12}
 # s=441 (the 336 crop) at B1; odd H and a small d at s=37.
 FRAME_SHAPES = [(8, 12, n, 64) for n in (1568, 1424, 272)] + [(1, 12, 3528, 64), (2, 3, 296, 16)]
 FRAME_TIMED = ((1568, False), (848, True))  # (N', biased): layer 0, and a merged layer
+# K4 at the training path's shapes (s = 196, 178, 106, 34), the 336 crop's
+# s=441, and the odd-head ragged case
+FRAME_BWD_SHAPES = [(8, 12, n, 64) for n in (1568, 1424, 848, 272)] + [(1, 12, 3528, 64), (2, 3, 296, 16)]
+COUNTERS = ("LAUNCHES", "BWD_LAUNCHES", "FRAME_LAUNCHES", "FRAME_BWD_LAUNCHES")
 PROB_SUM_TOL = 1e-3
 # Unmerged / merged GFLOP per clip, 573.8 / 260.1, from XLA's cost analysis
 # (BENCH_FAMILIES.json): the ratio's device-independent ceiling.
@@ -386,6 +496,22 @@ def train_cfg(*opts):
     cfg = get_cfg()
     cfg.merge_from_list(TRAIN_OPTS + list(opts))
     return cfg
+
+
+def mf_train_cfg(*opts):
+    cfg = get_cfg()
+    cfg.merge_from_list(MF_TRAIN_OPTS + list(opts))
+    return cfg
+
+
+def launch_counts() -> dict:
+    """The four kernels' launch counts."""
+    return {c: getattr(flash_attention, c) for c in COUNTERS}
+
+
+def zero_launch_counts() -> None:
+    for c in COUNTERS:
+        setattr(flash_attention, c, 0)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -516,16 +642,23 @@ def dense_sdpa(q, k, v, bias):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.125)
 
 
-def frame_sdpa(q, k, v, bias):
-    """K3 as one scaled_dot_product_attention call: the frames become a
-    batch dim, q repeated for each of them ([B*F, H, N, d] against
-    [B*F, H, s, d]); the output comes frame-major, not token-major."""
+def frame_sdpa_operands(q, k, v, bias):
+    """K3's operands for one scaled_dot_product_attention call: the frames
+    become a batch dim, q repeated for each of them ([B*F, H, N, d] against
+    [B*F, H, s, d])."""
     b, h, n, d = q.shape
     s_ = n // MF_FRAMES
     qf = q[:, None].expand(b, MF_FRAMES, h, n, d).reshape(b * MF_FRAMES, h, n, d)
     kf, vf = (t.reshape(b, h, MF_FRAMES, s_, d).transpose(1, 2).reshape(b * MF_FRAMES, h, s_, d)
               for t in (k, v))
     mask = None if bias is None else bias.reshape(b * MF_FRAMES, 1, 1, s_).to(torch.bfloat16)
+    return qf, kf, vf, mask
+
+
+def frame_sdpa(q, k, v, bias):
+    """K3 as one scaled_dot_product_attention call; the output comes
+    frame-major, not token-major."""
+    qf, kf, vf, mask = frame_sdpa_operands(q, k, v, bias)
     return lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask, scale=0.125)
 
 
@@ -571,40 +704,43 @@ def grad_errors(got, want):
     return out
 
 
-def phase_bwd_kernel(smi: str) -> dict:
-    """K2 against its plain version: biased and unbiased, fp32 and bf16, on
-    split_heads views offset by one row with a token-major (strided) do.
-    fp32 gradients must agree within FP32_TOL of their largest entry; bf16
-    gradients must stay within bf16_tol of an fp32 computation, relative
-    to the largest entry. The kernel must give the same bits twice."""
-    gen = torch.Generator(device="cuda").manual_seed(6)
+def check_backward_against_plain(name, backward, plain, shapes, make_do, seed: int):
+    """A backward kernel against its plain version, each called as
+    f(q, k, v, key_bias, do, scale): biased and unbiased, fp32 and bf16, on
+    split_heads views offset by one row with a strided ``do`` from
+    ``make_do(gen, b, h, n, d)``. fp32 gradients must agree within FP32_TOL
+    of their largest entry; bf16 gradients must stay within bf16_tol of an
+    fp32 computation, relative to the largest entry. The kernel must give
+    the same bits twice. Returns (rows, largest absolute difference from
+    the plain version)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows, worst_abs = [], 0.0
-    for b, h, n, d in BWD_SHAPES:
+    for b, h, n, d in shapes:
         scale = d ** -0.5
         for biased in (False, True):
             bias = torch.log(torch.rand((b, n), generator=gen, device="cuda") * 4 + 1) if biased else None
             fused = torch.randn((b, n + 1, 3 * h * d), generator=gen, device="cuda")
-            do_tok = torch.randn((b, n, h, d), generator=gen, device="cuda")
+            do32 = make_do(gen, b, h, n, d)
             q32, k32, v32 = heads(fused[:, 1:], h)
-            do32 = do_tok.transpose(1, 2)
             check(not do32.is_contiguous() and not q32.is_contiguous(), "inputs are strided views")
-            got32 = tome_flash_attention_backward(q32, k32, v32, bias, do32, scale)
-            err32 = grad_errors(got32, _backward_reference(q32, k32, v32, bias, do32, scale))
+            got32 = backward(q32, k32, v32, bias, do32, scale)
+            err32 = grad_errors(got32, plain(q32, k32, v32, bias, do32, scale))
             check(len(err32) == (4 if biased else 3), "dbias comes with a bias and only then")
-            for name, (_, rel) in err32.items():
-                check(rel <= FP32_TOL, f"fp32 {name} err {rel} > {FP32_TOL} at {(b, h, n, d)} bias={biased}")
+            for g, (_, rel) in err32.items():
+                check(rel <= FP32_TOL, f"{name} fp32 {g} err {rel} > {FP32_TOL} at {(b, h, n, d)} bias={biased}")
             q, k, v = heads(fused.to(torch.bfloat16)[:, 1:], h)
-            do = do_tok.to(torch.bfloat16).transpose(1, 2)
-            got = tome_flash_attention_backward(q, k, v, bias, do, scale)
-            again = tome_flash_attention_backward(q, k, v, bias, do, scale)
-            check(all(torch.equal(x, y) for x, y in zip(got[:3], again[:3])), "K2 differs from run to run")
-            ref = _backward_reference(q.float(), k.float(), v.float(), bias, do.float(), scale)
-            base = _backward_reference(q, k, v, bias, do, scale)
+            do = do32.to(torch.bfloat16)  # dense and permuted: keeps its strides
+            check(do.stride() == do32.stride(), "the bf16 do is the same strided view")
+            got = backward(q, k, v, bias, do, scale)
+            again = backward(q, k, v, bias, do, scale)
+            check(all(torch.equal(x, y) for x, y in zip(got[:3], again[:3])), f"{name} differs from run to run")
+            ref = plain(q.float(), k.float(), v.float(), bias, do.float(), scale)
+            base = plain(q, k, v, bias, do, scale)
             err_k, err_p = grad_errors(got, ref), grad_errors(base, ref)
-            for name in err_k:
-                tol = bf16_tol(err_p[name][1])
-                check(err_k[name][1] <= tol,
-                      f"bf16 {name} err {err_k[name][1]} > {tol} at {(b, h, n, d)} bias={biased}")
+            for g in err_k:
+                tol = bf16_tol(err_p[g][1])
+                check(err_k[g][1] <= tol,
+                      f"{name} bf16 {g} err {err_k[g][1]} > {tol} at {(b, h, n, d)} bias={biased}")
             vs_plain = grad_errors(got, base)
             worst_abs = max([worst_abs] + [e for e, _ in vs_plain.values()] + [e for e, _ in err32.values()])
             rows.append(dict(shape=[b, h, n, d], biased=biased,
@@ -612,7 +748,23 @@ def phase_bwd_kernel(smi: str) -> dict:
                              bf16_rel_err={k_: r for k_, (_, r) in err_k.items()},
                              bf16_plain_rel_err={k_: r for k_, (_, r) in err_p.items()}))
     torch.cuda.synchronize()
+    return rows, worst_abs
 
+
+def emit_backward(phase: str, smi: str, rows, worst_abs: float, times: dict) -> dict:
+    emit(phase, checks=rows, max_abs_err_vs_plain=worst_abs, timing_bf16_B8_H12_d64=times, nvidia_smi=smi)
+    first = times["1568"]
+    return dict(max_abs_err=worst_abs, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
+
+
+def phase_bwd_kernel(smi: str) -> dict:
+    """K2 against its plain version, with a token-major do."""
+    rows, worst_abs = check_backward_against_plain(
+        "K2", tome_flash_attention_backward, _backward_reference, BWD_SHAPES,
+        lambda gen, b, h, n, d: torch.randn((b, n, h, d), generator=gen, device="cuda").transpose(1, 2),
+        seed=6,
+    )
     # times at B8 H12 d64 bf16, unbiased as on the training path: 10 B H N^2 d
     # operations; q, k, v, do read and dq, dk, dv written
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -629,11 +781,45 @@ def phase_bwd_kernel(smi: str) -> dict:
         flops = 10 * 8 * 12 * n * n * 64
         times[str(n)] = dict(biased=False, **t, kernel_tflops=flops / t["kernel_ms"] / 1e9,
                              **bound(flops, 7 * 8 * 12 * n * 64 * 2))
-    emit("bwd_kernel", checks=rows, max_abs_err_vs_plain=worst_abs, timing_bf16_B8_H12_d64=times,
-         nvidia_smi=smi)
-    first = times["1568"]
-    return dict(max_abs_err=worst_abs, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
-                bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
+    return emit_backward("bwd_kernel", smi, rows, worst_abs, times)
+
+
+def phase_frame_bwd_kernel(smi: str) -> dict:
+    """K4 against its plain version. ``do`` is token-major [B, N', F, H, d],
+    here a permuted view of a frame-major buffer, so every one of its
+    strides differs from the contiguous layout's."""
+    rows, worst_abs = check_backward_against_plain(
+        "K4",
+        functools.partial(tome_frame_attention_backward, frames=MF_FRAMES),
+        functools.partial(_frame_backward_reference, frames=MF_FRAMES),
+        FRAME_BWD_SHAPES,
+        lambda gen, b, h, n, d: torch.randn((b, MF_FRAMES, n, h, d), generator=gen, device="cuda").transpose(1, 2),
+        seed=8,
+    )
+    # times at B8 H12 d64 F8 bf16 with the contiguous do autograd hands over
+    # and, as on the training path, no dbias: 10 B H N'^2 d operations; q, k,
+    # v and the bias read, do (F times the size of q) read, dq, dk, dv written.
+    # The library call: autograd's backward of frame_sdpa's one
+    # scaled_dot_product_attention call, with its sum over the F copies of q.
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    times = {}
+    for n, biased in FRAME_TIMED:
+        q, k, v, bias = timed_inputs(gen, n, biased)
+        do = torch.randn((8, n, MF_FRAMES, 12, 64), generator=gen, device="cuda").to(torch.bfloat16)
+        leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+        qf, kf, vf, mask = frame_sdpa_operands(*leaves, bias)
+        out = F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask, scale=0.125)
+        # the cotangent in SDPA's frame-major layout [B*F, H, N', d]
+        do_fm = do.permute(0, 2, 3, 1, 4).reshape(8 * MF_FRAMES, 12, n, 64).contiguous()
+        t = in_turns(
+            lambda: tome_frame_attention_backward(q, k, v, bias, do, 0.125, MF_FRAMES, need_dbias=False),
+            lambda: _frame_backward_reference(q, k, v, bias, do, 0.125, MF_FRAMES),
+            lambda: torch.autograd.grad(out, leaves, do_fm, retain_graph=True))
+        flops = 10 * 8 * 12 * n * n * 64
+        nbytes = (6 + MF_FRAMES) * 8 * 12 * n * 64 * 2 + (8 * n * 4 if biased else 0)
+        times[str(n)] = dict(biased=biased, **t, kernel_tflops=flops / t["kernel_ms"] / 1e9,
+                             **bound(flops, nbytes))
+    return emit_backward("frame_bwd_kernel", smi, rows, worst_abs, times)
 
 
 def phase_blocks(phase: str, cfg, seed: int, block_kwargs: dict, launch_count, final_tokens: int,
@@ -679,20 +865,27 @@ def phase_blocks(phase: str, cfg, seed: int, block_kwargs: dict, launch_count, f
     emit(phase, layers=rows, kernel_launches=launches)
 
 
-def phase_train_blocks() -> None:
-    """Loss and every parameter's gradient of the full-width fp32 VideoMAE
-    (TF32 off, B2, r=150, drop rates 0) through K1 and K2 against the
-    plain path, gradients within GRAD_TOL of each tensor's largest entry.
+def phase_train_blocks(phase: str, cfg, fwd: str, bwd: str, launches_expected: int,
+                       final_tokens: int, train_mode: bool = False, zero_gradients=()) -> None:
+    """Loss and every parameter's gradient of a full-width fp32 model (TF32
+    off, B2, merged, drop rates 0) through its forward and backward kernels
+    (the counters ``fwd`` and ``bwd``) against the plain path, gradients
+    within GRAD_TOL of each tensor's largest entry. ``train_mode`` makes a
+    Motionformer return logits instead of probabilities. Parameters whose
+    name holds one of ``zero_gradients`` have a gradient that is zero
+    analytically: on both paths it must be rounding noise, below 1e-6 of
+    the largest entry of any gradient.
 
     Both runs merge by the plain run's Matching objects: a layer's metric
     is computed before its attention, so on the same input both paths
-    match identically (the ``blocks`` phase and layer 0 here hold that),
-    but the 1e-6 that K1 differs by reaches later layers' metrics and can
+    match identically (the block phases and layer 0 here hold that), but
+    the 1e-6 that a kernel differs by reaches later layers' metrics and can
     swap two near-tied tokens, after which gradients are of two different
     programs. How many layers matched identically on their own is
     reported."""
-    cfg = main_cfg("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2")
     model = build_model(cfg, "cuda", fp32_params=True).module.train()
+    if train_mode:
+        model.train_mode = True
     rng = np.random.default_rng(7)
     video = torch.from_numpy(rng.random((2, 16, 224, 224, 3), dtype=np.float32)).cuda()
     labels = torch.from_numpy(rng.integers(0, 400, 2)).cuda()
@@ -707,7 +900,7 @@ def phase_train_blocks() -> None:
         own_matchings.append(match(metric, r, *args))
         return plain_matchings[len(own_matchings) - 1]
 
-    before = flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES
+    before = launch_counts()
     runs = {}
     try:
         for path, matcher in (("plain", record), ("kernel", forced)):
@@ -722,25 +915,32 @@ def phase_train_blocks() -> None:
                           state.size)
     finally:
         merge_bipartite.bipartite_soft_matching = match
-    launches = flash_attention.LAUNCHES - before[0], flash_attention.BWD_LAUNCHES - before[1]
-    check(launches == (MERGED_K1_PER_FORWARD, MERGED_K1_PER_FORWARD),
-          f"train_blocks: (K1, K2) launches {launches}")
-    check(len(plain_matchings) == len(own_matchings) == 12, "train_blocks: one matching per layer")
+    launches = {c: n - before[c] for c, n in launch_counts().items()}
+    expected = {c: launches_expected if c in (fwd, bwd) else 0 for c in COUNTERS}
+    check(launches == expected, f"{phase}: kernel launches {launches}")
+    check(len(plain_matchings) == len(own_matchings) == 12, f"{phase}: one matching per layer")
     same = [all(torch.equal(getattr(a_, name), getattr(b_, name))
                 for name in ("unm_idx", "src_idx", "dst_idx"))
             for a_, b_ in zip(own_matchings, plain_matchings)]
-    check(same[0], "train_blocks: layer 0 matches differently on the same input")
+    check(same[0], f"{phase}: layer 0 matches differently on the same input")
     (lk, gk, sk), (lp, gp, sp) = runs["kernel"], runs["plain"]
-    check(torch.equal(sk, sp) and sk.shape[1] == MERGED_COUNTS[-1], "train_blocks: sizes differ")
-    check(abs(lk - lp) <= BLOCK_TOL, f"train_blocks: loss {lk} vs {lp}")
+    check(torch.equal(sk, sp) and sk.shape[1] == final_tokens, f"{phase}: sizes differ")
+    check(abs(lk - lp) <= BLOCK_TOL, f"{phase}: loss {lk} vs {lp}")
     worst, worst_name = 0.0, ""
+    noise = 1e-6 * max(g.abs().max().item() for g in gp.values())
     for name, g in gp.items():
+        if any(z in name for z in zero_gradients):
+            size = max(g.abs().max().item(), gk[name].abs().max().item())
+            check(size <= noise, f"{phase}: gradient of {name} should be zero, has an entry of {size}")
+            continue
         rel = ((gk[name] - g).abs().max() / g.abs().max()).item()
-        check(rel <= GRAD_TOL, f"train_blocks: gradient of {name} off by {rel} of its largest entry")
+        check(rel <= GRAD_TOL, f"{phase}: gradient of {name} off by {rel} of its largest entry")
         if rel > worst:
             worst, worst_name = rel, name
-    emit("train_blocks", loss_kernel=lk, loss_plain=lp, parameters=len(gp), worst_grad_rel_err=worst,
-         worst_grad=worst_name, k1_launches=launches[0], k2_launches=launches[1],
+    emit(phase, loss_kernel=lk, loss_plain=lp, parameters=len(gp),
+         analytically_zero_gradients=sum(any(z in n for z in zero_gradients) for n in gp),
+         worst_grad_rel_err=worst,
+         worst_grad=worst_name, forward_kernel_launches=launches[fwd], backward_kernel_launches=launches[bwd],
          layers_matching_identically_unforced=sum(same))
 
 
@@ -759,8 +959,7 @@ def phase_serve(smi: str) -> int:
         np.random.default_rng(2).random((8, 16, 224, 224, 3), dtype=np.float32)
     ).cuda()
     runs = {}
-    # this path's counts start here
-    flash_attention.LAUNCHES = flash_attention.FRAME_LAUNCHES = 0
+    zero_launch_counts()  # this path's counts start here
     for label, opts, counts, per_forward in (
         ("merged", (), MERGED_COUNTS, MERGED_K1_PER_FORWARD),
         ("unmerged", ("TOME.ENABLE", "False"), (1568,) * 13, 12),
@@ -812,8 +1011,7 @@ def phase_mf_serve(smi: str) -> int:
         np.random.default_rng(5).random((8, 16, 224, 224, 3), dtype=np.float32)
     ).cuda()
     runs = {}
-    # this path's counts start here
-    flash_attention.LAUNCHES = flash_attention.FRAME_LAUNCHES = 0
+    zero_launch_counts()  # this path's counts start here
     for label, opts, counts in (
         ("merged", (), MF_BODY_COUNTS),
         ("unmerged", ("TOME.ENABLE", "False"), (MF_BODY_COUNTS[0],) * 13),
@@ -871,101 +1069,126 @@ def fixed_batch(cfg):
     return torch.from_numpy(batch["frames"]).cuda(), torch.from_numpy(np.asarray(batch["label"])).cuda()
 
 
-def phase_train(smi: str) -> int:
+# Motionformer gradients that are zero analytically: a softmax does not see
+# a shift of its logits (the k half of proj_kv's bias), and only the CLS row
+# of the last block reaches the head (its trajectory projections).
+MF_ZERO_GRADIENTS = ("attn.proj_kv.bias", "blocks.11.attn.proj_q.", "blocks.11.attn.proj_kv.")
+
+# What phase_train drives: the config and its run lists, the counters of the
+# forward and backward kernels on that path and their names in the output,
+# launches per step, and the parameters that may stay where they were.
+VIDEOMAE_TRAIN = dict(
+    phase="train", cfg=train_cfg, step_opts=TRAIN_STEP_OPTS, entry_opts=TRAIN_ENTRY_OPTS,
+    fwd=("LAUNCHES", "k1"), bwd=("BWD_LAUNCHES", "k2"),
+    per_step={"merged": MERGED_K1_PER_FORWARD, "unmerged": 12}, zero_gradients=(),
+)
+MOTIONFORMER_TRAIN = dict(
+    phase="mf_train", cfg=mf_train_cfg, step_opts=MF_TRAIN_STEP_OPTS, entry_opts=MF_TRAIN_ENTRY_OPTS,
+    fwd=("FRAME_LAUNCHES", "k3"), bwd=("FRAME_BWD_LAUNCHES", "k4"),
+    per_step=MF_K3_PER_FORWARD, zero_gradients=MF_ZERO_GRADIENTS,
+)
+
+
+def phase_train(smi: str, phase, cfg, step_opts, entry_opts, fwd, bwd, per_step, zero_gradients) -> int:
     """Train steps on one fixed batch, merged and unmerged, then the train
-    entry point on the shipped config. Returns the K2 launches of the
-    whole phase."""
-    shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    entry point on the shipped config. The loss is the cross-entropy of
+    what the model returns in eval mode (probabilities for a Motionformer
+    built from a config, as in its train step). Returns the launches of
+    the backward kernel in the whole phase."""
+    (fwd, fwd_name), (bwd, bwd_name) = fwd, bwd
+    out_dir = TRAIN_OUT / phase
+    shutil.rmtree(out_dir, ignore_errors=True)
     runs = {}
-    # this path's counts start here
-    flash_attention.LAUNCHES = flash_attention.BWD_LAUNCHES = flash_attention.FRAME_LAUNCHES = 0
-    for label, opts, per_step in (
-        ("merged", (), MERGED_K1_PER_FORWARD),
-        ("unmerged", ("TOME.ENABLE", "False"), 12),
-    ):
-        out = str(TRAIN_OUT / label)
-        cfg = train_cfg(*TRAIN_STEP_OPTS, "OUTPUT_DIR", out, *opts)
-        trainer = build_trainer(cfg)
-        frames, labels = fixed_batch(cfg)
+    zero_launch_counts()  # this path's counts start here
+    for label, opts in (("merged", ()), ("unmerged", ("TOME.ENABLE", "False"))):
+        out = str(out_dir / label)
+        run_cfg = cfg(*step_opts, "OUTPUT_DIR", out, *opts)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = build_trainer(run_cfg)
+        frames, labels = fixed_batch(run_cfg)
         check(tuple(frames.shape) == (8, 16, 224, 224, 3), f"batch shape {tuple(frames.shape)}")
         start = {n: p.detach().clone() for n, p in trainer.module.named_parameters()}
         check(all(p.dtype == torch.float32 for p in start.values()), "training parameters are fp32")
         loss_before = F.cross_entropy(trainer.eval_step(frames), labels).item()
         set_lr(trainer.optimizer, trainer.lr_at(0.0))
         losses = []
-        before = flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES
+        before = launch_counts()
 
         def step():
             losses.append(trainer.train_step(frames, labels)[0])
 
         seconds = device_seconds(step, TRAIN_ITERS, TRAIN_WARMUP, torch.device("cuda"))
         steps = TRAIN_WARMUP + TRAIN_ITERS
-        k1 = flash_attention.LAUNCHES - before[0]
-        k2 = flash_attention.BWD_LAUNCHES - before[1]
-        check(k2 == per_step * steps, f"train {label}: {k2} K2 launches in {steps} steps")
-        check(k1 == per_step * steps, f"train {label}: {k1} K1 launches in {steps} steps")
+        n_fwd, n_bwd = (getattr(flash_attention, c) - before[c] for c in (fwd, bwd))
+        check(n_bwd == per_step[label] * steps, f"{phase} {label}: {n_bwd} {bwd_name} launches in {steps} steps")
+        check(n_fwd == per_step[label] * steps, f"{phase} {label}: {n_fwd} {fwd_name} launches in {steps} steps")
         loss_after = F.cross_entropy(trainer.eval_step(frames), labels).item()
         step_losses = [l.item() for l in losses]
-        check(all(np.isfinite(step_losses)) and np.isfinite(loss_after), f"train {label}: loss not finite")
-        check(loss_after < loss_before, f"train {label}: loss {loss_before} -> {loss_after}")
-        moved = 0
+        check(all(np.isfinite(step_losses)) and np.isfinite(loss_after), f"{phase} {label}: loss not finite")
+        check(loss_after < loss_before, f"{phase} {label}: loss {loss_before} -> {loss_after}")
+        still = []
         for n, p in trainer.module.named_parameters():
-            check(bool(torch.isfinite(p).all()), f"train {label}: {n} is not finite")
-            moved += int(not torch.equal(p, start[n]))
-        check(moved == len(start), f"train {label}: only {moved} of {len(start)} parameters changed")
-        run = dict(train_clips_per_sec=8 * TRAIN_ITERS / seconds, step_ms=seconds / TRAIN_ITERS * 1e3,
-                   loss_before=loss_before, loss_after=loss_after, step_losses=step_losses,
-                   k1_launches_per_step=k1 // steps, k2_launches_per_step=k2 // steps)
+            check(bool(torch.isfinite(p).all()), f"{phase} {label}: {n} is not finite")
+            if torch.equal(p, start[n]):
+                still.append(n)
+        check(all(any(z in n for z in zero_gradients) for n in still),
+              f"{phase} {label}: parameters that did not change: {still}")
+        run = {"train_clips_per_sec": 8 * TRAIN_ITERS / seconds, "step_ms": seconds / TRAIN_ITERS * 1e3,
+               "loss_before": loss_before, "loss_after": loss_after, "step_losses": step_losses,
+               f"{fwd_name}_launches_per_step": n_fwd // steps, f"{bwd_name}_launches_per_step": n_bwd // steps,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
         if label == "merged":
             # a checkpoint saved and reloaded gives the same next losses: the
             # first shows the parameters came back, the second the moments
-            path = checkpoints.save_checkpoint(out, trainer.module, trainer.optimizer, 0, cfg)
-            twin = build_trainer(cfg)
+            path = checkpoints.save_checkpoint(out, trainer.module, trainer.optimizer, 0, run_cfg)
+            twin = build_trainer(run_cfg)
             epoch, restored = checkpoints.load_checkpoint(
                 checkpoints.get_last_checkpoint(out), twin.module, twin.optimizer)
             check((epoch, restored) == (0, True), f"checkpoint {path}: epoch {epoch}, optimizer {restored}")
             nxt = [[t.train_step(frames, labels)[0].item() for _ in range(2)] for t in (trainer, twin)]
-            check(nxt[0][0] == nxt[1][0], f"next loss after reload {nxt[1][0]} != {nxt[0][0]}")
+            check(nxt[0][0] == nxt[1][0], f"{phase}: next loss after reload {nxt[1][0]} != {nxt[0][0]}")
             check(abs(nxt[0][1] - nxt[1][1]) <= 1e-3 * abs(nxt[0][1]),
-                  f"second loss after reload {nxt[1][1]} != {nxt[0][1]}")
+                  f"{phase}: second loss after reload {nxt[1][1]} != {nxt[0][1]}")
             run["next_losses"], run["next_losses_reloaded"] = nxt
             del twin
-            shutil.rmtree(out)  # a ViT-B checkpoint with its moments is 1 GB
+            shutil.rmtree(out)  # a ViT-B checkpoint with its moments is over 1 GB
         runs[label] = run
         del trainer
         torch.cuda.empty_cache()
 
     # the entry point itself, on the config as shipped: two epochs of two steps
-    out = str(TRAIN_OUT / "entry")
-    cfg = train_cfg(*TRAIN_ENTRY_OPTS, "OUTPUT_DIR", out)
-    before = flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES
+    out = str(out_dir / "entry")
+    entry_cfg = cfg(*entry_opts, "OUTPUT_DIR", out)
+    before = launch_counts()
     t0 = time.perf_counter()
-    module = train(cfg)
+    module = train(entry_cfg)
     torch.cuda.synchronize()
     entry_seconds = time.perf_counter() - t0
-    k1 = flash_attention.LAUNCHES - before[0]
-    k2 = flash_attention.BWD_LAUNCHES - before[1]
-    # 4 train steps; the eval epoch's 2 forwards launch K1 only
-    check(k2 == 4 * MERGED_K1_PER_FORWARD, f"train entry point: {k2} K2 launches")
-    check(k1 == 6 * MERGED_K1_PER_FORWARD, f"train entry point: {k1} K1 launches")
+    n_fwd, n_bwd = (getattr(flash_attention, c) - before[c] for c in (fwd, bwd))
+    # 4 train steps; the eval epoch's 2 forwards launch the forward kernel only
+    check(n_bwd == 4 * per_step["merged"], f"{phase} entry point: {n_bwd} {bwd_name} launches")
+    check(n_fwd == 6 * per_step["merged"], f"{phase} entry point: {n_fwd} {fwd_name} launches")
     check(module.config.multi_head and module.head0.out_features == 97 and module.head1.out_features == 300,
-          "train entry point: twin heads")
-    check(all(bool(torch.isfinite(p).all()) for p in module.parameters()), "train entry point: NaN")
+          f"{phase} entry point: twin heads")
+    check(all(bool(torch.isfinite(p).all()) for p in module.parameters()), f"{phase} entry point: NaN")
     last = checkpoints.get_last_checkpoint(out)
-    check(last is not None and last.endswith("epoch_00001.pyth"), f"train entry point: checkpoint {last}")
-    total = flash_attention.BWD_LAUNCHES  # read right after the path ran
-    check(total > 0 and flash_attention.FRAME_LAUNCHES == 0, "the training path's kernels")
-    shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    check(last is not None and last.endswith("epoch_00001.pyth"), f"{phase} entry point: checkpoint {last}")
+    total = launch_counts()  # read right after the path ran
+    check(total[bwd] > 0 and total[fwd] > 0, f"the {phase} path launched its kernels")
+    check(all(n == 0 for c, n in total.items() if c not in (fwd, bwd)),
+          f"the {phase} path launched another path's kernels: {total}")
+    shutil.rmtree(out_dir, ignore_errors=True)
     emit(
-        "train",
+        phase,
         merged=runs["merged"],
         unmerged=runs["unmerged"],
         speedup=runs["merged"]["train_clips_per_sec"] / runs["unmerged"]["train_clips_per_sec"],
-        entry_point=dict(seconds=entry_seconds, k1_launches=k1, k2_launches=k2, epochs=2, steps=4),
+        entry_point={"seconds": entry_seconds, f"{fwd_name}_launches": n_fwd, f"{bwd_name}_launches": n_bwd,
+                     "epochs": 2, "steps": 4},
         batch=8, dtype="bfloat16 compute, float32 parameters", optimizer="adamw(1e-4, wd 0.05)",
         nvidia_smi=smi,
     )
-    return total
+    return total[bwd]
 
 
 def kernel_row(name: str, source: str, replaces: str, launches: int, r: dict) -> dict:
@@ -994,16 +1217,22 @@ def main() -> int:
         FRAME_TIMED,
         out_factor=MF_FRAMES,
     )
+    frame_bwd_kernel = phase_frame_bwd_kernel(smi)
     fp32_b2 = ("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2")
     phase_blocks("blocks", main_cfg(*fp32_b2), 1, {}, lambda: flash_attention.LAUNCHES,
                  MERGED_COUNTS[-1], MERGED_K1_PER_FORWARD)
     phase_blocks("mf_blocks", mf_cfg(*fp32_b2), 4, {"num_frames": MF_FRAMES},
                  lambda: flash_attention.FRAME_LAUNCHES, MF_BODY_COUNTS[-1] + 1,
                  MF_K3_PER_FORWARD["merged"])
-    phase_train_blocks()
+    phase_train_blocks("train_blocks", main_cfg(*fp32_b2), "LAUNCHES", "BWD_LAUNCHES",
+                       MERGED_K1_PER_FORWARD, MERGED_COUNTS[-1])
+    phase_train_blocks("mf_train_blocks", mf_cfg(*fp32_b2), "FRAME_LAUNCHES", "FRAME_BWD_LAUNCHES",
+                       MF_K3_PER_FORWARD["merged"], MF_BODY_COUNTS[-1] // MF_FRAMES, train_mode=True,
+                       zero_gradients=MF_ZERO_GRADIENTS)
     launches = phase_serve(smi)
     frame_launches = phase_mf_serve(smi)
-    bwd_launches = phase_train(smi)
+    bwd_launches = phase_train(smi, **VIDEOMAE_TRAIN)
+    frame_bwd_launches = phase_train(smi, **MOTIONFORMER_TRAIN)
     emit("done", seconds=time.perf_counter() - t0)
     csrc = "vtm_torch/ops/csrc/"
     print(json.dumps({"kernels": [
@@ -1013,6 +1242,8 @@ def main() -> int:
                    "vtm/ops/flash_attention.py:505", bwd_launches, bwd_kernel),
         kernel_row("tome_frame_attention", csrc + "frame_attention_fwd.cu",
                    "vtm/ops/flash_attention.py:915", frame_launches, frame_kernel),
+        kernel_row("tome_frame_attention_backward", csrc + "frame_attention_bwd.cu",
+                   "vtm/ops/flash_attention.py:1231", frame_bwd_launches, frame_bwd_kernel),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -14,6 +14,7 @@ YAMLS = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").rglob("*.yam
 MAIN_YAML = "configs/videomae/kinetics/tome_VideoMAE_B_16_224_K400.yaml"
 MOTIONFORMER_YAML = "configs/motionformer/kinetics/tome_motionformer_224_16x4.yaml"
 TRAIN_YAML = "configs/videomae/epickitchens/tome_train_VideoMAE_B_16_224_EPICKITCHENS.yaml"
+MF_TRAIN_YAML = "configs/motionformer/epickitchens/tome_motionformer_224_16x4.yaml"
 
 
 def test_defaults_equal():
@@ -49,6 +50,43 @@ def test_chip_smoke_train_opts_equal_yaml():
     args = types.SimpleNamespace(opts=["TEST.CHECKPOINT_FILE_PATH", ""])
     want = jcfg.load_config(args, str(REPO / TRAIN_YAML)).to_dict()
     assert chip_smoke.train_cfg().to_dict() == want
+
+
+def test_chip_smoke_motionformer_train_opts_equal_yaml():
+    import chip_smoke
+
+    args = types.SimpleNamespace(opts=["TEST.CHECKPOINT_FILE_PATH", ""])
+    want = jcfg.load_config(args, str(REPO / MF_TRAIN_YAML)).to_dict()
+    assert chip_smoke.mf_train_cfg().to_dict() == want
+
+
+def test_chip_smoke_motionformer_train_runs_change_only_what_they_say():
+    """The timed step is the shipped config with one 400-class head and a
+    constant learning rate on the synthetic dataset at batch 8; the
+    entry-point run keeps the twin heads and is cut to two epochs."""
+    import chip_smoke
+
+    base = chip_smoke.mf_train_cfg().to_dict()
+
+    def changed(cfg):
+        out = set()
+        for sec, node in cfg.to_dict().items():
+            if isinstance(node, dict):
+                out |= {f"{sec}.{k}" for k, v in node.items() if base[sec][k] != v}
+        return out
+
+    step = chip_smoke.mf_train_cfg(*chip_smoke.MF_TRAIN_STEP_OPTS)
+    entry = chip_smoke.mf_train_cfg(*chip_smoke.MF_TRAIN_ENTRY_OPTS)
+    common = {"TRAIN.DATASET", "TRAIN.BATCH_SIZE"}
+    assert changed(step) == common | {"EPICKITCHENS.NUM_CLASSES", "SOLVER.LRS", "SOLVER.STEPS"}
+    assert changed(entry) == common | {"SOLVER.MAX_EPOCH", "TRAIN.CHECKPOINT_PERIOD", "TRAIN.EVAL_PERIOD"}
+    from vtm_torch.train.lr_policy import get_lr_at_epoch
+
+    assert [get_lr_at_epoch(step, e) for e in (0.0, 0.5, 3.0)] == [1e-4] * 3
+    assert [get_lr_at_epoch(entry, e) for e in (0.0, 1.5)] == [1e-4] * 2
+    assert step.SOLVER.WEIGHT_DECAY == 0.05 and step.SOLVER.OPTIMIZING_METHOD == "adamw"
+    assert step.TOME.R_VALUE == 18 and step.TOME.PROP_ATTN is True
+    assert entry.EPICKITCHENS.NUM_CLASSES == [97, 300] and entry.MODEL.MODEL_NAME == "Motionformer"
 
 
 def test_chip_smoke_train_runs_change_only_what_they_say():

@@ -34,6 +34,7 @@ TRAINING_MODULES = (
     "vtm_torch.eval.metrics",
     "vtm_torch.tools.train_net",
     "vtm_torch.tools.trace_train",
+    "vtm_torch.tools.check_frame_bwd",
     "vtm_torch.train.losses",
     "vtm_torch.train.lr_policy",
     "vtm_torch.train.mixup",
@@ -83,7 +84,7 @@ def test_chip_smoke_without_cuda_fails():
 
 
 @pytest.mark.parametrize("module", ["vtm_torch.tools.train_net", "vtm_torch.tools.model_benchmark",
-                                    "vtm_torch.tools.trace_train"])
+                                    "vtm_torch.tools.trace_train", "vtm_torch.tools.check_frame_bwd"])
 def test_entry_points_refuse_to_run_without_cuda(module):
     """No CUDA device and no request for the CPU: the entry points raise
     instead of carrying on on the CPU."""
@@ -106,6 +107,57 @@ def test_chip_smoke_alone_fails(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+_IMPORT_BUILDS_NOTHING = """
+import subprocess, ctypes
+import numpy, torch  # they load their own libraries
+def refuse(*a, **kw):
+    raise AssertionError("importing the package started a process or loaded a library")
+subprocess.Popen = subprocess.run = ctypes.CDLL = refuse
+import importlib, pkgutil
+import vtm_torch
+for m in pkgutil.walk_packages(vtm_torch.__path__, "vtm_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+from vtm_torch.ops import flash_attention as fa
+assert (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.FRAME_LAUNCHES, fa.FRAME_BWD_LAUNCHES) == (0, 0, 0, 0)
+"""
+
+
+def test_importing_builds_and_launches_nothing():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_BUILDS_NOTHING], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_every_kernel_source_is_built_and_bound():
+    """Every kernel source has its C entry point declared in load_library,
+    shares the tile header and includes no library's kernels."""
+    binding = (REPO / "vtm_torch" / "ops" / "build.py").read_text()
+    for src in build.sources():
+        text = src.read_text()
+        entry = text[text.index('extern "C" int ') + len('extern "C" int '):].split("(")[0]
+        assert entry.startswith("vtm_") and f"lib.{entry}.argtypes" in binding, entry
+        assert '#include "attention_tiles.cuh"' in text
+        includes = [line for line in text.splitlines() if line.startswith("#include")]
+        for library in ("cublas", "cudnn", "cutlass", "torch", "ATen"):
+            assert not any(library in line for line in includes), (src.name, library)
+    assert (build.CSRC / "attention_tiles.cuh").exists()
+
+
+def test_no_module_names_jax_or_vtm():
+    """No import of jax, flax, optax or the JAX package anywhere in the
+    port's sources or chip_smoke.py."""
+    import re
+
+    pattern = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|optax|orbax|vtm)(?:[.\s]|$)", re.M)
+    files = list((REPO / "vtm_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 40
+    for path in files:
+        assert not pattern.search(path.read_text()), path
 
 
 def test_build_targets_sm90a_into_ignored_dir():

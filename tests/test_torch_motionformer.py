@@ -48,36 +48,43 @@ VITB = dict(
 
 
 def _upstream_sd(arch, seed=0, std=0.1):
-    """A random upstream Motionformer state dict (numpy, fp32); linear
-    weights and embeddings drawn with standard deviation ``std``."""
+    """A random upstream Motionformer state dict (numpy, fp32) for ``arch``
+    (trajectory or joint attention, either patch embed, either position
+    embedding, one head or the verb/noun pair); linear weights and
+    embeddings drawn with standard deviation ``std``."""
     rng = np.random.default_rng(seed)
     d = arch["embed_dim"]
     hidden = int(d * arch["mlp_ratio"])
     p, pt = arch["patch_size"], arch["patch_size_temp"]
     s = (arch["img_size"] // p) ** 2
+    f = arch["temporal_resolution"]
 
     def w(*shape, std=std):
         return (rng.standard_normal(shape) * std).astype(np.float32)
 
-    sd = {
-        "patch_embed_3d.proj.weight": w(d, 3, pt, p, p, std=0.02),
-        "patch_embed_3d.proj.bias": w(d),
-        "cls_token": w(1, 1, d),
-        "pos_embed": w(1, s + 1, d),
-        "temp_embed": w(1, arch["temporal_resolution"], d),
-        "norm.weight": 1 + w(d),
-        "norm.bias": w(d),
-        "head.weight": w(arch["num_classes"], d),
-        "head.bias": w(arch["num_classes"]),
-    }
+    if pt > 1:
+        sd = {"patch_embed_3d.proj.weight": w(d, 3, pt, p, p, std=0.02), "patch_embed_3d.proj.bias": w(d)}
+    else:
+        sd = {"patch_embed.proj.weight": w(d, 3, p, p, std=0.02), "patch_embed.proj.bias": w(d)}
+    sd.update({"cls_token": w(1, 1, d), "pos_embed": w(1, s + 1, d)})
+    if arch.get("pos_embed_type", "separate") == "separate":
+        sd["temp_embed"] = w(1, f, d)
+    else:
+        sd["st_embed"] = w(1, s * f + 1, d)
+    sd.update({"norm.weight": 1 + w(d), "norm.bias": w(d)})
+    classes = arch["num_classes"]
+    heads = {"head": classes} if isinstance(classes, int) else {f"head{i}": n for i, n in enumerate(classes)}
+    for name, n in heads.items():
+        sd.update({f"{name}.weight": w(n, d), f"{name}.bias": w(n)})
     if arch.get("use_mlp"):
         sd.update({"pre_logits.fc.weight": w(d, d), "pre_logits.fc.bias": w(d)})
+    linears = {"attn.qkv": (3 * d, d)}
+    if arch.get("attn_layer", "trajectory") == "trajectory":
+        linears.update({"attn.proj_q": (d, d), "attn.proj_kv": (2 * d, d)})
+    linears.update({"attn.proj": (d, d), "mlp.fc1": (hidden, d), "mlp.fc2": (d, hidden)})
     for i in range(arch["depth"]):
         pre = f"blocks.{i}."
-        for name, (out_f, in_f) in {
-            "attn.qkv": (3 * d, d), "attn.proj_q": (d, d), "attn.proj_kv": (2 * d, d),
-            "attn.proj": (d, d), "mlp.fc1": (hidden, d), "mlp.fc2": (d, hidden),
-        }.items():
+        for name, (out_f, in_f) in linears.items():
             sd[pre + name + ".weight"] = w(out_f, in_f)
             sd[pre + name + ".bias"] = w(out_f)
         for name in ("norm1", "norm2"):
@@ -232,21 +239,64 @@ def test_prefix_collision_raises():
 
 
 @pytest.mark.parametrize(
+    "overrides",
+    [dict(attn_layer="divided"), dict(approx_attn_type="nystrom"), dict(approx_attn_type="performer")],
+)
+def test_unported_options_raise(overrides):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Motionformer(MotionformerConfig(**dict(TINY, **overrides)))
+
+
+def test_unknown_options_raise():
+    with pytest.raises(ValueError, match="head_act"):
+        Motionformer(MotionformerConfig(**dict(TINY, head_act="swish")))
+    with pytest.raises(ValueError, match="pos_embed_type"):
+        Motionformer(MotionformerConfig(**dict(TINY, pos_embed_type="none")))
+
+
+@pytest.mark.parametrize(
     "overrides,train_mode",
     [
-        (dict(attn_layer="joint"), False),
-        (dict(attn_layer="divided"), False),
-        (dict(approx_attn_type="nystrom"), False),
+        (dict(num_classes=(5, 7)), False),
+        (dict(num_classes=(5, 7)), True),
+        ({}, True),
         (dict(head_act="gelu"), False),
-        (dict(num_classes=(97, 300)), False),
+        (dict(head_act="relu"), False),
         (dict(pos_embed_type="joint"), False),
         (dict(patch_size_temp=1), False),
-        ({}, True),
+        (dict(attn_layer="joint"), False),
     ],
+    ids=["twin_heads", "twin_heads_logits", "logits", "gelu", "relu", "joint_pos_embed", "patch_embed_2d",
+         "joint_attention"],
 )
-def test_unported_options_raise(overrides, train_mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Motionformer(MotionformerConfig(**dict(TINY, **overrides)), train_mode=train_mode)
+def test_options_match_vtm(overrides, train_mode):
+    """The options beyond the shipped trajectory config, merged with r=1:
+    outputs within 1e-5 of the JAX package's, identical sizes, and an
+    upstream-layout state dict that loads strictly."""
+    arch = dict(TINY, **overrides)
+    kw = dict(rs=(1, 1), mode="merge", prop_attn=True)
+    sd = _upstream_sd(arch)
+    params = convert_motionformer(sd, depth=arch["depth"])
+    jmodel = JMotionformer(config=JConfig(**arch), policy=JPolicy(**kw), train_mode=train_mode)
+    tmodel = Motionformer(MotionformerConfig(**arch), policy=MergePolicy(**kw), train_mode=train_mode).eval()
+    tmodel.load_state_dict(load_motionformer_state_dict(sd))
+    bridged = motionformer_state_dict_from_vtm_params(params)
+    assert sorted(bridged) == sorted(tmodel.state_dict())
+    for k, v in tmodel.state_dict().items():
+        assert torch.equal(bridged[k], v), k
+    video = _video(arch, 2, 0)
+    with jax.default_matmul_precision("highest"):
+        want, jstate = jmodel.apply({"params": params}, jnp.asarray(video))
+    with torch.no_grad():
+        got, tstate = tmodel(torch.from_numpy(video))
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+        if not train_mode:
+            np.testing.assert_allclose(g.sum(dim=-1).numpy(), 1.0, rtol=1e-5)
+    np.testing.assert_array_equal(tstate.size.numpy(), np.asarray(jstate.size))
 
 
 def test_compute_dtype_cast_keeps_norms_and_head_fp32():

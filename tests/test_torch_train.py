@@ -609,8 +609,8 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="ATTN_DROP_RATE"):
         build_model(c, "cpu", fp32_params=True)
     c = cfg.clone()
-    c.merge_from_list(["MODEL.MODEL_NAME", "Motionformer"])
-    with pytest.raises(NotImplementedError, match="VideoMAE only"):
+    c.merge_from_list(["MODEL.MODEL_NAME", "Motionformer", "MOTIONFORMER.ATTN_LAYER", "divided"])
+    with pytest.raises(NotImplementedError, match="divided"):
         build_model(c, "cpu", fp32_params=True)
     with pytest.raises(NotImplementedError):
         make_train_step(torch.nn.Linear(2, 2), None, "cross_entropy", False, has_batch_stats=True)

@@ -139,6 +139,14 @@ def _conv3d(p, name) -> Dict[str, torch.Tensor]:
     }
 
 
+def _conv2d(p, name) -> Dict[str, torch.Tensor]:
+    """flax [kh, kw, C, D] -> torch [D, C, kh, kw]."""
+    return {
+        f"{name}.weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1).copy()),
+        f"{name}.bias": _t(np.asarray(p["bias"])),
+    }
+
+
 def _blocks(params: Mapping):
     """(index, params) of the ``blocks_{i}`` entries, in layer order."""
     return sorted((int(k.split("_")[1]), v) for k, v in params.items() if k.startswith("blocks_"))
@@ -177,29 +185,39 @@ def named_arrays_from_vtm_tree(tree: Mapping) -> Dict[str, np.ndarray]:
 def load_motionformer_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Tensor]:
     """Upstream Motionformer state dict -> the port's state dict (torch
     tensors), ready for ``Motionformer.load_state_dict``: the names are
-    upstream's, so only the wrapper prefixes go."""
+    upstream's (``head`` or the twin ``head0`` / ``head1`` included), so
+    only the wrapper prefixes go."""
     return {k: _t(v) for k, v in strip_prefixes(sd).items()}
 
 
 def motionformer_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX package's trajectory Motionformer params -> the port's
-    state dict. Inverse of ``convert_motionformer``."""
+    """The JAX package's Motionformer params (trajectory or joint
+    attention) -> the port's state dict. Inverse of
+    ``convert_motionformer``. Any tree of that structure goes through
+    (gradients, updated parameters), for name-by-name comparison."""
     sd = {
-        "cls_token": _t(np.asarray(params["cls_token"])),
-        "pos_embed": _t(np.asarray(params["pos_embed"])),
-        "temp_embed": _t(np.asarray(params["temp_embed"])),
+        name: _t(np.asarray(params[name]))
+        for name in ("cls_token", "pos_embed", "temp_embed", "st_embed")
+        if name in params
     }
-    sd.update(_conv3d(params["patch_embed_3d"], "patch_embed_3d.proj"))
+    if "patch_embed_3d" in params:
+        sd.update(_conv3d(params["patch_embed_3d"], "patch_embed_3d.proj"))
+    if "patch_embed" in params:
+        sd.update(_conv2d(params["patch_embed"], "patch_embed.proj"))
     for i, blk in _blocks(params):
         pre = f"blocks.{i}"
         sd.update(_layernorm(blk["norm1"], f"{pre}.norm1"))
         sd.update(_layernorm(blk["norm2"], f"{pre}.norm2"))
         for name in ("qkv", "proj_q", "proj_kv", "proj"):
-            sd.update(_dense(blk["attn"][name], f"{pre}.attn.{name}"))
+            if name in blk["attn"]:
+                sd.update(_dense(blk["attn"][name], f"{pre}.attn.{name}"))
         sd.update(_dense(blk["mlp"]["fc1"], f"{pre}.mlp.fc1"))
         sd.update(_dense(blk["mlp"]["fc2"], f"{pre}.mlp.fc2"))
     sd.update(_layernorm(params["norm"], "norm"))
     if "pre_logits_fc" in params:
         sd.update(_dense(params["pre_logits_fc"], "pre_logits.fc"))
-    sd.update(_dense(params["head"], "head"))
+    # single head, or the EPIC-KITCHENS twin verb/noun heads
+    for name in ("head", "head0", "head1"):
+        if name in params:
+            sd.update(_dense(params[name], name))
     return sd

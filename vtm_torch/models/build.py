@@ -70,10 +70,6 @@ def build_model(cfg, device: torch.device | str, fp32_params: bool = False) -> M
         raise KeyError(
             f"Unknown MODEL.MODEL_NAME {name!r}; registered: {sorted(MODEL_REGISTRY)}"
         )
-    if fp32_params and name != "VideoMAE":
-        raise NotImplementedError(
-            f"training parameters (fp32, cast at use) are ported for VideoMAE only, not {name}"
-        )
-    bundle = MODEL_REGISTRY[name](cfg, fp32_params) if fp32_params else MODEL_REGISTRY[name](cfg)
+    bundle = MODEL_REGISTRY[name](cfg, fp32_params)
     bundle.module.to(device).eval()
     return bundle

@@ -1,9 +1,12 @@
 """Motionformer — trajectory-attention ViT, in PyTorch.
 
-Port of ``vtm/models/motionformer.py`` for inference with trajectory
-attention (``ATTN_LAYER: trajectory``, the 3-D tubelet patch embed,
-separate position and temporal embeddings). Token merging runs per
-pseudo-frame between attention and MLP of each block.
+Port of ``vtm/models/motionformer.py`` for serving and training with
+trajectory attention (``ATTN_LAYER: trajectory``) or joint space-time
+attention (``joint``), the 3-D tubelet or the per-frame 2-D patch embed,
+separate or joint position embeddings, one head or the EPIC-KITCHENS
+verb/noun pair. Token merging runs per pseudo-frame between attention and
+MLP of each block. Divided attention and the approximate attentions are
+not ported and raise.
 
 The reference's quirks are kept exactly, since they produced the
 paper's numbers:
@@ -16,21 +19,33 @@ paper's numbers:
     output ``xq`` itself (the reference's ``v=x`` typo), so only the k
     half of ``proj_kv`` is contracted; its weight keeps the full
     [2D, D] shape;
-  * at inference the head applies a softmax.
+  * the head applies a softmax unless the model was built with
+    ``train_mode=True``, which returns the raw logits. ``build_model``
+    does not set it (neither does ``vtm``'s build function), so a model built
+    from a config hands probabilities to the loss.
+
+There is no dropout or stochastic depth (``MOTIONFORMER.DROP*`` are not
+read, as in ``vtm``), so ``module.train()`` changes nothing.
 
 Modules are named after the upstream state-dict layout
-(``patch_embed_3d.proj``, ``cls_token``, ``pos_embed``, ``temp_embed``,
+(``patch_embed_3d.proj`` or ``patch_embed.proj``, ``cls_token``,
+``pos_embed``, ``temp_embed`` or ``st_embed``,
 ``blocks.{i}.attn.{qkv,proj_q,proj_kv,proj}``, ``norm``,
-``pre_logits.fc``, ``head``), so an upstream checkpoint loads with
-``load_state_dict``. Weights are drawn in fp32 from a
-``torch.Generator``; linear and conv weights (not the head) are then cast
-to the compute dtype, and norms and the head stay fp32, as in VideoMAE.
+``pre_logits.fc``, ``head`` or ``head0`` / ``head1``), so an upstream
+checkpoint loads with ``load_state_dict``. Weights are drawn in fp32 from
+a ``torch.Generator``. For serving (``fp32_params=False``) linear and conv
+weights (not the heads) are then cast once to the compute dtype. For
+training (``fp32_params=True``) every parameter stays fp32 and is cast to
+the compute dtype at use, so gradients and optimizer state are fp32; the
+forward's values are the same either way. Norms and the heads stay fp32,
+as in VideoMAE.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -43,6 +58,7 @@ from vtm_torch.models.common import (
     _FLASH_MAX_SEQ,
     _FLASH_MIN_SEQ,
     LayerNorm,
+    Linear,
     Mlp,
     TubeletEmbed,
     merge_heads,
@@ -52,6 +68,9 @@ from vtm_torch.models.timesformer import _fold_space, _unfold_space
 from vtm_torch.ops.flash_attention import _reference, tome_frame_attention
 
 NOT_PORTED = "not ported yet (ROADMAP.md Queue 1, item 6: Motionformer)"
+# flax's gelu is the tanh approximation
+HEAD_ACTS = {"tanh": nn.Tanh, "gelu": functools.partial(nn.GELU, approximate="tanh"), "relu": nn.ReLU}
+
 
 @dataclasses.dataclass(frozen=True)
 class MotionformerConfig:
@@ -83,19 +102,18 @@ class MotionformerConfig:
         return isinstance(self.num_classes, (tuple, list))
 
 
-def _check_ported(c: MotionformerConfig, train_mode: bool) -> None:
+def _check_ported(c: MotionformerConfig) -> None:
     unported = [
-        (c.attn_layer != "trajectory", f"attn_layer {c.attn_layer!r}"),
+        (c.attn_layer not in ("trajectory", "joint"), f"attn_layer {c.attn_layer!r}"),
         (c.approx_attn_type != "none", f"approx_attn_type {c.approx_attn_type!r}"),
-        (c.head_act != "tanh", f"head_act {c.head_act!r}"),
-        (c.multi_head, "twin verb/noun heads (tuple num_classes)"),
-        (c.pos_embed_type != "separate", f"pos_embed_type {c.pos_embed_type!r}"),
-        (c.patch_size_temp == 1, "the 2-D patch embed (patch_size_temp 1)"),
-        (train_mode, "training (train_mode)"),
     ]
     for bad, what in unported:
         if bad:
             raise NotImplementedError(f"Motionformer {what} is {NOT_PORTED}")
+    if c.head_act not in HEAD_ACTS:
+        raise ValueError(f"unknown head_act {c.head_act!r}; one of {sorted(HEAD_ACTS)}")
+    if c.pos_embed_type not in ("separate", "joint"):
+        raise ValueError(f"unknown pos_embed_type {c.pos_embed_type!r}")
 
 
 class TrajectoryAttention(nn.Module):
@@ -113,10 +131,10 @@ class TrajectoryAttention(nn.Module):
         self.scale = (d // c.num_heads) ** -0.5
         self.use_original_code = c.use_original_code
         self.use_kernel = True
-        self.qkv = nn.Linear(d, d * 3, bias=c.qkv_bias)
-        self.proj_q = nn.Linear(d, d, bias=c.qkv_bias)
-        self.proj_kv = nn.Linear(d, d * 2, bias=c.qkv_bias)
-        self.proj = nn.Linear(d, d)
+        self.qkv = Linear(d, d * 3, bias=c.qkv_bias)
+        self.proj_q = Linear(d, d, bias=c.qkv_bias)
+        self.proj_kv = Linear(d, d * 2, bias=c.qkv_bias)
+        self.proj = Linear(d, d)
 
     def forward(self, x: torch.Tensor, num_frames: int, size: Optional[torch.Tensor] = None):
         """x [B, 1 + F*s, D]; ``size`` [(B*F), s, 1] per-pseudo-frame token
@@ -146,27 +164,77 @@ class TrajectoryAttention(nn.Module):
             attn = torch.softmax(logits.view(b, h, nb, f, s), dim=-1).to(v.dtype)
             xfa = torch.einsum("bhqfn,bhfnd->bqfhd", attn, v_.reshape(b, h, f, s, hd))
 
-        # temporal attention; the query is the token's own-frame slice
-        xq = xfa.reshape(b, nb, f, d)  # token-major [B, N', F, D]
-        tokens = torch.arange(nb, device=x.device)
+        # token-major [B, N', F, D]: the head merge is a free reshape
+        out = self.temporal(xfa.reshape(b, nb, f, d), s)
+        out = self.proj(torch.cat([cls_out, out], dim=1))
+
+        # metric: (s f) fold of the body keys, mean over heads
+        return out, _fold_space(k_.mean(dim=1), b, f)
+
+    def temporal(self, xq: torch.Tensor, s: int) -> torch.Tensor:
+        """Temporal attention along each token's trajectory: xq [B, N', F, D]
+        (the spatial step's output per frame) -> [B, N', D]. The query is
+        the token's own-frame slice."""
+        b, nb, f, d = xq.shape
+        h = self.num_heads
+        hd = d // h
+        scale = self.scale
+        tokens = torch.arange(nb, device=xq.device)
         x_diag = xq[:, tokens, tokens // s]  # [B, N', D]
         q2 = self.proj_q(x_diag)
         if self.use_original_code:
-            # v=x typo: proj_kv's v half is never used
+            # v=x typo: proj_kv's v half is never used (its gradient is
+            # zero). The cast at use covers fp32 parameters, as in Linear.
             w, bias = self.proj_kv.weight, self.proj_kv.bias
-            k2 = F.linear(xq, w[:d], None if bias is None else bias[:d])
+            k2 = F.linear(xq, w[:d].to(xq.dtype), None if bias is None else bias[:d].to(xq.dtype))
             val2 = xq
         else:
             k2, val2 = self.proj_kv(xq).chunk(2, dim=-1)
         # per-head logits: products in the compute dtype, summed in fp32
         z = (q2 * scale)[:, :, None, :] * k2  # [B, N', F, D]
         logits2 = z.float().view(b, nb, f, h, hd).sum(dim=-1)  # [B, N', F, h]
-        attn2 = torch.softmax(logits2, dim=2).to(v.dtype)
-        out = (attn2[..., None] * val2.reshape(b, nb, f, h, hd)).sum(dim=2).reshape(b, nb, d)
-        out = self.proj(torch.cat([cls_out, out], dim=1))
+        attn2 = torch.softmax(logits2, dim=2).to(xq.dtype)
+        return (attn2[..., None] * val2.reshape(b, nb, f, h, hd)).sum(dim=2).reshape(b, nb, d)
 
-        # metric: (s f) fold of the body keys, mean over heads
-        return out, _fold_space(k_.mean(dim=1), b, f)
+
+class JointAttention(nn.Module):
+    """Joint space-time attention over all tokens (plain products, as in
+    ``vtm``; the token sizes are not used), returning (out, metric)."""
+
+    def __init__(self, config: MotionformerConfig):
+        super().__init__()
+        c = config
+        d = c.embed_dim
+        self.num_heads = c.num_heads
+        self.scale = (d // c.num_heads) ** -0.5
+        self.qkv = Linear(d, d * 3, bias=c.qkv_bias)
+        self.proj = Linear(d, d)
+
+    def forward(self, x: torch.Tensor, num_frames: int, size: Optional[torch.Tensor] = None):
+        q, k, v = (split_heads(t, self.num_heads) for t in self.qkv(x).chunk(3, dim=-1))
+        out = self.proj(merge_heads(_reference(q, k, v, None, self.scale)))
+        return out, _fold_space(k.mean(dim=1)[:, 1:], x.shape[0], num_frames)
+
+
+class PatchEmbed2d(nn.Module):
+    """Per-frame patch embedding [B, T, H, W, C] -> [B, T * H/p * W/p, dim]
+    (``patch_size_temp`` 1): a Conv2d with kernel = stride = p over every
+    frame, tokens frame-major. Computes in ``dtype``, or in the weight's
+    dtype when that is None."""
+
+    def __init__(self, in_chans: int, features: int, patch: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.proj = nn.Conv2d(in_chans, features, kernel_size=patch, stride=patch)
+
+    def forward(self, v: torch.Tensor) -> torch.Tensor:
+        p = self.proj
+        dtype = self.dtype or p.weight.dtype
+        b = v.shape[0]
+        frames = v.flatten(0, 1).permute(0, 3, 1, 2).to(dtype)
+        x = F.conv2d(frames, p.weight.to(dtype), p.bias.to(dtype), stride=p.stride)
+        return x.flatten(2).transpose(1, 2).reshape(b, -1, x.shape[1])
 
 
 class MotionformerBlock(nn.Module):
@@ -178,7 +246,7 @@ class MotionformerBlock(nn.Module):
         c = config
         self.policy = policy
         self.norm1 = LayerNorm(c.embed_dim, eps=c.layer_norm_eps)
-        self.attn = TrajectoryAttention(c)
+        self.attn = {"trajectory": TrajectoryAttention, "joint": JointAttention}[c.attn_layer](c)
         self.norm2 = LayerNorm(c.embed_dim, eps=c.layer_norm_eps)
         self.mlp = Mlp(c.embed_dim, int(c.embed_dim * c.mlp_ratio), c.embed_dim)
 
@@ -196,10 +264,11 @@ class MotionformerBlock(nn.Module):
 
 
 class Motionformer(nn.Module):
-    """Full model, inference only. Input: [B, T, H, W, C] channels-last
-    video (T raw frames; the tubelet embed reduces them to
-    ``temporal_resolution``). Returns (class probabilities [B,
-    num_classes] fp32, MergeState)."""
+    """Full model. Input: [B, T, H, W, C] channels-last video (T raw
+    frames; the tubelet embed reduces them to ``temporal_resolution``).
+    Returns (output, MergeState): class probabilities [B, num_classes]
+    fp32, or with ``train_mode`` the raw logits; a (verb, noun) pair of
+    them for the twin heads."""
 
     def __init__(
         self,
@@ -208,72 +277,104 @@ class Motionformer(nn.Module):
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
         train_mode: bool = False,
+        fp32_params: bool = False,
     ):
         super().__init__()
-        _check_ported(config, train_mode)
+        _check_ported(config)
         c = config
         d = c.embed_dim
         self.config = config
         self.policy = policy
-        self.patch_embed_3d = TubeletEmbed(c.in_chans, d, c.patch_size_temp, c.patch_size)
+        self.train_mode = train_mode
+        if c.patch_size_temp > 1:
+            self.patch_embed_3d = TubeletEmbed(c.in_chans, d, c.patch_size_temp, c.patch_size, dtype=dtype)
+        else:
+            self.patch_embed = PatchEmbed2d(c.in_chans, d, c.patch_size, dtype=dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, c.spatial_tokens + 1, d))
-        self.temp_embed = nn.Parameter(torch.zeros(1, c.temporal_resolution, d))
+        if c.pos_embed_type == "separate":
+            self.temp_embed = nn.Parameter(torch.zeros(1, c.temporal_resolution, d))
+        else:
+            self.st_embed = nn.Parameter(
+                torch.zeros(1, c.spatial_tokens * c.temporal_resolution + 1, d)
+            )
         self.blocks = nn.ModuleList(MotionformerBlock(c, policy) for _ in range(c.depth))
         self.norm = LayerNorm(d, eps=c.layer_norm_eps)
         if c.use_mlp:
             self.pre_logits = nn.Sequential(
-                collections.OrderedDict(fc=nn.Linear(d, d), act=nn.Tanh())
+                collections.OrderedDict(fc=Linear(d, d), act=HEAD_ACTS[c.head_act]())
             )
         else:
             self.pre_logits = nn.Identity()
-        self.head = nn.Linear(d, c.num_classes)
+        if c.multi_head:
+            self.head0 = nn.Linear(d, c.num_classes[0])
+            self.head1 = nn.Linear(d, c.num_classes[1])
+        else:
+            self.head = nn.Linear(d, c.num_classes)
         self._init_weights(torch.Generator().manual_seed(seed))
-        for name, module in self.named_modules():
-            if isinstance(module, (nn.Linear, nn.Conv3d)) and name != "head":
-                module.to(dtype)
+        if not fp32_params:
+            for name, module in self.named_modules():
+                if isinstance(module, (nn.Linear, nn.Conv3d, nn.Conv2d)) and not name.startswith("head"):
+                    module.to(dtype)
 
     @torch.no_grad()
     def _init_weights(self, generator: torch.Generator) -> None:
         """Truncated-normal (std 0.02) linear and conv weights, class token
-        and position embedding; zero biases and temporal embedding."""
+        and position embeddings; zero biases and temporal embedding."""
         for module in self.modules():
-            if isinstance(module, (nn.Linear, nn.Conv3d)):
+            if isinstance(module, (nn.Linear, nn.Conv3d, nn.Conv2d)):
                 nn.init.trunc_normal_(module.weight, std=0.02, generator=generator)
                 if module.bias is not None:
                     nn.init.zeros_(module.bias)
         for p in (self.cls_token, self.pos_embed):
             nn.init.trunc_normal_(p, std=0.02, generator=generator)
+        if self.config.pos_embed_type == "joint":
+            nn.init.trunc_normal_(self.st_embed, std=0.02, generator=generator)
 
     def embed(self, video: torch.Tensor) -> torch.Tensor:
         """[B, T, H, W, C] -> the first block's input [B, 1 + F*s, D]: CLS
-        token, then the tubelets frame-major, plus the position embedding
-        tiled over frames and the temporal one repeated over space."""
+        token, then the patches frame-major, plus the position embedding
+        tiled over frames and the temporal one repeated over space (or the
+        joint space-time embedding)."""
         c = self.config
-        emb = self.patch_embed_3d(video)
+        emb = (self.patch_embed_3d if c.patch_size_temp > 1 else self.patch_embed)(video)
         cls = self.cls_token.to(emb.dtype).expand(emb.shape[0], -1, -1)
         x = torch.cat([cls, emb], dim=1)
+        if c.pos_embed_type == "joint":
+            return x + self.st_embed.to(x.dtype)
         pos = self.pos_embed
         tiled = pos[:, 1:].repeat(1, c.temporal_resolution, 1) + self.temp_embed.repeat_interleave(
             c.spatial_tokens, dim=1
         )
         return x + torch.cat([pos[:, :1], tiled], dim=1).to(x.dtype)
 
+    def _head(self, head: nn.Linear, feats: torch.Tensor) -> torch.Tensor:
+        logits = head(feats)
+        return logits if self.train_mode else torch.softmax(logits, dim=-1)
+
     def forward(
-        self, x: torch.Tensor, state: Optional[MergeState] = None
-    ) -> Tuple[torch.Tensor, MergeState]:
+        self,
+        x: torch.Tensor,
+        state: Optional[MergeState] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """``generator`` is accepted for the train step's sake and unused:
+        the model draws nothing."""
         if state is None:
             state = MergeState()
         x = self.embed(x)
         for i, block in enumerate(self.blocks):
             x, state = block(x, state, layer=i, num_frames=self.config.temporal_resolution)
-        feats = self.pre_logits(self.norm(x)[:, 0])
-        return torch.softmax(self.head(feats.float()), dim=-1), state
+        feats = self.pre_logits(self.norm(x)[:, 0]).float()
+        if self.config.multi_head:
+            return (self._head(self.head0, feats), self._head(self.head1, feats)), state
+        return self._head(self.head, feats), state
 
 
 @register_model("Motionformer")
-def _build_motionformer(cfg) -> ModelBundle:
-    """Construct from a config (the keys ``vtm.models.motionformer._build_motionformer`` reads)."""
+def _build_motionformer(cfg, fp32_params: bool = False) -> ModelBundle:
+    """Construct from a config (the keys ``vtm.models.motionformer._build_motionformer``
+    reads). Like that function it leaves ``train_mode`` off."""
     num_classes = (
         cfg.MODEL.NUM_CLASSES
         if cfg.EPICKITCHENS.NUM_CLASSES is None
@@ -300,5 +401,7 @@ def _build_motionformer(cfg) -> ModelBundle:
         approx_attn_type=m.APPROX_ATTN_TYPE,
     )
     policy = make_policy(cfg, config.depth, n_protected_class_token=False)
-    module = Motionformer(config, policy=policy, dtype=compute_dtype(cfg), seed=cfg.RNG_SEED)
+    module = Motionformer(
+        config, policy=policy, dtype=compute_dtype(cfg), seed=cfg.RNG_SEED, fp32_params=fp32_params
+    )
     return ModelBundle(module=module, policy=policy, name="Motionformer")

@@ -56,16 +56,19 @@
 
 namespace {
 
-using namespace nvcuda;
+using vtm::Accum;
 using vtm::from_float;
 using vtm::load_tile;
+using vtm::logit;
+using vtm::product_abt;
+using vtm::write_rows;
+// shared-memory layout, tile products and register accumulators: attention_tiles.cuh
+template <typename T, int D>
+using Layout = vtm::BwdLayout<T, D>;
 
 constexpr int kTile = vtm::kTileRows;  // rows of a q tile and keys of a k tile
-constexpr int kWarps = 4;              // each warp owns a 16-row strip
-constexpr int kThreads = kWarps * 32;
-static_assert(kThreads == vtm::kTileThreads, "load_tile strides by the block's thread count");
-static_assert(kTile == kWarps * 16, "each warp owns a 16-row strip");
-constexpr float kMask = -1e30f;
+constexpr int kThreads = vtm::kTileThreads;  // 4 warps, each owning a 16-row strip
+constexpr float kMask = vtm::kMask;
 
 // Element strides (batch, head, row) of q, k, v, do and of the outputs dq,
 // dk, dv; the last dim is contiguous everywhere.
@@ -89,166 +92,6 @@ struct Args {
   float scale;
   Strides st;
 };
-
-// Shared-memory layout: four staged [64 x D] tiles in T, the fp32 s and dp
-// tiles, and p_lo / ds_lo in T. Row pads of 16 bytes break bank conflicts
-// and keep every 16-row fragment origin 32-byte aligned, as wmma requires.
-// After the main loop the s and dp regions together stage one [64 x D]
-// fp32 result on its way to device memory.
-template <typename T, int D>
-struct Layout {
-  static constexpr int kPad = 16 / sizeof(T);
-  static constexpr int ld_x = D + kPad;      // q, k, v, do tiles (T)
-  static constexpr int ld_s = kTile + 4;     // s, dp (fp32)
-  static constexpr int ld_p = kTile + kPad;  // p_lo, ds_lo (T)
-  static constexpr int ld_o = D + 4;         // staged result (fp32)
-  static constexpr size_t x_bytes = size_t(kTile) * ld_x * sizeof(T);
-  static constexpr size_t s_bytes = size_t(kTile) * ld_s * sizeof(float);
-  static constexpr size_t p_bytes = size_t(kTile) * ld_p * sizeof(T);
-  static constexpr size_t s_off = 4 * x_bytes;
-  static constexpr size_t dp_off = s_off + s_bytes;
-  static constexpr size_t p_off = dp_off + s_bytes;
-  static constexpr size_t ds_off = p_off + p_bytes;
-  static constexpr size_t bytes = ds_off + p_bytes;
-  static_assert(x_bytes % 128 == 0 && s_bytes % 128 == 0 && p_bytes % 128 == 0,
-                "shared regions must stay 128-byte aligned");
-  static_assert(size_t(kTile) * ld_o * sizeof(float) <= 2 * s_bytes,
-                "the staged result must fit the s and dp regions");
-};
-
-// out[r, j] = sum_d a[r, d] * b[j, d] for this warp's 16 rows r and all 64
-// rows j of b, in fp32. a, b: [64 x D] tiles with leading dimension ld_x;
-// out: [64 x 64] with leading dimension ld_s.
-template <typename T, int D>
-__device__ __forceinline__ void product_abt(const T* a, const T* b, float* out, int wrow, int row,
-                                            int half) {
-  using L = Layout<T, D>;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-    for (int nt = 0; nt < kTile / 16; ++nt) {
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(fa, a + wrow * L::ld_x + kk * 16, L::ld_x);
-        // b^T as a column-major [d, j] operand: element (d, j) at b[j * ld + d]
-        wmma::load_matrix_sync(fb, b + nt * 16 * L::ld_x + kk * 16, L::ld_x);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(out + wrow * L::ld_s + nt * 16, acc, L::ld_s, wmma::mem_row_major);
-    }
-  } else {
-    const T* ar = a + row * L::ld_x;
-    for (int j = half * 32; j < half * 32 + 32; ++j) {
-      const T* br = b + j * L::ld_x;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) acc = fmaf(ar[d], br[d], acc);
-      out[row * L::ld_s + j] = acc;
-    }
-  }
-}
-
-// A [16 x D] fp32 sum held in registers: this warp's 16 rows of
-//   acc += a b        (kTransA false: a is [64 rows x 64], row-major)
-//   acc += a^T b      (kTransA true:  a is [64 x 64 rows], so a^T's row r is a's column r)
-// with b a [64 x D] tile. bf16: wmma fragments; fp32: each lane keeps half
-// a row.
-template <typename T, int D>
-struct Accum;
-
-template <int D>
-struct Accum<__nv_bfloat16, D> {
-  using T = __nv_bfloat16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[D / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) wmma::fill_fragment(f[dt], 0.f);
-  }
-
-  template <bool kTransA>
-  __device__ __forceinline__ void add(const T* a, int lda, const T* b, int ldb, int wrow, int,
-                                      int) {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      if constexpr (kTransA) {
-        // a^T as a column-major operand: element (r, j) at a[j * lda + r]
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> fa;
-        wmma::load_matrix_sync(fa, a + kk * 16 * lda + wrow, lda);
-#pragma unroll
-        for (int dt = 0; dt < D / 16; ++dt) {
-          wmma::load_matrix_sync(fb, b + kk * 16 * ldb + dt * 16, ldb);
-          wmma::mma_sync(f[dt], fa, fb, f[dt]);
-        }
-      } else {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, a + wrow * lda + kk * 16, lda);
-#pragma unroll
-        for (int dt = 0; dt < D / 16; ++dt) {
-          wmma::load_matrix_sync(fb, b + kk * 16 * ldb + dt * 16, ldb);
-          wmma::mma_sync(f[dt], fa, fb, f[dt]);
-        }
-      }
-    }
-  }
-
-  // stage[r, :] = acc * scale for this warp's rows
-  __device__ __forceinline__ void store(float* stage, int ld, int wrow, int, int, float scale) {
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) {
-#pragma unroll
-      for (int i = 0; i < f[dt].num_elements; ++i) f[dt].x[i] *= scale;
-      wmma::store_matrix_sync(stage + wrow * ld + dt * 16, f[dt], ld, wmma::mem_row_major);
-    }
-  }
-};
-
-template <int D>
-struct Accum<float, D> {
-  float f[D / 2];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int d = 0; d < D / 2; ++d) f[d] = 0.f;
-  }
-
-  template <bool kTransA>
-  __device__ __forceinline__ void add(const float* a, int lda, const float* b, int ldb, int,
-                                      int row, int half) {
-    const float* bh = b + half * (D / 2);
-    for (int j = 0; j < kTile; ++j) {
-      const float aj = kTransA ? a[j * lda + row] : a[row * lda + j];
-#pragma unroll
-      for (int d = 0; d < D / 2; ++d) f[d] = fmaf(aj, bh[j * ldb + d], f[d]);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* stage, int ld, int, int row, int half,
-                                        float scale) {
-#pragma unroll
-    for (int d = 0; d < D / 2; ++d) stage[row * ld + half * (D / 2) + d] = f[d] * scale;
-  }
-};
-
-// Rows [row0, row0 + 64) of a staged [64 x D] fp32 result -> device memory
-// in T, skipping rows at or past `end`.
-template <typename T, int D>
-__device__ __forceinline__ void write_rows(T* dst, long long row_stride, const float* stage,
-                                           int ld, int row0, int end) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i % D;
-    if (row0 + r < end) dst[(row0 + r) * row_stride + c] = from_float<T>(stage[r * ld + c]);
-  }
-}
-
-__device__ __forceinline__ float logit(float qk, float scale, const float* bias, int key) {
-  return fmaf(qk, scale, bias ? bias[key] : 0.f);
-}
 
 // ---- dq, and the row statistics every tile of ds needs -------------------
 template <typename T, int D>

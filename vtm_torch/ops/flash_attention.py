@@ -12,15 +12,21 @@ K2, ``tome_flash_attention_backward``: dq, dk, dv and dbias of K1 from
 K3, ``tome_frame_attention``: the same with a separate softmax over each
 frame's contiguous key segment, returning token-major [B, N, F, H, d]
 (Motionformer's trajectory attention), the counterpart of ``vtm``'s
-``tome_frame_attention`` (forward only); kernel
-``csrc/frame_attention_fwd.cu``.
+``tome_frame_attention``; kernel ``csrc/frame_attention_fwd.cu``. It is
+differentiable: a ``torch.autograd.Function`` whose backward is K4.
+
+K4, ``tome_frame_attention_backward``: dq, dk, dv and dbias of K3 from
+(q, k, v, key_bias, do), recomputing each frame's softmax (the
+counterpart of ``vtm``'s ``_frame_bwd``, for every head count and frame
+length); kernel ``csrc/frame_attention_bwd.cu``.
 
 None writes the [B, H, N, N] logits to device memory. The kernels are
 CUDA C++ for Hopper, built and bound by ``vtm_torch/ops/build.py``.
 
 A tensor on the CPU goes to the plain PyTorch version of the same math
-(``_reference``, ``_backward_reference``, ``_frame_reference``). A CUDA
-tensor goes to the kernel, or the call raises: there is no fallback.
+(``_reference``, ``_backward_reference``, ``_frame_reference``,
+``_frame_backward_reference``). A CUDA tensor goes to the kernel, or the
+call raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ from typing import Optional
 import torch
 
 # Kernel launches since import (or since a caller reset them to 0):
-# K1 (tome_flash_attention), K2 (its backward) and K3 (tome_frame_attention).
+# K1 (tome_flash_attention), K2 (its backward), K3 (tome_frame_attention)
+# and K4 (its backward).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 FRAME_LAUNCHES = 0
+FRAME_BWD_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -145,10 +153,21 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     if (
         t.stride(-1) != 1
         or t.data_ptr() % _ALIGN
-        or any((s * size) % _ALIGN for s in t.stride()[:3])
+        or any((s * size) % _ALIGN for s in t.stride()[:-1])
     ):
         return t.contiguous()
     return t
+
+
+def _gradient_buffers(q: torch.Tensor, want_dbias: bool):
+    """What a backward kernel writes: dq, dk, dv as [B, H, N, d] views of
+    one token-major [B, N, 3, H, d] buffer, and the per-head dbias
+    [B, H, N] in float32 (None when not wanted)."""
+    b, h, n, d = q.shape
+    grads = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+    dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
+    dbias_heads = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if want_dbias else None
+    return dq, dk, dv, dbias_heads
 
 
 def tome_flash_attention_backward(
@@ -185,13 +204,8 @@ def tome_flash_attention_backward(
 
     lib = load_library()
     b, h, n, d = q.shape
-    grads = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
-    dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
+    dq, dk, dv, dbias_heads = _gradient_buffers(q, need_dbias and key_bias is not None)
     stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
-    want_dbias = need_dbias and key_bias is not None
-    dbias_heads = (
-        torch.empty((b, h, n), dtype=torch.float32, device=q.device) if want_dbias else None
-    )
     strides = (ctypes.c_longlong * 21)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
@@ -281,23 +295,8 @@ def check_frame_kernel_args(q, k, v, key_bias, frames: int) -> None:
     check_kernel_args(q, k, v, key_bias)
 
 
-def tome_frame_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    key_bias: Optional[torch.Tensor] = None,
-    sm_scale: float = 1.0,
-    frames: int = 8,
-) -> torch.Tensor:
-    """Per-frame softmax attention: for each query and each frame f, a
-    softmax over the keys [f*s, (f+1)*s) (s = N / frames) of
-    q k^T * sm_scale + key_bias, times those keys' values.
-
-    q, k, v: [B, H, N, d] in bfloat16 or float32, last dim contiguous (the
-    ``split_heads`` views of a fused projection go in without a copy).
-    key_bias: float32 [B, N] or None. Returns token-major [B, N, F, H, d]
-    in q's dtype, so the [B, N, F, H*d] view is free.
-    """
+def _frame_forward(q, k, v, key_bias, sm_scale, frames):
+    """K3 on a CUDA tensor, its plain version on a CPU tensor."""
     global FRAME_LAUNCHES
     if not q.is_cuda:
         return _frame_reference(q, k, v, key_bias, sm_scale, frames)
@@ -325,3 +324,136 @@ def tome_frame_attention(
         raise RuntimeError(f"frame attention kernel launch failed with cudaError_t {err}")
     FRAME_LAUNCHES += 1
     return out
+
+
+def _frame_backward_reference(q, k, v, key_bias, do, sm_scale, frames):
+    """Plain version of K4, step by step with the TPU kernel's rounding
+    points (vtm/ops/flash_attention.py:1113-1200, 1261-1273), per frame f
+    with keys [f*s, (f+1)*s): fp32 logits from the unscaled q, an fp32
+    softmax over the frame, dp = do_f v_f^T and ds = p (dp - rowsum(p dp))
+    in fp32; p and ds rounded to the input dtype before the three
+    products, whose fp32 sums (dq over frames and keys, dk and dv over
+    queries) are cast at the end; dbias from the unrounded ds, summed over
+    queries and heads. ``do`` is the token-major cotangent [B, N, F, H, d].
+    Returns (dq, dk, dv, dbias); dbias is None without a key_bias."""
+    dtype = q.dtype
+    b, h, n, d = q.shape
+    s = n // frames
+    qf, dof = q.float(), do.float()
+    kf, vf = (t.float().reshape(b, h, frames, s, d) for t in (k, v))
+    sf = torch.einsum("bhqd,bhfkd->bhqfk", qf, kf) * sm_scale
+    if key_bias is not None:
+        sf = sf + key_bias.float().view(b, 1, 1, frames, s)
+    p = torch.softmax(sf, dim=-1)
+    dp = torch.einsum("bqfhd,bhfkd->bhqfk", dof, vf)
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    p_lo = p.to(dtype).float()
+    ds_lo = ds.to(dtype).float()
+    dq = (torch.einsum("bhqfk,bhfkd->bhqd", ds_lo, kf) * sm_scale).to(dtype)
+    dk = (torch.einsum("bhqfk,bhqd->bhfkd", ds_lo, qf) * sm_scale).reshape(b, h, n, d).to(dtype)
+    dv = torch.einsum("bhqfk,bqfhd->bhfkd", p_lo, dof).reshape(b, h, n, d).to(dtype)
+    dbias = None if key_bias is None else ds.sum(dim=(1, 2)).reshape(b, n).to(key_bias.dtype)
+    return dq, dk, dv, dbias
+
+
+def tome_frame_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor],
+    do: torch.Tensor,
+    sm_scale: float = 1.0,
+    frames: int = 8,
+    need_dbias: bool = True,
+):
+    """Gradients of ``tome_frame_attention`` given ``do`` = d loss / d out.
+
+    q, k, v, key_bias as in the forward; do: token-major [B, N, F, H, d] in
+    q's dtype, last dim contiguous (read through its strides: no
+    head-major transpose). Returns (dq, dk, dv, dbias): dq, dk, dv are
+    [B, H, N, d] views of one token-major [B, N, 3, H, d] buffer; dbias is
+    float32 [B, N] (summed over heads and queries), or None when there is
+    no key_bias or ``need_dbias`` is False.
+    """
+    global FRAME_BWD_LAUNCHES
+    if not q.is_cuda:
+        dq, dk, dv, dbias = _frame_backward_reference(q, k, v, key_bias, do, sm_scale, frames)
+        return dq, dk, dv, dbias if need_dbias else None
+    check_frame_kernel_args(q, k, v, key_bias, frames)
+    b, h, n, d = q.shape
+    if do.shape != (b, n, frames, h, d) or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"do must be {q.dtype} {(b, n, frames, h, d)} on {q.device}, "
+            f"got {do.dtype} {tuple(do.shape)} on {do.device}"
+        )
+    do = _kernel_operand(do)
+    from vtm_torch.ops.build import load_library
+
+    lib = load_library()
+    dq, dk, dv, dbias_heads = _gradient_buffers(q, need_dbias and key_bias is not None)
+    stats = torch.empty((3, b, h, frames, n), dtype=torch.float32, device=q.device)
+    gb, grow, gframe, ghead = do.stride()[:4]
+    strides = (ctypes.c_longlong * 22)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], gb, ghead, grow, gframe,
+        *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+    )
+    with torch.cuda.device(q.device):
+        err = lib.vtm_frame_attention_bwd(
+            _DTYPE_CODES[q.dtype], d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if key_bias is None else key_bias.data_ptr(),
+            do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if dbias_heads is None else dbias_heads.data_ptr(),
+            stats.data_ptr(),
+            b, h, n, frames, float(sm_scale),
+            ctypes.addressof(strides),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"frame attention backward kernel launch failed with cudaError_t {err}")
+    FRAME_BWD_LAUNCHES += 1
+    dbias = None if dbias_heads is None else dbias_heads.sum(dim=1).to(key_bias.dtype)
+    return dq, dk, dv, dbias
+
+
+class _FrameAttention(torch.autograd.Function):
+    """K3 forward, K4 backward. Saves (q, k, v, key_bias) only: the
+    backward recomputes each frame's softmax, as ``vtm``'s custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, sm_scale, frames):
+        ctx.save_for_backward(q, k, v, key_bias)
+        ctx.sm_scale, ctx.frames = sm_scale, frames
+        return _frame_forward(q, k, v, key_bias, sm_scale, frames)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_bias = ctx.saved_tensors
+        dq, dk, dv, dbias = tome_frame_attention_backward(
+            q, k, v, key_bias, do, ctx.sm_scale, ctx.frames, need_dbias=ctx.needs_input_grad[3]
+        )
+        return dq, dk, dv, dbias, None, None
+
+
+def tome_frame_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    sm_scale: float = 1.0,
+    frames: int = 8,
+) -> torch.Tensor:
+    """Per-frame softmax attention: for each query and each frame f, a
+    softmax over the keys [f*s, (f+1)*s) (s = N / frames) of
+    q k^T * sm_scale + key_bias, times those keys' values.
+
+    q, k, v: [B, H, N, d] in bfloat16 or float32, last dim contiguous (the
+    ``split_heads`` views of a fused projection go in without a copy).
+    key_bias: float32 [B, N] or None. Returns token-major [B, N, F, H, d]
+    in q's dtype, so the [B, N, F, H*d] view is free. Gradients with
+    respect to q, k, v and key_bias come from K4
+    (``tome_frame_attention_backward``).
+    """
+    return _FrameAttention.apply(q, k, v, key_bias, sm_scale, frames)

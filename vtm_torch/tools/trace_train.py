@@ -1,11 +1,13 @@
-"""Where a VideoMAE train step's time goes on the card.
+"""Where a train step's time goes on the card.
 
-    python -m vtm_torch.tools.trace_train [--steps 4] [--opts KEY VALUE ...]
+    python -m vtm_torch.tools.trace_train [--model videomae|motionformer]
+                                          [--steps 4] [--opts KEY VALUE ...]
 
 Builds the trainer that ``vtm_torch.tools.train_net`` steps with (ViT-B/16
 16x224, batch 8, bf16 compute, fp32 parameters, AdamW, cross-entropy, one
-fixed synthetic batch; ``--opts`` change the config), merged at r=150 and
-unmerged, and for each:
+fixed synthetic batch; ``--opts`` change the config), merged (VideoMAE at
+r=150; Motionformer with trajectory attention at r=18 per pseudo-frame,
+proportional attention) and unmerged, and for each:
   * times warm steps untraced, two ways: each step synchronised, as the
     train loop runs them (it reads the loss every iteration), and
     ``--steps`` steps queued back to back with one synchronise at the end;
@@ -14,9 +16,12 @@ unmerged, and for each:
     name (annotation spans are left out).
 Prints one JSON line per program: step_ms (synchronised), queued_step_ms,
 kernel_ms per step, the device idle share of each (1 - kernel time /
-wall), kernels launched per step, kernel time by category (K1, K2's two
-kernels, linear layers, the optimizer, ...) and the 25 longest kernels by
-name. Needs a CUDA device.
+wall), kernels launched per step, kernel time by category (K1, K3, the two
+kernels each of K2 and K4, linear layers, the optimizer, ...), the peak
+device memory, the 25 longest kernels by name, and for Motionformer
+``temporal_chain_ms``: the device time of the temporal attention chain,
+forward and backward, from CUDA events around it (``ChainTimer``). Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,19 +42,31 @@ from vtm_torch.train.optimizer import set_lr
 
 # ViT-B/16 16x224 at r=150 without proportional attention, one 400-class
 # head, AdamW at a constant 1e-4 with weight decay 0.05.
-STEP_OPTS = [
-    "MODEL.MODEL_NAME", "VideoMAE", "MODEL.ARCH", "videomae", "MODEL.NUM_CLASSES", "400",
-    "VIDEOMAE.MODEL", "vit_base_patch16_224", "DATA.NUM_FRAMES", "16",
-    "DATA.TRAIN_CROP_SIZE", "224", "DATA.TEST_CROP_SIZE", "224",
-    "TOME.ENABLE", "True", "TOME.R_VALUE", "150", "TOME.PROP_ATTN", "False",
+_COMMON_OPTS = [
+    "MODEL.NUM_CLASSES", "400", "DATA.NUM_FRAMES", "16",
+    "DATA.TRAIN_CROP_SIZE", "224", "DATA.TEST_CROP_SIZE", "224", "TOME.ENABLE", "True",
     "TRAIN.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "8", "TPU.COMPUTE_DTYPE", "bfloat16",
     "SOLVER.OPTIMIZING_METHOD", "adamw", "SOLVER.BASE_LR", "0.0001", "SOLVER.WEIGHT_DECAY", "0.05",
     "SOLVER.LR_POLICY", "steps_with_relative_lrs", "SOLVER.LRS", "[1]", "SOLVER.STEPS", "[0]",
 ]
+STEP_OPTS = {
+    "videomae": _COMMON_OPTS + [
+        "MODEL.MODEL_NAME", "VideoMAE", "MODEL.ARCH", "videomae",
+        "VIDEOMAE.MODEL", "vit_base_patch16_224", "TOME.R_VALUE", "150", "TOME.PROP_ATTN", "False",
+    ],
+    # trajectory attention, 8 frames of 196 tokens, the tanh pre-logits layer
+    "motionformer": _COMMON_OPTS + [
+        "MODEL.MODEL_NAME", "Motionformer", "MODEL.ARCH", "motionformer",
+        "MOTIONFORMER.USE_MLP", "True", "TOME.R_VALUE", "18", "TOME.PROP_ATTN", "True",
+    ],
+}
 
 
 # (category, substring of the kernel's name), first match wins
 _CATEGORIES = (
+    ("k4_frame_bwd_dq", "frame_bwd_dq"),
+    ("k4_frame_bwd_dkdv", "frame_bwd_dkdv"),
+    ("k3_frame_attention_fwd", "frame_attention_fwd"),
     ("k2_attention_bwd_dq", "attention_bwd_dq"),
     ("k2_attention_bwd_dkdv", "attention_bwd_dkdv"),
     ("k1_attention_fwd", "attention_fwd"),
@@ -83,10 +100,51 @@ def _category(name: str) -> str:
     return "other"
 
 
-def trace_program(label: str, opts, steps: int, warm: int = 3) -> dict:
+class ChainTimer:
+    """Device time of Motionformer's temporal attention chain, forward and
+    backward, from CUDA events: around each block's ``attn.temporal`` call,
+    and in the backward from the moment the gradient of its output exists
+    to the moment the gradient of its input does. The spans include any
+    idle gap inside them and overlap the categories by kernel name."""
+
+    def __init__(self, module: torch.nn.Module):
+        self.spans = {"forward": [], "backward": []}
+        for blk in module.blocks:
+            if hasattr(blk.attn, "temporal"):
+                blk.attn.temporal = self._wrap(blk.attn.temporal)
+
+    @staticmethod
+    def _event() -> torch.cuda.Event:
+        evt = torch.cuda.Event(enable_timing=True)
+        evt.record()
+        return evt
+
+    def _wrap(self, temporal):
+        def timed(xq, s):
+            start = self._event()
+            out = temporal(xq, s)
+            self.spans["forward"].append((start, self._event()))
+            if out.requires_grad and xq.requires_grad:
+                span = []
+                out.register_hook(lambda g: span.append(self._event()))
+                xq.register_hook(lambda g: self.spans["backward"].append((span[0], self._event())))
+            return out
+
+        return timed
+
+    def ms_per_step(self, steps: int) -> dict:
+        """Call after a synchronise; clears the spans."""
+        out = {k: sum(a.elapsed_time(b) for a, b in v) / steps for k, v in self.spans.items()}
+        for v in self.spans.values():
+            v.clear()
+        return out
+
+
+def trace_program(model: str, label: str, opts, steps: int, warm: int = 3) -> dict:
     cfg = get_cfg()
-    cfg.merge_from_list(STEP_OPTS + list(opts))
+    cfg.merge_from_list(STEP_OPTS[model] + list(opts))
     trainer = build_trainer(cfg)
+    chain = ChainTimer(trainer.module) if model == "motionformer" else None
     batch = next(iter(construct_loader(cfg, "train")))
     frames = torch.from_numpy(batch["frames"]).cuda()
     labels = torch.from_numpy(np.asarray(batch["label"])).cuda()
@@ -110,6 +168,8 @@ def trace_program(label: str, opts, steps: int, warm: int = 3) -> dict:
     torch.cuda.synchronize()
     queued_step_ms = (time.perf_counter() - t0) / steps * 1e3
 
+    if chain is not None:
+        chain.ms_per_step(1)  # drop the spans of the untraced steps
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(steps):
@@ -126,8 +186,10 @@ def trace_program(label: str, opts, steps: int, warm: int = 3) -> dict:
     for name, ms in by_name.items():
         by_category[_category(name)] = by_category.get(_category(name), 0.0) + ms / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
+    extra = {} if chain is None else {"temporal_chain_ms": chain.ms_per_step(steps)}
     return dict(
-        program=label, step_ms=step_ms, train_clips_per_sec=8 / step_ms * 1e3,
+        model=model, program=label, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **extra,
+        step_ms=step_ms, train_clips_per_sec=8 / step_ms * 1e3,
         queued_step_ms=queued_step_ms, kernel_ms=kernel_ms,
         device_idle_share=max(0.0, 1 - kernel_ms / step_ms),
         queued_device_idle_share=max(0.0, 1 - kernel_ms / queued_step_ms),
@@ -138,6 +200,7 @@ def trace_program(label: str, opts, steps: int, warm: int = 3) -> dict:
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=sorted(STEP_OPTS), default="videomae")
     parser.add_argument("--steps", type=int, default=4)
     parser.add_argument("--opts", nargs=argparse.REMAINDER, default=[])
     args = parser.parse_args()
@@ -149,7 +212,8 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     for label, opts in (("merged", ()), ("unmerged", ("TOME.ENABLE", "False"))):
-        row = trace_program(label, list(opts) + args.opts, args.steps)
+        torch.cuda.reset_peak_memory_stats()
+        row = trace_program(args.model, label, list(opts) + args.opts, args.steps)
         print(json.dumps(dict(row, nvidia_smi=smi)), flush=True)
         torch.cuda.empty_cache()
 
