@@ -21,6 +21,16 @@ fp32 parameters, bf16 compute and AdamW:
   * Motionformer ViT-B/16 fine-tuning through the merge
     (``MF_TRAIN_OPTS``: the values of configs/motionformer/epickitchens/
     tome_motionformer_224_16x4.yaml).
+TimeSformer and ViViT, the same way:
+  * TimeSformer ViT-B/16 at 8x224 with divided space-time attention, merged
+    per frame with r=18 and proportional attention: serving (``TS_OPTS``:
+    configs/timesformer/kinetics/tome_TimeSformer_divST_8x32_224.yaml) and
+    fine-tuning with SGD (``TS_TRAIN_OPTS``: configs/timesformer/
+    epickitchens/tome_train_TimeSformer_divST_8_224.yaml);
+  * ViViT ViT-B at 32x224 (3137 tokens), merged with r=300 and proportional
+    attention: serving (``VIVIT_OPTS``: configs/vivit/kinetics/
+    tome_vivit_8x32_224.yaml) and fine-tuning with SGD (``VIVIT_TRAIN_OPTS``:
+    configs/vivit/epickitchens/tome_train_vivit_8x32_224.yaml).
 The configs are ``get_cfg()`` plus those --opts lists (no yaml parser
 needed).
 
@@ -32,10 +42,13 @@ Phases, each printing one JSON line:
      frame_kernel -- the per-frame attention kernel (K3) against its plain
                   version
      frame_bwd_kernel -- its backward (K4) against its plain version
+     blockdiag_kernel -- the block-diagonal attention kernel (K5a) against
+                  its plain version: biased, unbiased and with the row mask
+     blockdiag_bwd_kernel -- its backward (K5b) against its plain version
      Each is also timed against its plain version and against the one
      PyTorch call that computes the same function
-     (scaled_dot_product_attention, its autograd backward for K2 and K4), beside
-     the least time the card could take (``bound_ms``).
+     (scaled_dot_product_attention, its autograd backward for K2, K4 and
+     K5b), beside the least time the card could take (``bound_ms``).
   4. blocks    -- teacher-forced VideoMAE ViT-B blocks, fp32: kernel path vs
                   plain path
      mf_blocks -- the same for Motionformer ViT-B blocks
@@ -43,6 +56,10 @@ Phases, each printing one JSON line:
                   ViT-B through K1 and K2 against the plain path
      mf_train_blocks -- the same for the fp32 Motionformer ViT-B through K3
                   and K4
+     ts_blocks, ts_train_blocks -- the same two for the fp32 TimeSformer
+                  ViT-B through K5a and K5b
+     vivit_blocks, vivit_train_blocks -- the same two for the fp32 ViViT
+                  ViT-B through the biased K1 and K2
   5. serve     -- VideoMAE model_benchmark merged and unmerged; launch counts,
                   token counts, finite logits, clips/s
      mf_serve  -- the same for Motionformer; probabilities sum to 1
@@ -55,6 +72,10 @@ Phases, each printing one JSON line:
      mf_train  -- the same for Motionformer (K3 and K4 launches per step,
                   peak device memory; ``train(cfg)`` on its EPIC-KITCHENS
                   config with the twin heads)
+     ts_serve, ts_train -- TimeSformer serving and train steps (SGD as
+                  shipped), with K5a and K5b launches per forward and step
+     vivit_serve, vivit_train -- ViViT serving and train steps, with the
+                  biased K1 and K2 launches
 Each serve or train phase sets the kernels' launch counts to 0 just before
 it and reads them just after. Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and the script exits
@@ -86,9 +107,13 @@ from vtm_torch.ops import build as kernel_build
 from vtm_torch.ops import flash_attention
 from vtm_torch.ops.flash_attention import (
     _backward_reference,
+    _blockdiag_backward_reference,
+    _blockdiag_reference,
     _frame_backward_reference,
     _frame_reference,
     _reference,
+    tome_blockdiag_attention,
+    tome_blockdiag_attention_backward,
     tome_flash_attention,
     tome_flash_attention_backward,
     tome_frame_attention,
@@ -387,6 +412,230 @@ MF_TRAIN_OPTS = [
     "OUTPUT_DIR", ".",
 ]
 
+# configs/timesformer/kinetics/tome_TimeSformer_divST_8x32_224.yaml, key by
+# key, with the checkpoint placeholder replaced by "" (random weights).
+TS_OPTS = [
+    "TRAIN.AUTO_RESUME", "True",
+    "TRAIN.BATCH_SIZE", "8",
+    "TRAIN.CHECKPOINT_PERIOD", "5",
+    "TRAIN.DATASET", "kinetics",
+    "TRAIN.ENABLE", "True",
+    "TRAIN.EVAL_PERIOD", "5",
+    "DATA.INPUT_CHANNEL_NUM", "[3]",
+    "DATA.NUM_FRAMES", "8",
+    "DATA.PATH_PREFIX", "<KINETICS-400-PATH-PREFIX>",
+    "DATA.PATH_TO_DATA_DIR", "<KINETICS-400-VIDEO>",
+    "DATA.SAMPLING_RATE", "32",
+    "DATA.TEST_CROP_SIZE", "224",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TRAIN_JITTER_SCALES", "[256, 320]",
+    "SOLVER.BASE_LR", "0.005",
+    "SOLVER.LRS", "[1, 0.1, 0.01]",
+    "SOLVER.LR_POLICY", "steps_with_relative_lrs",
+    "SOLVER.MAX_EPOCH", "15",
+    "SOLVER.MOMENTUM", "0.9",
+    "SOLVER.OPTIMIZING_METHOD", "sgd",
+    "SOLVER.STEPS", "[0, 11, 14]",
+    "SOLVER.WEIGHT_DECAY", "0.0001",
+    "MODEL.ARCH", "timesformer",
+    "MODEL.DROPOUT_RATE", "0.5",
+    "MODEL.LOSS_FUNC", "cross_entropy",
+    "MODEL.MODEL_NAME", "TimeSformer",
+    "MODEL.NUM_CLASSES", "400",
+    "TIMESFORMER.ATTENTION_TYPE", "divided_space_time",
+    "TOME.ENABLE", "True",
+    "TOME.MODE", "merge",
+    "TOME.PROP_ATTN", "True",
+    "TOME.R_VALUE", "18",
+    "TEST.BATCH_SIZE", "64",
+    "TEST.CHECKPOINT_FILE_PATH", "",
+    "TEST.DATASET", "kinetics",
+    "TEST.ENABLE", "True",
+    "TEST.NUM_ENSEMBLE_VIEWS", "1",
+    "TEST.NUM_SPATIAL_CROPS", "1",
+    "DATA_LOADER.NUM_WORKERS", "4",
+    "DATA_LOADER.PIN_MEMORY", "True",
+    "TPU.COMPUTE_DTYPE", "bfloat16",
+    "NUM_GPUS", "1",
+    "NUM_SHARDS", "1",
+    "RNG_SEED", "0",
+    "OUTPUT_DIR", ".",
+]
+
+# configs/timesformer/epickitchens/tome_train_TimeSformer_divST_8_224.yaml, key by
+# key, with the test-checkpoint path replaced by "".
+TS_TRAIN_OPTS = [
+    "TRAIN.AUTO_RESUME", "True",
+    "TRAIN.BATCH_SIZE", "128",
+    "TRAIN.CHECKPOINT_FILE_PATH", "<TRAIN-CHECKPOINT>",
+    "TRAIN.CHECKPOINT_PERIOD", "5",
+    "TRAIN.DATASET", "epickitchens",
+    "TRAIN.ENABLE", "True",
+    "TRAIN.EVAL_PERIOD", "5",
+    "DATA.INPUT_CHANNEL_NUM", "[3]",
+    "DATA.NUM_FRAMES", "8",
+    "DATA.PATH_PREFIX", "None",
+    "DATA.PATH_TO_DATA_DIR", "None",
+    "DATA.SAMPLING_RATE", "8",
+    "DATA.TEST_CROP_SIZE", "224",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TRAIN_JITTER_SCALES", "[256, 320]",
+    "AUG.AA_TYPE", "rand-m15-n2-mstd0.5-inc1",
+    "AUG.ENABLE", "True",
+    "AUG.RE_PROB", "0.0",
+    "EPICKITCHENS.ANNOTATIONS_DIR", "<EPIC-KITCHENS-100-ANNOTATIONS>",
+    "EPICKITCHENS.NUM_CLASSES", "[97, 300]",
+    "EPICKITCHENS.PARTICIPANT_FIRST", "False",
+    "EPICKITCHENS.TEST_LIST", "EPIC_100_validation.pkl",
+    "EPICKITCHENS.TEST_SPLIT", "validation",
+    "EPICKITCHENS.TRAIN_LIST", "EPIC_100_train.pkl",
+    "EPICKITCHENS.TRAIN_PLUS_VAL", "False",
+    "EPICKITCHENS.VAL_LIST", "EPIC_100_validation.pkl",
+    "EPICKITCHENS.VISUAL_DATA_DIR", "<EPIC-KITCHENS-100-VIDEO>",
+    "SOLVER.BASE_LR", "0.005",
+    "SOLVER.LRS", "[1, 0.1, 0.01]",
+    "SOLVER.LR_POLICY", "steps_with_relative_lrs",
+    "SOLVER.MAX_EPOCH", "15",
+    "SOLVER.MOMENTUM", "0.9",
+    "SOLVER.OPTIMIZING_METHOD", "sgd",
+    "SOLVER.STEPS", "[0, 11, 14]",
+    "SOLVER.WEIGHT_DECAY", "0.0001",
+    "MODEL.ARCH", "timesformer",
+    "MODEL.DROPOUT_RATE", "0.5",
+    "MODEL.LOSS_FUNC", "cross_entropy",
+    "MODEL.MODEL_NAME", "TimeSformer",
+    "MODEL.NUM_CLASSES", "400",
+    "TIMESFORMER.ATTENTION_TYPE", "divided_space_time",
+    "TOME.ENABLE", "True",
+    "TOME.MODE", "merge",
+    "TOME.PROP_ATTN", "True",
+    "TOME.R_VALUE", "18",
+    "TEST.BATCH_SIZE", "128",
+    "TEST.CHECKPOINT_FILE_PATH", "",
+    "TEST.DATASET", "epickitchens",
+    "TEST.ENABLE", "True",
+    "TEST.NUM_ENSEMBLE_VIEWS", "1",
+    "TEST.NUM_SPATIAL_CROPS", "1",
+    "DATA_LOADER.NUM_WORKERS", "12",
+    "DATA_LOADER.PIN_MEMORY", "True",
+    "TPU.COMPUTE_DTYPE", "bfloat16",
+    "NUM_GPUS", "1",
+    "NUM_SHARDS", "1",
+    "RNG_SEED", "0",
+    "OUTPUT_DIR", "<OUTPUT-DIR>",
+]
+
+# configs/vivit/kinetics/tome_vivit_8x32_224.yaml, key by
+# key, with the checkpoint placeholder replaced by "" (random weights).
+VIVIT_OPTS = [
+    "TRAIN.AUTO_RESUME", "True",
+    "TRAIN.BATCH_SIZE", "8",
+    "TRAIN.CHECKPOINT_PERIOD", "5",
+    "TRAIN.DATASET", "kinetics",
+    "TRAIN.ENABLE", "True",
+    "TRAIN.EVAL_PERIOD", "5",
+    "DATA.INPUT_CHANNEL_NUM", "[3]",
+    "DATA.NUM_FRAMES", "32",
+    "DATA.PATH_PREFIX", "<KINETICS-400-PATH-PREFIX>",
+    "DATA.PATH_TO_DATA_DIR", "<KINETICS-400-VIDEO>",
+    "DATA.SAMPLING_RATE", "2",
+    "DATA.TEST_CROP_SIZE", "224",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TRAIN_JITTER_SCALES", "[256, 320]",
+    "SOLVER.BASE_LR", "0.005",
+    "SOLVER.LRS", "[1, 0.1, 0.01]",
+    "SOLVER.LR_POLICY", "steps_with_relative_lrs",
+    "SOLVER.MAX_EPOCH", "15",
+    "SOLVER.MOMENTUM", "0.9",
+    "SOLVER.OPTIMIZING_METHOD", "sgd",
+    "SOLVER.STEPS", "[0, 11, 14]",
+    "SOLVER.WEIGHT_DECAY", "0.0001",
+    "MODEL.ARCH", "vivit",
+    "MODEL.LOSS_FUNC", "cross_entropy",
+    "MODEL.MODEL_NAME", "ViViT",
+    "MODEL.NUM_CLASSES", "400",
+    "VIVIT.CONFIG_PATH", "configs/vivit/kinetics/tome_vivit_8x32_224.json",
+    "TOME.ENABLE", "True",
+    "TOME.MODE", "merge",
+    "TOME.PROP_ATTN", "True",
+    "TOME.R_VALUE", "300",
+    "TEST.BATCH_SIZE", "16",
+    "TEST.CHECKPOINT_FILE_PATH", "",
+    "TEST.DATASET", "kinetics",
+    "TEST.ENABLE", "True",
+    "TEST.NUM_ENSEMBLE_VIEWS", "1",
+    "TEST.NUM_SPATIAL_CROPS", "1",
+    "DATA_LOADER.NUM_WORKERS", "4",
+    "DATA_LOADER.PIN_MEMORY", "True",
+    "TPU.COMPUTE_DTYPE", "bfloat16",
+    "NUM_GPUS", "1",
+    "NUM_SHARDS", "1",
+    "RNG_SEED", "0",
+    "OUTPUT_DIR", ".",
+]
+
+# configs/vivit/epickitchens/tome_train_vivit_8x32_224.yaml, key by
+# key, with the test-checkpoint placeholder replaced by "".
+VIVIT_TRAIN_OPTS = [
+    "TRAIN.AUTO_RESUME", "True",
+    "TRAIN.BATCH_SIZE", "64",
+    "TRAIN.CHECKPOINT_FILE_PATH", "<TRAIN-CHECKPOINT>",
+    "TRAIN.CHECKPOINT_PERIOD", "5",
+    "TRAIN.DATASET", "epickitchens",
+    "TRAIN.ENABLE", "True",
+    "TRAIN.EVAL_PERIOD", "5",
+    "DATA.INPUT_CHANNEL_NUM", "[3]",
+    "DATA.NUM_FRAMES", "32",
+    "DATA.PATH_PREFIX", "None",
+    "DATA.PATH_TO_DATA_DIR", "None",
+    "DATA.SAMPLING_RATE", "2",
+    "DATA.TEST_CROP_SIZE", "224",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TRAIN_JITTER_SCALES", "[256, 320]",
+    "EPICKITCHENS.ANNOTATIONS_DIR", "<EPIC-KITCHENS-100-ANNOTATIONS>",
+    "EPICKITCHENS.NUM_CLASSES", "[97, 300]",
+    "EPICKITCHENS.PARTICIPANT_FIRST", "False",
+    "EPICKITCHENS.TEST_LIST", "EPIC_100_validation.pkl",
+    "EPICKITCHENS.TEST_SPLIT", "validation",
+    "EPICKITCHENS.TRAIN_LIST", "EPIC_100_train.pkl",
+    "EPICKITCHENS.TRAIN_PLUS_VAL", "False",
+    "EPICKITCHENS.VAL_LIST", "EPIC_100_validation.pkl",
+    "EPICKITCHENS.VISUAL_DATA_DIR", "<EPIC-KITCHENS-100-VIDEO>",
+    "SOLVER.BASE_LR", "0.003125",
+    "SOLVER.COSINE_AFTER_WARMUP", "True",
+    "SOLVER.LRS", "[]",
+    "SOLVER.LR_POLICY", "cosine",
+    "SOLVER.MAX_EPOCH", "15",
+    "SOLVER.MOMENTUM", "0.9",
+    "SOLVER.OPTIMIZING_METHOD", "sgd",
+    "SOLVER.STEPS", "[]",
+    "SOLVER.WARMUP_EPOCHS", "2.5",
+    "SOLVER.WARMUP_START_LR", "0.0",
+    "SOLVER.WEIGHT_DECAY", "0.0001",
+    "MODEL.ARCH", "vivit",
+    "MODEL.LOSS_FUNC", "cross_entropy",
+    "MODEL.MODEL_NAME", "ViViT",
+    "MODEL.NUM_CLASSES", "400",
+    "VIVIT.CONFIG_PATH", "configs/vivit/epickitchens/tome_vivit_8x32_224.json",
+    "TOME.ENABLE", "True",
+    "TOME.MODE", "merge",
+    "TOME.PROP_ATTN", "True",
+    "TOME.R_VALUE", "300",
+    "TEST.BATCH_SIZE", "64",
+    "TEST.CHECKPOINT_FILE_PATH", "",
+    "TEST.DATASET", "epickitchens",
+    "TEST.ENABLE", "True",
+    "TEST.NUM_ENSEMBLE_VIEWS", "1",
+    "TEST.NUM_SPATIAL_CROPS", "1",
+    "DATA_LOADER.NUM_WORKERS", "12",
+    "DATA_LOADER.PIN_MEMORY", "True",
+    "TPU.COMPUTE_DTYPE", "bfloat16",
+    "NUM_GPUS", "1",
+    "NUM_SHARDS", "1",
+    "RNG_SEED", "0",
+    "OUTPUT_DIR", "<OUTPUT-DIR>",
+]
+
 # What every training run here changes in that config: no files (random
 # weights, the synthetic dataset's 16 clips), batch 8, output under build/.
 TRAIN_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_train"
@@ -431,17 +680,48 @@ MF_TRAIN_ENTRY_OPTS = MF_TRAIN_RUN_OPTS + [
     "TRAIN.CHECKPOINT_PERIOD", "2",
     "TRAIN.EVAL_PERIOD", "2",
 ]
+# TimeSformer and ViViT: the configs' SGD (momentum 0.9, weight decay 1e-4)
+# at their base learning rate, constant; ViViT's cosine schedule with its
+# warm-up from 0 becomes one warm-up epoch and one cosine epoch in the
+# entry-point run.
+TS_TRAIN_RUN_OPTS = ["TRAIN.CHECKPOINT_FILE_PATH", "", "TRAIN.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "8",
+                     "DATA_LOADER.NUM_WORKERS", "4"]
+TS_TRAIN_STEP_OPTS = TS_TRAIN_RUN_OPTS + [
+    "EPICKITCHENS.NUM_CLASSES", "None",
+    "SOLVER.LRS", "[1]",
+    "SOLVER.STEPS", "[0]",
+]
+TS_TRAIN_ENTRY_OPTS = TS_TRAIN_RUN_OPTS + [
+    "SOLVER.MAX_EPOCH", "2",
+    "TRAIN.CHECKPOINT_PERIOD", "2",
+    "TRAIN.EVAL_PERIOD", "2",
+]
+VIVIT_TRAIN_STEP_OPTS = TS_TRAIN_RUN_OPTS + [
+    "EPICKITCHENS.NUM_CLASSES", "None",
+    "SOLVER.LR_POLICY", "steps_with_relative_lrs",
+    "SOLVER.LRS", "[1]",
+    "SOLVER.STEPS", "[0]",
+    "SOLVER.WARMUP_EPOCHS", "0.0",
+]
+VIVIT_TRAIN_ENTRY_OPTS = TS_TRAIN_RUN_OPTS + [
+    "SOLVER.MAX_EPOCH", "2",
+    "SOLVER.WARMUP_EPOCHS", "1.0",
+    "TRAIN.CHECKPOINT_PERIOD", "2",
+    "TRAIN.EVAL_PERIOD", "2",
+]
 # the first steps still grow the allocator's pools (every merged layer has
 # its own shapes), so the warm-up is longer than the serve phases'
 TRAIN_WARMUP, TRAIN_ITERS = 4, 8
+VIVIT_TRAIN_WARMUP, VIVIT_TRAIN_ITERS = 2, 4  # a ViViT step is several times as long
 
 # Tokens entering each of the 12 layers at r=150, and the final count.
 MERGED_COUNTS = (1568, 1418, 1268, 1118, 968, 818, 668, 518, 368, 218, 109, 55, 28)
 MERGED_K1_PER_FORWARD = 9  # K1 runs for N >= 256: layers 0-8
-KERNEL_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 256, 3137)] + [(2, 2, 37, 16)]
-TIMED = ((1568, False), (368, False))  # (N, biased)
-# K2 at the training path's shapes, and a small odd one
-BWD_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 257)] + [(2, 3, 296, 16)]
+KERNEL_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 256, 3137, 437)] + [(2, 2, 37, 16)]
+TIMED = ((1568, False), (368, False), (3137, True))  # (N, biased): VideoMAE's layers 0 and 8, ViViT's layer 0
+# K2 at the training paths' shapes (VideoMAE's layers 0, 1 and 8; ViViT's
+# layers 0 and 9), the shortest row it takes, and a small odd one
+BWD_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 257, 3137, 437)] + [(2, 3, 296, 16)]
 FP32_TOL = 1e-4
 BF16_FLOOR = 1e-2
 BLOCK_TOL = 1e-4
@@ -469,43 +749,74 @@ FRAME_TIMED = ((1568, False), (848, True))  # (N', biased): layer 0, and a merge
 # K4 at the training path's shapes (s = 196, 178, 106, 34), the 336 crop's
 # s=441, and the odd-head ragged case
 FRAME_BWD_SHAPES = [(8, 12, n, 64) for n in (1568, 1424, 848, 272)] + [(1, 12, 3528, 64), (2, 3, 296, 16)]
-COUNTERS = ("LAUNCHES", "BWD_LAUNCHES", "FRAME_LAUNCHES", "FRAME_BWD_LAUNCHES")
+COUNTERS = ("LAUNCHES", "BWD_LAUNCHES", "FRAME_LAUNCHES", "FRAME_BWD_LAUNCHES",
+            "BLOCKDIAG_LAUNCHES", "BLOCKDIAG_BWD_LAUNCHES")
 PROB_SUM_TOL = 1e-3
 # Unmerged / merged GFLOP per clip, 573.8 / 260.1, from XLA's cost analysis
 # (BENCH_FAMILIES.json): the ratio's device-independent ceiling.
 MF_FLOP_CEILING = 573.8 / 260.1
+
+# TimeSformer: 8 frames of 196 patches plus the broadcast CLS. Patches per
+# frame entering each layer at r=18, and the final count; K5a runs in every
+# layer at every length, merged and unmerged.
+TS_FRAMES = 8
+TS_PATCH_COUNTS = (196, 178, 160, 142, 124, 106, 88, 70, 52, 34, 17, 9, 5)
+TS_K5_PER_FORWARD = {"merged": 12, "unmerged": 12}
+# K5a and K5b at (B, H, F, s, d): the path's frame lengths s = patches + 1,
+# one long frame (the 448 crop's s = 785) and a narrow odd case
+BLOCKDIAG_SHAPES = [(8, 12, TS_FRAMES, s_, 64) for s_ in (197, 179, 125, 35, 18, 10)] + [
+    (1, 12, 2, 785, 64), (2, 3, 4, 37, 16)]
+BLOCKDIAG_MODES = ((False, False), (True, False), (True, True))  # (biased, exclude_first_row)
+BLOCKDIAG_TIMED = ((197, False, False), (107, True, True))  # (s, biased, exclude_first_row)
+BLOCKDIAG_FP32_TOL = 1e-5  # of the largest entry
+# Unmerged / merged GFLOP per clip, 397.1 / 183.4, from XLA's cost analysis
+# (BENCH_FAMILIES.json): the ratio's device-independent ceiling.
+TS_FLOP_CEILING = 397.1 / 183.4
+# The k third of a fused qkv bias shifts a whole row of logits, which a
+# softmax does not see: its gradient is zero analytically (spatial and
+# temporal attention alike).
+TS_ZERO_GRADIENTS = (("attn.qkv.bias", slice(768, 1536)),)
+
+# ViViT: 16 x 14 x 14 tubelets plus the protected CLS token. Tokens entering
+# each layer at r=300 (r is capped at half the unprotected tokens from layer
+# 9 on), and the final count; the biased K1 runs for N >= 256: layers 0-9.
+VIVIT_COUNTS = (3137, 2837, 2537, 2237, 1937, 1637, 1337, 1037, 737, 437, 219, 110, 56)
+VIVIT_K1_PER_FORWARD = {"merged": 10, "unmerged": 12}
+# Unmerged / merged GFLOP per clip, 910.6 / 364.6 (BENCH_FAMILIES.json).
+VIVIT_FLOP_CEILING = 910.6 / 364.6
+# The key projection's bias shifts a whole row of logits, which a softmax
+# does not see: its gradient is zero analytically.
+VIVIT_ZERO_GRADIENTS = ("attention.key.bias",)
+# ViViT's three projections are what the other families fuse into one qkv.
+# With random weights the attention is nearly uniform, so the query and key
+# gradients are orders of magnitude below the value's, and the fp32 rounding
+# they carry on either path is large against their own size (reported by
+# the phase) and small against the fused tensor's.
+VIVIT_GRAD_GROUPS = (("attention.query.", "attention.key.", "attention.value."),)
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def main_cfg(*opts):
-    cfg = get_cfg()
-    cfg.merge_from_list(MAIN_PATH_OPTS + list(opts))
-    return cfg
+def cfg_maker(base_opts):
+    """A function of further --opts that returns ``get_cfg()`` with
+    ``base_opts`` and then those merged in."""
+    def make(*opts):
+        cfg = get_cfg()
+        cfg.merge_from_list(base_opts + list(opts))
+        return cfg
+    return make
 
 
-def mf_cfg(*opts):
-    cfg = get_cfg()
-    cfg.merge_from_list(MOTIONFORMER_OPTS + list(opts))
-    return cfg
-
-
-def train_cfg(*opts):
-    cfg = get_cfg()
-    cfg.merge_from_list(TRAIN_OPTS + list(opts))
-    return cfg
-
-
-def mf_train_cfg(*opts):
-    cfg = get_cfg()
-    cfg.merge_from_list(MF_TRAIN_OPTS + list(opts))
-    return cfg
+main_cfg, train_cfg = cfg_maker(MAIN_PATH_OPTS), cfg_maker(TRAIN_OPTS)
+mf_cfg, mf_train_cfg = cfg_maker(MOTIONFORMER_OPTS), cfg_maker(MF_TRAIN_OPTS)
+ts_cfg, ts_train_cfg = cfg_maker(TS_OPTS), cfg_maker(TS_TRAIN_OPTS)
+vivit_cfg, vivit_train_cfg = cfg_maker(VIVIT_OPTS), cfg_maker(VIVIT_TRAIN_OPTS)
 
 
 def launch_counts() -> dict:
-    """The four kernels' launch counts."""
+    """The six kernels' launch counts."""
     return {c: getattr(flash_attention, c) for c in COUNTERS}
 
 
@@ -751,9 +1062,9 @@ def check_backward_against_plain(name, backward, plain, shapes, make_do, seed: i
     return rows, worst_abs
 
 
-def emit_backward(phase: str, smi: str, rows, worst_abs: float, times: dict) -> dict:
+def emit_backward(phase: str, smi: str, rows, worst_abs: float, times: dict, first: str = "1568") -> dict:
     emit(phase, checks=rows, max_abs_err_vs_plain=worst_abs, timing_bf16_B8_H12_d64=times, nvidia_smi=smi)
-    first = times["1568"]
+    first = times[first]
     return dict(max_abs_err=worst_abs, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
                 bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
 
@@ -765,22 +1076,24 @@ def phase_bwd_kernel(smi: str) -> dict:
         lambda gen, b, h, n, d: torch.randn((b, n, h, d), generator=gen, device="cuda").transpose(1, 2),
         seed=6,
     )
-    # times at B8 H12 d64 bf16, unbiased as on the training path: 10 B H N^2 d
-    # operations; q, k, v, do read and dq, dk, dv written
+    # times at B8 H12 d64 bf16, without dbias as on the training paths (VideoMAE
+    # unbiased, ViViT with the key bias): 10 B H N^2 d operations; q, k, v, do
+    # (and the bias) read and dq, dk, dv written
     gen = torch.Generator(device="cuda").manual_seed(7)
     times = {}
-    for n in (1568, 368):
-        q, k, v, _ = timed_inputs(gen, n, False)
+    for n, biased in TIMED:
+        q, k, v, bias = timed_inputs(gen, n, biased)
         do = torch.randn((8, n, 12, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
         leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, scale=0.125)
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_bias(bias), scale=0.125)
         do_c = do.contiguous()
-        t = in_turns(lambda: tome_flash_attention_backward(q, k, v, None, do, 0.125),
-                     lambda: _backward_reference(q, k, v, None, do, 0.125),
+        t = in_turns(lambda: tome_flash_attention_backward(q, k, v, bias, do, 0.125, need_dbias=False),
+                     lambda: _backward_reference(q, k, v, bias, do, 0.125),
                      lambda: torch.autograd.grad(out, leaves, do_c, retain_graph=True))
         flops = 10 * 8 * 12 * n * n * 64
-        times[str(n)] = dict(biased=False, **t, kernel_tflops=flops / t["kernel_ms"] / 1e9,
-                             **bound(flops, 7 * 8 * 12 * n * 64 * 2))
+        times[str(n)] = dict(biased=biased, **t, kernel_tflops=flops / t["kernel_ms"] / 1e9,
+                             **bound(flops, 7 * 8 * 12 * n * 64 * 2 + (8 * n * 4 if biased else 0)))
+        del out, leaves  # the plain version at N 3137 keeps several [B, H, N, N] tensors
     return emit_backward("bwd_kernel", smi, rows, worst_abs, times)
 
 
@@ -822,32 +1135,190 @@ def phase_frame_bwd_kernel(smi: str) -> dict:
     return emit_backward("frame_bwd_kernel", smi, rows, worst_abs, times)
 
 
+def blockdiag_views(fused: torch.Tensor, b: int, h: int, f: int):
+    """q, k, v [B, H, F*s, d] as the model hands them to K5: views of the
+    (b t) batch's fused qkv projection [(B*F), s, 3*H*d], a clip's frames
+    being contiguous."""
+    s_, d = fused.shape[1], fused.shape[2] // (3 * h)
+    return [t.transpose(1, 2) for t in fused.view(b, f * s_, 3, h, d).unbind(dim=2)]
+
+
+def blockdiag_bias(gen, b: int, f: int, s_: int) -> torch.Tensor:
+    """[0, log size] per frame: fp32 [B, F*s], entry 0 of each frame 0."""
+    bias = torch.log(torch.rand((b, f, s_), generator=gen, device="cuda") * 4 + 1)
+    bias[:, :, 0] = 0.0
+    return bias.view(b, f * s_)
+
+
+def blockdiag_sdpa_operands(fused: torch.Tensor, bias, masked: bool, f: int):
+    """K5's operands for one scaled_dot_product_attention call on the (b t)
+    batch: contiguous [(B*F), H, s, d], and the bias as an additive mask
+    [(B*F), 1, s, s] (the row mask times the key bias)."""
+    q, k, v = (t.contiguous() for t in heads(fused, 12))
+    mask = None
+    if bias is not None:
+        s_ = fused.shape[1]
+        rows = torch.ones(s_, device="cuda")
+        if masked:
+            rows[0] = 0.0
+        mask = (rows[:, None] * bias.view(-1, 1, 1, s_)).to(torch.bfloat16)
+    return q, k, v, mask
+
+
+def blockdiag_bound(s_: int, biased: bool, products: int, tensors: int) -> dict:
+    """K5a: 2 products and 4 tensors (q, k, v, out); K5b: 5 and 7."""
+    flops = 2 * products * 8 * 12 * TS_FRAMES * s_ * s_ * 64
+    nbytes = tensors * 8 * 12 * TS_FRAMES * s_ * 64 * 2 + (8 * TS_FRAMES * s_ * 4 if biased else 0)
+    return dict(flops=flops, **bound(flops, nbytes))
+
+
+def phase_blockdiag_kernel(smi: str) -> dict:
+    """K5a against its plain version: fp32 within BLOCKDIAG_FP32_TOL of the
+    largest entry, bf16 within bf16_tol of an fp32 reference; unbiased,
+    biased, and biased with the row mask; strided views of a fused buffer."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows, worst = [], 0.0
+    for b, h, f, s_, d in BLOCKDIAG_SHAPES:
+        scale = d ** -0.5
+        for biased, masked in BLOCKDIAG_MODES:
+            bias = blockdiag_bias(gen, b, f, s_) if biased else None
+            fused = torch.randn((b * f, s_, 3 * h * d), generator=gen, device="cuda")
+            q32, k32, v32 = blockdiag_views(fused, b, h, f)
+            check(not q32.is_contiguous(), "q is a strided view")
+            out32 = tome_blockdiag_attention(q32, k32, v32, bias, scale, f, masked)
+            ref32 = _blockdiag_reference(q32, k32, v32, bias, scale, f, masked)
+            check(tuple(out32.shape) == (b, f * s_, h * d), f"K5a output shape {tuple(out32.shape)}")
+            err32 = (out32 - ref32).abs().max().item()
+            tol32 = BLOCKDIAG_FP32_TOL * ref32.abs().max().item()
+            check(err32 <= tol32, f"K5a fp32 err {err32} > {tol32} at {(b, h, f, s_, d)} {biased} {masked}")
+            q, k, v = blockdiag_views(fused.to(torch.bfloat16), b, h, f)
+            out = tome_blockdiag_attention(q, k, v, bias, scale, f, masked)
+            ref = _blockdiag_reference(q.float(), k.float(), v.float(), bias, scale, f, masked)
+            base = _blockdiag_reference(q, k, v, bias, scale, f, masked)
+            err_k = (out.float() - ref).abs().max().item()
+            err_p = (base.float() - ref).abs().max().item()
+            check(err_k <= bf16_tol(err_p), f"K5a bf16 err {err_k} > {bf16_tol(err_p)} at {(b, h, f, s_, d)} {biased} {masked}")
+            vs_plain = (out.float() - base.float()).abs().max().item()
+            worst = max(worst, vs_plain, err32)
+            rows.append(dict(shape=[b, h, f, s_, d], biased=biased, exclude_first_row=masked, fp32_err=err32,
+                             bf16_err=err_k, bf16_plain_err=err_p, bf16_vs_plain=vs_plain))
+    torch.cuda.synchronize()
+    # times at B8 H12 d64 F8 bf16, beside the plain version and one
+    # scaled_dot_product_attention call on the (b t) batch
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    times = {}
+    for s_, biased, masked in BLOCKDIAG_TIMED:
+        fused = torch.randn((8 * TS_FRAMES, s_, 3 * 768), generator=gen, device="cuda").to(torch.bfloat16)
+        bias = blockdiag_bias(gen, 8, TS_FRAMES, s_) if biased else None
+        q, k, v = blockdiag_views(fused, 8, 12, TS_FRAMES)
+        qs, ks, vs, mask = blockdiag_sdpa_operands(fused, bias, masked, TS_FRAMES)
+        with torch.inference_mode():
+            t = in_turns(lambda: tome_blockdiag_attention(q, k, v, bias, 0.125, TS_FRAMES, masked),
+                         lambda: _blockdiag_reference(q, k, v, bias, 0.125, TS_FRAMES, masked),
+                         lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=0.125))
+        bnd = blockdiag_bound(s_, biased, products=2, tensors=4)
+        times[str(s_)] = dict(biased=biased, exclude_first_row=masked, **t,
+                              kernel_tflops=bnd.pop("flops") / t["kernel_ms"] / 1e9, **bnd)
+    emit("blockdiag_kernel", checks=rows, max_abs_err_vs_plain=worst, timing_bf16_B8_H12_d64_F8=times,
+         nvidia_smi=smi)
+    first = times[str(BLOCKDIAG_TIMED[0][0])]
+    return dict(max_abs_err=worst, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
+
+
+def phase_blockdiag_bwd_kernel(smi: str) -> dict:
+    """K5b against its plain version on the same shapes and modes, with a
+    permuted (strided) token-major cotangent: dq, dk, dv and dbias, the
+    masked dbias included; fp32 within BLOCKDIAG_FP32_TOL and bf16 within
+    bf16_tol of each gradient's largest entry; the same bits twice."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows, worst_abs = [], 0.0
+    for b, h, f, s_, d in BLOCKDIAG_SHAPES:
+        scale, n = d ** -0.5, f * s_
+        for biased, masked in BLOCKDIAG_MODES:
+            bias = blockdiag_bias(gen, b, f, s_) if biased else None
+            fused = torch.randn((b * f, s_, 3 * h * d), generator=gen, device="cuda")
+            do32 = torch.randn((n, b, h * d), generator=gen, device="cuda").transpose(0, 1)
+            q32, k32, v32 = blockdiag_views(fused, b, h, f)
+            # (at B = 1 the permuted cotangent is contiguous again)
+            check((b == 1 or not do32.is_contiguous()) and not q32.is_contiguous(), "inputs are strided views")
+            got32 = tome_blockdiag_attention_backward(q32, k32, v32, bias, do32, scale, f, masked)
+            err32 = grad_errors(got32, _blockdiag_backward_reference(q32, k32, v32, bias, do32, scale, f, masked))
+            check(len(err32) == (4 if biased else 3), "dbias comes with a bias and only then")
+            for g, (_, rel) in err32.items():
+                check(rel <= BLOCKDIAG_FP32_TOL,
+                      f"K5b fp32 {g} err {rel} > {BLOCKDIAG_FP32_TOL} at {(b, h, f, s_, d)} {biased} {masked}")
+            q, k, v = blockdiag_views(fused.to(torch.bfloat16), b, h, f)
+            do = do32.to(torch.bfloat16)  # dense and permuted: keeps its strides
+            check(do.stride() == do32.stride(), "the bf16 do is the same strided view")
+            got = tome_blockdiag_attention_backward(q, k, v, bias, do, scale, f, masked)
+            again = tome_blockdiag_attention_backward(q, k, v, bias, do, scale, f, masked)
+            check(all(torch.equal(x, y) for x, y in zip(got, again) if x is not None), "K5b differs from run to run")
+            ref = _blockdiag_backward_reference(q.float(), k.float(), v.float(), bias, do.float(), scale, f, masked)
+            base = _blockdiag_backward_reference(q, k, v, bias, do, scale, f, masked)
+            err_k, err_p = grad_errors(got, ref), grad_errors(base, ref)
+            for g in err_k:
+                tol = bf16_tol(err_p[g][1])
+                check(err_k[g][1] <= tol, f"K5b bf16 {g} err {err_k[g][1]} > {tol} at {(b, h, f, s_, d)} {biased} {masked}")
+            vs_plain = grad_errors(got, base)
+            worst_abs = max([worst_abs] + [e for e, _ in vs_plain.values()] + [e for e, _ in err32.values()])
+            rows.append(dict(shape=[b, h, f, s_, d], biased=biased, exclude_first_row=masked,
+                             fp32_rel_err={k_: r for k_, (_, r) in err32.items()},
+                             bf16_rel_err={k_: r for k_, (_, r) in err_k.items()},
+                             bf16_plain_rel_err={k_: r for k_, (_, r) in err_p.items()}))
+    torch.cuda.synchronize()
+    # times at B8 H12 d64 F8 bf16 with the contiguous do autograd hands over
+    # and no dbias, beside autograd's backward of one
+    # scaled_dot_product_attention call on the (b t) batch
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    times = {}
+    for s_, biased, masked in BLOCKDIAG_TIMED:
+        fused = torch.randn((8 * TS_FRAMES, s_, 3 * 768), generator=gen, device="cuda").to(torch.bfloat16)
+        bias = blockdiag_bias(gen, 8, TS_FRAMES, s_) if biased else None
+        q, k, v = blockdiag_views(fused, 8, 12, TS_FRAMES)
+        do = torch.randn((8, TS_FRAMES * s_, 768), generator=gen, device="cuda").to(torch.bfloat16)
+        qs, ks, vs, mask = blockdiag_sdpa_operands(fused, bias, masked, TS_FRAMES)
+        leaves = [t.requires_grad_() for t in (qs, ks, vs)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=0.125)
+        do_bt = do.view(8 * TS_FRAMES, s_, 12, 64).transpose(1, 2).contiguous()
+        t = in_turns(
+            lambda: tome_blockdiag_attention_backward(q, k, v, bias, do, 0.125, TS_FRAMES, masked, need_dbias=False),
+            lambda: _blockdiag_backward_reference(q, k, v, bias, do, 0.125, TS_FRAMES, masked),
+            lambda: torch.autograd.grad(out, leaves, do_bt, retain_graph=True))
+        bnd = blockdiag_bound(s_, biased, products=5, tensors=7)
+        times[str(s_)] = dict(biased=biased, exclude_first_row=masked, **t,
+                              kernel_tflops=bnd.pop("flops") / t["kernel_ms"] / 1e9, **bnd)
+    return emit_backward("blockdiag_bwd_kernel", smi, rows, worst_abs, times, first=str(BLOCKDIAG_TIMED[0][0]))
+
+
 def phase_blocks(phase: str, cfg, seed: int, block_kwargs: dict, launch_count, final_tokens: int,
-                 launches_expected: int) -> None:
+                 launches_expected: int, frames: int = 16, blocks: str = "blocks", attn: str = "attn") -> None:
     """Teacher-forced full-width blocks (fp32, TF32 off, B2): each block
     gets the plain chain's input through the kernel path and the plain
     path, which must make identical Matching indices and sizes and
-    outputs within BLOCK_TOL."""
+    outputs within BLOCK_TOL. ``blocks`` and ``attn`` name the model's
+    block list and a block's attention module."""
     model = build_model(cfg, "cuda").module
+    model_blocks = getattr(model, blocks)
     video = torch.from_numpy(
-        np.random.default_rng(seed).random((2, 16, 224, 224, 3), dtype=np.float32)
+        np.random.default_rng(seed).random((2, frames, 224, 224, 3), dtype=np.float32)
     ).cuda()
     metrics = []
-    hooks = [blk.attn.register_forward_hook(lambda m, i, o: metrics.append(o[1]))
-             for blk in model.blocks]
+    hooks = [getattr(blk, attn).register_forward_hook(lambda m, i, o: metrics.append(o[1]))
+             for blk in model_blocks]
     launches0, rows = launch_count(), []
     with torch.inference_mode():
         x = model.embed(video)
         size = None
-        for i, blk in enumerate(model.blocks):
+        for i, blk in enumerate(model_blocks):
             outs = {}
             for path in ("kernel", "plain"):
-                blk.attn.use_kernel = path == "kernel"
+                getattr(blk, attn).use_kernel = path == "kernel"
                 metrics.clear()
                 y, st = blk(x, MergeState(size=size), layer=i, **block_kwargs)
-                m = bipartite_soft_matching(metrics[0], model.policy.r_at(i))
+                m = bipartite_soft_matching(metrics[0], model.policy.r_at(i), model.policy.class_token)
                 outs[path] = (y, st.size, m)
-            blk.attn.use_kernel = True
+            getattr(blk, attn).use_kernel = True
             (yk, sk, mk), (yp, sp, mp) = outs["kernel"], outs["plain"]
             for name in ("unm_idx", "src_idx", "dst_idx"):
                 check(torch.equal(getattr(mk, name), getattr(mp, name)),
@@ -865,8 +1336,31 @@ def phase_blocks(phase: str, cfg, seed: int, block_kwargs: dict, launch_count, f
     emit(phase, layers=rows, kernel_launches=launches)
 
 
+def zero_part(name: str, zero_gradients):
+    """The part of parameter ``name``'s gradient that is zero analytically:
+    None (no part), a slice of its first dim, or slice(None) (all of it).
+    ``zero_gradients`` holds name substrings, alone or with a slice."""
+    for z in zero_gradients:
+        key, part = (z, slice(None)) if isinstance(z, str) else z
+        if key in name:
+            return part
+    return None
+
+
+def group_scale(name: str, grads: dict, grad_groups):
+    """The largest gradient entry among ``name`` and its siblings in
+    ``grad_groups`` (tuples of name parts that stand for one fused
+    parameter), or None when ``name`` is in no group."""
+    for group in grad_groups:
+        for part in group:
+            if part in name:
+                return max(grads[name.replace(part, other)].abs().max().item() for other in group)
+    return None
+
+
 def phase_train_blocks(phase: str, cfg, fwd: str, bwd: str, launches_expected: int,
-                       final_tokens: int, train_mode: bool = False, zero_gradients=()) -> None:
+                       final_tokens: int, train_mode: bool = False, zero_gradients=(),
+                       frames: int = 16, blocks: str = "blocks", attn: str = "attn", grad_groups=()) -> None:
     """Loss and every parameter's gradient of a full-width fp32 model (TF32
     off, B2, merged, drop rates 0) through its forward and backward kernels
     (the counters ``fwd`` and ``bwd``) against the plain path, gradients
@@ -874,7 +1368,14 @@ def phase_train_blocks(phase: str, cfg, fwd: str, bwd: str, launches_expected: i
     Motionformer return logits instead of probabilities. Parameters whose
     name holds one of ``zero_gradients`` have a gradient that is zero
     analytically: on both paths it must be rounding noise, below 1e-6 of
-    the largest entry of any gradient.
+    the largest entry of any gradient. An entry of ``zero_gradients`` may
+    name a slice of the parameter's first dim; the rest is compared.
+    ``blocks`` and ``attn`` name the model's block list and a block's
+    attention module. ``grad_groups`` names separate parameters that the
+    other families hold as one fused tensor (ViViT's query, key and value
+    projections): each is measured against the largest entry of the
+    group, as a fused qkv gradient is, and its error against its own
+    largest entry is reported.
 
     Both runs merge by the plain run's Matching objects: a layer's metric
     is computed before its attention, so on the same input both paths
@@ -887,7 +1388,7 @@ def phase_train_blocks(phase: str, cfg, fwd: str, bwd: str, launches_expected: i
     if train_mode:
         model.train_mode = True
     rng = np.random.default_rng(7)
-    video = torch.from_numpy(rng.random((2, 16, 224, 224, 3), dtype=np.float32)).cuda()
+    video = torch.from_numpy(rng.random((2, frames, 224, 224, 3), dtype=np.float32)).cuda()
     labels = torch.from_numpy(rng.integers(0, 400, 2)).cuda()
     match = merge_bipartite.bipartite_soft_matching
     plain_matchings, own_matchings = [], []
@@ -905,8 +1406,8 @@ def phase_train_blocks(phase: str, cfg, fwd: str, bwd: str, launches_expected: i
     try:
         for path, matcher in (("plain", record), ("kernel", forced)):
             merge_bipartite.bipartite_soft_matching = matcher
-            for blk in model.blocks:
-                blk.attn.use_kernel = path == "kernel"
+            for blk in getattr(model, blocks):
+                getattr(blk, attn).use_kernel = path == "kernel"
             model.zero_grad(set_to_none=True)
             logits, state = model(video)
             loss = F.cross_entropy(logits, labels)
@@ -926,21 +1427,30 @@ def phase_train_blocks(phase: str, cfg, fwd: str, bwd: str, launches_expected: i
     (lk, gk, sk), (lp, gp, sp) = runs["kernel"], runs["plain"]
     check(torch.equal(sk, sp) and sk.shape[1] == final_tokens, f"{phase}: sizes differ")
     check(abs(lk - lp) <= BLOCK_TOL, f"{phase}: loss {lk} vs {lp}")
-    worst, worst_name = 0.0, ""
+    worst, worst_name, worst_own, worst_own_name = 0.0, "", 0.0, ""
     noise = 1e-6 * max(g.abs().max().item() for g in gp.values())
     for name, g in gp.items():
-        if any(z in name for z in zero_gradients):
-            size = max(g.abs().max().item(), gk[name].abs().max().item())
+        part, g_k = zero_part(name, zero_gradients), gk[name]
+        if part is not None:
+            size = max(g[part].abs().max().item(), g_k[part].abs().max().item())
             check(size <= noise, f"{phase}: gradient of {name} should be zero, has an entry of {size}")
-            continue
-        rel = ((gk[name] - g).abs().max() / g.abs().max()).item()
+            if part == slice(None):
+                continue
+            keep = torch.ones(g.shape[0], dtype=torch.bool, device=g.device)
+            keep[part] = False
+            g, g_k = g[keep], g_k[keep]
+        diff, scale = (g_k - g).abs().max().item(), group_scale(name, gp, grad_groups)
+        if scale is not None and diff / g.abs().max().item() > worst_own:
+            worst_own, worst_own_name = diff / g.abs().max().item(), name
+        rel = diff / (scale or g.abs().max().item())
         check(rel <= GRAD_TOL, f"{phase}: gradient of {name} off by {rel} of its largest entry")
         if rel > worst:
             worst, worst_name = rel, name
     emit(phase, loss_kernel=lk, loss_plain=lp, parameters=len(gp),
-         analytically_zero_gradients=sum(any(z in n for z in zero_gradients) for n in gp),
+         analytically_zero_gradients=sum(zero_part(n, zero_gradients) is not None for n in gp),
          worst_grad_rel_err=worst,
-         worst_grad=worst_name, forward_kernel_launches=launches[fwd], backward_kernel_launches=launches[bwd],
+         worst_grad=worst_name, worst_grouped_grad_own_rel_err=worst_own, worst_grouped_grad=worst_own_name,
+         forward_kernel_launches=launches[fwd], backward_kernel_launches=launches[bwd],
          layers_matching_identically_unforced=sum(same))
 
 
@@ -1063,6 +1573,65 @@ def phase_mf_serve(smi: str) -> int:
     return total
 
 
+def phase_family_serve(phase: str, smi: str, cfg_fn, num_frames: int, seed: int, counter: str,
+                       stats_key: str, per_forward: dict, counts, tokens_of, blocks_of,
+                       flop_ceiling: float) -> int:
+    """``model_benchmark`` merged and unmerged at full width and depth, B8
+    bf16, for a family whose forward kernel counts in ``counter`` (and in
+    ``stats_key`` of the benchmark's statistics): launches per forward,
+    ``counts`` (what ``tokens_of`` makes of the tokens entering each block
+    and leaving the last), the policy's schedule, finite logits of the
+    expected shape, clips/s. Returns the kernel's launches in the phase."""
+    video = torch.from_numpy(
+        np.random.default_rng(seed).random((8, num_frames, 224, 224, 3), dtype=np.float32)
+    ).cuda()
+    runs = {}
+    zero_launch_counts()  # this path's counts start here
+    for label, opts, want_counts in (
+        ("merged", (), tuple(counts)),
+        ("unmerged", ("TOME.ENABLE", "False"), (counts[0],) * 13),
+    ):
+        cfg = cfg_fn("TEST.BATCH_SIZE", "8", "MODEL_BENCHMARK.WARMUP_ITERATIONS", str(SERVE_WARMUP),
+                     "MODEL_BENCHMARK.ITERATIONS", str(SERVE_ITERS), *opts)
+        before = getattr(flash_attention, counter)
+        stats = model_benchmark(cfg)
+        bundle = build_model(cfg, "cuda")
+        seen = []
+        blocks = blocks_of(bundle.module)
+        hooks = [blk.register_forward_pre_hook(lambda m, a: seen.append(tokens_of(a[0].shape[1])))
+                 for blk in blocks]
+        hooks.append(blocks[-1].register_forward_hook(lambda m, a, o: seen.append(tokens_of(o[0].shape[1]))))
+        with torch.inference_mode():
+            logits, _ = bundle.module(video)
+        torch.cuda.synchronize()
+        for hk in hooks:
+            hk.remove()
+        launches = getattr(flash_attention, counter) - before
+        check(tuple(logits.shape) == (8, 400), f"{phase} {label}: logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), f"{phase} {label}: non-finite logits")
+        check(tuple(seen) == want_counts, f"{phase} {label}: token counts {seen}")
+        check(tuple(bundle.policy.token_counts(counts[0])) == want_counts, f"{phase} {label}: schedule")
+        check(stats[stats_key] == per_forward[label],
+              f"{phase} {label}: {stats[stats_key]} launches per forward")
+        forwards = SERVE_WARMUP + SERVE_ITERS + 1
+        check(launches == per_forward[label] * forwards, f"{phase} {label}: {launches} launches in {forwards} forwards")
+        runs[label] = dict(clips_per_sec=stats["clips_per_sec"], launches=launches,
+                           launches_per_forward=stats[stats_key], token_counts=list(want_counts))
+    total = launch_counts()  # read right after the path ran
+    check(total[counter] > 0, f"the {phase} path launched no {counter} kernel")
+    check(all(n == 0 for c, n in total.items() if c != counter),
+          f"the {phase} path launched another path's kernels: {total}")
+    emit(
+        phase,
+        merged=runs["merged"],
+        unmerged=runs["unmerged"],
+        speedup=runs["merged"]["clips_per_sec"] / runs["unmerged"]["clips_per_sec"],
+        flop_ceiling=flop_ceiling,
+        batch=8, dtype="bfloat16", nvidia_smi=smi,
+    )
+    return total[counter]
+
+
 def fixed_batch(cfg):
     """The first training batch of the synthetic dataset, on the card."""
     batch = next(iter(construct_loader(cfg, "train")))
@@ -1087,9 +1656,25 @@ MOTIONFORMER_TRAIN = dict(
     fwd=("FRAME_LAUNCHES", "k3"), bwd=("FRAME_BWD_LAUNCHES", "k4"),
     per_step=MF_K3_PER_FORWARD, zero_gradients=MF_ZERO_GRADIENTS,
 )
+# SGD with weight decay moves every parameter, the k biases too
+TIMESFORMER_TRAIN = dict(
+    phase="ts_train", cfg=ts_train_cfg, step_opts=TS_TRAIN_STEP_OPTS, entry_opts=TS_TRAIN_ENTRY_OPTS,
+    fwd=("BLOCKDIAG_LAUNCHES", "k5a"), bwd=("BLOCKDIAG_BWD_LAUNCHES", "k5b"),
+    per_step=TS_K5_PER_FORWARD, zero_gradients=(), num_frames=8,
+    optimizer="sgd(0.005, momentum 0.9, wd 1e-4)",
+)
+VIVIT_TRAIN = dict(
+    phase="vivit_train", cfg=vivit_train_cfg, step_opts=VIVIT_TRAIN_STEP_OPTS, entry_opts=VIVIT_TRAIN_ENTRY_OPTS,
+    fwd=("LAUNCHES", "k1"), bwd=("BWD_LAUNCHES", "k2"),
+    per_step=VIVIT_K1_PER_FORWARD, zero_gradients=(), num_frames=32,
+    optimizer="sgd(0.003125, momentum 0.9, wd 1e-4)", heads=("verb_classifier", "noun_classifier"),
+    warmup=VIVIT_TRAIN_WARMUP, iters=VIVIT_TRAIN_ITERS,
+)
 
 
-def phase_train(smi: str, phase, cfg, step_opts, entry_opts, fwd, bwd, per_step, zero_gradients) -> int:
+def phase_train(smi: str, phase, cfg, step_opts, entry_opts, fwd, bwd, per_step, zero_gradients,
+                num_frames: int = 16, optimizer: str = "adamw(1e-4, wd 0.05)", heads=("head0", "head1"),
+                warmup: int = TRAIN_WARMUP, iters: int = TRAIN_ITERS) -> int:
     """Train steps on one fixed batch, merged and unmerged, then the train
     entry point on the shipped config. The loss is the cross-entropy of
     what the model returns in eval mode (probabilities for a Motionformer
@@ -1106,7 +1691,7 @@ def phase_train(smi: str, phase, cfg, step_opts, entry_opts, fwd, bwd, per_step,
         torch.cuda.reset_peak_memory_stats()
         trainer = build_trainer(run_cfg)
         frames, labels = fixed_batch(run_cfg)
-        check(tuple(frames.shape) == (8, 16, 224, 224, 3), f"batch shape {tuple(frames.shape)}")
+        check(tuple(frames.shape) == (8, num_frames, 224, 224, 3), f"batch shape {tuple(frames.shape)}")
         start = {n: p.detach().clone() for n, p in trainer.module.named_parameters()}
         check(all(p.dtype == torch.float32 for p in start.values()), "training parameters are fp32")
         loss_before = F.cross_entropy(trainer.eval_step(frames), labels).item()
@@ -1117,8 +1702,8 @@ def phase_train(smi: str, phase, cfg, step_opts, entry_opts, fwd, bwd, per_step,
         def step():
             losses.append(trainer.train_step(frames, labels)[0])
 
-        seconds = device_seconds(step, TRAIN_ITERS, TRAIN_WARMUP, torch.device("cuda"))
-        steps = TRAIN_WARMUP + TRAIN_ITERS
+        seconds = device_seconds(step, iters, warmup, torch.device("cuda"))
+        steps = warmup + iters
         n_fwd, n_bwd = (getattr(flash_attention, c) - before[c] for c in (fwd, bwd))
         check(n_bwd == per_step[label] * steps, f"{phase} {label}: {n_bwd} {bwd_name} launches in {steps} steps")
         check(n_fwd == per_step[label] * steps, f"{phase} {label}: {n_fwd} {fwd_name} launches in {steps} steps")
@@ -1133,7 +1718,7 @@ def phase_train(smi: str, phase, cfg, step_opts, entry_opts, fwd, bwd, per_step,
                 still.append(n)
         check(all(any(z in n for z in zero_gradients) for n in still),
               f"{phase} {label}: parameters that did not change: {still}")
-        run = {"train_clips_per_sec": 8 * TRAIN_ITERS / seconds, "step_ms": seconds / TRAIN_ITERS * 1e3,
+        run = {"train_clips_per_sec": 8 * iters / seconds, "step_ms": seconds / iters * 1e3,
                "loss_before": loss_before, "loss_after": loss_after, "step_losses": step_losses,
                f"{fwd_name}_launches_per_step": n_fwd // steps, f"{bwd_name}_launches_per_step": n_bwd // steps,
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -1168,7 +1753,7 @@ def phase_train(smi: str, phase, cfg, step_opts, entry_opts, fwd, bwd, per_step,
     # 4 train steps; the eval epoch's 2 forwards launch the forward kernel only
     check(n_bwd == 4 * per_step["merged"], f"{phase} entry point: {n_bwd} {bwd_name} launches")
     check(n_fwd == 6 * per_step["merged"], f"{phase} entry point: {n_fwd} {fwd_name} launches")
-    check(module.config.multi_head and module.head0.out_features == 97 and module.head1.out_features == 300,
+    check(module.config.multi_head and [getattr(module, h).out_features for h in heads] == [97, 300],
           f"{phase} entry point: twin heads")
     check(all(bool(torch.isfinite(p).all()) for p in module.parameters()), f"{phase} entry point: NaN")
     last = checkpoints.get_last_checkpoint(out)
@@ -1185,7 +1770,7 @@ def phase_train(smi: str, phase, cfg, step_opts, entry_opts, fwd, bwd, per_step,
         speedup=runs["merged"]["train_clips_per_sec"] / runs["unmerged"]["train_clips_per_sec"],
         entry_point={"seconds": entry_seconds, f"{fwd_name}_launches": n_fwd, f"{bwd_name}_launches": n_bwd,
                      "epochs": 2, "steps": 4},
-        batch=8, dtype="bfloat16 compute, float32 parameters", optimizer="adamw(1e-4, wd 0.05)",
+        batch=8, dtype="bfloat16 compute, float32 parameters", optimizer=optimizer,
         nvidia_smi=smi,
     )
     return total[bwd]
@@ -1218,6 +1803,8 @@ def main() -> int:
         out_factor=MF_FRAMES,
     )
     frame_bwd_kernel = phase_frame_bwd_kernel(smi)
+    blockdiag_kernel = phase_blockdiag_kernel(smi)
+    blockdiag_bwd_kernel = phase_blockdiag_bwd_kernel(smi)
     fp32_b2 = ("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2")
     phase_blocks("blocks", main_cfg(*fp32_b2), 1, {}, lambda: flash_attention.LAUNCHES,
                  MERGED_COUNTS[-1], MERGED_K1_PER_FORWARD)
@@ -1229,10 +1816,31 @@ def main() -> int:
     phase_train_blocks("mf_train_blocks", mf_cfg(*fp32_b2), "FRAME_LAUNCHES", "FRAME_BWD_LAUNCHES",
                        MF_K3_PER_FORWARD["merged"], MF_BODY_COUNTS[-1] // MF_FRAMES, train_mode=True,
                        zero_gradients=MF_ZERO_GRADIENTS)
+    phase_blocks("ts_blocks", ts_cfg(*fp32_b2), 14, {"b": 2, "t": TS_FRAMES},
+                 lambda: flash_attention.BLOCKDIAG_LAUNCHES, 1 + TS_FRAMES * TS_PATCH_COUNTS[-1],
+                 TS_K5_PER_FORWARD["merged"], frames=TS_FRAMES)
+    phase_train_blocks("ts_train_blocks", ts_cfg(*fp32_b2), "BLOCKDIAG_LAUNCHES", "BLOCKDIAG_BWD_LAUNCHES",
+                       TS_K5_PER_FORWARD["merged"], TS_PATCH_COUNTS[-1], zero_gradients=TS_ZERO_GRADIENTS,
+                       frames=TS_FRAMES)
+    vivit_modules = dict(frames=32, blocks="layer", attn="attention")
+    phase_blocks("vivit_blocks", vivit_cfg(*fp32_b2), 17, {}, lambda: flash_attention.LAUNCHES,
+                 VIVIT_COUNTS[-1], VIVIT_K1_PER_FORWARD["merged"], **vivit_modules)
+    phase_train_blocks("vivit_train_blocks", vivit_cfg(*fp32_b2), "LAUNCHES", "BWD_LAUNCHES",
+                       VIVIT_K1_PER_FORWARD["merged"], VIVIT_COUNTS[-1],
+                       zero_gradients=VIVIT_ZERO_GRADIENTS, grad_groups=VIVIT_GRAD_GROUPS, **vivit_modules)
     launches = phase_serve(smi)
     frame_launches = phase_mf_serve(smi)
+    blockdiag_launches = phase_family_serve(
+        "ts_serve", smi, ts_cfg, TS_FRAMES, 15, "BLOCKDIAG_LAUNCHES", "blockdiag_attention_kernel_launches",
+        TS_K5_PER_FORWARD, TS_PATCH_COUNTS, lambda n: (n - 1) // TS_FRAMES, lambda m: m.blocks,
+        TS_FLOP_CEILING)
+    launches += phase_family_serve(
+        "vivit_serve", smi, vivit_cfg, 32, 16, "LAUNCHES", "attention_kernel_launches",
+        VIVIT_K1_PER_FORWARD, VIVIT_COUNTS, lambda n: n, lambda m: m.layer, VIVIT_FLOP_CEILING)
     bwd_launches = phase_train(smi, **VIDEOMAE_TRAIN)
     frame_bwd_launches = phase_train(smi, **MOTIONFORMER_TRAIN)
+    blockdiag_bwd_launches = phase_train(smi, **TIMESFORMER_TRAIN)
+    bwd_launches += phase_train(smi, **VIVIT_TRAIN)
     emit("done", seconds=time.perf_counter() - t0)
     csrc = "vtm_torch/ops/csrc/"
     print(json.dumps({"kernels": [
@@ -1244,6 +1852,10 @@ def main() -> int:
                    "vtm/ops/flash_attention.py:915", frame_launches, frame_kernel),
         kernel_row("tome_frame_attention_backward", csrc + "frame_attention_bwd.cu",
                    "vtm/ops/flash_attention.py:1231", frame_bwd_launches, frame_bwd_kernel),
+        kernel_row("tome_blockdiag_attention", csrc + "blockdiag_attention_fwd.cu",
+                   "vtm/ops/flash_attention.py:1463", blockdiag_launches, blockdiag_kernel),
+        kernel_row("tome_blockdiag_attention_backward", csrc + "blockdiag_attention_bwd.cu",
+                   "vtm/ops/flash_attention.py:1578", blockdiag_bwd_launches, blockdiag_bwd_kernel),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

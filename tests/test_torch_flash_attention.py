@@ -74,7 +74,8 @@ def test_kernel_args_rejected(q, k, bias, match):
 def test_build_command_targets_hopper():
     srcs = build.sources()
     assert [s.name for s in srcs] == [
-        "flash_attention_bwd.cu", "flash_attention_fwd.cu", "frame_attention_bwd.cu", "frame_attention_fwd.cu"
+        "blockdiag_attention_bwd.cu", "blockdiag_attention_fwd.cu",
+        "flash_attention_bwd.cu", "flash_attention_fwd.cu", "frame_attention_bwd.cu", "frame_attention_fwd.cu",
     ]
     objs = [build.BUILD_DIR / f"{s.stem}.o" for s in srcs]
     for src, obj in zip(srcs, objs):

@@ -35,6 +35,9 @@ TRAINING_MODULES = (
     "vtm_torch.tools.train_net",
     "vtm_torch.tools.trace_train",
     "vtm_torch.tools.check_frame_bwd",
+    "vtm_torch.tools.check_blockdiag",
+    "vtm_torch.models.timesformer",
+    "vtm_torch.models.vivit",
     "vtm_torch.train.losses",
     "vtm_torch.train.lr_policy",
     "vtm_torch.train.mixup",
@@ -84,7 +87,8 @@ def test_chip_smoke_without_cuda_fails():
 
 
 @pytest.mark.parametrize("module", ["vtm_torch.tools.train_net", "vtm_torch.tools.model_benchmark",
-                                    "vtm_torch.tools.trace_train", "vtm_torch.tools.check_frame_bwd"])
+                                    "vtm_torch.tools.trace_train", "vtm_torch.tools.check_frame_bwd",
+                                    "vtm_torch.tools.check_blockdiag"])
 def test_entry_points_refuse_to_run_without_cuda(module):
     """No CUDA device and no request for the CPU: the entry points raise
     instead of carrying on on the CPU."""
@@ -122,6 +126,8 @@ for m in pkgutil.walk_packages(vtm_torch.__path__, "vtm_torch."):
 import chip_smoke
 from vtm_torch.ops import flash_attention as fa
 assert (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.FRAME_LAUNCHES, fa.FRAME_BWD_LAUNCHES) == (0, 0, 0, 0)
+assert (fa.BLOCKDIAG_LAUNCHES, fa.BLOCKDIAG_BWD_LAUNCHES) == (0, 0)
+assert set(chip_smoke.COUNTERS) == {n for n in vars(fa) if n.endswith("LAUNCHES")}
 """
 
 
@@ -146,6 +152,33 @@ def test_every_kernel_source_is_built_and_bound():
         for library in ("cublas", "cudnn", "cutlass", "torch", "ATen"):
             assert not any(library in line for line in includes), (src.name, library)
     assert (build.CSRC / "attention_tiles.cuh").exists()
+    names = {src.name for src in build.sources()}
+    assert {"blockdiag_attention_fwd.cu", "blockdiag_attention_bwd.cu"} <= names and len(names) >= 6
+
+
+def test_blockdiag_sources_hold_kernels_of_their_own():
+    """K5a and K5b are __global__ functions of their own that take the
+    frame count and the row mask; neither their sources nor their wrappers
+    call a library's attention, a matrix-product routine or K1/K2's entry
+    points."""
+    import inspect
+
+    from vtm_torch.ops import flash_attention as fa
+
+    for name, kernels in (("blockdiag_attention_fwd.cu", ["blockdiag_attention_fwd_kernel"]),
+                          ("blockdiag_attention_bwd.cu", ["blockdiag_bwd_dq_kernel", "blockdiag_bwd_dkdv_kernel"])):
+        text = (build.CSRC / name).read_text()
+        assert text.count("__global__") == len(kernels)
+        for kernel in kernels:
+            assert kernel in text
+        assert "exclude_first_row" in text and "frames" in text
+        for foreign in ("vtm_attention_fwd", "vtm_attention_bwd", "cublas", "cudnn"):
+            assert foreign not in text, (name, foreign)
+    for fn in (fa._blockdiag_forward, fa.tome_blockdiag_attention_backward):
+        code = inspect.getsource(fn)
+        for foreign in ("scaled_dot_product_attention", "matmul", "bmm", "einsum", "torch.compile",
+                        "vtm_attention_fwd", "vtm_attention_bwd", "_forward(", "tome_flash_attention"):
+            assert foreign not in code.replace("_blockdiag_forward(", ""), (fn.__name__, foreign)
 
 
 def test_no_module_names_jax_or_vtm():

@@ -11,7 +11,8 @@ torch.set_num_threads(2)
 
 KEYS = {
     "split", "avg_frame_time_ms", "fps", "clips_per_sec", "batch_size", "iterations",
-    "attention_kernel_launches", "frame_attention_kernel_launches", "device",
+    "attention_kernel_launches", "frame_attention_kernel_launches",
+    "blockdiag_attention_kernel_launches", "device",
 }
 
 

@@ -93,17 +93,17 @@ class Linear(nn.Linear):
 
 
 class TubeletEmbed(nn.Module):
-    """Tubelet embedding [B, T, H, W, C] -> [B, T/t * H/p * W/p, dim]: a
-    Conv3d with kernel = stride = (t, p, p), tokens in (t, h, w) order.
-    Computes in ``dtype``, or in the weight's dtype when that is None."""
+    """Tubelet embedding [B, T, H, W, C] -> [B, T/t * H/ph * W/pw, dim]: a
+    Conv3d with kernel = stride = (t, ph, pw), tokens in (t, h, w) order.
+    ``patch`` is the square patch's side or a (ph, pw) pair. Computes in
+    ``dtype``, or in the weight's dtype when that is None."""
 
-    def __init__(self, in_chans: int, features: int, tubelet: int, patch: int,
+    def __init__(self, in_chans: int, features: int, tubelet: int, patch,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
-        self.proj = nn.Conv3d(
-            in_chans, features, kernel_size=(tubelet, patch, patch), stride=(tubelet, patch, patch)
-        )
+        ph, pw = (patch, patch) if isinstance(patch, int) else patch
+        self.proj = nn.Conv3d(in_chans, features, kernel_size=(tubelet, ph, pw), stride=(tubelet, ph, pw))
 
     def forward(self, v: torch.Tensor) -> torch.Tensor:
         p = self.proj
@@ -112,6 +112,27 @@ class TubeletEmbed(nn.Module):
             v.permute(0, 4, 1, 2, 3).to(dtype), p.weight.to(dtype), p.bias.to(dtype), stride=p.stride
         )
         return x.flatten(2).transpose(1, 2)
+
+
+class PatchEmbed2d(nn.Module):
+    """Per-frame patch embedding [B, T, H, W, C] -> [B, T * H/p * W/p, dim]
+    (``patch_size_temp`` 1): a Conv2d with kernel = stride = p over every
+    frame, tokens frame-major. Computes in ``dtype``, or in the weight's
+    dtype when that is None."""
+
+    def __init__(self, in_chans: int, features: int, patch: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.proj = nn.Conv2d(in_chans, features, kernel_size=patch, stride=patch)
+
+    def forward(self, v: torch.Tensor) -> torch.Tensor:
+        p = self.proj
+        dtype = self.dtype or p.weight.dtype
+        b = v.shape[0]
+        frames = v.flatten(0, 1).permute(0, 3, 1, 2).to(dtype)
+        x = F.conv2d(frames, p.weight.to(dtype), p.bias.to(dtype), stride=p.stride)
+        return x.flatten(2).transpose(1, 2).reshape(b, -1, x.shape[1])
 
 
 class Mlp(nn.Module):
@@ -138,9 +159,12 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)
 
 
-# The kernel takes rows of 256 tokens and up; below that the plain
-# product is used, as in the JAX package. Both bounds were set on the TPU
-# and are still to be measured on the H100.
+# ``attention_core`` sends rows of 256 to 4096 tokens to the dense kernel
+# (K1) and shorter or longer rows to the plain product, as in the JAX
+# package. Both bounds were set on the TPU and are still to be measured on
+# the H100. They are K1's only: TimeSformer's divided spatial attention
+# (197 tokens a frame and fewer) goes to the block-diagonal kernel (K5) at
+# every frame length, from ``models/timesformer.py``.
 _FLASH_MIN_SEQ = 256
 _FLASH_MAX_SEQ = 4096
 
@@ -159,22 +183,36 @@ def attention_core(
 
     On CUDA, rows of 256 to 4096 tokens go to the fused kernel
     (``tome_flash_attention``); everything else, and every call with
-    ``use_kernel=False``, takes the plain product (``_reference``).
+    ``use_kernel=False``, takes the plain product.
+
+    ``bias_excludes_first``: TimeSformer adds log(size) only to the non-CLS
+    block of the logits: ``size_bias`` then has key length N - 1 and is
+    added to ``logits[:, :, 1:, 1:]``. With the key bias [0, log size] that
+    is the bias on every query row but the first: the rank-1 product
+    row_mask x key_bias added to the logits. This form is plain products at
+    every length: it serves the CPU and ``use_kernel=False``, and on CUDA
+    the divided spatial attention, its only caller with a size, takes the
+    block-diagonal kernel instead (``models/timesformer.py``).
     """
-    if bias_excludes_first:
-        raise NotImplementedError(
-            "the CLS-excluded attention bias is not ported yet (ROADMAP.md Queue 1, item 7: TimeSformer)"
-        )
     n = q.shape[2]
-    key_bias = None if size_bias is None else size_bias[:, 0, 0, :].float().contiguous()
-    if (
+    kernel_ok = (
         use_kernel
         and q.is_cuda
         and n == k.shape[2]
         and _FLASH_MIN_SEQ <= n <= _FLASH_MAX_SEQ
-    ):
-        return tome_flash_attention(q, k, v, key_bias, scale)
-    return _reference(q, k, v, key_bias, scale)
+    )
+    if not bias_excludes_first or size_bias is None:
+        key_bias = None if size_bias is None else size_bias[:, 0, 0, :].float().contiguous()
+        if kernel_ok:
+            return tome_flash_attention(q, k, v, key_bias, scale)
+        return _reference(q, k, v, key_bias, scale)
+
+    key_bias = F.pad(size_bias[:, 0, 0, :].float(), (1, 0))  # [B, N]: 0 for the CLS key
+    row_mask = (torch.arange(n, device=q.device) > 0).float()
+    logits = torch.matmul((q * scale).float(), k.float().transpose(-2, -1))
+    logits = logits + row_mask[None, None, :, None] * key_bias[:, None, None, :]
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v)
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:

@@ -60,6 +60,7 @@ from vtm_torch.models.common import (
     LayerNorm,
     Linear,
     Mlp,
+    PatchEmbed2d,
     TubeletEmbed,
     merge_heads,
     split_heads,
@@ -214,27 +215,6 @@ class JointAttention(nn.Module):
         q, k, v = (split_heads(t, self.num_heads) for t in self.qkv(x).chunk(3, dim=-1))
         out = self.proj(merge_heads(_reference(q, k, v, None, self.scale)))
         return out, _fold_space(k.mean(dim=1)[:, 1:], x.shape[0], num_frames)
-
-
-class PatchEmbed2d(nn.Module):
-    """Per-frame patch embedding [B, T, H, W, C] -> [B, T * H/p * W/p, dim]
-    (``patch_size_temp`` 1): a Conv2d with kernel = stride = p over every
-    frame, tokens frame-major. Computes in ``dtype``, or in the weight's
-    dtype when that is None."""
-
-    def __init__(self, in_chans: int, features: int, patch: int,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__()
-        self.dtype = dtype
-        self.proj = nn.Conv2d(in_chans, features, kernel_size=patch, stride=patch)
-
-    def forward(self, v: torch.Tensor) -> torch.Tensor:
-        p = self.proj
-        dtype = self.dtype or p.weight.dtype
-        b = v.shape[0]
-        frames = v.flatten(0, 1).permute(0, 3, 1, 2).to(dtype)
-        x = F.conv2d(frames, p.weight.to(dtype), p.bias.to(dtype), stride=p.stride)
-        return x.flatten(2).transpose(1, 2).reshape(b, -1, x.shape[1])
 
 
 class MotionformerBlock(nn.Module):

@@ -145,4 +145,23 @@ def load_library() -> ctypes.CDLL:
         p,              # cudaStream_t
     ]
     lib.vtm_frame_attention_bwd.restype = i
+    lib.vtm_blockdiag_attention_fwd.argtypes = [
+        i, i,           # dtype, head_dim
+        p, p, p, p, p,  # q, k, v, key_bias, out
+        i, i, i, i, i,  # batch, num_heads, n, frames, exclude_first_row
+        ctypes.c_float,  # scale
+        p,              # strides (12 x int64, host memory)
+        p,              # cudaStream_t
+    ]
+    lib.vtm_blockdiag_attention_fwd.restype = i
+    lib.vtm_blockdiag_attention_bwd.argtypes = [
+        i, i,           # dtype, head_dim
+        p, p, p, p, p,  # q, k, v, key_bias, do
+        p, p, p, p, p,  # dq, dk, dv, dbias, stats
+        i, i, i, i, i,  # batch, num_heads, n, frames, exclude_first_row
+        ctypes.c_float,  # scale
+        p,              # strides (21 x int64, host memory)
+        p,              # cudaStream_t
+    ]
+    lib.vtm_blockdiag_attention_bwd.restype = i
     return lib

@@ -20,12 +20,26 @@ K4, ``tome_frame_attention_backward``: dq, dk, dv and dbias of K3 from
 counterpart of ``vtm``'s ``_frame_bwd``, for every head count and frame
 length); kernel ``csrc/frame_attention_bwd.cu``.
 
+K5a, ``tome_blockdiag_attention``: block-diagonal per-frame attention
+(the queries of frame f attend only to the keys of frame f; TimeSformer's
+divided spatial attention), optionally with the key bias kept off row 0 of
+every frame, returning token-major [B, N, H*d]; the counterpart of
+``vtm``'s ``tome_blockdiag_attention``; kernel
+``csrc/blockdiag_attention_fwd.cu``. It is differentiable: a
+``torch.autograd.Function`` whose backward is K5b.
+
+K5b, ``tome_blockdiag_attention_backward``: dq, dk, dv and dbias of K5a
+from (q, k, v, key_bias, do), recomputing each frame's softmax (the
+counterpart of ``vtm``'s ``_blockdiag_backward``); kernel
+``csrc/blockdiag_attention_bwd.cu``. Both take any frame length.
+
 None writes the [B, H, N, N] logits to device memory. The kernels are
 CUDA C++ for Hopper, built and bound by ``vtm_torch/ops/build.py``.
 
 A tensor on the CPU goes to the plain PyTorch version of the same math
 (``_reference``, ``_backward_reference``, ``_frame_reference``,
-``_frame_backward_reference``). A CUDA tensor goes to the kernel, or the
+``_frame_backward_reference``, ``_blockdiag_reference``,
+``_blockdiag_backward_reference``). A CUDA tensor goes to the kernel, or the
 call raises: there is no fallback.
 """
 
@@ -37,18 +51,21 @@ from typing import Optional
 import torch
 
 # Kernel launches since import (or since a caller reset them to 0):
-# K1 (tome_flash_attention), K2 (its backward), K3 (tome_frame_attention)
-# and K4 (its backward).
+# K1 (tome_flash_attention), K2 (its backward), K3 (tome_frame_attention),
+# K4 (its backward), K5a (tome_blockdiag_attention) and K5b (its backward).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 FRAME_LAUNCHES = 0
 FRAME_BWD_LAUNCHES = 0
+BLOCKDIAG_LAUNCHES = 0
+BLOCKDIAG_BWD_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 _ALIGN = 16  # bytes: the kernel stages rows with 16-byte loads
 _MAX_GRID_Y = 65535  # batch * heads is the grid's y extent
 MAX_FRAME_LEN = 512  # K3 keeps one frame's [64 x s] fp32 logits in shared memory
+_MAX_GRID_X = 2**31 - 1  # K5a, K5b: frames * 64-row tiles per frame is the grid's x extent
 
 
 def _reference(q, k, v, key_bias, sm_scale):
@@ -457,3 +474,221 @@ def tome_frame_attention(
     (``tome_frame_attention_backward``).
     """
     return _FrameAttention.apply(q, k, v, key_bias, sm_scale, frames)
+
+
+def _blockdiag_reference(q, k, v, key_bias, sm_scale, frames, exclude_first_row=False):
+    """Plain version of K5a (vtm/ops/flash_attention.py:1624-1644): per
+    frame of s = N / frames tokens, q*scale in q's dtype, fp32 logits plus
+    the key bias (on rows > 0 of each frame only with
+    ``exclude_first_row``), an fp32 softmax over the frame's keys,
+    probabilities in v's dtype before the product with v. Returns
+    token-major [B, N, H*d]."""
+    b, h, n, d = q.shape
+    f = frames
+    s = n // f
+    qf = (q * sm_scale).reshape(b, h, f, s, d)
+    kf, vf = (t.reshape(b, h, f, s, d) for t in (k, v))
+    logits = torch.matmul(qf.float(), kf.float().transpose(-2, -1))  # [B, H, F, s, s]
+    if key_bias is not None:
+        kb = key_bias.float().reshape(b, 1, f, 1, s)
+        if exclude_first_row:
+            kb = (torch.arange(s, device=q.device) > 0).float().view(1, 1, 1, s, 1) * kb
+        logits = logits + kb
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.matmul(probs, vf)  # [B, H, F, s, d]
+    return out.permute(0, 2, 3, 1, 4).reshape(b, n, h * d)
+
+
+def check_blockdiag_kernel_args(q, k, v, key_bias, frames: int) -> None:
+    """Raise ValueError on anything the K5a and K5b kernels do not take.
+    A frame may have any length: the kernels walk it in 64-row tiles and
+    keep no whole frame on chip. The limits are the grid's: at most
+    2^31 - 1 (frame, tile) pairs and 65535 (batch, head) pairs."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, H, N, d], got shape {tuple(q.shape)}")
+    n = q.shape[2]
+    if frames < 1 or n % frames:
+        raise ValueError(f"frames={frames} does not divide N={n}")
+    if frames * (-(-(n // frames) // 64)) > _MAX_GRID_X:
+        raise ValueError(f"frames={frames} of {n // frames} tokens exceed the kernel's grid")
+    check_kernel_args(q, k, v, key_bias)
+
+
+def _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row):
+    """K5a on a CUDA tensor, its plain version on a CPU tensor."""
+    global BLOCKDIAG_LAUNCHES
+    if not q.is_cuda:
+        return _blockdiag_reference(q, k, v, key_bias, sm_scale, frames, exclude_first_row)
+    check_blockdiag_kernel_args(q, k, v, key_bias, frames)
+    from vtm_torch.ops.build import load_library
+
+    lib = load_library()
+    b, h, n, d = q.shape
+    out = torch.empty((b, n, h * d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], n * h * d, d, h * d
+    )
+    with torch.cuda.device(q.device):
+        err = lib.vtm_blockdiag_attention_fwd(
+            _DTYPE_CODES[q.dtype], d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if key_bias is None else key_bias.data_ptr(),
+            out.data_ptr(),
+            b, h, n, frames, int(bool(exclude_first_row)), float(sm_scale),
+            ctypes.addressof(strides),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"block-diagonal attention kernel launch failed with cudaError_t {err}")
+    BLOCKDIAG_LAUNCHES += 1
+    return out
+
+
+def _blockdiag_backward_reference(q, k, v, key_bias, do, sm_scale, frames, exclude_first_row=False):
+    """Plain version of K5b, step by step with the TPU kernel's rounding
+    points (vtm/ops/flash_attention.py:1501-1549, 1611), per frame: fp32
+    logits from the unscaled q, plus the key bias (on rows > 0 only with
+    ``exclude_first_row``), an fp32 softmax over the frame's keys, dp =
+    do v^T and ds = p (dp - rowsum(p dp)) in fp32; p and ds rounded to the
+    input dtype before the three products, whose fp32 sums are cast at the
+    end; dbias from the unrounded ds, summed over heads and over the query
+    rows the bias reached. ``do`` is the token-major cotangent
+    [B, N, H*d]. Returns (dq, dk, dv, dbias); dbias is None without a
+    key_bias."""
+    dtype = q.dtype
+    b, h, n, d = q.shape
+    f = frames
+    s = n // f
+    qf, kf, vf = (t.float().reshape(b, h, f, s, d) for t in (q, k, v))
+    dof = do.float().reshape(b, f, s, h, d).permute(0, 3, 1, 2, 4)  # [B, H, F, s, d]
+    sf = torch.matmul(qf, kf.transpose(-2, -1)) * sm_scale
+    rows = None  # the query rows the bias reaches, [1, 1, 1, s, 1]
+    if key_bias is not None:
+        kb = key_bias.float().reshape(b, 1, f, 1, s)
+        if exclude_first_row:
+            rows = (torch.arange(s, device=q.device) > 0).float().view(1, 1, 1, s, 1)
+            kb = rows * kb
+        sf = sf + kb
+    p = torch.softmax(sf, dim=-1)
+    dp = torch.matmul(dof, vf.transpose(-2, -1))
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    p_lo = p.to(dtype).float()
+    ds_lo = ds.to(dtype).float()
+    dq = (torch.matmul(ds_lo, kf) * sm_scale).reshape(b, h, n, d).to(dtype)
+    dk = (torch.matmul(ds_lo.transpose(-2, -1), qf) * sm_scale).reshape(b, h, n, d).to(dtype)
+    dv = torch.matmul(p_lo.transpose(-2, -1), dof).reshape(b, h, n, d).to(dtype)
+    dbias = None
+    if key_bias is not None:
+        reached = ds if rows is None else ds * rows
+        dbias = reached.sum(dim=(1, 3)).reshape(b, n).to(key_bias.dtype)
+    return dq, dk, dv, dbias
+
+
+def tome_blockdiag_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor],
+    do: torch.Tensor,
+    sm_scale: float = 1.0,
+    frames: int = 8,
+    exclude_first_row: bool = False,
+    need_dbias: bool = True,
+):
+    """Gradients of ``tome_blockdiag_attention`` given ``do`` = d loss / d out.
+
+    q, k, v, key_bias as in the forward; do: token-major [B, N, H*d] in q's
+    dtype, last dim contiguous (read through its strides: no head-major
+    transpose). Returns (dq, dk, dv, dbias): dq, dk, dv are [B, H, N, d]
+    views of one token-major [B, N, 3, H, d] buffer, so the gradient of a
+    fused qkv projection's split is that buffer; dbias is float32 [B, N]
+    (summed over heads and over the query rows the bias reached), or None
+    when there is no key_bias or ``need_dbias`` is False.
+    """
+    global BLOCKDIAG_BWD_LAUNCHES
+    if not q.is_cuda:
+        dq, dk, dv, dbias = _blockdiag_backward_reference(
+            q, k, v, key_bias, do, sm_scale, frames, exclude_first_row
+        )
+        return dq, dk, dv, dbias if need_dbias else None
+    check_blockdiag_kernel_args(q, k, v, key_bias, frames)
+    b, h, n, d = q.shape
+    if do.shape != (b, n, h * d) or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"do must be {q.dtype} {(b, n, h * d)} on {q.device}, "
+            f"got {do.dtype} {tuple(do.shape)} on {do.device}"
+        )
+    do = _kernel_operand(do)
+    from vtm_torch.ops.build import load_library
+
+    lib = load_library()
+    dq, dk, dv, dbias_heads = _gradient_buffers(q, need_dbias and key_bias is not None)
+    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 21)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], do.stride(0), d, do.stride(1),
+        *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+    )
+    with torch.cuda.device(q.device):
+        err = lib.vtm_blockdiag_attention_bwd(
+            _DTYPE_CODES[q.dtype], d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if key_bias is None else key_bias.data_ptr(),
+            do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if dbias_heads is None else dbias_heads.data_ptr(),
+            stats.data_ptr(),
+            b, h, n, frames, int(bool(exclude_first_row)), float(sm_scale),
+            ctypes.addressof(strides),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"block-diagonal attention backward kernel launch failed with cudaError_t {err}")
+    BLOCKDIAG_BWD_LAUNCHES += 1
+    dbias = None if dbias_heads is None else dbias_heads.sum(dim=1).to(key_bias.dtype)
+    return dq, dk, dv, dbias
+
+
+class _BlockdiagAttention(torch.autograd.Function):
+    """K5a forward, K5b backward. Saves (q, k, v, key_bias) only: the
+    backward recomputes each frame's softmax, as ``vtm``'s custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, sm_scale, frames, exclude_first_row):
+        ctx.save_for_backward(q, k, v, key_bias)
+        ctx.sm_scale, ctx.frames, ctx.exclude_first_row = sm_scale, frames, exclude_first_row
+        return _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_bias = ctx.saved_tensors
+        dq, dk, dv, dbias = tome_blockdiag_attention_backward(
+            q, k, v, key_bias, do, ctx.sm_scale, ctx.frames, ctx.exclude_first_row,
+            need_dbias=ctx.needs_input_grad[3],
+        )
+        return dq, dk, dv, dbias, None, None, None
+
+
+def tome_blockdiag_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    sm_scale: float = 1.0,
+    frames: int = 8,
+    exclude_first_row: bool = False,
+) -> torch.Tensor:
+    """Block-diagonal per-frame attention: the queries of frame f attend
+    only to the keys of frame f (TimeSformer's divided spatial attention,
+    folded as [B, frames * s] frame-major instead of a (b t) batch).
+
+    q, k, v: [B, H, N, d] with N = frames * s, in bfloat16 or float32, last
+    dim contiguous (the views of a fused qkv projection go in without a
+    copy). key_bias: float32 [B, N] (log token sizes; entry 0 of each
+    frame, the CLS token, is 0) or None. ``exclude_first_row``: the bias
+    reaches query rows > 0 of each frame only (the reference's
+    ``logits[:, :, 1:, 1:] += log size``). Returns token-major [B, N, H*d]
+    in q's dtype (merged heads). Gradients with respect to q, k, v and
+    key_bias come from K5b (``tome_blockdiag_attention_backward``).
+    """
+    return _BlockdiagAttention.apply(q, k, v, key_bias, sm_scale, frames, exclude_first_row)

@@ -6,9 +6,10 @@ Random input batches of ``TEST.BATCH_SIZE`` clips, warm-up, then
 ``MODEL_BENCHMARK.ITERATIONS`` timed forwards (CUDA events). Prints one
 ``json_stats:`` line with the JAX tool's keys (avg_frame_time_ms, fps,
 clips_per_sec, batch_size, iterations) plus the kernel launches per
-forward, ``attention_kernel_launches`` (K1, dense attention) and
-``frame_attention_kernel_launches`` (K3, per-frame attention), and
-``device``. VideoMAE and Motionformer are ported.
+forward, ``attention_kernel_launches`` (K1, dense attention),
+``frame_attention_kernel_launches`` (K3, per-frame attention) and
+``blockdiag_attention_kernel_launches`` (K5a, block-diagonal attention),
+and ``device``. VideoMAE, Motionformer, TimeSformer and ViViT are ported.
 
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``device="cpu"``, plain versions of the kernels) is for tests only.
@@ -24,17 +25,30 @@ import torch
 
 from vtm_torch.checkpoints.convert import (
     load_motionformer_state_dict,
+    load_timesformer_state_dict,
     load_torch_state_dict,
     load_videomae_state_dict,
+    load_vivit_state_dict,
 )
 from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
 from vtm_torch.models import ModelBundle, build_model
 from vtm_torch.ops import flash_attention
 from vtm_torch.utils.benchmark import device_seconds
 
+
+def _load_timesformer(sd, config):
+    return load_timesformer_state_dict(
+        sd, num_frames=config.num_frames, spatial_tokens=config.spatial_tokens,
+        divided=config.attention_type == "divided_space_time",
+    )
+
+
+# model name -> f(state dict as loaded, the module's config) -> the port's state dict
 CHECKPOINT_LOADERS = {
-    "VideoMAE": load_videomae_state_dict,
-    "Motionformer": load_motionformer_state_dict,
+    "VideoMAE": lambda sd, config: load_videomae_state_dict(sd),
+    "Motionformer": lambda sd, config: load_motionformer_state_dict(sd),
+    "TimeSformer": _load_timesformer,
+    "ViViT": lambda sd, config: load_vivit_state_dict(sd),
 }
 
 
@@ -48,7 +62,7 @@ def load_test_checkpoint(cfg, bundle: ModelBundle) -> ModelBundle:
         raise FileNotFoundError(f"TEST.CHECKPOINT_FILE_PATH {path!r} does not exist")
     if bundle.name not in CHECKPOINT_LOADERS:
         raise NotImplementedError(f"no checkpoint converter for {bundle.name}")
-    sd = CHECKPOINT_LOADERS[bundle.name](load_torch_state_dict(path))
+    sd = CHECKPOINT_LOADERS[bundle.name](load_torch_state_dict(path), bundle.module.config)
     bundle.module.load_state_dict(sd)
     return bundle
 
@@ -66,12 +80,14 @@ def perform_benchmark(module: torch.nn.Module, cfg, device: torch.device) -> dic
     iters = max(1, cfg.MODEL_BENCHMARK.ITERATIONS)
     warmup = max(1, cfg.MODEL_BENCHMARK.WARMUP_ITERATIONS)
 
-    before = flash_attention.LAUNCHES, flash_attention.FRAME_LAUNCHES
+    counters = ("LAUNCHES", "FRAME_LAUNCHES", "BLOCKDIAG_LAUNCHES")
+    before = [getattr(flash_attention, c) for c in counters]
     with torch.inference_mode():
         elapsed = device_seconds(lambda: module(video), iters, warmup, device)
     forwards = warmup + iters
-    launches = (flash_attention.LAUNCHES - before[0]) / forwards
-    frame_launches = (flash_attention.FRAME_LAUNCHES - before[1]) / forwards
+    launches, frame_launches, blockdiag_launches = (
+        (getattr(flash_attention, c) - n) / forwards for c, n in zip(counters, before)
+    )
 
     frame_time_ms = elapsed / (batch * t * iters) * 1000.0
     return {
@@ -83,6 +99,7 @@ def perform_benchmark(module: torch.nn.Module, cfg, device: torch.device) -> dic
         "iterations": iters,
         "attention_kernel_launches": _per_forward(launches),
         "frame_attention_kernel_launches": _per_forward(frame_launches),
+        "blockdiag_attention_kernel_launches": _per_forward(blockdiag_launches),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
 

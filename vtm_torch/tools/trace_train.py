@@ -1,13 +1,16 @@
 """Where a train step's time goes on the card.
 
-    python -m vtm_torch.tools.trace_train [--model videomae|motionformer]
+    python -m vtm_torch.tools.trace_train [--model videomae|motionformer|timesformer|vivit]
                                           [--steps 4] [--opts KEY VALUE ...]
 
 Builds the trainer that ``vtm_torch.tools.train_net`` steps with (ViT-B/16
-16x224, batch 8, bf16 compute, fp32 parameters, AdamW, cross-entropy, one
-fixed synthetic batch; ``--opts`` change the config), merged (VideoMAE at
-r=150; Motionformer with trajectory attention at r=18 per pseudo-frame,
-proportional attention) and unmerged, and for each:
+at 224, batch 8, bf16 compute, fp32 parameters, cross-entropy, one fixed
+synthetic batch; ``--opts`` change the config), merged (VideoMAE 16 frames
+at r=150; Motionformer 16 frames with trajectory attention at r=18 per
+pseudo-frame; TimeSformer 8 frames with divided attention at r=18 per
+frame; ViViT 32 frames at r=300; the last three with proportional
+attention) and unmerged, with AdamW (VideoMAE, Motionformer) or the
+shipped configs' SGD with momentum (TimeSformer, ViViT), and for each:
   * times warm steps untraced, two ways: each step synchronised, as the
     train loop runs them (it reads the loss every iteration), and
     ``--steps`` steps queued back to back with one synchronise at the end;
@@ -16,8 +19,8 @@ proportional attention) and unmerged, and for each:
     name (annotation spans are left out).
 Prints one JSON line per program: step_ms (synchronised), queued_step_ms,
 kernel_ms per step, the device idle share of each (1 - kernel time /
-wall), kernels launched per step, kernel time by category (K1, K3, the two
-kernels each of K2 and K4, linear layers, the optimizer, ...), the peak
+wall), kernels launched per step, kernel time by category (K1, K3, K5a, the
+two kernels each of K2, K4 and K5b, linear layers, the optimizer, ...), the peak
 device memory, the 25 longest kernels by name, and for Motionformer
 ``temporal_chain_ms``: the device time of the temporal attention chain,
 forward and backward, from CUDA events around it (``ChainTimer``). Needs
@@ -49,6 +52,12 @@ _COMMON_OPTS = [
     "SOLVER.OPTIMIZING_METHOD", "adamw", "SOLVER.BASE_LR", "0.0001", "SOLVER.WEIGHT_DECAY", "0.05",
     "SOLVER.LR_POLICY", "steps_with_relative_lrs", "SOLVER.LRS", "[1]", "SOLVER.STEPS", "[0]",
 ]
+# configs/timesformer and configs/vivit train with SGD: momentum 0.9, weight
+# decay 1e-4, base learning rate 0.005
+_SGD_OPTS = [
+    "SOLVER.OPTIMIZING_METHOD", "sgd", "SOLVER.MOMENTUM", "0.9", "SOLVER.BASE_LR", "0.005",
+    "SOLVER.WEIGHT_DECAY", "0.0001",
+]
 STEP_OPTS = {
     "videomae": _COMMON_OPTS + [
         "MODEL.MODEL_NAME", "VideoMAE", "MODEL.ARCH", "videomae",
@@ -59,11 +68,25 @@ STEP_OPTS = {
         "MODEL.MODEL_NAME", "Motionformer", "MODEL.ARCH", "motionformer",
         "MOTIONFORMER.USE_MLP", "True", "TOME.R_VALUE", "18", "TOME.PROP_ATTN", "True",
     ],
+    # divided space-time attention, 8 frames of 196 patches; SGD as shipped
+    "timesformer": _COMMON_OPTS + _SGD_OPTS + [
+        "MODEL.MODEL_NAME", "TimeSformer", "MODEL.ARCH", "timesformer", "DATA.NUM_FRAMES", "8",
+        "TOME.R_VALUE", "18", "TOME.PROP_ATTN", "True",
+    ],
+    # 16 x 14 x 14 tubelets + CLS = 3137 tokens; SGD as shipped
+    "vivit": _COMMON_OPTS + _SGD_OPTS + [
+        "MODEL.MODEL_NAME", "ViViT", "MODEL.ARCH", "vivit", "DATA.NUM_FRAMES", "32",
+        "VIVIT.CONFIG_PATH", "configs/vivit/kinetics/tome_vivit_8x32_224.json",
+        "TOME.R_VALUE", "300", "TOME.PROP_ATTN", "True",
+    ],
 }
 
 
 # (category, substring of the kernel's name), first match wins
 _CATEGORIES = (
+    ("k5b_blockdiag_bwd_dq", "blockdiag_bwd_dq"),
+    ("k5b_blockdiag_bwd_dkdv", "blockdiag_bwd_dkdv"),
+    ("k5a_blockdiag_attention_fwd", "blockdiag_attention_fwd"),
     ("k4_frame_bwd_dq", "frame_bwd_dq"),
     ("k4_frame_bwd_dkdv", "frame_bwd_dkdv"),
     ("k3_frame_attention_fwd", "frame_attention_fwd"),
