@@ -49,6 +49,14 @@ Phases, each printing one JSON line:
      PyTorch call that computes the same function
      (scaled_dot_product_attention, its autograd backward for K2, K4 and
      K5b), beside the least time the card could take (``bound_ms``).
+     ab_kernels -- the twelve A/B variants of K1 (T1-T12,
+                  vtm_torch/ops/ab_attention.py), every mode against its
+                  plain version by the entry point's own rule
+                  (ab_dense.exp_kernels): fp32 at a small ragged shape, bf16
+                  at B8 H12 d64 and the tools' token counts, timed the same
+                  way. The four q k^T probes' bound is that of the function
+                  (one pass over k and a narrow product), their n x n
+                  product's stands beside it as ``product_bound_ms``
   4. blocks    -- teacher-forced VideoMAE ViT-B blocks, fp32: kernel path vs
                   plain path
      mf_blocks -- the same for Motionformer ViT-B blocks
@@ -76,15 +84,22 @@ Phases, each printing one JSON line:
                   shipped), with K5a and K5b launches per forward and step
      vivit_serve, vivit_train -- ViViT serving and train steps, with the
                   biased K1 and K2 launches
-Each serve or train phase sets the kernels' launch counts to 0 just before
-it and reads them just after. Then a ``{"kernels": [...]}`` line and, last,
+     ab_dense  -- the A/B entry point (vtm_torch.tools.ab_dense --exp all,
+                  one repeat of three calls a row): every row checked
+                  against its plain version as it is printed, all twelve
+                  launched
+Each serve or train phase, and ab_dense, sets the kernels' launch counts to
+0 just before it and reads them just after. Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and the script exits
 nonzero without the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
+import io
 import json
 import pathlib
 import shutil
@@ -119,6 +134,8 @@ from vtm_torch.ops.flash_attention import (
     tome_frame_attention,
     tome_frame_attention_backward,
 )
+from vtm_torch.ops import ab_attention
+from vtm_torch.tools import ab_dense
 from vtm_torch.tools.model_benchmark import model_benchmark
 from vtm_torch.tools.train_net import build_trainer, train
 from vtm_torch.train.optimizer import set_lr
@@ -823,6 +840,8 @@ def launch_counts() -> dict:
 def zero_launch_counts() -> None:
     for c in COUNTERS:
         setattr(flash_attention, c, 0)
+    for name in ab_attention.AB_LAUNCHES:
+        ab_attention.AB_LAUNCHES[name] = 0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1776,6 +1795,90 @@ def phase_train(smi: str, phase, cfg, step_opts, entry_opts, fwd, bwd, per_step,
     return total[bwd]
 
 
+# The A/B kernels: id -> (source, the TPU kernel's call site, the mode whose
+# numbers stand on the ``kernels`` line; every mode is on the ab_kernels line).
+AB_KERNELS = {
+    "T1": ("ab_chain.cu", "tools/ab_bisect.py:37", "per-batch bias"),
+    "T2": ("ab_qk_probe.cu", "tools/ab_mxu_pack.py:84", ""),
+    "T3": ("ab_qk_probe.cu", "tools/ab_mxu_pack.py:116", ""),
+    "T4": ("ab_dense_variants.cu", "tools/ab_mxu_pack.py:203", "unbiased"),
+    "T5": ("ab_chain.cu", "tools/ab_b32.py:51", ""),
+    "T6": ("ab_qk_probe.cu", "tools/ab_decomp.py:69", ""),
+    "T7": ("ab_qk_probe.cu", "tools/ab_decomp.py:97", ""),
+    "T8": ("ab_chain.cu", "tools/ab_decomp.py:144", "full"),
+    "T9": ("ab_chain.cu", "tools/ab_decomp.py:248", "1d"),
+    "T10": ("ab_chain.cu", "tools/ab_decomp.py:324", ""),
+    "T11": ("ab_dense_variants.cu", "tools/ab_dense_v2.py:156", "v2_sum, unbiased"),
+    "T12": ("ab_chain.cu", "tools/ab_block_attn.py:110", ""),
+}
+
+
+def phase_ab_kernels(smi: str) -> dict:
+    """T1-T12, every mode (``ab_dense.exp_kernels``, by the entry point's
+    own rule): against the plain version in fp32 at a small ragged shape
+    and in bf16 at B8 H12 d64, then timed at the bf16 shape, twice 20 calls
+    in turns with the plain version (5 calls) and the one PyTorch call that
+    computes the same function (SDPA, or an einsum for the four probes).
+    Returns the ``kernels`` line's numbers per T id."""
+    device = torch.device("cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        small = {(r["function"], r.get("mode", "")): r for r in ab_dense.exp_kernels(
+            ab_dense.Bench(device, ab_dense.SMALL_SIZES, 0, 1, 1, dtype=torch.float32))}
+        full = ab_dense.exp_kernels(ab_dense.Bench(device, ab_dense.Sizes(), 0, 2, 20))
+    by_id = {}
+    for row in full:
+        tid, mode = row["kernel"], row.get("mode", "")
+        fp32 = small[row["function"], mode]
+        row.update(ms=row["ms"]["median"], fp32_small_rel_err=fp32["rel_err_vs_fp32ref"],
+                   library_ms=row.get("library_ms"), **bound(row.get("bound_flops", row["flops"]), row["nbytes"]))
+        if "bound_flops" in row:
+            row["product_bound_ms"] = row["flops"] / PEAK_BF16_FLOPS * 1e3
+        if "cancelled_rows" in row:
+            row["cancelled_rows_fp32_small"] = fp32["cancelled_rows"]
+        if mode == AB_KERNELS[tid][2]:
+            by_id[tid] = dict(
+                mode=mode, function=row["function"],
+                max_abs_err=max(row["max_abs_err_vs_plain"], fp32["max_abs_err_vs_plain"]),
+                ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"])
+    check(set(by_id) == set(AB_KERNELS), f"ab_kernels: ids checked {sorted(by_id)}")
+    emit("ab_kernels", cases=full, fp32_shape=dataclasses.asdict(ab_dense.SMALL_SIZES),
+         bf16_shape=dataclasses.asdict(ab_dense.Sizes()), nvidia_smi=smi)
+    return by_id
+
+
+def phase_ab_dense() -> dict:
+    """The A/B entry point as a user runs it, every experiment once (each
+    row is held against its plain version as it is printed). Returns the
+    launches per function, and K1's under ``"K1"``."""
+    zero_launch_counts()  # this path's counts start here
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ab_dense.main(["--exp", "all", "--reps", "1", "--iters", "3"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ab_attention.AB_LAUNCHES, K1=flash_attention.LAUNCHES)  # read right after the path ran
+    total = launch_counts()
+    rows = [json.loads(line) for line in out.getvalue().splitlines()]
+    check({r["exp"] for r in rows} == set(ab_dense.EXPERIMENTS), "ab_dense: an experiment printed no row")
+    worst = {}
+    for r in rows:
+        check(r["ms"]["median"] > 0 and r["device"] == torch.cuda.get_device_name(0), f"ab_dense: row {r}")
+        if "kernel" in r:
+            check(r["rel_err_vs_fp32ref"] <= r["tol"], f"ab_dense: {r['exp']} {r['name']}: {r}")
+            worst[r["kernel"]] = max(worst.get(r["kernel"], 0.0), r["err_vs_plain"])
+    check(set(worst) == set(AB_KERNELS) | {"K1"}, f"ab_dense: kernels with a row: {sorted(worst)}")
+    check(all(n > 0 for n in launches.values()), f"the A/B entry point launched no kernel of: {launches}")
+    check(all(n == 0 for c, n in total.items() if c != "LAUNCHES"),
+          f"the A/B entry point launched another path's kernels: {total}")
+    medians = {exp: {r["name"]: r["ms"]["median"] for r in rows if r["exp"] == exp} for exp in ab_dense.EXPERIMENTS}
+    cancelled = [r["cancelled_rows"] for r in rows if "cancelled_rows" in r]
+    emit("ab_dense", seconds=seconds, rows=len(rows), launches=launches, worst_err_vs_plain=worst,
+         cancelled_rows=cancelled, ms=medians)
+    return launches
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, r: dict) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -1805,6 +1908,7 @@ def main() -> int:
     frame_bwd_kernel = phase_frame_bwd_kernel(smi)
     blockdiag_kernel = phase_blockdiag_kernel(smi)
     blockdiag_bwd_kernel = phase_blockdiag_bwd_kernel(smi)
+    ab_kernels = phase_ab_kernels(smi)
     fp32_b2 = ("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2")
     phase_blocks("blocks", main_cfg(*fp32_b2), 1, {}, lambda: flash_attention.LAUNCHES,
                  MERGED_COUNTS[-1], MERGED_K1_PER_FORWARD)
@@ -1841,6 +1945,8 @@ def main() -> int:
     frame_bwd_launches = phase_train(smi, **MOTIONFORMER_TRAIN)
     blockdiag_bwd_launches = phase_train(smi, **TIMESFORMER_TRAIN)
     bwd_launches += phase_train(smi, **VIVIT_TRAIN)
+    ab_launches = phase_ab_dense()
+    launches += ab_launches["K1"]  # the prod rows
     emit("done", seconds=time.perf_counter() - t0)
     csrc = "vtm_torch/ops/csrc/"
     print(json.dumps({"kernels": [
@@ -1856,6 +1962,9 @@ def main() -> int:
                    "vtm/ops/flash_attention.py:1463", blockdiag_launches, blockdiag_kernel),
         kernel_row("tome_blockdiag_attention_backward", csrc + "blockdiag_attention_bwd.cu",
                    "vtm/ops/flash_attention.py:1578", blockdiag_bwd_launches, blockdiag_bwd_kernel),
+    ] + [
+        dict(kernel_row(r["function"], csrc + source, replaces, ab_launches[r["function"]], r), id=tid, mode=r["mode"])
+        for tid, (source, replaces, _) in AB_KERNELS.items() for r in (ab_kernels[tid],)
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,480 @@
+"""The port's A/B attention variants (T1-T12, ``vtm_torch.ops.ab_attention``)
+against the Pallas kernels of the JAX package's ``tools/ab_*.py``.
+
+The JAX tools are loaded by path (``tools/`` is no package) with their
+module globals set small, and run their kernels in interpret mode, as they
+select it themselves off the TPU. On the CPU every port function runs its
+plain version; the CUDA kernels are held against those plain versions on
+the card by ``chip_smoke.py``.
+
+Tolerances, relative to the output's largest entry: fp32 1e-5 (two
+orders of summation); bf16 2e-2 (one bf16 rounding of p, taken against
+another running max, and one of the output: 2^-8 each, summed over a row).
+"""
+
+import functools
+import importlib.util
+import json
+import os
+import pathlib
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from vtm_torch.ops import ab_attention as ab
+from vtm_torch.ops.flash_attention import _reference
+
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+DTYPES = ("float32", "bfloat16")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tool(name: str):
+    """``tools/<name>.py`` as a module. Its import sets up the JAX compile
+    cache: send that to a temporary directory, not to the home directory."""
+    before = os.environ.get("VTM_COMPILATION_CACHE")
+    os.environ["VTM_COMPILATION_CACHE"] = tempfile.mkdtemp(prefix="vtm_jax_cache_")
+    try:
+        spec = importlib.util.spec_from_file_location(f"_jax_tool_{name}", REPO / "tools" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    finally:
+        if before is None:
+            os.environ.pop("VTM_COMPILATION_CACHE")
+        else:
+            os.environ["VTM_COMPILATION_CACHE"] = before
+    return module
+
+
+def both(array: np.ndarray, dtype: str):
+    """One numpy array as a jax and a torch array of ``dtype`` (both round
+    to nearest even, so the bf16 values are the same)."""
+    return jnp.asarray(array, getattr(jnp, dtype)), torch.from_numpy(array).to(getattr(torch, dtype))
+
+
+def normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def assert_close(got: torch.Tensor, want, dtype: str, tol=None):
+    want = np.asarray(want, np.float32)
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-6)
+    assert err <= (tol or TOL[dtype]), err
+
+
+# ---- T1 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("n_pad,blk", [(32, 16), (72, 24)])
+def test_t1_chunked_attention(dtype, shared, n_pad, blk):
+    tool = jax_tool("ab_bisect")
+    tool.B, tool.H, tool.D, tool.N_PAD, tool.BLK = 2, 3, 16, n_pad, blk
+    rng = np.random.default_rng(1)
+    (jq, tq), (jk, tk), (jv, tv) = (both(normal(rng, 6, n_pad, 16) * s, dtype) for s in (0.5, 1, 1))
+    bias = np.log(rng.uniform(1, 5, (1 if shared else 2, 1, n_pad))).astype(np.float32)
+    want = tool.call_kernel(jq, jk, jv, jnp.asarray(bias), shared)
+    got = ab.chunked_attention(tq, tk, tv, torch.from_numpy(bias), shared, num_heads=3)
+    assert_close(got, want, dtype)
+
+
+# ---- T2, T3, T6, T7: the q k^T probes -----------------------------------------
+
+
+def test_packed_operands_match_the_numpy_ones():
+    """pack_q / pack_k against ab_mxu_pack.py:269-274."""
+    rng = np.random.default_rng(2)
+    bh, n, d = 4, 10, 8
+    q, k = normal(rng, bh, n, d), normal(rng, bh, n, d)
+    q4 = q.reshape(bh // 2, 2, n, d)
+    qp = np.zeros((bh // 2, 2 * n, 2 * d), np.float32)
+    qp[:, 0::2, :d] = q4[:, 0]
+    qp[:, 1::2, d:] = q4[:, 1]
+    k4 = k.reshape(bh // 2, 2, n, d)
+    kc = np.concatenate([k4[:, 0], k4[:, 1]], axis=-1)
+    np.testing.assert_array_equal(ab.pack_q(torch.from_numpy(q)).numpy(), qp)
+    np.testing.assert_array_equal(ab.pack_k(torch.from_numpy(k)).numpy(), kc)
+    assert ab.pack_q(torch.from_numpy(q).to(torch.bfloat16)).dtype == torch.bfloat16
+
+
+def test_split_bias_carries_fp32_through_bf16():
+    bias = torch.tensor([[0.0, 1.2345678, -1e30, float(np.log(3.0))]], dtype=torch.float32)
+    hi, lo = ab.split_bias(bias, torch.bfloat16)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, bias.to(torch.bfloat16))
+    back = hi.float() + lo.float()
+    assert ((back - bias).abs() <= bias.abs() * 2.0 ** -15).all()
+    hi32, lo32 = ab.split_bias(bias, torch.float32)
+    assert torch.equal(hi32, bias) and not lo32.any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("blk", [64, 128])
+def test_t2_qk64(dtype, blk):
+    """d = 64 and blk >= 64: the JAX probe slices [:d] of every chunk."""
+    tool = jax_tool("ab_mxu_pack")
+    rng = np.random.default_rng(3)
+    (jq, tq), (jk, tk) = (both(normal(rng, 2, 128, 64), dtype) for _ in range(2))
+    assert_close(ab.qk64(tq, tk, blk), tool.qk64(jq, jk, blk), dtype)
+
+
+def test_t2_t3_depend_on_blk():
+    rng = np.random.default_rng(3)
+    q, k = (torch.from_numpy(normal(rng, 2, 128, 64)) for _ in range(2))
+    assert not torch.allclose(ab.qk64(q, k, 64), ab.qk64(q, k, 128))
+    assert not torch.allclose(ab.qk_packed(ab.pack_q(q), ab.pack_k(k), 64),
+                              ab.qk_packed(ab.pack_q(q), ab.pack_k(k), 128))
+    with pytest.raises(ValueError, match="divide the key count"):
+        ab.qk64(q, k, 96)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("blk", [64, 128])
+def test_t3_qk_packed(dtype, blk):
+    tool = jax_tool("ab_mxu_pack")
+    rng = np.random.default_rng(4)
+    q, k = normal(rng, 4, 128, 64), normal(rng, 4, 128, 64)
+    tq, tk = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k))
+    tqp, tkc = ab.pack_q(tq), ab.pack_k(tk)
+    jqp, jkc = (jnp.asarray(t.float().numpy(), getattr(jnp, dtype)) for t in (tqp, tkc))
+    got = ab.qk_packed(tqp, tkc, blk)
+    assert got.shape == (2, 256, 64)
+    assert_close(got, tool.qk_packed(jqp, jkc, blk), dtype)
+    # even rows are head 1's q k^T, odd rows head 2's
+    assert_close(got[:, 0::2], np.asarray(ab.qk64(tq[0::2], tk[0::2], blk).float()), dtype, tol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_pad,blk", [(32, 16), (72, 24)])
+def test_t6_qk_d64(dtype, n_pad, blk):
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = n_pad, blk, 16
+    rng = np.random.default_rng(5)
+    (jq, tq), (jk, tk) = (both(normal(rng, 3, n_pad, 16), dtype) for _ in range(2))
+    got = ab.qk_d64(tq, tk)
+    assert got.dtype == torch.float32 and got.shape == (3, n_pad, 1)
+    assert_close(got, tool.qk_d64(jq, jk), "float32")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_pad,blk", [(32, 16), (72, 24)])
+def test_t7_qk_packed_rowsum(dtype, n_pad, blk):
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = n_pad, blk, 16
+    rng = np.random.default_rng(6)
+    tq, tk = (torch.from_numpy(normal(rng, 4, n_pad, 16)).to(getattr(torch, dtype)) for _ in range(2))
+    tqp, tkc = ab.pack_q(tq), ab.pack_k(tk)
+    jqp, jkc = (jnp.asarray(t.float().numpy(), getattr(jnp, dtype)) for t in (tqp, tkc))
+    got = ab.qk_packed_rowsum(tqp, tkc)
+    assert got.dtype == torch.float32 and got.shape == (2, 2 * n_pad, 1)
+    assert_close(got, tool.qk_packed(jqp, jkc), "float32")
+
+
+# ---- T8, T9, T10: the chain --------------------------------------------------
+
+
+def chain_inputs(rng, n_pad, dtype):
+    return [both(normal(rng, 4, n_pad, 16), dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ab.CHAIN_MODES)
+@pytest.mark.parametrize("n_pad,blk", [(32, 16), (72, 24)])
+def test_t8_chain(dtype, mode, n_pad, blk):
+    """No scale: logits of standard deviation 4 at d = 16. ``nosmax``
+    divides by 1e-6, so its outputs are near 1e7; all are compared
+    relative to the largest entry. ``linear`` in fp32 gets 2e-3: its
+    denominator l = l * corr + sum(p) adds a positive and a negative term
+    of some thousand each, so a row whose l lands near zero carries the
+    two packages' different summation orders amplified, and that row's
+    quotient is the output's largest entry."""
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = n_pad, blk, 16
+    (jq, tq), (jk, tk), (jv, tv) = chain_inputs(np.random.default_rng(7), n_pad, dtype)
+    tol = 2e-3 if (mode, dtype) == ("linear", "float32") else None
+    assert_close(ab.chain(tq, tk, tv, mode, blk), tool.chain(jq, jk, jv, mode), dtype, tol)
+
+
+def test_relative_error_leaves_out_the_rows_that_cancelled():
+    want = torch.ones(50, 4)
+    want[7] = 1e4  # a row whose denominator fell near zero
+    got = want.clone()
+    got[7, 0] += 500.0
+    got[3, 1] += 0.01
+    assert ab.relative_error(got, want) == pytest.approx(0.05)
+    assert ab.relative_error(got, want, trim_ill_conditioned=True) == pytest.approx(0.01)
+    assert ab.relative_error(got[:7], want[:7], trim_ill_conditioned=True) == pytest.approx(0.01)
+
+
+def test_t8_linear_depends_on_blk_and_full_does_not():
+    (_, q), (_, k), (_, v) = chain_inputs(np.random.default_rng(7), 64, "float32")
+    assert not torch.allclose(ab.chain(q, k, v, "linear", 16), ab.chain(q, k, v, "linear", 32), rtol=1e-3)
+    for mode in ("full", "nosmax"):
+        a, b = ab.chain(q, k, v, mode, 16), ab.chain(q, k, v, mode, 64)
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    with pytest.raises(ValueError, match="mode"):
+        ab.chain(q, k, v, "softmax")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ab.BIAS_MODES)
+def test_t9_chain_bias(dtype, mode):
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = 48, 16, 16
+    rng = np.random.default_rng(8)
+    (jq, tq), (jk, tk), (jv, tv) = chain_inputs(rng, 48, dtype)
+    bias = np.log(rng.uniform(1, 12, (1, 1, 48))).astype(np.float32)
+    want = tool.chain_bias(jq, jk, jv, jnp.asarray(bias), mode)
+    assert_close(ab.chain_bias(tq, tk, tv, torch.from_numpy(bias), mode), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_t10_chain_bias_cost(dtype):
+    """``chain_bias_cost`` is nested inside ab_decomp.main3 and cannot be
+    imported; its body (ab_decomp.py:344-366) is ``chain_bias``'s ``1d``
+    body (221-246) line for line with a cost estimate attached, so the
+    port's counterpart is held against ``chain_bias(..., "1d")``."""
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = 48, 16, 16
+    rng = np.random.default_rng(9)
+    (jq, tq), (jk, tk), (jv, tv) = chain_inputs(rng, 48, dtype)
+    bias = np.log(rng.uniform(1, 12, (1, 1, 48))).astype(np.float32)
+    want = tool.chain_bias(jq, jk, jv, jnp.asarray(bias), "1d")
+    assert_close(ab.chain_bias_cost(tq, tk, tv, torch.from_numpy(bias)), want, dtype)
+
+
+# ---- T4, T5, T11, T12: whole attention --------------------------------------
+
+
+def attention_inputs(seed, n, dtype, biased, b=2, h=4, d=16):
+    rng = np.random.default_rng(seed)
+    qkv = [both(normal(rng, b, h, n, d), dtype) for _ in range(3)]
+    bias = np.log(rng.uniform(1, 12, (b, n))).astype(np.float32) if biased else None
+    jbias, tbias = (None, None) if bias is None else (jnp.asarray(bias), torch.from_numpy(bias))
+    return [j for j, _ in qkv], [t for _, t in qkv], jbias, tbias
+
+
+def assert_computes_k1(got, tq, tk, tv, tbias, scale, dtype):
+    """The same function as K1: against its plain version in fp32."""
+    want = _reference(tq.float(), tk.float(), tv.float(), tbias, scale)
+    assert_close(got, want.numpy(), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("n", [37, 200])
+def test_t4_packed_attention(dtype, biased, n):
+    tool = jax_tool("ab_mxu_pack")
+    (jq, jk, jv), (tq, tk, tv), jbias, tbias = attention_inputs(10, n, dtype, biased)
+    got = ab.packed_attention(tq, tk, tv, tbias, 0.25)
+    assert got.shape == (2, n, 64)
+    assert_close(got, tool.packed_attention(jq, jk, jv, jbias, 0.25), dtype)
+    assert_computes_k1(got.view(2, n, 4, 16).transpose(1, 2), tq, tk, tv, tbias, 0.25, dtype)
+    with pytest.raises(ValueError, match="odd"):
+        ab.packed_attention(tq[:, :3], tk[:, :3], tv[:, :3], tbias, 0.25)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,blk", [(40, 8), (72, 24)])
+def test_t5_grid_swapped(dtype, n, blk):
+    tool = jax_tool("ab_b32")
+    (jq, jk, jv), (tq, tk, tv), _, _ = attention_inputs(11, n, dtype, False)
+    got = ab.grid_swapped(tq, tk, tv, 0.25)
+    assert_close(got, tool.grid_swapped(jq, jk, jv, 0.25, blk), dtype)
+    assert_computes_k1(got, tq, tk, tv, None, 0.25, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", ab.V2_VARIANTS)
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("n", [37, 200])
+def test_t11_v2_attention(dtype, variant, biased, n):
+    """``v2_nomax`` takes exp of the raw logits: safe on these inputs
+    (standard normal, scale 1/4 at d = 16), unsafe in general."""
+    tool = jax_tool("ab_dense_v2")
+    (jq, jk, jv), (tq, tk, tv), jbias, tbias = attention_inputs(12, n, dtype, biased)
+    got = ab.v2_attention(tq, tk, tv, tbias, 0.25, variant)
+    assert_close(got, tool.v2_attention(jq, jk, jv, jbias, 0.25, variant), dtype)
+    assert_computes_k1(got, tq, tk, tv, tbias, 0.25, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,h", [(37, 4), (1152, 1)])
+def test_t12_n8_attention(dtype, n, h):
+    """N 37 pads to 40 in the JAX kernel (one chunk, pad keys masked by an
+    iota); N 1152 takes its chunked branch (two chunks of 576)."""
+    tool = jax_tool("ab_block_attn")
+    (jq, jk, jv), (tq, tk, tv), _, _ = attention_inputs(13, n, dtype, False, b=1, h=h)
+    got = ab.n8_attention(tq, tk, tv, 0.25)
+    assert_close(got, tool.n8_attention(jq, jk, jv, 0.25), dtype)
+    assert_computes_k1(got, tq, tk, tv, None, 0.25, dtype)
+
+
+# ---- the wrappers' refusals and counters ---------------------------------------
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("name", ["qk64", "qk_packed", "chain"])
+@pytest.mark.parametrize("blk", [16, 128, 800])
+def test_kernels_take_no_other_blk(name, blk):
+    """On the card the three chunk-dependent functions work in key tiles
+    of 64 and raise for any other blk: nothing falls back."""
+    with pytest.raises(ValueError, match="takes no other blk"):
+        ab._check_blk(name, blk)
+    ab._check_blk(name, ab.KEY_TILE)
+
+
+@pytest.mark.parametrize(
+    "operands,dims,last,match",
+    [
+        ([_meta((6, 40, 64))] * 2, 3, 64, "CUDA device"),
+        ([_meta((6, 40, 64), torch.float16)] * 2, 3, 64, "bfloat16 or float32"),
+        ([_meta((6, 40, 64)), _meta((6, 40, 64), torch.float32)], 3, 64, "share q's dtype"),
+        ([_meta((6, 40, 48))] * 2, 3, 64, "last dim of 64"),
+        ([_meta((2, 3, 40, 64))] * 2, 3, 64, "3 dims"),
+        ([_meta((6, 40, 128))[:, :, ::2]] * 2, 3, 64, "contiguous in its last dim"),
+    ],
+)
+def test_kernel_operands_rejected(operands, dims, last, match):
+    """The wrappers' checks raise on what the kernels do not take (run
+    here on meta tensors; on the card they guard every launch)."""
+    with pytest.raises(ValueError, match=match):
+        ab._check_operands(list(zip(("q", "k"), operands)), dims, last)
+
+
+def test_cpu_calls_launch_no_kernel():
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(normal(rng, 2, 64, 64)) for _ in range(3))
+    ab.chain(q, k, v, "full")
+    ab.qk64(q, k)
+    ab.n8_attention(q[None], k[None], v[None], 0.125)
+    assert len(ab.AB_LAUNCHES) == 12 and not any(ab.AB_LAUNCHES.values())
+
+
+def test_sources_hold_kernels_of_their_own():
+    """Three CUDA sources with one __global__ template each, a note on the
+    TPU function each replaces, and no library's product or attention; the
+    wrappers call no matrix product either."""
+    import inspect
+
+    from vtm_torch.ops import build
+
+    for name, replaced in (("ab_qk_probe.cu", "ab_mxu_pack.py"), ("ab_chain.cu", "ab_decomp.py"),
+                           ("ab_dense_variants.cu", "ab_dense_v2.py")):
+        text = (build.CSRC / name).read_text()
+        assert text.count("__global__") == 1 and replaced in text and "wmma" in text
+        for foreign in ("cublas", "cudnn", "cutlass", "vtm_attention_fwd"):
+            assert foreign not in text, (name, foreign)
+    for fn in (ab._launch_chain, ab._launch_probe, ab._launch_dense, ab._flat_chain, ab._unbiased):
+        code = inspect.getsource(fn)
+        for foreign in ("scaled_dot_product_attention", "matmul", "bmm", "einsum", "torch.compile", "_plain"):
+            assert foreign not in code, (fn.__name__, foreign)
+
+
+def test_card_cases_cover_every_function_and_mode(capsys):
+    """The rows the card's checks run (``ab_dense.exp_kernels``, used by
+    ``check_ab`` and chip_smoke.py's ab_kernels phase): every T id, every
+    mode, each with its useful operations, its bytes and a finite error
+    inside the tolerance; on the CPU a row's wrapper call and its plain
+    version are the same computation, and no launch count moves."""
+    from vtm_torch.tools import ab_dense
+
+    sizes = ab_dense.Sizes(b8=1, h=2, n_pad=192, packed_ns=(40,))
+    rows = ab_dense.exp_kernels(ab_dense.Bench(torch.device("cpu"), sizes, 0, 1, 1, dtype=torch.float32))
+    assert [json.loads(line)["name"] for line in capsys.readouterr().out.splitlines()] == [r["name"] for r in rows]
+    ids = [r["kernel"] for r in rows]
+    assert ids == sorted(ids, key=lambda t: int(t[1:])) and set(ids) == {f"T{i}" for i in range(1, 13)}
+    assert {r["function"] for r in rows} == set(ab.AB_LAUNCHES)
+    modes = {r.get("mode", "") for r in rows}
+    assert set(ab.CHAIN_MODES) | set(ab.BIAS_MODES) <= modes
+    assert all(any(v in m for m in modes) for v in ab.V2_VARIANTS)
+    for row in rows:
+        assert row["flops"] > 0 and row["nbytes"] > 0 and row["ms"]["median"] > 0 and row["plain_ms"] > 0
+        assert row["err_vs_plain"] == 0.0 and row["rel_err_vs_fp32ref"] == 0.0 and row["dtype"] == "float32"
+        assert row["tol"] == (ab_dense.LINEAR_TOL if row.get("mode") == "linear" else ab_dense.FP32_TOL)
+    by_id = {r["kernel"]: r for r in rows}
+    for probe in ("T2", "T3", "T6", "T7"):  # one pass over k and a narrow product, not the n x n product
+        assert by_id[probe]["bound_flops"] < by_id[probe]["flops"] and by_id[probe]["library_ms"] > 0
+    assert not any(ab.AB_LAUNCHES.values())
+    assert ab_dense.tolerance(torch.float32, True, 0.0) == ab_dense.LINEAR_TOL > ab_dense.FP32_TOL
+    assert ab_dense.tolerance(torch.bfloat16, False, 0.02) == 0.04
+    assert ab_dense.tolerance(torch.bfloat16, False, 0.0) == ab_dense.BF16_FLOOR
+
+
+@pytest.mark.parametrize("name,args", [("T2", "qk"), ("T3", "packed"), ("T6", "qk"), ("T7", "packed")])
+def test_probe_library_calls_compute_the_probes(name, args):
+    """The one-einsum yardsticks of the four probes give the plain
+    versions' numbers (T6 / T7 without the kept dim)."""
+    from vtm_torch.tools import ab_dense
+
+    bench = ab_dense.Bench(torch.device("cpu"), ab_dense.CPU_SIZES, 3, 1, 1, dtype=torch.float32)
+    q, k = bench.randn(4, 128, 64), bench.randn(4, 128, 64)
+    row = ab_dense._probe_rows(bench, q, k)[name]
+    want = row.plain_as(None)
+    got = row.library().reshape(want.shape)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_cancelled_rows_names_the_rows_left_out():
+    want = torch.ones(50, 4)
+    want[7] = 1e4
+    exact = want.double()
+    got, plain = want.clone(), want.clone()
+    got[7, 0] += 500.0
+    plain[7, 1] -= 1000.0
+    rows = ab.cancelled_rows(got, plain, want, exact)
+    assert (rows["rows"], rows["left_out"], rows["share"]) == (50, 1, pytest.approx(0.02))
+    assert rows["kernel_row_err_vs_fp64"] == pytest.approx(0.05) and rows["plain_row_err_vs_fp64"] == pytest.approx(0.1)
+    assert ab.cancelled_rows(want[:7], want[:7], want[:7], exact[:7]) == dict(rows=7, left_out=0, share=0.0)
+
+
+def test_chain_runs_in_fp64_on_fp64_operands():
+    (_, q), (_, k), (_, v) = chain_inputs(np.random.default_rng(7), 64, "float32")
+    out = ab.chain_plain(q.double(), k.double(), v.double(), "full", 16)
+    assert out.dtype == torch.float64
+    assert (out.float() - ab.chain_plain(q, k, v, "full", 16)).abs().max() <= 1e-5 * out.abs().max()
+
+
+# ---- the slice as a whole ------------------------------------------------------
+
+
+def test_entry_point_on_the_cpu(capsys):
+    """``ab_dense --exp all`` on the CPU: the plain versions at a small
+    shape; a row for every T id, each with a finite error."""
+    from vtm_torch.tools import ab_dense
+
+    ab_dense.main(["--exp", "all"], device="cpu")
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    by_kernel = {}
+    for row in rows:
+        if "kernel" in row:
+            by_kernel.setdefault(row["kernel"], []).append(row)
+    assert set(by_kernel) == {f"T{i}" for i in range(1, 13)} | {"K1"}
+    for rows_ in by_kernel.values():
+        for row in rows_:
+            assert row["device"] == "cpu" and np.isfinite(row["err_vs_plain"]) and row["ms"]["median"] > 0
+    exps = {row["exp"] for row in rows if "exp" in row}
+    assert exps == set(ab_dense.EXPERIMENTS)
+    assert sum(1 for row in rows if row.get("name", "").startswith("prod")) >= len(ab_dense.EXPERIMENTS)
+
+
+def test_entry_point_refuses_to_run_without_cuda():
+    from vtm_torch.tools import ab_dense
+
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ab_dense.main(["--exp", "decomp"])

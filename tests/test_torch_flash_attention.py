@@ -74,6 +74,7 @@ def test_kernel_args_rejected(q, k, bias, match):
 def test_build_command_targets_hopper():
     srcs = build.sources()
     assert [s.name for s in srcs] == [
+        "ab_chain.cu", "ab_dense_variants.cu", "ab_qk_probe.cu",
         "blockdiag_attention_bwd.cu", "blockdiag_attention_fwd.cu",
         "flash_attention_bwd.cu", "flash_attention_fwd.cu", "frame_attention_bwd.cu", "frame_attention_fwd.cu",
     ]

@@ -36,6 +36,9 @@ TRAINING_MODULES = (
     "vtm_torch.tools.trace_train",
     "vtm_torch.tools.check_frame_bwd",
     "vtm_torch.tools.check_blockdiag",
+    "vtm_torch.tools.check_ab",
+    "vtm_torch.tools.ab_dense",
+    "vtm_torch.ops.ab_attention",
     "vtm_torch.models.timesformer",
     "vtm_torch.models.vivit",
     "vtm_torch.train.losses",
@@ -86,16 +89,21 @@ def test_chip_smoke_without_cuda_fails():
     assert '"ok": true' not in proc.stdout
 
 
+# the A/B entry point takes an experiment, not a config
+ENTRY_POINT_ARGS = {"vtm_torch.tools.ab_dense": ("--exp", "decomp"), "vtm_torch.tools.check_ab": ()}
+
+
 @pytest.mark.parametrize("module", ["vtm_torch.tools.train_net", "vtm_torch.tools.model_benchmark",
                                     "vtm_torch.tools.trace_train", "vtm_torch.tools.check_frame_bwd",
-                                    "vtm_torch.tools.check_blockdiag"])
+                                    "vtm_torch.tools.check_blockdiag", "vtm_torch.tools.check_ab",
+                                    "vtm_torch.tools.ab_dense"])
 def test_entry_points_refuse_to_run_without_cuda(module):
     """No CUDA device and no request for the CPU: the entry points raise
     instead of carrying on on the CPU."""
     env = _env()
     env["CUDA_VISIBLE_DEVICES"] = ""
     proc = subprocess.run(
-        [sys.executable, "-m", module, "--opts", "MODEL.MODEL_NAME", "VideoMAE"],
+        [sys.executable, "-m", module, *ENTRY_POINT_ARGS.get(module, ("--opts", "MODEL.MODEL_NAME", "VideoMAE"))],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode != 0
@@ -128,6 +136,8 @@ from vtm_torch.ops import flash_attention as fa
 assert (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.FRAME_LAUNCHES, fa.FRAME_BWD_LAUNCHES) == (0, 0, 0, 0)
 assert (fa.BLOCKDIAG_LAUNCHES, fa.BLOCKDIAG_BWD_LAUNCHES) == (0, 0)
 assert set(chip_smoke.COUNTERS) == {n for n in vars(fa) if n.endswith("LAUNCHES")}
+from vtm_torch.ops import ab_attention as ab
+assert len(ab.AB_LAUNCHES) == 12 and not any(ab.AB_LAUNCHES.values())
 """
 
 
@@ -154,6 +164,7 @@ def test_every_kernel_source_is_built_and_bound():
     assert (build.CSRC / "attention_tiles.cuh").exists()
     names = {src.name for src in build.sources()}
     assert {"blockdiag_attention_fwd.cu", "blockdiag_attention_bwd.cu"} <= names and len(names) >= 6
+    assert {"ab_qk_probe.cu", "ab_chain.cu", "ab_dense_variants.cu"} <= names and len(names) == 9
 
 
 def test_blockdiag_sources_hold_kernels_of_their_own():

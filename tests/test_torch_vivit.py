@@ -216,6 +216,21 @@ def test_hf_state_dict_loads_like_the_bridge_and_round_trips():
         assert sorted(model.state_dict()) == sorted(direct)
 
 
+def test_fresh_model_starts_cls_token_and_positions_at_zero():
+    """A freshly built ViViT has a zero class token and zero position
+    embeddings in both packages (``vtm``'s ``init`` uses
+    ``nn.initializers.zeros`` for the two), and random weights elsewhere."""
+    jmodel = JViViT(config=JConfig(**TINY), policy=JPolicy(**_policy_kw(TINY, 0)))
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(_video(TINY, 1, 0)))["params"]
+    tmodel = ViViT(ViViTConfig(**TINY), policy=MergePolicy(**_policy_kw(TINY, 0)))
+    for name in ("cls_token", "position_embeddings"):
+        assert not np.asarray(params[name]).any()
+        fresh = getattr(tmodel, name)
+        assert fresh.shape == params[name].shape and not fresh.detach().any()
+    assert tmodel.layer[0].attention.query.weight.detach().abs().max() > 0
+    assert not tmodel.layer[0].attention.query.bias.detach().any()
+
+
 def test_unknown_activation_raises():
     with pytest.raises(NotImplementedError, match="hidden_act"):
         ViViT(ViViTConfig(**dict(TINY, hidden_act="relu")))

@@ -225,7 +225,7 @@ def build_videomae(
 ) -> VideoMAE:
     """Construct from a config (same keys as ``vtm.models.videomae.build_videomae``)."""
     if not cfg.VIDEOMAE.USE_MEAN_POOLING:
-        raise NotImplementedError("CLS pooling is not ported yet (ROADMAP.md Queue 1, item 8)")
+        raise NotImplementedError("CLS pooling is not ported yet (ROADMAP.md Queue 1, item 14)")
     variant = dict(VARIANTS[cfg.VIDEOMAE.MODEL])
     num_classes = (
         cfg.MODEL.NUM_CLASSES

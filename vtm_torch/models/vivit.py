@@ -188,15 +188,16 @@ class ViViT(nn.Module):
 
     @torch.no_grad()
     def _init_weights(self, generator: torch.Generator) -> None:
-        """Truncated-normal (std 0.02) linear and conv weights, class token
-        and position embeddings; zero biases."""
+        """Truncated-normal (std 0.02) linear and conv weights; zero
+        biases, class token and position embeddings, as the JAX package's
+        ``init`` gives them (vtm/models/vivit.py:174-176)."""
         for module in self.modules():
             if isinstance(module, (nn.Linear, nn.Conv3d)):
                 nn.init.trunc_normal_(module.weight, std=0.02, generator=generator)
                 if module.bias is not None:
                     nn.init.zeros_(module.bias)
         for p in (self.cls_token, self.position_embeddings):
-            nn.init.trunc_normal_(p, std=0.02, generator=generator)
+            nn.init.zeros_(p)
 
     def embed(self, video: torch.Tensor) -> torch.Tensor:
         """[B, T, H, W, C] -> the first layer's input [B, 1 + N, D]."""

@@ -164,4 +164,31 @@ def load_library() -> ctypes.CDLL:
         p,              # cudaStream_t
     ]
     lib.vtm_blockdiag_attention_bwd.restype = i
+    lib.vtm_ab_chain.argtypes = [
+        i, i,           # dtype, variant
+        p, p, p, p, p,  # q, k, v, key_bias, out
+        i, i, i,        # batch, num_heads, n
+        ctypes.c_float,  # scale
+        ctypes.c_longlong,  # bias_batch_stride
+        i,              # swap_grid
+        p,              # strides (12 x int64, host memory)
+        p,              # cudaStream_t
+    ]
+    lib.vtm_ab_chain.restype = i
+    lib.vtm_ab_qk_probe.argtypes = [
+        i, i, i,        # dtype, depth, rowsum
+        p, p, p,        # q, k, out
+        i, i, i,        # groups, nq, nk
+        p,              # cudaStream_t
+    ]
+    lib.vtm_ab_qk_probe.restype = i
+    lib.vtm_ab_dense_variant.argtypes = [
+        i, i,           # dtype, variant
+        p, p, p, p, p, p, p,  # q, k, v, key_bias, bias_hi, bias_lo, out
+        i, i, i,        # batch, num_heads, n
+        ctypes.c_float,  # scale
+        p,              # strides (12 x int64, host memory)
+        p,              # cudaStream_t
+    ]
+    lib.vtm_ab_dense_variant.restype = i
     return lib

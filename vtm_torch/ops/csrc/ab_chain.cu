@@ -1,0 +1,328 @@
+// The attention chain taken apart, for Hopper (sm_90a), at head dim 64:
+//   s = (q * scale) k^T [+ bias[key]]  ->  p  ->  acc = sum p v
+//   out = acc / max(|l|, 1e-6)
+// in one of three modes:
+//   full    p = exp(s - m), the online softmax of K1 (l >= 1, so out = acc / l)
+//   linear  the same recurrence with identity in place of exp: p = s - m,
+//           corr = m_old - m_new (every pass of the softmax but the exp)
+//   nosmax  p = s cast to the input dtype; m and l are not kept (l = 0)
+//
+// Replaces the Pallas TPU kernels of
+//   tools/ab_bisect.py:37   call_kernel (body vtm/ops/flash_attention.py:79
+//                           _kernel_chunked): full with a per-batch or
+//                           shared key bias                            (T1)
+//   tools/ab_b32.py:51      grid_swapped: full, unbiased, the block order
+//                           swapped so that b*h varies fastest         (T5)
+//   tools/ab_decomp.py:144  chain: the three modes, no scale, no bias  (T8)
+//   tools/ab_decomp.py:248  chain_bias: full plus a shared bias, read in
+//                           two ways                                   (T9)
+//   tools/ab_decomp.py:324  chain_bias_cost: T9 with a cost estimate  (T10)
+//   tools/ab_block_attn.py:110  n8_attention: full, unbiased, q scaled in
+//                           the kernel, keys past N masked by index   (T12)
+//
+// What bounds it on the H100: as K1, the tensor cores (4 B H N^2 d
+// operations against 4 tensors of B H N d: about 800 FLOP per byte at
+// N 1600). What it measures is how far each pass moves this body from
+// that bound: the body is K1's (csrc/flash_attention_fwd.cu): one block
+// of 4 warps per (b*h, 64-row q tile), 64-key tiles of k and v staged in
+// shared memory, bf16 products on nvcuda::wmma with fp32 accumulation,
+// fp32 products on FMA units, logits, probabilities and the accumulator
+// in shared memory.
+//
+// Why each variant exists here, where the TPU's reason does not carry:
+//   * The TPU chunk is 800 keys; here the chunk is the 64-key tile, the
+//     only blk the wrapper admits. `linear` does not telescope, so its
+//     numbers depend on that chunk.
+//   * T9's two ways of reading the bias are a layout question of the
+//     broadcast on the TPU. Their Hopper counterparts: each lane reads
+//     bias[key] from device memory inside the softmax loop (`1d`), or the
+//     block stages the tile's 64 values in shared memory first (`2d`).
+//   * T10's cost estimate is a hint to XLA's scheduler and changes no
+//     number. CUDA has no such thing. The nearest hints the compiler and
+//     the CUDA runtime do take: an occupancy target, __launch_bounds__(128, 3)
+//     (three blocks of this layout fit one SM's shared memory), and a
+//     preference for the largest shared-memory carve-out. T10 is a second
+//     instantiation of T9 `1d` with both.
+//   * T5: blockIdx.x varies fastest. Normally x is the q tile, so blocks
+//     in flight together share one head's k and v; swapped, x is b*h and
+//     neighbouring blocks share nothing (y, the q tile, is capped at
+//     65,535).
+//   * T12 takes the strided split-heads views of a fused qkv projection
+//     and writes token-major, so the glue around it is views.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
+
+#include "attention_tiles.cuh"
+
+namespace {
+
+using namespace nvcuda;
+using vtm::from_float;
+using vtm::kMask;
+using vtm::load_tile;
+
+constexpr int kD = 64;                  // head dim
+constexpr int kBlockQ = vtm::kTileRows; // query rows per thread block
+constexpr int kBlockK = vtm::kTileRows; // keys per tile: the chunk of the recurrence
+constexpr int kThreads = vtm::kTileThreads;
+
+enum Mode { kFull = 0, kNoSoftmax = 1, kLinear = 2 };
+enum BiasRead { kNoBias = 0, kBiasPerElement = 1, kBiasStaged = 2 };
+
+// Element strides (batch, head, row) of q, k, v and out; the last dim is
+// contiguous.
+struct Strides {
+  long long q[3], k[3], v[3], o[3];
+};
+
+// Shared-memory layout: K1's, plus one key tile's bias values.
+template <typename T>
+struct Layout {
+  static constexpr int kPad = 16 / sizeof(T);
+  static constexpr int ld_qkv = kD + kPad;     // q, k, v tiles (T)
+  static constexpr int ld_s = kBlockK + 4;     // logits (fp32)
+  static constexpr int ld_p = kBlockK + kPad;  // probabilities (T)
+  static constexpr int ld_o = kD + 4;          // accumulator (fp32)
+  static constexpr size_t tile_bytes = size_t(kBlockQ) * ld_qkv * sizeof(T);
+  static constexpr size_t s_bytes = size_t(kBlockQ) * ld_s * sizeof(float);
+  static constexpr size_t p_bytes = size_t(kBlockQ) * ld_p * sizeof(T);
+  static constexpr size_t o_bytes = size_t(kBlockQ) * ld_o * sizeof(float);
+  static constexpr size_t k_off = tile_bytes;
+  static constexpr size_t v_off = k_off + tile_bytes;
+  static constexpr size_t s_off = v_off + tile_bytes;
+  static constexpr size_t p_off = s_off + s_bytes;
+  static constexpr size_t o_off = p_off + p_bytes;
+  static constexpr size_t bias_off = o_off + o_bytes;
+  static constexpr size_t bytes = bias_off + kBlockK * sizeof(float);
+  static_assert(tile_bytes % 128 == 0 && s_bytes % 128 == 0 && p_bytes % 128 == 0 &&
+                    o_bytes % 128 == 0,
+                "shared regions must stay 128-byte aligned");
+};
+
+template <typename T, int kMode, int kBias, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    ab_chain_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ key_bias, T* __restrict__ out, int num_heads, int n,
+                    float scale, long long bias_batch_stride, int swap_grid, Strides st) {
+  using L = Layout<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = reinterpret_cast<T*>(smem + L::k_off);
+  T* vs = reinterpret_cast<T*>(smem + L::v_off);
+  float* ss = reinterpret_cast<float*>(smem + L::s_off);
+  T* ps = reinterpret_cast<T*>(smem + L::p_off);
+  float* os = reinterpret_cast<float*>(smem + L::o_off);
+  float* bs = reinterpret_cast<float*>(smem + L::bias_off);
+
+  const int bh = swap_grid ? blockIdx.x : blockIdx.y;
+  const int q0 = (swap_grid ? blockIdx.y : blockIdx.x) * kBlockQ;
+  const int b = bh / num_heads;
+  const int h = bh % num_heads;
+  const T* qb = q + b * st.q[0] + h * st.q[1];
+  const T* kb = k + b * st.k[0] + h * st.k[1];
+  const T* vb = v + b * st.v[0] + h * st.v[1];
+  T* ob = out + b * st.o[0] + h * st.o[1];
+  const float* bias = kBias != kNoBias ? key_bias + b * bias_batch_stride : nullptr;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wrow = warp * 16;          // first row of this warp's strip
+  const int row = wrow + (lane >> 1);  // the row this lane's softmax owns
+  const int half = lane & 1;           // which half of the row it owns
+
+  load_tile<T, kD, true>(qs, L::ld_qkv, qb, st.q[2], q0, n, scale);
+  for (int i = threadIdx.x; i < kBlockQ * L::ld_o; i += kThreads) os[i] = 0.f;
+  __syncthreads();
+
+  float m_i = kMask;  // running max of this lane's row
+  float l_i = 0.f;    // running denominator of this lane's row
+
+  for (int k0 = 0; k0 < n; k0 += kBlockK) {
+    load_tile<T, kD, false>(ks, L::ld_qkv, kb, st.k[2], k0, n, 0.f);
+    load_tile<T, kD, false>(vs, L::ld_qkv, vb, st.v[2], k0, n, 0.f);
+    if constexpr (kBias == kBiasStaged) {
+      if (threadIdx.x < kBlockK) bs[threadIdx.x] = k0 + threadIdx.x < n ? bias[k0 + threadIdx.x] : 0.f;
+    }
+    __syncthreads();
+
+    // ---- s = (q * scale) k^T for this warp's 16 rows --------------------
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bt;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+#pragma unroll
+      for (int nt = 0; nt < kBlockK / 16; ++nt) {
+        wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+          wmma::load_matrix_sync(a, qs + wrow * L::ld_qkv + kk * 16, L::ld_qkv);
+          // k^T as a column-major [d, key] operand: element (d, j) at ks[j * ld + d]
+          wmma::load_matrix_sync(bt, ks + nt * 16 * L::ld_qkv + kk * 16, L::ld_qkv);
+          wmma::mma_sync(acc, a, bt, acc);
+        }
+        wmma::store_matrix_sync(ss + wrow * L::ld_s + nt * 16, acc, L::ld_s, wmma::mem_row_major);
+      }
+    } else {
+      const T* qr = qs + row * L::ld_qkv;
+      for (int j = half * 32; j < half * 32 + 32; ++j) {
+        const T* kr = ks + j * L::ld_qkv;
+        float acc = 0.f;
+#pragma unroll 16
+        for (int d = 0; d < kD; ++d) acc = fmaf(qr[d], kr[d], acc);
+        ss[row * L::ld_s + j] = acc;
+      }
+    }
+    __syncwarp();
+
+    // ---- p from s, over this lane's half row ----------------------------
+    float* srow = ss + row * L::ld_s + half * 32;
+    T* prow = ps + row * L::ld_p + half * 32;
+    const int key0 = k0 + half * 32;
+    if constexpr (kMode == kNoSoftmax) {
+      // zero-filled keys past n give s = 0 already
+      for (int j = 0; j < 32; ++j) prow[j] = from_float<T>(srow[j]);
+    } else {
+      float mx = kMask;
+      for (int j = 0; j < 32; ++j) {
+        if (key0 + j < n) {
+          float s = srow[j];
+          if constexpr (kBias == kBiasPerElement) s += bias[key0 + j];
+          if constexpr (kBias == kBiasStaged) s += bs[half * 32 + j];
+          srow[j] = s;
+          mx = fmaxf(mx, s);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      const float m_new = fmaxf(m_i, mx);
+      const float corr = kMode == kLinear ? m_i - m_new : expf(m_i - m_new);
+      float sum = 0.f;
+      for (int j = 0; j < 32; ++j) {
+        float p = 0.f;  // a key past n weighs nothing in either mode
+        if (key0 + j < n) p = kMode == kLinear ? srow[j] - m_new : expf(srow[j] - m_new);
+        prow[j] = from_float<T>(p);
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      l_i = l_i * corr + sum;
+      m_i = m_new;
+      float* orow = os + row * L::ld_o + half * (kD / 2);
+      for (int d = 0; d < kD / 2; ++d) orow[d] *= corr;
+    }
+    __syncwarp();
+
+    // ---- acc += p v ------------------------------------------------------
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+#pragma unroll
+      for (int dt = 0; dt < kD / 16; ++dt) {
+        wmma::load_matrix_sync(acc, os + wrow * L::ld_o + dt * 16, L::ld_o, wmma::mem_row_major);
+#pragma unroll
+        for (int kk = 0; kk < kBlockK / 16; ++kk) {
+          wmma::load_matrix_sync(a, ps + wrow * L::ld_p + kk * 16, L::ld_p);
+          wmma::load_matrix_sync(bv, vs + kk * 16 * L::ld_qkv + dt * 16, L::ld_qkv);
+          wmma::mma_sync(acc, a, bv, acc);
+        }
+        wmma::store_matrix_sync(os + wrow * L::ld_o + dt * 16, acc, L::ld_o, wmma::mem_row_major);
+      }
+    } else {
+      const T* pr = ps + row * L::ld_p;
+      for (int d = half * (kD / 2); d < half * (kD / 2) + kD / 2; ++d) {
+        float acc = os[row * L::ld_o + d];
+#pragma unroll 16
+        for (int j = 0; j < kBlockK; ++j) acc = fmaf(pr[j], vs[j * L::ld_qkv + d], acc);
+        os[row * L::ld_o + d] = acc;
+      }
+    }
+    __syncthreads();  // k/v/p tiles are overwritten by the next iteration
+  }
+
+  // ---- out = acc / max(|l|, 1e-6), in T: the one division by l ----------
+  if (q0 + row < n) {
+    const float denom = fmaxf(fabsf(l_i), 1e-6f);
+    T* orow_g = ob + (q0 + row) * st.o[2];
+    const float* orow = os + row * L::ld_o;
+    for (int d = half * (kD / 2); d < half * (kD / 2) + kD / 2; ++d)
+      orow_g[d] = from_float<T>(orow[d] / denom);
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *bias;
+  void* out;
+  int batch, num_heads, n;
+  float scale;
+  long long bias_batch_stride;
+  int swap_grid;
+  Strides st;
+  cudaStream_t stream;
+};
+
+template <typename T, int kMode, int kBias, int kMinBlocks>
+cudaError_t launch(const Args& a) {
+  using L = Layout<T>;
+  auto kernel = ab_chain_kernel<T, kMode, kBias, kMinBlocks>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::bytes));
+  if (err != cudaSuccess) return err;
+  if (kMinBlocks > 1) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  const int tiles = (a.n + kBlockQ - 1) / kBlockQ;
+  const int bh = a.batch * a.num_heads;
+  const dim3 grid = a.swap_grid ? dim3(bh, tiles) : dim3(tiles, bh);
+  kernel<<<grid, kThreads, L::bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const float*>(a.bias), static_cast<T*>(a.out), a.num_heads, a.n, a.scale,
+      a.bias_batch_stride, a.swap_grid, a.st);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_variant(int variant, const Args& a) {
+  if ((variant >= 3) != (a.bias != nullptr)) return cudaErrorInvalidValue;
+  switch (variant) {
+    case 0: return launch<T, kFull, kNoBias, 1>(a);
+    case 1: return launch<T, kNoSoftmax, kNoBias, 1>(a);
+    case 2: return launch<T, kLinear, kNoBias, 1>(a);
+    case 3: return launch<T, kFull, kBiasPerElement, 1>(a);
+    case 4: return launch<T, kFull, kBiasStaged, 1>(a);
+    case 5: return launch<T, kFull, kBiasPerElement, 3>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// C entry point, bound with ctypes by vtm_torch/ops/ab_attention.py.
+//   dtype: 0 = bf16, 1 = fp32 (q, k, v and out share it); head dim 64
+//   variant: 0 full, 1 nosmax, 2 linear (all unbiased); 3 full with the
+//     bias read per element, 4 with the bias staged per key tile, 5 as 3
+//     with the occupancy and carve-out hints
+//   key_bias: fp32, row b at key_bias + b * bias_batch_stride (0: one
+//     row shared by every batch); null for variants 0-2
+//   swap_grid: 0 = (q tile, b*h) with the q tile fastest, 1 = swapped
+//   strides: 12 element strides, (batch, head, row) of q, k, v, out
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int vtm_ab_chain(int dtype, int variant, const void* q, const void* k, const void* v,
+                            const void* key_bias, void* out, int batch, int num_heads, int n,
+                            float scale, long long bias_batch_stride, int swap_grid,
+                            const long long* strides, void* stream) {
+  Args a{q, k, v, key_bias, out, batch, num_heads, n, scale, bias_batch_stride, swap_grid, {},
+         static_cast<cudaStream_t>(stream)};
+  std::memcpy(&a.st, strides, sizeof(a.st));
+  switch (dtype) {
+    case 0: return dispatch_variant<__nv_bfloat16>(variant, a);
+    case 1: return dispatch_variant<float>(variant, a);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,203 @@
+// The q k^T product alone, for Hopper (sm_90a): what the first of K1's two
+// products costs when nothing follows it. For each group g (a head, or a
+// packed pair of heads) and query row i, with the keys taken in chunks of
+// 64 (the key tile):
+//   columns  out[g, i, c] = sum over chunks t of (q k^T)[i, 64 t + c],  c < 64,
+//            in the input dtype from an fp32 sum
+//   row sum  out[g, i, 0] = sum over all keys of (q k^T)[i, key],  fp32
+//
+// Replaces the Pallas TPU kernels of
+//   tools/ab_mxu_pack.py:84   qk64: columns, depth 64                  (T2)
+//   tools/ab_mxu_pack.py:116  qk_packed: columns over prebuilt packed
+//                             operands, depth 128                      (T3)
+//   tools/ab_decomp.py:69     qk_d64: row sum, depth 64                (T6)
+//   tools/ab_decomp.py:97     qk_packed: row sum, depth 128            (T7)
+// The packed operands hold two heads: q rows [q1_i | 0] and [0 | q2_i]
+// interleaved, k rows [k1_j | k2_j], so one 128-deep product gives head
+// 1's logits in the even rows and head 2's in the odd rows.
+//
+// What bounds it on the H100: the product it issues, 2 G nq nk depth
+// operations against G (nq + nk) depth elements read and almost nothing
+// written: at G 96, n 1600, depth 64 about 1600 FLOP per byte, so the tensor
+// cores. The functions themselves need far less (a row sum of q k^T is
+// q . (sum of the keys), the columns form q . (sum over chunks of k)): as
+// functions they are bound by their bytes, and a probe is slow against
+// that bound by design: it is there to time the product.
+//
+// Design: K1's first product and nothing else. One block of 4 warps per
+// (g, 64-row q tile); a loop over 64-key tiles of k staged in shared memory
+// with 16-byte loads (rows past the end zero-filled, so they add 0); bf16 on
+// nvcuda::wmma 16x16x16 with the fp32 sum kept in four accumulator
+// fragments per warp across all tiles, fp32 on FMA units with the sum in
+// registers. Every column of every tile's product is consumed: with the
+// chunk equal to the 64-key tile, the "columns" form keeps all 64, and the
+// row sum is the sum of those 64 at the end, so the two forms differ by
+// one pass over a [64 x 64] tile per block and by the output they store
+// (64 values a row against one). That closes the hole of the TPU probes,
+// where a compiler could narrow a product whose columns were dropped.
+//
+// Why the packed form exists here: on the TPU a d = 64 contraction half
+// fills the 128-deep matrix unit, and packing two heads was a way to fill
+// it. wmma's depth is 16, so on Hopper nothing is half filled: the packed
+// form issues twice the products, half of them on zeros. It is ported and
+// measured all the same; expect about twice the time of the plain form for
+// the same useful work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+#include <type_traits>
+
+#include "attention_tiles.cuh"
+
+namespace {
+
+using namespace nvcuda;
+using vtm::load_tile;
+
+constexpr int kBlockQ = vtm::kTileRows;
+constexpr int kBlockK = vtm::kTileRows;
+constexpr int kThreads = vtm::kTileThreads;
+constexpr int kCols = 64;  // columns kept of every chunk's product
+
+template <typename T, int kDepth>
+struct Layout {
+  static constexpr int kPad = 16 / sizeof(T);
+  static constexpr int ld_x = kDepth + kPad;  // q and k tiles (T)
+  static constexpr int ld_o = kCols + 4;      // the staged sum (fp32)
+  static constexpr size_t tile_bytes = size_t(kBlockQ) * ld_x * sizeof(T);
+  static constexpr size_t k_off = tile_bytes;
+  static constexpr size_t o_off = 2 * tile_bytes;
+  static constexpr size_t bytes = o_off + size_t(kBlockQ) * ld_o * sizeof(float);
+  static_assert(tile_bytes % 128 == 0, "shared regions must stay 128-byte aligned");
+};
+
+template <typename T, int kDepth, bool kRowSum>
+__global__ void __launch_bounds__(kThreads)
+    ab_qk_probe_kernel(const T* __restrict__ q, const T* __restrict__ k, void* __restrict__ out,
+                       int nq, int nk) {
+  using L = Layout<T, kDepth>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = reinterpret_cast<T*>(smem + L::k_off);
+  float* os = reinterpret_cast<float*>(smem + L::o_off);
+
+  const long long g = blockIdx.y;
+  const int q0 = blockIdx.x * kBlockQ;
+  const T* qb = q + g * nq * kDepth;
+  const T* kb = k + g * nk * kDepth;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wrow = warp * 16;
+  const int row = wrow + (lane >> 1);
+  const int half = lane & 1;
+
+  load_tile<T, kDepth, false>(qs, L::ld_x, qb, kDepth, q0, nq, 0.f);
+
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bt;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kCols / 16];
+#pragma unroll
+    for (int nt = 0; nt < kCols / 16; ++nt) wmma::fill_fragment(acc[nt], 0.f);
+    for (int k0 = 0; k0 < nk; k0 += kBlockK) {
+      __syncthreads();  // the previous tile has been read (and q is staged)
+      load_tile<T, kDepth, false>(ks, L::ld_x, kb, kDepth, k0, nk, 0.f);
+      __syncthreads();
+#pragma unroll
+      for (int nt = 0; nt < kCols / 16; ++nt) {
+#pragma unroll
+        for (int kk = 0; kk < kDepth / 16; ++kk) {
+          wmma::load_matrix_sync(a, qs + wrow * L::ld_x + kk * 16, L::ld_x);
+          // k^T as a column-major [depth, key] operand: element (d, j) at ks[j * ld + d]
+          wmma::load_matrix_sync(bt, ks + nt * 16 * L::ld_x + kk * 16, L::ld_x);
+          wmma::mma_sync(acc[nt], a, bt, acc[nt]);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kCols / 16; ++nt)
+      wmma::store_matrix_sync(os + wrow * L::ld_o + nt * 16, acc[nt], L::ld_o, wmma::mem_row_major);
+  } else {
+    float acc[kCols / 2];
+#pragma unroll
+    for (int j = 0; j < kCols / 2; ++j) acc[j] = 0.f;
+    for (int k0 = 0; k0 < nk; k0 += kBlockK) {
+      __syncthreads();
+      load_tile<T, kDepth, false>(ks, L::ld_x, kb, kDepth, k0, nk, 0.f);
+      __syncthreads();
+      const T* qr = qs + row * L::ld_x;
+#pragma unroll
+      for (int j = 0; j < kCols / 2; ++j) {
+        const T* kr = ks + (half * (kCols / 2) + j) * L::ld_x;
+        float dot = 0.f;
+#pragma unroll 16
+        for (int d = 0; d < kDepth; ++d) dot = fmaf(qr[d], kr[d], dot);
+        acc[j] += dot;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCols / 2; ++j) os[row * L::ld_o + half * (kCols / 2) + j] = acc[j];
+  }
+  if constexpr (kRowSum) {
+    __syncwarp();  // a warp reads back only its own 16 rows
+    const float* orow = os + row * L::ld_o + half * (kCols / 2);
+    float sum = 0.f;
+    for (int j = 0; j < kCols / 2; ++j) sum += orow[j];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0 && q0 + row < nq) static_cast<float*>(out)[g * nq + q0 + row] = sum;
+  } else {
+    __syncthreads();  // neighbouring threads write neighbouring columns of any row
+    vtm::write_rows<T, kCols>(static_cast<T*>(out) + g * nq * kCols, kCols, os, L::ld_o, q0, nq);
+  }
+}
+
+template <typename T, int kDepth, bool kRowSum>
+cudaError_t launch(const void* q, const void* k, void* out, int groups, int nq, int nk,
+                   cudaStream_t stream) {
+  using L = Layout<T, kDepth>;
+  auto kernel = ab_qk_probe_kernel<T, kDepth, kRowSum>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nq + kBlockQ - 1) / kBlockQ, groups);
+  kernel<<<grid, kThreads, L::bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                               out, nq, nk);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int depth, int rowsum, const void* q, const void* k, void* out, int groups,
+                     int nq, int nk, cudaStream_t stream) {
+  if (depth == 64) {
+    return rowsum ? launch<T, 64, true>(q, k, out, groups, nq, nk, stream)
+                  : launch<T, 64, false>(q, k, out, groups, nq, nk, stream);
+  }
+  if (depth == 128) {
+    return rowsum ? launch<T, 128, true>(q, k, out, groups, nq, nk, stream)
+                  : launch<T, 128, false>(q, k, out, groups, nq, nk, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// C entry point, bound with ctypes by vtm_torch/ops/ab_attention.py.
+//   dtype: 0 = bf16, 1 = fp32 (q and k share it)
+//   depth: 64 (one head per group) or 128 (a packed pair)
+//   rowsum: 0 = out [groups, nq, 64] in the input dtype; 1 = out
+//     [groups, nq, 1] fp32
+//   q [groups, nq, depth], k [groups, nk, depth]: contiguous
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int vtm_ab_qk_probe(int dtype, int depth, int rowsum, const void* q, const void* k,
+                               void* out, int groups, int nq, int nk, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return dispatch<__nv_bfloat16>(depth, rowsum, q, k, out, groups, nq, nk, s);
+    case 1: return dispatch<float>(depth, rowsum, q, k, out, groups, nq, nk, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -1,6 +1,7 @@
 // Tile helpers shared by the attention kernels of this directory
 // (flash_attention_fwd.cu, flash_attention_bwd.cu, frame_attention_fwd.cu,
-// frame_attention_bwd.cu): dtype conversion, the 16-byte staging of a
+// frame_attention_bwd.cu, the two blockdiag_attention sources and the three
+// ab_ sources): dtype conversion, the 16-byte staging of a
 // 64-row tile of q, k, v or do into shared memory, and the tile products
 // and register accumulators of the two backward kernels.
 

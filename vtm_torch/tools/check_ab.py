@@ -1,0 +1,47 @@
+"""A short first check of the A/B attention kernels (T1-T12,
+``vtm_torch/ops/ab_attention.py``), for use after a change to
+``csrc/ab_qk_probe.cu``, ``csrc/ab_chain.cu`` or
+``csrc/ab_dense_variants.cu``.
+
+    python -m vtm_torch.tools.check_ab
+
+  1. compiles the three sources with ``-Xptxas -v`` and prints each
+     kernel's registers and spill bytes (one line per template instance);
+  2. builds the library and runs ``ab_dense.exp_kernels``: every function
+     and mode against its plain version, by ``ab_dense``'s rule, in fp32
+     at a small ragged shape, then in bf16 at B8 H12 d64 and the tools'
+     token counts, there timed beside the plain version and the library
+     call (2 x 10 calls in turns).
+Prints one JSON line per step and per row. Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+
+from vtm_torch.ops import build as kernel_build
+from vtm_torch.tools import ab_dense
+from vtm_torch.tools.check_frame_bwd import kernel_resources
+
+SOURCES = ("ab_qk_probe.cu", "ab_chain.cu", "ab_dense_variants.cu")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("check_ab needs a CUDA device and found none")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for source in SOURCES:
+        print(json.dumps(dict(step="resources", source=source, kernels=kernel_resources(source))), flush=True)
+    t0 = time.perf_counter()
+    kernel_build.load_library()
+    print(json.dumps(dict(step="build", seconds=time.perf_counter() - t0)), flush=True)
+    device = torch.device("cuda")
+    ab_dense.exp_kernels(ab_dense.Bench(device, ab_dense.SMALL_SIZES, 0, 1, 1, dtype=torch.float32))
+    ab_dense.exp_kernels(ab_dense.Bench(device, ab_dense.Sizes(), 0, 2, 10))
+
+
+if __name__ == "__main__":
+    main()

@@ -41,8 +41,10 @@ FP32_TOL = 1e-4  # of each gradient's largest entry
 
 
 def kernel_resources(source: str) -> list:
-    """[{kernel, dtype, head_dim, registers, spill_store_bytes, spill_load_bytes}]
-    from ptxas for one source of ``csrc/``."""
+    """[{kernel, dtype, head_dim, template_args, registers, spill_store_bytes,
+    spill_load_bytes}] from ptxas for one source of ``csrc/``.
+    ``template_args`` holds every integer argument of the instance;
+    ``head_dim`` is the first (K1-K5's only one)."""
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [kernel_build.nvcc_path(), *kernel_build.COMPILE_FLAGS, "-Xptxas", "-v", "-o", f"{tmp}/x.o",
                str(kernel_build.CSRC / source)]
@@ -51,9 +53,11 @@ def kernel_resources(source: str) -> list:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr[-3000:]}")
     rows, entry = [], None
     for line in proc.stderr.splitlines():
-        m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
+        m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:L[ib]\d+E)+)", line)
         if m and "Compiling entry function" in line:
-            entry = dict(kernel=m.group(1), dtype="fp32" if m.group(2) == "f" else "bf16", head_dim=int(m.group(3)))
+            args = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
+            entry = dict(kernel=m.group(1), dtype="fp32" if m.group(2) == "f" else "bf16", head_dim=args[0],
+                         template_args=args)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spills and entry:
             entry.update(spill_store_bytes=int(spills.group(1)), spill_load_bytes=int(spills.group(2)))

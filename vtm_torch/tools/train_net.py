@@ -10,8 +10,8 @@ backward through the attention kernels and the merge, optimizer update),
 logging, an eval epoch every ``TRAIN.EVAL_PERIOD`` and a checkpoint every
 ``TRAIN.CHECKPOINT_PERIOD``. Returns the trained module.
 
-Ported: the supervised transformer path (VideoMAE and Motionformer; single
-head and the EPIC-KITCHENS verb/noun heads; mixup). A Motionformer built
+Ported: the supervised transformer path (VideoMAE, Motionformer, TimeSformer
+and ViViT; single head and the EPIC-KITCHENS verb/noun heads; mixup). A Motionformer built
 from a config keeps its softmax head (``build_model`` sets no
 ``train_mode``, as in the JAX package), so its loss sees probabilities. Contrastive, detection and masked
 pretraining, multigrid, the BatchNorm families, the chunked-csv rotation,
