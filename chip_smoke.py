@@ -37,8 +37,12 @@ needed).
 Phases, each printing one JSON line:
   1. device    -- fails without CUDA; prints nvidia-smi's name and power limit
   2. build     -- compiles the kernels from vtm_torch/ops/csrc with nvcc
-  3. kernel    -- the dense attention kernel (K1) against its plain version
-     bwd_kernel -- its backward (K2) against its plain version
+  3. kernel    -- the dense attention kernel (K1) against its plain version,
+                  its lse residual too; timed with and without the lse write
+     bwd_kernel -- its backward (K2) against its plain version, given the
+                  residuals (out, lse) from K1 as a train step passes them,
+                  and without them (the wrapper then runs K1 first); timed
+                  given the residuals
      frame_kernel -- the per-frame attention kernel (K3) against its plain
                   version
      frame_bwd_kernel -- its backward (K4) against its plain version
@@ -737,8 +741,13 @@ MERGED_K1_PER_FORWARD = 9  # K1 runs for N >= 256: layers 0-8
 KERNEL_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 256, 3137, 437)] + [(2, 2, 37, 16)]
 TIMED = ((1568, False), (368, False), (3137, True))  # (N, biased): VideoMAE's layers 0 and 8, ViViT's layer 0
 # K2 at the training paths' shapes (VideoMAE's layers 0, 1 and 8; ViViT's
-# layers 0 and 9), the shortest row it takes, and a small odd one
-BWD_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 257, 3137, 437)] + [(2, 3, 296, 16)]
+# layers 0 and 9), the shortest row it takes, a small odd one, and rows
+# shorter than one tile at d = 64; without the residuals at the smaller
+BWD_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 257, 3137, 437)] + [(2, 3, 296, 16), (2, 3, 37, 64)]
+BWD_SHAPES_NO_RESIDUALS = [(8, 12, n, 64) for n in (368, 257)] + [(2, 3, 296, 16)]
+# K1's lse against its plain version's: fp32 sums of the same logits in
+# another order, within this much of max(1, the largest |lse|)
+LSE_TOL = 1e-4
 FP32_TOL = 1e-4
 BF16_FLOOR = 1e-2
 BLOCK_TOL = 1e-4
@@ -1023,6 +1032,48 @@ def phase_kernel(phase: str, smi: str, kernel, plain, library, shapes, timed, ou
                 bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
 
 
+def check_lse(shapes):
+    """K1's lse residual against its plain version's, biased and unbiased,
+    fp32 and bf16, on the strided views the model hands over."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    for b, h, n, d in shapes:
+        for biased in (False, True):
+            bias = torch.log(torch.rand((b, n), generator=gen, device="cuda") * 4 + 1) if biased else None
+            fused = torch.randn((b, n + 1, 3 * h * d), generator=gen, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = heads(fused.to(dtype)[:, 1:], h)
+                _, lse = flash_attention._forward(q, k, v, bias, d ** -0.5, want_lse=True)
+                _, want = _reference(q, k, v, bias, d ** -0.5, want_lse=True)
+                err = (lse - want).abs().max().item() / max(1.0, want.abs().max().item())
+                check(err <= LSE_TOL, f"K1 lse err {err} > {LSE_TOL} at {(b, h, n, d)} {dtype} bias={biased}")
+                worst = max(worst, err)
+    torch.cuda.synchronize()
+    return worst
+
+
+def phase_dense_kernel(smi: str) -> dict:
+    """K1 against its plain version, its lse residual, and its time with and
+    without the lse write (serving writes none, a train step's forward
+    does), taken in turns: without, with, with, without."""
+    rows, worst_vs_plain = check_against_plain(tome_flash_attention, _reference, KERNEL_SHAPES)
+    lse_err = check_lse(KERNEL_SHAPES[2:])
+    times = time_against_plain(tome_flash_attention, _reference, dense_sdpa, TIMED, out_factor=1)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for n, biased in TIMED:
+        q, k, v, bias = timed_inputs(gen, n, biased)
+        with torch.inference_mode():
+            plain_call = lambda: flash_attention._forward(q, k, v, bias, 0.125)
+            lse_call = lambda: flash_attention._forward(q, k, v, bias, 0.125, want_lse=True)
+            w1, l1, l2, w2 = cuda_ms(plain_call), cuda_ms(lse_call), cuda_ms(lse_call), cuda_ms(plain_call)
+        times[str(n)].update(without_lse_ms=(w1 + w2) / 2, with_lse_ms=(l1 + l2) / 2)
+    emit("kernel", checks=rows, max_abs_err_vs_plain=worst_vs_plain, lse_rel_err=lse_err,
+         timing_bf16_B8_H12_d64=times, nvidia_smi=smi)
+    first = times[str(TIMED[0][0])]
+    return dict(max_abs_err=worst_vs_plain, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
+
+
 def grad_errors(got, want):
     """Per gradient (dq, dk, dv, dbias): the largest difference, absolute
     and relative to the largest entry of ``want``."""
@@ -1088,32 +1139,47 @@ def emit_backward(phase: str, smi: str, rows, worst_abs: float, times: dict, fir
                 bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
 
 
+def k2_given_residuals(q, k, v, bias, do, scale, need_dbias=True):
+    """K2 as a train step runs it: K1 writes (out, lse), then the backward
+    takes them."""
+    out, lse = flash_attention._forward(q, k, v, bias, scale, want_lse=True)
+    return tome_flash_attention_backward(q, k, v, bias, do, scale, need_dbias, out=out, lse=lse)
+
+
 def phase_bwd_kernel(smi: str) -> dict:
-    """K2 against its plain version, with a token-major do."""
+    """K2 against its plain version (the TPU kernel's softmax form), with a
+    token-major do: given K1's residuals, and without them."""
+    token_major_do = lambda gen, b, h, n, d: torch.randn((b, n, h, d), generator=gen, device="cuda").transpose(1, 2)
     rows, worst_abs = check_backward_against_plain(
-        "K2", tome_flash_attention_backward, _backward_reference, BWD_SHAPES,
-        lambda gen, b, h, n, d: torch.randn((b, n, h, d), generator=gen, device="cuda").transpose(1, 2),
-        seed=6,
-    )
-    # times at B8 H12 d64 bf16, without dbias as on the training paths (VideoMAE
-    # unbiased, ViViT with the key bias): 10 B H N^2 d operations; q, k, v, do
-    # (and the bias) read and dq, dk, dv written
+        "K2", k2_given_residuals, _backward_reference, BWD_SHAPES, token_major_do, seed=6)
+    rows_alone, worst_alone = check_backward_against_plain(
+        "K2 without residuals", tome_flash_attention_backward, _backward_reference, BWD_SHAPES_NO_RESIDUALS,
+        token_major_do, seed=10)
+    # times at B8 H12 d64 bf16 given the residuals, without dbias as on the
+    # training paths (VideoMAE unbiased, ViViT with the key bias): 10 B H N^2 d
+    # operations (the five products the function needs); q, k, v, do, out
+    # (and the bias, and lse) read and dq, dk, dv written
     gen = torch.Generator(device="cuda").manual_seed(7)
     times = {}
     for n, biased in TIMED:
         q, k, v, bias = timed_inputs(gen, n, biased)
         do = torch.randn((8, n, 12, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+        with torch.inference_mode():
+            out, lse = flash_attention._forward(q, k, v, bias, 0.125, want_lse=True)
         leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_bias(bias), scale=0.125)
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_bias(bias), scale=0.125)
         do_c = do.contiguous()
-        t = in_turns(lambda: tome_flash_attention_backward(q, k, v, bias, do, 0.125, need_dbias=False),
-                     lambda: _backward_reference(q, k, v, bias, do, 0.125),
-                     lambda: torch.autograd.grad(out, leaves, do_c, retain_graph=True))
+        t = in_turns(
+            lambda: tome_flash_attention_backward(q, k, v, bias, do, 0.125, need_dbias=False, out=out, lse=lse),
+            lambda: _backward_reference(q, k, v, bias, do, 0.125),
+            lambda: torch.autograd.grad(sdpa_out, leaves, do_c, retain_graph=True))
         flops = 10 * 8 * 12 * n * n * 64
+        nbytes = 8 * 8 * 12 * n * 64 * 2 + 8 * 12 * n * 4 + (8 * n * 4 if biased else 0)
         times[str(n)] = dict(biased=biased, **t, kernel_tflops=flops / t["kernel_ms"] / 1e9,
-                             **bound(flops, 7 * 8 * 12 * n * 64 * 2 + (8 * n * 4 if biased else 0)))
-        del out, leaves  # the plain version at N 3137 keeps several [B, H, N, N] tensors
-    return emit_backward("bwd_kernel", smi, rows, worst_abs, times)
+                             **bound(flops, nbytes))
+        del sdpa_out, leaves  # the plain version at N 3137 keeps several [B, H, N, N] tensors
+    emit("bwd_kernel_without_residuals", checks=rows_alone, max_abs_err_vs_plain=worst_alone, nvidia_smi=smi)
+    return emit_backward("bwd_kernel", smi, rows, max(worst_abs, worst_alone), times)
 
 
 def phase_frame_bwd_kernel(smi: str) -> dict:
@@ -1892,8 +1958,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    kernel = phase_kernel("kernel", smi, tome_flash_attention, _reference, dense_sdpa,
-                          KERNEL_SHAPES, TIMED, out_factor=1)
+    kernel = phase_dense_kernel(smi)
     bwd_kernel = phase_bwd_kernel(smi)
     frame_kernel = phase_kernel(
         "frame_kernel",

@@ -43,6 +43,26 @@ def test_matches_jax_kernel(n, with_bias):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("n", [37, 300])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_plain_lse_is_the_logsumexp_of_the_logits(n, with_bias):
+    """K1's plain version with want_lse: the same output, and the fp32
+    log-sum-exp of each row's logits (q * scale) k^T + bias, as numpy
+    computes it in float64."""
+    q, k, v, bias = _inputs(n, with_bias, seed=3)
+    args = [torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            None if bias is None else torch.from_numpy(bias), 0.125]
+    out, lse = flash_attention._forward(*args, want_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+    np.testing.assert_array_equal(out.numpy(), flash_attention._forward(*args).numpy())
+    logits = np.einsum("bhqd,bhkd->bhqk", (q * 0.125).astype(np.float64), k.astype(np.float64))
+    if bias is not None:
+        logits = logits + bias[:, None, None, :]
+    m = logits.max(axis=-1)
+    want = m + np.log(np.exp(logits - m[..., None]).sum(axis=-1))
+    np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=1e-6 * max(1.0, np.abs(want).max()))
+
+
 def test_cpu_call_launches_no_kernel():
     q, k, v, bias = (torch.from_numpy(a) for a in _inputs(64, True))
     before = flash_attention.LAUNCHES

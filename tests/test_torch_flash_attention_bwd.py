@@ -29,6 +29,9 @@ torch.set_num_threads(2)
 
 # the tolerance of the JAX package's own gradient test
 GRAD_TOL = 2e-4
+# the residual form against the Pallas kernel in fp32: both sum in fp32 in
+# another order, so each gradient within 1e-5 of its largest entry
+RESIDUAL_FP32_TOL = 1e-5
 # bf16: the plain version may be off an fp32 computation by a few bf16
 # roundings of values of order 1 (the forward test's tolerance)
 BF16_TOL = 5e-2
@@ -83,6 +86,88 @@ def test_backward_reference_matches_vtm_kernel_bf16():
     assert got[3].dtype == torch.float32
     scale = np.abs(want[3]).max()
     np.testing.assert_allclose(got[3].numpy(), want[3], atol=BF16_TOL * scale, err_msg="dbias")
+
+
+def _residuals(q, k, v, bias, scale):
+    return fa._forward(q, k, v, bias, scale, want_lse=True)
+
+
+@pytest.mark.parametrize("n", [64, 200, 300])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_residual_reference_matches_vtm_kernel(n, with_bias):
+    """The kernel's arithmetic (p = exp(s - lse), delta = rowsum(do * out)
+    from K1's plain residuals) against jax.grad through the Pallas
+    backward, fp32: within RESIDUAL_FP32_TOL of each gradient's largest
+    entry."""
+    b, h, d = 1, 2, 64
+    q, k, v, bias, cot = _inputs(b, h, n, d, with_bias, seed=6)
+    want = _jax_grads(q, k, v, bias, cot, 0.125)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tb = None if bias is None else torch.from_numpy(bias)
+    out, lse = _residuals(tq, tk, tv, tb, 0.125)
+    got = _backward_reference(tq, tk, tv, tb, torch.from_numpy(cot), 0.125, out=out, lse=lse)
+    assert (got[3] is None) == (bias is None)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, rtol=0, atol=RESIDUAL_FP32_TOL * np.abs(w).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_residual_reference_matches_vtm_kernel_bf16(with_bias):
+    """The same in bf16: out is K1's bf16 output, so delta carries its
+    rounding; the gradients stay within BF16_TOL of the Pallas kernel's."""
+    b, h, n, d = 1, 2, 200, 64
+    q, k, v, bias, cot = _inputs(b, h, n, d, with_bias, seed=7)
+    want = _jax_grads(q, k, v, bias, cot, 0.125, jnp.bfloat16)
+    tq, tk, tv, tcot = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, cot))
+    tb = None if bias is None else torch.from_numpy(bias)
+    out, lse = _residuals(tq, tk, tv, tb, 0.125)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    got = _backward_reference(tq, tk, tv, tb, tcot, 0.125, out=out, lse=lse)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), w, rtol=BF16_TOL, atol=BF16_TOL, err_msg=name)
+    if with_bias:
+        np.testing.assert_allclose(got[3].numpy(), want[3], atol=BF16_TOL * np.abs(want[3]).max(),
+                                   err_msg="dbias")
+
+
+def test_function_saves_the_residuals_and_backward_uses_them(monkeypatch):
+    """_FlashAttention keeps (q, k, v, key_bias, out, lse) when a gradient
+    is wanted and hands out and lse to the backward: no K1 rerun, the
+    residual arithmetic. Without a gradient K1 writes no lse."""
+    b, h, n, d = 1, 2, 48, 16
+    q, k, v, bias, cot = (torch.from_numpy(x) for x in _inputs(b, h, n, d, True, seed=8))
+    q.requires_grad_()
+    forward_calls = []
+    real_forward = fa._forward
+    monkeypatch.setattr(fa, "_forward", lambda *a, **kw: forward_calls.append(kw) or real_forward(*a, **kw))
+    with torch.no_grad():
+        assert tome_flash_attention(q, k, v, bias, 0.25).grad_fn is None
+    assert tome_flash_attention(q.detach(), k, v, bias, 0.25).grad_fn is None
+    out = tome_flash_attention(q, k, v, bias, 0.25)
+    assert forward_calls == [{}, {}, {"want_lse": True}]
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 6 and torch.equal(saved[4], out)
+    assert saved[5].shape == (b, h, n) and saved[5].dtype == torch.float32
+    calls = []
+    real = fa._backward_reference
+    monkeypatch.setattr(fa, "_backward_reference", lambda *a, **kw: calls.append(a) or real(*a, **kw))
+    monkeypatch.setattr(fa, "_forward", lambda *a, **kw: pytest.fail("K1 ran again in the backward"))
+    (out * cot).sum().backward()
+    assert len(calls) == 1 and calls[0][6] is not None and calls[0][7] is not None
+
+
+def test_backward_without_residuals_makes_them():
+    """tome_flash_attention_backward called alone runs K1 (its plain
+    version here) for out and lse: the same gradients as with them."""
+    b, h, n, d = 1, 2, 40, 16
+    q, k, v, bias, cot = (torch.from_numpy(x) for x in _inputs(b, h, n, d, True, seed=9))
+    out, lse = _residuals(q, k, v, bias, 0.25)
+    alone = tome_flash_attention_backward(q, k, v, bias, cot, 0.25)
+    given = tome_flash_attention_backward(q, k, v, bias, cot, 0.25, out=out, lse=lse)
+    for a, w in zip(alone, given):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.parametrize("with_bias", [False, True])

@@ -63,7 +63,15 @@ ARCH = dict(
 R = 8
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4   # of the largest entry of each gradient tensor
-PARAM_TOL = 1e-5  # after three optimizer steps
+# After three optimizer steps. Adam divides by sqrt(v): an element whose
+# gradient is within GRAD_TOL of zero (of its tensor's largest) steps by
+# about lr whatever its size, and fp32 rounding, which differs from machine
+# to machine, decides its sign and size. Such an element is held to what
+# Adam can move it, 2 * lr * lr_scale summed over the steps, and at most
+# NEAR_ZERO_SHARE of all elements may be such; every other element is held
+# to PARAM_TOL, and every element of an SGD run.
+PARAM_TOL = 1e-5
+NEAR_ZERO_SHARE = 0.01
 
 
 def _np_tree(tree):
@@ -197,7 +205,8 @@ def _cfgs(opts):
 def test_three_optimizer_steps_match_vtm(method, num_classes, extra):
     """construct_optimizer in both packages (layer decay 0.75, the zero-wd
     grouping, a cosine schedule that changes the lr every step), three
-    steps on three batches: parameters within PARAM_TOL."""
+    steps on three batches: parameters within PARAM_TOL, or for Adam's
+    near-zero-gradient elements within the step Adam can take."""
     multi_head = isinstance(num_classes, tuple)
     jc, tc = _cfgs(_solver_opts(method, extra))
     jmodel, params, tmodel = _pair(num_classes, seed=1)
@@ -208,6 +217,21 @@ def test_three_optimizer_steps_match_vtm(method, num_classes, extra):
     jstep = jax_make_train_step(jmodel, tx, "cross_entropy", multi_head)
     optimizer, lr_at = topt.construct_optimizer(tc, tmodel, num_layers=depth)
     tstep = make_train_step(tmodel, optimizer, "cross_entropy", multi_head)
+    names = {id(p): name for name, p in tmodel.named_parameters()}
+    near_zero = {name: torch.zeros_like(p, dtype=torch.bool) for name, p in tmodel.named_parameters()}
+    lr_sum = dict.fromkeys(near_zero, 0.0)  # sum over steps of lr * lr_scale
+
+    def mark_near_zero(opt, args, kwargs):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                name = names[id(p)]
+                lr_sum[name] += group["lr"]
+                if p.grad is not None:
+                    g = p.grad.abs()
+                    # a gradient that is exactly 0 moves nothing either way
+                    near_zero[name] |= (g > 0) & (g <= GRAD_TOL * g.max())
+
+    optimizer.register_step_pre_hook(mark_near_zero)
 
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     for i in range(3):
@@ -226,9 +250,19 @@ def test_three_optimizer_steps_match_vtm(method, num_classes, extra):
     want = named_arrays_from_vtm_tree(_np_tree(jparams))
     moved = 0.0
     start = state_dict_from_vtm_params(params)
+    adam = method.startswith("adam")
+    flagged = total = 0
     for name, p in tmodel.named_parameters():
-        np.testing.assert_allclose(p.detach().numpy(), want[name], rtol=0, atol=PARAM_TOL, err_msg=name)
+        atol = np.full(p.shape, PARAM_TOL, np.float32)
+        if adam:
+            mask = near_zero[name].numpy()
+            atol[mask] = max(PARAM_TOL, 2.0 * lr_sum[name])
+            flagged += int(mask.sum())
+        total += p.numel()
+        err = np.abs(p.detach().numpy() - want[name])
+        assert (err <= atol).all(), (name, float(err.max()), int((err > PARAM_TOL).sum()))
         moved = max(moved, (p.detach() - start[name]).abs().max().item())
+    assert flagged <= NEAR_ZERO_SHARE * total, (flagged, total)
     assert moved > 1e-4  # the steps did something
 
 

@@ -110,6 +110,7 @@ def load_library() -> ctypes.CDLL:
     lib.vtm_attention_fwd.argtypes = [
         i, i,           # dtype, head_dim
         p, p, p, p, p,  # q, k, v, key_bias, out
+        p,              # lse (or null)
         i, i, i,        # batch, num_heads, n
         ctypes.c_float,  # scale
         p,              # strides (12 x int64, host memory)
@@ -128,10 +129,11 @@ def load_library() -> ctypes.CDLL:
     lib.vtm_attention_bwd.argtypes = [
         i, i,           # dtype, head_dim
         p, p, p, p, p,  # q, k, v, key_bias, do
-        p, p, p, p, p,  # dq, dk, dv, dbias, stats
+        p, p,           # out, lse (the forward's residuals)
+        p, p, p, p, p,  # dq, dk, dv, dbias, delta
         i, i, i,        # batch, num_heads, n
         ctypes.c_float,  # scale
-        p,              # strides (21 x int64, host memory)
+        p,              # strides (24 x int64, host memory)
         p,              # cudaStream_t
     ]
     lib.vtm_attention_bwd.restype = i

@@ -231,4 +231,20 @@ __device__ __forceinline__ float logit(float qk, float scale, const float* bias,
   return fmaf(qk, scale, bias ? bias[key] : 0.f);
 }
 
+// The dynamic shared-memory limit of `kernel`, raised to `bytes` once per
+// device: `done` is the caller's static flag array, one per kernel
+// instantiation (launchers of K1, K2 and K3).
+constexpr int kMaxDevices = 64;
+
+template <typename K>
+cudaError_t allow_smem_once(K kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
 }  // namespace vtm

@@ -29,6 +29,10 @@
 //   * q * scale is rounded to the input dtype before q k^T; p is cast to
 //     the input dtype before p v; the fp32 accumulator (kept in shared
 //     memory) is divided by l after p v and stored in the input dtype.
+//   * when a gradient is wanted the caller passes `lse`, fp32 [B, H, N]:
+//     each row's m + log l, the residual K2 (flash_attention_bwd.cu)
+//     normalises its recomputed p with; serving passes null and nothing
+//     more is written.
 // wgmma, TMA and warp specialisation are left for later versions.
 
 #include <cuda_bf16.h>
@@ -91,7 +95,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const float* __restrict__ key_bias,
-                         T* __restrict__ out, int num_heads, int n, float scale, Strides st) {
+                         T* __restrict__ out, float* __restrict__ lse, int num_heads, int n,
+                         float scale, Strides st) {
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
@@ -219,34 +224,37 @@ __global__ void __launch_bounds__(kThreads)
     const float* orow = os + row * L::ld_o;
     for (int d = half * (D / 2); d < half * (D / 2) + D / 2; ++d)
       orow_g[d] = from_float<T>(orow[d] / l_i);
+    if (lse && half == 0) lse[static_cast<long long>(bh) * n + q0 + row] = m_i + logf(l_i);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_bias, void* out,
-                   int batch, int num_heads, int n, float scale, const Strides& st,
+                   void* lse, int batch, int num_heads, int n, float scale, const Strides& st,
                    cudaStream_t stream) {
   using L = Layout<T, D>;
   auto kernel = attention_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::bytes));
+  static bool done[vtm::kMaxDevices] = {};
+  cudaError_t err = vtm::allow_smem_once(kernel, static_cast<int>(L::bytes), done);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kBlockQ - 1) / kBlockQ, batch * num_heads);
   kernel<<<grid, kThreads, L::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(key_bias), static_cast<T*>(out), num_heads, n, scale, st);
+      static_cast<const float*>(key_bias), static_cast<T*>(out), static_cast<float*>(lse),
+      num_heads, n, scale, st);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k, const void* v,
-                              const void* key_bias, void* out, int batch, int num_heads, int n,
-                              float scale, const Strides& st, cudaStream_t stream) {
+                              const void* key_bias, void* out, void* lse, int batch,
+                              int num_heads, int n, float scale, const Strides& st,
+                              cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, key_bias, out, batch, num_heads, n, scale, st, stream);
-    case 32: return launch<T, 32>(q, k, v, key_bias, out, batch, num_heads, n, scale, st, stream);
-    case 64: return launch<T, 64>(q, k, v, key_bias, out, batch, num_heads, n, scale, st, stream);
-    case 128: return launch<T, 128>(q, k, v, key_bias, out, batch, num_heads, n, scale, st, stream);
+    case 16: return launch<T, 16>(q, k, v, key_bias, out, lse, batch, num_heads, n, scale, st, stream);
+    case 32: return launch<T, 32>(q, k, v, key_bias, out, lse, batch, num_heads, n, scale, st, stream);
+    case 64: return launch<T, 64>(q, k, v, key_bias, out, lse, batch, num_heads, n, scale, st, stream);
+    case 128: return launch<T, 128>(q, k, v, key_bias, out, lse, batch, num_heads, n, scale, st, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -256,21 +264,23 @@ cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k, const 
 // C entry point, bound with ctypes by vtm_torch/ops/flash_attention.py.
 //   dtype: 0 = bf16, 1 = fp32 (q, k, v and out share it)
 //   key_bias: fp32 [batch, n] contiguous, or null for the unbiased form
+//   lse: fp32 [batch, num_heads, n] contiguous, each row's log-sum-exp, or
+//        null when no gradient is wanted
 //   strides: 12 element strides, (batch, head, row) of q, k, v, out
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int vtm_attention_fwd(int dtype, int head_dim, const void* q, const void* k,
-                                 const void* v, const void* key_bias, void* out, int batch,
-                                 int num_heads, int n, float scale, const long long* strides,
-                                 void* stream) {
+                                 const void* v, const void* key_bias, void* out, void* lse,
+                                 int batch, int num_heads, int n, float scale,
+                                 const long long* strides, void* stream) {
   Strides st;
   std::memcpy(&st, strides, sizeof(st));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, key_bias, out, batch, num_heads,
-                                              n, scale, st, s);
+      return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, key_bias, out, lse, batch,
+                                              num_heads, n, scale, st, s);
     case 1:
-      return dispatch_head_dim<float>(head_dim, q, k, v, key_bias, out, batch, num_heads, n,
+      return dispatch_head_dim<float>(head_dim, q, k, v, key_bias, out, lse, batch, num_heads, n,
                                       scale, st, s);
     default:
       return cudaErrorInvalidValue;

@@ -15,35 +15,43 @@
 // What bounds it on the H100: at B8 H12 N1568 F8 d64 one call is
 // 4*B*H*N^2*d = 60.4 GFLOP, the same as dense attention at that N, and it
 // writes 154 MB of output (F times the size of q) against 58 MB of q/k/v
-// read: about 285 FLOP per byte, near the card's ~295 FLOP/byte bf16
-// ridge. The plain PyTorch version (ops/flash_attention.py::
-// _frame_reference) also writes and reads back a [B, H, N, N] fp32
-// logits tensor, 944 MB at that shape, plus the probabilities; this
-// kernel keeps logits and probabilities in shared memory.
+// read: about 285 FLOP per byte, at the card's ~295 FLOP/byte bf16 ridge,
+// and the least time is set by the bytes (0.063 ms) by a hair. The plain
+// PyTorch version (ops/flash_attention.py::_frame_reference) also writes
+// and reads back a [B, H, N, N] fp32 logits tensor, 944 MB at that shape,
+// plus the probabilities.
 //
-// Design (first version: simple and right, not fast):
-//   * one thread block of 4 warps per (b*h, 64-row q tile); each warp owns
-//     16 query rows. The q tile (q * scale rounded to the input dtype) is
-//     staged once and reused for all F frames, as the TPU kernel gives one
-//     program every frame's keys.
-//   * per frame: S = q k_f^T for the frame's <= 8 key tiles of 64 goes
-//     into a shared fp32 buffer of [64 x ceil64(s)] (up to 132 KB at
-//     s = 512, above the 48 KB default, hence the opt-in attribute); keys
-//     past the frame's end are zero-filled and only whole 16-key groups
-//     that hold a key of the frame are computed. Then an exact softmax
-//     over the frame's s keys (one warp per row, fp32 max and sum, the
-//     bias added per key), p normalised in fp32 and rounded to the input
-//     dtype before the product with v, as the TPU s8 kernel does; then
-//     out_f = p v_f with fp32 accumulation and one cast at the store, at
-//     row stride F*H*d.
-//   * bf16: q k^T and p v run on the tensor cores (nvcuda::wmma bf16
-//     16x16x16, fp32 accumulators in registers); the result is staged
-//     through the warp's own rows of S for a coalesced store. fp32: the
-//     same loops with fp32 FMAs on the CUDA cores (TF32 would keep only
-//     ~3 digits), the accumulator in registers.
-//   * rows of the last q tile past N are zero-filled and not stored.
-// wgmma, TMA, double buffering and a register-resident S are left for
-// later versions.
+// Grid: one block per (b*h, 64-row q tile). The q tile (q * scale rounded
+// to the input dtype) is staged once and reused for all F frames, as the
+// TPU kernel gives one program every frame's keys; rows past N are
+// zero-filled and not stored. Two bodies:
+//   * bf16 at d = 64, the head dimension of every ViT-B path: one
+//     warpgroup (128 threads) a block and an online softmax per frame. The
+//     frame's 64-key tiles of k and v stream through a two-stage ring
+//     filled by cp.async (the next tile, of this frame or the next, is in
+//     flight while the current one is used). S = q k^T is a wgmma
+//     m64n64k16 product with fp32 accumulators in registers; the key bias
+//     is added and keys past the frame's end get -1e30 where the running
+//     max is taken; p = exp2 in the log2 domain, rounded to bf16 in
+//     registers, is the A operand of out_f += p v (wgmma, v read
+//     transposed from shared memory). The running max and denominator are
+//     reset at each frame boundary; at the frame's end the accumulator is
+//     divided by the denominator and leaves through a swizzled bf16 stage
+//     with 16-byte stores at row stride F*H*d, while the next frame's
+//     first tile is already loading. No [64 x s] buffer is left, so shared
+//     memory no longer depends on the frame length. Rounding: this form
+//     rounds the unnormalised p (each <= 1 against the running max) and
+//     divides at the end; the TPU kernel rounds the normalised p. Both sit
+//     within bf16's rounding of the fp32 result.
+//   * every other case (fp32, and bf16 at d = 16, 32, 128): the first
+//     version's body. S for the whole frame goes into a shared fp32 buffer
+//     of [64 x ceil64(s)] (up to 132 KB at s = 512); an exact softmax
+//     over the frame's s keys, one warp per row; p normalised in fp32 and
+//     rounded to the input dtype before the product with v, as the TPU s8
+//     kernel does. bf16 runs the products on wmma 16x16x16; fp32 runs them
+//     as FMAs on the CUDA cores (TF32 would keep only ~3 digits).
+// TMA, warp specialisation and a persistent grid are left for later
+// versions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +63,7 @@
 #include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -282,21 +291,183 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ======================= Hopper body (bf16, d = 64) =======================
+
+namespace wg = vtm::wg;
+using bf16 = __nv_bfloat16;
+
+// q tile, a two-stage ring of (k, v) tiles, the output stage; 1 KB more for
+// the 1024-byte alignment the swizzle needs.
+struct WgLayout {
+  static constexpr int kQ = 0;
+  static constexpr int kRing = wg::kTileBytes;               // stage s: k, v at kRing + 2 s tiles
+  static constexpr int kOut = kRing + 4 * wg::kTileBytes;
+  static constexpr int kLaunchBytes = kOut + wg::kTileBytes + 1024;
+};
+
+__global__ void __launch_bounds__(wg::kThreads)
+    frame_attention_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                              bf16* __restrict__ out, int num_heads, int n, int frames,
+                              int s_len, float scale, Strides st) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = wg::aligned_smem(smem_raw);
+  const uint32_t base = wg::smem_addr(smem);
+
+  const int bh = blockIdx.y;
+  const int b = bh / num_heads;
+  const int h = bh % num_heads;
+  const int q0 = blockIdx.x * wg::kRows;
+  const bf16* qb = q + b * st.q[0] + h * st.q[1];
+  const bf16* kb = k + b * st.k[0] + h * st.k[1];
+  const bf16* vb = v + b * st.v[0] + h * st.v[1];
+  bf16* ob = out + b * st.o[0] + h * st.o[1];
+  const float* bias = key_bias ? key_bias + static_cast<long long>(b) * n : nullptr;
+  const int n_tiles = (s_len + wg::kRows - 1) / wg::kRows;  // key tiles a frame
+  const int total = frames * n_tiles;
+
+  auto load_kv = [&](int g, int stage) {
+    const int key0 = (g / n_tiles) * s_len;
+    const int row0 = key0 + (g % n_tiles) * wg::kRows;
+    wg::load_tile_async(base + WgLayout::kRing + 2 * stage * wg::kTileBytes, kb, st.k[2], row0,
+                        key0 + s_len);
+    wg::load_tile_async(base + WgLayout::kRing + (2 * stage + 1) * wg::kTileBytes, vb, st.v[2],
+                        row0, key0 + s_len);
+    wg::cp_async_commit();
+  };
+  load_kv(0, 0);
+
+  // q * scale rounded to bf16, swizzled, while the first tile loads
+#pragma unroll
+  for (int i = 0; i < wg::kRows * 8 / wg::kThreads; ++i) {
+    const int idx = threadIdx.x + i * wg::kThreads;
+    const int r = idx >> 3, c = idx & 7;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < n) {
+      val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * st.q[2] + c * 8);
+      bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+    }
+    *reinterpret_cast<uint4*>(smem + WgLayout::kQ + wg::swz(r, c)) = val;
+  }
+  wg::fence_async_shared();
+
+  float o[32], m2[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  m2[0] = m2[1] = vtm::kMask;
+  l[0] = l[1] = 0.f;
+
+  for (int g = 0; g < total; ++g) {
+    const int stage = g & 1;
+    const int f = g / n_tiles;
+    const int c0 = (g % n_tiles) * wg::kRows;  // first key of the tile within its frame
+    if (g + 1 < total) {
+      load_kv(g + 1, stage ^ 1);
+      wg::cp_async_wait<1>();
+    } else {
+      wg::cp_async_wait<0>();
+    }
+    wg::fence_async_shared();
+    __syncthreads();
+
+    const uint32_t k_tile = base + WgLayout::kRing + 2 * stage * wg::kTileBytes;
+    float s[32];
+    wg::fence_regs(s);
+    wg::wg_fence();
+    wg::product_ss(s, base + WgLayout::kQ, k_tile);
+    wg::wg_commit();
+    wg::wg_wait<0>();
+    wg::fence_regs(s);
+
+    // logits in log2 units, the bias added and keys past the frame masked
+    // where the max is taken; the running max and denominator per row
+    float mx[2] = {vtm::kMask, vtm::kMask};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = c0 + wg::acc_col(i);
+      const int hh = (i >> 1) & 1;
+      float x = vtm::kMask;
+      if (j < s_len) x = (bias ? s[i] + bias[f * s_len + j] : s[i]) * wg::kLog2e;
+      s[i] = x;
+      mx[hh] = fmaxf(mx[hh], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m2[hh], mx[hh]);
+      corr[hh] = wg::fast_exp2(m2[hh] - m_new);
+      m2[hh] = m_new;
+      l[hh] *= corr[hh];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      s[i] = wg::fast_exp2(s[i] - m2[hh]);
+      l[hh] += s[i];
+      o[i] *= corr[hh];
+    }
+    uint32_t p_lo[16];
+    wg::to_a_fragment(s, p_lo);
+
+    wg::fence_regs(o);
+    wg::fence_regs(p_lo);
+    wg::wg_fence();
+    wg::product_rs(o, p_lo, k_tile + wg::kTileBytes, true);
+    wg::wg_commit();
+    wg::wg_wait<0>();
+    wg::fence_regs(o);
+
+    if (c0 + wg::kRows >= s_len) {
+      // the frame's end: out_f = o / l, then a fresh softmax for the next frame
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+        l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+        l[hh] = 1.f / l[hh];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= l[(i >> 1) & 1];
+      wg::store_tile(o, 1.f, smem + WgLayout::kOut, ob + f * st.o[3], st.o[2], q0, n);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      m2[0] = m2[1] = vtm::kMask;
+      l[0] = l[1] = 0.f;
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_bias, void* out,
                    int batch, int num_heads, int n, int frames, float scale, const Strides& st,
                    cudaStream_t stream) {
   const int s_len = n / frames;
-  const FrameLayout<T, D> lay(s_len);
-  auto kernel = frame_attention_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(lay.bytes));
-  if (err != cudaSuccess) return err;
   const dim3 grid((n + kTile - 1) / kTile, batch * num_heads);
-  kernel<<<grid, kThreads, lay.bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(key_bias), static_cast<T*>(out), num_heads, n, frames, s_len,
-      scale, st);
+  if constexpr (std::is_same<T, bf16>::value && D == 64) {
+    static bool done[vtm::kMaxDevices] = {};
+    cudaError_t err = vtm::allow_smem_once(frame_attention_fwd_wgmma, WgLayout::kLaunchBytes, done);
+    if (err != cudaSuccess) return err;
+    frame_attention_fwd_wgmma<<<grid, wg::kThreads, WgLayout::kLaunchBytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const float*>(key_bias), static_cast<bf16*>(out), num_heads, n, frames, s_len,
+        scale, st);
+  } else {
+    const FrameLayout<T, D> lay(s_len);
+    auto kernel = frame_attention_fwd_kernel<T, D>;
+    // raised once, to what the longest frame needs
+    static bool done[vtm::kMaxDevices] = {};
+    cudaError_t err = vtm::allow_smem_once(
+        kernel, static_cast<int>(FrameLayout<T, D>(kMaxFrameLen).bytes), done);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, lay.bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(key_bias), static_cast<T*>(out), num_heads, n, frames, s_len,
+        scale, st);
+  }
   return cudaGetLastError();
 }
 

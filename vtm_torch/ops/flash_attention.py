@@ -3,11 +3,14 @@
 K1, ``tome_flash_attention``: softmax(q k^T * sm_scale + key_bias) v over
 [B, H, N, d], the counterpart of ``vtm/ops/flash_attention.py::
 tome_flash_attention``; kernel ``csrc/flash_attention_fwd.cu``. It is
-differentiable: a ``torch.autograd.Function`` whose backward is K2.
+differentiable: a ``torch.autograd.Function`` whose backward is K2. When a
+gradient is wanted it also writes each row's log-sum-exp (``lse``).
 
 K2, ``tome_flash_attention_backward``: dq, dk, dv and dbias of K1 from
-(q, k, v, key_bias, do), recomputing the softmax (the counterpart of
-``vtm``'s ``_backward``); kernel ``csrc/flash_attention_bwd.cu``.
+(q, k, v, key_bias, do) and the forward's residuals (out, lse): it
+recomputes the logits, takes p = exp(s - lse) and delta = rowsum(do * out)
+instead of a statistics pass (the counterpart of ``vtm``'s ``_backward``);
+kernel ``csrc/flash_attention_bwd.cu``.
 
 K3, ``tome_frame_attention``: the same with a separate softmax over each
 frame's contiguous key segment, returning token-major [B, N, F, H, d]
@@ -64,18 +67,21 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 _ALIGN = 16  # bytes: the kernel stages rows with 16-byte loads
 _MAX_GRID_Y = 65535  # batch * heads is the grid's y extent
-MAX_FRAME_LEN = 512  # K3 keeps one frame's [64 x s] fp32 logits in shared memory
+MAX_FRAME_LEN = 512  # K3's fp32 body keeps one frame's [64 x s] fp32 logits in shared memory
 _MAX_GRID_X = 2**31 - 1  # K5a, K5b: frames * 64-row tiles per frame is the grid's x extent
 
 
-def _reference(q, k, v, key_bias, sm_scale):
+def _reference(q, k, v, key_bias, sm_scale, want_lse=False):
     """Plain version: fp32 logits, fp32 softmax, probabilities in v's
-    dtype before the product with v (vtm/ops/flash_attention.py:355-362)."""
+    dtype before the product with v (vtm/ops/flash_attention.py:355-362).
+    With ``want_lse`` returns (out, lse), lse the fp32 [B, H, N]
+    log-sum-exp of each row's logits."""
     logits = torch.matmul((q * sm_scale).float(), k.float().transpose(-2, -1))
     if key_bias is not None:
         logits = logits + key_bias.float()[:, None, None, :]
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(probs, v)
+    out = torch.matmul(probs, v)
+    return (out, torch.logsumexp(logits, dim=-1)) if want_lse else out
 
 
 def check_kernel_args(q, k, v, key_bias) -> None:
@@ -108,17 +114,19 @@ def check_kernel_args(q, k, v, key_bias) -> None:
         raise ValueError(f"q, k, v must share one CUDA device, got {q.device}, {k.device}, {v.device}")
 
 
-def _forward(q, k, v, key_bias, sm_scale):
-    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
+def _forward(q, k, v, key_bias, sm_scale, want_lse=False):
+    """K1 on a CUDA tensor, its plain version on a CPU tensor. With
+    ``want_lse`` returns (out, lse), lse float32 [B, H, N]."""
     global LAUNCHES
     if not q.is_cuda:
-        return _reference(q, k, v, key_bias, sm_scale)
+        return _reference(q, k, v, key_bias, sm_scale, want_lse)
     check_kernel_args(q, k, v, key_bias)
     from vtm_torch.ops.build import load_library
 
     lib = load_library()
     b, h, n, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if want_lse else None
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
@@ -128,6 +136,7 @@ def _forward(q, k, v, key_bias, sm_scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_bias is None else key_bias.data_ptr(),
             out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, h, n, float(sm_scale),
             ctypes.addressof(strides),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -135,24 +144,33 @@ def _forward(q, k, v, key_bias, sm_scale):
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed with cudaError_t {err}")
     LAUNCHES += 1
-    return out
+    return (out, lse) if want_lse else out
 
 
-def _backward_reference(q, k, v, key_bias, do, sm_scale):
+def _backward_reference(q, k, v, key_bias, do, sm_scale, out=None, lse=None):
     """Plain version of K2, step by step with the TPU kernel's rounding
     points (vtm/ops/flash_attention.py:386-440, 535-542): fp32 logits from
     the unscaled q, fp32 softmax, dp and ds; p and ds rounded to the input
     dtype before the three products, whose fp32 sums are cast at the end;
     dbias from the unrounded ds, summed over queries and heads.
+
+    Given the forward's residuals ``out`` and ``lse`` it takes the
+    kernel's arithmetic: p = exp(s - lse) and delta = rowsum(do * out) in
+    fp32, out read in its own dtype. Without them p is the softmax of s
+    and delta = rowsum(p * dp), as in the TPU kernel.
     Returns (dq, dk, dv, dbias); dbias is None without a key_bias."""
     dtype = q.dtype
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.matmul(qf, kf.transpose(-2, -1)) * sm_scale
     if key_bias is not None:
         s = s + key_bias.float()[:, None, None, :]
-    p = torch.softmax(s, dim=-1)
     dp = torch.matmul(dof, vf.transpose(-2, -1))
-    delta = (p * dp).sum(dim=-1, keepdim=True)
+    if out is None or lse is None:
+        p = torch.softmax(s, dim=-1)
+        delta = (p * dp).sum(dim=-1, keepdim=True)
+    else:
+        p = torch.exp(s - lse.float()[..., None])
+        delta = (dof * out.float()).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     p_lo = p.to(dtype).float()
     ds_lo = ds.to(dtype).float()
@@ -195,11 +213,16 @@ def tome_flash_attention_backward(
     do: torch.Tensor,
     sm_scale: float = 1.0,
     need_dbias: bool = True,
+    out: Optional[torch.Tensor] = None,
+    lse: Optional[torch.Tensor] = None,
 ):
     """Gradients of ``tome_flash_attention`` given ``do`` = d loss / d out.
 
     q, k, v, key_bias as in the forward; do: [B, H, N, d] in q's dtype, any
     strides (the gradient of the token-major output view needs no copy).
+    ``out`` and ``lse`` are the forward's residuals (its output and the
+    float32 [B, H, N] row log-sum-exp of ``_forward(..., want_lse=True)``);
+    when either is missing K1 runs first to make them.
     Returns (dq, dk, dv, dbias): dq, dk, dv are [B, H, N, d] views of one
     token-major [B, N, 3, H, d] buffer, so the gradient of a fused qkv
     projection's ``chunk`` is that buffer; dbias is float32 [B, N] (summed
@@ -207,24 +230,29 @@ def tome_flash_attention_backward(
     ``need_dbias`` is False.
     """
     global BWD_LAUNCHES
+    if out is None or lse is None:
+        out, lse = _forward(q, k, v, key_bias, sm_scale, want_lse=True)
     if not q.is_cuda:
-        dq, dk, dv, dbias = _backward_reference(q, k, v, key_bias, do, sm_scale)
+        dq, dk, dv, dbias = _backward_reference(q, k, v, key_bias, do, sm_scale, out, lse)
         return dq, dk, dv, dbias if need_dbias else None
     check_kernel_args(q, k, v, key_bias)
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(
-            f"do must match q: {do.dtype} {tuple(do.shape)} on {do.device} "
-            f"against {q.dtype} {tuple(q.shape)} on {q.device}"
-        )
-    do = _kernel_operand(do)
+    b, h, n, d = q.shape
+    for name, t, dtype in (("do", do, q.dtype), ("out", out, q.dtype)):
+        if t.shape != q.shape or t.dtype != dtype or t.device != q.device:
+            raise ValueError(
+                f"{name} must match q: {t.dtype} {tuple(t.shape)} on {t.device} "
+                f"against {q.dtype} {tuple(q.shape)} on {q.device}"
+            )
+    if lse.shape != (b, h, n) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be float32 [{b}, {h}, {n}] on {q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    do, out, lse = _kernel_operand(do), _kernel_operand(out), lse.contiguous()
     from vtm_torch.ops.build import load_library
 
     lib = load_library()
-    b, h, n, d = q.shape
     dq, dk, dv, dbias_heads = _gradient_buffers(q, need_dbias and key_bias is not None)
-    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 21)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *out.stride()[:3],
         *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
     )
     with torch.cuda.device(q.device):
@@ -232,10 +260,10 @@ def tome_flash_attention_backward(
             _DTYPE_CODES[q.dtype], d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_bias is None else key_bias.data_ptr(),
-            do.data_ptr(),
+            do.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if dbias_heads is None else dbias_heads.data_ptr(),
-            stats.data_ptr(),
+            delta.data_ptr(),
             b, h, n, float(sm_scale),
             ctypes.addressof(strides),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -248,20 +276,28 @@ def tome_flash_attention_backward(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward, K2 backward. Saves (q, k, v, key_bias) only: the
-    backward recomputes the softmax, as ``vtm``'s custom_vjp does."""
+    """K1 forward, K2 backward. When a gradient is wanted the forward
+    also writes the row log-sum-exp, and the Function saves (q, k, v,
+    key_bias, out, lse): the backward recomputes the logits but takes the
+    row statistics from the residuals. ``out`` is the token-major buffer
+    whose [B, N, H*d] view the output projection's Linear keeps for its
+    own backward, so saving it costs no memory of its own; lse is fp32
+    [B, H, N], 1/32 of q's size in bf16 at d = 64. Serving (no gradient
+    wanted) does not reach the Function: ``tome_flash_attention`` calls K1
+    without the lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, sm_scale):
-        ctx.save_for_backward(q, k, v, key_bias)
         ctx.sm_scale = sm_scale
-        return _forward(q, k, v, key_bias, sm_scale)
+        out, lse = _forward(q, k, v, key_bias, sm_scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, key_bias = ctx.saved_tensors
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
         dq, dk, dv, dbias = tome_flash_attention_backward(
-            q, k, v, key_bias, do, ctx.sm_scale, need_dbias=ctx.needs_input_grad[3]
+            q, k, v, key_bias, do, ctx.sm_scale, need_dbias=ctx.needs_input_grad[3], out=out, lse=lse
         )
         return dq, dk, dv, dbias, None
 
@@ -283,6 +319,10 @@ def tome_flash_attention(
     Gradients with respect to q, k, v and key_bias come from K2
     (``tome_flash_attention_backward``).
     """
+    if not torch.is_grad_enabled() or not any(
+        t is not None and t.requires_grad for t in (q, k, v, key_bias)
+    ):
+        return _forward(q, k, v, key_bias, sm_scale)
     return _FlashAttention.apply(q, k, v, key_bias, sm_scale)
 
 

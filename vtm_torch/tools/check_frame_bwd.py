@@ -44,7 +44,9 @@ def kernel_resources(source: str) -> list:
     """[{kernel, dtype, head_dim, template_args, registers, spill_store_bytes,
     spill_load_bytes}] from ptxas for one source of ``csrc/``.
     ``template_args`` holds every integer argument of the instance;
-    ``head_dim`` is the first (K1-K5's only one)."""
+    ``head_dim`` is the first (K1-K5's only one). The wgmma bodies
+    (``*_wgmma``, bf16 at head dim 64) are not templates: their
+    ``template_args`` are empty."""
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [kernel_build.nvcc_path(), *kernel_build.COMPILE_FLAGS, "-Xptxas", "-v", "-o", f"{tmp}/x.o",
                str(kernel_build.CSRC / source)]
@@ -54,10 +56,13 @@ def kernel_resources(source: str) -> list:
     rows, entry = [], None
     for line in proc.stderr.splitlines():
         m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:L[ib]\d+E)+)", line)
+        wgmma = re.search(r"([a-z_]+_wgmma)E", line)
         if m and "Compiling entry function" in line:
             args = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
             entry = dict(kernel=m.group(1), dtype="fp32" if m.group(2) == "f" else "bf16", head_dim=args[0],
                          template_args=args)
+        elif wgmma and "Compiling entry function" in line:
+            entry = dict(kernel=wgmma.group(1), dtype="bf16", head_dim=64, template_args=[])
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spills and entry:
             entry.update(spill_store_bytes=int(spills.group(1)), spill_load_bytes=int(spills.group(2)))
