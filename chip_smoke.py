@@ -38,7 +38,10 @@ Phases, each printing one JSON line:
   1. device    -- fails without CUDA; prints nvidia-smi's name and power limit
   2. build     -- compiles the kernels from vtm_torch/ops/csrc with nvcc
   3. kernel    -- the dense attention kernel (K1) against its plain version,
-                  its lse residual too; timed with and without the lse write
+                  its lse residual too; timed with and without the lse write,
+                  and against attention_core's plain branch at the lengths
+                  where the two meet (CROSSOVER_N); ptxas's registers and
+                  spills of its kernels
      bwd_kernel -- its backward (K2) against its plain version, given the
                   residuals (out, lse) from K1 as a train step passes them,
                   and without them (the wrapper then runs K1 first); timed
@@ -47,12 +50,18 @@ Phases, each printing one JSON line:
                   version
      frame_bwd_kernel -- its backward (K4) against its plain version
      blockdiag_kernel -- the block-diagonal attention kernel (K5a) against
-                  its plain version: biased, unbiased and with the row mask
+                  its plain version at every frame length of the TimeSformer
+                  path and at F = 7 (frames its packed tiles do not divide):
+                  biased, unbiased and with the row mask; registers, spills
      blockdiag_bwd_kernel -- its backward (K5b) against its plain version
      Each is also timed against its plain version and against the one
      PyTorch call that computes the same function
      (scaled_dot_product_attention, its autograd backward for K2, K4 and
-     K5b), beside the least time the card could take (``bound_ms``).
+     K5b) by CUDA events in turns (the ``ms`` of the ``kernels`` line), and
+     by its device time with the host's cost hidden (calls queued behind a
+     kernel that holds the stream; ``device_ms`` there, null for T1-T12:
+     not measured), beside the least time the card could take
+     (``bound_ms``).
      ab_kernels -- the twelve A/B variants of K1 (T1-T12,
                   vtm_torch/ops/ab_attention.py), every mode against its
                   plain version by the entry point's own rule
@@ -140,6 +149,7 @@ from vtm_torch.ops.flash_attention import (
 )
 from vtm_torch.ops import ab_attention
 from vtm_torch.tools import ab_dense
+from vtm_torch.tools.kernel_times import device_ms
 from vtm_torch.tools.model_benchmark import model_benchmark
 from vtm_torch.tools.train_net import build_trainer, train
 from vtm_torch.train.optimizer import set_lr
@@ -740,6 +750,10 @@ MERGED_COUNTS = (1568, 1418, 1268, 1118, 968, 818, 668, 518, 368, 218, 109, 55, 
 MERGED_K1_PER_FORWARD = 9  # K1 runs for N >= 256: layers 0-8
 KERNEL_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 256, 3137, 437)] + [(2, 2, 37, 16)]
 TIMED = ((1568, False), (368, False), (3137, True))  # (N, biased): VideoMAE's layers 0 and 8, ViViT's layer 0
+# K1 against attention_core's plain branch where the two meet: VideoMAE's
+# layers 8-10 (368, 218, 109), ViViT's layer 9 (437), and the 256-token
+# threshold itself; measured, not acted on (models/common.py keeps 256)
+CROSSOVER_N = (109, 218, 256, 368, 437)
 # K2 at the training paths' shapes (VideoMAE's layers 0, 1 and 8; ViViT's
 # layers 0 and 9), the shortest row it takes, a small odd one, and rows
 # shorter than one tile at d = 64; without the residuals at the smaller
@@ -792,8 +806,15 @@ TS_K5_PER_FORWARD = {"merged": 12, "unmerged": 12}
 # one long frame (the 448 crop's s = 785) and a narrow odd case
 BLOCKDIAG_SHAPES = [(8, 12, TS_FRAMES, s_, 64) for s_ in (197, 179, 125, 35, 18, 10)] + [
     (1, 12, 2, 785, 64), (2, 3, 4, 37, 16)]
+# K5a at every frame length of the TimeSformer path (layers 0-11), and
+# F = 7 at s = 10 and 18, which the packed tiles (6 and 3 frames) do not
+# divide
+TS_FRAME_LENS = tuple(c + 1 for c in TS_PATCH_COUNTS[:12])
+BLOCKDIAG_FWD_SHAPES = [(8, 12, TS_FRAMES, s_, 64) for s_ in TS_FRAME_LENS] + [
+    (8, 12, 7, 10, 64), (8, 12, 7, 18, 64)] + BLOCKDIAG_SHAPES[-2:]
 BLOCKDIAG_MODES = ((False, False), (True, False), (True, True))  # (biased, exclude_first_row)
-BLOCKDIAG_TIMED = ((197, False, False), (107, True, True))  # (s, biased, exclude_first_row)
+# (s, biased, exclude_first_row): layer 0, and merged layers 5, 9 and 11
+BLOCKDIAG_TIMED = ((197, False, False), (107, True, True), (35, True, True), (10, True, True))
 BLOCKDIAG_FP32_TOL = 1e-5  # of the largest entry
 # Unmerged / merged GFLOP per clip, 397.1 / 183.4, from XLA's cost analysis
 # (BENCH_FAMILIES.json): the ratio's device-independent ceiling.
@@ -956,9 +977,14 @@ def bound(flops: float, nbytes: float) -> dict:
 
 
 def in_turns(kernel, plain, library) -> dict:
-    """ms per call, taken in turns: plain, kernel, library, kernel, plain."""
+    """ms per call by CUDA events, taken in turns: plain, kernel, library,
+    kernel, plain; then the kernel's device time (``kernel_device_ms``: 20
+    calls queued behind a kernel that holds the stream, so the host's cost
+    of a call, which the events include, is hidden; at K5a's short frames
+    the events read the host's launch rate)."""
     p1, k1, lib, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(library), cuda_ms(kernel), cuda_ms(plain)
-    return dict(kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib)
+    return dict(kernel_ms=(k1 + k2) / 2, kernel_device_ms=device_ms(kernel, 20), plain_ms=(p1 + p2) / 2,
+                library_ms=lib)
 
 
 def timed_inputs(gen, n: int, biased: bool):
@@ -1028,7 +1054,8 @@ def phase_kernel(phase: str, smi: str, kernel, plain, library, shapes, timed, ou
     emit(phase, checks=rows, max_abs_err_vs_plain=worst_vs_plain, timing_bf16_B8_H12_d64=times,
          nvidia_smi=smi)
     first = times[str(timed[0][0])]
-    return dict(max_abs_err=worst_vs_plain, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
+    return dict(max_abs_err=worst_vs_plain, ms=first["kernel_ms"], device_ms=first["kernel_device_ms"],
+                plain_ms=first["plain_ms"],
                 bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
 
 
@@ -1052,12 +1079,28 @@ def check_lse(shapes):
     return worst
 
 
+def crossover(gen) -> dict:
+    """K1 against attention_core's plain branch (``_reference``) at
+    CROSSOVER_N, unbiased and biased, in turns: plain, kernel, kernel,
+    plain."""
+    out = {}
+    for n in CROSSOVER_N:
+        for biased in (False, True):
+            q, k, v, bias = timed_inputs(gen, n, biased)
+            with torch.inference_mode():
+                kernel_call = lambda: tome_flash_attention(q, k, v, bias, 0.125)
+                plain_call = lambda: _reference(q, k, v, bias, 0.125)
+                p1, k1, k2, p2 = (cuda_ms(f) for f in (plain_call, kernel_call, kernel_call, plain_call))
+            out[f"{n}{'_biased' if biased else ''}"] = dict(kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+    return out
+
+
 def phase_dense_kernel(smi: str) -> dict:
     """K1 against its plain version, its lse residual, and its time with and
     without the lse write (serving writes none, a train step's forward
     does), taken in turns: without, with, with, without."""
     rows, worst_vs_plain = check_against_plain(tome_flash_attention, _reference, KERNEL_SHAPES)
-    lse_err = check_lse(KERNEL_SHAPES[2:])
+    lse_err = check_lse(KERNEL_SHAPES)
     times = time_against_plain(tome_flash_attention, _reference, dense_sdpa, TIMED, out_factor=1)
     gen = torch.Generator(device="cuda").manual_seed(12)
     for n, biased in TIMED:
@@ -1068,9 +1111,11 @@ def phase_dense_kernel(smi: str) -> dict:
             w1, l1, l2, w2 = cuda_ms(plain_call), cuda_ms(lse_call), cuda_ms(lse_call), cuda_ms(plain_call)
         times[str(n)].update(without_lse_ms=(w1 + w2) / 2, with_lse_ms=(l1 + l2) / 2)
     emit("kernel", checks=rows, max_abs_err_vs_plain=worst_vs_plain, lse_rel_err=lse_err,
-         timing_bf16_B8_H12_d64=times, nvidia_smi=smi)
+         timing_bf16_B8_H12_d64=times, crossover_bf16_B8_H12_d64=crossover(gen),
+         resources=kernel_build.kernel_resources("flash_attention_fwd.cu"), nvidia_smi=smi)
     first = times[str(TIMED[0][0])]
-    return dict(max_abs_err=worst_vs_plain, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
+    return dict(max_abs_err=worst_vs_plain, ms=first["kernel_ms"], device_ms=first["kernel_device_ms"],
+                plain_ms=first["plain_ms"],
                 bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
 
 
@@ -1135,7 +1180,8 @@ def check_backward_against_plain(name, backward, plain, shapes, make_do, seed: i
 def emit_backward(phase: str, smi: str, rows, worst_abs: float, times: dict, first: str = "1568") -> dict:
     emit(phase, checks=rows, max_abs_err_vs_plain=worst_abs, timing_bf16_B8_H12_d64=times, nvidia_smi=smi)
     first = times[first]
-    return dict(max_abs_err=worst_abs, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
+    return dict(max_abs_err=worst_abs, ms=first["kernel_ms"], device_ms=first["kernel_device_ms"],
+                plain_ms=first["plain_ms"],
                 bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
 
 
@@ -1263,7 +1309,7 @@ def phase_blockdiag_kernel(smi: str) -> dict:
     biased, and biased with the row mask; strided views of a fused buffer."""
     gen = torch.Generator(device="cuda").manual_seed(10)
     rows, worst = [], 0.0
-    for b, h, f, s_, d in BLOCKDIAG_SHAPES:
+    for b, h, f, s_, d in BLOCKDIAG_FWD_SHAPES:
         scale = d ** -0.5
         for biased, masked in BLOCKDIAG_MODES:
             bias = blockdiag_bias(gen, b, f, s_) if biased else None
@@ -1305,9 +1351,10 @@ def phase_blockdiag_kernel(smi: str) -> dict:
         times[str(s_)] = dict(biased=biased, exclude_first_row=masked, **t,
                               kernel_tflops=bnd.pop("flops") / t["kernel_ms"] / 1e9, **bnd)
     emit("blockdiag_kernel", checks=rows, max_abs_err_vs_plain=worst, timing_bf16_B8_H12_d64_F8=times,
-         nvidia_smi=smi)
+         resources=kernel_build.kernel_resources("blockdiag_attention_fwd.cu"), nvidia_smi=smi)
     first = times[str(BLOCKDIAG_TIMED[0][0])]
-    return dict(max_abs_err=worst, ms=first["kernel_ms"], plain_ms=first["plain_ms"],
+    return dict(max_abs_err=worst, ms=first["kernel_ms"], device_ms=first["kernel_device_ms"],
+                plain_ms=first["plain_ms"],
                 bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
 
 
@@ -1905,8 +1952,8 @@ def phase_ab_kernels(smi: str) -> dict:
             by_id[tid] = dict(
                 mode=mode, function=row["function"],
                 max_abs_err=max(row["max_abs_err_vs_plain"], fp32["max_abs_err_vs_plain"]),
-                ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=row["library_ms"])
+                ms=row["ms"], device_ms=None, plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"])
     check(set(by_id) == set(AB_KERNELS), f"ab_kernels: ids checked {sorted(by_id)}")
     emit("ab_kernels", cases=full, fp32_shape=dataclasses.asdict(ab_dense.SMALL_SIZES),
          bf16_shape=dataclasses.asdict(ab_dense.Sizes()), nvidia_smi=smi)
@@ -1947,7 +1994,7 @@ def phase_ab_dense() -> dict:
 
 def kernel_row(name: str, source: str, replaces: str, launches: int, r: dict) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
 
 

@@ -174,3 +174,105 @@ def test_kernel_argument_check_raises(change, match):
     bias = torch.zeros(change.get("bias_shape", (2, 8)))
     with pytest.raises(ValueError, match=match):
         check_blockdiag_kernel_args(q, k, v, bias, change.get("frames", 4))
+
+
+# ---- K5a's launch plan (ops/flash_attention.py::blockdiag_plan) ------------
+
+# TimeSformer's frame lengths at r=18 (patches + the broadcast CLS), and the
+# edges of the packed form
+TS_FRAME_LENS = (197, 179, 161, 143, 125, 107, 89, 71, 53, 35, 18, 10)
+PLAN_LENS = TS_FRAME_LENS + (33, 64, 32, 1)
+
+
+def _plan_blocks(frames, s, hopper):
+    """Each block of the plan as (first row, rows, first key, keys) within
+    one clip's [F*s] tokens, and the frames it packs (g)."""
+    g, tiles, blocks = fa.blockdiag_plan(frames, s, hopper)
+    out = []
+    for x in range(blocks):
+        if g > 1:
+            f0 = x * g
+            rows = min(g, frames - f0) * s
+            out.append((f0 * s, rows, f0 * s, rows))
+        else:
+            f, t = divmod(x, tiles)
+            r0 = f * s + t * 64
+            out.append((r0, min(64, (f + 1) * s - r0), f * s, s))
+    return g, out
+
+
+@pytest.mark.parametrize("hopper", [True, False], ids=["hopper_body", "first_body"])
+@pytest.mark.parametrize("frames", [8, 7, 1])
+@pytest.mark.parametrize("s", PLAN_LENS)
+def test_plan_covers_every_row_once_with_whole_frames(s, frames, hopper):
+    g, blocks = _plan_blocks(frames, s, hopper)
+    assert g == (64 // s if hopper and s <= 32 else 1)
+    seen = np.zeros(frames * s, dtype=int)
+    for r0, rows, k0, keys in blocks:
+        assert 1 <= rows <= 64
+        seen[r0:r0 + rows] += 1
+        if g > 1:  # whole frames, keys of the same frames, one key tile
+            assert r0 % s == 0 and rows % s == 0 and (r0, rows) == (k0, keys) and keys <= 64
+        else:  # a tile of one frame's rows walks that frame's keys
+            assert k0 == (r0 // s) * s and r0 + rows <= k0 + s and keys == s
+    np.testing.assert_array_equal(seen, 1)
+
+
+@pytest.mark.parametrize("s,frames", [(10, 8), (10, 7), (18, 7), (197, 8), (1, 1)])
+def test_plan_grid_is_the_grid_the_argument_check_holds(s, frames, monkeypatch):
+    """check_blockdiag_kernel_args bounds the larger of K5a's planned grid
+    and K5b's (one block a frame's 64-row tile): exactly at that size the
+    check passes the grid and goes on to the device check; one block less
+    of room raises."""
+    q = torch.zeros((1, 1, frames * s, 64), dtype=torch.bfloat16)
+    need = max(fa.blockdiag_plan(frames, s, True)[2], frames * -(-s // 64))
+    assert fa.blockdiag_plan(frames, s, True)[2] <= need
+    monkeypatch.setattr(fa, "_MAX_GRID_X", need)
+    with pytest.raises(ValueError, match="CUDA"):
+        check_blockdiag_kernel_args(q, q, q, None, frames)
+    monkeypatch.setattr(fa, "_MAX_GRID_X", need - 1)
+    with pytest.raises(ValueError, match="grid"):
+        check_blockdiag_kernel_args(q, q, q, None, frames)
+
+
+def test_hopper_body_is_bf16_at_head_dim_64():
+    assert fa.hopper_body(torch.zeros((1, 1, 4, 64), dtype=torch.bfloat16))
+    assert not fa.hopper_body(torch.zeros((1, 1, 4, 64)))
+    assert not fa.hopper_body(torch.zeros((1, 1, 4, 32), dtype=torch.bfloat16))
+
+
+def _packed_window_emulation(q, k, v, bias, scale, frames, excl):
+    """The Hopper body's arithmetic block by block of the plan, in fp32:
+    one masked dense attention per block over its rows and keys, the pair
+    mask frame(row) == frame(key) and the bias off row 0 of every packed
+    frame under ``excl``. Returns token-major [B, N, H*d]."""
+    b, h, n, d = q.shape
+    s = n // frames
+    out = torch.full_like(q, float("nan"))
+    for r0, rows, k0, keys in _plan_blocks(frames, s, True)[1]:
+        r = torch.arange(r0, r0 + rows)
+        j = torch.arange(k0, k0 + keys)
+        logits = (q[:, :, r] * scale) @ k[:, :, j].transpose(-2, -1)
+        if bias is not None:
+            row_gets_bias = ~(excl & (r % s == 0))
+            logits = logits + row_gets_bias[:, None].float() * bias[:, None, None, j]
+        logits = logits.masked_fill((r[:, None] // s) != (j[None, :] // s), float("-inf"))
+        out[:, :, r] = torch.softmax(logits, dim=-1) @ v[:, :, j]
+    return out.permute(0, 2, 1, 3).reshape(b, n, h * d)
+
+
+@pytest.mark.parametrize("mode", [(False, False), (True, False), (True, True)],
+                         ids=["unbiased", "biased", "biased_row_mask"])
+@pytest.mark.parametrize("frames", [8, 7])
+@pytest.mark.parametrize("s", [10, 18, 35])
+def test_packed_window_emulation_matches_vtm(s, frames, mode):
+    """The packed plan computes vtm's block-diagonal attention: its
+    emulation against ``vtm``'s kernel in interpret mode, fp32."""
+    with_bias, excl = mode
+    q, k, v, bias = _inputs(frames, s, 2, with_bias, seed=9, b=2, d=16)
+    if bias is not None:
+        bias.reshape(2, frames, s)[:, :, 0] = 0.0  # the CLS token's size is 1
+    want = np.asarray(j_blockdiag(*_jax(q, k, v, bias), 0.25, frames, excl))
+    got = _packed_window_emulation(*_torch(q, k, v, bias), 0.25, frames, excl)
+    assert not torch.isnan(got).any()
+    _close(got.numpy(), want)

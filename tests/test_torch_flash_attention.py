@@ -63,6 +63,62 @@ def test_plain_lse_is_the_logsumexp_of_the_logits(n, with_bias):
     np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=1e-6 * max(1.0, np.abs(want).max()))
 
 
+def _tile_walk(q, k, v, bias, scale, tile=64):
+    """The Hopper body's arithmetic on the CPU in fp32: 64-key tiles, an
+    online softmax in log2 units (the bias added, and the keys past N
+    masked on the last, ragged, tile only, where the running max is taken),
+    o / l at the end, and each row's natural-log log-sum-exp from the log2
+    running max m and denominator l, (m + log2 l) ln 2: what K2 reads."""
+    n = q.shape[2]
+    qs = q * scale
+    m = torch.full(q.shape[:3], -1e30)
+    l = torch.zeros(q.shape[:3])
+    o = torch.zeros_like(q)
+    log2e = 1.4426950408889634
+    for c0 in range(0, n, tile):
+        keys = torch.arange(c0, c0 + tile)
+        valid = keys < n
+        kt, vt = (t[:, :, keys.clamp(max=n - 1)] * valid[:, None] for t in (k, v))
+        x = qs @ kt.transpose(-2, -1)
+        if bias is not None:
+            x = x + (bias[:, keys.clamp(max=n - 1)] * valid)[:, None, None, :]
+        x = x * log2e
+        if c0 + tile > n:
+            x = x.masked_fill(~valid, -1e30)
+        m_new = torch.maximum(m, x.max(dim=-1).values)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[..., None] + p @ vt
+        m = m_new
+    return o / l[..., None], (m + torch.log2(l)) * 0.6931471805599453
+
+
+@pytest.mark.parametrize("n", [37, 64, 300])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_tile_walk_matches_jax_kernel_and_lse(n, with_bias):
+    """The tile loop's arithmetic agrees with vtm's kernel (interpret
+    mode), and its log2-domain statistics, converted once, are the
+    natural-log log-sum-exp of the plain version. This holds the design's
+    arithmetic, emulated here by ``_tile_walk``, not the CUDA kernel: a
+    fault in ``wgmma_attention.cuh`` shows only on the card (chip_smoke's
+    ``kernel`` phase, ``check_lse``, and K2 given K1's residuals)."""
+    q, k, v, bias = _inputs(n, with_bias, seed=5)
+    want = np.asarray(
+        jax_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            None if bias is None else jnp.asarray(bias), 0.125,
+        )
+    )
+    args = [torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            None if bias is None else torch.from_numpy(bias)]
+    out, lse = _tile_walk(*args, 0.125)
+    np.testing.assert_allclose(out.numpy(), want, rtol=2e-5, atol=2e-5)
+    _, plain_lse = flash_attention._forward(*args, 0.125, want_lse=True)
+    tol = 1e-5 * max(1.0, plain_lse.abs().max().item())
+    np.testing.assert_allclose(lse.numpy(), plain_lse.numpy(), rtol=0, atol=tol)
+
+
 def test_cpu_call_launches_no_kernel():
     q, k, v, bias = (torch.from_numpy(a) for a in _inputs(64, True))
     before = flash_attention.LAUNCHES
@@ -98,6 +154,8 @@ def test_build_command_targets_hopper():
         "blockdiag_attention_bwd.cu", "blockdiag_attention_fwd.cu",
         "flash_attention_bwd.cu", "flash_attention_fwd.cu", "frame_attention_bwd.cu", "frame_attention_fwd.cu",
     ]
+    assert {h.name for h in build.CSRC.glob("*.cuh")} == {
+        "attention_tiles.cuh", "wgmma_attention.cuh", "wgmma_tiles.cuh"}
     objs = [build.BUILD_DIR / f"{s.stem}.o" for s in srcs]
     for src, obj in zip(srcs, objs):
         cmd = build.compile_command(src, obj)

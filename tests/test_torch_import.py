@@ -90,13 +90,15 @@ def test_chip_smoke_without_cuda_fails():
 
 
 # the A/B entry point takes an experiment, not a config
-ENTRY_POINT_ARGS = {"vtm_torch.tools.ab_dense": ("--exp", "decomp"), "vtm_torch.tools.check_ab": ()}
+ENTRY_POINT_ARGS = {"vtm_torch.tools.ab_dense": ("--exp", "decomp"), "vtm_torch.tools.check_ab": (),
+                    "vtm_torch.tools.check_attention": (), "vtm_torch.tools.kernel_times": ()}
 
 
 @pytest.mark.parametrize("module", ["vtm_torch.tools.train_net", "vtm_torch.tools.model_benchmark",
                                     "vtm_torch.tools.trace_train", "vtm_torch.tools.check_frame_bwd",
                                     "vtm_torch.tools.check_blockdiag", "vtm_torch.tools.check_ab",
-                                    "vtm_torch.tools.ab_dense"])
+                                    "vtm_torch.tools.ab_dense", "vtm_torch.tools.check_attention",
+                                    "vtm_torch.tools.kernel_times"])
 def test_entry_points_refuse_to_run_without_cuda(module):
     """No CUDA device and no request for the CPU: the entry points raise
     instead of carrying on on the CPU."""
@@ -169,14 +171,15 @@ def test_every_kernel_source_is_built_and_bound():
 
 def test_blockdiag_sources_hold_kernels_of_their_own():
     """K5a and K5b are __global__ functions of their own that take the
-    frame count and the row mask; neither their sources nor their wrappers
-    call a library's attention, a matrix-product routine or K1/K2's entry
-    points."""
+    frame count and the row mask (K5a: its first body and its Hopper body);
+    neither their sources nor their wrappers call a library's attention, a
+    matrix-product routine or K1/K2's entry points."""
     import inspect
 
     from vtm_torch.ops import flash_attention as fa
 
-    for name, kernels in (("blockdiag_attention_fwd.cu", ["blockdiag_attention_fwd_kernel"]),
+    for name, kernels in (("blockdiag_attention_fwd.cu", ["blockdiag_attention_fwd_kernel",
+                                                          "blockdiag_attention_fwd_wgmma"]),
                           ("blockdiag_attention_bwd.cu", ["blockdiag_bwd_dq_kernel", "blockdiag_bwd_dkdv_kernel"])):
         text = (build.CSRC / name).read_text()
         assert text.count("__global__") == len(kernels)

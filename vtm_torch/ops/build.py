@@ -4,14 +4,15 @@ Every ``csrc/*.cu`` file is compiled for Hopper into an object, all of
 them at once (one nvcc process per source), and the objects are linked
 into one shared library with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -Xptxas -v -c
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
 
 The library lands in ``build/vtm_torch_kernels/`` at the root of the
 checkout, named by a hash of the sources (``*.cu`` and the ``*.cuh``
 headers they include) and the commands, so a changed source rebuilds and
-an unchanged one is reused. It is built at first use. Nothing here runs
-at import time.
+an unchanged one is reused; beside it, ptxas's report of every kernel's
+registers and spills (``kernel_resources``). It is built at first use.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -19,8 +20,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,7 +33,7 @@ from typing import List, Sequence
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "vtm_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
@@ -63,9 +66,14 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libvtm_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: Sequence[List[str]]) -> None:
+def report_path() -> pathlib.Path:
+    """ptxas's report of the library's build: {source name: its output}."""
+    return library_path().with_suffix(".ptxas.json")
+
+
+def _run_all(cmds: Sequence[List[str]]) -> List[str]:
     """Start every command at once, wait for all; raise RuntimeError on
-    the first that fails."""
+    the first that fails. Returns each command's stderr."""
     try:
         procs = [
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -73,13 +81,15 @@ def _run_all(cmds: Sequence[List[str]]) -> None:
         ]
     except FileNotFoundError as e:
         raise RuntimeError(f"nvcc not found ({cmds[0][0]}): the CUDA kernels cannot be built") from e
-    failed = []
+    failed, errs = [], []
     for cmd, proc in zip(cmds, procs):
         out, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return errs
 
 
 def build() -> float:
@@ -94,11 +104,49 @@ def build() -> float:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
         objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in sources()]
-        _run_all([compile_command(src, obj) for src, obj in zip(sources(), objs)])
+        reports = _run_all([compile_command(src, obj) for src, obj in zip(sources(), objs)])
         lib = pathlib.Path(tmp) / path.name
         _run_all([link_command(objs, lib)])
+        report = pathlib.Path(tmp) / report_path().name
+        report.write_text(json.dumps({src.name: r for src, r in zip(sources(), reports)}))
+        os.replace(report, report_path())
         os.replace(lib, path)
     return time.perf_counter() - t0
+
+
+def parse_ptxas(text: str) -> list:
+    """[{kernel, dtype, head_dim, template_args, registers, spill_store_bytes,
+    spill_load_bytes}] from ptxas's -v output for one source.
+    ``template_args`` holds every integer or bool argument of the instance;
+    ``head_dim`` is the first of a first body's (K1-K5's only one). The
+    Hopper bodies (``*_wgmma``) are bf16 at head dim 64; their template
+    arguments are the compile-time switches (biased; packed)."""
+    rows, entry = [], None
+    for line in text.splitlines():
+        m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:L[ib]\d+E)+)", line)
+        wgmma = re.search(r"([a-z_]+_wgmma)((?:I(?:L[ib]\d+E)+E)?)", line)
+        if m and "Compiling entry function" in line:
+            args = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
+            entry = dict(kernel=m.group(1), dtype="fp32" if m.group(2) == "f" else "bf16", head_dim=args[0],
+                         template_args=args)
+        elif wgmma and "Compiling entry function" in line:
+            entry = dict(kernel=wgmma.group(1), dtype="bf16", head_dim=64,
+                         template_args=[int(x) for x in re.findall(r"L[ib](\d+)E", wgmma.group(2))])
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and entry:
+            entry.update(spill_store_bytes=int(spills.group(1)), spill_load_bytes=int(spills.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and entry:
+            rows.append(dict(entry, registers=int(regs.group(1))))
+            entry = None
+    return rows
+
+
+def kernel_resources(source: str) -> list:
+    """``parse_ptxas`` of one source of ``csrc/`` as the library was built
+    (building it if needed)."""
+    build()
+    return parse_ptxas(json.loads(report_path().read_text())[source])
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,6 +199,7 @@ def load_library() -> ctypes.CDLL:
         i, i,           # dtype, head_dim
         p, p, p, p, p,  # q, k, v, key_bias, out
         i, i, i, i, i,  # batch, num_heads, n, frames, exclude_first_row
+        i, i, i,        # the launch plan: frames per block, tiles per frame, blocks
         ctypes.c_float,  # scale
         p,              # strides (12 x int64, host memory)
         p,              # cudaStream_t

@@ -233,7 +233,7 @@ __device__ __forceinline__ float logit(float qk, float scale, const float* bias,
 
 // The dynamic shared-memory limit of `kernel`, raised to `bytes` once per
 // device: `done` is the caller's static flag array, one per kernel
-// instantiation (launchers of K1, K2 and K3).
+// instantiation (every launcher of K1-K5b).
 constexpr int kMaxDevices = 64;
 
 template <typename K>

@@ -335,11 +335,10 @@ cudaError_t launch(const Args<T>& args, cudaStream_t stream) {
   using L = Layout<T, D>;
   auto dq_kernel = blockdiag_bwd_dq_kernel<T, D>;
   auto dkdv_kernel = blockdiag_bwd_dkdv_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L::bytes));
+  static bool dq_done[vtm::kMaxDevices] = {}, dkdv_done[vtm::kMaxDevices] = {};
+  cudaError_t err = vtm::allow_smem_once(dq_kernel, static_cast<int>(L::bytes), dq_done);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(L::bytes));
+  err = vtm::allow_smem_once(dkdv_kernel, static_cast<int>(L::bytes), dkdv_done);
   if (err != cudaSuccess) return err;
   const dim3 grid(args.frames * args.tiles_per_frame, args.batch * args.num_heads);
   dq_kernel<<<grid, kThreads, L::bytes, stream>>>(args);

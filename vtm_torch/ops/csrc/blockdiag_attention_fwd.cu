@@ -21,31 +21,49 @@
 // probabilities in the input dtype. This kernel keeps a [64 x 64] tile of
 // them in shared memory.
 //
-// Design (first version: simple and right, not fast):
-//   * one thread block of 4 warps per (b*h, frame, 64-row q tile of the
-//     frame); each warp owns 16 query rows. A loop walks the frame's keys
-//     in 64-key tiles staged in shared memory with 16-byte loads. A tile
-//     never runs over into the next frame: rows at or past the frame's end
-//     are zero-filled, their logits are -1e30, and query rows past the end
-//     are never stored. Nothing is padded in device memory: s = 197, 179,
-//     ..., 10 go in as they are, and a frame's first row is 16-byte aligned
-//     because every row of the fused qkv buffer is.
-//   * the 16-wide key groups past the frame's end are skipped in both
-//     products; the logits they would have written are never read (the
-//     softmax masks by key index) and their probabilities are written as 0.
-//   * bf16: q k^T and p v run on the tensor cores (nvcuda::wmma bf16
-//     16x16x16, fp32 accumulation). fp32: the same loop with fp32 FMAs on
-//     the CUDA cores, so fp32 results stay within fp32 rounding of the
-//     plain version.
-//   * rounding points: q * scale is rounded to the input dtype before
-//     q k^T (as the plain version does); the softmax is online, in fp32,
-//     from m = -1e30; p = exp(s - m) is cast to the input dtype before p v
-//     and the fp32 accumulator is divided by the denominator afterwards,
-//     as the TPU kernel does. The plain version normalises p in fp32
-//     before the cast: in bf16 the two differ by bf16 rounding of p, which
-//     the checks hold to the plain bf16 version's own error.
-// wgmma, TMA, several frames or heads per block at small s, and warp
-// specialisation are left for later versions.
+// Two bodies. Both go through a launch plan the wrapper computes
+// (ops/flash_attention.py::blockdiag_plan) and passes as ints: frames per
+// block, 64-row query tiles per frame, blocks per (b, h).
+//   * bf16 at d = 64, the head dimension of every ViT-B path: the Hopper
+//     tile loop of wgmma_attention.cuh (shared with K1 and K3), one
+//     warpgroup a block. Frames of more than 32 tokens: frame-aligned
+//     64-row query tiles, each walking its frame's ceil(s/64) key tiles,
+//     the keys past the frame's end masked on the last one. Frames of at
+//     most 32 tokens: g = 64 / s whole frames packed into one 64-row
+//     tile, rows [f0 s, (f0 + g) s) of [B, H, F*s, d] (a clip's frames
+//     are contiguous), and one 64-key tile holding the same g frames'
+//     keys; each row's keys are its frame's window [f s, (f + 1) s),
+//     found once a thread (one division a row: a division a pair cost
+//     about 5 us a call at s = 10, PERF.md) and compared on the S
+//     accumulator in registers, and a clip's last block holds F mod g
+//     frames. At s = 10 a block works on 60 of its 64 rows where one
+//     frame a block would use 10. Under exclude_first_row the bias skips
+//     row 0 of every frame: in a packed tile, each row r with (r - f0 s)
+//     % s == 0. S, P and the accumulator stay in registers (wgmma), k/v
+//     stream through a cp.async ring, and the biased and unbiased cases
+//     are two instances chosen at compile time.
+//   * every other case (fp32, and bf16 at d = 16, 32, 128): the first
+//     version's body, one frame a block. One thread block of 4 warps per
+//     (b*h, frame, 64-row q tile of the frame); each warp owns 16 query
+//     rows. A loop walks the frame's keys in 64-key tiles staged in shared
+//     memory with 16-byte loads. A tile never runs over into the next
+//     frame: rows at or past the frame's end are zero-filled, their logits
+//     are -1e30, and query rows past the end are never stored; the 16-wide
+//     key groups past the frame's end are skipped in both products. bf16
+//     runs the products on nvcuda::wmma 16x16x16 with S, P and the
+//     accumulator in shared memory; fp32 runs them as FMAs on the CUDA
+//     cores, so fp32 results stay within fp32 rounding of the plain version.
+// Nothing is padded in device memory: s = 197, 179, ..., 10 go in as they
+// are, and a frame's first row is 16-byte aligned because every row of the
+// fused qkv buffer is. Rounding points: q * scale is rounded to the input
+// dtype before q k^T (as the plain version does); the softmax is online,
+// in fp32; p is cast to the input dtype before p v and the fp32 accumulator
+// is divided by the denominator afterwards, as the TPU kernel does. The
+// plain version normalises p in fp32 before the cast: in bf16 the two
+// differ by bf16 rounding of p, which the checks hold to the plain bf16
+// version's own error.
+// TMA, several heads per block and warp specialisation are left for later
+// versions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +74,7 @@
 #include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -251,45 +270,164 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ======================= Hopper body (bf16, d = 64) =======================
+
+namespace wg = vtm::wg;
+using bf16 = __nv_bfloat16;
+using WgSmem = wg::WalkSmem;
+
+// A tile of one frame's rows (frames of more than 32 tokens): every key of
+// the frame reaches every row; row 0 of the frame skips the bias under
+// exclude_first_row.
+struct FrameRows {
+  static constexpr bool kEveryTile = false;
+  bool first_row_unbiased;  // the tile starts its frame and its row 0 skips the bias
+  __device__ __forceinline__ int2 window(int) const { return make_int2(0, 0x7fffffff); }
+  __device__ __forceinline__ bool biased(int r) const { return !(first_row_unbiased && r == 0); }
+};
+
+// Whole frames of s_len tokens packed into one tile: row r (counted from the
+// tile's first frame) sees the keys of its own frame only, and row 0 of each
+// frame skips the bias under exclude_first_row.
+struct PackedFrames {
+  static constexpr bool kEveryTile = true;
+  int s_len;
+  bool exclude_first_row;
+  __device__ __forceinline__ int2 window(int r) const {
+    const int lo = r / s_len * s_len;
+    return make_int2(lo, lo + s_len);
+  }
+  __device__ __forceinline__ bool biased(int r) const { return !(exclude_first_row && r % s_len == 0); }
+};
+
+// Launch plan (from the wrapper): frames_per_block > 1 packs whole frames
+// into one tile, and then tiles_per_frame is 1; otherwise a block is tile
+// blockIdx.x % tiles_per_frame of frame blockIdx.x / tiles_per_frame.
+struct Plan {
+  int frames_per_block, tiles_per_frame, blocks;
+};
+
+template <bool kBias, bool kPacked>
+__global__ void __launch_bounds__(wg::kThreads)
+    blockdiag_attention_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                                  bf16* __restrict__ out, int num_heads, int frames, int s_len,
+                                  Plan plan, int exclude_first_row, float scale, Strides st) {
+  extern __shared__ unsigned char smem[];
+  const int bh = blockIdx.y;
+  const int b = bh / num_heads;
+  const int h = bh % num_heads;
+  int f0, q0, len;  // the block's first frame, first row within it, keys walked
+  if constexpr (kPacked) {
+    f0 = blockIdx.x * plan.frames_per_block;
+    q0 = 0;
+    len = min(plan.frames_per_block, frames - f0) * s_len;
+  } else {
+    f0 = blockIdx.x / plan.tiles_per_frame;
+    q0 = (blockIdx.x % plan.tiles_per_frame) * wg::kRows;
+    len = s_len;
+  }
+  const long long row0 = static_cast<long long>(f0) * s_len;  // the first frame's first row
+  wg::Walk w;
+  w.q = q + b * st.q[0] + h * st.q[1] + row0 * st.q[2];
+  w.k = k + b * st.k[0] + h * st.k[1] + row0 * st.k[2];
+  w.v = v + b * st.v[0] + h * st.v[1] + row0 * st.v[2];
+  w.q_stride = st.q[2];
+  w.k_stride = st.k[2];
+  w.v_stride = st.v[2];
+  w.bias = kBias ? key_bias + static_cast<long long>(b) * frames * s_len + row0 : nullptr;
+  w.out = out + b * st.o[0] + h * st.o[1] + row0 * st.o[2];
+  w.out_stride = st.o[2];
+  w.out_frame_stride = 0;
+  w.lse = nullptr;
+  w.row0 = q0;
+  w.rows = len;
+  w.frames = 1;
+  w.frame_len = len;
+  w.scale = scale;
+  if constexpr (kPacked) {
+    wg::attend<kBias>(w, PackedFrames{s_len, exclude_first_row != 0}, smem);
+  } else {
+    wg::attend<kBias>(w, FrameRows{exclude_first_row != 0 && q0 == 0}, smem);
+  }
+}
+
+template <bool kBias, bool kPacked>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* key_bias,
+                         void* out, int batch, int num_heads, int frames, int s_len,
+                         const Plan& plan, int exclude_first_row, float scale, const Strides& st,
+                         cudaStream_t stream) {
+  auto kernel = blockdiag_attention_fwd_wgmma<kBias, kPacked>;
+  static bool done[vtm::kMaxDevices] = {};
+  cudaError_t err = vtm::allow_smem_once(kernel, WgSmem::kLaunchBytes, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(plan.blocks, batch * num_heads), wg::kThreads, WgSmem::kLaunchBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(key_bias), static_cast<bf16*>(out), num_heads, frames, s_len, plan,
+      exclude_first_row, scale, st);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_bias, void* out,
-                   int batch, int num_heads, int frames, int s_len, int exclude_first_row,
-                   float scale, const Strides& st, cudaStream_t stream) {
-  using L = Layout<T, D>;
-  auto kernel = blockdiag_attention_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::bytes));
-  if (err != cudaSuccess) return err;
-  const int tiles_per_frame = (s_len + kBlockQ - 1) / kBlockQ;
-  const dim3 grid(frames * tiles_per_frame, batch * num_heads);
-  kernel<<<grid, kThreads, L::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(key_bias), static_cast<T*>(out), num_heads, frames, s_len,
-      tiles_per_frame, exclude_first_row, scale, st);
-  return cudaGetLastError();
+                   int batch, int num_heads, int frames, int s_len, const Plan& plan,
+                   int exclude_first_row, float scale, const Strides& st, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value && D == 64) {
+    const bool packed = plan.frames_per_block > 1;
+    if (key_bias)
+      return packed ? launch_wgmma<true, true>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+                                               plan, exclude_first_row, scale, st, stream)
+                    : launch_wgmma<true, false>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+                                                plan, exclude_first_row, scale, st, stream);
+    return packed ? launch_wgmma<false, true>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+                                              plan, exclude_first_row, scale, st, stream)
+                  : launch_wgmma<false, false>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+                                               plan, exclude_first_row, scale, st, stream);
+  } else {
+    if (plan.frames_per_block != 1) return cudaErrorInvalidValue;  // the first body packs nothing
+    using L = Layout<T, D>;
+    auto kernel = blockdiag_attention_fwd_kernel<T, D>;
+    static bool done[vtm::kMaxDevices] = {};
+    cudaError_t err = vtm::allow_smem_once(kernel, static_cast<int>(L::bytes), done);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(plan.blocks, batch * num_heads), kThreads, L::bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(key_bias), static_cast<T*>(out), num_heads, frames, s_len,
+        plan.tiles_per_frame, exclude_first_row, scale, st);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k, const void* v,
                               const void* key_bias, void* out, int batch, int num_heads,
-                              int frames, int s_len, int exclude_first_row, float scale,
-                              const Strides& st, cudaStream_t stream) {
+                              int frames, int s_len, const Plan& plan, int exclude_first_row,
+                              float scale, const Strides& st, cudaStream_t stream) {
   switch (head_dim) {
     case 16:
-      return launch<T, 16>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+      return launch<T, 16>(q, k, v, key_bias, out, batch, num_heads, frames, s_len, plan,
                            exclude_first_row, scale, st, stream);
     case 32:
-      return launch<T, 32>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+      return launch<T, 32>(q, k, v, key_bias, out, batch, num_heads, frames, s_len, plan,
                            exclude_first_row, scale, st, stream);
     case 64:
-      return launch<T, 64>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+      return launch<T, 64>(q, k, v, key_bias, out, batch, num_heads, frames, s_len, plan,
                            exclude_first_row, scale, st, stream);
     case 128:
-      return launch<T, 128>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+      return launch<T, 128>(q, k, v, key_bias, out, batch, num_heads, frames, s_len, plan,
                             exclude_first_row, scale, st, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The plan covers every frame's every row exactly once.
+bool plan_ok(const Plan& p, int frames, int s_len) {
+  const int g = p.frames_per_block;
+  if (g > 1)
+    return g * s_len <= wg::kRows && p.tiles_per_frame == 1 && p.blocks == (frames + g - 1) / g;
+  return g == 1 && p.tiles_per_frame == (s_len + kBlockQ - 1) / kBlockQ &&
+         static_cast<long long>(p.blocks) == static_cast<long long>(frames) * p.tiles_per_frame;
 }
 
 }  // namespace
@@ -299,24 +437,31 @@ cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k, const 
 //   key_bias: fp32 [batch, n] contiguous, or null for the unbiased form
 //   n = frames * s tokens, frame-major; exclude_first_row: 1 keeps the bias
 //   off row 0 of every frame
+//   frames_per_block, tiles_per_frame, blocks: the launch plan
+//   (ops/flash_attention.py::blockdiag_plan); frames_per_block > 1 only for
+//   the bf16 d = 64 body
 //   strides: 12 element strides, (batch, head, row) of q, k, v, out
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int vtm_blockdiag_attention_fwd(int dtype, int head_dim, const void* q, const void* k,
                                            const void* v, const void* key_bias, void* out,
                                            int batch, int num_heads, int n, int frames,
-                                           int exclude_first_row, float scale,
+                                           int exclude_first_row, int frames_per_block,
+                                           int tiles_per_frame, int blocks, float scale,
                                            const long long* strides, void* stream) {
   if (frames < 1 || n < 1 || n % frames != 0) return cudaErrorInvalidValue;
+  const Plan plan{frames_per_block, tiles_per_frame, blocks};
+  if (!plan_ok(plan, frames, n / frames)) return cudaErrorInvalidValue;
   Strides st;
   std::memcpy(&st, strides, sizeof(st));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, key_bias, out, batch, num_heads,
-                                              frames, n / frames, exclude_first_row, scale, st, s);
+                                              frames, n / frames, plan, exclude_first_row, scale,
+                                              st, s);
     case 1:
       return dispatch_head_dim<float>(head_dim, q, k, v, key_bias, out, batch, num_heads, frames,
-                                      n / frames, exclude_first_row, scale, st, s);
+                                      n / frames, plan, exclude_first_row, scale, st, s);
     default:
       return cudaErrorInvalidValue;
   }

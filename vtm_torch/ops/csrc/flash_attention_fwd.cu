@@ -13,27 +13,37 @@
 // Why the plain PyTorch version (ops/flash_attention.py::_reference) loses:
 // it writes and reads back a [B, H, N, N] fp32 logits tensor, about
 // 944 MB per call at that shape, plus the softmax and bf16 probability
-// tensors. This kernel keeps logits and probabilities on chip: one
-// [64 x 64] tile at a time in shared memory.
+// tensors. This kernel keeps logits and probabilities on chip.
 //
-// Design (first version: simple and right, not fast):
-//   * one thread block of 4 warps per (b*h, 64-row q tile); each warp owns
-//     16 query rows. A loop walks 64-key tiles of K and V, staged in
-//     shared memory with 16-byte loads; rows past N are zero-filled.
-//   * bf16: q k^T and p v run on the tensor cores (nvcuda::wmma bf16
-//     16x16x16, fp32 accumulation). fp32: the same loop with fp32 FMAs on
-//     the CUDA cores, so fp32 results stay within fp32 rounding of the
-//     plain version (TF32 tensor cores would keep only ~3 digits).
-//   * online softmax in fp32 from m = -1e30, as the TPU kernel does; keys
-//     past N (the ragged last tile) get the logit -1e30 and weigh 0.
-//   * q * scale is rounded to the input dtype before q k^T; p is cast to
-//     the input dtype before p v; the fp32 accumulator (kept in shared
-//     memory) is divided by l after p v and stored in the input dtype.
-//   * when a gradient is wanted the caller passes `lse`, fp32 [B, H, N]:
-//     each row's m + log l, the residual K2 (flash_attention_bwd.cu)
-//     normalises its recomputed p with; serving passes null and nothing
-//     more is written.
-// wgmma, TMA and warp specialisation are left for later versions.
+// Two bodies:
+//   * bf16 at d = 64, the head dimension of every ViT-B path: the Hopper
+//     tile loop of wgmma_attention.cuh (shared with K3 and K5a) with one
+//     frame of N keys: one warpgroup (128 threads) a block of 64 query rows,
+//     64-key tiles of k and v through a two-stage cp.async ring, products
+//     on wgmma with S and the accumulator in registers, p as the register A
+//     operand of p v, the keys past N masked on the last tile only, the
+//     biased and unbiased cases two instances chosen at compile time, and
+//     the output through a swizzled bf16 stage with 16-byte stores. Several
+//     blocks an SM (49 KB of shared memory, 128 registers a thread) overlap
+//     one block's exp pass with another's products. A block of two
+//     warpgroups sharing the ring (128 rows, half the L2 traffic a row) ran
+//     in lockstep, its barrier each tile keeping both exp passes together,
+//     and was no faster (PERF.md §6): it is not kept.
+//   * every other case (fp32, and bf16 at d = 16, 32, 128): the first
+//     version's body. One block of 4 warps per (b*h, 64-row q tile), each
+//     warp 16 rows; 64-key tiles of k and v staged in shared memory with
+//     16-byte loads, rows past N zero-filled; bf16 on nvcuda::wmma
+//     16x16x16 with S, P and the accumulator in shared memory, fp32 on the
+//     CUDA cores (TF32 would keep only ~3 digits); online softmax in fp32
+//     from m = -1e30, keys past N at -1e30; p cast to the input dtype before
+//     p v, the accumulator divided by l at the end.
+// Both round q * scale to the input dtype before q k^T, as the plain
+// version does. When a gradient is wanted the caller passes `lse`, fp32
+// [B, H, N]: each row's natural-log log-sum-exp, the residual K2
+// (flash_attention_bwd.cu) normalises its recomputed p with; serving
+// passes null and nothing more is written.
+// TMA, warp specialisation and a persistent grid are left for later
+// versions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +54,7 @@
 #include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -228,21 +239,78 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ======================= Hopper body (bf16, d = 64) =======================
+
+namespace wg = vtm::wg;
+using bf16 = __nv_bfloat16;
+using WgSmem = wg::WalkSmem;
+
+template <bool kBias>
+__global__ void __launch_bounds__(wg::kThreads)
+    attention_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                        bf16* __restrict__ out, float* __restrict__ lse, int num_heads, int n,
+                        float scale, Strides st) {
+  extern __shared__ unsigned char smem[];
+  const int bh = blockIdx.y;
+  const int b = bh / num_heads;
+  const int h = bh % num_heads;
+  wg::Walk w;
+  w.q = q + b * st.q[0] + h * st.q[1];
+  w.k = k + b * st.k[0] + h * st.k[1];
+  w.v = v + b * st.v[0] + h * st.v[1];
+  w.q_stride = st.q[2];
+  w.k_stride = st.k[2];
+  w.v_stride = st.v[2];
+  w.bias = kBias ? key_bias + static_cast<long long>(b) * n : nullptr;
+  w.out = out + b * st.o[0] + h * st.o[1];
+  w.out_stride = st.o[2];
+  w.out_frame_stride = 0;
+  w.lse = lse ? lse + static_cast<long long>(bh) * n : nullptr;
+  w.row0 = blockIdx.x * wg::kRows;
+  w.rows = n;
+  w.frames = 1;
+  w.frame_len = n;
+  w.scale = scale;
+  wg::attend<kBias>(w, wg::AllPairs(), smem);
+}
+
+template <bool kBias>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* key_bias,
+                         void* out, void* lse, int batch, int num_heads, int n, float scale,
+                         const Strides& st, cudaStream_t stream) {
+  auto kernel = attention_fwd_wgmma<kBias>;
+  static bool done[vtm::kMaxDevices] = {};
+  cudaError_t err = vtm::allow_smem_once(kernel, WgSmem::kLaunchBytes, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + wg::kRows - 1) / wg::kRows, batch * num_heads);
+  kernel<<<grid, wg::kThreads, WgSmem::kLaunchBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(key_bias), static_cast<bf16*>(out), static_cast<float*>(lse),
+      num_heads, n, scale, st);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_bias, void* out,
                    void* lse, int batch, int num_heads, int n, float scale, const Strides& st,
                    cudaStream_t stream) {
-  using L = Layout<T, D>;
-  auto kernel = attention_fwd_kernel<T, D>;
-  static bool done[vtm::kMaxDevices] = {};
-  cudaError_t err = vtm::allow_smem_once(kernel, static_cast<int>(L::bytes), done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, batch * num_heads);
-  kernel<<<grid, kThreads, L::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(key_bias), static_cast<T*>(out), static_cast<float*>(lse),
-      num_heads, n, scale, st);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value && D == 64) {
+    return key_bias ? launch_wgmma<true>(q, k, v, key_bias, out, lse, batch, num_heads, n, scale, st, stream)
+                    : launch_wgmma<false>(q, k, v, key_bias, out, lse, batch, num_heads, n, scale, st, stream);
+  } else {
+    using L = Layout<T, D>;
+    auto kernel = attention_fwd_kernel<T, D>;
+    static bool done[vtm::kMaxDevices] = {};
+    cudaError_t err = vtm::allow_smem_once(kernel, static_cast<int>(L::bytes), done);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((n + kBlockQ - 1) / kBlockQ, batch * num_heads);
+    kernel<<<grid, kThreads, L::bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(key_bias), static_cast<T*>(out), static_cast<float*>(lse),
+        num_heads, n, scale, st);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

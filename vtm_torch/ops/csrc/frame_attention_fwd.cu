@@ -25,24 +25,22 @@
 // to the input dtype) is staged once and reused for all F frames, as the
 // TPU kernel gives one program every frame's keys; rows past N are
 // zero-filled and not stored. Two bodies:
-//   * bf16 at d = 64, the head dimension of every ViT-B path: one
-//     warpgroup (128 threads) a block and an online softmax per frame. The
-//     frame's 64-key tiles of k and v stream through a two-stage ring
-//     filled by cp.async (the next tile, of this frame or the next, is in
-//     flight while the current one is used). S = q k^T is a wgmma
-//     m64n64k16 product with fp32 accumulators in registers; the key bias
-//     is added and keys past the frame's end get -1e30 where the running
-//     max is taken; p = exp2 in the log2 domain, rounded to bf16 in
-//     registers, is the A operand of out_f += p v (wgmma, v read
-//     transposed from shared memory). The running max and denominator are
-//     reset at each frame boundary; at the frame's end the accumulator is
-//     divided by the denominator and leaves through a swizzled bf16 stage
-//     with 16-byte stores at row stride F*H*d, while the next frame's
-//     first tile is already loading. No [64 x s] buffer is left, so shared
-//     memory no longer depends on the frame length. Rounding: this form
-//     rounds the unnormalised p (each <= 1 against the running max) and
-//     divides at the end; the TPU kernel rounds the normalised p. Both sit
-//     within bf16's rounding of the fp32 result.
+//   * bf16 at d = 64, the head dimension of every ViT-B path: the Hopper
+//     tile loop of wgmma_attention.cuh (shared with K1 and K5a), one
+//     warpgroup (128 threads) a block walking the F frames in turn with an
+//     online softmax per frame. Each frame's 64-key tiles of k and v stream
+//     through a two-stage cp.async ring (the next tile, of this frame or the
+//     next, is in flight while the current one is used); S = q k^T and
+//     out_f += p v run on wgmma with fp32 accumulators in registers; the key
+//     bias is added, and keys past the frame's end get -1e30 on its ragged
+//     last tile, where the running max is taken; p = exp2 in the log2
+//     domain is rounded to bf16 in registers. The running max and
+//     denominator restart at each frame boundary; at the frame's end the
+//     accumulator is divided by the denominator and leaves through a
+//     swizzled bf16 stage with 16-byte stores at row stride F*H*d, while
+//     the next frame's first tile is already loading. Shared memory does
+//     not depend on the frame length. The biased and unbiased cases are two
+//     instances chosen at compile time.
 //   * every other case (fp32, and bf16 at d = 16, 32, 128): the first
 //     version's body. S for the whole frame goes into a shared fp32 buffer
 //     of [64 x ceil64(s)] (up to 132 KB at s = 512); an exact softmax
@@ -63,7 +61,7 @@
 #include <type_traits>
 
 #include "attention_tiles.cuh"
-#include "wgmma_tiles.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -295,167 +293,64 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace wg = vtm::wg;
 using bf16 = __nv_bfloat16;
+using WgSmem = wg::WalkSmem;
 
-// q tile, a two-stage ring of (k, v) tiles, the output stage; 1 KB more for
-// the 1024-byte alignment the swizzle needs.
-struct WgLayout {
-  static constexpr int kQ = 0;
-  static constexpr int kRing = wg::kTileBytes;               // stage s: k, v at kRing + 2 s tiles
-  static constexpr int kOut = kRing + 4 * wg::kTileBytes;
-  static constexpr int kLaunchBytes = kOut + wg::kTileBytes + 1024;
-};
-
+template <bool kBias>
 __global__ void __launch_bounds__(wg::kThreads)
     frame_attention_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const float* __restrict__ key_bias,
                               bf16* __restrict__ out, int num_heads, int n, int frames,
                               int s_len, float scale, Strides st) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = wg::aligned_smem(smem_raw);
-  const uint32_t base = wg::smem_addr(smem);
-
+  extern __shared__ unsigned char smem[];
   const int bh = blockIdx.y;
   const int b = bh / num_heads;
   const int h = bh % num_heads;
-  const int q0 = blockIdx.x * wg::kRows;
-  const bf16* qb = q + b * st.q[0] + h * st.q[1];
-  const bf16* kb = k + b * st.k[0] + h * st.k[1];
-  const bf16* vb = v + b * st.v[0] + h * st.v[1];
-  bf16* ob = out + b * st.o[0] + h * st.o[1];
-  const float* bias = key_bias ? key_bias + static_cast<long long>(b) * n : nullptr;
-  const int n_tiles = (s_len + wg::kRows - 1) / wg::kRows;  // key tiles a frame
-  const int total = frames * n_tiles;
+  wg::Walk w;
+  w.q = q + b * st.q[0] + h * st.q[1];
+  w.k = k + b * st.k[0] + h * st.k[1];
+  w.v = v + b * st.v[0] + h * st.v[1];
+  w.q_stride = st.q[2];
+  w.k_stride = st.k[2];
+  w.v_stride = st.v[2];
+  w.bias = kBias ? key_bias + static_cast<long long>(b) * n : nullptr;
+  w.out = out + b * st.o[0] + h * st.o[1];
+  w.out_stride = st.o[2];
+  w.out_frame_stride = st.o[3];
+  w.lse = nullptr;
+  w.row0 = blockIdx.x * wg::kRows;
+  w.rows = n;
+  w.frames = frames;
+  w.frame_len = s_len;
+  w.scale = scale;
+  wg::attend<kBias>(w, wg::AllPairs(), smem);
+}
 
-  auto load_kv = [&](int g, int stage) {
-    const int key0 = (g / n_tiles) * s_len;
-    const int row0 = key0 + (g % n_tiles) * wg::kRows;
-    wg::load_tile_async(base + WgLayout::kRing + 2 * stage * wg::kTileBytes, kb, st.k[2], row0,
-                        key0 + s_len);
-    wg::load_tile_async(base + WgLayout::kRing + (2 * stage + 1) * wg::kTileBytes, vb, st.v[2],
-                        row0, key0 + s_len);
-    wg::cp_async_commit();
-  };
-  load_kv(0, 0);
-
-  // q * scale rounded to bf16, swizzled, while the first tile loads
-#pragma unroll
-  for (int i = 0; i < wg::kRows * 8 / wg::kThreads; ++i) {
-    const int idx = threadIdx.x + i * wg::kThreads;
-    const int r = idx >> 3, c = idx & 7;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * st.q[2] + c * 8);
-      bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
-    }
-    *reinterpret_cast<uint4*>(smem + WgLayout::kQ + wg::swz(r, c)) = val;
-  }
-  wg::fence_async_shared();
-
-  float o[32], m2[2], l[2];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  m2[0] = m2[1] = vtm::kMask;
-  l[0] = l[1] = 0.f;
-
-  for (int g = 0; g < total; ++g) {
-    const int stage = g & 1;
-    const int f = g / n_tiles;
-    const int c0 = (g % n_tiles) * wg::kRows;  // first key of the tile within its frame
-    if (g + 1 < total) {
-      load_kv(g + 1, stage ^ 1);
-      wg::cp_async_wait<1>();
-    } else {
-      wg::cp_async_wait<0>();
-    }
-    wg::fence_async_shared();
-    __syncthreads();
-
-    const uint32_t k_tile = base + WgLayout::kRing + 2 * stage * wg::kTileBytes;
-    float s[32];
-    wg::fence_regs(s);
-    wg::wg_fence();
-    wg::product_ss(s, base + WgLayout::kQ, k_tile);
-    wg::wg_commit();
-    wg::wg_wait<0>();
-    wg::fence_regs(s);
-
-    // logits in log2 units, the bias added and keys past the frame masked
-    // where the max is taken; the running max and denominator per row
-    float mx[2] = {vtm::kMask, vtm::kMask};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int j = c0 + wg::acc_col(i);
-      const int hh = (i >> 1) & 1;
-      float x = vtm::kMask;
-      if (j < s_len) x = (bias ? s[i] + bias[f * s_len + j] : s[i]) * wg::kLog2e;
-      s[i] = x;
-      mx[hh] = fmaxf(mx[hh], x);
-    }
-    float corr[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      const float m_new = fmaxf(m2[hh], mx[hh]);
-      corr[hh] = wg::fast_exp2(m2[hh] - m_new);
-      m2[hh] = m_new;
-      l[hh] *= corr[hh];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int hh = (i >> 1) & 1;
-      s[i] = wg::fast_exp2(s[i] - m2[hh]);
-      l[hh] += s[i];
-      o[i] *= corr[hh];
-    }
-    uint32_t p_lo[16];
-    wg::to_a_fragment(s, p_lo);
-
-    wg::fence_regs(o);
-    wg::fence_regs(p_lo);
-    wg::wg_fence();
-    wg::product_rs(o, p_lo, k_tile + wg::kTileBytes, true);
-    wg::wg_commit();
-    wg::wg_wait<0>();
-    wg::fence_regs(o);
-
-    if (c0 + wg::kRows >= s_len) {
-      // the frame's end: out_f = o / l, then a fresh softmax for the next frame
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
-        l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
-        l[hh] = 1.f / l[hh];
-      }
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= l[(i >> 1) & 1];
-      wg::store_tile(o, 1.f, smem + WgLayout::kOut, ob + f * st.o[3], st.o[2], q0, n);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
-      m2[0] = m2[1] = vtm::kMask;
-      l[0] = l[1] = 0.f;
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
+template <bool kBias>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* key_bias,
+                         void* out, int batch, int num_heads, int n, int frames, float scale,
+                         const Strides& st, cudaStream_t stream) {
+  auto kernel = frame_attention_fwd_wgmma<kBias>;
+  static bool done[vtm::kMaxDevices] = {};
+  cudaError_t err = vtm::allow_smem_once(kernel, WgSmem::kLaunchBytes, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + wg::kRows - 1) / wg::kRows, batch * num_heads);
+  kernel<<<grid, wg::kThreads, WgSmem::kLaunchBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(key_bias), static_cast<bf16*>(out), num_heads, n, frames,
+      n / frames, scale, st);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_bias, void* out,
                    int batch, int num_heads, int n, int frames, float scale, const Strides& st,
                    cudaStream_t stream) {
-  const int s_len = n / frames;
-  const dim3 grid((n + kTile - 1) / kTile, batch * num_heads);
   if constexpr (std::is_same<T, bf16>::value && D == 64) {
-    static bool done[vtm::kMaxDevices] = {};
-    cudaError_t err = vtm::allow_smem_once(frame_attention_fwd_wgmma, WgLayout::kLaunchBytes, done);
-    if (err != cudaSuccess) return err;
-    frame_attention_fwd_wgmma<<<grid, wg::kThreads, WgLayout::kLaunchBytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const float*>(key_bias), static_cast<bf16*>(out), num_heads, n, frames, s_len,
-        scale, st);
+    return key_bias ? launch_wgmma<true>(q, k, v, key_bias, out, batch, num_heads, n, frames, scale, st, stream)
+                    : launch_wgmma<false>(q, k, v, key_bias, out, batch, num_heads, n, frames, scale, st, stream);
   } else {
+    const int s_len = n / frames;
+    const dim3 grid((n + kTile - 1) / kTile, batch * num_heads);
     const FrameLayout<T, D> lay(s_len);
     auto kernel = frame_attention_fwd_kernel<T, D>;
     // raised once, to what the longest frame needs
@@ -467,8 +362,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const float*>(key_bias), static_cast<T*>(out), num_heads, n, frames, s_len,
         scale, st);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>

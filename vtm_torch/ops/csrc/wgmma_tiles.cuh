@@ -1,5 +1,7 @@
-// Hopper tile primitives of the redesigned attention kernels
-// (flash_attention_bwd.cu's and frame_attention_fwd.cu's bf16 d=64 bodies):
+// Hopper tile primitives of the redesigned attention kernels (the bf16
+// d=64 bodies of flash_attention_bwd.cu, and through wgmma_attention.cuh of
+// flash_attention_fwd.cu, frame_attention_fwd.cu and
+// blockdiag_attention_fwd.cu):
 // 128-byte-swizzled [64 x 64] bf16 tiles in shared memory filled by
 // cp.async, their wgmma descriptors, and the two warpgroup products
 // m64n64k16 (bf16 in, fp32 accumulators in registers) those kernels use:

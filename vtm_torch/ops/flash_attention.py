@@ -68,7 +68,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 _ALIGN = 16  # bytes: the kernel stages rows with 16-byte loads
 _MAX_GRID_Y = 65535  # batch * heads is the grid's y extent
 MAX_FRAME_LEN = 512  # K3's fp32 body keeps one frame's [64 x s] fp32 logits in shared memory
-_MAX_GRID_X = 2**31 - 1  # K5a, K5b: frames * 64-row tiles per frame is the grid's x extent
+_MAX_GRID_X = 2**31 - 1  # K5a, K5b: the blocks of one (batch, head) pair are the grid's x extent
+_TILE = 64  # query rows of a tile, keys of a key tile
 
 
 def _reference(q, k, v, key_bias, sm_scale, want_lse=False):
@@ -539,23 +540,49 @@ def _blockdiag_reference(q, k, v, key_bias, sm_scale, frames, exclude_first_row=
     return out.permute(0, 2, 3, 1, 4).reshape(b, n, h * d)
 
 
+def hopper_body(q: torch.Tensor) -> bool:
+    """Whether the kernels take ``q`` into their Hopper (wgmma) body: bf16
+    at head dim 64, every ViT-B path. Everything else runs the first body."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == 64
+
+
+def blockdiag_plan(frames: int, s: int, hopper: bool) -> tuple:
+    """K5a's launch plan for ``frames`` frames of ``s`` tokens: (frames per
+    block, 64-row query tiles per frame, blocks per (batch, head) pair).
+
+    The Hopper body packs g = 64 // s whole frames into one 64-row tile
+    when s <= 32 (rows [f0*s, (f0+g)*s) of a clip, one key tile, a clip's
+    last block holding frames % g frames); otherwise, and always in the
+    first body, a block is one 64-row tile of one frame's rows."""
+    if hopper and s <= _TILE // 2:
+        g = _TILE // s
+        return g, 1, -(-frames // g)
+    tiles = -(-s // _TILE)
+    return 1, tiles, frames * tiles
+
+
 def check_blockdiag_kernel_args(q, k, v, key_bias, frames: int) -> None:
     """Raise ValueError on anything the K5a and K5b kernels do not take.
     A frame may have any length: the kernels walk it in 64-row tiles and
     keep no whole frame on chip. The limits are the grid's: at most
-    2^31 - 1 (frame, tile) pairs and 65535 (batch, head) pairs."""
+    2^31 - 1 blocks a (batch, head) pair, K5a's by ``blockdiag_plan`` and
+    K5b's one a (frame, 64-row tile), and 65535 (batch, head) pairs."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, N, d], got shape {tuple(q.shape)}")
     n = q.shape[2]
     if frames < 1 or n % frames:
         raise ValueError(f"frames={frames} does not divide N={n}")
-    if frames * (-(-(n // frames) // 64)) > _MAX_GRID_X:
-        raise ValueError(f"frames={frames} of {n // frames} tokens exceed the kernel's grid")
+    s = n // frames
+    blocks = max(blockdiag_plan(frames, s, hopper_body(q))[2], frames * -(-s // _TILE))
+    if blocks > _MAX_GRID_X:
+        raise ValueError(f"frames={frames} of {s} tokens exceed the kernel's grid")
     check_kernel_args(q, k, v, key_bias)
 
 
-def _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row):
-    """K5a on a CUDA tensor, its plain version on a CPU tensor."""
+def _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row, plan=None):
+    """K5a on a CUDA tensor, its plain version on a CPU tensor. ``plan``:
+    the launch plan ``blockdiag_plan`` gives when None; another one is for
+    measuring the packing (the C entry checks it covers every row)."""
     global BLOCKDIAG_LAUNCHES
     if not q.is_cuda:
         return _blockdiag_reference(q, k, v, key_bias, sm_scale, frames, exclude_first_row)
@@ -568,13 +595,14 @@ def _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row):
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], n * h * d, d, h * d
     )
+    plan = plan or blockdiag_plan(frames, n // frames, hopper_body(q))
     with torch.cuda.device(q.device):
         err = lib.vtm_blockdiag_attention_fwd(
             _DTYPE_CODES[q.dtype], d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_bias is None else key_bias.data_ptr(),
             out.data_ptr(),
-            b, h, n, frames, int(bool(exclude_first_row)), float(sm_scale),
+            b, h, n, frames, int(bool(exclude_first_row)), *plan, float(sm_scale),
             ctypes.addressof(strides),
             torch.cuda.current_stream(q.device).cuda_stream,
         )

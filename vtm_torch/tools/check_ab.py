@@ -5,13 +5,14 @@
 
     python -m vtm_torch.tools.check_ab
 
-  1. compiles the three sources with ``-Xptxas -v`` and prints each
-     kernel's registers and spill bytes (one line per template instance);
-  2. builds the library and runs ``ab_dense.exp_kernels``: every function
-     and mode against its plain version, by ``ab_dense``'s rule, in fp32
-     at a small ragged shape, then in bf16 at B8 H12 d64 and the tools'
-     token counts, there timed beside the plain version and the library
-     call (2 x 10 calls in turns).
+  1. builds the library (every source through ``ptxas -v``) and prints, for
+     the three sources, each kernel's registers and spill bytes (one line
+     per template instance);
+  2. runs ``ab_dense.exp_kernels``: every function and mode against its
+     plain version, by ``ab_dense``'s rule, in fp32 at a small ragged
+     shape, then in bf16 at B8 H12 d64 and the tools' token counts, there
+     timed beside the plain version and the library call (2 x 10 calls in
+     turns).
 Prints one JSON line per step and per row. Needs a CUDA device and nvcc.
 """
 
@@ -23,8 +24,8 @@ import time
 import torch
 
 from vtm_torch.ops import build as kernel_build
+from vtm_torch.ops.build import kernel_resources
 from vtm_torch.tools import ab_dense
-from vtm_torch.tools.check_frame_bwd import kernel_resources
 
 SOURCES = ("ab_qk_probe.cu", "ab_chain.cu", "ab_dense_variants.cu")
 
@@ -33,11 +34,11 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("check_ab needs a CUDA device and found none")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for source in SOURCES:
-        print(json.dumps(dict(step="resources", source=source, kernels=kernel_resources(source))), flush=True)
     t0 = time.perf_counter()
     kernel_build.load_library()
     print(json.dumps(dict(step="build", seconds=time.perf_counter() - t0)), flush=True)
+    for source in SOURCES:
+        print(json.dumps(dict(step="resources", source=source, kernels=kernel_resources(source))), flush=True)
     device = torch.device("cuda")
     ab_dense.exp_kernels(ab_dense.Bench(device, ab_dense.SMALL_SIZES, 0, 1, 1, dtype=torch.float32))
     ab_dense.exp_kernels(ab_dense.Bench(device, ab_dense.Sizes(), 0, 2, 10))

@@ -1,18 +1,20 @@
-"""A short first check of the dense attention kernels (K1's lse residual,
-K2) and the per-frame forward (K3) on the card, for use after a change to
-``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``,
+"""A short first check of the dense attention kernels (K1, its lse
+residual, K2) and the per-frame forward (K3) on the card, for use after a
+change to ``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``,
 ``csrc/frame_attention_fwd.cu`` or the tile code they share
-(``csrc/attention_tiles.cuh``, ``csrc/wgmma_tiles.cuh``).
+(``csrc/attention_tiles.cuh``, ``csrc/wgmma_tiles.cuh``,
+``csrc/wgmma_attention.cuh``).
 
     python -m vtm_torch.tools.check_attention
 
-  1. compiles the three sources with ``-Xptxas -v`` and prints each
-     kernel's registers and spill bytes (the wgmma bodies included);
-  2. builds the library and holds K2, given K1's residuals (out, lse) as a
-     train step passes them, against its plain version with the same
-     residuals and against an fp32 computation: fp32 and bf16, biased and
-     unbiased, every head dim, strided q/k/v and do, two runs bit for bit;
-     K1's lse against its plain version's; K3 against its plain version at
+  1. builds the library (every source through ``ptxas -v``) and prints, for
+     the three sources, each kernel's registers and spill bytes (the wgmma
+     bodies included);
+  2. holds K2, given K1's residuals (out, lse) as a train step passes them,
+     against its plain version with the same residuals and against an fp32
+     computation: fp32 and bf16, biased and unbiased, every head dim,
+     strided q/k/v and do, two runs bit for bit; K1's output and lse
+     against its plain version's; K3 against its plain version at
      Motionformer's frame lengths and every head dim;
   3. times K2 given the residuals, K3, and K1 with and without the lse
      write at B8 H12 d64 bf16 (10 calls each).
@@ -29,8 +31,9 @@ import time
 import torch
 
 from vtm_torch.ops import build as kernel_build
+from vtm_torch.ops.build import kernel_resources
 from vtm_torch.ops import flash_attention as fa
-from vtm_torch.tools.check_frame_bwd import _heads, _ms, _rel_errors, kernel_resources
+from vtm_torch.tools.check_frame_bwd import _heads, _ms, _rel_errors
 
 FRAMES = 8
 # the training paths' widest row, ragged and shorter than one tile at
@@ -49,6 +52,35 @@ def _bf16_tol(plain_err: float) -> float:
     """chip_smoke's rule: within max(1e-2, twice the bf16 plain version's
     error) of an fp32 computation."""
     return max(1e-2, 2 * plain_err)
+
+
+def check_k1() -> list:
+    """K1's output against its plain version: fp32 within FP32_TOL of the
+    largest entry, bf16 within chip_smoke's rule of an fp32 computation;
+    strided q/k/v, biased and unbiased."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for b, h, n, d in K2_SHAPES + [(8, 12, 3137, 64)]:
+        scale = d ** -0.5
+        for biased in (False, True):
+            bias = torch.log(torch.rand((b, n), generator=gen, device="cuda") * 4 + 1) if biased else None
+            fused = torch.randn((b, n + 1, 3 * h * d), generator=gen, device="cuda")
+            q, k, v = _heads(fused[:, 1:], h)
+            got, want = fa._forward(q, k, v, bias, scale), fa._reference(q, k, v, bias, scale)
+            err32 = ((got - want).abs().max() / want.abs().max()).item()
+            if not err32 <= FP32_TOL:
+                raise AssertionError(f"K1 fp32 off by {err32} at {(b, h, n, d)} biased={biased}")
+            qb, kb, vb = _heads(fused.to(torch.bfloat16)[:, 1:], h)
+            got = fa._forward(qb, kb, vb, bias, scale).float()
+            plain = fa._reference(qb, kb, vb, bias, scale).float()
+            ref = fa._reference(qb.float(), kb.float(), vb.float(), bias, scale)
+            err, err_plain = (got - ref).abs().max().item(), (plain - ref).abs().max().item()
+            if not err <= _bf16_tol(err_plain):
+                raise AssertionError(f"K1 bf16 off by {err} at {(b, h, n, d)} biased={biased}")
+            rows.append(dict(shape=[b, h, n, d], biased=biased, fp32_rel_err=err32, bf16_err=err,
+                             bf16_plain_err=err_plain))
+    torch.cuda.synchronize()
+    return rows
 
 
 def check_k2() -> list:
@@ -143,11 +175,12 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    for source in ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "frame_attention_fwd.cu"):
-        print(json.dumps(dict(step="resources", source=source, kernels=kernel_resources(source))), flush=True)
     t0 = time.perf_counter()
     kernel_build.load_library()
     print(json.dumps(dict(step="build", seconds=time.perf_counter() - t0)), flush=True)
+    for source in ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "frame_attention_fwd.cu"):
+        print(json.dumps(dict(step="resources", source=source, kernels=kernel_resources(source))), flush=True)
+    print(json.dumps(dict(step="k1_against_plain", checks=check_k1())), flush=True)
     print(json.dumps(dict(step="k2_against_plain", checks=check_k2())), flush=True)
     print(json.dumps(dict(step="k3_against_plain", checks=check_k3())), flush=True)
     print(json.dumps(dict(step="times_bf16_B8_H12_d64", nvidia_smi=smi, **quick_times())), flush=True)

@@ -5,14 +5,15 @@ on the card, for use after a change to ``csrc/blockdiag_attention_fwd.cu``,
 
     python -m vtm_torch.tools.check_blockdiag
 
-  1. compiles the two sources with ``-Xptxas -v`` and prints each kernel's
-     registers and spill bytes (one line per template instance);
-  2. builds the library and holds K5a and K5b against their plain versions
-     at TimeSformer's frame lengths, a long frame, odd ones and every head
-     dim: fp32 and bf16, unbiased, biased, and biased with the row mask,
-     strided q/k/v, a strided cotangent, and two runs bit for bit;
-  3. times both beside their plain versions at B8 H12 d64 F8 bf16, s = 197
-     and 35 (10 calls each).
+  1. builds the library (every source through ``ptxas -v``) and prints, for
+     the two sources, each kernel's registers and spill bytes (one line per
+     template instance);
+  2. holds K5a and K5b against their plain versions at TimeSformer's frame
+     lengths, a long frame, odd ones and every head dim: fp32 and bf16,
+     unbiased, biased, and biased with the row mask, strided q/k/v, a
+     strided cotangent, and two runs bit for bit;
+  3. times both beside their plain versions at B8 H12 d64 F8 bf16, s = 197,
+     35 and 10 (10 calls each).
 Prints one JSON line per step. Needs a CUDA device and nvcc; it is much
 shorter than ``chip_smoke.py``, which makes the same checks in full.
 """
@@ -26,16 +27,20 @@ import time
 import torch
 
 from vtm_torch.ops import build as kernel_build
+from vtm_torch.ops.build import kernel_resources
 from vtm_torch.ops.flash_attention import (
     _blockdiag_backward_reference,
     _blockdiag_reference,
     tome_blockdiag_attention,
     tome_blockdiag_attention_backward,
 )
-from vtm_torch.tools.check_frame_bwd import _ms, _rel_errors, kernel_resources
+from vtm_torch.tools.check_frame_bwd import _ms, _rel_errors
 
-# (B, H, frames, s, d)
+# (B, H, frames, s, d); at d = 64 frames of at most 32 tokens are packed
+# (s = 10 and 18 at F = 7: a clip's last block holds fewer), s = 32 and 33
+# are the packing's edges
 SHAPES = [(8, 12, 8, 197, 64), (8, 12, 8, 179, 64), (8, 12, 8, 35, 64), (8, 12, 8, 10, 64),
+          (8, 12, 7, 10, 64), (2, 3, 7, 18, 64), (2, 3, 5, 32, 64), (2, 3, 3, 33, 64), (1, 2, 3, 1, 64),
           (1, 12, 2, 785, 64), (2, 3, 4, 37, 16), (1, 2, 3, 65, 128), (1, 2, 3, 64, 32), (1, 2, 2, 2, 16), (1, 2, 3, 1, 16)]
 FP32_TOL = 1e-5  # of the output's, or each gradient's, largest entry
 MODES = ((False, False), (True, False), (True, True))  # (biased, exclude_first_row)
@@ -95,7 +100,7 @@ def check_against_plain() -> list:
 def quick_times() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for s in (197, 35):
+    for s in (197, 35, 10):
         fused = torch.randn((64, s, 3 * 768), generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = frame_views(fused, 8, 12, 8, s)
         do = torch.randn((8, 8 * s, 768), generator=gen, device="cuda").to(torch.bfloat16)
@@ -118,11 +123,11 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    for source in ("blockdiag_attention_fwd.cu", "blockdiag_attention_bwd.cu"):
-        print(json.dumps(dict(step="resources", source=source, kernels=kernel_resources(source))), flush=True)
     t0 = time.perf_counter()
     kernel_build.load_library()
     print(json.dumps(dict(step="build", seconds=time.perf_counter() - t0)), flush=True)
+    for source in ("blockdiag_attention_fwd.cu", "blockdiag_attention_bwd.cu"):
+        print(json.dumps(dict(step="resources", source=source, kernels=kernel_resources(source))), flush=True)
     print(json.dumps(dict(step="k5_against_plain", checks=check_against_plain())), flush=True)
     print(json.dumps(dict(step="times_bf16_B8_H12_d64_F8", nvidia_smi=smi, **quick_times())), flush=True)
 

@@ -4,11 +4,12 @@ the tile code it shares with K2 (``csrc/attention_tiles.cuh``).
 
     python -m vtm_torch.tools.check_frame_bwd
 
-  1. compiles the two backward sources with ``-Xptxas -v`` and prints each
-     kernel's registers and spill bytes (one line per template instance);
-  2. builds the library and holds K4 against its plain version at the
-     training path's shapes, some odd ones and every head dim: fp32 and
-     bf16, biased and unbiased, strided q/k/v, and two runs bit for bit;
+  1. builds the library (every source through ``ptxas -v``) and prints, for
+     the two backward sources, each kernel's registers and spill bytes (one
+     line per template instance);
+  2. holds K4 against its plain version at the training path's shapes, some
+     odd ones and every head dim: fp32 and bf16, biased and unbiased,
+     strided q/k/v, and two runs bit for bit;
   3. times K4 beside its plain version and K2 at B8 H12 d64 bf16, N' 1568
      and 848 (10 calls each), and holds K2 against its plain version once.
 Prints one JSON line per step. Needs a CUDA device and nvcc; it is much
@@ -18,15 +19,14 @@ shorter than ``chip_smoke.py``, which makes the same checks in full.
 from __future__ import annotations
 
 import json
-import re
 import subprocess
-import tempfile
 import time
 
 import torch
 
 from vtm_torch.models.common import split_heads
 from vtm_torch.ops import build as kernel_build
+from vtm_torch.ops.build import kernel_resources
 from vtm_torch.ops.flash_attention import (
     _backward_reference,
     _frame_backward_reference,
@@ -38,39 +38,6 @@ FRAMES = 8
 SHAPES = [(2, 3, 296, 16), (8, 12, 272, 64), (8, 12, 848, 64), (8, 12, 1568, 64), (1, 12, 3528, 64),
           (1, 2, 512, 128), (1, 2, 320, 32)]
 FP32_TOL = 1e-4  # of each gradient's largest entry
-
-
-def kernel_resources(source: str) -> list:
-    """[{kernel, dtype, head_dim, template_args, registers, spill_store_bytes,
-    spill_load_bytes}] from ptxas for one source of ``csrc/``.
-    ``template_args`` holds every integer argument of the instance;
-    ``head_dim`` is the first (K1-K5's only one). The wgmma bodies
-    (``*_wgmma``, bf16 at head dim 64) are not templates: their
-    ``template_args`` are empty."""
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [kernel_build.nvcc_path(), *kernel_build.COMPILE_FLAGS, "-Xptxas", "-v", "-o", f"{tmp}/x.o",
-               str(kernel_build.CSRC / source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr[-3000:]}")
-    rows, entry = [], None
-    for line in proc.stderr.splitlines():
-        m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:L[ib]\d+E)+)", line)
-        wgmma = re.search(r"([a-z_]+_wgmma)E", line)
-        if m and "Compiling entry function" in line:
-            args = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
-            entry = dict(kernel=m.group(1), dtype="fp32" if m.group(2) == "f" else "bf16", head_dim=args[0],
-                         template_args=args)
-        elif wgmma and "Compiling entry function" in line:
-            entry = dict(kernel=wgmma.group(1), dtype="bf16", head_dim=64, template_args=[])
-        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spills and entry:
-            entry.update(spill_store_bytes=int(spills.group(1)), spill_load_bytes=int(spills.group(2)))
-        regs = re.search(r"Used (\d+) registers", line)
-        if regs and entry:
-            rows.append(dict(entry, registers=int(regs.group(1))))
-            entry = None
-    return rows
 
 
 def _heads(fused: torch.Tensor, h: int):
@@ -166,11 +133,11 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    for source in ("frame_attention_bwd.cu", "flash_attention_bwd.cu"):
-        print(json.dumps(dict(step="resources", source=source, kernels=kernel_resources(source))), flush=True)
     t0 = time.perf_counter()
     kernel_build.load_library()
     print(json.dumps(dict(step="build", seconds=time.perf_counter() - t0)), flush=True)
+    for source in ("frame_attention_bwd.cu", "flash_attention_bwd.cu"):
+        print(json.dumps(dict(step="resources", source=source, kernels=kernel_resources(source))), flush=True)
     print(json.dumps(dict(step="k4_against_plain", checks=check_against_plain())), flush=True)
     print(json.dumps(dict(step="k2_against_plain", fp32_rel_err=check_dense_backward())), flush=True)
     print(json.dumps(dict(step="times_bf16_B8_H12_d64", nvidia_smi=smi, **quick_times())), flush=True)

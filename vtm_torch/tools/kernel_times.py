@@ -1,0 +1,161 @@
+"""The forward attention kernels' times on the card, two ways.
+
+    python -m vtm_torch.tools.kernel_times [--exp times|packing|all] [--iters 50]
+
+``--exp times`` times K1 (``tome_flash_attention``, no gradient wanted),
+K3 (``tome_frame_attention``, F 8) and K5a (``tome_blockdiag_attention``,
+F 8) at B8 H12 d64 bf16 on the paths' shapes (and K5a at s = 192 and 193,
+the padding of s = 197's last tile), q, k and v as views of one fused
+projection, and for each case prints one JSON line with
+  * ``event_ms``: CUDA events around ``--iters`` back-to-back calls of the
+    wrapper, per call: what a caller sees, the host's cost of a call
+    included, so at short rows the host's launch rate bounds it;
+  * ``device_ms``: the kernels' device time per call, ``--iters`` further
+    calls queued behind a kernel that holds the stream until the host has
+    issued them all (``device_ms``), so the host's cost is hidden.
+Each is taken twice and the mean printed with both readings. These calls
+go through the public wrappers only, so ``PYTHONPATH=<another checkout>
+python3 vtm_torch/tools/kernel_times.py --exp times`` times that tree.
+``--exp packing`` gives K5a's device time at s = 10 and 18, biased and
+masked, with g = 1 ... 64 // s frames packed into a block (g = 1: one
+frame a block), in turns, at batch 8 and 32. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+from vtm_torch.models.common import split_heads
+from vtm_torch.ops import flash_attention
+from vtm_torch.ops.flash_attention import (
+    tome_blockdiag_attention,
+    tome_flash_attention,
+    tome_frame_attention,
+)
+from vtm_torch.utils.benchmark import device_seconds
+
+B, H, D = 8, 12, 64
+FRAMES = 8
+# (N, biased): VideoMAE's layers 0 and 8, ViViT's layers 9 and 0
+K1_CASES = ((1568, False), (368, False), (437, True), (3137, True))
+# (N', biased): Motionformer's layer 0 and a merged layer
+K3_CASES = ((1568, False), (848, True))
+# (s, biased, exclude_first_row): TimeSformer's layers 0, 1, 5, 9, 10, 11,
+# then the padding of s = 197 (four 64-row tiles, the last holding 5 rows
+# and 5 keys): three full tiles (192), and one row and key past them (193)
+K5A_CASES = ((197, False, False), (179, True, True), (107, True, True), (35, True, True),
+             (18, True, True), (10, True, True), (192, False, False), (193, False, False))
+# K5a's packing: frame length, the frames a block may pack, the batches
+PACKING = ((10, (1, 2, 3, 6)), (18, (1, 2, 3)))
+PACKING_BATCHES = (8, 32)
+EXPERIMENTS = ("times", "packing")
+
+
+def device_ms(fn, iters: int) -> float:
+    """ms per call of the kernels ``fn`` launches, on the device alone:
+    ``iters`` calls queued behind a kernel that holds the stream
+    (``torch.cuda._sleep``) until the host has issued them all, timed by
+    CUDA events around the calls, so the host's cost of a call is hidden
+    and the events read the kernels back to back. The hold is long enough
+    when the start event is still pending once every call is issued; if
+    not, it is taken again with a hold four times longer."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 50_000_000  # about 25 ms at the H100's clock
+    for _ in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise RuntimeError("the host issued the calls slower than the stream's hold")
+
+
+def fused_views(gen, rows: int, batch: int = B):
+    """q, k, v [batch, H, rows, d] as split_heads views of one fused bf16
+    projection [batch, rows, 3*H*d]."""
+    fused = torch.randn((batch, rows, 3 * H * D), generator=gen, device="cuda").to(torch.bfloat16)
+    return [split_heads(t, H) for t in fused.chunk(3, dim=-1)]
+
+
+def size_bias(gen, rows: int, frame_len: int = 0, batch: int = B):
+    """log token sizes, fp32 [batch, rows]; with ``frame_len``, 0 on each
+    frame's first (CLS) entry."""
+    bias = torch.log(torch.rand((batch, rows), generator=gen, device="cuda") * 4 + 1)
+    if frame_len:
+        bias.view(batch, -1, frame_len)[:, :, 0] = 0.0
+    return bias
+
+
+def measure(fn, iters: int) -> dict:
+    """Both clocks, each read twice."""
+    ev = [device_seconds(fn, iters, 3, torch.device("cuda")) * 1e3 / iters for _ in range(2)]
+    dev = [device_ms(fn, iters) for _ in range(2)]
+    return dict(event_ms=sum(ev) / 2, event_ms_readings=ev, device_ms=sum(dev) / 2, device_ms_readings=dev)
+
+
+def exp_times(gen, iters: int, smi: str) -> None:
+    for n, biased in K1_CASES:
+        q, k, v = fused_views(gen, n)
+        bias = size_bias(gen, n) if biased else None
+        row = measure(lambda: tome_flash_attention(q, k, v, bias, 0.125), iters)
+        print(json.dumps(dict(kernel="K1", n=n, biased=biased, **row, nvidia_smi=smi)), flush=True)
+    for n, biased in K3_CASES:
+        q, k, v = fused_views(gen, n)
+        bias = size_bias(gen, n) if biased else None
+        row = measure(lambda: tome_frame_attention(q, k, v, bias, 0.125, FRAMES), iters)
+        print(json.dumps(dict(kernel="K3", n=n, biased=biased, **row, nvidia_smi=smi)), flush=True)
+    for s, biased, masked in K5A_CASES:
+        q, k, v = fused_views(gen, FRAMES * s)
+        bias = size_bias(gen, FRAMES * s, s) if biased else None
+        row = measure(lambda: tome_blockdiag_attention(q, k, v, bias, 0.125, FRAMES, masked), iters)
+        print(json.dumps(dict(kernel="K5a", s=s, biased=biased, exclude_first_row=masked, **row,
+                              nvidia_smi=smi)), flush=True)
+
+
+def exp_packing(gen, iters: int, smi: str) -> None:
+    for s, packings in PACKING:
+        for batch in PACKING_BATCHES:
+            q, k, v = fused_views(gen, FRAMES * s, batch)
+            bias = size_bias(gen, FRAMES * s, s, batch)
+            ms = {g: [] for g in packings}
+            for g in list(packings) + list(reversed(packings)):  # in turns
+                plan = (g, 1, -(-FRAMES // g))
+                call = lambda: flash_attention._blockdiag_forward(q, k, v, bias, 0.125, FRAMES, True, plan)
+                ms[g].append(device_ms(call, iters))
+            print(json.dumps(dict(kernel="K5a_packing", s=s, batch=batch, frames=FRAMES,
+                                  device_ms={g: sum(r) / 2 for g, r in ms.items()},
+                                  device_ms_readings=ms, nvidia_smi=smi)), flush=True)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--exp", choices=EXPERIMENTS + ("all",), default="all")
+    parser.add_argument("--iters", type=int, default=50)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device and found none")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.inference_mode():
+        for exp, run in (("times", exp_times), ("packing", exp_packing)):
+            if args.exp in (exp, "all"):
+                run(gen, args.iters, smi)
+
+
+if __name__ == "__main__":
+    main()
