@@ -45,15 +45,22 @@ Phases, each printing one JSON line:
      bwd_kernel -- its backward (K2) against its plain version, given the
                   residuals (out, lse) from K1 as a train step passes them,
                   and without them (the wrapper then runs K1 first); timed
-                  given the residuals
+                  given the residuals; the sha256 of its bits at two shapes
+                  (K2_DIGEST_CASES), printed to hold beside an earlier
+                  reading (PERF.md)
      frame_kernel -- the per-frame attention kernel (K3) against its plain
                   version
-     frame_bwd_kernel -- its backward (K4) against its plain version
+     frame_bwd_kernel -- its backward (K4) against its plain version, given
+                  K3's residuals (out, and the lse of each row in each
+                  frame) and without them; the same bits twice; timed given
+                  the residuals
      blockdiag_kernel -- the block-diagonal attention kernel (K5a) against
                   its plain version at every frame length of the TimeSformer
                   path and at F = 7 (frames its packed tiles do not divide):
                   biased, unbiased and with the row mask; registers, spills
-     blockdiag_bwd_kernel -- its backward (K5b) against its plain version
+     blockdiag_bwd_kernel -- its backward (K5b) against its plain version,
+                  given K5a's residuals and without them, at K5a's F = 7
+                  cases too; the same bits twice; timed given the residuals
      Each is also timed against its plain version and against the one
      PyTorch call that computes the same function
      (scaled_dot_product_attention, its autograd backward for K2, K4 and
@@ -112,6 +119,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import io
 import json
 import pathlib
@@ -759,6 +767,10 @@ CROSSOVER_N = (109, 218, 256, 368, 437)
 # shorter than one tile at d = 64; without the residuals at the smaller
 BWD_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 257, 3137, 437)] + [(2, 3, 296, 16), (2, 3, 37, 64)]
 BWD_SHAPES_NO_RESIDUALS = [(8, 12, n, 64) for n in (368, 257)] + [(2, 3, 296, 16)]
+# K2's bits: the sha256 of dq, dk, dv and dbias given K1's residuals, bf16
+# B2 H12 d64, at numpy-seeded inputs (N, biased). Printed, not checked: a
+# compiler or a change of the loop may move the bits of a correct kernel
+K2_DIGEST_CASES = ((1568, False), (437, True))
 # K1's lse against its plain version's: fp32 sums of the same logits in
 # another order, within this much of max(1, the largest |lse|)
 LSE_TOL = 1e-4
@@ -789,6 +801,7 @@ FRAME_TIMED = ((1568, False), (848, True))  # (N', biased): layer 0, and a merge
 # K4 at the training path's shapes (s = 196, 178, 106, 34), the 336 crop's
 # s=441, and the odd-head ragged case
 FRAME_BWD_SHAPES = [(8, 12, n, 64) for n in (1568, 1424, 848, 272)] + [(1, 12, 3528, 64), (2, 3, 296, 16)]
+FRAME_BWD_SHAPES_NO_RESIDUALS = [(8, 12, 272, 64), (2, 3, 296, 16)]
 COUNTERS = ("LAUNCHES", "BWD_LAUNCHES", "FRAME_LAUNCHES", "FRAME_BWD_LAUNCHES",
             "BLOCKDIAG_LAUNCHES", "BLOCKDIAG_BWD_LAUNCHES")
 PROB_SUM_TOL = 1e-3
@@ -812,9 +825,14 @@ BLOCKDIAG_SHAPES = [(8, 12, TS_FRAMES, s_, 64) for s_ in (197, 179, 125, 35, 18,
 TS_FRAME_LENS = tuple(c + 1 for c in TS_PATCH_COUNTS[:12])
 BLOCKDIAG_FWD_SHAPES = [(8, 12, TS_FRAMES, s_, 64) for s_ in TS_FRAME_LENS] + [
     (8, 12, 7, 10, 64), (8, 12, 7, 18, 64)] + BLOCKDIAG_SHAPES[-2:]
+# K5b at the same shapes and K5a's F = 7 cases (s 10 and 18 packed, the
+# clip's last block holding fewer frames); without the residuals at two
+BLOCKDIAG_BWD_SHAPES = BLOCKDIAG_SHAPES + [(8, 12, 7, 10, 64), (8, 12, 7, 18, 64)]
+BLOCKDIAG_BWD_SHAPES_NO_RESIDUALS = [(8, 12, TS_FRAMES, 35, 64), (8, 12, 7, 10, 64)]
 BLOCKDIAG_MODES = ((False, False), (True, False), (True, True))  # (biased, exclude_first_row)
-# (s, biased, exclude_first_row): layer 0, and merged layers 5, 9 and 11
-BLOCKDIAG_TIMED = ((197, False, False), (107, True, True), (35, True, True), (10, True, True))
+# (s, biased, exclude_first_row): layer 0, and merged layers 5, 9, 10 and 11
+# (s 18 and 10: 3 and 6 frames packed a block)
+BLOCKDIAG_TIMED = ((197, False, False), (107, True, True), (35, True, True), (18, True, True), (10, True, True))
 BLOCKDIAG_FP32_TOL = 1e-5  # of the largest entry
 # Unmerged / merged GFLOP per clip, 397.1 / 183.4, from XLA's cost analysis
 # (BENCH_FAMILIES.json): the ratio's device-independent ceiling.
@@ -1137,8 +1155,8 @@ def check_backward_against_plain(name, backward, plain, shapes, make_do, seed: i
     ``make_do(gen, b, h, n, d)``. fp32 gradients must agree within FP32_TOL
     of their largest entry; bf16 gradients must stay within bf16_tol of an
     fp32 computation, relative to the largest entry. The kernel must give
-    the same bits twice. Returns (rows, largest absolute difference from
-    the plain version)."""
+    the same bits twice, dbias too. Returns (rows, largest absolute
+    difference from the plain version)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows, worst_abs = [], 0.0
     for b, h, n, d in shapes:
@@ -1159,7 +1177,8 @@ def check_backward_against_plain(name, backward, plain, shapes, make_do, seed: i
             check(do.stride() == do32.stride(), "the bf16 do is the same strided view")
             got = backward(q, k, v, bias, do, scale)
             again = backward(q, k, v, bias, do, scale)
-            check(all(torch.equal(x, y) for x, y in zip(got[:3], again[:3])), f"{name} differs from run to run")
+            check(all(torch.equal(x, y) for x, y in zip(got, again) if x is not None),
+                  f"{name} differs from run to run")
             ref = plain(q.float(), k.float(), v.float(), bias, do.float(), scale)
             base = plain(q, k, v, bias, do, scale)
             err_k, err_p = grad_errors(got, ref), grad_errors(base, ref)
@@ -1192,6 +1211,38 @@ def k2_given_residuals(q, k, v, bias, do, scale, need_dbias=True):
     return tome_flash_attention_backward(q, k, v, bias, do, scale, need_dbias, out=out, lse=lse)
 
 
+def k4_given_residuals(q, k, v, bias, do, scale, need_dbias=True):
+    """K4 as a train step runs it: K3 writes (out, lse), then the backward
+    takes them."""
+    out, lse = flash_attention._frame_forward(q, k, v, bias, scale, MF_FRAMES, want_lse=True)
+    return tome_frame_attention_backward(q, k, v, bias, do, scale, MF_FRAMES, need_dbias, out=out, lse=lse)
+
+
+def k5b_given_residuals(q, k, v, bias, do, scale, frames, masked, need_dbias=True):
+    """K5b as a train step runs it: K5a writes (out, lse), then the
+    backward takes them."""
+    out, lse = flash_attention._blockdiag_forward(q, k, v, bias, scale, frames, masked, want_lse=True)
+    return tome_blockdiag_attention_backward(q, k, v, bias, do, scale, frames, masked, need_dbias,
+                                             out=out, lse=lse)
+
+
+def k2_digest() -> str:
+    """The sha256 of K2's bits (dq, dk, dv and dbias given K1's residuals)
+    at K2_DIGEST_CASES, bf16 B2 H12 d64, inputs from numpy's generator."""
+    digest = hashlib.sha256()
+    for n, biased in K2_DIGEST_CASES:
+        rng = np.random.default_rng(n)
+        fused = torch.from_numpy(rng.standard_normal((2, n, 3 * 768)).astype(np.float32)).cuda()
+        q, k, v = heads(fused.to(torch.bfloat16), 12)
+        do = torch.from_numpy(rng.standard_normal((2, n, 12, 64)).astype(np.float32)).cuda()
+        do = do.to(torch.bfloat16).transpose(1, 2)
+        bias = torch.from_numpy(np.log(rng.uniform(1, 5, (2, n))).astype(np.float32)).cuda() if biased else None
+        for g in k2_given_residuals(q, k, v, bias, do, 0.125):
+            if g is not None:
+                digest.update(g.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
 def phase_bwd_kernel(smi: str) -> dict:
     """K2 against its plain version (the TPU kernel's softmax form), with a
     token-major do: given K1's residuals, and without them."""
@@ -1203,8 +1254,9 @@ def phase_bwd_kernel(smi: str) -> dict:
         token_major_do, seed=10)
     # times at B8 H12 d64 bf16 given the residuals, without dbias as on the
     # training paths (VideoMAE unbiased, ViViT with the key bias): 10 B H N^2 d
-    # operations (the five products the function needs); q, k, v, do, out
-    # (and the bias, and lse) read and dq, dk, dv written
+    # operations (the five products the function needs); q, k, v, do (and
+    # the bias) read and dq, dk, dv written: the function's own bytes, not
+    # the residuals this kernel chooses to read
     gen = torch.Generator(device="cuda").manual_seed(7)
     times = {}
     for n, biased in TIMED:
@@ -1220,50 +1272,61 @@ def phase_bwd_kernel(smi: str) -> dict:
             lambda: _backward_reference(q, k, v, bias, do, 0.125),
             lambda: torch.autograd.grad(sdpa_out, leaves, do_c, retain_graph=True))
         flops = 10 * 8 * 12 * n * n * 64
-        nbytes = 8 * 8 * 12 * n * 64 * 2 + 8 * 12 * n * 4 + (8 * n * 4 if biased else 0)
+        nbytes = 7 * 8 * 12 * n * 64 * 2 + (8 * n * 4 if biased else 0)
         times[str(n)] = dict(biased=biased, **t, kernel_tflops=flops / t["kernel_ms"] / 1e9,
                              **bound(flops, nbytes))
         del sdpa_out, leaves  # the plain version at N 3137 keeps several [B, H, N, N] tensors
     emit("bwd_kernel_without_residuals", checks=rows_alone, max_abs_err_vs_plain=worst_alone, nvidia_smi=smi)
+    emit("bwd_kernel_bits", sha256=k2_digest(), cases=K2_DIGEST_CASES)
     return emit_backward("bwd_kernel", smi, rows, max(worst_abs, worst_alone), times)
 
 
 def phase_frame_bwd_kernel(smi: str) -> dict:
-    """K4 against its plain version. ``do`` is token-major [B, N', F, H, d],
+    """K4 against its plain version (the TPU kernel's softmax form), given
+    K3's residuals as a train step passes them, and without them (the
+    wrapper then runs K3 first). ``do`` is token-major [B, N', F, H, d],
     here a permuted view of a frame-major buffer, so every one of its
     strides differs from the contiguous layout's."""
+    frame_major_do = lambda gen, b, h, n, d: torch.randn(
+        (b, MF_FRAMES, n, h, d), generator=gen, device="cuda").transpose(1, 2)
+    plain = functools.partial(_frame_backward_reference, frames=MF_FRAMES)
     rows, worst_abs = check_backward_against_plain(
-        "K4",
-        functools.partial(tome_frame_attention_backward, frames=MF_FRAMES),
-        functools.partial(_frame_backward_reference, frames=MF_FRAMES),
-        FRAME_BWD_SHAPES,
-        lambda gen, b, h, n, d: torch.randn((b, MF_FRAMES, n, h, d), generator=gen, device="cuda").transpose(1, 2),
-        seed=8,
-    )
-    # times at B8 H12 d64 F8 bf16 with the contiguous do autograd hands over
-    # and, as on the training path, no dbias: 10 B H N'^2 d operations; q, k,
-    # v and the bias read, do (F times the size of q) read, dq, dk, dv written.
-    # The library call: autograd's backward of frame_sdpa's one
+        "K4", k4_given_residuals, plain, FRAME_BWD_SHAPES, frame_major_do, seed=8)
+    rows_alone, worst_alone = check_backward_against_plain(
+        "K4 without residuals", functools.partial(tome_frame_attention_backward, frames=MF_FRAMES), plain,
+        FRAME_BWD_SHAPES_NO_RESIDUALS, frame_major_do, seed=14)
+    # times at B8 H12 d64 F8 bf16 given K3's residuals, with the contiguous
+    # do autograd hands over and, as on the training path, no dbias. The
+    # library call: autograd's backward of frame_sdpa's one
     # scaled_dot_product_attention call, with its sum over the F copies of q.
     gen = torch.Generator(device="cuda").manual_seed(9)
     times = {}
     for n, biased in FRAME_TIMED:
         q, k, v, bias = timed_inputs(gen, n, biased)
         do = torch.randn((8, n, MF_FRAMES, 12, 64), generator=gen, device="cuda").to(torch.bfloat16)
+        with torch.inference_mode():
+            out, lse = flash_attention._frame_forward(q, k, v, bias, 0.125, MF_FRAMES, want_lse=True)
         leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
         qf, kf, vf, mask = frame_sdpa_operands(*leaves, bias)
-        out = F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask, scale=0.125)
+        sdpa_out = F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask, scale=0.125)
         # the cotangent in SDPA's frame-major layout [B*F, H, N', d]
         do_fm = do.permute(0, 2, 3, 1, 4).reshape(8 * MF_FRAMES, 12, n, 64).contiguous()
         t = in_turns(
-            lambda: tome_frame_attention_backward(q, k, v, bias, do, 0.125, MF_FRAMES, need_dbias=False),
+            lambda: tome_frame_attention_backward(q, k, v, bias, do, 0.125, MF_FRAMES, need_dbias=False,
+                                                  out=out, lse=lse),
             lambda: _frame_backward_reference(q, k, v, bias, do, 0.125, MF_FRAMES),
-            lambda: torch.autograd.grad(out, leaves, do_fm, retain_graph=True))
+            lambda: torch.autograd.grad(sdpa_out, leaves, do_fm, retain_graph=True))
+        # 10 B H N'^2 d operations; q, k, v and the bias read, do (F times
+        # the size of q) read, dq, dk, dv written: the function's bytes, not
+        # the residuals (out, lse) this kernel chooses to read
         flops = 10 * 8 * 12 * n * n * 64
         nbytes = (6 + MF_FRAMES) * 8 * 12 * n * 64 * 2 + (8 * n * 4 if biased else 0)
         times[str(n)] = dict(biased=biased, **t, kernel_tflops=flops / t["kernel_ms"] / 1e9,
                              **bound(flops, nbytes))
-    return emit_backward("frame_bwd_kernel", smi, rows, worst_abs, times)
+        del sdpa_out, leaves
+    emit("frame_bwd_kernel_without_residuals", checks=rows_alone, max_abs_err_vs_plain=worst_alone, nvidia_smi=smi)
+    emit("frame_bwd_kernel_resources", resources=kernel_build.kernel_resources("frame_attention_bwd.cu"))
+    return emit_backward("frame_bwd_kernel", smi, rows, max(worst_abs, worst_alone), times)
 
 
 def blockdiag_views(fused: torch.Tensor, b: int, h: int, f: int):
@@ -1297,7 +1360,8 @@ def blockdiag_sdpa_operands(fused: torch.Tensor, bias, masked: bool, f: int):
 
 
 def blockdiag_bound(s_: int, biased: bool, products: int, tensors: int) -> dict:
-    """K5a: 2 products and 4 tensors (q, k, v, out); K5b: 5 and 7."""
+    """K5a: 2 products and 4 tensors (q, k, v, out); K5b: 5 and 7 (q, k, v,
+    do read, dq, dk, dv written: not the residuals the kernel reads)."""
     flops = 2 * products * 8 * 12 * TS_FRAMES * s_ * s_ * 64
     nbytes = tensors * 8 * 12 * TS_FRAMES * s_ * 64 * 2 + (8 * TS_FRAMES * s_ * 4 if biased else 0)
     return dict(flops=flops, **bound(flops, nbytes))
@@ -1358,14 +1422,17 @@ def phase_blockdiag_kernel(smi: str) -> dict:
                 bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=first["library_ms"])
 
 
-def phase_blockdiag_bwd_kernel(smi: str) -> dict:
-    """K5b against its plain version on the same shapes and modes, with a
-    permuted (strided) token-major cotangent: dq, dk, dv and dbias, the
-    masked dbias included; fp32 within BLOCKDIAG_FP32_TOL and bf16 within
-    bf16_tol of each gradient's largest entry; the same bits twice."""
-    gen = torch.Generator(device="cuda").manual_seed(12)
+def check_blockdiag_backward(name: str, backward, shapes, seed: int):
+    """K5b, called as backward(q, k, v, bias, do, scale, frames, masked),
+    against its plain version (the TPU kernel's softmax form) at ``shapes``
+    in every mode, with a permuted (strided) token-major cotangent: dq, dk,
+    dv and dbias, the masked dbias included; fp32 within
+    BLOCKDIAG_FP32_TOL and bf16 within bf16_tol of each gradient's largest
+    entry; the same bits twice. Returns (rows, largest absolute
+    difference)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows, worst_abs = [], 0.0
-    for b, h, f, s_, d in BLOCKDIAG_SHAPES:
+    for b, h, f, s_, d in shapes:
         scale, n = d ** -0.5, f * s_
         for biased, masked in BLOCKDIAG_MODES:
             bias = blockdiag_bias(gen, b, f, s_) if biased else None
@@ -1374,24 +1441,24 @@ def phase_blockdiag_bwd_kernel(smi: str) -> dict:
             q32, k32, v32 = blockdiag_views(fused, b, h, f)
             # (at B = 1 the permuted cotangent is contiguous again)
             check((b == 1 or not do32.is_contiguous()) and not q32.is_contiguous(), "inputs are strided views")
-            got32 = tome_blockdiag_attention_backward(q32, k32, v32, bias, do32, scale, f, masked)
+            got32 = backward(q32, k32, v32, bias, do32, scale, f, masked)
             err32 = grad_errors(got32, _blockdiag_backward_reference(q32, k32, v32, bias, do32, scale, f, masked))
             check(len(err32) == (4 if biased else 3), "dbias comes with a bias and only then")
             for g, (_, rel) in err32.items():
                 check(rel <= BLOCKDIAG_FP32_TOL,
-                      f"K5b fp32 {g} err {rel} > {BLOCKDIAG_FP32_TOL} at {(b, h, f, s_, d)} {biased} {masked}")
+                      f"{name} fp32 {g} err {rel} > {BLOCKDIAG_FP32_TOL} at {(b, h, f, s_, d)} {biased} {masked}")
             q, k, v = blockdiag_views(fused.to(torch.bfloat16), b, h, f)
             do = do32.to(torch.bfloat16)  # dense and permuted: keeps its strides
             check(do.stride() == do32.stride(), "the bf16 do is the same strided view")
-            got = tome_blockdiag_attention_backward(q, k, v, bias, do, scale, f, masked)
-            again = tome_blockdiag_attention_backward(q, k, v, bias, do, scale, f, masked)
-            check(all(torch.equal(x, y) for x, y in zip(got, again) if x is not None), "K5b differs from run to run")
+            got = backward(q, k, v, bias, do, scale, f, masked)
+            again = backward(q, k, v, bias, do, scale, f, masked)
+            check(all(torch.equal(x, y) for x, y in zip(got, again) if x is not None), f"{name} differs from run to run")
             ref = _blockdiag_backward_reference(q.float(), k.float(), v.float(), bias, do.float(), scale, f, masked)
             base = _blockdiag_backward_reference(q, k, v, bias, do, scale, f, masked)
             err_k, err_p = grad_errors(got, ref), grad_errors(base, ref)
             for g in err_k:
                 tol = bf16_tol(err_p[g][1])
-                check(err_k[g][1] <= tol, f"K5b bf16 {g} err {err_k[g][1]} > {tol} at {(b, h, f, s_, d)} {biased} {masked}")
+                check(err_k[g][1] <= tol, f"{name} bf16 {g} err {err_k[g][1]} > {tol} at {(b, h, f, s_, d)} {biased} {masked}")
             vs_plain = grad_errors(got, base)
             worst_abs = max([worst_abs] + [e for e, _ in vs_plain.values()] + [e for e, _ in err32.values()])
             rows.append(dict(shape=[b, h, f, s_, d], biased=biased, exclude_first_row=masked,
@@ -1399,8 +1466,17 @@ def phase_blockdiag_bwd_kernel(smi: str) -> dict:
                              bf16_rel_err={k_: r for k_, (_, r) in err_k.items()},
                              bf16_plain_rel_err={k_: r for k_, (_, r) in err_p.items()}))
     torch.cuda.synchronize()
-    # times at B8 H12 d64 F8 bf16 with the contiguous do autograd hands over
-    # and no dbias, beside autograd's backward of one
+    return rows, worst_abs
+
+
+def phase_blockdiag_bwd_kernel(smi: str) -> dict:
+    """K5b against its plain version given K5a's residuals, and without
+    them (the wrapper then runs K5a first); timed given the residuals."""
+    rows, worst_abs = check_blockdiag_backward("K5b", k5b_given_residuals, BLOCKDIAG_BWD_SHAPES, seed=12)
+    rows_alone, worst_alone = check_blockdiag_backward(
+        "K5b without residuals", tome_blockdiag_attention_backward, BLOCKDIAG_BWD_SHAPES_NO_RESIDUALS, seed=15)
+    # times at B8 H12 d64 F8 bf16 given K5a's residuals, with the contiguous
+    # do autograd hands over and no dbias, beside autograd's backward of one
     # scaled_dot_product_attention call on the (b t) batch
     gen = torch.Generator(device="cuda").manual_seed(13)
     times = {}
@@ -1409,18 +1485,24 @@ def phase_blockdiag_bwd_kernel(smi: str) -> dict:
         bias = blockdiag_bias(gen, 8, TS_FRAMES, s_) if biased else None
         q, k, v = blockdiag_views(fused, 8, 12, TS_FRAMES)
         do = torch.randn((8, TS_FRAMES * s_, 768), generator=gen, device="cuda").to(torch.bfloat16)
+        with torch.inference_mode():
+            out, lse = flash_attention._blockdiag_forward(q, k, v, bias, 0.125, TS_FRAMES, masked, want_lse=True)
         qs, ks, vs, mask = blockdiag_sdpa_operands(fused, bias, masked, TS_FRAMES)
         leaves = [t.requires_grad_() for t in (qs, ks, vs)]
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=0.125)
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=0.125)
         do_bt = do.view(8 * TS_FRAMES, s_, 12, 64).transpose(1, 2).contiguous()
         t = in_turns(
-            lambda: tome_blockdiag_attention_backward(q, k, v, bias, do, 0.125, TS_FRAMES, masked, need_dbias=False),
+            lambda: tome_blockdiag_attention_backward(q, k, v, bias, do, 0.125, TS_FRAMES, masked, need_dbias=False,
+                                                      out=out, lse=lse),
             lambda: _blockdiag_backward_reference(q, k, v, bias, do, 0.125, TS_FRAMES, masked),
-            lambda: torch.autograd.grad(out, leaves, do_bt, retain_graph=True))
+            lambda: torch.autograd.grad(sdpa_out, leaves, do_bt, retain_graph=True))
         bnd = blockdiag_bound(s_, biased, products=5, tensors=7)
         times[str(s_)] = dict(biased=biased, exclude_first_row=masked, **t,
                               kernel_tflops=bnd.pop("flops") / t["kernel_ms"] / 1e9, **bnd)
-    return emit_backward("blockdiag_bwd_kernel", smi, rows, worst_abs, times, first=str(BLOCKDIAG_TIMED[0][0]))
+    emit("blockdiag_bwd_kernel_without_residuals", checks=rows_alone, max_abs_err_vs_plain=worst_alone, nvidia_smi=smi)
+    emit("blockdiag_bwd_kernel_resources", resources=kernel_build.kernel_resources("blockdiag_attention_bwd.cu"))
+    return emit_backward("blockdiag_bwd_kernel", smi, rows, max(worst_abs, worst_alone), times,
+                         first=str(BLOCKDIAG_TIMED[0][0]))
 
 
 def phase_blocks(phase: str, cfg, seed: int, block_kwargs: dict, launch_count, final_tokens: int,

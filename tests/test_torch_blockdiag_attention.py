@@ -276,3 +276,30 @@ def test_packed_window_emulation_matches_vtm(s, frames, mode):
     got = _packed_window_emulation(*_torch(q, k, v, bias), 0.25, frames, excl)
     assert not torch.isnan(got).any()
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mode", [(False, False), (True, False), (True, True)],
+                         ids=["unbiased", "biased", "biased_row_mask"])
+@pytest.mark.parametrize("frames,s", [(4, 21), (7, 10)])
+def test_reference_lse_is_each_rows_logsumexp(frames, s, mode):
+    """``_blockdiag_reference(..., want_lse=True)``: the same output, and lse
+    fp32 [B, H, N], one a row, equal to torch.logsumexp over its frame's
+    keys of the logits, the bias (kept off row 0 of each frame under the
+    row mask) included; computed here in float64, within 1e-5."""
+    with_bias, excl = mode
+    q, k, v, bias = _torch(*_inputs(frames, s, 2, with_bias, seed=10))
+    out, lse = _blockdiag_reference(q, k, v, bias, 0.25, frames, excl, want_lse=True)
+    assert torch.equal(out, tome_blockdiag_attention(q, k, v, bias, 0.25, frames, excl))
+    b, h, n, d = q.shape
+    assert lse.shape == (b, h, n) and lse.dtype == torch.float32
+    qf, kf = (t.double().reshape(b, h, frames, s, d) for t in (q, k))
+    logits = (qf * 0.25) @ kf.transpose(-2, -1)
+    if bias is not None:
+        rows = torch.ones(s, dtype=torch.float64)
+        if excl:
+            rows[0] = 0.0
+        logits = logits + rows[:, None] * bias.double().reshape(b, 1, frames, 1, s)
+    want = torch.logsumexp(logits, dim=-1).reshape(b, h, n)
+    np.testing.assert_allclose(lse.double().numpy(), want.numpy(), rtol=0, atol=1e-5)
+    _, again = fa._blockdiag_forward(q, k, v, bias, 0.25, frames, excl, want_lse=True)
+    assert torch.equal(again, lse)

@@ -29,7 +29,6 @@ torch.set_num_threads(2)
 
 TOL = 1e-5
 NAMES = ("dq", "dk", "dv", "dbias")
-
 # (frames, s, heads, with_bias, exclude_first_row): tests/test_flash_attention.py's cases
 CASES = [
     (8, 40, 4, True, True),
@@ -37,6 +36,21 @@ CASES = [
     (8, 40, 4, False, False),
     (5, 8, 4, True, True),    # odd frames
     (2, 67, 2, True, True),   # ragged s over one 64-row tile
+]
+# the residual form against the Pallas kernel in fp32: both sum in fp32 in
+# another order, so each gradient within 1e-5 of its largest entry (K2's
+# residual tests' tolerance); bf16: within 5e-2, a few bf16 roundings of
+# values of order 1 (K2's bf16 tolerance)
+RESIDUAL_FP32_TOL = 1e-5
+BF16_TOL = 5e-2
+# the residual cases: the CASES above, and frames of at most 32 tokens that
+# the Hopper body packs 64 // s to a tile, at a frame count the packing
+# does not divide (F 7 at s 10 and 18: 6 and 3 frames a tile)
+RESIDUAL_CASES = CASES + [
+    (7, 10, 2, True, True),
+    (7, 18, 3, True, True),
+    (7, 10, 2, False, False),
+    (7, 18, 2, True, False),
 ]
 
 
@@ -49,14 +63,15 @@ def _inputs(f, s, h, with_bias, seed=3, b=2, d=16):
     return q, k, v, bias, cot
 
 
-def _jax_grads(fn, q, k, v, bias, cot, f, excl):
+def _jax_grads(fn, q, k, v, bias, cot, f, excl, dtype=jnp.float32):
     argnums = (0, 1, 2) + ((3,) if bias is not None else ())
 
     def loss(q_, k_, v_, b_):
-        return (fn(q_, k_, v_, b_, 0.25, f, excl) * jnp.asarray(cot)).sum()
+        return (fn(q_, k_, v_, b_, 0.25, f, excl).astype(jnp.float32) * jnp.asarray(cot)).sum()
 
-    args = [jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None if bias is None else jnp.asarray(bias)]
-    return [np.asarray(g) for g in jax.grad(loss, argnums=argnums)(*args)]
+    args = [jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype),
+            None if bias is None else jnp.asarray(bias)]
+    return [np.asarray(g.astype(jnp.float32)) for g in jax.grad(loss, argnums=argnums)(*args)]
 
 
 def _close(got, want, name):
@@ -144,3 +159,89 @@ def test_cpu_backward_launches_nothing():
     q, k, v, bias, cot = (torch.from_numpy(a) for a in _inputs(2, 5, 2, True))
     tome_blockdiag_attention_backward(q, k, v, bias, cot, 0.25, 2, True)
     assert fa.BLOCKDIAG_BWD_LAUNCHES == before
+
+
+def _residuals(q, k, v, bias, f, excl):
+    return fa._blockdiag_forward(q, k, v, bias, 0.25, f, excl, want_lse=True)
+
+
+@pytest.mark.parametrize("f,s,h,with_bias,excl", RESIDUAL_CASES)
+def test_residual_reference_matches_vtm_kernel(f, s, h, with_bias, excl):
+    """The kernel's arithmetic (p = exp(s - lse), delta = rowsum(do * out)
+    from K5a's plain residuals) against jax.grad through vtm's K5b, fp32:
+    within RESIDUAL_FP32_TOL (1e-5) of each gradient's largest entry."""
+    q, k, v, bias, cot = _inputs(f, s, h, with_bias, seed=11)
+    if bias is not None:
+        bias.reshape(2, f, s)[:, :, 0] = 0.0  # the CLS token's size is 1
+    want = _jax_grads(j_blockdiag, q, k, v, bias, cot, f, excl)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tb = None if bias is None else torch.from_numpy(bias)
+    out, lse = _residuals(tq, tk, tv, tb, f, excl)
+    assert lse.shape == (2, h, f * s) and lse.dtype == torch.float32
+    got = _blockdiag_backward_reference(tq, tk, tv, tb, torch.from_numpy(cot), 0.25, f, excl, out=out, lse=lse)
+    assert (got[3] is None) == (bias is None)
+    for name, g, w in zip(NAMES, got, want):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=RESIDUAL_FP32_TOL * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("f,s,h,with_bias,excl", [(4, 50, 2, True, True), (7, 10, 2, True, True),
+                                                  (7, 18, 2, False, False)])
+def test_residual_reference_matches_vtm_kernel_bf16(f, s, h, with_bias, excl):
+    """The same in bf16 at d = 64: out is K5a's bf16 output, so delta
+    carries its rounding; the gradients stay within BF16_TOL (5e-2) of
+    vtm's K5b in bf16."""
+    q, k, v, bias, cot = _inputs(f, s, h, with_bias, seed=12, b=1, d=64)
+    want = _jax_grads(j_blockdiag, q, k, v, bias, cot, f, excl, jnp.bfloat16)
+    tq, tk, tv, tcot = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, cot))
+    tb = None if bias is None else torch.from_numpy(bias)
+    out, lse = _residuals(tq, tk, tv, tb, f, excl)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    got = _blockdiag_backward_reference(tq, tk, tv, tb, tcot, 0.25, f, excl, out=out, lse=lse)
+    for name, g, w in zip(NAMES[:3], got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=BF16_TOL, atol=BF16_TOL, err_msg=name)
+    if with_bias:
+        np.testing.assert_allclose(got[3].numpy(), want[3], atol=BF16_TOL * np.abs(want[3]).max(), err_msg="dbias")
+
+
+def test_function_saves_the_residuals_and_backward_uses_them(monkeypatch):
+    """_BlockdiagAttention keeps (q, k, v, key_bias, out, lse) when a
+    gradient is wanted and hands out and lse to the backward: no K5a rerun,
+    the residual arithmetic. Without a gradient K5a writes no lse."""
+    f, s, h = 3, 10, 2
+    q, k, v, bias, cot = (torch.from_numpy(a) for a in _inputs(f, s, h, True, seed=13))
+    q.requires_grad_()
+    forward_calls = []
+    real_forward = fa._blockdiag_forward
+    monkeypatch.setattr(fa, "_blockdiag_forward",
+                        lambda *a, **kw: forward_calls.append(kw) or real_forward(*a, **kw))
+    with torch.no_grad():
+        assert tome_blockdiag_attention(q, k, v, bias, 0.25, f, True).grad_fn is None
+    assert tome_blockdiag_attention(q.detach(), k, v, bias, 0.25, f, True).grad_fn is None
+    out = tome_blockdiag_attention(q, k, v, bias, 0.25, f, True)
+    assert forward_calls == [{}, {}, {"want_lse": True}]
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 6 and torch.equal(saved[4], out)
+    assert saved[5].shape == (2, h, f * s) and saved[5].dtype == torch.float32
+    calls = []
+    real = fa._blockdiag_backward_reference
+    monkeypatch.setattr(fa, "_blockdiag_backward_reference", lambda *a, **kw: calls.append(a) or real(*a, **kw))
+    monkeypatch.setattr(fa, "_blockdiag_forward", lambda *a, **kw: pytest.fail("K5a ran again in the backward"))
+    (out * cot).sum().backward()
+    assert len(calls) == 1 and calls[0][8] is not None and calls[0][9] is not None
+
+
+def test_backward_without_residuals_makes_them():
+    """tome_blockdiag_attention_backward called alone runs K5a (its plain
+    version here) for out and lse: the same gradients as with them, and no
+    kernel launched on the CPU."""
+    f, s, h = 7, 10, 2
+    q, k, v, bias, cot = (torch.from_numpy(a) for a in _inputs(f, s, h, True, seed=14))
+    before = fa.BLOCKDIAG_LAUNCHES, fa.BLOCKDIAG_BWD_LAUNCHES
+    out, lse = _residuals(q, k, v, bias, f, True)
+    alone = tome_blockdiag_attention_backward(q, k, v, bias, cot, 0.25, f, True)
+    given = tome_blockdiag_attention_backward(q, k, v, bias, cot, 0.25, f, True, out=out, lse=lse)
+    for a, w in zip(alone, given):
+        assert torch.equal(a, w)
+    assert (fa.BLOCKDIAG_LAUNCHES, fa.BLOCKDIAG_BWD_LAUNCHES) == before

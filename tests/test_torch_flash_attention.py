@@ -155,7 +155,7 @@ def test_build_command_targets_hopper():
         "flash_attention_bwd.cu", "flash_attention_fwd.cu", "frame_attention_bwd.cu", "frame_attention_fwd.cu",
     ]
     assert {h.name for h in build.CSRC.glob("*.cuh")} == {
-        "attention_tiles.cuh", "wgmma_attention.cuh", "wgmma_tiles.cuh"}
+        "attention_tiles.cuh", "wgmma_attention.cuh", "wgmma_attention_bwd.cuh", "wgmma_tiles.cuh"}
     objs = [build.BUILD_DIR / f"{s.stem}.o" for s in srcs]
     for src, obj in zip(srcs, objs):
         cmd = build.compile_command(src, obj)

@@ -84,3 +84,25 @@ def test_kernel_args_rejected(q, bias, frames, match):
     here on meta and CPU tensors; on the card they guard every launch)."""
     with pytest.raises(ValueError, match=match):
         check_frame_kernel_args(q, q, q, bias, frames)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_reference_lse_is_each_frames_logsumexp(with_bias):
+    """``_frame_reference(..., want_lse=True)``: the same output, and lse
+    fp32 [B, H, F, N] equal to torch.logsumexp over each frame's keys of
+    the logits, the bias included (computed here in float64, within 1e-5:
+    fp32 sums in another order)."""
+    f, s, h = 4, 50, 3
+    q, k, v, bias = _inputs(f, s, h, with_bias, seed=3)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tb = None if bias is None else torch.from_numpy(bias)
+    out, lse = flash_attention._frame_reference(tq, tk, tv, tb, SCALE, f, want_lse=True)
+    assert torch.equal(out, tome_frame_attention(tq, tk, tv, tb, SCALE, f))
+    assert lse.shape == (B, h, f, f * s) and lse.dtype == torch.float32
+    logits = (tq.double() * SCALE) @ tk.double().transpose(-2, -1)
+    if tb is not None:
+        logits = logits + tb.double()[:, None, None, :]
+    want = torch.logsumexp(logits.view(B, h, f * s, f, s), dim=-1).transpose(2, 3)
+    np.testing.assert_allclose(lse.double().numpy(), want.numpy(), rtol=0, atol=1e-5)
+    _, again = flash_attention._frame_forward(tq, tk, tv, tb, SCALE, f, want_lse=True)
+    assert torch.equal(again, lse)

@@ -33,6 +33,10 @@ GRAD_TOL = 2e-4
 # bf16: the plain version may be off the JAX kernel by a few bf16 roundings
 # of values of order 1 (the forward test's tolerance)
 BF16_TOL = 5e-2
+# the residual form against the Pallas kernel in fp32: both sum in fp32 in
+# another order, so each gradient within 1e-5 of its largest entry (K2's
+# residual tests' tolerance)
+RESIDUAL_FP32_TOL = 1e-5
 
 # (frames, keys per frame, heads): the JAX gradient test's cases
 CASES = [
@@ -203,3 +207,92 @@ def test_frame_kernel_args_reject_what_the_kernels_do_not_take():
     long = torch.zeros(1, 1, 2 * (fa.MAX_FRAME_LEN + 1), 16)
     with pytest.raises(ValueError, match="keys per frame"):
         fa.check_frame_kernel_args(long, long, long, None, 2)
+
+
+def _residuals(q, k, v, bias, scale, frames):
+    return fa._frame_forward(q, k, v, bias, scale, frames, want_lse=True)
+
+
+@pytest.mark.parametrize("f,s,h", CASES)
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_residual_reference_matches_vtm_kernel(f, s, h, with_bias):
+    """The kernel's arithmetic (p = exp(s - lse_f), delta_f = rowsum(do_f *
+    out_f) from K3's plain residuals) against jax.grad through vtm's K4,
+    fp32: within RESIDUAL_FP32_TOL (1e-5) of each gradient's largest
+    entry."""
+    b, d = 2, 16
+    q, k, v, bias, cot = _inputs(b, h, f, s, d, with_bias, seed=6)
+    want = _jax_grads(q, k, v, bias, cot, 0.25, f)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tb = None if bias is None else torch.from_numpy(bias)
+    out, lse = _residuals(tq, tk, tv, tb, 0.25, f)
+    assert lse.shape == (b, h, f, f * s) and lse.dtype == torch.float32
+    got = _frame_backward_reference(tq, tk, tv, tb, torch.from_numpy(cot), 0.25, f, out=out, lse=lse)
+    assert (got[3] is None) == (bias is None)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert tuple(a.shape) == w.shape, name
+        np.testing.assert_allclose(a.numpy(), w, rtol=0, atol=RESIDUAL_FP32_TOL * np.abs(w).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_residual_reference_matches_vtm_kernel_bf16(with_bias):
+    """The same in bf16: out is K3's bf16 output, so delta carries its
+    rounding; the gradients stay within BF16_TOL (5e-2) of vtm's K4 in
+    bf16."""
+    b, h, f, s, d = 1, 2, 4, 50, 64
+    q, k, v, bias, cot = _inputs(b, h, f, s, d, with_bias, seed=7)
+    want = _jax_grads(q, k, v, bias, cot, 0.125, f, jnp.bfloat16)
+    tq, tk, tv, tcot = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, cot))
+    tb = None if bias is None else torch.from_numpy(bias)
+    out, lse = _residuals(tq, tk, tv, tb, 0.125, f)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    got = _frame_backward_reference(tq, tk, tv, tb, tcot, 0.125, f, out=out, lse=lse)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), w, rtol=BF16_TOL, atol=BF16_TOL, err_msg=name)
+    if with_bias:
+        np.testing.assert_allclose(got[3].numpy(), want[3], atol=BF16_TOL * np.abs(want[3]).max(),
+                                   err_msg="dbias")
+
+
+def test_function_saves_the_residuals_and_backward_uses_them(monkeypatch):
+    """_FrameAttention keeps (q, k, v, key_bias, out, lse) when a gradient
+    is wanted and hands out and lse to the backward: no K3 rerun, the
+    residual arithmetic. Without a gradient K3 writes no lse."""
+    b, h, f, s, d = 1, 2, 4, 10, 16
+    q, k, v, bias, cot = (torch.from_numpy(x) for x in _inputs(b, h, f, s, d, True, seed=8))
+    q.requires_grad_()
+    forward_calls = []
+    real_forward = fa._frame_forward
+    monkeypatch.setattr(fa, "_frame_forward",
+                        lambda *a, **kw: forward_calls.append(kw) or real_forward(*a, **kw))
+    with torch.no_grad():
+        assert tome_frame_attention(q, k, v, bias, 0.25, f).grad_fn is None
+    assert tome_frame_attention(q.detach(), k, v, bias, 0.25, f).grad_fn is None
+    out = tome_frame_attention(q, k, v, bias, 0.25, f)
+    assert forward_calls == [{}, {}, {"want_lse": True}]
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 6 and torch.equal(saved[4], out)
+    assert saved[5].shape == (b, h, f, f * s) and saved[5].dtype == torch.float32
+    calls = []
+    real = fa._frame_backward_reference
+    monkeypatch.setattr(fa, "_frame_backward_reference", lambda *a, **kw: calls.append(a) or real(*a, **kw))
+    monkeypatch.setattr(fa, "_frame_forward", lambda *a, **kw: pytest.fail("K3 ran again in the backward"))
+    (out * cot).sum().backward()
+    assert len(calls) == 1 and calls[0][7] is not None and calls[0][8] is not None
+
+
+def test_backward_without_residuals_makes_them():
+    """tome_frame_attention_backward called alone runs K3 (its plain
+    version here) for out and lse: the same gradients as with them, and no
+    kernel launched on the CPU."""
+    b, h, f, s, d = 1, 2, 3, 13, 16
+    q, k, v, bias, cot = (torch.from_numpy(x) for x in _inputs(b, h, f, s, d, True, seed=9))
+    before = fa.FRAME_LAUNCHES, fa.FRAME_BWD_LAUNCHES
+    out, lse = _residuals(q, k, v, bias, 0.25, f)
+    alone = tome_frame_attention_backward(q, k, v, bias, cot, 0.25, f)
+    given = tome_frame_attention_backward(q, k, v, bias, cot, 0.25, f, out=out, lse=lse)
+    for a, w in zip(alone, given):
+        assert torch.equal(a, w)
+    assert (fa.FRAME_LAUNCHES, fa.FRAME_BWD_LAUNCHES) == before

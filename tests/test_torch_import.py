@@ -171,7 +171,7 @@ def test_every_kernel_source_is_built_and_bound():
 
 def test_blockdiag_sources_hold_kernels_of_their_own():
     """K5a and K5b are __global__ functions of their own that take the
-    frame count and the row mask (K5a: its first body and its Hopper body);
+    frame count and the row mask (each: its first body and its Hopper body);
     neither their sources nor their wrappers call a library's attention, a
     matrix-product routine or K1/K2's entry points."""
     import inspect
@@ -180,7 +180,8 @@ def test_blockdiag_sources_hold_kernels_of_their_own():
 
     for name, kernels in (("blockdiag_attention_fwd.cu", ["blockdiag_attention_fwd_kernel",
                                                           "blockdiag_attention_fwd_wgmma"]),
-                          ("blockdiag_attention_bwd.cu", ["blockdiag_bwd_dq_kernel", "blockdiag_bwd_dkdv_kernel"])):
+                          ("blockdiag_attention_bwd.cu", ["blockdiag_bwd_dq_kernel", "blockdiag_bwd_dkdv_kernel",
+                                                          "blockdiag_bwd_dq_wgmma", "blockdiag_bwd_dkdv_wgmma"])):
         text = (build.CSRC / name).read_text()
         assert text.count("__global__") == len(kernels)
         for kernel in kernels:

@@ -168,6 +168,7 @@ def load_library() -> ctypes.CDLL:
     lib.vtm_frame_attention_fwd.argtypes = [
         i, i,           # dtype, head_dim
         p, p, p, p, p,  # q, k, v, key_bias, out
+        p,              # lse (or null)
         i, i, i, i,     # batch, num_heads, n, frames
         ctypes.c_float,  # scale
         p,              # strides (13 x int64, host memory)
@@ -188,16 +189,18 @@ def load_library() -> ctypes.CDLL:
     lib.vtm_frame_attention_bwd.argtypes = [
         i, i,           # dtype, head_dim
         p, p, p, p, p,  # q, k, v, key_bias, do
-        p, p, p, p, p,  # dq, dk, dv, dbias, stats
+        p, p,           # out, lse (the forward's residuals)
+        p, p, p, p, p,  # dq, dk, dv, dbias, delta
         i, i, i, i,     # batch, num_heads, n, frames
         ctypes.c_float,  # scale
-        p,              # strides (22 x int64, host memory)
+        p,              # strides (26 x int64, host memory)
         p,              # cudaStream_t
     ]
     lib.vtm_frame_attention_bwd.restype = i
     lib.vtm_blockdiag_attention_fwd.argtypes = [
         i, i,           # dtype, head_dim
         p, p, p, p, p,  # q, k, v, key_bias, out
+        p,              # lse (or null)
         i, i, i, i, i,  # batch, num_heads, n, frames, exclude_first_row
         i, i, i,        # the launch plan: frames per block, tiles per frame, blocks
         ctypes.c_float,  # scale
@@ -208,10 +211,12 @@ def load_library() -> ctypes.CDLL:
     lib.vtm_blockdiag_attention_bwd.argtypes = [
         i, i,           # dtype, head_dim
         p, p, p, p, p,  # q, k, v, key_bias, do
-        p, p, p, p, p,  # dq, dk, dv, dbias, stats
+        p, p,           # out, lse (the forward's residuals)
+        p, p, p, p, p,  # dq, dk, dv, dbias, delta
         i, i, i, i, i,  # batch, num_heads, n, frames, exclude_first_row
+        i, i, i,        # the launch plan: frames per block, tiles per frame, blocks
         ctypes.c_float,  # scale
-        p,              # strides (21 x int64, host memory)
+        p,              # strides (24 x int64, host memory)
         p,              # cudaStream_t
     ]
     lib.vtm_blockdiag_attention_bwd.restype = i

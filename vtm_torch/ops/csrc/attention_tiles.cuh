@@ -2,8 +2,8 @@
 // (flash_attention_fwd.cu, flash_attention_bwd.cu, frame_attention_fwd.cu,
 // frame_attention_bwd.cu, the two blockdiag_attention sources and the three
 // ab_ sources): dtype conversion, the 16-byte staging of a
-// 64-row tile of q, k, v or do into shared memory, and the tile products
-// and register accumulators of the two backward kernels.
+// 64-row tile of q, k, v or do into shared memory, and the tile products,
+// register accumulators and row residuals of the backward kernels.
 
 #pragma once
 
@@ -231,6 +231,23 @@ __device__ __forceinline__ float logit(float qk, float scale, const float* bias,
   return fmaf(qk, scale, bias ? bias[key] : 0.f);
 }
 
+// delta = rowsum(do * out) of query row `qrow` (the backward's residual
+// form: it equals rowsum(p * dp) since out = p v), from this lane's half
+// (`half` of D columns) summed with the neighbouring lane that holds the
+// other half; 0 at or past `end`. Row strides in elements.
+template <typename T, int D>
+__device__ __forceinline__ float row_delta(const T* go, long long go_stride, const T* out,
+                                           long long o_stride, int qrow, int end, int half) {
+  float acc = 0.f;
+  if (qrow < end) {
+    const T* g = go + qrow * go_stride + half * (D / 2);
+    const T* o = out + qrow * o_stride + half * (D / 2);
+#pragma unroll 8
+    for (int d = 0; d < D / 2; ++d) acc = fmaf(to_float(g[d]), to_float(o[d]), acc);
+  }
+  return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
+}
+
 // The dynamic shared-memory limit of `kernel`, raised to `bytes` once per
 // device: `done` is the caller's static flag array, one per kernel
 // instantiation (every launcher of K1-K5b).
@@ -245,6 +262,26 @@ cudaError_t allow_smem_once(K kernel, int bytes, bool (&done)[kMaxDevices]) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
+}
+
+// A backward's two kernels (K2, K4, K5b, both bodies): each one's
+// shared-memory limit raised once a device (the kernels are template
+// arguments, so each pair has flags of its own), then the dq kernel and,
+// behind it on the same stream, the dk/dv kernel, which reads the delta
+// the dq kernel wrote.
+template <auto kDq, auto kDkdv, class Args>
+cudaError_t launch_bwd_pair(const Args& args, dim3 dq_grid, dim3 dkdv_grid, int threads, int dq_bytes,
+                            int dkdv_bytes, cudaStream_t stream) {
+  static bool dq_done[kMaxDevices] = {}, dkdv_done[kMaxDevices] = {};
+  cudaError_t err = allow_smem_once(kDq, dq_bytes, dq_done);
+  if (err != cudaSuccess) return err;
+  err = allow_smem_once(kDkdv, dkdv_bytes, dkdv_done);
+  if (err != cudaSuccess) return err;
+  kDq<<<dq_grid, threads, dq_bytes, stream>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kDkdv<<<dkdv_grid, threads, dkdv_bytes, stream>>>(args);
+  return cudaGetLastError();
 }
 
 }  // namespace vtm

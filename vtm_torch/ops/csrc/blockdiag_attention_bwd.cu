@@ -4,64 +4,84 @@
 // (i, j in [0, s): the queries of frame f attend only to the keys of frame
 // f; the row mask m_i is 1, or with exclude_first_row m_0 = 0) with respect
 // to q, k, v and key_bias, given do = d(loss)/d(out), token-major
-// [B, F*s, H*d] and read through its strides.
+// [B, F*s, H*d] and read through its strides, and the forward's residuals:
+// out itself (the same layout) and lse, fp32 [B, H, F*s], the log-sum-exp
+// of each row's logits, which K5a (blockdiag_attention_fwd.cu) writes when
+// a gradient is wanted.
 //
 // Replaces the Pallas TPU kernel of vtm/ops/flash_attention.py::
 // _blockdiag_backward (kernel _make_blockdiag_bwd_kernel, the custom_vjp of
-// tome_blockdiag_attention). The math and its rounding points are that
-// kernel's, per (b, h, frame):
+// tome_blockdiag_attention). Its math and rounding points, per
+// (b, h, frame), with the row statistics taken from the residuals:
 //   s  = (q k^T) * scale + m * bias      fp32, from the unscaled q
-//   p  = softmax(s)                      fp32, normalised
+//   p  = exp(s - lse)                    fp32, normalised by the saved lse
 //   dp = do v^T                          fp32
-//   delta = rowsum(p * dp),  ds = p * (dp - delta)
+//   delta = rowsum(do * out),  ds = p * (dp - delta)
 //   dq = scale * (ds_lo k)               ds_lo, p_lo: ds, p rounded to the
 //   dk = scale * (ds_lo^T q)             input dtype before the products;
 //   dv = p_lo^T do                       fp32 sums, cast once at the end
 //   dbias[b, h, key] = sum over the queries the bias reached (m_i = 1) of
 //                      the unrounded ds
-// The sum of dbias over heads is left to the caller.
+// delta = rowsum(do * out) equals the TPU kernel's rowsum(p * dp) since
+// out = p v. The sum of dbias over heads is left to the caller.
 //
 // What bounds it on the H100: at B8 H12 d64 F8 s197 the five products are
-// 10*B*H*F*s^2*d = 19 GFLOP against about 136 MB of q/k/v/do/dq/dk/dv,
-// about 140 FLOP per byte: below the card's ~295 FLOP/byte bf16 ridge, so
-// device memory bounds it as long as no [s, s] tile leaves the chip.
+// 10*B*H*F*s^2*d = 19 GFLOP against about 155 MB of q/k/v/do/out/dq/dk/dv
+// and the lse, about 125 FLOP per byte: below the card's ~295 FLOP/byte
+// bf16 ridge, so device memory bounds it (0.046 ms) as long as no [s, s]
+// tile leaves the chip; the merged layers (s = 179 ... 10) more so.
 //
-// Design (first version: simple, right and the same from run to run):
-//   The TPU program holds a whole frame's [s_pad, s_pad] fp32 tiles of s and
-//   dp in VMEM, so dq, dk and dv of a (head, frame) are local writes of one
-//   program. Two such tiles at s = 197 are over a block's shared memory
-//   here, so each sum gets one owner among [64 x 64] tiles instead, with no
-//   atomics and for any frame length:
-//   * blockdiag_bwd_dq_kernel, one block per (b*h, frame, 64-row q tile of
-//     the frame), walks the frame's key tiles twice. Pass 1 finds each
-//     row's max m, denominator l and delta with an online softmax and
-//     writes them to [3, B, H, F*s] fp32 scratch. Pass 2 recomputes s and
-//     dp, forms ds, and sums dq over the frame's keys in registers.
-//   * blockdiag_bwd_dkdv_kernel, one block per (b*h, frame, 64-key tile of
-//     the frame), keeps its K/V tile in shared memory, walks the frame's q
-//     tiles in order, recomputes s and dp from the saved row statistics,
-//     and sums dk, dv (registers) and the dbias column sums over the
-//     frame's queries, row 0 left out of dbias under the row mask.
-//   No tile runs over into the next frame: rows and keys at or past the
-//   frame's end are staged as zeros, masked by index (logit -1e30, p = ds =
-//   0) and never stored; the 16-wide groups past the end are skipped in
-//   every product, and what they leave stale in shared memory is never read
-//   as a key or a query.
-//   That is nine [64 x 64 x d] products per tile pair where five are
-//   needed, the price of owning every sum.
-//   * bf16 runs the products on the tensor cores (nvcuda::wmma 16x16x16,
-//     fp32 accumulation); fp32 runs them as FMAs on the CUDA cores so that
-//     fp32 gradients stay within fp32 rounding of the plain version.
-// A whole frame per block at short s (one pass, five products), wgmma and
-// TMA are left for later versions.
+// Design. The TPU program holds a whole frame's [s_pad, s_pad] fp32 tiles
+// of s and dp in VMEM, so dq, dk and dv of a (head, frame) are local writes
+// of one program. Two such tiles at s = 197 are over a block's shared
+// memory here, so each sum gets one owner among 64 x 64 tiles instead, with
+// no atomics (two runs give the same bits) and for any frame length. Both
+// kernels follow K5a's launch plan (ops/flash_attention.py::blockdiag_plan,
+// passed as three ints and checked here):
+//   * blockdiag_bwd_dq, one block per planned query tile: delta = rowsum(
+//     do * out) of its rows (also written to a [B, H, F*s] scratch), then
+//     one pass over the keys of its frames summing dq: three products a
+//     tile pair.
+//   * blockdiag_bwd_dkdv, launched after it on the same stream, one block
+//     per planned key tile: over the query tiles of its frames it sums dk,
+//     dv and the dbias column sums, the rows the bias does not reach left
+//     out of dbias: four products a tile pair.
+// Rows and keys at or past a frame's end are staged as zeros, weigh
+// nothing (p = 0) and are never stored.
+// Two bodies:
+//   * bf16 at d = 64, the head dimension of every ViT-B path: the Hopper
+//     backward tile loop of wgmma_attention_bwd.cuh (shared with K2 and
+//     K4), one warpgroup a block, every product a wgmma m64n64k16 with S,
+//     dP, P and dS in registers and a two-stage cp.async ring. Frames of
+//     more than 32 tokens: frame-aligned 64-row tiles (s = 197: four, the
+//     last with 5 rows and 5 keys), keys past the frame's end masked on its
+//     last tile, row 0 of the frame out of the bias on the tile that holds
+//     it. Frames of at most 32 tokens: 64 // s whole frames packed into one
+//     query tile and one key tile, each row's keys (and each key's rows)
+//     the window of its own frame, found once a thread and compared on the
+//     accumulators on every tile; a clip's last block holds F mod g frames.
+//     The biased and unbiased, packed and frame-aligned cases are instances
+//     chosen at compile time.
+//   * every other case (fp32, and bf16 at d = 16, 32, 128): the first
+//     version's body, one frame's 64-row tile a block, in the same residual
+//     form (no statistics pass): nvcuda::wmma 16x16x16 for bf16 with S,
+//     dP, P and dS in shared memory, fp32 FMAs on the CUDA cores so that
+//     fp32 gradients stay within fp32 rounding of the plain version; the
+//     16-wide groups past a frame's end are skipped in every product, and
+//     what they leave stale in shared memory is never read as a key or a
+//     query.
+// TMA, several heads a block and warp specialisation are left for later
+// versions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "wgmma_attention_bwd.cuh"
 
 namespace {
 
@@ -70,18 +90,19 @@ using vtm::from_float;
 using vtm::load_tile;
 using vtm::logit;
 using vtm::product_abt;
+using vtm::row_delta;
 using vtm::write_rows;
 template <typename T, int D>
 using Layout = vtm::BwdLayout<T, D>;
+using Plan = vtm::wg::BlockdiagPlan;
 
 constexpr int kTile = vtm::kTileRows;        // rows of a q tile and keys of a k tile
 constexpr int kThreads = vtm::kTileThreads;  // 4 warps, each owning a 16-row strip
-constexpr float kMask = vtm::kMask;
 
-// Element strides (batch, head, row) of q, k, v, do and of the outputs dq,
-// dk, dv; the last dim is contiguous everywhere.
+// Element strides (batch, head, row) of q, k, v, do, out and of the outputs
+// dq, dk, dv; the last dim is contiguous everywhere.
 struct Strides {
-  long long q[3], k[3], v[3], go[3], dq[3], dk[3], dv[3];
+  long long q[3], k[3], v[3], go[3], o[3], dq[3], dk[3], dv[3];
 };
 
 template <typename T>
@@ -91,12 +112,15 @@ struct Args {
   const T* v;
   const float* key_bias;  // [B, N] or null
   const T* go;
+  const T* out;      // the forward's output
+  const float* lse;  // [B, H, N]: the forward's row log-sum-exp
   T* dq;
   T* dk;
   T* dv;
   float* dbias;  // [B, H, N] or null
-  float* stats;  // [3, B, H, N]: row max, row denominator, delta
-  int batch, num_heads, n, frames, s_len, tiles_per_frame, exclude_first_row;
+  float* delta;  // [B, H, N] scratch: rowsum(do * out), written by the dq kernel
+  int batch, num_heads, n, frames, s_len, exclude_first_row;
+  Plan plan;
   float scale;
   Strides st;
 };
@@ -108,7 +132,8 @@ __device__ __forceinline__ int live(int x0, int end) {
   return left >= kTile ? kTile : (left + 15) / 16 * 16;
 }
 
-// ---- dq, and the row statistics every tile of ds needs -------------------
+// ======================= first-version body (fp32, bf16 d != 64) ==========
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) blockdiag_bwd_dq_kernel(Args<T> p) {
   using L = Layout<T, D>;
@@ -125,20 +150,23 @@ __global__ void __launch_bounds__(kThreads) blockdiag_bwd_dq_kernel(Args<T> p) {
   const int bh = blockIdx.y;
   const int b = bh / p.num_heads;
   const int h = bh % p.num_heads;
-  const int f = blockIdx.x / p.tiles_per_frame;
-  const int q0 = (blockIdx.x % p.tiles_per_frame) * kTile;  // within the frame
+  const int f = blockIdx.x / p.plan.tiles_per_frame;
+  const int q0 = (blockIdx.x % p.plan.tiles_per_frame) * kTile;  // within the frame
   const long long frame0 = static_cast<long long>(f) * s_len;
   // everything below indexes rows and keys within the frame: [0, s_len)
   const T* qb = p.q + b * p.st.q[0] + h * p.st.q[1] + frame0 * p.st.q[2];
   const T* kb = p.k + b * p.st.k[0] + h * p.st.k[1] + frame0 * p.st.k[2];
   const T* vb = p.v + b * p.st.v[0] + h * p.st.v[1] + frame0 * p.st.v[2];
   const T* gob = p.go + b * p.st.go[0] + h * p.st.go[1] + frame0 * p.st.go[2];
+  const T* ob = p.out + b * p.st.o[0] + h * p.st.o[1] + frame0 * p.st.o[2];
+  const long long rows = static_cast<long long>(bh) * p.n + frame0;  // the frame's residuals
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wrow = warp * 16;          // first row of this warp's strip
   const int row = wrow + (lane >> 1);  // the row this lane owns
   const int half = lane & 1;           // which half of the row's 64 keys
+  const bool valid = q0 + row < s_len;
   // the row mask: with exclude_first_row, row 0 of the frame sees no bias
   const float* bias = nullptr;
   if (p.key_bias != nullptr && !(p.exclude_first_row && q0 + row == 0))
@@ -146,61 +174,20 @@ __global__ void __launch_bounds__(kThreads) blockdiag_bwd_dq_kernel(Args<T> p) {
 
   load_tile<T, D, false>(qs, L::ld_x, qb, p.st.q[2], q0, s_len, 0.f);
   load_tile<T, D, false>(dos, L::ld_x, gob, p.st.go[2], q0, s_len, 0.f);
+  const float delta = row_delta<T, D>(gob, p.st.go[2], ob, p.st.o[2], q0 + row, s_len, half);
+  const float lse = valid ? p.lse[rows + q0 + row] : 0.f;
+  if (half == 0 && valid) p.delta[rows + q0 + row] = delta;
 
-  float* srow = ss + row * L::ld_s + half * 32;
+  const float* srow = ss + row * L::ld_s + half * 32;
   const float* dprow = dps + row * L::ld_s + half * 32;
+  T* dsrow = dss + row * L::ld_p + half * 32;
 
-  // ---- pass 1: m, l and delta = sum_j p_j dp_j of this lane's row --------
-  float m_i = kMask, l_i = 0.f, a_i = 0.f;
+  // one pass: dq = scale * sum over the frame's key tiles of ds_lo k
+  Accum<T, D> dq;
+  dq.zero();
   for (int k0 = 0; k0 < s_len; k0 += kTile) {
     const int cols = live(k0, s_len);
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D, false>(ks, L::ld_x, kb, p.st.k[2], k0, s_len, 0.f);
-    load_tile<T, D, false>(vs, L::ld_x, vb, p.st.v[2], k0, s_len, 0.f);
-    __syncthreads();
-    product_abt<T, D>(qs, ks, ss, wrow, row, half, cols);
-    product_abt<T, D>(dos, vs, dps, wrow, row, half, cols);
-    __syncwarp();
-    float mx = kMask;
-    for (int j = 0; j < 32; ++j) {
-      const int key = k0 + half * 32 + j;
-      const float s = key < s_len ? logit(srow[j], p.scale, bias, key) : kMask;
-      srow[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = expf(m_i - m_new);
-    float sum = 0.f, acc = 0.f;
-    for (int j = 0; j < 32; ++j) {
-      if (k0 + half * 32 + j < s_len) {  // past the end dp was never computed
-        const float e = expf(srow[j] - m_new);
-        sum += e;
-        acc = fmaf(e, dprow[j], acc);
-      }
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    l_i = l_i * corr + sum;
-    a_i = a_i * corr + acc;
-    m_i = m_new;
-  }
-  const float delta = a_i / l_i;
-  if (half == 0 && q0 + row < s_len) {
-    const long long plane = static_cast<long long>(p.batch) * p.num_heads * p.n;
-    float* st = p.stats + static_cast<long long>(bh) * p.n + frame0 + q0 + row;
-    st[0] = m_i;
-    st[plane] = l_i;
-    st[2 * plane] = delta;
-  }
-
-  // ---- pass 2: dq = scale * sum over the frame's key tiles of ds_lo k ----
-  Accum<T, D> dq;
-  dq.zero();
-  T* dsrow = dss + row * L::ld_p + half * 32;
-  for (int k0 = 0; k0 < s_len; k0 += kTile) {
-    const int cols = live(k0, s_len);
-    __syncthreads();
     load_tile<T, D, false>(ks, L::ld_x, kb, p.st.k[2], k0, s_len, 0.f);
     load_tile<T, D, false>(vs, L::ld_x, vb, p.st.v[2], k0, s_len, 0.f);
     __syncthreads();
@@ -211,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) blockdiag_bwd_dq_kernel(Args<T> p) {
       const int key = k0 + half * 32 + j;
       float ds = 0.f;
       if (key < s_len) {
-        const float prob = expf(logit(srow[j], p.scale, bias, key) - m_i) / l_i;
+        const float prob = expf(logit(srow[j], p.scale, bias, key) - lse);
         ds = prob * (dprow[j] - delta);
       }
       dsrow[j] = from_float<T>(ds);
@@ -244,8 +231,8 @@ __global__ void __launch_bounds__(kThreads) blockdiag_bwd_dkdv_kernel(Args<T> p)
   const int bh = blockIdx.y;
   const int b = bh / p.num_heads;
   const int h = bh % p.num_heads;
-  const int f = blockIdx.x / p.tiles_per_frame;
-  const int k0 = (blockIdx.x % p.tiles_per_frame) * kTile;  // within the frame
+  const int f = blockIdx.x / p.plan.tiles_per_frame;
+  const int k0 = (blockIdx.x % p.plan.tiles_per_frame) * kTile;  // within the frame
   const int cols = live(k0, s_len);
   const long long frame0 = static_cast<long long>(f) * s_len;
   const T* qb = p.q + b * p.st.q[0] + h * p.st.q[1] + frame0 * p.st.q[2];
@@ -255,8 +242,9 @@ __global__ void __launch_bounds__(kThreads) blockdiag_bwd_dkdv_kernel(Args<T> p)
   const float* frame_bias =
       p.key_bias ? p.key_bias + static_cast<long long>(b) * p.n + frame0 : nullptr;
   const bool masked_rows = frame_bias != nullptr && p.exclude_first_row;
-  const long long plane = static_cast<long long>(p.batch) * p.num_heads * p.n;
-  const float* stats = p.stats + static_cast<long long>(bh) * p.n + frame0;
+  const long long rows_at = static_cast<long long>(bh) * p.n + frame0;  // the frame's residuals
+  const float* lse = p.lse + rows_at;
+  const float* delta = p.delta + rows_at;
   const bool want_dbias = p.dbias != nullptr;
 
   const int warp = threadIdx.x / 32;
@@ -291,15 +279,14 @@ __global__ void __launch_bounds__(kThreads) blockdiag_bwd_dkdv_kernel(Args<T> p)
     const bool valid = q0 + row < s_len;
     const bool biased_row = !(masked_rows && q0 + row == 0);  // the row mask
     const float* bias = biased_row ? frame_bias : nullptr;
-    const float m_i = valid ? stats[q0 + row] : 0.f;
-    const float l_i = valid ? stats[plane + q0 + row] : 1.f;
-    const float delta = valid ? stats[2 * plane + q0 + row] : 0.f;
+    const float lse_i = valid ? lse[q0 + row] : 0.f;
+    const float delta_i = valid ? delta[q0 + row] : 0.f;
     for (int j = 0; j < 32; ++j) {
       const int key = k0 + half * 32 + j;
       float prob = 0.f, ds = 0.f;
       if (valid && key < s_len) {
-        prob = expf(logit(srow[j], p.scale, bias, key) - m_i) / l_i;
-        ds = prob * (dprow[j] - delta);
+        prob = expf(logit(srow[j], p.scale, bias, key) - lse_i);
+        ds = prob * (dprow[j] - delta_i);
       }
       prow[j] = from_float<T>(prob);
       dsrow[j] = from_float<T>(ds);
@@ -330,23 +317,81 @@ __global__ void __launch_bounds__(kThreads) blockdiag_bwd_dkdv_kernel(Args<T> p)
                    L::ld_o, k0, s_len);
 }
 
+// ======================= Hopper body (bf16, d = 64) =======================
+
+namespace wg = vtm::wg;
+using bf16 = __nv_bfloat16;
+
+// The walk of planned block blockIdx.x: the rows and keys of its frame (or
+// of its g packed frames, one tile of each), every pointer offset to its
+// first frame's first row. `tile` is the block's 64-row tile within its
+// frame (0 when packed): its query tile (dq) or key tile (dk, dv).
+template <bool kPacked>
+__device__ __forceinline__ wg::BwdWalk planned_walk(const Args<bf16>& p, int& tile) {
+  int f0, len;  // the block's first frame, and the rows (= keys) its walk covers
+  if constexpr (kPacked) {
+    f0 = blockIdx.x * p.plan.frames_per_block;
+    len = min(p.plan.frames_per_block, p.frames - f0) * p.s_len;
+    tile = 0;
+  } else {
+    f0 = blockIdx.x / p.plan.tiles_per_frame;
+    len = p.s_len;
+    tile = (blockIdx.x % p.plan.tiles_per_frame) * wg::kRows;
+  }
+  return wg::slice_walk(p, blockIdx.y, static_cast<long long>(f0) * p.s_len, 1, len, len);
+}
+
+template <bool kBias, bool kPacked>
+__global__ void __launch_bounds__(wg::kThreads) blockdiag_bwd_dq_wgmma(Args<bf16> p) {
+  extern __shared__ unsigned char smem[];
+  int tile;
+  wg::BwdWalk w = planned_walk<kPacked>(p, tile);
+  w.row0 = tile;
+  if constexpr (kPacked) {
+    wg::attend_bwd_dq<kBias>(w, wg::PackedFrames{p.s_len, p.exclude_first_row != 0}, smem);
+  } else {
+    wg::attend_bwd_dq<kBias>(w, wg::FrameRows{p.exclude_first_row != 0}, smem);
+  }
+}
+
+template <bool kBias, bool kPacked>
+__global__ void __launch_bounds__(wg::kThreads) blockdiag_bwd_dkdv_wgmma(Args<bf16> p) {
+  extern __shared__ unsigned char smem[];
+  int tile;
+  wg::BwdWalk w = planned_walk<kPacked>(p, tile);
+  w.key0 = tile;
+  if constexpr (kPacked) {
+    wg::attend_bwd_dkdv<kBias>(w, wg::PackedFrames{p.s_len, p.exclude_first_row != 0}, smem);
+  } else {
+    wg::attend_bwd_dkdv<kBias>(w, wg::FrameRows{p.exclude_first_row != 0}, smem);
+  }
+}
+
+// ======================= launch ===========================================
+
+template <bool kBias, bool kPacked>
+cudaError_t launch_wgmma(const Args<bf16>& args, const dim3& grid, cudaStream_t stream) {
+  constexpr int bytes = wg::BwdSmem::kLaunchBytes;
+  return vtm::launch_bwd_pair<blockdiag_bwd_dq_wgmma<kBias, kPacked>, blockdiag_bwd_dkdv_wgmma<kBias, kPacked>>(
+      args, grid, grid, wg::kThreads, bytes, bytes, stream);
+}
+
+// Both kernels: one block per planned block (a 64-row tile of a frame, or
+// g packed frames) and b * h.
 template <typename T, int D>
 cudaError_t launch(const Args<T>& args, cudaStream_t stream) {
-  using L = Layout<T, D>;
-  auto dq_kernel = blockdiag_bwd_dq_kernel<T, D>;
-  auto dkdv_kernel = blockdiag_bwd_dkdv_kernel<T, D>;
-  static bool dq_done[vtm::kMaxDevices] = {}, dkdv_done[vtm::kMaxDevices] = {};
-  cudaError_t err = vtm::allow_smem_once(dq_kernel, static_cast<int>(L::bytes), dq_done);
-  if (err != cudaSuccess) return err;
-  err = vtm::allow_smem_once(dkdv_kernel, static_cast<int>(L::bytes), dkdv_done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(args.frames * args.tiles_per_frame, args.batch * args.num_heads);
-  dq_kernel<<<grid, kThreads, L::bytes, stream>>>(args);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // reads the row statistics the first kernel wrote: same stream, in order
-  dkdv_kernel<<<grid, kThreads, L::bytes, stream>>>(args);
-  return cudaGetLastError();
+  const dim3 grid(args.plan.blocks, args.batch * args.num_heads);
+  if constexpr (std::is_same<T, bf16>::value && D == 64) {
+    const bool packed = args.plan.frames_per_block > 1;
+    if (args.key_bias)
+      return packed ? launch_wgmma<true, true>(args, grid, stream) : launch_wgmma<true, false>(args, grid, stream);
+    return packed ? launch_wgmma<false, true>(args, grid, stream) : launch_wgmma<false, false>(args, grid, stream);
+  } else {
+    if (args.plan.frames_per_block != 1) return cudaErrorInvalidValue;  // the first body packs nothing
+    constexpr int bytes = static_cast<int>(Layout<T, D>::bytes);
+    return vtm::launch_bwd_pair<blockdiag_bwd_dq_kernel<T, D>, blockdiag_bwd_dkdv_kernel<T, D>>(
+        args, grid, grid, kThreads, bytes, bytes, stream);
+  }
 }
 
 template <typename T>
@@ -362,27 +407,29 @@ cudaError_t dispatch_head_dim(int head_dim, const Args<T>& args, cudaStream_t st
 
 template <typename T>
 Args<T> make_args(const void* q, const void* k, const void* v, const void* key_bias,
-                  const void* go, void* dq, void* dk, void* dv, void* dbias, void* stats,
-                  int batch, int num_heads, int n, int frames, int exclude_first_row,
-                  float scale, const long long* strides) {
+                  const void* go, const void* out, const void* lse, void* dq, void* dk, void* dv,
+                  void* dbias, void* delta, int batch, int num_heads, int n, int frames,
+                  int exclude_first_row, const Plan& plan, float scale, const long long* strides) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
   a.v = static_cast<const T*>(v);
   a.key_bias = static_cast<const float*>(key_bias);
   a.go = static_cast<const T*>(go);
+  a.out = static_cast<const T*>(out);
+  a.lse = static_cast<const float*>(lse);
   a.dq = static_cast<T*>(dq);
   a.dk = static_cast<T*>(dk);
   a.dv = static_cast<T*>(dv);
   a.dbias = static_cast<float*>(dbias);
-  a.stats = static_cast<float*>(stats);
+  a.delta = static_cast<float*>(delta);
   a.batch = batch;
   a.num_heads = num_heads;
   a.n = n;
   a.frames = frames;
   a.s_len = n / frames;
-  a.tiles_per_frame = (a.s_len + kTile - 1) / kTile;
   a.exclude_first_row = exclude_first_row;
+  a.plan = plan;
   a.scale = scale;
   std::memcpy(&a.st, strides, sizeof(a.st));
   return a;
@@ -391,36 +438,45 @@ Args<T> make_args(const void* q, const void* k, const void* v, const void* key_b
 }  // namespace
 
 // C entry point, bound with ctypes by vtm_torch/ops/flash_attention.py.
-//   dtype: 0 = bf16, 1 = fp32 (q, k, v, go, dq, dk and dv share it)
+//   dtype: 0 = bf16, 1 = fp32 (q, k, v, go, out, dq, dk and dv share it)
 //   key_bias: fp32 [batch, n] contiguous, or null for the unbiased form
-//   go: the cotangent of the token-major output, read as [batch, heads, n, d]
-//       through its strides
+//   go, out: the cotangent of the token-major output and that output, both
+//            read as [batch, heads, n, d] through their strides
+//   lse: the forward's fp32 [batch, num_heads, n] contiguous row
+//        log-sum-exp
 //   dbias: fp32 [batch, num_heads, n] contiguous, or null when not wanted
-//   stats: fp32 [3, batch, num_heads, n] scratch
+//   delta: fp32 [batch, num_heads, n] contiguous scratch
 //   frames: divides n; exclude_first_row: 1 keeps the bias off row 0 of
 //           every frame, and that row out of dbias
-//   strides: 21 element strides, (batch, head, row) of q, k, v, go, dq, dk, dv
+//   frames_per_block, tiles_per_frame, blocks: K5a's launch plan
+//   (ops/flash_attention.py::blockdiag_plan); frames_per_block > 1 only for
+//   the bf16 d = 64 body
+//   strides: 24 element strides, (batch, head, row) of q, k, v, go, out, dq,
+//            dk, dv
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int vtm_blockdiag_attention_bwd(int dtype, int head_dim, const void* q, const void* k,
                                            const void* v, const void* key_bias, const void* go,
-                                           void* dq, void* dk, void* dv, void* dbias, void* stats,
-                                           int batch, int num_heads, int n, int frames,
-                                           int exclude_first_row, float scale,
-                                           const long long* strides, void* stream) {
+                                           const void* out, const void* lse, void* dq, void* dk,
+                                           void* dv, void* dbias, void* delta, int batch,
+                                           int num_heads, int n, int frames, int exclude_first_row,
+                                           int frames_per_block, int tiles_per_frame, int blocks,
+                                           float scale, const long long* strides, void* stream) {
   if (frames < 1 || n < 1 || n % frames != 0) return cudaErrorInvalidValue;
+  const Plan plan{frames_per_block, tiles_per_frame, blocks};
+  if (!plan.covers(frames, n / frames)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return dispatch_head_dim<__nv_bfloat16>(
           head_dim,
-          make_args<__nv_bfloat16>(q, k, v, key_bias, go, dq, dk, dv, dbias, stats, batch,
-                                   num_heads, n, frames, exclude_first_row, scale, strides),
+          make_args<__nv_bfloat16>(q, k, v, key_bias, go, out, lse, dq, dk, dv, dbias, delta, batch,
+                                   num_heads, n, frames, exclude_first_row, plan, scale, strides),
           s);
     case 1:
       return dispatch_head_dim<float>(
           head_dim,
-          make_args<float>(q, k, v, key_bias, go, dq, dk, dv, dbias, stats, batch, num_heads, n,
-                           frames, exclude_first_row, scale, strides),
+          make_args<float>(q, k, v, key_bias, go, out, lse, dq, dk, dv, dbias, delta, batch,
+                           num_heads, n, frames, exclude_first_row, plan, scale, strides),
           s);
     default:
       return cudaErrorInvalidValue;

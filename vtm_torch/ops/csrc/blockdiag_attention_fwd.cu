@@ -4,7 +4,10 @@
 //   out[b, f*s + i, h, :] = softmax_j(q_i k_j^T * scale + m_i * key_bias[b, f*s + j]) v_j
 // with i, j in [0, s) and the row mask m_i = 1, or with exclude_first_row
 // m_0 = 0 (row 0 of every frame, TimeSformer's broadcast CLS query, sees no
-// bias). The output is token-major with merged heads, [B, F*s, H*d].
+// bias). The output is token-major with merged heads, [B, F*s, H*d]. When
+// a gradient is wanted it also writes the log-sum-exp of each row's logits
+// (every row belongs to one frame), fp32 [B, H, F*s]: K5b's residual
+// (blockdiag_attention_bwd.cu), with out itself.
 //
 // Replaces the Pallas TPU kernel of vtm/ops/flash_attention.py::
 // _blockdiag_forward (kernel _make_blockdiag_kernel, reached through
@@ -126,9 +129,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     blockdiag_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    const T* __restrict__ v, const float* __restrict__ key_bias,
-                                   T* __restrict__ out, int num_heads, int frames, int s_len,
-                                   int tiles_per_frame, int exclude_first_row, float scale,
-                                   Strides st) {
+                                   T* __restrict__ out, float* __restrict__ lse, int num_heads,
+                                   int frames, int s_len, int tiles_per_frame,
+                                   int exclude_first_row, float scale, Strides st) {
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
@@ -262,6 +265,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // ---- out = acc / l, in T; rows past the frame's end are not stored ----
+  if (lse != nullptr && half == 0 && q0 + row < s_len)
+    lse[static_cast<long long>(bh) * frames * s_len + frame0 + q0 + row] = m_i + logf(l_i);
   if (q0 + row < s_len) {
     T* orow_g = ob + (q0 + row) * st.o[2];
     const float* orow = os + row * L::ld_o;
@@ -275,44 +280,15 @@ __global__ void __launch_bounds__(kThreads)
 namespace wg = vtm::wg;
 using bf16 = __nv_bfloat16;
 using WgSmem = wg::WalkSmem;
-
-// A tile of one frame's rows (frames of more than 32 tokens): every key of
-// the frame reaches every row; row 0 of the frame skips the bias under
-// exclude_first_row.
-struct FrameRows {
-  static constexpr bool kEveryTile = false;
-  bool first_row_unbiased;  // the tile starts its frame and its row 0 skips the bias
-  __device__ __forceinline__ int2 window(int) const { return make_int2(0, 0x7fffffff); }
-  __device__ __forceinline__ bool biased(int r) const { return !(first_row_unbiased && r == 0); }
-};
-
-// Whole frames of s_len tokens packed into one tile: row r (counted from the
-// tile's first frame) sees the keys of its own frame only, and row 0 of each
-// frame skips the bias under exclude_first_row.
-struct PackedFrames {
-  static constexpr bool kEveryTile = true;
-  int s_len;
-  bool exclude_first_row;
-  __device__ __forceinline__ int2 window(int r) const {
-    const int lo = r / s_len * s_len;
-    return make_int2(lo, lo + s_len);
-  }
-  __device__ __forceinline__ bool biased(int r) const { return !(exclude_first_row && r % s_len == 0); }
-};
-
-// Launch plan (from the wrapper): frames_per_block > 1 packs whole frames
-// into one tile, and then tiles_per_frame is 1; otherwise a block is tile
-// blockIdx.x % tiles_per_frame of frame blockIdx.x / tiles_per_frame.
-struct Plan {
-  int frames_per_block, tiles_per_frame, blocks;
-};
+using Plan = wg::BlockdiagPlan;
 
 template <bool kBias, bool kPacked>
 __global__ void __launch_bounds__(wg::kThreads)
     blockdiag_attention_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                   const bf16* __restrict__ v, const float* __restrict__ key_bias,
-                                  bf16* __restrict__ out, int num_heads, int frames, int s_len,
-                                  Plan plan, int exclude_first_row, float scale, Strides st) {
+                                  bf16* __restrict__ out, float* __restrict__ lse, int num_heads,
+                                  int frames, int s_len, Plan plan, int exclude_first_row,
+                                  float scale, Strides st) {
   extern __shared__ unsigned char smem[];
   const int bh = blockIdx.y;
   const int b = bh / num_heads;
@@ -339,22 +315,23 @@ __global__ void __launch_bounds__(wg::kThreads)
   w.out = out + b * st.o[0] + h * st.o[1] + row0 * st.o[2];
   w.out_stride = st.o[2];
   w.out_frame_stride = 0;
-  w.lse = nullptr;
+  w.lse = lse ? lse + static_cast<long long>(bh) * frames * s_len + row0 : nullptr;
+  w.lse_frame_stride = 0;
   w.row0 = q0;
   w.rows = len;
   w.frames = 1;
   w.frame_len = len;
   w.scale = scale;
   if constexpr (kPacked) {
-    wg::attend<kBias>(w, PackedFrames{s_len, exclude_first_row != 0}, smem);
+    wg::attend<kBias>(w, wg::PackedFrames{s_len, exclude_first_row != 0}, smem);
   } else {
-    wg::attend<kBias>(w, FrameRows{exclude_first_row != 0 && q0 == 0}, smem);
+    wg::attend<kBias>(w, wg::FrameRows{exclude_first_row != 0}, smem);
   }
 }
 
 template <bool kBias, bool kPacked>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* key_bias,
-                         void* out, int batch, int num_heads, int frames, int s_len,
+                         void* out, void* lse, int batch, int num_heads, int frames, int s_len,
                          const Plan& plan, int exclude_first_row, float scale, const Strides& st,
                          cudaStream_t stream) {
   auto kernel = blockdiag_attention_fwd_wgmma<kBias, kPacked>;
@@ -363,25 +340,25 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   if (err != cudaSuccess) return err;
   kernel<<<dim3(plan.blocks, batch * num_heads), wg::kThreads, WgSmem::kLaunchBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(key_bias), static_cast<bf16*>(out), num_heads, frames, s_len, plan,
-      exclude_first_row, scale, st);
+      static_cast<const float*>(key_bias), static_cast<bf16*>(out), static_cast<float*>(lse), num_heads,
+      frames, s_len, plan, exclude_first_row, scale, st);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_bias, void* out,
-                   int batch, int num_heads, int frames, int s_len, const Plan& plan,
+                   void* lse, int batch, int num_heads, int frames, int s_len, const Plan& plan,
                    int exclude_first_row, float scale, const Strides& st, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value && D == 64) {
     const bool packed = plan.frames_per_block > 1;
     if (key_bias)
-      return packed ? launch_wgmma<true, true>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+      return packed ? launch_wgmma<true, true>(q, k, v, key_bias, out, lse, batch, num_heads, frames, s_len,
                                                plan, exclude_first_row, scale, st, stream)
-                    : launch_wgmma<true, false>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+                    : launch_wgmma<true, false>(q, k, v, key_bias, out, lse, batch, num_heads, frames, s_len,
                                                 plan, exclude_first_row, scale, st, stream);
-    return packed ? launch_wgmma<false, true>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+    return packed ? launch_wgmma<false, true>(q, k, v, key_bias, out, lse, batch, num_heads, frames, s_len,
                                               plan, exclude_first_row, scale, st, stream)
-                  : launch_wgmma<false, false>(q, k, v, key_bias, out, batch, num_heads, frames, s_len,
+                  : launch_wgmma<false, false>(q, k, v, key_bias, out, lse, batch, num_heads, frames, s_len,
                                                plan, exclude_first_row, scale, st, stream);
   } else {
     if (plan.frames_per_block != 1) return cudaErrorInvalidValue;  // the first body packs nothing
@@ -392,42 +369,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
     if (err != cudaSuccess) return err;
     kernel<<<dim3(plan.blocks, batch * num_heads), kThreads, L::bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const float*>(key_bias), static_cast<T*>(out), num_heads, frames, s_len,
-        plan.tiles_per_frame, exclude_first_row, scale, st);
+        static_cast<const float*>(key_bias), static_cast<T*>(out), static_cast<float*>(lse), num_heads,
+        frames, s_len, plan.tiles_per_frame, exclude_first_row, scale, st);
     return cudaGetLastError();
   }
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k, const void* v,
-                              const void* key_bias, void* out, int batch, int num_heads,
+                              const void* key_bias, void* out, void* lse, int batch, int num_heads,
                               int frames, int s_len, const Plan& plan, int exclude_first_row,
                               float scale, const Strides& st, cudaStream_t stream) {
   switch (head_dim) {
     case 16:
-      return launch<T, 16>(q, k, v, key_bias, out, batch, num_heads, frames, s_len, plan,
+      return launch<T, 16>(q, k, v, key_bias, out, lse, batch, num_heads, frames, s_len, plan,
                            exclude_first_row, scale, st, stream);
     case 32:
-      return launch<T, 32>(q, k, v, key_bias, out, batch, num_heads, frames, s_len, plan,
+      return launch<T, 32>(q, k, v, key_bias, out, lse, batch, num_heads, frames, s_len, plan,
                            exclude_first_row, scale, st, stream);
     case 64:
-      return launch<T, 64>(q, k, v, key_bias, out, batch, num_heads, frames, s_len, plan,
+      return launch<T, 64>(q, k, v, key_bias, out, lse, batch, num_heads, frames, s_len, plan,
                            exclude_first_row, scale, st, stream);
     case 128:
-      return launch<T, 128>(q, k, v, key_bias, out, batch, num_heads, frames, s_len, plan,
+      return launch<T, 128>(q, k, v, key_bias, out, lse, batch, num_heads, frames, s_len, plan,
                             exclude_first_row, scale, st, stream);
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// The plan covers every frame's every row exactly once.
-bool plan_ok(const Plan& p, int frames, int s_len) {
-  const int g = p.frames_per_block;
-  if (g > 1)
-    return g * s_len <= wg::kRows && p.tiles_per_frame == 1 && p.blocks == (frames + g - 1) / g;
-  return g == 1 && p.tiles_per_frame == (s_len + kBlockQ - 1) / kBlockQ &&
-         static_cast<long long>(p.blocks) == static_cast<long long>(frames) * p.tiles_per_frame;
 }
 
 }  // namespace
@@ -435,6 +403,8 @@ bool plan_ok(const Plan& p, int frames, int s_len) {
 // C entry point, bound with ctypes by vtm_torch/ops/flash_attention.py.
 //   dtype: 0 = bf16, 1 = fp32 (q, k, v and out share it)
 //   key_bias: fp32 [batch, n] contiguous, or null for the unbiased form
+//   lse: fp32 [batch, num_heads, n] contiguous, each row's log-sum-exp, or
+//        null when not wanted
 //   n = frames * s tokens, frame-major; exclude_first_row: 1 keeps the bias
 //   off row 0 of every frame
 //   frames_per_block, tiles_per_frame, blocks: the launch plan
@@ -444,24 +414,24 @@ bool plan_ok(const Plan& p, int frames, int s_len) {
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int vtm_blockdiag_attention_fwd(int dtype, int head_dim, const void* q, const void* k,
                                            const void* v, const void* key_bias, void* out,
-                                           int batch, int num_heads, int n, int frames,
+                                           void* lse, int batch, int num_heads, int n, int frames,
                                            int exclude_first_row, int frames_per_block,
                                            int tiles_per_frame, int blocks, float scale,
                                            const long long* strides, void* stream) {
   if (frames < 1 || n < 1 || n % frames != 0) return cudaErrorInvalidValue;
   const Plan plan{frames_per_block, tiles_per_frame, blocks};
-  if (!plan_ok(plan, frames, n / frames)) return cudaErrorInvalidValue;
+  if (!plan.covers(frames, n / frames)) return cudaErrorInvalidValue;
   Strides st;
   std::memcpy(&st, strides, sizeof(st));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, key_bias, out, batch, num_heads,
-                                              frames, n / frames, plan, exclude_first_row, scale,
-                                              st, s);
+      return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, key_bias, out, lse, batch,
+                                              num_heads, frames, n / frames, plan,
+                                              exclude_first_row, scale, st, s);
     case 1:
-      return dispatch_head_dim<float>(head_dim, q, k, v, key_bias, out, batch, num_heads, frames,
-                                      n / frames, plan, exclude_first_row, scale, st, s);
+      return dispatch_head_dim<float>(head_dim, q, k, v, key_bias, out, lse, batch, num_heads,
+                                      frames, n / frames, plan, exclude_first_row, scale, st, s);
     default:
       return cudaErrorInvalidValue;
   }

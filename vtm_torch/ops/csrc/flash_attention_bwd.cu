@@ -43,20 +43,22 @@
 //   that changes from run to run.
 //
 // Two bodies:
-//   * bf16 at d = 64, the head dimension of every ViT-B path: one
-//     warpgroup (128 threads) a block, every product a wgmma m64n64k16 with
-//     fp32 accumulators in registers. The dk/dv kernel computes s^T = k q^T
-//     and dp^T = v do^T, so that p^T and ds^T sit in the accumulators of
-//     their key rows: rounded to bf16 in registers, they are the A operand
-//     of dv += p^T do and dk += ds^T q, and the dbias sums are row sums in
-//     registers. The dq kernel's ds feeds dq += ds k the same way. S, dP,
-//     P and dS never reach shared memory. The streamed tiles (k and v in
-//     the dq kernel, q and do in the dk/dv kernel) pass through a
-//     two-stage ring filled by cp.async, so the next tile's copy overlaps
-//     the current tile's products; tiles are 128-byte swizzled as wgmma's
-//     descriptors read them (wgmma_tiles.cuh). p = exp2 of fp32 logits in
-//     the log2 domain. Results leave through a swizzled bf16 stage with
-//     16-byte stores.
+//   * bf16 at d = 64, the head dimension of every ViT-B path: the Hopper
+//     backward tile loop of wgmma_attention_bwd.cuh (shared with K4 and
+//     K5b), one warpgroup (128 threads) a block, every product a wgmma
+//     m64n64k16 with fp32 accumulators in registers. The dk/dv kernel
+//     computes s^T = k q^T and dp^T = v do^T, so that p^T and ds^T sit in
+//     the accumulators of their key rows: rounded to bf16 in registers,
+//     they are the A operand of dv += p^T do and dk += ds^T q, and the
+//     dbias sums are row sums in registers. The dq kernel's ds feeds
+//     dq += ds k the same way. S, dP, P and dS never reach shared memory.
+//     The streamed tiles (k and v in the dq kernel, q and do in the dk/dv
+//     kernel) pass through a two-stage ring filled by cp.async, so the next
+//     tile's copy overlaps the current tile's products; tiles are 128-byte
+//     swizzled as wgmma's descriptors read them (wgmma_tiles.cuh). p = exp2
+//     of fp32 logits in the log2 domain. Results leave through a swizzled
+//     bf16 stage with 16-byte stores. The biased and unbiased cases are two
+//     instances chosen at compile time.
 //   * every other case (fp32, and bf16 at d = 16, 32, 128): the first
 //     version's body (wmma 16x16x16 for bf16, fp32 FMAs on the CUDA cores
 //     so that fp32 gradients stay within fp32 rounding of the plain
@@ -74,7 +76,7 @@
 #include <type_traits>
 
 #include "attention_tiles.cuh"
-#include "wgmma_tiles.cuh"
+#include "wgmma_attention_bwd.cuh"
 
 namespace {
 
@@ -83,6 +85,7 @@ using vtm::from_float;
 using vtm::load_tile;
 using vtm::logit;
 using vtm::product_abt;
+using vtm::row_delta;
 using vtm::to_float;
 using vtm::write_rows;
 // shared-memory layout, tile products and register accumulators: attention_tiles.cuh
@@ -133,21 +136,6 @@ __device__ __forceinline__ Slice<T> slice(const Args<T>& p, int b, int h) {
   s.out = p.out + b * p.st.o[0] + h * p.st.o[1];
   s.bias = p.key_bias ? p.key_bias + static_cast<long long>(b) * p.n : nullptr;
   return s;
-}
-
-// delta of query row `qrow` from this lane's half (`half` of D columns),
-// summed with the neighbouring lane that holds the other half. 0 past N.
-template <typename T, int D>
-__device__ __forceinline__ float row_delta(const T* go, long long go_stride, const T* out,
-                                           long long o_stride, int qrow, int n, int half) {
-  float acc = 0.f;
-  if (qrow < n) {
-    const T* g = go + qrow * go_stride + half * (D / 2);
-    const T* o = out + qrow * o_stride + half * (D / 2);
-#pragma unroll 8
-    for (int d = 0; d < D / 2; ++d) acc = fmaf(to_float(g[d]), to_float(o[d]), acc);
-  }
-  return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
 }
 
 // ======================= first-version body (fp32, bf16 d != 64) ==========
@@ -307,246 +295,23 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkdv_kernel(Args<T> p)
 namespace wg = vtm::wg;
 using bf16 = __nv_bfloat16;
 
-// Shared memory of both wgmma kernels: two resident tiles, a two-stage ring
-// of two streamed tiles, and 64 floats a stage of per-query row values (the
-// dk/dv kernel's lse and delta; the dq kernel's delta). 1 KB more for the
-// 1024-byte alignment the swizzle needs.
-struct WgLayout {
-  static constexpr int kResident0 = 0;                     // q (dq) / k (dkdv)
-  static constexpr int kResident1 = wg::kTileBytes;        // do (dq) / v (dkdv)
-  static constexpr int kRing = 2 * wg::kTileBytes;         // stage s: two tiles at kRing + 2 s tiles
-  static constexpr int kRows = kRing + 4 * wg::kTileBytes; // float [2 stages][2][64]
-  static constexpr int kBytes = kRows + 2 * 2 * 64 * 4;
-  static constexpr int kLaunchBytes = kBytes + 1024;
-};
-
-__device__ __forceinline__ uint32_t ring_tile(uint32_t base, int stage, int which) {
-  return base + WgLayout::kRing + (2 * stage + which) * wg::kTileBytes;
+// One (b, h) slice of the dense problem as a one-frame backward walk.
+__device__ __forceinline__ wg::BwdWalk dense_walk(const Args<bf16>& p) {
+  wg::BwdWalk w = wg::slice_walk(p, blockIdx.y, 0, 1, p.n, p.n);
+  w.row0 = w.key0 = blockIdx.x * wg::kRows;
+  return w;
 }
 
+template <bool kBias>
 __global__ void __launch_bounds__(wg::kThreads) attention_bwd_dq_wgmma(Args<bf16> p) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = wg::aligned_smem(smem_raw);
-  const uint32_t base = wg::smem_addr(smem);
-  float* delta_s = reinterpret_cast<float*>(smem + WgLayout::kRows);
-
-  const int n = p.n;
-  const int bh = blockIdx.y;
-  const int b = bh / p.num_heads;
-  const int h = bh % p.num_heads;
-  const int q0 = blockIdx.x * wg::kRows;
-  const Slice<bf16> sl = slice(p, b, h);
-  const int tid = threadIdx.x;
-  const int n_tiles = (n + wg::kRows - 1) / wg::kRows;
-
-  wg::load_tile_async(base + WgLayout::kResident0, sl.q, p.st.q[2], q0, n);
-  wg::load_tile_async(base + WgLayout::kResident1, sl.go, p.st.go[2], q0, n);
-  wg::load_tile_async(ring_tile(base, 0, 0), sl.k, p.st.k[2], 0, n);
-  wg::load_tile_async(ring_tile(base, 0, 1), sl.v, p.st.v[2], 0, n);
-  wg::cp_async_commit();
-
-  // delta = rowsum(do * out) of row tid / 2, while the copies are in flight
-  {
-    const int r = tid >> 1;
-    const float d = row_delta<bf16, 64>(sl.go, p.st.go[2], sl.out, p.st.o[2], q0 + r, n, tid & 1);
-    if ((tid & 1) == 0) {
-      delta_s[r] = d;
-      if (q0 + r < n) p.delta[static_cast<long long>(bh) * n + q0 + r] = d;
-    }
-  }
-  // this thread's two accumulator rows: r and r + 8
-  const int r0 = wg::acc_row(0);
-  float lse2[2], delta_r[2];
-  __syncthreads();
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int qrow = q0 + r0 + 8 * hh;
-    lse2[hh] = qrow < n ? p.lse[static_cast<long long>(bh) * n + qrow] * wg::kLog2e : 0.f;
-    delta_r[hh] = delta_s[r0 + 8 * hh];
-  }
-  const float scale2 = p.scale * wg::kLog2e;
-
-  float dq[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    const int k0 = t * wg::kRows;
-    if (t + 1 < n_tiles) {
-      wg::load_tile_async(ring_tile(base, stage ^ 1, 0), sl.k, p.st.k[2], k0 + wg::kRows, n);
-      wg::load_tile_async(ring_tile(base, stage ^ 1, 1), sl.v, p.st.v[2], k0 + wg::kRows, n);
-      wg::cp_async_commit();
-      wg::cp_async_wait<1>();
-    } else {
-      wg::cp_async_wait<0>();
-    }
-    wg::fence_async_shared();
-    __syncthreads();
-
-    float s[32], dp[32];
-    wg::fence_regs(s);
-    wg::fence_regs(dp);
-    wg::wg_fence();
-    wg::product_ss(s, base + WgLayout::kResident0, ring_tile(base, stage, 0));
-    wg::product_ss(dp, base + WgLayout::kResident1, ring_tile(base, stage, 1));
-    wg::wg_commit();
-    wg::wg_wait<0>();
-    wg::fence_regs(s);
-    wg::fence_regs(dp);
-
-    // ds = p (dp - delta), p = exp2(s scale log2e + bias log2e - lse log2e)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int key = k0 + wg::acc_col(i);
-      const int hh = (i >> 1) & 1;
-      float prob = 0.f;
-      if (key < n) {
-        const float bias2 = sl.bias ? sl.bias[key] * wg::kLog2e : 0.f;
-        prob = wg::fast_exp2(fmaf(s[i], scale2, bias2) - lse2[hh]);
-      }
-      dp[i] = prob * (dp[i] - delta_r[hh]);
-    }
-    uint32_t ds_lo[16];
-    wg::to_a_fragment(dp, ds_lo);
-
-    wg::fence_regs(dq);
-    wg::fence_regs(ds_lo);
-    wg::wg_fence();
-    wg::product_rs(dq, ds_lo, ring_tile(base, stage, 0), true);
-    wg::wg_commit();
-    wg::wg_wait<0>();
-    wg::fence_regs(dq);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  wg::store_tile(dq, p.scale, smem + WgLayout::kResident0,
-                 p.dq + b * p.st.dq[0] + h * p.st.dq[1], p.st.dq[2], q0, n);
+  extern __shared__ unsigned char smem[];
+  wg::attend_bwd_dq<kBias>(dense_walk(p), wg::AllPairs(), smem);
 }
 
+template <bool kBias>
 __global__ void __launch_bounds__(wg::kThreads) attention_bwd_dkdv_wgmma(Args<bf16> p) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = wg::aligned_smem(smem_raw);
-  const uint32_t base = wg::smem_addr(smem);
-  float* rows_s = reinterpret_cast<float*>(smem + WgLayout::kRows);  // [stage][lse, delta][64]
-
-  const int n = p.n;
-  const int bh = blockIdx.y;
-  const int b = bh / p.num_heads;
-  const int h = bh % p.num_heads;
-  const int k0 = blockIdx.x * wg::kRows;
-  const Slice<bf16> sl = slice(p, b, h);
-  const int tid = threadIdx.x;
-  const int n_tiles = (n + wg::kRows - 1) / wg::kRows;
-  const float* lse = p.lse + static_cast<long long>(bh) * n;
-  const float* delta = p.delta + static_cast<long long>(bh) * n;
-
-  // the q tile's lse (in log2 units; +inf past N, so p = 0 there) and delta
-  auto load_rows = [&](int stage, int q0) {
-    const int r = tid & 63;
-    const int qrow = q0 + r;
-    float* dst = rows_s + stage * 128 + (tid >> 6) * 64;
-    if (tid < 64) {
-      dst[r] = qrow < n ? lse[qrow] * wg::kLog2e : INFINITY;
-    } else {
-      dst[r] = qrow < n ? delta[qrow] : 0.f;
-    }
-  };
-
-  wg::load_tile_async(base + WgLayout::kResident0, sl.k, p.st.k[2], k0, n);
-  wg::load_tile_async(base + WgLayout::kResident1, sl.v, p.st.v[2], k0, n);
-  wg::load_tile_async(ring_tile(base, 0, 0), sl.q, p.st.q[2], 0, n);
-  wg::load_tile_async(ring_tile(base, 0, 1), sl.go, p.st.go[2], 0, n);
-  wg::cp_async_commit();
-  load_rows(0, 0);
-
-  // this thread's two accumulator rows are keys r0 and r0 + 8
-  const int r0 = wg::acc_row(0);
-  float bias2[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int key = k0 + r0 + 8 * hh;
-    bias2[hh] = (sl.bias && key < n) ? sl.bias[key] * wg::kLog2e : 0.f;
-  }
-  const float scale2 = p.scale * wg::kLog2e;
-
-  float dk[32], dv[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
-  float db[2] = {0.f, 0.f};
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    const int q0 = t * wg::kRows;
-    if (t + 1 < n_tiles) {
-      wg::load_tile_async(ring_tile(base, stage ^ 1, 0), sl.q, p.st.q[2], q0 + wg::kRows, n);
-      wg::load_tile_async(ring_tile(base, stage ^ 1, 1), sl.go, p.st.go[2], q0 + wg::kRows, n);
-      wg::cp_async_commit();
-      load_rows(stage ^ 1, q0 + wg::kRows);
-      wg::cp_async_wait<1>();
-    } else {
-      wg::cp_async_wait<0>();
-    }
-    wg::fence_async_shared();
-    __syncthreads();
-
-    // s^T = k q^T and dp^T = v do^T: rows are this block's keys, columns queries
-    float s[32], dp[32];
-    wg::fence_regs(s);
-    wg::fence_regs(dp);
-    wg::wg_fence();
-    wg::product_ss(s, base + WgLayout::kResident0, ring_tile(base, stage, 0));
-    wg::product_ss(dp, base + WgLayout::kResident1, ring_tile(base, stage, 1));
-    wg::wg_commit();
-    wg::wg_wait<0>();
-    wg::fence_regs(s);
-    wg::fence_regs(dp);
-
-    const float* lse_s = rows_s + stage * 128;
-    const float* delta_s = lse_s + 64;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int c = wg::acc_col(i);
-      const int hh = (i >> 1) & 1;
-      const float prob = wg::fast_exp2(fmaf(s[i], scale2, bias2[hh]) - lse_s[c]);
-      const float ds = prob * (dp[i] - delta_s[c]);
-      db[hh] += ds;
-      s[i] = prob;
-      dp[i] = ds;
-    }
-    uint32_t p_lo[16], ds_lo[16];
-    wg::to_a_fragment(s, p_lo);
-    wg::to_a_fragment(dp, ds_lo);
-
-    // dv += p^T do, dk += ds^T q: do and q read transposed (MN-major)
-    wg::fence_regs(dv);
-    wg::fence_regs(dk);
-    wg::fence_regs(p_lo);
-    wg::fence_regs(ds_lo);
-    wg::wg_fence();
-    wg::product_rs(dv, p_lo, ring_tile(base, stage, 1), true);
-    wg::product_rs(dk, ds_lo, ring_tile(base, stage, 0), true);
-    wg::wg_commit();
-    wg::wg_wait<0>();
-    wg::fence_regs(dv);
-    wg::fence_regs(dk);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  if (p.dbias) {
-    // a key row's sum is spread over the four lanes of a quad
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float x = db[hh];
-      x += __shfl_xor_sync(0xffffffffu, x, 1);
-      x += __shfl_xor_sync(0xffffffffu, x, 2);
-      const int key = k0 + r0 + 8 * hh;
-      if ((tid & 3) == 0 && key < n) p.dbias[static_cast<long long>(bh) * n + key] = x;
-    }
-  }
-  wg::store_tile(dk, p.scale, smem + WgLayout::kRing, p.dk + b * p.st.dk[0] + h * p.st.dk[1],
-                 p.st.dk[2], k0, n);
-  wg::store_tile(dv, 1.f, smem + WgLayout::kRing + wg::kTileBytes,
-                 p.dv + b * p.st.dv[0] + h * p.st.dv[1], p.st.dv[2], k0, n);
+  extern __shared__ unsigned char smem[];
+  wg::attend_bwd_dkdv<kBias>(dense_walk(p), wg::AllPairs(), smem);
 }
 
 // ======================= launch ===========================================
@@ -555,30 +320,16 @@ template <typename T, int D>
 cudaError_t launch(const Args<T>& args, cudaStream_t stream) {
   const dim3 grid((args.n + kTile - 1) / kTile, args.batch * args.num_heads);
   if constexpr (std::is_same<T, bf16>::value && D == 64) {
-    static bool done_dq[vtm::kMaxDevices] = {}, done_dkdv[vtm::kMaxDevices] = {};
-    cudaError_t err = vtm::allow_smem_once(attention_bwd_dq_wgmma, WgLayout::kLaunchBytes, done_dq);
-    if (err != cudaSuccess) return err;
-    err = vtm::allow_smem_once(attention_bwd_dkdv_wgmma, WgLayout::kLaunchBytes, done_dkdv);
-    if (err != cudaSuccess) return err;
-    attention_bwd_dq_wgmma<<<grid, wg::kThreads, WgLayout::kLaunchBytes, stream>>>(args);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    // reads the delta the first kernel wrote: same stream, in order
-    attention_bwd_dkdv_wgmma<<<grid, wg::kThreads, WgLayout::kLaunchBytes, stream>>>(args);
-    return cudaGetLastError();
+    constexpr int bytes = wg::BwdSmem::kLaunchBytes;
+    if (args.key_bias)
+      return vtm::launch_bwd_pair<attention_bwd_dq_wgmma<true>, attention_bwd_dkdv_wgmma<true>>(
+          args, grid, grid, wg::kThreads, bytes, bytes, stream);
+    return vtm::launch_bwd_pair<attention_bwd_dq_wgmma<false>, attention_bwd_dkdv_wgmma<false>>(
+        args, grid, grid, wg::kThreads, bytes, bytes, stream);
   } else {
-    using L = Layout<T, D>;
-    static bool done_dq[vtm::kMaxDevices] = {}, done_dkdv[vtm::kMaxDevices] = {};
-    cudaError_t err = vtm::allow_smem_once(attention_bwd_dq_kernel<T, D>, static_cast<int>(L::bytes), done_dq);
-    if (err != cudaSuccess) return err;
-    err = vtm::allow_smem_once(attention_bwd_dkdv_kernel<T, D>, static_cast<int>(L::bytes), done_dkdv);
-    if (err != cudaSuccess) return err;
-    attention_bwd_dq_kernel<T, D><<<grid, kThreads, L::bytes, stream>>>(args);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    // reads the delta the first kernel wrote: same stream, in order
-    attention_bwd_dkdv_kernel<T, D><<<grid, kThreads, L::bytes, stream>>>(args);
-    return cudaGetLastError();
+    constexpr int bytes = static_cast<int>(Layout<T, D>::bytes);
+    return vtm::launch_bwd_pair<attention_bwd_dq_kernel<T, D>, attention_bwd_dkdv_kernel<T, D>>(
+        args, grid, grid, kThreads, bytes, bytes, stream);
   }
 }
 

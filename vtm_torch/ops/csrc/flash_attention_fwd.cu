@@ -267,6 +267,7 @@ __global__ void __launch_bounds__(wg::kThreads)
   w.out_stride = st.o[2];
   w.out_frame_stride = 0;
   w.lse = lse ? lse + static_cast<long long>(bh) * n : nullptr;
+  w.lse_frame_stride = 0;
   w.row0 = blockIdx.x * wg::kRows;
   w.rows = n;
   w.frames = 1;

@@ -3,71 +3,80 @@
 //   out[b, i, f, h, :] = sum_{j in frame f} softmax_j(q_i . k_j * scale + key_bias[b, j]) v_j
 // over q, k, v [B, H, N, d] (frame f = the contiguous keys [f*s, (f+1)*s),
 // s = N / F, a softmax of its own per frame) with respect to q, k, v and
-// key_bias, given the token-major cotangent do [B, N, F, H, d].
+// key_bias, given the token-major cotangent do [B, N, F, H, d] and the
+// forward's residuals: out itself and lse, the log-sum-exp of each row's
+// logits in each frame, fp32 [B, H, F, N], which K3
+// (frame_attention_fwd.cu) writes when a gradient is wanted.
 //
 // Replaces the Pallas TPU kernels of vtm/ops/flash_attention.py::
 // _frame_backward_tm_s8 (kernel _make_frame_bwd_s8_kernel, the custom_vjp
 // of tome_frame_attention) and its lane-major twin _frame_backward_tm
 // (_make_frame_bwd_kernel), which compute the same math in two TPU
-// layouts. The math and its rounding points are theirs, per (b, h, f):
+// layouts. Their math and rounding points, per (b, h, f), with the row
+// statistics taken from the residuals:
 //   s  = (q k_f^T) * scale + bias_f      fp32, from the unscaled q
-//   p  = softmax(s)                      fp32, normalised
+//   p  = exp(s - lse_f)                  fp32, normalised by the saved lse
 //   dp = do_f v_f^T                      fp32
-//   delta = rowsum(p * dp),  ds = p * (dp - delta)
+//   delta_f = rowsum(do_f * out_f),  ds = p * (dp - delta_f)
 //   dq   = scale * sum_f ds_lo k_f       ds_lo, p_lo: ds, p rounded to the
 //   dk_f = scale * ds_lo^T q             input dtype before the products;
 //   dv_f = p_lo^T do_f                   fp32 sums, cast once at the end
 //   dbias[b, h, key] = sum over queries of the unrounded ds
-// The sum of dbias over heads is left to the caller. Every head count and
-// every frame length is covered (the TPU wrapper leaves its fused kernel
-// for odd head counts and long rows).
+// delta_f = rowsum(do_f * out_f) equals the TPU kernels' rowsum(p * dp)
+// since out_f = p v_f. The sum of dbias over heads is left to the caller.
+// Every head count and every frame length is covered (the TPU wrapper
+// leaves its fused kernel for odd head counts and long rows).
 //
 // What bounds it on the H100: at B8 H12 N1568 F8 d64 the five products are
-// 10*B*H*N^2*d = 151 GFLOP (0.153 ms at the bf16 peak) against about 270 MB
-// (q, k, v read, dq, dk, dv written, and do, F times the size of q, read
-// once: 0.081 ms): the tensor cores bound it, as long as no [N, N] tile
-// leaves the chip.
+// 10*B*H*N^2*d = 151 GFLOP (0.153 ms at the bf16 peak) against about 425 MB
+// (q, k, v read, dq, dk, dv written, and do and out, each F times the size
+// of q, read once: 0.127 ms): the tensor cores bound it, as long as no
+// [N, N] tile leaves the chip.
 //
-// Design (first version: simple, right and the same from run to run):
-//   The TPU program holds a whole K/V row, takes one [blk_q, s] tile per
-//   frame, and leans on its grid running the q blocks in order so that
-//   dk/dv/dbias stay resident; it also wants a head-major transpose of the
-//   cotangent and padded copies of k and v. Here blocks run in any order,
-//   so each sum has one owner and there are no atomics, as in the dense
-//   backward (flash_attention_bwd.cu), whose tile code this file shares
-//   (attention_tiles.cuh):
-//   * frame_bwd_dq_kernel, one block per (b*h, 64-row q tile), stages q
-//     once and loops over the frames. Per frame it stages that frame's do
-//     tile (rows of d contiguous elements read through do's strides, no
-//     transpose) and walks the frame's key tiles twice: pass 1 finds each
-//     row's max m, denominator l and delta with an online softmax (keys
-//     past the frame's end get the logit -1e30) and writes them to
-//     [3, B, H, F, N] fp32 scratch; pass 2 recomputes s and dp, forms ds and
-//     adds ds_lo k to dq, which stays in registers across all frames.
-//   * frame_bwd_dkdv_kernel, one block per (b*h, frame, 64-key tile of the
-//     frame), keeps its K/V tile in shared memory, walks all q tiles in
-//     order with the frame's do tiles, recomputes s and dp from the saved
-//     statistics, and sums dk, dv (registers) and the dbias column sums
-//     over the queries. Query rows past N are staged as zeros; keys past
-//     the frame's end are zero-filled, weigh nothing and are not stored.
-//   * a frame's last key tile is ragged (s = 196, 178, ..., 34 on the
-//     merged path): only its 16-wide key groups that hold a key are
-//     multiplied.
-//   That is nine [64 x 64 x d] products per tile pair where five are
-//   needed, the price of owning every sum.
-//   * bf16 runs the products on the tensor cores (nvcuda::wmma 16x16x16,
-//     fp32 accumulation); fp32 runs them as FMAs on the CUDA cores so that
-//     fp32 gradients stay within fp32 rounding of the plain version.
-// A whole-frame softmax row in shared memory (one pass less), wgmma and TMA
-// are left for later versions.
+// Design. Blocks run in any order and each sum has one owner: there are no
+// atomics, and two runs give the same bits. The TPU program holds a whole
+// K/V row, takes one [blk_q, s] tile per frame, and leans on its grid
+// running the q blocks in order so that dk/dv/dbias stay resident; here:
+//   * frame_bwd_dq, one block per (b*h, 64-row q tile): stages q once and
+//     walks the F frames' key tiles in turn, summing dq over all of them
+//     in registers. At each frame it takes that frame's do tile (rows of d
+//     contiguous elements read through do's strides, no transpose), its
+//     lse and delta_f = rowsum(do_f * out_f), which it also writes to a
+//     [B, H, F, N] fp32 scratch. Three products a tile pair.
+//   * frame_bwd_dkdv, launched after it on the same stream, one block per
+//     (b*h, frame, 64-key tile of the frame): keeps its k/v tile, walks all
+//     q tiles with the frame's do tiles, lse and delta, and sums dk, dv and
+//     the dbias column sums over the queries. Four products a tile pair.
+//   Keys past the frame's end are zero-filled, weigh nothing (p = 0 on the
+//   frame's ragged last tile) and are not stored; query rows past N are
+//   zero-filled and not stored.
+// Two bodies:
+//   * bf16 at d = 64, the head dimension of every ViT-B path: the Hopper
+//     backward tile loop of wgmma_attention_bwd.cuh (shared with K2 and
+//     K5b). One warpgroup (128 threads) a block, every product a wgmma
+//     m64n64k16 with fp32 accumulators in registers: S, dP, P and dS stay
+//     in registers (P and dS are the A operands of the next products), the
+//     streamed tiles pass through a two-stage cp.async ring, and the next
+//     frame's do tile loads while this frame's is read. The biased and
+//     unbiased cases are two instances chosen at compile time.
+//   * every other case (fp32, and bf16 at d = 16, 32, 128): the first
+//     version's body, in the same residual form (no statistics pass):
+//     nvcuda::wmma 16x16x16 for bf16 with S, dP, P and dS in shared memory,
+//     fp32 FMAs on the CUDA cores so that fp32 gradients stay within fp32
+//     rounding of the plain version; a frame's ragged last key tile
+//     multiplies only its 16-wide key groups that hold a key.
+// TMA, warp specialisation and a persistent grid are left for later
+// versions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "wgmma_attention_bwd.cuh"
 
 namespace {
 
@@ -76,19 +85,19 @@ using vtm::from_float;
 using vtm::load_tile;
 using vtm::logit;
 using vtm::product_abt;
+using vtm::row_delta;
 using vtm::write_rows;
 template <typename T, int D>
 using Layout = vtm::BwdLayout<T, D>;
 
 constexpr int kTile = vtm::kTileRows;        // rows of a q tile and keys of a k tile
 constexpr int kThreads = vtm::kTileThreads;  // 4 warps, each owning a 16-row strip
-constexpr float kMask = vtm::kMask;
 
-// Element strides (batch, head, row) of q, k, v and of the outputs dq, dk,
-// dv, and (batch, head, row, frame) of do; the last dim is contiguous
-// everywhere.
+// Element strides (batch, head, row) of q, k, v, (batch, head, row, frame)
+// of do and out, and (batch, head, row) of the outputs dq, dk, dv; the last
+// dim is contiguous everywhere.
 struct Strides {
-  long long q[3], k[3], v[3], go[4], dq[3], dk[3], dv[3];
+  long long q[3], k[3], v[3], go[4], o[4], dq[3], dk[3], dv[3];
 };
 
 template <typename T>
@@ -98,11 +107,13 @@ struct Args {
   const T* v;
   const float* key_bias;  // [B, N] or null
   const T* go;
+  const T* out;      // the forward's output
+  const float* lse;  // [B, H, F, N]: the forward's per-frame row log-sum-exp
   T* dq;
   T* dk;
   T* dv;
   float* dbias;  // [B, H, N] or null
-  float* stats;  // [3, B, H, F, N]: row max, row denominator, delta per frame
+  float* delta;  // [B, H, F, N] scratch: rowsum(do_f * out_f), written by the dq kernel
   int batch, num_heads, n, frames, s_len;
   float scale;
   Strides st;
@@ -115,7 +126,8 @@ __device__ __forceinline__ int live_cols(int k0, int key_end) {
   return left >= kTile ? kTile : (left + 15) / 16 * 16;
 }
 
-// ---- dq, and the per-frame row statistics every tile of ds needs ----------
+// ======================= first-version body (fp32, bf16 d != 64) ==========
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) frame_bwd_dq_kernel(Args<T> p) {
   using L = Layout<T, D>;
@@ -137,18 +149,19 @@ __global__ void __launch_bounds__(kThreads) frame_bwd_dq_kernel(Args<T> p) {
   const T* kb = p.k + b * p.st.k[0] + h * p.st.k[1];
   const T* vb = p.v + b * p.st.v[0] + h * p.st.v[1];
   const T* gob = p.go + b * p.st.go[0] + h * p.st.go[1];
+  const T* ob = p.out + b * p.st.o[0] + h * p.st.o[1];
   const float* bias = p.key_bias ? p.key_bias + static_cast<long long>(b) * n : nullptr;
-  const long long plane = static_cast<long long>(p.batch) * p.num_heads * p.frames * n;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wrow = warp * 16;          // first row of this warp's strip
   const int row = wrow + (lane >> 1);  // the row this lane owns
   const int half = lane & 1;           // which half of the row's 64 keys
+  const bool valid = q0 + row < n;
 
   load_tile<T, D, false>(qs, L::ld_x, qb, p.st.q[2], q0, n, 0.f);
 
-  float* srow = ss + row * L::ld_s + half * 32;
+  const float* srow = ss + row * L::ld_s + half * 32;
   const float* dprow = dps + row * L::ld_s + half * 32;
   T* dsrow = dss + row * L::ld_p + half * 32;
 
@@ -157,56 +170,18 @@ __global__ void __launch_bounds__(kThreads) frame_bwd_dq_kernel(Args<T> p) {
   for (int f = 0; f < p.frames; ++f) {
     const int key0 = f * p.s_len;
     const int key_end = key0 + p.s_len;
+    const long long rows = (static_cast<long long>(bh) * p.frames + f) * n;  // frame f's residuals
     __syncthreads();  // the previous frame's readers of do are done
     load_tile<T, D, false>(dos, L::ld_x, gob + f * p.st.go[3], p.st.go[2], q0, n, 0.f);
+    const float delta =
+        row_delta<T, D>(gob + f * p.st.go[3], p.st.go[2], ob + f * p.st.o[3], p.st.o[2], q0 + row, n, half);
+    const float lse = valid ? p.lse[rows + q0 + row] : 0.f;
+    if (half == 0 && valid) p.delta[rows + q0 + row] = delta;
 
-    // ---- pass 1: m, l and delta = sum_j p_j dp_j of this lane's row -------
-    float m_i = kMask, l_i = 0.f, a_i = 0.f;
+    // dq += sum over the frame's key tiles of ds_lo k
     for (int k0 = key0; k0 < key_end; k0 += kTile) {
       const int cols = live_cols(k0, key_end);
       __syncthreads();  // the previous tile's readers are done
-      load_tile<T, D, false>(ks, L::ld_x, kb, p.st.k[2], k0, key_end, 0.f);
-      load_tile<T, D, false>(vs, L::ld_x, vb, p.st.v[2], k0, key_end, 0.f);
-      __syncthreads();
-      product_abt<T, D>(qs, ks, ss, wrow, row, half, cols);
-      product_abt<T, D>(dos, vs, dps, wrow, row, half, cols);
-      __syncwarp();
-      float mx = kMask;
-      for (int j = 0; j < 32; ++j) {
-        const int key = k0 + half * 32 + j;
-        const float s = key < key_end ? logit(srow[j], p.scale, bias, key) : kMask;
-        srow[j] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_new = fmaxf(m_i, mx);
-      const float corr = expf(m_i - m_new);
-      float sum = 0.f, acc = 0.f;
-      for (int j = 0; j < 32; ++j) {
-        if (k0 + half * 32 + j < key_end) {  // past the end dp was never computed
-          const float e = expf(srow[j] - m_new);
-          sum += e;
-          acc = fmaf(e, dprow[j], acc);
-        }
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      l_i = l_i * corr + sum;
-      a_i = a_i * corr + acc;
-      m_i = m_new;
-    }
-    const float delta = a_i / l_i;
-    if (half == 0 && q0 + row < n) {
-      float* st = p.stats + (static_cast<long long>(bh) * p.frames + f) * n + q0 + row;
-      st[0] = m_i;
-      st[plane] = l_i;
-      st[2 * plane] = delta;
-    }
-
-    // ---- pass 2: dq += sum over the frame's key tiles of ds_lo k ----------
-    for (int k0 = key0; k0 < key_end; k0 += kTile) {
-      const int cols = live_cols(k0, key_end);
-      __syncthreads();
       load_tile<T, D, false>(ks, L::ld_x, kb, p.st.k[2], k0, key_end, 0.f);
       load_tile<T, D, false>(vs, L::ld_x, vb, p.st.v[2], k0, key_end, 0.f);
       __syncthreads();
@@ -217,7 +192,7 @@ __global__ void __launch_bounds__(kThreads) frame_bwd_dq_kernel(Args<T> p) {
         const int key = k0 + half * 32 + j;
         float ds = 0.f;
         if (key < key_end) {
-          const float prob = expf(logit(srow[j], p.scale, bias, key) - m_i) / l_i;
+          const float prob = expf(logit(srow[j], p.scale, bias, key) - lse);
           ds = prob * (dprow[j] - delta);
         }
         dsrow[j] = from_float<T>(ds);
@@ -234,7 +209,8 @@ __global__ void __launch_bounds__(kThreads) frame_bwd_dq_kernel(Args<T> p) {
 
 // ---- dk, dv and dbias: one block owns a key tile's sums over all queries --
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) frame_bwd_dkdv_kernel(Args<T> p, int tiles_per_frame) {
+__global__ void __launch_bounds__(kThreads) frame_bwd_dkdv_kernel(Args<T> p) {
+  const int tiles_per_frame = (p.s_len + kTile - 1) / kTile;
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
@@ -259,8 +235,9 @@ __global__ void __launch_bounds__(kThreads) frame_bwd_dkdv_kernel(Args<T> p, int
   const T* vb = p.v + b * p.st.v[0] + h * p.st.v[1];
   const T* gob = p.go + b * p.st.go[0] + h * p.st.go[1] + f * p.st.go[3];
   const float* bias = p.key_bias ? p.key_bias + static_cast<long long>(b) * n : nullptr;
-  const long long plane = static_cast<long long>(p.batch) * p.num_heads * p.frames * n;
-  const float* stats = p.stats + (static_cast<long long>(bh) * p.frames + f) * n;
+  const long long rows = (static_cast<long long>(bh) * p.frames + f) * n;  // frame f's residuals
+  const float* lse = p.lse + rows;
+  const float* delta = p.delta + rows;
   const bool want_dbias = p.dbias != nullptr;
 
   const int warp = threadIdx.x / 32;
@@ -292,15 +269,14 @@ __global__ void __launch_bounds__(kThreads) frame_bwd_dkdv_kernel(Args<T> p, int
     product_abt<T, D>(dos, vs, dps, wrow, row, half, cols);
     __syncwarp();
     const bool valid = q0 + row < n;
-    const float m_i = valid ? stats[q0 + row] : 0.f;
-    const float l_i = valid ? stats[plane + q0 + row] : 1.f;
-    const float delta = valid ? stats[2 * plane + q0 + row] : 0.f;
+    const float lse_i = valid ? lse[q0 + row] : 0.f;
+    const float delta_i = valid ? delta[q0 + row] : 0.f;
     for (int j = 0; j < 32; ++j) {
       const int key = k0 + half * 32 + j;
       float prob = 0.f, ds = 0.f;
       if (valid && key < key_end) {
-        prob = expf(logit(srow[j], p.scale, bias, key) - m_i) / l_i;
-        ds = prob * (dprow[j] - delta);
+        prob = expf(logit(srow[j], p.scale, bias, key) - lse_i);
+        ds = prob * (dprow[j] - delta_i);
       }
       prow[j] = from_float<T>(prob);
       dsrow[j] = from_float<T>(ds);
@@ -328,25 +304,73 @@ __global__ void __launch_bounds__(kThreads) frame_bwd_dkdv_kernel(Args<T> p, int
   write_rows<T, D>(p.dv + b * p.st.dv[0] + h * p.st.dv[1], p.st.dv[2], ss, L::ld_o, k0, key_end);
 }
 
+// ======================= Hopper body (bf16, d = 64) =======================
+
+namespace wg = vtm::wg;
+using bf16 = __nv_bfloat16;
+
+// The (b, h) slice's walk over all F frames (the dq kernel's), with the
+// frame-major residuals [F, N] of the slice.
+__device__ __forceinline__ wg::BwdWalk frame_walk(const Args<bf16>& p) {
+  wg::BwdWalk w = wg::slice_walk(p, blockIdx.y, 0, p.frames, p.s_len, p.n);
+  w.go_frame_stride = p.st.go[3];
+  w.out_frame_stride = p.st.o[3];
+  return w;
+}
+
+template <bool kBias>
+__global__ void __launch_bounds__(wg::kThreads) frame_bwd_dq_wgmma(Args<bf16> p) {
+  extern __shared__ unsigned char smem[];
+  wg::BwdWalk w = frame_walk(p);
+  w.row0 = blockIdx.x * wg::kRows;
+  wg::attend_bwd_dq<kBias>(w, wg::AllPairs(), smem);
+}
+
+// one block per (frame, 64-key tile of the frame): the walk is that
+// frame's, over all N queries
+template <bool kBias>
+__global__ void __launch_bounds__(wg::kThreads) frame_bwd_dkdv_wgmma(Args<bf16> p) {
+  extern __shared__ unsigned char smem[];
+  wg::BwdWalk w = frame_walk(p);
+  const int tiles_per_frame = (p.s_len + wg::kRows - 1) / wg::kRows;
+  const int f = blockIdx.x / tiles_per_frame;
+  const long long key0 = static_cast<long long>(f) * p.s_len;  // the frame's first key
+  w.k += key0 * w.k_stride;
+  w.v += key0 * w.v_stride;
+  if (kBias) w.bias += key0;
+  w.go += f * w.go_frame_stride;
+  w.lse += f * w.row_frame_stride;
+  w.delta += f * w.row_frame_stride;
+  w.dk += key0 * w.dk_stride;
+  w.dv += key0 * w.dv_stride;
+  if (w.dbias) w.dbias += key0;
+  w.key0 = (blockIdx.x % tiles_per_frame) * wg::kRows;
+  w.frames = 1;
+  wg::attend_bwd_dkdv<kBias>(w, wg::AllPairs(), smem);
+}
+
+// ======================= launch ===========================================
+
+// The dq kernel: one block per (64-row q tile, b * h); the dk/dv kernel:
+// one per (frame, 64-key tile of the frame; b * h).
 template <typename T, int D>
 cudaError_t launch(const Args<T>& args, cudaStream_t stream) {
-  using L = Layout<T, D>;
-  auto dq_kernel = frame_bwd_dq_kernel<T, D>;
-  auto dkdv_kernel = frame_bwd_dkdv_kernel<T, D>;
-  static bool dq_done[vtm::kMaxDevices] = {}, dkdv_done[vtm::kMaxDevices] = {};
-  cudaError_t err = vtm::allow_smem_once(dq_kernel, static_cast<int>(L::bytes), dq_done);
-  if (err != cudaSuccess) return err;
-  err = vtm::allow_smem_once(dkdv_kernel, static_cast<int>(L::bytes), dkdv_done);
-  if (err != cudaSuccess) return err;
   const int bh = args.batch * args.num_heads;
-  const int tiles_per_frame = (args.s_len + kTile - 1) / kTile;
-  dq_kernel<<<dim3((args.n + kTile - 1) / kTile, bh), kThreads, L::bytes, stream>>>(args);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // reads the row statistics the first kernel wrote: same stream, in order
-  dkdv_kernel<<<dim3(args.frames * tiles_per_frame, bh), kThreads, L::bytes, stream>>>(
-      args, tiles_per_frame);
-  return cudaGetLastError();
+  const dim3 dq_grid((args.n + kTile - 1) / kTile, bh);
+  const dim3 dkdv_grid(args.frames * ((args.s_len + kTile - 1) / kTile), bh);
+  if constexpr (std::is_same<T, bf16>::value && D == 64) {
+    // the dq kernel's shared memory holds a second do slot, used when frames > 1
+    constexpr int dq_bytes = wg::BwdSmem::kFramesLaunchBytes, bytes = wg::BwdSmem::kLaunchBytes;
+    if (args.key_bias)
+      return vtm::launch_bwd_pair<frame_bwd_dq_wgmma<true>, frame_bwd_dkdv_wgmma<true>>(
+          args, dq_grid, dkdv_grid, wg::kThreads, dq_bytes, bytes, stream);
+    return vtm::launch_bwd_pair<frame_bwd_dq_wgmma<false>, frame_bwd_dkdv_wgmma<false>>(
+        args, dq_grid, dkdv_grid, wg::kThreads, dq_bytes, bytes, stream);
+  } else {
+    constexpr int bytes = static_cast<int>(Layout<T, D>::bytes);
+    return vtm::launch_bwd_pair<frame_bwd_dq_kernel<T, D>, frame_bwd_dkdv_kernel<T, D>>(
+        args, dq_grid, dkdv_grid, kThreads, bytes, bytes, stream);
+  }
 }
 
 template <typename T>
@@ -362,8 +386,8 @@ cudaError_t dispatch_head_dim(int head_dim, const Args<T>& args, cudaStream_t st
 
 template <typename T>
 Args<T> make_args(const void* q, const void* k, const void* v, const void* key_bias,
-                  const void* go, void* dq, void* dk, void* dv, void* dbias, void* stats,
-                  int batch, int num_heads, int n, int frames, float scale,
+                  const void* go, const void* out, const void* lse, void* dq, void* dk, void* dv,
+                  void* dbias, void* delta, int batch, int num_heads, int n, int frames, float scale,
                   const long long* strides) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
@@ -371,11 +395,13 @@ Args<T> make_args(const void* q, const void* k, const void* v, const void* key_b
   a.v = static_cast<const T*>(v);
   a.key_bias = static_cast<const float*>(key_bias);
   a.go = static_cast<const T*>(go);
+  a.out = static_cast<const T*>(out);
+  a.lse = static_cast<const float*>(lse);
   a.dq = static_cast<T*>(dq);
   a.dk = static_cast<T*>(dk);
   a.dv = static_cast<T*>(dv);
   a.dbias = static_cast<float*>(dbias);
-  a.stats = static_cast<float*>(stats);
+  a.delta = static_cast<float*>(delta);
   a.batch = batch;
   a.num_heads = num_heads;
   a.n = n;
@@ -389,20 +415,24 @@ Args<T> make_args(const void* q, const void* k, const void* v, const void* key_b
 }  // namespace
 
 // C entry point, bound with ctypes by vtm_torch/ops/flash_attention.py.
-//   dtype: 0 = bf16, 1 = fp32 (q, k, v, go, dq, dk and dv share it)
+//   dtype: 0 = bf16, 1 = fp32 (q, k, v, go, out, dq, dk and dv share it)
 //   key_bias: fp32 [batch, n] contiguous, or null for the unbiased form
 //   go: the cotangent of the token-major output [batch, n, frames, heads, d]
+//   out, lse: the forward's token-major output and its fp32
+//             [batch, num_heads, frames, n] contiguous per-frame row
+//             log-sum-exp
 //   dbias: fp32 [batch, num_heads, n] contiguous, or null when not wanted
-//   stats: fp32 [3, batch, num_heads, frames, n] scratch
+//   delta: fp32 [batch, num_heads, frames, n] contiguous scratch
 //   frames: divides n
-//   strides: 22 element strides: (batch, head, row) of q, k, v, then
-//            (batch, head, row, frame) of go, then (batch, head, row) of
-//            dq, dk, dv
+//   strides: 26 element strides: (batch, head, row) of q, k, v, then
+//            (batch, head, row, frame) of go and of out, then (batch, head,
+//            row) of dq, dk, dv
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int vtm_frame_attention_bwd(int dtype, int head_dim, const void* q, const void* k,
                                        const void* v, const void* key_bias, const void* go,
-                                       void* dq, void* dk, void* dv, void* dbias, void* stats,
-                                       int batch, int num_heads, int n, int frames, float scale,
+                                       const void* out, const void* lse, void* dq, void* dk,
+                                       void* dv, void* dbias, void* delta, int batch,
+                                       int num_heads, int n, int frames, float scale,
                                        const long long* strides, void* stream) {
   if (frames < 1 || n < 1 || n % frames != 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -410,14 +440,14 @@ extern "C" int vtm_frame_attention_bwd(int dtype, int head_dim, const void* q, c
     case 0:
       return dispatch_head_dim<__nv_bfloat16>(
           head_dim,
-          make_args<__nv_bfloat16>(q, k, v, key_bias, go, dq, dk, dv, dbias, stats, batch,
-                                   num_heads, n, frames, scale, strides),
+          make_args<__nv_bfloat16>(q, k, v, key_bias, go, out, lse, dq, dk, dv, dbias, delta,
+                                   batch, num_heads, n, frames, scale, strides),
           s);
     case 1:
       return dispatch_head_dim<float>(
           head_dim,
-          make_args<float>(q, k, v, key_bias, go, dq, dk, dv, dbias, stats, batch, num_heads, n,
-                           frames, scale, strides),
+          make_args<float>(q, k, v, key_bias, go, out, lse, dq, dk, dv, dbias, delta, batch,
+                           num_heads, n, frames, scale, strides),
           s);
     default:
       return cudaErrorInvalidValue;

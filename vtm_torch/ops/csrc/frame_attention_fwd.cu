@@ -4,7 +4,9 @@
 // [f*s, (f+1)*s), s = N / F, and every frame has a softmax of its own.
 // The output is token-major [B, N, F, H, d], so the model's [B, N, F, D]
 // view of it is free. This is the spatial step of Motionformer's
-// trajectory attention.
+// trajectory attention. When a gradient is wanted it also writes the
+// log-sum-exp of each row's logits in each frame, fp32 [B, H, F, N]: K4's
+// residual (frame_attention_bwd.cu), with out itself.
 //
 // Replaces the Pallas TPU kernel of vtm/ops/flash_attention.py::
 // _frame_forward_tm_s8 (kernel _make_frame_tm_s8_kernel, reached through
@@ -127,8 +129,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     frame_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const float* __restrict__ key_bias,
-                               T* __restrict__ out, int num_heads, int n, int frames, int s_len,
-                               float scale, Strides st) {
+                               T* __restrict__ out, float* __restrict__ lse, int num_heads, int n,
+                               int frames, int s_len, float scale, Strides st) {
   using L = FrameLayout<T, D>;
   const L lay(s_len);
   const int ld_s = lay.ld_s;
@@ -215,6 +217,8 @@ __global__ void __launch_bounds__(kThreads)
         sum += e;
       }
       sum = warp_sum(sum);
+      if (lse != nullptr && lane == 0 && q0 + r < n)
+        lse[(static_cast<long long>(bh) * frames + f) * n + q0 + r] = mx + logf(sum);
       // p = e / sum in fp32, rounded to the input dtype (held as fp32)
       for (int j = lane; j < s_len; j += 32) srow[j] = to_float(from_float<T>(srow[j] / sum));
     }
@@ -299,8 +303,8 @@ template <bool kBias>
 __global__ void __launch_bounds__(wg::kThreads)
     frame_attention_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const float* __restrict__ key_bias,
-                              bf16* __restrict__ out, int num_heads, int n, int frames,
-                              int s_len, float scale, Strides st) {
+                              bf16* __restrict__ out, float* __restrict__ lse, int num_heads, int n,
+                              int frames, int s_len, float scale, Strides st) {
   extern __shared__ unsigned char smem[];
   const int bh = blockIdx.y;
   const int b = bh / num_heads;
@@ -316,7 +320,8 @@ __global__ void __launch_bounds__(wg::kThreads)
   w.out = out + b * st.o[0] + h * st.o[1];
   w.out_stride = st.o[2];
   w.out_frame_stride = st.o[3];
-  w.lse = nullptr;
+  w.lse = lse ? lse + static_cast<long long>(bh) * frames * n : nullptr;
+  w.lse_frame_stride = n;
   w.row0 = blockIdx.x * wg::kRows;
   w.rows = n;
   w.frames = frames;
@@ -327,8 +332,8 @@ __global__ void __launch_bounds__(wg::kThreads)
 
 template <bool kBias>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* key_bias,
-                         void* out, int batch, int num_heads, int n, int frames, float scale,
-                         const Strides& st, cudaStream_t stream) {
+                         void* out, void* lse, int batch, int num_heads, int n, int frames,
+                         float scale, const Strides& st, cudaStream_t stream) {
   auto kernel = frame_attention_fwd_wgmma<kBias>;
   static bool done[vtm::kMaxDevices] = {};
   cudaError_t err = vtm::allow_smem_once(kernel, WgSmem::kLaunchBytes, done);
@@ -336,18 +341,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   const dim3 grid((n + wg::kRows - 1) / wg::kRows, batch * num_heads);
   kernel<<<grid, wg::kThreads, WgSmem::kLaunchBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(key_bias), static_cast<bf16*>(out), num_heads, n, frames,
-      n / frames, scale, st);
+      static_cast<const float*>(key_bias), static_cast<bf16*>(out), static_cast<float*>(lse),
+      num_heads, n, frames, n / frames, scale, st);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_bias, void* out,
-                   int batch, int num_heads, int n, int frames, float scale, const Strides& st,
-                   cudaStream_t stream) {
+                   void* lse, int batch, int num_heads, int n, int frames, float scale,
+                   const Strides& st, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value && D == 64) {
-    return key_bias ? launch_wgmma<true>(q, k, v, key_bias, out, batch, num_heads, n, frames, scale, st, stream)
-                    : launch_wgmma<false>(q, k, v, key_bias, out, batch, num_heads, n, frames, scale, st, stream);
+    return key_bias ? launch_wgmma<true>(q, k, v, key_bias, out, lse, batch, num_heads, n, frames, scale, st, stream)
+                    : launch_wgmma<false>(q, k, v, key_bias, out, lse, batch, num_heads, n, frames, scale, st, stream);
   } else {
     const int s_len = n / frames;
     const dim3 grid((n + kTile - 1) / kTile, batch * num_heads);
@@ -360,21 +365,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, lay.bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const float*>(key_bias), static_cast<T*>(out), num_heads, n, frames, s_len,
-        scale, st);
+        static_cast<const float*>(key_bias), static_cast<T*>(out), static_cast<float*>(lse), num_heads,
+        n, frames, s_len, scale, st);
     return cudaGetLastError();
   }
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k, const void* v,
-                              const void* key_bias, void* out, int batch, int num_heads, int n,
-                              int frames, float scale, const Strides& st, cudaStream_t stream) {
+                              const void* key_bias, void* out, void* lse, int batch, int num_heads,
+                              int n, int frames, float scale, const Strides& st, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, key_bias, out, batch, num_heads, n, frames, scale, st, stream);
-    case 32: return launch<T, 32>(q, k, v, key_bias, out, batch, num_heads, n, frames, scale, st, stream);
-    case 64: return launch<T, 64>(q, k, v, key_bias, out, batch, num_heads, n, frames, scale, st, stream);
-    case 128: return launch<T, 128>(q, k, v, key_bias, out, batch, num_heads, n, frames, scale, st, stream);
+    case 16: return launch<T, 16>(q, k, v, key_bias, out, lse, batch, num_heads, n, frames, scale, st, stream);
+    case 32: return launch<T, 32>(q, k, v, key_bias, out, lse, batch, num_heads, n, frames, scale, st, stream);
+    case 64: return launch<T, 64>(q, k, v, key_bias, out, lse, batch, num_heads, n, frames, scale, st, stream);
+    case 128: return launch<T, 128>(q, k, v, key_bias, out, lse, batch, num_heads, n, frames, scale, st, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -384,13 +389,15 @@ cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k, const 
 // C entry point, bound with ctypes by vtm_torch/ops/flash_attention.py.
 //   dtype: 0 = bf16, 1 = fp32 (q, k, v and out share it)
 //   key_bias: fp32 [batch, n] contiguous, or null for the unbiased form
+//   lse: fp32 [batch, num_heads, frames, n] contiguous, each row's
+//        log-sum-exp in each frame, or null when not wanted
 //   frames: divides n, with n / frames <= 512
 //   strides: 13 element strides: (batch, head, row) of q, k, v, then
 //            (batch, head, row, frame) of out
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int vtm_frame_attention_fwd(int dtype, int head_dim, const void* q, const void* k,
-                                       const void* v, const void* key_bias, void* out, int batch,
-                                       int num_heads, int n, int frames, float scale,
+                                       const void* v, const void* key_bias, void* out, void* lse,
+                                       int batch, int num_heads, int n, int frames, float scale,
                                        const long long* strides, void* stream) {
   if (frames < 1 || n < 1 || n % frames != 0 || n / frames > kMaxFrameLen) {
     return cudaErrorInvalidValue;
@@ -400,10 +407,10 @@ extern "C" int vtm_frame_attention_fwd(int dtype, int head_dim, const void* q, c
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, key_bias, out, batch, num_heads,
-                                              n, frames, scale, st, s);
+      return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, key_bias, out, lse, batch,
+                                              num_heads, n, frames, scale, st, s);
     case 1:
-      return dispatch_head_dim<float>(head_dim, q, k, v, key_bias, out, batch, num_heads, n,
+      return dispatch_head_dim<float>(head_dim, q, k, v, key_bias, out, lse, batch, num_heads, n,
                                       frames, scale, st, s);
     default:
       return cudaErrorInvalidValue;

@@ -1,6 +1,8 @@
 // The forward tile loop of the Hopper attention kernels, shared by K1
 // (flash_attention_fwd.cu), K3 (frame_attention_fwd.cu) and K5a
-// (blockdiag_attention_fwd.cu) in their bf16 d = 64 case.
+// (blockdiag_attention_fwd.cu) in their bf16 d = 64 case, and the pair
+// rules both directions use (the backward loop, wgmma_attention_bwd.cuh,
+// walks the same rules).
 //
 // A block of one warpgroup (128 threads) owns 64 query rows and walks the
 // keys of one or more frames, each frame with a softmax of its own. Per
@@ -17,7 +19,8 @@
 //     masks pairs inside a frame (K5a's packed frames).
 // At a frame's end o / l leaves through a swizzled bf16 stage with 16-byte
 // stores, with the row's natural-log log-sum-exp (m + log2 l) ln 2 when
-// asked for, and the running max and denominator restart.
+// asked for (one per row and frame: the backward's residual), and the
+// running max and denominator restart.
 //
 // Rounding: q * scale is rounded to bf16 before q k^T, as the plain
 // versions do; the unnormalised p (each <= 1 against the running max) is
@@ -52,7 +55,8 @@ struct Walk {
   const float* bias;  // key j's bias at bias[j] (read only by the biased instance)
   __nv_bfloat16* out;
   long long out_stride, out_frame_stride;  // frame f's output at out + f * out_frame_stride
-  float* lse;         // row r's log-sum-exp at lse[r], or null
+  float* lse;         // row r's log-sum-exp in frame f at lse[f * lse_frame_stride + r], or null
+  long long lse_frame_stride;
   int row0;           // the block's first query row
   int rows;           // rows at or past this are zero-filled and not stored
   int frames;         // frame f holds keys [f * frame_len, (f + 1) * frame_len)
@@ -61,14 +65,62 @@ struct Walk {
 };
 
 // The pair rule of a walk: window(r) is the range [lo, hi) of the frame's
-// keys that reach row r (counted from Walk::row0), biased(r) whether row r
-// takes the bias. kEveryTile rules are applied on every tile; the others
-// only on a frame's ragged last tile, where keys past the frame's end are
-// dropped.
+// keys that reach row r, biased(r) whether row r takes the bias; rows and
+// keys count from the frame's first. kEveryTile rules are applied on every
+// tile; the others only on a frame's ragged last tile, where keys past the
+// frame's end are dropped. Windows are symmetric (row r reaches key c iff
+// row c's window holds r), so the backward's key tiles read window(c) as
+// the queries that reach key c. skips_first_row(): the first row of each
+// window takes no bias (TimeSformer's CLS query under exclude_first_row).
 struct AllPairs {
   static constexpr bool kEveryTile = false;
   __device__ __forceinline__ int2 window(int) const { return make_int2(0, 0x7fffffff); }
   __device__ __forceinline__ bool biased(int) const { return true; }
+  __device__ __forceinline__ bool skips_first_row() const { return false; }
+};
+
+// One frame's rows (K5a and K5b at frames of more than 32 tokens): every
+// key of the frame reaches every row; row 0 skips the bias under
+// exclude_first_row.
+struct FrameRows {
+  static constexpr bool kEveryTile = false;
+  bool exclude_first_row;
+  __device__ __forceinline__ int2 window(int) const { return make_int2(0, 0x7fffffff); }
+  __device__ __forceinline__ bool biased(int r) const { return !(exclude_first_row && r == 0); }
+  __device__ __forceinline__ bool skips_first_row() const { return exclude_first_row; }
+};
+
+// Whole frames of s_len tokens packed into one tile (K5a and K5b at s <=
+// 32): row r sees the keys of its own frame only, and row 0 of each frame
+// skips the bias under exclude_first_row. One division a row (a division a
+// pair cost about 5 us a call at s = 10, PERF.md).
+struct PackedFrames {
+  static constexpr bool kEveryTile = true;
+  int s_len;
+  bool exclude_first_row;
+  __device__ __forceinline__ int2 window(int r) const {
+    const int lo = r / s_len * s_len;
+    return make_int2(lo, lo + s_len);
+  }
+  __device__ __forceinline__ bool biased(int r) const { return !(exclude_first_row && r % s_len == 0); }
+  __device__ __forceinline__ bool skips_first_row() const { return exclude_first_row; }
+};
+
+// K5a's and K5b's launch plan (ops/flash_attention.py::blockdiag_plan):
+// frames_per_block > 1 packs whole frames into one tile, and then
+// tiles_per_frame is 1; otherwise a block is tile blockIdx.x %
+// tiles_per_frame of frame blockIdx.x / tiles_per_frame. The same plan
+// gives the backward's query tiles (dq) and key tiles (dk, dv).
+struct BlockdiagPlan {
+  int frames_per_block, tiles_per_frame, blocks;
+
+  // every frame's every row exactly once
+  bool covers(int frames, int s_len) const {
+    const int g = frames_per_block;
+    if (g > 1) return g * s_len <= kRows && tiles_per_frame == 1 && blocks == (frames + g - 1) / g;
+    return g == 1 && tiles_per_frame == (s_len + kRows - 1) / kRows &&
+           static_cast<long long>(blocks) == static_cast<long long>(frames) * tiles_per_frame;
+  }
 };
 
 // Shared memory of a walk: the q tile, the ring's two stages of (k, v), the
@@ -115,15 +167,14 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
   }
   fence_async_shared();
 
-  // the two rows this thread holds (counted from Walk::row0): their bias and
-  // the keys that reach them
+  // the two rows this thread holds: their bias and the keys that reach them
   int rows_of[2], key_lo[2], key_hi[2];
   bool biased[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     rows_of[hh] = acc_row(2 * hh);
-    biased[hh] = rule.biased(rows_of[hh]);
-    const int2 win = rule.window(rows_of[hh]);
+    biased[hh] = rule.biased(w.row0 + rows_of[hh]);
+    const int2 win = rule.window(w.row0 + rows_of[hh]);
     key_lo[hh] = win.x;
     key_hi[hh] = min(win.y, w.frame_len);
   }
@@ -228,7 +279,7 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int row = w.row0 + rows_of[hh];
-          if (row < w.rows) w.lse[row] = (m2[hh] + log2f(l[hh])) * kLn2;
+          if (row < w.rows) w.lse[f * w.lse_frame_stride + row] = (m2[hh] + log2f(l[hh])) * kLn2;
         }
       }
 #pragma unroll

@@ -16,12 +16,14 @@ K3, ``tome_frame_attention``: the same with a separate softmax over each
 frame's contiguous key segment, returning token-major [B, N, F, H, d]
 (Motionformer's trajectory attention), the counterpart of ``vtm``'s
 ``tome_frame_attention``; kernel ``csrc/frame_attention_fwd.cu``. It is
-differentiable: a ``torch.autograd.Function`` whose backward is K4.
+differentiable: a ``torch.autograd.Function`` whose backward is K4. When a
+gradient is wanted it also writes each row's log-sum-exp in each frame.
 
 K4, ``tome_frame_attention_backward``: dq, dk, dv and dbias of K3 from
-(q, k, v, key_bias, do), recomputing each frame's softmax (the
-counterpart of ``vtm``'s ``_frame_bwd``, for every head count and frame
-length); kernel ``csrc/frame_attention_bwd.cu``.
+(q, k, v, key_bias, do) and the forward's residuals (out, lse): it
+recomputes the logits, takes p = exp(s - lse_f) and delta_f = rowsum(do_f
+* out_f) per frame (the counterpart of ``vtm``'s ``_frame_bwd``, for every
+head count and frame length); kernel ``csrc/frame_attention_bwd.cu``.
 
 K5a, ``tome_blockdiag_attention``: block-diagonal per-frame attention
 (the queries of frame f attend only to the keys of frame f; TimeSformer's
@@ -29,12 +31,14 @@ divided spatial attention), optionally with the key bias kept off row 0 of
 every frame, returning token-major [B, N, H*d]; the counterpart of
 ``vtm``'s ``tome_blockdiag_attention``; kernel
 ``csrc/blockdiag_attention_fwd.cu``. It is differentiable: a
-``torch.autograd.Function`` whose backward is K5b.
+``torch.autograd.Function`` whose backward is K5b. When a gradient is
+wanted it also writes each row's log-sum-exp.
 
 K5b, ``tome_blockdiag_attention_backward``: dq, dk, dv and dbias of K5a
-from (q, k, v, key_bias, do), recomputing each frame's softmax (the
-counterpart of ``vtm``'s ``_blockdiag_backward``); kernel
-``csrc/blockdiag_attention_bwd.cu``. Both take any frame length.
+from (q, k, v, key_bias, do) and the forward's residuals (out, lse), in
+K2's residual form per frame (the counterpart of ``vtm``'s
+``_blockdiag_backward``); kernel ``csrc/blockdiag_attention_bwd.cu``, on
+K5a's launch plan. Both take any frame length.
 
 None writes the [B, H, N, N] logits to device memory. The kernels are
 CUDA C++ for Hopper, built and bound by ``vtm_torch/ops/build.py``.
@@ -276,6 +280,12 @@ def tome_flash_attention_backward(
     return dq, dk, dv, dbias
 
 
+def _grad_wanted(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors`` (None entries
+    skipped): only then do the forwards write the lse residual."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 class _FlashAttention(torch.autograd.Function):
     """K1 forward, K2 backward. When a gradient is wanted the forward
     also writes the row log-sum-exp, and the Function saves (q, k, v,
@@ -320,25 +330,29 @@ def tome_flash_attention(
     Gradients with respect to q, k, v and key_bias come from K2
     (``tome_flash_attention_backward``).
     """
-    if not torch.is_grad_enabled() or not any(
-        t is not None and t.requires_grad for t in (q, k, v, key_bias)
-    ):
+    if not _grad_wanted(q, k, v, key_bias):
         return _forward(q, k, v, key_bias, sm_scale)
     return _FlashAttention.apply(q, k, v, key_bias, sm_scale)
 
 
-def _frame_reference(q, k, v, key_bias, sm_scale, frames):
+def _frame_reference(q, k, v, key_bias, sm_scale, frames, want_lse=False):
     """Plain version of K3 (vtm/ops/flash_attention.py:1276-1286): q*scale
     in q's dtype, fp32 logits plus the key bias, a softmax per frame's
     contiguous key segment in fp32, probabilities in v's dtype before the
-    product with v. Returns [B, N, F, H, d]."""
+    product with v. Returns [B, N, F, H, d]; with ``want_lse`` (out, lse),
+    lse the fp32 [B, H, F, N] log-sum-exp of each row's logits in each
+    frame."""
     b, h, n, d = q.shape
     s = n // frames
     logits = torch.matmul((q * sm_scale).float(), k.float().transpose(-2, -1))
     if key_bias is not None:
         logits = logits + key_bias.float()[:, None, None, :]
-    probs = torch.softmax(logits.view(b, h, n, frames, s), dim=-1).to(v.dtype)
-    return torch.einsum("bhqfn,bhfnd->bqfhd", probs, v.reshape(b, h, frames, s, d))
+    logits = logits.view(b, h, n, frames, s)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqfn,bhfnd->bqfhd", probs, v.reshape(b, h, frames, s, d))
+    if not want_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).transpose(2, 3).contiguous()
 
 
 def check_frame_kernel_args(q, k, v, key_bias, frames: int) -> None:
@@ -353,17 +367,19 @@ def check_frame_kernel_args(q, k, v, key_bias, frames: int) -> None:
     check_kernel_args(q, k, v, key_bias)
 
 
-def _frame_forward(q, k, v, key_bias, sm_scale, frames):
-    """K3 on a CUDA tensor, its plain version on a CPU tensor."""
+def _frame_forward(q, k, v, key_bias, sm_scale, frames, want_lse=False):
+    """K3 on a CUDA tensor, its plain version on a CPU tensor. With
+    ``want_lse`` returns (out, lse), lse float32 [B, H, F, N]."""
     global FRAME_LAUNCHES
     if not q.is_cuda:
-        return _frame_reference(q, k, v, key_bias, sm_scale, frames)
+        return _frame_reference(q, k, v, key_bias, sm_scale, frames, want_lse)
     check_frame_kernel_args(q, k, v, key_bias, frames)
     from vtm_torch.ops.build import load_library
 
     lib = load_library()
     b, h, n, d = q.shape
     out = torch.empty((b, n, frames, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, frames, n), dtype=torch.float32, device=q.device) if want_lse else None
     ob, orow, oframe, ohead = out.stride()[:4]
     strides = (ctypes.c_longlong * 13)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], ob, ohead, orow, oframe
@@ -374,6 +390,7 @@ def _frame_forward(q, k, v, key_bias, sm_scale, frames):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_bias is None else key_bias.data_ptr(),
             out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, h, n, frames, float(sm_scale),
             ctypes.addressof(strides),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -381,10 +398,10 @@ def _frame_forward(q, k, v, key_bias, sm_scale, frames):
     if err != 0:
         raise RuntimeError(f"frame attention kernel launch failed with cudaError_t {err}")
     FRAME_LAUNCHES += 1
-    return out
+    return (out, lse) if want_lse else out
 
 
-def _frame_backward_reference(q, k, v, key_bias, do, sm_scale, frames):
+def _frame_backward_reference(q, k, v, key_bias, do, sm_scale, frames, out=None, lse=None):
     """Plain version of K4, step by step with the TPU kernel's rounding
     points (vtm/ops/flash_attention.py:1113-1200, 1261-1273), per frame f
     with keys [f*s, (f+1)*s): fp32 logits from the unscaled q, an fp32
@@ -393,7 +410,12 @@ def _frame_backward_reference(q, k, v, key_bias, do, sm_scale, frames):
     products, whose fp32 sums (dq over frames and keys, dk and dv over
     queries) are cast at the end; dbias from the unrounded ds, summed over
     queries and heads. ``do`` is the token-major cotangent [B, N, F, H, d].
-    Returns (dq, dk, dv, dbias); dbias is None without a key_bias."""
+
+    Given the forward's residuals ``out`` (token-major [B, N, F, H, d]) and
+    ``lse`` (fp32 [B, H, F, N]) it takes the kernel's arithmetic: p =
+    exp(s - lse_f) and delta_f = rowsum(do_f * out_f) in fp32, out read in
+    its own dtype. Returns (dq, dk, dv, dbias); dbias is None without a
+    key_bias."""
     dtype = q.dtype
     b, h, n, d = q.shape
     s = n // frames
@@ -402,9 +424,13 @@ def _frame_backward_reference(q, k, v, key_bias, do, sm_scale, frames):
     sf = torch.einsum("bhqd,bhfkd->bhqfk", qf, kf) * sm_scale
     if key_bias is not None:
         sf = sf + key_bias.float().view(b, 1, 1, frames, s)
-    p = torch.softmax(sf, dim=-1)
     dp = torch.einsum("bqfhd,bhfkd->bhqfk", dof, vf)
-    delta = (p * dp).sum(dim=-1, keepdim=True)
+    if out is None or lse is None:
+        p = torch.softmax(sf, dim=-1)
+        delta = (p * dp).sum(dim=-1, keepdim=True)
+    else:
+        p = torch.exp(sf - lse.float().transpose(2, 3)[..., None])
+        delta = (dof * out.float()).sum(dim=-1).permute(0, 3, 1, 2)[..., None]
     ds = p * (dp - delta)
     p_lo = p.to(dtype).float()
     ds_lo = ds.to(dtype).float()
@@ -424,36 +450,48 @@ def tome_frame_attention_backward(
     sm_scale: float = 1.0,
     frames: int = 8,
     need_dbias: bool = True,
+    out: Optional[torch.Tensor] = None,
+    lse: Optional[torch.Tensor] = None,
 ):
     """Gradients of ``tome_frame_attention`` given ``do`` = d loss / d out.
 
     q, k, v, key_bias as in the forward; do: token-major [B, N, F, H, d] in
     q's dtype, last dim contiguous (read through its strides: no
-    head-major transpose). Returns (dq, dk, dv, dbias): dq, dk, dv are
-    [B, H, N, d] views of one token-major [B, N, 3, H, d] buffer; dbias is
-    float32 [B, N] (summed over heads and queries), or None when there is
-    no key_bias or ``need_dbias`` is False.
+    head-major transpose). ``out`` and ``lse`` are the forward's residuals
+    (its token-major output and the float32 [B, H, F, N] per-frame row
+    log-sum-exp of ``_frame_forward(..., want_lse=True)``); when either is
+    missing K3 runs first to make them. Returns (dq, dk, dv, dbias): dq,
+    dk, dv are [B, H, N, d] views of one token-major [B, N, 3, H, d]
+    buffer; dbias is float32 [B, N] (summed over heads and queries), or
+    None when there is no key_bias or ``need_dbias`` is False.
     """
     global FRAME_BWD_LAUNCHES
+    if out is None or lse is None:
+        out, lse = _frame_forward(q, k, v, key_bias, sm_scale, frames, want_lse=True)
     if not q.is_cuda:
-        dq, dk, dv, dbias = _frame_backward_reference(q, k, v, key_bias, do, sm_scale, frames)
+        dq, dk, dv, dbias = _frame_backward_reference(q, k, v, key_bias, do, sm_scale, frames, out, lse)
         return dq, dk, dv, dbias if need_dbias else None
     check_frame_kernel_args(q, k, v, key_bias, frames)
     b, h, n, d = q.shape
-    if do.shape != (b, n, frames, h, d) or do.dtype != q.dtype or do.device != q.device:
+    for name, t in (("do", do), ("out", out)):
+        if t.shape != (b, n, frames, h, d) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"{name} must be {q.dtype} {(b, n, frames, h, d)} on {q.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    if lse.shape != (b, h, frames, n) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(
-            f"do must be {q.dtype} {(b, n, frames, h, d)} on {q.device}, "
-            f"got {do.dtype} {tuple(do.shape)} on {do.device}"
+            f"lse must be float32 {(b, h, frames, n)} on {q.device}, got {lse.dtype} {tuple(lse.shape)}"
         )
-    do = _kernel_operand(do)
+    do, out, lse = _kernel_operand(do), _kernel_operand(out), lse.contiguous()
     from vtm_torch.ops.build import load_library
 
     lib = load_library()
     dq, dk, dv, dbias_heads = _gradient_buffers(q, need_dbias and key_bias is not None)
-    stats = torch.empty((3, b, h, frames, n), dtype=torch.float32, device=q.device)
-    gb, grow, gframe, ghead = do.stride()[:4]
-    strides = (ctypes.c_longlong * 22)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], gb, ghead, grow, gframe,
+    delta = torch.empty((b, h, frames, n), dtype=torch.float32, device=q.device)
+    token_major = [(t.stride(0), t.stride(3), t.stride(1), t.stride(2)) for t in (do, out)]
+    strides = (ctypes.c_longlong * 26)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *token_major[0], *token_major[1],
         *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
     )
     with torch.cuda.device(q.device):
@@ -461,10 +499,10 @@ def tome_frame_attention_backward(
             _DTYPE_CODES[q.dtype], d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_bias is None else key_bias.data_ptr(),
-            do.data_ptr(),
+            do.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if dbias_heads is None else dbias_heads.data_ptr(),
-            stats.data_ptr(),
+            delta.data_ptr(),
             b, h, n, frames, float(sm_scale),
             ctypes.addressof(strides),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -477,20 +515,28 @@ def tome_frame_attention_backward(
 
 
 class _FrameAttention(torch.autograd.Function):
-    """K3 forward, K4 backward. Saves (q, k, v, key_bias) only: the
-    backward recomputes each frame's softmax, as ``vtm``'s custom_vjp does."""
+    """K3 forward, K4 backward. The forward also writes each row's
+    log-sum-exp in each frame, and the Function saves (q, k, v, key_bias,
+    out, lse): the backward recomputes the logits but takes the row
+    statistics from the residuals. Motionformer's temporal step feeds
+    ``out`` to a Linear and a product that keep it for their own backward,
+    so saving it costs no memory of its own; lse is fp32 [B, H, F, N], F/32
+    of q's size in bf16 at d = 64. Serving (no gradient wanted) does not
+    reach the Function: ``tome_frame_attention`` calls K3 without the lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, sm_scale, frames):
-        ctx.save_for_backward(q, k, v, key_bias)
+        out, lse = _frame_forward(q, k, v, key_bias, sm_scale, frames, want_lse=True)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
         ctx.sm_scale, ctx.frames = sm_scale, frames
-        return _frame_forward(q, k, v, key_bias, sm_scale, frames)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, key_bias = ctx.saved_tensors
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
         dq, dk, dv, dbias = tome_frame_attention_backward(
-            q, k, v, key_bias, do, ctx.sm_scale, ctx.frames, need_dbias=ctx.needs_input_grad[3]
+            q, k, v, key_bias, do, ctx.sm_scale, ctx.frames, need_dbias=ctx.needs_input_grad[3],
+            out=out, lse=lse,
         )
         return dq, dk, dv, dbias, None, None
 
@@ -514,16 +560,19 @@ def tome_frame_attention(
     respect to q, k, v and key_bias come from K4
     (``tome_frame_attention_backward``).
     """
+    if not _grad_wanted(q, k, v, key_bias):
+        return _frame_forward(q, k, v, key_bias, sm_scale, frames)
     return _FrameAttention.apply(q, k, v, key_bias, sm_scale, frames)
 
 
-def _blockdiag_reference(q, k, v, key_bias, sm_scale, frames, exclude_first_row=False):
+def _blockdiag_reference(q, k, v, key_bias, sm_scale, frames, exclude_first_row=False, want_lse=False):
     """Plain version of K5a (vtm/ops/flash_attention.py:1624-1644): per
     frame of s = N / frames tokens, q*scale in q's dtype, fp32 logits plus
     the key bias (on rows > 0 of each frame only with
     ``exclude_first_row``), an fp32 softmax over the frame's keys,
     probabilities in v's dtype before the product with v. Returns
-    token-major [B, N, H*d]."""
+    token-major [B, N, H*d]; with ``want_lse`` (out, lse), lse the fp32
+    [B, H, N] log-sum-exp of each row's logits over its frame's keys."""
     b, h, n, d = q.shape
     f = frames
     s = n // f
@@ -536,8 +585,10 @@ def _blockdiag_reference(q, k, v, key_bias, sm_scale, frames, exclude_first_row=
             kb = (torch.arange(s, device=q.device) > 0).float().view(1, 1, 1, s, 1) * kb
         logits = logits + kb
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.matmul(probs, vf)  # [B, H, F, s, d]
-    return out.permute(0, 2, 3, 1, 4).reshape(b, n, h * d)
+    out = torch.matmul(probs, vf).permute(0, 2, 3, 1, 4).reshape(b, n, h * d)  # from [B, H, F, s, d]
+    if not want_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(b, h, n)
 
 
 def hopper_body(q: torch.Tensor) -> bool:
@@ -565,8 +616,10 @@ def check_blockdiag_kernel_args(q, k, v, key_bias, frames: int) -> None:
     """Raise ValueError on anything the K5a and K5b kernels do not take.
     A frame may have any length: the kernels walk it in 64-row tiles and
     keep no whole frame on chip. The limits are the grid's: at most
-    2^31 - 1 blocks a (batch, head) pair, K5a's by ``blockdiag_plan`` and
-    K5b's one a (frame, 64-row tile), and 65535 (batch, head) pairs."""
+    2^31 - 1 blocks a (batch, head) pair, bounded for the larger of the
+    Hopper bodies' plan (``blockdiag_plan``, K5a's and K5b's) and the first
+    bodies' one block a (frame, 64-row tile), and 65535 (batch, head)
+    pairs."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, N, d], got shape {tuple(q.shape)}")
     n = q.shape[2]
@@ -579,19 +632,21 @@ def check_blockdiag_kernel_args(q, k, v, key_bias, frames: int) -> None:
     check_kernel_args(q, k, v, key_bias)
 
 
-def _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row, plan=None):
+def _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row, plan=None, want_lse=False):
     """K5a on a CUDA tensor, its plain version on a CPU tensor. ``plan``:
     the launch plan ``blockdiag_plan`` gives when None; another one is for
-    measuring the packing (the C entry checks it covers every row)."""
+    measuring the packing (the C entry checks it covers every row). With
+    ``want_lse`` returns (out, lse), lse float32 [B, H, N]."""
     global BLOCKDIAG_LAUNCHES
     if not q.is_cuda:
-        return _blockdiag_reference(q, k, v, key_bias, sm_scale, frames, exclude_first_row)
+        return _blockdiag_reference(q, k, v, key_bias, sm_scale, frames, exclude_first_row, want_lse)
     check_blockdiag_kernel_args(q, k, v, key_bias, frames)
     from vtm_torch.ops.build import load_library
 
     lib = load_library()
     b, h, n, d = q.shape
     out = torch.empty((b, n, h * d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if want_lse else None
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], n * h * d, d, h * d
     )
@@ -602,6 +657,7 @@ def _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row, p
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_bias is None else key_bias.data_ptr(),
             out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, h, n, frames, int(bool(exclude_first_row)), *plan, float(sm_scale),
             ctypes.addressof(strides),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -609,10 +665,11 @@ def _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row, p
     if err != 0:
         raise RuntimeError(f"block-diagonal attention kernel launch failed with cudaError_t {err}")
     BLOCKDIAG_LAUNCHES += 1
-    return out
+    return (out, lse) if want_lse else out
 
 
-def _blockdiag_backward_reference(q, k, v, key_bias, do, sm_scale, frames, exclude_first_row=False):
+def _blockdiag_backward_reference(q, k, v, key_bias, do, sm_scale, frames, exclude_first_row=False,
+                                  out=None, lse=None):
     """Plain version of K5b, step by step with the TPU kernel's rounding
     points (vtm/ops/flash_attention.py:1501-1549, 1611), per frame: fp32
     logits from the unscaled q, plus the key bias (on rows > 0 only with
@@ -621,8 +678,12 @@ def _blockdiag_backward_reference(q, k, v, key_bias, do, sm_scale, frames, exclu
     input dtype before the three products, whose fp32 sums are cast at the
     end; dbias from the unrounded ds, summed over heads and over the query
     rows the bias reached. ``do`` is the token-major cotangent
-    [B, N, H*d]. Returns (dq, dk, dv, dbias); dbias is None without a
-    key_bias."""
+    [B, N, H*d].
+
+    Given the forward's residuals ``out`` (token-major [B, N, H*d]) and
+    ``lse`` (fp32 [B, H, N]) it takes the kernel's arithmetic: p =
+    exp(s - lse) and delta = rowsum(do * out) in fp32, out read in its own
+    dtype. Returns (dq, dk, dv, dbias); dbias is None without a key_bias."""
     dtype = q.dtype
     b, h, n, d = q.shape
     f = frames
@@ -637,9 +698,14 @@ def _blockdiag_backward_reference(q, k, v, key_bias, do, sm_scale, frames, exclu
             rows = (torch.arange(s, device=q.device) > 0).float().view(1, 1, 1, s, 1)
             kb = rows * kb
         sf = sf + kb
-    p = torch.softmax(sf, dim=-1)
     dp = torch.matmul(dof, vf.transpose(-2, -1))
-    delta = (p * dp).sum(dim=-1, keepdim=True)
+    if out is None or lse is None:
+        p = torch.softmax(sf, dim=-1)
+        delta = (p * dp).sum(dim=-1, keepdim=True)
+    else:
+        p = torch.exp(sf - lse.float().reshape(b, h, f, s, 1))
+        delta = (do.float() * out.float()).reshape(b, n, h, d).sum(dim=-1).transpose(1, 2)
+        delta = delta.reshape(b, h, f, s, 1)
     ds = p * (dp - delta)
     p_lo = p.to(dtype).float()
     ds_lo = ds.to(dtype).float()
@@ -663,50 +729,61 @@ def tome_blockdiag_attention_backward(
     frames: int = 8,
     exclude_first_row: bool = False,
     need_dbias: bool = True,
+    out: Optional[torch.Tensor] = None,
+    lse: Optional[torch.Tensor] = None,
 ):
     """Gradients of ``tome_blockdiag_attention`` given ``do`` = d loss / d out.
 
     q, k, v, key_bias as in the forward; do: token-major [B, N, H*d] in q's
     dtype, last dim contiguous (read through its strides: no head-major
-    transpose). Returns (dq, dk, dv, dbias): dq, dk, dv are [B, H, N, d]
-    views of one token-major [B, N, 3, H, d] buffer, so the gradient of a
-    fused qkv projection's split is that buffer; dbias is float32 [B, N]
-    (summed over heads and over the query rows the bias reached), or None
-    when there is no key_bias or ``need_dbias`` is False.
+    transpose). ``out`` and ``lse`` are the forward's residuals (its
+    token-major output and the float32 [B, H, N] row log-sum-exp of
+    ``_blockdiag_forward(..., want_lse=True)``); when either is missing K5a
+    runs first to make them. Returns (dq, dk, dv, dbias): dq, dk, dv are
+    [B, H, N, d] views of one token-major [B, N, 3, H, d] buffer, so the
+    gradient of a fused qkv projection's split is that buffer; dbias is
+    float32 [B, N] (summed over heads and over the query rows the bias
+    reached), or None when there is no key_bias or ``need_dbias`` is False.
     """
     global BLOCKDIAG_BWD_LAUNCHES
+    if out is None or lse is None:
+        out, lse = _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row, want_lse=True)
     if not q.is_cuda:
         dq, dk, dv, dbias = _blockdiag_backward_reference(
-            q, k, v, key_bias, do, sm_scale, frames, exclude_first_row
+            q, k, v, key_bias, do, sm_scale, frames, exclude_first_row, out, lse
         )
         return dq, dk, dv, dbias if need_dbias else None
     check_blockdiag_kernel_args(q, k, v, key_bias, frames)
     b, h, n, d = q.shape
-    if do.shape != (b, n, h * d) or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(
-            f"do must be {q.dtype} {(b, n, h * d)} on {q.device}, "
-            f"got {do.dtype} {tuple(do.shape)} on {do.device}"
-        )
-    do = _kernel_operand(do)
+    for name, t in (("do", do), ("out", out)):
+        if t.shape != (b, n, h * d) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"{name} must be {q.dtype} {(b, n, h * d)} on {q.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    if lse.shape != (b, h, n) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be float32 [{b}, {h}, {n}] on {q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    do, out, lse = _kernel_operand(do), _kernel_operand(out), lse.contiguous()
     from vtm_torch.ops.build import load_library
 
     lib = load_library()
     dq, dk, dv, dbias_heads = _gradient_buffers(q, need_dbias and key_bias is not None)
-    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 21)(
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], do.stride(0), d, do.stride(1),
-        *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+        out.stride(0), d, out.stride(1), *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
     )
+    plan = blockdiag_plan(frames, n // frames, hopper_body(q))
     with torch.cuda.device(q.device):
         err = lib.vtm_blockdiag_attention_bwd(
             _DTYPE_CODES[q.dtype], d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_bias is None else key_bias.data_ptr(),
-            do.data_ptr(),
+            do.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if dbias_heads is None else dbias_heads.data_ptr(),
-            stats.data_ptr(),
-            b, h, n, frames, int(bool(exclude_first_row)), float(sm_scale),
+            delta.data_ptr(),
+            b, h, n, frames, int(bool(exclude_first_row)), *plan, float(sm_scale),
             ctypes.addressof(strides),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -718,21 +795,28 @@ def tome_blockdiag_attention_backward(
 
 
 class _BlockdiagAttention(torch.autograd.Function):
-    """K5a forward, K5b backward. Saves (q, k, v, key_bias) only: the
-    backward recomputes each frame's softmax, as ``vtm``'s custom_vjp does."""
+    """K5a forward, K5b backward. The forward also writes each row's
+    log-sum-exp, and the Function saves (q, k, v, key_bias, out, lse): the
+    backward recomputes the logits but takes the row statistics from the
+    residuals. TimeSformer feeds ``out`` straight to the output projection,
+    whose Linear keeps it for its own backward, so saving it costs no
+    memory of its own; lse is fp32 [B, H, N], 1/32 of q's size in bf16 at
+    d = 64. Serving (no gradient wanted) does not reach the Function:
+    ``tome_blockdiag_attention`` calls K5a without the lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, sm_scale, frames, exclude_first_row):
-        ctx.save_for_backward(q, k, v, key_bias)
+        out, lse = _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row, want_lse=True)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
         ctx.sm_scale, ctx.frames, ctx.exclude_first_row = sm_scale, frames, exclude_first_row
-        return _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, key_bias = ctx.saved_tensors
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
         dq, dk, dv, dbias = tome_blockdiag_attention_backward(
             q, k, v, key_bias, do, ctx.sm_scale, ctx.frames, ctx.exclude_first_row,
-            need_dbias=ctx.needs_input_grad[3],
+            need_dbias=ctx.needs_input_grad[3], out=out, lse=lse,
         )
         return dq, dk, dv, dbias, None, None, None
 
@@ -759,4 +843,6 @@ def tome_blockdiag_attention(
     in q's dtype (merged heads). Gradients with respect to q, k, v and
     key_bias come from K5b (``tome_blockdiag_attention_backward``).
     """
+    if not _grad_wanted(q, k, v, key_bias):
+        return _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row)
     return _BlockdiagAttention.apply(q, k, v, key_bias, sm_scale, frames, exclude_first_row)

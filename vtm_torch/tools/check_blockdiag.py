@@ -13,7 +13,7 @@ on the card, for use after a change to ``csrc/blockdiag_attention_fwd.cu``,
      unbiased, biased, and biased with the row mask, strided q/k/v, a
      strided cotangent, and two runs bit for bit;
   3. times both beside their plain versions at B8 H12 d64 F8 bf16, s = 197,
-     35 and 10 (10 calls each).
+     35 and 10 (10 calls each), K5b given K5a's residuals.
 Prints one JSON line per step. Needs a CUDA device and nvcc; it is much
 shorter than ``chip_smoke.py``, which makes the same checks in full.
 """
@@ -27,6 +27,7 @@ import time
 import torch
 
 from vtm_torch.ops import build as kernel_build
+from vtm_torch.ops import flash_attention as fa
 from vtm_torch.ops.build import kernel_resources
 from vtm_torch.ops.flash_attention import (
     _blockdiag_backward_reference,
@@ -105,10 +106,12 @@ def quick_times() -> dict:
         q, k, v = frame_views(fused, 8, 12, 8, s)
         do = torch.randn((8, 8 * s, 768), generator=gen, device="cuda").to(torch.bfloat16)
         with torch.inference_mode():
+            res = fa._blockdiag_forward(q, k, v, None, 0.125, 8, False, want_lse=True)
             out[str(s)] = dict(
                 k5a_ms=_ms(lambda: tome_blockdiag_attention(q, k, v, None, 0.125, 8)),
                 k5a_plain_ms=_ms(lambda: _blockdiag_reference(q, k, v, None, 0.125, 8)),
-                k5b_ms=_ms(lambda: tome_blockdiag_attention_backward(q, k, v, None, do, 0.125, 8)),
+                k5b_ms=_ms(lambda: tome_blockdiag_attention_backward(q, k, v, None, do, 0.125, 8, out=res[0],
+                                                                     lse=res[1])),
                 k5b_plain_ms=_ms(lambda: _blockdiag_backward_reference(q, k, v, None, do, 0.125, 8)),
             )
     return out

@@ -1,6 +1,6 @@
-"""The forward attention kernels' times on the card, two ways.
+"""The attention kernels' times on the card, two ways.
 
-    python -m vtm_torch.tools.kernel_times [--exp times|packing|all] [--iters 50]
+    python -m vtm_torch.tools.kernel_times [--exp times|packing|backward|all] [--iters 50]
 
 ``--exp times`` times K1 (``tome_flash_attention``, no gradient wanted),
 K3 (``tome_frame_attention``, F 8) and K5a (``tome_blockdiag_attention``,
@@ -18,7 +18,12 @@ go through the public wrappers only, so ``PYTHONPATH=<another checkout>
 python3 vtm_torch/tools/kernel_times.py --exp times`` times that tree.
 ``--exp packing`` gives K5a's device time at s = 10 and 18, biased and
 masked, with g = 1 ... 64 // s frames packed into a block (g = 1: one
-frame a block), in turns, at batch 8 and 32. Needs a CUDA device.
+frame a block), in turns, at batch 8 and 32. ``--exp backward`` times the
+backwards as a train step calls them, given their forwards' residuals (out
+and lse): K2 (``tome_flash_attention_backward``), K4
+(``tome_frame_attention_backward``) and K5b
+(``tome_blockdiag_attention_backward``) at the same shapes as their
+forwards, no dbias, a token-major do. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,8 +38,11 @@ from vtm_torch.models.common import split_heads
 from vtm_torch.ops import flash_attention
 from vtm_torch.ops.flash_attention import (
     tome_blockdiag_attention,
+    tome_blockdiag_attention_backward,
     tome_flash_attention,
+    tome_flash_attention_backward,
     tome_frame_attention,
+    tome_frame_attention_backward,
 )
 from vtm_torch.utils.benchmark import device_seconds
 
@@ -52,7 +60,13 @@ K5A_CASES = ((197, False, False), (179, True, True), (107, True, True), (35, Tru
 # K5a's packing: frame length, the frames a block may pack, the batches
 PACKING = ((10, (1, 2, 3, 6)), (18, (1, 2, 3)))
 PACKING_BATCHES = (8, 32)
-EXPERIMENTS = ("times", "packing")
+# the backwards at their forwards' shapes: (N, biased), (N', biased), and
+# TimeSformer's frame lengths with s = 18 packed as s = 10 is
+K2_CASES = K1_CASES
+K4_CASES = K3_CASES
+K5B_CASES = ((197, False, False), (179, True, True), (107, True, True), (35, True, True),
+             (18, True, True), (10, True, True))
+EXPERIMENTS = ("times", "packing", "backward")
 
 
 def device_ms(fn, iters: int) -> float:
@@ -123,6 +137,34 @@ def exp_times(gen, iters: int, smi: str) -> None:
                               nvidia_smi=smi)), flush=True)
 
 
+def exp_backward(gen, iters: int, smi: str) -> None:
+    fa = flash_attention
+    for n, biased in K2_CASES:
+        q, k, v = fused_views(gen, n)
+        bias = size_bias(gen, n) if biased else None
+        do = torch.randn((B, n, H, D), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+        out, lse = fa._forward(q, k, v, bias, 0.125, want_lse=True)
+        call = lambda: tome_flash_attention_backward(q, k, v, bias, do, 0.125, need_dbias=False, out=out, lse=lse)
+        print(json.dumps(dict(kernel="K2", n=n, biased=biased, **measure(call, iters), nvidia_smi=smi)), flush=True)
+    for n, biased in K4_CASES:
+        q, k, v = fused_views(gen, n)
+        bias = size_bias(gen, n) if biased else None
+        do = torch.randn((B, n, FRAMES, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        out, lse = fa._frame_forward(q, k, v, bias, 0.125, FRAMES, want_lse=True)
+        call = lambda: tome_frame_attention_backward(q, k, v, bias, do, 0.125, FRAMES, need_dbias=False,
+                                                     out=out, lse=lse)
+        print(json.dumps(dict(kernel="K4", n=n, biased=biased, **measure(call, iters), nvidia_smi=smi)), flush=True)
+    for s, biased, masked in K5B_CASES:
+        q, k, v = fused_views(gen, FRAMES * s)
+        bias = size_bias(gen, FRAMES * s, s) if biased else None
+        do = torch.randn((B, FRAMES * s, H * D), generator=gen, device="cuda").to(torch.bfloat16)
+        out, lse = fa._blockdiag_forward(q, k, v, bias, 0.125, FRAMES, masked, want_lse=True)
+        call = lambda: tome_blockdiag_attention_backward(q, k, v, bias, do, 0.125, FRAMES, masked,
+                                                         need_dbias=False, out=out, lse=lse)
+        print(json.dumps(dict(kernel="K5b", s=s, biased=biased, exclude_first_row=masked, **measure(call, iters),
+                              nvidia_smi=smi)), flush=True)
+
+
 def exp_packing(gen, iters: int, smi: str) -> None:
     for s, packings in PACKING:
         for batch in PACKING_BATCHES:
@@ -152,7 +194,7 @@ def main(argv=None):
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
-        for exp, run in (("times", exp_times), ("packing", exp_packing)):
+        for exp, run in (("times", exp_times), ("packing", exp_packing), ("backward", exp_backward)):
             if args.exp in (exp, "all"):
                 run(gen, args.iters, smi)
 
