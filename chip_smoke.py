@@ -46,8 +46,9 @@ Phases, each printing one JSON line:
                   residuals (out, lse) from K1 as a train step passes them,
                   and without them (the wrapper then runs K1 first); timed
                   given the residuals; the sha256 of its bits at two shapes
-                  (K2_DIGEST_CASES), printed to hold beside an earlier
-                  reading (PERF.md)
+                  (K2_DIGEST_CASES), and of K1's, K3's and K5a's outputs
+                  (kernel_times.FWD_DIGEST_CASES), printed to hold beside
+                  an earlier reading (PERF.md)
      frame_kernel -- the per-frame attention kernel (K3) against its plain
                   version
      frame_bwd_kernel -- its backward (K4) against its plain version, given
@@ -66,17 +67,19 @@ Phases, each printing one JSON line:
      (scaled_dot_product_attention, its autograd backward for K2, K4 and
      K5b) by CUDA events in turns (the ``ms`` of the ``kernels`` line), and
      by its device time with the host's cost hidden (calls queued behind a
-     kernel that holds the stream; ``device_ms`` there, null for T1-T12:
-     not measured), beside the least time the card could take
-     (``bound_ms``).
+     kernel that holds the stream; ``device_ms`` there), beside the least
+     time the card could take (``bound_ms``).
      ab_kernels -- the twelve A/B variants of K1 (T1-T12,
                   vtm_torch/ops/ab_attention.py), every mode against its
                   plain version by the entry point's own rule
                   (ab_dense.exp_kernels): fp32 at a small ragged shape, bf16
                   at B8 H12 d64 and the tools' token counts, timed the same
-                  way. The four q k^T probes' bound is that of the function
-                  (one pass over k and a narrow product), their n x n
-                  product's stands beside it as ``product_bound_ms``
+                  way, and by device time; registers and spills of
+                  ab_dense_variants.cu (T4 and T11, whose bf16 instances
+                  run K1's tile loop). The four q k^T probes' bound is that
+                  of the function (one pass over k and a narrow product),
+                  their n x n product's stands beside it as
+                  ``product_bound_ms``
   4. blocks    -- teacher-forced VideoMAE ViT-B blocks, fp32: kernel path vs
                   plain path
      mf_blocks -- the same for Motionformer ViT-B blocks
@@ -157,7 +160,7 @@ from vtm_torch.ops.flash_attention import (
 )
 from vtm_torch.ops import ab_attention
 from vtm_torch.tools import ab_dense
-from vtm_torch.tools.kernel_times import device_ms
+from vtm_torch.tools.kernel_times import FWD_DIGEST_CASES, device_ms, forward_digests
 from vtm_torch.tools.model_benchmark import model_benchmark
 from vtm_torch.tools.train_net import build_trainer, train
 from vtm_torch.train.optimizer import set_lr
@@ -1278,6 +1281,7 @@ def phase_bwd_kernel(smi: str) -> dict:
         del sdpa_out, leaves  # the plain version at N 3137 keeps several [B, H, N, N] tensors
     emit("bwd_kernel_without_residuals", checks=rows_alone, max_abs_err_vs_plain=worst_alone, nvidia_smi=smi)
     emit("bwd_kernel_bits", sha256=k2_digest(), cases=K2_DIGEST_CASES)
+    emit("fwd_kernel_bits", sha256=forward_digests(), cases=FWD_DIGEST_CASES)
     return emit_backward("bwd_kernel", smi, rows, max(worst_abs, worst_alone), times)
 
 
@@ -2013,7 +2017,8 @@ def phase_ab_kernels(smi: str) -> dict:
     own rule): against the plain version in fp32 at a small ragged shape
     and in bf16 at B8 H12 d64, then timed at the bf16 shape, twice 20 calls
     in turns with the plain version (5 calls) and the one PyTorch call that
-    computes the same function (SDPA, or an einsum for the four probes).
+    computes the same function (SDPA, or an einsum for the four probes),
+    and by device time (``kernel_times.device_ms``, 20 calls, twice).
     Returns the ``kernels`` line's numbers per T id."""
     device = torch.device("cuda")
     with contextlib.redirect_stdout(io.StringIO()):
@@ -2034,11 +2039,12 @@ def phase_ab_kernels(smi: str) -> dict:
             by_id[tid] = dict(
                 mode=mode, function=row["function"],
                 max_abs_err=max(row["max_abs_err_vs_plain"], fp32["max_abs_err_vs_plain"]),
-                ms=row["ms"], device_ms=None, plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                ms=row["ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"])
     check(set(by_id) == set(AB_KERNELS), f"ab_kernels: ids checked {sorted(by_id)}")
     emit("ab_kernels", cases=full, fp32_shape=dataclasses.asdict(ab_dense.SMALL_SIZES),
-         bf16_shape=dataclasses.asdict(ab_dense.Sizes()), nvidia_smi=smi)
+         bf16_shape=dataclasses.asdict(ab_dense.Sizes()),
+         resources=kernel_build.kernel_resources("ab_dense_variants.cu"), nvidia_smi=smi)
     return by_id
 
 

@@ -309,6 +309,92 @@ def test_t11_v2_attention(dtype, variant, biased, n):
     assert_computes_k1(got, tq, tk, tv, tbias, 0.25, dtype)
 
 
+def _v2_tile_walk(q, k, v, bias, scale, variant, tile=64):
+    """T11's Hopper body (``wg::attend`` under the OnesColumn, FoldedBias
+    and FoldedNoMax policies) on the CPU in fp32, p rounded to bf16: 64-key
+    tiles, logits in log2 units; the denominator the sum of the rounded p
+    (the ones column of p v), rescaled by the max's correction as o is;
+    ``v2_sum`` adds the fp32 bias and masks the keys past N on the ragged
+    last tile, the folded two add hi + lo, the bf16 split of the bias, with
+    keys past N at hi = bf16(-1e30) and lo its residual, and mask nothing;
+    ``v2_nomax`` takes no max."""
+    b, h, n, _ = q.shape
+    log2e = 1.4426950408889634
+    bf16 = lambda t: t.to(torch.bfloat16).float()
+    qs = bf16(q * scale)
+    fp32_bias = torch.zeros(b, n) if bias is None else bias
+    hi, lo = ab.split_bias(fp32_bias, torch.bfloat16)
+    mask_hi = bf16(torch.tensor(ab._MASK))
+    mask_lo = bf16(torch.tensor(ab._MASK) - mask_hi)
+    m = torch.full((b, h, n, 1), ab._MASK)
+    l_ones = torch.zeros((b, h, n, 1))
+    o = torch.zeros_like(q)
+    for c0 in range(0, n, tile):
+        keys = torch.arange(c0, c0 + tile)
+        valid = keys < n
+        at = keys.clamp(max=n - 1)
+        kt, vt = (t[:, :, at] * valid[:, None] for t in (k, v))
+        x = qs @ kt.transpose(-2, -1)
+        if variant == "v2_sum":
+            x = (x + (fp32_bias[:, at] * valid)[:, None, None, :]) * log2e
+            if c0 + tile > n:
+                x = x.masked_fill(~valid, ab._MASK)
+        else:
+            fold = torch.where(valid, hi.float()[:, at] + lo.float()[:, at], mask_hi + mask_lo)
+            x = (x + fold[:, None, None, :]) * log2e
+        if variant == "v2_nomax":
+            p = bf16(torch.exp2(x))
+            l_ones = l_ones + p.sum(dim=-1, keepdim=True)
+            o = o + p @ vt
+            continue
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = bf16(torch.exp2(x - m_new))
+        l_ones = l_ones * corr + p.sum(dim=-1, keepdim=True)
+        o = o * corr + p @ vt
+        m = m_new
+    return o / l_ones
+
+
+@pytest.mark.parametrize("variant", ab.V2_VARIANTS)
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("n", [37, 200])
+def test_t11_tile_walk_matches_jax_kernel(variant, biased, n):
+    """The redesigned T11's arithmetic, emulated by ``_v2_tile_walk``,
+    agrees with the JAX tool's kernel (interpret mode) on the same bf16
+    inputs, where the tool also rounds p to bf16 before p v: within the
+    file's bf16 tolerance. A fault in the CUDA kernel shows only on the
+    card (chip_smoke's ``ab_kernels``, ``check_ab``)."""
+    tool = jax_tool("ab_dense_v2")
+    (jq, jk, jv), (tq, tk, tv), jbias, tbias = attention_inputs(12, n, "bfloat16", biased)
+    want = tool.v2_attention(jq, jk, jv, jbias, 0.25, variant)
+    got = _v2_tile_walk(tq.float(), tk.float(), tv.float(), tbias, 0.25, variant)
+    assert_close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("hopper", [True, False], ids=["hopper_body", "first_body"])
+@pytest.mark.parametrize("b,h,n", [(2, 4, 37), (1, 2, 64), (2, 12, 200), (1, 2, 1)])
+def test_t4_plan_covers_every_head_row_once(b, h, n, hopper):
+    """T4's head-pair plan (``ab_attention.packed_plan``): every (batch,
+    head, row) exactly once, from a block that holds both heads of its
+    pair, and head h written to columns [h d, (h + 1) d) of the token-major
+    output."""
+    (grid_x, grid_y), block = ab.packed_plan(b, h, n, hopper)
+    assert grid_y == b * h // 2
+    seen = np.zeros((b, h, n), dtype=int)
+    for y in range(grid_y):
+        for x in range(grid_x):
+            writes = block(x, y)
+            heads = [head for _, head, _, _, _ in writes]
+            assert heads[0] % 2 == 0 and heads == [heads[0], heads[0] + 1]
+            for batch, head, r0, rows, col in writes:
+                assert 1 <= rows <= (64 if hopper else 32) and col == head * ab.HEAD_DIM
+                seen[batch, head, r0:r0 + rows] += 1
+    np.testing.assert_array_equal(seen, 1)
+    with pytest.raises(ValueError, match="odd"):
+        ab.packed_plan(b, h + 1, n, hopper)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,h", [(37, 4), (1152, 1)])
 def test_t12_n8_attention(dtype, n, h):
@@ -366,9 +452,12 @@ def test_cpu_calls_launch_no_kernel():
 
 
 def test_sources_hold_kernels_of_their_own():
-    """Three CUDA sources with one __global__ template each, a note on the
-    TPU function each replaces, and no library's product or attention; the
-    wrappers call no matrix product either."""
+    """Three CUDA sources, each with a note on the TPU function it
+    replaces: ab_qk_probe.cu and ab_chain.cu one __global__ template each,
+    the first body on wmma; ab_dense_variants.cu two, the first body's fp32
+    template on FMA units and the bf16 template on the shared wgmma tile
+    loop, with no wmma left. None calls a library's product or attention,
+    or K1's entry point; the wrappers call no matrix product either."""
     import inspect
 
     from vtm_torch.ops import build
@@ -376,7 +465,13 @@ def test_sources_hold_kernels_of_their_own():
     for name, replaced in (("ab_qk_probe.cu", "ab_mxu_pack.py"), ("ab_chain.cu", "ab_decomp.py"),
                            ("ab_dense_variants.cu", "ab_dense_v2.py")):
         text = (build.CSRC / name).read_text()
-        assert text.count("__global__") == 1 and replaced in text and "wmma" in text
+        assert replaced in text
+        if name == "ab_dense_variants.cu":
+            assert text.count("__global__") == 2 and "ab_mxu_pack.py" in text
+            assert "ab_dense_variant_kernel(const float*" in text and "wg::attend<" in text
+            assert '#include "wgmma_attention.cuh"' in text and "wmma" not in text
+        else:
+            assert text.count("__global__") == 1 and "wmma" in text
         for foreign in ("cublas", "cudnn", "cutlass", "vtm_attention_fwd"):
             assert foreign not in text, (name, foreign)
     for fn in (ab._launch_chain, ab._launch_probe, ab._launch_dense, ab._flat_chain, ab._unbiased):

@@ -21,8 +21,10 @@ None is on a model's path; ``vtm_torch.tools.ab_dense`` runs them.
   T12 ``n8_attention``       ab_block_attn.py::n8_attention unbiased attention, q scaled in the kernel
 
 Kernels: ``csrc/ab_qk_probe.cu`` (T2, T3, T6, T7), ``csrc/ab_chain.cu``
-(T1, T5, T8, T9, T10, T12), ``csrc/ab_dense_variants.cu`` (T4, T11): CUDA
-C++ for Hopper at head dim 64, built and bound by ``vtm_torch/ops/build.py``.
+(T1, T5, T8, T9, T10, T12), ``csrc/ab_dense_variants.cu`` (T4, T11; in bf16
+on K1's Hopper tile loop, ``csrc/wgmma_attention.cuh``, under a softmax
+policy each): CUDA C++ for Hopper at head dim 64, built and bound by
+``vtm_torch/ops/build.py``.
 A tensor on the CPU goes to the plain PyTorch version (``*_plain``); a
 CUDA tensor goes to the kernel, or the call raises: there is no fallback.
 
@@ -89,6 +91,28 @@ def pack_k(k: torch.Tensor) -> torch.Tensor:
     bh, n, d = k.shape
     pair = k.reshape(bh // 2, 2, n, d)
     return torch.cat([pair[:, 0], pair[:, 1]], dim=-1)
+
+
+def packed_plan(b: int, h: int, n: int, hopper: bool):
+    """T4's launch plan, as both bodies of ``csrc/ab_dense_variants.cu``
+    map it: the grid (query tiles, batch x head pairs), and ``block(x, y)``,
+    what block (x, y) writes: heads 2 g and 2 g + 1 (g = y % (h / 2)) of
+    batch y // (h / 2), query rows [x q, x q + rows) of each, q = 64 in the
+    Hopper body (bf16; it walks the two heads as two frames) or 32 in the
+    first (fp32; its 64 rows interleave the heads), head j into columns
+    [j d, (j + 1) d) of the token-major [B, N, H*d] output. Returns (grid,
+    block), block giving [(batch, head, first row, rows, first column)]."""
+    if h % 2:
+        raise ValueError(f"packed_attention pairs heads: H={h} is odd")
+    queries = KEY_TILE if hopper else KEY_TILE // 2
+    pairs = h // 2
+
+    def block(x: int, y: int) -> list:
+        batch, g = divmod(y, pairs)
+        r0 = x * queries
+        return [(batch, head, r0, min(queries, n - r0), head * HEAD_DIM) for head in (2 * g, 2 * g + 1)]
+
+    return (-(-n // queries), b * pairs), block
 
 
 def split_bias(key_bias: torch.Tensor, dtype: torch.dtype):
@@ -401,7 +425,7 @@ def _launch_dense(name, variant, q, k, v, bias, hi, lo, sm_scale, token_major: b
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, n, d = q.shape
-    groups = b * h // 2 if variant == "packed" else b * h
+    groups = packed_plan(b, h, n, q.dtype == torch.bfloat16)[0][1] if variant == "packed" else b * h
     if n < 1 or not 1 <= groups <= _MAX_GRID_Y:
         raise ValueError(f"unsupported B*H={b * h}, N={n}")
     if bias is not None:
@@ -462,8 +486,10 @@ def qk_packed(qp, kc, blk: int = KEY_TILE):
 
 def packed_attention(q, k, v, key_bias, sm_scale):
     """T4. q, k, v: [B, H, N, d] with H even; ``key_bias``: fp32 [B, N] or
-    None. Two heads share one 128-deep q k^T and one 128-wide p v; the
-    packed operands are built inside the kernel. Token-major [B, N, H*d]."""
+    None. One block a head pair (``packed_plan``): on the TPU the two heads
+    share one 128-deep q k^T and one 128-wide p v; the fp32 kernel packs
+    them so, the bf16 one walks them one after the other. Token-major
+    [B, N, H*d]."""
     if q.shape[1] % 2:
         raise ValueError(f"packed_attention pairs heads: H={q.shape[1]} is odd")
     if not q.is_cuda:

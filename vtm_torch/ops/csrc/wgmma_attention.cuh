@@ -1,6 +1,8 @@
 // The forward tile loop of the Hopper attention kernels, shared by K1
 // (flash_attention_fwd.cu), K3 (frame_attention_fwd.cu) and K5a
-// (blockdiag_attention_fwd.cu) in their bf16 d = 64 case, and the pair
+// (blockdiag_attention_fwd.cu) in their bf16 d = 64 case, and by the A/B
+// variants T4 and T11 (ab_dense_variants.cu) through a softmax policy
+// (Softmax below, the default, is K1's, K3's and K5a's), and the pair
 // rules both directions use (the backward loop, wgmma_attention_bwd.cuh,
 // walks the same rules).
 //
@@ -52,7 +54,13 @@ struct Walk {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   long long q_stride, k_stride, v_stride;
+  // Under a policy with kHeads, frame f is a head of its own: its q, k and v
+  // at + f * these, its keys rows [0, frame_len) there; set by no other.
+  long long q_frame_stride, k_frame_stride, v_frame_stride;
   const float* bias;  // key j's bias at bias[j] (read only by the biased instance)
+  // Under kFold, key j's bias as two bf16 numbers hi[j] + lo[j] (null: none)
+  const __nv_bfloat16* bias_hi;
+  const __nv_bfloat16* bias_lo;
   __nv_bfloat16* out;
   long long out_stride, out_frame_stride;  // frame f's output at out + f * out_frame_stride
   float* lse;         // row r's log-sum-exp in frame f at lse[f * lse_frame_stride + r], or null
@@ -132,9 +140,59 @@ struct WalkSmem {
   static constexpr int kLaunchBytes = kOut + kTileBytes + 1024;
 };
 
-template <bool kBias, class Rule>
+// Where a walk's softmax does its work: a policy, the last template argument
+// of attend. K1, K3 and K5a take Softmax. The A/B kernels of
+// ab_dense_variants.cu each move one step of it elsewhere, which is what
+// they measure:
+//   kHeads  frames are heads (T4's pair): each its own q, k, v and output
+//           columns, one key bias for all; q is restaged at a frame's end
+//   kOnes   the denominator is p 1, an m64n8k16 product per k-step of p v
+//           against 8 columns of ones, rescaled as o is: the fp32 sum of the
+//           bf16-rounded p (T11), where Softmax sums the fp32 p
+//   kFold   bias and mask come through q k^T, one more k16 step of
+//           [1, 1, 0...] (A, in registers) against each key's
+//           [hi, lo, 0...] (B, staged with the key tile); keys past the
+//           frame's end get hi = bf16(-1e30) and lo its residual, so no
+//           bias is added and no mask applied (T11 v2_fold, v2_nomax)
+//   kMax    a running max; without it p = exp2(x), which overflows on large
+//           logits by design (v2_nomax, for measurement only)
+struct Softmax {
+  static constexpr bool kHeads = false, kOnes = false, kFold = false, kMax = true;
+};
+struct HeadPairs : Softmax {
+  static constexpr bool kHeads = true;
+};
+struct OnesColumn : Softmax {
+  static constexpr bool kOnes = true;
+};
+struct FoldedBias : OnesColumn {
+  static constexpr bool kFold = true;
+};
+struct FoldedNoMax : FoldedBias {
+  static constexpr bool kMax = false;
+};
+
+// A policy's shared memory: WalkSmem's, then the ones (1 KB: the 8 rows of
+// 128 bytes that p 1 reads as a K-major B, each k-step 32 bytes further
+// along them). The fold tile, a K-major swizzled tile whose columns
+// [16 s, 16 s + 16) hold ring stage s's keys' [hi, lo, 0...], shares the
+// output stage: a frame's outputs pass through it after that frame's last
+// products, and the next tile's columns are written after them. So a
+// folded walk keeps 4 blocks an SM (50 KB each), as K1's does.
+template <class Mode>
+struct ModeSmem {
+  static constexpr int kOnesBytes = Mode::kOnes ? 1024 : 0;
+  static constexpr int kOnesTile = WalkSmem::kOut + kTileBytes;
+  static constexpr int kFoldTile = WalkSmem::kOut;
+  static constexpr int kLaunchBytes = WalkSmem::kLaunchBytes + kOnesBytes;
+};
+
+template <bool kBias, class Rule, class Mode = Softmax>
 __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned char* smem_raw) {
   using L = WalkSmem;
+  using M = ModeSmem<Mode>;
+  static_assert(!(kBias && Mode::kFold), "a folded walk takes its bias through q k^T");
+  static_assert(Mode::kMax || Mode::kFold, "without a max the mask has to come through q k^T");
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_addr(smem);
   const int n_tiles = (w.frame_len + kRows - 1) / kRows;  // key tiles a frame
@@ -142,28 +200,71 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
   const bool ragged = w.frame_len % kRows != 0;
 
   auto load_kv = [&](int g, int stage) {
-    const int key0 = (g / n_tiles) * w.frame_len;
-    const int row = key0 + (g % n_tiles) * kRows;
     const uint32_t dst = base + L::kRing + 2 * stage * kTileBytes;
-    load_tile_async(dst, w.k, w.k_stride, row, key0 + w.frame_len);
-    load_tile_async(dst + kTileBytes, w.v, w.v_stride, row, key0 + w.frame_len);
+    if constexpr (Mode::kHeads) {
+      const int f = g / n_tiles;
+      const int row = (g % n_tiles) * kRows;
+      load_tile_async(dst, w.k + f * w.k_frame_stride, w.k_stride, row, w.frame_len);
+      load_tile_async(dst + kTileBytes, w.v + f * w.v_frame_stride, w.v_stride, row, w.frame_len);
+    } else {
+      const int key0 = (g / n_tiles) * w.frame_len;
+      const int row = key0 + (g % n_tiles) * kRows;
+      load_tile_async(dst, w.k, w.k_stride, row, key0 + w.frame_len);
+      load_tile_async(dst + kTileBytes, w.v, w.v_stride, row, key0 + w.frame_len);
+    }
     cp_async_commit();
   };
   load_kv(0, 0);
 
-  // q * scale rounded to bf16, swizzled, while the first tile loads
+  // q * scale rounded to bf16, swizzled (while the first tile loads)
+  auto stage_q = [&](const __nv_bfloat16* q) {
 #pragma unroll
-  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx >> 3, c = idx & 7;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (w.row0 + r < w.rows) {
-      val = *reinterpret_cast<const uint4*>(w.q + (w.row0 + r) * w.q_stride + c * 8);
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+    for (int i = 0; i < kRows * 8 / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx >> 3, c = idx & 7;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (w.row0 + r < w.rows) {
+        val = *reinterpret_cast<const uint4*>(q + (w.row0 + r) * w.q_stride + c * 8);
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * w.scale);
+        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * w.scale);
+      }
+      *reinterpret_cast<uint4*>(smem + L::kQ + swz(r, c)) = val;
     }
-    *reinterpret_cast<uint4*>(smem + L::kQ + swz(r, c)) = val;
+  };
+  stage_q(w.q);
+
+  // kOnes: the tile of ones. kFold: key c of tile g's frame as the pair
+  // (hi, lo) in one register (threads < 64, one key each), loaded a tile
+  // ahead and stored into its stage's columns of the fold tile after the
+  // products; the A operand [1, 1, 0...] of the fold step in registers (the
+  // A fragment's columns 0 and 1 are on the threads with l % 4 == 0).
+  uint32_t fold_a[4] = {0u, 0u, 0u, 0u};
+  auto fold_pair = [&](int g) -> uint32_t {
+    const int c = (g % n_tiles) * kRows + static_cast<int>(threadIdx.x);
+    if (c >= w.frame_len) {
+      const __nv_bfloat16 hi = __float2bfloat16(kMask);
+      return pack_bf16(__bfloat162float(hi), kMask - __bfloat162float(hi));
+    }
+    if (w.bias_hi == nullptr) return 0u;
+    const long long j = static_cast<long long>(g / n_tiles) * w.frame_len + c;
+    return static_cast<uint32_t>(__bfloat16_as_ushort(w.bias_hi[j])) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(w.bias_lo[j])) << 16);
+  };
+  auto store_fold = [&](uint32_t pair, int stage) {  // the slice's two 16-byte chunks of this key's row
+    if (threadIdx.x < kRows) {
+      *reinterpret_cast<uint4*>(smem + M::kFoldTile + swz(threadIdx.x, 2 * stage)) = make_uint4(pair, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(smem + M::kFoldTile + swz(threadIdx.x, 2 * stage + 1)) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  if constexpr (Mode::kOnes) {
+    const uint32_t ones = pack_bf16(1.f, 1.f);
+    if (threadIdx.x < M::kOnesBytes / 16)
+      *reinterpret_cast<uint4*>(smem + M::kOnesTile + 16 * threadIdx.x) = make_uint4(ones, ones, ones, ones);
+  }
+  if constexpr (Mode::kFold) {
+    if (threadIdx.x % 4 == 0) fold_a[0] = fold_a[1] = pack_bf16(1.f, 1.f);
+    if (threadIdx.x < kRows) store_fold(fold_pair(0), 0);
   }
   fence_async_shared();
 
@@ -180,6 +281,7 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
   }
 
   float o[32], m2[2], l[2];
+  float l_ones[4] = {0.f, 0.f, 0.f, 0.f};  // kOnes: p 1, this thread's rows at [2 hh]
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   m2[0] = m2[1] = kMask;
@@ -189,8 +291,12 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
     const int stage = g & 1;
     const int f = g / n_tiles;
     const int c0 = (g % n_tiles) * kRows;  // first key of the tile within its frame
+    uint32_t fold_next = 0u;
     if (g + 1 < total) {
       load_kv(g + 1, stage ^ 1);
+      if constexpr (Mode::kFold) {
+        if (threadIdx.x < kRows) fold_next = fold_pair(g + 1);
+      }
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -203,16 +309,17 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
     fence_regs(s);
     wg_fence();
     product_ss(s, base + L::kQ, k_tile);
+    if constexpr (Mode::kFold) mma_rs<0>(s, fold_a, desc_sw128(base + M::kFoldTile + 32 * stage), 1);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);
 
     // logits in log2 units, the bias added and the mask applied where the
     // max is taken. This thread's 16 key columns: 8 j + 2 (l % 4) + c.
-    const bool edge = Rule::kEveryTile || (ragged && c0 + kRows > w.frame_len);
+    const bool edge = !Mode::kFold && (Rule::kEveryTile || (ragged && c0 + kRows > w.frame_len));
     float bias_col[16];
     if constexpr (kBias) {
-      const float* bias = w.bias + static_cast<long long>(f) * w.frame_len + c0;
+      const float* bias = w.bias + (Mode::kHeads ? 0LL : static_cast<long long>(f) * w.frame_len) + c0;
 #pragma unroll
       for (int jc = 0; jc < 16; ++jc) {
         const int col = acc_col(4 * (jc >> 1) + (jc & 1));
@@ -240,46 +347,68 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
     } else {
       logits(std::false_type());
     }
-    float corr[2];
+    if constexpr (Mode::kMax) {
+      float corr[2];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      const float m_new = fmaxf(m2[hh], mx[hh]);
-      corr[hh] = fast_exp2(m2[hh] - m_new);
-      m2[hh] = m_new;
-      l[hh] *= corr[hh];
-    }
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m2[hh], mx[hh]);
+        corr[hh] = fast_exp2(m2[hh] - m_new);
+        m2[hh] = m_new;
+        if constexpr (Mode::kOnes) {
+          l_ones[2 * hh] *= corr[hh];
+          l_ones[2 * hh + 1] *= corr[hh];
+        } else {
+          l[hh] *= corr[hh];
+        }
+      }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int hh = (i >> 1) & 1;
-      s[i] = fast_exp2(s[i] - m2[hh]);
-      l[hh] += s[i];
-      o[i] *= corr[hh];
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        s[i] = fast_exp2(s[i] - m2[hh]);
+        if constexpr (!Mode::kOnes) l[hh] += s[i];
+        o[i] *= corr[hh];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = fast_exp2(s[i]);
     }
     uint32_t p_lo[16];
     to_a_fragment(s, p_lo);
 
     fence_regs(o);
     fence_regs(p_lo);
+    if constexpr (Mode::kOnes) fence_regs(l_ones);
     wg_fence();
     product_rs(o, p_lo, k_tile + kTileBytes, true);
+    if constexpr (Mode::kOnes) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mma_rs_n8(l_ones, p_lo + 4 * k, desc_sw128(base + M::kOnesTile + 32 * k), 1);
+    }
     wg_commit();
     wg_wait<0>();
     fence_regs(o);
+    if constexpr (Mode::kOnes) fence_regs(l_ones);
 
-    if (c0 + kRows >= w.frame_len) {
+    const bool frame_end = c0 + kRows >= w.frame_len;
+    if (frame_end) {
       // the frame's end: out_f = o / l, then a fresh softmax for the next frame
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
-        l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+        if constexpr (Mode::kOnes) {
+          l[hh] = l_ones[2 * hh];  // every column of p 1 is the row's sum
+        } else {
+          l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+          l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+        }
       }
       if (w.lse != nullptr && threadIdx.x % 4 == 0) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int row = w.row0 + rows_of[hh];
-          if (row < w.rows) w.lse[f * w.lse_frame_stride + row] = (m2[hh] + log2f(l[hh])) * kLn2;
+          const float m = Mode::kMax ? m2[hh] : 0.f;
+          if (row < w.rows) w.lse[f * w.lse_frame_stride + row] = (m + log2f(l[hh])) * kLn2;
         }
       }
 #pragma unroll
@@ -291,6 +420,22 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
       for (int i = 0; i < 32; ++i) o[i] = 0.f;
       m2[0] = m2[1] = kMask;
       l[0] = l[1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) l_ones[i] = 0.f;
+      if constexpr (Mode::kHeads) {
+        // the next head's q: store_tile's barrier has every warp past this
+        // frame's products, and the barriers below come before the next
+        if (f + 1 < w.frames) {
+          stage_q(w.q + (f + 1) * w.q_frame_stride);
+          fence_async_shared();
+        }
+      }
+    }
+    if constexpr (Mode::kFold) {
+      if (g + 1 < total) {
+        if (frame_end) __syncthreads();  // store_tile's last reads of the stage the fold tile shares
+        store_fold(fold_next, stage ^ 1);
+      }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }

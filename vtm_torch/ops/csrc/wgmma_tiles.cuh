@@ -9,7 +9,9 @@
 //        each row holding the 64 contraction elements (K-major);
 //   rs:  D (+)= A B,   A from registers (the bf16 fragment of an earlier
 //        accumulator), B a [64 (contraction) x 64] tile whose rows hold
-//        the 64 output columns (MN-major, read transposed).
+//        the 64 output columns (MN-major, read transposed); or B^T from a
+//        K-major tile as ss reads it; and at N = 8 (m64n8k16), the A/B
+//        kernels' product of p with a column of ones.
 //
 // A warpgroup is the 128 threads of one block. Thread t = 32 w + l holds,
 // of a [64 x 64] fp32 accumulator d[32], the elements
@@ -106,9 +108,10 @@ __device__ __forceinline__ void wg_wait() {
 
 // Keep the compiler from moving register reads or writes of an accumulator
 // across the asynchronous products (before wg_fence, after wg_wait).
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[16]) {
 #pragma unroll
@@ -137,13 +140,26 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, i
 }
 
 // d (+)= a b over 16 contraction rows; a: this thread's four registers of
-// the bf16 A fragment; b: MN-major descriptor (read transposed).
+// the bf16 A fragment; b: MN-major descriptor (read transposed), or with
+// kTransB = 0 a K-major one (d (+)= a b^T, as mma_ss reads b).
+template <int kTransB = 1>
 __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VTM_WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : VTM_WG_D32_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB));
+}
+
+// d (+)= a b^T at N = 8 (m64n8k16): d[4] holds, for this thread, row
+// 16 w + l / 4 + 8 h, column 2 (l % 4) + c at d[2 h + c]; b is a K-major
+// descriptor of 8 rows (one 1024-byte swizzle atom).
+__device__ __forceinline__ void mma_rs_n8(float (&d)[4], const uint32_t* a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

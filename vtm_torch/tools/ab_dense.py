@@ -62,6 +62,7 @@ from vtm_torch.models.common import split_heads
 from vtm_torch.ops import ab_attention as ab
 from vtm_torch.ops import flash_attention
 from vtm_torch.ops.flash_attention import _reference, tome_flash_attention
+from vtm_torch.tools.kernel_times import device_ms
 from vtm_torch.utils.benchmark import device_seconds
 
 EXPERIMENTS = ("bisect", "mxu_pack", "b32", "decomp", "decomp_bias", "decomp_cost", "dense_v2", "block_attn")
@@ -195,18 +196,22 @@ class Bench:
     def _ms(self, fn, iters: int) -> float:
         return device_seconds(fn, iters, 2 if self.device.type == "cuda" else 0, self.device) / iters * 1e3
 
-    def run(self, exp: str, rows: List[Row], time_plain: bool = False) -> List[dict]:
+    def run(self, exp: str, rows: List[Row], time_plain: bool = False, time_device: bool = False) -> List[dict]:
         """Check every row that has a plain version, then time the rows in
-        turns, ``reps`` times over (each row's library call, and with
-        ``time_plain`` its plain version, in the same turn), and print them.
-        Returns what was printed."""
+        turns, ``reps`` times over (each row's library call, with
+        ``time_plain`` its plain version, and with ``time_device`` on the
+        card its device time, ``kernel_times.device_ms``, in the same turn),
+        and print them. Returns what was printed."""
+        time_device = time_device and self.device.type == "cuda"
         with torch.inference_mode():
             errs = [self.check(row) if row.plain_as else {} for row in rows]
-            times = [dict(ms=[], library_ms=[], plain_ms=[]) for _ in rows]
+            times = [dict(ms=[], library_ms=[], plain_ms=[], device_ms=[]) for _ in rows]
             for _ in range(self.reps):
                 for row, ts in zip(rows, times):
                     iters = min(row.iters, self.iters)
                     ts["ms"].append(self._ms(row.fn, iters))
+                    if time_device:
+                        ts["device_ms"].append(device_ms(row.fn, iters))
                     if row.library:
                         ts["library_ms"].append(self._ms(row.library, iters))
                     if time_plain and row.plain_as:
@@ -216,7 +221,8 @@ class Bench:
             ms = statistics.median(ts["ms"])
             fields = dict(name=row.name, shape=list(row.shape), dtype=str(self.dtype).split(".")[-1],
                           ms=dict(median=ms, min=min(ts["ms"]), max=max(ts["ms"])), **err)
-            fields.update({key: statistics.median(ts[key]) for key in ("library_ms", "plain_ms") if ts[key]})
+            fields.update({key: statistics.median(ts[key]) for key in ("library_ms", "plain_ms", "device_ms")
+                           if ts[key]})
             for key in ("kernel", "function", "mode", "flops", "bound_flops", "nbytes", "note"):
                 if getattr(row, key):
                     fields[key] = getattr(row, key)
@@ -519,7 +525,8 @@ def exp_block_attn(bench: Bench) -> None:
 
 def exp_kernels(bench: Bench) -> List[dict]:
     """Every function and mode once, each timed beside its plain version
-    and, where one call computes the same function, a library call; not
+    and, where one call computes the same function, a library call, and on
+    the card by its device time too; not
     one of ``--exp``'s experiments (``check_ab`` and ``chip_smoke.py`` run
     it, in fp32 at ``SMALL_SIZES`` and in bf16 at the tools' shapes). The
     probes and chains get contiguous [bh, n_pad, 64] operands, as the tools
@@ -561,7 +568,7 @@ def exp_kernels(bench: Bench) -> List[dict]:
     fields = dict(flops=flops, nbytes=io4, library=sdpa_call(q, k, v, None, scale))
     rows.append(kernel_row("grid_swapped", "T5", ab.grid_swapped, ab.grid_swapped_plain, (q, k, v, scale), **fields))
     rows.append(kernel_row("n8_attention", "T12", ab.n8_attention, ab.n8_attention_plain, (q, k, v, scale), **fields))
-    return bench.run("kernels", sorted(rows, key=lambda r: int(r.kernel[1:])), time_plain=True)
+    return bench.run("kernels", sorted(rows, key=lambda r: int(r.kernel[1:])), time_plain=True, time_device=True)
 
 
 RUNNERS = {"bisect": exp_bisect, "mxu_pack": exp_mxu_pack, "b32": exp_b32, "decomp": exp_decomp,

@@ -12,7 +12,7 @@
      plain version, by ``ab_dense``'s rule, in fp32 at a small ragged
      shape, then in bf16 at B8 H12 d64 and the tools' token counts, there
      timed beside the plain version and the library call (2 x 10 calls in
-     turns).
+     turns), and by device time (``kernel_times.device_ms``).
 Prints one JSON line per step and per row. Needs a CUDA device and nvcc.
 """
 

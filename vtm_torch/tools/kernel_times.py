@@ -1,6 +1,6 @@
 """The attention kernels' times on the card, two ways.
 
-    python -m vtm_torch.tools.kernel_times [--exp times|packing|backward|all] [--iters 50]
+    python -m vtm_torch.tools.kernel_times [--exp times|packing|backward|ab|digests|all] [--iters 50]
 
 ``--exp times`` times K1 (``tome_flash_attention``, no gradient wanted),
 K3 (``tome_frame_attention``, F 8) and K5a (``tome_blockdiag_attention``,
@@ -23,19 +23,28 @@ backwards as a train step calls them, given their forwards' residuals (out
 and lse): K2 (``tome_flash_attention_backward``), K4
 (``tome_frame_attention_backward``) and K5b
 (``tome_blockdiag_attention_backward``) at the same shapes as their
-forwards, no dbias, a token-major do. Needs a CUDA device.
+forwards, no dbias, a token-major do. ``--exp ab`` times the A/B kernels
+T4 (``ab_attention.packed_attention``) and T11 (``v2_attention``, all three
+variants), unbiased and biased, beside K1, at B8 H12 N 1568 d64 bf16 on the
+same fused views, both clocks. ``--exp digests`` prints the sha256 of the
+forwards' output bits (``forward_digests``: K1, K3, K5a at
+``FWD_DIGEST_CASES``, B2 H12 d64 bf16, inputs from numpy's generator),
+which two trees on one card must share when their arithmetic is the same.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 
+import numpy as np
 import torch
 
 from vtm_torch.models.common import split_heads
-from vtm_torch.ops import flash_attention
+from vtm_torch.ops import ab_attention, flash_attention
 from vtm_torch.ops.flash_attention import (
     tome_blockdiag_attention,
     tome_blockdiag_attention_backward,
@@ -66,7 +75,15 @@ K2_CASES = K1_CASES
 K4_CASES = K3_CASES
 K5B_CASES = ((197, False, False), (179, True, True), (107, True, True), (35, True, True),
              (18, True, True), (10, True, True))
-EXPERIMENTS = ("times", "packing", "backward")
+# the A/B kernels' token count (ab_dense's first of packed_ns and v2_ns)
+AB_N = 1568
+# (kernel, N or s, biased, exclude_first_row): K1 VideoMAE's layer 0 and a
+# biased ragged N; K3 Motionformer's layer 0 and a merged layer; K5a
+# TimeSformer's s 197, 107 and 10 (packed frames)
+FWD_DIGEST_CASES = (("K1", 1568, False, False), ("K1", 437, True, False), ("K3", 1568, False, False),
+                    ("K3", 848, True, False), ("K5a", 197, False, False), ("K5a", 107, True, True),
+                    ("K5a", 10, True, True))
+EXPERIMENTS = ("times", "packing", "backward", "ab", "digests")
 
 
 def device_ms(fn, iters: int) -> float:
@@ -137,6 +154,46 @@ def exp_times(gen, iters: int, smi: str) -> None:
                               nvidia_smi=smi)), flush=True)
 
 
+def exp_ab(gen, iters: int, smi: str) -> None:
+    q, k, v = fused_views(gen, AB_N)
+    for bias in (None, size_bias(gen, AB_N)):
+        biased = bias is not None
+        calls = [("K1", "", lambda: tome_flash_attention(q, k, v, bias, 0.125)),
+                 ("T4", "packed", lambda: ab_attention.packed_attention(q, k, v, bias, 0.125))]
+        calls += [("T11", variant, lambda variant=variant: ab_attention.v2_attention(q, k, v, bias, 0.125, variant))
+                  for variant in ab_attention.V2_VARIANTS]
+        for kernel, mode, call in calls:
+            print(json.dumps(dict(kernel=kernel, mode=mode, n=AB_N, biased=biased, **measure(call, iters),
+                                  nvidia_smi=smi)), flush=True)
+
+
+def forward_digests() -> dict:
+    """{kernel: sha256 of its outputs at FWD_DIGEST_CASES}, each output
+    through the public wrapper on bf16 split-heads views of a fused [2, N,
+    3*768] projection, inputs from numpy's generator seeded by N."""
+    digests = {}
+    with torch.inference_mode():
+        for kernel, n, biased, masked in FWD_DIGEST_CASES:
+            rows = n * FRAMES if kernel == "K5a" else n
+            rng = np.random.default_rng(n)
+            fused = torch.from_numpy(rng.standard_normal((2, rows, 3 * H * D)).astype(np.float32)).cuda()
+            q, k, v = (split_heads(t, H) for t in fused.to(torch.bfloat16).chunk(3, dim=-1))
+            bias = torch.from_numpy(np.log(rng.uniform(1, 5, (2, rows))).astype(np.float32)).cuda() if biased else None
+            if kernel == "K1":
+                out = tome_flash_attention(q, k, v, bias, 0.125)
+            elif kernel == "K3":
+                out = tome_frame_attention(q, k, v, bias, 0.125, FRAMES)
+            else:
+                out = tome_blockdiag_attention(q, k, v, bias, 0.125, FRAMES, masked)
+            digests.setdefault(kernel, hashlib.sha256()).update(
+                out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return {kernel: d.hexdigest() for kernel, d in digests.items()}
+
+
+def exp_digests(gen, iters: int, smi: str) -> None:
+    print(json.dumps(dict(forward_digests=forward_digests(), cases=FWD_DIGEST_CASES, nvidia_smi=smi)), flush=True)
+
+
 def exp_backward(gen, iters: int, smi: str) -> None:
     fa = flash_attention
     for n, biased in K2_CASES:
@@ -194,7 +251,8 @@ def main(argv=None):
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
-        for exp, run in (("times", exp_times), ("packing", exp_packing), ("backward", exp_backward)):
+        for exp, run in (("times", exp_times), ("packing", exp_packing), ("backward", exp_backward),
+                         ("ab", exp_ab), ("digests", exp_digests)):
             if args.exp in (exp, "all"):
                 run(gen, args.iters, smi)
 
