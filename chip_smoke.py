@@ -74,12 +74,17 @@ Phases, each printing one JSON line:
                   plain version by the entry point's own rule
                   (ab_dense.exp_kernels): fp32 at a small ragged shape, bf16
                   at B8 H12 d64 and the tools' token counts, timed the same
-                  way, and by device time; registers and spills of
-                  ab_dense_variants.cu (T4 and T11, whose bf16 instances
-                  run K1's tile loop). The four q k^T probes' bound is that
-                  of the function (one pass over k and a narrow product),
-                  their n x n product's stands beside it as
-                  ``product_bound_ms``
+                  way, and by device time; the packed row sums T7 also at
+                  key counts that end inside a tile
+                  (ab_dense.Sizes.ragged_probes);
+                  registers and spills of ab_dense_variants.cu (T4 and T11,
+                  whose bf16 instances run K1's tile loop) and of
+                  ab_qk_probe.cu (T3 and T7 in bf16 on its wgmma body). The
+                  four q k^T probes' bound is that of the function (one pass
+                  over k and a narrow product), their n x n product's stands
+                  beside it as ``product_bound_ms``; the packed forms' also
+                  as ``issued_product_ms``, the product the kernel issues
+                  with the zero halves counted (no bound on the function)
   4. blocks    -- teacher-forced VideoMAE ViT-B blocks, fp32: kernel path vs
                   plain path
      mf_blocks -- the same for Motionformer ViT-B blocks
@@ -2033,6 +2038,8 @@ def phase_ab_kernels(smi: str) -> dict:
                    library_ms=row.get("library_ms"), **bound(row.get("bound_flops", row["flops"]), row["nbytes"]))
         if "bound_flops" in row:
             row["product_bound_ms"] = row["flops"] / PEAK_BF16_FLOPS * 1e3
+        if "issued_flops" in row:
+            row["issued_product_ms"] = row["issued_flops"] / PEAK_BF16_FLOPS * 1e3
         if "cancelled_rows" in row:
             row["cancelled_rows_fp32_small"] = fp32["cancelled_rows"]
         if mode == AB_KERNELS[tid][2]:
@@ -2044,7 +2051,8 @@ def phase_ab_kernels(smi: str) -> dict:
     check(set(by_id) == set(AB_KERNELS), f"ab_kernels: ids checked {sorted(by_id)}")
     emit("ab_kernels", cases=full, fp32_shape=dataclasses.asdict(ab_dense.SMALL_SIZES),
          bf16_shape=dataclasses.asdict(ab_dense.Sizes()),
-         resources=kernel_build.kernel_resources("ab_dense_variants.cu"), nvidia_smi=smi)
+         resources={source: kernel_build.kernel_resources(source)
+                    for source in ("ab_dense_variants.cu", "ab_qk_probe.cu")}, nvidia_smi=smi)
     return by_id
 
 

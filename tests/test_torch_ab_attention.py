@@ -181,6 +181,71 @@ def test_t7_qk_packed_rowsum(dtype, n_pad, blk):
     assert_close(got, tool.qk_packed(jqp, jkc), "float32")
 
 
+def _probe_tile_walk(qp, kc, rowsum: bool, tile=64, step=16):
+    """T3's and T7's Hopper body (``ab_qk_probe_wgmma``) on the CPU in
+    fp32: one fp32 accumulator per row and column c < 64, summed over every
+    64-key tile in order (keys past the end zero), each tile's product as
+    16-deep k-steps in the kernel's order. T3: the accumulator cast to bf16
+    at the end. T7: each row's sum as the kernel takes it, each of a quad's
+    four threads l summing its 16 columns 8 j + 2 l + c in order (j, then
+    c), then lanes (0 + 1) + (2 + 3)."""
+    g, nq, depth = qp.shape
+    nk = kc.shape[1]
+    q, k = qp.float(), kc.float()
+    acc = torch.zeros(g, nq, tile)
+    for k0 in range(0, nk, tile):
+        kt = torch.zeros(g, tile, depth)
+        kt[:, :min(tile, nk - k0)] = k[:, k0:k0 + tile]
+        for d0 in range(0, depth, step):
+            acc = acc + q[..., d0:d0 + step] @ kt[..., d0:d0 + step].transpose(-2, -1)
+    if not rowsum:
+        return acc.to(torch.bfloat16)
+    cols = acc.view(g, nq, 8, 4, 2)  # column 8 j + 2 l + c at [j, l, c]
+    lane = torch.zeros(g, nq, 4)
+    for j in range(8):
+        for c in range(2):
+            lane = lane + cols[..., j, :, c]
+    return ((lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3]))[..., None]
+
+
+def _packed_bf16(seed, bh, n):
+    rng = np.random.default_rng(seed)
+    tq, tk = (torch.from_numpy(normal(rng, bh, n, 64)).to(torch.bfloat16) for _ in range(2))
+    tqp, tkc = ab.pack_q(tq), ab.pack_k(tk)
+    return (tqp, tkc), tuple(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tqp, tkc))
+
+
+@pytest.mark.parametrize("n", [64, 192])
+def test_t3_tile_walk_matches_jax_kernel(n):
+    """The redesigned T3's arithmetic, emulated by ``_probe_tile_walk``,
+    agrees with the JAX tool's kernel (interpret mode, blk 64) on the same
+    bf16 packed operands, within the file's bf16 tolerance. 2n rows (128,
+    384) leave the Hopper body's last 256-row block half filled. A fault in
+    the CUDA kernel shows only on the card (chip_smoke's ``ab_kernels``,
+    ``check_ab``)."""
+    tool = jax_tool("ab_mxu_pack")
+    (tqp, tkc), (jqp, jkc) = _packed_bf16(15, 4, n)
+    got = _probe_tile_walk(tqp, tkc, rowsum=False)
+    assert got.shape == (2, 2 * n, 64) and got.dtype == torch.bfloat16
+    assert_close(got, tool.qk_packed(jqp, jkc, 64), "bfloat16")
+    assert_close(got, ab.qk_packed(tqp, tkc).float().numpy(), "bfloat16")
+
+
+@pytest.mark.parametrize("n,blk", [(37, 37), (200, 40)])
+def test_t7_tile_walk_matches_jax_kernel(n, blk):
+    """The redesigned T7's arithmetic (``_probe_tile_walk``: 64-key tiles,
+    the last ending mid-tile, then the quad-wise row sums) against the JAX
+    tool's kernel on the same bf16 packed operands at depth 128; both sum
+    in fp32, so within the file's fp32 tolerance, tighter than bf16's."""
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = n, blk, 64
+    (tqp, tkc), (jqp, jkc) = _packed_bf16(16, 4, n)
+    got = _probe_tile_walk(tqp, tkc, rowsum=True)
+    assert got.dtype == torch.float32 and got.shape == (2, 2 * n, 1)
+    assert_close(got, tool.qk_packed(jqp, jkc), "float32")
+    assert_close(got, ab.qk_packed_rowsum(tqp, tkc).numpy(), "float32")
+
+
 # ---- T8, T9, T10: the chain --------------------------------------------------
 
 
@@ -453,11 +518,13 @@ def test_cpu_calls_launch_no_kernel():
 
 def test_sources_hold_kernels_of_their_own():
     """Three CUDA sources, each with a note on the TPU function it
-    replaces: ab_qk_probe.cu and ab_chain.cu one __global__ template each,
-    the first body on wmma; ab_dense_variants.cu two, the first body's fp32
-    template on FMA units and the bf16 template on the shared wgmma tile
-    loop, with no wmma left. None calls a library's product or attention,
-    or K1's entry point; the wrappers call no matrix product either."""
+    replaces: ab_chain.cu one __global__ template, the first body on wmma;
+    ab_qk_probe.cu two, the first body on wmma and the Hopper template of
+    T3 and T7 on wgmma_tiles.cuh's products; ab_dense_variants.cu two, the
+    first body's fp32 template on FMA units and the bf16 template on the
+    shared wgmma tile loop, with no wmma left. None calls a library's
+    product or attention, or K1's entry point; the wrappers call no matrix
+    product either."""
     import inspect
 
     from vtm_torch.ops import build
@@ -470,6 +537,9 @@ def test_sources_hold_kernels_of_their_own():
             assert text.count("__global__") == 2 and "ab_mxu_pack.py" in text
             assert "ab_dense_variant_kernel(const float*" in text and "wg::attend<" in text
             assert '#include "wgmma_attention.cuh"' in text and "wmma" not in text
+        elif name == "ab_qk_probe.cu":
+            assert text.count("__global__") == 2 and "wmma::mma_sync" in text and "ab_decomp.py" in text
+            assert '#include "wgmma_tiles.cuh"' in text and "ab_qk_probe_wgmma(" in text and "wg::mma_ss(" in text
         else:
             assert text.count("__global__") == 1 and "wmma" in text
         for foreign in ("cublas", "cudnn", "cutlass", "vtm_attention_fwd"):
@@ -504,10 +574,39 @@ def test_card_cases_cover_every_function_and_mode(capsys):
     by_id = {r["kernel"]: r for r in rows}
     for probe in ("T2", "T3", "T6", "T7"):  # one pass over k and a narrow product, not the n x n product
         assert by_id[probe]["bound_flops"] < by_id[probe]["flops"] and by_id[probe]["library_ms"] > 0
+    # the packed probes also at ragged token counts; their products issued, zeros included, twice the useful
+    ragged = {(r["kernel"], r["mode"]) for r in rows if r.get("mode", "").startswith("n ")}
+    assert ragged == {(tid, f"n {n}") for tid, n in ab_dense.Sizes().ragged_probes}
+    for row in rows:
+        packed = row["kernel"] in ("T3", "T7")
+        assert row.get("issued_flops", 0.0) == (2 * row["flops"] if packed else 0.0)
     assert not any(ab.AB_LAUNCHES.values())
     assert ab_dense.tolerance(torch.float32, True, 0.0) == ab_dense.LINEAR_TOL > ab_dense.FP32_TOL
     assert ab_dense.tolerance(torch.bfloat16, False, 0.02) == 0.04
     assert ab_dense.tolerance(torch.bfloat16, False, 0.0) == ab_dense.BF16_FLOOR
+
+
+def test_ragged_probes_end_inside_a_key_tile():
+    """The card's ragged cases of T7 (``ab_dense.Sizes.ragged_probes``):
+    key counts that end inside a 64-key tile and that span several tiles,
+    which the probes' shape (n 1600, 25 full tiles) does not reach."""
+    from vtm_torch.tools import ab_dense
+
+    ns = [n for tid, n in ab_dense.Sizes().ragged_probes]
+    assert {tid for tid, _ in ab_dense.Sizes().ragged_probes} == {"T7"}
+    assert all(n % ab.KEY_TILE for n in ns) and any(n > ab.KEY_TILE for n in ns)
+
+
+@pytest.mark.parametrize("arg,want", [("ab", ("ab",)), ("digests,ab", ("ab", "digests")),
+                                      ("times,all", ("times", "packing", "backward", "ab", "digests"))])
+def test_kernel_times_takes_a_list_of_experiments(arg, want):
+    """``kernel_times --exp ab,digests`` (one process a tree when two trees
+    are timed in turns): the named experiments in their fixed order."""
+    from vtm_torch.tools import kernel_times
+
+    assert kernel_times.experiments(arg) == want
+    with pytest.raises(Exception, match="unknown experiments"):
+        kernel_times.experiments(arg + ",probes")
 
 
 @pytest.mark.parametrize("name,args", [("T2", "qk"), ("T3", "packed"), ("T6", "qk"), ("T7", "packed")])

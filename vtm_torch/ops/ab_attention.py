@@ -20,11 +20,12 @@ None is on a model's path; ``vtm_torch.tools.ab_dense`` runs them.
   T11 ``v2_attention``       ab_dense_v2.py::v2_attention   v2_sum | v2_fold | v2_nomax
   T12 ``n8_attention``       ab_block_attn.py::n8_attention unbiased attention, q scaled in the kernel
 
-Kernels: ``csrc/ab_qk_probe.cu`` (T2, T3, T6, T7), ``csrc/ab_chain.cu``
-(T1, T5, T8, T9, T10, T12), ``csrc/ab_dense_variants.cu`` (T4, T11; in bf16
-on K1's Hopper tile loop, ``csrc/wgmma_attention.cuh``, under a softmax
-policy each): CUDA C++ for Hopper at head dim 64, built and bound by
-``vtm_torch/ops/build.py``.
+Kernels: ``csrc/ab_qk_probe.cu`` (T2, T3, T6, T7; T3 and T7 in bf16 on a
+Hopper body of their own, wgmma products from shared memory over
+``csrc/wgmma_tiles.cuh``), ``csrc/ab_chain.cu`` (T1, T5, T8, T9, T10, T12),
+``csrc/ab_dense_variants.cu`` (T4, T11; in bf16 on K1's Hopper tile loop,
+``csrc/wgmma_attention.cuh``, under a softmax policy each): CUDA C++ for
+Hopper at head dim 64, built and bound by ``vtm_torch/ops/build.py``.
 A tensor on the CPU goes to the plain PyTorch version (``*_plain``); a
 CUDA tensor goes to the kernel, or the call raises: there is no fallback.
 
@@ -475,7 +476,9 @@ def qk64(q, k, blk: int = KEY_TILE):
 
 def qk_packed(qp, kc, blk: int = KEY_TILE):
     """T3. The same over packed operands: qp [bh/2, 2n, 128] from
-    ``pack_q``, kc [bh/2, n, 128] from ``pack_k`` -> [bh/2, 2n, 64]."""
+    ``pack_q``, kc [bh/2, n, 128] from ``pack_k`` -> [bh/2, 2n, 64]. In
+    bf16 the Hopper body takes 256 rows of qp a block, the whole 128-deep
+    product on every key tile (it cannot know the zero halves)."""
     if not qp.is_cuda:
         return qk_packed_plain(qp, kc, blk)
     _check_blk("qk_packed", blk)
@@ -521,7 +524,9 @@ def qk_d64(q, k):
 
 
 def qk_packed_rowsum(qp, kc):
-    """T7. The same over the packed operands of T3 -> fp32 [bh/2, 2n, 1]."""
+    """T7. The same over the packed operands of T3 -> fp32 [bh/2, 2n, 1],
+    any key count. In bf16 T3's Hopper body with a row-sum epilogue: each
+    thread's 16 columns of a row in order, then the quad's four sums."""
     if not qp.is_cuda:
         return qk_packed_rowsum_plain(qp, kc)
     if qp.shape[-1] != 2 * HEAD_DIM:

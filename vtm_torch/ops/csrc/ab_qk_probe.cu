@@ -22,26 +22,53 @@
 // cores. The functions themselves need far less (a row sum of q k^T is
 // q . (sum of the keys), the columns form q . (sum over chunks of k)): as
 // functions they are bound by their bytes, and a probe is slow against
-// that bound by design: it is there to time the product.
+// that bound by design: it is there to time the product, and its
+// yardstick is the product's bound (the packed forms: 62.9 GFLOP at
+// qp [48, 3200, 128], 0.0636 ms at 989 TFLOP/s, half of it on zeros).
 //
-// Design: K1's first product and nothing else. One block of 4 warps per
-// (g, 64-row q tile); a loop over 64-key tiles of k staged in shared memory
-// with 16-byte loads (rows past the end zero-filled, so they add 0); bf16 on
-// nvcuda::wmma 16x16x16 with the fp32 sum kept in four accumulator
-// fragments per warp across all tiles, fp32 on FMA units with the sum in
-// registers. Every column of every tile's product is consumed: with the
-// chunk equal to the 64-key tile, the "columns" form keeps all 64, and the
-// row sum is the sum of those 64 at the end, so the two forms differ by
-// one pass over a [64 x 64] tile per block and by the output they store
-// (64 values a row against one). That closes the hole of the TPU probes,
-// where a compiler could narrow a product whose columns were dropped.
+// Every column of every tile's product is consumed: with the chunk equal
+// to the 64-key tile, the "columns" form keeps all 64, and the row sum is
+// the sum of those 64 at the end, so the two forms differ by their
+// epilogue and by the output they store (64 values a row against one).
+// That closes the hole of the TPU probes, where a compiler could narrow a
+// product whose columns were dropped. Keys past the end are zero-filled,
+// so they add exactly 0.
+//
+// Two bodies:
+//   * bf16 at depth 128 (T3, T7), ab_qk_probe_wgmma, on wgmma_tiles.cuh.
+//     One warpgroup a block over 256 rows of q: four m64n64 fp32
+//     accumulators (128 registers a thread) that stay in registers across
+//     every key tile, never read out or rescaled until the epilogue. q is
+//     loaded once, as 4 x 2 128-byte-swizzled [64 x 64] tiles (64 KB); k
+//     streams through a three-stage cp.async ring of 16 KB tiles (the two
+//     depth halves of 64 keys). A tile's 32 products (m64n64k16 from
+//     shared memory, 8 k-steps for each of the 4 row tiles) go out as one
+//     group; the block waits for the previous tile's group only, so one
+//     tile's copy lands while the tensor cores run the tile before it.
+//     256 rows share each staged k tile: a block reads kc[g] once for 256
+//     rows, not for 64 (at the probes' shape 256 MB from L2 against 983
+//     MB). 115,712 B of shared memory: 2 blocks an SM. Row tiles past the
+//     end are zero-filled and multiplied all the same (the products stay
+//     unconditional); their rows are not stored. The tiling is two
+//     constants, kWgRowTiles and kWgStages (128 rows with four stages ran
+//     as fast as 256 with three, so L2 does not hold it back; PERF.md).
+//     Epilogues: the columns through store_tile (scale 1, rows past the
+//     end not written); the row sum as each thread's 16 columns of a row,
+//     summed in order, then the quad's four partial sums with
+//     __shfl_xor_sync 1 and 2, written by the quad's first lane.
+//   * every other case, the first body: one block of 4 warps per
+//     (g, 64-row q tile); a loop over 64-key tiles of k staged in shared
+//     memory with 16-byte loads; bf16 on nvcuda::wmma 16x16x16 with the
+//     fp32 sum kept in four accumulator fragments per warp across all
+//     tiles (T2, T6), fp32 on FMA units with the sum in registers.
 //
 // Why the packed form exists here: on the TPU a d = 64 contraction half
 // fills the 128-deep matrix unit, and packing two heads was a way to fill
-// it. wmma's depth is 16, so on Hopper nothing is half filled: the packed
-// form issues twice the products, half of them on zeros. It is ported and
-// measured all the same; expect about twice the time of the plain form for
-// the same useful work.
+// it. A wgmma or wmma k-step is 16 deep, so on Hopper nothing is half
+// filled: the packed form issues twice the products, half of them on
+// zeros, and for a general qp the kernel cannot know which. It is ported
+// and measured all the same; expect about twice the time of the plain form
+// for the same useful work on the same body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +78,7 @@
 #include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -160,12 +188,143 @@ cudaError_t launch(const void* q, const void* k, void* out, int groups, int nq, 
                    cudaStream_t stream) {
   using L = Layout<T, kDepth>;
   auto kernel = ab_qk_probe_kernel<T, kDepth, kRowSum>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::bytes));
+  static bool done[vtm::kMaxDevices] = {};
+  cudaError_t err = vtm::allow_smem_once(kernel, static_cast<int>(L::bytes), done);
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + kBlockQ - 1) / kBlockQ, groups);
   kernel<<<grid, kThreads, L::bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                                out, nq, nk);
+  return cudaGetLastError();
+}
+
+// ==================== Hopper body (bf16, depth 128) ======================
+
+namespace wg = vtm::wg;
+using bf16 = __nv_bfloat16;
+
+constexpr int kWgRowTiles = 4;  // 64-row tiles of q a block: 256 rows share each staged k tile
+constexpr int kWgStages = 3;    // k tiles in the ring: one computing, one in the tensor cores, one landing
+
+template <int kDepth>
+struct WgSmem {
+  static constexpr int kHalves = kDepth / wg::kRows;               // swizzled 64-column tiles a row
+  static constexpr int kStage = kHalves * wg::kTileBytes;          // one 64-key tile of k
+  static constexpr int kRing = kWgRowTiles * kHalves * wg::kTileBytes;  // after q's tiles
+  static constexpr int kLaunchBytes = kRing + kWgStages * kStage + 1024;  // + room to align the base
+  static_assert(kDepth % wg::kRows == 0, "depth must be a multiple of 64");
+};
+
+// One warpgroup: q rows [256 x, 256 x + 256) of group y against every key
+// of the group (header note). q [groups, nq, kDepth], k [groups, nk,
+// kDepth], contiguous.
+template <int kDepth, bool kRowSum>
+__global__ void __launch_bounds__(wg::kThreads, 2)
+    ab_qk_probe_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k, void* __restrict__ out,
+                      int nq, int nk) {
+  using L = WgSmem<kDepth>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = wg::aligned_smem(smem_raw);
+  const uint32_t base = wg::smem_addr(smem);
+  const long long g = blockIdx.y;
+  const int row0 = blockIdx.x * kWgRowTiles * wg::kRows;
+  const bf16* qb = q + g * nq * kDepth;
+  const bf16* kb = k + g * nk * kDepth;
+  const int tiles = (nk + wg::kRows - 1) / wg::kRows;
+
+  auto q_tile = [&](int m, int h) { return base + (m * L::kHalves + h) * wg::kTileBytes; };
+  auto k_tile = [&](int t, int h) { return base + L::kRing + (t % kWgStages) * L::kStage + h * wg::kTileBytes; };
+  // key tile t into its stage (nothing past the last tile), one commit group each
+  auto load_k = [&](int t) {
+    if (t < tiles) {
+#pragma unroll
+      for (int h = 0; h < L::kHalves; ++h)
+        wg::load_tile_async(k_tile(t, h), kb + h * wg::kRows, kDepth, t * wg::kRows, nk);
+    }
+    wg::cp_async_commit();
+  };
+
+#pragma unroll
+  for (int m = 0; m < kWgRowTiles; ++m) {
+#pragma unroll
+    for (int h = 0; h < L::kHalves; ++h)
+      wg::load_tile_async(q_tile(m, h), qb + h * wg::kRows, kDepth, row0 + m * wg::kRows, nq);
+  }
+#pragma unroll
+  for (int t = 0; t < kWgStages - 2; ++t) load_k(t);  // q lands with the first group
+
+  float acc[kWgRowTiles][32];
+#pragma unroll
+  for (int m = 0; m < kWgRowTiles; ++m) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+  }
+
+  for (int t = 0; t < tiles; ++t) {
+    wg::cp_async_wait<kWgStages - 3>();
+    wg::fence_async_shared();
+    __syncthreads();  // tile t staged by every thread; tile t - 2's products done in every warp
+    load_k(t + kWgStages - 2);  // into tile t - 2's stage
+#pragma unroll
+    for (int m = 0; m < kWgRowTiles; ++m) wg::fence_regs(acc[m]);
+    wg::wg_fence();
+#pragma unroll
+    for (int h = 0; h < L::kHalves; ++h) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t b = wg::desc_sw128(k_tile(t, h) + 32 * kk);
+#pragma unroll
+        for (int m = 0; m < kWgRowTiles; ++m) wg::mma_ss(acc[m], wg::desc_sw128(q_tile(m, h) + 32 * kk), b, 1);
+      }
+    }
+    wg::wg_commit();
+    wg::wg_wait<1>();  // the previous tile's products
+#pragma unroll
+    for (int m = 0; m < kWgRowTiles; ++m) wg::fence_regs(acc[m]);
+  }
+  wg::wg_wait<0>();
+#pragma unroll
+  for (int m = 0; m < kWgRowTiles; ++m) wg::fence_regs(acc[m]);
+
+  if constexpr (kRowSum) {
+    float* o = static_cast<float*>(out) + g * nq;
+#pragma unroll
+    for (int m = 0; m < kWgRowTiles; ++m) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // this thread's two rows: 16 columns each
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sum += acc[m][4 * j + 2 * hh];
+          sum += acc[m][4 * j + 2 * hh + 1];
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const int r = row0 + m * wg::kRows + wg::acc_row(2 * hh);
+        if (threadIdx.x % 4 == 0 && r < nq) o[r] = sum;
+      }
+    }
+  } else {
+    wg::cp_async_wait<0>();  // the ring's first stage becomes the output stage
+    bf16* o = static_cast<bf16*>(out) + g * nq * kCols;
+#pragma unroll
+    for (int m = 0; m < kWgRowTiles; ++m)
+      wg::store_tile(acc[m], 1.f, smem + L::kRing, o, kCols, row0 + m * wg::kRows, nq);
+  }
+}
+
+template <bool kRowSum>
+cudaError_t launch_wgmma(const void* q, const void* k, void* out, int groups, int nq, int nk,
+                         cudaStream_t stream) {
+  constexpr int kDepth = 128;
+  constexpr int kBytes = WgSmem<kDepth>::kLaunchBytes;
+  constexpr int kRowsPerBlock = kWgRowTiles * wg::kRows;
+  auto kernel = ab_qk_probe_wgmma<kDepth, kRowSum>;
+  static bool done[vtm::kMaxDevices] = {};
+  cudaError_t err = vtm::allow_smem_once(kernel, kBytes, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nq + kRowsPerBlock - 1) / kRowsPerBlock, groups);
+  kernel<<<grid, wg::kThreads, kBytes, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                                 out, nq, nk);
   return cudaGetLastError();
 }
 
@@ -177,8 +336,13 @@ cudaError_t dispatch(int depth, int rowsum, const void* q, const void* k, void* 
                   : launch<T, 64, false>(q, k, out, groups, nq, nk, stream);
   }
   if (depth == 128) {
-    return rowsum ? launch<T, 128, true>(q, k, out, groups, nq, nk, stream)
-                  : launch<T, 128, false>(q, k, out, groups, nq, nk, stream);
+    if constexpr (std::is_same<T, bf16>::value) {
+      return rowsum ? launch_wgmma<true>(q, k, out, groups, nq, nk, stream)
+                    : launch_wgmma<false>(q, k, out, groups, nq, nk, stream);
+    } else {
+      return rowsum ? launch<T, 128, true>(q, k, out, groups, nq, nk, stream)
+                    : launch<T, 128, false>(q, k, out, groups, nq, nk, stream);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -187,7 +351,8 @@ cudaError_t dispatch(int depth, int rowsum, const void* q, const void* k, void* 
 
 // C entry point, bound with ctypes by vtm_torch/ops/ab_attention.py.
 //   dtype: 0 = bf16, 1 = fp32 (q and k share it)
-//   depth: 64 (one head per group) or 128 (a packed pair)
+//   depth: 64 (one head per group) or 128 (a packed pair; in bf16 the
+//     Hopper body, else the first)
 //   rowsum: 0 = out [groups, nq, 64] in the input dtype; 1 = out
 //     [groups, nq, 1] fp32
 //   q [groups, nq, depth], k [groups, nk, depth]: contiguous

@@ -95,6 +95,11 @@ class Sizes:
     block_ns: tuple = (1568, 1418, 968)                 # ab_block_attn.py:167
     alone_ns: tuple = (1568, 1418)                      # ab_block_attn.py:182
     matmul_m: int = 4096                                # ab_dense_v2.py:203
+    # ``exp_kernels`` only: T7 at key counts that end inside a 64-key tile
+    # (37) and one tile short of 1600 (1568). T3 takes only multiples of 64,
+    # so its 2n rows leave a 256-row block of the Hopper body empty or half
+    # filled, and n_pad's 3200 rows already reach the half-filled one
+    ragged_probes: tuple = (("T7", 37), ("T7", 1568))
 
 
 CPU_SIZES = Sizes(b8=1, b32=2, h=2, n_pad=64, packed_ns=(40,), v2_ns=(40,), block_ns=(40,), alone_ns=(40,),
@@ -114,6 +119,7 @@ class Row:
     # the plain version on the same inputs (None), or on them cast to a dtype
     plain_as: Optional[Callable[[Optional[torch.dtype]], torch.Tensor]] = None
     flops: float = 0.0                  # useful operations of the products: those on zeros are not counted
+    issued_flops: float = 0.0           # the products the kernel issues, zeros included, where more (packed probes)
     bound_flops: float = 0.0            # the operations the function needs, where fewer (the probes)
     nbytes: float = 0.0                 # every input read once, the output written once
     library: Optional[Callable[[], torch.Tensor]] = None  # one PyTorch call for the same function
@@ -223,7 +229,7 @@ class Bench:
                           ms=dict(median=ms, min=min(ts["ms"]), max=max(ts["ms"])), **err)
             fields.update({key: statistics.median(ts[key]) for key in ("library_ms", "plain_ms", "device_ms")
                            if ts[key]})
-            for key in ("kernel", "function", "mode", "flops", "bound_flops", "nbytes", "note"):
+            for key in ("kernel", "function", "mode", "flops", "issued_flops", "bound_flops", "nbytes", "note"):
                 if getattr(row, key):
                     fields[key] = getattr(row, key)
             if row.flops:
@@ -268,7 +274,9 @@ def _flat_inputs(bench: Bench):
 def _probe_rows(bench: Bench, q3, k3) -> dict:
     """T2, T3, T6, T7 on [bh, n, 64] operands and their packed forms.
     ``flops`` is the q k^T product the kernel does (useful: the packed
-    forms' zeros are not counted); ``bound_flops`` what the function needs,
+    forms' zeros are not counted; ``issued_flops`` counts them, twice the
+    useful product, which the kernel issues but the function does not
+    need); ``bound_flops`` what the function needs,
     since sum_t q.k[64t + c] = q.(sum_t k[64t + c]) and a row sum of q k^T
     is q.(sum_j k_j): one pass over k and a product 64 wide or 1 wide. The
     library call is one einsum of the same function."""
@@ -290,14 +298,15 @@ def _probe_rows(bench: Bench, q3, k3) -> dict:
         "T2": kernel_row("qk64", "T2", ab.qk64, ab.qk64_plain, (q3, k3, ab.KEY_TILE), flops=product,
                          bound_flops=columns, nbytes=3 * bh * m * D * es, library=chunk_columns(q3, k3), note=note),
         "T3": kernel_row("qk_packed_prebuilt", "T3", ab.qk_packed, ab.qk_packed_plain, (qp, kc, ab.KEY_TILE),
-                         flops=product, bound_flops=columns, nbytes=(qp.numel() + kc.numel() + bh * m * D) * es,
-                         library=chunk_columns(qp, kc), note=f"{note}; {packed}"),
+                         flops=product, issued_flops=2 * product, bound_flops=columns,
+                         nbytes=(qp.numel() + kc.numel() + bh * m * D) * es, library=chunk_columns(qp, kc),
+                         note=f"{note}; {packed}"),
         "T6": kernel_row("qk_d64", "T6", ab.qk_d64, ab.qk_d64_plain, (q3, k3), flops=product, bound_flops=rowsum,
                          nbytes=2 * bh * m * D * es + bh * m * 4, library=row_sums(q3, k3),
                          note="row sums consume every column"),
         "T7": kernel_row("qk_packed", "T7", ab.qk_packed_rowsum, ab.qk_packed_rowsum_plain, (qp, kc), flops=product,
-                         bound_flops=rowsum, nbytes=(qp.numel() + kc.numel()) * es + bh * m * 4,
-                         library=row_sums(qp, kc), note=packed),
+                         issued_flops=2 * product, bound_flops=rowsum,
+                         nbytes=(qp.numel() + kc.numel()) * es + bh * m * 4, library=row_sums(qp, kc), note=packed),
     }
 
 
@@ -532,7 +541,9 @@ def exp_kernels(bench: Bench) -> List[dict]:
     probes and chains get contiguous [bh, n_pad, 64] operands, as the tools
     give them (standard normal; the chains take no scale); the 4-D
     functions get the strided split-heads views of a fused [B, N, 3*H*64]
-    projection at the first of ``packed_ns`` tokens."""
+    projection at the first of ``packed_ns`` tokens. T7 also runs at
+    ``ragged_probes``, a row each (mode ``n <tokens>``), so that a key
+    tile that ends early is checked on the card."""
     s = bench.sizes
     b, h, m, n = s.b8, s.h, s.n_pad, s.packed_ns[0]
     es = torch.empty((), dtype=bench.dtype).element_size()
@@ -547,6 +558,9 @@ def exp_kernels(bench: Bench) -> List[dict]:
                                library=sdpa_call(*views, bias.expand(b, 1, m), 1.0)))
     probes = _probe_rows(bench, q3, k3)
     rows += [probes["T2"], probes["T3"], probes["T6"], probes["T7"]]
+    for tid, tokens in s.ragged_probes:
+        row = _probe_rows(bench, bench.randn(b * h, tokens, D), bench.randn(b * h, tokens, D))[tid]
+        rows.append(dataclasses.replace(row, name=f"{row.name}_n{tokens}", mode=f"n {tokens}"))
     rows += [_chain_row(q3, k3, v3, mode, flops, nbytes=io3,
                         library=sdpa_call(*views, None, 1.0) if mode == "full" else None) for mode in ab.CHAIN_MODES]
     shared_bias = bench.log_sizes(1, 1, m)

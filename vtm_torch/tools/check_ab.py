@@ -10,9 +10,13 @@
      per template instance);
   2. runs ``ab_dense.exp_kernels``: every function and mode against its
      plain version, by ``ab_dense``'s rule, in fp32 at a small ragged
-     shape, then in bf16 at B8 H12 d64 and the tools' token counts, there
-     timed beside the plain version and the library call (2 x 10 calls in
-     turns), and by device time (``kernel_times.device_ms``).
+     shape, then in bf16 at B8 H12 d64 and the tools' token counts (the
+     packed probes T3 and T7 run the Hopper body of ``ab_qk_probe.cu``
+     there; T3's 3200 rows leave its last 256-row block half filled, and
+     T7 also runs at ``Sizes.ragged_probes``, keys that end inside a
+     tile), there timed beside the
+     plain version and the library call (2 x 10 calls in turns), and by
+     device time (``kernel_times.device_ms``).
 Prints one JSON line per step and per row. Needs a CUDA device and nvcc.
 """
 

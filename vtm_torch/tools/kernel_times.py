@@ -2,6 +2,9 @@
 
     python -m vtm_torch.tools.kernel_times [--exp times|packing|backward|ab|digests|all] [--iters 50]
 
+``--exp`` takes one experiment, ``all``, or a comma-separated list
+(``--exp ab,digests``), run in the order of ``EXPERIMENTS``.
+
 ``--exp times`` times K1 (``tome_flash_attention``, no gradient wanted),
 K3 (``tome_frame_attention``, F 8) and K5a (``tome_blockdiag_attention``,
 F 8) at B8 H12 d64 bf16 on the paths' shapes (and K5a at s = 192 and 193,
@@ -26,16 +29,22 @@ and lse): K2 (``tome_flash_attention_backward``), K4
 forwards, no dbias, a token-major do. ``--exp ab`` times the A/B kernels
 T4 (``ab_attention.packed_attention``) and T11 (``v2_attention``, all three
 variants), unbiased and biased, beside K1, at B8 H12 N 1568 d64 bf16 on the
-same fused views, both clocks. ``--exp digests`` prints the sha256 of the
-forwards' output bits (``forward_digests``: K1, K3, K5a at
-``FWD_DIGEST_CASES``, B2 H12 d64 bf16, inputs from numpy's generator),
-which two trees on one card must share when their arithmetic is the same.
+same fused views, then the four q k^T probes T2 (``qk64``), T3
+(``qk_packed``), T6 (``qk_d64``) and T7 (``qk_packed_rowsum``) at the A/B
+tools' probe shape, [96, 1600, 64] bf16 and its packed form qp [48, 3200,
+128], kc [48, 1600, 128], both clocks. ``--exp digests`` prints the sha256
+of the forwards' output bits (``forward_digests``: K1, K3, K5a at
+``FWD_DIGEST_CASES``, B2 H12 d64 bf16, inputs from numpy's generator) and
+of the probes' (``probe_digests``: T2, T3, T6, T7 in bf16 at
+``PROBE_DIGEST_N``), which two trees on one card must share when their
+arithmetic is the same.
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import subprocess
@@ -83,6 +92,11 @@ AB_N = 1568
 FWD_DIGEST_CASES = (("K1", 1568, False, False), ("K1", 437, True, False), ("K3", 1568, False, False),
                     ("K3", 848, True, False), ("K5a", 197, False, False), ("K5a", 107, True, True),
                     ("K5a", 10, True, True))
+# the probes' shape: [bh, n, 64] as the A/B tools give them (ab_dense.Sizes().n_pad)
+PROBE_BH, PROBE_N = B * H, 1600
+# the probes' digests: token counts of a [24, n, 64] q and k, one a
+# multiple of 64 (T2, T3 need one), one not (T6, T7 take it)
+PROBE_DIGEST_N = {"T2": 320, "T3": 320, "T6": 200, "T7": 200}
 EXPERIMENTS = ("times", "packing", "backward", "ab", "digests")
 
 
@@ -165,6 +179,14 @@ def exp_ab(gen, iters: int, smi: str) -> None:
         for kernel, mode, call in calls:
             print(json.dumps(dict(kernel=kernel, mode=mode, n=AB_N, biased=biased, **measure(call, iters),
                                   nvidia_smi=smi)), flush=True)
+    q3, k3 = (torch.randn((PROBE_BH, PROBE_N, D), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    qp, kc = ab_attention.pack_q(q3), ab_attention.pack_k(k3)
+    probes = (("T2", "qk64", (q3, k3)), ("T3", "qk_packed", (qp, kc)), ("T6", "qk_d64", (q3, k3)),
+              ("T7", "qk_packed_rowsum", (qp, kc)))
+    for kernel, function, args in probes:
+        call = functools.partial(getattr(ab_attention, function), *args)
+        print(json.dumps(dict(kernel=kernel, function=function, shape=list(args[0].shape), **measure(call, iters),
+                              nvidia_smi=smi)), flush=True)
 
 
 def forward_digests() -> dict:
@@ -190,8 +212,31 @@ def forward_digests() -> dict:
     return {kernel: d.hexdigest() for kernel, d in digests.items()}
 
 
+def probe_digests() -> dict:
+    """{T id: sha256 of the probe's bf16 output} through the public
+    wrappers, q and k [24, n, 64] from numpy's generator seeded by n (T3
+    and T7 on their packed forms), n from PROBE_DIGEST_N."""
+    digests = {}
+    with torch.inference_mode():
+        for kernel, n in PROBE_DIGEST_N.items():
+            rng = np.random.default_rng(n)
+            q, k = (torch.from_numpy(rng.standard_normal((2 * H, n, D)).astype(np.float32)).cuda().to(torch.bfloat16)
+                    for _ in range(2))
+            if kernel == "T2":
+                out = ab_attention.qk64(q, k)
+            elif kernel == "T3":
+                out = ab_attention.qk_packed(ab_attention.pack_q(q), ab_attention.pack_k(k))
+            elif kernel == "T6":
+                out = ab_attention.qk_d64(q, k)
+            else:
+                out = ab_attention.qk_packed_rowsum(ab_attention.pack_q(q), ab_attention.pack_k(k))
+            digests[kernel] = hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    return digests
+
+
 def exp_digests(gen, iters: int, smi: str) -> None:
-    print(json.dumps(dict(forward_digests=forward_digests(), cases=FWD_DIGEST_CASES, nvidia_smi=smi)), flush=True)
+    print(json.dumps(dict(forward_digests=forward_digests(), cases=FWD_DIGEST_CASES, probe_digests=probe_digests(),
+                          probe_cases=PROBE_DIGEST_N, nvidia_smi=smi)), flush=True)
 
 
 def exp_backward(gen, iters: int, smi: str) -> None:
@@ -237,9 +282,19 @@ def exp_packing(gen, iters: int, smi: str) -> None:
                                   device_ms_readings=ms, nvidia_smi=smi)), flush=True)
 
 
+def experiments(arg: str) -> tuple:
+    """``--exp``'s value as the experiments it names, in EXPERIMENTS' order."""
+    names = set(arg.split(","))
+    unknown = names - set(EXPERIMENTS) - {"all"}
+    if unknown:
+        raise argparse.ArgumentTypeError(f"unknown experiments {sorted(unknown)}; choose from {EXPERIMENTS} or all")
+    return EXPERIMENTS if "all" in names else tuple(e for e in EXPERIMENTS if e in names)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--exp", choices=EXPERIMENTS + ("all",), default="all")
+    parser.add_argument("--exp", type=experiments, default="all",
+                        help=f"one of {EXPERIMENTS}, all, or a comma-separated list")
     parser.add_argument("--iters", type=int, default=50)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -253,7 +308,7 @@ def main(argv=None):
     with torch.inference_mode():
         for exp, run in (("times", exp_times), ("packing", exp_packing), ("backward", exp_backward),
                          ("ab", exp_ab), ("digests", exp_digests)):
-            if args.exp in (exp, "all"):
+            if exp in args.exp:
                 run(gen, args.iters, smi)
 
 
