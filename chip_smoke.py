@@ -77,8 +77,12 @@ Phases, each printing one JSON line:
                   way, and by device time; the packed row sums T7 also at
                   key counts that end inside a tile
                   (ab_dense.Sizes.ragged_probes);
-                  registers and spills of ab_dense_variants.cu (T4 and T11,
-                  whose bf16 instances run K1's tile loop) and of
+                  T5 and T12 in bf16 (K1's own instance of the tile loop)
+                  against K1 on the same views, every output bit, at N 1568,
+                  200 and 37, and T5 at B32 (ab_dense.k1_bits);
+                  registers and spills of ab_chain.cu (T5 and T12 in bf16
+                  on K1's instance), ab_dense_variants.cu (T4 and T11,
+                  whose bf16 instances run K1's tile loop) and
                   ab_qk_probe.cu (T3 and T7 in bf16 on its wgmma body). The
                   four q k^T probes' bound is that of the function (one pass
                   over k and a narrow product), their n x n product's stands
@@ -2023,13 +2027,16 @@ def phase_ab_kernels(smi: str) -> dict:
     and in bf16 at B8 H12 d64, then timed at the bf16 shape, twice 20 calls
     in turns with the plain version (5 calls) and the one PyTorch call that
     computes the same function (SDPA, or an einsum for the four probes),
-    and by device time (``kernel_times.device_ms``, 20 calls, twice).
+    and by device time (``kernel_times.device_ms``, 20 calls, twice); then
+    T5's and T12's bf16 bits against K1's (``ab_dense.k1_bits``).
     Returns the ``kernels`` line's numbers per T id."""
     device = torch.device("cuda")
+    bench = ab_dense.Bench(device, ab_dense.Sizes(), 0, 2, 20)
     with contextlib.redirect_stdout(io.StringIO()):
         small = {(r["function"], r.get("mode", "")): r for r in ab_dense.exp_kernels(
             ab_dense.Bench(device, ab_dense.SMALL_SIZES, 0, 1, 1, dtype=torch.float32))}
-        full = ab_dense.exp_kernels(ab_dense.Bench(device, ab_dense.Sizes(), 0, 2, 20))
+        full = ab_dense.exp_kernels(bench)
+    k1_bits = ab_dense.k1_bits(bench)  # raises unless T5's and T12's bf16 bits are K1's
     by_id = {}
     for row in full:
         tid, mode = row["kernel"], row.get("mode", "")
@@ -2050,9 +2057,9 @@ def phase_ab_kernels(smi: str) -> dict:
                 bound_by=row["bound_by"], library_ms=row["library_ms"])
     check(set(by_id) == set(AB_KERNELS), f"ab_kernels: ids checked {sorted(by_id)}")
     emit("ab_kernels", cases=full, fp32_shape=dataclasses.asdict(ab_dense.SMALL_SIZES),
-         bf16_shape=dataclasses.asdict(ab_dense.Sizes()),
+         bf16_shape=dataclasses.asdict(ab_dense.Sizes()), k1_bits=k1_bits,
          resources={source: kernel_build.kernel_resources(source)
-                    for source in ("ab_dense_variants.cu", "ab_qk_probe.cu")}, nvidia_smi=smi)
+                    for source in ("ab_chain.cu", "ab_dense_variants.cu", "ab_qk_probe.cu")}, nvidia_smi=smi)
     return by_id
 
 

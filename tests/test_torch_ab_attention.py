@@ -25,6 +25,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_flash_attention import _tile_walk
 from vtm_torch.ops import ab_attention as ab
 from vtm_torch.ops.flash_attention import _reference
 
@@ -472,6 +473,82 @@ def test_t12_n8_attention(dtype, n, h):
     assert_computes_k1(got, tq, tk, tv, None, 0.25, dtype)
 
 
+def _k1_walk(q, k, v, scale):
+    """T5's and T12's bf16 Hopper body, K1's instance of the tile loop, on
+    the CPU: q * scale in fp32 rounded to bf16 (``stage_q``), then K1's
+    ``_tile_walk`` with p rounded to bf16 before p v, the quotient cast to
+    bf16."""
+    qs = (q.float() * scale).to(torch.bfloat16).float()
+    out, _ = _tile_walk(qs, k.float(), v.float(), None, 1.0, p_dtype=torch.bfloat16)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,blk", [(37, 37), (200, 40)])
+def test_t5_tile_walk_matches_jax_kernel(n, blk):
+    """The redesigned T5's arithmetic (``_k1_walk``: 64-key tiles, the last
+    ending mid-tile) against the JAX tool's kernel (interpret mode, the
+    grid swapped) on the same bf16 inputs at d 64, within the file's bf16
+    tolerance. The block order changes no number; a fault in the CUDA
+    kernel shows only on the card (chip_smoke's ``ab_kernels``, which holds
+    its bits against K1's, and ``check_ab``)."""
+    tool = jax_tool("ab_b32")
+    (jq, jk, jv), (tq, tk, tv), _, _ = attention_inputs(17, n, "bfloat16", False, d=64)
+    got = _k1_walk(tq, tk, tv, 0.125)
+    assert_close(got, tool.grid_swapped(jq, jk, jv, 0.125, blk), "bfloat16")
+    assert_close(got, ab.grid_swapped(tq, tk, tv, 0.125).float().numpy(), "bfloat16")
+
+
+@pytest.mark.parametrize("n", [37, 200])
+def test_t12_tile_walk_matches_jax_kernel(n):
+    """The same for T12 against ``ab_block_attn.n8_attention``, which pads
+    N to a multiple of 8 and masks the pad keys by index; q, k, v are
+    split-heads views of one fused projection, as the card runs them."""
+    tool = jax_tool("ab_block_attn")
+    rng = np.random.default_rng(18)
+    fused = torch.from_numpy(normal(rng, 2, n, 3 * 4 * 64)).to(torch.bfloat16)
+    tq, tk, tv = (t.unflatten(-1, (4, 64)).transpose(1, 2) for t in fused.chunk(3, dim=-1))
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tq, tk, tv))
+    got = _k1_walk(tq, tk, tv, 0.125)
+    assert_close(got, tool.n8_attention(jq, jk, jv, 0.125), "bfloat16")
+    assert_close(got, ab.n8_attention(tq, tk, tv, 0.125).float().numpy(), "bfloat16")
+
+
+@pytest.mark.parametrize("swap", [True, False], ids=["T5", "T12"])
+@pytest.mark.parametrize("b,h,n", [(8, 12, 1568), (32, 12, 1568), (2, 3, 37), (1, 1, 1)])
+def test_chain_plan_covers_every_head_row_once(b, h, n, swap):
+    """``ab_attention.chain_plan``, the launch plan both bodies of
+    ``ab_chain.cu`` map: every (batch, head, row) written once, at most 64
+    rows a block, within the grid's y limit; swapped (T5) neighbouring
+    blocks in x hold different heads, unswapped (T12, K1) the same head's
+    next q tile."""
+    (grid_x, grid_y), block = ab.chain_plan(b, h, n, swap)
+    assert grid_x * grid_y == b * h * -(-n // ab.KEY_TILE) and grid_y <= ab._MAX_GRID_Y
+    seen = np.zeros((b, h, n), dtype=int)
+    for y in range(grid_y):
+        for x in range(grid_x):
+            batch, head, r0, rows = block(x, y)
+            assert 1 <= rows <= ab.KEY_TILE
+            seen[batch, head, r0:r0 + rows] += 1
+            if x:
+                same_head = block(x - 1, y)[:2] == (batch, head)
+                assert same_head != swap
+    np.testing.assert_array_equal(seen, 1)
+
+
+def test_t5_t12_launch_k1s_instance(monkeypatch):
+    """T5 and T12 pass ab_chain.cu the variant of K1's instance (T8's
+    ``full`` keeps the first body), T5 with the grid swapped, and a
+    token-major output buffer."""
+    calls = []
+    monkeypatch.setattr(ab, "_launch_chain", lambda *args: calls.append(args))
+    q = _meta((2, 3, 40, 64))
+    for name, swap in (("grid_swapped", True), ("n8_attention", False)):
+        ab._unbiased(name, q, q, q, 0.125, swap)
+    for (name, variant, *_, out, scale, swap), want in zip(calls, (("grid_swapped", True), ("n8_attention", False))):
+        assert (name, swap) == want and variant == ab._CHAIN_ATTENTION != ab._CHAIN_MODE_CODES["full"]
+        assert out.shape == q.shape and out.transpose(1, 2).is_contiguous() and scale == 0.125
+
+
 # ---- the wrappers' refusals and counters ---------------------------------------
 
 
@@ -518,13 +595,14 @@ def test_cpu_calls_launch_no_kernel():
 
 def test_sources_hold_kernels_of_their_own():
     """Three CUDA sources, each with a note on the TPU function it
-    replaces: ab_chain.cu one __global__ template, the first body on wmma;
-    ab_qk_probe.cu two, the first body on wmma and the Hopper template of
-    T3 and T7 on wgmma_tiles.cuh's products; ab_dense_variants.cu two, the
-    first body's fp32 template on FMA units and the bf16 template on the
-    shared wgmma tile loop, with no wmma left. None calls a library's
-    product or attention, or K1's entry point; the wrappers call no matrix
-    product either."""
+    replaces: ab_chain.cu two __global__ templates, the first body on wmma
+    and T5's and T12's Hopper kernel, K1's instance of the shared wgmma
+    tile loop under variant code 6; ab_qk_probe.cu two, the first body on
+    wmma and the Hopper template of T3 and T7 on wgmma_tiles.cuh's
+    products; ab_dense_variants.cu two, the first body's fp32 template on
+    FMA units and the bf16 template on the shared wgmma tile loop, with no
+    wmma left. None calls a library's product or attention, or K1's entry
+    point; the wrappers call no matrix product either."""
     import inspect
 
     from vtm_torch.ops import build
@@ -541,7 +619,11 @@ def test_sources_hold_kernels_of_their_own():
             assert text.count("__global__") == 2 and "wmma::mma_sync" in text and "ab_decomp.py" in text
             assert '#include "wgmma_tiles.cuh"' in text and "ab_qk_probe_wgmma(" in text and "wg::mma_ss(" in text
         else:
-            assert text.count("__global__") == 1 and "wmma" in text
+            assert text.count("__global__") == 2 and "wmma::mma_sync" in text
+            assert "ab_b32.py" in text and "ab_block_attn.py" in text
+            assert '#include "wgmma_attention.cuh"' in text and "ab_attention_wgmma(" in text
+            assert "wg::attend<false>(w, wg::AllPairs(), smem)" in text
+            assert f"kAttention = {ab._CHAIN_ATTENTION}" in text
         for foreign in ("cublas", "cudnn", "cutlass", "vtm_attention_fwd"):
             assert foreign not in text, (name, foreign)
     for fn in (ab._launch_chain, ab._launch_probe, ab._launch_dense, ab._flat_chain, ab._unbiased):
@@ -584,6 +666,18 @@ def test_card_cases_cover_every_function_and_mode(capsys):
     assert ab_dense.tolerance(torch.float32, True, 0.0) == ab_dense.LINEAR_TOL > ab_dense.FP32_TOL
     assert ab_dense.tolerance(torch.bfloat16, False, 0.02) == 0.04
     assert ab_dense.tolerance(torch.bfloat16, False, 0.0) == ab_dense.BF16_FLOOR
+
+
+def test_k1_bits_runs_on_the_card_only():
+    """``ab_dense.k1_bits`` holds T5's and T12's bf16 bits against K1's;
+    on the CPU the plain versions round otherwise, so it refuses. Its
+    ragged token counts end inside a key tile."""
+    from vtm_torch.tools import ab_dense
+
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="on the card"):
+            ab_dense.k1_bits(ab_dense.Bench(torch.device("cpu"), ab_dense.CPU_SIZES, 0, 1, 1, dtype=dtype))
+    assert all(n % ab.KEY_TILE for n in ab_dense.K1_BITS_RAGGED_N)
 
 
 def test_ragged_probes_end_inside_a_key_tile():

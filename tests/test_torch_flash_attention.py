@@ -63,12 +63,14 @@ def test_plain_lse_is_the_logsumexp_of_the_logits(n, with_bias):
     np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=1e-6 * max(1.0, np.abs(want).max()))
 
 
-def _tile_walk(q, k, v, bias, scale, tile=64):
+def _tile_walk(q, k, v, bias, scale, tile=64, p_dtype=None):
     """The Hopper body's arithmetic on the CPU in fp32: 64-key tiles, an
     online softmax in log2 units (the bias added, and the keys past N
     masked on the last, ragged, tile only, where the running max is taken),
     o / l at the end, and each row's natural-log log-sum-exp from the log2
-    running max m and denominator l, (m + log2 l) ln 2: what K2 reads."""
+    running max m and denominator l, (m + log2 l) ln 2: what K2 reads. With
+    ``p_dtype`` p is rounded to it before p v, as the bf16 kernel rounds
+    it; l sums the unrounded p."""
     n = q.shape[2]
     qs = q * scale
     m = torch.full(q.shape[:3], -1e30)
@@ -89,7 +91,7 @@ def _tile_walk(q, k, v, bias, scale, tile=64):
         corr = torch.exp2(m - m_new)
         p = torch.exp2(x - m_new[..., None])
         l = l * corr + p.sum(dim=-1)
-        o = o * corr[..., None] + p @ vt
+        o = o * corr[..., None] + (p if p_dtype is None else p.to(p_dtype).float()) @ vt
         m = m_new
     return o / l[..., None], (m + torch.log2(l)) * 0.6931471805599453
 

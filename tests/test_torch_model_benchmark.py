@@ -1,8 +1,14 @@
 """The port's benchmark entry point at a tiny size on the CPU."""
 
+import jax
+import numpy as np
 import pytest
 import torch
 
+from vtm.checkpoints.checkpoint import load_test_checkpoint as jax_load_test_checkpoint
+from vtm.config import get_cfg as jax_get_cfg
+from vtm.models import build_model as jax_build_model
+from vtm_torch.checkpoints.convert import state_dict_from_vtm_params
 from vtm_torch.config import get_cfg
 from vtm_torch.models import build_model
 from vtm_torch.tools import model_benchmark as mb
@@ -16,16 +22,20 @@ KEYS = {
 }
 
 
-def _tiny_cfg(*opts):
-    cfg = get_cfg()
-    cfg.merge_from_list([
+def _tiny_opts(*opts):
+    return [
         "MODEL.MODEL_NAME", "VideoMAE",
         "VIDEOMAE.MODEL", "vit_small_patch16_224",
         "DATA.TEST_CROP_SIZE", "32", "DATA.TRAIN_CROP_SIZE", "32", "DATA.NUM_FRAMES", "4",
         "MODEL.NUM_CLASSES", "7", "TEST.BATCH_SIZE", "2", "MODEL_BENCHMARK.ITERATIONS", "2",
         "TOME.ENABLE", "True", "TOME.R_VALUE", "2", "TOME.PROP_ATTN", "False",
         "TPU.COMPUTE_DTYPE", "float32", *opts,
-    ])
+    ]
+
+
+def _tiny_cfg(*opts):
+    cfg = get_cfg()
+    cfg.merge_from_list(_tiny_opts(*opts))
     return cfg
 
 
@@ -86,6 +96,61 @@ def test_saved_checkpoint_loads(tmp_path):
     for k, v in source.state_dict().items():
         assert torch.equal(bundle.module.state_dict()[k], v), k
     assert mb.model_benchmark(cfg, device="cpu")["batch_size"] == 2
+
+
+def foreign_checkpoint(path, cfg):
+    """A tiny VideoMAE saved as another run would leave it: a head of 5
+    classes (the model has 7), its keys under ``student.``, a prefix that
+    ``strip_prefixes`` keeps, in the reference's ``model_state``
+    container, every tensor drawn anew (so that none equals an init, zero
+    biases included). Returns its state dict."""
+    gen = torch.Generator().manual_seed(cfg.RNG_SEED)
+    source = {k: torch.randn(v.shape, generator=gen) for k, v in build_model(cfg, "cpu").module.state_dict().items()}
+    torch.save({"model_state": {f"student.{k}": v for k, v in source.items()}}, path)
+    return source
+
+
+CLEARED = ("TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN", "['student.']")
+
+
+def test_foreign_checkpoint_loads_as_vtm_loads_it(tmp_path):
+    """The file in both packages, the prefix cleared by
+    TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN: every backbone tensor the port
+    loads equals the file's and the JAX package's (through
+    ``state_dict_from_vtm_params``), and the head, whose shape differs,
+    keeps the port's own seeded init; without the pattern nothing matches
+    and the load raises, as the JAX converter does."""
+    path = tmp_path / "foreign.pyth"
+    source = foreign_checkpoint(path, _tiny_cfg("RNG_SEED", "5", "MODEL.NUM_CLASSES", "5"))
+    extra = ("RNG_SEED", "3", "TEST.CHECKPOINT_FILE_PATH", str(path), *CLEARED)
+    cfg = _tiny_cfg(*extra)
+    init = build_model(cfg, "cpu").module.state_dict()
+    got = mb.load_test_checkpoint(cfg, build_model(cfg, "cpu")).module.state_dict()
+
+    jcfg = jax_get_cfg()
+    jcfg.merge_from_list(_tiny_opts(*extra))
+    jbundle = jax_load_test_checkpoint(jcfg, jax_build_model(jcfg, rng=jax.random.key(0)))
+    want = state_dict_from_vtm_params(jax.tree_util.tree_map(np.asarray, jbundle.params))
+
+    heads = {k for k in got if k.startswith("head.")}
+    assert heads and sorted(got) == sorted(source) == sorted(want)
+    for k in got:
+        if k in heads:
+            assert got[k].shape != source[k].shape and torch.equal(got[k], init[k]), k
+        else:
+            assert torch.equal(got[k], source[k]) and not torch.equal(got[k], init[k]), k
+            np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), err_msg=k)
+    with pytest.raises(KeyError, match="CLEAR_NAME_PATTERN"):
+        mb.load_test_checkpoint(_tiny_cfg("TEST.CHECKPOINT_FILE_PATH", str(path)), build_model(cfg, "cpu"))
+
+
+@pytest.mark.parametrize("key", ["CHECKPOINT_INFLATE", "CHECKPOINT_IN_INIT"])
+def test_conv_weight_adaptation_raises_by_name(tmp_path, key):
+    path = tmp_path / "foreign.pyth"
+    foreign_checkpoint(path, _tiny_cfg())
+    cfg = _tiny_cfg("TEST.CHECKPOINT_FILE_PATH", str(path), f"TRAIN.{key}", "True")
+    with pytest.raises(NotImplementedError, match=key):
+        mb.load_test_checkpoint(cfg, build_model(cfg, "cpu"))
 
 
 def test_missing_checkpoint_raises(tmp_path):

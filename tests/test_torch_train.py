@@ -590,6 +590,70 @@ def test_train_entry_point_two_epochs_and_auto_resume(tmp_path, caplog, monkeypa
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=0, atol=1e-7, err_msg=n)
 
 
+def test_train_starts_from_a_foreign_checkpoint(tmp_path, caplog, monkeypatch):
+    """TRAIN.CHECKPOINT_FILE_PATH, as tools/train_net.py:473-481 takes it:
+    with no checkpoint in OUTPUT_DIR the file (a head of another class
+    count, keys under ``student.``, cleared by the name pattern) is loaded
+    through the test loader into the parameters the optimizer holds, and
+    TEST.CHECKPOINT_FILE_PATH is put back; the first step's loss equals
+    that of the same module loaded directly, on the same first batch. With
+    a checkpoint in OUTPUT_DIR the run resumes from it and does not read
+    the file."""
+    from test_torch_model_benchmark import CLEARED, foreign_checkpoint
+
+    import vtm_torch.tools.train_net as tn
+    from vtm_torch.tools.model_benchmark import load_test_checkpoint
+
+    caplog.set_level(logging.INFO)
+    path = tmp_path / "foreign.pyth"
+    source_cfg = tcfg.get_cfg()
+    source_cfg.merge_from_list(_train_opts(tmp_path / "source", "MODEL.NUM_CLASSES", "6", "RNG_SEED", "5"))
+    foreign_checkpoint(path, source_cfg)
+    cfg = tcfg.get_cfg()
+    cfg.merge_from_list(_train_opts(tmp_path / "run", "TRAIN.CHECKPOINT_FILE_PATH", str(path), *CLEARED,
+                                    "SOLVER.MAX_EPOCH", "1"))
+
+    losses, real = [], tn.make_train_step
+
+    def recording(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def run(*step_args):
+            out = step(*step_args)
+            losses.append(float(out[0]))
+            return out
+
+        return run
+
+    monkeypatch.setattr(tn, "make_train_step", recording)
+    train(cfg, device="cpu")
+    monkeypatch.setattr(tn, "make_train_step", real)
+    assert cfg.TEST.CHECKPOINT_FILE_PATH == ""
+    assert any(r.getMessage().startswith("Loaded torch checkpoint") for r in caplog.records)
+
+    trainer = tn.build_trainer(cfg, "cpu")
+    direct = cfg.clone()
+    direct.merge_from_list(["TEST.CHECKPOINT_FILE_PATH", str(path)])
+    load_test_checkpoint(direct, trainer.bundle)
+    np.random.seed(cfg.RNG_SEED)
+    loader = tdata.construct_loader(cfg, "train")
+    tdata.shuffle_dataset(loader, 0)
+    batch = next(iter(loader))
+    frames, labels = (torch.as_tensor(np.asarray(batch[key])) for key in ("frames", "label"))
+    loss, _, _ = trainer.train_step(frames, labels, tn._step_generator(torch.device("cpu"), cfg.RNG_SEED, 0, 0))
+    assert float(loss) == losses[0]
+
+    def not_read(*args):
+        raise AssertionError("the foreign checkpoint was read though the run resumed")
+
+    monkeypatch.setattr(tn, "load_test_checkpoint", not_read)
+    caplog.clear()
+    cfg.merge_from_list(["SOLVER.MAX_EPOCH", "2"])
+    train(cfg, device="cpu")
+    assert any("Auto-resumed" in r.getMessage() for r in caplog.records)
+    assert len(_stats(caplog, "train_epoch")) == 1
+
+
 def test_checkpoint_round_trip_gives_the_same_next_step(tmp_path):
     _, tc = _cfgs(_solver_opts("adamw"))
     video, labels = torch.from_numpy(_video(2, 7)), torch.from_numpy(_labels(7, 2, 8))

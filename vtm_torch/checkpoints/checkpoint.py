@@ -1,5 +1,8 @@
 """Training checkpoints: save, find the last, restore (port of
-``vtm/checkpoints/checkpoint.py:26-115``).
+``vtm/checkpoints/checkpoint.py:26-115``), and the two rules by which a
+foreign checkpoint is taken in (``clear_name_pattern_keys``,
+``merge_into_template``: copies of ``vtm/checkpoints/checkpoint.py:116-130,
+230-262`` over state dicts).
 
 One file per epoch, ``<OUTPUT_DIR>/checkpoints/epoch_<N>.pyth``, written
 with ``torch.save``: the module's state dict, the optimizer's state dict
@@ -14,7 +17,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -87,3 +90,43 @@ def load_checkpoint(
                 "checkpoint %s holds no optimizer state: resuming with a FRESH optimizer state", path
             )
     return int(blob["epoch"]), restored_opt
+
+
+def clear_name_pattern_keys(sd: Mapping[str, object], patterns) -> Dict[str, object]:
+    """Strip each pattern's first occurrence from the state dict's keys,
+    one pattern after another (``TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN``;
+    copy of ``vtm/checkpoints/checkpoint.py::clear_name_pattern_keys``)."""
+    sd = dict(sd)
+    for item in patterns or ():
+        renamed = {}
+        for k, v in sd.items():
+            if item in k:
+                k_re = k.replace(item, "", 1)
+                logger.info("checkpoint: renaming %s -> %s", k, k_re)
+                renamed[k_re] = v
+            else:
+                renamed[k] = v
+        sd = renamed
+    return sd
+
+
+def merge_into_template(template: Mapping[str, torch.Tensor], converted: Mapping[str, torch.Tensor]):
+    """Overlay converted tensors on a module's own state dict, as
+    ``vtm/checkpoints/checkpoint.py::merge_into_template`` overlays them on
+    its parameter tree: a key present in both with the same shape takes the
+    checkpoint's tensor; a missing key or another shape (a classifier head
+    of another class count) keeps the template's, with a warning naming it.
+    Keys of ``converted`` that the template lacks are dropped. Returns
+    (state dict, tensors loaded, tensors kept)."""
+    out, loaded, kept = {}, 0, 0
+    for name, init in template.items():
+        cand = converted.get(name)
+        if cand is not None and tuple(cand.shape) == tuple(init.shape):
+            out[name] = cand
+            loaded += 1
+        else:
+            logger.warning("checkpoint: keeping random init for %s (%s)", name,
+                           "shape mismatch" if cand is not None else "missing")
+            out[name] = init
+            kept += 1
+    return out, loaded, kept

@@ -22,9 +22,11 @@ None is on a model's path; ``vtm_torch.tools.ab_dense`` runs them.
 
 Kernels: ``csrc/ab_qk_probe.cu`` (T2, T3, T6, T7; T3 and T7 in bf16 on a
 Hopper body of their own, wgmma products from shared memory over
-``csrc/wgmma_tiles.cuh``), ``csrc/ab_chain.cu`` (T1, T5, T8, T9, T10, T12),
-``csrc/ab_dense_variants.cu`` (T4, T11; in bf16 on K1's Hopper tile loop,
-``csrc/wgmma_attention.cuh``, under a softmax policy each): CUDA C++ for
+``csrc/wgmma_tiles.cuh``), ``csrc/ab_chain.cu`` (T1, T5, T8, T9, T10, T12;
+T5 and T12 in bf16 on K1's own instance of the Hopper tile loop,
+``csrc/wgmma_attention.cuh``, so with K1's output bits),
+``csrc/ab_dense_variants.cu`` (T4, T11; in bf16 on the same tile loop
+under a softmax policy each): CUDA C++ for
 Hopper at head dim 64, built and bound by ``vtm_torch/ops/build.py``.
 A tensor on the CPU goes to the plain PyTorch version (``*_plain``); a
 CUDA tensor goes to the kernel, or the call raises: there is no fallback.
@@ -65,8 +67,10 @@ AB_LAUNCHES = {name: 0 for name in (
     "chunked_attention", "qk64", "qk_packed", "packed_attention", "grid_swapped", "qk_d64",
     "qk_packed_rowsum", "chain", "chain_bias", "chain_bias_cost", "v2_attention", "n8_attention")}
 
-# variant codes of csrc/ab_chain.cu
-_CHAIN_FULL, _CHAIN_NOSMAX, _CHAIN_LINEAR, _CHAIN_BIAS, _CHAIN_BIAS_STAGED, _CHAIN_BIAS_HINTED = range(6)
+# variant codes of csrc/ab_chain.cu (_CHAIN_ATTENTION: T5 and T12, in bf16
+# on the Hopper body, in fp32 the first body's full)
+(_CHAIN_FULL, _CHAIN_NOSMAX, _CHAIN_LINEAR, _CHAIN_BIAS, _CHAIN_BIAS_STAGED, _CHAIN_BIAS_HINTED,
+ _CHAIN_ATTENTION) = range(7)
 _CHAIN_MODE_CODES = {"full": _CHAIN_FULL, "nosmax": _CHAIN_NOSMAX, "linear": _CHAIN_LINEAR}
 # variant codes of csrc/ab_dense_variants.cu
 _DENSE_CODES = {"v2_sum": 0, "v2_fold": 1, "v2_nomax": 2, "packed": 3}
@@ -114,6 +118,23 @@ def packed_plan(b: int, h: int, n: int, hopper: bool):
         return [(batch, head, r0, min(queries, n - r0), head * HEAD_DIM) for head in (2 * g, 2 * g + 1)]
 
     return (-(-n // queries), b * pairs), block
+
+
+def chain_plan(b: int, h: int, n: int, swap_grid: bool):
+    """The launch plan of ``csrc/ab_chain.cu``, as both its bodies map it:
+    the grid (query tiles, b*h), or with ``swap_grid`` (T5) (b*h, query
+    tiles), and ``block(x, y)``, what block (x, y) writes: rows [r0, r0 +
+    rows) of head ``head`` of batch ``batch``, 64 rows a block. Returns
+    (grid, block), block giving (batch, head, r0, rows)."""
+    tiles = -(-n // KEY_TILE)
+
+    def block(x: int, y: int) -> tuple:
+        bh, tile = (x, y) if swap_grid else (y, x)
+        batch, head = divmod(bh, h)
+        r0 = tile * KEY_TILE
+        return batch, head, r0, min(KEY_TILE, n - r0)
+
+    return ((b * h, tiles) if swap_grid else (tiles, b * h)), block
 
 
 def split_bias(key_bias: torch.Tensor, dtype: torch.dtype):
@@ -360,8 +381,7 @@ def _launch_chain(name, variant, q, k, v, bias, bias_batch_stride, out, sm_scale
     b, h, n, _ = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    tiles = -(-n // KEY_TILE)
-    if n < 1 or b * h < 1 or (tiles if swap_grid else b * h) > _MAX_GRID_Y:
+    if n < 1 or b * h < 1 or chain_plan(b, h, n, swap_grid)[0][1] > _MAX_GRID_Y:
         raise ValueError(f"unsupported B*H={b * h}, N={n}")
     strides = _strides(q, k, v, out)
     with torch.cuda.device(q.device):
@@ -501,14 +521,18 @@ def packed_attention(q, k, v, key_bias, sm_scale):
 
 
 def _unbiased(name, q, k, v, sm_scale, swap_grid):
+    """T5 and T12: in bf16 K1's instance of the Hopper tile loop, so K1's
+    output bits on the same operands."""
     b, h, n, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    return _launch_chain(name, _CHAIN_FULL, q, k, v, None, 0, out, sm_scale, swap_grid)
+    return _launch_chain(name, _CHAIN_ATTENTION, q, k, v, None, 0, out, sm_scale, swap_grid)
 
 
 def grid_swapped(q, k, v, sm_scale):
     """T5. Unbiased attention over [B, H, N, d] with the block order
-    swapped: b*h varies fastest, so neighbouring blocks share no k or v."""
+    swapped (``chain_plan``): b*h varies fastest, so neighbouring blocks
+    share no k or v. Returns [B, H, N, d] as a view of a token-major
+    buffer; in bf16 K1's output bits."""
     if not q.is_cuda:
         return grid_swapped_plain(q, k, v, sm_scale)
     return _unbiased("grid_swapped", q, k, v, sm_scale, True)
@@ -591,7 +615,8 @@ def n8_attention(q, k, v, sm_scale):
     """T12. Unbiased attention over [B, H, N, d], any N: q scaled inside
     the kernel, keys past N masked by their index. Takes the split-heads
     views of a fused qkv projection; returns [B, H, N, d] as a view of a
-    token-major buffer, so merging the heads is free."""
+    token-major buffer, so merging the heads is free. In bf16 K1's body and
+    block order, and K1's output bits."""
     if not q.is_cuda:
         return n8_attention_plain(q, k, v, sm_scale)
     return _unbiased("n8_attention", q, k, v, sm_scale, False)

@@ -22,12 +22,21 @@
 //
 // What bounds it on the H100: as K1, the tensor cores (4 B H N^2 d
 // operations against 4 tensors of B H N d: about 800 FLOP per byte at
-// N 1600). What it measures is how far each pass moves this body from
-// that bound: the body is K1's (csrc/flash_attention_fwd.cu): one block
-// of 4 warps per (b*h, 64-row q tile), 64-key tiles of k and v staged in
-// shared memory, bf16 products on nvcuda::wmma with fp32 accumulation,
-// fp32 products on FMA units, logits, probabilities and the accumulator
-// in shared memory.
+// N 1600). Two bodies:
+//   * Hopper body (T5 and T12 in bf16): K1's own forward instance,
+//     vtm::wg::attend<false, AllPairs, Softmax> of wgmma_attention.cuh
+//     (flash_attention_fwd.cu::attention_fwd_wgmma, unbiased, no lse), on a
+//     walk built from the four strided views: one warpgroup per (b*h,
+//     64-row q tile), k and v through a two-stage cp.async ring, wgmma
+//     products with the logits and probabilities in registers. The same
+//     instance on the same operands, so the same output bits as K1. What
+//     T5 and T12 now measure is the block order and the views, not a body.
+//   * first body (fp32 T5 and T12; T1, T8, T9, T10 in both dtypes): the
+//     body K1 keeps for fp32 and other head dims (flash_attention_fwd.cu::
+//     attention_fwd_kernel): one block of 4 warps per (b*h, 64-row q
+//     tile), 64-key tiles of k and v staged in shared memory, bf16 products
+//     on nvcuda::wmma with fp32 accumulation, fp32 products on FMA units,
+//     logits, probabilities and the accumulator in shared memory.
 //
 // Why each variant exists here, where the TPU's reason does not carry:
 //   * The TPU chunk is 800 keys; here the chunk is the 64-key tile, the
@@ -46,9 +55,12 @@
 //   * T5: blockIdx.x varies fastest. Normally x is the q tile, so blocks
 //     in flight together share one head's k and v; swapped, x is b*h and
 //     neighbouring blocks share nothing (y, the q tile, is capped at
-//     65,535).
+//     65,535). At B8 H12 N 1568 every head's k and v (38.5 MB) fit the
+//     50 MB L2; at B32 (154 MB) they do not.
 //   * T12 takes the strided split-heads views of a fused qkv projection
 //     and writes token-major, so the glue around it is views.
+//   shared memory: Hopper body 50,176 B (4 blocks an SM), first body bf16
+//   71,936 B, fp32 104,704 B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +71,7 @@
 #include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -73,6 +86,7 @@ constexpr int kBlockK = vtm::kTileRows; // keys per tile: the chunk of the recur
 constexpr int kThreads = vtm::kTileThreads;
 
 enum Mode { kFull = 0, kNoSoftmax = 1, kLinear = 2 };
+enum Variant { kAttention = 6 };  // T5, T12: full, unbiased, scaled; bf16 on the Hopper body
 enum BiasRead { kNoBias = 0, kBiasPerElement = 1, kBiasStaged = 2 };
 
 // Element strides (batch, head, row) of q, k, v and out; the last dim is
@@ -104,6 +118,8 @@ struct Layout {
                     o_bytes % 128 == 0,
                 "shared regions must stay 128-byte aligned");
 };
+
+// ========================== first body ===================================
 
 template <typename T, int kMode, int kBias, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -254,6 +270,47 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// ======================= Hopper body (bf16, d = 64) =======================
+
+namespace wg = vtm::wg;
+using bf16 = __nv_bfloat16;
+
+// T5 and T12: one warpgroup over 64 query rows of one (b, h), K1's
+// forward instance. The launch bounds are K1's too, so that ptxas sees the
+// same kernel body (128 registers, 4 blocks an SM). swap_grid: blockIdx.x
+// is b*h and y the q tile (T5); otherwise x is the q tile (T12, K1).
+__global__ void __launch_bounds__(wg::kThreads)
+    ab_attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out, int num_heads, int n,
+                       float scale, int swap_grid, Strides st) {
+  extern __shared__ unsigned char smem[];
+  const int bh = swap_grid ? blockIdx.x : blockIdx.y;
+  const int tile = swap_grid ? blockIdx.y : blockIdx.x;
+  const int b = bh / num_heads;
+  const int h = bh % num_heads;
+  wg::Walk w;
+  w.q = q + b * st.q[0] + h * st.q[1];
+  w.k = k + b * st.k[0] + h * st.k[1];
+  w.v = v + b * st.v[0] + h * st.v[1];
+  w.q_stride = st.q[2];
+  w.k_stride = st.k[2];
+  w.v_stride = st.v[2];
+  w.q_frame_stride = w.k_frame_stride = w.v_frame_stride = 0;
+  w.bias = nullptr;
+  w.bias_hi = w.bias_lo = nullptr;
+  w.out = out + b * st.o[0] + h * st.o[1];
+  w.out_stride = st.o[2];
+  w.out_frame_stride = 0;
+  w.lse = nullptr;
+  w.lse_frame_stride = 0;
+  w.row0 = tile * wg::kRows;
+  w.rows = n;
+  w.frames = 1;
+  w.frame_len = n;
+  w.scale = scale;
+  wg::attend<false>(w, wg::AllPairs(), smem);
+}
+
 struct Args {
   const void *q, *k, *v, *bias;
   void* out;
@@ -287,9 +344,26 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// The grid of both bodies: (q tiles, b*h), or (b*h, q tiles) swapped; the
+// Python side's plan (ops/ab_attention.py::chain_plan).
+cudaError_t launch_wgmma(const Args& a) {
+  constexpr int kBytes = wg::WalkSmem::kLaunchBytes;
+  static bool done[vtm::kMaxDevices] = {};
+  cudaError_t err = vtm::allow_smem_once(ab_attention_wgmma, kBytes, done);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.n + wg::kRows - 1) / wg::kRows;
+  const int bh = a.batch * a.num_heads;
+  const dim3 grid = a.swap_grid ? dim3(bh, tiles) : dim3(tiles, bh);
+  ab_attention_wgmma<<<grid, wg::kThreads, kBytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<bf16*>(a.out), a.num_heads, a.n, a.scale, a.swap_grid, a.st);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch_variant(int variant, const Args& a) {
-  if ((variant >= 3) != (a.bias != nullptr)) return cudaErrorInvalidValue;
+  const bool biased = variant >= 3 && variant <= 5;
+  if (biased != (a.bias != nullptr)) return cudaErrorInvalidValue;
   switch (variant) {
     case 0: return launch<T, kFull, kNoBias, 1>(a);
     case 1: return launch<T, kNoSoftmax, kNoBias, 1>(a);
@@ -297,6 +371,12 @@ cudaError_t dispatch_variant(int variant, const Args& a) {
     case 3: return launch<T, kFull, kBiasPerElement, 1>(a);
     case 4: return launch<T, kFull, kBiasStaged, 1>(a);
     case 5: return launch<T, kFull, kBiasPerElement, 3>(a);
+    case kAttention:
+      if constexpr (std::is_same<T, bf16>::value) {
+        return launch_wgmma(a);
+      } else {
+        return launch<T, kFull, kNoBias, 1>(a);
+      }
     default: return cudaErrorInvalidValue;
   }
 }
@@ -307,10 +387,11 @@ cudaError_t dispatch_variant(int variant, const Args& a) {
 //   dtype: 0 = bf16, 1 = fp32 (q, k, v and out share it); head dim 64
 //   variant: 0 full, 1 nosmax, 2 linear (all unbiased); 3 full with the
 //     bias read per element, 4 with the bias staged per key tile, 5 as 3
-//     with the occupancy and carve-out hints
+//     with the occupancy and carve-out hints; 6 full, unbiased (T5, T12:
+//     in bf16 the Hopper body, in fp32 the first body's full)
 //   key_bias: fp32, row b at key_bias + b * bias_batch_stride (0: one
 //     row shared by every batch); null for variants 0-2
-//   swap_grid: 0 = (q tile, b*h) with the q tile fastest, 1 = swapped
+//   swap_grid: 0 = (q tile, b*h) with the q tile fastest, 1 = swapped (both bodies)
 //   strides: 12 element strides, (batch, head, row) of q, k, v, out
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int vtm_ab_chain(int dtype, int variant, const void* q, const void* k, const void* v,

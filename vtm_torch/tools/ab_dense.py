@@ -102,6 +102,9 @@ class Sizes:
     ragged_probes: tuple = (("T7", 37), ("T7", 1568))
 
 
+# ``k1_bits``: token counts whose last key tile ends early
+K1_BITS_RAGGED_N = (200, 37)
+
 CPU_SIZES = Sizes(b8=1, b32=2, h=2, n_pad=64, packed_ns=(40,), v2_ns=(40,), block_ns=(40,), alone_ns=(40,),
                   matmul_m=64)
 # for ``exp_kernels`` in fp32: a ragged token count, and a multiple of 64 for T2 / T3
@@ -583,6 +586,34 @@ def exp_kernels(bench: Bench) -> List[dict]:
     rows.append(kernel_row("grid_swapped", "T5", ab.grid_swapped, ab.grid_swapped_plain, (q, k, v, scale), **fields))
     rows.append(kernel_row("n8_attention", "T12", ab.n8_attention, ab.n8_attention_plain, (q, k, v, scale), **fields))
     return bench.run("kernels", sorted(rows, key=lambda r: int(r.kernel[1:])), time_plain=True, time_device=True)
+
+
+def k1_bits(bench: Bench) -> List[dict]:
+    """T5 and T12 in bf16 run K1's instance of the Hopper tile loop, so on
+    the same operands their outputs equal K1's (``tome_flash_attention``,
+    unbiased, no lse) bit for bit. Each case takes the split-heads views of
+    a fused [B, N, 3*H*64] projection: both at B8 and the first of
+    ``packed_ns`` tokens and at ``K1_BITS_RAGGED_N``, T5 also at B32.
+    Raises AssertionError on the first bit that differs; returns a row per
+    case. On the card only: on the CPU the plain versions round otherwise."""
+    s = bench.sizes
+    if bench.device.type != "cuda" or bench.dtype != torch.bfloat16:
+        raise ValueError("k1_bits compares the bf16 kernels on the card")
+    n0 = s.packed_ns[0]
+    cases = [(fn, s.b8, n) for n in (n0, *K1_BITS_RAGGED_N) for fn in ("grid_swapped", "n8_attention")]
+    cases.append(("grid_swapped", s.b32, n0))
+    scale, rows = D ** -0.5, []
+    with torch.inference_mode():
+        for function, b, n in cases:
+            q, k, v = (split_heads(t, s.h) for t in bench.randn(b, n, 3 * s.h * D).chunk(3, dim=-1))
+            got = getattr(ab, function)(q, k, v, scale)
+            want = tome_flash_attention(q, k, v, None, scale)
+            differ = int((got.contiguous().view(torch.int16) != want.contiguous().view(torch.int16)).sum())
+            row = dict(function=function, batch=b, n=n, elements=want.numel(), bits_differ=differ)
+            if differ:
+                raise AssertionError(f"{function} does not give K1's bits: {row}")
+            rows.append(row)
+    return rows
 
 
 RUNNERS = {"bisect": exp_bisect, "mxu_pack": exp_mxu_pack, "b32": exp_b32, "decomp": exp_decomp,

@@ -16,7 +16,10 @@
      T7 also runs at ``Sizes.ragged_probes``, keys that end inside a
      tile), there timed beside the
      plain version and the library call (2 x 10 calls in turns), and by
-     device time (``kernel_times.device_ms``).
+     device time (``kernel_times.device_ms``);
+  3. runs ``ab_dense.k1_bits``: T5 and T12 in bf16 (K1's instance of the
+     Hopper tile loop) against K1 on the same views, bit for bit, at N
+     1568 and ragged N, and T5 at B32.
 Prints one JSON line per step and per row. Needs a CUDA device and nvcc.
 """
 
@@ -45,7 +48,10 @@ def main():
         print(json.dumps(dict(step="resources", source=source, kernels=kernel_resources(source))), flush=True)
     device = torch.device("cuda")
     ab_dense.exp_kernels(ab_dense.Bench(device, ab_dense.SMALL_SIZES, 0, 1, 1, dtype=torch.float32))
-    ab_dense.exp_kernels(ab_dense.Bench(device, ab_dense.Sizes(), 0, 2, 10))
+    bench = ab_dense.Bench(device, ab_dense.Sizes(), 0, 2, 10)
+    ab_dense.exp_kernels(bench)
+    for row in ab_dense.k1_bits(bench):
+        print(json.dumps(dict(step="k1_bits", **row)), flush=True)
 
 
 if __name__ == "__main__":

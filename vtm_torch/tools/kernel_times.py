@@ -28,15 +28,20 @@ and lse): K2 (``tome_flash_attention_backward``), K4
 (``tome_blockdiag_attention_backward``) at the same shapes as their
 forwards, no dbias, a token-major do. ``--exp ab`` times the A/B kernels
 T4 (``ab_attention.packed_attention``) and T11 (``v2_attention``, all three
-variants), unbiased and biased, beside K1, at B8 H12 N 1568 d64 bf16 on the
-same fused views, then the four q k^T probes T2 (``qk64``), T3
-(``qk_packed``), T6 (``qk_d64``) and T7 (``qk_packed_rowsum``) at the A/B
-tools' probe shape, [96, 1600, 64] bf16 and its packed form qp [48, 3200,
-128], kc [48, 1600, 128], both clocks. ``--exp digests`` prints the sha256
-of the forwards' output bits (``forward_digests``: K1, K3, K5a at
-``FWD_DIGEST_CASES``, B2 H12 d64 bf16, inputs from numpy's generator) and
-of the probes' (``probe_digests``: T2, T3, T6, T7 in bf16 at
-``PROBE_DIGEST_N``), which two trees on one card must share when their
+variants), unbiased and biased, and T5 (``grid_swapped``) and T12
+(``n8_attention``), unbiased, beside K1, at B8 H12 N 1568 d64 bf16 on the
+same fused views; K1, T5 and T12 again at ``AB_BATCHES`` (B12 to B32,
+where the heads' k and v outgrow L2); then the first body's
+chains T1 (per-batch bias), T8 (every mode), T9 (``1d``) and T10, and the
+four q k^T probes T2 (``qk64``), T3 (``qk_packed``), T6 (``qk_d64``) and T7
+(``qk_packed_rowsum``), at the A/B tools' shape, [96, 1600, 64] bf16 (the
+packed forms qp [48, 3200, 128], kc [48, 1600, 128]), both clocks.
+``--exp digests`` prints the sha256 of the forwards' output bits
+(``forward_digests``: K1, K3, K5a at ``FWD_DIGEST_CASES``, B2 H12 d64 bf16,
+inputs from numpy's generator), of the probes' (``probe_digests``: T2, T3,
+T6, T7 in bf16 at ``PROBE_DIGEST_N``) and of ``ab_chain.cu``'s
+(``chain_digests``: T1, T5, T8, T9, T10, T12, every mode, bf16 and fp32,
+at ``CHAIN_DIGEST_N``), which two trees on one card must share when their
 arithmetic is the same.
 Needs a CUDA device.
 """
@@ -86,6 +91,9 @@ K5B_CASES = ((197, False, False), (179, True, True), (107, True, True), (35, Tru
              (18, True, True), (10, True, True))
 # the A/B kernels' token count (ab_dense's first of packed_ns and v2_ns)
 AB_N = 1568
+# K1, T5 and T12 also at these batches: every head's k and v is 4.8 MB a
+# clip at N 1568, so the 50 MB L2 holds them up to B10 (ab_b32.py: B32)
+AB_BATCHES = (12, 16, 24, 32)
 # (kernel, N or s, biased, exclude_first_row): K1 VideoMAE's layer 0 and a
 # biased ragged N; K3 Motionformer's layer 0 and a merged layer; K5a
 # TimeSformer's s 197, 107 and 10 (packed frames)
@@ -97,6 +105,8 @@ PROBE_BH, PROBE_N = B * H, 1600
 # the probes' digests: token counts of a [24, n, 64] q and k, one a
 # multiple of 64 (T2, T3 need one), one not (T6, T7 take it)
 PROBE_DIGEST_N = {"T2": 320, "T3": 320, "T6": 200, "T7": 200}
+# ab_chain.cu's digests: B2 H12 and a token count whose last key tile ends early
+CHAIN_DIGEST_N = 200
 EXPERIMENTS = ("times", "packing", "backward", "ab", "digests")
 
 
@@ -176,10 +186,30 @@ def exp_ab(gen, iters: int, smi: str) -> None:
                  ("T4", "packed", lambda: ab_attention.packed_attention(q, k, v, bias, 0.125))]
         calls += [("T11", variant, lambda variant=variant: ab_attention.v2_attention(q, k, v, bias, 0.125, variant))
                   for variant in ab_attention.V2_VARIANTS]
+        if not biased:
+            calls += [("T5", "", lambda: ab_attention.grid_swapped(q, k, v, 0.125)),
+                      ("T12", "", lambda: ab_attention.n8_attention(q, k, v, 0.125))]
         for kernel, mode, call in calls:
             print(json.dumps(dict(kernel=kernel, mode=mode, n=AB_N, biased=biased, **measure(call, iters),
                                   nvidia_smi=smi)), flush=True)
-    q3, k3 = (torch.randn((PROBE_BH, PROBE_N, D), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    for batch in AB_BATCHES:
+        q, k, v = fused_views(gen, AB_N, batch)
+        for kernel, call in (("K1", lambda: tome_flash_attention(q, k, v, None, 0.125)),
+                             ("T5", lambda: ab_attention.grid_swapped(q, k, v, 0.125)),
+                             ("T12", lambda: ab_attention.n8_attention(q, k, v, 0.125))):
+            print(json.dumps(dict(kernel=kernel, mode="", batch=batch, n=AB_N, biased=False, **measure(call, iters),
+                                  nvidia_smi=smi)), flush=True)
+    q3, k3, v3 = (torch.randn((PROBE_BH, PROBE_N, D), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(3))
+    bias = torch.log(torch.rand((B, 1, PROBE_N), generator=gen, device="cuda") * 11 + 1)
+    chains = [("T1", "per-batch bias", lambda: ab_attention.chunked_attention(q3, k3, v3, bias, False, H)),
+              ("T9", "1d", lambda: ab_attention.chain_bias(q3, k3, v3, bias[:1], "1d")),
+              ("T10", "", lambda: ab_attention.chain_bias_cost(q3, k3, v3, bias[:1]))]
+    chains += [("T8", mode, functools.partial(ab_attention.chain, q3, k3, v3, mode))
+               for mode in ab_attention.CHAIN_MODES]
+    for kernel, mode, call in chains:
+        print(json.dumps(dict(kernel=kernel, mode=mode, shape=list(q3.shape), **measure(call, iters),
+                              nvidia_smi=smi)), flush=True)
     qp, kc = ab_attention.pack_q(q3), ab_attention.pack_k(k3)
     probes = (("T2", "qk64", (q3, k3)), ("T3", "qk_packed", (qp, kc)), ("T6", "qk_d64", (q3, k3)),
               ("T7", "qk_packed_rowsum", (qp, kc)))
@@ -234,9 +264,46 @@ def probe_digests() -> dict:
     return digests
 
 
+def chain_digests() -> dict:
+    """{"T<i> <mode> <dtype>": sha256 of the output} of ab_chain.cu's six
+    functions through the public wrappers, every mode, in bf16 and fp32:
+    T1, T8, T9, T10 on [24, n, 64] q, k, v with the tools' fp32 key biases,
+    T5 and T12 on split-heads views of a fused [2, n, 3*768] projection,
+    inputs from numpy's generator seeded by n = CHAIN_DIGEST_N."""
+    ab, n = ab_attention, CHAIN_DIGEST_N
+    digests = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            rng = np.random.default_rng(n)
+
+            def randn(*shape):
+                return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().to(dtype)
+
+            def log_sizes(*shape):
+                return torch.from_numpy(np.log(rng.uniform(1, 12, shape)).astype(np.float32)).cuda()
+
+            q3, k3, v3 = (randn(2 * H, n, D) for _ in range(3))
+            q, k, v = (split_heads(t, H) for t in randn(2, n, 3 * H * D).chunk(3, dim=-1))
+            per_batch, shared = log_sizes(2, 1, n), log_sizes(1, 1, n)
+            calls = {"T1 per-batch bias": lambda: ab.chunked_attention(q3, k3, v3, per_batch, False, H),
+                     "T1 shared bias": lambda: ab.chunked_attention(q3, k3, v3, shared, True, H),
+                     "T5": lambda: ab.grid_swapped(q, k, v, 0.125),
+                     "T10": lambda: ab.chain_bias_cost(q3, k3, v3, shared),
+                     "T12": lambda: ab.n8_attention(q, k, v, 0.125)}
+            calls.update({f"T8 {mode}": functools.partial(ab.chain, q3, k3, v3, mode) for mode in ab.CHAIN_MODES})
+            calls.update({f"T9 {mode}": functools.partial(ab.chain_bias, q3, k3, v3, shared, mode)
+                          for mode in ab.BIAS_MODES})
+            tag = str(dtype).split(".")[-1]
+            for name, call in calls.items():
+                out = call().contiguous()
+                digests[f"{name} {tag}"] = hashlib.sha256(out.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    return digests
+
+
 def exp_digests(gen, iters: int, smi: str) -> None:
     print(json.dumps(dict(forward_digests=forward_digests(), cases=FWD_DIGEST_CASES, probe_digests=probe_digests(),
-                          probe_cases=PROBE_DIGEST_N, nvidia_smi=smi)), flush=True)
+                          probe_cases=PROBE_DIGEST_N, chain_digests=chain_digests(), chain_n=CHAIN_DIGEST_N,
+                          nvidia_smi=smi)), flush=True)
 
 
 def exp_backward(gen, iters: int, smi: str) -> None:

@@ -8,7 +8,11 @@ meters; auto-resume from the last checkpoint of ``OUTPUT_DIR``; then the
 epoch loop: learning rate set per iteration, the step (forward, loss,
 backward through the attention kernels and the merge, optimizer update),
 logging, an eval epoch every ``TRAIN.EVAL_PERIOD`` and a checkpoint every
-``TRAIN.CHECKPOINT_PERIOD``. Returns the trained module.
+``TRAIN.CHECKPOINT_PERIOD``. Returns the trained module. Without a
+checkpoint to resume from, ``TRAIN.CHECKPOINT_FILE_PATH`` names a torch
+checkpoint to start from, loaded as ``TEST.CHECKPOINT_FILE_PATH`` is
+(``model_benchmark.load_test_checkpoint``: partial, the name patterns
+cleared), as in the JAX package.
 
 Ported: the supervised transformer path (VideoMAE, Motionformer, TimeSformer
 and ViViT; single head and the EPIC-KITCHENS verb/noun heads; mixup). A Motionformer built
@@ -37,8 +41,9 @@ from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
 from vtm_torch.data import construct_loader, shuffle_dataset
 from vtm_torch.eval.meters import EPICTrainMeter, EPICValMeter, TrainMeter, ValMeter
 from vtm_torch.eval.metrics import multitask_topk_accuracies, topk_accuracies, topk_errors
-from vtm_torch.models import build_model
+from vtm_torch.models import ModelBundle, build_model
 from vtm_torch.train.mixup import MixUp
+from vtm_torch.tools.model_benchmark import load_test_checkpoint
 from vtm_torch.train.optimizer import construct_optimizer, set_lr
 from vtm_torch.train.train_step import make_eval_step, make_train_step
 from vtm_torch.utils.logging import get_logger, setup_logging
@@ -94,7 +99,6 @@ def _unsupported(cfg) -> None:
         (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging"),
         (cfg.DATA.LOADER_CHUNK_SIZE > 0, "DATA.LOADER_CHUNK_SIZE: chunked-csv rotation"),
         (cfg.DATA.MULTI_LABEL, "DATA.MULTI_LABEL: multi-label training"),
-        (cfg.TRAIN.CHECKPOINT_FILE_PATH, "TRAIN.CHECKPOINT_FILE_PATH: starting from a foreign checkpoint"),
     ):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -166,6 +170,7 @@ class Trainer:
     eval_step: Callable
     multi_head: bool
     device: torch.device
+    bundle: ModelBundle  # the built model; its name picks a foreign checkpoint's converter
 
 
 def build_trainer(cfg, device: Optional[torch.device | str] = None) -> Trainer:
@@ -177,14 +182,15 @@ def build_trainer(cfg, device: Optional[torch.device | str] = None) -> Trainer:
         device = "cuda"
     device = torch.device(device)
     _unsupported(cfg)
-    module = build_model(cfg, device, fp32_params=True).module
+    bundle = build_model(cfg, device, fp32_params=True)
+    module = bundle.module
     multi_head = module.config.multi_head
     optimizer, lr_at = construct_optimizer(cfg, module, num_layers=module.config.depth)
     train_step = make_train_step(
         module, optimizer, cfg.MODEL.LOSS_FUNC, multi_head,
         accumulate_steps=cfg.SOLVER.ACCUMULATE_STEPS,
     )
-    return Trainer(module, optimizer, lr_at, train_step, make_eval_step(module), multi_head, device)
+    return Trainer(module, optimizer, lr_at, train_step, make_eval_step(module), multi_head, device, bundle)
 
 
 def train(cfg, device: Optional[torch.device | str] = None):
@@ -202,6 +208,17 @@ def train(cfg, device: Optional[torch.device | str] = None):
         start_epoch, _ = cu.load_checkpoint(last, module, optimizer)
         start_epoch += 1
         logger.info("Auto-resumed from %s (epoch %d)", last, start_epoch)
+    elif cfg.TRAIN.CHECKPOINT_FILE_PATH:
+        # tools/train_net.py:473-481: TRAIN's file through the test loader,
+        # into the parameters the optimizer already holds. A torch file
+        # carries no epoch, so the run starts at 0 with or without
+        # TRAIN.CHECKPOINT_EPOCH_RESET, as there.
+        saved = cfg.TEST.CHECKPOINT_FILE_PATH
+        cfg.TEST.CHECKPOINT_FILE_PATH = cfg.TRAIN.CHECKPOINT_FILE_PATH
+        try:
+            load_test_checkpoint(cfg, trainer.bundle)
+        finally:
+            cfg.TEST.CHECKPOINT_FILE_PATH = saved
 
     train_loader = construct_loader(cfg, "train")
     val_loader = construct_loader(cfg, "val")
