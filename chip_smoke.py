@@ -77,11 +77,13 @@ Phases, each printing one JSON line:
                   way, and by device time; the packed row sums T7 also at
                   key counts that end inside a tile
                   (ab_dense.Sizes.ragged_probes);
-                  T5 and T12 in bf16 (K1's own instance of the tile loop)
-                  against K1 on the same views, every output bit, at N 1568,
-                  200 and 37, and T5 at B32 (ab_dense.k1_bits);
-                  registers and spills of ab_chain.cu (T5 and T12 in bf16
-                  on K1's instance), ab_dense_variants.cu (T4 and T11,
+                  T5, T12, T8 full and T1 in bf16 (K1's own instances of
+                  the tile loop) against K1 on the same views, every output
+                  bit: T5 and T12 at N 1568, 200 and 37, T5 at B32, T8 full
+                  and T1 (both biases, the five bisect variants) at n 1600,
+                  200 and 37 (ab_dense.k1_bits);
+                  registers and spills of ab_chain.cu (T1, T5, T8, T12 in
+                  bf16 on the tile loop), ab_dense_variants.cu (T4 and T11,
                   whose bf16 instances run K1's tile loop) and
                   ab_qk_probe.cu (T3 and T7 in bf16 on its wgmma body). The
                   four q k^T probes' bound is that of the function (one pass
@@ -2021,6 +2023,12 @@ AB_KERNELS = {
 }
 
 
+# ab_chain.cu's instances of the Hopper tile loop, (biased, policy): K1's
+# unbiased (T5, T12, T8 full) and biased (T1) ones, T8 linear's and nosmax's.
+# Each must build without spills.
+AB_CHAIN_HOPPER_INSTANCES = {(0, "Softmax"), (1, "Softmax"), (0, "LinearChain"), (0, "NoSoftmax")}
+
+
 def phase_ab_kernels(smi: str) -> dict:
     """T1-T12, every mode (``ab_dense.exp_kernels``, by the entry point's
     own rule): against the plain version in fp32 at a small ragged shape
@@ -2028,7 +2036,8 @@ def phase_ab_kernels(smi: str) -> dict:
     in turns with the plain version (5 calls) and the one PyTorch call that
     computes the same function (SDPA, or an einsum for the four probes),
     and by device time (``kernel_times.device_ms``, 20 calls, twice); then
-    T5's and T12's bf16 bits against K1's (``ab_dense.k1_bits``).
+    T5's, T12's, T8 ``full``'s and T1's bf16 bits against K1's
+    (``ab_dense.k1_bits``).
     Returns the ``kernels`` line's numbers per T id."""
     device = torch.device("cuda")
     bench = ab_dense.Bench(device, ab_dense.Sizes(), 0, 2, 20)
@@ -2036,7 +2045,7 @@ def phase_ab_kernels(smi: str) -> dict:
         small = {(r["function"], r.get("mode", "")): r for r in ab_dense.exp_kernels(
             ab_dense.Bench(device, ab_dense.SMALL_SIZES, 0, 1, 1, dtype=torch.float32))}
         full = ab_dense.exp_kernels(bench)
-    k1_bits = ab_dense.k1_bits(bench)  # raises unless T5's and T12's bf16 bits are K1's
+    k1_bits = ab_dense.k1_bits(bench)  # raises unless T1's, T5's, T8 full's and T12's bf16 bits are K1's
     by_id = {}
     for row in full:
         tid, mode = row["kernel"], row.get("mode", "")
@@ -2056,10 +2065,14 @@ def phase_ab_kernels(smi: str) -> dict:
                 ms=row["ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"])
     check(set(by_id) == set(AB_KERNELS), f"ab_kernels: ids checked {sorted(by_id)}")
+    resources = {source: kernel_build.kernel_resources(source)
+                 for source in ("ab_chain.cu", "ab_dense_variants.cu", "ab_qk_probe.cu")}
+    hopper = [r for r in resources["ab_chain.cu"] if r["kernel"] == "ab_attention_wgmma"]
+    check({(r["template_args"][0], r.get("policy")) for r in hopper} == AB_CHAIN_HOPPER_INSTANCES
+          and not any(r.get("spill_store_bytes", 0) or r.get("spill_load_bytes", 0) for r in hopper),
+          f"ab_kernels: ab_chain.cu's Hopper instances {hopper}")
     emit("ab_kernels", cases=full, fp32_shape=dataclasses.asdict(ab_dense.SMALL_SIZES),
-         bf16_shape=dataclasses.asdict(ab_dense.Sizes()), k1_bits=k1_bits,
-         resources={source: kernel_build.kernel_resources(source)
-                    for source in ("ab_chain.cu", "ab_dense_variants.cu", "ab_qk_probe.cu")}, nvidia_smi=smi)
+         bf16_shape=dataclasses.asdict(ab_dense.Sizes()), k1_bits=k1_bits, resources=resources, nvidia_smi=smi)
     return by_id
 
 

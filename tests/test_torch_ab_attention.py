@@ -293,6 +293,113 @@ def test_t8_linear_depends_on_blk_and_full_does_not():
         ab.chain(q, k, v, "softmax")
 
 
+def _chain_tile_walk(q, k, v, mode: str, tile=64):
+    """T8's ``linear`` and ``nosmax`` on the Hopper body (``wg::attend``
+    under the LinearChain and NoSoftmax policies) on the CPU: 64-key tiles,
+    fp32 logits in natural units, p rounded to bf16 before p v. ``linear``:
+    a running max over the tile's keys (the keys past N masked on a last
+    tile that ends early), corr = m_old - m_new, p = x - m_new with a
+    masked key's p = 0, the fp32 sum of the fp32 p; ``nosmax``: p = the
+    logits (zero-filled keys past N give 0), l stays 0. Then o / max(|l|,
+    1e-6), cast to bf16. Operands [..., n, d]."""
+    n = k.shape[-2]
+    bf16 = lambda t: t.to(torch.bfloat16).float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((*q.shape[:-1], 1), ab._MASK)
+    l = torch.zeros((*q.shape[:-1], 1))
+    o = torch.zeros_like(qf)
+    for c0 in range(0, n, tile):
+        keys = torch.arange(c0, c0 + tile)
+        valid = keys < n
+        kt, vt = (t[..., keys.clamp(max=n - 1), :] * valid[:, None] for t in (kf, vf))
+        x = qf @ kt.transpose(-2, -1)
+        if mode == "nosmax":
+            o = o + bf16(x) @ vt
+            continue
+        x = x.masked_fill(~valid, ab._MASK)
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        corr = m - m_new
+        p = torch.where(valid, x - m_new, 0.0)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        o = o * corr + bf16(p) @ vt
+        m = m_new
+    return (o / l.abs().clamp_min(1e-6)).to(torch.bfloat16)
+
+
+def assert_chain_close(got, want, mode):
+    """The file's bf16 tolerance; ``linear`` on the rows whose denominator
+    did not cancel (``ab.relative_error``'s rule)."""
+    want = torch.as_tensor(np.asarray(want, np.float32))
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert ab.relative_error(got, want, trim_ill_conditioned=mode == "linear") <= TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("mode", ["linear", "nosmax"])
+@pytest.mark.parametrize("n", [64, 192])
+def test_t8_tile_walk_matches_jax_kernel(mode, n):
+    """The redesigned T8 ``linear`` and ``nosmax`` (``_chain_tile_walk``)
+    against the JAX tool's kernel (interpret mode) at its chunk of 64 keys,
+    the Hopper body's key tile, on the same bf16 inputs. A fault in the
+    CUDA kernel shows only on the card (chip_smoke's ``ab_kernels``,
+    ``check_ab``)."""
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = n, 64, 16
+    (jq, tq), (jk, tk), (jv, tv) = chain_inputs(np.random.default_rng(19), n, "bfloat16")
+    got = _chain_tile_walk(tq, tk, tv, mode)
+    assert_chain_close(got, tool.chain(jq, jk, jv, mode), mode)
+    assert_chain_close(got, ab.chain(tq, tk, tv, mode, 64).float().numpy(), mode)
+
+
+@pytest.mark.parametrize("mode", ["linear", "nosmax"])
+@pytest.mark.parametrize("n,blk", [(37, 37), (200, 40)])
+def test_t8_tile_walk_ends_inside_a_tile(mode, n, blk):
+    """A last key tile that ends early (keys 192-199 of 200; 37 of one
+    tile): the masked walk against the plain version's 64-key chunks, the
+    last one short, which the JAX tool cannot cut (its chunks divide N).
+    ``nosmax`` sums over keys, so it is also held against the JAX tool at
+    chunks of ``blk``."""
+    (jq, tq), (jk, tk), (jv, tv) = chain_inputs(np.random.default_rng(20), n, "bfloat16")
+    got = _chain_tile_walk(tq, tk, tv, mode)
+    assert_chain_close(got, ab.chain(tq, tk, tv, mode, 64).float().numpy(), mode)
+    if mode == "nosmax":
+        tool = jax_tool("ab_decomp")
+        tool.N_PAD, tool.BLK, tool.D = n, blk, 16
+        assert_chain_close(got, tool.chain(jq, jk, jv, mode), mode)
+
+
+@pytest.mark.parametrize("n,blk", [(37, 37), (200, 40)])
+def test_t8_full_tile_walk_matches_jax_kernel(n, blk):
+    """The redesigned T8 ``full``, K1's unbiased instance at scale 1 on
+    [bh, 1, n, d] views (``_k1_walk``), against the JAX tool's kernel on
+    the same bf16 inputs; the online softmax telescopes, so any chunk."""
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = n, blk, 16
+    (jq, tq), (jk, tk), (jv, tv) = chain_inputs(np.random.default_rng(21), n, "bfloat16")
+    got = _k1_walk(*(t[:, None] for t in (tq, tk, tv)), 1.0)[:, 0]
+    assert_close(got, tool.chain(jq, jk, jv, "full"), "bfloat16")
+    assert_close(got, ab.chain(tq, tk, tv, "full").float().numpy(), "bfloat16")
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("n,blk", [(37, 37), (200, 40)])
+def test_t1_tile_walk_matches_jax_kernel(shared, n, blk):
+    """The redesigned T1, K1's biased instance at scale 1 (``_k1_walk``
+    with the bias, a shared row expanded to b rows), against the JAX
+    tool's kernel (``ab_bisect.call_kernel``, body ``_kernel_chunked``) on
+    the same bf16 inputs, pre-scaled q, per-batch and shared bias."""
+    tool = jax_tool("ab_bisect")
+    tool.B, tool.H, tool.D, tool.N_PAD, tool.BLK = 2, 3, 16, n, blk
+    rng = np.random.default_rng(22)
+    (jq, tq), (jk, tk), (jv, tv) = (both(normal(rng, 6, n, 16) * s, "bfloat16") for s in (0.5, 1, 1))
+    bias = np.log(rng.uniform(1, 5, (1 if shared else 2, 1, n))).astype(np.float32)
+    want = tool.call_kernel(jq, jk, jv, jnp.asarray(bias), shared)
+    rows = torch.from_numpy(bias).reshape(-1, n).expand(2, n)
+    got = _k1_walk(*(t.view(2, 3, n, 16) for t in (tq, tk, tv)), 1.0, rows).reshape(6, n, 16)
+    assert_close(got, want, "bfloat16")
+    assert_close(got, ab.chunked_attention(tq, tk, tv, torch.from_numpy(bias), shared, 3).float().numpy(),
+                 "bfloat16")
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mode", ab.BIAS_MODES)
 def test_t9_chain_bias(dtype, mode):
@@ -473,13 +580,13 @@ def test_t12_n8_attention(dtype, n, h):
     assert_computes_k1(got, tq, tk, tv, None, 0.25, dtype)
 
 
-def _k1_walk(q, k, v, scale):
-    """T5's and T12's bf16 Hopper body, K1's instance of the tile loop, on
-    the CPU: q * scale in fp32 rounded to bf16 (``stage_q``), then K1's
-    ``_tile_walk`` with p rounded to bf16 before p v, the quotient cast to
-    bf16."""
+def _k1_walk(q, k, v, scale, bias=None):
+    """The bf16 Hopper body of T5, T12, T8 ``full`` and, with an fp32
+    ``bias`` [B, N], T1: K1's instances of the tile loop, on the CPU: q *
+    scale in fp32 rounded to bf16 (``stage_q``), then K1's ``_tile_walk``
+    with p rounded to bf16 before p v, the quotient cast to bf16."""
     qs = (q.float() * scale).to(torch.bfloat16).float()
-    out, _ = _tile_walk(qs, k.float(), v.float(), None, 1.0, p_dtype=torch.bfloat16)
+    out, _ = _tile_walk(qs, k.float(), v.float(), bias, 1.0, p_dtype=torch.bfloat16)
     return out.to(torch.bfloat16)
 
 
@@ -536,17 +643,69 @@ def test_chain_plan_covers_every_head_row_once(b, h, n, swap):
 
 
 def test_t5_t12_launch_k1s_instance(monkeypatch):
-    """T5 and T12 pass ab_chain.cu the variant of K1's instance (T8's
-    ``full`` keeps the first body), T5 with the grid swapped, and a
-    token-major output buffer."""
+    """T5 and T12 pass ab_chain.cu the variant of K1's instance, T8's
+    ``full`` (code 0: K1's unbiased instance in bf16), with their scale, T5
+    with the grid swapped, and a token-major output buffer."""
     calls = []
     monkeypatch.setattr(ab, "_launch_chain", lambda *args: calls.append(args))
     q = _meta((2, 3, 40, 64))
     for name, swap in (("grid_swapped", True), ("n8_attention", False)):
         ab._unbiased(name, q, q, q, 0.125, swap)
     for (name, variant, *_, out, scale, swap), want in zip(calls, (("grid_swapped", True), ("n8_attention", False))):
-        assert (name, swap) == want and variant == ab._CHAIN_ATTENTION != ab._CHAIN_MODE_CODES["full"]
+        assert (name, swap) == want and variant == ab._CHAIN_FULL == ab._CHAIN_MODE_CODES["full"]
         assert out.shape == q.shape and out.transpose(1, 2).is_contiguous() and scale == 0.125
+
+
+def _chain_dispatch():
+    """{variant code: the launch of ``ab_chain.cu``'s dispatch_variant}, the
+    enums' names resolved to their values: ``launch_either`` is the Hopper
+    body in bf16 (the first body in fp32), ``launch`` the first body."""
+    import re
+
+    from vtm_torch.ops import build
+
+    text = (build.CSRC / "ab_chain.cu").read_text()
+    names = {name: int(value) for name, value in re.findall(r"\b(k[A-Za-z]+) = (\d+)", text)}
+    body = text[text.index("cudaError_t dispatch_variant("):text.index("default: return cudaErrorInvalidValue")]
+    dispatch, labels = {}, []
+    for label, launch in re.findall(r"case (\w+):(?:\s*return (launch_either|launch)<)?", body):
+        labels.append(int(names.get(label, label)))
+        if launch:
+            dispatch.update({code: launch for code in labels})
+            labels = []
+    return dispatch
+
+
+def test_t1_t8_launch_hopper_variants(monkeypatch):
+    """On a CUDA tensor T8 passes its mode's code (0, 1, 2) and T1 a code of
+    its own (6, a per-batch bias row of stride n or a shared one of stride
+    0), which ab_chain.cu sends to the Hopper body in bf16; T9 ``1d``,
+    ``2d`` and T10 keep codes 3, 4 and 5 on the first body. No wrapper
+    reaches K1's entry point: the bits K1 gives come from its instance."""
+    import inspect
+
+    calls = []
+    monkeypatch.setattr(ab, "_launch_chain", lambda *args: calls.append(args))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    q = _meta((6, 40, 64))
+    per_batch, shared = (torch.empty((rows, 1, 40), device="meta") for rows in (2, 1))
+    for mode in ab.CHAIN_MODES:
+        ab.chain(q, q, q, mode)
+    ab.chunked_attention(q, q, q, per_batch, False, 3)
+    ab.chunked_attention(q, q, q, shared, True, 3)
+    for mode in ab.BIAS_MODES:
+        ab.chain_bias(q, q, q, shared, mode)
+    ab.chain_bias_cost(q, q, q, shared)
+    got = [(name, variant, stride) for name, variant, _, _, _, _, stride, *_ in calls]
+    assert got == [("chain", 1, 0), ("chain", 2, 0), ("chain", 0, 0), ("chunked_attention", 6, 40),
+                   ("chunked_attention", 6, 0), ("chain_bias", 3, 0), ("chain_bias", 4, 0),
+                   ("chain_bias_cost", 5, 0)]
+    assert [ab._CHAIN_MODE_CODES[m] for m in ("full", "nosmax", "linear")] == [0, 1, 2]
+    assert ab._CHAIN_ATTENTION_BIAS == 6
+    assert _chain_dispatch() == {**{c: "launch_either" for c in (0, 1, 2, 6)}, **{c: "launch" for c in (3, 4, 5)}}
+    for fn in (ab.chain, ab.chunked_attention, ab._flat_chain, ab._launch_chain):
+        code = inspect.getsource(fn)
+        assert "flash_attention" not in code and "vtm_attention_fwd" not in code
 
 
 # ---- the wrappers' refusals and counters ---------------------------------------
@@ -596,8 +755,9 @@ def test_cpu_calls_launch_no_kernel():
 def test_sources_hold_kernels_of_their_own():
     """Three CUDA sources, each with a note on the TPU function it
     replaces: ab_chain.cu two __global__ templates, the first body on wmma
-    and T5's and T12's Hopper kernel, K1's instance of the shared wgmma
-    tile loop under variant code 6; ab_qk_probe.cu two, the first body on
+    (fp32, T9, T10) and the Hopper kernel of T1, T5, T8 and T12 on the
+    shared wgmma tile loop: K1's instances (variant codes 0 and 6) and
+    T8's two policies LinearChain and NoSoftmax; ab_qk_probe.cu two, the first body on
     wmma and the Hopper template of T3 and T7 on wgmma_tiles.cuh's
     products; ab_dense_variants.cu two, the first body's fp32 template on
     FMA units and the bf16 template on the shared wgmma tile loop, with no
@@ -622,14 +782,45 @@ def test_sources_hold_kernels_of_their_own():
             assert text.count("__global__") == 2 and "wmma::mma_sync" in text
             assert "ab_b32.py" in text and "ab_block_attn.py" in text
             assert '#include "wgmma_attention.cuh"' in text and "ab_attention_wgmma(" in text
-            assert "wg::attend<false>(w, wg::AllPairs(), smem)" in text
-            assert f"kAttention = {ab._CHAIN_ATTENTION}" in text
+            assert "wg::attend<kBias, wg::AllPairs, Policy>(w, wg::AllPairs(), smem)" in text
+            assert f"kAttentionBias = {ab._CHAIN_ATTENTION_BIAS}" in text
+            assert "wg::LinearChain" in text and "wg::NoSoftmax" in text and "ab_bisect.py" in text
         for foreign in ("cublas", "cudnn", "cutlass", "vtm_attention_fwd"):
             assert foreign not in text, (name, foreign)
     for fn in (ab._launch_chain, ab._launch_probe, ab._launch_dense, ab._flat_chain, ab._unbiased):
         code = inspect.getsource(fn)
         for foreign in ("scaled_dot_product_attention", "matmul", "bmm", "einsum", "torch.compile", "_plain"):
             assert foreign not in code, (fn.__name__, foreign)
+
+
+def test_ptxas_report_names_each_chain_instance():
+    """``build.parse_ptxas`` tells ab_chain.cu's Hopper instances apart by
+    their mangled template arguments (the bias switch and the softmax
+    policy, a class), as chip_smoke's ab_kernels phase reads them against
+    ``AB_CHAIN_HOPPER_INSTANCES``; the first body's and K1's rows keep
+    their form."""
+    import chip_smoke
+    from vtm_torch.ops import build
+
+    def entry(mangled, registers, spills=0):
+        return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+                f"ptxas info    : Function properties for {mangled}\n"
+                f"    0 bytes stack frame, {spills} bytes spill stores, {spills} bytes spill loads\n"
+                f"ptxas info    : Used {registers} registers, used 1 barriers, 560 bytes cmem[0]\n")
+
+    args = "EvPK13__nv_bfloat16S4_S4_PKfPS2_iifxiNS_7StridesE"
+    hopper = [(bias, policy) for bias, policy in sorted(chip_smoke.AB_CHAIN_HOPPER_INSTANCES)]
+    text = "".join(entry(f"_ZN12_GLOBAL__N_118ab_attention_wgmmaILb{bias}EN3vtm2wg{len(policy)}{policy}E{args}", 128)
+                   for bias, policy in hopper)
+    text += entry("_ZN12_GLOBAL__N_115ab_chain_kernelIfLi2ELi0ELi1EEEvPKT_", 96, spills=8)
+    text += entry("_Z19attention_fwd_wgmmaILb1EEvPK13__nv_bfloat16", 120)
+    rows = build.parse_ptxas(text)
+    assert [(r["template_args"][0], r["policy"]) for r in rows[:4]] == hopper
+    assert all(r["kernel"] == "ab_attention_wgmma" and r["registers"] == 128 for r in rows[:4])
+    assert (rows[4]["kernel"], rows[4]["dtype"], rows[4]["template_args"]) == ("ab_chain_kernel", "fp32", [2, 0, 1])
+    assert (rows[4]["spill_store_bytes"], rows[4]["registers"]) == (8, 96) and "policy" not in rows[4]
+    assert rows[5] == dict(kernel="attention_fwd_wgmma", dtype="bf16", head_dim=64, template_args=[1],
+                           spill_store_bytes=0, spill_load_bytes=0, registers=120)
 
 
 def test_card_cases_cover_every_function_and_mode(capsys):

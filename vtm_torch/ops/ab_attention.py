@@ -23,8 +23,10 @@ None is on a model's path; ``vtm_torch.tools.ab_dense`` runs them.
 Kernels: ``csrc/ab_qk_probe.cu`` (T2, T3, T6, T7; T3 and T7 in bf16 on a
 Hopper body of their own, wgmma products from shared memory over
 ``csrc/wgmma_tiles.cuh``), ``csrc/ab_chain.cu`` (T1, T5, T8, T9, T10, T12;
-T5 and T12 in bf16 on K1's own instance of the Hopper tile loop,
-``csrc/wgmma_attention.cuh``, so with K1's output bits),
+in bf16 T1, T5, T12 and T8 ``full`` on K1's own instances of the Hopper
+tile loop, ``csrc/wgmma_attention.cuh``, so with K1's output bits, T8
+``linear`` and ``nosmax`` on the same loop under a policy each; T9 and
+T10 keep the first body),
 ``csrc/ab_dense_variants.cu`` (T4, T11; in bf16 on the same tile loop
 under a softmax policy each): CUDA C++ for
 Hopper at head dim 64, built and bound by ``vtm_torch/ops/build.py``.
@@ -67,10 +69,11 @@ AB_LAUNCHES = {name: 0 for name in (
     "chunked_attention", "qk64", "qk_packed", "packed_attention", "grid_swapped", "qk_d64",
     "qk_packed_rowsum", "chain", "chain_bias", "chain_bias_cost", "v2_attention", "n8_attention")}
 
-# variant codes of csrc/ab_chain.cu (_CHAIN_ATTENTION: T5 and T12, in bf16
-# on the Hopper body, in fp32 the first body's full)
+# variant codes of csrc/ab_chain.cu: in bf16 the three modes (T8; full also
+# T5, T12) and _CHAIN_ATTENTION_BIAS (T1) run the Hopper body, the three
+# bias reads (T9, T10) the first body; fp32 runs the first body throughout
 (_CHAIN_FULL, _CHAIN_NOSMAX, _CHAIN_LINEAR, _CHAIN_BIAS, _CHAIN_BIAS_STAGED, _CHAIN_BIAS_HINTED,
- _CHAIN_ATTENTION) = range(7)
+ _CHAIN_ATTENTION_BIAS) = range(7)
 _CHAIN_MODE_CODES = {"full": _CHAIN_FULL, "nosmax": _CHAIN_NOSMAX, "linear": _CHAIN_LINEAR}
 # variant codes of csrc/ab_dense_variants.cu
 _DENSE_CODES = {"v2_sum": 0, "v2_fold": 1, "v2_nomax": 2, "packed": 3}
@@ -475,12 +478,15 @@ def _launch_dense(name, variant, q, k, v, bias, hi, lo, sm_scale, token_major: b
 
 def chunked_attention(q, k, v, bias, bias_shared: bool, num_heads: int):
     """T1. q (pre-scaled), k, v: [bh, n, d]; ``bias``: fp32 [b, 1, n] per
-    batch, or [1, 1, n] with ``bias_shared``. Returns [bh, n, d]."""
+    batch, or [1, 1, n] with ``bias_shared``. Returns [bh, n, d]. In bf16
+    K1's biased instance at scale 1, so K1's output bits for the bias
+    expanded to [b, n]."""
     if not q.is_cuda:
         return chunked_attention_plain(q, k, v, bias, bias_shared, num_heads)
     n = q.shape[1]
     _check_fp32_rows("bias", bias, (1 if bias_shared else q.shape[0] // num_heads, 1, n), q)
-    return _flat_chain("chunked_attention", _CHAIN_BIAS, q, k, v, bias, 0 if bias_shared else n, num_heads)
+    return _flat_chain("chunked_attention", _CHAIN_ATTENTION_BIAS, q, k, v, bias, 0 if bias_shared else n,
+                       num_heads)
 
 
 def qk64(q, k, blk: int = KEY_TILE):
@@ -521,11 +527,11 @@ def packed_attention(q, k, v, key_bias, sm_scale):
 
 
 def _unbiased(name, q, k, v, sm_scale, swap_grid):
-    """T5 and T12: in bf16 K1's instance of the Hopper tile loop, so K1's
-    output bits on the same operands."""
+    """T5 and T12: ``full`` (in bf16 K1's instance of the Hopper tile loop,
+    so K1's output bits on the same operands) with their scale."""
     b, h, n, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    return _launch_chain(name, _CHAIN_ATTENTION, q, k, v, None, 0, out, sm_scale, swap_grid)
+    return _launch_chain(name, _CHAIN_FULL, q, k, v, None, 0, out, sm_scale, swap_grid)
 
 
 def grid_swapped(q, k, v, sm_scale):
@@ -562,7 +568,10 @@ def chain(q, k, v, mode: str, blk: int = KEY_TILE):
     """T8. q, k, v: [bh, n, d], no scale and no bias. ``nosmax``: p = the
     logits, cast; ``linear``: the online recurrence with identity in place
     of exp (depends on ``blk``); ``full``: online softmax. Returns
-    acc / max(|l|, 1e-6) as [bh, n, d]; ``nosmax`` leaves l at 0."""
+    acc / max(|l|, 1e-6) as [bh, n, d]; ``nosmax`` leaves l at 0. In bf16
+    ``full`` is K1's instance at scale 1 (K1's output bits; l >= 1, so
+    acc / l), ``linear`` and ``nosmax`` the same tile loop under a policy
+    each."""
     if mode not in CHAIN_MODES:
         raise ValueError(f"mode {mode!r} not in {CHAIN_MODES}")
     if not q.is_cuda:

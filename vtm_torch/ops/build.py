@@ -114,24 +114,53 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
+def _template_args(mangled: str) -> tuple:
+    """(integers, class names) of the mangled template argument list that
+    opens ``mangled`` (``I ... E``): each ``L[ib]<n>E`` literal, and of each
+    nested name ``N<len><part>...E`` its last part (a policy such as
+    ``vtm::wg::Softmax`` gives "Softmax"). Nothing where no list opens it."""
+    ints, names = [], []
+    i = 1 if mangled.startswith("I") else len(mangled)
+    while i < len(mangled) and mangled[i] != "E":
+        literal = re.match(r"L[ib](\d+)E", mangled[i:])
+        if literal:
+            ints.append(int(literal.group(1)))
+            i += literal.end()
+            continue
+        if mangled[i] != "N":
+            break
+        i, parts = i + 1, []
+        while size := re.match(r"\d+", mangled[i:]):
+            i += size.end() + int(size.group())
+            parts.append(mangled[i - int(size.group()):i])
+        if not parts or mangled[i:i + 1] != "E":
+            break
+        names.append(parts[-1])
+        i += 1
+    return ints, names
+
+
 def parse_ptxas(text: str) -> list:
     """[{kernel, dtype, head_dim, template_args, registers, spill_store_bytes,
     spill_load_bytes}] from ptxas's -v output for one source.
     ``template_args`` holds every integer or bool argument of the instance;
     ``head_dim`` is the first of a first body's (K1-K5's only one). The
     Hopper bodies (``*_wgmma``) are bf16 at head dim 64; their template
-    arguments are the compile-time switches (biased; packed)."""
+    arguments are the compile-time switches (biased; packed), and
+    ``policy`` the softmax policy where one is a template argument."""
     rows, entry = [], None
     for line in text.splitlines():
         m = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:L[ib]\d+E)+)", line)
-        wgmma = re.search(r"([a-z_]+_wgmma)((?:I(?:L[ib]\d+E)+E)?)", line)
+        wgmma = re.search(r"([a-z_]+_wgmma)", line)
         if m and "Compiling entry function" in line:
             args = [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(3))]
             entry = dict(kernel=m.group(1), dtype="fp32" if m.group(2) == "f" else "bf16", head_dim=args[0],
                          template_args=args)
         elif wgmma and "Compiling entry function" in line:
-            entry = dict(kernel=wgmma.group(1), dtype="bf16", head_dim=64,
-                         template_args=[int(x) for x in re.findall(r"L[ib](\d+)E", wgmma.group(2))])
+            args, names = _template_args(line[wgmma.end():])
+            entry = dict(kernel=wgmma.group(1), dtype="bf16", head_dim=64, template_args=args)
+            if names:
+                entry["policy"] = names[-1]
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spills and entry:
             entry.update(spill_store_bytes=int(spills.group(1)), spill_load_bytes=int(spills.group(2)))

@@ -23,15 +23,19 @@
 // What bounds it on the H100: as K1, the tensor cores (4 B H N^2 d
 // operations against 4 tensors of B H N d: about 800 FLOP per byte at
 // N 1600). Two bodies:
-//   * Hopper body (T5 and T12 in bf16): K1's own forward instance,
-//     vtm::wg::attend<false, AllPairs, Softmax> of wgmma_attention.cuh
-//     (flash_attention_fwd.cu::attention_fwd_wgmma, unbiased, no lse), on a
-//     walk built from the four strided views: one warpgroup per (b*h,
-//     64-row q tile), k and v through a two-stage cp.async ring, wgmma
-//     products with the logits and probabilities in registers. The same
-//     instance on the same operands, so the same output bits as K1. What
-//     T5 and T12 now measure is the block order and the views, not a body.
-//   * first body (fp32 T5 and T12; T1, T8, T9, T10 in both dtypes): the
+//   * Hopper body (bf16: T1, T5, T8, T12): the forward tile loop of
+//     wgmma_attention.cuh on a walk built from the four strided views: one
+//     warpgroup per (b*h, 64-row q tile), k and v through a two-stage
+//     cp.async ring, wgmma products with the logits and probabilities in
+//     registers. T5, T12 and T8 full run K1's own unbiased instance,
+//     vtm::wg::attend<false, AllPairs, Softmax>, and T1 its biased one,
+//     attend<true, AllPairs, Softmax> (flash_attention_fwd.cu::
+//     attention_fwd_wgmma, no lse), so on the same operands they give K1's
+//     output bits: what they measure is the block order, the views and the
+//     host's glue, not a body. T8 linear and nosmax run the same loop under
+//     the policies LinearChain and NoSoftmax, which take the exp (and the
+//     max) out of it: what is left is the rest of K1's time.
+//   * first body (fp32, every variant; T9, T10 in bf16 too): the
 //     body K1 keeps for fp32 and other head dims (flash_attention_fwd.cu::
 //     attention_fwd_kernel): one block of 4 warps per (b*h, 64-row q
 //     tile), 64-key tiles of k and v staged in shared memory, bf16 products
@@ -59,6 +63,8 @@
 //     50 MB L2; at B32 (154 MB) they do not.
 //   * T12 takes the strided split-heads views of a fused qkv projection
 //     and writes token-major, so the glue around it is views.
+//   * T1 takes q pre-scaled and a per-batch or shared bias row: the walk's
+//     bias is key_bias + b * bias_batch_stride (stride n or 0).
 //   shared memory: Hopper body 50,176 B (4 blocks an SM), first body bf16
 //   71,936 B, fp32 104,704 B.
 
@@ -86,7 +92,7 @@ constexpr int kBlockK = vtm::kTileRows; // keys per tile: the chunk of the recur
 constexpr int kThreads = vtm::kTileThreads;
 
 enum Mode { kFull = 0, kNoSoftmax = 1, kLinear = 2 };
-enum Variant { kAttention = 6 };  // T5, T12: full, unbiased, scaled; bf16 on the Hopper body
+enum Variant { kAttentionBias = 6 };  // T1: full with a per-batch or shared bias
 enum BiasRead { kNoBias = 0, kBiasPerElement = 1, kBiasStaged = 2 };
 
 // Element strides (batch, head, row) of q, k, v and out; the last dim is
@@ -275,14 +281,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 namespace wg = vtm::wg;
 using bf16 = __nv_bfloat16;
 
-// T5 and T12: one warpgroup over 64 query rows of one (b, h), K1's
-// forward instance. The launch bounds are K1's too, so that ptxas sees the
-// same kernel body (128 registers, 4 blocks an SM). swap_grid: blockIdx.x
-// is b*h and y the q tile (T5); otherwise x is the q tile (T12, K1).
+// One warpgroup over 64 query rows of one (b, h): K1's forward instance
+// (policy Softmax; kBias: T1, else T5, T12, T8 full), or T8's linear and
+// nosmax (LinearChain, NoSoftmax). The launch bounds are K1's too, so that
+// ptxas sees K1's kernel body (128 registers, 4 blocks an SM). swap_grid:
+// blockIdx.x is b*h and y the q tile (T5); otherwise x is the q tile (K1).
+template <bool kBias, class Policy>
 __global__ void __launch_bounds__(wg::kThreads)
     ab_attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out, int num_heads, int n,
-                       float scale, int swap_grid, Strides st) {
+                       const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                       bf16* __restrict__ out, int num_heads, int n, float scale,
+                       long long bias_batch_stride, int swap_grid, Strides st) {
   extern __shared__ unsigned char smem[];
   const int bh = swap_grid ? blockIdx.x : blockIdx.y;
   const int tile = swap_grid ? blockIdx.y : blockIdx.x;
@@ -296,7 +305,7 @@ __global__ void __launch_bounds__(wg::kThreads)
   w.k_stride = st.k[2];
   w.v_stride = st.v[2];
   w.q_frame_stride = w.k_frame_stride = w.v_frame_stride = 0;
-  w.bias = nullptr;
+  w.bias = kBias ? key_bias + b * bias_batch_stride : nullptr;
   w.bias_hi = w.bias_lo = nullptr;
   w.out = out + b * st.o[0] + h * st.o[1];
   w.out_stride = st.o[2];
@@ -308,7 +317,7 @@ __global__ void __launch_bounds__(wg::kThreads)
   w.frames = 1;
   w.frame_len = n;
   w.scale = scale;
-  wg::attend<false>(w, wg::AllPairs(), smem);
+  wg::attend<kBias, wg::AllPairs, Policy>(w, wg::AllPairs(), smem);
 }
 
 struct Args {
@@ -346,37 +355,47 @@ cudaError_t launch(const Args& a) {
 
 // The grid of both bodies: (q tiles, b*h), or (b*h, q tiles) swapped; the
 // Python side's plan (ops/ab_attention.py::chain_plan).
+template <bool kBias, class Policy>
 cudaError_t launch_wgmma(const Args& a) {
-  constexpr int kBytes = wg::WalkSmem::kLaunchBytes;
+  constexpr int kBytes = wg::ModeSmem<Policy>::kLaunchBytes;
+  auto kernel = ab_attention_wgmma<kBias, Policy>;
   static bool done[vtm::kMaxDevices] = {};
-  cudaError_t err = vtm::allow_smem_once(ab_attention_wgmma, kBytes, done);
+  cudaError_t err = vtm::allow_smem_once(kernel, kBytes, done);
   if (err != cudaSuccess) return err;
   const int tiles = (a.n + wg::kRows - 1) / wg::kRows;
   const int bh = a.batch * a.num_heads;
   const dim3 grid = a.swap_grid ? dim3(bh, tiles) : dim3(tiles, bh);
-  ab_attention_wgmma<<<grid, wg::kThreads, kBytes, a.stream>>>(
+  kernel<<<grid, wg::kThreads, kBytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<bf16*>(a.out), a.num_heads, a.n, a.scale, a.swap_grid, a.st);
+      static_cast<const float*>(a.bias), static_cast<bf16*>(a.out), a.num_heads, a.n, a.scale,
+      a.bias_batch_stride, a.swap_grid, a.st);
   return cudaGetLastError();
 }
 
+// bf16 on the Hopper body under Policy, fp32 on the first body's kMode.
+template <typename T, int kMode, int kBias, class Policy>
+cudaError_t launch_either(const Args& a) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_wgmma<kBias != kNoBias, Policy>(a);
+  } else {
+    return launch<T, kMode, kBias, 1>(a);
+  }
+}
+
+// bf16: T1, T5, T8 and T12 on the Hopper body, T9 and T10 (3-5) on the
+// first; fp32: every variant on the first body.
 template <typename T>
 cudaError_t dispatch_variant(int variant, const Args& a) {
-  const bool biased = variant >= 3 && variant <= 5;
+  const bool biased = (variant >= 3 && variant <= 5) || variant == kAttentionBias;
   if (biased != (a.bias != nullptr)) return cudaErrorInvalidValue;
   switch (variant) {
-    case 0: return launch<T, kFull, kNoBias, 1>(a);
-    case 1: return launch<T, kNoSoftmax, kNoBias, 1>(a);
-    case 2: return launch<T, kLinear, kNoBias, 1>(a);
+    case kFull: return launch_either<T, kFull, kNoBias, wg::Softmax>(a);
+    case kNoSoftmax: return launch_either<T, kNoSoftmax, kNoBias, wg::NoSoftmax>(a);
+    case kLinear: return launch_either<T, kLinear, kNoBias, wg::LinearChain>(a);
     case 3: return launch<T, kFull, kBiasPerElement, 1>(a);
     case 4: return launch<T, kFull, kBiasStaged, 1>(a);
     case 5: return launch<T, kFull, kBiasPerElement, 3>(a);
-    case kAttention:
-      if constexpr (std::is_same<T, bf16>::value) {
-        return launch_wgmma(a);
-      } else {
-        return launch<T, kFull, kNoBias, 1>(a);
-      }
+    case kAttentionBias: return launch_either<T, kFull, kBiasPerElement, wg::Softmax>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -385,10 +404,11 @@ cudaError_t dispatch_variant(int variant, const Args& a) {
 
 // C entry point, bound with ctypes by vtm_torch/ops/ab_attention.py.
 //   dtype: 0 = bf16, 1 = fp32 (q, k, v and out share it); head dim 64
-//   variant: 0 full, 1 nosmax, 2 linear (all unbiased); 3 full with the
-//     bias read per element, 4 with the bias staged per key tile, 5 as 3
-//     with the occupancy and carve-out hints; 6 full, unbiased (T5, T12:
-//     in bf16 the Hopper body, in fp32 the first body's full)
+//   variant: 0 full, 1 nosmax, 2 linear (all unbiased; T8, and full T5,
+//     T12); 3 full with the bias read per element, 4 with the bias staged
+//     per key tile, 5 as 3 with the occupancy and carve-out hints (T9, T10:
+//     the first body in both dtypes); 6 full with a bias (T1). In bf16
+//     0-2 and 6 run the Hopper body, in fp32 the first body
 //   key_bias: fp32, row b at key_bias + b * bias_batch_stride (0: one
 //     row shared by every batch); null for variants 0-2
 //   swap_grid: 0 = (q tile, b*h) with the q tile fastest, 1 = swapped (both bodies)

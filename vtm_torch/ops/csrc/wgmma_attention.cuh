@@ -1,10 +1,10 @@
 // The forward tile loop of the Hopper attention kernels, shared by K1
 // (flash_attention_fwd.cu), K3 (frame_attention_fwd.cu) and K5a
 // (blockdiag_attention_fwd.cu) in their bf16 d = 64 case, and by the A/B
-// variants T4 and T11 (ab_dense_variants.cu) through a softmax policy
-// (Softmax below, the default, is K1's, K3's and K5a's), and the pair
-// rules both directions use (the backward loop, wgmma_attention_bwd.cuh,
-// walks the same rules).
+// variants T4 and T11 (ab_dense_variants.cu) and T8 (ab_chain.cu) through a
+// softmax policy (Softmax below, the default, is K1's, K3's and K5a's), and
+// the pair rules both directions use (the backward loop,
+// wgmma_attention_bwd.cuh, walks the same rules).
 //
 // A block of one warpgroup (128 threads) owns 64 query rows and walks the
 // keys of one or more frames, each frame with a softmax of its own. Per
@@ -156,8 +156,13 @@ struct WalkSmem {
 //           bias is added and no mask applied (T11 v2_fold, v2_nomax)
 //   kMax    a running max; without it p = exp2(x), which overflows on large
 //           logits by design (v2_nomax, for measurement only)
+//   kExp    p = exp(x - m); without it identity in place of exp, in natural
+//           units (no log2e): p = x - m, corr = m_old - m_new, a masked key
+//           p = 0, and out = o / max(|l|, 1e-6) (T8 linear); without a max
+//           too, p is the logits themselves and l stays 0 (T8 nosmax). Both
+//           for measurement only: they are not attention
 struct Softmax {
-  static constexpr bool kHeads = false, kOnes = false, kFold = false, kMax = true;
+  static constexpr bool kHeads = false, kOnes = false, kFold = false, kMax = true, kExp = true;
 };
 struct HeadPairs : Softmax {
   static constexpr bool kHeads = true;
@@ -169,6 +174,12 @@ struct FoldedBias : OnesColumn {
   static constexpr bool kFold = true;
 };
 struct FoldedNoMax : FoldedBias {
+  static constexpr bool kMax = false;
+};
+struct LinearChain : Softmax {
+  static constexpr bool kExp = false;
+};
+struct NoSoftmax : LinearChain {
   static constexpr bool kMax = false;
 };
 
@@ -192,7 +203,13 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
   using L = WalkSmem;
   using M = ModeSmem<Mode>;
   static_assert(!(kBias && Mode::kFold), "a folded walk takes its bias through q k^T");
-  static_assert(Mode::kMax || Mode::kFold, "without a max the mask has to come through q k^T");
+  // Without a max the mask has to come through q k^T, unless p is the logits
+  // themselves: load_tile_async zero-fills the keys past the end, so they
+  // give s = 0 exactly and add nothing to p v.
+  constexpr bool kRawLogits = !Mode::kMax && !Mode::kExp;
+  static_assert(Mode::kMax || Mode::kFold || kRawLogits, "without a max the mask has to come through q k^T");
+  static_assert(Mode::kExp || !(kBias || Mode::kHeads || Mode::kOnes || Mode::kFold),
+                "the chain's policies take no bias, no heads, no ones column");
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_addr(smem);
   const int n_tiles = (w.frame_len + kRows - 1) / kRows;  // key tiles a frame
@@ -314,8 +331,9 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
     wg_wait<0>();
     fence_regs(s);
 
-    // logits in log2 units, the bias added and the mask applied where the
-    // max is taken. This thread's 16 key columns: 8 j + 2 (l % 4) + c.
+    // logits in log2 units (natural ones without kExp), the bias added and
+    // the mask applied where the max is taken; none of it when p is the raw
+    // logits. This thread's 16 key columns: 8 j + 2 (l % 4) + c.
     const bool edge = !Mode::kFold && (Rule::kEveryTile || (ragged && c0 + kRows > w.frame_len));
     float bias_col[16];
     if constexpr (kBias) {
@@ -327,25 +345,30 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
       }
     }
     float mx[2] = {kMask, kMask};
+    auto outside = [&](int i, int hh) {
+      const int key = c0 + acc_col(i);
+      return key < key_lo[hh] || key >= key_hi[hh];
+    };
     auto logits = [&](auto masked) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int hh = (i >> 1) & 1;
         float x = s[i];
         if constexpr (kBias) x += biased[hh] ? bias_col[2 * (i >> 2) + (i & 1)] : 0.f;
-        x *= kLog2e;
+        if constexpr (Mode::kExp) x *= kLog2e;
         if constexpr (decltype(masked)::value) {
-          const int key = c0 + acc_col(i);
-          if (key < key_lo[hh] || key >= key_hi[hh]) x = kMask;
+          if (outside(i, hh)) x = kMask;
         }
         s[i] = x;
         mx[hh] = fmaxf(mx[hh], x);
       }
     };
-    if (edge) {
-      logits(std::true_type());
-    } else {
-      logits(std::false_type());
+    if constexpr (!kRawLogits) {
+      if (edge) {
+        logits(std::true_type());
+      } else {
+        logits(std::false_type());
+      }
     }
     if constexpr (Mode::kMax) {
       float corr[2];
@@ -354,7 +377,11 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
         mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
         mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
         const float m_new = fmaxf(m2[hh], mx[hh]);
-        corr[hh] = fast_exp2(m2[hh] - m_new);
+        if constexpr (Mode::kExp) {
+          corr[hh] = fast_exp2(m2[hh] - m_new);
+        } else {
+          corr[hh] = m2[hh] - m_new;  // the first tile's, about -1e30, scales o = 0, l = 0 to -0
+        }
         m2[hh] = m_new;
         if constexpr (Mode::kOnes) {
           l_ones[2 * hh] *= corr[hh];
@@ -363,14 +390,36 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
           l[hh] *= corr[hh];
         }
       }
+      if constexpr (Mode::kExp) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int hh = (i >> 1) & 1;
-        s[i] = fast_exp2(s[i] - m2[hh]);
-        if constexpr (!Mode::kOnes) l[hh] += s[i];
-        o[i] *= corr[hh];
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i >> 1) & 1;
+          s[i] = fast_exp2(s[i] - m2[hh]);
+          if constexpr (!Mode::kOnes) l[hh] += s[i];
+          o[i] *= corr[hh];
+        }
+      } else {
+        // identity in place of exp: p = x - m_new, and a masked key (x =
+        // kMask) weighs nothing
+        auto differences = [&](auto masked) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int hh = (i >> 1) & 1;
+            s[i] -= m2[hh];
+            if constexpr (decltype(masked)::value) {
+              if (outside(i, hh)) s[i] = 0.f;
+            }
+            l[hh] += s[i];
+            o[i] *= corr[hh];
+          }
+        };
+        if (edge) {
+          differences(std::true_type());
+        } else {
+          differences(std::false_type());
+        }
       }
-    } else {
+    } else if constexpr (Mode::kExp) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = fast_exp2(s[i]);
     }
@@ -403,18 +452,27 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
           l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
         }
       }
-      if (w.lse != nullptr && threadIdx.x % 4 == 0) {
+      if constexpr (Mode::kExp) {
+        if (w.lse != nullptr && threadIdx.x % 4 == 0) {
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = w.row0 + rows_of[hh];
-          const float m = Mode::kMax ? m2[hh] : 0.f;
-          if (row < w.rows) w.lse[f * w.lse_frame_stride + row] = (m + log2f(l[hh])) * kLn2;
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = w.row0 + rows_of[hh];
+            const float m = Mode::kMax ? m2[hh] : 0.f;
+            if (row < w.rows) w.lse[f * w.lse_frame_stride + row] = (m + log2f(l[hh])) * kLn2;
+          }
         }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) l[hh] = 1.f / l[hh];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] *= l[(i >> 1) & 1];
+      } else {
+        // the chain's division rule: l may be negative or near 0 (linear)
+        // or 0 (nosmax)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) l[hh] = fmaxf(fabsf(l[hh]), 1e-6f);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] /= l[(i >> 1) & 1];
       }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) l[hh] = 1.f / l[hh];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= l[(i >> 1) & 1];
       store_tile(o, 1.f, smem + L::kOut, w.out + f * w.out_frame_stride, w.out_stride, w.row0, w.rows);
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[i] = 0.f;

@@ -38,7 +38,10 @@ K1 (``tome_flash_attention``) in the same run, and a ``sdpa`` row where one
 ``scaled_dot_product_attention`` call computes the same function: the
 yardstick, used nowhere in the port. The chunk-dependent three (T2, T3,
 T8 linear) run at blk = 64, the kernels' key tile. Times are CUDA events
-around queued calls. Nothing is written unless ``--out`` names a file.
+around queued calls; ``bisect`` and ``decomp`` rows also carry
+``device_ms``, the calls' device time with the host's cost hidden
+(``kernel_times.device_ms``). Nothing is written unless ``--out`` names a
+file.
 
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``main(argv, device="cpu")``: the plain versions at a small shape) is
@@ -353,7 +356,7 @@ def exp_bisect(bench: Bench) -> None:
                                function="chunked_attention", flops=flops))
     rows.append(_prod_row("prod", *views, None, 1.0, flops))
     rows.append(_sdpa_row("sdpa", *views, None, 1.0, flops))
-    bench.run("bisect", rows)
+    bench.run("bisect", rows, time_device=True)
 
 
 def _attention_inputs(bench: Bench, b: int, n: int, biased: bool):
@@ -425,7 +428,7 @@ def exp_decomp(bench: Bench) -> None:
     rows = [probes["T6"], probes["T7"]] + [_chain_row(q3, k3, v3, mode, flops) for mode in ab.CHAIN_MODES]
     rows.append(_prod_row("prod", *views, None, 1.0, flops))
     rows.append(_sdpa_row("sdpa", *views, None, 1.0, flops))
-    bench.run("decomp", rows)
+    bench.run("decomp", rows, time_device=True)
 
 
 BIAS_NOTES = {"1d": "bias read per element from device memory", "2d": "bias staged in shared memory per key tile"}
@@ -589,30 +592,55 @@ def exp_kernels(bench: Bench) -> List[dict]:
 
 
 def k1_bits(bench: Bench) -> List[dict]:
-    """T5 and T12 in bf16 run K1's instance of the Hopper tile loop, so on
-    the same operands their outputs equal K1's (``tome_flash_attention``,
-    unbiased, no lse) bit for bit. Each case takes the split-heads views of
-    a fused [B, N, 3*H*64] projection: both at B8 and the first of
-    ``packed_ns`` tokens and at ``K1_BITS_RAGGED_N``, T5 also at B32.
-    Raises AssertionError on the first bit that differs; returns a row per
-    case. On the card only: on the CPU the plain versions round otherwise."""
+    """In bf16 T5, T12, T8 ``full`` and T1 run K1's instances of the Hopper
+    tile loop, so on the same operands their outputs equal K1's
+    (``tome_flash_attention``, no lse) bit for bit. T5 and T12 take the
+    split-heads views of a fused [B, N, 3*H*64] projection, at B8 and the
+    first of ``packed_ns`` tokens and T5 also at B32; T8 ``full`` (K1
+    unbiased at scale 1 on [bh, 1, n, 64] views) and T1 (K1 biased at
+    scale 1 on [b, h, n, 64] views, a per-batch bias, a shared one expanded
+    to b rows, and the five ``--exp bisect`` host variants against a zero
+    bias) take contiguous [bh, n, 64] operands at ``n_pad`` tokens; every
+    function also at ``K1_BITS_RAGGED_N``. Raises AssertionError on the
+    first bit that differs; returns a row per case. On the card only: on
+    the CPU the plain versions round otherwise."""
     s = bench.sizes
     if bench.device.type != "cuda" or bench.dtype != torch.bfloat16:
         raise ValueError("k1_bits compares the bf16 kernels on the card")
-    n0 = s.packed_ns[0]
-    cases = [(fn, s.b8, n) for n in (n0, *K1_BITS_RAGGED_N) for fn in ("grid_swapped", "n8_attention")]
+    rows = []
+
+    def compare(function: str, got: torch.Tensor, want: torch.Tensor, **case) -> None:
+        want = want.reshape(got.shape)
+        differ = int((got.contiguous().view(torch.int16) != want.contiguous().view(torch.int16)).sum())
+        row = dict(function=function, **case, elements=want.numel(), bits_differ=differ)
+        if differ:
+            raise AssertionError(f"{function} does not give K1's bits: {row}")
+        rows.append(row)
+
+    n0, b, h = s.packed_ns[0], s.b8, s.h
+    cases = [(fn, b, n) for n in (n0, *K1_BITS_RAGGED_N) for fn in ("grid_swapped", "n8_attention")]
     cases.append(("grid_swapped", s.b32, n0))
-    scale, rows = D ** -0.5, []
+    scale = D ** -0.5
     with torch.inference_mode():
-        for function, b, n in cases:
-            q, k, v = (split_heads(t, s.h) for t in bench.randn(b, n, 3 * s.h * D).chunk(3, dim=-1))
-            got = getattr(ab, function)(q, k, v, scale)
-            want = tome_flash_attention(q, k, v, None, scale)
-            differ = int((got.contiguous().view(torch.int16) != want.contiguous().view(torch.int16)).sum())
-            row = dict(function=function, batch=b, n=n, elements=want.numel(), bits_differ=differ)
-            if differ:
-                raise AssertionError(f"{function} does not give K1's bits: {row}")
-            rows.append(row)
+        for function, batch, n in cases:
+            q, k, v = (split_heads(t, s.h) for t in bench.randn(batch, n, 3 * s.h * D).chunk(3, dim=-1))
+            compare(function, getattr(ab, function)(q, k, v, scale), tome_flash_attention(q, k, v, None, scale),
+                    batch=batch, n=n)
+        for n in (s.n_pad, *K1_BITS_RAGGED_N):
+            flat = [bench.randn(b * h, n, D) for _ in range(3)]
+            views = [t.view(b, h, n, D) for t in flat]
+            compare("chain", ab.chain(*flat, "full"),
+                    tome_flash_attention(*(t.unsqueeze(1) for t in flat), None, 1.0), mode="full", batch=b, n=n)
+            for shared in (False, True):
+                bias = bench.log_sizes(1 if shared else b, 1, n)
+                want = tome_flash_attention(*views, bias.view(-1, n).expand(b, n).contiguous(), 1.0)
+                compare("chunked_attention", ab.chunked_attention(*flat, bias, shared, h), want,
+                        mode="shared bias" if shared else "per-batch bias", batch=b, n=n)
+            want = tome_flash_attention(*views, torch.zeros((b, n), device=bench.device), 1.0)
+            for name in BISECT_VARIANTS:
+                variant = bisect_variant(name, ab.chunked_attention, b, h, n, bench.device)
+                compare("chunked_attention", variant(*(flat if name == "D_flat" else views)), want, mode=name,
+                        batch=b, n=n)
     return rows
 
 

@@ -17,9 +17,10 @@
      tile), there timed beside the
      plain version and the library call (2 x 10 calls in turns), and by
      device time (``kernel_times.device_ms``);
-  3. runs ``ab_dense.k1_bits``: T5 and T12 in bf16 (K1's instance of the
-     Hopper tile loop) against K1 on the same views, bit for bit, at N
-     1568 and ragged N, and T5 at B32.
+  3. runs ``ab_dense.k1_bits``: T5, T12, T8 ``full`` and T1 in bf16 (K1's
+     instances of the Hopper tile loop) against K1 on the same views, bit
+     for bit: T5 and T12 at N 1568 and T5 at B32, T8 ``full`` and T1 (both
+     bias kinds, the five bisect variants) at n 1600, all at ragged N.
 Prints one JSON line per step and per row. Needs a CUDA device and nvcc.
 """
 

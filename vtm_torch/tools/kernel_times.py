@@ -31,17 +31,21 @@ T4 (``ab_attention.packed_attention``) and T11 (``v2_attention``, all three
 variants), unbiased and biased, and T5 (``grid_swapped``) and T12
 (``n8_attention``), unbiased, beside K1, at B8 H12 N 1568 d64 bf16 on the
 same fused views; K1, T5 and T12 again at ``AB_BATCHES`` (B12 to B32,
-where the heads' k and v outgrow L2); then the first body's
-chains T1 (per-batch bias), T8 (every mode), T9 (``1d``) and T10, and the
-four q k^T probes T2 (``qk64``), T3 (``qk_packed``), T6 (``qk_d64``) and T7
+where the heads' k and v outgrow L2); then the chains, beside K1 at
+scale 1 (unbiased, and with T1's per-batch bias) on the same operands:
+T1 (per-batch and shared bias) and T8 (every mode) on the Hopper body,
+T9 (``1d``) and T10 on the first, and the four q k^T probes T2
+(``qk64``), T3 (``qk_packed``), T6 (``qk_d64``) and T7
 (``qk_packed_rowsum``), at the A/B tools' shape, [96, 1600, 64] bf16 (the
 packed forms qp [48, 3200, 128], kc [48, 1600, 128]), both clocks.
 ``--exp digests`` prints the sha256 of the forwards' output bits
 (``forward_digests``: K1, K3, K5a at ``FWD_DIGEST_CASES``, B2 H12 d64 bf16,
 inputs from numpy's generator), of the probes' (``probe_digests``: T2, T3,
-T6, T7 in bf16 at ``PROBE_DIGEST_N``) and of ``ab_chain.cu``'s
+T6, T7 in bf16 at ``PROBE_DIGEST_N``), of ``ab_chain.cu``'s
 (``chain_digests``: T1, T5, T8, T9, T10, T12, every mode, bf16 and fp32,
-at ``CHAIN_DIGEST_N``), which two trees on one card must share when their
+at ``CHAIN_DIGEST_N``) and of ``ab_dense_variants.cu``'s (``dense_digests``:
+T4 and T11, every variant, unbiased and biased, bf16 and fp32, at
+``CHAIN_DIGEST_N``), which two trees on one card must share when their
 arithmetic is the same.
 Needs a CUDA device.
 """
@@ -202,7 +206,11 @@ def exp_ab(gen, iters: int, smi: str) -> None:
     q3, k3, v3 = (torch.randn((PROBE_BH, PROBE_N, D), generator=gen, device="cuda").to(torch.bfloat16)
                   for _ in range(3))
     bias = torch.log(torch.rand((B, 1, PROBE_N), generator=gen, device="cuda") * 11 + 1)
-    chains = [("T1", "per-batch bias", lambda: ab_attention.chunked_attention(q3, k3, v3, bias, False, H)),
+    q4, k4, v4 = (t.view(B, H, PROBE_N, D) for t in (q3, k3, v3))
+    chains = [("K1", "unbiased, scale 1", lambda: tome_flash_attention(q4, k4, v4, None, 1.0)),
+              ("K1", "per-batch bias, scale 1", lambda: tome_flash_attention(q4, k4, v4, bias.view(B, PROBE_N), 1.0)),
+              ("T1", "per-batch bias", lambda: ab_attention.chunked_attention(q3, k3, v3, bias, False, H)),
+              ("T1", "shared bias", lambda: ab_attention.chunked_attention(q3, k3, v3, bias[:1], True, H)),
               ("T9", "1d", lambda: ab_attention.chain_bias(q3, k3, v3, bias[:1], "1d")),
               ("T10", "", lambda: ab_attention.chain_bias_cost(q3, k3, v3, bias[:1]))]
     chains += [("T8", mode, functools.partial(ab_attention.chain, q3, k3, v3, mode))
@@ -300,10 +308,36 @@ def chain_digests() -> dict:
     return digests
 
 
+def dense_digests() -> dict:
+    """{"T<i> <variant> <biased> <dtype>": sha256 of the output} of
+    ``ab_dense_variants.cu``'s two functions through the public wrappers,
+    T4 and T11 (every variant), unbiased and biased, bf16 and fp32, on
+    split-heads views of a fused [2, n, 3*768] projection and an fp32 bias
+    [2, n] from numpy's generator seeded by n = CHAIN_DIGEST_N."""
+    ab, n = ab_attention, CHAIN_DIGEST_N
+    digests = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            rng = np.random.default_rng(n)
+            fused = torch.from_numpy(rng.standard_normal((2, n, 3 * H * D)).astype(np.float32)).cuda().to(dtype)
+            q, k, v = (split_heads(t, H) for t in fused.chunk(3, dim=-1))
+            bias = torch.from_numpy(np.log(rng.uniform(1, 12, (2, n))).astype(np.float32)).cuda()
+            tag = str(dtype).split(".")[-1]
+            for key_bias, biased in ((None, "unbiased"), (bias, "biased")):
+                calls = {"T4 packed": lambda: ab.packed_attention(q, k, v, key_bias, 0.125)}
+                calls.update({f"T11 {variant}": functools.partial(ab.v2_attention, q, k, v, key_bias, 0.125, variant)
+                              for variant in ab.V2_VARIANTS})
+                for name, call in calls.items():
+                    out = call().contiguous()
+                    digests[f"{name} {biased} {tag}"] = hashlib.sha256(
+                        out.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    return digests
+
+
 def exp_digests(gen, iters: int, smi: str) -> None:
     print(json.dumps(dict(forward_digests=forward_digests(), cases=FWD_DIGEST_CASES, probe_digests=probe_digests(),
-                          probe_cases=PROBE_DIGEST_N, chain_digests=chain_digests(), chain_n=CHAIN_DIGEST_N,
-                          nvidia_smi=smi)), flush=True)
+                          probe_cases=PROBE_DIGEST_N, chain_digests=chain_digests(), dense_digests=dense_digests(),
+                          chain_n=CHAIN_DIGEST_N, nvidia_smi=smi)), flush=True)
 
 
 def exp_backward(gen, iters: int, smi: str) -> None:
