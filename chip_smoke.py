@@ -77,13 +77,15 @@ Phases, each printing one JSON line:
                   way, and by device time; the packed row sums T7 also at
                   key counts that end inside a tile
                   (ab_dense.Sizes.ragged_probes);
-                  T5, T12, T8 full and T1 in bf16 (K1's own instances of
-                  the tile loop) against K1 on the same views, every output
-                  bit: T5 and T12 at N 1568, 200 and 37, T5 at B32, T8 full
-                  and T1 (both biases, the five bisect variants) at n 1600,
-                  200 and 37 (ab_dense.k1_bits);
-                  registers and spills of ab_chain.cu (T1, T5, T8, T12 in
-                  bf16 on the tile loop), ab_dense_variants.cu (T4 and T11,
+                  T5, T12, T8 full, T1, T9 and T10 in bf16 (K1's own
+                  instances of the tile loop, T9 2d's staged bias) against
+                  K1 on the same views, every output bit: T5 and T12 at N
+                  1568, 200 and 37, T5 at B32, T8 full, T1 (both biases,
+                  the five bisect variants), T9 (both modes) and T10 at n
+                  1600, 200 and 37 (ab_dense.k1_bits);
+                  registers and spills of ab_chain.cu (every variant in
+                  bf16 on the tile loop; each kernel's blocks an SM by the
+                  runtime's calculator), ab_dense_variants.cu (T4 and T11,
                   whose bf16 instances run K1's tile loop) and
                   ab_qk_probe.cu (T3 and T7 in bf16 on its wgmma body). The
                   four q k^T probes' bound is that of the function (one pass
@@ -2023,10 +2025,16 @@ AB_KERNELS = {
 }
 
 
-# ab_chain.cu's instances of the Hopper tile loop, (biased, policy): K1's
-# unbiased (T5, T12, T8 full) and biased (T1) ones, T8 linear's and nosmax's.
-# Each must build without spills.
-AB_CHAIN_HOPPER_INSTANCES = {(0, "Softmax"), (1, "Softmax"), (0, "LinearChain"), (0, "NoSoftmax")}
+# ab_chain.cu's instances of the Hopper tile loop, (kernel, biased, policy):
+# K1's unbiased (T5, T12, T8 full) and biased (T1, T9 1d) ones, T8 linear's
+# and nosmax's, T9 2d's, and T10's (K1's biased one under an occupancy
+# target). Each must build without spills, in at most 128 registers, and fit
+# 4 blocks an SM.
+AB_CHAIN_HOPPER_INSTANCES = {
+    ("ab_attention_wgmma", 0, "Softmax"), ("ab_attention_wgmma", 1, "Softmax"),
+    ("ab_attention_wgmma", 0, "LinearChain"), ("ab_attention_wgmma", 0, "NoSoftmax"),
+    ("ab_attention_wgmma", 1, "StagedBias"), ("ab_attention_hinted_wgmma", 1, "Softmax")}
+AB_CHAIN_BLOCKS_PER_SM = 4
 
 
 def phase_ab_kernels(smi: str) -> dict:
@@ -2036,8 +2044,9 @@ def phase_ab_kernels(smi: str) -> dict:
     in turns with the plain version (5 calls) and the one PyTorch call that
     computes the same function (SDPA, or an einsum for the four probes),
     and by device time (``kernel_times.device_ms``, 20 calls, twice); then
-    T5's, T12's, T8 ``full``'s and T1's bf16 bits against K1's
-    (``ab_dense.k1_bits``).
+    T5's, T12's, T8 ``full``'s, T1's, T9's (both modes) and T10's bf16
+    bits against K1's (``ab_dense.k1_bits``); ptxas's figures and the
+    occupancy of ab_chain.cu's Hopper kernels.
     Returns the ``kernels`` line's numbers per T id."""
     device = torch.device("cuda")
     bench = ab_dense.Bench(device, ab_dense.Sizes(), 0, 2, 20)
@@ -2045,7 +2054,7 @@ def phase_ab_kernels(smi: str) -> dict:
         small = {(r["function"], r.get("mode", "")): r for r in ab_dense.exp_kernels(
             ab_dense.Bench(device, ab_dense.SMALL_SIZES, 0, 1, 1, dtype=torch.float32))}
         full = ab_dense.exp_kernels(bench)
-    k1_bits = ab_dense.k1_bits(bench)  # raises unless T1's, T5's, T8 full's and T12's bf16 bits are K1's
+    k1_bits = ab_dense.k1_bits(bench)  # raises unless T1's, T5's, T8 full's, T9's, T10's and T12's bf16 bits are K1's
     by_id = {}
     for row in full:
         tid, mode = row["kernel"], row.get("mode", "")
@@ -2067,12 +2076,21 @@ def phase_ab_kernels(smi: str) -> dict:
     check(set(by_id) == set(AB_KERNELS), f"ab_kernels: ids checked {sorted(by_id)}")
     resources = {source: kernel_build.kernel_resources(source)
                  for source in ("ab_chain.cu", "ab_dense_variants.cu", "ab_qk_probe.cu")}
-    hopper = [r for r in resources["ab_chain.cu"] if r["kernel"] == "ab_attention_wgmma"]
-    check({(r["template_args"][0], r.get("policy")) for r in hopper} == AB_CHAIN_HOPPER_INSTANCES
-          and not any(r.get("spill_store_bytes", 0) or r.get("spill_load_bytes", 0) for r in hopper),
+    hopper = [r for r in resources["ab_chain.cu"] if r["kernel"].endswith("_wgmma")]
+    check({(r["kernel"], r["template_args"][0], r.get("policy")) for r in hopper} == AB_CHAIN_HOPPER_INSTANCES
+          and not any(r.get("spill_store_bytes", 0) or r.get("spill_load_bytes", 0) for r in hopper)
+          and all(r["registers"] <= 128 for r in hopper),
           f"ab_kernels: ab_chain.cu's Hopper instances {hopper}")
+    # every variant's bf16 kernel: blocks an SM by the runtime's calculator,
+    # at the shared bytes the wrapper mirrors
+    occupancy = {code: ab_attention.chain_occupancy(torch.bfloat16, code) for code in ab_attention.CHAIN_CODES}
+    check(all(blocks == AB_CHAIN_BLOCKS_PER_SM and nbytes == ab_attention.chain_smem_bytes(code)
+              for code, (blocks, nbytes) in occupancy.items()),
+          f"ab_kernels: ab_chain.cu's bf16 (blocks an SM, shared bytes) by variant {occupancy}")
     emit("ab_kernels", cases=full, fp32_shape=dataclasses.asdict(ab_dense.SMALL_SIZES),
-         bf16_shape=dataclasses.asdict(ab_dense.Sizes()), k1_bits=k1_bits, resources=resources, nvidia_smi=smi)
+         bf16_shape=dataclasses.asdict(ab_dense.Sizes()), k1_bits=k1_bits, resources=resources,
+         chain_occupancy={code: dict(blocks_per_sm=b, smem_bytes=s) for code, (b, s) in occupancy.items()},
+         nvidia_smi=smi)
     return by_id
 
 

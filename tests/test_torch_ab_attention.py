@@ -427,6 +427,106 @@ def test_t10_chain_bias_cost(dtype):
     assert_close(ab.chain_bias_cost(tq, tk, tv, torch.from_numpy(bias)), want, dtype)
 
 
+def _t9_walk(q, k, v, bias):
+    """The bf16 Hopper body of T9 (both modes) and T10: K1's biased
+    instance at scale 1 on [bh, 1, n, d] views, the shared row [1, 1, n]
+    expanded to every (b, h) (``_k1_walk``). ``2d`` reads the same fp32
+    values from shared memory, zero past the last key as ``1d``'s edge rule
+    gives them, so one model serves both."""
+    rows = bias.reshape(1, -1).expand(q.shape[0], -1)
+    return _k1_walk(*(t[:, None] for t in (q, k, v)), 1.0, rows)[:, 0]
+
+
+@pytest.mark.parametrize("mode", ab.BIAS_MODES)
+@pytest.mark.parametrize("n,blk", [(64, 64), (37, 37), (200, 40)])
+def test_t9_tile_walk_matches_jax_kernel(mode, n, blk):
+    """The redesigned T9 (``_t9_walk``: 64-key tiles, the last ending
+    mid-tile at 37 and 200) against the JAX tool's kernel
+    (``ab_decomp.chain_bias``, interpret mode) and the port's wrapper on
+    the CPU, on the same bf16 inputs and a log-size bias."""
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = n, blk, 16
+    rng = np.random.default_rng(23)
+    (jq, tq), (jk, tk), (jv, tv) = chain_inputs(rng, n, "bfloat16")
+    bias = np.log(rng.uniform(1, 12, (1, 1, n))).astype(np.float32)
+    got = _t9_walk(tq, tk, tv, torch.from_numpy(bias))
+    assert_close(got, tool.chain_bias(jq, jk, jv, jnp.asarray(bias), mode), "bfloat16")
+    assert_close(got, ab.chain_bias(tq, tk, tv, torch.from_numpy(bias), mode).float().numpy(), "bfloat16")
+
+
+@pytest.mark.parametrize("n,blk", [(37, 37), (200, 40)])
+def test_t10_tile_walk_matches_jax_kernel(n, blk):
+    """The redesigned T10, T9 ``1d``'s walk in a kernel with an occupancy
+    target, against ``ab_decomp.chain_bias(..., "1d")`` (its body line for
+    line, as ``test_t10_chain_bias_cost`` explains) and the port's wrapper
+    on the CPU."""
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = n, blk, 16
+    rng = np.random.default_rng(24)
+    (jq, tq), (jk, tk), (jv, tv) = chain_inputs(rng, n, "bfloat16")
+    bias = np.log(rng.uniform(1, 12, (1, 1, n))).astype(np.float32)
+    got = _t9_walk(tq, tk, tv, torch.from_numpy(bias))
+    assert_close(got, tool.chain_bias(jq, jk, jv, jnp.asarray(bias), "1d"), "bfloat16")
+    assert_close(got, ab.chain_bias_cost(tq, tk, tv, torch.from_numpy(bias)).float().numpy(), "bfloat16")
+
+
+def _smem_constants(policy: dict) -> dict:
+    """``ModeSmem<Mode>``'s constants of ``csrc/wgmma_attention.cuh``, and
+    ``WalkSmem``'s as ``WalkSmem::<name>``, evaluated from the source with
+    the policy's flags ``policy`` (C's ternaries as Python's)."""
+    import re
+
+    from vtm_torch.ops import build
+
+    text = (build.CSRC / "wgmma_attention.cuh").read_text()
+    scope = dict(kRows=64, kTileBytes=64 * 128, **{f"Mode::{flag}": value for flag, value in policy.items()})
+    for struct in ("WalkSmem", "ModeSmem"):
+        body = text[text.index(f"struct {struct} {{"):]
+        local = {}
+        for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);", body[:body.index("};")]):
+            expr = re.sub(r"(?:\w+::)?k\w+", lambda m: repr({**scope, **local}[m.group(0)]), expr)
+            ternary = re.fullmatch(r"(.+?) \? (.+?) : (.+)", expr)
+            local[name] = eval(f"({ternary[2]}) if {ternary[1]} else ({ternary[3]})" if ternary else expr)
+        scope.update({f"{struct}::{name}": value for name, value in local.items()})
+    return {**scope, **local}
+
+
+def test_staged_bias_keeps_four_blocks_an_sm():
+    """T9 ``2d``'s two 256-byte bias slots sit after the output stage and
+    keep ab_chain.cu's Hopper kernels at 4 blocks an SM: the launch bytes
+    evaluated from ``wgmma_attention.cuh``'s ``WalkSmem`` and ``ModeSmem``
+    equal the wrapper's mirror (``ab.chain_smem_bytes``), 50,176 B and
+    50,688 B staged, each at most 57,344 B (an SM's 233,472 B over 4, less
+    the 1 KB a block reserves). The chip's occupancy calculator says the
+    same on the card (chip_smoke's ab_kernels)."""
+    flags = dict(kOnes=False, kStageBias=False)
+    plain, staged = _smem_constants(flags), _smem_constants(dict(flags, kStageBias=True))
+    assert (plain["kLaunchBytes"], staged["kLaunchBytes"]) == (50176, 50688)
+    assert staged["kBiasSlots"] % 16 == 0 and staged["kBiasSlots"] >= staged["WalkSmem::kOut"] + 64 * 128
+    assert staged["kBiasSlots"] + staged["kBiasBytes"] + 1024 <= staged["kLaunchBytes"]
+    sm_bytes, reserved = 233472, 1024  # an H100 SM's shared memory for blocks, and each block's reserve
+    for code in ab.CHAIN_CODES:
+        want = (staged if code == ab._CHAIN_BIAS_STAGED else plain)["kLaunchBytes"]
+        assert ab.chain_smem_bytes(code) == want <= sm_bytes // 4 - reserved == 57344
+        assert sm_bytes // (want + reserved) == 4
+
+
+def test_t9_staged_bias_must_be_aligned(monkeypatch):
+    """T9 ``2d`` copies the bias 16 bytes at a time: a row that starts off
+    a 16-byte boundary is refused before any launch (``1d`` takes it)."""
+    launched = []
+    monkeypatch.setattr(ab, "_flat_chain", lambda *args: launched.append(args[:2]))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    q = torch.zeros((2, 40, 64), dtype=torch.bfloat16)
+    bias = torch.zeros((1, 1, 41))[..., 1:]
+    assert bias.is_contiguous() and bias.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ab.chain_bias(q, q, q, bias, "2d")
+    ab.chain_bias(q, q, q, bias, "1d")
+    ab.chain_bias(q, q, q, torch.zeros((1, 1, 40)), "2d")
+    assert launched == [("chain_bias", ab._CHAIN_BIAS), ("chain_bias", ab._CHAIN_BIAS_STAGED)]
+
+
 # ---- T4, T5, T11, T12: whole attention --------------------------------------
 
 
@@ -677,11 +777,13 @@ def _chain_dispatch():
 
 
 def test_t1_t8_launch_hopper_variants(monkeypatch):
-    """On a CUDA tensor T8 passes its mode's code (0, 1, 2) and T1 a code of
+    """On a CUDA tensor T8 passes its mode's code (0, 1, 2), T1 a code of
     its own (6, a per-batch bias row of stride n or a shared one of stride
-    0), which ab_chain.cu sends to the Hopper body in bf16; T9 ``1d``,
-    ``2d`` and T10 keep codes 3, 4 and 5 on the first body. No wrapper
-    reaches K1's entry point: the bits K1 gives come from its instance."""
+    0), T9 ``1d``, ``2d`` and T10 codes 3, 4 and 5 (a shared row, stride
+    0); ab_chain.cu sends every code to the Hopper body in bf16 (3 and 6
+    to K1's biased instance, 4 under ``StagedBias``, 5 to the hinted
+    kernel) and to the first body in fp32. No wrapper reaches K1's entry
+    point: the bits K1 gives come from its instance."""
     import inspect
 
     calls = []
@@ -702,7 +804,13 @@ def test_t1_t8_launch_hopper_variants(monkeypatch):
                    ("chain_bias_cost", 5, 0)]
     assert [ab._CHAIN_MODE_CODES[m] for m in ("full", "nosmax", "linear")] == [0, 1, 2]
     assert ab._CHAIN_ATTENTION_BIAS == 6
-    assert _chain_dispatch() == {**{c: "launch_either" for c in (0, 1, 2, 6)}, **{c: "launch" for c in (3, 4, 5)}}
+    assert _chain_dispatch() == {c: "launch_either" for c in ab.CHAIN_CODES}
+    from vtm_torch.ops import build
+
+    text = (build.CSRC / "ab_chain.cu").read_text()
+    for code, instance in ((3, "kBiasPerElement, wg::Softmax>"), (4, "kBiasStaged, wg::StagedBias>"),
+                           (5, "kBiasPerElement, wg::Softmax, true>"), ("kAttentionBias", "kBiasPerElement, wg::Softmax>")):
+        assert f"case {code}: return launch_either<T, kFull, {instance}(a);" in text
     for fn in (ab.chain, ab.chunked_attention, ab._flat_chain, ab._launch_chain):
         code = inspect.getsource(fn)
         assert "flash_attention" not in code and "vtm_attention_fwd" not in code
@@ -754,10 +862,12 @@ def test_cpu_calls_launch_no_kernel():
 
 def test_sources_hold_kernels_of_their_own():
     """Three CUDA sources, each with a note on the TPU function it
-    replaces: ab_chain.cu two __global__ templates, the first body on wmma
-    (fp32, T9, T10) and the Hopper kernel of T1, T5, T8 and T12 on the
-    shared wgmma tile loop: K1's instances (variant codes 0 and 6) and
-    T8's two policies LinearChain and NoSoftmax; ab_qk_probe.cu two, the first body on
+    replaces: ab_chain.cu three __global__ templates, the first body's
+    fp32 template on FMA units and the Hopper kernel of every variant on
+    the shared wgmma tile loop: K1's instances (variant codes 0, 3 and 6),
+    T8's two policies LinearChain and NoSoftmax, T9 2d's StagedBias, and
+    the same loop under T10's occupancy target, with no wmma left;
+    ab_qk_probe.cu two, the first body on
     wmma and the Hopper template of T3 and T7 on wgmma_tiles.cuh's
     products; ab_dense_variants.cu two, the first body's fp32 template on
     FMA units and the bf16 template on the shared wgmma tile loop, with no
@@ -779,7 +889,9 @@ def test_sources_hold_kernels_of_their_own():
             assert text.count("__global__") == 2 and "wmma::mma_sync" in text and "ab_decomp.py" in text
             assert '#include "wgmma_tiles.cuh"' in text and "ab_qk_probe_wgmma(" in text and "wg::mma_ss(" in text
         else:
-            assert text.count("__global__") == 2 and "wmma::mma_sync" in text
+            assert text.count("__global__") == 3 and "wmma" not in text
+            assert "ab_chain_kernel(const T*" in text and "ab_attention_hinted_wgmma(" in text
+            assert "__launch_bounds__(wg::kThreads, kHintedBlocks)" in text and "wg::StagedBias" in text
             assert "ab_b32.py" in text and "ab_block_attn.py" in text
             assert '#include "wgmma_attention.cuh"' in text and "ab_attention_wgmma(" in text
             assert "wg::attend<kBias, wg::AllPairs, Policy>(w, wg::AllPairs(), smem)" in text
@@ -795,8 +907,10 @@ def test_sources_hold_kernels_of_their_own():
 
 def test_ptxas_report_names_each_chain_instance():
     """``build.parse_ptxas`` tells ab_chain.cu's Hopper instances apart by
-    their mangled template arguments (the bias switch and the softmax
-    policy, a class), as chip_smoke's ab_kernels phase reads them against
+    their kernel's name (T10's ``ab_attention_hinted_wgmma`` from
+    ``ab_attention_wgmma``) and mangled template arguments (the bias switch
+    and the softmax policy, a class: T9 2d's ``StagedBias``), as
+    chip_smoke's ab_kernels phase reads them against
     ``AB_CHAIN_HOPPER_INSTANCES``; the first body's and K1's rows keep
     their form."""
     import chip_smoke
@@ -809,18 +923,21 @@ def test_ptxas_report_names_each_chain_instance():
                 f"ptxas info    : Used {registers} registers, used 1 barriers, 560 bytes cmem[0]\n")
 
     args = "EvPK13__nv_bfloat16S4_S4_PKfPS2_iifxiNS_7StridesE"
-    hopper = [(bias, policy) for bias, policy in sorted(chip_smoke.AB_CHAIN_HOPPER_INSTANCES)]
-    text = "".join(entry(f"_ZN12_GLOBAL__N_118ab_attention_wgmmaILb{bias}EN3vtm2wg{len(policy)}{policy}E{args}", 128)
-                   for bias, policy in hopper)
+    hopper = sorted(chip_smoke.AB_CHAIN_HOPPER_INSTANCES)
+    assert {(kernel, policy) for kernel, _, policy in hopper} >= {
+        ("ab_attention_wgmma", "StagedBias"), ("ab_attention_hinted_wgmma", "Softmax")}
+    text = "".join(entry(f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILb{bias}EN3vtm2wg{len(policy)}{policy}E{args}", 128)
+                   for kernel, bias, policy in hopper)
     text += entry("_ZN12_GLOBAL__N_115ab_chain_kernelIfLi2ELi0ELi1EEEvPKT_", 96, spills=8)
     text += entry("_Z19attention_fwd_wgmmaILb1EEvPK13__nv_bfloat16", 120)
     rows = build.parse_ptxas(text)
-    assert [(r["template_args"][0], r["policy"]) for r in rows[:4]] == hopper
-    assert all(r["kernel"] == "ab_attention_wgmma" and r["registers"] == 128 for r in rows[:4])
-    assert (rows[4]["kernel"], rows[4]["dtype"], rows[4]["template_args"]) == ("ab_chain_kernel", "fp32", [2, 0, 1])
-    assert (rows[4]["spill_store_bytes"], rows[4]["registers"]) == (8, 96) and "policy" not in rows[4]
-    assert rows[5] == dict(kernel="attention_fwd_wgmma", dtype="bf16", head_dim=64, template_args=[1],
-                           spill_store_bytes=0, spill_load_bytes=0, registers=120)
+    k = len(hopper)
+    assert [(r["kernel"], r["template_args"][0], r["policy"]) for r in rows[:k]] == hopper
+    assert all(r["registers"] == 128 for r in rows[:k])
+    assert (rows[k]["kernel"], rows[k]["dtype"], rows[k]["template_args"]) == ("ab_chain_kernel", "fp32", [2, 0, 1])
+    assert (rows[k]["spill_store_bytes"], rows[k]["registers"]) == (8, 96) and "policy" not in rows[k]
+    assert rows[k + 1] == dict(kernel="attention_fwd_wgmma", dtype="bf16", head_dim=64, template_args=[1],
+                               spill_store_bytes=0, spill_load_bytes=0, registers=120)
 
 
 def test_card_cases_cover_every_function_and_mode(capsys):

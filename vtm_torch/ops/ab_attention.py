@@ -23,10 +23,11 @@ None is on a model's path; ``vtm_torch.tools.ab_dense`` runs them.
 Kernels: ``csrc/ab_qk_probe.cu`` (T2, T3, T6, T7; T3 and T7 in bf16 on a
 Hopper body of their own, wgmma products from shared memory over
 ``csrc/wgmma_tiles.cuh``), ``csrc/ab_chain.cu`` (T1, T5, T8, T9, T10, T12;
-in bf16 T1, T5, T12 and T8 ``full`` on K1's own instances of the Hopper
-tile loop, ``csrc/wgmma_attention.cuh``, so with K1's output bits, T8
-``linear`` and ``nosmax`` on the same loop under a policy each; T9 and
-T10 keep the first body),
+in bf16 T1, T5, T12, T8 ``full``, T9 ``1d`` and T10 on K1's own instances
+of the Hopper tile loop, ``csrc/wgmma_attention.cuh``, so with K1's output
+bits, T10's in a kernel with an occupancy target; T9 ``2d``, T8 ``linear``
+and ``nosmax`` on the same loop under a policy each; fp32 on a first
+body),
 ``csrc/ab_dense_variants.cu`` (T4, T11; in bf16 on the same tile loop
 under a softmax policy each): CUDA C++ for
 Hopper at head dim 64, built and bound by ``vtm_torch/ops/build.py``.
@@ -69,11 +70,18 @@ AB_LAUNCHES = {name: 0 for name in (
     "chunked_attention", "qk64", "qk_packed", "packed_attention", "grid_swapped", "qk_d64",
     "qk_packed_rowsum", "chain", "chain_bias", "chain_bias_cost", "v2_attention", "n8_attention")}
 
-# variant codes of csrc/ab_chain.cu: in bf16 the three modes (T8; full also
-# T5, T12) and _CHAIN_ATTENTION_BIAS (T1) run the Hopper body, the three
-# bias reads (T9, T10) the first body; fp32 runs the first body throughout
+# variant codes of csrc/ab_chain.cu: in bf16 every one runs the Hopper body
+# (the three modes: T8, full also T5, T12; the three bias reads: T9 1d, 2d,
+# T10; _CHAIN_ATTENTION_BIAS: T1, 1d's instance), fp32 the first body
+CHAIN_CODES = range(7)
 (_CHAIN_FULL, _CHAIN_NOSMAX, _CHAIN_LINEAR, _CHAIN_BIAS, _CHAIN_BIAS_STAGED, _CHAIN_BIAS_HINTED,
- _CHAIN_ATTENTION_BIAS) = range(7)
+ _CHAIN_ATTENTION_BIAS) = CHAIN_CODES
+# shared memory a block of ab_chain.cu's Hopper kernels takes
+# (csrc/wgmma_attention.cuh, ModeSmem::kLaunchBytes): the q tile, two ring
+# stages of k and v and the output stage, 8 KB each, and 1 KB for the
+# swizzle's alignment; the staged bias (T9 2d) two 256-byte slots more
+_HOPPER_BLOCK_BYTES = 6 * 64 * 128 + 1024
+_STAGED_BIAS_BYTES = 2 * KEY_TILE * 4
 _CHAIN_MODE_CODES = {"full": _CHAIN_FULL, "nosmax": _CHAIN_NOSMAX, "linear": _CHAIN_LINEAR}
 # variant codes of csrc/ab_dense_variants.cu
 _DENSE_CODES = {"v2_sum": 0, "v2_fold": 1, "v2_nomax": 2, "packed": 3}
@@ -138,6 +146,23 @@ def chain_plan(b: int, h: int, n: int, swap_grid: bool):
         return batch, head, r0, min(KEY_TILE, n - r0)
 
     return ((b * h, tiles) if swap_grid else (tiles, b * h)), block
+
+
+def chain_smem_bytes(variant: int) -> int:
+    """The dynamic shared bytes a block of ``csrc/ab_chain.cu``'s bf16
+    (Hopper) kernel for ``variant`` takes, as the C side sizes them."""
+    return _HOPPER_BLOCK_BYTES + (_STAGED_BIAS_BYTES if variant == _CHAIN_BIAS_STAGED else 0)
+
+
+def chain_occupancy(dtype: torch.dtype, variant: int) -> tuple:
+    """(blocks an SM, dynamic shared bytes) of the kernel ``csrc/ab_chain.cu``
+    launches for ``variant`` in ``dtype``, from the CUDA runtime's occupancy
+    calculator on the current device. Launches nothing; on the card only."""
+    out = (ctypes.c_int * 2)()
+    err = _library().vtm_ab_chain_occupancy(_DTYPE_CODES[dtype], variant, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy of ab_chain.cu variant {variant} failed with cudaError_t {err}")
+    return out[0], out[1]
 
 
 def split_bias(key_bias: torch.Tensor, dtype: torch.dtype):
@@ -582,13 +607,18 @@ def chain(q, k, v, mode: str, blk: int = KEY_TILE):
 
 def _shared_bias_chain(name, variant, q, k, v, bias):
     _check_fp32_rows("bias", bias, (1, 1, q.shape[1]), q)
+    if variant == _CHAIN_BIAS_STAGED and bias.data_ptr() % _ALIGN:
+        raise ValueError(f"{name}: a staged bias must start {_ALIGN}-byte aligned")
     return _flat_chain(name, variant, q, k, v, bias, 0, 1)
 
 
 def chain_bias(q, k, v, bias, mode: str):
     """T9. ``chain`` full plus a shared fp32 bias [1, 1, n], read from
     device memory per element (``1d``) or staged in shared memory per key
-    tile (``2d``): the same numbers."""
+    tile (``2d``, 16-byte aligned): the same numbers. In bf16 ``1d`` is
+    K1's biased instance at scale 1 (T1's), ``2d`` that loop with each key
+    tile's bias copied in with its keys: both K1's bits for the row
+    expanded to every batch."""
     if mode not in BIAS_MODES:
         raise ValueError(f"mode {mode!r} not in {BIAS_MODES}")
     if not q.is_cuda:
@@ -599,7 +629,7 @@ def chain_bias(q, k, v, bias, mode: str):
 def chain_bias_cost(q, k, v, bias):
     """T10. ``chain_bias`` ``1d`` from a second instantiation that carries
     an occupancy hint and a shared-memory carve-out preference: the same
-    numbers."""
+    numbers (in bf16 K1's bits, 4 blocks an SM)."""
     if not q.is_cuda:
         return chain_bias_cost_plain(q, k, v, bias)
     return _shared_bias_chain("chain_bias_cost", _CHAIN_BIAS_HINTED, q, k, v, bias)

@@ -260,6 +260,8 @@ def load_library() -> ctypes.CDLL:
         p,              # cudaStream_t
     ]
     lib.vtm_ab_chain.restype = i
+    lib.vtm_ab_chain_occupancy.argtypes = [i, i, p]  # dtype, variant, out (2 x int, host memory)
+    lib.vtm_ab_chain_occupancy.restype = i
     lib.vtm_ab_qk_probe.argtypes = [
         i, i, i,        # dtype, depth, rowsum
         p, p, p,        # q, k, out

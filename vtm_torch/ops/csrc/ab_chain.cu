@@ -23,7 +23,7 @@
 // What bounds it on the H100: as K1, the tensor cores (4 B H N^2 d
 // operations against 4 tensors of B H N d: about 800 FLOP per byte at
 // N 1600). Two bodies:
-//   * Hopper body (bf16: T1, T5, T8, T12): the forward tile loop of
+//   * Hopper body (bf16: every variant): the forward tile loop of
 //     wgmma_attention.cuh on a walk built from the four strided views: one
 //     warpgroup per (b*h, 64-row q tile), k and v through a two-stage
 //     cp.async ring, wgmma products with the logits and probabilities in
@@ -32,15 +32,19 @@
 //     attend<true, AllPairs, Softmax> (flash_attention_fwd.cu::
 //     attention_fwd_wgmma, no lse), so on the same operands they give K1's
 //     output bits: what they measure is the block order, the views and the
-//     host's glue, not a body. T8 linear and nosmax run the same loop under
-//     the policies LinearChain and NoSoftmax, which take the exp (and the
-//     max) out of it: what is left is the rest of K1's time.
-//   * first body (fp32, every variant; T9, T10 in bf16 too): the
-//     body K1 keeps for fp32 and other head dims (flash_attention_fwd.cu::
-//     attention_fwd_kernel): one block of 4 warps per (b*h, 64-row q
-//     tile), 64-key tiles of k and v staged in shared memory, bf16 products
-//     on nvcuda::wmma with fp32 accumulation, fp32 products on FMA units,
-//     logits, probabilities and the accumulator in shared memory.
+//     host's glue, not a body. T9 1d runs T1's instance on a shared bias
+//     row (stride 0), T9 2d the same loop under the policy StagedBias,
+//     which brings each key tile's bias into shared memory with its keys,
+//     and T10 T1's instance in a second kernel that carries the hints
+//     below: all three give K1's biased bits. T8 linear and nosmax run the
+//     same loop under the policies LinearChain and NoSoftmax, which take
+//     the exp (and the max) out of it: what is left is the rest of K1's
+//     time.
+//   * first body (fp32, every variant): the body K1 keeps for fp32 and
+//     other head dims (flash_attention_fwd.cu::attention_fwd_kernel): one
+//     block of 4 warps per (b*h, 64-row q tile), 64-key tiles of k and v
+//     staged in shared memory, products on FMA units, logits,
+//     probabilities and the accumulator in shared memory.
 //
 // Why each variant exists here, where the TPU's reason does not carry:
 //   * The TPU chunk is 800 keys; here the chunk is the 64-key tile, the
@@ -48,14 +52,16 @@
 //     numbers depend on that chunk.
 //   * T9's two ways of reading the bias are a layout question of the
 //     broadcast on the TPU. Their Hopper counterparts: each lane reads
-//     bias[key] from device memory inside the softmax loop (`1d`), or the
-//     block stages the tile's 64 values in shared memory first (`2d`).
+//     bias[key] from device memory after q k^T's wait (`1d`: K1's read), or
+//     the tile's 64 values come into shared memory a tile ahead, in the
+//     commit group of its k and v (`2d`; the first body stages them
+//     before the tile's products).
 //   * T10's cost estimate is a hint to XLA's scheduler and changes no
 //     number. CUDA has no such thing. The nearest hints the compiler and
-//     the CUDA runtime do take: an occupancy target, __launch_bounds__(128, 3)
-//     (three blocks of this layout fit one SM's shared memory), and a
-//     preference for the largest shared-memory carve-out. T10 is a second
-//     instantiation of T9 `1d` with both.
+//     the CUDA runtime do take: an occupancy target in __launch_bounds__
+//     (Hopper body 4 blocks an SM, what its 50,176 B allow; first body 3),
+//     and a preference for the largest shared-memory carve-out. T10 is a
+//     second instantiation of T9 `1d` with both.
 //   * T5: blockIdx.x varies fastest. Normally x is the q tile, so blocks
 //     in flight together share one head's k and v; swapped, x is b*h and
 //     neighbouring blocks share nothing (y, the q tile, is capped at
@@ -65,12 +71,11 @@
 //     and writes token-major, so the glue around it is views.
 //   * T1 takes q pre-scaled and a per-batch or shared bias row: the walk's
 //     bias is key_bias + b * bias_batch_stride (stride n or 0).
-//   shared memory: Hopper body 50,176 B (4 blocks an SM), first body bf16
-//   71,936 B, fp32 104,704 B.
+//   shared memory: Hopper body 50,176 B (4 blocks an SM; StagedBias 50,688
+//   B, still 4), first body 104,704 B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <cstring>
@@ -81,7 +86,6 @@
 
 namespace {
 
-using namespace nvcuda;
 using vtm::from_float;
 using vtm::kMask;
 using vtm::load_tile;
@@ -132,6 +136,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     ab_chain_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const float* __restrict__ key_bias, T* __restrict__ out, int num_heads, int n,
                     float scale, long long bias_batch_stride, int swap_grid, Strides st) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs the Hopper body");
   using L = Layout<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
@@ -173,24 +178,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     __syncthreads();
 
-    // ---- s = (q * scale) k^T for this warp's 16 rows --------------------
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bt;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-      for (int nt = 0; nt < kBlockK / 16; ++nt) {
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) {
-          wmma::load_matrix_sync(a, qs + wrow * L::ld_qkv + kk * 16, L::ld_qkv);
-          // k^T as a column-major [d, key] operand: element (d, j) at ks[j * ld + d]
-          wmma::load_matrix_sync(bt, ks + nt * 16 * L::ld_qkv + kk * 16, L::ld_qkv);
-          wmma::mma_sync(acc, a, bt, acc);
-        }
-        wmma::store_matrix_sync(ss + wrow * L::ld_s + nt * 16, acc, L::ld_s, wmma::mem_row_major);
-      }
-    } else {
+    // ---- s = (q * scale) k^T for this lane's half row ---------------------
+    {
       const T* qr = qs + row * L::ld_qkv;
       for (int j = half * 32; j < half * 32 + 32; ++j) {
         const T* kr = ks + j * L::ld_qkv;
@@ -239,22 +228,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     __syncwarp();
 
     // ---- acc += p v ------------------------------------------------------
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-      for (int dt = 0; dt < kD / 16; ++dt) {
-        wmma::load_matrix_sync(acc, os + wrow * L::ld_o + dt * 16, L::ld_o, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < kBlockK / 16; ++kk) {
-          wmma::load_matrix_sync(a, ps + wrow * L::ld_p + kk * 16, L::ld_p);
-          wmma::load_matrix_sync(bv, vs + kk * 16 * L::ld_qkv + dt * 16, L::ld_qkv);
-          wmma::mma_sync(acc, a, bv, acc);
-        }
-        wmma::store_matrix_sync(os + wrow * L::ld_o + dt * 16, acc, L::ld_o, wmma::mem_row_major);
-      }
-    } else {
+    {
       const T* pr = ps + row * L::ld_p;
       for (int d = half * (kD / 2); d < half * (kD / 2) + kD / 2; ++d) {
         float acc = os[row * L::ld_o + d];
@@ -281,17 +255,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 namespace wg = vtm::wg;
 using bf16 = __nv_bfloat16;
 
+constexpr int kHintedBlocks = 4;  // T10's occupancy target: what 50,176 B a block allow an SM
+
 // One warpgroup over 64 query rows of one (b, h): K1's forward instance
-// (policy Softmax; kBias: T1, else T5, T12, T8 full), or T8's linear and
-// nosmax (LinearChain, NoSoftmax). The launch bounds are K1's too, so that
-// ptxas sees K1's kernel body (128 registers, 4 blocks an SM). swap_grid:
-// blockIdx.x is b*h and y the q tile (T5); otherwise x is the q tile (K1).
+// (policy Softmax; kBias: T1, T9 1d, else T5, T12, T8 full), T9 2d's
+// (StagedBias), or T8's linear and nosmax (LinearChain, NoSoftmax).
+// swap_grid: blockIdx.x is b*h and y the q tile (T5); otherwise x is the q
+// tile (K1).
 template <bool kBias, class Policy>
-__global__ void __launch_bounds__(wg::kThreads)
-    ab_attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const float* __restrict__ key_bias,
-                       bf16* __restrict__ out, int num_heads, int n, float scale,
-                       long long bias_batch_stride, int swap_grid, Strides st) {
+__device__ __forceinline__ void attend_views(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                             const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                                             bf16* __restrict__ out, int num_heads, int n, float scale,
+                                             long long bias_batch_stride, int swap_grid, const Strides& st) {
   extern __shared__ unsigned char smem[];
   const int bh = swap_grid ? blockIdx.x : blockIdx.y;
   const int tile = swap_grid ? blockIdx.y : blockIdx.x;
@@ -320,6 +295,28 @@ __global__ void __launch_bounds__(wg::kThreads)
   wg::attend<kBias, wg::AllPairs, Policy>(w, wg::AllPairs(), smem);
 }
 
+// The launch bounds are K1's, so that ptxas sees K1's kernel body (128
+// registers, 4 blocks an SM).
+template <bool kBias, class Policy>
+__global__ void __launch_bounds__(wg::kThreads)
+    ab_attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                       bf16* __restrict__ out, int num_heads, int n, float scale,
+                       long long bias_batch_stride, int swap_grid, Strides st) {
+  attend_views<kBias, Policy>(q, k, v, key_bias, out, num_heads, n, scale, bias_batch_stride, swap_grid, st);
+}
+
+// T10: the same body with an occupancy target (its launch also prefers the
+// largest shared-memory carve-out).
+template <bool kBias, class Policy>
+__global__ void __launch_bounds__(wg::kThreads, kHintedBlocks)
+    ab_attention_hinted_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                              bf16* __restrict__ out, int num_heads, int n, float scale,
+                              long long bias_batch_stride, int swap_grid, Strides st) {
+  attend_views<kBias, Policy>(q, k, v, key_bias, out, num_heads, n, scale, bias_batch_stride, swap_grid, st);
+}
+
 struct Args {
   const void *q, *k, *v, *bias;
   void* out;
@@ -329,7 +326,18 @@ struct Args {
   int swap_grid;
   Strides st;
   cudaStream_t stream;
+  // non-null: launch nothing, write the kernel's blocks an SM and its
+  // dynamic shared bytes here instead
+  int* occupancy;
 };
+
+// Blocks of `kernel` that fit one SM at `bytes` of dynamic shared memory,
+// and those bytes, into out[0], out[1] (its limit already raised).
+template <typename K>
+cudaError_t occupancy(K kernel, int threads, int bytes, int* out) {
+  out[1] = bytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, bytes);
+}
 
 template <typename T, int kMode, int kBias, int kMinBlocks>
 cudaError_t launch(const Args& a) {
@@ -343,6 +351,7 @@ cudaError_t launch(const Args& a) {
                                cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
   }
+  if (a.occupancy) return occupancy(kernel, kThreads, static_cast<int>(L::bytes), a.occupancy);
   const int tiles = (a.n + kBlockQ - 1) / kBlockQ;
   const int bh = a.batch * a.num_heads;
   const dim3 grid = a.swap_grid ? dim3(bh, tiles) : dim3(tiles, bh);
@@ -353,15 +362,55 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// The largest shared-memory carve-out preferred for `kernel`, once a device.
+template <typename K>
+cudaError_t carve_out_once(K kernel, bool (&done)[vtm::kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < vtm::kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < vtm::kMaxDevices) done[dev] = true;
+  return err;
+}
+
+using HopperKernel = void (*)(const bf16*, const bf16*, const bf16*, const float*, bf16*, int, int, float,
+                              long long, int, Strides);
+
+// The Hopper kernel under Policy (kHinted: T10's), its shared-memory limit
+// raised (and with kHinted the carve-out preferred) once a device. Only the
+// kernel named is instantiated.
+template <bool kBias, class Policy, bool kHinted>
+cudaError_t hopper_kernel(HopperKernel* kernel) {
+  if constexpr (kHinted) {
+    *kernel = ab_attention_hinted_wgmma<kBias, Policy>;
+  } else {
+    *kernel = ab_attention_wgmma<kBias, Policy>;
+  }
+  static bool done[vtm::kMaxDevices] = {};
+  cudaError_t err = vtm::allow_smem_once(*kernel, wg::ModeSmem<Policy>::kLaunchBytes, done);
+  if (err != cudaSuccess) return err;
+  if constexpr (kHinted) {
+    static bool carved[vtm::kMaxDevices] = {};
+    err = carve_out_once(*kernel, carved);
+  }
+  return err;
+}
+
 // The grid of both bodies: (q tiles, b*h), or (b*h, q tiles) swapped; the
 // Python side's plan (ops/ab_attention.py::chain_plan).
-template <bool kBias, class Policy>
+template <bool kBias, class Policy, bool kHinted>
 cudaError_t launch_wgmma(const Args& a) {
   constexpr int kBytes = wg::ModeSmem<Policy>::kLaunchBytes;
-  auto kernel = ab_attention_wgmma<kBias, Policy>;
-  static bool done[vtm::kMaxDevices] = {};
-  cudaError_t err = vtm::allow_smem_once(kernel, kBytes, done);
+  if constexpr (Policy::kStageBias) {
+    // every tile's bias values start on a 16-byte boundary
+    if (reinterpret_cast<uintptr_t>(a.bias) % 16 || a.bias_batch_stride % 4) return cudaErrorInvalidValue;
+  }
+  HopperKernel kernel = nullptr;
+  cudaError_t err = hopper_kernel<kBias, Policy, kHinted>(&kernel);
   if (err != cudaSuccess) return err;
+  if (a.occupancy) return occupancy(kernel, wg::kThreads, kBytes, a.occupancy);
   const int tiles = (a.n + wg::kRows - 1) / wg::kRows;
   const int bh = a.batch * a.num_heads;
   const dim3 grid = a.swap_grid ? dim3(bh, tiles) : dim3(tiles, bh);
@@ -372,29 +421,29 @@ cudaError_t launch_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
-// bf16 on the Hopper body under Policy, fp32 on the first body's kMode.
-template <typename T, int kMode, int kBias, class Policy>
+// bf16 on the Hopper body under Policy, fp32 on the first body's kMode;
+// kHinted (T10): each body's hinted kernel.
+template <typename T, int kMode, int kBias, class Policy, bool kHinted = false>
 cudaError_t launch_either(const Args& a) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch_wgmma<kBias != kNoBias, Policy>(a);
+    return launch_wgmma<kBias != kNoBias, Policy, kHinted>(a);
   } else {
-    return launch<T, kMode, kBias, 1>(a);
+    return launch<T, kMode, kBias, kHinted ? 3 : 1>(a);
   }
 }
 
-// bf16: T1, T5, T8 and T12 on the Hopper body, T9 and T10 (3-5) on the
-// first; fp32: every variant on the first body.
+// bf16: every variant on the Hopper body; fp32: every variant on the first.
 template <typename T>
 cudaError_t dispatch_variant(int variant, const Args& a) {
   const bool biased = (variant >= 3 && variant <= 5) || variant == kAttentionBias;
-  if (biased != (a.bias != nullptr)) return cudaErrorInvalidValue;
+  if (!a.occupancy && biased != (a.bias != nullptr)) return cudaErrorInvalidValue;
   switch (variant) {
     case kFull: return launch_either<T, kFull, kNoBias, wg::Softmax>(a);
     case kNoSoftmax: return launch_either<T, kNoSoftmax, kNoBias, wg::NoSoftmax>(a);
     case kLinear: return launch_either<T, kLinear, kNoBias, wg::LinearChain>(a);
-    case 3: return launch<T, kFull, kBiasPerElement, 1>(a);
-    case 4: return launch<T, kFull, kBiasStaged, 1>(a);
-    case 5: return launch<T, kFull, kBiasPerElement, 3>(a);
+    case 3: return launch_either<T, kFull, kBiasPerElement, wg::Softmax>(a);
+    case 4: return launch_either<T, kFull, kBiasStaged, wg::StagedBias>(a);
+    case 5: return launch_either<T, kFull, kBiasPerElement, wg::Softmax, true>(a);
     case kAttentionBias: return launch_either<T, kFull, kBiasPerElement, wg::Softmax>(a);
     default: return cudaErrorInvalidValue;
   }
@@ -406,9 +455,10 @@ cudaError_t dispatch_variant(int variant, const Args& a) {
 //   dtype: 0 = bf16, 1 = fp32 (q, k, v and out share it); head dim 64
 //   variant: 0 full, 1 nosmax, 2 linear (all unbiased; T8, and full T5,
 //     T12); 3 full with the bias read per element, 4 with the bias staged
-//     per key tile, 5 as 3 with the occupancy and carve-out hints (T9, T10:
-//     the first body in both dtypes); 6 full with a bias (T1). In bf16
-//     0-2 and 6 run the Hopper body, in fp32 the first body
+//     per key tile (16-byte aligned rows in bf16), 5 as 3 with the
+//     occupancy and carve-out hints (T9, T10); 6 full with a bias (T1; in
+//     bf16 the same instance as 3). In bf16 every variant runs the Hopper
+//     body, in fp32 the first body
 //   key_bias: fp32, row b at key_bias + b * bias_batch_stride (0: one
 //     row shared by every batch); null for variants 0-2
 //   swap_grid: 0 = (q tile, b*h) with the q tile fastest, 1 = swapped (both bodies)
@@ -419,8 +469,22 @@ extern "C" int vtm_ab_chain(int dtype, int variant, const void* q, const void* k
                             float scale, long long bias_batch_stride, int swap_grid,
                             const long long* strides, void* stream) {
   Args a{q, k, v, key_bias, out, batch, num_heads, n, scale, bias_batch_stride, swap_grid, {},
-         static_cast<cudaStream_t>(stream)};
+         static_cast<cudaStream_t>(stream), nullptr};
   std::memcpy(&a.st, strides, sizeof(a.st));
+  switch (dtype) {
+    case 0: return dispatch_variant<__nv_bfloat16>(variant, a);
+    case 1: return dispatch_variant<float>(variant, a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The kernel that vtm_ab_chain launches for (dtype, variant): its blocks an
+// SM by cudaOccupancyMaxActiveBlocksPerMultiprocessor at its launch's
+// dynamic shared bytes, into out[0], and those bytes into out[1]. Launches
+// nothing. Returns the cudaError_t (0 on success).
+extern "C" int vtm_ab_chain_occupancy(int dtype, int variant, int* out) {
+  Args a{};
+  a.occupancy = out;
   switch (dtype) {
     case 0: return dispatch_variant<__nv_bfloat16>(variant, a);
     case 1: return dispatch_variant<float>(variant, a);

@@ -1,9 +1,9 @@
 // The forward tile loop of the Hopper attention kernels, shared by K1
 // (flash_attention_fwd.cu), K3 (frame_attention_fwd.cu) and K5a
 // (blockdiag_attention_fwd.cu) in their bf16 d = 64 case, and by the A/B
-// variants T4 and T11 (ab_dense_variants.cu) and T8 (ab_chain.cu) through a
-// softmax policy (Softmax below, the default, is K1's, K3's and K5a's), and
-// the pair rules both directions use (the backward loop,
+// variants T4 and T11 (ab_dense_variants.cu) and T8 and T9 (ab_chain.cu)
+// through a softmax policy (Softmax below, the default, is K1's, K3's and
+// K5a's), and the pair rules both directions use (the backward loop,
 // wgmma_attention_bwd.cuh, walks the same rules).
 //
 // A block of one warpgroup (128 threads) owns 64 query rows and walks the
@@ -161,8 +161,15 @@ struct WalkSmem {
 //           p = 0, and out = o / max(|l|, 1e-6) (T8 linear); without a max
 //           too, p is the logits themselves and l stays 0 (T8 nosmax). Both
 //           for measurement only: they are not attention
+//   kStageBias  the key bias comes with its keys: each ring stage has a
+//           slot of 64 fp32 values, filled by cp.async in the tile's commit
+//           group (keys past the frame's end zero-filled), and the logits
+//           read the bias from it, so no device-memory load sits between
+//           q k^T's wait and the max (T9 2d); without it each thread reads
+//           its 16 values with __ldg after the product. The same numbers
 struct Softmax {
-  static constexpr bool kHeads = false, kOnes = false, kFold = false, kMax = true, kExp = true;
+  static constexpr bool kHeads = false, kOnes = false, kFold = false, kMax = true, kExp = true,
+                        kStageBias = false;
 };
 struct HeadPairs : Softmax {
   static constexpr bool kHeads = true;
@@ -182,6 +189,9 @@ struct LinearChain : Softmax {
 struct NoSoftmax : LinearChain {
   static constexpr bool kMax = false;
 };
+struct StagedBias : Softmax {
+  static constexpr bool kStageBias = true;
+};
 
 // A policy's shared memory: WalkSmem's, then the ones (1 KB: the 8 rows of
 // 128 bytes that p 1 reads as a K-major B, each k-step 32 bytes further
@@ -189,13 +199,19 @@ struct NoSoftmax : LinearChain {
 // [16 s, 16 s + 16) hold ring stage s's keys' [hi, lo, 0...], shares the
 // output stage: a frame's outputs pass through it after that frame's last
 // products, and the next tile's columns are written after them. So a
-// folded walk keeps 4 blocks an SM (50 KB each), as K1's does.
+// folded walk keeps 4 blocks an SM (50 KB each), as K1's does. kStageBias:
+// after those, ring stage s's bias slot (64 fp32, 256 B) at kBiasSlots +
+// 256 s; 512 B more, still 4 blocks an SM (4 x (50,688 + 1,024) B).
 template <class Mode>
 struct ModeSmem {
   static constexpr int kOnesBytes = Mode::kOnes ? 1024 : 0;
   static constexpr int kOnesTile = WalkSmem::kOut + kTileBytes;
   static constexpr int kFoldTile = WalkSmem::kOut;
-  static constexpr int kLaunchBytes = WalkSmem::kLaunchBytes + kOnesBytes;
+  static constexpr int kBiasSlotBytes = kRows * 4;
+  static constexpr int kBiasSlots = kOnesTile + kOnesBytes;
+  static constexpr int kBiasBytes = Mode::kStageBias ? 2 * kBiasSlotBytes : 0;
+  static constexpr int kLaunchBytes = WalkSmem::kLaunchBytes + kOnesBytes + kBiasBytes;
+  static_assert(kBiasSlots % 16 == 0, "the bias slots take 16-byte copies");
 };
 
 template <bool kBias, class Rule, class Mode = Softmax>
@@ -210,6 +226,8 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
   static_assert(Mode::kMax || Mode::kFold || kRawLogits, "without a max the mask has to come through q k^T");
   static_assert(Mode::kExp || !(kBias || Mode::kHeads || Mode::kOnes || Mode::kFold),
                 "the chain's policies take no bias, no heads, no ones column");
+  static_assert(!Mode::kStageBias || (kBias && !Mode::kFold && !Mode::kHeads),
+                "a staged bias is the biased walk's one row of key biases, not folded, not per head");
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_addr(smem);
   const int n_tiles = (w.frame_len + kRows - 1) / kRows;  // key tiles a frame
@@ -228,6 +246,20 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
       const int row = key0 + (g % n_tiles) * kRows;
       load_tile_async(dst, w.k, w.k_stride, row, key0 + w.frame_len);
       load_tile_async(dst + kTileBytes, w.v, w.v_stride, row, key0 + w.frame_len);
+      if constexpr (Mode::kStageBias) {
+        // the tile's 64 bias values, 16 bytes a thread (w.bias + row is
+        // 16-byte aligned: the caller's part), the keys past the frame's
+        // end zero-filled
+        if (threadIdx.x < kRows / 4) {
+          const int key = row + 4 * static_cast<int>(threadIdx.x);
+          const int valid = max(0, min(4, key0 + w.frame_len - key));
+          const float* src = w.bias + (valid > 0 ? key : 0);
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                           base + M::kBiasSlots + stage * M::kBiasSlotBytes + 16 * threadIdx.x),
+                       "l"(src), "r"(4 * valid)
+                       : "memory");
+        }
+      }
     }
     cp_async_commit();
   };
@@ -336,7 +368,17 @@ __device__ __forceinline__ void attend(const Walk& w, const Rule& rule, unsigned
     // logits. This thread's 16 key columns: 8 j + 2 (l % 4) + c.
     const bool edge = !Mode::kFold && (Rule::kEveryTile || (ragged && c0 + kRows > w.frame_len));
     float bias_col[16];
-    if constexpr (kBias) {
+    if constexpr (Mode::kStageBias) {
+      // this thread's columns in pairs, from the stage's slot (zero past the
+      // frame's end, as the edge rule below gives)
+      const float* slot = reinterpret_cast<const float*>(smem + M::kBiasSlots + stage * M::kBiasSlotBytes);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 pair = *reinterpret_cast<const float2*>(slot + acc_col(4 * j));
+        bias_col[2 * j] = pair.x;
+        bias_col[2 * j + 1] = pair.y;
+      }
+    } else if constexpr (kBias) {
       const float* bias = w.bias + (Mode::kHeads ? 0LL : static_cast<long long>(f) * w.frame_len) + c0;
 #pragma unroll
       for (int jc = 0; jc < 16; ++jc) {

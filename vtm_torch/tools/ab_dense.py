@@ -15,8 +15,10 @@ package's ``tools/ab_*.py`` through the port's kernels
                                 (two heads per contraction) against K1
   b32          ab_b32.py        T5: the block order at B8 and B32, in turns
   decomp       ab_decomp.py     T6, T7 (row sums), T8 nosmax / linear / full
-  decomp_bias  ab_decomp.py --bias   T9: a shared bias read two ways
-  decomp_cost  ab_decomp.py --cost   T10: the compiler hints
+  decomp_bias  ab_decomp.py --bias   T9: a shared bias read two ways, beside
+                                T8 full, all three on K1's tile loop
+  decomp_cost  ab_decomp.py --cost   T10: the compiler hints, beside T9 1d
+                                and K1
   dense_v2     ab_dense_v2.py   T11 v2_sum / v2_fold / v2_nomax against K1,
                                 and four plain matrix products (torch.matmul)
                                 at contraction 64 / 128 and width 64 / 128
@@ -38,10 +40,10 @@ K1 (``tome_flash_attention``) in the same run, and a ``sdpa`` row where one
 ``scaled_dot_product_attention`` call computes the same function: the
 yardstick, used nowhere in the port. The chunk-dependent three (T2, T3,
 T8 linear) run at blk = 64, the kernels' key tile. Times are CUDA events
-around queued calls; ``bisect`` and ``decomp`` rows also carry
-``device_ms``, the calls' device time with the host's cost hidden
-(``kernel_times.device_ms``). Nothing is written unless ``--out`` names a
-file.
+around queued calls; ``bisect``, ``decomp``, ``decomp_bias`` and
+``decomp_cost`` rows also carry ``device_ms``, the calls' device time with
+the host's cost hidden (``kernel_times.device_ms``). Nothing is written
+unless ``--out`` names a file.
 
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``main(argv, device="cpu")``: the plain versions at a small shape) is
@@ -431,8 +433,9 @@ def exp_decomp(bench: Bench) -> None:
     bench.run("decomp", rows, time_device=True)
 
 
-BIAS_NOTES = {"1d": "bias read per element from device memory", "2d": "bias staged in shared memory per key tile"}
-COST_NOTE = "__launch_bounds__(128, 3) and the largest shared-memory carve-out"
+BIAS_NOTES = {"1d": "bias read per element from device memory after q k^T",
+              "2d": "bias copied into shared memory with each key tile's k and v"}
+COST_NOTE = "an occupancy target (bf16: 4 blocks an SM; fp32: 3) and the largest shared-memory carve-out"
 
 
 def _bias_rows(q3, k3, v3, bias, modes, flops, **fields) -> list:
@@ -453,7 +456,7 @@ def exp_decomp_bias(bench: Bench) -> None:
     rows.append(_prod_row("prod", *views, None, 1.0, flops))
     rows.append(_prod_row("prod_scaled", *views, None, 0.125, flops))
     rows.append(_sdpa_row("sdpa", *views, bias, 1.0, flops))
-    bench.run("decomp_bias", rows)
+    bench.run("decomp_bias", rows, time_device=True)
 
 
 def exp_decomp_cost(bench: Bench) -> None:
@@ -464,7 +467,7 @@ def exp_decomp_cost(bench: Bench) -> None:
     rows.append(kernel_row("fa_forward_raw", "K1", flash_attention._forward, _reference, (*views, None, 1.0),
                            function="K1", flops=flops, note="K1 without its autograd.Function"))
     rows.append(_prod_row("prod", *views, None, 1.0, flops))
-    bench.run("decomp_cost", rows)
+    bench.run("decomp_cost", rows, time_device=True)
 
 
 def exp_dense_v2(bench: Bench) -> None:
@@ -592,18 +595,20 @@ def exp_kernels(bench: Bench) -> List[dict]:
 
 
 def k1_bits(bench: Bench) -> List[dict]:
-    """In bf16 T5, T12, T8 ``full`` and T1 run K1's instances of the Hopper
-    tile loop, so on the same operands their outputs equal K1's
+    """In bf16 T5, T12, T8 ``full``, T1, T9 and T10 run K1's instances of
+    the Hopper tile loop (T9 ``2d`` with the bias staged, the same values),
+    so on the same operands their outputs equal K1's
     (``tome_flash_attention``, no lse) bit for bit. T5 and T12 take the
     split-heads views of a fused [B, N, 3*H*64] projection, at B8 and the
     first of ``packed_ns`` tokens and T5 also at B32; T8 ``full`` (K1
-    unbiased at scale 1 on [bh, 1, n, 64] views) and T1 (K1 biased at
-    scale 1 on [b, h, n, 64] views, a per-batch bias, a shared one expanded
-    to b rows, and the five ``--exp bisect`` host variants against a zero
-    bias) take contiguous [bh, n, 64] operands at ``n_pad`` tokens; every
-    function also at ``K1_BITS_RAGGED_N``. Raises AssertionError on the
-    first bit that differs; returns a row per case. On the card only: on
-    the CPU the plain versions round otherwise."""
+    unbiased at scale 1 on [bh, 1, n, 64] views), T1 (K1 biased at scale 1
+    on [b, h, n, 64] views, a per-batch bias, a shared one expanded to b
+    rows, and the five ``--exp bisect`` host variants against a zero bias),
+    T9 (both modes) and T10 (the shared log-size row against the same K1
+    call as T1's shared case) take contiguous [bh, n, 64] operands at
+    ``n_pad`` tokens; every function also at ``K1_BITS_RAGGED_N``. Raises
+    AssertionError on the first bit that differs; returns a row per case.
+    On the card only: on the CPU the plain versions round otherwise."""
     s = bench.sizes
     if bench.device.type != "cuda" or bench.dtype != torch.bfloat16:
         raise ValueError("k1_bits compares the bf16 kernels on the card")
@@ -636,6 +641,10 @@ def k1_bits(bench: Bench) -> List[dict]:
                 want = tome_flash_attention(*views, bias.view(-1, n).expand(b, n).contiguous(), 1.0)
                 compare("chunked_attention", ab.chunked_attention(*flat, bias, shared, h), want,
                         mode="shared bias" if shared else "per-batch bias", batch=b, n=n)
+                if shared:
+                    for mode in ab.BIAS_MODES:
+                        compare("chain_bias", ab.chain_bias(*flat, bias, mode), want, mode=mode, batch=b, n=n)
+                    compare("chain_bias_cost", ab.chain_bias_cost(*flat, bias), want, batch=b, n=n)
             want = tome_flash_attention(*views, torch.zeros((b, n), device=bench.device), 1.0)
             for name in BISECT_VARIANTS:
                 variant = bisect_variant(name, ab.chunked_attention, b, h, n, bench.device)

@@ -17,10 +17,14 @@
      tile), there timed beside the
      plain version and the library call (2 x 10 calls in turns), and by
      device time (``kernel_times.device_ms``);
-  3. runs ``ab_dense.k1_bits``: T5, T12, T8 ``full`` and T1 in bf16 (K1's
-     instances of the Hopper tile loop) against K1 on the same views, bit
-     for bit: T5 and T12 at N 1568 and T5 at B32, T8 ``full`` and T1 (both
-     bias kinds, the five bisect variants) at n 1600, all at ragged N.
+  3. runs ``ab_dense.k1_bits``: T5, T12, T8 ``full``, T1, T9 and T10 in
+     bf16 (K1's instances of the Hopper tile loop, T9 ``2d`` with its bias
+     staged) against K1 on the same views, bit for bit: T5 and T12 at N
+     1568 and T5 at B32, T8 ``full``, T1 (both bias kinds, the five
+     bisect variants), T9 (both modes) and T10 at n 1600, all at ragged N;
+  4. prints, for every variant code of ``csrc/ab_chain.cu`` in bf16, the
+     blocks an SM of the kernel it launches (the runtime's occupancy
+     calculator) and its dynamic shared bytes.
 Prints one JSON line per step and per row. Needs a CUDA device and nvcc.
 """
 
@@ -31,6 +35,7 @@ import time
 
 import torch
 
+from vtm_torch.ops import ab_attention
 from vtm_torch.ops import build as kernel_build
 from vtm_torch.ops.build import kernel_resources
 from vtm_torch.tools import ab_dense
@@ -53,6 +58,10 @@ def main():
     ab_dense.exp_kernels(bench)
     for row in ab_dense.k1_bits(bench):
         print(json.dumps(dict(step="k1_bits", **row)), flush=True)
+    for code in ab_attention.CHAIN_CODES:
+        blocks, smem = ab_attention.chain_occupancy(torch.bfloat16, code)
+        print(json.dumps(dict(step="occupancy", source="ab_chain.cu", variant=code, blocks_per_sm=blocks,
+                              smem_bytes=smem)), flush=True)
 
 
 if __name__ == "__main__":

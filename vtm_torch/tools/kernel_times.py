@@ -32,9 +32,10 @@ variants), unbiased and biased, and T5 (``grid_swapped``) and T12
 (``n8_attention``), unbiased, beside K1, at B8 H12 N 1568 d64 bf16 on the
 same fused views; K1, T5 and T12 again at ``AB_BATCHES`` (B12 to B32,
 where the heads' k and v outgrow L2); then the chains, beside K1 at
-scale 1 (unbiased, and with T1's per-batch bias) on the same operands:
-T1 (per-batch and shared bias) and T8 (every mode) on the Hopper body,
-T9 (``1d``) and T10 on the first, and the four q k^T probes T2
+scale 1 (unbiased, with T1's per-batch bias, and with the shared row
+expanded to every batch) on the same operands: T1 (per-batch and shared
+bias), T8 (every mode), T9 (``1d``, ``2d``) and T10, all on the Hopper
+body in bf16, and the four q k^T probes T2
 (``qk64``), T3 (``qk_packed``), T6 (``qk_d64``) and T7
 (``qk_packed_rowsum``), at the A/B tools' shape, [96, 1600, 64] bf16 (the
 packed forms qp [48, 3200, 128], kc [48, 1600, 128]), both clocks.
@@ -207,11 +208,14 @@ def exp_ab(gen, iters: int, smi: str) -> None:
                   for _ in range(3))
     bias = torch.log(torch.rand((B, 1, PROBE_N), generator=gen, device="cuda") * 11 + 1)
     q4, k4, v4 = (t.view(B, H, PROBE_N, D) for t in (q3, k3, v3))
+    shared = bias[:1].view(1, PROBE_N).expand(B, PROBE_N).contiguous()
     chains = [("K1", "unbiased, scale 1", lambda: tome_flash_attention(q4, k4, v4, None, 1.0)),
               ("K1", "per-batch bias, scale 1", lambda: tome_flash_attention(q4, k4, v4, bias.view(B, PROBE_N), 1.0)),
+              ("K1", "shared bias, scale 1", lambda: tome_flash_attention(q4, k4, v4, shared, 1.0)),
               ("T1", "per-batch bias", lambda: ab_attention.chunked_attention(q3, k3, v3, bias, False, H)),
               ("T1", "shared bias", lambda: ab_attention.chunked_attention(q3, k3, v3, bias[:1], True, H)),
               ("T9", "1d", lambda: ab_attention.chain_bias(q3, k3, v3, bias[:1], "1d")),
+              ("T9", "2d", lambda: ab_attention.chain_bias(q3, k3, v3, bias[:1], "2d")),
               ("T10", "", lambda: ab_attention.chain_bias_cost(q3, k3, v3, bias[:1]))]
     chains += [("T8", mode, functools.partial(ab_attention.chain, q3, k3, v3, mode))
                for mode in ab_attention.CHAIN_MODES]
