@@ -74,7 +74,7 @@ Phases, each printing one JSON line:
                   plain version by the entry point's own rule
                   (ab_dense.exp_kernels): fp32 at a small ragged shape, bf16
                   at B8 H12 d64 and the tools' token counts, timed the same
-                  way, and by device time; the packed row sums T7 also at
+                  way, and by device time; the row sums T6 and T7 also at
                   key counts that end inside a tile
                   (ab_dense.Sizes.ragged_probes);
                   T5, T12, T8 full, T1, T9 and T10 in bf16 (K1's own
@@ -87,7 +87,9 @@ Phases, each printing one JSON line:
                   bf16 on the tile loop; each kernel's blocks an SM by the
                   runtime's calculator), ab_dense_variants.cu (T4 and T11,
                   whose bf16 instances run K1's tile loop) and
-                  ab_qk_probe.cu (T3 and T7 in bf16 on its wgmma body). The
+                  ab_qk_probe.cu (T2, T3, T6 and T7 in bf16 on its wgmma
+                  body at depth 64 and 128, four instances, each kernel's
+                  blocks an SM by the runtime's calculator). The
                   four q k^T probes' bound is that of the function (one pass
                   over k and a narrow product), their n x n product's stands
                   beside it as ``product_bound_ms``; the packed forms' also
@@ -2035,6 +2037,9 @@ AB_CHAIN_HOPPER_INSTANCES = {
     ("ab_attention_wgmma", 0, "LinearChain"), ("ab_attention_wgmma", 0, "NoSoftmax"),
     ("ab_attention_wgmma", 1, "StagedBias"), ("ab_attention_hinted_wgmma", 1, "Softmax")}
 AB_CHAIN_BLOCKS_PER_SM = 4
+# ab_qk_probe.cu's bf16 instances of ab_qk_probe_wgmma<depth, rowsum>: T2,
+# T6 at depth 64, T3, T7 at 128
+AB_QK_PROBE_INSTANCES = {(64, 0), (64, 1), (128, 0), (128, 1)}
 
 
 def phase_ab_kernels(smi: str) -> dict:
@@ -2046,7 +2051,7 @@ def phase_ab_kernels(smi: str) -> dict:
     and by device time (``kernel_times.device_ms``, 20 calls, twice); then
     T5's, T12's, T8 ``full``'s, T1's, T9's (both modes) and T10's bf16
     bits against K1's (``ab_dense.k1_bits``); ptxas's figures and the
-    occupancy of ab_chain.cu's Hopper kernels.
+    occupancy of ab_chain.cu's and ab_qk_probe.cu's Hopper kernels.
     Returns the ``kernels`` line's numbers per T id."""
     device = torch.device("cuda")
     bench = ab_dense.Bench(device, ab_dense.Sizes(), 0, 2, 20)
@@ -2087,9 +2092,25 @@ def phase_ab_kernels(smi: str) -> dict:
     check(all(blocks == AB_CHAIN_BLOCKS_PER_SM and nbytes == ab_attention.chain_smem_bytes(code)
               for code, (blocks, nbytes) in occupancy.items()),
           f"ab_kernels: ab_chain.cu's bf16 (blocks an SM, shared bytes) by variant {occupancy}")
+    probes = [r for r in resources["ab_qk_probe.cu"] if r["kernel"] == "ab_qk_probe_wgmma"]
+    check(sorted(tuple(r["template_args"]) for r in probes) == sorted(AB_QK_PROBE_INSTANCES)
+          and not any(r.get("spill_store_bytes", 0) or r.get("spill_load_bytes", 0) for r in probes),
+          f"ab_kernels: ab_qk_probe.cu's Hopper instances {probes}")
+    # each probe kernel: the blocks an SM its shared memory allows, by the
+    # runtime's calculator (so the registers allow them too)
+    probe_occupancy = {(depth, rowsum): ab_attention.probe_occupancy(depth, bool(rowsum))
+                       for depth, rowsum in sorted(AB_QK_PROBE_INSTANCES)}
+    check(all((blocks, nbytes) == (ab_attention.PROBE_TILING[depth]["blocks_per_sm"],
+                                   ab_attention.PROBE_TILING[depth]["smem_bytes"])
+              for (depth, _), (blocks, nbytes) in probe_occupancy.items()),
+          f"ab_kernels: ab_qk_probe.cu's (blocks an SM, shared bytes) by (depth, rowsum) {probe_occupancy}")
     emit("ab_kernels", cases=full, fp32_shape=dataclasses.asdict(ab_dense.SMALL_SIZES),
          bf16_shape=dataclasses.asdict(ab_dense.Sizes()), k1_bits=k1_bits, resources=resources,
          chain_occupancy={code: dict(blocks_per_sm=b, smem_bytes=s) for code, (b, s) in occupancy.items()},
+         probe_occupancy={f"depth {d}, rowsum {r}": dict(blocks_per_sm=b, smem_bytes=nbytes,
+                                                         row_tiles=ab_attention.PROBE_TILING[d]["row_tiles"],
+                                                         stages=ab_attention.PROBE_TILING[d]["stages"])
+                          for (d, r), (b, nbytes) in probe_occupancy.items()},
          nvidia_smi=smi)
     return by_id
 

@@ -247,6 +247,77 @@ def test_t7_tile_walk_matches_jax_kernel(n, blk):
     assert_close(got, ab.qk_packed_rowsum(tqp, tkc).numpy(), "float32")
 
 
+@pytest.mark.parametrize("n,blk", [(37, 37), (64, 64), (200, 40), (320, 64)])
+def test_t6_tile_walk_matches_jax_kernel(n, blk):
+    """The redesigned T6's arithmetic (``_probe_tile_walk`` at depth 64:
+    64-key tiles of four 16-deep k-steps, the last tile ending mid-tile at
+    n 37 and 200, then the quad-wise row sums) against the JAX tool's
+    kernel on the same bf16 operands; both sum in fp32, so within the
+    file's fp32 tolerance. n 64, 200 and 320 leave the Hopper body's last
+    row block partly filled."""
+    tool = jax_tool("ab_decomp")
+    tool.N_PAD, tool.BLK, tool.D = n, blk, 64
+    rng = np.random.default_rng(17)
+    (jq, tq), (jk, tk) = (both(normal(rng, 4, n, 64), "bfloat16") for _ in range(2))
+    got = _probe_tile_walk(tq, tk, rowsum=True)
+    assert got.dtype == torch.float32 and got.shape == (4, n, 1)
+    assert_close(got, tool.qk_d64(jq, jk), "float32")
+    assert_close(got, ab.qk_d64(tq, tk).numpy(), "float32")
+
+
+@pytest.mark.parametrize("n", [64, 320])
+def test_t2_tile_walk_matches_jax_kernel(n):
+    """The redesigned T2's arithmetic (``_probe_tile_walk`` at depth 64:
+    one fp32 accumulator a column over every 64-key tile, cast to bf16
+    once) against the JAX tool's kernel (interpret mode, blk 64) on the
+    same bf16 operands, within the file's bf16 tolerance. n 64 and 320
+    leave the Hopper body's last row block partly filled."""
+    tool = jax_tool("ab_mxu_pack")
+    rng = np.random.default_rng(18)
+    (jq, tq), (jk, tk) = (both(normal(rng, 4, n, 64), "bfloat16") for _ in range(2))
+    got = _probe_tile_walk(tq, tk, rowsum=False)
+    assert got.shape == (4, n, 64) and got.dtype == torch.bfloat16
+    assert_close(got, tool.qk64(jq, jk, 64), "bfloat16")
+    assert_close(got, ab.qk64(tq, tk).float().numpy(), "bfloat16")
+
+
+def _probe_smem(depth: int) -> dict:
+    """``WgSmem<depth>``'s constants of ``csrc/ab_qk_probe.cu``, evaluated
+    from the source: the tiling of ``WgTiling<depth>``."""
+    import re
+
+    from vtm_torch.ops import build
+
+    text = (build.CSRC / "ab_qk_probe.cu").read_text()
+    specialised = text[text.index("struct WgTiling<64> {"):]
+    tiling = specialised if depth == 64 else text[text.index("struct WgTiling {"):]
+    scope = dict(kDepth=depth, kRows=64, kTileBytes=64 * 128)
+    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);", tiling[:tiling.index("};")]):
+        scope[name] = int(expr)
+    body = text[text.index("struct WgSmem {"):]
+    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);", body[:body.index("};")]):
+        expr = re.sub(r"WgTiling<kDepth>::(\w+)", r"\1", expr).replace(" / ", " // ")  # C's int division
+        scope[name] = eval(re.sub(r"(?:wg::)?k\w+", lambda m: repr(scope[m.group(0).split("::")[-1]]), expr))
+    return scope
+
+
+@pytest.mark.parametrize("depth", [64, 128])
+def test_probe_shared_bytes_per_depth_match_the_source(depth):
+    """The probe body's tiling is a constant of the depth: its launch
+    bytes and the blocks an SM they allow, evaluated from
+    ``ab_qk_probe.cu``'s ``WgTiling`` and ``WgSmem``, are the figures of
+    ``PROBE_TILING`` that chip_smoke's ab_kernels holds the runtime's
+    occupancy calculator to: at depth 64 (T2, T6) 2 row tiles, 4 stages,
+    50,176 B, 4 blocks an SM; at 128 (T3, T7) 4, 3, 115,712 B, 2. The
+    output stage of the columns form fits the ring's first stage at both
+    depths."""
+    c = _probe_smem(depth)
+    want = {64: (2, 4, 50_176, 4), 128: (4, 3, 115_712, 2)}[depth]
+    assert (c["kRowTiles"], c["kStages"], c["kLaunchBytes"], c["kMinBlocks"]) == want
+    assert tuple(ab.PROBE_TILING[depth].values()) == want
+    assert c["kStage"] >= 64 * 128
+
+
 # ---- T8, T9, T10: the chain --------------------------------------------------
 
 
@@ -867,9 +938,10 @@ def test_sources_hold_kernels_of_their_own():
     the shared wgmma tile loop: K1's instances (variant codes 0, 3 and 6),
     T8's two policies LinearChain and NoSoftmax, T9 2d's StagedBias, and
     the same loop under T10's occupancy target, with no wmma left;
-    ab_qk_probe.cu two, the first body on
-    wmma and the Hopper template of T3 and T7 on wgmma_tiles.cuh's
-    products; ab_dense_variants.cu two, the first body's fp32 template on
+    ab_qk_probe.cu two, the first body's fp32 template on FMA units and
+    the Hopper template of T2, T3, T6 and T7 (bf16 at depth 64 and 128) on
+    wgmma_tiles.cuh's products, with no wmma left (since T2 and T6 moved
+    to the Hopper template); ab_dense_variants.cu two, the first body's fp32 template on
     FMA units and the bf16 template on the shared wgmma tile loop, with no
     wmma left. None calls a library's product or attention, or K1's entry
     point; the wrappers call no matrix product either."""
@@ -886,8 +958,10 @@ def test_sources_hold_kernels_of_their_own():
             assert "ab_dense_variant_kernel(const float*" in text and "wg::attend<" in text
             assert '#include "wgmma_attention.cuh"' in text and "wmma" not in text
         elif name == "ab_qk_probe.cu":
-            assert text.count("__global__") == 2 and "wmma::mma_sync" in text and "ab_decomp.py" in text
+            assert text.count("__global__") == 2 and "wmma" not in text and "ab_decomp.py" in text
             assert '#include "wgmma_tiles.cuh"' in text and "ab_qk_probe_wgmma(" in text and "wg::mma_ss(" in text
+            assert "ab_qk_probe_kernel(const T*" in text and "std::is_same<T, float>::value" in text
+            assert "launch_bf16<64>(" in text and "launch_bf16<128>(" in text
         else:
             assert text.count("__global__") == 3 and "wmma" not in text
             assert "ab_chain_kernel(const T*" in text and "ab_attention_hinted_wgmma(" in text
@@ -989,13 +1063,13 @@ def test_k1_bits_runs_on_the_card_only():
 
 
 def test_ragged_probes_end_inside_a_key_tile():
-    """The card's ragged cases of T7 (``ab_dense.Sizes.ragged_probes``):
+    """The card's ragged cases of T6 and T7 (``ab_dense.Sizes.ragged_probes``):
     key counts that end inside a 64-key tile and that span several tiles,
     which the probes' shape (n 1600, 25 full tiles) does not reach."""
     from vtm_torch.tools import ab_dense
 
     ns = [n for tid, n in ab_dense.Sizes().ragged_probes]
-    assert {tid for tid, _ in ab_dense.Sizes().ragged_probes} == {"T7"}
+    assert {tid for tid, _ in ab_dense.Sizes().ragged_probes} == {"T6", "T7"}
     assert all(n % ab.KEY_TILE for n in ns) and any(n > ab.KEY_TILE for n in ns)
 
 
@@ -1009,6 +1083,28 @@ def test_kernel_times_takes_a_list_of_experiments(arg, want):
     assert kernel_times.experiments(arg) == want
     with pytest.raises(Exception, match="unknown experiments"):
         kernel_times.experiments(arg + ",probes")
+
+
+def test_ptxas_report_names_each_probe_instance():
+    """``build.parse_ptxas`` reads ab_qk_probe.cu's Hopper instances by
+    their mangled template arguments (depth, rowsum), as chip_smoke's
+    ab_kernels phase holds them against ``AB_QK_PROBE_INSTANCES``; the
+    first body's fp32 rows keep their form."""
+    import chip_smoke
+    from vtm_torch.ops import build
+
+    def entry(mangled, registers):
+        return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+                f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+                f"ptxas info    : Used {registers} registers, used 1 barriers, 392 bytes cmem[0]\n")
+
+    text = "".join(entry(f"_ZN12_GLOBAL__N_117ab_qk_probe_wgmmaILi{depth}ELb{rowsum}EEEvPK13__nv_bfloat16S3_Pvii", 160)
+                   for depth, rowsum in sorted(chip_smoke.AB_QK_PROBE_INSTANCES))
+    text += entry("_ZN12_GLOBAL__N_118ab_qk_probe_kernelIfLi64ELb1EEEvPKT_S3_Pvii", 90)
+    rows = build.parse_ptxas(text)
+    assert [tuple(r["template_args"]) for r in rows[:4]] == sorted(chip_smoke.AB_QK_PROBE_INSTANCES)
+    assert all(r["kernel"] == "ab_qk_probe_wgmma" and r["spill_store_bytes"] == 0 for r in rows[:4])
+    assert (rows[4]["kernel"], rows[4]["dtype"], rows[4]["template_args"]) == ("ab_qk_probe_kernel", "fp32", [64, 1])
 
 
 @pytest.mark.parametrize("name,args", [("T2", "qk"), ("T3", "packed"), ("T6", "qk"), ("T7", "packed")])

@@ -285,7 +285,11 @@ def test_reference_lse_is_each_rows_logsumexp(frames, s, mode):
     """``_blockdiag_reference(..., want_lse=True)``: the same output, and lse
     fp32 [B, H, N], one a row, equal to torch.logsumexp over its frame's
     keys of the logits, the bias (kept off row 0 of each frame under the
-    row mask) included; computed here in float64, within 1e-5."""
+    row mask) included; computed here in float64, within 1e-5. A failure
+    names the CPU code path and whether a second evaluation in the same
+    process gave the same bits, which tells a transient deviation from one
+    of the host's arithmetic, and how far the fp32 q k^T lies from the
+    float64 one, which tells the product's error from the logsumexp's."""
     with_bias, excl = mode
     q, k, v, bias = _torch(*_inputs(frames, s, 2, with_bias, seed=10))
     out, lse = _blockdiag_reference(q, k, v, bias, 0.25, frames, excl, want_lse=True)
@@ -293,13 +297,20 @@ def test_reference_lse_is_each_rows_logsumexp(frames, s, mode):
     b, h, n, d = q.shape
     assert lse.shape == (b, h, n) and lse.dtype == torch.float32
     qf, kf = (t.double().reshape(b, h, frames, s, d) for t in (q, k))
-    logits = (qf * 0.25) @ kf.transpose(-2, -1)
+    qk = (qf * 0.25) @ kf.transpose(-2, -1)
+    logits = qk
     if bias is not None:
         rows = torch.ones(s, dtype=torch.float64)
         if excl:
             rows[0] = 0.0
         logits = logits + rows[:, None] * bias.double().reshape(b, 1, frames, 1, s)
     want = torch.logsumexp(logits, dim=-1).reshape(b, h, n)
-    np.testing.assert_allclose(lse.double().numpy(), want.numpy(), rtol=0, atol=1e-5)
     _, again = fa._blockdiag_forward(q, k, v, bias, 0.25, frames, excl, want_lse=True)
+    qk32 = torch.matmul((q * 0.25).reshape(b, h, frames, s, d), k.reshape(b, h, frames, s, d).transpose(-2, -1))
+    where = (f"CPU capability {torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} threads, "
+             f"fp32 matmul precision {torch.get_float32_matmul_precision()}; "
+             f"a second evaluation {'gave the same bits' if torch.equal(again, lse) else 'differed'}, "
+             f"{(again.double() - want).abs().max().item():.3g} from float64; "
+             f"the fp32 q k^T {(qk32.double() - qk).abs().max().item():.3g} from float64")
+    np.testing.assert_allclose(lse.double().numpy(), want.numpy(), rtol=0, atol=1e-5, err_msg=where)
     assert torch.equal(again, lse)

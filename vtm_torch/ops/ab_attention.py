@@ -20,9 +20,10 @@ None is on a model's path; ``vtm_torch.tools.ab_dense`` runs them.
   T11 ``v2_attention``       ab_dense_v2.py::v2_attention   v2_sum | v2_fold | v2_nomax
   T12 ``n8_attention``       ab_block_attn.py::n8_attention unbiased attention, q scaled in the kernel
 
-Kernels: ``csrc/ab_qk_probe.cu`` (T2, T3, T6, T7; T3 and T7 in bf16 on a
-Hopper body of their own, wgmma products from shared memory over
-``csrc/wgmma_tiles.cuh``), ``csrc/ab_chain.cu`` (T1, T5, T8, T9, T10, T12;
+Kernels: ``csrc/ab_qk_probe.cu`` (T2, T3, T6, T7; in bf16 on a Hopper
+body of their own, wgmma products from shared memory over
+``csrc/wgmma_tiles.cuh``, at depth 64 and 128, ``PROBE_TILING``; fp32 on a
+first body), ``csrc/ab_chain.cu`` (T1, T5, T8, T9, T10, T12;
 in bf16 T1, T5, T12, T8 ``full``, T9 ``1d`` and T10 on K1's own instances
 of the Hopper tile loop, ``csrc/wgmma_attention.cuh``, so with K1's output
 bits, T10's in a kernel with an occupancy target; T9 ``2d``, T8 ``linear``
@@ -83,6 +84,11 @@ CHAIN_CODES = range(7)
 _HOPPER_BLOCK_BYTES = 6 * 64 * 128 + 1024
 _STAGED_BIAS_BYTES = 2 * KEY_TILE * 4
 _CHAIN_MODE_CODES = {"full": _CHAIN_FULL, "nosmax": _CHAIN_NOSMAX, "linear": _CHAIN_LINEAR}
+# the bf16 probe body's launch by contraction depth (csrc/ab_qk_probe.cu,
+# WgTiling and WgSmem): 64-row tiles of q a block, 64-key tiles of k in the
+# ring, the dynamic shared bytes and the blocks an SM they allow on an H100
+PROBE_TILING = {64: dict(row_tiles=2, stages=4, smem_bytes=50_176, blocks_per_sm=4),
+                128: dict(row_tiles=4, stages=3, smem_bytes=115_712, blocks_per_sm=2)}
 # variant codes of csrc/ab_dense_variants.cu
 _DENSE_CODES = {"v2_sum": 0, "v2_fold": 1, "v2_nomax": 2, "packed": 3}
 
@@ -152,6 +158,18 @@ def chain_smem_bytes(variant: int) -> int:
     """The dynamic shared bytes a block of ``csrc/ab_chain.cu``'s bf16
     (Hopper) kernel for ``variant`` takes, as the C side sizes them."""
     return _HOPPER_BLOCK_BYTES + (_STAGED_BIAS_BYTES if variant == _CHAIN_BIAS_STAGED else 0)
+
+
+def probe_occupancy(depth: int, rowsum: bool) -> tuple:
+    """(blocks an SM, dynamic shared bytes) of ``csrc/ab_qk_probe.cu``'s
+    bf16 kernel at ``depth`` (64 or 128) with or without the row-sum
+    epilogue, from the CUDA runtime's occupancy calculator on the current
+    device. Launches nothing; on the card only."""
+    out = (ctypes.c_int * 2)()
+    err = _library().vtm_ab_qk_probe_occupancy(depth, int(rowsum), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"occupancy of ab_qk_probe.cu at depth {depth} failed with cudaError_t {err}")
+    return out[0], out[1]
 
 
 def chain_occupancy(dtype: torch.dtype, variant: int) -> tuple:
@@ -516,7 +534,9 @@ def chunked_attention(q, k, v, bias, bias_shared: bool, num_heads: int):
 
 def qk64(q, k, blk: int = KEY_TILE):
     """T2. q, k: [bh, n, d] -> [bh, n, d] in q's dtype: the fp32 sum over
-    key chunks of ``blk`` of (q k_chunk^T)[:, :d]. Depends on ``blk``."""
+    key chunks of ``blk`` of (q k_chunk^T)[:, :d]. Depends on ``blk``. In
+    bf16 the Hopper body at depth 64 (``PROBE_TILING``: 128 rows of q a
+    block, four 64-key tiles in the ring)."""
     if not q.is_cuda:
         return qk64_plain(q, k, blk)
     _check_blk("qk64", blk)
@@ -528,8 +548,9 @@ def qk64(q, k, blk: int = KEY_TILE):
 def qk_packed(qp, kc, blk: int = KEY_TILE):
     """T3. The same over packed operands: qp [bh/2, 2n, 128] from
     ``pack_q``, kc [bh/2, n, 128] from ``pack_k`` -> [bh/2, 2n, 64]. In
-    bf16 the Hopper body takes 256 rows of qp a block, the whole 128-deep
-    product on every key tile (it cannot know the zero halves)."""
+    bf16 the Hopper body at depth 128 takes 256 rows of qp a block, the
+    whole 128-deep product on every key tile (it cannot know the zero
+    halves)."""
     if not qp.is_cuda:
         return qk_packed_plain(qp, kc, blk)
     _check_blk("qk_packed", blk)
@@ -570,7 +591,8 @@ def grid_swapped(q, k, v, sm_scale):
 
 
 def qk_d64(q, k):
-    """T6. q, k: [bh, n, d] -> fp32 [bh, n, 1]: row sums of q k^T."""
+    """T6. q, k: [bh, n, d] -> fp32 [bh, n, 1]: row sums of q k^T, any key
+    count. In bf16 T2's Hopper body with T7's row-sum epilogue."""
     if not q.is_cuda:
         return qk_d64_plain(q, k)
     if q.shape[-1] != HEAD_DIM:

@@ -269,6 +269,8 @@ def load_library() -> ctypes.CDLL:
         p,              # cudaStream_t
     ]
     lib.vtm_ab_qk_probe.restype = i
+    lib.vtm_ab_qk_probe_occupancy.argtypes = [i, i, p]  # depth, rowsum, out (2 x int, host memory)
+    lib.vtm_ab_qk_probe_occupancy.restype = i
     lib.vtm_ab_dense_variant.argtypes = [
         i, i,           # dtype, variant
         p, p, p, p, p, p, p,  # q, k, v, key_bias, bias_hi, bias_lo, out

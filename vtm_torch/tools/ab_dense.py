@@ -42,7 +42,8 @@ yardstick, used nowhere in the port. The chunk-dependent three (T2, T3,
 T8 linear) run at blk = 64, the kernels' key tile. Times are CUDA events
 around queued calls; ``bisect``, ``decomp``, ``decomp_bias`` and
 ``decomp_cost`` rows also carry ``device_ms``, the calls' device time with
-the host's cost hidden (``kernel_times.device_ms``). Nothing is written
+the host's cost hidden (``kernel_times.device_ms``), and
+``library_device_ms``, the library call's. Nothing is written
 unless ``--out`` names a file.
 
 Runs on the first CUDA device; a machine without one raises. The CPU
@@ -100,11 +101,12 @@ class Sizes:
     block_ns: tuple = (1568, 1418, 968)                 # ab_block_attn.py:167
     alone_ns: tuple = (1568, 1418)                      # ab_block_attn.py:182
     matmul_m: int = 4096                                # ab_dense_v2.py:203
-    # ``exp_kernels`` only: T7 at key counts that end inside a 64-key tile
-    # (37) and one tile short of 1600 (1568). T3 takes only multiples of 64,
-    # so its 2n rows leave a 256-row block of the Hopper body empty or half
-    # filled, and n_pad's 3200 rows already reach the half-filled one
-    ragged_probes: tuple = (("T7", 37), ("T7", 1568))
+    # ``exp_kernels`` only: T6 and T7 at key counts that end inside a 64-key
+    # tile (37) and one tile short of 1600 (1568). T2 and T3 take only
+    # multiples of 64, so their rows leave a row block of the Hopper body
+    # empty or partly filled, and n_pad's 1600 (3200 packed) rows already
+    # reach a partly filled one
+    ragged_probes: tuple = (("T6", 37), ("T6", 1568), ("T7", 37), ("T7", 1568))
 
 
 # ``k1_bits``: token counts whose last key tile ends early
@@ -214,12 +216,12 @@ class Bench:
         """Check every row that has a plain version, then time the rows in
         turns, ``reps`` times over (each row's library call, with
         ``time_plain`` its plain version, and with ``time_device`` on the
-        card its device time, ``kernel_times.device_ms``, in the same turn),
-        and print them. Returns what was printed."""
+        card the device time of the row and of its library call,
+        ``kernel_times.device_ms``, in the same turn), and print them. Returns what was printed."""
         time_device = time_device and self.device.type == "cuda"
         with torch.inference_mode():
             errs = [self.check(row) if row.plain_as else {} for row in rows]
-            times = [dict(ms=[], library_ms=[], plain_ms=[], device_ms=[]) for _ in rows]
+            times = [dict(ms=[], library_ms=[], plain_ms=[], device_ms=[], library_device_ms=[]) for _ in rows]
             for _ in range(self.reps):
                 for row, ts in zip(rows, times):
                     iters = min(row.iters, self.iters)
@@ -228,6 +230,8 @@ class Bench:
                         ts["device_ms"].append(device_ms(row.fn, iters))
                     if row.library:
                         ts["library_ms"].append(self._ms(row.library, iters))
+                        if time_device:
+                            ts["library_device_ms"].append(device_ms(row.library, iters))
                     if time_plain and row.plain_as:
                         ts["plain_ms"].append(self._ms(lambda: row.plain_as(None), min(iters, 5)))
         printed = []
@@ -235,7 +239,8 @@ class Bench:
             ms = statistics.median(ts["ms"])
             fields = dict(name=row.name, shape=list(row.shape), dtype=str(self.dtype).split(".")[-1],
                           ms=dict(median=ms, min=min(ts["ms"]), max=max(ts["ms"])), **err)
-            fields.update({key: statistics.median(ts[key]) for key in ("library_ms", "plain_ms", "device_ms")
+            fields.update({key: statistics.median(ts[key])
+                           for key in ("library_ms", "plain_ms", "device_ms", "library_device_ms")
                            if ts[key]})
             for key in ("kernel", "function", "mode", "flops", "issued_flops", "bound_flops", "nbytes", "note"):
                 if getattr(row, key):
@@ -550,8 +555,8 @@ def exp_kernels(bench: Bench) -> List[dict]:
     probes and chains get contiguous [bh, n_pad, 64] operands, as the tools
     give them (standard normal; the chains take no scale); the 4-D
     functions get the strided split-heads views of a fused [B, N, 3*H*64]
-    projection at the first of ``packed_ns`` tokens. T7 also runs at
-    ``ragged_probes``, a row each (mode ``n <tokens>``), so that a key
+    projection at the first of ``packed_ns`` tokens. T6 and T7 also run
+    at ``ragged_probes``, a row each (mode ``n <tokens>``), so that a key
     tile that ends early is checked on the card."""
     s = bench.sizes
     b, h, m, n = s.b8, s.h, s.n_pad, s.packed_ns[0]

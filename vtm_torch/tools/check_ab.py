@@ -11,10 +11,11 @@
   2. runs ``ab_dense.exp_kernels``: every function and mode against its
      plain version, by ``ab_dense``'s rule, in fp32 at a small ragged
      shape, then in bf16 at B8 H12 d64 and the tools' token counts (the
-     packed probes T3 and T7 run the Hopper body of ``ab_qk_probe.cu``
-     there; T3's 3200 rows leave its last 256-row block half filled, and
-     T7 also runs at ``Sizes.ragged_probes``, keys that end inside a
-     tile), there timed beside the
+     probes T2, T3, T6 and T7 run the Hopper body of ``ab_qk_probe.cu``
+     there, at depth 64 and 128; their row counts leave the last row
+     block partly filled, and T6 and T7 also run at
+     ``Sizes.ragged_probes``, keys that end inside a tile), there timed
+     beside the
      plain version and the library call (2 x 10 calls in turns), and by
      device time (``kernel_times.device_ms``);
   3. runs ``ab_dense.k1_bits``: T5, T12, T8 ``full``, T1, T9 and T10 in
@@ -22,9 +23,11 @@
      staged) against K1 on the same views, bit for bit: T5 and T12 at N
      1568 and T5 at B32, T8 ``full``, T1 (both bias kinds, the five
      bisect variants), T9 (both modes) and T10 at n 1600, all at ragged N;
-  4. prints, for every variant code of ``csrc/ab_chain.cu`` in bf16, the
-     blocks an SM of the kernel it launches (the runtime's occupancy
-     calculator) and its dynamic shared bytes.
+  4. prints, for every variant code of ``csrc/ab_chain.cu`` in bf16 and
+     for each bf16 kernel of ``csrc/ab_qk_probe.cu`` (depth 64 and 128,
+     columns and row sums), the blocks an SM of the kernel it launches
+     (the runtime's occupancy calculator) and its dynamic shared bytes;
+     a probe kernel's must be ``ab_attention.PROBE_TILING``'s.
 Prints one JSON line per step and per row. Needs a CUDA device and nvcc.
 """
 
@@ -62,6 +65,14 @@ def main():
         blocks, smem = ab_attention.chain_occupancy(torch.bfloat16, code)
         print(json.dumps(dict(step="occupancy", source="ab_chain.cu", variant=code, blocks_per_sm=blocks,
                               smem_bytes=smem)), flush=True)
+    for depth, tiling in ab_attention.PROBE_TILING.items():
+        for rowsum in (False, True):
+            blocks, smem = ab_attention.probe_occupancy(depth, rowsum)
+            print(json.dumps(dict(step="occupancy", source="ab_qk_probe.cu", depth=depth, rowsum=rowsum,
+                                  blocks_per_sm=blocks, smem_bytes=smem, want=tiling)), flush=True)
+            if (blocks, smem) != (tiling["blocks_per_sm"], tiling["smem_bytes"]):
+                raise RuntimeError(f"ab_qk_probe.cu at depth {depth}: {blocks} blocks an SM of {smem} B, "
+                                   f"not {tiling['blocks_per_sm']} of {tiling['smem_bytes']} B")
 
 
 if __name__ == "__main__":

@@ -108,7 +108,8 @@ FWD_DIGEST_CASES = (("K1", 1568, False, False), ("K1", 437, True, False), ("K3",
 # the probes' shape: [bh, n, 64] as the A/B tools give them (ab_dense.Sizes().n_pad)
 PROBE_BH, PROBE_N = B * H, 1600
 # the probes' digests: token counts of a [24, n, 64] q and k, one a
-# multiple of 64 (T2, T3 need one), one not (T6, T7 take it)
+# multiple of 64 (T2, T3 need one), one not (T6, T7 take it); kept as
+# they are, so that two trees' digests of one kernel compare
 PROBE_DIGEST_N = {"T2": 320, "T3": 320, "T6": 200, "T7": 200}
 # ab_chain.cu's digests: B2 H12 and a token count whose last key tile ends early
 CHAIN_DIGEST_N = 200
