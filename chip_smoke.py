@@ -13,6 +13,9 @@ Serving (``vtm_torch.tools.model_benchmark.model_benchmark``):
     pseudo-frame with r=18 and proportional attention
     (``MOTIONFORMER_OPTS``: the values of
     configs/motionformer/kinetics/tome_motionformer_224_16x4.yaml).
+Evaluation (``vtm_torch.tools.test_net``), multi-view on the synthetic
+dataset at the test batch of 32: the VideoMAE config above, and
+Motionformer's EPIC-KITCHENS config below with its verb/noun heads.
 Training (``vtm_torch.tools.train_net``), on the synthetic dataset with
 fp32 parameters, bf16 compute and AdamW:
   * VideoMAE ViT-B/16 fine-tuning through the merge (``TRAIN_OPTS``: the
@@ -37,8 +40,9 @@ needed).
 Phases, each printing one JSON line:
   1. device    -- fails without CUDA; prints nvidia-smi's name and power limit
   2. build     -- compiles the kernels from vtm_torch/ops/csrc with nvcc
-  3. kernel    -- the dense attention kernel (K1) against its plain version,
-                  its lse residual too; timed with and without the lse write,
+  3. kernel    -- the dense attention kernel (K1) against its plain version
+                  at the serve, train and eval paths' shapes (the eval's at
+                  the test batch of 32), its lse residual too; timed with and without the lse write,
                   and against attention_core's plain branch at the lengths
                   where the two meet (CROSSOVER_N); ptxas's registers and
                   spills of its kernels
@@ -50,7 +54,7 @@ Phases, each printing one JSON line:
                   (kernel_times.FWD_DIGEST_CASES), printed to hold beside
                   an earlier reading (PERF.md)
      frame_kernel -- the per-frame attention kernel (K3) against its plain
-                  version
+                  version at the same paths' shapes
      frame_bwd_kernel -- its backward (K4) against its plain version, given
                   K3's residuals (out, and the lse of each row in each
                   frame) and without them; the same bits twice; timed given
@@ -122,11 +126,21 @@ Phases, each printing one JSON line:
                   shipped), with K5a and K5b launches per forward and step
      vivit_serve, vivit_train -- ViViT serving and train steps, with the
                   biased K1 and K2 launches
+     eval      -- the evaluation entry point (vtm_torch.tools.test_net.test)
+                  on VideoMAE's Kinetics config, synthetic clips, 2 views x 3
+                  crops at the test batch of 32 (EVAL_OPTS): every video's clip
+                  count, its ensemble against the fp64 sum of a direct forward
+                  of its clips, K1 launches per batch, finite stats, clips/s
+                  by the meter's batch timer (data included) over every batch
+                  and over all but the first
+     mf_eval   -- the same for Motionformer's EPIC-KITCHENS config with its
+                  verb/noun heads (EPICTestMeter), 1 view x 3 crops, K3
+                  launches per batch
      ab_dense  -- the A/B entry point (vtm_torch.tools.ab_dense --exp all,
                   one repeat of three calls a row): every row checked
                   against its plain version as it is printed, all twelve
                   launched
-Each serve or train phase, and ab_dense, sets the kernels' launch counts to
+Each serve, eval or train phase, and ab_dense, sets the kernels' launch counts to
 0 just before it and reads them just after. Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and the script exits
 nonzero without the last line.
@@ -176,6 +190,7 @@ from vtm_torch.ops.flash_attention import (
 from vtm_torch.ops import ab_attention
 from vtm_torch.tools import ab_dense
 from vtm_torch.tools.kernel_times import FWD_DIGEST_CASES, device_ms, forward_digests
+from vtm_torch.tools import test_net
 from vtm_torch.tools.model_benchmark import model_benchmark
 from vtm_torch.tools.train_net import build_trainer, train
 from vtm_torch.train.optimizer import set_lr
@@ -774,7 +789,10 @@ VIVIT_TRAIN_WARMUP, VIVIT_TRAIN_ITERS = 2, 4  # a ViViT step is several times as
 # Tokens entering each of the 12 layers at r=150, and the final count.
 MERGED_COUNTS = (1568, 1418, 1268, 1118, 968, 818, 668, 518, 368, 218, 109, 55, 28)
 MERGED_K1_PER_FORWARD = 9  # K1 runs for N >= 256: layers 0-8
-KERNEL_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 256, 3137, 437)] + [(2, 2, 37, 16)]
+# K1 at the serve and train paths' B8 shapes, a small odd case, and the eval
+# path's: every length K1 takes at the test batch of 32 (layers 0-8)
+KERNEL_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 256, 3137, 437)] + [(2, 2, 37, 16)] + [
+    (32, 12, n, 64) for n in MERGED_COUNTS[:MERGED_K1_PER_FORWARD]]
 TIMED = ((1568, False), (368, False), (3137, True))  # (N, biased): VideoMAE's layers 0 and 8, ViViT's layer 0
 # K1 against attention_core's plain branch where the two meet: VideoMAE's
 # layers 8-10 (368, 218, 109), ViViT's layer 9 (437), and the 256-token
@@ -813,8 +831,10 @@ MF_FRAMES = 8
 MF_BODY_COUNTS = (1568, 1424, 1280, 1136, 992, 848, 704, 560, 416, 272, 136, 72, 40)
 MF_K3_PER_FORWARD = {"merged": 10, "unmerged": 12}
 # K3 at the Motionformer path's shapes (F=8): s = 196, 178 and 34 at B8;
-# s=441 (the 336 crop) at B1; odd H and a small d at s=37.
-FRAME_SHAPES = [(8, 12, n, 64) for n in (1568, 1424, 272)] + [(1, 12, 3528, 64), (2, 3, 296, 16)]
+# s=441 (the 336 crop) at B1; odd H and a small d at s=37; and the eval
+# path's: every length K3 takes at the test batch of 32 (layers 0-9)
+FRAME_SHAPES = [(8, 12, n, 64) for n in (1568, 1424, 272)] + [(1, 12, 3528, 64), (2, 3, 296, 16)] + [
+    (32, 12, n, 64) for n in MF_BODY_COUNTS[:MF_K3_PER_FORWARD["merged"]]]
 FRAME_TIMED = ((1568, False), (848, True))  # (N', biased): layer 0, and a merged layer
 # K4 at the training path's shapes (s = 196, 178, 106, 34), the 336 crop's
 # s=441, and the odd-head ragged case
@@ -876,6 +896,21 @@ VIVIT_ZERO_GRADIENTS = ("attention.key.bias",)
 # they carry on either path is large against their own size (reported by
 # the phase) and small against the fused tensor's.
 VIVIT_GRAD_GROUPS = (("attention.query.", "attention.key.", "attention.value."),)
+
+# The evaluation entry point (test_net.test) on the synthetic dataset at the
+# shipped test batch of 32, each phase with an OUTPUT_DIR of its own that
+# holds no checkpoint (so the weights are the seeded init): VideoMAE's
+# Kinetics config at 2 views x 3 crops (32 videos, 192 clips, 6 batches),
+# Motionformer's EPIC-KITCHENS config with its verb/noun heads at 1 view x 3
+# crops (96 clips, 3 batches).
+EVAL_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
+EVAL_OPTS = ["TEST.DATASET", "synthetic", "TEST.NUM_ENSEMBLE_VIEWS", "2", "TEST.NUM_SPATIAL_CROPS", "3"]
+MF_EVAL_OPTS = ["TEST.DATASET", "synthetic", "TEST.NUM_ENSEMBLE_VIEWS", "1", "TEST.NUM_SPATIAL_CROPS", "3"]
+EVAL_VIDEOS = 32
+# Each video's ensemble against the fp64 sum of the same clips' outputs from
+# a second build of the same weights, forwarded in the same batches: equal
+# unless a library call picks another algorithm for the second build
+EVAL_SUM_TOL = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -1865,6 +1900,99 @@ def phase_family_serve(phase: str, smi: str, cfg_fn, num_frames: int, seed: int,
     return total[counter]
 
 
+@contextlib.contextmanager
+def recording_test_net():
+    """While open, ``test_net`` keeps every meter it makes, and each meter
+    the seconds of each batch by its own iteration timer (the loader, the
+    copy in, the forward and the logits read to the host)."""
+    seen = []
+    saved = {name: getattr(test_net, name) for name in ("TestMeter", "EPICTestMeter")}
+
+    def recording(base):
+        class Recording(base):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                self.batch_seconds = []
+                seen.append(self)
+
+            def iter_toc(self):
+                super().iter_toc()
+                self.batch_seconds.append(self.iter_timer.seconds())
+        return Recording
+
+    for name, base in saved.items():
+        setattr(test_net, name, recording(base))
+    try:
+        yield seen
+    finally:
+        for name, value in saved.items():
+            setattr(test_net, name, value)
+
+
+def phase_eval(phase: str, smi: str, cfg_fn, opts, counter: str, per_batch: int, stats_keys) -> int:
+    """``test_net.test`` on the card at full width and depth, bf16: every
+    video's clip count, its ensemble against the sum of a direct forward of
+    its clips, the kernel's launches per batch (``counter``; no other kernel
+    launched), the stats finite. Returns the kernel's launches in the phase."""
+    out = EVAL_OUT / phase
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = cfg_fn(*opts, "OUTPUT_DIR", str(out))
+    clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    batches = -(-EVAL_VIDEOS * clips // cfg.TEST.BATCH_SIZE)
+    zero_launch_counts()  # this path's counts start here
+    start = time.perf_counter()
+    with recording_test_net() as seen:
+        results = test_net.test(cfg)
+    seconds = time.perf_counter() - start
+    total = launch_counts()  # read right after the path ran
+    check(total[counter] == per_batch * batches,
+          f"{phase}: {total[counter]} {counter} in {batches} batches, not {per_batch} a batch")
+    check(all(n == 0 for c, n in total.items() if c != counter), f"{phase}: another path's kernels: {total}")
+    check(len(results) == 1 and len(seen) == 1, f"{phase}: {len(results)} results")
+    (views, stats), meter = results[0], seen[0]
+    check(len(meter.batch_seconds) == batches, f"{phase}: {len(meter.batch_seconds)} batches timed")
+    check(set(stats) == set(stats_keys) | {"split"}, f"{phase}: stats keys {sorted(stats)}")
+    check(all(np.isfinite(float(stats[k])) for k in stats_keys), f"{phase}: stats {stats}")
+    check(meter.clip_count.shape == (EVAL_VIDEOS,) and bool((meter.clip_count == clips).all()),
+          f"{phase}: clip counts {meter.clip_count.tolist()}")
+    preds = [meter.video_preds] if hasattr(meter, "video_preds") else [meter.verb_preds, meter.noun_preds]
+    check(all(p.dtype == np.float64 and np.isfinite(p).all() for p in preds), f"{phase}: ensembles")
+
+    # the same clips through a second build of the same weights, summed per
+    # video in fp64; the seconds spent waiting on the loader and on the card
+    bundle = checkpoints.load_test_checkpoint(cfg, build_model(cfg, "cuda"))
+    sums = [np.zeros_like(p) for p in preds]
+    wait = {"loader": 0.0, "card": 0.0}
+    with torch.inference_mode():
+        batches_in = iter(construct_loader(cfg, "test"))
+        while True:
+            tick = time.perf_counter()
+            batch = next(batches_in, None)
+            tock = time.perf_counter()
+            wait["loader"] += tock - tick
+            if batch is None:
+                break
+            outs, _ = bundle.module(torch.as_tensor(batch["frames"], device="cuda"))
+            outs = [o.float().cpu().numpy() for o in (outs if isinstance(outs, tuple) else (outs,))]
+            wait["card"] += time.perf_counter() - tock  # copy in, forward, logits out
+            vids = np.asarray(batch["index"]) // clips
+            for s, o in zip(sums, outs):
+                np.add.at(s, vids, o.astype(np.float64))
+    ensemble_err = max(float(np.abs(p - s).max()) for p, s in zip(preds, sums))
+    check(ensemble_err <= EVAL_SUM_TOL, f"{phase}: ensembles {ensemble_err} from the sum of a direct forward")
+    emit(
+        phase,
+        views=views, crops=cfg.TEST.NUM_SPATIAL_CROPS, videos=EVAL_VIDEOS, clips=EVAL_VIDEOS * clips,
+        batches=batches, batch=cfg.TEST.BATCH_SIZE, stats=stats, launches=total[counter],
+        launches_per_batch=total[counter] / batches, ensemble_max_abs_err=ensemble_err,
+        clips_per_sec=EVAL_VIDEOS * clips / sum(meter.batch_seconds),
+        steady_clips_per_sec=(EVAL_VIDEOS * clips - cfg.TEST.BATCH_SIZE) / sum(meter.batch_seconds[1:]),
+        batch_seconds=meter.batch_seconds, test_seconds=seconds, second_pass_loader_seconds=wait["loader"], second_pass_card_seconds=wait["card"],
+        dtype=cfg.TPU.COMPUTE_DTYPE, nvidia_smi=smi,
+    )
+    return total[counter]
+
+
 def fixed_batch(cfg):
     """The first training batch of the synthetic dataset, on the card."""
     batch = next(iter(construct_loader(cfg, "train")))
@@ -2199,6 +2327,9 @@ def main() -> int:
     phase_train_blocks("vivit_train_blocks", vivit_cfg(*fp32_b2), "LAUNCHES", "BWD_LAUNCHES",
                        VIVIT_K1_PER_FORWARD["merged"], VIVIT_COUNTS[-1],
                        zero_gradients=VIVIT_ZERO_GRADIENTS, grad_groups=VIVIT_GRAD_GROUPS, **vivit_modules)
+    # model_benchmark falls back to the last checkpoint of its OUTPUT_DIR, ".":
+    # there must be none, or the serve phases would not run the seeded weights
+    check(checkpoints.get_last_checkpoint(".") is None, "a checkpoint under ./checkpoints")
     launches = phase_serve(smi)
     frame_launches = phase_mf_serve(smi)
     blockdiag_launches = phase_family_serve(
@@ -2208,6 +2339,11 @@ def main() -> int:
     launches += phase_family_serve(
         "vivit_serve", smi, vivit_cfg, 32, 16, "LAUNCHES", "attention_kernel_launches",
         VIVIT_K1_PER_FORWARD, VIVIT_COUNTS, lambda n: n, lambda m: m.layer, VIVIT_FLOP_CEILING)
+    launches += phase_eval("eval", smi, main_cfg, EVAL_OPTS, "LAUNCHES", MERGED_K1_PER_FORWARD,
+                           ("top1_acc", "top5_acc"))
+    frame_launches += phase_eval("mf_eval", smi, mf_train_cfg, MF_EVAL_OPTS, "FRAME_LAUNCHES",
+                                 MF_K3_PER_FORWARD["merged"],
+                                 [f"{t}_top{k}_acc" for t in ("verb", "noun", "action") for k in (1, 5)])
     bwd_launches = phase_train(smi, **VIDEOMAE_TRAIN)
     frame_bwd_launches = phase_train(smi, **MOTIONFORMER_TRAIN)
     blockdiag_bwd_launches = phase_train(smi, **TIMESFORMER_TRAIN)

@@ -50,6 +50,19 @@ TRAINING_MODULES = (
     "vtm_torch.utils.timer",
 )
 
+# modules of the evaluation path and the real datasets' code
+EVAL_MODULES = (
+    "vtm_torch.tools.test_net",
+    "vtm_torch.tools.run_net",
+    "vtm_torch.patch",
+    "vtm_torch.data.decoder",
+    "vtm_torch.data.transform",
+    "vtm_torch.data.rand_augment",
+    "vtm_torch.data.kinetics",
+    "vtm_torch.data.ssv2",
+    "vtm_torch.data.epickitchens",
+)
+
 
 def _env():
     env = dict(os.environ)
@@ -66,6 +79,7 @@ def test_every_module_imports_without_jax():
     names = proc.stdout.split()
     assert len(names) >= 30
     assert not set(TRAINING_MODULES) - set(names)
+    assert not set(EVAL_MODULES) - set(names)
 
 
 def test_chip_smoke_imports_without_jax():
@@ -98,7 +112,8 @@ ENTRY_POINT_ARGS = {"vtm_torch.tools.ab_dense": ("--exp", "decomp"), "vtm_torch.
                                     "vtm_torch.tools.trace_train", "vtm_torch.tools.check_frame_bwd",
                                     "vtm_torch.tools.check_blockdiag", "vtm_torch.tools.check_ab",
                                     "vtm_torch.tools.ab_dense", "vtm_torch.tools.check_attention",
-                                    "vtm_torch.tools.kernel_times"])
+                                    "vtm_torch.tools.kernel_times", "vtm_torch.tools.test_net",
+                                    "vtm_torch.tools.run_net"])
 def test_entry_points_refuse_to_run_without_cuda(module):
     """No CUDA device and no request for the CPU: the entry points raise
     instead of carrying on on the CPU."""

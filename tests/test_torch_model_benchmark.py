@@ -8,6 +8,7 @@ import torch
 from vtm.checkpoints.checkpoint import load_test_checkpoint as jax_load_test_checkpoint
 from vtm.config import get_cfg as jax_get_cfg
 from vtm.models import build_model as jax_build_model
+from vtm_torch.checkpoints.checkpoint import load_test_checkpoint
 from vtm_torch.checkpoints.convert import state_dict_from_vtm_params
 from vtm_torch.config import get_cfg
 from vtm_torch.models import build_model
@@ -82,7 +83,7 @@ def test_saved_checkpoint_round_trips(cfg_fn, tmp_path):
     path = tmp_path / "tiny.pyth"
     torch.save({"model_state": {f"module.{k}": v for k, v in source.state_dict().items()}}, path)
     cfg = cfg_fn("TEST.CHECKPOINT_FILE_PATH", str(path))
-    bundle = mb.load_test_checkpoint(cfg, build_model(cfg, "cpu"))
+    bundle = load_test_checkpoint(cfg, build_model(cfg, "cpu"))
     for k, v in source.state_dict().items():
         assert torch.equal(bundle.module.state_dict()[k], v), k
 
@@ -92,7 +93,7 @@ def test_saved_checkpoint_loads(tmp_path):
     path = tmp_path / "tiny.pyth"
     torch.save({"model_state": source.state_dict()}, path)
     cfg = _tiny_cfg("TEST.CHECKPOINT_FILE_PATH", str(path))
-    bundle = mb.load_test_checkpoint(cfg, build_model(cfg, "cpu"))
+    bundle = load_test_checkpoint(cfg, build_model(cfg, "cpu"))
     for k, v in source.state_dict().items():
         assert torch.equal(bundle.module.state_dict()[k], v), k
     assert mb.model_benchmark(cfg, device="cpu")["batch_size"] == 2
@@ -125,7 +126,7 @@ def test_foreign_checkpoint_loads_as_vtm_loads_it(tmp_path):
     extra = ("RNG_SEED", "3", "TEST.CHECKPOINT_FILE_PATH", str(path), *CLEARED)
     cfg = _tiny_cfg(*extra)
     init = build_model(cfg, "cpu").module.state_dict()
-    got = mb.load_test_checkpoint(cfg, build_model(cfg, "cpu")).module.state_dict()
+    got = load_test_checkpoint(cfg, build_model(cfg, "cpu")).module.state_dict()
 
     jcfg = jax_get_cfg()
     jcfg.merge_from_list(_tiny_opts(*extra))
@@ -141,7 +142,7 @@ def test_foreign_checkpoint_loads_as_vtm_loads_it(tmp_path):
             assert torch.equal(got[k], source[k]) and not torch.equal(got[k], init[k]), k
             np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), err_msg=k)
     with pytest.raises(KeyError, match="CLEAR_NAME_PATTERN"):
-        mb.load_test_checkpoint(_tiny_cfg("TEST.CHECKPOINT_FILE_PATH", str(path)), build_model(cfg, "cpu"))
+        load_test_checkpoint(_tiny_cfg("TEST.CHECKPOINT_FILE_PATH", str(path)), build_model(cfg, "cpu"))
 
 
 @pytest.mark.parametrize("key", ["CHECKPOINT_INFLATE", "CHECKPOINT_IN_INIT"])
@@ -150,7 +151,7 @@ def test_conv_weight_adaptation_raises_by_name(tmp_path, key):
     foreign_checkpoint(path, _tiny_cfg())
     cfg = _tiny_cfg("TEST.CHECKPOINT_FILE_PATH", str(path), f"TRAIN.{key}", "True")
     with pytest.raises(NotImplementedError, match=key):
-        mb.load_test_checkpoint(cfg, build_model(cfg, "cpu"))
+        load_test_checkpoint(cfg, build_model(cfg, "cpu"))
 
 
 def test_missing_checkpoint_raises(tmp_path):

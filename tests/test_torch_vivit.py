@@ -34,6 +34,7 @@ from vtm.train.train_step import make_train_step as jax_make_train_step
 import vtm_torch.config as tcfg
 import vtm_torch.train.losses as tlosses
 import vtm_torch.train.optimizer as topt
+from vtm_torch.checkpoints.checkpoint import load_test_checkpoint
 from vtm_torch.checkpoints.convert import load_vivit_state_dict, vivit_state_dict_from_vtm_params
 from vtm_torch.merge import bipartite as tb
 from vtm_torch.merge.policy import MergePolicy, MergeState
@@ -291,7 +292,7 @@ def test_build_model_and_benchmark_entry_point(tmp_path, capsys):
     sd = {k: torch.from_numpy(v) for k, v in _hf_sd(dict(TINY, num_classes=7), seed=2).items()}
     ckpt = tmp_path / "hf.pyth"
     torch.save({"model_state": sd}, ckpt)
-    loaded = mb.load_test_checkpoint(_cfg(tmp_path, "TEST.CHECKPOINT_FILE_PATH", str(ckpt)), build_model(cfg, "cpu"))
+    loaded = load_test_checkpoint(_cfg(tmp_path, "TEST.CHECKPOINT_FILE_PATH", str(ckpt)), build_model(cfg, "cpu"))
     assert torch.equal(loaded.module.layer[1].attention.key.weight, sd["vivit.encoder.layer.1.attention.attention.key.weight"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(_cfg(tmp_path, "TOME.LAYER_QUANTITY", "2"), "cpu")

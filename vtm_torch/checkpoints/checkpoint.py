@@ -10,6 +10,11 @@ with ``torch.save``: the module's state dict, the optimizer's state dict
 the config as JSON. The JAX package's orbax directory format is not
 carried over. ``get_last_checkpoint`` picks the highest epoch, which is
 what ``TRAIN.AUTO_RESUME`` resumes from.
+
+``load_test_checkpoint`` (``vtm/checkpoints/checkpoint.py:301-386``) gives
+the eval and benchmark entry points their weights: ``TEST.CHECKPOINT_FILE_PATH``,
+or, when that is empty, the last checkpoint of ``OUTPUT_DIR``, then
+``TRAIN.CHECKPOINT_FILE_PATH``, else the seeded init.
 """
 
 from __future__ import annotations
@@ -22,6 +27,13 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from vtm_torch.checkpoints.convert import (
+    load_motionformer_state_dict,
+    load_timesformer_state_dict,
+    load_torch_state_dict,
+    load_videomae_state_dict,
+    load_vivit_state_dict,
+)
 from vtm_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -130,3 +142,67 @@ def merge_into_template(template: Mapping[str, torch.Tensor], converted: Mapping
             out[name] = init
             kept += 1
     return out, loaded, kept
+
+
+def _load_timesformer(sd, config):
+    return load_timesformer_state_dict(
+        sd, num_frames=config.num_frames, spatial_tokens=config.spatial_tokens,
+        divided=config.attention_type == "divided_space_time",
+    )
+
+
+# model name -> f(state dict as loaded, the module's config) -> the port's state dict
+CHECKPOINT_LOADERS = {
+    "VideoMAE": lambda sd, config: load_videomae_state_dict(sd),
+    "Motionformer": lambda sd, config: load_motionformer_state_dict(sd),
+    "TimeSformer": _load_timesformer,
+    "ViViT": lambda sd, config: load_vivit_state_dict(sd),
+}
+
+
+def load_test_checkpoint(cfg, bundle):
+    """Load the weights to test into the bundle's module, in place (an
+    optimizer already built on the parameters stays valid).
+
+    With ``TEST.CHECKPOINT_FILE_PATH`` empty, the order of
+    ``vtm/checkpoints/checkpoint.py::load_test_checkpoint``: the last
+    checkpoint of ``OUTPUT_DIR`` (this package's ``.pyth`` files, the
+    module's state only), then ``TRAIN.CHECKPOINT_FILE_PATH``, else the
+    random weights drawn from ``RNG_SEED``, which is logged.
+
+    A torch file is taken in as the JAX package takes it: the keys renamed
+    by ``TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN``, converted by the model's
+    converter, then overlaid on the module's own state dict by
+    ``merge_into_template``, so that a tensor the file lacks or holds in
+    another shape (a head of another class count) keeps its init. A file of
+    which no tensor matches raises."""
+    path = cfg.TEST.CHECKPOINT_FILE_PATH
+    if not path:
+        last = get_last_checkpoint(cfg.OUTPUT_DIR)
+        if last is not None:
+            load_checkpoint(last, bundle.module)
+            logger.info("Testing with last train checkpoint %s", last)
+            return bundle
+        if not cfg.TRAIN.CHECKPOINT_FILE_PATH:
+            logger.info("No checkpoint found: testing the random init of RNG_SEED %d", cfg.RNG_SEED)
+            return bundle
+        path = cfg.TRAIN.CHECKPOINT_FILE_PATH
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"checkpoint {path!r} does not exist")
+    if bundle.name not in CHECKPOINT_LOADERS:
+        raise NotImplementedError(f"no checkpoint converter for {bundle.name}")
+    for key in ("CHECKPOINT_INFLATE", "CHECKPOINT_IN_INIT"):
+        if getattr(cfg.TRAIN, key):
+            raise NotImplementedError(
+                f"TRAIN.{key}: the conv families' weight adaptation is not ported yet "
+                "(ROADMAP.md Queue 1, item 12)"
+            )
+    sd = clear_name_pattern_keys(load_torch_state_dict(path), tuple(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN))
+    converted = CHECKPOINT_LOADERS[bundle.name](sd, bundle.module.config)
+    merged, loaded, kept = merge_into_template(bundle.module.state_dict(), converted)
+    if not loaded:  # the JAX package's converters raise on a file without the backbone's keys
+        raise KeyError(f"no tensor of {path!r} matches {bundle.name}'s; "
+                       f"TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN may have to strip a prefix")
+    bundle.module.load_state_dict(merged)
+    logger.info("Loaded torch checkpoint %s (%d tensors, %d kept init)", path, loaded, kept)
+    return bundle

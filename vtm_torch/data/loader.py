@@ -1,8 +1,9 @@
 """Dataset registry + batch loader (copy of ``vtm/data/loader.py``).
 
 A thread-pool prefetch pipeline feeding collated numpy batches; the
-entry points move them to the device. Only the ``synthetic`` dataset is
-registered so far, and the multigrid short cycle is not ported.
+entry points move them to the device. Registered: ``kinetics``, ``ssv2``,
+``epickitchens`` and ``synthetic``; the multigrid short cycle is not
+ported.
 """
 
 from __future__ import annotations

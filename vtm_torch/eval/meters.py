@@ -1,14 +1,24 @@
-"""Train and validation meters (copy of ``ScalarMeter``, ``TrainMeter``,
-``ValMeter``, ``EPICTrainMeter`` and ``EPICValMeter`` of
-``vtm/eval/meters.py``). Stats are numpy, host-side. The test and
-detection meters are ported with the test entry point."""
+"""Test, train and validation meters (copy of ``TestMeter``,
+``EPICTestMeter``, ``ScalarMeter``, ``TrainMeter``, ``ValMeter``,
+``EPICTrainMeter``, ``EPICValMeter`` and ``EpochTimer`` of
+``vtm/eval/meters.py``). Stats are numpy, host-side.
+
+``TestMeter`` accumulates multi-view clip predictions into per-video
+ensembles in fp64 (sum or max) and finalises top-k accuracies as
+``"%.2f"`` strings, or the mAP for multi-label data; ``EPICTestMeter``
+keeps the verb/noun pair and reports verb/noun/action top-1/5.
+``TEST.CLIP_LENGTH_HISTOGRAM`` needs the clip-length analysis, which is
+not ported yet, and raises. The detection meter is not ported."""
 
 from __future__ import annotations
 
+import datetime
 from collections import deque
+from typing import Dict, Tuple
 
 import numpy as np
 
+from vtm_torch.eval import metrics
 from vtm_torch.utils.logging import get_logger, log_json_stats
 from vtm_torch.utils.timer import Timer
 
@@ -32,6 +42,201 @@ def get_map(preds: np.ndarray, labels: np.ndarray) -> float:
         )
         aps = np.array([0.0])
     return float(np.mean(aps))
+
+
+class TestMeter:
+    def __init__(
+        self,
+        num_videos: int,
+        num_clips: int,
+        num_cls: int,
+        overall_iters: int,
+        multi_view_ensemble_method: str = "sum",
+        cfg=None,
+        multi_label: bool = False,
+    ):
+        if cfg is not None and cfg.TEST.CLIP_LENGTH_HISTOGRAM:
+            raise NotImplementedError(
+                "TEST.CLIP_LENGTH_HISTOGRAM: the clip-length analysis is not ported yet "
+                "(ROADMAP.md Queue 1, item 11)"
+            )
+        self.cfg = cfg
+        self.num_clips = num_clips
+        self.overall_iters = overall_iters
+        self.ensemble_method = multi_view_ensemble_method
+        self.multi_label = multi_label
+        self.video_preds = np.zeros((num_videos, num_cls), dtype=np.float64)
+        if multi_label:
+            # a -1e10 floor so "max" ensembling starts below any real
+            # logit (constant per video, rank-invariant for the mAP under
+            # "sum")
+            self.video_preds -= 1e10
+        self.video_labels = (
+            np.zeros((num_videos, num_cls), dtype=np.float64)
+            if multi_label
+            else np.zeros((num_videos,), dtype=np.int64)
+        )
+        self.clip_count = np.zeros((num_videos,), dtype=np.int64)
+        self.iter_timer = Timer()
+        self.data_timer = Timer()
+        self.net_timer = Timer()
+        self.stats: Dict[str, object] = {}
+
+    def reset(self):
+        self.video_preds[:] = 0
+        if self.multi_label:
+            self.video_preds -= 1e10
+        self.video_labels[:] = 0
+        self.clip_count[:] = 0
+
+    def update_stats(self, preds: np.ndarray, labels: np.ndarray, clip_ids: np.ndarray):
+        """preds [N, C]; clip_ids are global clip indices: video index =
+        clip_id // num_clips. Multi-label labels are [N, C] multi-hot
+        vectors."""
+        for i in range(preds.shape[0]):
+            vid_id = int(clip_ids[i]) // self.num_clips
+            if self.multi_label:
+                if self.video_labels[vid_id].sum() > 0:
+                    assert np.array_equal(self.video_labels[vid_id], labels[i])
+                self.video_labels[vid_id] = labels[i]
+            else:
+                if self.clip_count[vid_id] > 0:
+                    assert self.video_labels[vid_id] == int(labels[i])
+                self.video_labels[vid_id] = int(labels[i])
+            if self.ensemble_method == "sum":
+                self.video_preds[vid_id] += preds[i]
+            elif self.ensemble_method == "max":
+                self.video_preds[vid_id] = np.maximum(self.video_preds[vid_id], preds[i])
+            else:
+                raise NotImplementedError(self.ensemble_method)
+            self.clip_count[vid_id] += 1
+
+    def log_iter_stats(self, cur_iter: int):
+        eta_sec = self.iter_timer.seconds() * (self.overall_iters - cur_iter)
+        stats = {
+            "split": "test_iter",
+            "cur_iter": f"{cur_iter + 1}",
+            "eta": str(datetime.timedelta(seconds=int(eta_sec))),
+            "time_diff": self.iter_timer.seconds(),
+        }
+        log_json_stats(stats, logger)
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+        self.data_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+        self.net_timer.pause()
+
+    def data_toc(self):
+        self.data_timer.pause()
+        self.net_timer.reset()
+
+    def finalize_metrics(self, ks=(1, 5)) -> Dict[str, object]:
+        if not np.all(self.clip_count == self.num_clips):
+            logger.warning(
+                "clip count %s ~= num clips %s",
+                ", ".join(
+                    f"{i}: {c}"
+                    for i, c in enumerate(self.clip_count)
+                    if c != self.num_clips
+                ),
+                self.num_clips,
+            )
+        stats = {"split": "test_final"}
+        if self.multi_label:
+            # the mAP as the metric, reported under map AND top1/top5 keys
+            mean_ap = get_map(self.video_preds, self.video_labels)
+            map_str = f"{mean_ap * 100.0:.2f}"
+            stats["map"] = map_str
+            stats["top1_acc"] = map_str
+            stats["top5_acc"] = map_str
+        else:
+            num_topks = metrics.topks_correct(self.video_preds, self.video_labels, ks)
+            topks = [x / self.video_preds.shape[0] * 100.0 for x in num_topks]
+            for k, topk in zip(ks, topks):
+                stats[f"top{k}_acc"] = f"{topk:.2f}"
+        log_json_stats(stats, logger)
+        self.stats = stats
+        return stats
+
+
+class EPICTestMeter:
+    """Verb/noun/action multi-view ensembling."""
+
+    def __init__(
+        self,
+        num_videos: int,
+        num_clips: int,
+        num_cls: Tuple[int, int],
+        overall_iters: int,
+        multi_view_ensemble_method: str = "sum",
+    ):
+        self.num_clips = num_clips
+        self.overall_iters = overall_iters
+        self.ensemble_method = multi_view_ensemble_method
+        self.verb_preds = np.zeros((num_videos, num_cls[0]), dtype=np.float64)
+        self.noun_preds = np.zeros((num_videos, num_cls[1]), dtype=np.float64)
+        self.verb_labels = np.zeros((num_videos,), dtype=np.int64)
+        self.noun_labels = np.zeros((num_videos,), dtype=np.int64)
+        self.metadata = np.empty(num_videos, dtype=object)
+        self.clip_count = np.zeros((num_videos,), dtype=np.int64)
+        self.iter_timer = Timer()
+        self.data_timer = Timer()
+        self.net_timer = Timer()
+        self.stats: Dict[str, object] = {}
+
+    def reset(self):
+        self.verb_preds[:] = 0
+        self.noun_preds[:] = 0
+        self.verb_labels[:] = 0
+        self.noun_labels[:] = 0
+        self.metadata[:] = None
+        self.clip_count[:] = 0
+
+    def update_stats(self, preds, labels, metadata, clip_ids):
+        verb_p, noun_p = preds
+        verb_l, noun_l = labels
+        for i in range(verb_p.shape[0]):
+            vid_id = int(clip_ids[i]) // self.num_clips
+            self.verb_labels[vid_id] = int(verb_l[i])
+            self.noun_labels[vid_id] = int(noun_l[i])
+            if metadata is not None:
+                self.metadata[vid_id] = metadata[i]
+            if self.ensemble_method == "sum":
+                self.verb_preds[vid_id] += verb_p[i]
+                self.noun_preds[vid_id] += noun_p[i]
+            elif self.ensemble_method == "max":
+                self.verb_preds[vid_id] = np.maximum(self.verb_preds[vid_id], verb_p[i])
+                self.noun_preds[vid_id] = np.maximum(self.noun_preds[vid_id], noun_p[i])
+            else:
+                # a max fallback on zero-initialised preds would clamp
+                # negative logits and report wrong-but-plausible numbers
+                raise NotImplementedError(self.ensemble_method)
+            self.clip_count[vid_id] += 1
+
+    iter_tic = TestMeter.iter_tic
+    iter_toc = TestMeter.iter_toc
+    data_toc = TestMeter.data_toc
+    log_iter_stats = TestMeter.log_iter_stats
+
+    def finalize_metrics(self, ks=(1, 5)) -> Dict[str, object]:
+        if not np.all(self.clip_count == self.num_clips):
+            logger.warning("incomplete clip counts at finalize")
+        stats = {"split": "test_final"}
+        verb_topks = metrics.topk_accuracies(self.verb_preds, self.verb_labels, ks)
+        noun_topks = metrics.topk_accuracies(self.noun_preds, self.noun_labels, ks)
+        action_topks = metrics.multitask_topk_accuracies(
+            (self.verb_preds, self.noun_preds), (self.verb_labels, self.noun_labels), ks
+        )
+        for k, v, n, a in zip(ks, verb_topks, noun_topks, action_topks):
+            stats[f"verb_top{k}_acc"] = f"{v:.2f}"
+            stats[f"noun_top{k}_acc"] = f"{n:.2f}"
+            stats[f"action_top{k}_acc"] = f"{a:.2f}"
+        log_json_stats(stats, logger)
+        self.stats = stats
+        return stats
 
 
 class ScalarMeter:
@@ -328,3 +533,31 @@ class EPICValMeter:
         }
         log_json_stats(stats, logger)
         return stats
+
+
+class EpochTimer:
+    """Per-epoch wall timing."""
+
+    def __init__(self):
+        self.timer = Timer()
+        self.epoch_durations = []
+
+    def reset(self):
+        self.timer.reset()
+        self.epoch_durations = []
+
+    def epoch_tic(self):
+        self.timer.reset()
+
+    def epoch_toc(self):
+        self.timer.pause()
+        self.epoch_durations.append(self.timer.seconds())
+
+    def last_epoch_time(self):
+        return self.epoch_durations[-1]
+
+    def avg_epoch_time(self):
+        return float(np.mean(self.epoch_durations))
+
+    def median_epoch_time(self):
+        return float(np.median(self.epoch_durations))

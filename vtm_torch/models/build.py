@@ -37,6 +37,28 @@ class ModelBundle:
     policy: MergePolicy
     name: str
 
+    def set_policy(self, policy: MergePolicy) -> None:
+        """Make ``policy`` the bundle's and that of the module and every
+        block in it, each of which holds its own reference."""
+        self.policy = policy
+        for m in self.module.modules():
+            if isinstance(getattr(m, "policy", None), MergePolicy):
+                m.policy = policy
+
+    @property
+    def r(self):
+        """The reference's ``model.r`` surface (see ``vtm_torch.patch``):
+        the per-layer merge schedule; assign int | (r, inflect) | [r0, r1, ...]."""
+        return self.policy.rs
+
+    @r.setter
+    def r(self, value):
+        rs = tuple(parse_r(self.module.config.depth, value))
+        policy = dataclasses.replace(self.policy, rs=rs)
+        if policy.mode == "none":
+            policy = dataclasses.replace(policy, mode="merge")
+        self.set_policy(policy)
+
 
 def compute_dtype(cfg) -> torch.dtype:
     return {

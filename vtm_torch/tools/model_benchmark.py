@@ -10,6 +10,9 @@ forward, ``attention_kernel_launches`` (K1, dense attention),
 ``frame_attention_kernel_launches`` (K3, per-frame attention) and
 ``blockdiag_attention_kernel_launches`` (K5a, block-diagonal attention),
 and ``device``. VideoMAE, Motionformer, TimeSformer and ViViT are ported.
+The weights come from ``load_test_checkpoint``: ``TEST.CHECKPOINT_FILE_PATH``,
+else the last checkpoint of ``OUTPUT_DIR``, then ``TRAIN.CHECKPOINT_FILE_PATH``,
+else the seeded init.
 
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``device="cpu"``, plain versions of the kernels) is for tests only.
@@ -18,74 +21,18 @@ Runs on the first CUDA device; a machine without one raises. The CPU
 from __future__ import annotations
 
 import json
-import os
 
 import numpy as np
 import torch
 
-from vtm_torch.checkpoints.checkpoint import clear_name_pattern_keys, merge_into_template
-from vtm_torch.checkpoints.convert import (
-    load_motionformer_state_dict,
-    load_timesformer_state_dict,
-    load_torch_state_dict,
-    load_videomae_state_dict,
-    load_vivit_state_dict,
-)
+from vtm_torch.checkpoints.checkpoint import load_test_checkpoint
 from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
-from vtm_torch.models import ModelBundle, build_model
+from vtm_torch.models import build_model
 from vtm_torch.ops import flash_attention
 from vtm_torch.utils.benchmark import device_seconds
 from vtm_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
-
-
-def _load_timesformer(sd, config):
-    return load_timesformer_state_dict(
-        sd, num_frames=config.num_frames, spatial_tokens=config.spatial_tokens,
-        divided=config.attention_type == "divided_space_time",
-    )
-
-
-# model name -> f(state dict as loaded, the module's config) -> the port's state dict
-CHECKPOINT_LOADERS = {
-    "VideoMAE": lambda sd, config: load_videomae_state_dict(sd),
-    "Motionformer": lambda sd, config: load_motionformer_state_dict(sd),
-    "TimeSformer": _load_timesformer,
-    "ViViT": lambda sd, config: load_vivit_state_dict(sd),
-}
-
-
-def load_test_checkpoint(cfg, bundle: ModelBundle) -> ModelBundle:
-    """Load ``TEST.CHECKPOINT_FILE_PATH`` into the bundle's module as the
-    JAX package loads a torch checkpoint (``vtm/checkpoints/checkpoint.py::
-    load_test_checkpoint``): the keys renamed by
-    ``TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN``, converted by the model's
-    converter, then overlaid on the module's own state dict by
-    ``merge_into_template``, so that a tensor the file lacks or holds in
-    another shape (a head of another class count) keeps its init. Loaded
-    in place: an optimizer already built on the parameters stays valid.
-    A file of which no tensor matches raises. An empty path keeps the
-    random weights drawn from ``RNG_SEED``."""
-    path = cfg.TEST.CHECKPOINT_FILE_PATH
-    if not path:
-        return bundle
-    if not os.path.isfile(path):
-        raise FileNotFoundError(f"TEST.CHECKPOINT_FILE_PATH {path!r} does not exist")
-    if bundle.name not in CHECKPOINT_LOADERS:
-        raise NotImplementedError(f"no checkpoint converter for {bundle.name}")
-    for key in ("CHECKPOINT_INFLATE", "CHECKPOINT_IN_INIT"):
-        if getattr(cfg.TRAIN, key):
-            raise NotImplementedError(f"TRAIN.{key}: the conv families' weight adaptation is not ported yet")
-    sd = clear_name_pattern_keys(load_torch_state_dict(path), tuple(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN))
-    converted = CHECKPOINT_LOADERS[bundle.name](sd, bundle.module.config)
-    merged, loaded, kept = merge_into_template(bundle.module.state_dict(), converted)
-    if not loaded:  # the JAX package's converters raise on a file without the backbone's keys
-        raise KeyError(f"no tensor of {path!r} matches {bundle.name}'s; "
-                       f"TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN may have to strip a prefix")
-    bundle.module.load_state_dict(merged)
-    logger.info("Loaded torch checkpoint %s (%d tensors, %d kept init)", path, loaded, kept)
-    return bundle
 
 
 def _per_forward(x: float):

@@ -11,7 +11,7 @@ logging, an eval epoch every ``TRAIN.EVAL_PERIOD`` and a checkpoint every
 ``TRAIN.CHECKPOINT_PERIOD``. Returns the trained module. Without a
 checkpoint to resume from, ``TRAIN.CHECKPOINT_FILE_PATH`` names a torch
 checkpoint to start from, loaded as ``TEST.CHECKPOINT_FILE_PATH`` is
-(``model_benchmark.load_test_checkpoint``: partial, the name patterns
+(``checkpoints.checkpoint.load_test_checkpoint``: partial, the name patterns
 cleared), as in the JAX package.
 
 Ported: the supervised transformer path (VideoMAE, Motionformer, TimeSformer
@@ -37,13 +37,13 @@ import numpy as np
 import torch
 
 from vtm_torch.checkpoints import checkpoint as cu
+from vtm_torch.checkpoints.checkpoint import load_test_checkpoint
 from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
 from vtm_torch.data import construct_loader, shuffle_dataset
 from vtm_torch.eval.meters import EPICTrainMeter, EPICValMeter, TrainMeter, ValMeter
 from vtm_torch.eval.metrics import multitask_topk_accuracies, topk_accuracies, topk_errors
 from vtm_torch.models import ModelBundle, build_model
 from vtm_torch.train.mixup import MixUp
-from vtm_torch.tools.model_benchmark import load_test_checkpoint
 from vtm_torch.train.optimizer import construct_optimizer, set_lr
 from vtm_torch.train.train_step import make_eval_step, make_train_step
 from vtm_torch.utils.logging import get_logger, setup_logging
