@@ -167,10 +167,10 @@ import torch.nn.functional as F
 from vtm_torch.checkpoints import checkpoint as checkpoints
 from vtm_torch.config import get_cfg
 from vtm_torch.data import construct_loader
-from vtm_torch.merge import MergeState, bipartite_soft_matching
+from vtm_torch.merge import MergePolicy, MergeState
 from vtm_torch.merge import bipartite as merge_bipartite
 from vtm_torch.models import build_model
-from vtm_torch.models.common import split_heads
+from vtm_torch.models.common import _FLASH_MAX_SEQ, _FLASH_MIN_SEQ, split_heads
 from vtm_torch.ops import build as kernel_build
 from vtm_torch.ops import flash_attention
 from vtm_torch.ops.flash_attention import (
@@ -195,6 +195,7 @@ from vtm_torch.tools.model_benchmark import model_benchmark
 from vtm_torch.tools.train_net import build_trainer, train
 from vtm_torch.train.optimizer import set_lr
 from vtm_torch.utils.benchmark import device_seconds
+from vtm_torch.vis import concatenate_images, make_spatiotemporal_video_visualization
 
 # configs/videomae/kinetics/tome_VideoMAE_B_16_224_K400.yaml, key by key,
 # with the checkpoint placeholder replaced by "" (random weights).
@@ -793,6 +794,8 @@ MERGED_K1_PER_FORWARD = 9  # K1 runs for N >= 256: layers 0-8
 # path's: every length K1 takes at the test batch of 32 (layers 0-8)
 KERNEL_SHAPES = [(8, 12, n, 64) for n in (1568, 1418, 368, 256, 3137, 437)] + [(2, 2, 37, 16)] + [
     (32, 12, n, 64) for n in MERGED_COUNTS[:MERGED_K1_PER_FORWARD]]
+# ... and the duplication path's lengths at its batch of 8 (the dup phase)
+KERNEL_SHAPES += [(8, 12, n, 64) for n in (1437, 1306, 1175, 1044, 913, 782, 651, 520, 389, 258)]
 TIMED = ((1568, False), (368, False), (3137, True))  # (N, biased): VideoMAE's layers 0 and 8, ViViT's layer 0
 # K1 against attention_core's plain branch where the two meet: VideoMAE's
 # layers 8-10 (368, 218, 109), ViViT's layer 9 (437), and the 256-token
@@ -911,6 +914,25 @@ EVAL_VIDEOS = 32
 # a second build of the same weights, forwarded in the same batches: equal
 # unless a library call picks another algorithm for the second build
 EVAL_SUM_TOL = 1e-3
+
+
+# The merge variants at the configs' own r (experiments.sh's rows): a drop or
+# a hybrid group leaves as many tokens as a merge, so each kernel's launches a
+# forward are the merge mode's. ViViT hybrid at THRESHOLD 0.4
+# (experiments.sh:360), VideoMAE's at 0.8 (:363), each test_net pass over 8
+# synthetic videos of 1 view x 1 crop.
+VARIANTS_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_variants"
+VARIANT_EVAL_OPTS = ["TEST.DATASET", "synthetic", "TEST.NUM_ENSEMBLE_VIEWS", "1", "TEST.NUM_SPATIAL_CROPS", "1",
+                     "TEST.BATCH_SIZE", "8"]
+VIVIT_HYBRID_THRESHOLD, VIDEOMAE_HYBRID_THRESHOLD = 0.4, 0.8
+# Layer duplication (examples/layer_duplication_example.py:7-8): VideoMAE's
+# block 0 run 12 times at R 131 (11 metric-only steps, then the full block),
+# blocks 1-11 unmerged. The tokens entering each of the 23 steps follow from
+# the policy, and K1 runs at each step whose row length attention_core sends
+# to it.
+DUP_OPTS = ("TOME.LAYER_TO_DUPLICATE", "0", "TOME.LAYER_QUANTITY", "12", "TOME.R_VALUE", "131")
+DUP_COUNTS = MergePolicy(rs=(131,) * 12 + (0,) * 11, mode="merge").token_counts(1568)
+DUP_K1_PER_FORWARD = sum(_FLASH_MIN_SEQ <= n <= _FLASH_MAX_SEQ for n in DUP_COUNTS[:-1])
 
 
 def emit(phase: str, **fields) -> None:
@@ -1559,45 +1581,68 @@ def phase_blockdiag_bwd_kernel(smi: str) -> dict:
                          first=str(BLOCKDIAG_TIMED[0][0]))
 
 
+@contextlib.contextmanager
+def recording(module, name: str):
+    """While open, every result of ``module.name`` is appended to the list
+    it yields (the matcher's Matchings, the hybrid's kept-dst masks)."""
+    seen, original = [], getattr(module, name)
+
+    def record(*args, **kwargs):
+        out = original(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    setattr(module, name, record)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, original)
+
+
 def phase_blocks(phase: str, cfg, seed: int, block_kwargs: dict, launch_count, final_tokens: int,
-                 launches_expected: int, frames: int = 16, blocks: str = "blocks", attn: str = "attn") -> None:
-    """Teacher-forced full-width blocks (fp32, TF32 off, B2): each block
-    gets the plain chain's input through the kernel path and the plain
-    path, which must make identical Matching indices and sizes and
-    outputs within BLOCK_TOL. ``blocks`` and ``attn`` name the model's
-    block list and a block's attention module."""
+                 launches_expected: int, frames: int = 16, blocks: str = "blocks", attn: str = "attn",
+                 generator_seed=None) -> None:
+    """Teacher-forced full-width blocks (fp32, TF32 off, B2): each executed
+    step (``layer_schedule``: a block may run at several steps, some
+    metric-only) gets the plain chain's input through the kernel path and
+    the plain path, which must make identical Matching indices (those the
+    matcher made in each path) and sizes and outputs within BLOCK_TOL.
+    ``generator_seed``: the random modes' scores come from a CUDA generator
+    seeded anew for each path at each step. ``blocks`` and ``attn`` name the
+    model's block list and a block's attention module."""
     model = build_model(cfg, "cuda").module
     model_blocks = getattr(model, blocks)
+    steps = model.layer_schedule or range(len(model_blocks))
+    steps = [s if isinstance(s, tuple) else (s, False) for s in steps]
     video = torch.from_numpy(
         np.random.default_rng(seed).random((2, frames, 224, 224, 3), dtype=np.float32)
     ).cuda()
-    metrics = []
-    hooks = [getattr(blk, attn).register_forward_hook(lambda m, i, o: metrics.append(o[1]))
-             for blk in model_blocks]
     launches0, rows = launch_count(), []
-    with torch.inference_mode():
+    with torch.inference_mode(), recording(merge_bipartite, "_match") as matchings:
         x = model.embed(video)
         size = None
-        for i, blk in enumerate(model_blocks):
-            outs = {}
+        for i, (b, metric_only) in enumerate(steps):
+            blk, outs = model_blocks[b], {}
+            kwargs = dict(block_kwargs, metric_only=True) if metric_only else block_kwargs
             for path in ("kernel", "plain"):
                 getattr(blk, attn).use_kernel = path == "kernel"
-                metrics.clear()
-                y, st = blk(x, MergeState(size=size), layer=i, **block_kwargs)
-                m = bipartite_soft_matching(metrics[0], model.policy.r_at(i), model.policy.class_token)
-                outs[path] = (y, st.size, m)
+                generator = None
+                if generator_seed is not None:
+                    generator = torch.Generator(device="cuda").manual_seed(generator_seed + i)
+                matchings.clear()
+                y, st = blk(x, MergeState(size=size, generator=generator), layer=i, **kwargs)
+                outs[path] = (y, st.size, matchings[0] if matchings else None)
             getattr(blk, attn).use_kernel = True
             (yk, sk, mk), (yp, sp, mp) = outs["kernel"], outs["plain"]
-            for name in ("unm_idx", "src_idx", "dst_idx"):
+            check((mk is None) == (mp is None), f"{phase} {i}: a matching in one path only")
+            for name in ("unm_idx", "src_idx", "dst_idx") if mk is not None else ():
                 check(torch.equal(getattr(mk, name), getattr(mp, name)),
                       f"{phase} {i}: {name} differs between kernel and plain paths")
             check(torch.equal(sk, sp), f"{phase} {i}: sizes differ")
             err = (yk - yp).abs().max().item()
             check(err <= BLOCK_TOL, f"{phase} {i}: output err {err} > {BLOCK_TOL}")
-            rows.append(dict(layer=i, tokens=x.shape[1], err=err))
+            rows.append(dict(layer=i, block=b, tokens=x.shape[1], err=err))
             x, size = yp, sp
-    for hk in hooks:
-        hk.remove()
     check(x.shape[1] == final_tokens, f"{phase}: final tokens {x.shape[1]}")
     launches = launch_count() - launches0
     check(launches == launches_expected, f"{phase}: {launches} kernel launches")
@@ -1993,6 +2038,204 @@ def phase_eval(phase: str, smi: str, cfg_fn, opts, counter: str, per_batch: int,
     return total[counter]
 
 
+def variant_eval(tag: str, cfg_fn, *opts):
+    """``test_net.test`` on the card over 8 synthetic videos in one batch of
+    8, with a fresh OUTPUT_DIR: (stats, the meter's fp64 ensembles, the
+    kernels' launches in the run)."""
+    out = VARIANTS_OUT / tag
+    shutil.rmtree(out, ignore_errors=True)
+    before = launch_counts()
+    with recording_test_net() as seen:
+        results = test_net.test(cfg_fn(*VARIANT_EVAL_OPTS, "OUTPUT_DIR", str(out), *opts))
+    check(len(results) == 1 and len(seen) == 1, f"{tag}: {len(results)} results")
+    stats, meter = results[0][1], seen[0]
+    check(all(np.isfinite(float(stats[k])) for k in ("top1_acc", "top5_acc")), f"{tag}: stats {stats}")
+    check(bool((meter.clip_count == 1).all()) and meter.video_preds.shape == (8, 400), f"{tag}: ensembles")
+    launches = {c: n - before[c] for c, n in launch_counts().items()}
+    return stats, meter.video_preds.copy(), launches
+
+
+def phase_variants(smi: str) -> dict:
+    """The drop, random and hybrid merge modes at full width and depth, bf16,
+    through the entry points, each first teacher-forced against its plain
+    path (fp32 B2, identical Matching indices):
+      * ViViT hybrid, r 300 at THRESHOLD 0.4, through test_net (the biased
+        K1): the groups each layer drops; if 0.4 drops none on random
+        weights, a second run at the median of layer 0's edge scores;
+      * VideoMAE drop r 150 through model_benchmark (K1), timed in turns
+        with merge and hybrid at the same r;
+      * Motionformer drop r 18 through model_benchmark (K3);
+      * TimeSformer random_drop r 18 through test_net (K5a): one seed twice
+        gives the same bits, another seed others.
+    Returns each kernel's launches in the phase."""
+    zero_launch_counts()  # this path's counts start here
+    vivit_hybrid = ("TOME.MODE", "hybrid", "TOME.THRESHOLD", str(VIVIT_HYBRID_THRESHOLD))
+    phase_blocks("vivit_hybrid_blocks", vivit_cfg("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2",
+                                                  *vivit_hybrid),
+                 17, {}, lambda: flash_attention.LAUNCHES, VIVIT_COUNTS[-1], VIVIT_K1_PER_FORWARD["merged"],
+                 frames=32, blocks="layer", attn="attention")
+    with recording(merge_bipartite, "_dst_kept") as kept, recording(merge_bipartite, "_match") as matchings:
+        stats, _, launches = variant_eval("vivit_hybrid", vivit_cfg, *vivit_hybrid)
+        check(len(kept) == len(matchings) == 12, f"vivit hybrid: {len(kept)} thresholded layers")
+        dropped = [int((k == 0).sum()) for k in kept]
+        threshold = VIVIT_HYBRID_THRESHOLD
+        first_scores = matchings[0].src_score
+        runs = [dict(threshold=threshold, dropped_groups=dropped, stats=stats)]
+        if sum(dropped) == 0:
+            threshold = float(first_scores.median())
+            kept.clear()
+            stats, _, more = variant_eval("vivit_hybrid_median", vivit_cfg, "TOME.MODE", "hybrid",
+                                          "TOME.THRESHOLD", repr(threshold))
+            launches = {c: launches[c] + more[c] for c in launches}
+            dropped = [int((k == 0).sum()) for k in kept[:12]]
+            runs.append(dict(threshold=threshold, dropped_groups=dropped, stats=stats))
+            check(sum(dropped) > 0, f"vivit hybrid at the median {threshold}: no group dropped")
+    check(all(0 <= d <= 8 * 300 for d in dropped), f"vivit hybrid: dropped {dropped}")
+    per_run = VIVIT_K1_PER_FORWARD["merged"]
+    check(launches["LAUNCHES"] == per_run * len(runs) and
+          all(n == 0 for c, n in launches.items() if c != "LAUNCHES"), f"vivit hybrid: launches {launches}")
+
+    # VideoMAE drop, and merge / drop / hybrid timed in turns at r 150
+    phase_blocks("videomae_drop_blocks", main_cfg("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2",
+                                                  "TOME.MODE", "drop"),
+                 1, {}, lambda: flash_attention.LAUNCHES, MERGED_COUNTS[-1], MERGED_K1_PER_FORWARD)
+    serve = {}
+    modes = {"merge": (), "drop": ("TOME.MODE", "drop"),
+             "hybrid": ("TOME.MODE", "hybrid", "TOME.THRESHOLD", str(VIDEOMAE_HYBRID_THRESHOLD))}
+    for turn, mode in enumerate(("merge", "drop", "hybrid", "hybrid", "drop", "merge")):
+        cfg = main_cfg("TEST.BATCH_SIZE", "8", "MODEL_BENCHMARK.WARMUP_ITERATIONS", str(SERVE_WARMUP),
+                       "MODEL_BENCHMARK.ITERATIONS", str(SERVE_ITERS), *modes[mode])
+        stats = model_benchmark(cfg)
+        check(stats["attention_kernel_launches"] == MERGED_K1_PER_FORWARD,
+              f"videomae {mode}: {stats['attention_kernel_launches']} K1 launches a forward")
+        serve.setdefault(mode, []).append(stats["clips_per_sec"])
+
+    # Motionformer drop r 18 (K3)
+    phase_blocks("mf_drop_blocks", mf_cfg("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2", "TOME.MODE", "drop"),
+                 4, {"num_frames": MF_FRAMES}, lambda: flash_attention.FRAME_LAUNCHES, MF_BODY_COUNTS[-1] + 1,
+                 MF_K3_PER_FORWARD["merged"])
+    mf_stats = model_benchmark(mf_cfg("TEST.BATCH_SIZE", "8", "MODEL_BENCHMARK.WARMUP_ITERATIONS", str(SERVE_WARMUP),
+                                      "MODEL_BENCHMARK.ITERATIONS", str(SERVE_ITERS), "TOME.MODE", "drop"))
+    check(mf_stats["frame_attention_kernel_launches"] == MF_K3_PER_FORWARD["merged"],
+          f"motionformer drop: {mf_stats['frame_attention_kernel_launches']} K3 launches a forward")
+
+    # TimeSformer random_drop r 18 through test_net (K5a), per-batch generators
+    phase_blocks("ts_random_drop_blocks", ts_cfg("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2",
+                                                 "TOME.MODE", "random_drop"),
+                 14, {"b": 2, "t": TS_FRAMES}, lambda: flash_attention.BLOCKDIAG_LAUNCHES,
+                 1 + TS_FRAMES * TS_PATCH_COUNTS[-1], TS_K5_PER_FORWARD["merged"], frames=TS_FRAMES,
+                 generator_seed=100)
+    # one set of weights from a file, so that RNG_SEED moves only the draws
+    weights = VARIANTS_OUT / "ts_weights.pyth"
+    weights.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model_state": build_model(ts_cfg(), "cuda").module.state_dict()}, weights)
+    ts_random = ("TOME.MODE", "random_drop", "TEST.CHECKPOINT_FILE_PATH", str(weights))
+    before = flash_attention.BLOCKDIAG_LAUNCHES
+    _, first, _ = variant_eval("ts_random_drop", ts_cfg, *ts_random)
+    _, again, _ = variant_eval("ts_random_drop", ts_cfg, *ts_random)
+    _, other, _ = variant_eval("ts_random_drop", ts_cfg, *ts_random, "RNG_SEED", "1")
+    weights.unlink()
+    check(np.array_equal(first, again), "timesformer random_drop: one seed, two results")
+    check(not np.array_equal(first, other), "timesformer random_drop: two seeds, one result")
+    check(flash_attention.BLOCKDIAG_LAUNCHES - before == 3 * TS_K5_PER_FORWARD["merged"],
+          f"timesformer random_drop: {flash_attention.BLOCKDIAG_LAUNCHES - before} K5a launches in 3 batches")
+
+    total = launch_counts()  # read right after the path ran
+    check(all(total[c] > 0 for c in ("LAUNCHES", "FRAME_LAUNCHES", "BLOCKDIAG_LAUNCHES")),
+          f"the variants path left a kernel unlaunched: {total}")
+    check(all(n == 0 for c, n in total.items() if c not in ("LAUNCHES", "FRAME_LAUNCHES", "BLOCKDIAG_LAUNCHES")),
+          f"the variants path launched a backward kernel: {total}")
+    emit(
+        "variants",
+        vivit_hybrid=runs, vivit_layer0_median_score=float(first_scores.median()),
+        videomae_clips_per_sec=serve,
+        videomae_ratio_to_merge={m: float(np.median(v) / np.median(serve["merge"])) for m, v in serve.items()},
+        motionformer_drop_clips_per_sec=mf_stats["clips_per_sec"],
+        timesformer_random_drop=dict(same_seed_same_bits=True, other_seed_differs=True,
+                                     max_abs_diff_other_seed=float(np.abs(first - other).max())),
+        launches=total, batch=8, dtype="bfloat16", nvidia_smi=smi,
+    )
+    return total
+
+
+def phase_dup(smi: str) -> int:
+    """Layer duplication: VideoMAE's block 0 run 12 times at R 131, B8 bf16
+    (teacher-forced first, fp32 B2, metric-only steps included). The
+    tokens entering each executed step equal ``token_counts`` of the grown
+    schedule; K1 runs DUP_K1_PER_FORWARD times a forward. Returns K1's
+    launches in the phase."""
+    zero_launch_counts()  # this path's counts start here
+    phase_blocks("dup_blocks", main_cfg("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2", *DUP_OPTS),
+                 3, {}, lambda: flash_attention.LAUNCHES, DUP_COUNTS[-1], DUP_K1_PER_FORWARD)
+    cfg = main_cfg("TEST.BATCH_SIZE", "8", *DUP_OPTS)
+    bundle = build_model(cfg, "cuda")
+    schedule = bundle.module.layer_schedule
+    check(len(schedule) == 23 and sum(m for _, m in schedule) == 11, f"dup: schedule {schedule}")
+    check(tuple(bundle.policy.token_counts(1568)) == DUP_COUNTS, "dup: the policy's token counts")
+    seen = []
+    hooks = [blk.register_forward_pre_hook(lambda m, a: seen.append(a[0].shape[1])) for blk in bundle.module.blocks]
+    video = torch.from_numpy(np.random.default_rng(8).random((8, 16, 224, 224, 3), dtype=np.float32)).cuda()
+    before = flash_attention.LAUNCHES
+    with torch.inference_mode():
+        logits, state = bundle.apply(video)
+    torch.cuda.synchronize()
+    for hk in hooks:
+        hk.remove()
+    launches = flash_attention.LAUNCHES - before
+    check(tuple(seen) == DUP_COUNTS[:-1] and state.size.shape[1] == DUP_COUNTS[-1], f"dup: token counts {seen}")
+    check(launches == DUP_K1_PER_FORWARD, f"dup: {launches} K1 launches in a forward")
+    check(tuple(logits.shape) == (8, 400) and bool(torch.isfinite(logits).all()), "dup: logits")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: bundle.apply(video), iters=5, warmup=1)
+    total = launch_counts()  # read right after the path ran
+    check(total["LAUNCHES"] == DUP_K1_PER_FORWARD * (1 + 5 + 1) + DUP_K1_PER_FORWARD,
+          f"dup: K1 launches {total['LAUNCHES']}")
+    check(all(n == 0 for c, n in total.items() if c != "LAUNCHES"), f"dup: another kernel launched: {total}")
+    emit("dup", token_counts=list(DUP_COUNTS), k1_per_forward=DUP_K1_PER_FORWARD, forward_ms=ms,
+         launches=total["LAUNCHES"], batch=8, dtype="bfloat16", nvidia_smi=smi)
+    return total["LAUNCHES"]
+
+
+def phase_source(smi: str) -> int:
+    """Source tracking: VideoMAE r 150 at B2, bf16, ``bundle.apply(...,
+    trace_source=True)``: every entry 0 or 1, each original token in one
+    group (columns sum to 1), each group's row summing to its size; one
+    spatio-temporal merge-group sheet written through vtm_torch.vis to a
+    temporary directory. Returns K1's launches."""
+    import tempfile
+
+    zero_launch_counts()  # this path's counts start here
+    bundle = build_model(main_cfg("TEST.BATCH_SIZE", "2"), "cuda")
+    video = torch.from_numpy(np.random.default_rng(9).random((2, 16, 224, 224, 3), dtype=np.float32)).cuda()
+    with torch.inference_mode():
+        _, plain = bundle.apply(video)
+        logits, state = bundle.apply(video, trace_source=True)
+    torch.cuda.synchronize()
+    total = launch_counts()  # read right after the path ran
+    check(total["LAUNCHES"] == 2 * MERGED_K1_PER_FORWARD and
+          all(n == 0 for c, n in total.items() if c != "LAUNCHES"), f"source: launches {total}")
+    source = state.source
+    check(plain.source is None and source.dtype == torch.bfloat16, "source: traced for one call only")
+    check(tuple(source.shape) == (2, MERGED_COUNTS[-1], 1568), f"source: shape {tuple(source.shape)}")
+    check(bool(((source == 0) | (source == 1)).all()), "source: an entry other than 0 or 1")
+    check(bool((source.float().sum(dim=1) == 1).all()), "source: a token in no group or in two")
+    check(torch.equal(source.float().sum(dim=2, keepdim=True), state.size), "source: rows against sizes")
+    check(bool(torch.isfinite(logits).all()), "source: logits")
+    clip = video[0].float().cpu().numpy()
+    frames = np.transpose((clip - clip.min()) / (np.ptp(clip) + 1e-8), (0, 3, 1, 2))
+    images, _ = make_spatiotemporal_video_visualization(
+        frames, source[0].float().cpu().numpy(), patch_size=(16, 16, 2), class_token=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "videomae_source.png"
+        concatenate_images(images, ncols=8, nrows=2).save(path)
+        png_bytes = path.stat().st_size
+    check(images.shape == (16, 224, 224, 3) and png_bytes > 0, "source: the sheet")
+    emit("source", groups=int(source.shape[1]), tokens=int(source.shape[2]),
+         largest_group=int(state.size.max()), png_bytes=png_bytes, launches=total["LAUNCHES"],
+         batch=2, dtype="bfloat16", nvidia_smi=smi)
+    return total["LAUNCHES"]
+
+
 def fixed_batch(cfg):
     """The first training batch of the synthetic dataset, on the card."""
     batch = next(iter(construct_loader(cfg, "train")))
@@ -2344,6 +2587,12 @@ def main() -> int:
     frame_launches += phase_eval("mf_eval", smi, mf_train_cfg, MF_EVAL_OPTS, "FRAME_LAUNCHES",
                                  MF_K3_PER_FORWARD["merged"],
                                  [f"{t}_top{k}_acc" for t in ("verb", "noun", "action") for k in (1, 5)])
+    variants = phase_variants(smi)
+    launches += variants["LAUNCHES"]
+    frame_launches += variants["FRAME_LAUNCHES"]
+    blockdiag_launches += variants["BLOCKDIAG_LAUNCHES"]
+    launches += phase_dup(smi)
+    launches += phase_source(smi)
     bwd_launches = phase_train(smi, **VIDEOMAE_TRAIN)
     frame_bwd_launches = phase_train(smi, **MOTIONFORMER_TRAIN)
     blockdiag_bwd_launches = phase_train(smi, **TIMESFORMER_TRAIN)

@@ -121,9 +121,3 @@ def test_reduce_tokens_merge_and_none():
     assert float(state.size.sum()) == B * N
     same, state = reduce_tokens(MergePolicy(rs=(5,), mode="none"), 0, metric, x, MergeState())
     assert same is x and state.size is None
-
-
-@pytest.mark.parametrize("mode", ["drop", "random_merge", "random_drop", "hybrid"])
-def test_unported_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MergePolicy(rs=(1,), mode=mode)

@@ -138,6 +138,21 @@ def test_chip_smoke_schedules_match_the_policies():
     assert 1 + chip_smoke.TS_FRAMES * chip_smoke.TS_PATCH_COUNTS[-1] == 41
 
 
+def test_chip_smoke_duplication_path_is_the_configs():
+    """The dup phase's schedule is what build_model makes of its options,
+    and the kernel phase holds K1 at every length that path gives it."""
+    import chip_smoke
+    from vtm_torch.models.build import duplication_plan, make_policy
+
+    cfg = chip_smoke.main_cfg(*chip_smoke.DUP_OPTS)
+    policy = make_policy(cfg, 12, n_protected_class_token=False)
+    assert len(duplication_plan(cfg, 12)) == len(policy.rs) == 23
+    assert policy.token_counts(1568) == chip_smoke.DUP_COUNTS
+    k1_lengths = {n for n in chip_smoke.DUP_COUNTS[:-1] if 256 <= n <= 4096}
+    assert len(k1_lengths) == chip_smoke.DUP_K1_PER_FORWARD == 11
+    assert k1_lengths <= {n for b, h, n, d in chip_smoke.KERNEL_SHAPES if b == 8}
+
+
 def test_chip_smoke_motionformer_train_runs_change_only_what_they_say():
     """The timed step is the shipped config with one 400-class head and a
     constant learning rate on the synthetic dataset at batch 8; the

@@ -63,6 +63,19 @@ EVAL_MODULES = (
     "vtm_torch.data.epickitchens",
 )
 
+# the merge visualisation, the analysis tools and the examples
+ANALYSIS_MODULES = (
+    "vtm_torch.vis",
+    "vtm_torch.vis.vis",
+    "vtm_torch.analysis",
+    "vtm_torch.analysis.splicing",
+    "vtm_torch.analysis.dataset_tools",
+    "vtm_torch.tools.dataset_utils",
+    "vtm_torch.examples",
+    "vtm_torch.examples.common",
+) + tuple(f"vtm_torch.examples.{name}_example" for name in (
+    "videomae", "vivit", "timesformer", "layer_duplication", "clip_splicing"))
+
 
 def _env():
     env = dict(os.environ)
@@ -80,6 +93,18 @@ def test_every_module_imports_without_jax():
     assert len(names) >= 30
     assert not set(TRAINING_MODULES) - set(names)
     assert not set(EVAL_MODULES) - set(names)
+    assert not set(ANALYSIS_MODULES) - set(names)
+
+
+@pytest.mark.parametrize("module", ANALYSIS_MODULES)
+def test_analysis_modules_import_without_jax_alone(module):
+    """Each of the new subpackages' modules, imported alone in a fresh
+    process, pulls in neither jax nor vtm."""
+    code = (f"import sys, {module}; bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'simplejson', 'vtm')]; assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_imports_without_jax():
@@ -113,7 +138,7 @@ ENTRY_POINT_ARGS = {"vtm_torch.tools.ab_dense": ("--exp", "decomp"), "vtm_torch.
                                     "vtm_torch.tools.check_blockdiag", "vtm_torch.tools.check_ab",
                                     "vtm_torch.tools.ab_dense", "vtm_torch.tools.check_attention",
                                     "vtm_torch.tools.kernel_times", "vtm_torch.tools.test_net",
-                                    "vtm_torch.tools.run_net"])
+                                    "vtm_torch.tools.run_net"] + list(ANALYSIS_MODULES[-5:]))
 def test_entry_points_refuse_to_run_without_cuda(module):
     """No CUDA device and no request for the CPU: the entry points raise
     instead of carrying on on the CPU."""

@@ -174,6 +174,23 @@ def test_seed_sets_weights():
     assert not torch.equal(a["blocks.0.attn.qkv.weight"], c["blocks.0.attn.qkv.weight"])
 
 
-def test_layer_duplication_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(_tiny_cfg("TOME.LAYER_QUANTITY", "2"), "cpu")
+def test_layer_duplication_runs_the_grown_stack():
+    """Block 0 three times at r 2: the benchmark runs 14 steps, and the
+    tokens entering each are ``token_counts`` of the grown schedule."""
+    cfg = _tiny_cfg("TOME.LAYER_QUANTITY", "3")
+    bundle = build_model(cfg, "cpu")
+    assert len(bundle.module.layer_schedule) == 14 and bundle.policy.rs == (2, 2, 2) + (0,) * 11
+    seen = []
+    hooks = [b.register_forward_pre_hook(lambda m, a: seen.append(a[0].shape[1])) for b in bundle.module.blocks]
+    mb.perform_benchmark(bundle.module, cfg, torch.device("cpu"))
+    for h in hooks:
+        h.remove()
+    assert tuple(seen[:14]) == bundle.policy.token_counts(8)[:-1] == (8, 6, 4, 2) + (2,) * 10
+
+
+@pytest.mark.parametrize("mode", ["random_merge", "random_drop"])
+def test_random_mode_raises_value_error_as_vtm_does(mode):
+    """``model_benchmark`` passes no generator, as vtm's passes no rng: a
+    random mode raises ValueError there."""
+    with pytest.raises(ValueError, match="torch.Generator"):
+        mb.model_benchmark(_tiny_cfg("TOME.MODE", mode), device="cpu")

@@ -30,6 +30,8 @@ from vtm_torch.merge import bipartite as tb
 from vtm_torch.merge.policy import MergePolicy, MergeState
 from vtm_torch.models.motionformer import Motionformer, MotionformerConfig
 
+from torch_variants import VARIANT_MODES, assert_states_equal, run_variant
+
 import jax
 
 torch.set_num_threads(2)
@@ -310,3 +312,17 @@ def test_compute_dtype_cast_keeps_norms_and_head_fp32():
         probs, _ = model(torch.from_numpy(_video(TINY, 2, 4)))
     assert probs.dtype == torch.float32 and torch.isfinite(probs).all()
     np.testing.assert_allclose(probs.sum(dim=-1).numpy(), 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", VARIANT_MODES)
+def test_merge_variants_match_vtm(mode, monkeypatch):
+    """Every merge mode with per-pseudo-frame source tracking (the random
+    modes given JAX's draws): identical Matching indices layer by layer,
+    identical sizes and sources, probabilities within 1e-5."""
+    video = _video(TINY, 2, 0)
+    got, tstate, want, jstate, _ = run_variant(
+        monkeypatch, mode, lambda k: _models(TINY, k), video, dict(rs=(1, 1), prop_attn=True)
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert_states_equal(tstate, jstate)
+    assert tuple(tstate.source.shape) == (2 * TINY["temporal_resolution"], 2, 4)

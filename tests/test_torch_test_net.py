@@ -343,15 +343,51 @@ def test_patch_and_r_set_every_blocks_policy_as_vtm_does(family, r, tmp_path):
     assert tuple(seen) == tuple(want)
 
 
-def test_unported_patch_options_raise_by_name(tmp_path):
-    cfg, _ = _cfgs(FAMILIES["videomae"][0](tmp_path))
+@pytest.mark.parametrize("family", list(FAMILIES))
+@pytest.mark.parametrize("options", [dict(trace_source=True), dict(mode="hybrid", threshold=0.5),
+                                     dict(mode="drop", trace_source=True)], ids=["trace_source", "hybrid", "drop"])
+def test_patch_options_set_the_policy_as_vtm_does(family, options, tmp_path):
+    """``patch.<family>(bundle, trace_source=, mode=, threshold=)`` then
+    ``bundle.r = 1``: the policy's fields equal vtm's, and a forward
+    through ``bundle.apply`` carries the source when it is traced, one
+    row per token left, the identity's columns."""
+    opts_fn, n0, tokens_of = FAMILIES[family]
+    cfg, jcfg = _cfgs(opts_fn(tmp_path))
+    bundle, jbundle = build_model(cfg, "cpu"), jax_build_model(jcfg, init=False)
+    getattr(patch, family)(bundle, **options)
+    getattr(jax_patch, family)(jbundle, **options)
+    bundle.r = 1
+    jbundle.r = 1
+    for field in ("mode", "threshold", "trace_source", "prop_attn", "class_token", "rs"):
+        assert getattr(bundle.policy, field) == getattr(jbundle.policy, field), field
+    video = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, cfg.DATA.NUM_FRAMES, 32, 32, 3)).astype(np.float32))
+    with torch.inference_mode():
+        _, state = bundle.apply(video)
+    left = bundle.policy.token_counts(n0)[-1]
+    if options.get("trace_source"):
+        assert state.source.shape[1:] == (left, n0)
+        assert set(np.unique(state.source.numpy())) <= {0.0, 1.0}
+    else:
+        assert state.source is None
+
+
+def test_apply_traces_the_source_for_one_call(tmp_path):
+    """``bundle.apply(x, trace_source=True)`` tracks the source for that
+    call only, as vtm's ``ModelBundle.apply`` does; each column sums to 1
+    and each row to the token's size."""
+    cfg, _ = _cfgs(_videomae_opts("OUTPUT_DIR", str(tmp_path)))
     bundle = build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        patch.videomae(bundle, trace_source=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        patch.duplicate_videomae(bundle, layer_to_duplicate=0, quantity=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        patch.videomae(bundle, mode="random_merge")
+    video = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 4, 32, 32, 3)).astype(np.float32))
+    policy = bundle.policy
+    with torch.inference_mode():
+        _, plain = bundle.apply(video)
+        _, traced = bundle.apply(video, trace_source=True)
+    assert plain.source is None and bundle.policy is policy and not policy.trace_source
+    assert all(m.policy is policy for m in bundle.module.modules() if hasattr(m, "policy"))
+    assert tuple(traced.source.shape) == (2, policy.token_counts(8)[-1], 8)
+    np.testing.assert_array_equal(traced.source.sum(dim=1).numpy(), 1.0)
+    np.testing.assert_array_equal(traced.source.sum(dim=2, keepdim=True).numpy(), traced.size.numpy())
 
 
 @pytest.mark.parametrize("opts, item", [
@@ -360,9 +396,6 @@ def test_unported_patch_options_raise_by_name(tmp_path):
     (("LOG_MODEL_INFO", "True"), "item 4"),
     (("TENSORBOARD.ENABLE", "True"), "item 12"),
     (("WANDB.ENABLE", "True"), "item 9b"),
-    (("TOME.MODE", "random_merge"), "item 11"),
-    (("TOME.MODE", "random_drop"), "item 11"),
-    (("TEST.CLIP_LENGTH_HISTOGRAM", "True"), "item 11"),
 ], ids=lambda x: x[0] if isinstance(x, tuple) else x)
 def test_unported_options_raise_by_name(opts, item, tmp_path):
     cfg, _ = _cfgs(_videomae_opts("OUTPUT_DIR", str(tmp_path), *opts))
@@ -454,3 +487,67 @@ def test_synthetic_test_runs_without_cv2_or_pil(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+class _BatchKey:
+    """In place of a batch's torch.Generator: what vtm's test loop keys
+    that batch's forward with, fold_in(key(RNG_SEED), batch index)."""
+
+    def __init__(self, seed, cur_iter):
+        self.key = jax.random.fold_in(jax.random.key(seed), cur_iter)
+
+
+@pytest.mark.parametrize("mode", ["random_drop", "random_merge"])
+def test_random_modes_repeat_and_match_vtm_given_its_draws(mode, tmp_path, monkeypatch):
+    """``TOME.MODE`` random: two runs of the port give the same ensembles,
+    another RNG_SEED others; with JAX's draws put in (each batch keyed as
+    vtm keys it, each layer's draw split as MergeState.next_rng splits), the
+    same stats and ensembles as vtm's ``test`` within PREDS_ATOL."""
+    opts = _videomae_opts("TOME.MODE", mode)
+    ckpt = tmp_path / "model.pyth"
+    _write_checkpoint(ckpt, opts)
+    opts = [*opts, "TEST.CHECKPOINT_FILE_PATH", str(ckpt), "OUTPUT_DIR", str(tmp_path)]
+
+    def run(*more):
+        made = _recording(monkeypatch, tn)
+        stats = tn.test(_cfgs([*opts, *more])[0], device="cpu")
+        return stats, made[-1].video_preds.copy()
+
+    (_, first), (_, again), (_, other) = run(), run(), run("RNG_SEED", "5")
+    np.testing.assert_array_equal(first, again)
+    assert not np.array_equal(first, other)
+
+    from torch_variants import put_in_jax_draws
+
+    monkeypatch.setattr(tn, "_step_generator", lambda device, seed, cur_iter: _BatchKey(seed, cur_iter))
+    put_in_jax_draws(monkeypatch, lambda batch: batch.key)
+    stats, preds = run()
+    jmade = _recording(monkeypatch, jax_test_net)
+    jstats = jax_test_net.test(_cfgs(opts)[1])
+    assert stats == jstats
+    np.testing.assert_allclose(preds, jmade[0].video_preds, rtol=0, atol=PREDS_ATOL)
+    assert not np.array_equal(preds, first)
+
+
+def test_clip_length_histogram_csv_as_vtm_writes_it(tmp_path, monkeypatch):
+    """``TEST.CLIP_LENGTH_HISTOGRAM``: each package's ``test`` writes the
+    per-video (length, outcome) csv from the cached lengths, the same file."""
+    lengths = tmp_path / "annotations"
+    lengths.mkdir()
+    (lengths / "epickitchens_lengths.csv").write_text(
+        "video,length\n" + "".join(f"P01_{i:02d},{1.5 * i + 0.25}\n" for i in range(5)))
+    opts = _videomae_opts("TEST.CLIP_LENGTH_HISTOGRAM", "True", "EPICKITCHENS.ANNOTATIONS_DIR", str(lengths),
+                          "TOME.R_VALUE", "1")
+    ckpt = tmp_path / "model.pyth"
+    _write_checkpoint(ckpt, opts)
+    written = {}
+    for pkg in ("torch", "jax"):
+        data = tmp_path / f"data_{pkg}"
+        data.mkdir()
+        cfg, jcfg = _cfgs([*opts, "TEST.CHECKPOINT_FILE_PATH", str(ckpt), "OUTPUT_DIR", str(tmp_path / pkg),
+                           "DATA.PATH_TO_DATA_DIR", str(data)])
+        tn.test(cfg, device="cpu") if pkg == "torch" else jax_test_net.test(jcfg)
+        written[pkg] = (data / "model_r_1.csv").read_text()
+    assert written["torch"] == written["jax"]
+    rows = written["torch"].splitlines()
+    assert rows[0] == "video,length,outcome" and len(rows) == 1 + 4

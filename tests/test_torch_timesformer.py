@@ -33,6 +33,8 @@ from vtm_torch.merge.policy import MergePolicy, MergeState
 from vtm_torch.models import build_model
 from vtm_torch.models.timesformer import TimeSformer, TimeSformerAttention, TimeSformerConfig
 
+from torch_variants import VARIANT_MODES, assert_states_equal, run_variant
+
 torch.set_num_threads(2)
 
 # tests/test_timesformer.py's TINY: 4 frames of 4 patches
@@ -366,5 +368,19 @@ def test_build_model_reads_the_config():
     assert not bundle.module.training
     space = build_model(_cfg("TIMESFORMER.ATTENTION_TYPE", "space_only"), "cpu").module
     assert not hasattr(space, "time_embed") and not hasattr(space.blocks[0], "temporal_attn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(_cfg("TOME.ENABLE", "True", "TOME.LAYER_QUANTITY", "2"), "cpu")
+    dup = build_model(_cfg("TOME.ENABLE", "True", "TOME.R_VALUE", "1", "TOME.LAYER_QUANTITY", "2"), "cpu")
+    assert dup.module.layer_schedule == (0,) + tuple(range(12)) and dup.policy.rs == (1, 1) + (0,) * 11
+
+
+@pytest.mark.parametrize("mode", VARIANT_MODES)
+def test_merge_variants_match_vtm(mode, monkeypatch):
+    """Every merge mode with per-frame source tracking (the random modes
+    given JAX's draws): identical Matching indices layer by layer,
+    identical sizes and sources, logits within 1e-5."""
+    video = _video(TINY, 2, 0)
+    got, tstate, want, jstate, _ = run_variant(
+        monkeypatch, mode, lambda k: _models(TINY, k), video, dict(rs=(1, 1), prop_attn=True)
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert_states_equal(tstate, jstate)
+    assert tuple(tstate.source.shape) == (2 * TINY["num_frames"], 2, 4)

@@ -479,6 +479,26 @@ def test_model_dropout_sites_follow_mode_and_generator():
     assert not torch.equal(t1, t2) and not torch.equal(t1, e1)
 
 
+@pytest.mark.parametrize("mode", ["random_merge", "random_drop"])
+def test_train_step_draws_the_random_modes_from_its_generator(mode):
+    """The train step's generator reaches ``MergeState.generator``: one
+    seed gives the same loss and logits twice, another seed another
+    loss; without a generator the random modes raise ValueError, as vtm's
+    do without an rng."""
+    config = VideoMAEConfig(num_classes=7, **ARCH)
+    video, labels = torch.from_numpy(_video(2, 3)), torch.from_numpy(_labels(7, 2, 4))
+    runs = []
+    for seed in (0, 0, 1):
+        model = VideoMAE(config, policy=MergePolicy(rs=(R,) * 3, mode=mode), fp32_params=True)
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0), "cross_entropy", False)
+        loss, logits, _ = step(video, labels, torch.Generator().manual_seed(seed))
+        runs.append((loss.item(), logits))
+    assert runs[0][0] == runs[1][0] and torch.equal(runs[0][1], runs[1][1])
+    assert runs[0][0] != runs[2][0]
+    with pytest.raises(ValueError, match="torch.Generator"):
+        step(video, labels)
+
+
 def test_fp32_params_forward_equals_cast_weights_forward():
     """Training keeps fp32 parameters and casts at use; serving casts the
     weights once. Same seed, same bf16 forward, bit for bit."""

@@ -30,12 +30,15 @@ from vtm_torch.merge.policy import MergePolicy, MergeState
 from vtm_torch.models.common import sinusoid_encoding_table
 from vtm_torch.models.videomae import VideoMAE, VideoMAEConfig
 
+from torch_variants import VARIANT_MODES, assert_states_equal, run_variant
+
 torch.set_num_threads(2)
 
 TINY = dict(
     img_size=32, patch_size=16, num_frames=4, tubelet_size=2, embed_dim=32,
     depth=2, num_heads=2, mlp_ratio=2.0,
 )
+TINY_TOKENS = 8  # 2 tubelets x 2x2 patches
 # 4 layers, 64 tokens (4 tubelets x 4x4 patches)
 FOUR = dict(TINY, img_size=64, num_frames=8, depth=4)
 VITB = dict(
@@ -238,3 +241,18 @@ def test_build_from_config_carries_heads_and_drop_rates():
     cfg.VIDEOMAE.USE_MEAN_POOLING = False
     with pytest.raises(NotImplementedError, match="CLS pooling"):
         build_model(cfg, "cpu")
+
+
+@pytest.mark.parametrize("mode", VARIANT_MODES)
+def test_merge_variants_match_vtm(mode, monkeypatch):
+    """Every merge mode with source tracking (the random modes given JAX's
+    draws): identical Matching indices layer by layer, identical sizes and
+    sources, logits within 1e-4 as in the merged test above."""
+    kw = dict(rs=(1, 2), prop_attn=True)
+    video = _video(TINY, 2, 0)
+    got, tstate, want, jstate, _ = run_variant(
+        monkeypatch, mode, lambda k: _models(TINY, 7, JPolicy(**k), MergePolicy(**k))[1:], video, kw
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    assert_states_equal(tstate, jstate)
+    assert tuple(tstate.source.shape) == (2, TINY_TOKENS - 3, TINY_TOKENS)

@@ -44,6 +44,8 @@ from vtm_torch.tools import model_benchmark as mb
 from vtm_torch.tools.train_net import build_trainer, train
 from vtm_torch.train.train_step import make_train_step
 
+from torch_variants import VARIANT_MODES, assert_states_equal, run_variant
+
 torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -294,8 +296,8 @@ def test_build_model_and_benchmark_entry_point(tmp_path, capsys):
     torch.save({"model_state": sd}, ckpt)
     loaded = load_test_checkpoint(_cfg(tmp_path, "TEST.CHECKPOINT_FILE_PATH", str(ckpt)), build_model(cfg, "cpu"))
     assert torch.equal(loaded.module.layer[1].attention.key.weight, sd["vivit.encoder.layer.1.attention.attention.key.weight"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(_cfg(tmp_path, "TOME.LAYER_QUANTITY", "2"), "cpu")
+    dup = build_model(_cfg(tmp_path, "TOME.LAYER_QUANTITY", "2"), "cpu")
+    assert dup.module.layer_schedule == ((0, True), (0, False), (1, False)) and dup.policy.rs == (2, 2, 0)
 
 
 # ---- training ---------------------------------------------------------------
@@ -458,3 +460,17 @@ def test_train_entry_point_two_epochs(tmp_path):
         "epoch_00000.pyth", "epoch_00001.pyth"]
     with pytest.raises(RuntimeError, match="CUDA"):
         train(cfg)
+
+
+@pytest.mark.parametrize("mode", VARIANT_MODES)
+def test_merge_variants_match_vtm(mode, monkeypatch):
+    """Every merge mode with source tracking, the CLS token protected (the
+    random modes given JAX's draws): identical Matching indices layer by
+    layer, identical sizes and sources, logits within 1e-5."""
+    video = _video(TINY, 2, 0)
+    got, tstate, want, jstate, _ = run_variant(
+        monkeypatch, mode, lambda k: _models(TINY, k), video, dict(rs=(2, 2), prop_attn=True, class_token=True)
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert_states_equal(tstate, jstate)
+    assert tuple(tstate.source.shape) == (2, 5, 9)

@@ -7,8 +7,9 @@
 ensembles in fp64 (sum or max) and finalises top-k accuracies as
 ``"%.2f"`` strings, or the mAP for multi-label data; ``EPICTestMeter``
 keeps the verb/noun pair and reports verb/noun/action top-1/5.
-``TEST.CLIP_LENGTH_HISTOGRAM`` needs the clip-length analysis, which is
-not ported yet, and raises. The detection meter is not ported."""
+``TEST.CLIP_LENGTH_HISTOGRAM`` also writes each video's (length,
+outcome) csv from the lengths ``analysis.dataset_tools.save_lengths``
+cached. The detection meter is not ported."""
 
 from __future__ import annotations
 
@@ -55,11 +56,6 @@ class TestMeter:
         cfg=None,
         multi_label: bool = False,
     ):
-        if cfg is not None and cfg.TEST.CLIP_LENGTH_HISTOGRAM:
-            raise NotImplementedError(
-                "TEST.CLIP_LENGTH_HISTOGRAM: the clip-length analysis is not ported yet "
-                "(ROADMAP.md Queue 1, item 11)"
-            )
         self.cfg = cfg
         self.num_clips = num_clips
         self.overall_iters = overall_iters
@@ -157,9 +153,29 @@ class TestMeter:
             topks = [x / self.video_preds.shape[0] * 100.0 for x in num_topks]
             for k, topk in zip(ks, topks):
                 stats[f"top{k}_acc"] = f"{topk:.2f}"
+        if self.cfg is not None and self.cfg.TEST.CLIP_LENGTH_HISTOGRAM:
+            self._write_length_histogram()
         log_json_stats(stats, logger)
         self.stats = stats
         return stats
+
+
+    def _write_length_histogram(self):
+        """Per-video (length, outcome) csv for accuracy-vs-length curves,
+        beside the data as ``<checkpoint stem>_r_<R_VALUE>.csv``."""
+        from vtm_torch.analysis.dataset_tools import load_lengths
+
+        lengths = load_lengths(self.cfg)
+        outcomes = self.video_preds.argmax(axis=-1) == self.video_labels
+        n = min(len(lengths), len(outcomes))
+        df = lengths.iloc[:n].assign(outcome=outcomes[:n])
+        stem = (
+            self.cfg.TEST.CHECKPOINT_FILE_PATH.split("/")[-1].split(".")[0]
+            or "random_init"
+        )
+        out = f"{self.cfg.DATA.PATH_TO_DATA_DIR}/{stem}_r_{self.cfg.TOME.R_VALUE}.csv"
+        df.to_csv(out, index=False)
+        logger.info("clip-length histogram -> %s", out)
 
 
 class EPICTestMeter:

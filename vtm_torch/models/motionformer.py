@@ -26,6 +26,8 @@ paper's numbers:
 
 There is no dropout or stochastic depth (``MOTIONFORMER.DROP*`` are not
 read, as in ``vtm``), so ``module.train()`` changes nothing.
+``layer_schedule`` (block indices) sets the executed stack for layer
+duplication, as in TimeSformer: a shared block re-runs in full.
 
 Modules are named after the upstream state-dict layout
 (``patch_embed_3d.proj`` or ``patch_embed.proj``, ``cls_token``,
@@ -46,14 +48,20 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vtm_torch.merge.policy import MergePolicy, MergeState, reduce_tokens
-from vtm_torch.models.build import ModelBundle, compute_dtype, make_policy, register_model
+from vtm_torch.models.build import (
+    ModelBundle,
+    compute_dtype,
+    duplication_plan,
+    make_policy,
+    register_model,
+)
 from vtm_torch.models.common import (
     _FLASH_MAX_SEQ,
     _FLASH_MIN_SEQ,
@@ -258,6 +266,7 @@ class Motionformer(nn.Module):
         seed: int = 0,
         train_mode: bool = False,
         fp32_params: bool = False,
+        layer_schedule: Optional[Sequence[int]] = None,
     ):
         super().__init__()
         _check_ported(config)
@@ -265,6 +274,7 @@ class Motionformer(nn.Module):
         d = c.embed_dim
         self.config = config
         self.policy = policy
+        self.layer_schedule = tuple(layer_schedule) if layer_schedule else None
         self.train_mode = train_mode
         if c.patch_size_temp > 1:
             self.patch_embed_3d = TubeletEmbed(c.in_chans, d, c.patch_size_temp, c.patch_size, dtype=dtype)
@@ -338,13 +348,13 @@ class Motionformer(nn.Module):
         state: Optional[MergeState] = None,
         generator: Optional[torch.Generator] = None,
     ):
-        """``generator`` is accepted for the train step's sake and unused:
-        the model draws nothing."""
+        """``generator`` draws the random modes' scores (as
+        ``MergeState.generator``); the model itself draws nothing."""
         if state is None:
-            state = MergeState()
+            state = MergeState(generator=generator)
         x = self.embed(x)
-        for i, block in enumerate(self.blocks):
-            x, state = block(x, state, layer=i, num_frames=self.config.temporal_resolution)
+        for step, i in enumerate(self.layer_schedule or range(self.config.depth)):
+            x, state = self.blocks[i](x, state, layer=step, num_frames=self.config.temporal_resolution)
         feats = self.pre_logits(self.norm(x)[:, 0]).float()
         if self.config.multi_head:
             return (self._head(self.head0, feats), self._head(self.head1, feats)), state
@@ -381,7 +391,9 @@ def _build_motionformer(cfg, fp32_params: bool = False) -> ModelBundle:
         approx_attn_type=m.APPROX_ATTN_TYPE,
     )
     policy = make_policy(cfg, config.depth, n_protected_class_token=False)
+    plan = duplication_plan(cfg, config.depth)  # full-block shared-weight re-runs
     module = Motionformer(
-        config, policy=policy, dtype=compute_dtype(cfg), seed=cfg.RNG_SEED, fp32_params=fp32_params
+        config, policy=policy, dtype=compute_dtype(cfg), seed=cfg.RNG_SEED, fp32_params=fp32_params,
+        layer_schedule=[i for i, _ in plan] if plan else None,
     )
     return ModelBundle(module=module, policy=policy, name="Motionformer")

@@ -23,6 +23,9 @@ the CLS-excluded bias, the same function in plain products.
 
 There is no dropout or stochastic depth (``MODEL.DROPOUT_RATE`` is not
 read, as in ``vtm``), so ``module.train()`` changes nothing.
+``layer_schedule`` (block indices) sets the executed stack for layer
+duplication: a block listed at several steps re-runs in full with shared
+weights, merging with the r of the step.
 
 Modules are named after the upstream state-dict layout
 (``patch_embed.proj``, ``cls_token``, ``pos_embed``, ``time_embed``,
@@ -42,7 +45,7 @@ Also here: the space folds that Motionformer's per-frame merging shares.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -231,6 +234,7 @@ class TimeSformer(nn.Module):
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
         fp32_params: bool = False,
+        layer_schedule: Optional[Sequence[int]] = None,
     ):
         super().__init__()
         c = config
@@ -239,6 +243,7 @@ class TimeSformer(nn.Module):
         d = c.embed_dim
         self.config = config
         self.policy = policy
+        self.layer_schedule = tuple(layer_schedule) if layer_schedule else None
         self.patch_embed = PatchEmbed2d(3, d, c.patch_size, dtype=dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, c.spatial_tokens + 1, d))
@@ -302,14 +307,14 @@ class TimeSformer(nn.Module):
         state: Optional[MergeState] = None,
         generator: Optional[torch.Generator] = None,
     ):
-        """``generator`` is accepted for the train step's sake and unused:
-        the model draws nothing."""
+        """``generator`` draws the random modes' scores (as
+        ``MergeState.generator``); the model itself draws nothing."""
         if state is None:
-            state = MergeState()
+            state = MergeState(generator=generator)
         b, t = x.shape[:2]
         x = self.embed(x)
-        for i, block in enumerate(self.blocks):
-            x, state = block(x, state, layer=i, b=b, t=t)
+        for step, i in enumerate(self.layer_schedule or range(self.config.depth)):
+            x, state = self.blocks[i](x, state, layer=step, b=b, t=t)
         if self.config.attention_type == "space_only":
             x = x.reshape(b, t, *x.shape[1:]).mean(dim=1)
         feats = self.norm(x)[:, 0].float()
@@ -318,7 +323,13 @@ class TimeSformer(nn.Module):
         return self.head(feats), state
 
 
-from vtm_torch.models.build import ModelBundle, compute_dtype, make_policy, register_model  # noqa: E402
+from vtm_torch.models.build import (  # noqa: E402
+    ModelBundle,
+    compute_dtype,
+    duplication_plan,
+    make_policy,
+    register_model,
+)
 
 
 @register_model("TimeSformer")
@@ -338,7 +349,9 @@ def _build_timesformer(cfg, fp32_params: bool = False) -> ModelBundle:
         attention_type=cfg.TIMESFORMER.ATTENTION_TYPE,
     )
     policy = make_policy(cfg, config.depth, n_protected_class_token=False)
+    plan = duplication_plan(cfg, config.depth)  # full-block shared-weight re-runs
     module = TimeSformer(
-        config, policy=policy, dtype=compute_dtype(cfg), seed=cfg.RNG_SEED, fp32_params=fp32_params
+        config, policy=policy, dtype=compute_dtype(cfg), seed=cfg.RNG_SEED, fp32_params=fp32_params,
+        layer_schedule=[i for i, _ in plan] if plan else None,
     )
     return ModelBundle(module=module, policy=policy, name="TimeSformer")

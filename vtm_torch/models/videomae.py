@@ -26,12 +26,18 @@ package are active: ``drop_rate`` after the positional embedding, on the
 attention projection and in the MLP; stochastic depth at
 ``drop_path_rate * i / (depth - 1)`` in block i; ``fc_drop_rate`` before
 the head. Their masks come from the ``generator`` passed to ``forward``.
+
+``layer_schedule`` ((block, metric_only) pairs) sets the executed stack
+for layer duplication: a block may run at several steps, sharing its
+weights, and merges with the r of the step (``layer=step``). A
+``metric_only`` step runs norm1 and the attention for the metric, then
+reduces x with no residual update.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -132,11 +138,13 @@ class VideoMAEBlock(nn.Module):
 
     def forward(
         self, x: torch.Tensor, state: MergeState, layer: int,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[torch.Generator] = None, metric_only: bool = False,
     ) -> Tuple[torch.Tensor, MergeState]:
         attn_out, metric = self.attn(
             self.norm1(x), state.attn_size(self.policy.prop_attn), self.policy.head_aggregation
         )
+        if metric_only:
+            return reduce_tokens(self.policy, layer, metric, x, state)
         attn_out = dropout(attn_out, self.drop_rate, self.training, generator)
         x = x + drop_path(attn_out, self.drop_path_rate, self.training, generator)
         x, state = reduce_tokens(self.policy, layer, metric, x, state)
@@ -156,11 +164,13 @@ class VideoMAE(nn.Module):
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
         fp32_params: bool = False,
+        layer_schedule: Optional[Sequence[Tuple[int, bool]]] = None,
     ):
         super().__init__()
         c = config
         self.config = config
         self.policy = policy
+        self.layer_schedule = tuple(layer_schedule) if layer_schedule else None
         self.patch_embed = TubeletEmbed(3, c.embed_dim, c.tubelet_size, c.patch_size, dtype=dtype)
         self.register_buffer(
             "pos_embed",
@@ -206,12 +216,14 @@ class VideoMAE(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         """``generator`` draws the dropout and stochastic-depth masks in
-        training mode (None: torch's default generator of x's device)."""
+        training mode (None: torch's default generator of x's device) and,
+        as ``MergeState.generator``, the random modes' scores."""
         if state is None:
-            state = MergeState()
+            state = MergeState(generator=generator)
         x = self.embed(x, generator)
-        for i, block in enumerate(self.blocks):
-            x, state = block(x, state, layer=i, generator=generator)
+        schedule = self.layer_schedule or [(i, False) for i in range(self.config.depth)]
+        for step, (i, metric_only) in enumerate(schedule):
+            x, state = self.blocks[i](x, state, layer=step, generator=generator, metric_only=metric_only)
         feats = self.fc_norm(x.mean(dim=1)).float()
         feats = dropout(feats, self.config.fc_drop_rate, self.training, generator)
         if self.config.multi_head:
@@ -251,7 +263,13 @@ def build_videomae(
     )
 
 
-from vtm_torch.models.build import ModelBundle, compute_dtype, make_policy, register_model  # noqa: E402
+from vtm_torch.models.build import (  # noqa: E402
+    ModelBundle,
+    compute_dtype,
+    duplication_plan,
+    make_policy,
+    register_model,
+)
 
 
 @register_model("VideoMAE")
@@ -266,4 +284,5 @@ def _build_videomae_bundle(cfg, fp32_params: bool = False) -> ModelBundle:
     module = build_videomae(
         cfg, policy=policy, dtype=compute_dtype(cfg), fp32_params=fp32_params
     )
+    module.layer_schedule = duplication_plan(cfg, depth)
     return ModelBundle(module=module, policy=policy, name="VideoMAE")

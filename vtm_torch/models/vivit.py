@@ -7,8 +7,10 @@ classifier, or the EPIC-KITCHENS verb / noun pair, over the CLS token.
 Token merging runs after the attention residual, before the MLP, with the
 CLS token protected. The attention is ``attention_core`` with the
 proportional-attention key bias: on CUDA the dense kernels (K1, and K2
-under training) for rows of 256 to 4096 tokens. Layer duplication
-(``metric_only`` layers) is not ported and raises in ``make_policy``.
+under training) for rows of 256 to 4096 tokens. ``layer_schedule``
+((layer, metric_only) pairs) sets the executed stack for layer
+duplication, as in VideoMAE: a ``metric_only`` step runs the attention for
+the metric and reduces x with no residual update.
 
 Modules carry the JAX package's names (``patch_embed.proj``,
 ``cls_token``, ``position_embeddings``, ``layer.{i}.{layernorm_before,
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -141,10 +143,14 @@ class ViViTLayer(nn.Module):
         self.intermediate = Linear(c.hidden_size, c.intermediate_size)
         self.output = Linear(c.intermediate_size, c.hidden_size)
 
-    def forward(self, x: torch.Tensor, state: MergeState, layer: int) -> Tuple[torch.Tensor, MergeState]:
+    def forward(
+        self, x: torch.Tensor, state: MergeState, layer: int, metric_only: bool = False
+    ) -> Tuple[torch.Tensor, MergeState]:
         ctx, metric = self.attention(
             self.layernorm_before(x), state.attn_size(self.policy.prop_attn), self.policy.head_aggregation
         )
+        if metric_only:
+            return reduce_tokens(self.policy, layer, metric, x, state)
         x = x + self.attention_output(ctx)
         x, state = reduce_tokens(self.policy, layer, metric, x, state)
         y = F.gelu(self.intermediate(self.layernorm_after(x)), approximate=self.gelu)
@@ -163,11 +169,13 @@ class ViViT(nn.Module):
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
         fp32_params: bool = False,
+        layer_schedule: Optional[Sequence[Tuple[int, bool]]] = None,
     ):
         super().__init__()
         c = config
         self.config = config
         self.policy = policy
+        self.layer_schedule = tuple(layer_schedule) if layer_schedule else None
         self.patch_embed = TubeletEmbed(
             c.num_channels, c.hidden_size, c.tubelet_size[0], tuple(c.tubelet_size[1:]), dtype=dtype
         )
@@ -211,20 +219,27 @@ class ViViT(nn.Module):
         state: Optional[MergeState] = None,
         generator: Optional[torch.Generator] = None,
     ):
-        """``generator`` is accepted for the train step's sake and unused:
-        the model draws nothing."""
+        """``generator`` draws the random modes' scores (as
+        ``MergeState.generator``); the model itself draws nothing."""
         if state is None:
-            state = MergeState()
+            state = MergeState(generator=generator)
         x = self.embed(x)
-        for i, layer in enumerate(self.layer):
-            x, state = layer(x, state, layer=i)
+        schedule = self.layer_schedule or [(i, False) for i in range(self.config.num_hidden_layers)]
+        for step, (i, metric_only) in enumerate(schedule):
+            x, state = self.layer[i](x, state, layer=step, metric_only=metric_only)
         feats = self.layernorm(x)[:, 0].float()
         if self.config.multi_head:
             return (self.verb_classifier(feats), self.noun_classifier(feats)), state
         return self.classifier(feats), state
 
 
-from vtm_torch.models.build import ModelBundle, compute_dtype, make_policy, register_model  # noqa: E402
+from vtm_torch.models.build import (  # noqa: E402
+    ModelBundle,
+    compute_dtype,
+    duplication_plan,
+    make_policy,
+    register_model,
+)
 
 
 @register_model("ViViT")
@@ -239,6 +254,7 @@ def _build_vivit(cfg, fp32_params: bool = False) -> ModelBundle:
     config = ViViTConfig.from_json(cfg.VIVIT.CONFIG_PATH, num_classes)
     policy = make_policy(cfg, config.num_hidden_layers, n_protected_class_token=True)
     module = ViViT(
-        config, policy=policy, dtype=compute_dtype(cfg), seed=cfg.RNG_SEED, fp32_params=fp32_params
+        config, policy=policy, dtype=compute_dtype(cfg), seed=cfg.RNG_SEED, fp32_params=fp32_params,
+        layer_schedule=duplication_plan(cfg, config.num_hidden_layers),
     )
     return ModelBundle(module=module, policy=policy, name="ViViT")

@@ -7,30 +7,31 @@ Here "patching" gives the bundle's module and each of its blocks a new
 ...`` sets the static per-layer schedule:
 
     bundle = build_model(cfg, "cuda")
-    vtm_torch.patch.videomae(bundle, prop_attn=False)
+    vtm_torch.patch.videomae(bundle, trace_source=True, prop_attn=False)
     bundle.r = 150                     # int | (r, inflect) | [r0, r1, ...]
-    logits, state = bundle.module(clip)
+    logits, state = bundle.apply(clip)
+    source = state.source              # the reference's _tome_info['source']
 
-Source tracking (``trace_source=True``) and layer duplication
-(``duplicate_*``) are not ported yet and raise.
+``mode=`` (merge, random_merge, drop, random_drop, hybrid) and
+``threshold=`` (hybrid) pass through to the policy; the random modes draw
+from the generator given to ``bundle.apply``. ``duplicate_*`` runs one
+block ``quantity`` times; set ``bundle.r`` after it, so that the schedule
+is parsed against the grown stack.
 """
 
 from __future__ import annotations
 
-from vtm_torch.merge.bipartite import NOT_PORTED
 from vtm_torch.merge.policy import MergePolicy
 
 
 def _apply(bundle, class_token: bool, prop_attn: bool, trace_source: bool = False, **kwargs) -> None:
-    if trace_source:
-        raise NotImplementedError(f"trace_source: source tracking is {NOT_PORTED}")
-    if kwargs.get("threshold", 0.0):
-        raise NotImplementedError(f"threshold: the hybrid mode is {NOT_PORTED}")
     bundle.set_policy(MergePolicy(
         rs=(0,) * bundle.module.config.depth,
         mode=kwargs.get("mode", "merge"),
         prop_attn=prop_attn,
         head_aggregation=kwargs.get("head_aggregation", "mean"),
+        threshold=kwargs.get("threshold", 0.0),
+        trace_source=trace_source,
         class_token=class_token,
     ))
 
@@ -61,8 +62,18 @@ def motionformer(bundle, trace_source: bool = False, prop_attn: bool = True, **k
 
 
 def _duplicate(bundle, layer_to_duplicate: int, quantity: int) -> None:
-    """reference tome.patch.duplicate_* (apply_duplicate_patch)."""
-    raise NotImplementedError(f"duplicate_*: layer duplication is {NOT_PORTED}")
+    """reference tome.patch.duplicate_* (apply_duplicate_patch): block
+    ``layer_to_duplicate`` runs ``quantity`` times, the first quantity - 1
+    as metric-only steps in VideoMAE and ViViT, in full with shared
+    weights in TimeSformer and Motionformer."""
+    depth = bundle.module.config.depth
+    plan = [(i, False) for i in range(layer_to_duplicate)]
+    plan += [(layer_to_duplicate, True)] * (quantity - 1) + [(layer_to_duplicate, False)]
+    plan += [(i, False) for i in range(layer_to_duplicate + 1, depth)]
+    if bundle.name in ("TimeSformer", "Motionformer"):
+        bundle.module.layer_schedule = tuple(i for i, _ in plan)
+    else:
+        bundle.module.layer_schedule = tuple(plan)
 
 
 duplicate_vivit = _duplicate

@@ -10,7 +10,10 @@ checkpoint, else the seeded init), run every clip of the test set
 (``NUM_ENSEMBLE_VIEWS`` x ``NUM_SPATIAL_CROPS`` a video) through the eval
 step, and ensemble each video's clips in a ``TestMeter`` (top-1/5) or, for
 the EPIC-KITCHENS verb/noun heads, an ``EPICTestMeter`` (verb, noun and
-action top-1/5). Returns ``[(views, stats), ...]``;
+action top-1/5). For ``TOME.MODE`` ``random_merge`` and ``random_drop``
+each batch's forward draws from its own generator, seeded from
+(``RNG_SEED``, batch index), so a test run repeats. Returns
+``[(views, stats), ...]``;
 ``TEST.SAVE_RESULTS_PATH`` also pickles each sweep entry's per-video
 predictions and labels, suffixed ``_views{n}`` when there are several.
 
@@ -36,7 +39,7 @@ from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
 from vtm_torch.data import construct_loader
 from vtm_torch.eval.meters import EPICTestMeter, TestMeter
 from vtm_torch.models import build_model
-from vtm_torch.tools.train_net import _host
+from vtm_torch.tools.train_net import _host, _step_generator
 from vtm_torch.train.train_step import make_eval_step
 from vtm_torch.utils.logging import get_logger, setup_logging
 
@@ -68,11 +71,13 @@ def perform_test(loader, eval_step, meter, cfg, device: torch.device):
     """Every batch of ``loader`` through ``eval_step``, into ``meter``;
     returns the meter's final stats."""
     is_epic = _is_epic(cfg)
+    needs_rng = cfg.TOME.ENABLE and cfg.TOME.MODE in ("random_merge", "random_drop")
     meter.iter_tic()
     for cur_iter, batch in enumerate(loader):
         frames = torch.as_tensor(np.asarray(batch["frames"]), device=device)
         meter.data_toc()
-        logits = _host(eval_step(frames))
+        generator = _step_generator(device, cfg.RNG_SEED, cur_iter) if needs_rng else None
+        logits = _host(eval_step(frames, generator))
         meter.iter_toc()
         if is_epic:
             metadata = batch.get("metadata")

@@ -63,11 +63,13 @@ def _epic_accuracies(logits, labels):
     return ((v1, v5), (n1, n5), (a1, a5))
 
 
-def _step_generator(device: torch.device, seed: int, cur_epoch: int, cur_iter: int) -> torch.Generator:
-    """Per-step generator for the dropout and stochastic-depth masks,
-    seeded from (seed, epoch, iter) so a resumed run draws the same masks."""
+def _step_generator(device: torch.device, seed: int, *path: int) -> torch.Generator:
+    """Per-step generator for the dropout and stochastic-depth masks and
+    the random merge modes' scores, seeded from (seed, *path): (seed,
+    epoch, iter) in training, so a resumed run draws the same masks;
+    (seed, iter) in testing."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(np.random.SeedSequence([seed, cur_epoch, cur_iter]).generate_state(1)[0]))
+    gen.manual_seed(int(np.random.SeedSequence([seed, *path]).generate_state(1)[0]))
     return gen
 
 

@@ -68,15 +68,16 @@ def make_train_step(
 
 
 def make_eval_step(module: nn.Module, batch_stats=None) -> Callable:
-    """Returns ``step(frames) -> logits``: a forward in eval mode without
-    autograd."""
+    """Returns ``step(frames, generator=None) -> logits``: a forward in eval
+    mode without autograd; ``generator`` draws the random merge modes'
+    scores."""
     if batch_stats is not None:
         raise NotImplementedError("the BatchNorm eval step is not ported yet (conv families)")
 
-    def step(frames):
+    def step(frames, generator: Optional[torch.Generator] = None):
         module.eval()
         with torch.inference_mode():
-            logits, _ = module(frames)
+            logits, _ = module(frames, generator=generator)
         return logits
 
     return step
