@@ -136,6 +136,26 @@ Phases, each printing one JSON line:
      mf_eval   -- the same for Motionformer's EPIC-KITCHENS config with its
                   verb/noun heads (EPICTestMeter), 1 view x 3 crops, K3
                   launches per batch
+     mf_divided -- Motionformer with divided space-time attention: a B8
+                  bf16 serving forward merged at r 18 equals the unmerged
+                  one bit for bit (divided blocks never merge), clips/s;
+                  four train steps (fp32 parameters, AdamW) with nonzero
+                  gradients into every timeattn and norm3 parameter; two
+                  teacher-forced fp32 B1 blocks, card against the port on
+                  the CPU. No kernel launches.
+     mf_approx -- Motionformer's trajectory attention with each
+                  approximate spatial step (nystrom, orthoformer,
+                  performer; 128 landmarks), merged and unmerged: clips/s,
+                  body token counts, which blocks' outputs are finite; one
+                  teacher-forced fp32 B1 block each, card against CPU
+                  (Performer given one projection, Orthoformer's landmarks
+                  compared), and bf16 against fp32 on the card. K3 is not
+                  launched.
+     videomae_options -- VideoMAE merged at r 150 with class pooling and
+                  with layer scale (init_values 0.1): clips/s, token counts,
+                  K1 9 a forward, teacher-forced blocks kernel path against
+                  plain path; model_benchmark with TRACE_DIR, whose Chrome
+                  trace must hold K1's kernels with device time
      ab_dense  -- the A/B entry point (vtm_torch.tools.ab_dense --exp all,
                   one repeat of three calls a row): every row checked
                   against its plain version as it is printed, all twelve
@@ -170,7 +190,9 @@ from vtm_torch.data import construct_loader
 from vtm_torch.merge import MergePolicy, MergeState
 from vtm_torch.merge import bipartite as merge_bipartite
 from vtm_torch.models import build_model
+from vtm_torch.models import motionformer_approx
 from vtm_torch.models.common import _FLASH_MAX_SEQ, _FLASH_MIN_SEQ, split_heads
+from vtm_torch.models.videomae import VideoMAE
 from vtm_torch.ops import build as kernel_build
 from vtm_torch.ops import flash_attention
 from vtm_torch.ops.flash_attention import (
@@ -191,7 +213,7 @@ from vtm_torch.ops import ab_attention
 from vtm_torch.tools import ab_dense
 from vtm_torch.tools.kernel_times import FWD_DIGEST_CASES, device_ms, forward_digests
 from vtm_torch.tools import test_net
-from vtm_torch.tools.model_benchmark import model_benchmark
+from vtm_torch.tools.model_benchmark import model_benchmark, perform_benchmark
 from vtm_torch.tools.train_net import build_trainer, train
 from vtm_torch.train.optimizer import set_lr
 from vtm_torch.utils.benchmark import device_seconds
@@ -934,6 +956,31 @@ DUP_OPTS = ("TOME.LAYER_TO_DUPLICATE", "0", "TOME.LAYER_QUANTITY", "12", "TOME.R
 DUP_COUNTS = MergePolicy(rs=(131,) * 12 + (0,) * 11, mode="merge").token_counts(1568)
 DUP_K1_PER_FORWARD = sum(_FLASH_MIN_SEQ <= n <= _FLASH_MAX_SEQ for n in DUP_COUNTS[:-1])
 
+# The rest of Motionformer and VideoMAE's options, on MOTIONFORMER_OPTS and
+# MAIN_PATH_OPTS with one key changed. Divided blocks and the approximate
+# spatial steps are plain products (as in vtm): no kernel launches there.
+MF_DIVIDED = ("MOTIONFORMER.ATTN_LAYER", "divided")
+MF_APPROX_TYPES = ("nystrom", "orthoformer", "performer")
+MF_APPROX_DIM = 128  # APPROX_ATTN_DIM: landmarks of nystrom and orthoformer
+OPTION_WARMUP, OPTION_ITERS = 2, 5
+# Card against the port on the CPU, fp32 with TF32 off, teacher-forced
+# blocks at B1: the largest difference over the largest entry of the CPU's
+# output.
+CPU_BLOCK_TOL = 1e-4
+# A bf16 approximate attention against the fp32 one on the card, the
+# largest difference over the largest fp32 entry. bf16 keeps 8 bits, and
+# Nyström's pseudo-inverse runs its six Newton-Schulz steps in bf16 too, as
+# in vtm: this bound only separates rounding from a broken path (a wrong
+# layout or a failed inverse is off by the size of the output itself).
+BF16_APPROX_TOL = 0.1
+# Orthoformer's landmarks on the card and on the CPU may differ only where
+# the two picks' scores (largest |cosine| to the landmarks so far) were
+# this close at the step where the two selections part.
+ORTHO_TIE_TOL = 1e-5
+TRACE_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+K1_KERNEL_NAME = "attention_fwd_wgmma"  # K1's bf16 __global__ (flash_attention_fwd.cu)
+LAYER_SCALE = 0.1  # VideoMAE's init_values in the videomae_options phase
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -1601,7 +1648,7 @@ def recording(module, name: str):
 
 def phase_blocks(phase: str, cfg, seed: int, block_kwargs: dict, launch_count, final_tokens: int,
                  launches_expected: int, frames: int = 16, blocks: str = "blocks", attn: str = "attn",
-                 generator_seed=None) -> None:
+                 generator_seed=None, model=None) -> None:
     """Teacher-forced full-width blocks (fp32, TF32 off, B2): each executed
     step (``layer_schedule``: a block may run at several steps, some
     metric-only) gets the plain chain's input through the kernel path and
@@ -1609,8 +1656,9 @@ def phase_blocks(phase: str, cfg, seed: int, block_kwargs: dict, launch_count, f
     matcher made in each path) and sizes and outputs within BLOCK_TOL.
     ``generator_seed``: the random modes' scores come from a CUDA generator
     seeded anew for each path at each step. ``blocks`` and ``attn`` name the
-    model's block list and a block's attention module."""
-    model = build_model(cfg, "cuda").module
+    model's block list and a block's attention module. ``model`` replaces
+    the one ``cfg`` builds (an option no config key reaches)."""
+    model = model or build_model(cfg, "cuda").module
     model_blocks = getattr(model, blocks)
     steps = model.layer_schedule or range(len(model_blocks))
     steps = [s if isinstance(s, tuple) else (s, False) for s in steps]
@@ -2236,6 +2284,376 @@ def phase_source(smi: str) -> int:
     return total["LAUNCHES"]
 
 
+@contextlib.contextmanager
+def watching_blocks(blocks, tokens_of):
+    """While open, the tokens entering each of ``blocks`` (``tokens_of`` of
+    its input's length) and leaving the last one, every forward; and for
+    the first forward only (no extra work in the timed ones) a device flag
+    for each block: is its output finite."""
+    seen, finite = [], []
+
+    def pre(m, args):
+        seen.append(tokens_of(args[0].shape[1]))
+
+    def post(m, args, out):
+        if len(finite) < len(blocks):
+            finite.append(torch.isfinite(out[0]).all())
+
+    hooks = [blk.register_forward_pre_hook(pre) for blk in blocks]
+    hooks += [blk.register_forward_hook(post) for blk in blocks]
+    hooks.append(blocks[-1].register_forward_hook(lambda m, a, o: seen.append(tokens_of(o[0].shape[1]))))
+    try:
+        yield seen, finite
+    finally:
+        for hk in hooks:
+            hk.remove()
+
+
+def option_serve(label: str, module, cfg, counts, k1_per_forward: int, tokens_of=lambda n: n,
+                 finite_from=None) -> dict:
+    """``perform_benchmark`` (what ``model_benchmark`` times) on ``module``
+    at B8 bf16: clips/s, the tokens entering each block and leaving the
+    last in every forward equal ``counts``, K1's launches a forward, no
+    other kernel, and which blocks' outputs are finite: all of them, or
+    those before ``finite_from``."""
+    blocks = module.blocks
+    before = launch_counts()
+    with watching_blocks(blocks, tokens_of) as (seen, finite):
+        stats = perform_benchmark(module, cfg, torch.device("cuda"))
+    forwards = OPTION_WARMUP + OPTION_ITERS
+    launches = {c: n - before[c] for c, n in launch_counts().items()}
+    check(launches == {c: k1_per_forward * forwards if c == "LAUNCHES" else 0 for c in COUNTERS},
+          f"{label}: kernel launches {launches} in {forwards} forwards")
+    check(stats["attention_kernel_launches"] == k1_per_forward, f"{label}: {stats}")
+    check(seen == list(counts) * forwards, f"{label}: token counts {seen[:len(counts)]}")
+    flags = [bool(f) for f in finite]
+    want = [finite_from is None or i < finite_from for i in range(len(blocks))]
+    check(flags == want, f"{label}: finite block outputs {flags}, expected {want}")
+    return dict(clips_per_sec=stats["clips_per_sec"], launches_per_forward=k1_per_forward,
+                token_counts=list(counts), finite_blocks=sum(flags))
+
+
+def card_and_cpu(cfg):
+    """One fp32 model on the card and the same weights on the CPU."""
+    card = build_model(cfg, "cuda").module
+    cpu = build_model(cfg, "cpu").module
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    return card, cpu
+
+
+@contextlib.contextmanager
+def cpu_matchings_on_the_card(cpu_matchings, own):
+    """While open, the matcher on the card returns the CPU's Matching of
+    the same call (moved to the card) and appends its own to ``own``, so
+    a merged block runs the CPU's merge on both devices."""
+    real = merge_bipartite._match
+
+    def forced(*args, **kwargs):
+        own.append(real(*args, **kwargs))
+        m = cpu_matchings[len(own) - 1]
+        if m is None:
+            return None
+        return dataclasses.replace(m, unm_idx=m.unm_idx.cuda(), src_idx=m.src_idx.cuda(),
+                                   dst_idx=m.dst_idx.cuda(), src_score=m.src_score.cuda())
+
+    merge_bipartite._match = forced
+    try:
+        yield
+    finally:
+        merge_bipartite._match = real
+
+
+def blocks_against_cpu(phase: str, card, cpu, video, n_blocks: int, check_output=lambda i: True) -> list:
+    """The first ``n_blocks`` blocks of ``card`` (on the card) and ``cpu``
+    (on the CPU), teacher-forced: each gets the CPU chain's input, and a
+    merged block the CPU's Matching. Each block's output within
+    CPU_BLOCK_TOL of the largest CPU entry (unless ``check_output(i)`` is
+    false), and whether the card matched identically on its own."""
+    rows = []
+    with torch.inference_mode():
+        x, size = cpu.embed(video), None
+        for i in range(n_blocks):
+            with recording(merge_bipartite, "_match") as cpu_matchings:
+                yc, sc = cpu.blocks[i](x, MergeState(size=size), layer=i, num_frames=MF_FRAMES)
+            own = []
+            with cpu_matchings_on_the_card(cpu_matchings, own):
+                yk, sk = card.blocks[i](x.cuda(), MergeState(size=None if size is None else size.cuda()),
+                                        layer=i, num_frames=MF_FRAMES)
+            same = all((a is None and b is None) or all(
+                torch.equal(getattr(a, n).cpu(), getattr(b, n)) for n in ("unm_idx", "src_idx", "dst_idx"))
+                for a, b in zip(own, cpu_matchings))
+            err = ((yk.cpu() - yc).abs().max() / yc.abs().max()).item()
+            if check_output(i):
+                check(err <= CPU_BLOCK_TOL, f"{phase} block {i}: card against CPU {err} > {CPU_BLOCK_TOL}")
+            check((sk.size is None) == (sc.size is None), f"{phase} block {i}: sizes on one device only")
+            if sc.size is not None:
+                check(torch.equal(sk.size.cpu(), sc.size), f"{phase} block {i}: sizes differ")
+            rows.append(dict(block=i, tokens=int(x.shape[1]), rel_err=err, matched_identically=same))
+            x, size = yc, sc.size
+    return rows
+
+
+def phase_mf_divided(smi: str) -> None:
+    """Motionformer with divided space-time attention (``MF_DIVIDED``) at
+    full width and depth. Serving at B8 bf16 with TOME on at r 18: the
+    blocks merge nothing (the logits equal TOME off's bit for bit, every
+    token count stays 1568) and no kernel launches; clips/s. Four train
+    steps (fp32 parameters, AdamW, the EPIC config's single-head run
+    lists): finite losses, nonzero gradients into every ``timeattn`` and
+    ``norm3`` parameter. Two teacher-forced blocks at B1 in fp32, card
+    against the CPU."""
+    zero_launch_counts()  # this path's counts start here
+    t0 = time.perf_counter()
+    serve_opts = ("TEST.BATCH_SIZE", "8", "MODEL_BENCHMARK.WARMUP_ITERATIONS", str(OPTION_WARMUP),
+                  "MODEL_BENCHMARK.ITERATIONS", str(OPTION_ITERS), *MF_DIVIDED)
+    on, off = (build_model(mf_cfg(*serve_opts, *opts), "cuda") for opts in ((), ("TOME.ENABLE", "False")))
+    check(on.policy.rs[0] == 18 and off.policy.mode == "none", "mf_divided: the policies")
+    video = torch.from_numpy(np.random.default_rng(21).random((8, 16, 224, 224, 3), dtype=np.float32)).cuda()
+    with torch.inference_mode():
+        probs_on, state_on = on.module(video)
+        probs_off, _ = off.module(video)
+    check(torch.equal(probs_on, probs_off) and state_on.size is None,
+          "mf_divided: TOME changed a divided model's output")
+    check(tuple(probs_on.shape) == (8, 400) and bool(torch.isfinite(probs_on).all()), "mf_divided: output")
+    row_err = (probs_on.sum(dim=-1) - 1).abs().max().item()
+    check(row_err <= PROB_SUM_TOL, f"mf_divided: rows sum to 1 within {row_err}")
+    serve = option_serve("mf_divided", on.module, mf_cfg(*serve_opts), (MF_BODY_COUNTS[0],) * 13, 0,
+                         tokens_of=lambda n: n - 1)
+    del on, off
+
+    cfg = mf_train_cfg(*MF_TRAIN_STEP_OPTS, *MF_DIVIDED)
+    trainer = build_trainer(cfg)
+    frames, labels = fixed_batch(cfg)
+    grads = {}
+    for name, p in trainer.module.named_parameters():
+        if "timeattn" in name or "norm3" in name:
+            p.register_hook(lambda g, n=name: grads.__setitem__(n, max(grads.get(n, 0.0), g.abs().max().item())))
+    set_lr(trainer.optimizer, trainer.lr_at(0.0))
+    losses = [trainer.train_step(frames, labels)[0].item() for _ in range(4)]
+    check(all(np.isfinite(losses)), f"mf_divided: train losses {losses}")
+    depth = trainer.module.config.depth
+    check(len(grads) == 6 * depth and all(g > 0 for g in grads.values()),
+          f"mf_divided: timeattn/norm3 gradients {sorted(n for n, g in grads.items() if not g > 0)}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    card, cpu = card_and_cpu(mf_cfg("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "1", *MF_DIVIDED))
+    clip = torch.from_numpy(np.random.default_rng(22).random((1, 16, 224, 224, 3), dtype=np.float32))
+    rows = blocks_against_cpu("mf_divided", card, cpu, clip, 2)
+    total = launch_counts()  # read right after the path ran
+    check(all(n == 0 for n in total.values()), f"mf_divided: kernel launches {total}")
+    emit("mf_divided", serve=serve, max_row_sum_err=row_err, train_losses=losses,
+         smallest_timeattn_norm3_grad=min(grads.values()), blocks_against_cpu=rows, launches=total,
+         seconds=time.perf_counter() - t0, batch=8, dtype="bfloat16", nvidia_smi=smi)
+
+
+def landmark_gap(q: torch.Tensor, cpu_order: torch.Tensor, card_order: torch.Tensor) -> float:
+    """How close a call it was where Orthoformer's selection on the card
+    (``card_order``) first parted from the CPU's (``cpu_order``), both [B, M]
+    in the order picked from q [B, N, D]: replaying the CPU's selection, the
+    difference of the two picks' scores at that step, the largest over the
+    rows of B that parted."""
+    b, _, d = q.shape
+    qk = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    score = torch.full(q.shape[:2], -float("inf"), dtype=q.dtype)
+    parted = torch.zeros(b, dtype=torch.bool)
+    gap = 0.0
+    for t in range(1, cpu_order.shape[1]):
+        cur = cpu_order[:, t - 1]
+        picked = qk.gather(1, cur[:, None, None].expand(b, 1, d))
+        score = torch.maximum(score, torch.bmm(qk, picked.transpose(1, 2))[:, :, 0].abs())
+        score.scatter_(1, cur[:, None], 10.0)
+        now = (cpu_order[:, t] != card_order[:, t]) & ~parted
+        for i in now.nonzero().flatten().tolist():
+            gap = max(gap, (score[i, card_order[i, t]] - score[i, cpu_order[i, t]]).abs().item())
+        parted |= now
+    return gap
+
+
+@contextlib.contextmanager
+def recording_landmarks(seen):
+    """While open, every call of Orthoformer's selection appends (q on the
+    CPU, the rows it picked in order, on the CPU) to ``seen``."""
+    real = motionformer_approx.greedy_landmark_order
+
+    def record(q, num_landmarks=64, init_idx=None, generator=None):
+        order = real(q, num_landmarks, init_idx, generator)
+        seen.append((q.float().cpu(), order.cpu()))
+        return order
+
+    motionformer_approx.greedy_landmark_order = record
+    try:
+        yield
+    finally:
+        motionformer_approx.greedy_landmark_order = real
+
+
+@contextlib.contextmanager
+def one_projection():
+    """While open, Performer draws one fixed projection (256 x 64, from a
+    CPU generator seeded 0) on every device and at every layer."""
+    real = motionformer_approx.create_projection_matrix
+    fixed = real(256, 64, torch.Generator().manual_seed(0))
+    motionformer_approx.create_projection_matrix = lambda m, d, generator: fixed
+    try:
+        yield
+    finally:
+        motionformer_approx.create_projection_matrix = real
+
+
+def approx_block_against_cpu(kind: str) -> dict:
+    """Block 0 of an fp32 B1 model at full width, merged at r 18, card
+    against CPU (Performer given one projection; Orthoformer's selections
+    compared: where they part, only at a near-tie, with the gap printed,
+    and the block's output is compared only if the rows picked are the
+    same); then its attention in bf16 against fp32 on the card."""
+    opts = ("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "1", "MOTIONFORMER.APPROX_ATTN_TYPE", kind,
+            "MOTIONFORMER.APPROX_ATTN_DIM", str(MF_APPROX_DIM))
+    card, cpu = card_and_cpu(mf_cfg(*opts))
+    clip = torch.from_numpy(np.random.default_rng(23).random((1, 16, 224, 224, 3), dtype=np.float32))
+    landmarks, out = [], {}
+    with one_projection() if kind == "performer" else contextlib.nullcontext(), recording_landmarks(landmarks):
+        if kind == "orthoformer":
+            with torch.inference_mode():
+                x = cpu.embed(clip)
+                cpu.blocks[0].attn(cpu.blocks[0].norm1(x), MF_FRAMES)
+                card.blocks[0].attn(card.blocks[0].norm1(x.cuda()), MF_FRAMES)
+            (q, cpu_order), (_, card_order) = landmarks[-2:]
+            # the attention reads the rows picked, in index order
+            out["landmarks_equal"] = bool(torch.equal(cpu_order.sort(1).values, card_order.sort(1).values))
+            out["order_equal"] = bool(torch.equal(cpu_order, card_order))
+            if not out["order_equal"]:
+                out["landmark_gap"] = landmark_gap(q, cpu_order, card_order)
+                print(f"mf_approx orthoformer: the selections part at a gap of {out['landmark_gap']}", flush=True)
+                check(out["landmark_gap"] <= ORTHO_TIE_TOL,
+                      f"mf_approx orthoformer: the selections part at a gap of {out['landmark_gap']}")
+        same_landmarks = out.get("landmarks_equal", True)
+        out["blocks_against_cpu"] = blocks_against_cpu(f"mf_approx {kind}", card, cpu, clip, 1,
+                                                       check_output=lambda i: same_landmarks)
+        with torch.inference_mode():
+            xk = card.embed(clip.cuda())
+            blk = card.blocks[0]
+            ref, _ = blk.attn(blk.norm1(xk), MF_FRAMES)
+            low, _ = blk.attn(blk.norm1(xk.bfloat16()), MF_FRAMES)
+    out["bf16_rel_err"] = ((low.float() - ref).abs().max() / ref.abs().max()).item()
+    if kind == "nystrom":
+        check(out["bf16_rel_err"] <= BF16_APPROX_TOL, f"mf_approx nystrom: bf16 against fp32 {out['bf16_rel_err']}")
+    return out
+
+
+def phase_mf_approx(smi: str) -> None:
+    """Motionformer's trajectory attention with each approximate spatial
+    step (APPROX_ATTN_DIM 128) at full width and depth, B8 bf16, merged
+    (r 18, proportional attention) and unmerged: clips/s, the body token
+    counts (MF_BODY_COUNTS merged), no kernel launches (K3 is bypassed),
+    finite block outputs (Nyström's merged layer 11 excepted, as in vtm); then
+    one teacher-forced block each, card against CPU, and bf16 against
+    fp32 on the card."""
+    zero_launch_counts()  # this path's counts start here
+    t0 = time.perf_counter()
+    runs = {}
+    for kind in MF_APPROX_TYPES:
+        runs[kind] = {}
+        for label, opts, counts in (("merged", (), MF_BODY_COUNTS),
+                                    ("unmerged", ("TOME.ENABLE", "False"), (MF_BODY_COUNTS[0],) * 13)):
+            cfg = mf_cfg("TEST.BATCH_SIZE", "8", "MODEL_BENCHMARK.WARMUP_ITERATIONS", str(OPTION_WARMUP),
+                         "MODEL_BENCHMARK.ITERATIONS", str(OPTION_ITERS), "MOTIONFORMER.APPROX_ATTN_TYPE", kind,
+                         "MOTIONFORMER.APPROX_ATTN_DIM", str(MF_APPROX_DIM), *opts)
+            bundle = build_model(cfg, "cuda")
+            # Nyström averages segments of N' // 128 tokens: with fewer body
+            # tokens than landmarks (72 at r 18's layer 11) a segment is empty
+            # and the body rows turn NaN, in vtm too. Only layer 11 runs on
+            # so few; its CLS row, all the head reads, stays finite.
+            few = [i for i, n in enumerate(counts[:-1]) if n < MF_APPROX_DIM]
+            finite_from = few[0] if kind == "nystrom" and few else None
+            runs[kind][label] = option_serve(f"mf_approx {kind} {label}", bundle.module, cfg, counts, 0,
+                                             tokens_of=lambda n: n - 1, finite_from=finite_from)
+            del bundle
+        runs[kind]["block"] = approx_block_against_cpu(kind)
+        torch.cuda.empty_cache()
+    total = launch_counts()  # read right after the path ran
+    check(all(n == 0 for n in total.values()), f"mf_approx: kernel launches {total}")
+    emit("mf_approx", runs=runs, approx_attn_dim=MF_APPROX_DIM, launches=total,
+         seconds=time.perf_counter() - t0, batch=8, dtype="bfloat16", nvidia_smi=smi)
+
+
+def trace_k1(path: str) -> dict:
+    """K1's kernels in a Chrome trace: their count and device time."""
+    events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel" and K1_KERNEL_NAME in e.get("name", "")]
+    return dict(k1_events=len(k1), k1_device_us=sum(e.get("dur", 0) for e in k1),
+                kernel_events=sum(e.get("cat") == "kernel" for e in events))
+
+
+def phase_videomae_options(smi: str) -> int:
+    """VideoMAE ViT-B merged at r 150, B8 bf16, with class pooling
+    (``VIDEOMAE.USE_MEAN_POOLING False``: norm over every token, then
+    token 0) and with layer scale (``init_values`` 0.1, which no config
+    key sets: the model is built from the config's own with it added):
+    clips/s, token counts, K1 9 times a forward, teacher-forced fp32 B2
+    blocks kernel path against plain path. Class pooling through
+    ``model_benchmark`` with ``TRACE_DIR``: the trace holds K1's kernel with
+    device time. Returns K1's launches in the phase."""
+    zero_launch_counts()  # this path's counts start here
+    t0 = time.perf_counter()
+    shutil.rmtree(TRACE_OUT, ignore_errors=True)
+    cls = ("VIDEOMAE.USE_MEAN_POOLING", "False")
+    serve_opts = ("TEST.BATCH_SIZE", "8", "MODEL_BENCHMARK.WARMUP_ITERATIONS", str(OPTION_WARMUP),
+                  "MODEL_BENCHMARK.ITERATIONS", str(OPTION_ITERS))
+    fp32_b2 = ("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2")
+    runs = {}
+
+    cfg = main_cfg(*serve_opts, *cls, "MODEL_BENCHMARK.TRACE_DIR", str(TRACE_OUT))
+    before = flash_attention.LAUNCHES
+    stats = model_benchmark(cfg)
+    forwards = OPTION_WARMUP + OPTION_ITERS + 1  # the traced forward too
+    check(flash_attention.LAUNCHES - before == MERGED_K1_PER_FORWARD * forwards,
+          f"class pooling: {flash_attention.LAUNCHES - before} K1 launches in {forwards} forwards")
+    check(stats["attention_kernel_launches"] == MERGED_K1_PER_FORWARD, f"class pooling: {stats}")
+    trace = trace_k1(stats["trace_file"])
+    check(trace["k1_events"] == MERGED_K1_PER_FORWARD and trace["k1_device_us"] > 0,
+          f"class pooling: the trace's K1 kernels {trace}")
+    cfg = main_cfg(*serve_opts, *cls)
+    bundle = build_model(cfg, "cuda")
+    module = bundle.module
+    check(not hasattr(module, "fc_norm") and not module.config.use_mean_pooling, "class pooling: the head")
+    runs["cls_pooling"] = option_serve("class pooling", module, cfg, MERGED_COUNTS, MERGED_K1_PER_FORWARD)
+    last = []
+    hook = module.blocks[-1].register_forward_hook(lambda m, a, o: last.append(o[0]))
+    video = torch.from_numpy(np.random.default_rng(24).random((8, 16, 224, 224, 3), dtype=np.float32)).cuda()
+    with torch.inference_mode():
+        logits, _ = module(video)
+        pooled = module.head(module.norm(last[0])[:, 0].float())
+    hook.remove()
+    check(torch.equal(logits, pooled) and bool(torch.isfinite(logits).all()), "class pooling: logits")
+    runs["cls_pooling"].update(model_benchmark_clips_per_sec=stats["clips_per_sec"], trace=trace)
+    del bundle, module
+    phase_blocks("videomae_cls_blocks", main_cfg(*fp32_b2, *cls), 25, {}, lambda: flash_attention.LAUNCHES,
+                 MERGED_COUNTS[-1], MERGED_K1_PER_FORWARD)
+
+    def layer_scaled(cfg, dtype):
+        base = build_model(cfg, "cuda")
+        config = dataclasses.replace(base.module.config, init_values=LAYER_SCALE)
+        return VideoMAE(config, policy=base.policy, dtype=dtype, seed=cfg.RNG_SEED).cuda().eval()
+
+    cfg = main_cfg(*serve_opts)
+    module = layer_scaled(cfg, torch.bfloat16)
+    gammas = [n for n, _ in module.named_parameters() if "gamma" in n]
+    check(len(gammas) == 24 and module.blocks[0].gamma_1.dtype == torch.float32, f"layer scale: {gammas[:2]}")
+    runs["layer_scale"] = option_serve("layer scale", module, cfg, MERGED_COUNTS, MERGED_K1_PER_FORWARD)
+    del module
+    cfg = main_cfg(*fp32_b2)
+    phase_blocks("videomae_layer_scale_blocks", cfg, 26, {}, lambda: flash_attention.LAUNCHES,
+                 MERGED_COUNTS[-1], MERGED_K1_PER_FORWARD, model=layer_scaled(cfg, torch.float32))
+    torch.cuda.empty_cache()
+    total = launch_counts()  # read right after the path ran
+    check(total["LAUNCHES"] > 0 and all(n == 0 for c, n in total.items() if c != "LAUNCHES"),
+          f"videomae_options: launches {total}")
+    emit("videomae_options", runs=runs, init_values=LAYER_SCALE, launches=total["LAUNCHES"],
+         seconds=time.perf_counter() - t0, batch=8, dtype="bfloat16", nvidia_smi=smi)
+    return total["LAUNCHES"]
+
+
 def fixed_batch(cfg):
     """The first training batch of the synthetic dataset, on the card."""
     batch = next(iter(construct_loader(cfg, "train")))
@@ -2593,6 +3011,9 @@ def main() -> int:
     blockdiag_launches += variants["BLOCKDIAG_LAUNCHES"]
     launches += phase_dup(smi)
     launches += phase_source(smi)
+    phase_mf_divided(smi)
+    phase_mf_approx(smi)
+    launches += phase_videomae_options(smi)
     bwd_launches = phase_train(smi, **VIDEOMAE_TRAIN)
     frame_bwd_launches = phase_train(smi, **MOTIONFORMER_TRAIN)
     blockdiag_bwd_launches = phase_train(smi, **TIMESFORMER_TRAIN)

@@ -194,3 +194,30 @@ def test_random_mode_raises_value_error_as_vtm_does(mode):
     random mode raises ValueError there."""
     with pytest.raises(ValueError, match="torch.Generator"):
         mb.model_benchmark(_tiny_cfg("TOME.MODE", mode), device="cpu")
+
+
+def test_trace_dir_writes_a_trace_of_one_more_forward(tmp_path, capsys):
+    """``MODEL_BENCHMARK.TRACE_DIR``: one forward after the timed ones under
+    torch.profiler, written as a Chrome trace (here with CPU events only);
+    the statistics name the file, the launch counts leave that forward out."""
+    import json
+
+    trace_dir = tmp_path / "trace"
+    stats = mb.model_benchmark(_tiny_cfg("MODEL_BENCHMARK.TRACE_DIR", str(trace_dir)), device="cpu")
+    assert set(stats) == KEYS | {"trace_dir", "trace_file"}
+    assert stats["trace_dir"] == str(trace_dir)
+    path = trace_dir / mb.TRACE_FILE
+    assert stats["trace_file"] == str(path) and path.is_file()
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any("aten::linear" in n or "aten::addmm" in n for n in names)
+    assert any(e.get("dur", 0) > 0 for e in events)
+    assert "json_stats: " in capsys.readouterr().out
+
+
+def test_failed_trace_raises(tmp_path, monkeypatch):
+    """Unlike vtm, which logs a failed trace and goes on, the port raises."""
+    blocker = tmp_path / "file"
+    blocker.write_text("")
+    with pytest.raises(OSError):
+        mb.model_benchmark(_tiny_cfg("MODEL_BENCHMARK.TRACE_DIR", str(blocker / "trace")), device="cpu")

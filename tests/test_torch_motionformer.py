@@ -245,8 +245,14 @@ def test_prefix_collision_raises():
     [dict(attn_layer="divided"), dict(approx_attn_type="nystrom"), dict(approx_attn_type="performer")],
 )
 def test_unported_options_raise(overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Motionformer(MotionformerConfig(**dict(TINY, **overrides)))
+    """These options were not ported and raised; now they build and run
+    (their parity with vtm: test_torch_motionformer_divided.py and
+    test_torch_motionformer_approx.py)."""
+    model = Motionformer(MotionformerConfig(**dict(TINY, approx_attn_dim=4, **overrides))).eval()
+    with torch.no_grad():
+        probs, _ = model(torch.from_numpy(_video(TINY, 2, 2)))
+    assert probs.shape == (2, 5) and torch.isfinite(probs).all()
+    np.testing.assert_allclose(probs.sum(dim=-1).numpy(), 1.0, rtol=1e-5)
 
 
 def test_unknown_options_raise():

@@ -727,9 +727,18 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="ATTN_DROP_RATE"):
         build_model(c, "cpu", fp32_params=True)
     c = cfg.clone()
-    c.merge_from_list(["MODEL.MODEL_NAME", "Motionformer", "MOTIONFORMER.ATTN_LAYER", "divided"])
-    with pytest.raises(NotImplementedError, match="divided"):
-        build_model(c, "cpu", fp32_params=True)
+    c.merge_from_list(["MODEL.MODEL_NAME", "Motionformer", "MOTIONFORMER.ATTN_LAYER", "divided",
+                       "MOTIONFORMER.EMBED_DIM", "32", "MOTIONFORMER.DEPTH", "2", "MOTIONFORMER.NUM_HEADS", "2",
+                       "MOTIONFORMER.TEMPORAL_RESOLUTION", "2", "DATA.TRAIN_CROP_SIZE", "32", "MODEL.NUM_CLASSES", "7"])
+    divided = build_model(c, "cpu", fp32_params=True).module  # divided attention is ported: it trains
+    assert all(p.dtype == torch.float32 for p in divided.parameters())
+    before = {n: p.detach().clone() for n, p in divided.named_parameters()}
+    opt_d, _ = topt.construct_optimizer(c, divided, num_layers=2)
+    loss_d, _, _ = make_train_step(divided, opt_d, "cross_entropy", False)(
+        torch.randn(2, 4, 32, 32, 3, generator=torch.Generator().manual_seed(0)), torch.tensor([1, 5]))
+    assert np.isfinite(loss_d.item())
+    for n in ("blocks.0.timeattn.qkv.weight", "blocks.1.norm3.weight", "blocks.1.attn.proj.weight"):
+        assert not torch.equal(dict(divided.named_parameters())[n], before[n]), n
     with pytest.raises(NotImplementedError):
         make_train_step(torch.nn.Linear(2, 2), None, "cross_entropy", False, has_batch_stats=True)
     import vtm_torch.train.train_step as ts

@@ -47,7 +47,7 @@ VITB = dict(
 )
 
 
-def _hf_state_dict(arch, num_labels=7):
+def _hf_state_dict(arch, num_labels=7, use_mean_pooling=True):
     from transformers import VideoMAEConfig as HFConfig
     from transformers import VideoMAEForVideoClassification
 
@@ -59,7 +59,7 @@ def _hf_state_dict(arch, num_labels=7):
             hidden_size=arch["embed_dim"], num_hidden_layers=arch["depth"],
             num_attention_heads=arch["num_heads"],
             intermediate_size=int(arch["embed_dim"] * arch["mlp_ratio"]),
-            num_labels=num_labels, use_mean_pooling=True,
+            num_labels=num_labels, use_mean_pooling=use_mean_pooling,
         )
     ).eval()
     # non-zero q/v biases, so their placement is exercised
@@ -239,8 +239,16 @@ def test_build_from_config_carries_heads_and_drop_rates():
     learn = build_model(cfg, "cpu", fp32_params=True).module
     assert all(p.dtype == torch.float32 for p in learn.parameters())
     cfg.VIDEOMAE.USE_MEAN_POOLING = False
-    with pytest.raises(NotImplementedError, match="CLS pooling"):
-        build_model(cfg, "cpu")
+    cls = build_model(cfg, "cpu").module
+    assert not cls.config.use_mean_pooling and not hasattr(cls, "fc_norm")
+    assert cls.norm.weight.dtype == torch.float32
+    last = []
+    cls.blocks[-1].register_forward_hook(lambda m, a, o: last.append(o[0]))
+    video = torch.from_numpy(_video(dict(TINY, num_frames=4), 2, 9))
+    with torch.no_grad():
+        (verb, noun), _ = cls(video)
+        feats = cls.norm(last[0])[:, 0].float()  # token 0 after norm over every token
+    assert torch.equal(verb, cls.head0(feats)) and torch.equal(noun, cls.head1(feats))
 
 
 @pytest.mark.parametrize("mode", VARIANT_MODES)
@@ -256,3 +264,83 @@ def test_merge_variants_match_vtm(mode, monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
     assert_states_equal(tstate, jstate)
     assert tuple(tstate.source.shape) == (2, TINY_TOKENS - 3, TINY_TOKENS)
+
+
+def _options_pair(overrides, kw, seed=3):
+    """One VideoMAE with the pooling / layer-scale ``overrides`` in both
+    packages, from the JAX package's init with its gammas moved off the
+    constant (each block's own draw), so every gamma must land in place."""
+    arch = dict(TINY, **overrides)
+    video = _video(arch, 2, seed)
+    jmodel = JVideoMAE(config=JConfig(num_classes=7, **arch), policy=JPolicy(**kw))
+    params = jax.tree_util.tree_map(np.array, jmodel.init(jax.random.key(seed), jnp.asarray(video))["params"])
+    rng = np.random.default_rng(seed)
+    for name, blk in params.items():
+        for g in ("gamma_1", "gamma_2"):
+            if g in blk:
+                blk[g] = (blk[g] + 0.05 * rng.standard_normal(blk[g].shape)).astype(np.float32)
+    tmodel = VideoMAE(VideoMAEConfig(num_classes=7, **arch), policy=MergePolicy(**kw)).eval()
+    tmodel.load_state_dict(state_dict_from_vtm_params(params))
+    return video, params, jmodel, tmodel
+
+
+OPTIONS = {
+    "cls_pooling": dict(use_mean_pooling=False),
+    "layer_scale": dict(init_values=0.1),
+    "cls_pooling_layer_scale": dict(use_mean_pooling=False, init_values=0.1),
+}
+
+
+@pytest.mark.parametrize("mode", ["merge", "none"], ids=["merged", "unmerged"])
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_cls_pooling_and_layer_scale_match_vtm(option, mode, monkeypatch):
+    """Logits within 1e-4 (fp32), identical Matching indices layer by layer
+    and identical sizes, for class pooling (``norm`` over every token, then
+    token 0) and layer scale at init_values 0.1."""
+    from torch_variants import assert_same_matchings, record_matchings
+
+    kw = dict(rs=(1, 1) if mode == "merge" else (0, 0), mode=mode, prop_attn=True)
+    video, params, jmodel, tmodel = _options_pair(OPTIONS[option], kw)
+    seen = record_matchings(monkeypatch)
+    with jax.default_matmul_precision("highest"):
+        want, jstate = jmodel.apply({"params": params}, jnp.asarray(video))
+    with torch.no_grad():
+        got, tstate = tmodel(torch.from_numpy(video))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    if mode == "merge":
+        assert len(seen["torch"]) == TINY["depth"]
+        assert_same_matchings(seen)
+        np.testing.assert_array_equal(tstate.size.numpy(), np.asarray(jstate.size))
+
+
+def test_layer_scale_starts_at_init_values_and_is_cast_at_use():
+    model = VideoMAE(VideoMAEConfig(num_classes=7, init_values=0.1, **TINY), dtype=torch.bfloat16)
+    names = {n for n, _ in model.named_parameters() if "gamma" in n}
+    assert names == {f"blocks.{i}.gamma_{j}" for i in range(TINY["depth"]) for j in (1, 2)}
+    assert all(torch.equal(p, torch.full((32,), 0.1)) for n, p in model.named_parameters() if "gamma" in n)
+    assert model.blocks[0].gamma_1.dtype == torch.float32
+    plain = VideoMAE(VideoMAEConfig(num_classes=7, **TINY))
+    assert plain.blocks[0].gamma_1 is None and not any("gamma" in n for n, _ in plain.named_parameters())
+    with torch.no_grad():
+        logits, _ = model(torch.from_numpy(_video(TINY, 2, 4)))
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+
+
+def test_gamma_and_norm_round_trip():
+    """port -> vtm -> port is exact with layer scale and class pooling, and
+    a HuggingFace class-pooling checkpoint (``videomae.layernorm``) loads
+    strictly, like the bridge."""
+    model = VideoMAE(VideoMAEConfig(num_classes=7, use_mean_pooling=False, init_values=0.1, **TINY), seed=4)
+    sd = model.state_dict()
+    assert "norm.weight" in sd and "fc_norm.weight" not in sd and "blocks.1.gamma_2" in sd
+    back = state_dict_from_vtm_params(convert_videomae({k: v.numpy() for k, v in sd.items()}, depth=TINY["depth"]))
+    assert back.keys() == sd.keys()
+    for k in sd:
+        assert torch.equal(back[k], sd[k]), k
+    hf = _hf_state_dict(TINY, use_mean_pooling=False)
+    direct = load_videomae_state_dict(hf)
+    bridged = state_dict_from_vtm_params(convert_videomae(hf, depth=TINY["depth"]))
+    assert sorted(direct) == sorted(bridged) and "norm.weight" in direct
+    for k in direct:
+        torch.testing.assert_close(direct[k], bridged[k], rtol=0, atol=0, msg=k)
+    VideoMAE(VideoMAEConfig(num_classes=7, use_mean_pooling=False, **TINY)).load_state_dict(direct)

@@ -119,7 +119,9 @@ def _hf_videomae_to_original(sd: Mapping[str, object]) -> Dict[str, object]:
 
 def load_videomae_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Tensor]:
     """Original MCG-NJU or HuggingFace VideoMAE state dict -> the port's
-    state dict (torch tensors), ready for ``VideoMAE.load_state_dict``."""
+    state dict (torch tensors), ready for ``VideoMAE.load_state_dict``. The
+    layer-scale ``blocks.{i}.gamma_1`` / ``gamma_2`` and the class-pooling
+    ``norm`` (HuggingFace's ``videomae.layernorm``) keep their names."""
     sd = strip_prefixes(sd)
     if any(k.startswith("videomae.") for k in sd):
         sd = _hf_videomae_to_original(sd)
@@ -161,7 +163,9 @@ def _blocks(params: Mapping):
 
 def state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's VideoMAE params (nested dict of arrays) -> the
-    port's state dict. Inverse of ``convert_videomae``."""
+    port's state dict. Inverse of ``convert_videomae``: layer scale's
+    ``gamma_1`` / ``gamma_2`` where the blocks have them, and ``fc_norm``
+    (mean pooling) or ``norm`` (class pooling), whichever is there."""
     sd = _conv3d(params["patch_embed"], "patch_embed.proj")
     for i, blk in _blocks(params):
         pre = f"blocks.{i}"
@@ -173,7 +177,12 @@ def state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
             sd[f"{pre}.attn.{name}"] = _t(np.asarray(blk["attn"][name]))
         sd.update(_dense(blk["mlp"]["fc1"], f"{pre}.mlp.fc1"))
         sd.update(_dense(blk["mlp"]["fc2"], f"{pre}.mlp.fc2"))
-    sd.update(_layernorm(params["fc_norm"], "fc_norm"))
+        for name in ("gamma_1", "gamma_2"):
+            if name in blk:
+                sd[f"{pre}.{name}"] = _t(np.asarray(blk[name]))
+    for name in ("fc_norm", "norm"):
+        if name in params:
+            sd.update(_layernorm(params[name], name))
     # single head, or the EPIC-KITCHENS twin verb/noun heads
     for name in ("head", "head0", "head1"):
         if name in params:
@@ -198,10 +207,11 @@ def load_motionformer_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Te
 
 
 def motionformer_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX package's Motionformer params (trajectory or joint
-    attention) -> the port's state dict. Inverse of
-    ``convert_motionformer``. Any tree of that structure goes through
-    (gradients, updated parameters), for name-by-name comparison."""
+    """The JAX package's Motionformer params (trajectory, joint or divided
+    attention: a divided block's ``timeattn`` and ``norm3`` too) -> the
+    port's state dict. Inverse of ``convert_motionformer``. Any tree of
+    that structure goes through (gradients, updated parameters), for
+    name-by-name comparison."""
     sd = {
         name: _t(np.asarray(params[name]))
         for name in ("cls_token", "pos_embed", "temp_embed", "st_embed")
@@ -218,6 +228,10 @@ def motionformer_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.
         for name in ("qkv", "proj_q", "proj_kv", "proj"):
             if name in blk["attn"]:
                 sd.update(_dense(blk["attn"][name], f"{pre}.attn.{name}"))
+        if "timeattn" in blk:
+            sd.update(_layernorm(blk["norm3"], f"{pre}.norm3"))
+            for name in ("qkv", "proj"):
+                sd.update(_dense(blk["timeattn"][name], f"{pre}.timeattn.{name}"))
         sd.update(_dense(blk["mlp"]["fc1"], f"{pre}.mlp.fc1"))
         sd.update(_dense(blk["mlp"]["fc2"], f"{pre}.mlp.fc2"))
     sd.update(_layernorm(params["norm"], "norm"))

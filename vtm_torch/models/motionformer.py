@@ -1,12 +1,18 @@
 """Motionformer — trajectory-attention ViT, in PyTorch.
 
 Port of ``vtm/models/motionformer.py`` for serving and training with
-trajectory attention (``ATTN_LAYER: trajectory``) or joint space-time
-attention (``joint``), the 3-D tubelet or the per-frame 2-D patch embed,
-separate or joint position embeddings, one head or the EPIC-KITCHENS
-verb/noun pair. Token merging runs per pseudo-frame between attention and
-MLP of each block. Divided attention and the approximate attentions are
-not ported and raise.
+trajectory attention (``ATTN_LAYER: trajectory``), joint space-time
+attention (``joint``) or divided space-time attention (``divided``), the
+3-D tubelet or the per-frame 2-D patch embed, separate or joint position
+embeddings, one head or the EPIC-KITCHENS verb/noun pair. Token merging
+runs per pseudo-frame between attention and MLP of each trajectory or
+joint block. Trajectory attention's spatial step may be approximated
+(``APPROX_ATTN_TYPE``: ``nystrom``, ``orthoformer`` or ``performer``, with
+``APPROX_ATTN_DIM`` landmarks; ``motionformer_approx``): then it runs as
+plain products, K3 is not launched, and the token sizes do not reach it,
+as in ``vtm``. Divided blocks (``timeattn`` under ``norm3``, then ``attn``
+under ``norm1``, then the MLP) are plain products too and never merge,
+whatever the policy says, as in ``vtm``.
 
 The reference's quirks are kept exactly, since they produced the
 paper's numbers:
@@ -32,7 +38,8 @@ duplication, as in TimeSformer: a shared block re-runs in full.
 Modules are named after the upstream state-dict layout
 (``patch_embed_3d.proj`` or ``patch_embed.proj``, ``cls_token``,
 ``pos_embed``, ``temp_embed`` or ``st_embed``,
-``blocks.{i}.attn.{qkv,proj_q,proj_kv,proj}``, ``norm``,
+``blocks.{i}.attn.{qkv,proj_q,proj_kv,proj}``, and for divided blocks
+``blocks.{i}.timeattn.{qkv,proj}`` and ``blocks.{i}.norm3``, ``norm``,
 ``pre_logits.fc``, ``head`` or ``head0`` / ``head1``), so an upstream
 checkpoint loads with ``load_state_dict``. Weights are drawn in fp32 from
 a ``torch.Generator``. For serving (``fp32_params=False``) linear and conv
@@ -55,6 +62,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vtm_torch.merge.policy import MergePolicy, MergeState, reduce_tokens
+from vtm_torch.models import motionformer_approx as approx
 from vtm_torch.models.build import (
     ModelBundle,
     compute_dtype,
@@ -76,7 +84,9 @@ from vtm_torch.models.common import (
 from vtm_torch.models.timesformer import _fold_space, _unfold_space
 from vtm_torch.ops.flash_attention import _reference, tome_frame_attention
 
-NOT_PORTED = "not ported yet (ROADMAP.md Queue 1, item 6: Motionformer)"
+ATTN_LAYERS = ("trajectory", "joint", "divided")
+APPROX_ATTN_TYPES = ("none", "nystrom", "orthoformer", "performer")
+PERFORMER_FEATURES = 256  # FAVOR+'s m, as in vtm
 # flax's gelu is the tanh approximation
 HEAD_ACTS = {"tanh": nn.Tanh, "gelu": functools.partial(nn.GELU, approximate="tanh"), "relu": nn.ReLU}
 
@@ -99,7 +109,8 @@ class MotionformerConfig:
     pos_embed_type: str = "separate"  # separate | joint
     attn_layer: str = "trajectory"  # trajectory | joint | divided
     use_original_code: bool = True
-    approx_attn_type: str = "none"
+    approx_attn_type: str = "none"  # none | nystrom | orthoformer | performer
+    approx_attn_dim: int = 128  # landmarks of nystrom and orthoformer
     layer_norm_eps: float = 1e-6
 
     @property
@@ -111,14 +122,11 @@ class MotionformerConfig:
         return isinstance(self.num_classes, (tuple, list))
 
 
-def _check_ported(c: MotionformerConfig) -> None:
-    unported = [
-        (c.attn_layer not in ("trajectory", "joint"), f"attn_layer {c.attn_layer!r}"),
-        (c.approx_attn_type != "none", f"approx_attn_type {c.approx_attn_type!r}"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"Motionformer {what} is {NOT_PORTED}")
+def _check_config(c: MotionformerConfig) -> None:
+    if c.attn_layer not in ATTN_LAYERS:
+        raise ValueError(f"unknown attn_layer {c.attn_layer!r}; one of {ATTN_LAYERS}")
+    if c.approx_attn_type not in APPROX_ATTN_TYPES:
+        raise ValueError(f"unknown approx_attn_type {c.approx_attn_type!r}; one of {APPROX_ATTN_TYPES}")
     if c.head_act not in HEAD_ACTS:
         raise ValueError(f"unknown head_act {c.head_act!r}; one of {sorted(HEAD_ACTS)}")
     if c.pos_embed_type not in ("separate", "joint"):
@@ -127,10 +135,11 @@ def _check_ported(c: MotionformerConfig) -> None:
 
 class TrajectoryAttention(nn.Module):
     """Trajectory attention returning (out, metric): a per-frame spatial
-    attention (K3 on CUDA for 256 to 4096 body tokens) followed by a
-    temporal attention along each token's trajectory. ``use_kernel=False``
-    sends every call to the plain product, so the kernel can be checked
-    against it inside a model."""
+    attention (K3 on CUDA for 256 to 4096 body tokens, or the configured
+    approximation as plain products) followed by a temporal attention
+    along each token's trajectory. ``use_kernel=False`` sends every call
+    to the plain product, so the kernel can be checked against it inside a
+    model."""
 
     def __init__(self, config: MotionformerConfig):
         super().__init__()
@@ -139,15 +148,24 @@ class TrajectoryAttention(nn.Module):
         self.num_heads = c.num_heads
         self.scale = (d // c.num_heads) ** -0.5
         self.use_original_code = c.use_original_code
+        self.approx_attn_type = c.approx_attn_type
+        self.approx_attn_dim = c.approx_attn_dim
         self.use_kernel = True
         self.qkv = Linear(d, d * 3, bias=c.qkv_bias)
         self.proj_q = Linear(d, d, bias=c.qkv_bias)
         self.proj_kv = Linear(d, d * 2, bias=c.qkv_bias)
         self.proj = Linear(d, d)
 
-    def forward(self, x: torch.Tensor, num_frames: int, size: Optional[torch.Tensor] = None):
+    def forward(
+        self,
+        x: torch.Tensor,
+        num_frames: int,
+        size: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
         """x [B, 1 + F*s, D]; ``size`` [(B*F), s, 1] per-pseudo-frame token
-        sizes or None. Returns (out [B, 1 + F*s, D], metric [(B*F), s, hd])."""
+        sizes or None; ``generator`` draws orthoformer's first landmark
+        (None: row 0). Returns (out [B, 1 + F*s, D], metric [(B*F), s, hd])."""
         b, n, d = x.shape
         h = self.num_heads
         hd = d // h
@@ -161,10 +179,19 @@ class TrajectoryAttention(nn.Module):
         cls_out = merge_heads(_reference(q[:, :, :1], k, v, None, scale))
 
         q_, k_, v_ = q[:, :, 1:], k[:, :, 1:], v[:, :, 1:]
+        approximate = self.approx_attn_type != "none"
         # keys are grouped (f n) for the spatial softmax, but the size is
-        # (s f)-folded: the reference patch's inconsistency, kept
-        key_bias = None if size is None else torch.log(_unfold_space(size, b, f)[:, :, 0])
-        if self.use_kernel and x.is_cuda and _FLASH_MIN_SEQ <= nb <= _FLASH_MAX_SEQ:
+        # (s f)-folded: the reference patch's inconsistency, kept. The
+        # approximations take no size bias, as in vtm.
+        key_bias = None
+        if size is not None and not approximate:
+            key_bias = torch.log(_unfold_space(size, b, f)[:, :, 0])
+        if approximate:
+            # heads flattened into the batch
+            flat = [t.reshape(b * h, nb, hd) for t in (q_, k_, v_)]
+            xfa = self.approximate(*flat, f, generator)
+            xfa = xfa.reshape(b, h, nb, f, hd).permute(0, 2, 3, 1, 4)
+        elif self.use_kernel and x.is_cuda and _FLASH_MIN_SEQ <= nb <= _FLASH_MAX_SEQ:
             xfa = tome_frame_attention(q_, k_, v_, key_bias, scale, f)
         else:
             logits = torch.matmul(q_.float(), k_.float().transpose(-2, -1)) * scale
@@ -179,6 +206,18 @@ class TrajectoryAttention(nn.Module):
 
         # metric: (s f) fold of the body keys, mean over heads
         return out, _fold_space(k_.mean(dim=1), b, f)
+
+    def approximate(self, q, k, v, num_frames: int, generator: Optional[torch.Generator]):
+        """The approximate spatial step on [B*h, N', hd] -> [B*h, N', F, hd]."""
+        if self.approx_attn_type == "nystrom":
+            return approx.nystrom_spatial_attn(
+                q, k, v, landmarks=self.approx_attn_dim, num_frames=num_frames, use_spatial_landmarks=True
+            )
+        if self.approx_attn_type == "orthoformer":
+            return approx.orthoformer(
+                q, k, v, num_landmarks=self.approx_attn_dim, num_frames=num_frames, generator=generator
+            )
+        return approx.performer_attention(q, k, v, num_frames, m=PERFORMER_FEATURES)
 
     def temporal(self, xq: torch.Tensor, s: int) -> torch.Tensor:
         """Temporal attention along each token's trajectory: xq [B, N', F, D]
@@ -208,7 +247,8 @@ class TrajectoryAttention(nn.Module):
 
 class JointAttention(nn.Module):
     """Joint space-time attention over all tokens (plain products, as in
-    ``vtm``; the token sizes are not used), returning (out, metric)."""
+    ``vtm``; the token sizes and the generator are not used), returning
+    (out, metric)."""
 
     def __init__(self, config: MotionformerConfig):
         super().__init__()
@@ -219,29 +259,86 @@ class JointAttention(nn.Module):
         self.qkv = Linear(d, d * 3, bias=c.qkv_bias)
         self.proj = Linear(d, d)
 
-    def forward(self, x: torch.Tensor, num_frames: int, size: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, num_frames: int, size: Optional[torch.Tensor] = None, generator=None):
         q, k, v = (split_heads(t, self.num_heads) for t in self.qkv(x).chunk(3, dim=-1))
         out = self.proj(merge_heads(_reference(q, k, v, None, self.scale)))
         return out, _fold_space(k.mean(dim=1)[:, 1:], x.shape[0], num_frames)
 
 
+class DividedAttention(nn.Module):
+    """Divided space-time attention (plain products, as in ``vtm``): the
+    CLS query attends over every token; each body query attends within its
+    frame (space) or, with ``to_time``, within its spatial position over
+    the frames (time), with the CLS key and value prepended to every
+    group. The body is folded exactly (f n), unlike trajectory's (s f)."""
+
+    def __init__(self, config: MotionformerConfig):
+        super().__init__()
+        c = config
+        d = c.embed_dim
+        self.num_heads = c.num_heads
+        self.scale = (d // c.num_heads) ** -0.5
+        self.qkv = Linear(d, d * 3, bias=c.qkv_bias)
+        self.proj = Linear(d, d)
+
+    def forward(self, x: torch.Tensor, num_frames: int, to_time: bool) -> torch.Tensor:
+        b, n, _ = x.shape
+        h = self.num_heads
+        q, k, v = (split_heads(t, h) for t in self.qkv(x).chunk(3, dim=-1))
+        hd = q.shape[-1]
+        f = num_frames
+        nb = n - 1
+        s = nb // f
+        cls_out = _reference(q[:, :, :1], k, v, None, self.scale)
+
+        def fold(t):
+            t = t[:, :, 1:].reshape(b, h, f, s, hd)  # [B, h, F, s, hd]: groups of one frame
+            return t.transpose(2, 3) if to_time else t
+
+        qf, kf, vf = fold(q), fold(k), fold(v)
+        g = qf.shape[2]
+        kf = torch.cat([k[:, :, :1, None].expand(b, h, g, 1, hd), kf], dim=3)
+        vf = torch.cat([v[:, :, :1, None].expand(b, h, g, 1, hd), vf], dim=3)
+        out = _reference(qf, kf, vf, None, self.scale)
+        if to_time:
+            out = out.transpose(2, 3)
+        out = torch.cat([cls_out, out.reshape(b, h, nb, hd)], dim=2)
+        return self.proj(merge_heads(out))
+
+
 class MotionformerBlock(nn.Module):
     """Pre-norm block; merging runs per (s f)-folded pseudo-frame between
-    attention and MLP."""
+    attention and MLP. A divided block runs time attention (``timeattn``
+    under ``norm3``), then space attention (``attn`` under ``norm1``), then
+    the MLP, and never merges: the reference's merging patch does not
+    reach such blocks, and ``vtm`` keeps that."""
 
     def __init__(self, config: MotionformerConfig, policy: MergePolicy):
         super().__init__()
         c = config
         self.policy = policy
+        self.divided = c.attn_layer == "divided"
+        self.orthoformer = c.approx_attn_type == "orthoformer"
         self.norm1 = LayerNorm(c.embed_dim, eps=c.layer_norm_eps)
-        self.attn = {"trajectory": TrajectoryAttention, "joint": JointAttention}[c.attn_layer](c)
+        if self.divided:
+            self.timeattn = DividedAttention(c)
+            self.norm3 = LayerNorm(c.embed_dim, eps=c.layer_norm_eps)
+            self.attn = DividedAttention(c)
+        else:
+            self.attn = {"trajectory": TrajectoryAttention, "joint": JointAttention}[c.attn_layer](c)
         self.norm2 = LayerNorm(c.embed_dim, eps=c.layer_norm_eps)
         self.mlp = Mlp(c.embed_dim, int(c.embed_dim * c.mlp_ratio), c.embed_dim)
 
     def forward(
         self, x: torch.Tensor, state: MergeState, layer: int, num_frames: int
     ) -> Tuple[torch.Tensor, MergeState]:
-        out, metric = self.attn(self.norm1(x), num_frames, state.attn_size(self.policy.prop_attn))
+        if self.divided:
+            x = x + self.timeattn(self.norm3(x), num_frames, to_time=True)
+            x = x + self.attn(self.norm1(x), num_frames, to_time=False)
+            return x + self.mlp(self.norm2(x)), state
+        # orthoformer's first landmark comes from the forward's generator
+        generator = state.generator if self.orthoformer else None
+        out, metric = self.attn(self.norm1(x), num_frames, state.attn_size(self.policy.prop_attn), generator)
         x = x + out
         if self.policy.mode != "none" and self.policy.r_at(layer) > 0:
             b = x.shape[0]
@@ -269,7 +366,7 @@ class Motionformer(nn.Module):
         layer_schedule: Optional[Sequence[int]] = None,
     ):
         super().__init__()
-        _check_ported(config)
+        _check_config(config)
         c = config
         d = c.embed_dim
         self.config = config
@@ -348,8 +445,9 @@ class Motionformer(nn.Module):
         state: Optional[MergeState] = None,
         generator: Optional[torch.Generator] = None,
     ):
-        """``generator`` draws the random modes' scores (as
-        ``MergeState.generator``); the model itself draws nothing."""
+        """``generator`` (as ``MergeState.generator``) draws the random
+        modes' scores and, with Orthoformer, each layer's first landmark
+        (row 0 without one); the model draws nothing else."""
         if state is None:
             state = MergeState(generator=generator)
         x = self.embed(x)
@@ -389,6 +487,7 @@ def _build_motionformer(cfg, fp32_params: bool = False) -> ModelBundle:
         attn_layer=m.ATTN_LAYER,
         use_original_code=m.USE_ORIGINAL_TRAJ_ATTN_CODE,
         approx_attn_type=m.APPROX_ATTN_TYPE,
+        approx_attn_dim=m.APPROX_ATTN_DIM,
     )
     policy = make_policy(cfg, config.depth, n_protected_class_token=False)
     plan = duplication_plan(cfg, config.depth)  # full-block shared-weight re-runs

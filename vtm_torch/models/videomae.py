@@ -2,24 +2,29 @@
 
 Port of ``vtm/models/videomae.py``. Token merging is a constructor
 argument (``MergePolicy``) applied between attention and MLP of each
-block. No CLS token; fixed sin-cos positional embeddings; mean-pool +
-fc_norm head; EPIC-KITCHENS twin verb/noun heads when ``num_classes`` is a
-pair. Every shipped VideoMAE config uses this form (q/v biases, mean
-pooling, no layer-scale); the others are not ported.
+block. No CLS token; fixed sin-cos positional embeddings; EPIC-KITCHENS
+twin verb/noun heads when ``num_classes`` is a pair. The head pools by the
+mean over the tokens and ``fc_norm`` (``use_mean_pooling``, every shipped
+config), or, as ``VIDEOMAE.USE_MEAN_POOLING False`` asks, by ``norm`` over
+every token and then token 0 (there is no class token: it is the first
+patch token left). ``init_values > 0`` turns on layer scale: the
+attention and MLP branches are multiplied by ``gamma_1`` and ``gamma_2``,
+initialised to that constant (no config key sets it, as in ``vtm``).
 
 Modules are named after the original MCG-NJU state-dict layout
 (``patch_embed.proj``, ``blocks.{i}.attn.qkv`` / ``q_bias`` / ``v_bias`` /
-``proj``, ``mlp.fc1`` / ``fc2``, ``norm1`` / ``norm2``, ``fc_norm``,
-``head``; ``head0`` / ``head1`` for the twin heads), so a released
-checkpoint loads with ``load_state_dict``.
+``proj``, ``mlp.fc1`` / ``fc2``, ``norm1`` / ``norm2``, ``gamma_1`` /
+``gamma_2``, ``fc_norm`` or ``norm``, ``head``; ``head0`` / ``head1`` for
+the twin heads), so a released checkpoint loads with ``load_state_dict``.
 
 Weights are drawn in fp32 from a ``torch.Generator`` seeded by ``seed``.
 For serving (``fp32_params=False``) linear and conv weights (not the
 head) are then cast once to the compute dtype. For training
 (``fp32_params=True``) every parameter stays fp32 and is cast to the
 compute dtype at use, so gradients and optimizer state are fp32; the
-forward's values are the same either way. LayerNorms and the head stay
-fp32, as in the JAX package.
+forward's values are the same either way. LayerNorms, the layer-scale
+gammas (cast to the activation dtype at use) and the head stay fp32, as
+in the JAX package.
 
 In training mode (``module.train()``) the dropout sites of the JAX
 package are active: ``drop_rate`` after the positional embedding, on the
@@ -70,6 +75,8 @@ class VideoMAEConfig:
     mlp_ratio: float = 4.0
     num_frames: int = 16
     tubelet_size: int = 2
+    use_mean_pooling: bool = True  # False: norm over every token, then token 0
+    init_values: float = 0.0  # > 0: layer scale gamma_1 / gamma_2
     fc_drop_rate: float = 0.0
     drop_rate: float = 0.0
     drop_path_rate: float = 0.0
@@ -135,6 +142,11 @@ class VideoMAEBlock(nn.Module):
         self.attn = VideoMAEAttention(c.embed_dim, c.num_heads)
         self.norm2 = LayerNorm(c.embed_dim)
         self.mlp = Mlp(c.embed_dim, int(c.embed_dim * c.mlp_ratio), c.embed_dim, drop=c.drop_rate)
+        if c.init_values > 0:
+            self.gamma_1 = nn.Parameter(torch.full((c.embed_dim,), float(c.init_values)))
+            self.gamma_2 = nn.Parameter(torch.full((c.embed_dim,), float(c.init_values)))
+        else:
+            self.gamma_1 = self.gamma_2 = None
 
     def forward(
         self, x: torch.Tensor, state: MergeState, layer: int,
@@ -146,9 +158,13 @@ class VideoMAEBlock(nn.Module):
         if metric_only:
             return reduce_tokens(self.policy, layer, metric, x, state)
         attn_out = dropout(attn_out, self.drop_rate, self.training, generator)
+        if self.gamma_1 is not None:
+            attn_out = attn_out * self.gamma_1.to(attn_out.dtype)
         x = x + drop_path(attn_out, self.drop_path_rate, self.training, generator)
         x, state = reduce_tokens(self.policy, layer, metric, x, state)
         mlp_out = self.mlp(self.norm2(x), generator)
+        if self.gamma_2 is not None:
+            mlp_out = mlp_out * self.gamma_2.to(mlp_out.dtype)
         return x + drop_path(mlp_out, self.drop_path_rate, self.training, generator), state
 
 
@@ -180,7 +196,10 @@ class VideoMAE(nn.Module):
         # per-block stochastic-depth rates, linearly spaced
         dpr = [c.drop_path_rate * i / max(c.depth - 1, 1) for i in range(c.depth)]
         self.blocks = nn.ModuleList(VideoMAEBlock(c, policy, dpr[i]) for i in range(c.depth))
-        self.fc_norm = LayerNorm(c.embed_dim)
+        if c.use_mean_pooling:
+            self.fc_norm = LayerNorm(c.embed_dim)
+        else:
+            self.norm = LayerNorm(c.embed_dim)
         if c.multi_head:
             self.head0 = nn.Linear(c.embed_dim, c.num_classes[0])
             self.head1 = nn.Linear(c.embed_dim, c.num_classes[1])
@@ -224,7 +243,10 @@ class VideoMAE(nn.Module):
         schedule = self.layer_schedule or [(i, False) for i in range(self.config.depth)]
         for step, (i, metric_only) in enumerate(schedule):
             x, state = self.blocks[i](x, state, layer=step, generator=generator, metric_only=metric_only)
-        feats = self.fc_norm(x.mean(dim=1)).float()
+        if self.config.use_mean_pooling:
+            feats = self.fc_norm(x.mean(dim=1)).float()
+        else:
+            feats = self.norm(x)[:, 0].float()
         feats = dropout(feats, self.config.fc_drop_rate, self.training, generator)
         if self.config.multi_head:
             return (self.head0(feats), self.head1(feats)), state
@@ -236,8 +258,6 @@ def build_videomae(
     fp32_params: bool = False,
 ) -> VideoMAE:
     """Construct from a config (same keys as ``vtm.models.videomae.build_videomae``)."""
-    if not cfg.VIDEOMAE.USE_MEAN_POOLING:
-        raise NotImplementedError("CLS pooling is not ported yet (ROADMAP.md Queue 1, item 14)")
     variant = dict(VARIANTS[cfg.VIDEOMAE.MODEL])
     num_classes = (
         cfg.MODEL.NUM_CLASSES
@@ -255,6 +275,7 @@ def build_videomae(
         fc_drop_rate=cfg.VIDEOMAE.FC_DROP_RATE,
         drop_rate=cfg.VIDEOMAE.DROP_RATE,
         drop_path_rate=cfg.VIDEOMAE.DROP_PATH_RATE,
+        use_mean_pooling=cfg.VIDEOMAE.USE_MEAN_POOLING,
         **variant,
     )
     return VideoMAE(

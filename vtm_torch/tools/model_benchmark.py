@@ -14,6 +14,13 @@ The weights come from ``load_test_checkpoint``: ``TEST.CHECKPOINT_FILE_PATH``,
 else the last checkpoint of ``OUTPUT_DIR``, then ``TRAIN.CHECKPOINT_FILE_PATH``,
 else the seeded init.
 
+With ``MODEL_BENCHMARK.TRACE_DIR`` set, one more forward runs after the
+timed ones under ``torch.profiler`` (CPU activity, and CUDA activity on
+the card) and its Chrome trace is written to ``TRACE_FILE`` in that
+directory; the statistics then carry ``trace_dir`` and ``trace_file``. The
+launch counts do not include that forward. Unlike ``vtm``, which logs a
+failed trace and goes on, a failed trace raises here.
+
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``device="cpu"``, plain versions of the kernels) is for tests only.
 """
@@ -21,6 +28,7 @@ Runs on the first CUDA device; a machine without one raises. The CPU
 from __future__ import annotations
 
 import json
+import os
 
 import numpy as np
 import torch
@@ -33,6 +41,8 @@ from vtm_torch.utils.benchmark import device_seconds
 from vtm_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+TRACE_FILE = "model_benchmark_trace.json"
 
 
 def _per_forward(x: float):
@@ -58,7 +68,7 @@ def perform_benchmark(module: torch.nn.Module, cfg, device: torch.device) -> dic
     )
 
     frame_time_ms = elapsed / (batch * t * iters) * 1000.0
-    return {
+    stats = {
         "split": "model_benchmark",
         "avg_frame_time_ms": frame_time_ms,
         "fps": 1000.0 / frame_time_ms,
@@ -70,6 +80,27 @@ def perform_benchmark(module: torch.nn.Module, cfg, device: torch.device) -> dic
         "blockdiag_attention_kernel_launches": _per_forward(blockdiag_launches),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
+    if cfg.MODEL_BENCHMARK.TRACE_DIR:
+        stats["trace_dir"] = cfg.MODEL_BENCHMARK.TRACE_DIR
+        stats["trace_file"] = trace_forward(module, video, cfg.MODEL_BENCHMARK.TRACE_DIR)
+    return stats
+
+
+def trace_forward(module: torch.nn.Module, video: torch.Tensor, trace_dir: str) -> str:
+    """One forward under ``torch.profiler``, written as a Chrome trace into
+    ``trace_dir`` (made if missing); returns the file's path."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if video.is_cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.inference_mode(), torch.profiler.profile(activities=activities) as prof:
+        module(video)
+        if video.is_cuda:
+            torch.cuda.synchronize(video.device)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)
+    return path
 
 
 def model_benchmark(cfg, device: torch.device | str | None = None) -> dict:
@@ -78,8 +109,6 @@ def model_benchmark(cfg, device: torch.device | str | None = None) -> dict:
             raise RuntimeError("model_benchmark needs a CUDA device and found none")
         device = "cuda"
     device = torch.device(device)
-    if cfg.MODEL_BENCHMARK.TRACE_DIR:
-        raise NotImplementedError("MODEL_BENCHMARK.TRACE_DIR: profiler traces are not ported yet")
     bundle = load_test_checkpoint(cfg, build_model(cfg, device))
     stats = perform_benchmark(bundle.module, cfg, device)
     print("json_stats: " + json.dumps(stats, sort_keys=True), flush=True)
