@@ -156,12 +156,28 @@ Phases, each printing one JSON line:
                   K1 9 a forward, teacher-forced blocks kernel path against
                   plain path; model_benchmark with TRACE_DIR, whose Chrome
                   trace must hold K1's kernels with device time
+     dist      -- the parallel paths (vtm_torch/parallel) at ViT-B width,
+                  bf16, B8, each against the same run in this process: NCCL
+                  at world size 1, train_net's DDP step on the EPIC config
+                  equal to the one-process step bit for bit (loss, every
+                  gradient, every parameter; cuDNN's deterministic
+                  algorithms on both sides); then two ranks sharing the card
+                  over gloo (NCCL refuses two ranks on one GPU): a
+                  data-parallel train step of merged VideoMAE, 4 clips a
+                  rank, against the one-process B8 step; tensor-parallel
+                  (2 ways) merged VideoMAE at r 150 and ViViT at r 300
+                  serving: logits, per-layer token counts, the same
+                  Matchings on both ranks, K1 9 (ViViT: 10, biased) a
+                  forward a rank at 6 heads; test_net.test on two data
+                  ranks, stats equal to one process's. One JSON line a
+                  check, with seconds; the ranks' launches count in the
+                  kernels line
      ab_dense  -- the A/B entry point (vtm_torch.tools.ab_dense --exp all,
                   one repeat of three calls a row): every row checked
                   against its plain version as it is printed, all twelve
                   launched
-Each serve, eval or train phase, and ab_dense, sets the kernels' launch counts to
-0 just before it and reads them just after. Then a ``{"kernels": [...]}`` line and, last,
+Each serve, eval, train or dist phase, and ab_dense, sets the kernels' launch counts to
+0 just before it and reads them just after (dist adds its spawned ranks'). Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and the script exits
 nonzero without the last line.
 """
@@ -170,11 +186,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import functools
 import hashlib
 import io
 import json
 import pathlib
+import pickle
 import shutil
 import subprocess
 import sys
@@ -210,6 +228,8 @@ from vtm_torch.ops.flash_attention import (
     tome_frame_attention_backward,
 )
 from vtm_torch.ops import ab_attention
+from vtm_torch.parallel import probes
+from vtm_torch.parallel.launch import launch_job
 from vtm_torch.tools import ab_dense
 from vtm_torch.tools.kernel_times import FWD_DIGEST_CASES, device_ms, forward_digests
 from vtm_torch.tools import test_net
@@ -980,6 +1000,24 @@ ORTHO_TIE_TOL = 1e-5
 TRACE_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
 K1_KERNEL_NAME = "attention_fwd_wgmma"  # K1's bf16 __global__ (flash_attention_fwd.cu)
 LAYER_SCALE = 0.1  # VideoMAE's init_values in the videomae_options phase
+
+# The dist phase: the parallel paths on the one card, ViT-B width and depth,
+# bf16, B8. NCCL refuses two ranks on one GPU, so the card runs NCCL at world
+# size 1 and two ranks that share it over gloo, whose collectives take CUDA
+# tensors; a run across distinct cards needs a 4-chip machine.
+DIST_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_dist"
+DIST_TIMEOUT = datetime.timedelta(seconds=300)  # a collective one rank never joins fails after it
+DIST_JOIN_TIMEOUT = 900.0
+DIST_EVAL_OPTS = ["TEST.DATASET", "synthetic", "TEST.NUM_ENSEMBLE_VIEWS", "1", "TEST.NUM_SPATIAL_CROPS", "3"]
+# the data-parallel step against the one-process B8 step: the global loss
+# within DIST_LOSS_REL of it; after one AdamW step an element moves by about
+# lr whatever its gradient, so one whose bf16 gradient is near zero may move
+# the other way: at most DIST_FLIP_SHARE of the elements may differ by more
+# than lr, none by more than 2 lr
+DIST_LOSS_REL = 5e-3
+DIST_FLIP_SHARE = 0.01
+DIST_HEADS = 6  # ViT-B's 12 heads cut 2 ways
+DIST_EPOCH = 5.0  # the EPIC config's warm-up starts at lr 0: its step at the end of the warm-up
 
 
 def emit(phase: str, **fields) -> None:
@@ -2654,6 +2692,266 @@ def phase_videomae_options(smi: str) -> int:
     return total["LAUNCHES"]
 
 
+def dist_batch(cfg, n: int = 8):
+    """The first n clips of the synthetic training set and their labels,
+    as numpy (the global batch every rank takes its rows of)."""
+    batch = next(iter(construct_loader(cfg, "train")))
+    labels = batch["label"]
+    labels = {k: np.asarray(v[:n]) for k, v in labels.items()} if isinstance(labels, dict) else np.asarray(labels[:n])
+    return np.asarray(batch["frames"][:n]), labels
+
+
+def check_matchings_agree(what: str, a: list, b: list) -> None:
+    check(len(a) == len(b), f"{what}: {len(a)} and {len(b)} Matchings")
+    for i, (x, y) in enumerate(zip(a, b)):
+        check((x is None) == (y is None), f"{what}: Matching {i} made in one run only")
+        if x is None:
+            continue
+        check((x["n"], x["r"]) == (y["n"], y["r"]), f"{what}: Matching {i} sizes")
+        for k in ("unm_idx", "src_idx", "dst_idx"):
+            check(np.array_equal(x[k], y[k]), f"{what}: Matching {i} {k} differs")
+
+
+def matching_agreement(a: list, b: list) -> list:
+    """Layer by layer, the share of merged (src, dst) pairs two runs'
+    Matchings share, row by row as sets (a Matching lists its pairs in
+    score order, which a rounding change reorders). A layer after the
+    first that differs sees other tokens, so the first layers say most."""
+    shares = []
+    for x, y in zip(a, b):
+        if x is None or y is None:
+            continue
+        same = sum(len(set(zip(xs, xd)) & set(zip(ys, yd)))
+                   for xs, xd, ys, yd in zip(x["src_idx"].tolist(), x["dst_idx"].tolist(),
+                                             y["src_idx"].tolist(), y["dst_idx"].tolist()))
+        shares.append(same / max(x["src_idx"].size, 1))
+    return shares
+
+
+def dist_serve_check(name: str, ones: dict, ranks: dict, counts: dict, k1_per_forward: dict, seconds: list,
+                     smi: str):
+    """Tensor-parallel serving on two ranks, merged and unmerged, against
+    the one-process forward of the same bf16 weights. Exact: the token
+    counts, the K1 launches a rank at 6 heads, both ranks' logits and
+    Matchings. The logits: no further from the one-process fp32 forward's
+    than twice the one-process bf16 forward is (or BF16_FLOOR of their
+    largest): the cut's partial sums round like any other bf16 product,
+    and a merged forward may flip a near tie that bf16 flips as well."""
+    rows = {}
+    for label in ("merged", "unmerged"):
+        got_ranks, one = ranks[label], ones[label]
+        for r, got in enumerate(got_ranks):
+            check(got["mesh"] == {"data": 1, "model": 2}, f"{name} {label}: mesh {got['mesh']}")
+            check(tuple(got["tokens"]) == tuple(counts[label]) == tuple(one["bf16"]["tokens"]),
+                  f"{name} {label} rank {r}: tokens {got['tokens']}")
+            check(got["launches"]["LAUNCHES"] == k1_per_forward[label], f"{name} {label} rank {r}: K1 {got['launches']}")
+            check(set(got["k1_heads"]) == {DIST_HEADS} and len(got["k1_heads"]) == k1_per_forward[label],
+                  f"{name} {label} rank {r}: K1 heads {got['k1_heads']}")
+            check(torch.equal(got["logits"], got_ranks[0]["logits"]), f"{name} {label}: rank {r}'s logits differ")
+            check_matchings_agree(f"{name} {label} rank {r} against rank 0", got["matchings"],
+                                  got_ranks[0]["matchings"])
+            check((len(got["matchings"]) > 0) == (label == "merged"), f"{name} {label}: Matchings made")
+        check(set(one["bf16"]["k1_heads"]) == {2 * DIST_HEADS}, f"{name} {label}: one-process K1 heads")
+        logits, bf16, fp32 = got_ranks[0]["logits"], one["bf16"]["logits"], one["fp32"]["logits"]
+        check(bool(torch.isfinite(logits).all()) and logits.shape == bf16.shape, f"{name} {label}: logits")
+        err = float((logits - fp32).abs().max())
+        bf16_err = float((bf16 - fp32).abs().max())
+        scale = float(fp32.abs().max())
+        tol = max(2 * bf16_err, BF16_FLOOR * scale)
+        check(err <= tol, f"{name} {label}: logits {err} from fp32, one process's bf16 {bf16_err}")
+        rows[label] = dict(logits_max_abs_err_vs_fp32=err, one_process_bf16_err_vs_fp32=bf16_err, tol=tol,
+                           logits_max_abs_err_vs_one_process_bf16=float((logits - bf16).abs().max()),
+                           logits_largest=scale, tokens=got_ranks[0]["tokens"],
+                           k1_launches_per_rank=got_ranks[0]["launches"]["LAUNCHES"],
+                           matching_agreement_with_one_process=matching_agreement(
+                               got_ranks[0]["matchings"], one["bf16"]["matchings"]))
+    emit(f"dist_{name}", seconds=seconds, ranks=2, backend="gloo", mesh={"data": 1, "model": 2}, batch=8,
+         k1_heads=DIST_HEADS, matchings_equal_across_ranks=True, **rows,
+         cut_shapes={k: list(v) for k, v in list(ranks["merged"][0]["cut_shapes"].items())[:3]},
+         dtype="bfloat16", nvidia_smi=smi)
+
+
+def one_process_serves(cfg_fn, video) -> dict:
+    """The one-process forwards a tensor-parallel serve is held against:
+    merged and unmerged, bf16 and fp32."""
+    cuda = torch.device("cuda")
+    out = {}
+    for label, opts in (("merged", ()), ("unmerged", ("TOME.ENABLE", "False"))):
+        out[label] = {dtype: probes.eval_probe(cfg_fn("TEST.BATCH_SIZE", "8", "TPU.COMPUTE_DTYPE", dtype, *opts),
+                                               cuda, None, video)
+                      for dtype in ("bfloat16", "float32")}
+        out[label]["bf16"], out[label]["fp32"] = out[label].pop("bfloat16"), out[label].pop("float32")
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist(smi: str) -> dict:
+    """The parallel paths (``vtm_torch/parallel``) at ViT-B width and depth,
+    bf16, B8, through the entry points' own code: ``train_net``'s trainer,
+    ``probes.eval_probe``'s cut model and ``test_net.test``, each against
+    the same run in this process. Returns the kernels' launches in the
+    phase, the ranks' included."""
+    shutil.rmtree(DIST_OUT, ignore_errors=True)
+    cuda = torch.device("cuda")
+    zero_launch_counts()  # this path's counts start here
+    ranks_launched = dict.fromkeys(COUNTERS, 0)
+
+    # 1. NCCL at world size 1: train_net's DDP step on the EPIC config (twin
+    # heads, layer decay, stochastic depth drawn from the step's generator)
+    # is the one-process step bit for bit: loss, every gradient the optimizer
+    # sees, every parameter after. cuDNN's deterministic algorithms on both
+    # sides, so that the bits compare DDP, not a convolution's atomics.
+    cfg = train_cfg(*TRAIN_RUN_OPTS)
+    frames, labels = dist_batch(cfg)
+    step = dict(want_state=False, generators=True, epoch=DIST_EPOCH)
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        again = [probes.train_probe(cfg, cuda, None, frames, labels, **step) for _ in range(2)]
+        one_seconds = time.perf_counter() - t0
+        check(again[0]["state"] == again[1]["state"] and again[0]["loss"] == again[1]["loss"],
+              "dist: the one-process step does not repeat itself")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        nccl = launch_job(cfg, dist_rank, ["cuda:0"], backend="nccl", timeout=DIST_TIMEOUT,
+                          join_timeout=DIST_JOIN_TIMEOUT, args=("nccl", [("train", cfg, (None, frames, labels), step)]))
+        nccl_seconds = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    got, one = nccl[0][0]["result"], again[0]
+    check(got["mesh"] == {"data": 1, "model": 1}, f"dist nccl: mesh {got['mesh']}")
+    check(got["loss"] == one["loss"] and got["aux"] == one["aux"],
+          f"dist nccl: loss {got['loss']} {got['aux']} != {one['loss']} {one['aux']}")
+    differ = [n for n in one["state"] if got["state"][n] != one["state"][n] or got["grads"][n] != one["grads"][n]]
+    check(not differ, f"dist nccl: {len(differ)} parameters or gradients differ, first {differ[:3]}")
+    for c in COUNTERS:
+        ranks_launched[c] += nccl[0][0]["launches"][c]
+    check(got["launches"]["LAUNCHES"] == got["launches"]["BWD_LAUNCHES"] == MERGED_K1_PER_FORWARD,
+          f"dist nccl: launches {got['launches']}")
+    emit("dist_nccl_world1", seconds=nccl_seconds, one_process_seconds=one_seconds, ranks=1, backend="nccl",
+         loss=got["loss"], aux=got["aux"], parameters_equal=len(one["state"]),
+         gradients_equal=len(one["grads"]), k1_launches=got["launches"]["LAUNCHES"],
+         k2_launches=got["launches"]["BWD_LAUNCHES"], cudnn_deterministic=True, nvidia_smi=smi)
+
+    # 2. two gloo ranks sharing the card: a data-parallel train step (4 clips
+    # a rank), tensor-parallel VideoMAE (r 150) and ViViT (r 300, the biased
+    # K1) serving, and test_net on two data ranks, in one launch
+    dp_cfg = train_cfg(*TRAIN_STEP_OPTS, "OUTPUT_DIR", str(DIST_OUT / "dp"))
+    dp_frames, dp_labels = dist_batch(dp_cfg)
+    tp = ("TPU.MODEL_PARALLEL", "2", "TEST.BATCH_SIZE", "8")
+    unmerged = ("TOME.ENABLE", "False")
+    video = np.random.default_rng(21).random((8, 16, 224, 224, 3), dtype=np.float32)
+    vivit_video = np.random.default_rng(22).random((8, 32, 224, 224, 3), dtype=np.float32)
+    eval_cfgs = {n: main_cfg(*DIST_EVAL_OPTS, "OUTPUT_DIR", str(DIST_OUT / n),
+                             "TEST.SAVE_RESULTS_PATH", str(DIST_OUT / n / "results.pkl"))
+                 for n in ("test_one", "test_two")}
+    for n in eval_cfgs:
+        (DIST_OUT / n).mkdir(parents=True)
+    plan = [
+        ("train", dp_cfg, (None, dp_frames, dp_labels), dict(want_state=False, checkpoint_dir=str(DIST_OUT / "dp"))),
+        ("eval", main_cfg(*tp), (None, video), {}),
+        ("eval", main_cfg(*tp, *unmerged), (None, video), {}),
+        ("eval", vivit_cfg(*tp), (None, vivit_video), {}),
+        ("eval", vivit_cfg(*tp, *unmerged), (None, vivit_video), {}),
+        ("test_net", eval_cfgs["test_two"], (), {}),
+    ]
+    t0 = time.perf_counter()
+    gloo = launch_job(dp_cfg, dist_rank, ["cuda:0", "cuda:0"], backend="gloo", timeout=DIST_TIMEOUT,
+                      join_timeout=DIST_JOIN_TIMEOUT, args=("gloo", plan))
+    gloo_seconds = time.perf_counter() - t0
+    for rank in gloo:
+        for part in rank:
+            for c in COUNTERS:
+                ranks_launched[c] += part["launches"][c]
+    seconds = lambda i: [rank[i]["seconds"] for rank in gloo]  # noqa: E731
+
+    # 2a. the data-parallel step against the one-process B8 step
+    dp = [rank[0]["result"] for rank in gloo]
+    one = probes.train_probe(dp_cfg, cuda, None, dp_frames, dp_labels)
+    for r, got in enumerate(dp):
+        check(got["mesh"] == {"data": 2, "model": 1} and got["loss"] == dp[0]["loss"], f"dist dp rank {r}")
+        check(got["launches"]["LAUNCHES"] == got["launches"]["BWD_LAUNCHES"] == MERGED_K1_PER_FORWARD,
+              f"dist dp rank {r}: launches {got['launches']}")
+    loss_err = abs(dp[0]["loss"] - one["loss"])
+    check(loss_err <= DIST_LOSS_REL * abs(one["loss"]), f"dist dp: loss {dp[0]['loss']} {one['loss']}")
+    saved = torch.load(dp[0]["checkpoint"], map_location="cpu", weights_only=True)
+    check(not any(k.startswith("module.") for k in saved["model_state"]), "dist dp: a DDP prefix in the file")
+    lr = dp_cfg.SOLVER.BASE_LR  # constant, no layer decay
+    worst, flipped, total = 0.0, 0, 0
+    for name, want in one["state"].items():
+        diff = np.abs(saved["model_state"][name].float().numpy() - want)
+        worst = max(worst, float(diff.max()))
+        flipped += int((diff > lr).sum())
+        total += diff.size
+    check(worst <= 2 * lr * (1 + 1e-3) + 1e-6, f"dist dp: a parameter {worst} from the one-process step's")
+    check(flipped <= DIST_FLIP_SHARE * total, f"dist dp: {flipped} of {total} elements moved the other way")
+    del saved, one
+    emit("dist_dp_train", seconds=seconds(0), ranks=2, backend="gloo", clips_a_rank=4, loss=dp[0]["loss"],
+         loss_abs_err=loss_err, parameter_max_abs_err=worst, lr=lr, flipped_elements=flipped,
+         elements=total, k1_launches_per_rank=dp[0]["launches"]["LAUNCHES"],
+         k2_launches_per_rank=dp[0]["launches"]["BWD_LAUNCHES"], checkpoint="whole, no module. prefix",
+         nvidia_smi=smi)
+    torch.cuda.empty_cache()
+
+    # 2b, 2c. tensor-parallel serving against one process
+    dist_serve_check("tp_videomae", one_process_serves(main_cfg, video),
+                     {"merged": [rank[1]["result"] for rank in gloo], "unmerged": [rank[2]["result"] for rank in gloo]},
+                     {"merged": MERGED_COUNTS, "unmerged": (1568,) * 13},
+                     {"merged": MERGED_K1_PER_FORWARD, "unmerged": 12}, seconds(1) + seconds(2), smi)
+    dist_serve_check("tp_vivit", one_process_serves(vivit_cfg, vivit_video),
+                     {"merged": [rank[3]["result"] for rank in gloo], "unmerged": [rank[4]["result"] for rank in gloo]},
+                     {"merged": VIVIT_COUNTS, "unmerged": (3137,) * 13}, VIVIT_K1_PER_FORWARD,
+                     seconds(3) + seconds(4), smi)
+
+    # 2d. test_net on two data ranks against one process
+    t0 = time.perf_counter()
+    before = launch_counts()
+    one_stats = test_net.test(eval_cfgs["test_one"])
+    one_k1 = flash_attention.LAUNCHES - before["LAUNCHES"]
+    one_seconds = time.perf_counter() - t0
+    two_stats = [rank[5]["result"] for rank in gloo]
+    check(two_stats[0] == two_stats[1] == one_stats, f"dist test_net: stats {two_stats} != {one_stats}")
+    preds = {}
+    for n in eval_cfgs:
+        with open(DIST_OUT / n / "results.pkl", "rb") as f:
+            preds[n] = pickle.load(f)  # written by this script's own runs
+    check(np.array_equal(preds["test_one"]["labels"], preds["test_two"]["labels"]), "dist test_net: labels")
+    preds_err = float(np.abs(preds["test_one"]["preds"] - preds["test_two"]["preds"]).max())
+    check(preds_err <= EVAL_SUM_TOL, f"dist test_net: per-video predictions {preds_err} apart")
+    clips = 3 * EVAL_VIDEOS
+    batches = -(-clips // eval_cfgs["test_one"].TEST.BATCH_SIZE)
+    check(one_k1 == MERGED_K1_PER_FORWARD * batches, f"dist test_net: {one_k1} K1 launches in one process")
+    emit("dist_test_net", seconds=seconds(5), one_process_seconds=one_seconds, ranks=2, backend="gloo",
+         stats=one_stats[0][1], clips=clips, batches=batches, rows_a_rank=eval_cfgs["test_one"].TEST.BATCH_SIZE // 2,
+         preds_max_abs_err=preds_err, nvidia_smi=smi)
+
+    total = launch_counts()  # read right after the path ran
+    for c in COUNTERS:
+        total[c] += ranks_launched[c]
+    check(total["LAUNCHES"] > 0 and total["BWD_LAUNCHES"] > 0, "dist: K1 and K2 launched")
+    check(all(n == 0 for c, n in total.items() if c not in ("LAUNCHES", "BWD_LAUNCHES")),
+          f"dist: another path's kernels: {total}")
+    shutil.rmtree(DIST_OUT, ignore_errors=True)
+    emit("dist", seconds_gloo_launch=gloo_seconds, launches=total, ranks_launches=ranks_launched, nvidia_smi=smi)
+    return total
+
+
+def dist_rank(cfg, device, backend: str, plan) -> list:
+    """What each spawned rank of the dist phase runs: the same full-fp32
+    product and convolution settings as this script, then the plan's
+    probes, each with the kernels' launches it made in this rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = backend == "nccl"
+    out = []
+    for step in plan:
+        before = probes.launch_counts()
+        part = probes.run_probes(cfg, device, [step])[0]
+        part["launches"] = {c: n - before[c] for c, n in probes.launch_counts().items()}
+        out.append(part)
+    return out
+
+
 def fixed_batch(cfg):
     """The first training batch of the synthetic dataset, on the card."""
     batch = next(iter(construct_loader(cfg, "train")))
@@ -3018,6 +3316,9 @@ def main() -> int:
     frame_bwd_launches = phase_train(smi, **MOTIONFORMER_TRAIN)
     blockdiag_bwd_launches = phase_train(smi, **TIMESFORMER_TRAIN)
     bwd_launches += phase_train(smi, **VIVIT_TRAIN)
+    dist = phase_dist(smi)
+    launches += dist["LAUNCHES"]
+    bwd_launches += dist["BWD_LAUNCHES"]
     ab_launches = phase_ab_dense()
     launches += ab_launches["K1"]  # the prod rows
     emit("done", seconds=time.perf_counter() - t0)

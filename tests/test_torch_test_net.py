@@ -392,7 +392,7 @@ def test_apply_traces_the_source_for_one_call(tmp_path):
 
 @pytest.mark.parametrize("opts, item", [
     (("DETECTION.ENABLE", "True"), "item 12"),
-    (("TPU.MODEL_PARALLEL", "2"), "item 10"),
+    (("TPU.MODEL_PARALLEL", "2", "MODEL.MODEL_NAME", "Motionformer"), "item 15"),
     (("LOG_MODEL_INFO", "True"), "item 4"),
     (("TENSORBOARD.ENABLE", "True"), "item 12"),
     (("WANDB.ENABLE", "True"), "item 9b"),

@@ -118,32 +118,36 @@ def _mini_dir(path: str) -> str:
 
 def cache_model_probs(cfg, device: Optional[torch.device | str] = None):
     """Forward the test split through the model, cache softmax probs
-    (reference dataset_utils.py:255-286). EPIC saves (verb, noun)."""
+    (reference dataset_utils.py:255-286). EPIC saves (verb, noun). Under a
+    process group it is a data-parallel eval, as in ``vtm``: each rank
+    forwards its rows of each batch, the probabilities are gathered in row
+    order and rank 0 writes the file."""
     from vtm_torch.checkpoints.checkpoint import load_test_checkpoint
     from vtm_torch.data import construct_loader
     from vtm_torch.models import build_model
+    from vtm_torch.parallel.mesh import entry_device, gather_rows, make_mesh
     from vtm_torch.tools.train_net import _host
     from vtm_torch.train.train_step import make_eval_step
 
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("cache_model_probs needs a CUDA device and found none")
-        device = "cuda"
-    device = torch.device(device)
+    device = entry_device(device, "cache_model_probs", cfg.TEST.BATCH_SIZE)
+    mesh = make_mesh(device_type=device.type)  # every batch padded to the data width
     bundle = load_test_checkpoint(cfg, build_model(cfg, device))
     eval_step = make_eval_step(bundle.module)
-    loader = construct_loader(cfg, "test")
+    loader = construct_loader(cfg, "test", mesh.data_rank, mesh.data)
 
     is_epic = cfg.TEST.DATASET == "epickitchens"
     verb_list, noun_list, prob_list = [], [], []
     for batch in loader:
-        logits = _host(eval_step(torch.as_tensor(np.asarray(batch["frames"]), device=device)))
+        logits = eval_step(torch.as_tensor(np.asarray(batch["frames"]), device=device))
+        logits = gather_rows(mesh, logits, batch)[0] if mesh.data > 1 else _host(logits)
         if is_epic:
             verb_list.append(softmax(logits[0]))
             noun_list.append(softmax(logits[1]))
         else:
             prob_list.append(softmax(logits))
 
+    if mesh.rank != 0:
+        return
     os.makedirs(cfg.DATASET_UTILS.DISTRIBUTION_PATH, exist_ok=True)
     if is_epic:
         np.savez(

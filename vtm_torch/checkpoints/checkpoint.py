@@ -15,6 +15,15 @@ what ``TRAIN.AUTO_RESUME`` resumes from.
 the eval and benchmark entry points their weights: ``TEST.CHECKPOINT_FILE_PATH``,
 or, when that is empty, the last checkpoint of ``OUTPUT_DIR``, then
 ``TRAIN.CHECKPOINT_FILE_PATH``, else the seeded init.
+
+Under a process group every rank calls these functions. A file holds the
+whole model whatever the mesh: ``save_checkpoint`` takes the unwrapped
+module (no DDP ``module.`` prefix), gathers the tensor-parallel cuts of the
+parameters and of the optimizer's state (``parallel/sharding.py``), and
+global rank 0 writes; the loaders read the file on every rank and each
+cut parameter takes its rank's piece. So a file written under DDP or
+tensor parallelism loads into a one-process run, and one process's file
+into any mesh.
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from vtm_torch.checkpoints.convert import (
     load_motionformer_state_dict,
@@ -33,6 +44,12 @@ from vtm_torch.checkpoints.convert import (
     load_torch_state_dict,
     load_videomae_state_dict,
     load_vivit_state_dict,
+)
+from vtm_torch.parallel.sharding import (
+    full_optimizer_state,
+    full_state_dict,
+    load_full_state_dict,
+    load_optimizer_state,
 )
 from vtm_torch.utils.logging import get_logger
 
@@ -56,20 +73,28 @@ def save_checkpoint(
     epoch: int,
     cfg=None,
 ) -> str:
-    """Model + optimizer + epoch (+ the config as JSON)."""
+    """Model + optimizer + epoch (+ the config as JSON): the whole model,
+    written by global rank 0 (every rank calls; see the module's docstring)."""
     path = os.path.abspath(_epoch_path(output_dir, epoch))
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = {"model_state": module.state_dict(), "epoch": int(epoch)}
+    payload = {"model_state": full_state_dict(_unwrap(module)), "epoch": int(epoch)}
     if optimizer is not None:
-        payload["optimizer_state"] = optimizer.state_dict()
+        payload["optimizer_state"] = full_optimizer_state(optimizer)
     if cfg is not None:
         payload["cfg"] = json.dumps(cfg.to_dict(), sort_keys=True)
-    # write beside the target and rename: a reader never sees half a file
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    logger.info("Saved checkpoint %s", path)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        # write beside the target and rename: a reader never sees half a file
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        logger.info("Saved checkpoint %s", path)
+    if dist.is_initialized():
+        dist.barrier()  # no rank reads the directory before the file is in it
     return path
+
+
+def _unwrap(module: nn.Module) -> nn.Module:
+    return module.module if isinstance(module, DistributedDataParallel) else module
 
 
 def get_last_checkpoint(output_dir: str) -> Optional[str]:
@@ -89,11 +114,11 @@ def load_checkpoint(
     and saved) in place. Returns (epoch, whether the optimizer state was
     restored)."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    module.load_state_dict(blob["model_state"])
+    load_full_state_dict(_unwrap(module), blob["model_state"])
     restored_opt = False
     if optimizer is not None:
         if "optimizer_state" in blob:
-            optimizer.load_state_dict(blob["optimizer_state"])
+            load_optimizer_state(optimizer, blob["optimizer_state"])
             restored_opt = True
         else:
             # a silent optimizer reset is a training regression: say why
@@ -199,10 +224,10 @@ def load_test_checkpoint(cfg, bundle):
             )
     sd = clear_name_pattern_keys(load_torch_state_dict(path), tuple(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN))
     converted = CHECKPOINT_LOADERS[bundle.name](sd, bundle.module.config)
-    merged, loaded, kept = merge_into_template(bundle.module.state_dict(), converted)
+    merged, loaded, kept = merge_into_template(full_state_dict(bundle.module), converted)
     if not loaded:  # the JAX package's converters raise on a file without the backbone's keys
         raise KeyError(f"no tensor of {path!r} matches {bundle.name}'s; "
                        f"TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN may have to strip a prefix")
-    bundle.module.load_state_dict(merged)
+    load_full_state_dict(bundle.module, merged)
     logger.info("Loaded torch checkpoint %s (%d tensors, %d kept init)", path, loaded, kept)
     return bundle

@@ -4,6 +4,15 @@ A thread-pool prefetch pipeline feeding collated numpy batches; the
 entry points move them to the device. Registered: ``kinetics``, ``ssv2``,
 ``epickitchens`` and ``synthetic``; the multigrid short cycle is not
 ported.
+
+Data parallelism: ``BatchLoader(rank=, world=)`` forms ``vtm``'s global
+batches (the same order, the same shuffle) and yields only data rank
+``rank``'s contiguous block of each, decoding nothing else. A global
+batch whose size ``world`` does not divide (an eval set's last) is first
+padded with copies of its first item, as ``vtm``'s ``pad_to_multiple``
+pads a batch; each yielded batch then says in ``"valid"`` how many of its
+rows are real. The union of the ranks' valid rows, in rank order, is
+``vtm``'s batch.
 """
 
 from __future__ import annotations
@@ -47,7 +56,12 @@ class BatchLoader:
         num_workers: int = 4,
         seed: int = 0,
         short_cycle_batch_sizes=None,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if not 0 <= rank < world:
+            raise ValueError(f"data rank {rank} of {world}")
+        self.rank, self.world = rank, world
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -106,6 +120,9 @@ class BatchLoader:
             ]
             if self.drop_last and batches and len(batches[-1]) < self.batch_size:
                 batches = batches[:-1]
+        valid = None
+        if self.world > 1:
+            batches, valid = zip(*(self._rank_rows(b) for b in batches)) if batches else ((), ())
         # Item-level futures with a 2-batch-deep prefetch window. All
         # submissions happen from this (consumer) thread — worker threads
         # never submit to their own pool, so the pipeline cannot deadlock.
@@ -118,11 +135,23 @@ class BatchLoader:
             while bi < len(batches) or pending:
                 while bi < len(batches) and len(pending) < prefetch_batches:
                     pending.append(
-                        [pool.submit(self.dataset.__getitem__, i) for i in batches[bi]]
+                        (bi, [pool.submit(self.dataset.__getitem__, i) for i in batches[bi]])
                     )
                     bi += 1
-                futs = pending.popleft()
-                yield _collate([f.result() for f in futs])
+                index, futs = pending.popleft()
+                batch = _collate([f.result() for f in futs])
+                if valid is not None:
+                    batch["valid"] = valid[index]
+                yield batch
+
+    def _rank_rows(self, batch: list):
+        """(this rank's block of the padded global batch, how many of its
+        rows are real)."""
+        n = len(batch)
+        padded = batch + [batch[0]] * ((-n) % self.world)
+        per = len(padded) // self.world
+        lo = self.rank * per
+        return padded[lo:lo + per], max(0, min(per, n - lo))
 
 
 def _collate(items: List[dict]) -> dict:
@@ -159,9 +188,10 @@ def _detection_collate(items: List[dict]) -> dict:
     return out
 
 
-def construct_loader(cfg, split: str) -> BatchLoader:
+def construct_loader(cfg, split: str, rank: int = 0, world: int = 1) -> BatchLoader:
     """Reference loader.construct_loader (loader.py:87-176): split ->
-    dataset name, batch size, shuffle/drop_last policy."""
+    dataset name, batch size, shuffle/drop_last policy. ``rank`` and
+    ``world``: the data rank and width whose rows the loader yields."""
     assert split in ("train", "val", "test")
     if split == "train":
         dataset_name = cfg.TRAIN.DATASET
@@ -187,6 +217,8 @@ def construct_loader(cfg, split: str) -> BatchLoader:
         num_workers=cfg.DATA_LOADER.NUM_WORKERS,
         seed=cfg.RNG_SEED,
         short_cycle_batch_sizes=short_cycle,
+        rank=rank,
+        world=world,
     )
 
 

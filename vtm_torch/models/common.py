@@ -20,10 +20,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from vtm_torch.ops.flash_attention import _reference, tome_flash_attention
+from vtm_torch.parallel.sharding import copy_to_model, gather_heads, reduce_from_model
 
 
 def sinusoid_encoding_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -37,17 +39,28 @@ def sinusoid_encoding_table(n_position: int, d_hid: int) -> np.ndarray:
     return table[None]
 
 
-def aggregate_metric(k: torch.Tensor, head_aggregation: str) -> torch.Tensor:
+def aggregate_metric(k: torch.Tensor, head_aggregation: str, group=None) -> torch.Tensor:
     """Aggregate per-head keys [B, H, N, hd] into a matching metric.
 
     'mean'   -> [B, N, hd]
     'concat' -> [B, N, H*hd]
+
+    Under tensor parallelism (``group``, the model group) k holds this
+    rank's heads, and the metric comes from every rank's, so that each rank
+    of the group makes the same Matching: 'mean' all-reduces the fp32 sum
+    of the local heads and divides by the total head count (rounded once to
+    k's dtype, as ``k.mean`` rounds); 'concat' gathers the heads in rank
+    order. The metric only picks indices, so it carries no gradient there.
     """
-    if head_aggregation == "mean":
-        return k.mean(dim=1)
+    if head_aggregation not in ("mean", "concat"):
+        raise ValueError(f"unknown head_aggregation {head_aggregation!r}")
+    if group is None:
+        return k.mean(dim=1) if head_aggregation == "mean" else merge_heads(k)
     if head_aggregation == "concat":
-        return merge_heads(k)
-    raise ValueError(f"unknown head_aggregation {head_aggregation!r}")
+        return gather_heads(merge_heads(k), group)
+    total = k.detach().float().sum(dim=1)
+    dist.all_reduce(total, group=group)
+    return (total / (k.shape[1] * dist.get_world_size(group))).to(k.dtype)
 
 
 def proportional_attn_bias(size: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -85,11 +98,19 @@ def drop_path(
 
 class Linear(nn.Linear):
     """nn.Linear that computes in its input's dtype: weight and bias are
-    cast at use (a no-op when they already have that dtype)."""
+    cast at use (a no-op when they already have that dtype). Cut row-wise
+    for tensor parallelism (``model_group`` set by
+    ``parallel/sharding.py::shard_module``), it all-reduces its product
+    over the model group (``g``) and adds the bias after."""
+
+    model_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        if self.model_group is None:
+            return F.linear(x, self.weight.to(x.dtype), bias)
+        y = reduce_from_model(F.linear(x, self.weight.to(x.dtype)), self.model_group)
+        return y if bias is None else y + bias
 
 
 class TubeletEmbed(nn.Module):
@@ -136,7 +157,11 @@ class PatchEmbed2d(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Transformer MLP: fc1 -> exact GELU -> fc2 (+ dropout when training)."""
+    """Transformer MLP: fc1 -> exact GELU -> fc2 (+ dropout when training).
+    Under the tensor-parallel cuts (fc1 by columns, fc2 by rows) its input
+    passes ``f`` over ``model_group``."""
+
+    model_group = None
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  drop: float = 0.0):
@@ -146,6 +171,7 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden_features, out_features)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = copy_to_model(x, self.model_group)
         return dropout(self.fc2(F.gelu(self.fc1(x))), self.drop, self.training, generator)
 
 

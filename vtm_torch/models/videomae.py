@@ -62,6 +62,7 @@ from vtm_torch.models.common import (
     sinusoid_encoding_table,
     split_heads,
 )
+from vtm_torch.parallel.sharding import copy_to_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +107,15 @@ VARIANTS = {
 class VideoMAEAttention(nn.Module):
     """Fused-qkv attention with split q/v bias and zero k bias, returning
     (out, metric). ``use_kernel=False`` sends every row to the plain
-    product, so the kernel can be checked against it inside a model."""
+    product, so the kernel can be checked against it inside a model.
+
+    Under tensor parallelism (``parallel/sharding.py``) it holds its local
+    heads: ``qkv`` cut by heads in each of q, k and v, ``q_bias`` and
+    ``v_bias`` cut with them, ``num_heads`` H / tp (the scale stays the head
+    dim's), ``proj`` cut by rows; its input passes ``f`` and the metric is
+    aggregated over ``model_group``."""
+
+    model_group = None
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -119,6 +128,7 @@ class VideoMAEAttention(nn.Module):
         self.proj = Linear(dim, dim)
 
     def forward(self, x, size=None, head_aggregation: str = "mean"):
+        x = copy_to_model(x, self.model_group)
         # the bias is added after the bias-free product, in the compute dtype
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
         qkv = self.qkv(x) + bias.to(x.dtype)
@@ -126,7 +136,7 @@ class VideoMAEAttention(nn.Module):
         out = attention_core(
             q, k, v, self.scale, proportional_attn_bias(size), use_kernel=self.use_kernel
         )
-        return self.proj(merge_heads(out)), aggregate_metric(k, head_aggregation)
+        return self.proj(merge_heads(out)), aggregate_metric(k, head_aggregation, self.model_group)
 
 
 class VideoMAEBlock(nn.Module):
@@ -172,6 +182,8 @@ class VideoMAE(nn.Module):
     """Full model. Input: [B, T, H, W, C] channels-last video; returns
     (logits, MergeState): logits [B, num_classes] fp32, or a (verb, noun)
     pair of them for the twin heads."""
+
+    supports_tensor_parallel = True  # parallel/sharding.py cuts it
 
     def __init__(
         self,

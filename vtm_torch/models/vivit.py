@@ -46,6 +46,7 @@ from vtm_torch.models.common import (
     proportional_attn_bias,
     split_heads,
 )
+from vtm_torch.parallel.sharding import copy_to_model
 
 EXACT_GELU = ("gelu",)
 TANH_GELU = ("gelu_fast", "gelu_new", "gelu_pytorch_tanh")
@@ -104,7 +105,12 @@ class ViViTConfig:
 class ViViTSelfAttention(nn.Module):
     """Separate q/k/v attention returning (context, metric).
     ``use_kernel=False`` sends every row to the plain product, so the
-    kernel can be checked against it inside a model."""
+    kernel can be checked against it inside a model. Under tensor
+    parallelism (``parallel/sharding.py``) q, k and v are cut by heads
+    (``num_heads`` H / tp), its input passes ``f``, the context holds the
+    local heads and the metric is aggregated over ``model_group``."""
+
+    model_group = None
 
     def __init__(self, config: ViViTConfig):
         super().__init__()
@@ -117,16 +123,21 @@ class ViViTSelfAttention(nn.Module):
         self.value = Linear(c.hidden_size, c.hidden_size, bias=c.qkv_bias)
 
     def forward(self, x, size=None, head_aggregation: str = "mean"):
+        x = copy_to_model(x, self.model_group)
         q, k, v = (split_heads(proj(x), self.num_heads) for proj in (self.query, self.key, self.value))
         ctx = attention_core(
             q, k, v, self.scale, proportional_attn_bias(size), use_kernel=self.use_kernel
         )
-        return merge_heads(ctx), aggregate_metric(k, head_aggregation)
+        return merge_heads(ctx), aggregate_metric(k, head_aggregation, self.model_group)
 
 
 class ViViTLayer(nn.Module):
     """Pre-LN encoder layer with token reduction after the attention
-    residual."""
+    residual. Under tensor parallelism ``attention_output`` and ``output``
+    are cut by rows, ``intermediate`` by columns, whose input passes ``f``
+    over ``model_group``."""
+
+    model_group = None
 
     def __init__(self, config: ViViTConfig, policy: MergePolicy):
         super().__init__()
@@ -153,7 +164,8 @@ class ViViTLayer(nn.Module):
             return reduce_tokens(self.policy, layer, metric, x, state)
         x = x + self.attention_output(ctx)
         x, state = reduce_tokens(self.policy, layer, metric, x, state)
-        y = F.gelu(self.intermediate(self.layernorm_after(x)), approximate=self.gelu)
+        y = copy_to_model(self.layernorm_after(x), self.model_group)
+        y = F.gelu(self.intermediate(y), approximate=self.gelu)
         return x + self.output(y), state
 
 
@@ -161,6 +173,8 @@ class ViViT(nn.Module):
     """Full ViViT classifier. Input: [B, T, H, W, C] channels-last video;
     returns (logits, MergeState): logits [B, num_classes] fp32, or a
     (verb, noun) pair of them for the twin classifiers."""
+
+    supports_tensor_parallel = True  # parallel/sharding.py cuts it
 
     def __init__(
         self,

@@ -21,6 +21,16 @@ directory; the statistics then carry ``trace_dir`` and ``trace_file``. The
 launch counts do not include that forward. Unlike ``vtm``, which logs a
 failed trace and goes on, a failed trace raises here.
 
+Parallelism: ``main`` runs one process per CUDA device the test batch can
+use (``parallel.launch.run``), over the ('data', 'model') mesh of
+``TPU.MODEL_PARALLEL``, the placement ``test_net`` uses: each data rank
+times its rows of the batch (VideoMAE and ViViT cut for tensor
+parallelism), and clips/s is the whole batch over the slowest rank's
+CUDA-event time. The statistics then also carry ``ranks``,
+``data_parallel`` and ``model_parallel``; launches are this process's
+per forward, rank 0 prints the line, and a trace is written by each rank
+(rank r > 0 suffixes its file with ``_rank{r}``).
+
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``device="cpu"``, plain versions of the kernels) is for tests only.
 """
@@ -37,6 +47,9 @@ from vtm_torch.checkpoints.checkpoint import load_test_checkpoint
 from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
 from vtm_torch.models import build_model
 from vtm_torch.ops import flash_attention
+from vtm_torch.parallel import launch
+from vtm_torch.parallel.mesh import Mesh, all_max, entry_device, make_mesh, replicate, shard_batch
+from vtm_torch.parallel.sharding import check_tensor_parallel, shard_module
 from vtm_torch.utils.benchmark import device_seconds
 from vtm_torch.utils.logging import get_logger
 
@@ -49,19 +62,20 @@ def _per_forward(x: float):
     return int(x) if x.is_integer() else x
 
 
-def perform_benchmark(module: torch.nn.Module, cfg, device: torch.device) -> dict:
+def perform_benchmark(module: torch.nn.Module, cfg, device: torch.device, mesh: Mesh = Mesh()) -> dict:
     batch = cfg.TEST.BATCH_SIZE
     t = cfg.DATA.NUM_FRAMES
     s = cfg.DATA.TEST_CROP_SIZE
     rng = np.random.default_rng(cfg.RNG_SEED)
-    video = torch.from_numpy(rng.random((batch, t, s, s, 3), dtype=np.float32)).to(device)
+    video = shard_batch(mesh, rng.random((batch, t, s, s, 3), dtype=np.float32))
+    video = torch.from_numpy(video).to(device)
     iters = max(1, cfg.MODEL_BENCHMARK.ITERATIONS)
     warmup = max(1, cfg.MODEL_BENCHMARK.WARMUP_ITERATIONS)
 
     counters = ("LAUNCHES", "FRAME_LAUNCHES", "BLOCKDIAG_LAUNCHES")
     before = [getattr(flash_attention, c) for c in counters]
     with torch.inference_mode():
-        elapsed = device_seconds(lambda: module(video), iters, warmup, device)
+        elapsed = all_max(device_seconds(lambda: module(video), iters, warmup, device), device)
     forwards = warmup + iters
     launches, frame_launches, blockdiag_launches = (
         (getattr(flash_attention, c) - n) / forwards for c, n in zip(counters, before)
@@ -80,15 +94,18 @@ def perform_benchmark(module: torch.nn.Module, cfg, device: torch.device) -> dic
         "blockdiag_attention_kernel_launches": _per_forward(blockdiag_launches),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
+    if mesh.world > 1:
+        stats.update(ranks=mesh.world, data_parallel=mesh.data, model_parallel=mesh.model)
     if cfg.MODEL_BENCHMARK.TRACE_DIR:
         stats["trace_dir"] = cfg.MODEL_BENCHMARK.TRACE_DIR
-        stats["trace_file"] = trace_forward(module, video, cfg.MODEL_BENCHMARK.TRACE_DIR)
+        name = TRACE_FILE if mesh.rank == 0 else TRACE_FILE.replace(".json", f"_rank{mesh.rank}.json")
+        stats["trace_file"] = trace_forward(module, video, cfg.MODEL_BENCHMARK.TRACE_DIR, name)
     return stats
 
 
-def trace_forward(module: torch.nn.Module, video: torch.Tensor, trace_dir: str) -> str:
-    """One forward under ``torch.profiler``, written as a Chrome trace into
-    ``trace_dir`` (made if missing); returns the file's path."""
+def trace_forward(module: torch.nn.Module, video: torch.Tensor, trace_dir: str, name: str = TRACE_FILE) -> str:
+    """One forward under ``torch.profiler``, written as a Chrome trace
+    ``name`` into ``trace_dir`` (made if missing); returns the file's path."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if video.is_cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -97,21 +114,22 @@ def trace_forward(module: torch.nn.Module, video: torch.Tensor, trace_dir: str) 
         if video.is_cuda:
             torch.cuda.synchronize(video.device)
     os.makedirs(trace_dir, exist_ok=True)
-    path = os.path.join(trace_dir, TRACE_FILE)
+    path = os.path.join(trace_dir, name)
     prof.export_chrome_trace(path)
     logger.info("profiler trace written to %s", path)
     return path
 
 
 def model_benchmark(cfg, device: torch.device | str | None = None) -> dict:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("model_benchmark needs a CUDA device and found none")
-        device = "cuda"
-    device = torch.device(device)
+    device = entry_device(device, "model_benchmark", cfg.TEST.BATCH_SIZE, cfg.TPU.MODEL_PARALLEL)
+    check_tensor_parallel(cfg)
+    mesh = make_mesh(cfg.TPU.MODEL_PARALLEL, batch_cap=cfg.TEST.BATCH_SIZE, device_type=device.type)
     bundle = load_test_checkpoint(cfg, build_model(cfg, device))
-    stats = perform_benchmark(bundle.module, cfg, device)
-    print("json_stats: " + json.dumps(stats, sort_keys=True), flush=True)
+    if mesh.model > 1:
+        shard_module(replicate(mesh, bundle.module), mesh)
+    stats = perform_benchmark(bundle.module, cfg, device, mesh)
+    if mesh.rank == 0:
+        print("json_stats: " + json.dumps(stats, sort_keys=True), flush=True)
     return stats
 
 
@@ -120,7 +138,7 @@ def main():
     for path in args.cfg_files or [None]:
         cfg = load_config(args, path)
         assert_and_infer_cfg(cfg)
-        model_benchmark(cfg)
+        launch.run(cfg, model_benchmark, cfg.TEST.BATCH_SIZE)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,10 @@ Trains when ``TRAIN.ENABLE`` (``train_net.train``), then tests when
 empty the test takes the last checkpoint the training wrote to
 ``OUTPUT_DIR``.
 
+``main`` launches each step over the devices its batch can use
+(``parallel.launch.run``: ``TRAIN.BATCH_SIZE`` for the training,
+``TEST.BATCH_SIZE`` for the test), one process per device.
+
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``device="cpu"``, plain versions of the kernels) is for tests only.
 """
@@ -18,8 +22,9 @@ from typing import Optional
 import torch
 
 from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
+from vtm_torch.parallel import launch
 from vtm_torch.tools.test_net import test
-from vtm_torch.tools.train_net import train
+from vtm_torch.tools.train_net import _train, train
 
 
 def run_net(cfg, device: Optional[torch.device | str] = None):
@@ -37,7 +42,10 @@ def main():
     for path in args.cfg_files or [None]:
         cfg = load_config(args, path)
         assert_and_infer_cfg(cfg)
-        run_net(cfg)
+        if cfg.TRAIN.ENABLE:
+            launch.run(cfg, _train, cfg.TRAIN.BATCH_SIZE)
+        if cfg.TEST.ENABLE:
+            launch.run(cfg, test, cfg.TEST.BATCH_SIZE)
 
 
 if __name__ == "__main__":

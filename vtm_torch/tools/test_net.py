@@ -17,10 +17,18 @@ each batch's forward draws from its own generator, seeded from
 ``TEST.SAVE_RESULTS_PATH`` also pickles each sweep entry's per-video
 predictions and labels, suffixed ``_views{n}`` when there are several.
 
-One device: no mesh, and a short last batch runs as it is. The logits come
-to the host as fp32 numpy after every batch, for the meter. Detection
-(AVA), tensor parallelism, model info, tensorboard and wandb are not
-ported yet and raise.
+One process: a short last batch runs as it is. Under a process group
+(``main`` runs one process per CUDA device the test batch can use), the
+('data', 'model') mesh of ``TPU.MODEL_PARALLEL``: each data rank evaluates
+its rows of each global batch, padded to a multiple of the data width as
+``vtm`` pads it; the logits of every rank are gathered in global row
+order, the padding dropped, and every rank ensembles the whole batch in
+its meter (rank 0 logs and writes the pickles). ``TPU.MODEL_PARALLEL`` > 1
+cuts VideoMAE and ViViT (``parallel/sharding.py``; other families raise,
+ROADMAP.md Queue 1, item 15). Per-batch generators are then seeded from
+(seed, batch, data rank). The logits come to the host as fp32 numpy after
+every batch, for the meter. Detection (AVA), model info, tensorboard and
+wandb are not ported yet and raise.
 
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``device="cpu"``, plain versions of the kernels) is for tests only.
@@ -39,6 +47,9 @@ from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
 from vtm_torch.data import construct_loader
 from vtm_torch.eval.meters import EPICTestMeter, TestMeter
 from vtm_torch.models import build_model
+from vtm_torch.parallel import launch
+from vtm_torch.parallel.mesh import Mesh, entry_device, gather_rows, make_mesh, replicate
+from vtm_torch.parallel.sharding import check_tensor_parallel, shard_module
 from vtm_torch.tools.train_net import _host, _step_generator
 from vtm_torch.train.train_step import make_eval_step
 from vtm_torch.utils.logging import get_logger, setup_logging
@@ -52,13 +63,13 @@ def _unsupported(cfg) -> None:
     """Raise for what the JAX package's test entry point does and this one does not yet."""
     for on, what in (
         (cfg.DETECTION.ENABLE, "DETECTION.ENABLE: AVA detection testing (ROADMAP.md Queue 1, item 12)"),
-        (cfg.TPU.MODEL_PARALLEL > 1, "TPU.MODEL_PARALLEL > 1: tensor parallelism (ROADMAP.md Queue 1, item 10)"),
         (cfg.LOG_MODEL_INFO, "LOG_MODEL_INFO: parameter and FLOP counts (ROADMAP.md Queue 1, item 4)"),
         (cfg.TENSORBOARD.ENABLE, "TENSORBOARD.ENABLE: the tensorboard writer (ROADMAP.md Queue 1, item 12)"),
         (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging (ROADMAP.md Queue 1, item 9b)"),
     ):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
+    check_tensor_parallel(cfg)
 
 
 def _is_epic(cfg) -> bool:
@@ -67,17 +78,23 @@ def _is_epic(cfg) -> bool:
     )
 
 
-def perform_test(loader, eval_step, meter, cfg, device: torch.device):
+def perform_test(loader, eval_step, meter, cfg, device: torch.device, mesh: Mesh = Mesh()):
     """Every batch of ``loader`` through ``eval_step``, into ``meter``;
-    returns the meter's final stats."""
+    returns the meter's final stats. Under a data-parallel mesh ``loader``
+    yields this rank's rows, and each batch is gathered whole first."""
     is_epic = _is_epic(cfg)
     needs_rng = cfg.TOME.ENABLE and cfg.TOME.MODE in ("random_merge", "random_drop")
     meter.iter_tic()
     for cur_iter, batch in enumerate(loader):
         frames = torch.as_tensor(np.asarray(batch["frames"]), device=device)
         meter.data_toc()
-        generator = _step_generator(device, cfg.RNG_SEED, cur_iter) if needs_rng else None
-        logits = _host(eval_step(frames, generator))
+        generator = (_step_generator(device, cfg.RNG_SEED, cur_iter, *mesh.rank_path)
+                     if needs_rng else None)
+        logits = eval_step(frames, generator)
+        if mesh.data > 1:
+            logits, batch = gather_rows(mesh, logits, batch)
+        else:
+            logits = _host(logits)
         meter.iter_toc()
         if is_epic:
             metadata = batch.get("metadata")
@@ -112,13 +129,12 @@ def _save_results(meter, save_path: str, num_view: int, sweep: bool) -> None:
 
 
 def test(cfg, device: Optional[torch.device | str] = None):
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("test_net needs a CUDA device and found none")
-        device = "cuda"
-    device = torch.device(device)
+    device = entry_device(device, "test_net", cfg.TEST.BATCH_SIZE, cfg.TPU.MODEL_PARALLEL)
     _unsupported(cfg)
-    setup_logging(cfg.OUTPUT_DIR)
+    # no batch cap: every batch is padded to a multiple of the data width
+    mesh = make_mesh(cfg.TPU.MODEL_PARALLEL, device_type=device.type)
+    if mesh.rank == 0:
+        setup_logging(cfg.OUTPUT_DIR)
     np.random.seed(cfg.RNG_SEED)
 
     views_list = cfg.TEST.NUM_TEMPORAL_CLIPS or [cfg.TEST.NUM_ENSEMBLE_VIEWS]
@@ -128,9 +144,11 @@ def test(cfg, device: Optional[torch.device | str] = None):
     for num_view in views_list:
         cfg.TEST.NUM_ENSEMBLE_VIEWS = num_view
         bundle = load_test_checkpoint(cfg, build_model(cfg, device))
+        if mesh.model > 1:
+            shard_module(replicate(mesh, bundle.module), mesh)
         eval_step = make_eval_step(bundle.module)
 
-        loader = construct_loader(cfg, "test")
+        loader = construct_loader(cfg, "test", mesh.data_rank, mesh.data)
         num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
         if len(loader.dataset) % num_clips != 0:
             raise ValueError(
@@ -149,12 +167,12 @@ def test(cfg, device: Optional[torch.device | str] = None):
                 cfg.MODEL.NUM_CLASSES,
                 len(loader),
                 cfg.DATA.ENSEMBLE_METHOD,
-                cfg=cfg,
+                cfg=cfg if mesh.rank == 0 else None,  # it writes TEST.CLIP_LENGTH_HISTOGRAM's file
                 multi_label=cfg.DATA.MULTI_LABEL,
             )
-        stats = perform_test(loader, eval_step, meter, cfg, device)
+        stats = perform_test(loader, eval_step, meter, cfg, device, mesh)
         results.append((num_view, stats))
-        if cfg.TEST.SAVE_RESULTS_PATH:
+        if cfg.TEST.SAVE_RESULTS_PATH and mesh.rank == 0:
             _save_results(meter, cfg.TEST.SAVE_RESULTS_PATH, num_view, len(views_list) > 1)
     for num_view, stats in results:
         logger.info("views=%d -> %s", num_view, stats)
@@ -166,7 +184,7 @@ def main():
     for path in args.cfg_files or [None]:
         cfg = load_config(args, path)
         assert_and_infer_cfg(cfg)
-        test(cfg)
+        launch.run(cfg, test, cfg.TEST.BATCH_SIZE)
 
 
 if __name__ == "__main__":

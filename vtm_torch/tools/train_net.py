@@ -23,6 +23,22 @@ tensorboard and wandb are not ported yet and raise where a config asks
 for them. ``TRAIN.KILL_LOSS_EXPLOSION_FACTOR`` stops the run on a NaN or
 infinite loss only, as in the JAX package.
 
+Parallelism (``vtm_torch/parallel``): ``main`` runs ``train`` in one process
+per CUDA device the batch can use (``parallel.launch.run``; torchrun
+works too). Under a process group ``build_trainer`` builds the
+('data', 'model') mesh of ``TPU.MODEL_PARALLEL``, cuts VideoMAE or ViViT
+for tensor parallelism (other families raise, ROADMAP.md Queue 1, item
+15), and wraps the module in DDP over the data group; each data rank
+loads and steps on its rows of each global batch, with step generators
+seeded from (seed, epoch, iter, data rank), so that the ranks of one
+model group draw the same masks. Meters get the global batch's loss and
+errors (all-reduced), logging is rank 0's, and checkpoints hold the
+whole model (every rank saves, rank 0 writes). Mixup pairs row i with
+row B - 1 - i of each rank's rows (upstream SlowFast mixes per GPU
+alike), where ``vtm`` mixes the global batch, so a data-parallel run
+with mixup is not ``vtm``'s; λ and the box come from one seed, the same
+on every rank.
+
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``device="cpu"``, plain versions of the kernels) is for tests only.
 """
@@ -35,6 +51,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from vtm_torch.checkpoints import checkpoint as cu
 from vtm_torch.checkpoints.checkpoint import load_test_checkpoint
@@ -43,6 +60,9 @@ from vtm_torch.data import construct_loader, shuffle_dataset
 from vtm_torch.eval.meters import EPICTrainMeter, EPICValMeter, TrainMeter, ValMeter
 from vtm_torch.eval.metrics import multitask_topk_accuracies, topk_accuracies, topk_errors
 from vtm_torch.models import ModelBundle, build_model
+from vtm_torch.parallel import launch
+from vtm_torch.parallel.mesh import Mesh, all_mean, entry_device, gather_rows, make_mesh, replicate
+from vtm_torch.parallel.sharding import check_tensor_parallel, shard_module
 from vtm_torch.train.mixup import MixUp
 from vtm_torch.train.optimizer import construct_optimizer, set_lr
 from vtm_torch.train.train_step import make_eval_step, make_train_step
@@ -93,6 +113,7 @@ def _unsupported(cfg) -> None:
     """Raise for what the JAX package's train loop does and this one does not yet."""
     if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
         raise NotImplementedError("contrastive pretraining is not ported yet")
+    check_tensor_parallel(cfg)
     for on, what in (
         (cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE, "MULTIGRID: multigrid training"),
         (cfg.MASK.ENABLE, "MASK.ENABLE: MAE / MaskFeat pretraining"),
@@ -106,8 +127,23 @@ def _unsupported(cfg) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
+def _errors(logits, labels, multi_head: bool):
+    """The meter's accuracy figures of one batch, flattened: top-1/5
+    errors, or the verb, noun and action top-1/5 accuracies."""
+    if multi_head:
+        return [a for pair in _epic_accuracies(logits, labels) for a in pair]
+    return list(topk_errors(logits, np.asarray(labels), (1, 5)))
+
+
+def _update(meter, figures, multi_head: bool, *rest):
+    if multi_head:
+        meter.update_stats(tuple(zip(figures[0::2], figures[1::2])), *rest)
+    else:
+        meter.update_stats(*figures, *rest)
+
+
 def train_epoch(loader, train_step, optimizer, lr_at, cur_epoch, meter, cfg, device,
-                multi_head, mixup_fn=None):
+                multi_head, mixup_fn=None, mesh: Mesh = Mesh()):
     data_size = len(loader)
     meter.iter_tic()
     for cur_iter, batch in enumerate(loader):
@@ -122,39 +158,39 @@ def train_epoch(loader, train_step, optimizer, lr_at, cur_epoch, meter, cfg, dev
             labels = _labels_of(batch, multi_head, device)
         meter.data_toc()
         loss, logits, aux = train_step(
-            frames, labels, _step_generator(device, cfg.RNG_SEED, cur_epoch, cur_iter)
+            frames, labels, _step_generator(device, cfg.RNG_SEED, cur_epoch, cur_iter, *mesh.rank_path)
         )
         loss = float(loss)
         if cfg.TRAIN.KILL_LOSS_EXPLOSION_FACTOR and not np.isfinite(loss):
             raise RuntimeError(f"NaN/inf loss at epoch {cur_epoch} iter {cur_iter}")
-        mb = batch["frames"].shape[0]
+        mb = batch["frames"].shape[0] * mesh.data
         meter.iter_toc()
+        figures = all_mean(_errors(_host(logits), batch["label"], multi_head), mesh.data_group, device)
         if multi_head:
-            accs = _epic_accuracies(_host(logits), batch["label"])
-            meter.update_stats(accs, (float(aux[0]), float(aux[1]), loss), lr, mb)
+            _update(meter, figures, True, (float(aux[0]), float(aux[1]), loss), lr, mb)
         else:
-            top1_err, top5_err = topk_errors(_host(logits), np.asarray(batch["label"]), (1, 5))
-            meter.update_stats(top1_err, top5_err, loss, lr, mb)
+            _update(meter, figures, False, loss, lr, mb)
         meter.log_iter_stats(cur_epoch, cur_iter)
         meter.iter_tic()
     meter.log_epoch_stats(cur_epoch)
     meter.reset()
 
 
-def eval_epoch(loader, eval_step, meter, cur_epoch, device, multi_head):
+def eval_epoch(loader, eval_step, meter, cur_epoch, device, multi_head, mesh: Mesh = Mesh()):
     meter.iter_tic()
     for batch in loader:
-        # an uneven last batch runs as it is: nothing here needs a fixed shape
+        # an uneven last batch runs as it is (one process), or padded to the
+        # data width with its padding rows dropped after the gather
         frames = np.asarray(batch["frames"])
-        n_valid = frames.shape[0]
         meter.data_toc()
-        logits = _host(eval_step(torch.as_tensor(frames, device=device)))
-        meter.iter_toc()
-        if multi_head:
-            meter.update_stats(_epic_accuracies(logits, batch["label"]), n_valid)
+        logits = eval_step(torch.as_tensor(frames, device=device))
+        if mesh.data > 1:
+            logits, batch = gather_rows(mesh, logits, batch)
         else:
-            top1_err, top5_err = topk_errors(logits, np.asarray(batch["label"]), (1, 5))
-            meter.update_stats(top1_err, top5_err, n_valid)
+            logits = _host(logits)
+        n_valid = (logits[0] if multi_head else logits).shape[0]
+        meter.iter_toc()
+        _update(meter, _errors(logits, batch["label"], multi_head), multi_head, n_valid)
         meter.iter_tic()
     meter.log_epoch_stats(cur_epoch)
     meter.reset()
@@ -163,7 +199,8 @@ def eval_epoch(loader, eval_step, meter, cur_epoch, device, multi_head):
 @dataclasses.dataclass
 class Trainer:
     """What ``train`` steps with: the module (fp32 parameters, on the
-    device), its optimizer and schedule, and the two steps."""
+    device, cut for this rank under tensor parallelism), its optimizer and
+    schedule, the two steps, and the mesh."""
 
     module: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -173,34 +210,52 @@ class Trainer:
     multi_head: bool
     device: torch.device
     bundle: ModelBundle  # the built model; its name picks a foreign checkpoint's converter
+    mesh: Mesh = Mesh()
 
 
-def build_trainer(cfg, device: Optional[torch.device | str] = None) -> Trainer:
+def build_trainer(cfg, device: Optional[torch.device | str] = None,
+                  bundle: Optional[ModelBundle] = None) -> Trainer:
     """Model, optimizer and steps for ``cfg`` on the first CUDA device
-    (or on ``device``, which tests set to the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("train_net needs a CUDA device and found none")
-        device = "cuda"
-    device = torch.device(device)
+    (or on ``device``, which tests set to the CPU). ``bundle``: the model to
+    train, on the device with fp32 parameters (built from ``cfg`` when None).
+    Under a process group: the mesh, the cuts and DDP (module docstring)."""
+    device = entry_device(device, "train_net", cfg.TRAIN.BATCH_SIZE, cfg.TPU.MODEL_PARALLEL)
     _unsupported(cfg)
-    bundle = build_model(cfg, device, fp32_params=True)
+    mesh = make_mesh(cfg.TPU.MODEL_PARALLEL, batch_cap=cfg.TRAIN.BATCH_SIZE, device_type=device.type)
+    if bundle is None:
+        bundle = build_model(cfg, device, fp32_params=True)
     module = bundle.module
     multi_head = module.config.multi_head
+    if mesh.model > 1:
+        shard_module(replicate(mesh, module), mesh)
     optimizer, lr_at = construct_optimizer(cfg, module, num_layers=module.config.depth)
+    optimizer.model_group = mesh.model_group if mesh.model > 1 else None
+    stepped = module
+    if mesh.device_mesh is not None:
+        stepped = DistributedDataParallel(
+            module, device_ids=[device] if device.type == "cuda" else None,
+            process_group=mesh.data_group, broadcast_buffers=False,  # no buffer changes in a step
+            # every parameter of every family gets a gradient in every step,
+            # a zero one included (the k biases under a softmax, Motionformer's
+            # last trajectory projections): tests/test_torch_parallel.py
+            find_unused_parameters=False,
+        )
     train_step = make_train_step(
-        module, optimizer, cfg.MODEL.LOSS_FUNC, multi_head,
+        stepped, optimizer, cfg.MODEL.LOSS_FUNC, multi_head,
         accumulate_steps=cfg.SOLVER.ACCUMULATE_STEPS,
+        data_group=mesh.data_group if mesh.data > 1 else None,
     )
-    return Trainer(module, optimizer, lr_at, train_step, make_eval_step(module), multi_head, device, bundle)
+    return Trainer(module, optimizer, lr_at, train_step, make_eval_step(module), multi_head, device, bundle,
+                   mesh)
 
 
 def train(cfg, device: Optional[torch.device | str] = None):
     trainer = build_trainer(cfg, device)
     module, optimizer, lr_at = trainer.module, trainer.optimizer, trainer.lr_at
     train_step, eval_step = trainer.train_step, trainer.eval_step
-    multi_head, device = trainer.multi_head, trainer.device
-    setup_logging(cfg.OUTPUT_DIR)
+    multi_head, device, mesh = trainer.multi_head, trainer.device, trainer.mesh
+    if mesh.rank == 0:
+        setup_logging(cfg.OUTPUT_DIR)
     np.random.seed(cfg.RNG_SEED)
     logger.info("Train with config:\n%s", json.dumps(cfg.to_dict(), indent=1, sort_keys=True))
 
@@ -222,8 +277,8 @@ def train(cfg, device: Optional[torch.device | str] = None):
         finally:
             cfg.TEST.CHECKPOINT_FILE_PATH = saved
 
-    train_loader = construct_loader(cfg, "train")
-    val_loader = construct_loader(cfg, "val")
+    train_loader = construct_loader(cfg, "train", mesh.data_rank, mesh.data)
+    val_loader = construct_loader(cfg, "val", mesh.data_rank, mesh.data)
     if multi_head:
         train_meter = EPICTrainMeter(len(train_loader), cfg)
         val_meter = EPICValMeter(len(val_loader), cfg)
@@ -246,12 +301,17 @@ def train(cfg, device: Optional[torch.device | str] = None):
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
         shuffle_dataset(train_loader, cur_epoch)
         train_epoch(train_loader, train_step, optimizer, lr_at, cur_epoch, train_meter, cfg,
-                    device, multi_head, mixup_fn=mixup_fn)
+                    device, multi_head, mixup_fn=mixup_fn, mesh=mesh)
         if (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0:
             cu.save_checkpoint(cfg.OUTPUT_DIR, module, optimizer, cur_epoch, cfg)
         if (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0:
-            eval_epoch(val_loader, eval_step, val_meter, cur_epoch, device, multi_head)
+            eval_epoch(val_loader, eval_step, val_meter, cur_epoch, device, multi_head, mesh)
     return module
+
+
+def _train(cfg, device) -> None:
+    """``train`` for ``launch.run``: a spawned rank's module stays in it."""
+    train(cfg, device)
 
 
 def main():
@@ -259,7 +319,7 @@ def main():
     for path in args.cfg_files or [None]:
         cfg = load_config(args, path)
         assert_and_infer_cfg(cfg)
-        train(cfg)
+        launch.run(cfg, _train, cfg.TRAIN.BATCH_SIZE)
 
 
 if __name__ == "__main__":

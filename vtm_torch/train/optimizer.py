@@ -132,15 +132,34 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer
 
 
 @torch.no_grad()
+def global_norm(optimizer: torch.optim.Optimizer) -> torch.Tensor:
+    """The L2 norm of every gradient the optimizer holds. Under tensor
+    parallelism (``optimizer.model_group``, set by ``train_net``) the
+    squares of the cut parameters' gradients are summed across the model
+    group, and the whole ones, the same on every rank of it, counted once:
+    the norm of the whole model's gradient, as ``vtm`` clips it."""
+    params = [p for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
+    group = getattr(optimizer, "model_group", None)
+    if group is None:
+        return torch.sqrt(sum(p.grad.float().square().sum() for p in params))
+    from vtm_torch.parallel.sharding import is_cut
+
+    whole, cut = (sum((p.grad.float().square().sum() for p in params if is_cut(p) == c),
+                      torch.zeros((), device=params[0].grad.device)) for c in (False, True))
+    torch.distributed.all_reduce(cut, group=group)
+    return torch.sqrt(whole + cut)
+
+
+@torch.no_grad()
 def clip_gradients(optimizer: torch.optim.Optimizer) -> None:
     """Clip the gradients in place as the optimizer was configured: by
-    global L2 norm (scaled by max_norm / norm when the norm exceeds it),
-    else by value."""
+    global L2 norm (scaled by max_norm / norm when the norm exceeds it;
+    ``global_norm``), else by value."""
     max_norm = getattr(optimizer, "clip_grad_l2norm", None)
     max_val = getattr(optimizer, "clip_grad_val", None)
     grads = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
     if max_norm:
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        norm = global_norm(optimizer)
         factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
         for g in grads:
             g.mul_(factor.to(g.dtype))

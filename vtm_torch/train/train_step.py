@@ -8,16 +8,28 @@ returns only (loss, logits, aux). Gradient accumulation
 ``optax.MultiSteps``: the mean of k micro-step gradients, one update
 every k calls, taken with the learning rate set at the k-th.
 
+Data parallelism: ``module`` may be a ``DistributedDataParallel`` wrapper
+over the ``data`` group (``train_net`` wraps it). Its gradients are then
+the mean over the data ranks of each rank's mean, which with equal rows a
+rank is the global batch's mean gradient, as ``vtm``'s step over the
+sharded batch computes it; the first k - 1 micro-steps of an accumulation
+run under ``no_sync()``, so one all-reduce carries the k-step sum. The
+returned loss (and aux) is the global batch's mean too, all-reduced over
+``data_group``; the logits stay this rank's rows.
+
 The BatchNorm, detection, MAE, MaskFeat and contrastive steps are not
 ported yet and raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from vtm_torch.train import losses as loss_lib
 from vtm_torch.train.optimizer import apply_update
@@ -30,12 +42,14 @@ def make_train_step(
     multi_head: bool,
     accumulate_steps: int = 1,
     has_batch_stats: bool = False,
+    data_group=None,
 ) -> Callable:
     """Returns ``step(frames, labels, generator=None) -> (loss, logits,
     aux)``. ``labels`` is a tensor, or {"verb", "noun"} tensors for the
     twin heads, where the loss is 0.5 * (verb + noun) and aux is the
     (verb, noun) pair of losses. ``generator`` draws the dropout and
-    stochastic-depth masks. loss, logits and aux are detached."""
+    stochastic-depth masks. loss, logits and aux are detached; with
+    ``data_group``, loss and aux are the means over its ranks."""
     if has_batch_stats:
         raise NotImplementedError("the BatchNorm train step is not ported yet (conv families)")
     base_loss = loss_lib.get_loss_func(loss_name)
@@ -45,26 +59,37 @@ def make_train_step(
     def step(frames, labels, generator: Optional[torch.Generator] = None):
         nonlocal micro_step
         module.train()
-        logits, _ = module(frames, generator=generator)
-        if multi_head:
-            verb = base_loss(logits[0], labels["verb"])
-            noun = base_loss(logits[1], labels["noun"])
-            loss = 0.5 * (verb + noun)
-            aux = (verb.detach(), noun.detach())
-            logits = tuple(l.detach() for l in logits)
-        else:
-            loss = base_loss(logits, labels)
-            aux = ()
-            logits = logits.detach()
-        # .grad sums over backward calls: dividing by k makes it the mean
-        (loss / k if k > 1 else loss).backward()
+        defer = micro_step < k - 1 and isinstance(module, DistributedDataParallel)
+        with module.no_sync() if defer else contextlib.nullcontext():
+            logits, _ = module(frames, generator=generator)
+            if multi_head:
+                verb = base_loss(logits[0], labels["verb"])
+                noun = base_loss(logits[1], labels["noun"])
+                loss = 0.5 * (verb + noun)
+                aux = (verb.detach(), noun.detach())
+                logits = tuple(l.detach() for l in logits)
+            else:
+                loss = base_loss(logits, labels)
+                aux = ()
+                logits = logits.detach()
+            # .grad sums over backward calls: dividing by k makes it the mean
+            (loss / k if k > 1 else loss).backward()
         micro_step += 1
         if micro_step == k:
             apply_update(optimizer)
             micro_step = 0
-        return loss.detach(), logits, aux
+        return _global_mean(loss.detach(), data_group), logits, tuple(_global_mean(a, data_group) for a in aux)
 
     return step
+
+
+def _global_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``group``; ``x`` without one."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    x = x.clone()
+    dist.all_reduce(x, group=group)
+    return x / dist.get_world_size(group)
 
 
 def make_eval_step(module: nn.Module, batch_stats=None) -> Callable:
