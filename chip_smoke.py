@@ -156,6 +156,28 @@ Phases, each printing one JSON line:
                   K1 9 a forward, teacher-forced blocks kernel path against
                   plain path; model_benchmark with TRACE_DIR, whose Chrome
                   trace must hold K1's kernels with device time
+     slowfast  -- the conv families (SlowFast, ResNet, X3D; no attention
+                  kernel), fp32: SlowFast 8x8 R50 (``SLOWFAST_OPTS``: the
+                  values of configs/slowfast/kinetics/SLOWFAST_8x8_R50.yaml)
+                  at full width with its BatchNorms moved off their init
+                  (each block's final one about 1, then about 0.2), a B2
+                  eval forward on the card (fp32 with TF32 off and on, fp64)
+                  and the CPU (fp32), each against the CPU's fp64: the
+                  card's fp32 error at most 4 times the CPU's, and within
+                  SF_CPU_TOL of the CPU's fp32 where the CPU's own error
+                  allows that comparison; model_benchmark at B8 on
+                  32 x 256 clips, TF32 off and on; test_net.test on 8
+                  synthetic videos x 10 views x 3 crops; 4 train steps at B8
+                  with dropout 0.5 (the loss falls), where one step's
+                  device time goes (torch.profiler, TF32 off and on, by
+                  kind of kernel), precise BN over 2 batches, a checkpoint that reloads to the same next loss
+                  (cuDNN deterministic); two gloo ranks sharing the card, 4
+                  clips each, BatchNorm statistics over the global batch,
+                  and the one-process B8 step against the step in fp64
+                  (the ranks' error at most 4 times the one process's);
+                  small I3D (non-local)
+                  and X3D-XS eval forwards checked as SlowFast's. Asserts that
+                  no K1-K5b (nor T1-T12) launched, the ranks' included
      dist      -- the parallel paths (vtm_torch/parallel) at ViT-B width,
                   bf16, B8, each against the same run in this process: NCCL
                   at world size 1, train_net's DDP step on the EPIC config
@@ -208,7 +230,7 @@ from vtm_torch.data import construct_loader
 from vtm_torch.merge import MergePolicy, MergeState
 from vtm_torch.merge import bipartite as merge_bipartite
 from vtm_torch.models import build_model
-from vtm_torch.models import motionformer_approx
+from vtm_torch.models import convnet, motionformer_approx
 from vtm_torch.models.common import _FLASH_MAX_SEQ, _FLASH_MIN_SEQ, split_heads
 from vtm_torch.models.videomae import VideoMAE
 from vtm_torch.ops import build as kernel_build
@@ -234,7 +256,7 @@ from vtm_torch.tools import ab_dense
 from vtm_torch.tools.kernel_times import FWD_DIGEST_CASES, device_ms, forward_digests
 from vtm_torch.tools import test_net
 from vtm_torch.tools.model_benchmark import model_benchmark, perform_benchmark
-from vtm_torch.tools.train_net import build_trainer, train
+from vtm_torch.tools.train_net import build_trainer, refresh_bn_stats, train
 from vtm_torch.train.optimizer import set_lr
 from vtm_torch.utils.benchmark import device_seconds
 from vtm_torch.vis import concatenate_images, make_spatiotemporal_video_visualization
@@ -751,6 +773,63 @@ VIVIT_TRAIN_OPTS = [
     "OUTPUT_DIR", "<OUTPUT-DIR>",
 ]
 
+# configs/slowfast/kinetics/SLOWFAST_8x8_R50.yaml, key by key.
+SLOWFAST_OPTS = [
+    "TRAIN.ENABLE", "True",
+    "TRAIN.DATASET", "kinetics",
+    "TRAIN.BATCH_SIZE", "64",
+    "TRAIN.EVAL_PERIOD", "10",
+    "TRAIN.CHECKPOINT_PERIOD", "5",
+    "TRAIN.AUTO_RESUME", "True",
+    "DATA.PATH_TO_DATA_DIR", "<KINETICS-400-ANNOTATIONS>",
+    "DATA.NUM_FRAMES", "32",
+    "DATA.SAMPLING_RATE", "2",
+    "DATA.TRAIN_JITTER_SCALES", "[256, 320]",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TEST_CROP_SIZE", "256",
+    "DATA.INPUT_CHANNEL_NUM", "[3, 3]",
+    "SLOWFAST.ALPHA", "4",
+    "SLOWFAST.BETA_INV", "8",
+    "SLOWFAST.FUSION_CONV_CHANNEL_RATIO", "2",
+    "SLOWFAST.FUSION_KERNEL_SZ", "7",
+    "RESNET.ZERO_INIT_FINAL_BN", "True",
+    "RESNET.WIDTH_PER_GROUP", "64",
+    "RESNET.NUM_GROUPS", "1",
+    "RESNET.DEPTH", "50",
+    "RESNET.TRANS_FUNC", "bottleneck_transform",
+    "RESNET.STRIDE_1X1", "False",
+    "RESNET.NUM_BLOCK_TEMP_KERNEL", "[[3, 3], [4, 4], [6, 6], [3, 3]]",
+    "RESNET.SPATIAL_STRIDES", "[[1, 1], [2, 2], [2, 2], [2, 2]]",
+    "RESNET.SPATIAL_DILATIONS", "[[1, 1], [1, 1], [1, 1], [1, 1]]",
+    "NONLOCAL.LOCATION", "[[[], []], [[], []], [[], []], [[], []]]",
+    "NONLOCAL.GROUP", "[[1, 1], [1, 1], [1, 1], [1, 1]]",
+    "NONLOCAL.INSTANTIATION", "dot_product",
+    "BN.USE_PRECISE_STATS", "True",
+    "BN.NUM_BATCHES_PRECISE", "200",
+    "SOLVER.BASE_LR", "0.8",
+    "SOLVER.LR_POLICY", "cosine",
+    "SOLVER.MAX_EPOCH", "196",
+    "SOLVER.MOMENTUM", "0.9",
+    "SOLVER.WEIGHT_DECAY", "'1e-4'",  # PyYAML reads the yaml's 1e-4 as a string
+    "SOLVER.WARMUP_EPOCHS", "34.0",
+    "SOLVER.WARMUP_START_LR", "0.01",
+    "SOLVER.OPTIMIZING_METHOD", "sgd",
+    "MODEL.MODEL_NAME", "SlowFast",
+    "MODEL.NUM_CLASSES", "400",
+    "MODEL.ARCH", "slowfast",
+    "MODEL.LOSS_FUNC", "cross_entropy",
+    "MODEL.DROPOUT_RATE", "0.5",
+    "TEST.ENABLE", "True",
+    "TEST.DATASET", "kinetics",
+    "TEST.BATCH_SIZE", "64",
+    "DATA_LOADER.NUM_WORKERS", "8",
+    "DATA_LOADER.PIN_MEMORY", "True",
+    "NUM_GPUS", "8",
+    "NUM_SHARDS", "1",
+    "RNG_SEED", "0",
+    "OUTPUT_DIR", ".",
+]
+
 # What every training run here changes in that config: no files (random
 # weights, the synthetic dataset's 16 clips), batch 8, output under build/.
 TRAIN_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_train"
@@ -1020,6 +1099,39 @@ DIST_HEADS = 6  # ViT-B's 12 heads cut 2 ways
 DIST_EPOCH = 5.0  # the EPIC config's warm-up starts at lr 0: its step at the end of the warm-up
 
 
+# The slowfast phase (the conv families, fp32 as vtm computes them): the
+# shipped config on synthetic clips at B8, with precise BN over 2 batches in
+# place of 200; a full-width eval forward on the card and on the CPU, each
+# against the CPU's fp64 forward (``conv_card_against_cpu``); the two-gloo-rank step and the
+# one-process B8 step both against the same step in fp64, the ranks' error in
+# each tensor (parameters and statistics) and in the loss at most SF_DP_FACTOR
+# times the one process's own (plus two fp32 spacings of its values); small
+# I3D (non-local) and X3D-XS forwards the same way.
+SF_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_slowfast"
+SF_RUN_OPTS = ["TRAIN.DATASET", "synthetic", "TEST.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "8",
+               "TEST.BATCH_SIZE", "8", "BN.NUM_BATCHES_PRECISE", "2", "TRAIN.AUTO_RESUME", "False"]
+SF_CPU_TOL = 1e-4
+# the eval forwards card against CPU, both against the CPU's fp64 forward, at
+# two inits of each block's final BatchNorm: weights about 1, as every other
+# BatchNorm, where the residual sums grow block by block, and about 0.2
+SF_FINAL_BN_SCALES = (1.0, 0.2)
+SF_FP64_FACTOR = 4.0
+SF_FP64_FLOOR = 1e-6  # about eight fp32 spacings of the largest entry
+SF_FP64_TOL = 1e-8  # the card's fp64 against the CPU's
+SF_DP_FACTOR = 4.0
+SF_TRAIN_STEPS = 4
+I3D_OPTS = ["MODEL.MODEL_NAME", "ResNet", "MODEL.ARCH", "i3d", "MODEL.NUM_CLASSES", "400", "RESNET.DEPTH", "50",
+            "RESNET.ZERO_INIT_FINAL_BN", "True", "DATA.NUM_FRAMES", "8", "DATA.TRAIN_CROP_SIZE", "112",
+            "DATA.TEST_CROP_SIZE", "112", "NONLOCAL.LOCATION", "[[[]], [[1, 3]], [[1, 3, 5]], [[]]]",
+            "NONLOCAL.GROUP", "[[1], [1], [1], [1]]", "NONLOCAL.INSTANTIATION", "softmax",
+            "NONLOCAL.POOL", "[[[1, 2, 2], [1, 2, 2]], [[1, 2, 2], [1, 2, 2]], [[1, 2, 2], [1, 2, 2]], "
+                             "[[1, 2, 2], [1, 2, 2]]]"]
+X3D_XS_OPTS = ["MODEL.MODEL_NAME", "X3D", "MODEL.ARCH", "x3d", "MODEL.NUM_CLASSES", "400",
+               "RESNET.TRANS_FUNC", "x3d_transform", "RESNET.ZERO_INIT_FINAL_BN", "True", "X3D.WIDTH_FACTOR", "2.0",
+               "X3D.DEPTH_FACTOR", "2.2", "X3D.BOTTLENECK_FACTOR", "2.25", "X3D.DIM_C5", "2048",
+               "X3D.DIM_C1", "12", "DATA.NUM_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "160", "DATA.TEST_CROP_SIZE", "160"]
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -1038,6 +1150,7 @@ main_cfg, train_cfg = cfg_maker(MAIN_PATH_OPTS), cfg_maker(TRAIN_OPTS)
 mf_cfg, mf_train_cfg = cfg_maker(MOTIONFORMER_OPTS), cfg_maker(MF_TRAIN_OPTS)
 ts_cfg, ts_train_cfg = cfg_maker(TS_OPTS), cfg_maker(TS_TRAIN_OPTS)
 vivit_cfg, vivit_train_cfg = cfg_maker(VIVIT_OPTS), cfg_maker(VIVIT_TRAIN_OPTS)
+sf_cfg = cfg_maker(SLOWFAST_OPTS)
 
 
 def launch_counts() -> dict:
@@ -3096,6 +3209,287 @@ def phase_train(smi: str, phase, cfg, step_opts, entry_opts, fwd, bwd, per_step,
     return total[bwd]
 
 
+@contextlib.contextmanager
+def tf32(on: bool):
+    """cuDNN's convolutions and cuBLAS's fp32 products in TF32 (on) or full
+    fp32 (off) inside, this script's setting (full fp32) after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@torch.no_grad()
+def moved_bn(module: torch.nn.Module, seed: int, final_scale: float) -> None:
+    """Every BatchNorm's weight, bias and running statistics drawn from
+    numpy's ``seed``: weights about 1, except each block's final BatchNorm
+    (which the seeded init leaves at 0, so that its residual branch would
+    compute nothing), whose weights are about ``final_scale``. The draws do
+    not depend on ``final_scale``."""
+    rng = np.random.default_rng(seed)
+    for bn in convnet.batchnorms(module):
+        c = bn.weight.numel()
+        scale = final_scale if bn.zero_init else 1.0
+        for t, v in ((bn.weight, scale * (1 + 0.1 * rng.standard_normal(c))), (bn.bias, 0.1 * rng.standard_normal(c)),
+                     (bn.running_mean, 0.1 * rng.standard_normal(c)), (bn.running_var, np.exp(0.2 * rng.standard_normal(c)))):
+            t.copy_(torch.from_numpy(v.astype(np.float32)))
+
+
+def conv_card_against_cpu(tag: str, cfg, batch: int, seed: int) -> dict:
+    """One eval forward of ``cfg``'s model at the test crop for each of
+    SF_FINAL_BN_SCALES (``moved_bn``): in fp64 on the CPU (the truth), in
+    fp32 on the CPU, in fp32 on the card with TF32 off and on, and in fp64 on
+    the card; the probabilities, and the projection's logits averaged over
+    T, H, W. Each error is of the largest entry of the CPU's fp64 output.
+    Checks, with TF32 off: the card's fp32 error at most SF_FP64_FACTOR times
+    the CPU's own plus SF_FP64_FLOOR; the card's fp64 within SF_FP64_TOL;
+    and, where the CPU's fp32 is itself within SF_CPU_TOL / SF_FP64_FACTOR
+    of fp64, the card's fp32 within SF_CPU_TOL of the CPU's fp32."""
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    module = build_model(cfg, "cpu").module
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((batch, t, s, s, 3)).astype(np.float32))
+
+    def outputs(x):
+        """The probabilities, and the projection's logits averaged over T, H, W."""
+        seen = []
+        hook = module.head.projection.register_forward_hook(lambda m, a, out: seen.append(out))
+        try:
+            probs = module(x)[0]
+        finally:
+            hook.remove()
+        return {"softmax": probs.double().cpu().numpy(), "logits": seen[0].mean(dim=(1, 2, 3)).double().cpu().numpy()}
+
+    result = {"batch": batch, "frames": t, "crop": s}
+    for final_scale in SF_FINAL_BN_SCALES:
+        module.to("cpu", torch.float32)
+        moved_bn(module, seed, final_scale)
+        with torch.inference_mode():
+            runs = {"cpu_fp32": outputs(x)}
+            module.double()
+            runs["cpu_fp64"] = outputs(x.double())
+            module.to("cuda")
+            runs["card_fp64"] = outputs(x.cuda().double())
+            module.float()
+            for on in (False, True):
+                with tf32(on):
+                    runs[f"card_fp32_tf32_{'on' if on else 'off'}"] = outputs(x.cuda())
+        truth = runs.pop("cpu_fp64")
+        here = {}
+        for act in truth:
+            check(np.isfinite(truth[act]).all() and truth[act].shape == (batch, 400),
+                  f"{tag}: CPU output {truth[act].shape}")
+            scale = np.abs(truth[act]).max()
+            err = {run: float(np.abs(out[act] - truth[act]).max() / scale) for run, out in runs.items()}
+            card_cpu = float(np.abs(runs["card_fp32_tf32_off"][act] - runs["cpu_fp32"][act]).max() / scale)
+            held = err["cpu_fp32"] <= SF_CPU_TOL / SF_FP64_FACTOR
+            what = f"{tag}, final BatchNorms about {final_scale}, {act}"
+            check(err["card_fp32_tf32_off"] <= SF_FP64_FACTOR * err["cpu_fp32"] + SF_FP64_FLOOR,
+                  f"{what}: card fp32 {err['card_fp32_tf32_off']} from fp64, CPU fp32 {err['cpu_fp32']}")
+            check(err["card_fp64"] <= SF_FP64_TOL, f"{what}: card fp64 {err['card_fp64']} from the CPU's")
+            check(not held or card_cpu <= SF_CPU_TOL, f"{what}: card against CPU, TF32 off: {card_cpu}")
+            here[act] = dict(largest=float(scale), rel_err_to_fp64=err, card_vs_cpu_tf32_off=card_cpu,
+                             card_vs_cpu_checked=held)
+        result[f"final_bn_{final_scale}"] = here
+    module.to("cpu", torch.float32)
+    return result
+
+
+# (kind, substring of a kernel's name), first match wins: where a conv
+# family's train step spends its device time
+CONV_KERNEL_KINDS = (
+    ("conv_weight_gradient", "wgrad"), ("conv_input_gradient", "dgrad"), ("conv_forward", "fprop"),
+    ("conv_forward", "convolveNd"), ("conv_forward", "conv"), ("layout_transposes", "nhwcToNchw"),
+    ("layout_transposes", "nchwToNhwc"), ("layout_transposes", "convertTensor"),
+    ("optimizer", "multi_tensor_apply"), ("reductions", "reduce_kernel"), ("elementwise", "elementwise"),
+)
+
+
+def device_time_by_kind(step, kinds) -> dict:
+    """One synchronised call of ``step`` under torch.profiler: its kernels'
+    device ms in all, by kind (``kinds``), and the 6 longest by name."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    check(bool(by_name), "torch.profiler recorded no device time")
+    by_kind = {}
+    for name, ms in by_name.items():
+        kind = next((k for k, key in kinds if key in name), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(kernel_ms=sum(by_name.values()), by_kind_ms=by_kind, top_kernels_ms=[[n[:100], ms] for n, ms in top])
+
+
+def phase_slowfast(smi: str) -> None:
+    """SlowFast 8x8 R50 (Kinetics-400) at full width through the conv
+    families' paths on the card, fp32: card against CPU; ``model_benchmark``
+    at B8 on 32 x 256 clips, TF32 off and on; ``test_net.test`` with the
+    config's 10 views x 3 crops; train steps with dropout 0.5, precise BN, a
+    checkpoint reload; two gloo ranks' step with the statistics of the
+    global batch against the one-process B8 step; small I3D and X3D. No
+    attention kernel may launch. One JSON line a check, with seconds."""
+    shutil.rmtree(SF_OUT, ignore_errors=True)
+    cuda = torch.device("cuda")
+    zero_launch_counts()  # this path's counts start here
+    ranks_launched = {c: 0 for c in COUNTERS}
+
+    t0 = time.perf_counter()
+    cpu = conv_card_against_cpu("slowfast", sf_cfg(*SF_RUN_OPTS), 2, 31)
+    emit("slowfast_card_vs_cpu", seconds=time.perf_counter() - t0, tol=SF_CPU_TOL, factor=SF_FP64_FACTOR,
+         floor=SF_FP64_FLOOR, fp64_tol=SF_FP64_TOL, **cpu, nvidia_smi=smi)
+
+    bench = {}
+    for label, on in (("tf32_off", False), ("tf32_on", True)):
+        t0 = time.perf_counter()
+        with tf32(on):
+            stats = model_benchmark(sf_cfg(*SF_RUN_OPTS, "MODEL_BENCHMARK.ITERATIONS", "10",
+                                           "MODEL_BENCHMARK.WARMUP_ITERATIONS", "3"))
+        check(stats["batch_size"] == 8 and stats["clips_per_sec"] > 0, f"slowfast model_benchmark {stats}")
+        bench[label] = dict(clips_per_sec=stats["clips_per_sec"], seconds=time.perf_counter() - t0)
+    emit("slowfast_model_benchmark", batch=8, frames=32, crop=256, iterations=10, **bench,
+         tf32_speedup=bench["tf32_on"]["clips_per_sec"] / bench["tf32_off"]["clips_per_sec"], nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    cfg = sf_cfg(*SF_RUN_OPTS, "OUTPUT_DIR", str(SF_OUT / "test"))
+    with recording_test_net() as seen:
+        results = test_net.test(cfg)
+    views, stats = results[0]
+    meter = seen[0]
+    clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    check((views, clips) == (10, 30), f"slowfast test_net: {views} views, {clips} clips a video")
+    check(bool((meter.clip_count == clips).all()), f"slowfast test_net: clip counts {meter.clip_count.tolist()}")
+    sums = meter.video_preds.sum(axis=1)  # each clip's probabilities sum to 1
+    check(np.isfinite(meter.video_preds).all() and bool(np.abs(sums - clips).max() <= 1e-3),
+          f"slowfast test_net: ensembles sum to {sums.tolist()}")
+    check(all(np.isfinite(float(stats[k])) for k in ("top1_acc", "top5_acc")), f"slowfast test_net: {stats}")
+    videos = len(meter.clip_count)
+    emit("slowfast_test_net", seconds=time.perf_counter() - t0, views=views, crops=cfg.TEST.NUM_SPATIAL_CROPS,
+         videos=videos, clips=videos * clips, batch=cfg.TEST.BATCH_SIZE, stats=stats,
+         clips_per_sec=videos * clips / sum(meter.batch_seconds),
+         steady_clips_per_sec=(videos * clips - cfg.TEST.BATCH_SIZE) / sum(meter.batch_seconds[1:]),
+         nvidia_smi=smi)
+
+    # train steps on one fixed batch with dropout on, precise BN, a reload
+    t0 = time.perf_counter()
+    cfg = sf_cfg(*SF_RUN_OPTS, "OUTPUT_DIR", str(SF_OUT / "train"))
+    torch.cuda.reset_peak_memory_stats()
+    trainer = build_trainer(cfg)
+    frames, labels = fixed_batch(cfg)
+    check(tuple(frames.shape) == (8, 32, 224, 224, 3), f"slowfast batch {tuple(frames.shape)}")
+    set_lr(trainer.optimizer, trainer.lr_at(0.0))
+    losses, step_seconds = [], []
+    for i in range(SF_TRAIN_STEPS):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        tick = time.perf_counter()
+        losses.append(float(trainer.train_step(frames, labels, gen)[0]))
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - tick)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"slowfast train: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profiles = {}
+    for label, on in (("tf32_off", False), ("tf32_on", True)):
+        with tf32(on):
+            profiles[label] = device_time_by_kind(lambda: trainer.train_step(frames, labels), CONV_KERNEL_KINDS)
+    before = {k: v.clone() for k, v in trainer.module.named_buffers()}
+    tick = time.perf_counter()
+    refresh_bn_stats(cfg, trainer.module, construct_loader(cfg, "train"), cuda, 0)
+    precise_seconds = time.perf_counter() - tick
+    moved = sum(not torch.equal(v, before[k]) for k, v in trainer.module.named_buffers())
+    check(moved == len(before) and all(bool(torch.isfinite(v).all()) for v in trainer.module.buffers()),
+          f"slowfast precise BN: {moved} of {len(before)} statistics moved")
+    torch.backends.cudnn.deterministic = True  # the same bits twice
+    try:
+        path = checkpoints.save_checkpoint(str(SF_OUT / "train"), trainer.module, trainer.optimizer, 0, cfg)
+        twin = build_trainer(cfg)
+        checkpoints.load_checkpoint(path, twin.module, twin.optimizer)
+        nxt = [float(t.train_step(frames, labels, torch.Generator(device="cuda").manual_seed(9))[0])
+               for t in (trainer, twin)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(nxt[0] == nxt[1], f"slowfast: next loss after reload {nxt[1]} != {nxt[0]}")
+    emit("slowfast_train", seconds=time.perf_counter() - t0, steps=SF_TRAIN_STEPS, batch=8, losses=losses,
+         step_seconds=step_seconds, train_clips_per_sec=8 * (SF_TRAIN_STEPS - 1) / sum(step_seconds[1:]),
+         peak_memory_gb=peak, dropout=cfg.MODEL.DROPOUT_RATE, precise_bn_batches=2,
+         precise_bn_seconds=precise_seconds, next_losses=nxt, optimizer="sgd(momentum 0.9, wd 1e-4)",
+         step_device_time=profiles, nvidia_smi=smi)
+    del trainer, twin
+    shutil.rmtree(SF_OUT / "train", ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # two gloo ranks sharing the card, 4 clips each, statistics over the
+    # global batch, against the one-process B8 step (dropout off: the
+    # ranks and the one process would draw other masks)
+    t0 = time.perf_counter()
+    step_cfg = sf_cfg(*SF_RUN_OPTS, "MODEL.DROPOUT_RATE", "0.0", "OUTPUT_DIR", str(SF_OUT / "dp"))
+    np_frames, np_labels = frames.cpu().numpy(), labels.cpu().numpy()
+    plan = [("train", step_cfg, (None, np_frames, np_labels),
+             dict(want_state=False, checkpoint_dir=str(SF_OUT / "dp")))]
+    gloo = launch_job(step_cfg, dist_rank, ["cuda:0", "cuda:0"], backend="gloo", timeout=DIST_TIMEOUT,
+                      join_timeout=DIST_JOIN_TIMEOUT, args=("gloo", plan))
+    for rank in gloo:
+        for c in COUNTERS:
+            ranks_launched[c] += rank[0]["launches"][c]
+    dp = [rank[0]["result"] for rank in gloo]
+    check(all(r["mesh"] == {"data": 2, "model": 1} for r in dp) and dp[0]["loss"] == dp[1]["loss"]
+          and dp[0]["buffers"] == dp[1]["buffers"], "slowfast dp: the ranks disagree")
+    two = torch.load(dp[0]["checkpoint"], map_location="cpu", weights_only=True)["model_state"]
+    one = probes.train_probe(step_cfg, cuda, None, np_frames, np_labels, want_state=False,
+                             checkpoint_dir=str(SF_OUT / "one"))
+    one_sd = torch.load(one["checkpoint"], map_location="cpu", weights_only=True)["model_state"]
+    # the same step in fp64 on the card: the truth both fp32 steps are held
+    # to, each tensor's error no more than SF_DP_FACTOR times the one
+    # process's own (plus two fp32 spacings of its values)
+    bundle = build_model(step_cfg, cuda, fp32_params=True)
+    bundle.module.double()
+    ref = build_trainer(step_cfg, cuda, bundle=bundle)
+    set_lr(ref.optimizer, ref.lr_at(0.0))
+    ref_loss = float(ref.train_step(frames.double(), labels)[0])
+    truth = {k: v.detach().cpu() for k, v in ref.module.state_dict().items()}
+    del ref, bundle
+    torch.cuda.empty_cache()
+
+    def slack(x: float) -> float:
+        return 2 * float(np.spacing(np.float32(abs(x))))
+
+    loss_err = (abs(one["loss"] - ref_loss), abs(dp[0]["loss"] - ref_loss))
+    check(loss_err[1] <= SF_DP_FACTOR * loss_err[0] + slack(ref_loss),
+          f"slowfast dp: loss {dp[0]['loss']}, one process {one['loss']}, fp64 {ref_loss}")
+    worst = {"params": 0.0, "stats": 0.0}
+    for k, want in truth.items():
+        errs = [float((sd[k].double() - want).abs().max()) for sd in (one_sd, two)]
+        room = slack(float(want.abs().max()))
+        check(errs[1] <= SF_DP_FACTOR * errs[0] + room,
+              f"slowfast dp: {k} {errs[1]} from the fp64 step's, one process {errs[0]}")
+        kind = "stats" if "running" in k else "params"
+        worst[kind] = max(worst[kind], (errs[1] - room) / errs[0] if errs[0] else 0.0)
+    emit("slowfast_dp_train", seconds=time.perf_counter() - t0, ranks=2, backend="gloo", clips_a_rank=4,
+         loss=dp[0]["loss"], one_process_loss=one["loss"], fp64_loss=ref_loss, loss_errs_one_two=loss_err,
+         worst_ratio_to_one_process=worst, factor=SF_DP_FACTOR,
+         rank_seconds=[rank[0]["seconds"] for rank in gloo], nvidia_smi=smi)
+    del two, one_sd
+    shutil.rmtree(SF_OUT, ignore_errors=True)
+
+    for tag, opts in (("i3d", I3D_OPTS), ("x3d_xs", X3D_XS_OPTS)):
+        t0 = time.perf_counter()
+        small = get_cfg()
+        small.merge_from_list(opts)
+        errors = conv_card_against_cpu(tag, small, 2, 41)
+        emit(f"slowfast_{tag}_card_vs_cpu", seconds=time.perf_counter() - t0, tol=SF_CPU_TOL,
+             factor=SF_FP64_FACTOR, floor=SF_FP64_FLOOR, fp64_tol=SF_FP64_TOL, **errors, nvidia_smi=smi)
+
+    total = launch_counts()  # read right after the path ran
+    check(all(n == 0 for n in total.values()) and all(n == 0 for n in ranks_launched.values())
+          and all(n == 0 for n in ab_attention.AB_LAUNCHES.values()),
+          f"the conv families launched an attention kernel: {total}, ranks {ranks_launched}")
+    emit("slowfast", launches=total, ranks_launches=ranks_launched, nvidia_smi=smi)
+
+
 # The A/B kernels: id -> (source, the TPU kernel's call site, the mode whose
 # numbers stand on the ``kernels`` line; every mode is on the ab_kernels line).
 AB_KERNELS = {
@@ -3319,6 +3713,7 @@ def main() -> int:
     dist = phase_dist(smi)
     launches += dist["LAUNCHES"]
     bwd_launches += dist["BWD_LAUNCHES"]
+    phase_slowfast(smi)
     ab_launches = phase_ab_dense()
     launches += ab_launches["K1"]  # the prod rows
     emit("done", seconds=time.perf_counter() - t0)

@@ -59,6 +59,18 @@ def test_chip_smoke_train_opts_equal_yaml():
     assert chip_smoke.train_cfg().to_dict() == want
 
 
+def test_chip_smoke_slowfast_opts_equal_yaml():
+    """``SLOWFAST_OPTS`` (the slowfast phase's config, no yaml parser on the
+    card's machine) against configs/slowfast/kinetics/SLOWFAST_8x8_R50.yaml,
+    its weight decay the string PyYAML reads."""
+    import chip_smoke
+
+    args = types.SimpleNamespace(opts=["TEST.CHECKPOINT_FILE_PATH", ""])
+    want = jcfg.load_config(args, str(REPO / "configs/slowfast/kinetics/SLOWFAST_8x8_R50.yaml")).to_dict()
+    assert chip_smoke.sf_cfg().to_dict() == want
+    assert want["SOLVER"]["WEIGHT_DECAY"] == "1e-4"
+
+
 def test_chip_smoke_motionformer_train_opts_equal_yaml():
     import chip_smoke
 

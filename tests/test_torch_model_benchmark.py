@@ -147,11 +147,25 @@ def test_foreign_checkpoint_loads_as_vtm_loads_it(tmp_path):
 
 @pytest.mark.parametrize("key", ["CHECKPOINT_INFLATE", "CHECKPOINT_IN_INIT"])
 def test_conv_weight_adaptation_raises_by_name(tmp_path, key):
+    """The 2-D -> 3-D weight adaptations are ported (they raised before the
+    conv families came): on a VideoMAE file, whose tubelet kernel is 3-D
+    already, TRAIN.CHECKPOINT_INFLATE / CHECKPOINT_IN_INIT load what the
+    plain load loads, as in the JAX package (``state_dict_from_vtm_params``
+    of its load with the key)."""
     path = tmp_path / "foreign.pyth"
     foreign_checkpoint(path, _tiny_cfg())
-    cfg = _tiny_cfg("TEST.CHECKPOINT_FILE_PATH", str(path), f"TRAIN.{key}", "True")
-    with pytest.raises(NotImplementedError, match=key):
-        load_test_checkpoint(cfg, build_model(cfg, "cpu"))
+    plain = _tiny_cfg("TEST.CHECKPOINT_FILE_PATH", str(path), *CLEARED)
+    cfg = _tiny_cfg("TEST.CHECKPOINT_FILE_PATH", str(path), *CLEARED, f"TRAIN.{key}", "True")
+    got = load_test_checkpoint(cfg, build_model(cfg, "cpu")).module.state_dict()
+    want = load_test_checkpoint(plain, build_model(plain, "cpu")).module.state_dict()
+    jcfg = jax_get_cfg()
+    jcfg.merge_from_list(_tiny_opts("TEST.CHECKPOINT_FILE_PATH", str(path), *CLEARED, f"TRAIN.{key}", "True"))
+    jbundle = jax_load_test_checkpoint(jcfg, jax_build_model(jcfg, rng=jax.random.key(0)))
+    jwant = state_dict_from_vtm_params(jax.tree_util.tree_map(np.asarray, jbundle.params))
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+        np.testing.assert_array_equal(got[k].numpy(), jwant[k].numpy(), err_msg=k)
 
 
 def test_missing_checkpoint_raises(tmp_path):

@@ -712,10 +712,12 @@ def test_what_is_not_ported_raises():
         c.merge_from_list(opts)
         with pytest.raises(NotImplementedError):
             topt.construct_optimizer(c, torch.nn.Linear(2, 2))
+    # the BatchNorm group is ported: its parameters take BN.WEIGHT_DECAY
     bn = torch.nn.Module()
     bn.a_bn = torch.nn.BatchNorm1d(2)
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        topt.construct_optimizer(cfg, bn)
+    c = cfg.clone()
+    c.merge_from_list(["BN.WEIGHT_DECAY", "0.5", "SOLVER.ZERO_WD_1D_PARAM", "True"])
+    assert [g["weight_decay"] for g in topt.construct_optimizer(c, bn)[0].param_groups] == [0.5]
     for opts in (["MASK.ENABLE", "True"], ["DETECTION.ENABLE", "True"], ["MULTIGRID.LONG_CYCLE", "True"],
                  ["TENSORBOARD.ENABLE", "True"], ["MODEL.MODEL_NAME", "ContrastiveModel"]):
         c = cfg.clone()
@@ -739,8 +741,8 @@ def test_what_is_not_ported_raises():
     assert np.isfinite(loss_d.item())
     for n in ("blocks.0.timeattn.qkv.weight", "blocks.1.norm3.weight", "blocks.1.attn.proj.weight"):
         assert not torch.equal(dict(divided.named_parameters())[n], before[n]), n
-    with pytest.raises(NotImplementedError):
-        make_train_step(torch.nn.Linear(2, 2), None, "cross_entropy", False, has_batch_stats=True)
+    # the BatchNorm step is ported (tests/test_torch_slowfast_train.py): it builds
+    assert callable(make_train_step(torch.nn.Linear(2, 2), None, "cross_entropy", False))
     import vtm_torch.train.train_step as ts
 
     with pytest.raises(NotImplementedError):

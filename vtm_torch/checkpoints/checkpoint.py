@@ -2,7 +2,12 @@
 ``vtm/checkpoints/checkpoint.py:26-115``), and the two rules by which a
 foreign checkpoint is taken in (``clear_name_pattern_keys``,
 ``merge_into_template``: copies of ``vtm/checkpoints/checkpoint.py:116-130,
-230-262`` over state dicts).
+230-262`` over state dicts), and for the conv families the BatchNorm
+statistics' rule (``merge_bn_stats``) and the 2-D -> 3-D weight adaptations
+of ``TRAIN.CHECKPOINT_INFLATE`` and ``CHECKPOINT_IN_INIT``
+(``inflate_weights``, ``image_init_adapt``). The module's state dict holds
+the BatchNorm running statistics (buffers), so the port's own checkpoints
+carry and restore them.
 
 One file per epoch, ``<OUTPUT_DIR>/checkpoints/epoch_<N>.pyth``, written
 with ``torch.save``: the module's state dict, the optimizer's state dict
@@ -40,6 +45,7 @@ from torch.nn.parallel import DistributedDataParallel
 
 from vtm_torch.checkpoints.convert import (
     load_motionformer_state_dict,
+    load_pyslowfast_state_dict,
     load_timesformer_state_dict,
     load_torch_state_dict,
     load_videomae_state_dict,
@@ -182,7 +188,87 @@ CHECKPOINT_LOADERS = {
     "Motionformer": lambda sd, config: load_motionformer_state_dict(sd),
     "TimeSformer": _load_timesformer,
     "ViViT": lambda sd, config: load_vivit_state_dict(sd),
+    "SlowFast": lambda sd, config: load_pyslowfast_state_dict(sd),
+    "ResNet": lambda sd, config: load_pyslowfast_state_dict(sd),
+    "X3D": lambda sd, config: load_pyslowfast_state_dict(sd),
 }
+_STATS = ("running_mean", "running_var")
+
+
+def merge_bn_stats(template: Mapping[str, torch.Tensor], converted: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``converted`` with the BatchNorm statistics the template asks for
+    under another name filled in (``vtm/checkpoints/checkpoint.py:263-293``
+    over state dicts): a SubBatchNorm's ``X.split_bn.running_*`` [k * C]
+    that the file lacks is its plain ``X.running_*`` [C] tiled per split,
+    and its ``X.bn.running_*`` the plain ones; a plain ``X.running_*`` that
+    the file lacks is a SubBatchNorm's eval ``X.bn.running_*``. What stays
+    missing keeps the template's (``merge_into_template``)."""
+    out = dict(converted)
+    for name, init in template.items():
+        if name in out or not name.endswith(_STATS):
+            continue
+        pre, leaf = name.rsplit(".", 1)
+        if pre.endswith(".split_bn"):
+            plain = converted.get(f"{pre[:-len('.split_bn')]}.{leaf}")
+            if plain is not None and plain.numel() and init.numel() % plain.numel() == 0:
+                out[name] = plain.repeat(init.numel() // plain.numel())
+        elif pre.endswith(".bn") and f"{pre[:-len('.bn')]}.{leaf}" in converted:
+            out[name] = converted[f"{pre[:-len('.bn')]}.{leaf}"]
+        elif f"{pre}.bn.{leaf}" in converted:
+            out[name] = converted[f"{pre}.bn.{leaf}"]
+    return out
+
+
+def inflate_weights(converted: Mapping[str, torch.Tensor], template: Mapping[str, torch.Tensor]):
+    """``TRAIN.CHECKPOINT_INFLATE`` (``vtm/checkpoints/checkpoint.py:145-168``):
+    a 4-D [O, I, H, W] kernel whose template is 5-D [O, I, T, H, W] is
+    repeated over T and divided by T; everything else passes as it is.
+    Returns the converted tensors only, so ``merge_into_template`` still
+    counts what it loads and keeps."""
+    out = {}
+    for name, cand in converted.items():
+        tgt = template.get(name)
+        if tgt is not None and cand.dim() == 4 and tgt.dim() == 5 and \
+                tuple(cand.shape) == tuple(tgt.shape[:2] + tgt.shape[3:]):
+            logger.info("Inflate %s: %s -> %s", name, tuple(cand.shape), tuple(tgt.shape))
+            cand = cand.unsqueeze(2).repeat(1, 1, tgt.shape[2], 1, 1) / tgt.shape[2]
+        elif tgt is not None and tuple(cand.shape) != tuple(tgt.shape):
+            logger.info("Unexpected %s: %s -|> %s", name, tuple(cand.shape), tuple(tgt.shape))
+        out[name] = cand
+    return out
+
+
+def _interp_linear(arr: torch.Tensor, new_len: int) -> torch.Tensor:
+    """F.interpolate(mode='linear', align_corners=False) along axis 0 of [L, C]."""
+    return torch.nn.functional.interpolate(arr.T[None].double(), size=new_len, mode="linear",
+                                           align_corners=False)[0].T.to(arr.dtype)
+
+
+def image_init_adapt(converted: Mapping[str, torch.Tensor], template: Mapping[str, torch.Tensor]):
+    """``TRAIN.CHECKPOINT_IN_INIT`` (``vtm/checkpoints/checkpoint.py:184-228``):
+    a 4-D kernel repeated over the template's T without the division, a
+    T = 1 kernel repeated to T, a ``rel_pos`` table of another length
+    interpolated linearly; only the template's names are returned."""
+    out = {}
+    for name, tgt in template.items():
+        cand = converted.get(name)
+        if cand is None:
+            continue
+        if tuple(cand.shape) == tuple(tgt.shape):
+            out[name] = cand
+        elif cand.dim() == 4 and tgt.dim() == 5 and tuple(cand.shape) == tuple(tgt.shape[:2] + tgt.shape[3:]):
+            logger.info("image_init: inflate %s to t=%d", name, tgt.shape[2])
+            out[name] = cand.unsqueeze(2).repeat(1, 1, tgt.shape[2], 1, 1)
+        elif cand.dim() == 5 and tgt.dim() == 5 and cand.shape[2] == 1 and \
+                tuple(cand.shape[:2] + cand.shape[3:]) == tuple(tgt.shape[:2] + tgt.shape[3:]):
+            logger.info("image_init: repeat %s to t=%d", name, tgt.shape[2])
+            out[name] = cand.repeat(1, 1, tgt.shape[2], 1, 1)
+        elif "rel_pos" in name and cand.dim() == 2 and tgt.dim() == 2 and cand.shape[1] == tgt.shape[1]:
+            logger.info("image_init: interpolating %s %s -> %s", name, tuple(cand.shape), tuple(tgt.shape))
+            out[name] = _interp_linear(cand, tgt.shape[0])
+        else:
+            out[name] = cand  # merge_into_template keeps the init
+    return out
 
 
 def load_test_checkpoint(cfg, bundle):
@@ -197,7 +283,8 @@ def load_test_checkpoint(cfg, bundle):
 
     A torch file is taken in as the JAX package takes it: the keys renamed
     by ``TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN``, converted by the model's
-    converter, then overlaid on the module's own state dict by
+    converter (the conv families' BatchNorm statistics by ``merge_bn_stats``),
+    adapted by ``TRAIN.CHECKPOINT_INFLATE`` or ``CHECKPOINT_IN_INIT``, then overlaid on the module's own state dict by
     ``merge_into_template``, so that a tensor the file lacks or holds in
     another shape (a head of another class count) keeps its init. A file of
     which no tensor matches raises."""
@@ -216,15 +303,15 @@ def load_test_checkpoint(cfg, bundle):
         raise FileNotFoundError(f"checkpoint {path!r} does not exist")
     if bundle.name not in CHECKPOINT_LOADERS:
         raise NotImplementedError(f"no checkpoint converter for {bundle.name}")
-    for key in ("CHECKPOINT_INFLATE", "CHECKPOINT_IN_INIT"):
-        if getattr(cfg.TRAIN, key):
-            raise NotImplementedError(
-                f"TRAIN.{key}: the conv families' weight adaptation is not ported yet "
-                "(ROADMAP.md Queue 1, item 12)"
-            )
     sd = clear_name_pattern_keys(load_torch_state_dict(path), tuple(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN))
     converted = CHECKPOINT_LOADERS[bundle.name](sd, bundle.module.config)
-    merged, loaded, kept = merge_into_template(full_state_dict(bundle.module), converted)
+    template = full_state_dict(bundle.module)
+    converted = merge_bn_stats(template, converted)
+    if cfg.TRAIN.CHECKPOINT_INFLATE:
+        converted = inflate_weights(converted, template)
+    elif cfg.TRAIN.CHECKPOINT_IN_INIT:
+        converted = image_init_adapt(converted, template)
+    merged, loaded, kept = merge_into_template(template, converted)
     if not loaded:  # the JAX package's converters raise on a file without the backbone's keys
         raise KeyError(f"no tensor of {path!r} matches {bundle.name}'s; "
                        f"TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN may have to strip a prefix")

@@ -22,6 +22,11 @@ is. This module adds:
   * ``named_arrays_from_vtm_tree``: any tree shaped like the JAX package's
     VideoMAE params (parameters, gradients, updated parameters) -> numpy
     arrays under the port's parameter names, for name-by-name comparison;
+  * ``load_pyslowfast_state_dict`` (an upstream PySlowFast ``.pyth`` of
+    SlowFast, ResNet or X3D: the upstream names, which the port keeps),
+    ``pyslowfast_state_dict_from_vtm`` (the inverse of ``vtm``'s
+    ``convert_pyslowfast``: params and BatchNorm statistics),
+    ``caffe2_name_to_pytorch`` and ``convert_caffe2`` (Caffe2 blobs);
   * ``load_torch_state_dict``: a checkpoint file -> a flat state dict.
 """
 
@@ -431,3 +436,116 @@ def vivit_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]
         if name in params:
             sd.update(_dense(params[name], name))
     return sd
+
+
+def load_pyslowfast_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """An upstream PySlowFast state dict (SlowFast, ResNet, X3D ``.pyth``)
+    -> the port's: the DDP ``module.`` prefix stripped, as ``vtm``'s loader
+    strips it, the upstream names kept (the port's modules carry them), and
+    ``num_batches_tracked`` dropped (the port's BatchNorm keeps no count).
+    Nothing is folded: a SubBatchNorm's ``X.bn`` / ``X.split_bn`` statistics
+    keep their names; ``checkpoint.merge_bn_stats`` maps them onto the
+    model's BatchNorms."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        key = k[len("module."):] if k.startswith("module.") else k
+        if key.endswith("num_batches_tracked"):
+            continue
+        out[key] = _t(v)
+    return out
+
+
+def pyslowfast_state_dict_from_vtm(params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """The JAX package's conv-family params and ``batch_stats`` (nested
+    dicts of arrays) -> the port's state dict: the inverse of
+    ``vtm.checkpoints.convert.convert_pyslowfast``. Conv kernels DHWIO ->
+    OIDHW, linear kernels transposed, BN ``scale`` -> ``weight``, ``mean`` /
+    ``var`` -> ``running_mean`` / ``running_var``; a node with
+    ``split_mean`` / ``split_var`` [k, C] is a SubBatchNorm: those become
+    ``split_bn.running_*`` [k * C] and its eval statistics
+    ``bn.running_*``. Any tree of the params' structure goes through
+    (gradients, updated parameters)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(path, leaf, value):
+        sd[".".join(path + [leaf])] = _t(value)
+
+    def walk_params(node, path):
+        for key, v in node.items():
+            if isinstance(v, Mapping):
+                walk_params(v, path + [key])
+                continue
+            a = np.array(v)
+            if key == "kernel":
+                put(path, "weight", np.ascontiguousarray(a.transpose(4, 3, 0, 1, 2) if a.ndim == 5 else a.T))
+            else:
+                put(path, "weight" if key == "scale" else key, a)
+
+    def walk_stats(node, path):
+        if "split_mean" in node:
+            for name in ("mean", "var"):
+                put(path + ["split_bn"], f"running_{name}", np.array(node[f"split_{name}"]).reshape(-1))
+                put(path + ["bn"], f"running_{name}", np.array(node[name]))
+            return
+        for key, v in node.items():
+            if isinstance(v, Mapping):
+                walk_stats(v, path + [key])
+            elif key in ("mean", "var"):
+                put(path, f"running_{key}", np.array(v))
+
+    walk_params(params, [])
+    if batch_stats is not None:
+        walk_stats(batch_stats, [])
+    return sd
+
+
+def caffe2_name_to_pytorch(name: str) -> str:
+    """A Caffe2 blob name -> the PySlowFast module path: copy of
+    ``vtm/checkpoints/convert.py::caffe2_name_to_pytorch`` (the upstream
+    regex table, applied in order)."""
+    pairs = [
+        [r"^nonlocal_conv([0-9]+)_([0-9]+)_(.*)", r"s\1.pathway0_nonlocal\2_\3"],
+        [r"^(.*)_nonlocal([0-9]+)_(theta)(.*)", r"\1_nonlocal\2.conv_\3\4"],
+        [r"^(.*)_nonlocal([0-9]+)_(g)(.*)", r"\1_nonlocal\2.conv_\3\4"],
+        [r"^(.*)_nonlocal([0-9]+)_(phi)(.*)", r"\1_nonlocal\2.conv_\3\4"],
+        [r"^(.*)_nonlocal([0-9]+)_(out)(.*)", r"\1_nonlocal\2.conv_\3\4"],
+        [r"^(.*)_nonlocal([0-9]+)_(bn)_(.*)", r"\1_nonlocal\2.\3.\4"],
+        [r"^t_pool1_subsample_bn_(.*)", r"s1_fuse.bn.\1"],
+        [r"^t_pool1_subsample_(.*)", r"s1_fuse.conv_f2s.\1"],
+        [r"^t_res([0-9]+)_([0-9]+)_branch2c_bn_subsample_bn_(.*)", r"s\1_fuse.bn.\3"],
+        [r"^t_res([0-9]+)_([0-9]+)_branch2c_bn_subsample_(.*)", r"s\1_fuse.conv_f2s.\3"],
+        [r"^res([0-9]+)_([0-9]+)_branch([0-9]+)([a-z])_(.*)", r"s\1.pathway0_res\2.branch\3.\4_\5"],
+        [r"^res_conv1_bn_(.*)", r"s1.pathway0_stem.bn.\1"],
+        [r"^conv1_xy(.*)", r"s1.pathway0_stem.conv_xy\1"],
+        [r"^conv1_(.*)", r"s1.pathway0_stem.conv.\1"],
+        [r"^res([0-9]+)_([0-9]+)_branch([0-9]+)_(.*)", r"s\1.pathway0_res\2.branch\3_\4"],
+        [r"^res_conv1_(.*)", r"s1.pathway0_stem.conv.\1"],
+        [r"^t_res([0-9]+)_([0-9]+)_branch([0-9]+)([a-z])_(.*)", r"s\1.pathway1_res\2.branch\3.\4_\5"],
+        [r"^t_res_conv1_bn_(.*)", r"s1.pathway1_stem.bn.\1"],
+        [r"^t_conv1_(.*)", r"s1.pathway1_stem.conv.\1"],
+        [r"^t_res([0-9]+)_([0-9]+)_branch([0-9]+)_(.*)", r"s\1.pathway1_res\2.branch\3_\4"],
+        [r"^t_res_conv1_(.*)", r"s1.pathway1_stem.conv.\1"],
+        [r"pred_(.*)", r"head.projection.\1"],
+        [r"(.*)b_bn_fc(.*)", r"\1se.fc\2"],
+        [r"conv_5(.*)", r"head.conv_5\1"],
+        [r"lin_5(.*)", r"head.lin_5\1"],
+        [r"(.*)bn.b\Z", r"\1bn.bias"],
+        [r"(.*)bn.s\Z", r"\1bn.weight"],
+        [r"(.*)bn.rm\Z", r"\1bn.running_mean"],
+        [r"(.*)bn.riv\Z", r"\1bn.running_var"],
+        [r"(.*)[\._]b\Z", r"\1.bias"],
+        [r"(.*)[\._]w\Z", r"\1.weight"],
+    ]
+    for source, dest in pairs:
+        name = re.sub(source, dest, name)
+    return name
+
+
+def convert_caffe2(blobs: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """A Caffe2 blob dict -> the port's state dict for the conv families:
+    the momentum blobs, ``model_iter`` and ``lr`` skipped, the names
+    through ``caffe2_name_to_pytorch``, then ``load_pyslowfast_state_dict``
+    (``vtm/checkpoints/convert.py::convert_caffe2``)."""
+    sd = {caffe2_name_to_pytorch(k): np.asarray(v) for k, v in blobs.items()
+          if "momentum" not in k and k not in ("model_iter", "lr")}
+    return load_pyslowfast_state_dict(sd)

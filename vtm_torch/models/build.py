@@ -6,6 +6,11 @@ to ``device``, in eval mode. ``fp32_params=True`` (training) keeps every
 parameter in fp32 and casts at use instead. ``TOME.LAYER_QUANTITY > 1``
 runs block ``TOME.LAYER_TO_DUPLICATE`` that many times
 (``duplication_plan``), merging ``TOME.R_VALUE`` at each of those steps.
+
+The conv families (SlowFast, ResNet, X3D; ``models/slowfast.py``) merge
+nothing: their bundle holds ``MergePolicy()``, their BatchNorm statistics
+are buffers of the module, and, as in ``vtm``, ``bundle.r = ...`` and
+``apply(trace_source=True)`` raise TypeError for them.
 """
 
 from __future__ import annotations
@@ -20,11 +25,15 @@ from vtm_torch.merge.policy import MergePolicy
 from vtm_torch.merge.schedule import parse_r
 
 MODEL_REGISTRY: Dict[str, Callable] = {}
+# model name -> the class of its module, whose attributes say what tensor
+# parallelism does to it (``parallel/sharding.py``)
+MODEL_CLASSES: Dict[str, type] = {}
 
 
-def register_model(name: str):
+def register_model(name: str, module_class: type):
     def deco(fn):
         MODEL_REGISTRY[name] = fn
+        MODEL_CLASSES[name] = module_class
         return fn
 
     return deco
@@ -53,6 +62,8 @@ class ModelBundle:
         draws the random modes' scores; ``trace_source=True`` tracks the
         merge sources for this call (``state.source``) even if the policy
         was built without."""
+        if trace_source:
+            self._merging()
         if not trace_source or self.policy.trace_source:
             return self.module(x, generator=generator)
         policy = self.policy
@@ -68,8 +79,13 @@ class ModelBundle:
         the per-layer merge schedule; assign int | (r, inflect) | [r0, r1, ...]."""
         return self.policy.rs
 
+    def _merging(self) -> None:
+        if not hasattr(self.module, "layer_schedule"):
+            raise TypeError(f"{type(self.module).__name__} merges no tokens: it has no merge schedule")
+
     @r.setter
     def r(self, value):
+        self._merging()
         # duplicated blocks lengthen the executed stack, and r is parsed
         # against it
         schedule = self.module.layer_schedule

@@ -459,7 +459,7 @@ class Motionformer(nn.Module):
         return self._head(self.head, feats), state
 
 
-@register_model("Motionformer")
+@register_model("Motionformer", Motionformer)
 def _build_motionformer(cfg, fp32_params: bool = False) -> ModelBundle:
     """Construct from a config (the keys ``vtm.models.motionformer._build_motionformer``
     reads). Like that function it leaves ``train_mode`` off."""

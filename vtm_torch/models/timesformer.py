@@ -332,7 +332,7 @@ from vtm_torch.models.build import (  # noqa: E402
 )
 
 
-@register_model("TimeSformer")
+@register_model("TimeSformer", TimeSformer)
 def _build_timesformer(cfg, fp32_params: bool = False) -> ModelBundle:
     """Construct from a config (the keys ``vtm.models.timesformer._build_timesformer``
     reads). Merging runs on the CLS-stripped per-frame tokens, so the

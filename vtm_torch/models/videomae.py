@@ -305,7 +305,7 @@ from vtm_torch.models.build import (  # noqa: E402
 )
 
 
-@register_model("VideoMAE")
+@register_model("VideoMAE", VideoMAE)
 def _build_videomae_bundle(cfg, fp32_params: bool = False) -> ModelBundle:
     if cfg.VIDEOMAE.ATTN_DROP_RATE > 0:
         raise NotImplementedError(

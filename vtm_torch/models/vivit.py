@@ -256,7 +256,7 @@ from vtm_torch.models.build import (  # noqa: E402
 )
 
 
-@register_model("ViViT")
+@register_model("ViViT", ViViT)
 def _build_vivit(cfg, fp32_params: bool = False) -> ModelBundle:
     """Construct from a config (the keys ``vtm.models.vivit._build_vivit``
     reads): the architecture from the json at ``VIVIT.CONFIG_PATH``."""

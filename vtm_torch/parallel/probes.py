@@ -11,6 +11,10 @@ data for the launching process to hold against a one-process run:
     gradients the optimizer saw and the parameters after, each gathered
     whole (or their sha256), the Matchings of the first forward, the cut
     shapes and the kernels' launches.
+  * ``bn_probe``: a conv and a BatchNorm with its statistics over the
+    group's global batch (``convnet.set_sync_group``), plain or with
+    sub-batch splits: output rows, the gradients of the global loss and
+    the running statistics after one train-mode forward;
   * ``eval_probe``: one eval forward of this rank's rows: the logits of
     the whole batch, the Matchings, the tokens entering each block, the
     head counts the dense kernel saw and its launches;
@@ -107,6 +111,11 @@ def _whole_state(module, want_state: bool) -> dict:
     return {k: digest(v) for k, v in sd.items()}
 
 
+def _buffers(module, want_state: bool) -> dict:
+    """The module's buffers (the conv families' BatchNorm statistics)."""
+    return {k: (v.float().cpu().numpy() if want_state else digest(v)) for k, v in module.named_buffers()}
+
+
 def _cut_shapes(module) -> dict:
     return {n: tuple(p.shape) for n, p in module.named_parameters() if is_cut(p)}
 
@@ -149,12 +158,42 @@ def train_probe(cfg, device, spec, frames, labels, want_state: bool = True,
     launches = {c: n - before[c] for c, n in launch_counts().items()}
     logits = process_allgather(logits, mesh.data_group)
     out = dict(rank=mesh.rank, mesh=mesh.shape, loss=float(loss), aux=[float(a) for a in aux], grads=grads,
-               state=_whole_state(module, want_state), cut_shapes=_cut_shapes(module),
+               state=_whole_state(module, want_state), buffers=_buffers(module, want_state),
+               cut_shapes=_cut_shapes(module),
                matchings=seen.get("matchings", []), launches=launches,
                logits=tuple(l.float().cpu() for l in logits) if isinstance(logits, tuple) else logits.float().cpu())
     if checkpoint_dir is not None:
         out["checkpoint"] = cu.save_checkpoint(checkpoint_dir, module, trainer.optimizer, 0, cfg)
     return out
+
+
+def bn_probe(cfg, device, state: dict, x, weights, num_splits: int) -> dict:
+    """``conv3d`` (4 -> 6 channels, 1x3x3) then ``BatchNorm(num_splits)`` in
+    training mode on this rank's rows of ``x`` [B, 4, T, H, W] (numpy, the
+    global batch), the statistics over the default group; the loss is the
+    global mean of (output * ``weights``) per row. Returns this rank's output
+    rows, its rows' input gradient and the parameters' gradients, both of
+    the global loss, and the running statistics."""
+    from vtm_torch.models.convnet import BatchNorm, NormSpec, conv3d, set_sync_group
+
+    mesh = make_mesh(1, batch_cap=x.shape[0], device_type=device.type)
+    net = torch.nn.Sequential(conv3d(4, 6, (1, 3, 3), bias=True), BatchNorm(6, NormSpec(), num_splits=num_splits))
+    net.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in state.items()})
+    net = net.to(device).train()
+    set_sync_group(net, mesh.data_group)
+    xs = torch.as_tensor(shard_batch(mesh, x), device=device).requires_grad_(True)
+    y = net(xs)
+    w = torch.as_tensor(shard_batch(mesh, weights), device=device)
+    # this rank's share of the global mean: the backward's all-reduce of the
+    # statistics then gives every row its gradient of the global loss
+    ((y * w).sum() / x.shape[0]).backward()
+    grads = {n: p.grad.clone() for n, p in net.named_parameters()}
+    if mesh.data > 1:
+        for g in grads.values():
+            torch.distributed.all_reduce(g, group=mesh.data_group)
+    return dict(out=y.detach().cpu().numpy(), x_grad=xs.grad.cpu().numpy(),
+                grads={n: g.cpu().numpy() for n, g in grads.items()},
+                buffers={k: v.cpu().numpy() for k, v in net.named_buffers()})
 
 
 def eval_probe(cfg, device, spec, video) -> dict:
@@ -194,7 +233,7 @@ def _model_benchmark(cfg, device):
     return model_benchmark(cfg, device)
 
 
-PROBES = {"train": train_probe, "eval": eval_probe, "test_net": _test_net, "model_benchmark": _model_benchmark}
+PROBES = {"train": train_probe, "eval": eval_probe, "bn": bn_probe, "test_net": _test_net, "model_benchmark": _model_benchmark}
 
 
 def run_probes(cfg, device, plan) -> list:

@@ -33,8 +33,10 @@ Each cut parameter carries its ``Cut`` (``param.tp_cut``), from which
 this rank's piece of a whole tensor; the optimizer's state follows the
 same cuts (``full_optimizer_state``, ``load_optimizer_state``).
 
-Cut: VideoMAE and ViViT, the dense-attention families. TimeSformer and
-Motionformer raise (ROADMAP.md Queue 1, item 15).
+Cut: VideoMAE and ViViT, the dense-attention families (their classes'
+``supports_tensor_parallel``). The conv families (SlowFast, ResNet, X3D)
+stay whole on every rank of a model group (``replicated_over_model``).
+TimeSformer and Motionformer raise (ROADMAP.md Queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -55,12 +57,16 @@ _HEAD_BIASES = ("q_bias", "v_bias")
 # fused projections: parts cut alike (q, k, v)
 _FUSED = {"qkv": 3}
 
-TENSOR_PARALLEL_MODELS = ("VideoMAE", "ViViT")
 
 
 def check_tensor_parallel(cfg) -> None:
-    """Raise for ``TPU.MODEL_PARALLEL`` > 1 on a family that has no cuts."""
-    if cfg.TPU.MODEL_PARALLEL > 1 and cfg.MODEL.MODEL_NAME not in TENSOR_PARALLEL_MODELS:
+    """Raise for ``TPU.MODEL_PARALLEL`` > 1 on a family that has no cuts and
+    is not held whole on every rank, before its model is built."""
+    from vtm_torch.models import MODEL_CLASSES
+
+    module_class = MODEL_CLASSES.get(cfg.MODEL.MODEL_NAME)
+    if cfg.TPU.MODEL_PARALLEL > 1 and not (getattr(module_class, "supports_tensor_parallel", False)
+                                          or getattr(module_class, "replicated_over_model", False)):
         raise NotImplementedError(
             f"TPU.MODEL_PARALLEL > 1 for {cfg.MODEL.MODEL_NAME}: its tensor-parallel cuts "
             "are not ported yet (ROADMAP.md Queue 1, item 15)"
@@ -94,6 +100,30 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """All-reduce (sum) forward, all-reduce (sum) backward: a sum over the
+    group whose every rank's loss depends on every rank's part, as the
+    BatchNorm statistics of the global batch do."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, its gradient summed over it too."""
+    return _AllReduceSum.apply(x, group)
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
@@ -168,7 +198,7 @@ def shard_module(module: nn.Module, mesh) -> nn.Module:
     and the model group set where the model code applies ``f`` (modules
     with a column-cut child) and ``g`` (row-cut ``Linear``s). Build the
     optimizer after this. A no-op at model width 1."""
-    if mesh.model == 1:
+    if mesh.model == 1 or getattr(module, "replicated_over_model", False):
         return module
     if not getattr(module, "supports_tensor_parallel", False):
         raise NotImplementedError(

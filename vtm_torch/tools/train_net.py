@@ -15,10 +15,16 @@ checkpoint to start from, loaded as ``TEST.CHECKPOINT_FILE_PATH`` is
 cleared), as in the JAX package.
 
 Ported: the supervised transformer path (VideoMAE, Motionformer, TimeSformer
-and ViViT; single head and the EPIC-KITCHENS verb/noun heads; mixup). A Motionformer built
+and ViViT; single head and the EPIC-KITCHENS verb/noun heads; mixup), and the
+conv families (SlowFast, ResNet, X3D) with their BatchNorm: the running
+statistics update in the train step (kept under ``MODEL.FROZEN_BN``), the
+BatchNorm parameter group's ``BN.WEIGHT_DECAY``, and on checkpoint and eval
+epochs first precise statistics (``BN.USE_PRECISE_STATS``,
+``train/precise_bn.py``) and then the SubBatchNorm fold
+(``BN.NORM_TYPE sub_batchnorm``), in ``vtm``'s order. A Motionformer built
 from a config keeps its softmax head (``build_model`` sets no
 ``train_mode``, as in the JAX package), so its loss sees probabilities. Contrastive, detection and masked
-pretraining, multigrid, the BatchNorm families, the chunked-csv rotation,
+pretraining, multigrid, the chunked-csv rotation, multi-label training,
 tensorboard and wandb are not ported yet and raise where a config asks
 for them. ``TRAIN.KILL_LOSS_EXPLOSION_FACTOR`` stops the run on a NaN or
 infinite loss only, as in the JAX package.
@@ -33,7 +39,12 @@ loads and steps on its rows of each global batch, with step generators
 seeded from (seed, epoch, iter, data rank), so that the ranks of one
 model group draw the same masks. Meters get the global batch's loss and
 errors (all-reduced), logging is rank 0's, and checkpoints hold the
-whole model (every rank saves, rank 0 writes). Mixup pairs row i with
+whole model (every rank saves, rank 0 writes). The conv families'
+BatchNorms take their statistics over the data group's global batch, for
+every ``BN.NORM_TYPE`` (``convnet.set_sync_group``; ``BN.NUM_SYNC_DEVICES``
+is ignored, as in ``vtm``); nothing of theirs is cut at a model width
+above 1 (``vtm``'s name rules cut none of their matrices), so the ranks of a
+model group are replicas. Mixup pairs row i with
 row B - 1 - i of each rank's rows (upstream SlowFast mixes per GPU
 alike), where ``vtm`` mixes the global batch, so a data-parallel run
 with mixup is not ``vtm``'s; λ and the box come from one seed, the same
@@ -60,11 +71,13 @@ from vtm_torch.data import construct_loader, shuffle_dataset
 from vtm_torch.eval.meters import EPICTrainMeter, EPICValMeter, TrainMeter, ValMeter
 from vtm_torch.eval.metrics import multitask_topk_accuracies, topk_accuracies, topk_errors
 from vtm_torch.models import ModelBundle, build_model
+from vtm_torch.models.convnet import aggregate_subbn_stats, batchnorms, set_sync_group
 from vtm_torch.parallel import launch
 from vtm_torch.parallel.mesh import Mesh, all_mean, entry_device, gather_rows, make_mesh, replicate
 from vtm_torch.parallel.sharding import check_tensor_parallel, shard_module
 from vtm_torch.train.mixup import MixUp
 from vtm_torch.train.optimizer import construct_optimizer, set_lr
+from vtm_torch.train.precise_bn import compute_precise_bn_stats
 from vtm_torch.train.train_step import make_eval_step, make_train_step
 from vtm_torch.utils.logging import get_logger, setup_logging
 
@@ -230,11 +243,14 @@ def build_trainer(cfg, device: Optional[torch.device | str] = None,
         shard_module(replicate(mesh, module), mesh)
     optimizer, lr_at = construct_optimizer(cfg, module, num_layers=module.config.depth)
     optimizer.model_group = mesh.model_group if mesh.model > 1 else None
+    set_sync_group(module, mesh.data_group if mesh.data > 1 else None)
     stepped = module
     if mesh.device_mesh is not None:
         stepped = DistributedDataParallel(
+            # BatchNorm statistics are the data group's, equal on every rank:
+            # a broadcast of rank 0's buffers would only cost a collective
             module, device_ids=[device] if device.type == "cuda" else None,
-            process_group=mesh.data_group, broadcast_buffers=False,  # no buffer changes in a step
+            process_group=mesh.data_group, broadcast_buffers=False,
             # every parameter of every family gets a gradient in every step,
             # a zero one included (the k biases under a softmax, Motionformer's
             # last trajectory projections): tests/test_torch_parallel.py
@@ -302,11 +318,29 @@ def train(cfg, device: Optional[torch.device | str] = None):
         shuffle_dataset(train_loader, cur_epoch)
         train_epoch(train_loader, train_step, optimizer, lr_at, cur_epoch, train_meter, cfg,
                     device, multi_head, mixup_fn=mixup_fn, mesh=mesh)
-        if (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0:
+        is_ckpt = (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0
+        is_eval = (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0
+        refresh_bn_stats(cfg, module, train_loader, device, cur_epoch, mesh, is_ckpt or is_eval)
+        if is_ckpt:
             cu.save_checkpoint(cfg.OUTPUT_DIR, module, optimizer, cur_epoch, cfg)
-        if (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0:
+        if is_eval:
             eval_epoch(val_loader, eval_step, val_meter, cur_epoch, device, multi_head, mesh)
     return module
+
+
+def refresh_bn_stats(cfg, module, loader, device, cur_epoch: int, mesh: Mesh = Mesh(), due: bool = True) -> None:
+    """Before a checkpoint or an eval epoch (``due``), ``vtm``'s order
+    (tools/train_net.py:626-645): precise BatchNorm statistics over
+    ``min(BN.NUM_BATCHES_PRECISE, len(loader))`` batches, then the
+    SubBatchNorm fold. A no-op for a module without BatchNorms."""
+    if not due or not batchnorms(module):
+        return
+    if cfg.BN.USE_PRECISE_STATS:
+        # the masks of the iteration after the epoch's last
+        generator = _step_generator(device, cfg.RNG_SEED, cur_epoch, len(loader), *mesh.rank_path)
+        compute_precise_bn_stats(module, loader, min(cfg.BN.NUM_BATCHES_PRECISE, len(loader)), device, generator)
+    if cfg.BN.NORM_TYPE == "sub_batchnorm":
+        aggregate_subbn_stats(module)
 
 
 def _train(cfg, device) -> None:

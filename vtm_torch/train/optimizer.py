@@ -18,8 +18,10 @@ head's by 1. Gradient clipping (``SOLVER.CLIP_GRAD_L2NORM`` by global
 norm, else ``SOLVER.CLIP_GRAD_VAL`` by value) runs in ``apply_update``
 before the optimizer's step.
 
-LARS (``SOLVER.LARS_ON``) and the BatchNorm group belong to the conv and
-contrastive families and raise until those are ported.
+The conv families' BatchNorm parameters (any name segment ending in
+``bn``) take ``BN.WEIGHT_DECAY``, ahead of ``SOLVER.ZERO_WD_1D_PARAM``, as
+in the JAX package. LARS (``SOLVER.LARS_ON``) belongs to the contrastive
+family and raises until it is ported.
 """
 
 from __future__ import annotations
@@ -84,17 +86,18 @@ def construct_optimizer(
     step with ``apply_update``."""
     method = cfg.SOLVER.OPTIMIZING_METHOD
     if getattr(cfg.SOLVER, "LARS_ON", False):
-        raise NotImplementedError("SOLVER.LARS_ON: LARS is not ported yet (contrastive family)")
-    wd = cfg.SOLVER.WEIGHT_DECAY
+        raise NotImplementedError("SOLVER.LARS_ON: LARS is not ported yet (contrastive family, ROADMAP.md Queue 1, item 19)")
+    # float(): PyYAML reads an exponent without a dot (the SlowFast yamls'
+    # 1e-4) as a string, which the JAX package passes on and fails on
+    wd, bn_wd = float(cfg.SOLVER.WEIGHT_DECAY), float(cfg.BN.WEIGHT_DECAY)
     ld = cfg.SOLVER.LAYER_DECAY
 
     groups = {}  # (weight decay, lr scale) -> parameters, in first-seen order
     for name, param in module.named_parameters():
         if not param.requires_grad:
             continue
-        if _is_bn(name):
-            raise NotImplementedError(f"{name}: the BatchNorm group is not ported yet (conv families)")
-        decay = 0.0 if _is_zero_wd(cfg, name, param) else wd
+        # BN.WEIGHT_DECAY for every BatchNorm parameter, ahead of ZERO_WD_1D_PARAM
+        decay = bn_wd if _is_bn(name) else (0.0 if _is_zero_wd(cfg, name, param) else wd)
         scale = ld ** (num_layers + 1 - _layer_id(name, num_layers)) if ld < 1.0 else 1.0
         groups.setdefault((decay, scale), []).append(param)
 

@@ -1,5 +1,5 @@
 """Training-step construction: loss, backward, optimizer update (port of
-``vtm/train/train_step.py`` for the families without BatchNorm).
+``vtm/train/train_step.py``).
 
 The JAX step is a pure function of (params, opt_state); here the module's
 parameters and the optimizer's state are updated in place, and the step
@@ -17,8 +17,17 @@ run under ``no_sync()``, so one all-reduce carries the k-step sum. The
 returned loss (and aux) is the global batch's mean too, all-reduced over
 ``data_group``; the logits stay this rank's rows.
 
-The BatchNorm, detection, MAE, MaskFeat and contrastive steps are not
-ported yet and raise.
+The conv families' BatchNorm step is the same step: in training mode the
+module's BatchNorms normalise with the batch's statistics and update their
+running statistics (buffers) in place, which is what ``vtm``'s step returns
+as the new ``batch_stats``; under
+``MODEL.FROZEN_BN`` they keep them. Under data parallelism ``train_net``
+points the BatchNorms at the data group (``convnet.set_sync_group``), so the
+statistics are the global batch's. Their eval step is ``make_eval_step``: a
+forward in eval mode on the running statistics.
+
+The detection, MAE, MaskFeat and contrastive steps are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -41,7 +50,6 @@ def make_train_step(
     loss_name: str,
     multi_head: bool,
     accumulate_steps: int = 1,
-    has_batch_stats: bool = False,
     data_group=None,
 ) -> Callable:
     """Returns ``step(frames, labels, generator=None) -> (loss, logits,
@@ -50,8 +58,6 @@ def make_train_step(
     (verb, noun) pair of losses. ``generator`` draws the dropout and
     stochastic-depth masks. loss, logits and aux are detached; with
     ``data_group``, loss and aux are the means over its ranks."""
-    if has_batch_stats:
-        raise NotImplementedError("the BatchNorm train step is not ported yet (conv families)")
     base_loss = loss_lib.get_loss_func(loss_name)
     k = max(1, int(accumulate_steps))
     micro_step = 0
@@ -92,12 +98,10 @@ def _global_mean(x: torch.Tensor, group) -> torch.Tensor:
     return x / dist.get_world_size(group)
 
 
-def make_eval_step(module: nn.Module, batch_stats=None) -> Callable:
+def make_eval_step(module: nn.Module) -> Callable:
     """Returns ``step(frames, generator=None) -> logits``: a forward in eval
     mode without autograd; ``generator`` draws the random merge modes'
-    scores."""
-    if batch_stats is not None:
-        raise NotImplementedError("the BatchNorm eval step is not ported yet (conv families)")
+    scores. The conv families' BatchNorms then use their running statistics."""
 
     def step(frames, generator: Optional[torch.Generator] = None):
         module.eval()
@@ -116,7 +120,6 @@ def _not_ported(name: str):
     return raiser
 
 
-make_bn_eval_step = _not_ported("make_bn_eval_step")
 make_detection_eval_step = _not_ported("make_detection_eval_step")
 make_detection_train_step = _not_ported("make_detection_train_step")
 make_mae_train_step = _not_ported("make_mae_train_step")
