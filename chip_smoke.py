@@ -178,6 +178,27 @@ Phases, each printing one JSON line:
                   small I3D (non-local)
                   and X3D-XS eval forwards checked as SlowFast's. Asserts that
                   no K1-K5b (nor T1-T12) launched, the ranks' included
+     ptv       -- the PTV families, fp32: CSN 32x2 R101 and R(2+1)D 16x4
+                  R50 (``CSN_OPTS``, ``R2PLUS1D_OPTS``: what the names of
+                  PySlowFast's pytorchvideo configs fix) at full width, the
+                  card against the CPU at B1 / B2 (TF32 off, BatchNorms
+                  moved); perform_benchmark at B8 on 224, TF32 off and on;
+                  CSN's depthwise conv_b timed forward and weight gradient
+                  beside its bound; 3 train steps at B8 with BN.NORM_TYPE
+                  sub_batchnorm, 2 splits (every split statistic moves, the
+                  fold into the eval statistics holds, a reload gives the
+                  same next loss). No K1-K5b
+     multigrid -- train_net.train under the long cycle on R(2+1)D (the
+                  schedule squeezed to one epoch a shape: B16 T4 S158, B8
+                  T8 S158, B4 T8 S224, B2 T16 S224), each epoch's batches
+                  the schedule's, its BatchNorm splits its NORM_TYPE's,
+                  parameters and optimizer state the same bits across each
+                  flip; the short cycle on SlowFast (B8 at 112, B4 at 158,
+                  B2 at 224). A line an epoch. No K1-K5b
+     charades  -- multi-label R(2+1)D (157 classes, bce_logit) on a
+                  Charades frame-list set written under build/: one epoch of
+                  train_net.train with the val mAP, then test_net.test over
+                  2 views x 3 crops, the mAP finite in [0, 1]. No K1-K5b
      dist      -- the parallel paths (vtm_torch/parallel) at ViT-B width,
                   bf16, B8, each against the same run in this process: NCCL
                   at world size 1, train_net's DDP step on the EPIC config
@@ -256,6 +277,7 @@ from vtm_torch.tools import ab_dense
 from vtm_torch.tools.kernel_times import FWD_DIGEST_CASES, device_ms, forward_digests
 from vtm_torch.tools import test_net
 from vtm_torch.tools.model_benchmark import model_benchmark, perform_benchmark
+from vtm_torch.tools import train_net
 from vtm_torch.tools.train_net import build_trainer, refresh_bn_stats, train
 from vtm_torch.train.optimizer import set_lr
 from vtm_torch.utils.benchmark import device_seconds
@@ -1131,6 +1153,56 @@ X3D_XS_OPTS = ["MODEL.MODEL_NAME", "X3D", "MODEL.ARCH", "x3d", "MODEL.NUM_CLASSE
                "X3D.DEPTH_FACTOR", "2.2", "X3D.BOTTLENECK_FACTOR", "2.25", "X3D.DIM_C5", "2048",
                "X3D.DIM_C1", "12", "DATA.NUM_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "160", "DATA.TEST_CROP_SIZE", "160"]
 
+# The PTV families. The repo ships no PTV yaml: these lists hold what the
+# names of PySlowFast's public configs fix, and take the port's defaults for
+# the rest. configs/Kinetics/pytorchvideo/CSN_32x2_R101.yaml:
+CSN_OPTS = [
+    "MODEL.MODEL_NAME", "PTVCSN",
+    "RESNET.DEPTH", "101",
+    "RESNET.WIDTH_PER_GROUP", "64",
+    "DATA.NUM_FRAMES", "32",
+    "DATA.SAMPLING_RATE", "2",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TEST_CROP_SIZE", "224",
+    "MODEL.NUM_CLASSES", "400",
+]
+# configs/Kinetics/pytorchvideo/R2PLUS1D_16x4_R50.yaml:
+R2PLUS1D_OPTS = [
+    "MODEL.MODEL_NAME", "PTVR2plus1D",
+    "RESNET.DEPTH", "50",
+    "RESNET.WIDTH_PER_GROUP", "64",
+    "DATA.NUM_FRAMES", "16",
+    "DATA.SAMPLING_RATE", "4",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TEST_CROP_SIZE", "224",
+    "MODEL.NUM_CLASSES", "400",
+]
+PTV_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_ptv"
+PTV_RUN_OPTS = ["TRAIN.DATASET", "synthetic", "TEST.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "8",
+                "TEST.BATCH_SIZE", "8", "TRAIN.AUTO_RESUME", "False", "SOLVER.OPTIMIZING_METHOD", "sgd",
+                "SOLVER.BASE_LR", "0.01"]
+PTV_SUB_BN = ["BN.NORM_TYPE", "sub_batchnorm", "BN.NUM_SPLITS", "2"]
+PTV_CPU_TOL = 1e-4  # the card's fp32 logits (TF32 off) against the CPU's, of the largest
+PTV_TRAIN_STEPS = 3
+PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (a depthwise conv's)
+# the multigrid phase: the long cycle on R(2+1)D 16x4 R50 squeezed to one
+# epoch a shape (T 4 at 158 B16, T 8 at 158 B8, T 8 at 224 B4, T 16 at 224 B2
+# from B2, with 16 synthetic clips: 1, 2, 4 and 8 iterations), then the
+# short cycle on SlowFast 8x8 R50 (its head pools globally there; R(2+1)D's
+# pool does not fit a short-cycle crop, ROADMAP.md Queue 3): one epoch of
+# the three phases, B8 at 112, B4 at 158, B2 at 224
+MG_LONG_OPTS = ["TRAIN.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "2", "TRAIN.AUTO_RESUME", "False",
+                "TRAIN.EVAL_PERIOD", "100", "TRAIN.CHECKPOINT_PERIOD", "100", "SOLVER.OPTIMIZING_METHOD", "sgd",
+                "SOLVER.BASE_LR", "0.001", "SOLVER.LR_POLICY", "steps_with_relative_lrs", "SOLVER.STEPS", "[0, 3]",
+                "SOLVER.LRS", "[1, 0.1]", "SOLVER.MAX_EPOCH", "8", "MULTIGRID.LONG_CYCLE", "True",
+                "MULTIGRID.EPOCH_FACTOR", "0.5"]
+MG_SHORT_OPTS = ["TRAIN.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "2", "TRAIN.AUTO_RESUME", "False",
+                 "SOLVER.MAX_EPOCH", "1", "MULTIGRID.SHORT_CYCLE", "True", "MULTIGRID.EPOCH_FACTOR", "1.0"]
+# the charades phase: R(2+1)D 16x4 R50, 157 classes, multi-label, on frame
+# lists written under build/ (8 videos of 64 JPEG frames)
+CHARADES_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_charades"
+CHARADES_VIDEOS, CHARADES_FRAMES, CHARADES_CLASSES = 8, 64, 157
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -1151,6 +1223,7 @@ mf_cfg, mf_train_cfg = cfg_maker(MOTIONFORMER_OPTS), cfg_maker(MF_TRAIN_OPTS)
 ts_cfg, ts_train_cfg = cfg_maker(TS_OPTS), cfg_maker(TS_TRAIN_OPTS)
 vivit_cfg, vivit_train_cfg = cfg_maker(VIVIT_OPTS), cfg_maker(VIVIT_TRAIN_OPTS)
 sf_cfg = cfg_maker(SLOWFAST_OPTS)
+csn_cfg, r2plus1d_cfg = cfg_maker(CSN_OPTS), cfg_maker(R2PLUS1D_OPTS)
 
 
 def launch_counts() -> dict:
@@ -3490,6 +3563,388 @@ def phase_slowfast(smi: str) -> None:
     emit("slowfast", launches=total, ranks_launches=ranks_launched, nvidia_smi=smi)
 
 
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """``obj``'s attributes set to ``attrs`` inside, restored after."""
+    saved = {name: getattr(obj, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(obj, name, value)
+
+
+def check_no_attention_launches(phase: str) -> dict:
+    """The kernels' counts, read right after a path that must launch none."""
+    total = launch_counts()
+    check(all(n == 0 for n in total.values()) and all(n == 0 for n in ab_attention.AB_LAUNCHES.values()),
+          f"{phase} launched an attention kernel: {total}, {ab_attention.AB_LAUNCHES}")
+    return total
+
+
+def ptv_card_against_cpu(cfg, batch: int, seed: int) -> dict:
+    """One eval forward of ``cfg``'s model at B``batch``, every BatchNorm
+    moved off its init (``moved_bn``, each block's final one about 0.2), on
+    the CPU and on the card in fp32 with TF32 off: the projection's logits
+    averaged over T, H, W; the card's largest error relative to the CPU's
+    largest logit, within PTV_CPU_TOL."""
+    module = build_model(cfg, "cpu").module
+    moved_bn(module, seed, 0.2)
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((batch, t, s, s, 3)).astype(np.float32))
+
+    def logits(x):
+        seen = []
+        hook = module.head.projection.register_forward_hook(lambda m, a, out: seen.append(out))
+        try:
+            with torch.inference_mode():
+                module(x)
+        finally:
+            hook.remove()
+        return seen[0].mean(dim=(1, 2, 3)).double().cpu().numpy()
+
+    tick = time.perf_counter()
+    cpu = logits(x)
+    cpu_seconds = time.perf_counter() - tick
+    module.to("cuda")
+    with tf32(False):
+        card = logits(x.cuda())
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(card - cpu).max()) / scale
+    check(np.isfinite(cpu).all() and cpu.shape == (batch, cfg.MODEL.NUM_CLASSES) and err <= PTV_CPU_TOL,
+          f"{cfg.MODEL.MODEL_NAME}: card against CPU {err} of the largest logit {scale}")
+    return dict(batch=batch, frames=t, crop=s, largest_logit=scale, rel_err=err, cpu_seconds=cpu_seconds)
+
+
+def depthwise_conv_times(module, cfg) -> list:
+    """CSN's depthwise ``conv_b`` (3x3x3, groups = width) of blocks 0 and 1
+    of each stage at the shapes a B8 forward gives them: the cuDNN
+    forward and weight gradient by CUDA events in fp32 (TF32 off; no tensor
+    core takes a depthwise conv), with the input in ``channels_last_3d`` (as
+    the model keeps it) and in NCDHW, beside the bound: the larger of the
+    bytes (input, output, weight once each) at 3.35 TB/s and 2 x 27 flops an
+    output element at fp32's 67 TFLOP/s."""
+    shapes = {}
+    hooks = []
+    for i in (2, 3, 4, 5):
+        for j in (0, 1):
+            conv = getattr(module, f"s{i}")._modules[f"res_{j}"].branch2.conv_b
+            hooks.append(conv.register_forward_hook(
+                lambda m, a, out, key=(i, j): shapes.__setitem__(key, (m, tuple(a[0].shape), tuple(out.shape)))))
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    try:
+        with torch.inference_mode():
+            module(torch.zeros(cfg.TEST.BATCH_SIZE, t, s, s, 3, device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = []
+    with tf32(False):
+        for (i, j), (conv, xin, xout) in sorted(shapes.items()):
+            w = conv.weight.detach()
+            flops = 2.0 * 27 * int(np.prod(xout))
+            row = dict(stage=f"s{i}.res_{j}", input=xin, output=xout, stride=conv.stride, **{
+                f"bound_ms_{what}": max(4.0 * (int(np.prod(xin)) + int(np.prod(xout)) + w.numel()) / PEAK_BYTES_PER_S,
+                                        flops / PEAK_FP32_FLOPS) * 1e3 for what in ("fwd", "wgrad")})
+            for label, fmt in (("channels_last_3d", torch.channels_last_3d), ("ncdhw", torch.contiguous_format)):
+                x = torch.randn(xin, device="cuda").contiguous(memory_format=fmt)
+                grad = torch.randn(xout, device="cuda").contiguous(memory_format=fmt)
+                wf = w.contiguous(memory_format=fmt)
+                row[f"fwd_ms_{label}"] = cuda_ms(lambda: F.conv3d(x, wf, None, conv.stride, conv.padding,
+                                                                  conv.dilation, conv.groups), iters=10)
+                row[f"wgrad_ms_{label}"] = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                    grad, x, wf, None, conv.stride, conv.padding, conv.dilation, False, [0, 0, 0], conv.groups,
+                    [False, True, False]), iters=10)
+            rows.append(row)
+            del x, grad, wf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_subbn_fold(module) -> float:
+    """After ``refresh_bn_stats`` under ``sub_batchnorm``: each BatchNorm's
+    eval mean the mean of its split means (bit for bit, the same reduction),
+    its eval variance the mean of the split variances plus the variance of
+    the split means. Returns the variance's largest relative error."""
+    worst = 0.0
+    for bn in convnet.batchnorms(module):
+        k = bn.num_splits
+        mean, var = bn.split_bn.running_mean.view(k, -1), bn.split_bn.running_var.view(k, -1)
+        check(torch.equal(bn.bn.running_mean, mean.mean(dim=0)), "sub-BN fold: the eval mean is not the splits'")
+        want = var.mean(dim=0) + (mean - mean.mean(dim=0)).square().mean(dim=0)
+        worst = max(worst, float(((bn.bn.running_var - want).abs() / want.abs().max()).max()))
+    check(worst <= 1e-6, f"sub-BN fold: the eval variance {worst} from the splits'")
+    return worst
+
+
+def phase_ptv(smi: str) -> None:
+    """CSN 32x2 R101 and R(2+1)D 16x4 R50 (``CSN_OPTS``, ``R2PLUS1D_OPTS``)
+    at full width, fp32: the card against the CPU at B1 / B2
+    (``ptv_card_against_cpu``); ``perform_benchmark`` at B8, TF32 off and
+    on; CSN's depthwise conv (``depthwise_conv_times``); then 3 train steps
+    at B8 under ``BN.NORM_TYPE sub_batchnorm`` with 2 splits (the loss
+    finite, every split statistic moved), where one step's device time goes
+    (torch.profiler), the fold of the split statistics
+    (``refresh_bn_stats``, ``check_subbn_fold``), and a checkpoint that
+    reloads to the same next loss (cuDNN deterministic). No K1-K5b may
+    launch. One JSON line a check, with seconds."""
+    shutil.rmtree(PTV_OUT, ignore_errors=True)
+    cuda = torch.device("cuda")
+    zero_launch_counts()
+    start = time.perf_counter()
+    for tag, cfg_fn, cpu_batch in (("csn", csn_cfg, 1), ("r2plus1d", r2plus1d_cfg, 2)):
+        t0 = time.perf_counter()
+        errors = ptv_card_against_cpu(cfg_fn(*PTV_RUN_OPTS), cpu_batch, 51)
+        emit(f"ptv_{tag}_card_vs_cpu", seconds=time.perf_counter() - t0, tol=PTV_CPU_TOL, **errors, nvidia_smi=smi)
+
+        t0 = time.perf_counter()
+        cfg = cfg_fn(*PTV_RUN_OPTS, "MODEL_BENCHMARK.ITERATIONS", "10", "MODEL_BENCHMARK.WARMUP_ITERATIONS", "3")
+        module = build_model(cfg, cuda).module
+        bench = {}
+        for label, on in (("tf32_off", False), ("tf32_on", True)):
+            with tf32(on):
+                stats = perform_benchmark(module, cfg, cuda)
+            check(stats["batch_size"] == 8 and stats["clips_per_sec"] > 0, f"{tag} perform_benchmark {stats}")
+            bench[label] = stats["clips_per_sec"]
+        extra = {"depthwise_conv_b": depthwise_conv_times(module, cfg)} if tag == "csn" else {}
+        del module
+        torch.cuda.empty_cache()
+        emit(f"ptv_{tag}_serve", seconds=time.perf_counter() - t0, batch=8, frames=cfg.DATA.NUM_FRAMES,
+             crop=cfg.DATA.TEST_CROP_SIZE, iterations=10, clips_per_sec=bench,
+             tf32_speedup=bench["tf32_on"] / bench["tf32_off"], **extra, nvidia_smi=smi)
+
+        t0 = time.perf_counter()
+        cfg = cfg_fn(*PTV_RUN_OPTS, *PTV_SUB_BN, "OUTPUT_DIR", str(PTV_OUT / tag))
+        torch.cuda.reset_peak_memory_stats()
+        trainer = build_trainer(cfg)
+        check({bn.num_splits for bn in convnet.batchnorms(trainer.module)} == {2}, f"{tag}: not 2 splits")
+        frames, labels = fixed_batch(cfg)
+        check(tuple(frames.shape) == (8, cfg.DATA.NUM_FRAMES, 224, 224, 3), f"{tag} batch {tuple(frames.shape)}")
+        splits = {k: v.clone() for k, v in trainer.module.named_buffers() if ".split_bn." in k}
+        set_lr(trainer.optimizer, trainer.lr_at(0.0))
+        losses, step_seconds = [], []
+        for i in range(PTV_TRAIN_STEPS):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            tick = time.perf_counter()
+            losses.append(float(trainer.train_step(frames, labels, gen)[0]))
+            torch.cuda.synchronize()
+            step_seconds.append(time.perf_counter() - tick)
+        check(all(np.isfinite(losses)), f"{tag} train: losses {losses}")
+        buffers = dict(trainer.module.named_buffers())
+        moved = sum(not torch.equal(buffers[k], v) for k, v in splits.items())
+        check(moved == len(splits) > 0, f"{tag}: {moved} of {len(splits)} split statistics moved")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        profile = device_time_by_kind(lambda: trainer.train_step(frames, labels), CONV_KERNEL_KINDS)
+        refresh_bn_stats(cfg, trainer.module, [], cuda, 0)
+        fold_err = check_subbn_fold(trainer.module)
+        torch.backends.cudnn.deterministic = True  # the same bits twice
+        try:
+            path = checkpoints.save_checkpoint(str(PTV_OUT / tag), trainer.module, trainer.optimizer, 0, cfg)
+            twin = build_trainer(cfg)
+            checkpoints.load_checkpoint(path, twin.module, twin.optimizer)
+            nxt = [float(t.train_step(frames, labels, torch.Generator(device="cuda").manual_seed(9))[0])
+                   for t in (trainer, twin)]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(nxt[0] == nxt[1] and np.isfinite(nxt[0]), f"{tag}: next loss after reload {nxt[1]} != {nxt[0]}")
+        emit(f"ptv_{tag}_train", seconds=time.perf_counter() - t0, steps=PTV_TRAIN_STEPS, batch=8,
+             norm_type="sub_batchnorm", num_splits=2, losses=losses, step_seconds=step_seconds,
+             train_clips_per_sec=8 * (PTV_TRAIN_STEPS - 1) / sum(step_seconds[1:]), peak_memory_gb=peak,
+             split_statistics_moved=moved, fold_var_rel_err=fold_err, next_losses=nxt,
+             step_device_time_tf32_off=profile, nvidia_smi=smi)
+        del trainer, twin, frames, labels
+        shutil.rmtree(PTV_OUT / tag, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit("ptv", seconds=time.perf_counter() - start, launches=check_no_attention_launches("ptv"), nvidia_smi=smi)
+
+
+def multigrid_train(cfg) -> tuple:
+    """``train_net.train(cfg)`` on the card with its epochs and flips
+    watched: each epoch's cfg shape and BN settings, every batch's shape,
+    loss and seconds (the step read to the host); at each long-cycle flip,
+    every parameter the same tensor with the same bits and every optimizer
+    state tensor the same bits across ``adapt_batch_stats``. Returns
+    (epochs, flips)."""
+    epochs, flips, held = [], [], {}
+    build, adapt, run_epoch = train_net.build_trainer, train_net.adapt_batch_stats, train_net.train_epoch
+
+    def capturing_build(*args, **kwargs):
+        held["trainer"] = build(*args, **kwargs)
+        return held["trainer"]
+
+    def watched_adapt(module, rebuilt):
+        optimizer = held["trainer"].optimizer
+        params = dict(module.named_parameters())
+        bits = {n: p.detach().clone() for n, p in params.items()}
+        state = {n: {k: v.clone() for k, v in optimizer.state[p].items() if torch.is_tensor(v)}
+                 for n, p in params.items()}
+        splits = sorted({bn.num_splits for bn in convnet.batchnorms(module)})
+        adapt(module, rebuilt)
+        after = dict(module.named_parameters())
+        check(all(after[n] is p and torch.equal(p, bits[n]) for n, p in params.items()),
+              "multigrid: a parameter changed at a flip")
+        check(all(torch.equal(optimizer.state[params[n]][k], v) for n, s in state.items() for k, v in s.items()),
+              "multigrid: the optimizer's state changed at a flip")
+        flips.append(dict(splits=[splits, sorted({bn.num_splits for bn in convnet.batchnorms(module)})],
+                          state_tensors=sum(len(s) for s in state.values()), parameters=len(params)))
+
+    def watched_epoch(loader, train_step, optimizer, lr_at, cur_epoch, meter, cfg, device, *args, **kwargs):
+        rows = []
+
+        def step(frames, labels, generator=None):
+            tick = time.perf_counter()
+            out = train_step(frames, labels, generator)
+            rows.append((tuple(frames.shape), float(out[0]), time.perf_counter() - tick))
+            return out
+
+        run_epoch(loader, step, optimizer, lr_at, cur_epoch, meter, cfg, device, *args, **kwargs)
+        ms = [r[2] * 1e3 for r in rows]
+        epochs.append(dict(
+            epoch=cur_epoch, B=cfg.TRAIN.BATCH_SIZE, T=cfg.DATA.NUM_FRAMES, S=cfg.DATA.TRAIN_CROP_SIZE,
+            norm_type=cfg.BN.NORM_TYPE, num_splits=cfg.BN.NUM_SPLITS,
+            module_splits=sorted({bn.num_splits for bn in convnet.batchnorms(held["trainer"].module)}),
+            iterations=len(rows), batch_shapes=[list(r[0]) for r in rows], losses=[r[1] for r in rows],
+            ms_per_iter=float(np.mean(ms)), ms_per_iter_after_first=float(np.mean(ms[1:])) if len(ms) > 1 else None))
+
+    with patched(train_net, build_trainer=capturing_build, adapt_batch_stats=watched_adapt,
+                 train_epoch=watched_epoch):
+        train(cfg)
+    return epochs, flips
+
+
+def phase_multigrid(smi: str) -> None:
+    """``train_net.train`` under multigrid on synthetic clips at full width,
+    fp32 with TF32 off. The long cycle on R(2+1)D 16x4 R50
+    (``MG_LONG_OPTS``: every one of the four shapes one epoch): each
+    epoch's batches the schedule's (B, T, S), its BatchNorms' splits the
+    epoch's ``NORM_TYPE`` (sub_batchnorm 2, batchnorm, sync_batchnorm),
+    parameters and optimizer state unchanged across each flip
+    (``multigrid_train``). The short cycle on SlowFast 8x8 R50: the three
+    phases' batches (B8 at 112, B4 at 158, B2 at 224). A line an epoch (B,
+    T, S, NORM_TYPE, NUM_SPLITS, ms an iteration, losses). No K1-K5b may
+    launch."""
+    from vtm_torch.train.multigrid import MultigridSchedule, get_current_long_cycle_shape
+
+    out = PTV_OUT / "multigrid"
+    shutil.rmtree(out, ignore_errors=True)
+    zero_launch_counts()
+    start = time.perf_counter()
+    cfg = r2plus1d_cfg(*MG_LONG_OPTS, "OUTPUT_DIR", str(out / "long"))
+    schedule = MultigridSchedule()
+    want_cfg = schedule.init_multigrid(r2plus1d_cfg(*MG_LONG_OPTS))
+    epochs, flips = multigrid_train(cfg)
+    check(len(epochs) == want_cfg.SOLVER.MAX_EPOCH == 4, f"multigrid: {len(epochs)} epochs")
+    for e in epochs:
+        b, t, s = get_current_long_cycle_shape(schedule.schedule, e["epoch"])
+        want = [b * want_cfg.MULTIGRID.DEFAULT_B, t, s, s, 3]
+        check((e["B"], e["T"], e["S"]) == tuple(want[:3]) and e["iterations"] == 16 // want[0]
+              and all(shape == want for shape in e["batch_shapes"]), f"multigrid epoch {e['epoch']}: {e}")
+        splits = e["num_splits"] if e["norm_type"] == "sub_batchnorm" else 1
+        check(e["module_splits"] == [splits] and all(np.isfinite(e["losses"])), f"multigrid epoch {e}")
+        emit("multigrid_long_epoch", model="PTVR2plus1D", **e, nvidia_smi=smi)
+    check(len({(e["B"], e["T"], e["S"]) for e in epochs}) == 4 and len(flips) == 4
+          and {e["norm_type"] for e in epochs} == {"sub_batchnorm", "batchnorm", "sync_batchnorm"},
+          f"multigrid: shapes {[(e['B'], e['T'], e['S']) for e in epochs]}, {len(flips)} flips")
+    emit("multigrid_long", seconds=time.perf_counter() - start, schedule=schedule.schedule, flips=flips,
+         solver_steps=want_cfg.SOLVER.STEPS, solver_lrs=want_cfg.SOLVER.LRS, nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    epochs, flips = multigrid_train(sf_cfg(*SF_RUN_OPTS, *MG_SHORT_OPTS, "OUTPUT_DIR", str(out / "short")))
+    phases = [shape for e in epochs for shape in e["batch_shapes"]]
+    check(len(epochs) == 1 and not flips and phases[:3] == [[8, 32, 112, 112, 3], [4, 32, 158, 158, 3],
+                                                            [2, 32, 224, 224, 3]]
+          and all(np.isfinite(epochs[0]["losses"])), f"multigrid short cycle: {phases}")
+    for e in epochs:
+        emit("multigrid_short_epoch", model="SlowFast", **e, nvidia_smi=smi)
+    emit("multigrid_short", seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    shutil.rmtree(out, ignore_errors=True)
+    emit("multigrid", seconds=time.perf_counter() - start, launches=check_no_attention_launches("multigrid"),
+         nvidia_smi=smi)
+
+
+def write_charades(root: pathlib.Path) -> None:
+    """A Charades frame-list set: ``train.csv`` and ``val.csv`` (the same
+    videos) over CHARADES_VIDEOS videos of CHARADES_FRAMES JPEG frames of
+    128 x 171, each frame labelled with the 1-3 actions of its video that
+    span it (actions drawn from numpy's seed 0)."""
+    import cv2
+
+    rng = np.random.default_rng(0)
+    lines = ["original_vido_id video_id frame_id path labels"]
+    for v in range(CHARADES_VIDEOS):
+        vid = f"vid{v:03d}"
+        (root / "frames" / vid).mkdir(parents=True, exist_ok=True)
+        actions = [(int(c), *sorted(rng.integers(0, CHARADES_FRAMES, 2)))
+                   for c in rng.choice(CHARADES_CLASSES, 3, replace=False)]
+        for f in range(CHARADES_FRAMES):
+            rel = f"{vid}/{vid}_{f:06d}.jpg"
+            cv2.imwrite(str(root / "frames" / rel), rng.integers(0, 255, (128, 171, 3), dtype=np.uint8))
+            labels = [c for c, lo, hi in actions if lo <= f <= hi] or [actions[0][0]]
+            lines.append(f"{vid} {v} {f} {rel} \"{','.join(str(c) for c in sorted(labels))}\"")
+    for split in ("train", "val"):
+        (root / f"{split}.csv").write_text("\n".join(lines) + "\n")
+
+
+def phase_charades(smi: str) -> None:
+    """The multi-label path: R(2+1)D 16x4 R50 with 157 classes,
+    ``bce_logit`` and ``DATA.MULTI_LABEL`` on a frame-list set written under
+    build/ (``write_charades``): one epoch of ``train_net.train`` (B4, the
+    losses finite, the val epoch's mAP), then ``test_net.test`` of its
+    checkpoint over 2 views x 3 crops a video (every video's 6 clips, its
+    multi-hot label, the mAP finite in [0, 1]). No K1-K5b may launch."""
+    shutil.rmtree(CHARADES_OUT, ignore_errors=True)
+    zero_launch_counts()
+    start = time.perf_counter()
+    write_charades(CHARADES_OUT)
+    written = time.perf_counter() - start
+    cfg = r2plus1d_cfg(
+        "DATA.PATH_TO_DATA_DIR", str(CHARADES_OUT), "DATA.PATH_PREFIX", str(CHARADES_OUT / "frames"),
+        "MODEL.NUM_CLASSES", str(CHARADES_CLASSES), "MODEL.LOSS_FUNC", "bce_logit", "DATA.MULTI_LABEL", "True",
+        "TRAIN.DATASET", "charades", "TEST.DATASET", "charades", "TRAIN.BATCH_SIZE", "4", "TEST.BATCH_SIZE", "8",
+        "SOLVER.MAX_EPOCH", "1", "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD", "1",
+        "TRAIN.AUTO_RESUME", "False", "SOLVER.OPTIMIZING_METHOD", "sgd", "SOLVER.BASE_LR", "0.01",
+        "TEST.NUM_ENSEMBLE_VIEWS", "2", "TEST.NUM_SPATIAL_CROPS", "3", "OUTPUT_DIR", str(CHARADES_OUT / "out"))
+    val, losses = [], []
+    update = train_net.TrainMeter.update_stats
+
+    class RecordingVal(train_net.ValMeter):
+        def log_epoch_stats(self, cur_epoch):
+            val.append(super().log_epoch_stats(cur_epoch))
+            return val[-1]
+
+    def recording_update(meter, top1, top5, loss, lr, mb):
+        losses.append(float(loss))
+        return update(meter, top1, top5, loss, lr, mb)
+
+    t0 = time.perf_counter()
+    with patched(train_net, ValMeter=RecordingVal), patched(train_net.TrainMeter, update_stats=recording_update):
+        train(cfg)
+    train_seconds = time.perf_counter() - t0
+    check(len(losses) == CHARADES_VIDEOS // 4 and all(np.isfinite(losses)), f"charades train: losses {losses}")
+    check(len(val) == 1 and 0.0 <= val[0]["map"] <= 1.0, f"charades val: {val}")
+
+    t0 = time.perf_counter()
+    with recording_test_net() as seen:
+        results = test_net.test(cfg)
+    views, stats = results[0]
+    meter = seen[0]
+    clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    check(views == 2 and bool((meter.clip_count == clips).all()), f"charades test: {views} views, {meter.clip_count}")
+    check(meter.video_labels.shape == (CHARADES_VIDEOS, CHARADES_CLASSES)
+          and bool((meter.video_labels.sum(axis=1) >= 1).all()), "charades test: the video labels")
+    test_map = float(stats["map"]) / 100.0
+    check(np.isfinite(meter.video_preds).all() and 0.0 <= test_map <= 1.0, f"charades test: {stats}")
+    emit("charades", seconds=time.perf_counter() - start, write_seconds=written, train_seconds=train_seconds,
+         train_losses=losses, val_map=val[0]["map"], test_map=test_map, test_views=views,
+         test_crops=cfg.TEST.NUM_SPATIAL_CROPS, test_clips=CHARADES_VIDEOS * clips,
+         test_seconds=time.perf_counter() - t0,
+         test_clips_per_sec=CHARADES_VIDEOS * clips / sum(meter.batch_seconds),
+         launches=check_no_attention_launches("charades"), nvidia_smi=smi)
+    shutil.rmtree(CHARADES_OUT, ignore_errors=True)
+
+
 # The A/B kernels: id -> (source, the TPU kernel's call site, the mode whose
 # numbers stand on the ``kernels`` line; every mode is on the ab_kernels line).
 AB_KERNELS = {
@@ -3714,6 +4169,9 @@ def main() -> int:
     launches += dist["LAUNCHES"]
     bwd_launches += dist["BWD_LAUNCHES"]
     phase_slowfast(smi)
+    phase_ptv(smi)
+    phase_multigrid(smi)
+    phase_charades(smi)
     ab_launches = phase_ab_dense()
     launches += ab_launches["K1"]  # the prod rows
     emit("done", seconds=time.perf_counter() - t0)

@@ -188,7 +188,7 @@ def test_decode_matches_vtm(tmp_path):
 
 def test_mask_loader_raises_by_name(tmp_path):
     cfg, _ = _cfgs(_kinetics_dir(tmp_path) + COMMON + ["AUG.GEN_MASK_LOADER", "True"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         kinetics.Kinetics(cfg, "test")[0]
 
 

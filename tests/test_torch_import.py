@@ -63,6 +63,14 @@ EVAL_MODULES = (
     "vtm_torch.data.epickitchens",
 )
 
+# the PTV families, multigrid and Charades
+PTV_MODULES = (
+    "vtm_torch.models.ptv",
+    "vtm_torch.train.multigrid",
+    "vtm_torch.data.charades",
+    "vtm_torch.data.ptv",
+)
+
 # the merge visualisation, the analysis tools and the examples
 ANALYSIS_MODULES = (
     "vtm_torch.vis",
@@ -94,12 +102,14 @@ def test_every_module_imports_without_jax():
     assert not set(TRAINING_MODULES) - set(names)
     assert not set(EVAL_MODULES) - set(names)
     assert not set(ANALYSIS_MODULES) - set(names)
+    assert not set(PTV_MODULES) - set(names)
 
 
-@pytest.mark.parametrize("module", ANALYSIS_MODULES)
+@pytest.mark.parametrize("module", ANALYSIS_MODULES + PTV_MODULES)
 def test_analysis_modules_import_without_jax_alone(module):
-    """Each of the new subpackages' modules, imported alone in a fresh
-    process, pulls in neither jax nor vtm."""
+    """Each of the new subpackages' modules, and the PTV, multigrid and
+    Charades modules, imported alone in a fresh process, pulls in neither
+    jax nor vtm."""
     code = (f"import sys, {module}; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'simplejson', 'vtm')]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(), capture_output=True, text=True,

@@ -391,11 +391,11 @@ def test_apply_traces_the_source_for_one_call(tmp_path):
 
 
 @pytest.mark.parametrize("opts, item", [
-    (("DETECTION.ENABLE", "True"), "item 12"),
+    (("DETECTION.ENABLE", "True"), "item 20"),
     (("TPU.MODEL_PARALLEL", "2", "MODEL.MODEL_NAME", "Motionformer"), "item 15"),
     (("LOG_MODEL_INFO", "True"), "item 4"),
-    (("TENSORBOARD.ENABLE", "True"), "item 12"),
-    (("WANDB.ENABLE", "True"), "item 9b"),
+    (("TENSORBOARD.ENABLE", "True"), "item 21"),
+    (("WANDB.ENABLE", "True"), "item 21"),
 ], ids=lambda x: x[0] if isinstance(x, tuple) else x)
 def test_unported_options_raise_by_name(opts, item, tmp_path):
     cfg, _ = _cfgs(_videomae_opts("OUTPUT_DIR", str(tmp_path), *opts))

@@ -51,6 +51,8 @@ from vtm_torch.models.videomae import VideoMAE, VideoMAEConfig
 from vtm_torch.tools.train_net import train
 from vtm_torch.train.train_step import make_eval_step, make_train_step
 
+from torch_conv_cases import ptv_opts
+
 torch.set_num_threads(2)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -399,8 +401,11 @@ def test_loader_and_synthetic_equal_vtm(split, extra):
                 np.testing.assert_array_equal(bt["label"], bj["label"])
             n += 1
         assert n == len(tl)
-    with pytest.raises(KeyError):  # kinetics, ssv2 and epickitchens are ported; charades waits
-        tdata.build_dataset("charades", tc, "train")
+    # charades is ported too (tests/test_torch_charades.py): without its
+    # frame lists it fails as vtm's does
+    for build, c in ((jdata.build_dataset, jc), (tdata.build_dataset, tc)):
+        with pytest.raises(AssertionError, match="train.csv not found"):
+            build("charades", c, "train")
 
 
 def test_metrics_and_meters_equal_vtm(caplog):
@@ -702,7 +707,7 @@ def test_checkpoint_round_trip_gives_the_same_next_step(tmp_path):
     assert not b.training and logits.shape == (2, 7) and not logits.requires_grad
 
 
-def test_what_is_not_ported_raises():
+def test_what_is_not_ported_raises(tmp_path):
     cfg = tcfg.get_cfg()
     cfg.merge_from_list(["MODEL.MODEL_NAME", "VideoMAE", "VIDEOMAE.MODEL", "vit_small_patch16_224"])
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -718,12 +723,27 @@ def test_what_is_not_ported_raises():
     c = cfg.clone()
     c.merge_from_list(["BN.WEIGHT_DECAY", "0.5", "SOLVER.ZERO_WD_1D_PARAM", "True"])
     assert [g["weight_decay"] for g in topt.construct_optimizer(c, bn)[0].param_groups] == [0.5]
-    for opts in (["MASK.ENABLE", "True"], ["DETECTION.ENABLE", "True"], ["MULTIGRID.LONG_CYCLE", "True"],
+    for opts in (["MASK.ENABLE", "True"], ["DETECTION.ENABLE", "True"],
                  ["TENSORBOARD.ENABLE", "True"], ["MODEL.MODEL_NAME", "ContrastiveModel"]):
         c = cfg.clone()
         c.merge_from_list(opts)
         with pytest.raises(NotImplementedError):
             train(c, device="cpu")
+    # multigrid is ported (tests/test_torch_multigrid.py): the long cycle
+    # builds its schedule and trains one tiny epoch at its shape (T 4, B4)
+    c = tcfg.get_cfg()
+    c.merge_from_list(ptv_opts(
+        "r2plus1d", "TRAIN.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "2", "SOLVER.OPTIMIZING_METHOD", "sgd",
+        "SOLVER.LR_POLICY", "steps_with_relative_lrs", "SOLVER.STEPS", "[0, 1]", "SOLVER.LRS", "[1, 0.1]",
+        "SOLVER.MAX_EPOCH", "1", "MULTIGRID.LONG_CYCLE", "True", "MULTIGRID.LONG_CYCLE_FACTORS", "[(0.5, 1.0)]",
+        "MULTIGRID.EPOCH_FACTOR", "1.0", "TRAIN.EVAL_PERIOD", "100", "TRAIN.CHECKPOINT_PERIOD", "100",
+        "TRAIN.AUTO_RESUME", "False", "DATA_LOADER.NUM_WORKERS", "0", "OUTPUT_DIR", str(tmp_path)))
+    start = {n: p.detach().clone() for n, p in build_model(c, "cpu", fp32_params=True).module.named_parameters()}
+    trained = train(c, device="cpu")
+    assert (c.SOLVER.MAX_EPOCH, c.SOLVER.STEPS, c.DATA.NUM_FRAMES, c.TRAIN.BATCH_SIZE) == (1, [0, 1, 1], 4, 4)
+    assert trained.head.pool_size == ((1, 1, 1),) and c.BN.NORM_TYPE == "sync_batchnorm"
+    assert all(bool(torch.isfinite(p).all()) for p in trained.parameters())
+    assert not torch.equal(trained.stem_conv.weight, start["stem_conv.weight"])
     c = cfg.clone()
     c.merge_from_list(["VIDEOMAE.ATTN_DROP_RATE", "0.1"])
     with pytest.raises(NotImplementedError, match="ATTN_DROP_RATE"):

@@ -1,6 +1,7 @@
 """What the port's conv-family tests share (imported by
-``tests/test_torch_convnet.py``, ``test_torch_slowfast.py`` and
-``test_torch_slowfast_train.py``; collects no test itself).
+``tests/test_torch_convnet.py``, ``test_torch_slowfast.py``,
+``test_torch_slowfast_train.py`` and the PTV, multigrid and Charades
+files; collects no test itself).
 
 Tiny SlowFast, ResNet and X3D configs at the sizes of
 ``tests/test_convnet.py`` and ``__graft_entry__.py:200-213`` (width 8 a
@@ -10,7 +11,8 @@ moves its BatchNorm weights and statistics away from 1 and 0 with numpy,
 and gives ``vtm`` the same weights through ``vtm``'s own
 ``convert_pyslowfast``; ``vtm``'s forwards are jitted, and its param tree is
 checked against ``jax.eval_shape`` of its ``init`` (no eager init: that
-takes half a minute a model on the CPU).
+takes half a minute a model on the CPU). ``PTVCase`` does the same for the
+PTV families (CSN, R(2+1)D) at width 4 on the depth-18 table.
 """
 
 from __future__ import annotations
@@ -161,3 +163,46 @@ def assert_stats_match(module: torch.nn.Module, want_sd: dict) -> None:
     assert names and set(names) == set(own), sorted(set(names) ^ set(own))[:6]
     for k in names:
         assert_close_to_largest(own[k].numpy(), np.asarray(want_sd[k]), stats_tol(k), k)
+
+
+# the PTV families (vtm_torch/models/ptv.py), tiny: width 4, the depth-18
+# table of bottlenecks, 8 frames at a 32-pixel crop
+NAMES = {"csn": "PTVCSN", "r2plus1d": "PTVR2plus1D"}
+
+
+def ptv_opts(name: str, *extra) -> list:
+    return ["MODEL.MODEL_NAME", NAMES.get(name, name), "MODEL.NUM_CLASSES", "7", "MODEL.DROPOUT_RATE", "0.0",
+            "RESNET.DEPTH", "18", "RESNET.WIDTH_PER_GROUP", "4", "RESNET.ZERO_INIT_FINAL_BN", "False",
+            "DATA.NUM_FRAMES", "8", "DATA.TRAIN_CROP_SIZE", "32", "DATA.TEST_CROP_SIZE", "32",
+            "TPU.COMPUTE_DTYPE", "float32", *extra]
+
+
+class PTVCase:
+    """One tiny PTV model in both packages: the port's seeded init with every
+    BatchNorm weight and statistic moved (``moved_state``), given to ``vtm``
+    through its own ``convert_pyslowfast``; ``vtm``'s tree checked against
+    ``jax.eval_shape`` of its init."""
+
+    def __init__(self, name: str, *extra, seed: int = 0, move_weights: bool = True):
+        self.cfg, self.jcfg = cfgs(ptv_opts(name, *extra))
+        self.splits = self.cfg.BN.NUM_SPLITS if self.cfg.BN.NORM_TYPE == "sub_batchnorm" else 1
+        self.bundle = build_model(self.cfg, "cpu")
+        self.state = moved_state(self.bundle.module, seed, move_weights)
+        self.bundle.module.load_state_dict({k: torch.from_numpy(v) for k, v in self.state.items()})
+        self.jbundle = jax_build_model(self.jcfg, init=False)
+        self.params, self.stats = convert_pyslowfast(self.state, num_splits=self.splits)
+        shapes = jax.eval_shape(self.jbundle.module.init, jax.random.key(0), jnp.zeros((1, 8, 32, 32, 3)))
+        assert tree_paths(shapes["params"]) == tree_paths(self.params)
+        assert tree_paths(shapes["batch_stats"]) == tree_paths(self.stats)
+
+    @staticmethod
+    def video(batch: int, seed: int, crop: int = 32) -> np.ndarray:
+        return np.random.default_rng(seed).standard_normal((batch, 8, crop, crop, 3)).astype(np.float32)
+
+    def jax_apply(self, x, train: bool):
+        variables = {"params": self.params, "batch_stats": self.stats}
+        if not train:
+            return np.asarray(self.jbundle.module.apply(variables, jnp.asarray(x))[0])
+        (logits, _), mutated = self.jbundle.module.apply(variables, jnp.asarray(x), train=True,
+                                                         mutable=["batch_stats"])
+        return np.asarray(logits), np_tree(mutated["batch_stats"])

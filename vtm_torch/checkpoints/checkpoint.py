@@ -113,6 +113,11 @@ def get_last_checkpoint(output_dir: str) -> Optional[str]:
     return os.path.join(d, max(names))
 
 
+def checkpoint_epoch(path: str) -> int:
+    """The epoch of a checkpoint of this package, from its file name."""
+    return int(re.search(r"epoch_(\d+)\.pyth$", path).group(1))
+
+
 def load_checkpoint(
     path: str, module: nn.Module, optimizer: Optional[torch.optim.Optimizer] = None
 ) -> Tuple[int, bool]:

@@ -499,6 +499,16 @@ def pyslowfast_state_dict_from_vtm(params: Mapping, batch_stats: Optional[Mappin
     return sd
 
 
+# ``vtm``'s CSN and R(2+1)D params and ``batch_stats`` -> the port's state dict
+# (``models/ptv.py``): the port's PTV modules carry ``vtm``'s names
+# (``stem_conv``, ``s2.res_0.branch2.conv_b_xy``, ``head.projection``), so the
+# conv families' structural walk does it, CSN's depthwise kernels [3, 3, 3, 1,
+# C] -> [C, 1, 3, 3, 3] and split statistics [k, C] -> ``split_bn.running_*``
+# [k * C] included. The other way: ``vtm``'s ``convert_pyslowfast(sd,
+# num_splits=k)``.
+ptv_state_dict_from_vtm_params = pyslowfast_state_dict_from_vtm
+
+
 def caffe2_name_to_pytorch(name: str) -> str:
     """A Caffe2 blob name -> the PySlowFast module path: copy of
     ``vtm/checkpoints/convert.py::caffe2_name_to_pytorch`` (the upstream

@@ -23,7 +23,7 @@ from vtm_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 MASK_NOT_PORTED = ("AUG.GEN_MASK_LOADER: the masked family's mask generator is not ported yet "
-                   "(ROADMAP.md Queue 1, item 12)")
+                   "(ROADMAP.md Queue 1, item 18)")
 
 
 @register_dataset("kinetics")

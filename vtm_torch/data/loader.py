@@ -2,8 +2,10 @@
 
 A thread-pool prefetch pipeline feeding collated numpy batches; the
 entry points move them to the device. Registered: ``kinetics``, ``ssv2``,
-``epickitchens`` and ``synthetic``; the multigrid short cycle is not
-ported.
+``epickitchens``, ``charades``, the ``ptv*`` names and ``synthetic``. Under
+``MULTIGRID.SHORT_CYCLE`` the train loader walks the short cycle's three
+phases (``train/multigrid.py::short_cycle_batch_sizes``), each item an
+(index, phase) pair that the datasets crop by.
 
 Data parallelism: ``BatchLoader(rank=, world=)`` forms ``vtm``'s global
 batches (the same order, the same shuffle) and yields only data rank
@@ -208,7 +210,9 @@ def construct_loader(cfg, split: str, rank: int = 0, world: int = 1) -> BatchLoa
     dataset = build_dataset(dataset_name, cfg, split)
     short_cycle = None
     if split == "train" and cfg.MULTIGRID.SHORT_CYCLE:
-        raise NotImplementedError("MULTIGRID.SHORT_CYCLE: multigrid training is not ported yet")
+        from vtm_torch.train.multigrid import short_cycle_batch_sizes
+
+        short_cycle = short_cycle_batch_sizes(batch_size, cfg)
     return BatchLoader(
         dataset,
         batch_size=batch_size,

@@ -6,7 +6,9 @@
 ``TestMeter`` accumulates multi-view clip predictions into per-video
 ensembles in fp64 (sum or max) and finalises top-k accuracies as
 ``"%.2f"`` strings, or the mAP for multi-label data; ``EPICTestMeter``
-keeps the verb/noun pair and reports verb/noun/action top-1/5.
+keeps the verb/noun pair and reports verb/noun/action top-1/5. The mAP's
+average precision is numpy's (``average_precision``), where ``vtm`` calls
+scikit-learn.
 ``TEST.CLIP_LENGTH_HISTOGRAM`` also writes each video's (length,
 outcome) csv from the lengths ``analysis.dataset_tools.save_lengths``
 cached. The detection meter is not ported."""
@@ -26,23 +28,34 @@ from vtm_torch.utils.timer import Timer
 logger = get_logger(__name__)
 
 
+def average_precision(labels: np.ndarray, scores: np.ndarray) -> float:
+    """The average precision of one class, as scikit-learn's
+    ``average_precision_score`` computes it (which ``vtm`` calls, and which
+    the card's machine lacks): the scores in descending order (stable), one
+    operating point per distinct score, AP = sum over them of (recall step) x
+    precision. ``labels`` is 0/1 with at least one positive."""
+    order = np.argsort(scores, kind="mergesort")[::-1]
+    scores, labels = scores[order], np.asarray(labels, np.float64)[order]
+    last = np.r_[np.where(np.diff(scores))[0], labels.size - 1]
+    tps = np.cumsum(labels)[last]
+    precision = tps / (1 + last)
+    recall = tps / tps[-1]
+    return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
+
+
 def get_map(preds: np.ndarray, labels: np.ndarray) -> float:
     """Multi-label mAP (reference meters.py:874-900): classes with no
     positive example anywhere are dropped, then macro-averaged
-    average-precision over the rest."""
-    from sklearn.metrics import average_precision_score
-
+    average-precision over the rest (``average_precision``)."""
     keep = ~np.all(labels == 0, axis=0)
     preds, labels = preds[:, keep], labels[:, keep]
-    try:
-        aps = average_precision_score(labels, preds, average=None)
-    except ValueError:
+    if not keep.any():
         logger.warning(
             "Average precision requires a sufficient number of samples; "
             "returning 0"
         )
-        aps = np.array([0.0])
-    return float(np.mean(aps))
+        return 0.0
+    return float(np.mean([average_precision(labels[:, c], preds[:, c]) for c in range(labels.shape[1])]))
 
 
 class TestMeter:

@@ -86,8 +86,10 @@ class BatchNorm(nn.Module):
     the s-th contiguous chunk of B / k rows, as in ``vtm``), in
     ``split_bn.running_*`` [k * C] (split-major), with the eval statistics in
     ``bn.running_*`` and the affine ``weight`` / ``bias`` on the module. As
-    in ``vtm``, the models build every BN with one split whatever
-    ``BN.NUM_SPLITS`` says."""
+    in ``vtm``, SlowFast, ResNet and X3D build every BN with one split
+    whatever ``BN.NUM_SPLITS`` says; the PTV families (``models/ptv.py``)
+    take it. ``set_num_splits`` re-shapes the statistics in place (a
+    multigrid long-cycle flip)."""
 
     def __init__(self, c: int, spec: NormSpec, zero_init: bool = False, num_splits: int = 1):
         super().__init__()
@@ -124,6 +126,31 @@ class BatchNorm(nn.Module):
         y = (xf - mean) / torch.sqrt(var + self.spec.eps)
         return (y * self.weight.view(1, -1, *shape[2:]) + self.bias.view(1, -1, *shape[2:])).to(x.dtype)
 
+    @torch.no_grad()
+    def set_num_splits(self, k: int) -> None:
+        """Keep statistics over ``k`` sub-batches from now on, as ``vtm``'s
+        ``train/multigrid.py::adapt_batch_stats`` re-shapes its stat tree: the
+        eval statistics carry over, split statistics of another ``k`` start
+        from their init (mean 0, variance 1). The affine parameters stay the
+        same tensors."""
+        if k == self.num_splits:
+            return
+        old = self.bn if self.num_splits > 1 else self
+        mean, var = old.running_mean, old.running_var
+        if self.num_splits > 1:
+            del self.bn, self.split_bn
+        else:
+            del self.running_mean, self.running_var
+        self.num_splits = k
+        if k > 1:
+            self.bn = _RunningStats(mean.numel()).to(mean)
+            self.bn.running_mean.copy_(mean)
+            self.bn.running_var.copy_(var)
+            self.split_bn = _RunningStats(mean.numel() * k).to(mean)
+        else:
+            self.register_buffer("running_mean", mean)
+            self.register_buffer("running_var", var)
+
     def _row_splits(self, b: int, device) -> torch.Tensor:
         """The split of each of this process's rows: contiguous chunks of
         the global batch, whose rows this rank holds from rank * b on."""
@@ -146,6 +173,8 @@ class BatchNorm(nn.Module):
             if k == 1:
                 var, mean = torch.var_mean(xf, dim=(0,) + dims, unbiased=False)
                 return mean[None], var[None]
+            if b % k:  # vtm's reshape fails here too; nothing is padded
+                raise ValueError(f"a batch of {b} does not split into {k} sub-batches")
             var, mean = torch.var_mean(xf.unflatten(0, (k, b // k)), dim=(1,) + tuple(d + 1 for d in dims),
                                        unbiased=False)
             return mean, var
@@ -470,6 +499,19 @@ def _activate(x: torch.Tensor, act_func: str, allow_none: bool) -> torch.Tensor:
     raise NotImplementedError(f"{act_func} is not supported as an activation function.")
 
 
+def _pool_within(pool, x: torch.Tensor):
+    """``pool``, where it fits the [B, C, T, H, W] map ``x``; else a clear
+    error. (``vtm``'s pool leaves an empty map there, so its logits have no
+    entries: a training loss of NaN; ROADMAP.md Queue 3.)"""
+    if any(k > n for k, n in zip(pool, x.shape[2:])):
+        raise ValueError(
+            f"the head's average pool {tuple(pool)} (from DATA.NUM_FRAMES and DATA.TRAIN_CROP_SIZE) is larger than "
+            f"its feature map {tuple(x.shape[2:])}: the clip is smaller than the one the head was built for (a "
+            "multigrid short-cycle crop, say: SlowFast and ResNet pool globally under MULTIGRID.SHORT_CYCLE, CSN "
+            "and R(2+1)D do not)")
+    return pool
+
+
 class ResNetBasicHead(nn.Module):
     """Per-pathway average pool (``pool_size`` None: global), concat,
     dropout, ``projection``; at eval the activation, then the mean of what
@@ -493,7 +535,7 @@ class ResNetBasicHead(nn.Module):
             if self.pool_size is None or self.pool_size[p] is None:
                 pooled.append(x.mean(dim=(2, 3, 4), keepdim=True))
             else:
-                pooled.append(F.avg_pool3d(x, tuple(self.pool_size[p]), stride=1))
+                pooled.append(F.avg_pool3d(x, tuple(_pool_within(self.pool_size[p], x)), stride=1))
         x = torch.cat(pooled, dim=1).permute(0, 2, 3, 4, 1)  # [B, t, h, w, C]
         x = dropout(x, self.dropout_rate, self.training, generator)
         if self.detach_final_fc:

@@ -62,10 +62,10 @@ SWEEP_VIEWS = [1, 3, 5, 7, 10]  # TEST.NUM_TEMPORAL_CLIPS [-1]
 def _unsupported(cfg) -> None:
     """Raise for what the JAX package's test entry point does and this one does not yet."""
     for on, what in (
-        (cfg.DETECTION.ENABLE, "DETECTION.ENABLE: AVA detection testing (ROADMAP.md Queue 1, item 12)"),
+        (cfg.DETECTION.ENABLE, "DETECTION.ENABLE: AVA detection testing (ROADMAP.md Queue 1, item 20)"),
         (cfg.LOG_MODEL_INFO, "LOG_MODEL_INFO: parameter and FLOP counts (ROADMAP.md Queue 1, item 4)"),
-        (cfg.TENSORBOARD.ENABLE, "TENSORBOARD.ENABLE: the tensorboard writer (ROADMAP.md Queue 1, item 12)"),
-        (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging (ROADMAP.md Queue 1, item 9b)"),
+        (cfg.TENSORBOARD.ENABLE, "TENSORBOARD.ENABLE: the tensorboard writer (ROADMAP.md Queue 1, item 21)"),
+        (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging (ROADMAP.md Queue 1, item 21)"),
     ):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")

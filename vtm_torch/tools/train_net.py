@@ -21,12 +21,19 @@ statistics update in the train step (kept under ``MODEL.FROZEN_BN``), the
 BatchNorm parameter group's ``BN.WEIGHT_DECAY``, and on checkpoint and eval
 epochs first precise statistics (``BN.USE_PRECISE_STATS``,
 ``train/precise_bn.py``) and then the SubBatchNorm fold
-(``BN.NORM_TYPE sub_batchnorm``), in ``vtm``'s order. A Motionformer built
+(``BN.NORM_TYPE sub_batchnorm``, live in the PTV families), in ``vtm``'s
+order. Multigrid (``train/multigrid.py``): the schedule sets the solver's
+steps before the model is built; at each long-cycle flip the model is
+re-shaped in place (BatchNorm splits, head pool; the parameters and the
+optimizer's state stay the same tensors) and the train loader rebuilt for
+the new batch; the short cycle's three phases come from the loader.
+``DATA.MULTI_LABEL`` (Charades): the train meter tracks the loss only and
+the eval epoch's metric is the mAP. A Motionformer built
 from a config keeps its softmax head (``build_model`` sets no
 ``train_mode``, as in the JAX package), so its loss sees probabilities. Contrastive, detection and masked
-pretraining, multigrid, the chunked-csv rotation, multi-label training,
-tensorboard and wandb are not ported yet and raise where a config asks
-for them. ``TRAIN.KILL_LOSS_EXPLOSION_FACTOR`` stops the run on a NaN or
+pretraining, the chunked-csv rotation, tensorboard and wandb are not
+ported yet and raise where a config asks for them, naming their ROADMAP
+item. ``TRAIN.KILL_LOSS_EXPLOSION_FACTOR`` stops the run on a NaN or
 infinite loss only, as in the JAX package.
 
 Parallelism (``vtm_torch/parallel``): ``main`` runs ``train`` in one process
@@ -76,6 +83,7 @@ from vtm_torch.parallel import launch
 from vtm_torch.parallel.mesh import Mesh, all_mean, entry_device, gather_rows, make_mesh, replicate
 from vtm_torch.parallel.sharding import check_tensor_parallel, shard_module
 from vtm_torch.train.mixup import MixUp
+from vtm_torch.train.multigrid import MultigridSchedule, adapt_batch_stats
 from vtm_torch.train.optimizer import construct_optimizer, set_lr
 from vtm_torch.train.precise_bn import compute_precise_bn_stats
 from vtm_torch.train.train_step import make_eval_step, make_train_step
@@ -125,16 +133,15 @@ def _host(logits):
 def _unsupported(cfg) -> None:
     """Raise for what the JAX package's train loop does and this one does not yet."""
     if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
-        raise NotImplementedError("contrastive pretraining is not ported yet")
+        raise NotImplementedError("contrastive pretraining is not ported yet (ROADMAP.md Queue 1, item 19)")
     check_tensor_parallel(cfg)
     for on, what in (
-        (cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE, "MULTIGRID: multigrid training"),
-        (cfg.MASK.ENABLE, "MASK.ENABLE: MAE / MaskFeat pretraining"),
-        (cfg.DETECTION.ENABLE, "DETECTION.ENABLE: detection training"),
-        (cfg.TENSORBOARD.ENABLE, "TENSORBOARD.ENABLE: the tensorboard writer"),
-        (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging"),
-        (cfg.DATA.LOADER_CHUNK_SIZE > 0, "DATA.LOADER_CHUNK_SIZE: chunked-csv rotation"),
-        (cfg.DATA.MULTI_LABEL, "DATA.MULTI_LABEL: multi-label training"),
+        (cfg.MASK.ENABLE, "MASK.ENABLE: MAE / MaskFeat pretraining (ROADMAP.md Queue 1, item 18)"),
+        (cfg.DETECTION.ENABLE, "DETECTION.ENABLE: detection training (ROADMAP.md Queue 1, item 20)"),
+        (cfg.TENSORBOARD.ENABLE, "TENSORBOARD.ENABLE: the tensorboard writer (ROADMAP.md Queue 1, item 21)"),
+        (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging (ROADMAP.md Queue 1, item 21)"),
+        (cfg.DATA.LOADER_CHUNK_SIZE > 0,
+         "DATA.LOADER_CHUNK_SIZE: chunked-csv rotation (ROADMAP.md Queue 1, item 21)"),
     ):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -178,18 +185,22 @@ def train_epoch(loader, train_step, optimizer, lr_at, cur_epoch, meter, cfg, dev
             raise RuntimeError(f"NaN/inf loss at epoch {cur_epoch} iter {cur_iter}")
         mb = batch["frames"].shape[0] * mesh.data
         meter.iter_toc()
-        figures = all_mean(_errors(_host(logits), batch["label"], multi_head), mesh.data_group, device)
-        if multi_head:
-            _update(meter, figures, True, (float(aux[0]), float(aux[1]), loss), lr, mb)
+        if cfg.DATA.MULTI_LABEL:  # the loss only; the epoch's metric is the val mAP
+            meter.update_stats(None, None, loss, lr, mb)
         else:
-            _update(meter, figures, False, loss, lr, mb)
+            figures = all_mean(_errors(_host(logits), batch["label"], multi_head), mesh.data_group, device)
+            if multi_head:
+                _update(meter, figures, True, (float(aux[0]), float(aux[1]), loss), lr, mb)
+            else:
+                _update(meter, figures, False, loss, lr, mb)
         meter.log_iter_stats(cur_epoch, cur_iter)
         meter.iter_tic()
     meter.log_epoch_stats(cur_epoch)
     meter.reset()
 
 
-def eval_epoch(loader, eval_step, meter, cur_epoch, device, multi_head, mesh: Mesh = Mesh()):
+def eval_epoch(loader, eval_step, meter, cur_epoch, device, multi_head, mesh: Mesh = Mesh(),
+               multi_label: bool = False):
     meter.iter_tic()
     for batch in loader:
         # an uneven last batch runs as it is (one process), or padded to the
@@ -203,7 +214,10 @@ def eval_epoch(loader, eval_step, meter, cur_epoch, device, multi_head, mesh: Me
             logits = _host(logits)
         n_valid = (logits[0] if multi_head else logits).shape[0]
         meter.iter_toc()
-        _update(meter, _errors(logits, batch["label"], multi_head), multi_head, n_valid)
+        if multi_label:  # every row kept for the epoch's mAP
+            meter.update_predictions(logits, batch["label"])
+        else:
+            _update(meter, _errors(logits, batch["label"], multi_head), multi_head, n_valid)
         meter.iter_tic()
     meter.log_epoch_stats(cur_epoch)
     meter.reset()
@@ -266,6 +280,11 @@ def build_trainer(cfg, device: Optional[torch.device | str] = None,
 
 
 def train(cfg, device: Optional[torch.device | str] = None):
+    multigrid = None
+    if cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE:
+        # before the model and the optimizer: SOLVER.STEPS / LRS / MAX_EPOCH
+        multigrid = MultigridSchedule()
+        cfg = multigrid.init_multigrid(cfg)
     trainer = build_trainer(cfg, device)
     module, optimizer, lr_at = trainer.module, trainer.optimizer, trainer.lr_at
     train_step, eval_step = trainer.train_step, trainer.eval_step
@@ -278,6 +297,10 @@ def train(cfg, device: Optional[torch.device | str] = None):
     start_epoch = 0
     if cfg.TRAIN.AUTO_RESUME and cu.get_last_checkpoint(cfg.OUTPUT_DIR):
         last = cu.get_last_checkpoint(cfg.OUTPUT_DIR)
+        if multigrid is not None and cfg.MULTIGRID.LONG_CYCLE:
+            # the module in the saved epoch's shape (its BatchNorm splits)
+            # before the saved state loads into it
+            _follow_long_cycle(cfg, multigrid, cu.checkpoint_epoch(last), module)
         start_epoch, _ = cu.load_checkpoint(last, module, optimizer)
         start_epoch += 1
         logger.info("Auto-resumed from %s (epoch %d)", last, start_epoch)
@@ -315,6 +338,11 @@ def train(cfg, device: Optional[torch.device | str] = None):
         )
 
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        if multigrid is not None and cfg.MULTIGRID.LONG_CYCLE and _follow_long_cycle(cfg, multigrid, cur_epoch,
+                                                                                     module):
+            # the train loader and its meter for the new batch
+            train_loader = construct_loader(cfg, "train", mesh.data_rank, mesh.data)
+            train_meter = type(train_meter)(len(train_loader), cfg)
         shuffle_dataset(train_loader, cur_epoch)
         train_epoch(train_loader, train_step, optimizer, lr_at, cur_epoch, train_meter, cfg,
                     device, multi_head, mixup_fn=mixup_fn, mesh=mesh)
@@ -324,8 +352,19 @@ def train(cfg, device: Optional[torch.device | str] = None):
         if is_ckpt:
             cu.save_checkpoint(cfg.OUTPUT_DIR, module, optimizer, cur_epoch, cfg)
         if is_eval:
-            eval_epoch(val_loader, eval_step, val_meter, cur_epoch, device, multi_head, mesh)
+            eval_epoch(val_loader, eval_step, val_meter, cur_epoch, device, multi_head, mesh, cfg.DATA.MULTI_LABEL)
     return module
+
+
+def _follow_long_cycle(cfg, multigrid: MultigridSchedule, epoch: int, module) -> bool:
+    """``update_long_cycle`` of ``cfg`` (in place) for ``epoch``; on a change
+    of shape ``module`` is re-shaped in place for the new cfg (BatchNorm
+    splits, head pool), its parameters and the optimizer's state as they
+    are. Returns whether the shape changed."""
+    changed = multigrid.update_long_cycle(cfg, epoch)[1]
+    if changed:
+        adapt_batch_stats(module, build_model(cfg, "cpu", fp32_params=True).module)
+    return changed
 
 
 def refresh_bn_stats(cfg, module, loader, device, cur_epoch: int, mesh: Mesh = Mesh(), due: bool = True) -> None:
