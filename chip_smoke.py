@@ -199,6 +199,28 @@ Phases, each printing one JSON line:
                   Charades frame-list set written under build/: one epoch of
                   train_net.train with the val mAP, then test_net.test over
                   2 views x 3 crops, the mAP finite in [0, 1]. No K1-K5b
+     mvit      -- MViTv2-S (``MVITV2_S_OPTS``: what
+                  configs/Kinetics/MVITv2_S_16x4.yaml of PySlowFast fixes) at
+                  full width: the card against the CPU at B1 in fp32 (TF32
+                  off); perform_benchmark at B8 in bf16; the 48 depthwise
+                  pooling convs of a forward timed (forward, input and weight
+                  gradients, by CUDA events, beside their bound) with their
+                  share of the serve forward and of a train step, and where
+                  each one's device time goes (torch.profiler); 3 train steps
+                  at B8 with drop path 0.2 (the loss finite), a checkpoint
+                  that reloads to the same next loss; train_net.train for one
+                  epoch of 16 synthetic clips; one step with
+                  MODEL.ACT_CHECKPOINT against the plain stack (cuDNN
+                  deterministic): loss and every gradient bit for bit, a
+                  lower peak; test_net.test over 2 views; PTVMViT built.
+                  No K1-K5b
+     mvit_rev  -- Rev-MViT-B (``REV_MVIT_B_OPTS``: configs/Kinetics/
+                  REV_MVIT_B_16x4_CONV.yaml) at full width: perform_benchmark
+                  at B8 in bf16, the card against the CPU at B1, and a B8
+                  step through the reversible backward against plain
+                  autograd on the same masks, fp32 and bf16: the loss bit for
+                  bit, each parameter group's largest gradient error, both
+                  peaks (the reversible one lower). No K1-K5b
      dist      -- the parallel paths (vtm_torch/parallel) at ViT-B width,
                   bf16, B8, each against the same run in this process: NCCL
                   at world size 1, train_net's DDP step on the EPIC config
@@ -252,6 +274,7 @@ from vtm_torch.merge import MergePolicy, MergeState
 from vtm_torch.merge import bipartite as merge_bipartite
 from vtm_torch.models import build_model
 from vtm_torch.models import convnet, motionformer_approx
+from vtm_torch.models import mvit as mvit_model
 from vtm_torch.models.common import _FLASH_MAX_SEQ, _FLASH_MIN_SEQ, split_heads
 from vtm_torch.models.videomae import VideoMAE
 from vtm_torch.ops import build as kernel_build
@@ -1177,6 +1200,69 @@ R2PLUS1D_OPTS = [
     "DATA.TEST_CROP_SIZE", "224",
     "MODEL.NUM_CLASSES", "400",
 ]
+# MViT. The repo ships no MViT yaml either: these lists hold the values that
+# define the architecture in PySlowFast's public configs, and take the port's
+# defaults for the rest. configs/Kinetics/MVITv2_S_16x4.yaml:
+_MVIT_TRUNK = [
+    "MODEL.MODEL_NAME", "MViT",
+    "MODEL.ARCH", "mvit",
+    "MODEL.NUM_CLASSES", "400",
+    "DATA.NUM_FRAMES", "16",
+    "DATA.SAMPLING_RATE", "4",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TEST_CROP_SIZE", "224",
+    "MVIT.EMBED_DIM", "96",
+    "MVIT.NUM_HEADS", "1",
+    "MVIT.DEPTH", "16",
+    "MVIT.MLP_RATIO", "4.0",
+    "MVIT.QKV_BIAS", "True",
+    "MVIT.PATCH_KERNEL", "[3, 7, 7]",
+    "MVIT.PATCH_STRIDE", "[2, 4, 4]",
+    "MVIT.PATCH_PADDING", "[1, 3, 3]",
+    "MVIT.MODE", "conv",
+    "MVIT.DIM_MUL", "[[1, 2.0], [3, 2.0], [14, 2.0]]",
+    "MVIT.HEAD_MUL", "[[1, 2.0], [3, 2.0], [14, 2.0]]",
+    "MVIT.POOL_KVQ_KERNEL", "[3, 3, 3]",
+    "MVIT.POOL_KV_STRIDE_ADAPTIVE", "[1, 8, 8]",
+    "MVIT.DROPPATH_RATE", "0.2",
+]
+MVITV2_S_OPTS = _MVIT_TRUNK + [
+    "MVIT.CLS_EMBED_ON", "True",
+    "MVIT.USE_ABS_POS", "False",
+    "MVIT.REL_POS_SPATIAL", "True",
+    "MVIT.REL_POS_TEMPORAL", "True",
+    "MVIT.RESIDUAL_POOLING", "True",
+    "MVIT.DIM_MUL_IN_ATT", "True",
+    "MVIT.POOL_Q_STRIDE", str([[i, 1, 2, 2] if i in (1, 3, 14) else [i, 1, 1, 1] for i in range(16)]),
+]
+# configs/Kinetics/REV_MVIT_B_16x4_CONV.yaml: the same trunk, separate
+# position embeddings, no class token, Q pooled at the three stage
+# transitions only, the reversible encoder with the conv residual path
+REV_MVIT_B_OPTS = _MVIT_TRUNK + [
+    "MVIT.SEP_POS_EMBED", "True",
+    "MVIT.CLS_EMBED_ON", "False",
+    "MVIT.POOL_Q_STRIDE", "[[1, 1, 2, 2], [3, 1, 2, 2], [14, 1, 2, 2]]",
+    "MVIT.REV.ENABLE", "True",
+    "MVIT.REV.BUFFER_LAYERS", "[1, 3, 14]",
+    "MVIT.REV.RES_PATH", "conv",
+    "MVIT.REV.RESPATH_FUSE", "concat",
+]
+# the mvit and mvit_rev phases: B8 on synthetic clips, AdamW, fresh output
+# directories under build/
+MVIT_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_mvit"
+MVIT_RUN_OPTS = ["TRAIN.DATASET", "synthetic", "TEST.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "8",
+                 "TEST.BATCH_SIZE", "8", "TRAIN.AUTO_RESUME", "False", "SOLVER.OPTIMIZING_METHOD", "adamw",
+                 "SOLVER.BASE_LR", "0.0001", "MODEL_BENCHMARK.ITERATIONS", "10",
+                 "MODEL_BENCHMARK.WARMUP_ITERATIONS", "3"]
+MVIT_CPU_TOL = 1e-4  # the card's fp32 logits (TF32 off) against the CPU's, of the largest
+MVIT_TRAIN_STEPS = 3
+# kinds of a step's kernels, by name (the layout transposes before "conv")
+MVIT_KERNEL_KINDS = (
+    ("layout_transposes", "nhwcToNchw"), ("layout_transposes", "nchwToNhwc"), ("layout_transposes", "convertTensor"),
+    ("conv_weight_gradient", "wgrad"), ("conv_input_gradient", "dgrad"), ("conv_forward", "fprop"),
+    ("conv", "onv"), ("products", "gemm"), ("softmax", "softmax"), ("layer_norm", "layer_norm"),
+    ("optimizer", "multi_tensor_apply"), ("reductions", "reduce_kernel"), ("elementwise", "elementwise"),
+)
 PTV_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_ptv"
 PTV_RUN_OPTS = ["TRAIN.DATASET", "synthetic", "TEST.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "8",
                 "TEST.BATCH_SIZE", "8", "TRAIN.AUTO_RESUME", "False", "SOLVER.OPTIMIZING_METHOD", "sgd",
@@ -1224,6 +1310,7 @@ ts_cfg, ts_train_cfg = cfg_maker(TS_OPTS), cfg_maker(TS_TRAIN_OPTS)
 vivit_cfg, vivit_train_cfg = cfg_maker(VIVIT_OPTS), cfg_maker(VIVIT_TRAIN_OPTS)
 sf_cfg = cfg_maker(SLOWFAST_OPTS)
 csn_cfg, r2plus1d_cfg = cfg_maker(CSN_OPTS), cfg_maker(R2PLUS1D_OPTS)
+mvit_cfg, rev_mvit_cfg = cfg_maker(MVITV2_S_OPTS), cfg_maker(REV_MVIT_B_OPTS)
 
 
 def launch_counts() -> dict:
@@ -3945,6 +4032,328 @@ def phase_charades(smi: str) -> None:
     shutil.rmtree(CHARADES_OUT, ignore_errors=True)
 
 
+def mvit_card_against_cpu(cfg, seed: int) -> dict:
+    """One fp32 eval forward of ``cfg``'s model at B1 on the CPU and on the
+    card (TF32 off): the head's logits (``head.projection``), the card's
+    largest error relative to the CPU's largest logit, within MVIT_CPU_TOL."""
+    cfg = cfg.clone()
+    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "float32"])
+    module = build_model(cfg, "cpu").module
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((1, t, s, s, 3)).astype(np.float32))
+
+    def logits(x):
+        seen = []
+        hook = module.head.projection.register_forward_hook(lambda m, a, out: seen.append(out))
+        try:
+            with torch.inference_mode():
+                module(x)
+        finally:
+            hook.remove()
+        return seen[0].double().cpu().numpy()
+
+    tick = time.perf_counter()
+    cpu = logits(x)
+    cpu_seconds = time.perf_counter() - tick
+    module.to("cuda")
+    with tf32(False):
+        card = logits(x.cuda())
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(card - cpu).max()) / scale
+    check(np.isfinite(cpu).all() and cpu.shape == (1, cfg.MODEL.NUM_CLASSES) and err <= MVIT_CPU_TOL,
+          f"{cfg.MODEL.MODEL_NAME}: card against CPU {err} of the largest logit {scale}")
+    return dict(batch=1, frames=t, crop=s, largest_logit=scale, rel_err=err, tol=MVIT_CPU_TOL,
+                cpu_seconds=cpu_seconds)
+
+
+def mvit_serve(cfg) -> dict:
+    """``perform_benchmark`` at B8 in bf16 (the config's compute dtype)."""
+    module = build_model(cfg, torch.device("cuda")).module
+    stats = perform_benchmark(module, cfg, torch.device("cuda"))
+    check(stats["batch_size"] == 8 and stats["clips_per_sec"] > 0 and stats["attention_kernel_launches"] == 0,
+          f"{cfg.MODEL.MODEL_NAME} perform_benchmark {stats}")
+    return dict(module=module, clips_per_sec=stats["clips_per_sec"],
+                forward_ms=1e3 * cfg.TEST.BATCH_SIZE / stats["clips_per_sec"])
+
+
+def pool_conv_shapes(module, cfg) -> dict:
+    """The depthwise pooling convs of one B``TEST.BATCH_SIZE`` forward:
+    ((N, C, T, H, W), kernel, stride) -> how many run at that shape."""
+    counts = {}
+    real = mvit_model.attention_pool
+
+    def recording(x, thw, kernel, stride, mode, has_cls, conv=None, norm=None, pad_override=None):
+        if mode == "conv" and kernel:
+            key = ((x.shape[0] * x.shape[1], x.shape[3]) + tuple(thw), tuple(kernel), tuple(stride))
+            counts[key] = counts.get(key, 0) + 1
+        return real(x, thw, kernel, stride, mode, has_cls, conv, norm, pad_override)
+
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    with patched(mvit_model, attention_pool=recording), torch.inference_mode():
+        module(torch.zeros(cfg.TEST.BATCH_SIZE, t, s, s, 3, device="cuda"))
+    return counts
+
+
+def pool_conv_times(counts: dict) -> dict:
+    """Each pooling conv shape's cuDNN forward, input gradient and weight
+    gradient by CUDA events, in fp32 (the pooled q, k, v are fp32; TF32
+    off, and no tensor core takes a depthwise conv), the input in
+    ``channels_last_3d`` as the model gives it; beside each its bound: the
+    larger of the bytes (the two activations and the kernel once each) at
+    3.35 TB/s and 2 x 27 flops an output element at fp32's 67 TFLOP/s.
+    Totals weighted by how many convs run at each shape."""
+    rows, totals = [], {"fwd_ms": 0.0, "dgrad_ms": 0.0, "wgrad_ms": 0.0, "bound_ms": 0.0}
+    with tf32(False):
+        for (shape, kernel, stride), n in sorted(counts.items()):
+            c = shape[1]
+            pad = tuple(k // 2 for k in kernel)
+            x = torch.randn(shape, device="cuda").contiguous(memory_format=torch.channels_last_3d)
+            w = torch.randn((c, 1) + kernel, device="cuda")
+            out = F.conv3d(x, w, None, stride, pad, 1, c)
+            grad = torch.randn_like(out)
+            row = dict(input=list(shape), output=list(out.shape), kernel=list(kernel), stride=list(stride), count=n)
+            row["fwd_ms"] = cuda_ms(lambda: F.conv3d(x, w, None, stride, pad, 1, c), iters=10)
+            for what, mask in (("dgrad_ms", [True, False, False]), ("wgrad_ms", [False, True, False])):
+                row[what] = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                    grad, x, w, None, stride, pad, (1, 1, 1), False, [0, 0, 0], c, mask), iters=10)
+            nbytes = 4.0 * (x.numel() + out.numel() + w.numel())
+            row["bound_ms"] = max(nbytes / PEAK_BYTES_PER_S, 2.0 * 27 * out.numel() / PEAK_FP32_FLOPS) * 1e3
+            for key in totals:
+                totals[key] += n * row[key]
+            rows.append(row)
+            del x, w, out, grad
+    torch.cuda.empty_cache()
+    return dict(shapes=rows, convs=sum(counts.values()), **{f"total_{k}": v for k, v in totals.items()})
+
+
+def grad_group(name: str) -> str:
+    """A parameter's group: its block or layer, else its top module."""
+    parts = name.split(".")
+    if parts[0] == "blocks" or parts[:2] == ["rev_backbone", "layers"]:
+        return ".".join(parts[:3] if parts[0] == "rev_backbone" else parts[:2])
+    return parts[0]
+
+
+def rev_grad_errors(got: dict, want: dict) -> dict:
+    """Each parameter group's largest gradient error, relative to each
+    tensor's largest entry; the k pool's LayerNorm bias (zero analytically:
+    a shift of every key's logit alike) left out."""
+    groups = {}
+    for k, w in want.items():
+        if k.endswith("attn.norm_k.bias"):
+            continue
+        err = float((got[k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        groups[grad_group(k)] = max(groups.get(grad_group(k), 0.0), err)
+    return groups
+
+
+def step_memory(step) -> tuple:
+    """(``step``'s result, its peak allocation above what was allocated before it, GB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def mvit_train_step(module, frames, labels, seed: int):
+    """Forward (train mode, masks from a CUDA generator of ``seed``), cross
+    entropy and backward: (loss, gradients)."""
+    module.train().zero_grad(set_to_none=True)
+    logits, _ = module(frames, generator=torch.Generator(device="cuda").manual_seed(seed))
+    loss = F.cross_entropy(logits.float(), labels)
+    loss.backward()
+    out = loss.detach(), {k: p.grad.detach().float().clone() for k, p in module.named_parameters()}
+    module.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_mvit(smi: str) -> None:
+    """MViTv2-S (``MVITV2_S_OPTS``) at full width: ``perform_benchmark`` at
+    B8 in bf16; the card against the CPU at B1 in fp32; the depthwise
+    pooling convs timed (``pool_conv_times``) beside their share of the
+    serve forward and of a train step, and where the device time of each
+    goes (torch.profiler); 3 train steps at B8 (drop path 0.2; the loss
+    finite), a checkpoint that reloads to the same next loss;
+    ``train_net.train`` for one epoch of 16 synthetic clips;
+    ``MODEL.ACT_CHECKPOINT`` against the plain stack on one step, cuDNN
+    deterministic: loss and every gradient bit for bit, and a lower peak;
+    ``test_net.test`` over 2 views; ``PTVMViT`` built. No K1-K5b may launch."""
+    shutil.rmtree(MVIT_OUT, ignore_errors=True)
+    cuda = torch.device("cuda")
+    zero_launch_counts()
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    errors = mvit_card_against_cpu(mvit_cfg(*MVIT_RUN_OPTS), 61)
+    emit("mvit_card_vs_cpu", seconds=time.perf_counter() - t0, **errors, nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    cfg = mvit_cfg(*MVIT_RUN_OPTS)
+    serve = mvit_serve(cfg)
+    module = serve.pop("module")
+    counts = pool_conv_shapes(module, cfg)
+    check(sum(counts.values()) == 48, f"MViTv2-S ran {sum(counts.values())} pooling convs a forward, not 48")
+    video = torch.from_numpy(np.random.default_rng(3).random((8, 16, 224, 224, 3), dtype=np.float32)).cuda()
+
+    def forward():
+        with torch.inference_mode():
+            module(video)
+
+    serve_profile = device_time_by_kind(forward, MVIT_KERNEL_KINDS)
+    del module
+    torch.cuda.empty_cache()
+    convs = pool_conv_times(counts)
+    emit("mvit_serve", seconds=time.perf_counter() - t0, batch=8, dtype="bfloat16", **serve,
+         pool_convs=convs, pool_conv_share_of_forward=convs["total_fwd_ms"] / serve["forward_ms"],
+         forward_device_time=serve_profile, nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    cfg = mvit_cfg(*MVIT_RUN_OPTS, "OUTPUT_DIR", str(MVIT_OUT / "steps"))
+    trainer = build_trainer(cfg)
+    frames, labels = fixed_batch(cfg)
+    set_lr(trainer.optimizer, trainer.lr_at(0.0))
+    losses, step_seconds = [], []
+    for i in range(MVIT_TRAIN_STEPS):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        tick = time.perf_counter()
+        (loss, _, _), peak = step_memory(lambda: trainer.train_step(frames, labels, gen))
+        losses.append(float(loss))
+        step_seconds.append(time.perf_counter() - tick)
+    check(all(np.isfinite(losses)), f"mvit train: losses {losses}")
+    step_profile = device_time_by_kind(lambda: trainer.train_step(frames, labels), MVIT_KERNEL_KINDS)
+    step_ms = 1e3 * sum(step_seconds[1:]) / (MVIT_TRAIN_STEPS - 1)
+    torch.backends.cudnn.deterministic = True  # the same bits twice
+    try:
+        path = checkpoints.save_checkpoint(str(MVIT_OUT / "steps"), trainer.module, trainer.optimizer, 0, cfg)
+        twin = build_trainer(cfg)
+        checkpoints.load_checkpoint(path, twin.module, twin.optimizer)
+        nxt = [float(t.train_step(frames, labels, torch.Generator(device="cuda").manual_seed(9))[0])
+               for t in (trainer, twin)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(nxt[0] == nxt[1] and np.isfinite(nxt[0]), f"mvit: next loss after reload {nxt[1]} != {nxt[0]}")
+    del trainer, twin
+    torch.cuda.empty_cache()
+    emit("mvit_train", seconds=time.perf_counter() - t0, steps=MVIT_TRAIN_STEPS, batch=8, droppath_rate=0.2,
+         losses=losses, step_seconds=step_seconds, train_clips_per_sec=8e3 / step_ms, peak_step_memory_gb=peak,
+         next_losses=nxt, pool_conv_share_of_step=(convs["total_fwd_ms"] + convs["total_dgrad_ms"]
+                                                   + convs["total_wgrad_ms"]) / step_ms,
+         step_device_time=step_profile, nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    entry = mvit_cfg(*MVIT_RUN_OPTS, "SOLVER.MAX_EPOCH", "1", "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD",
+                     "1", "OUTPUT_DIR", str(MVIT_OUT / "train"))
+    entry_losses = []
+    update = train_net.TrainMeter.update_stats
+
+    def recording_update(meter, top1, top5, loss, lr, mb):
+        entry_losses.append(float(loss))
+        return update(meter, top1, top5, loss, lr, mb)
+
+    with patched(train_net.TrainMeter, update_stats=recording_update):
+        trained = train(entry)
+    saved = torch.load(checkpoints.get_last_checkpoint(str(MVIT_OUT / "train")), map_location="cuda",
+                       weights_only=True)["model_state"]
+    check(len(entry_losses) == 2 and all(np.isfinite(entry_losses))
+          and all(torch.equal(saved[k], v) for k, v in trained.state_dict().items()),
+          f"mvit train_net.train: losses {entry_losses}, or its checkpoint is not the module")
+    del trained, saved
+    torch.cuda.empty_cache()
+    emit("mvit_train_net", seconds=time.perf_counter() - t0, epochs=1, clips=16, losses=entry_losses, nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    results, peaks = [], {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for act in (False, True):
+            trainer = build_trainer(mvit_cfg(*MVIT_RUN_OPTS, "MODEL.ACT_CHECKPOINT", str(act)))
+            grads = {}
+            hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g.detach().clone()))
+                     for k, p in trainer.module.named_parameters()]
+            (loss, _, _), peaks[f"act_checkpoint_{act}"] = step_memory(
+                lambda: trainer.train_step(frames, labels, torch.Generator(device="cuda").manual_seed(21)))
+            for h in hooks:
+                h.remove()
+            results.append((loss, grads))
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (loss_a, grads_a), (loss_b, grads_b) = results
+    differ = sorted(k for k in grads_a if not torch.equal(grads_a[k], grads_b[k]))
+    check(torch.equal(loss_a, loss_b) and not differ and len(grads_a) == len(grads_b),
+          f"ACT_CHECKPOINT: loss {float(loss_b)} against {float(loss_a)}, gradients differ: {differ[:6]}")
+    check(peaks["act_checkpoint_True"] < peaks["act_checkpoint_False"], f"ACT_CHECKPOINT peak memory {peaks}")
+    n_grads = len(grads_a)
+    del results, grads_a, grads_b
+    emit("mvit_act_checkpoint", seconds=time.perf_counter() - t0, batch=8, loss=float(loss_a), bit_equal=True,
+         gradients=n_grads, peak_step_memory_gb=peaks, nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    cfg = mvit_cfg(*MVIT_RUN_OPTS, "TEST.NUM_ENSEMBLE_VIEWS", "2", "TEST.NUM_SPATIAL_CROPS", "1",
+                   "OUTPUT_DIR", str(MVIT_OUT / "test"))
+    with recording_test_net() as seen:
+        views, stats = test_net.test(cfg)[0]
+    meter = seen[0]
+    check(views == 2 and bool((meter.clip_count == 2).all()) and np.isfinite(meter.video_preds).all()
+          and np.isfinite(float(stats["top1_acc"])), f"mvit test_net: {views} views, {stats}")
+    ptv = build_model(mvit_cfg("MODEL.MODEL_NAME", "PTVMViT"), cuda)
+    check(isinstance(ptv.module, mvit_model.MViTModel) and ptv.name == "PTVMViT", "PTVMViT is not MViT")
+    del ptv
+    torch.cuda.empty_cache()
+    emit("mvit_test_net", seconds=time.perf_counter() - t0, views=views, clips=int(meter.clip_count.sum()),
+         top1_acc=float(stats["top1_acc"]), ptv_mvit_built=True, nvidia_smi=smi)
+    emit("mvit", seconds=time.perf_counter() - start, launches=check_no_attention_launches("mvit"), nvidia_smi=smi)
+    shutil.rmtree(MVIT_OUT, ignore_errors=True)
+
+
+def phase_mvit_rev(smi: str) -> None:
+    """Rev-MViT-B (``REV_MVIT_B_OPTS``) at full width: ``perform_benchmark``
+    at B8 in bf16; the card against the CPU at B1 in fp32; a B8 train step
+    (forward, cross entropy, backward; drop path 0.2 from one CUDA
+    generator) through the reversible backward against the same step under
+    plain autograd (``use_rev_backward`` off, the same masks), in fp32 and
+    in bf16: the loss bit for bit, each parameter group's largest gradient
+    error, and each step's peak memory (the reversible one lower). No K1-K5b
+    may launch."""
+    cuda = torch.device("cuda")
+    zero_launch_counts()
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    cfg = rev_mvit_cfg(*MVIT_RUN_OPTS)
+    serve = mvit_serve(cfg)
+    del serve["module"]
+    torch.cuda.empty_cache()
+    emit("mvit_rev_serve", seconds=time.perf_counter() - t0, batch=8, dtype="bfloat16", **serve, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    errors = mvit_card_against_cpu(cfg, 62)
+    emit("mvit_rev_card_vs_cpu", seconds=time.perf_counter() - t0, **errors, nvidia_smi=smi)
+
+    frames, labels = fixed_batch(cfg)
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        module = build_model(rev_mvit_cfg(*MVIT_RUN_OPTS, "TPU.COMPUTE_DTYPE", dtype), cuda,
+                             fp32_params=True).module
+        runs, peaks = {}, {}
+        for rev in (True, False):
+            module.rev_backbone.use_rev_backward = rev
+            runs[rev], peaks[f"rev_backward_{rev}"] = step_memory(lambda: mvit_train_step(module, frames, labels, 31))
+        module.rev_backbone.use_rev_backward = True
+        (loss_rev, grads_rev), (loss_plain, grads_plain) = runs[True], runs[False]
+        errors = rev_grad_errors(grads_rev, grads_plain)
+        check(torch.equal(loss_rev, loss_plain) and np.isfinite(float(loss_rev)),
+              f"rev {dtype}: loss {float(loss_rev)} against plain autograd's {float(loss_plain)}")
+        check(peaks["rev_backward_True"] < peaks["rev_backward_False"], f"rev {dtype}: peak memory {peaks}")
+        del module, runs, grads_rev, grads_plain
+        torch.cuda.empty_cache()
+        emit(f"mvit_rev_backward_{dtype}", seconds=time.perf_counter() - t0, batch=8, droppath_rate=0.2,
+             loss=float(loss_rev), max_rel_grad_err=max(errors.values()), rel_grad_err_by_group=errors,
+             peak_step_memory_gb=peaks, nvidia_smi=smi)
+    emit("mvit_rev", seconds=time.perf_counter() - start, launches=check_no_attention_launches("mvit_rev"),
+         nvidia_smi=smi)
+
+
 # The A/B kernels: id -> (source, the TPU kernel's call site, the mode whose
 # numbers stand on the ``kernels`` line; every mode is on the ab_kernels line).
 AB_KERNELS = {
@@ -4172,6 +4581,8 @@ def main() -> int:
     phase_ptv(smi)
     phase_multigrid(smi)
     phase_charades(smi)
+    phase_mvit(smi)
+    phase_mvit_rev(smi)
     ab_launches = phase_ab_dense()
     launches += ab_launches["K1"]  # the prod rows
     emit("done", seconds=time.perf_counter() - t0)

@@ -242,3 +242,43 @@ def test_defaults_and_opts_need_no_yaml(monkeypatch):
     assert cfg.TOME.R_VALUE == 150 and cfg.TEST.CHECKPOINT_FILE_PATH == ""
     with pytest.raises(ImportError):
         cfg.dump()
+
+
+# The values of PySlowFast's public MViT configs that chip_smoke's lists
+# carry (no yaml ships for them): configs/Kinetics/MVITv2_S_16x4.yaml and
+# configs/Kinetics/REV_MVIT_B_16x4_CONV.yaml, the port's defaults for the rest.
+_MVIT_TRUNK = {
+    "MODEL.MODEL_NAME": "MViT", "MODEL.ARCH": "mvit", "MODEL.NUM_CLASSES": 400, "DATA.NUM_FRAMES": 16,
+    "DATA.SAMPLING_RATE": 4, "DATA.TRAIN_CROP_SIZE": 224, "DATA.TEST_CROP_SIZE": 224, "MVIT.EMBED_DIM": 96,
+    "MVIT.NUM_HEADS": 1, "MVIT.DEPTH": 16, "MVIT.MLP_RATIO": 4.0, "MVIT.QKV_BIAS": True,
+    "MVIT.PATCH_KERNEL": [3, 7, 7], "MVIT.PATCH_STRIDE": [2, 4, 4], "MVIT.PATCH_PADDING": [1, 3, 3],
+    "MVIT.MODE": "conv", "MVIT.DIM_MUL": [[1, 2.0], [3, 2.0], [14, 2.0]],
+    "MVIT.HEAD_MUL": [[1, 2.0], [3, 2.0], [14, 2.0]], "MVIT.POOL_KVQ_KERNEL": [3, 3, 3],
+    "MVIT.POOL_KV_STRIDE_ADAPTIVE": [1, 8, 8], "MVIT.DROPPATH_RATE": 0.2,
+}
+MVITV2_S = dict(_MVIT_TRUNK, **{
+    "MVIT.CLS_EMBED_ON": True, "MVIT.USE_ABS_POS": False, "MVIT.REL_POS_SPATIAL": True,
+    "MVIT.REL_POS_TEMPORAL": True, "MVIT.RESIDUAL_POOLING": True, "MVIT.DIM_MUL_IN_ATT": True,
+    "MVIT.POOL_Q_STRIDE": [[i, 1, 2, 2] if i in (1, 3, 14) else [i, 1, 1, 1] for i in range(16)],
+})
+REV_MVIT_B = dict(_MVIT_TRUNK, **{
+    "MVIT.SEP_POS_EMBED": True, "MVIT.CLS_EMBED_ON": False,
+    "MVIT.POOL_Q_STRIDE": [[1, 1, 2, 2], [3, 1, 2, 2], [14, 1, 2, 2]], "MVIT.REV.ENABLE": True,
+    "MVIT.REV.BUFFER_LAYERS": [1, 3, 14], "MVIT.REV.RES_PATH": "conv", "MVIT.REV.RESPATH_FUSE": "concat",
+})
+
+
+@pytest.mark.parametrize("helper, values", [("mvit_cfg", MVITV2_S), ("rev_mvit_cfg", REV_MVIT_B)])
+def test_chip_smoke_mvit_opts_equal_public_configs(helper, values):
+    """``MVITV2_S_OPTS`` and ``REV_MVIT_B_OPTS`` set exactly these values
+    over the defaults, in the types a yaml gives them."""
+    import chip_smoke
+
+    want = tcfg.get_cfg()
+    for key, value in values.items():
+        node = want
+        *path, leaf = key.split(".")
+        for part in path:
+            node = getattr(node, part)
+        setattr(node, leaf, value)
+    assert getattr(chip_smoke, helper)().to_dict() == want.to_dict()

@@ -71,6 +71,12 @@ PTV_MODULES = (
     "vtm_torch.data.ptv",
 )
 
+# MViT and the reversible MViT
+MVIT_MODULES = (
+    "vtm_torch.models.mvit",
+    "vtm_torch.models.mvit_rev",
+)
+
 # the merge visualisation, the analysis tools and the examples
 ANALYSIS_MODULES = (
     "vtm_torch.vis",
@@ -103,12 +109,13 @@ def test_every_module_imports_without_jax():
     assert not set(EVAL_MODULES) - set(names)
     assert not set(ANALYSIS_MODULES) - set(names)
     assert not set(PTV_MODULES) - set(names)
+    assert not set(MVIT_MODULES) - set(names)
 
 
-@pytest.mark.parametrize("module", ANALYSIS_MODULES + PTV_MODULES)
+@pytest.mark.parametrize("module", ANALYSIS_MODULES + PTV_MODULES + MVIT_MODULES)
 def test_analysis_modules_import_without_jax_alone(module):
-    """Each of the new subpackages' modules, and the PTV, multigrid and
-    Charades modules, imported alone in a fresh process, pulls in neither
+    """Each of the new subpackages' modules, and the PTV, multigrid,
+    Charades and MViT modules, imported alone in a fresh process, pulls in neither
     jax nor vtm."""
     code = (f"import sys, {module}; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'simplejson', 'vtm')]; assert not bad, bad")

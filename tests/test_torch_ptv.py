@@ -4,7 +4,7 @@ the depth-18 table of bottlenecks, width 4, 8 frames at a 32-pixel crop),
 from the same weights: eval outputs and, with the shipped init, train-mode
 logits and statistics in fp32; the weight bridge both ways; the
 architecture (depthwise ``conv_b``, stage depths, temporal strides); the
-aliases, ``PTVMViT``'s and detection's raises; and the head under a
+aliases (``PTVMViT`` builds MViT, held against ``vtm``'s), detection's raises; and the head under a
 short-cycle crop smaller than its pool, where ``vtm`` gives empty logits and
 the port raises. Live (sub-batch) BatchNorm in fp64:
 ``test_torch_ptv_train.py``. About 35 s."""
@@ -19,6 +19,7 @@ from vtm.models.build import build_model as jax_build_model
 
 from vtm_torch.checkpoints.convert import ptv_state_dict_from_vtm_params
 from vtm_torch.models import build_model
+from vtm_torch.models.mvit import MViTModel
 from vtm_torch.models.slowfast import ResNetModel, SlowFastModel, X3DModel
 
 from torch_conv_cases import NAMES, X3D, PTVCase, assert_close_to_largest, cfgs, ptv_opts, stats_tol, tiny_opts
@@ -134,9 +135,16 @@ def test_aliases_build_native_models(name, arch, native):
 
 
 def test_ptv_mvit_raises_naming_item_17():
-    cfg, _ = cfgs(ptv_opts("PTVMViT"))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(cfg, "cpu")
+    """``PTVMViT`` builds the port's MViT under the PTV name, as ``vtm``
+    builds its own, and both give the same fp32 logits from the same weights
+    (tiny v2, ``torch_mvit_cases``). The name is the earlier check's:
+    ``PTVMViT`` raised naming item 17 until MViT was ported."""
+    from torch_mvit_cases import V2, Case
+
+    case = Case(*V2, "MODEL.MODEL_NAME", "PTVMViT")
+    assert type(case.module) is MViTModel and case.bundle.name == "PTVMViT" and case.jbundle.name == "PTVMViT"
+    x = case.video(2, seed=9)
+    assert_close_to_largest(case.port_apply(x, True), case.jax_apply(x, True), LOGIT_TOL, "PTVMViT logits")
 
 
 @pytest.mark.parametrize("name", ["csn", "r2plus1d"])

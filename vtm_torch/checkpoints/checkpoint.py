@@ -5,7 +5,8 @@ foreign checkpoint is taken in (``clear_name_pattern_keys``,
 230-262`` over state dicts), and for the conv families the BatchNorm
 statistics' rule (``merge_bn_stats``) and the 2-D -> 3-D weight adaptations
 of ``TRAIN.CHECKPOINT_INFLATE`` and ``CHECKPOINT_IN_INIT``
-(``inflate_weights``, ``image_init_adapt``). The module's state dict holds
+(``inflate_weights``, ``image_init_adapt``; the latter's rules are
+``vtm``'s for image-initialised MViT). The module's state dict holds
 the BatchNorm running statistics (buffers), so the port's own checkpoints
 carry and restore them.
 
@@ -45,6 +46,7 @@ from torch.nn.parallel import DistributedDataParallel
 
 from vtm_torch.checkpoints.convert import (
     load_motionformer_state_dict,
+    load_mvit_state_dict,
     load_pyslowfast_state_dict,
     load_timesformer_state_dict,
     load_torch_state_dict,
@@ -196,6 +198,7 @@ CHECKPOINT_LOADERS = {
     "SlowFast": lambda sd, config: load_pyslowfast_state_dict(sd),
     "ResNet": lambda sd, config: load_pyslowfast_state_dict(sd),
     "X3D": lambda sd, config: load_pyslowfast_state_dict(sd),
+    "MViT": lambda sd, config: load_mvit_state_dict(sd),
 }
 _STATS = ("running_mean", "running_var")
 

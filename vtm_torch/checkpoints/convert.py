@@ -27,6 +27,10 @@ is. This module adds:
     ``pyslowfast_state_dict_from_vtm`` (the inverse of ``vtm``'s
     ``convert_pyslowfast``: params and BatchNorm statistics),
     ``caffe2_name_to_pytorch`` and ``convert_caffe2`` (Caffe2 blobs);
+  * ``load_mvit_state_dict`` (an upstream PySlowFast MViT or reversible
+    MViT state dict: the upstream names, which the port keeps, wrapper
+    prefixes stripped) and ``mvit_state_dict_from_vtm_params`` (the inverse
+    of ``vtm``'s ``convert_mvit``);
   * ``load_torch_state_dict``: a checkpoint file -> a flat state dict.
 """
 
@@ -559,3 +563,62 @@ def convert_caffe2(blobs: Mapping[str, object]) -> Dict[str, torch.Tensor]:
     sd = {caffe2_name_to_pytorch(k): np.asarray(v) for k, v in blobs.items()
           if "momentum" not in k and k not in ("model_iter", "lr")}
     return load_pyslowfast_state_dict(sd)
+
+
+def load_mvit_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """An upstream PySlowFast MViT state dict (plain blocks or the
+    reversible layout ``rev_backbone.layers.{i}.{F,G,res_proj,pre_q_fuse}``,
+    the fusion MLPs ``fuse.fuse_fn.*``) -> the port's: the names are the
+    same, so only the wrapper prefixes go (``strip_prefixes``), as
+    ``vtm``'s ``convert_mvit`` strips them."""
+    return {k: _t(v) for k, v in strip_prefixes(sd).items()}
+
+
+# vtm's MViT tree segments -> the port's module path
+_MVIT_RENAMES = {"patch_embed": "patch_embed.proj", "head": "head.projection"}
+
+
+def mvit_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's MViT params (nested dicts of arrays) -> the port's
+    state dict: the inverse of ``vtm.checkpoints.convert.convert_mvit`` and
+    ``_mvit_attn``. ``blocks_{i}`` / ``layers_{i}`` -> ``blocks.{i}`` /
+    ``layers.{i}``; ``pool_{q,k,v}_mod`` -> ``pool_{q,k,v}`` (the depthwise
+    kernel (kt, kh, kw, 1, C) -> [C, 1, kt, kh, kw]) and ``norm_{q,k,v}``;
+    a fusion's ``mlp`` -> ``fuse_fn`` (``fuse_fn.1`` and its ``ln`` ->
+    ``fuse_fn.0`` under ``ln+concat_linear``); Dense kernels transposed,
+    LayerNorm ``scale`` -> ``weight``; tables as they are. Any tree of the
+    params' structure goes through (gradients, updated parameters)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        for key, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path + _segment(key, node, path))
+                continue
+            a = np.array(v)
+            if key == "kernel":
+                leaf, a = "weight", (a.transpose(4, 3, 0, 1, 2) if a.ndim == 5 else a.T)
+            else:
+                leaf = "weight" if key == "scale" else key
+            sd[".".join(path + [leaf])] = _t(np.ascontiguousarray(a))
+
+    def _segment(key, parent, path):
+        m = re.fullmatch(r"(blocks|layers)_(\d+)", key)
+        if m:
+            return [m.group(1), m.group(2)]
+        pool = re.fullmatch(r"pool_([qkv])_mod", key)
+        if pool:
+            return ["<pool>", pool.group(1)]
+        if path and path[-1] in ("fuse", "pre_q_fuse"):
+            if key == "ln":
+                return ["fuse_fn", "0"]
+            return ["fuse_fn", "1"] if "ln" in parent else ["fuse_fn"]
+        if not path and key in _MVIT_RENAMES:
+            return _MVIT_RENAMES[key].split(".")
+        return [key]
+
+    walk(params, [])
+    out = {}
+    for name, v in sd.items():  # <pool>.q.pool.weight -> pool_q.weight; <pool>.q.norm.* -> norm_q.*
+        out[re.sub(r"<pool>\.([qkv])\.(pool|norm)\.", lambda m: f"{m.group(2)}_{m.group(1)}.", name)] = v
+    return out

@@ -18,9 +18,8 @@ fp32 (fp64 when given it) in ``channels_last_3d`` memory, as the other conv
 families do. CSN's depthwise 3x3x3 ``conv_b`` (``groups`` = its width) is a
 cuDNN convolution, as ``vtm``'s is an XLA one.
 
-``PTVX3D``, ``PTVSlowFast`` and ``PTVResNet`` build the port's native
-models under the PTV name, as in ``vtm``. ``PTVMViT`` is an alias of MViT
-there; MViT is not ported yet, so it raises here.
+``PTVX3D``, ``PTVSlowFast``, ``PTVResNet`` and ``PTVMViT`` build the
+port's native models under the PTV name, as in ``vtm``.
 """
 
 from __future__ import annotations
@@ -235,8 +234,4 @@ def _alias(ptv_name: str, native_name: str) -> None:
 _alias("PTVX3D", "X3D")
 _alias("PTVSlowFast", "SlowFast")
 _alias("PTVResNet", "ResNet")
-
-
-@register_model("PTVMViT", nn.Module)
-def _build_mvit(cfg, fp32_params: bool = False) -> ModelBundle:
-    raise NotImplementedError("PTVMViT builds MViT, which is not ported yet (ROADMAP.md Queue 1, item 17)")
+_alias("PTVMViT", "MViT")
