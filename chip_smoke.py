@@ -221,6 +221,22 @@ Phases, each printing one JSON line:
                   autograd on the same masks, fp32 and bf16: the loss bit for
                   bit, each parameter group's largest gradient error, both
                   peaks (the reversible one lower). No K1-K5b
+     maskfeat  -- MaskFeat on MViTv2-S (``MASKFEAT_OPTS``: HOG targets
+                  at block 15, the loader's 3-D block masks over 40% of an
+                  8 x 7 x 7 window) at full width: the card against the CPU
+                  at B1 in fp32 (predictions, masks); 3 bf16 AdamW steps at
+                  B8 with the HOG targets made on the card (losses, ms a
+                  step, clips/s, the targets' ms, peak), a checkpoint that
+                  reloads to the same next loss, train_net.train for one
+                  epoch of 16 clips; the HOG targets of the batch on the
+                  card against the CPU's (no bin may differ); the 48
+                  pooling convs' share of a step. No K1-K5b
+     mae       -- MAE on ViT-B (``MAE_VIT_B_OPTS``: 1568 tokens, 156 kept,
+                  a decoder of 4 blocks 512 wide): the card against the CPU
+                  at B1 in fp32 under the same injected noise; the training
+                  of maskfeat with the noise from each step's generator;
+                  mae_visualize of one batch, every visible patch of the
+                  reconstruction the input's. No K1-K5b
      dist      -- the parallel paths (vtm_torch/parallel) at ViT-B width,
                   bf16, B8, each against the same run in this process: NCCL
                   at world size 1, train_net's DDP step on the EPIC config
@@ -256,8 +272,10 @@ import functools
 import hashlib
 import io
 import json
+import math
 import pathlib
 import pickle
+import random
 import shutil
 import subprocess
 import sys
@@ -269,11 +287,12 @@ import torch.nn.functional as F
 
 from vtm_torch.checkpoints import checkpoint as checkpoints
 from vtm_torch.config import get_cfg
-from vtm_torch.data import construct_loader
+from vtm_torch.data import construct_loader, masking
 from vtm_torch.merge import MergePolicy, MergeState
 from vtm_torch.merge import bipartite as merge_bipartite
 from vtm_torch.models import build_model
 from vtm_torch.models import convnet, motionformer_approx
+from vtm_torch.models import masked as masked_model
 from vtm_torch.models import mvit as mvit_model
 from vtm_torch.models.common import _FLASH_MAX_SEQ, _FLASH_MIN_SEQ, split_heads
 from vtm_torch.models.videomae import VideoMAE
@@ -305,6 +324,7 @@ from vtm_torch.tools.train_net import build_trainer, refresh_bn_stats, train
 from vtm_torch.train.optimizer import set_lr
 from vtm_torch.utils.benchmark import device_seconds
 from vtm_torch.vis import concatenate_images, make_spatiotemporal_video_visualization
+from vtm_torch.vis.mae_vis import mae_visualize
 
 # configs/videomae/kinetics/tome_VideoMAE_B_16_224_K400.yaml, key by key,
 # with the checkpoint placeholder replaced by "" (random weights).
@@ -1247,6 +1267,61 @@ REV_MVIT_B_OPTS = _MVIT_TRUNK + [
     "MVIT.REV.RES_PATH", "conv",
     "MVIT.REV.RESPATH_FUSE", "concat",
 ]
+# Masked pretraining (models/masked.py), whose configs PySlowFast keeps under
+# configs/masked_ssl/ and the repo does not ship. MaskFeat: the MViTv2-S
+# trunk above as MaskMViT, HOG targets at its last block (8 x 7 x 7
+# positions, 3 x 9 x (32 / 8)^2 = 432 values each), the loader's 3-D block
+# masks over 40% of an 8 x 7 x 7 window (the MaskFeat paper's).
+MASKFEAT_OPTS = MVITV2_S_OPTS + [
+    "MODEL.MODEL_NAME", "MaskMViT",
+    "MODEL.LOSS_FUNC", "multi_mse",
+    "MASK.ENABLE", "True",
+    "MASK.PRED_HOG", "True",
+    "MASK.PRETRAIN_DEPTH", "[15]",
+    "AUG.GEN_MASK_LOADER", "True",
+    "AUG.MASK_RATIO", "0.4",
+    "AUG.MASK_WINDOW_SIZE", "[8, 7, 7]",
+]
+# MAE: ViT-B 16x224 as an MViT without pooling (patches 2 x 16 x 16, so
+# 1568 tokens; 12 blocks 768 wide with 12 heads), 90% of the tokens dropped
+# at random (156 kept), a decoder of 4 blocks 512 wide, per-patch
+# normalised pixel targets (768 values at each of 1568 positions): the
+# layout of PySlowFast's configs/masked_ssl/k400_VIT_B_16x4_MAE_PT.yaml and
+# the MAE-ST paper (Feichtenhofer et al., 2022). PERF.md names the values
+# not checked against that file.
+MAE_VIT_B_OPTS = [
+    "MODEL.MODEL_NAME", "MaskMViT",
+    "MODEL.ARCH", "mvit",
+    "MODEL.LOSS_FUNC", "multi_mse",
+    "DATA.NUM_FRAMES", "16",
+    "DATA.SAMPLING_RATE", "4",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TEST_CROP_SIZE", "224",
+    "MVIT.EMBED_DIM", "768",
+    "MVIT.NUM_HEADS", "12",
+    "MVIT.DEPTH", "12",
+    "MVIT.MLP_RATIO", "4.0",
+    "MVIT.QKV_BIAS", "True",
+    "MVIT.PATCH_KERNEL", "[2, 16, 16]",
+    "MVIT.PATCH_STRIDE", "[2, 16, 16]",
+    "MVIT.PATCH_PADDING", "[0, 0, 0]",
+    "MVIT.SEP_POS_EMBED", "True",
+    "MVIT.DROPPATH_RATE", "0.0",
+    "MASK.ENABLE", "True",
+    "MASK.MAE_ON", "True",
+    "MASK.MAE_RND_MASK", "True",
+    "MASK.PRETRAIN_DEPTH", "[11]",
+    "MASK.DECODER_EMBED_DIM", "512",
+    "MASK.DECODER_DEPTH", "4",
+    "MASK.DECODER_SEP_POS_EMBED", "True",
+    "MASK.NORM_PRED_PIXEL", "True",
+    "MASK.TIME_STRIDE_LOSS", "True",
+    "AUG.MASK_RATIO", "0.9",
+]
+MASKED_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_masked"
+MASKED_TRAIN_STEPS = 3
+# the card's fp32 predictions (TF32 off) against the CPU's, of the largest
+MASKED_CPU_TOL = 1e-4
 # the mvit and mvit_rev phases: B8 on synthetic clips, AdamW, fresh output
 # directories under build/
 MVIT_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_mvit"
@@ -1311,6 +1386,7 @@ vivit_cfg, vivit_train_cfg = cfg_maker(VIVIT_OPTS), cfg_maker(VIVIT_TRAIN_OPTS)
 sf_cfg = cfg_maker(SLOWFAST_OPTS)
 csn_cfg, r2plus1d_cfg = cfg_maker(CSN_OPTS), cfg_maker(R2PLUS1D_OPTS)
 mvit_cfg, rev_mvit_cfg = cfg_maker(MVITV2_S_OPTS), cfg_maker(REV_MVIT_B_OPTS)
+maskfeat_cfg, mae_cfg = cfg_maker(MASKFEAT_OPTS), cfg_maker(MAE_VIT_B_OPTS)
 
 
 def launch_counts() -> dict:
@@ -4076,8 +4152,9 @@ def mvit_serve(cfg) -> dict:
                 forward_ms=1e3 * cfg.TEST.BATCH_SIZE / stats["clips_per_sec"])
 
 
-def pool_conv_shapes(module, cfg) -> dict:
-    """The depthwise pooling convs of one B``TEST.BATCH_SIZE`` forward:
+def pool_conv_shapes(module, cfg, *inputs) -> dict:
+    """The depthwise pooling convs of one B``TEST.BATCH_SIZE`` forward (of
+    zero clips and ``inputs`` after them):
     ((N, C, T, H, W), kernel, stride) -> how many run at that shape."""
     counts = {}
     real = mvit_model.attention_pool
@@ -4090,7 +4167,7 @@ def pool_conv_shapes(module, cfg) -> dict:
 
     t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
     with patched(mvit_model, attention_pool=recording), torch.inference_mode():
-        module(torch.zeros(cfg.TEST.BATCH_SIZE, t, s, s, 3, device="cuda"))
+        module(torch.zeros(cfg.TEST.BATCH_SIZE, t, s, s, 3, device="cuda"), *inputs)
     return counts
 
 
@@ -4354,6 +4431,233 @@ def phase_mvit_rev(smi: str) -> None:
          nvidia_smi=smi)
 
 
+def masked_batch(cfg, seed: int):
+    """The first training batch of the synthetic dataset and its loader
+    masks (the global ``random`` seeded with ``seed``; None without
+    ``AUG.GEN_MASK_LOADER``), on the card."""
+    random.seed(seed)
+    batch = next(iter(construct_loader(cfg, "train")))
+    mask = batch.get("mask")
+    return torch.from_numpy(batch["frames"]).cuda(), None if mask is None else torch.from_numpy(mask).cuda()
+
+
+def masked_card_against_cpu(cfg, seed: int) -> dict:
+    """One fp32 forward of ``cfg``'s MaskMViT at B1 on the CPU and on the
+    card (TF32 off), the same weights and the same loader mask (MaskFeat)
+    or injected noise (MAE): each float output's largest error relative to
+    the CPU's largest entry, within MASKED_CPU_TOL; the boolean masks equal."""
+    cfg = cfg.clone()
+    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "float32"])
+    module = build_model(cfg, "cpu", fp32_params=True).module
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, t, s, s, 3)).astype(np.float32))
+    if cfg.MASK.MAE_ON:
+        mask, noise = None, torch.from_numpy(rng.random((1, math.prod(module.spec.patch_dims)), dtype=np.float32))
+        names = ("preds", "labels", "masks")
+    else:
+        random.seed(seed)
+        mask, noise = torch.from_numpy(masking.gen_mask(cfg)[None].astype(np.float32)), None
+        names = ("preds", "masks")
+
+    def run(device):
+        kw = {} if noise is None else {"noise": noise.to(device)}
+        with torch.inference_mode():
+            return module(x.to(device), None if mask is None else mask.to(device), **kw)
+
+    tick = time.perf_counter()
+    cpu = run("cpu")
+    cpu_seconds = time.perf_counter() - tick
+    module.to("cuda")
+    with tf32(False):
+        card = run("cuda")
+    out = dict(batch=1, tol=MASKED_CPU_TOL, cpu_seconds=cpu_seconds)
+    for name, wants, gots in zip(names, cpu, card):
+        for i, (want, got) in enumerate(zip(wants, gots)):
+            got = got.cpu()
+            if want.dtype == torch.bool:
+                check(torch.equal(got, want), f"{cfg.MODEL.MODEL_NAME}: the card's {name}[{i}] differ from the CPU's")
+                out[f"{name}_{i}_masked_positions"] = int(want.sum())
+                continue
+            scale = float(want.double().abs().max())
+            err = float((got.double() - want.double()).abs().max()) / scale
+            check(bool(torch.isfinite(want).all()) and err <= MASKED_CPU_TOL,
+                  f"{cfg.MODEL.MODEL_NAME}: card against CPU {err} of the largest {name}[{i}] entry {scale}")
+            out[f"{name}_{i}"] = dict(shape=list(want.shape), largest=scale, rel_err=err)
+    return out
+
+
+def hog_card_against_cpu(cfg, spec, frames) -> dict:
+    """MaskFeat's HOG targets of a batch made on the card against the same
+    made on the CPU: how many orientation bins differ (``hog_bins`` of the
+    frames the targets read; must be none), the largest target error (at
+    most 1e-5: the cell sums add in another order), and the card's ms to
+    make them."""
+    depths = cfg.MASK.PRETRAIN_DEPTH
+    sub = frames[:, ::spec.patch_stride[0]]
+    sub = sub.reshape((-1,) + tuple(sub.shape[2:]))
+    bins_card = masked_model.hog_bins(sub)[1].cpu()
+    bins_cpu = masked_model.hog_bins(sub.cpu())[1]
+    differ = int((bins_card != bins_cpu).sum())
+    card = masked_model.maskfeat_hog_labels(spec, depths, frames)
+    cpu = masked_model.maskfeat_hog_labels(spec, depths, frames.cpu())
+    err = max(float((c.cpu() - w).abs().max()) for c, w in zip(card, cpu))
+    check(differ == 0 and err <= 1e-5, f"HOG targets: {differ} bins differ, largest error {err}")
+    label_ms = cuda_ms(lambda: masked_model.maskfeat_labels(cfg, spec, frames), iters=10)
+    return dict(frames=int(sub.shape[0]), bins=int(bins_cpu.numel()), differing_bins=differ, max_abs_err=err,
+                label_shapes=[list(c.shape) for c in card], label_ms=label_ms)
+
+
+def masked_train(phase: str, make_cfg, smi: str, label_ms_of) -> dict:
+    """``MASKED_TRAIN_STEPS`` bf16 AdamW steps of ``train_net``'s masked step
+    at B8 on one synthetic batch with its loader masks (the MAE draws its
+    noise from a CUDA generator a step): the losses finite, ms a step after
+    the first, train clips/s, the peak; one more step's device time by kind
+    (torch.profiler); the ms a step spends making its
+    targets (``label_ms_of(cfg, trainer, frames)``); a checkpoint that
+    reloads to the same next loss (cuDNN deterministic); then
+    ``train_net.train`` for one epoch of 16 synthetic clips (2 iterations,
+    no eval epoch), its losses finite and its checkpoint the module. Returns
+    the step's figures and the trainer's module, cfg and batch."""
+    t0 = time.perf_counter()
+    out = MASKED_OUT / phase
+    cfg = make_cfg(*MVIT_RUN_OPTS, "OUTPUT_DIR", str(out / "steps"))
+    trainer = build_trainer(cfg)
+    frames, mask = masked_batch(cfg, 5)
+    set_lr(trainer.optimizer, trainer.lr_at(0.0))
+    losses, step_seconds, peak = [], [], 0.0
+    for i in range(MASKED_TRAIN_STEPS):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        tick = time.perf_counter()
+        (loss, _), peak = step_memory(lambda: trainer.train_step(frames, mask, gen))
+        losses.append(float(loss))
+        step_seconds.append(time.perf_counter() - tick)
+    check(all(np.isfinite(losses)), f"{phase} train: losses {losses}")
+    step_ms = 1e3 * sum(step_seconds[1:]) / (MASKED_TRAIN_STEPS - 1)
+    step_profile = device_time_by_kind(lambda: trainer.train_step(frames, mask, gen), MVIT_KERNEL_KINDS)
+    label_ms = label_ms_of(cfg, trainer, frames)
+    torch.backends.cudnn.deterministic = True  # the same bits twice
+    try:
+        path = checkpoints.save_checkpoint(str(out / "steps"), trainer.module, trainer.optimizer, 0, cfg)
+        twin = build_trainer(cfg)
+        checkpoints.load_checkpoint(path, twin.module, twin.optimizer)
+        nxt = [float(t.train_step(frames, mask, torch.Generator(device="cuda").manual_seed(9))[0])
+               for t in (trainer, twin)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(nxt[0] == nxt[1] and np.isfinite(nxt[0]), f"{phase}: next loss after reload {nxt[1]} != {nxt[0]}")
+    del twin
+    torch.cuda.empty_cache()
+    figures = dict(steps=MASKED_TRAIN_STEPS, batch=8, dtype=cfg.TPU.COMPUTE_DTYPE, losses=losses,
+                   step_seconds=step_seconds, step_ms=step_ms, train_clips_per_sec=8e3 / step_ms,
+                   label_ms=label_ms, label_share_of_step=label_ms / step_ms, peak_step_memory_gb=peak,
+                   next_losses=nxt, step_device_time=step_profile)
+    emit(f"{phase}_train", seconds=time.perf_counter() - t0, **figures, nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    entry = make_cfg(*MVIT_RUN_OPTS, "SOLVER.MAX_EPOCH", "1", "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD",
+                     "1", "OUTPUT_DIR", str(out / "train"))
+    entry_losses = []
+    update = train_net.TrainMeter.update_stats
+
+    def recording_update(meter, top1, top5, loss, lr, mb):
+        entry_losses.append(float(loss))
+        return update(meter, top1, top5, loss, lr, mb)
+
+    with patched(train_net.TrainMeter, update_stats=recording_update):
+        trained = train(entry)
+    saved = torch.load(checkpoints.get_last_checkpoint(str(out / "train")), map_location="cuda",
+                       weights_only=True)["model_state"]
+    check(len(entry_losses) == 2 and all(np.isfinite(entry_losses))
+          and all(torch.equal(saved[k], v) for k, v in trained.state_dict().items()),
+          f"{phase} train_net.train: losses {entry_losses}, or its checkpoint is not the module")
+    del trained, saved
+    torch.cuda.empty_cache()
+    emit(f"{phase}_train_net", seconds=time.perf_counter() - t0, epochs=1, clips=16, losses=entry_losses,
+         nvidia_smi=smi)
+    return dict(figures, trainer=trainer, cfg=cfg, frames=frames, mask=mask)
+
+
+def phase_maskfeat(smi: str) -> None:
+    """MaskFeat on MViTv2-S (``MASKFEAT_OPTS``) at full width: the card
+    against the CPU at B1 in fp32 (predictions, masks); the HOG targets of a
+    B8 batch made on the card against the CPU's, bin for bin;
+    ``masked_train`` (bf16 AdamW at B8, the HOG targets made on the card
+    each step, a checkpoint reload, ``train_net.train``); the 48 depthwise
+    pooling convs' share of a step (``pool_conv_times``). No K1-K5b may
+    launch."""
+    shutil.rmtree(MASKED_OUT / "maskfeat", ignore_errors=True)
+    zero_launch_counts()
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    errors = masked_card_against_cpu(maskfeat_cfg(*MVIT_RUN_OPTS), 71)
+    emit("maskfeat_card_vs_cpu", seconds=time.perf_counter() - t0, **errors, nvidia_smi=smi)
+
+    def label_ms(cfg, trainer, frames):
+        return cuda_ms(lambda: masked_model.maskfeat_labels(cfg, trainer.module.spec, frames), iters=10)
+
+    run = masked_train("maskfeat", maskfeat_cfg, smi, label_ms)
+    trainer, cfg, frames, step_ms = run["trainer"], run["cfg"], run["frames"], run["step_ms"]
+    t0 = time.perf_counter()
+    hog = hog_card_against_cpu(cfg, trainer.module.spec, frames)
+    emit("maskfeat_hog", seconds=time.perf_counter() - t0, **hog, nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    counts = pool_conv_shapes(trainer.module, cfg, torch.zeros((8,) + tuple(cfg.AUG.MASK_WINDOW_SIZE), device="cuda"))
+    check(sum(counts.values()) == 48, f"MaskFeat ran {sum(counts.values())} pooling convs a forward, not 48")
+    del trainer, run, frames
+    torch.cuda.empty_cache()
+    convs = pool_conv_times(counts)
+    emit("maskfeat_pool_convs", seconds=time.perf_counter() - t0, pool_convs=convs, step_ms=step_ms,
+         pool_conv_share_of_step=(convs["total_fwd_ms"] + convs["total_dgrad_ms"] + convs["total_wgrad_ms"])
+         / step_ms, nvidia_smi=smi)
+    emit("maskfeat", seconds=time.perf_counter() - start, launches=check_no_attention_launches("maskfeat"),
+         nvidia_smi=smi)
+    shutil.rmtree(MASKED_OUT / "maskfeat", ignore_errors=True)
+
+
+def phase_mae(smi: str) -> None:
+    """MAE on ViT-B (``MAE_VIT_B_OPTS``) at full width: the card against the
+    CPU at B1 in fp32 under the same injected noise (predictions, pixel
+    targets, masks); ``masked_train`` (bf16 AdamW at B8, 156 of 1568 tokens
+    kept, the noise from each step's CUDA generator, the targets made in the
+    forward); ``mae_visualize`` of one batch, whose reconstruction keeps
+    every visible patch of the input bit for bit. No K1-K5b may launch."""
+    shutil.rmtree(MASKED_OUT / "mae", ignore_errors=True)
+    zero_launch_counts()
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    errors = masked_card_against_cpu(mae_cfg(*MVIT_RUN_OPTS), 73)
+    check(errors["masks_0_masked_positions"] == 1568 - 156, f"MAE kept {1568 - errors['masks_0_masked_positions']}")
+    emit("mae_card_vs_cpu", seconds=time.perf_counter() - t0, **errors, nvidia_smi=smi)
+
+    def label_ms(cfg, trainer, frames):
+        p, u = cfg.MVIT.PATCH_STRIDE[1], cfg.MVIT.PATCH_STRIDE[0]
+        return cuda_ms(lambda: masked_model.mae_pixel_labels(frames, u, p, cfg.MASK.TIME_STRIDE_LOSS,
+                                                             cfg.MASK.NORM_PRED_PIXEL), iters=10)
+
+    run = masked_train("mae", mae_cfg, smi, label_ms)
+    trainer, cfg, frames = run["trainer"], run["cfg"], run["frames"]
+    t0 = time.perf_counter()
+    module = trainer.module.eval()
+    with torch.inference_mode():
+        preds, _, masks = module(frames, None, generator=torch.Generator(device="cuda").manual_seed(31))
+    u, p = cfg.MVIT.PATCH_STRIDE[0], cfg.MVIT.PATCH_STRIDE[1]
+    dropped = masks[0].cpu().numpy()
+    orig, masked_clip, recon = mae_visualize(frames.cpu().numpy(), preds[0].float().cpu().numpy(), dropped, u, p)
+    tokens = masked_model._patchify_pixels(orig, p, 1)
+    check(orig.shape == recon.shape == masked_clip.shape == (8, 8, 224, 224, 3)
+          and np.array_equal(masked_model._patchify_pixels(recon, p, 1)[~dropped], tokens[~dropped])
+          and not masked_model._patchify_pixels(masked_clip, p, 1)[dropped].any()
+          and np.isfinite(recon).all(), "mae_visualize: the reconstruction does not keep the visible patches")
+    del trainer, run, module, frames, preds
+    torch.cuda.empty_cache()
+    emit("mae_visualize", seconds=time.perf_counter() - t0, clips=8, frames=8, visible_patches=int((~dropped).sum()),
+         dropped_patches=int(dropped.sum()), visible_bit_equal=True, nvidia_smi=smi)
+    emit("mae", seconds=time.perf_counter() - start, launches=check_no_attention_launches("mae"), nvidia_smi=smi)
+    shutil.rmtree(MASKED_OUT / "mae", ignore_errors=True)
+
+
 # The A/B kernels: id -> (source, the TPU kernel's call site, the mode whose
 # numbers stand on the ``kernels`` line; every mode is on the ab_kernels line).
 AB_KERNELS = {
@@ -4583,6 +4887,8 @@ def main() -> int:
     phase_charades(smi)
     phase_mvit(smi)
     phase_mvit_rev(smi)
+    phase_maskfeat(smi)
+    phase_mae(smi)
     ab_launches = phase_ab_dense()
     launches += ab_launches["K1"]  # the prod rows
     emit("done", seconds=time.perf_counter() - t0)

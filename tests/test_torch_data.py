@@ -17,7 +17,7 @@ import vtm.data as jax_data
 import vtm_torch.data as data
 from vtm.config import get_cfg as jax_get_cfg
 from vtm_torch.config import get_cfg
-from vtm_torch.data import decoder, kinetics
+from vtm_torch.data import decoder
 
 torch.set_num_threads(2)
 
@@ -184,12 +184,6 @@ def test_decode_matches_vtm(tmp_path):
     jframes, jfps = jax_decoder.read_video_cv2(path)
     assert fps == jfps
     np.testing.assert_array_equal(frames, jframes)
-
-
-def test_mask_loader_raises_by_name(tmp_path):
-    cfg, _ = _cfgs(_kinetics_dir(tmp_path) + COMMON + ["AUG.GEN_MASK_LOADER", "True"])
-    with pytest.raises(NotImplementedError, match="item 18"):
-        kinetics.Kinetics(cfg, "test")[0]
 
 
 def test_test_net_on_kinetics_matches_vtm(tmp_path):

@@ -45,6 +45,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from vtm_torch.checkpoints.convert import (
+    load_maskmvit_state_dict,
     load_motionformer_state_dict,
     load_mvit_state_dict,
     load_pyslowfast_state_dict,
@@ -199,6 +200,7 @@ CHECKPOINT_LOADERS = {
     "ResNet": lambda sd, config: load_pyslowfast_state_dict(sd),
     "X3D": lambda sd, config: load_pyslowfast_state_dict(sd),
     "MViT": lambda sd, config: load_mvit_state_dict(sd),
+    "MaskMViT": lambda sd, config: load_maskmvit_state_dict(sd),
 }
 _STATS = ("running_mean", "running_var")
 

@@ -622,3 +622,45 @@ def mvit_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
     for name, v in sd.items():  # <pool>.q.pool.weight -> pool_q.weight; <pool>.q.norm.* -> norm_q.*
         out[re.sub(r"<pool>\.([qkv])\.(pool|norm)\.", lambda m: f"{m.group(2)}_{m.group(1)}.", name)] = v
     return out
+
+
+def load_maskmvit_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """An upstream PySlowFast MaskMViT (MaskFeat) or MAE state dict -> the
+    port's: the trunk's names and the head's (``pred_head.transforms.{i}.{j}``
+    blocks then the norm, ``pred_head.projections.{i}``), ``mask_token``,
+    ``decoder_embed``, ``decoder_pos_embed`` and ``dec_pos_embed_*`` are
+    the same, so only the wrapper prefixes go, as in ``load_mvit_state_dict``."""
+    return load_mvit_state_dict(sd)
+
+
+def maskmvit_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's MaskMViT or MaskMViTMAE params -> the port's state
+    dict: the inverse of ``vtm.checkpoints.convert.convert_maskmvit``. The
+    trunk goes through ``mvit_state_dict_from_vtm_params``; the head's
+    ``transforms_{i}_{j}`` -> ``pred_head.transforms.{i}.{j}``,
+    ``transform_norm_{i}`` -> ``pred_head.transforms.{i}.{n_i}`` (after
+    head i's n_i blocks), ``projections_{i}`` -> ``pred_head.projections.{i}``."""
+    trunk = {k: v for k, v in params.items() if k != "pred_head"}
+    sd = mvit_state_dict_from_vtm_params(trunk)
+    head = params.get("pred_head", {})
+    n_blocks: Dict[str, int] = {}
+    for key in head:
+        m = re.fullmatch(r"transforms_(\d+)_\d+", key)
+        if m:
+            n_blocks[m.group(1)] = n_blocks.get(m.group(1), 0) + 1
+    for key, node in head.items():
+        block = re.fullmatch(r"transforms_(\d+)_(\d+)", key)
+        norm = re.fullmatch(r"transform_norm_(\d+)", key)
+        proj = re.fullmatch(r"projections_(\d+)", key)
+        if block:
+            prefix = f"pred_head.transforms.{block.group(1)}.{block.group(2)}"
+        elif norm:
+            prefix = f"pred_head.transforms.{norm.group(1)}.{n_blocks.get(norm.group(1), 0)}"
+        elif proj:
+            prefix = f"pred_head.projections.{proj.group(1)}"
+        else:
+            raise KeyError(f"unknown MaskMViT head entry {key!r}")
+        # a node walked as block 0 of a trunk: the block's own names
+        for name, v in mvit_state_dict_from_vtm_params({"blocks_0": node}).items():
+            sd[prefix + name[len("blocks.0"):]] = v
+    return sd

@@ -1,5 +1,5 @@
-"""Kinetics dataset (copy of ``vtm/data/kinetics.py``, the masked family's
-``AUG.GEN_MASK_LOADER`` raising; reference: slowfast/datasets/kinetics.py).
+"""Kinetics dataset (copy of ``vtm/data/kinetics.py``; reference:
+slowfast/datasets/kinetics.py).
 
 csv lines ``<path><sep><label>``; test mode enumerates
 NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS clips per video
@@ -18,13 +18,10 @@ import numpy as np
 
 from vtm_torch.data import decoder, transform
 from vtm_torch.data.loader import register_dataset
+from vtm_torch.data.masking import gen_mask
 from vtm_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
-
-MASK_NOT_PORTED = ("AUG.GEN_MASK_LOADER: the masked family's mask generator is not ported yet "
-                   "(ROADMAP.md Queue 1, item 18)")
-
 
 @register_dataset("kinetics")
 class Kinetics:
@@ -127,7 +124,7 @@ class Kinetics:
             if clips is not None:
                 item["clips"] = clips
             if cfg.AUG.GEN_MASK_LOADER:
-                raise NotImplementedError(MASK_NOT_PORTED)
+                item["mask"] = gen_mask(cfg)
             return item
 
         if self.mode in ("train", "val"):
@@ -275,5 +272,5 @@ class Kinetics:
         if clips is not None:
             item["clips"] = clips
         if cfg.AUG.GEN_MASK_LOADER:
-            raise NotImplementedError(MASK_NOT_PORTED)
+            item["mask"] = gen_mask(cfg)
         return item

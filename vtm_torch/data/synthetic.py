@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 
 from vtm_torch.data.loader import register_dataset
+from vtm_torch.data.masking import gen_mask
 
 
 @register_dataset("synthetic")
@@ -89,5 +90,5 @@ class Synthetic:
                 ]
             )
         if cfg.AUG.GEN_MASK_LOADER:
-            raise NotImplementedError("AUG.GEN_MASK_LOADER: the masked family is not ported yet")
+            item["mask"] = gen_mask(cfg)
         return item

@@ -30,8 +30,17 @@ the new batch; the short cycle's three phases come from the loader.
 ``DATA.MULTI_LABEL`` (Charades): the train meter tracks the loss only and
 the eval epoch's metric is the mAP. A Motionformer built
 from a config keeps its softmax head (``build_model`` sets no
-``train_mode``, as in the JAX package), so its loss sees probabilities. Contrastive, detection and masked
-pretraining, the chunked-csv rotation, tensorboard and wandb are not
+``train_mode``, as in the JAX package), so its loss sees probabilities.
+Masked pretraining (``MASK.ENABLE``, ``MODEL.MODEL_NAME MaskMViT``): each
+batch's loader mask (``AUG.GEN_MASK_LOADER``) goes to the device with its
+frames (an MAE under ``MASK.MAE_RND_MASK`` needs none, where ``vtm`` reads
+one all the same); MaskFeat's HOG or pixel targets are made there from the frames
+(``models/masked.py::maskfeat_labels``), the MAE makes its own in the
+forward; the step (``train_step.make_{mae,maskfeat}_train_step``) draws from
+the step generator; the meter gets the loss only, and no eval epoch runs.
+As in ``vtm``, it runs in one process: ``main`` starts one, and a process
+group of more raises. Contrastive and detection
+training, the chunked-csv rotation, tensorboard and wandb are not
 ported yet and raise where a config asks for them, naming their ROADMAP
 item. ``TRAIN.KILL_LOSS_EXPLOSION_FACTOR`` stops the run on a NaN or
 infinite loss only, as in the JAX package.
@@ -79,6 +88,7 @@ from vtm_torch.eval.meters import EPICTrainMeter, EPICValMeter, TrainMeter, ValM
 from vtm_torch.eval.metrics import multitask_topk_accuracies, topk_accuracies, topk_errors
 from vtm_torch.models import ModelBundle, build_model
 from vtm_torch.models.convnet import aggregate_subbn_stats, batchnorms, set_sync_group
+from vtm_torch.models.masked import maskfeat_labels
 from vtm_torch.parallel import launch
 from vtm_torch.parallel.mesh import Mesh, all_mean, entry_device, gather_rows, make_mesh, replicate
 from vtm_torch.parallel.sharding import check_tensor_parallel, shard_module
@@ -86,7 +96,12 @@ from vtm_torch.train.mixup import MixUp
 from vtm_torch.train.multigrid import MultigridSchedule, adapt_batch_stats
 from vtm_torch.train.optimizer import construct_optimizer, set_lr
 from vtm_torch.train.precise_bn import compute_precise_bn_stats
-from vtm_torch.train.train_step import make_eval_step, make_train_step
+from vtm_torch.train.train_step import (
+    make_eval_step,
+    make_mae_train_step,
+    make_maskfeat_train_step,
+    make_train_step,
+)
 from vtm_torch.utils.logging import get_logger, setup_logging
 
 logger = get_logger(__name__)
@@ -136,7 +151,6 @@ def _unsupported(cfg) -> None:
         raise NotImplementedError("contrastive pretraining is not ported yet (ROADMAP.md Queue 1, item 19)")
     check_tensor_parallel(cfg)
     for on, what in (
-        (cfg.MASK.ENABLE, "MASK.ENABLE: MAE / MaskFeat pretraining (ROADMAP.md Queue 1, item 18)"),
         (cfg.DETECTION.ENABLE, "DETECTION.ENABLE: detection training (ROADMAP.md Queue 1, item 20)"),
         (cfg.TENSORBOARD.ENABLE, "TENSORBOARD.ENABLE: the tensorboard writer (ROADMAP.md Queue 1, item 21)"),
         (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging (ROADMAP.md Queue 1, item 21)"),
@@ -169,23 +183,32 @@ def train_epoch(loader, train_step, optimizer, lr_at, cur_epoch, meter, cfg, dev
     for cur_iter, batch in enumerate(loader):
         lr = lr_at(cur_epoch + float(cur_iter) / data_size)
         set_lr(optimizer, lr)
-        if mixup_fn is not None:
-            mixed, targets = mixup_fn(np.asarray(batch["frames"]), np.asarray(batch["label"]))
-            frames = torch.as_tensor(mixed, device=device)
-            labels = torch.as_tensor(targets, device=device)
-        else:
+        generator = _step_generator(device, cfg.RNG_SEED, cur_epoch, cur_iter, *mesh.rank_path)
+        if cfg.MASK.ENABLE:  # the pretraining step: frames and mask
             frames = torch.as_tensor(np.asarray(batch["frames"]), device=device)
-            labels = _labels_of(batch, multi_head, device)
-        meter.data_toc()
-        loss, logits, aux = train_step(
-            frames, labels, _step_generator(device, cfg.RNG_SEED, cur_epoch, cur_iter, *mesh.rank_path)
-        )
+            # none without AUG.GEN_MASK_LOADER: the MAE then draws its noise
+            mask = batch.get("mask")
+            mask = None if mask is None else torch.as_tensor(np.asarray(mask), device=device)
+            meter.data_toc()
+            loss, _ = train_step(frames, mask, generator)
+        else:
+            if mixup_fn is not None:
+                mixed, targets = mixup_fn(np.asarray(batch["frames"]), np.asarray(batch["label"]))
+                frames = torch.as_tensor(mixed, device=device)
+                labels = torch.as_tensor(targets, device=device)
+            else:
+                frames = torch.as_tensor(np.asarray(batch["frames"]), device=device)
+                labels = _labels_of(batch, multi_head, device)
+            meter.data_toc()
+            loss, logits, aux = train_step(frames, labels, generator)
         loss = float(loss)
         if cfg.TRAIN.KILL_LOSS_EXPLOSION_FACTOR and not np.isfinite(loss):
             raise RuntimeError(f"NaN/inf loss at epoch {cur_epoch} iter {cur_iter}")
         mb = batch["frames"].shape[0] * mesh.data
         meter.iter_toc()
-        if cfg.DATA.MULTI_LABEL:  # the loss only; the epoch's metric is the val mAP
+        if cfg.MASK.ENABLE:  # no errors to count
+            meter.update_stats(0.0, 0.0, loss, lr, mb)
+        elif cfg.DATA.MULTI_LABEL:  # the loss only; the epoch's metric is the val mAP
             meter.update_stats(None, None, loss, lr, mb)
         else:
             figures = all_mean(_errors(_host(logits), batch["label"], multi_head), mesh.data_group, device)
@@ -246,9 +269,12 @@ def build_trainer(cfg, device: Optional[torch.device | str] = None,
     (or on ``device``, which tests set to the CPU). ``bundle``: the model to
     train, on the device with fp32 parameters (built from ``cfg`` when None).
     Under a process group: the mesh, the cuts and DDP (module docstring)."""
-    device = entry_device(device, "train_net", cfg.TRAIN.BATCH_SIZE, cfg.TPU.MODEL_PARALLEL)
+    device = entry_device(device, "train_net", _process_batch(cfg), cfg.TPU.MODEL_PARALLEL)
     _unsupported(cfg)
     mesh = make_mesh(cfg.TPU.MODEL_PARALLEL, batch_cap=cfg.TRAIN.BATCH_SIZE, device_type=device.type)
+    if cfg.MASK.ENABLE and mesh.data * mesh.model > 1:
+        raise NotImplementedError("masked pretraining runs in one process, as in vtm: start it without a "
+                                  "process group of more")
     if bundle is None:
         bundle = build_model(cfg, device, fp32_params=True)
     module = bundle.module
@@ -270,13 +296,33 @@ def build_trainer(cfg, device: Optional[torch.device | str] = None,
             # last trajectory projections): tests/test_torch_parallel.py
             find_unused_parameters=False,
         )
-    train_step = make_train_step(
-        stepped, optimizer, cfg.MODEL.LOSS_FUNC, multi_head,
-        accumulate_steps=cfg.SOLVER.ACCUMULATE_STEPS,
-        data_group=mesh.data_group if mesh.data > 1 else None,
-    )
+    if cfg.MASK.ENABLE:
+        train_step = masked_train_step(cfg, module, optimizer)
+    else:
+        train_step = make_train_step(
+            stepped, optimizer, cfg.MODEL.LOSS_FUNC, multi_head,
+            accumulate_steps=cfg.SOLVER.ACCUMULATE_STEPS,
+            data_group=mesh.data_group if mesh.data > 1 else None,
+        )
     return Trainer(module, optimizer, lr_at, train_step, make_eval_step(module), multi_head, device, bundle,
                    mesh)
+
+
+def _process_batch(cfg) -> int:
+    """The batch that sizes the process group: 1 for masked pretraining, which runs in one process."""
+    return 1 if cfg.MASK.ENABLE else cfg.TRAIN.BATCH_SIZE
+
+
+def masked_train_step(cfg, module, optimizer) -> Callable:
+    """``step(frames, mask, generator) -> (loss, per-depth losses)`` on the
+    device of ``frames``: the MAE step, or the MaskFeat step given its HOG
+    or pixel targets made from ``frames`` (``masked.maskfeat_labels``)."""
+    if cfg.MASK.MAE_ON:
+        mae = make_mae_train_step(module, optimizer, cfg.SOLVER.ACCUMULATE_STEPS)
+        return lambda frames, mask, generator: mae(frames, mask, generator=generator)
+    maskfeat = make_maskfeat_train_step(module, optimizer, cfg.SOLVER.ACCUMULATE_STEPS)
+    return lambda frames, mask, generator: maskfeat(
+        frames, mask, maskfeat_labels(cfg, module.spec, frames), generator=generator)
 
 
 def train(cfg, device: Optional[torch.device | str] = None):
@@ -351,7 +397,7 @@ def train(cfg, device: Optional[torch.device | str] = None):
         refresh_bn_stats(cfg, module, train_loader, device, cur_epoch, mesh, is_ckpt or is_eval)
         if is_ckpt:
             cu.save_checkpoint(cfg.OUTPUT_DIR, module, optimizer, cur_epoch, cfg)
-        if is_eval:
+        if is_eval and not cfg.MASK.ENABLE:  # pretraining has no classification eval
             eval_epoch(val_loader, eval_step, val_meter, cur_epoch, device, multi_head, mesh, cfg.DATA.MULTI_LABEL)
     return module
 
@@ -392,7 +438,7 @@ def main():
     for path in args.cfg_files or [None]:
         cfg = load_config(args, path)
         assert_and_infer_cfg(cfg)
-        launch.run(cfg, _train, cfg.TRAIN.BATCH_SIZE)
+        launch.run(cfg, _train, _process_batch(cfg))
 
 
 if __name__ == "__main__":

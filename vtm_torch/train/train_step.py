@@ -26,8 +26,12 @@ points the BatchNorms at the data group (``convnet.set_sync_group``), so the
 statistics are the global batch's. Their eval step is ``make_eval_step``: a
 forward in eval mode on the running statistics.
 
-The detection, MAE, MaskFeat and contrastive steps are not ported yet and
-raise.
+The masked-pretraining steps (``make_mae_train_step``,
+``make_maskfeat_train_step``) take the batch's frames and loader mask: a
+forward, ``losses.multiple_mse`` over the masked positions, a backward and
+the update (accumulated as above). They run in one process, as ``vtm``'s.
+
+The detection and contrastive steps are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -112,6 +116,55 @@ def make_eval_step(module: nn.Module) -> Callable:
     return step
 
 
+def _masked_step(module: nn.Module, optimizer: torch.optim.Optimizer, accumulate_steps: int, loss_of) -> Callable:
+    """A pretraining step around ``loss_of(generator, *args) -> (loss,
+    per-depth losses)``: the module in training mode, the backward, the
+    update every ``accumulate_steps`` calls; returns the loss and the
+    per-depth losses, detached."""
+    k = max(1, int(accumulate_steps))
+    micro_step = 0
+
+    def step(*args, generator: Optional[torch.Generator] = None):
+        nonlocal micro_step
+        module.train()
+        loss, multi = loss_of(generator, *args)
+        (loss / k if k > 1 else loss).backward()
+        micro_step += 1
+        if micro_step == k:
+            apply_update(optimizer)
+            micro_step = 0
+        return loss.detach(), [m.detach() for m in multi]
+
+    return step
+
+
+def make_mae_train_step(module: nn.Module, optimizer: torch.optim.Optimizer, accumulate_steps: int = 1) -> Callable:
+    """MAE pretraining (``MASK.MAE_ON``): ``step(frames, mask,
+    generator=None) -> (loss, per-depth losses)``. The model makes its pixel
+    labels from the frames on their device and draws its random noise from
+    ``generator``; each depth's masked mse weighs ``1 / depths``."""
+
+    def loss_of(generator, frames, mask):
+        preds, labels, masks = module(frames, mask, generator=generator)
+        return loss_lib.multiple_mse(preds, [(l, 1.0 / len(labels)) for l in labels], masks)
+
+    return _masked_step(module, optimizer, accumulate_steps, loss_of)
+
+
+def make_maskfeat_train_step(module: nn.Module, optimizer: torch.optim.Optimizer,
+                             accumulate_steps: int = 1) -> Callable:
+    """MaskFeat pretraining: ``step(frames, mask, labels, generator=None) ->
+    (loss, per-depth losses)`` with the per-depth HOG or pixel ``labels``
+    given (``models/masked.py::maskfeat_hog_labels``), each depth's masked
+    mse weighing 1."""
+
+    def loss_of(generator, frames, mask, labels):
+        preds, masks = module(frames, mask, generator=generator)
+        return loss_lib.multiple_mse(preds, [(l, 1.0) for l in labels], masks)
+
+    return _masked_step(module, optimizer, accumulate_steps, loss_of)
+
+
 def _not_ported(name: str):
     def raiser(*args, **kwargs):
         raise NotImplementedError(f"{name} is not ported yet")
@@ -122,6 +175,4 @@ def _not_ported(name: str):
 
 make_detection_eval_step = _not_ported("make_detection_eval_step")
 make_detection_train_step = _not_ported("make_detection_train_step")
-make_mae_train_step = _not_ported("make_mae_train_step")
-make_maskfeat_train_step = _not_ported("make_maskfeat_train_step")
 make_contrastive_train_step = _not_ported("make_contrastive_train_step")
