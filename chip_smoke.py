@@ -237,6 +237,22 @@ Phases, each printing one JSON line:
                   of maskfeat with the noise from each step's generator;
                   mae_visualize of one batch, every visible patch of the
                   reconstruction the input's. No K1-K5b
+     contrastive -- contrastive pretraining on Slow R50 8x8 at 224, fp32
+                  (``CONTRASTIVE_MOCO_OPTS``, ``CONTRASTIVE_BYOL_OPTS``: the
+                  shape of PySlowFast's contrastive_ssl Slow R50 recipes):
+                  one MoCo step at B2, the card against the CPU (loss,
+                  positive and negative logits, the queue rows written, ptr,
+                  the momentum encoder's parameters and statistics); 3 MoCo
+                  steps (a 65536-key queue, a 239975-row kNN bank) and 3
+                  BYOL steps under LARS at B8 (ms a step, videos/s, peak;
+                  ptr, the momentum encoder bit for bit against its formula,
+                  one LARS update against its formula), where a MoCo step's
+                  device time goes; SimCLR, SwAV (its gate, queue and flag)
+                  and mem (only the batch's bank rows change) at B4;
+                  MViTv2-S with the MLP head under SimCLR at B2;
+                  train_net.train of MoCo for 2 epochs of 16 clips (the
+                  queue warm-up, the kNN eval, a checkpoint, an auto-resume
+                  equal to the uninterrupted run bit for bit). No K1-K5b
      dist      -- the parallel paths (vtm_torch/parallel) at ViT-B width,
                   bf16, B8, each against the same run in this process: NCCL
                   at world size 1, train_net's DDP step on the EPIC config
@@ -266,6 +282,7 @@ nonzero without the last line.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import datetime
 import functools
@@ -291,7 +308,7 @@ from vtm_torch.data import construct_loader, masking
 from vtm_torch.merge import MergePolicy, MergeState
 from vtm_torch.merge import bipartite as merge_bipartite
 from vtm_torch.models import build_model
-from vtm_torch.models import convnet, motionformer_approx
+from vtm_torch.models import contrastive, convnet, motionformer_approx
 from vtm_torch.models import masked as masked_model
 from vtm_torch.models import mvit as mvit_model
 from vtm_torch.models.common import _FLASH_MAX_SEQ, _FLASH_MIN_SEQ, split_heads
@@ -321,7 +338,9 @@ from vtm_torch.tools import test_net
 from vtm_torch.tools.model_benchmark import model_benchmark, perform_benchmark
 from vtm_torch.tools import train_net
 from vtm_torch.tools.train_net import build_trainer, refresh_bn_stats, train
-from vtm_torch.train.optimizer import set_lr
+from vtm_torch.train import optimizer as train_optimizer
+from vtm_torch.train.optimizer import construct_optimizer, set_lr
+from vtm_torch.train.train_step import make_contrastive_train_step
 from vtm_torch.utils.benchmark import device_seconds
 from vtm_torch.vis import concatenate_images, make_spatiotemporal_video_visualization
 from vtm_torch.vis.mae_vis import mae_visualize
@@ -1318,6 +1337,68 @@ MAE_VIT_B_OPTS = [
     "MASK.TIME_STRIDE_LOSS", "True",
     "AUG.MASK_RATIO", "0.9",
 ]
+# Contrastive pretraining (models/contrastive.py), whose configs PySlowFast
+# keeps under configs/contrastive_ssl/ and the repo does not ship. The
+# backbone is its Slow R50 8x8 at 224 (the port's defaults are that ResNet's
+# values; one pathway, 8 frames at a rate of 8, two temporal views a
+# video), fp32, no dropout before the projection. The two recipes are in the
+# shape of the Slow R50 rhoMoCo and rhoBYOL recipes of Feichtenhofer et al.,
+# CVPR 2021 ("A Large-Scale Study on
+# Unsupervised Spatiotemporal Representation Learning"); their values are
+# chosen here, not copied from those files: MoCo with a 65536-key queue, a
+# 3-layer 2048-wide MLP with BatchNorms, the momentum 0.994 annealed, a kNN
+# bank of the Kinetics-400 train set's 239975 rows, SGD with momentum 0.9;
+# BYOL with a 2-layer 4096-wide MLP and a predictor of depth 2, 256 wide, the
+# momentum 0.99 annealed, under LARS.
+_SLOW_R50_SSL = [
+    "MODEL.MODEL_NAME", "ContrastiveModel",
+    "MODEL.ARCH", "slow",
+    "RESNET.DEPTH", "50",
+    "RESNET.ZERO_INIT_FINAL_BN", "True",
+    "DATA.NUM_FRAMES", "8",
+    "DATA.SAMPLING_RATE", "8",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TEST_CROP_SIZE", "224",
+    "DATA.TRAIN_CROP_NUM_TEMPORAL", "2",
+    "TPU.COMPUTE_DTYPE", "float32",
+    "MODEL.DROPOUT_RATE", "0.0",
+    "SOLVER.OPTIMIZING_METHOD", "sgd",
+    "SOLVER.MOMENTUM", "0.9",
+    "SOLVER.MAX_EPOCH", "200",
+    "CONTRASTIVE.KNN_ON", "True",
+    "CONTRASTIVE.LENGTH", "239975",
+    "CONTRASTIVE.BN_MLP", "True",
+    "CONTRASTIVE.MOMENTUM_ANNEALING", "True",
+]
+CONTRASTIVE_MOCO_OPTS = _SLOW_R50_SSL + [
+    "CONTRASTIVE.TYPE", "moco",
+    "CONTRASTIVE.T", "0.1",
+    "CONTRASTIVE.DIM", "128",
+    "MODEL.NUM_CLASSES", "128",
+    "CONTRASTIVE.QUEUE_LEN", "65536",
+    "CONTRASTIVE.MOMENTUM", "0.994",
+    "CONTRASTIVE.NUM_MLP_LAYERS", "3",
+    "CONTRASTIVE.MLP_DIM", "2048",
+]
+CONTRASTIVE_BYOL_OPTS = _SLOW_R50_SSL + [
+    "CONTRASTIVE.TYPE", "byol",
+    "CONTRASTIVE.DIM", "256",
+    "MODEL.NUM_CLASSES", "256",
+    "CONTRASTIVE.MOMENTUM", "0.99",
+    "CONTRASTIVE.NUM_MLP_LAYERS", "2",
+    "CONTRASTIVE.MLP_DIM", "4096",
+    "CONTRASTIVE.PREDICTOR_DEPTHS", "[2]",
+    "SOLVER.LARS_ON", "True",
+]
+CONTRASTIVE_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_contrastive"
+CONTRASTIVE_STEPS = 3
+CONTRASTIVE_BATCH = 8
+# the card's fp32 figures (TF32 off) against the CPU's, of each one's largest entry
+CONTRASTIVE_CPU_TOL = 1e-4
+# SimCLR, SwAV and mem at B4: a crop of 128, the nearest to 112 whose map the
+# head's pool (crop // 32) takes to 1 x 1 (at 112 it leaves 2 x 2, and the
+# projection would be 4 x DIM wide, not the banks' DIM)
+CONTRASTIVE_SMALL_CROP = 128
 MASKED_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_masked"
 MASKED_TRAIN_STEPS = 3
 # the card's fp32 predictions (TF32 off) against the CPU's, of the largest
@@ -1387,6 +1468,7 @@ sf_cfg = cfg_maker(SLOWFAST_OPTS)
 csn_cfg, r2plus1d_cfg = cfg_maker(CSN_OPTS), cfg_maker(R2PLUS1D_OPTS)
 mvit_cfg, rev_mvit_cfg = cfg_maker(MVITV2_S_OPTS), cfg_maker(REV_MVIT_B_OPTS)
 maskfeat_cfg, mae_cfg = cfg_maker(MASKFEAT_OPTS), cfg_maker(MAE_VIT_B_OPTS)
+moco_cfg, byol_cfg = cfg_maker(CONTRASTIVE_MOCO_OPTS), cfg_maker(CONTRASTIVE_BYOL_OPTS)
 
 
 def launch_counts() -> dict:
@@ -4658,6 +4740,347 @@ def phase_mae(smi: str) -> None:
     shutil.rmtree(MASKED_OUT / "mae", ignore_errors=True)
 
 
+def ssl_views(cfg, batch: int, seed: int, device, crop=None):
+    """Two views of ``batch`` random videos as one-pathway clips, and their
+    rows of the banks (distinct, from the whole of ``CONTRASTIVE.LENGTH``).
+    Each video has a colour offset of its own, as real videos differ: the
+    pooled features of white noise are near equal across a batch, and the
+    MLP's BatchNorm over them would cancel their digits away."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t, s = cfg.DATA.NUM_FRAMES, crop or cfg.DATA.TRAIN_CROP_SIZE
+    offset = 2 * torch.randn(batch, 1, 1, 1, 3, generator=gen, device=device)
+    clips = [[torch.randn(batch, t, s, s, 3, generator=gen, device=device) + offset] for _ in range(2)]
+    index = torch.randperm(cfg.CONTRASTIVE.LENGTH, generator=gen, device=device)[:batch]
+    return clips, index
+
+
+def ssl_trainer(cfg, device="cuda"):
+    """(model, optimizer, lr_at, step) as ``train_net.train_contrastive`` builds them."""
+    model, _ = contrastive.build_contrastive_model(cfg, device)
+    optimizer, lr_at = construct_optimizer(cfg, model)
+    return model, optimizer, lr_at, make_contrastive_train_step(model, optimizer)
+
+
+def contrastive_card_against_cpu(smi: str) -> dict:
+    """One MoCo train step of the full-width model at B2, fp32 (TF32 off), on
+    the CPU and on the card from the same weights and state (BatchNorms
+    moved, the momentum encoder a perturbed copy one update in), and the
+    step's forward in fp64 on the CPU (the truth: every figure below comes
+    from the forward): the loss, the positive and the negative logits, the
+    queue rows written, the momentum encoder's parameters and statistics.
+    As in ``conv_card_against_cpu``, with errors of each one's largest fp64
+    entry: the card's error at most SF_FP64_FACTOR times the CPU's fp32 one
+    plus SF_FP64_FLOOR, and where the CPU's own is within CONTRASTIVE_CPU_TOL /
+    SF_FP64_FACTOR, the card within CONTRASTIVE_CPU_TOL of the CPU's fp32
+    (the key projections pass BatchNorms over 2 videos, whose differences
+    carry fewer digits than the features). ``ptr`` the same."""
+    cfg = moco_cfg()
+    model, _ = contrastive.build_contrastive_model(cfg, "cpu")
+    moved_bn(model.backbone, 81, 0.2)
+    model.backbone_hist.load_state_dict(model.backbone.state_dict())
+    gen = torch.Generator().manual_seed(82)
+    last = model.cc.queue_len - 2  # the queue's last two rows: the write ends at its end
+    with torch.no_grad():
+        for h in model.backbone_hist.parameters():
+            h.mul_(1 + 0.01 * torch.randn(h.shape, generator=gen))
+        model.iter.fill_(1)
+        model.ptr.fill_(last)
+    clips, index = ssl_views(cfg, 2, 83, "cpu")
+    card, truth = copy.deepcopy(model).cuda(), copy.deepcopy(model).double().train()
+
+    def figures(m, loss, logits):
+        return dict(loss=loss.reshape(1).cpu(), positive=logits[:, 0].cpu(), negative=logits[:, 1:].cpu(),
+                    queue_rows=m.queue_x[last:].cpu(), ptr=int(m.ptr),
+                    hist_parameters=[p.detach().cpu() for p in m.backbone_hist.parameters()],
+                    hist_statistics=[b.cpu() for n, b in m.backbone_hist.named_buffers() if "running" in n])
+
+    got = {}
+    for where, m, device in (("cpu", model, "cpu"), ("card", card, "cuda")):
+        optimizer, lr_at = construct_optimizer(cfg, m)
+        set_lr(optimizer, lr_at(0.5))
+        tick = time.perf_counter()
+        loss, logits = make_contrastive_train_step(m, optimizer)([[c[0].to(device)] for c in clips],
+                                                                 index.to(device), 0.5)
+        got[where] = dict(figures(m, loss, logits), seconds=time.perf_counter() - tick)
+    tick = time.perf_counter()
+    with torch.no_grad():
+        logits, loss = truth([[c[0].double()] for c in clips], index, epoch_exact=0.5)
+    got["fp64"] = dict(figures(truth, loss, logits), seconds=time.perf_counter() - tick)
+    cpu, dev, fp64 = got["cpu"], got["card"], got["fp64"]
+    check(cpu["ptr"] == dev["ptr"] == fp64["ptr"] == 0, f"ptr after the step: {cpu['ptr']}, {dev['ptr']}")
+    out = dict(batch=2, tol=CONTRASTIVE_CPU_TOL, cpu_step_seconds=cpu["seconds"],
+               cpu_fp64_forward_seconds=fp64["seconds"], ptr=dev["ptr"])
+    failed = []
+    for name in ("loss", "positive", "negative", "queue_rows", "hist_parameters", "hist_statistics"):
+        pairs = list(zip(*(x[name] if isinstance(x[name], list) else [x[name]] for x in (dev, cpu, fp64))))
+        card_err = max(rel_error(d, t) for d, _, t in pairs)
+        cpu_err = max(rel_error(c, t) for _, c, t in pairs)
+        card_cpu = max(rel_error(d, c) for d, c, _ in pairs)
+        held = cpu_err <= CONTRASTIVE_CPU_TOL / SF_FP64_FACTOR
+        out[name] = dict(card_to_fp64=card_err, cpu_to_fp64=cpu_err, card_vs_cpu=card_cpu, card_vs_cpu_checked=held)
+        if not (card_err <= SF_FP64_FACTOR * cpu_err + SF_FP64_FLOOR and (not held or card_cpu <= CONTRASTIVE_CPU_TOL)):
+            failed.append(name)
+    check(not failed, f"contrastive card against CPU: {failed} of {out}")
+    del card, model, truth
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest error relative to the largest entry of ``want`` (NaN fails every bound)."""
+    got, want = got.double(), want.double()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / max(scale, 1e-30)
+    return err if torch.isfinite(got).all() and torch.isfinite(want).all() else float("nan")
+
+
+def ssl_timed_steps(tag: str, cfg, smi: str) -> tuple:
+    """CONTRASTIVE_STEPS train steps of ``cfg``'s model at B8 on 224, each on
+    fresh views, epoch_exact 0, 0.01, 0.02: the losses finite; ms a step by
+    CUDA events; videos/s (a video is its two views); the peak; ``ptr`` 8
+    further each MoCo step; the momentum encoder the online parameters
+    before the step (a copy at iter 0, then ``mmt h + (1 - mmt) p``), bit for
+    bit. Returns (figures, model, optimizer, lr_at, step)."""
+    model, optimizer, lr_at, step = ssl_trainer(cfg)
+    cc = model.cc
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(CONTRASTIVE_STEPS):
+        epoch = 0.01 * i
+        clips, index = ssl_views(cfg, CONTRASTIVE_BATCH, 90 + i, "cuda")
+        set_lr(optimizer, lr_at(epoch))
+        online = [p.detach().clone() for p in model.backbone.parameters()]
+        hist = [h.clone() for h in model.backbone_hist.parameters()]
+        first, ptr = int(model.iter) == 0, int(getattr(model, "ptr", 0))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, _ = step(clips, index, epoch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        mmt = contrastive.momentum_anneal_cosine(cc, epoch)
+        check(all(torch.equal(h, p if first else p * (1.0 - mmt) + g * mmt)
+                  for h, p, g in zip(model.backbone_hist.parameters(), online, hist)),
+              f"{tag} step {i}: the momentum encoder is not mmt h + (1 - mmt) p of the step's parameters")
+        if cc.type == "moco":
+            check(int(model.ptr) == (ptr + CONTRASTIVE_BATCH) % cc.queue_len, f"{tag}: ptr {int(model.ptr)}")
+        del online, hist
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(all(np.isfinite(losses)), f"{tag}: losses {losses}")
+    ms = sum(step_ms[1:]) / (CONTRASTIVE_STEPS - 1)
+    figures = dict(steps=CONTRASTIVE_STEPS, batch=CONTRASTIVE_BATCH, views=2, losses=losses, step_ms=step_ms,
+                   ms_per_step=ms, videos_per_sec=CONTRASTIVE_BATCH * 1e3 / ms, peak_step_memory_gb=peak,
+                   iter=int(model.iter))
+    return figures, model, optimizer, lr_at, step
+
+
+def lars_step_check(model, optimizer, cfg) -> dict:
+    """One more BYOL step taken by hand: after the backward (and the clip,
+    none here), each LARS group's matrix gradient against
+    (g + wd p) 0.001 |p| / (|g| + |p| wd + 1e-8) recomputed from that step's
+    gradients in fp64, the 1-D ones unchanged; then the optimizer's step."""
+    clips, index = ssl_views(cfg, CONTRASTIVE_BATCH, 99, "cuda")
+    model.train()
+    loss = model(clips, index, epoch_exact=0.03)[1]
+    loss.backward()
+    train_optimizer.clip_gradients(optimizer)
+    grads = {id(p): p.grad.clone() for g in optimizer.param_groups for p in g["params"] if p.grad is not None}
+    train_optimizer.lars_gradients(optimizer)
+    worst, adapted, passed = 0.0, 0, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            g0 = grads[id(p)]
+            if not group.get("lars") or p.dim() <= 1:
+                check(torch.equal(p.grad, g0), "LARS changed a gradient it must pass through")
+                passed += 1
+                continue
+            wd, p64, g64 = group["lars_weight_decay"], p.detach().double(), g0.double()
+            pn, gn = p64.norm(), g64.norm()
+            want = (g64 + wd * p64) * (0.001 * pn / (gn + pn * wd + 1e-8))
+            worst = max(worst, rel_error(p.grad, want))
+            adapted += 1
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    check(adapted > 0 and worst <= 1e-5, f"LARS: {adapted} matrices, largest error {worst}")
+    return dict(adapted=adapted, not_adapted=passed, max_rel_err=worst, tol=1e-5, loss=float(loss))
+
+
+def ssl_small(smi: str) -> dict:
+    """SimCLR, SwAV and mem, one step each (SwAV three) at B4 on
+    CONTRASTIVE_SMALL_CROP: SimCLR's loss finite; SwAV (no weight decay) at
+    epoch 0.5 leaves its prototypes their normalised selves bit for bit, at
+    epoch 16 with a queue of 4 rows it fills the queue (the flag still off)
+    and at the next step sets the flag; mem with the 239975-row bank changes
+    the rows at the batch's index and no other."""
+    crop = ("DATA.TRAIN_CROP_SIZE", str(CONTRASTIVE_SMALL_CROP))
+    out = {}
+    cfg = moco_cfg(*crop, "CONTRASTIVE.TYPE", "simclr")
+    model, optimizer, lr_at, step = ssl_trainer(cfg)
+    clips, index = ssl_views(cfg, 4, 100, "cuda")
+    out["simclr_loss"] = float(step(clips, index, 0.5)[0])
+    check(np.isfinite(out["simclr_loss"]), f"SimCLR loss {out['simclr_loss']}")
+
+    cfg = moco_cfg(*crop, "CONTRASTIVE.TYPE", "swav", "CONTRASTIVE.SWAV_QEUE_LEN", "4", "SOLVER.WEIGHT_DECAY", "0.0")
+    model, optimizer, lr_at, step = ssl_trainer(cfg)
+    protos = contrastive.l2_normalize(model.swav_prototypes.weight.detach(), dim=1)
+    losses = [float(step(*ssl_views(cfg, 4, 101, "cuda"), 0.5)[0])]
+    check(torch.equal(model.swav_prototypes.weight, protos), "SwAV's prototypes moved in the gated epoch")
+    check(not model.queue_swav.any(), "SwAV's queue filled before epoch 15")
+    losses.append(float(step(*ssl_views(cfg, 4, 102, "cuda"), 16.0)[0]))
+    filled = bool((model.queue_swav != 0).any(dim=-1).all())
+    flag_after_fill = bool(model.swav_use_the_queue)
+    losses.append(float(step(*ssl_views(cfg, 4, 103, "cuda"), 16.1)[0]))
+    check(filled and not flag_after_fill and bool(model.swav_use_the_queue) and all(np.isfinite(losses)),
+          f"SwAV queue: filled {filled}, flag {flag_after_fill} then {bool(model.swav_use_the_queue)}, {losses}")
+    out.update(swav_losses=losses, swav_queue_filled=filled, swav_flag=bool(model.swav_use_the_queue))
+
+    cfg = moco_cfg(*crop, "CONTRASTIVE.TYPE", "mem")
+    model, optimizer, lr_at, step = ssl_trainer(cfg)
+    clips, index = ssl_views(cfg, 4, 104, "cuda")
+    bank = model.memory.clone()
+    out["mem_loss"] = float(step(clips, index, 0.5)[0])
+    changed = (model.memory != bank).any(dim=1).nonzero().flatten()
+    check(torch.equal(changed, index.sort().values) and np.isfinite(out["mem_loss"]),
+          f"mem: rows {changed.tolist()} changed, the batch's are {index.sort().values.tolist()}")
+    out.update(mem_bank_rows=int(bank.shape[0]), mem_rows_changed=changed.tolist())
+    del model, optimizer, bank
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssl_mvit(smi: str) -> dict:
+    """MViTv2-S (``MVITV2_S_OPTS``, bf16 compute, fp32 parameters) with the
+    3-layer MLP head under SimCLR: one step at B2, the loss finite."""
+    cfg = mvit_cfg("MODEL.MODEL_NAME", "ContrastiveModel", "CONTRASTIVE.TYPE", "simclr", "MODEL.NUM_CLASSES", "128",
+                   "CONTRASTIVE.DIM", "128", "CONTRASTIVE.NUM_MLP_LAYERS", "3", "CONTRASTIVE.MLP_DIM", "2048",
+                   "CONTRASTIVE.BN_MLP", "True", "CONTRASTIVE.LENGTH", "239975")
+    model, optimizer, lr_at, step = ssl_trainer(cfg)
+    check(isinstance(model.backbone.head.projection, convnet.MLPHead), "MViT's head is not the MLP")
+    clips, index = ssl_views(cfg, 2, 105, "cuda")
+    torch.cuda.synchronize()
+    tick = time.perf_counter()
+    loss = float(step(clips, index, 0.5)[0])
+    seconds = time.perf_counter() - tick
+    check(np.isfinite(loss), f"MViTv2-S SimCLR loss {loss}")
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return dict(batch=2, loss=loss, step_seconds=seconds, dtype=cfg.TPU.COMPUTE_DTYPE)
+
+
+def ssl_train_net(smi: str) -> dict:
+    """``train_net.train`` of MoCo at full width on 16 synthetic videos (two
+    views each) at B4 with a queue of 8 and a bank of 16 rows, 2 epochs: the
+    first 2 iterations of epoch 0 fill the queue without an update, a kNN
+    top-1 an epoch (finite, in [0, 1]), a checkpoint an epoch. Then a run
+    whose output directory holds only that run's checkpoint of epoch 0
+    auto-resumes from it: the queue, ptr, iter, the momentum encoder and the
+    bank restored bit for bit, and its first loss that of the uninterrupted
+    run's epoch 1 bit for bit (cuDNN deterministic; the later steps' losses
+    are reported beside the uninterrupted run's: the stem's max-pool
+    backward adds with atomics on the card)."""
+    def run(name):
+        return moco_cfg("TRAIN.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "4", "CONTRASTIVE.QUEUE_LEN", "8",
+                        "CONTRASTIVE.LENGTH", "16", "SOLVER.MAX_EPOCH", "2", "TRAIN.EVAL_PERIOD", "1",
+                        "TRAIN.CHECKPOINT_PERIOD", "1", "OUTPUT_DIR", str(CONTRASTIVE_OUT / name))
+
+    seen = {"update": [], "loss": [], "knn": []}
+    make, knn = train_net.make_contrastive_train_step, train_net.knn_eval
+
+    def make_recording(model, optimizer):
+        step = make(model, optimizer)
+
+        def recorded(*args, update_param=True, **kw):
+            seen["update"].append(update_param)
+            out = step(*args, update_param=update_param, **kw)
+            seen["loss"].append(float(out[0]))
+            return out
+        return recorded
+
+    def knn_recording(*args):
+        seen["knn"].append(knn(*args))
+        return seen["knn"][-1]
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        with patched(train_net, make_contrastive_train_step=make_recording, knn_eval=knn_recording):
+            tick = time.perf_counter()
+            whole = train(run("whole"))
+            whole_seconds = time.perf_counter() - tick
+            whole_seen = {k: list(v) for k, v in seen.items()}
+            for v in seen.values():
+                v.clear()
+            first = pathlib.Path(checkpoints.checkpoint_dir(str(CONTRASTIVE_OUT / "whole"))) / "epoch_00000.pyth"
+            (CONTRASTIVE_OUT / "resume" / "checkpoints").mkdir(parents=True)
+            shutil.copy(first, CONTRASTIVE_OUT / "resume" / "checkpoints" / first.name)
+            saved = torch.load(first, map_location="cuda", weights_only=True)["model_state"]
+            restored, _ = contrastive.build_contrastive_model(run("resume"), "cuda")
+            checkpoints.load_checkpoint(str(first), restored)
+            resumed = train(run("resume"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    state_names = [k for k in saved if k in ("queue_x", "ptr", "iter", "knn_mem") or k.startswith("backbone_hist.")]
+    check(all(torch.equal(restored.state_dict()[k], saved[k]) for k in state_names),
+          "the resumed model's state is not the checkpoint's")
+    check(whole_seen["update"][:4] == [False, False, True, True] and all(whole_seen["update"][4:]),
+          f"MoCo's warm-up: {whole_seen['update']}")
+    check(len(whole_seen["knn"]) == 2 and all(0.0 <= k <= 1.0 for k in whole_seen["knn"]),
+          f"kNN top-1 {whole_seen['knn']}")
+    check(seen["update"] == [True] * 4 and seen["loss"][0] == whole_seen["loss"][4]
+          and all(np.isfinite(whole_seen["loss"] + seen["loss"])),
+          f"the resumed run's next loss {seen['loss'][:1]} against {whole_seen['loss'][4:5]}")
+    drift = max(abs(a - b) for a, b in zip(seen["loss"], whole_seen["loss"][4:]))
+    del whole, resumed, restored, saved
+    torch.cuda.empty_cache()
+    return dict(epochs=2, videos=16, batch=4, update=whole_seen["update"], losses=whole_seen["loss"],
+                knn_top1=whole_seen["knn"], resumed_losses=seen["loss"], resumed_loss_drift=drift,
+                restored_entries=len(state_names), seconds_two_epochs=whole_seconds)
+
+
+def phase_contrastive(smi: str) -> None:
+    """Contrastive pretraining at full width (``CONTRASTIVE_MOCO_OPTS``,
+    ``CONTRASTIVE_BYOL_OPTS``: Slow R50 8x8 at 224, fp32): the card against
+    the CPU (MoCo, B2); 3 MoCo and 3 BYOL-with-LARS steps at B8 (ms a step,
+    videos/s, peak; ptr, the momentum encoder, one LARS update against its
+    formula) and one MoCo step's device time by kind; SimCLR, SwAV and mem
+    at B4; MViTv2-S with the MLP head under SimCLR; ``train_net.train`` of
+    MoCo with the kNN eval and an auto-resume. No K1-K5b or T1-T12 may launch."""
+    shutil.rmtree(CONTRASTIVE_OUT, ignore_errors=True)
+    zero_launch_counts()
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    figures = contrastive_card_against_cpu(smi)
+    emit("contrastive_card_vs_cpu", seconds=time.perf_counter() - t0, **figures, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    moco, model, optimizer, lr_at, step = ssl_timed_steps("moco", moco_cfg(), smi)
+    clips, index = ssl_views(moco_cfg(), CONTRASTIVE_BATCH, 96, "cuda")
+    moco["step_device_time"] = device_time_by_kind(lambda: step(clips, index, 0.03), MVIT_KERNEL_KINDS)
+    moco.update(queue_rows=int(model.queue_x.shape[0]), knn_bank_rows=int(model.knn_mem.shape[0]))
+    del model, optimizer, step, clips
+    torch.cuda.empty_cache()
+    emit("contrastive_moco", seconds=time.perf_counter() - t0, **moco, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    byol, model, optimizer, lr_at, step = ssl_timed_steps("byol", byol_cfg(), smi)
+    byol["lars"] = lars_step_check(model, optimizer, byol_cfg())
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    emit("contrastive_byol", seconds=time.perf_counter() - t0, **byol, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    figures = ssl_small(smi)
+    emit("contrastive_small", seconds=time.perf_counter() - t0, **figures, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    figures = ssl_mvit(smi)
+    emit("contrastive_mvit", seconds=time.perf_counter() - t0, **figures, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    figures = ssl_train_net(smi)
+    emit("contrastive_train_net", seconds=time.perf_counter() - t0, **figures, nvidia_smi=smi)
+    emit("contrastive", seconds=time.perf_counter() - start, launches=check_no_attention_launches("contrastive"),
+         nvidia_smi=smi)
+    shutil.rmtree(CONTRASTIVE_OUT, ignore_errors=True)
+
+
 # The A/B kernels: id -> (source, the TPU kernel's call site, the mode whose
 # numbers stand on the ``kernels`` line; every mode is on the ab_kernels line).
 AB_KERNELS = {
@@ -4889,6 +5312,7 @@ def main() -> int:
     phase_mvit_rev(smi)
     phase_maskfeat(smi)
     phase_mae(smi)
+    phase_contrastive(smi)
     ab_launches = phase_ab_dense()
     launches += ab_launches["K1"]  # the prod rows
     emit("done", seconds=time.perf_counter() - t0)

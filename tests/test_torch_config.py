@@ -287,12 +287,37 @@ MAE_VIT_B = dict(_MASKED, **{
 })
 
 
+# The contrastive lists: Slow R50 8x8 at 224 (the defaults' ResNet) in the
+# shape of PySlowFast's contrastive_ssl Slow R50 recipes, the values chip_smoke
+# chose (the repo holds no such file).
+_SLOW_R50_SSL = {
+    "MODEL.MODEL_NAME": "ContrastiveModel", "MODEL.ARCH": "slow", "RESNET.DEPTH": 50,
+    "RESNET.ZERO_INIT_FINAL_BN": True, "DATA.NUM_FRAMES": 8, "DATA.SAMPLING_RATE": 8, "DATA.TRAIN_CROP_SIZE": 224,
+    "DATA.TEST_CROP_SIZE": 224, "DATA.TRAIN_CROP_NUM_TEMPORAL": 2, "TPU.COMPUTE_DTYPE": "float32",
+    "MODEL.DROPOUT_RATE": 0.0, "SOLVER.OPTIMIZING_METHOD": "sgd", "SOLVER.MOMENTUM": 0.9, "SOLVER.MAX_EPOCH": 200,
+    "CONTRASTIVE.KNN_ON": True, "CONTRASTIVE.LENGTH": 239975, "CONTRASTIVE.BN_MLP": True,
+    "CONTRASTIVE.MOMENTUM_ANNEALING": True,
+}
+MOCO = dict(_SLOW_R50_SSL, **{
+    "CONTRASTIVE.TYPE": "moco", "CONTRASTIVE.T": 0.1, "CONTRASTIVE.DIM": 128, "MODEL.NUM_CLASSES": 128,
+    "CONTRASTIVE.QUEUE_LEN": 65536, "CONTRASTIVE.MOMENTUM": 0.994, "CONTRASTIVE.NUM_MLP_LAYERS": 3,
+    "CONTRASTIVE.MLP_DIM": 2048,
+})
+BYOL = dict(_SLOW_R50_SSL, **{
+    "CONTRASTIVE.TYPE": "byol", "CONTRASTIVE.DIM": 256, "MODEL.NUM_CLASSES": 256, "CONTRASTIVE.MOMENTUM": 0.99,
+    "CONTRASTIVE.NUM_MLP_LAYERS": 2, "CONTRASTIVE.MLP_DIM": 4096, "CONTRASTIVE.PREDICTOR_DEPTHS": [2],
+    "SOLVER.LARS_ON": True,
+})
+
+
 @pytest.mark.parametrize("helper, values", [("mvit_cfg", MVITV2_S), ("rev_mvit_cfg", REV_MVIT_B),
-                                            ("maskfeat_cfg", MASKFEAT), ("mae_cfg", MAE_VIT_B)])
+                                            ("maskfeat_cfg", MASKFEAT), ("mae_cfg", MAE_VIT_B),
+                                            ("moco_cfg", MOCO), ("byol_cfg", BYOL)])
 def test_chip_smoke_mvit_opts_equal_public_configs(helper, values):
-    """``MVITV2_S_OPTS``, ``REV_MVIT_B_OPTS``, ``MASKFEAT_OPTS`` and
-    ``MAE_VIT_B_OPTS`` set exactly these values over the defaults, in the
-    types a yaml gives them."""
+    """``MVITV2_S_OPTS``, ``REV_MVIT_B_OPTS``, ``MASKFEAT_OPTS``,
+    ``MAE_VIT_B_OPTS``, ``CONTRASTIVE_MOCO_OPTS`` and ``CONTRASTIVE_BYOL_OPTS``
+    set exactly these values over the defaults, in the types a yaml gives
+    them."""
     import chip_smoke
 
     want = tcfg.get_cfg()

@@ -78,6 +78,13 @@ MASKED_MODULES = (
     "vtm_torch.vis.mae_vis",
 )
 
+# contrastive pretraining: the family, its step and its train loop
+CONTRASTIVE_MODULES = (
+    "vtm_torch.models.contrastive",
+    "vtm_torch.train.train_step",
+    "vtm_torch.tools.train_net",
+)
+
 # MViT and the reversible MViT
 MVIT_MODULES = (
     "vtm_torch.models.mvit",
@@ -118,13 +125,15 @@ def test_every_module_imports_without_jax():
     assert not set(PTV_MODULES) - set(names)
     assert not set(MVIT_MODULES) - set(names)
     assert not set(MASKED_MODULES) - set(names)
+    assert not set(CONTRASTIVE_MODULES) - set(names)
 
 
-@pytest.mark.parametrize("module", ANALYSIS_MODULES + PTV_MODULES + MVIT_MODULES + MASKED_MODULES)
+@pytest.mark.parametrize("module", ANALYSIS_MODULES + PTV_MODULES + MVIT_MODULES + MASKED_MODULES
+                         + CONTRASTIVE_MODULES)
 def test_analysis_modules_import_without_jax_alone(module):
     """Each of the new subpackages' modules, and the PTV, multigrid,
-    Charades, MViT and masked-pretraining modules, imported alone in a fresh
-    process, pulls in neither jax nor vtm."""
+    Charades, MViT, masked- and contrastive-pretraining modules, imported
+    alone in a fresh process, pulls in neither jax nor vtm."""
     code = (f"import sys, {module}; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'simplejson', 'vtm')]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(), capture_output=True, text=True,

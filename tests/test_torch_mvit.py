@@ -275,7 +275,6 @@ def test_ptv_alias_and_registry():
 
 @pytest.mark.parametrize("opts, item", [
     (("TPU.MODEL_PARALLEL", "2"), "item 15"),
-    (("CONTRASTIVE.NUM_MLP_LAYERS", "2"), "item 19"),
     (("DETECTION.ENABLE", "True"), "item 20"),
 ])
 def test_unported_options_raise_naming_their_item(opts, item):
@@ -283,3 +282,28 @@ def test_unported_options_raise_naming_their_item(opts, item):
     with pytest.raises(NotImplementedError, match=item):
         check_tensor_parallel(cfg)
         build_model(cfg, "cpu")
+
+
+def test_contrastive_mlp_head_matches_vtm():
+    """``CONTRASTIVE.NUM_MLP_LAYERS`` 3 (the contrastive family's head):
+    ``head.projection`` is the SSL MLP of ``vtm``'s ``_mvit_head``, its
+    train-mode logits and eval probabilities within LOGIT_TOL of ``vtm``'s
+    from the same weights (``vtm``'s ``convert_mvit`` reads a linear head
+    only: the MLP's kernels go over by hand,
+    ``torch_contrastive_cases.mvit_vtm_tree``)."""
+    from vtm.models.build import build_model as jax_build_model
+
+    from torch_contrastive_cases import mvit_vtm_tree
+
+    cfg, jcfg = cfgs(mvit_opts("CONTRASTIVE.NUM_MLP_LAYERS", "3", "CONTRASTIVE.MLP_DIM", "24"))
+    module = build_model(cfg, "cpu").module
+    assert [n for n, _ in module.head.projection.named_children()] == ["fc0", "fc1", "fc2"]
+    params, stats = mvit_vtm_tree({k: v.float().numpy() for k, v in module.state_dict().items()}, cfg.MVIT.DEPTH)
+    assert stats is None
+    jmodule = jax_build_model(jcfg, init=False).module
+    x = np.random.default_rng(5).standard_normal((2, 4, 32, 32, 3)).astype(np.float32)
+    for train in (True, False):
+        want = np.asarray(jax.jit(lambda p, v: jmodule.apply({"params": p}, v, train=train)[0])(params, jnp.asarray(x)))
+        with torch.no_grad():
+            got = module.train(train)(torch.from_numpy(x))[0].numpy()
+        assert_close_to_largest(got, want, LOGIT_TOL, f"train={train}")

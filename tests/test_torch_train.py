@@ -714,19 +714,21 @@ def test_what_is_not_ported_raises(tmp_path):
     cfg.merge_from_list(["MODEL.MODEL_NAME", "VideoMAE", "VIDEOMAE.MODEL", "vit_small_patch16_224"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train(cfg)  # no card here, and the CPU was not asked for
-    for opts in (["SOLVER.LARS_ON", "True"], ["SOLVER.OPTIMIZING_METHOD", "lamb"]):
-        c = cfg.clone()
-        c.merge_from_list(opts)
-        with pytest.raises(NotImplementedError):
-            topt.construct_optimizer(c, torch.nn.Linear(2, 2))
+    c = cfg.clone()
+    c.merge_from_list(["SOLVER.OPTIMIZING_METHOD", "lamb"])
+    with pytest.raises(NotImplementedError):
+        topt.construct_optimizer(c, torch.nn.Linear(2, 2))
+    # LARS is ported (tests/test_torch_contrastive_train_net.py): its groups build
+    c = cfg.clone()
+    c.merge_from_list(["SOLVER.LARS_ON", "True"])
+    assert [g["lars"] for g in topt.construct_optimizer(c, torch.nn.Linear(2, 2))[0].param_groups] == [True]
     # the BatchNorm group is ported: its parameters take BN.WEIGHT_DECAY
     bn = torch.nn.Module()
     bn.a_bn = torch.nn.BatchNorm1d(2)
     c = cfg.clone()
     c.merge_from_list(["BN.WEIGHT_DECAY", "0.5", "SOLVER.ZERO_WD_1D_PARAM", "True"])
     assert [g["weight_decay"] for g in topt.construct_optimizer(c, bn)[0].param_groups] == [0.5]
-    for opts in (["DETECTION.ENABLE", "True"],
-                 ["TENSORBOARD.ENABLE", "True"], ["MODEL.MODEL_NAME", "ContrastiveModel"]):
+    for opts in (["DETECTION.ENABLE", "True"], ["TENSORBOARD.ENABLE", "True"]):
         c = cfg.clone()
         c.merge_from_list(opts)
         with pytest.raises(NotImplementedError):
@@ -770,5 +772,7 @@ def test_what_is_not_ported_raises(tmp_path):
     # the masked steps are ported (tests/test_torch_masked_train.py): they build
     assert callable(ts.make_mae_train_step(torch.nn.Linear(2, 2), None))
     assert callable(ts.make_maskfeat_train_step(torch.nn.Linear(2, 2), None))
+    # the contrastive step is ported (tests/test_torch_contrastive_train.py): it builds
+    assert callable(ts.make_contrastive_train_step(torch.nn.Linear(2, 2), None))
     with pytest.raises(NotImplementedError):
         ts.make_detection_train_step(None, None)

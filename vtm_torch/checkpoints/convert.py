@@ -442,16 +442,41 @@ def vivit_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]
     return sd
 
 
+def _rename_mlp_heads(sd: Mapping[str, object]) -> Dict[str, object]:
+    """Upstream's SSL MLP heads (``head_helper.MLPHead``: a Sequential
+    ``projection.{i}`` of Linear, [BatchNorm1d,] ReLU) under the port's names
+    (``convnet.MLPHead``: ``fc{k}``, ``bn{k}``): ``head.projection.projection.{i}``
+    -> ``head.projection.{fc,bn}{k}``, ``head.predictors.{j}.projection.{i}``
+    -> ``head.predictors.{j}.{fc,bn}{k}``; the rule of ``vtm``'s
+    ``convert_pyslowfast`` (``rename_mlp``). Other keys as they are."""
+
+    def rename(key: str) -> str:
+        m = re.match(r"(.*?(?:projection|predictors\.\d+))\.projection\.(\d+)\.(.*)", key)
+        if not m:
+            return key
+        base, idx, rest = m.group(1), int(m.group(2)), m.group(3)
+        bn_on = f"{base}.projection.1.running_mean" in sd
+        stride = 3 if bn_on else 2
+        if idx % stride == 0:
+            return f"{base}.fc{idx // stride}.{rest}"
+        if bn_on and idx % stride == 1:
+            return f"{base}.bn{(idx + 2) // 3}.{rest}"
+        return key  # a ReLU holds nothing
+
+    return {rename(k): v for k, v in sd.items()}
+
+
 def load_pyslowfast_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Tensor]:
     """An upstream PySlowFast state dict (SlowFast, ResNet, X3D ``.pyth``)
     -> the port's: the DDP ``module.`` prefix stripped, as ``vtm``'s loader
-    strips it, the upstream names kept (the port's modules carry them), and
+    strips it, the upstream names kept (the port's modules carry them) but
+    for an SSL MLP head's (``_rename_mlp_heads``), and
     ``num_batches_tracked`` dropped (the port's BatchNorm keeps no count).
     Nothing is folded: a SubBatchNorm's ``X.bn`` / ``X.split_bn`` statistics
     keep their names; ``checkpoint.merge_bn_stats`` maps them onto the
     model's BatchNorms."""
     out: Dict[str, torch.Tensor] = {}
-    for k, v in sd.items():
+    for k, v in _rename_mlp_heads(sd).items():
         key = k[len("module."):] if k.startswith("module.") else k
         if key.endswith("num_batches_tracked"):
             continue
@@ -500,7 +525,8 @@ def pyslowfast_state_dict_from_vtm(params: Mapping, batch_stats: Optional[Mappin
     walk_params(params, [])
     if batch_stats is not None:
         walk_stats(batch_stats, [])
-    return sd
+    # vtm's predictor MLPs are siblings ``predictors_{j}``, the port's a list
+    return {re.sub(r"(^|\.)predictors_(\d+)\.", r"\1predictors.\2.", k): v for k, v in sd.items()}
 
 
 # ``vtm``'s CSN and R(2+1)D params and ``batch_stats`` -> the port's state dict
@@ -570,8 +596,9 @@ def load_mvit_state_dict(sd: Mapping[str, object]) -> Dict[str, torch.Tensor]:
     reversible layout ``rev_backbone.layers.{i}.{F,G,res_proj,pre_q_fuse}``,
     the fusion MLPs ``fuse.fuse_fn.*``) -> the port's: the names are the
     same, so only the wrapper prefixes go (``strip_prefixes``), as
-    ``vtm``'s ``convert_mvit`` strips them."""
-    return {k: _t(v) for k, v in strip_prefixes(sd).items()}
+    ``vtm``'s ``convert_mvit`` strips them; an SSL MLP head takes the port's
+    names (``_rename_mlp_heads``)."""
+    return {k: _t(v) for k, v in _rename_mlp_heads(strip_prefixes(sd)).items()}
 
 
 # vtm's MViT tree segments -> the port's module path
@@ -663,4 +690,37 @@ def maskmvit_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tens
         # a node walked as block 0 of a trunk: the block's own names
         for name, v in mvit_state_dict_from_vtm_params({"blocks_0": node}).items():
             sd[prefix + name[len("blocks.0"):]] = v
+    return sd
+
+
+def contrastive_state_dict_from_vtm(params: Mapping, batch_stats: Optional[Mapping], state: Mapping,
+                                    proto_params: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """``vtm``'s contrastive training state -> the port's ``ContrastiveModel``
+    state dict: the backbone's params and ``batch_stats`` (``all_params["backbone"]``;
+    the conv families through ``pyslowfast_state_dict_from_vtm``, MViT, told
+    by its ``patch_embed``, through ``mvit_state_dict_from_vtm_params``, its
+    MLP head's statistics under ``head.projection``) -> ``backbone.*``;
+    ``state["hist_params"]`` / ``["hist_batch_stats"]`` -> ``backbone_hist.*``;
+    ``iter``, ``ptr``, ``queue_x``, ``queue_swav``, ``swav_use_the_queue``,
+    ``memory`` and ``knn_mem`` -> the buffers of those names; the SwAV
+    prototypes' kernel [dim, K] -> ``swav_prototypes.weight`` [K, dim]."""
+
+    def backbone(p, stats):
+        if "patch_embed" not in p:
+            return pyslowfast_state_dict_from_vtm(p, stats)
+        sd = mvit_state_dict_from_vtm_params(p)
+        if stats:  # only an MLP head's BatchNorms (CONTRASTIVE.BN_MLP)
+            sd.update(pyslowfast_state_dict_from_vtm({}, {"head": {"projection": stats["head"]}}))
+        return sd
+
+    sd = {f"backbone.{k}": v for k, v in backbone(params, batch_stats).items()}
+    if "hist_params" in state:
+        sd.update({f"backbone_hist.{k}": v
+                   for k, v in backbone(state["hist_params"], state.get("hist_batch_stats")).items()})
+    for name in ("iter", "ptr", "queue_x", "queue_swav", "swav_use_the_queue", "memory", "knn_mem"):
+        if name in state:
+            a = np.array(state[name])
+            sd[name] = _t(a.astype(np.int64) if name in ("iter", "ptr") else a)
+    if proto_params is not None:
+        sd["swav_prototypes.weight"] = _t(np.ascontiguousarray(np.array(proto_params["kernel"]).T))
     return sd

@@ -28,6 +28,7 @@ all-reduce in the backward too.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -512,22 +513,59 @@ def _pool_within(pool, x: torch.Tensor):
     return pool
 
 
+class MLPHead(nn.Module):
+    """The contrastive family's projection / predictor MLP (``vtm``'s
+    ``MLPHead``): ``fc0``, then for each further layer i ``bn{i}`` (with
+    ``bn_on``), ReLU and ``fc{i}``; the last layer is ``dim_out`` wide.
+    Biases are dropped on the layers a BatchNorm covers; the last layer
+    keeps ``bias``. A map with more than two dims ([B, t, h, w, C]) is
+    normalised per channel over all its positions."""
+
+    def __init__(self, dim_in: int, dim_out: int, mlp_dim: int, num_layers: int, bn_on: bool = False,
+                 bias: bool = True, norm: NormSpec = NormSpec()):
+        super().__init__()
+        self.num_layers, self.bn_on = num_layers, bn_on
+        b = bias and not bn_on
+        self.fc0 = nn.Linear(dim_in, mlp_dim, bias=b)
+        for i in range(1, num_layers):
+            if bn_on:
+                self.add_module(f"bn{i}", BatchNorm(mlp_dim, norm))
+            last = i == num_layers - 1
+            self.add_module(f"fc{i}", nn.Linear(mlp_dim, dim_out if last else mlp_dim, bias=bias if last else b))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.fc0(x)
+        for i in range(1, self.num_layers):
+            if self.bn_on:
+                bn = getattr(self, f"bn{i}")
+                x = bn(x) if x.dim() == 2 else bn(x.movedim(-1, 1)).movedim(1, -1)
+            x = getattr(self, f"fc{i}")(F.relu(x))
+        return x
+
+
 class ResNetBasicHead(nn.Module):
     """Per-pathway average pool (``pool_size`` None: global), concat,
     dropout, ``projection``; at eval the activation, then the mean of what
     is left of T, H, W (fully convolutional testing at a larger crop).
-    ``mlp_layers`` > 1 and predictors are the contrastive family's."""
+    ``mlp_layers`` > 1 makes ``projection`` the contrastive family's
+    ``MLPHead`` (a [B, 1, 1, 1, C] map flattened to [B, C] first, as in
+    ``vtm``), and each of ``predictor_depths`` appends a predictor MLP
+    (``predictors.{i}``) over the projection: the head then returns
+    [projection, *predictions]."""
 
     def __init__(self, dim_in: Sequence[int], num_classes: int, pool_size, dropout_rate=0.0, act_func="softmax",
-                 detach_final_fc=False, mlp_layers=1, predictor_depths=()):
+                 detach_final_fc=False, mlp_layers=1, predictor_depths=(), mlp_dim=2048, mlp_bn=False,
+                 norm: NormSpec = NormSpec()):
         super().__init__()
-        if mlp_layers > 1 or predictor_depths:
-            raise NotImplementedError(
-                "CONTRASTIVE.NUM_MLP_LAYERS > 1 / PREDICTOR_DEPTHS: the contrastive family's MLP heads are "
-                "not ported yet (ROADMAP.md Queue 1, item 19)")
         self.pool_size = pool_size
         self.dropout_rate, self.act_func, self.detach_final_fc = dropout_rate, act_func, detach_final_fc
-        self.projection = nn.Linear(sum(dim_in), num_classes)
+        self.mlp = mlp_layers > 1
+        if self.mlp:
+            self.projection = MLPHead(sum(dim_in), num_classes, mlp_dim, mlp_layers, mlp_bn, norm=norm)
+        else:
+            self.projection = nn.Linear(sum(dim_in), num_classes)
+        self.predictors = nn.ModuleList(
+            MLPHead(num_classes, num_classes, mlp_dim, depth, mlp_bn, norm=norm) for depth in predictor_depths)
 
     def forward(self, xs, generator: Optional[torch.Generator] = None):
         pooled = []
@@ -540,10 +578,18 @@ class ResNetBasicHead(nn.Module):
         x = dropout(x, self.dropout_rate, self.training, generator)
         if self.detach_final_fc:
             x = x.detach()
+        if self.mlp and x.shape[1:4] == (1, 1, 1):
+            x = x.reshape(x.shape[0], -1)
         x = self.projection(x)
+        predictions = [p(x) for p in self.predictors]
         if not self.training:
-            x = _activate(x, self.act_func, allow_none=True).mean(dim=(1, 2, 3))
-        return x.reshape(x.shape[0], -1)
+            x = _activate(x, self.act_func, allow_none=True)
+            if x.dim() > 2:
+                x = x.mean(dim=(1, 2, 3))
+        x = x.reshape(x.shape[0], -1)
+        if predictions:
+            return [x] + [t.reshape(t.shape[0], -1) for t in predictions]
+        return x
 
 
 class X3DHead(nn.Module):
@@ -577,17 +623,37 @@ class X3DHead(nn.Module):
         return x.reshape(x.shape[0], -1)
 
 
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default Dense kernel init (``lecun_normal``): a normal over
+    fan-in truncated at two deviations, its deviation corrected for the cut."""
+    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+def mlp_head_linears(module: nn.Module) -> list:
+    """The linear layers of every ``MLPHead`` in ``module``."""
+    return [m for head in module.modules() if isinstance(head, MLPHead)
+            for m in head.modules() if isinstance(m, nn.Linear)]
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator, fc_init_std: float) -> None:
     """``vtm``'s initialisers, drawn from ``generator``: convs
     Kaiming-normal over fan-out with the ReLU gain, the projection
     normal(``fc_init_std``), biases 0, BN weight 1 (0 where the block's
-    final BN starts at zero), running mean 0 and variance 1."""
+    final BN starts at zero), running mean 0 and variance 1; an
+    ``MLPHead``'s layers keep flax's Dense default, lecun-normal with zero
+    biases."""
+    mlp = {id(m) for m in mlp_head_linears(module)}
     for m in module.modules():
         if isinstance(m, nn.Conv3d):
             nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, nn.Linear):
-            nn.init.normal_(m.weight, std=fc_init_std, generator=generator)
-            nn.init.zeros_(m.bias)
+            if id(m) in mlp:
+                lecun_normal_(m.weight, generator)
+            else:
+                nn.init.normal_(m.weight, std=fc_init_std, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)

@@ -41,9 +41,13 @@ and gives the plain stack's values and gradients. The head's activation
 ``jax.image.resize(..., "linear")`` does (a triangle kernel, widened when
 shrinking), not as ``F.interpolate``: ``resize_linear``.
 
-Not ported: ``DETECTION.ENABLE`` (ROADMAP.md Queue 1, item 20),
-``CONTRASTIVE.NUM_MLP_LAYERS`` > 1 (item 19), the tensor-parallel cuts
-(item 15, raised by ``parallel/sharding.py::check_tensor_parallel``).
+``CONTRASTIVE.NUM_MLP_LAYERS`` > 1 makes ``head.projection`` the
+contrastive family's ``convnet.MLPHead`` (``fc0``, ``bn{i}``, ``fc{i}``;
+fp32, lecun-normal with zero biases, as ``vtm``'s ``_mvit_head``).
+
+Not ported: ``DETECTION.ENABLE`` (ROADMAP.md Queue 1, item 20), the
+tensor-parallel cuts (item 15, raised by
+``parallel/sharding.py::check_tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vtm_torch.merge.policy import MergePolicy
 from vtm_torch.models.common import LayerNorm, Linear, Mlp, dropout
-from vtm_torch.models.convnet import round_width
+from vtm_torch.models.convnet import MLPHead, lecun_normal_, mlp_head_linears, round_width
 
 NORM_EPS = 1e-6
 
@@ -483,7 +487,9 @@ class MViTSpec:
     rev_res_path: str = "conv"
     rev_pre_q_fusion: str = "avg"
     detection: bool = False
-    mlp_layers: int = 1
+    mlp_layers: int = 1  # the contrastive family's SSL head (CONTRASTIVE.*)
+    mlp_dim: int = 2048
+    mlp_bn: bool = False
     multi_head = False  # one head (not a field: no config sets another)
 
     @property
@@ -636,6 +642,8 @@ def mvit_spec_from_cfg(cfg) -> MViTSpec:
         rev_pre_q_fusion=cfg.MVIT.REV.PRE_Q_FUSION,
         detection=cfg.DETECTION.ENABLE,
         mlp_layers=cfg.CONTRASTIVE.NUM_MLP_LAYERS,
+        mlp_dim=cfg.CONTRASTIVE.MLP_DIM,
+        mlp_bn=cfg.CONTRASTIVE.BN_MLP,
     )
 
 
@@ -653,11 +661,15 @@ class _PatchEmbed(nn.Module):
 
 
 class _Head(nn.Module):
-    """``head.projection`` (upstream ``TransformerBasicHead``)."""
+    """``head.projection`` (upstream ``TransformerBasicHead``): a linear
+    layer, or with ``mlp_layers`` > 1 the contrastive family's MLP."""
 
-    def __init__(self, dim: int, num_classes: int):
+    def __init__(self, dim: int, num_classes: int, mlp_layers: int = 1, mlp_dim: int = 2048, mlp_bn: bool = False):
         super().__init__()
-        self.projection = nn.Linear(dim, num_classes)
+        if mlp_layers > 1:
+            self.projection = MLPHead(dim, num_classes, mlp_dim, mlp_layers, mlp_bn)
+        else:
+            self.projection = nn.Linear(dim, num_classes)
 
 
 def trunc02_(t: torch.Tensor, generator: torch.Generator) -> None:
@@ -665,17 +677,11 @@ def trunc02_(t: torch.Tensor, generator: torch.Generator) -> None:
     nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
 
 
-def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's default Dense kernel init (``lecun_normal``): a normal over
-    fan-in truncated at two deviations, its deviation corrected for the cut."""
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
-
-
 @torch.no_grad()
 def init_mvit_weights(module: nn.Module, generator: torch.Generator, rel_pos_zero_init: bool) -> None:
     """``vtm``'s initialisers: the MLPs' linear layers (``Mlp``: blocks, the
-    reversible G, the fusions) lecun-normal with zero biases; every other
+    reversible G, the fusions; the contrastive head's ``MLPHead``)
+    lecun-normal with zero biases; every other
     linear layer, the patch embedding and the pooling convs trunc02 with
     biases 0.02; the position tables and the class token trunc02 (a fixed
     sin-cos table is set over it after); ``rel_pos_*`` zeros under
@@ -688,6 +694,11 @@ def init_mvit_weights(module: nn.Module, generator: torch.Generator, rel_pos_zer
                 lecun_normal_(fc.weight, generator)
                 nn.init.zeros_(fc.bias)
                 mlp_linears.add(id(fc))
+    for fc in mlp_head_linears(module):
+        lecun_normal_(fc.weight, generator)
+        if fc.bias is not None:
+            nn.init.zeros_(fc.bias)
+        mlp_linears.add(id(fc))
     for m in module.modules():
         if isinstance(m, nn.Linear) and id(m) not in mlp_linears or isinstance(m, nn.Conv3d):
             trunc02_(m.weight, generator)
@@ -716,10 +727,6 @@ class MViTModel(nn.Module):
         if spec.detection:
             raise NotImplementedError(
                 "DETECTION.ENABLE: the AVA ROI head is not ported yet (ROADMAP.md Queue 1, item 20)")
-        if spec.mlp_layers > 1:
-            raise NotImplementedError(
-                "CONTRASTIVE.NUM_MLP_LAYERS > 1: the contrastive family's MLP heads are not ported yet "
-                "(ROADMAP.md Queue 1, item 19)")
         s = self.config = self.spec = spec
         self.dtype, self.act_checkpoint = dtype, act_checkpoint
         self.patch_embed = _PatchEmbed(s.in_chans, s.embed_dim, s.patch_kernel, s.patch_stride, s.patch_padding, dtype)
@@ -758,7 +765,7 @@ class MViTModel(nn.Module):
                 for i, blk in enumerate(plan))
             head_dim = plan[-1]["dim_out"]
             self.norm = LayerNorm(head_dim, s.norm_eps)
-        self.head = _Head(head_dim, s.num_classes)
+        self.head = _Head(head_dim, s.num_classes, s.mlp_layers, s.mlp_dim, s.mlp_bn)
         init_mvit_weights(self, torch.Generator().manual_seed(seed), s.rel_pos_zero_init)
         if s.use_fixed_sincos_pos:
             table = get_3d_sincos_pos_embed(s.embed_dim, s.patch_dims[1], s.patch_dims[0], s.cls_embed_on)

@@ -126,8 +126,10 @@ class ConvNetSpec:
     fusion_kernel_sz: int = 7
     norm: NormSpec = NormSpec()
     global_head_pool: bool = False  # MULTIGRID.SHORT_CYCLE: a global average in the head
-    mlp_layers: int = 1
+    mlp_layers: int = 1  # the contrastive family's SSL head (CONTRASTIVE.*)
     predictor_depths: Tuple[int, ...] = ()
+    mlp_dim: int = 2048
+    mlp_bn: bool = False
     multi_head = False  # one head (not a field: no config sets another)
 
 
@@ -176,6 +178,8 @@ def spec_from_cfg(cfg) -> ConvNetSpec:
         global_head_pool=cfg.MULTIGRID.SHORT_CYCLE,
         mlp_layers=cfg.CONTRASTIVE.NUM_MLP_LAYERS,
         predictor_depths=_t(cfg.CONTRASTIVE.PREDICTOR_DEPTHS),
+        mlp_dim=cfg.CONTRASTIVE.MLP_DIM,
+        mlp_bn=cfg.CONTRASTIVE.BN_MLP,
     )
 
 
@@ -251,7 +255,8 @@ class SlowFastModel(_ConvNet):
             (s.num_frames // pool[1][0], s.crop_size // 32 // pool[1][1], s.crop_size // 32 // pool[1][2]),
         )
         self.head = ResNetBasicHead((wpg * 32, wpg * 32 // b), s.num_classes, head_pool, s.dropout_rate, s.head_act,
-                                    s.detach_final_fc, s.mlp_layers, s.predictor_depths)
+                                    s.detach_final_fc, s.mlp_layers, s.predictor_depths,
+                                    s.mlp_dim, s.mlp_bn, norm)
         self._finish(seed, s.fc_init_std)
 
     def body(self, x, generator=None):
@@ -291,7 +296,8 @@ class ResNetModel(_ConvNet):
         head_pool = None if s.global_head_pool else (
             (s.num_frames // pool[0][0], s.crop_size // 32 // pool[0][1], s.crop_size // 32 // pool[0][2]),)
         self.head = ResNetBasicHead((wpg * 32,), s.num_classes, head_pool, s.dropout_rate, s.head_act,
-                                    s.detach_final_fc, s.mlp_layers, s.predictor_depths)
+                                    s.detach_final_fc, s.mlp_layers, s.predictor_depths,
+                                    s.mlp_dim, s.mlp_bn, norm)
         self._finish(seed, s.fc_init_std)
 
     def body(self, x, generator=None):

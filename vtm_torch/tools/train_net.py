@@ -39,7 +39,16 @@ one all the same); MaskFeat's HOG or pixel targets are made there from the frame
 forward; the step (``train_step.make_{mae,maskfeat}_train_step``) draws from
 the step generator; the meter gets the loss only, and no eval epoch runs.
 As in ``vtm``, it runs in one process: ``main`` starts one, and a process
-group of more raises. Contrastive and detection
+group of more raises. Contrastive pretraining (``MODEL.MODEL_NAME
+ContrastiveModel``; ``train_contrastive``, ``vtm``'s SSL loop): the views of
+each batch's ``clips`` go in as separate single-pathway clips with
+``index % CONTRASTIVE.LENGTH``; MoCo's first ``QUEUE_LEN / batch``
+iterations of epoch 0 fill the queue without an update; a checkpoint every
+``TRAIN.CHECKPOINT_PERIOD`` holds the parameters, the optimizer and the
+model's whole state (BatchNorm statistics, the momentum encoder, queues and
+banks); with ``CONTRASTIVE.KNN_ON`` a kNN eval over the val set every
+``TRAIN.EVAL_PERIOD`` (eval mode, running statistics) logs
+``ssl_knn_eval`` with ``knn_top1``. It runs in one process too. Detection
 training, the chunked-csv rotation, tensorboard and wandb are not
 ported yet and raise where a config asks for them, naming their ROADMAP
 item. ``TRAIN.KILL_LOSS_EXPLOSION_FACTOR`` stops the run on a NaN or
@@ -87,6 +96,7 @@ from vtm_torch.data import construct_loader, shuffle_dataset
 from vtm_torch.eval.meters import EPICTrainMeter, EPICValMeter, TrainMeter, ValMeter
 from vtm_torch.eval.metrics import multitask_topk_accuracies, topk_accuracies, topk_errors
 from vtm_torch.models import ModelBundle, build_model
+from vtm_torch.models.contrastive import ContrastiveModel, build_contrastive_model, knn_predict, moco_iters_noupdate
 from vtm_torch.models.convnet import aggregate_subbn_stats, batchnorms, set_sync_group
 from vtm_torch.models.masked import maskfeat_labels
 from vtm_torch.parallel import launch
@@ -97,6 +107,7 @@ from vtm_torch.train.multigrid import MultigridSchedule, adapt_batch_stats
 from vtm_torch.train.optimizer import construct_optimizer, set_lr
 from vtm_torch.train.precise_bn import compute_precise_bn_stats
 from vtm_torch.train.train_step import (
+    make_contrastive_train_step,
     make_eval_step,
     make_mae_train_step,
     make_maskfeat_train_step,
@@ -147,8 +158,6 @@ def _host(logits):
 
 def _unsupported(cfg) -> None:
     """Raise for what the JAX package's train loop does and this one does not yet."""
-    if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
-        raise NotImplementedError("contrastive pretraining is not ported yet (ROADMAP.md Queue 1, item 19)")
     check_tensor_parallel(cfg)
     for on, what in (
         (cfg.DETECTION.ENABLE, "DETECTION.ENABLE: detection training (ROADMAP.md Queue 1, item 20)"),
@@ -272,9 +281,8 @@ def build_trainer(cfg, device: Optional[torch.device | str] = None,
     device = entry_device(device, "train_net", _process_batch(cfg), cfg.TPU.MODEL_PARALLEL)
     _unsupported(cfg)
     mesh = make_mesh(cfg.TPU.MODEL_PARALLEL, batch_cap=cfg.TRAIN.BATCH_SIZE, device_type=device.type)
-    if cfg.MASK.ENABLE and mesh.data * mesh.model > 1:
-        raise NotImplementedError("masked pretraining runs in one process, as in vtm: start it without a "
-                                  "process group of more")
+    if cfg.MASK.ENABLE:
+        _one_process("masked pretraining")
     if bundle is None:
         bundle = build_model(cfg, device, fp32_params=True)
     module = bundle.module
@@ -309,8 +317,15 @@ def build_trainer(cfg, device: Optional[torch.device | str] = None,
 
 
 def _process_batch(cfg) -> int:
-    """The batch that sizes the process group: 1 for masked pretraining, which runs in one process."""
-    return 1 if cfg.MASK.ENABLE else cfg.TRAIN.BATCH_SIZE
+    """The batch that sizes the process group: 1 for masked and contrastive
+    pretraining, which run in one process."""
+    return 1 if cfg.MASK.ENABLE or cfg.MODEL.MODEL_NAME == "ContrastiveModel" else cfg.TRAIN.BATCH_SIZE
+
+
+def _one_process(what: str) -> None:
+    if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(f"{what} runs in one process, as in vtm: start it without a process group "
+                                  "of more")
 
 
 def masked_train_step(cfg, module, optimizer) -> Callable:
@@ -325,7 +340,80 @@ def masked_train_step(cfg, module, optimizer) -> Callable:
         frames, mask, maskfeat_labels(cfg, module.spec, frames), generator=generator)
 
 
+def knn_eval(model: ContrastiveModel, loader, train_labels, device: torch.device) -> float:
+    """The kNN top-1 of the val ``loader`` against the model's bank: each
+    clip's normalised projection in eval mode, voted by its 200 nearest
+    bank rows (``contrastive.knn_predict``)."""
+    correct = total = 0
+    for batch in loader:
+        frames = torch.as_tensor(np.asarray(batch["frames"], np.float32), device=device)
+        preds = knn_predict(model, model.features([frames]), train_labels, model.cc.num_classes_downstream)
+        labels = np.asarray(batch["label"])
+        correct += int((preds.argmax(dim=1).cpu().numpy() == labels).sum())
+        total += len(labels)
+    return correct / max(total, 1)
+
+
+def train_contrastive(cfg, device: Optional[torch.device | str] = None) -> ContrastiveModel:
+    """Contrastive pretraining (``MODEL.MODEL_NAME ContrastiveModel``; the
+    module's docstring). Returns the trained model."""
+    device = entry_device(device, "train_net", 1, cfg.TPU.MODEL_PARALLEL)
+    _unsupported(cfg)
+    _one_process("contrastive pretraining")
+    setup_logging(cfg.OUTPUT_DIR)
+    np.random.seed(cfg.RNG_SEED)
+    logger.info("SSL train with config:\n%s", json.dumps(cfg.to_dict(), indent=1, sort_keys=True))
+    model, _ = build_contrastive_model(cfg, device)
+    cc = model.cc
+    optimizer, lr_at = construct_optimizer(cfg, model)
+    step = make_contrastive_train_step(model, optimizer)
+
+    start_epoch = 0
+    last = cu.get_last_checkpoint(cfg.OUTPUT_DIR) if cfg.TRAIN.AUTO_RESUME else None
+    if last:
+        start_epoch = cu.load_checkpoint(last, model, optimizer)[0] + 1
+        logger.info("SSL auto-resumed from %s (epoch %d)", last, start_epoch)
+
+    train_loader = construct_loader(cfg, "train")
+    data_size = len(train_loader)
+    # the kNN eval's label of each bank row
+    train_labels = np.asarray(getattr(train_loader.dataset, "_labels", np.zeros(cc.length)), np.int64)
+    iters_noupdate = moco_iters_noupdate(cc, cfg.TRAIN.BATCH_SIZE) if cc.type == "moco" else 0
+    meter = TrainMeter(data_size, cfg)
+    for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        shuffle_dataset(train_loader, cur_epoch)
+        meter.iter_tic()
+        for cur_iter, batch in enumerate(train_loader):
+            epoch_exact = cur_epoch + float(cur_iter) / data_size
+            lr = lr_at(epoch_exact)
+            set_lr(optimizer, lr)
+            views = np.asarray(batch["clips"], np.float32)
+            clips = [[torch.as_tensor(views[:, i], device=device)] for i in range(views.shape[1])]
+            index = torch.as_tensor(np.asarray(batch["index"]) % cc.length, device=device)
+            meter.data_toc()
+            update = not (cc.type == "moco" and cur_iter < iters_noupdate and epoch_exact < 1)
+            loss, _ = step(clips, index, epoch_exact, _step_generator(device, cfg.RNG_SEED, cur_epoch, cur_iter),
+                           update_param=update)
+            loss = float(loss)
+            if cfg.TRAIN.KILL_LOSS_EXPLOSION_FACTOR and not np.isfinite(loss):
+                raise RuntimeError(f"NaN/inf SSL loss at epoch {cur_epoch} iter {cur_iter}")
+            meter.iter_toc()
+            meter.update_stats(0.0, 0.0, loss, lr, views.shape[0])
+            meter.log_iter_stats(cur_epoch, cur_iter)
+            meter.iter_tic()
+        meter.log_epoch_stats(cur_epoch)
+        meter.reset()
+        if (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0 or cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH:
+            cu.save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, cur_epoch, cfg)
+        if cc.knn_on and (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0:
+            top1 = knn_eval(model, construct_loader(cfg, "val"), train_labels, device)
+            logger.info('json_stats: {"_type": "ssl_knn_eval", "epoch": %d, "knn_top1": %.4f}', cur_epoch, top1)
+    return model
+
+
 def train(cfg, device: Optional[torch.device | str] = None):
+    if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
+        return train_contrastive(cfg, device)
     multigrid = None
     if cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE:
         # before the model and the optimizer: SOLVER.STEPS / LRS / MAX_EPOCH

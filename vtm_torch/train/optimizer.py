@@ -20,8 +20,18 @@ before the optimizer's step.
 
 The conv families' BatchNorm parameters (any name segment ending in
 ``bn``) take ``BN.WEIGHT_DECAY``, ahead of ``SOLVER.ZERO_WD_1D_PARAM``, as
-in the JAX package. LARS (``SOLVER.LARS_ON``) belongs to the contrastive
-family and raises until it is ported.
+in the JAX package.
+
+LARS (``SOLVER.LARS_ON``, the contrastive recipes'; trust coefficient
+0.001, no clipping): every group but the BatchNorm one is a LARS group,
+which keeps its weight decay as ``lars_weight_decay`` and gives the
+optimizer 0. ``apply_update`` then rewrites, after clipping and before the
+step, the gradient of each parameter of a LARS group that is not 1-D and
+whose parameter and gradient norms are both non-zero:
+``g <- (g + wd p) 0.001 |p| / (|g| + |p| wd + 1e-8)``. 1-D and zero-norm
+parameters of those groups pass through unmodified and undecayed, as in
+``vtm`` and upstream. The BatchNorm group keeps ``BN.WEIGHT_DECAY`` in the
+optimizer and is never adapted.
 """
 
 from __future__ import annotations
@@ -85,27 +95,28 @@ def construct_optimizer(
     Set the learning rate before each step with ``set_lr`` and take the
     step with ``apply_update``."""
     method = cfg.SOLVER.OPTIMIZING_METHOD
-    if getattr(cfg.SOLVER, "LARS_ON", False):
-        raise NotImplementedError("SOLVER.LARS_ON: LARS is not ported yet (contrastive family, ROADMAP.md Queue 1, item 19)")
+    lars_on = bool(getattr(cfg.SOLVER, "LARS_ON", False))
     # float(): PyYAML reads an exponent without a dot (the SlowFast yamls'
     # 1e-4) as a string, which the JAX package passes on and fails on
     wd, bn_wd = float(cfg.SOLVER.WEIGHT_DECAY), float(cfg.BN.WEIGHT_DECAY)
     ld = cfg.SOLVER.LAYER_DECAY
 
-    groups = {}  # (weight decay, lr scale) -> parameters, in first-seen order
+    groups = {}  # (weight decay, lr scale, LARS) -> parameters, in first-seen order
     for name, param in module.named_parameters():
         if not param.requires_grad:
             continue
         # BN.WEIGHT_DECAY for every BatchNorm parameter, ahead of ZERO_WD_1D_PARAM
         decay = bn_wd if _is_bn(name) else (0.0 if _is_zero_wd(cfg, name, param) else wd)
         scale = ld ** (num_layers + 1 - _layer_id(name, num_layers)) if ld < 1.0 else 1.0
-        groups.setdefault((decay, scale), []).append(param)
+        groups.setdefault((decay, scale, lars_on and not _is_bn(name)), []).append(param)
 
     lr0 = get_lr_at_epoch(cfg, 0.0)
-    param_groups = [
-        dict(params=params, weight_decay=decay, lr_scale=scale, lr=lr0 * scale)
-        for (decay, scale), params in groups.items()
-    ]
+    param_groups = []
+    for (decay, scale, lars), params in groups.items():
+        group = dict(params=params, weight_decay=decay, lr_scale=scale, lr=lr0 * scale)
+        if lars:  # the decay moves into the LARS rewrite of the gradient
+            group.update(weight_decay=0.0, lars=True, lars_weight_decay=decay)
+        param_groups.append(group)
     if method == "sgd":
         optimizer = torch.optim.SGD(
             param_groups, lr=lr0, momentum=cfg.SOLVER.MOMENTUM,
@@ -171,8 +182,33 @@ def clip_gradients(optimizer: torch.optim.Optimizer) -> None:
             g.clamp_(-max_val, max_val)
 
 
+LARS_TRUST = 0.001
+LARS_EPS = 1e-8
+
+
+@torch.no_grad()
+def lars_gradients(optimizer: torch.optim.Optimizer) -> None:
+    """The LARS rewrite of the gradients of the LARS groups, in place (the
+    module's docstring); norms in fp32 (fp64 parameters: in fp64), no host
+    read."""
+    for group in optimizer.param_groups:
+        if not group.get("lars"):
+            continue
+        wd = group["lars_weight_decay"]
+        for p in group["params"]:
+            g = p.grad
+            if g is None or p.dim() <= 1:
+                continue
+            dtype = torch.promote_types(p.dtype, torch.float32)  # fp32, or fp64 for a reference
+            p_norm, g_norm = p.to(dtype).norm(), g.to(dtype).norm()
+            adaptive = LARS_TRUST * p_norm / (g_norm + p_norm * wd + LARS_EPS)
+            live = (p_norm != 0) & (g_norm != 0)
+            g.copy_(torch.where(live, (g + wd * p) * adaptive.to(g.dtype), g))
+
+
 def apply_update(optimizer: torch.optim.Optimizer) -> None:
-    """Clip, step, and clear the gradients."""
+    """Clip, LARS (``SOLVER.LARS_ON``), step, and clear the gradients."""
     clip_gradients(optimizer)
+    lars_gradients(optimizer)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)

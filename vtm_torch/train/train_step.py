@@ -31,7 +31,13 @@ The masked-pretraining steps (``make_mae_train_step``,
 forward, ``losses.multiple_mse`` over the masked positions, a backward and
 the update (accumulated as above). They run in one process, as ``vtm``'s.
 
-The detection and contrastive steps are not ported yet and raise.
+The contrastive step (``make_contrastive_train_step``) runs the
+``ContrastiveModel``'s forward, which also advances its state (the momentum
+encoder, queues and banks, in place), the backward and the update; MoCo's
+queue warm-up steps (``update_param=False``) skip the update. It runs in one
+process, as ``vtm``'s.
+
+The detection steps are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -165,6 +171,38 @@ def make_maskfeat_train_step(module: nn.Module, optimizer: torch.optim.Optimizer
     return _masked_step(module, optimizer, accumulate_steps, loss_of)
 
 
+def make_contrastive_train_step(model: nn.Module, optimizer: torch.optim.Optimizer) -> Callable:
+    """``step(clips, index, epoch_exact, generator=None, update_param=True)
+    -> (loss, logits)`` for a ``models.contrastive.ContrastiveModel``. SwAV's
+    prototypes are re-normalised in place before the forward, outside the
+    graph, and their gradient is zeroed while ``epoch_exact <= 1`` (the
+    optimizer still steps them: momentum and weight decay, as in ``vtm``).
+    ``update_param=False`` leaves the parameters and the optimizer's state
+    as they are while the model's state advances. loss and logits are
+    detached."""
+    from vtm_torch.models.contrastive import l2_normalize
+
+    protos = getattr(model, "swav_prototypes", None)
+
+    def step(clips, index, epoch_exact: float, generator: Optional[torch.Generator] = None,
+             update_param: bool = True):
+        model.train()
+        if protos is not None:
+            with torch.no_grad():
+                protos.weight.copy_(l2_normalize(protos.weight, dim=1))
+        logits, loss = model(clips, index, epoch_exact=epoch_exact, generator=generator)
+        loss.backward()
+        if protos is not None and epoch_exact <= 1.0:
+            protos.weight.grad.zero_()
+        if update_param:
+            apply_update(optimizer)
+        else:
+            optimizer.zero_grad(set_to_none=True)
+        return loss.detach(), logits.detach()
+
+    return step
+
+
 def _not_ported(name: str):
     def raiser(*args, **kwargs):
         raise NotImplementedError(f"{name} is not ported yet")
@@ -175,4 +213,3 @@ def _not_ported(name: str):
 
 make_detection_eval_step = _not_ported("make_detection_eval_step")
 make_detection_train_step = _not_ported("make_detection_train_step")
-make_contrastive_train_step = _not_ported("make_contrastive_train_step")
