@@ -253,6 +253,24 @@ Phases, each printing one JSON line:
                   train_net.train of MoCo for 2 epochs of 16 clips (the
                   queue warm-up, the kNN eval, a checkpoint, an auto-resume
                   equal to the uninterrupted run bit for bit). No K1-K5b
+     ava       -- AVA spatio-temporal action detection on SlowFast 32x2
+                  R50 with the ROI head (``AVA_OPTS``: the shape of
+                  PySlowFast's configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml),
+                  fp32, on an AVA tree the phase writes under build/
+                  (``write_ava``: frame lists, 256 x 340 JPEGs, ground
+                  truth, predicted boxes, a 60-of-80 labelmap, an excluded
+                  keyframe): a B2 test batch's box scores and pooled ROI
+                  features, card against the CPU's fp64 (at most 4 times
+                  the CPU's fp32 error); B8 keyframes of 224 x 297 served
+                  with TF32 off and on (keyframes/s; the backbone's and the
+                  ROI head's device ms by torch.profiler); 3 train steps at
+                  B8 with dropout 0.5 from each step's generator (ms,
+                  keyframes/s, peak) and a checkpoint reload to the same
+                  next loss; test_net.test over the tree (a row a loaded
+                  box, the excluded keyframe out of the scoring,
+                  detections_latest.csv, the frame mAP in [0, 1]); one epoch
+                  of train_net.train with its val pass; MViTv2-S with the
+                  ROI head at 1/32, card against CPU. No K1-K5b or T1-T12
      dist      -- the parallel paths (vtm_torch/parallel) at ViT-B width,
                   bf16, B8, each against the same run in this process: NCCL
                   at world size 1, train_net's DDP step on the EPIC config
@@ -305,6 +323,7 @@ import torch.nn.functional as F
 from vtm_torch.checkpoints import checkpoint as checkpoints
 from vtm_torch.config import get_cfg
 from vtm_torch.data import construct_loader, masking
+from vtm_torch.eval import ava_eval
 from vtm_torch.merge import MergePolicy, MergeState
 from vtm_torch.merge import bipartite as merge_bipartite
 from vtm_torch.models import build_model
@@ -1444,6 +1463,49 @@ MG_SHORT_OPTS = ["TRAIN.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "2", "TRAIN.A
 # lists written under build/ (8 videos of 64 JPEG frames)
 CHARADES_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_charades"
 CHARADES_VIDEOS, CHARADES_FRAMES, CHARADES_CLASSES = 8, 64, 157
+# AVA detection (models/roi_head.py, data/ava.py, eval/ava_eval.py): the
+# values of PySlowFast's configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml that
+# differ from the SlowFast config above: 32 frames at stride 2, s5 at 1/16
+# (stride 1, dilation 2), the ROI head (aligned, 7 x 7 at scale 1/16), 80
+# classes with the sigmoid at eval and bce_logit in training (vtm's loss
+# registry has no "bce"), predicted boxes above 0.8, SGD with momentum 0.9.
+AVA_OPTS = SLOWFAST_OPTS + [
+    "TRAIN.DATASET", "ava",
+    "TEST.DATASET", "ava",
+    "DATA.NUM_FRAMES", "32",
+    "DATA.SAMPLING_RATE", "2",
+    "DATA.TRAIN_JITTER_SCALES", "[256, 320]",
+    "DATA.TRAIN_CROP_SIZE", "224",
+    "DATA.TEST_CROP_SIZE", "224",
+    "SLOWFAST.ALPHA", "4",
+    "SLOWFAST.BETA_INV", "8",
+    "RESNET.SPATIAL_STRIDES", "[[1, 1], [2, 2], [2, 2], [1, 1]]",
+    "RESNET.SPATIAL_DILATIONS", "[[1, 1], [1, 1], [1, 1], [2, 2]]",
+    "DETECTION.ENABLE", "True",
+    "DETECTION.ALIGNED", "True",
+    "DETECTION.SPATIAL_SCALE_FACTOR", "16",
+    "DETECTION.ROI_XFORM_RESOLUTION", "7",
+    "MODEL.NUM_CLASSES", "80",
+    "MODEL.HEAD_ACT", "sigmoid",
+    "MODEL.DROPOUT_RATE", "0.5",
+    "MODEL.LOSS_FUNC", "bce_logit",
+    "AVA.DETECTION_SCORE_THRESH", "0.8",
+    "SOLVER.OPTIMIZING_METHOD", "sgd",
+    "SOLVER.MOMENTUM", "0.9",
+]
+# The AVA tree the phase writes (``write_ava``): 4 videos of 185 JPEG frames
+# of 256 x 340, keyframes at seconds 902-905 (each one's 64-frame window in
+# the list), 1-3 person boxes a keyframe with 1-3 labels each, the labelmap's
+# 60 evaluated ids of 80, predicted boxes (the ground truth jittered at
+# 0.85-0.99, and one below the threshold a keyframe), one excluded keyframe.
+AVA_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_ava"
+AVA_VIDEOS, AVA_FRAMES, AVA_HW, AVA_SECS = 4, 185, (256, 340), (902, 903, 904, 905)
+AVA_EVALUATED = tuple(i for i in range(1, 81) if i % 4)
+AVA_EXCLUDED = ("ava002", 903)
+AVA_TRAIN_STEPS = 3
+# the ROI head's kernels by kind (its products, the temporal mean, the max)
+ROI_KERNEL_KINDS = (("products", "gemm"), ("products", "cutlass"), ("products", "sm90_xmma"),
+                    ("reductions", "reduce_kernel"), ("elementwise", "elementwise"))
 
 
 def emit(phase: str, **fields) -> None:
@@ -1469,6 +1531,7 @@ csn_cfg, r2plus1d_cfg = cfg_maker(CSN_OPTS), cfg_maker(R2PLUS1D_OPTS)
 mvit_cfg, rev_mvit_cfg = cfg_maker(MVITV2_S_OPTS), cfg_maker(REV_MVIT_B_OPTS)
 maskfeat_cfg, mae_cfg = cfg_maker(MASKFEAT_OPTS), cfg_maker(MAE_VIT_B_OPTS)
 moco_cfg, byol_cfg = cfg_maker(CONTRASTIVE_MOCO_OPTS), cfg_maker(CONTRASTIVE_BYOL_OPTS)
+ava_cfg = cfg_maker(AVA_OPTS)
 
 
 def launch_counts() -> dict:
@@ -5081,6 +5144,324 @@ def phase_contrastive(smi: str) -> None:
     shutil.rmtree(CONTRASTIVE_OUT, ignore_errors=True)
 
 
+def write_ava(root: pathlib.Path) -> dict:
+    """The AVA tree under ``root`` (the comment at AVA_OUT): frames/,
+    frame_lists/{train,val}.csv, annotations/ (train and val ground truth,
+    the predicted boxes, the labelmap, the exclusions), from numpy's seed 0.
+    Returns the --opts that point the AVA keys at it."""
+    import cv2
+
+    rng = np.random.default_rng(0)
+    for d in ("frames", "frame_lists", "annotations"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    lines = ["original_vido_id video_id frame_id path labels"]
+    names = [f"ava{v:03d}" for v in range(AVA_VIDEOS)]
+    for v, name in enumerate(names):
+        (root / "frames" / name).mkdir(exist_ok=True)
+        for f in range(AVA_FRAMES):
+            rel = f"{name}/{name}_{f:06d}.jpg"
+            cv2.imwrite(str(root / "frames" / rel), rng.integers(0, 255, AVA_HW + (3,), dtype=np.uint8))
+            lines.append(f'{name} {v} {f} {rel} ""')
+    for split in ("train", "val"):
+        (root / "frame_lists" / f"{split}.csv").write_text("\n".join(lines) + "\n")
+    gt, pred = [], []
+    for name in names:
+        for sec in AVA_SECS:
+            for person in range(int(rng.integers(1, 4))):
+                x1, y1 = rng.uniform(0.0, 0.5, 2)
+                box = np.clip([x1, y1, x1 + rng.uniform(0.2, 0.5), y1 + rng.uniform(0.3, 0.5)], 0.0, 1.0)
+                for label in sorted(rng.choice(AVA_EVALUATED, int(rng.integers(1, 4)), replace=False)):
+                    gt.append(f"{name},{sec},{box[0]:.3f},{box[1]:.3f},{box[2]:.3f},{box[3]:.3f},{label},{person}")
+                jit = np.clip(box + rng.normal(0, 0.02, 4), 0.0, 1.0)
+                pred.append(f"{name},{sec},{jit[0]:.3f},{jit[1]:.3f},{jit[2]:.3f},{jit[3]:.3f},,"
+                            f"{rng.uniform(0.85, 0.99):.6f}")
+            pred.append(f"{name},{sec},0.100,0.100,0.600,0.700,,{rng.uniform(0.3, 0.7):.6f}")  # dropped
+    ann = root / "annotations"
+    (ann / "ava_train_v2.2.csv").write_text("\n".join(gt) + "\n")
+    (ann / "ava_val_v2.2.csv").write_text("\n".join(gt) + "\n")
+    (ann / "ava_val_predicted_boxes.csv").write_text("\n".join(pred) + "\n")
+    (ann / "labels.pbtxt").write_text("".join(f'item {{\n  name: "action{i}"\n  id: {i}\n}}\n'
+                                              for i in AVA_EVALUATED))
+    (ann / "exclusions.csv").write_text(f"{AVA_EXCLUDED[0]},{AVA_EXCLUDED[1]:04d}\n")
+    return ["AVA.FRAME_DIR", str(root / "frames"), "AVA.FRAME_LIST_DIR", str(root / "frame_lists"),
+            "AVA.ANNOTATION_DIR", str(ann), "AVA.LABEL_MAP_FILE", "labels.pbtxt",
+            "AVA.EXCLUSION_FILE", "exclusions.csv", "AVA.GROUNDTRUTH_FILE", "ava_val_v2.2.csv",
+            "AVA.TRAIN_GT_BOX_LISTS", "['ava_train_v2.2.csv']",
+            "AVA.TEST_PREDICT_BOX_LISTS", "['ava_val_predicted_boxes.csv']",
+            "TRAIN.BATCH_SIZE", "8", "TEST.BATCH_SIZE", "8", "BN.NUM_BATCHES_PRECISE", "2",
+            "TRAIN.AUTO_RESUME", "False"]
+
+
+def ava_batch(cfg, split: str, batch: int) -> dict:
+    """The first batch of ``split`` at B``batch`` as tensors on the card:
+    frames, boxes, labels."""
+    cfg = cfg.clone()
+    cfg.merge_from_list(["TRAIN.BATCH_SIZE", str(batch), "TEST.BATCH_SIZE", str(batch)])
+    b = next(iter(construct_loader(cfg, split)))
+    return dict(frames=torch.from_numpy(b["frames"]).cuda(), boxes=torch.from_numpy(b["boxes"]).cuda(),
+                labels=torch.from_numpy(np.asarray(b["label"], np.float32)).cuda())
+
+
+def ava_card_against_cpu(cfg, b: dict) -> dict:
+    """One eval forward of the detection SlowFast (every BatchNorm moved,
+    ``moved_bn``, each block's final one about 0.2, so that no sigmoid
+    saturates) on ``b``: in fp64 on the CPU (the truth), fp32 on the CPU
+    and fp32 on the card with TF32 off; each box's sigmoid row and its
+    pooled ROI features (the projection's input). The card's fp32 error at
+    most SF_FP64_FACTOR times the CPU's own plus SF_FP64_FLOOR, each of the
+    largest entry of the truth (the slowfast phase's rule)."""
+    module = build_model(cfg, "cpu").module
+    moved_bn(module, 61, SF_FINAL_BN_SCALES[1])
+    frames, boxes = b["frames"].cpu(), b["boxes"].cpu()
+
+    def outputs(x, bx):
+        seen = []
+        hook = module.head.projection.register_forward_hook(lambda m, a, out: seen.append(a[0]))
+        try:
+            with torch.inference_mode():
+                scores = module(x, bboxes=bx)[0]
+        finally:
+            hook.remove()
+        return {"scores": scores.double().cpu().numpy(), "pooled": seen[0].double().cpu().numpy()}
+
+    tick = time.perf_counter()
+    runs = {"cpu_fp32": outputs(frames, boxes)}
+    module.double()
+    truth = outputs(frames.double(), boxes.double())
+    cpu_seconds = time.perf_counter() - tick
+    module.float().to("cuda")
+    with tf32(False):
+        runs["card_fp32_tf32_off"] = outputs(frames.cuda(), boxes.cuda())
+    out = dict(batch=int(frames.shape[0]), boxes=int(boxes.shape[0]), clip=list(frames.shape[1:4]),
+               cpu_seconds=cpu_seconds)
+    for key in truth:
+        scale = float(np.abs(truth[key]).max())
+        err = {run: float(np.abs(o[key] - truth[key]).max()) / scale for run, o in runs.items()}
+        check(np.isfinite(truth[key]).all() and
+              err["card_fp32_tf32_off"] <= SF_FP64_FACTOR * err["cpu_fp32"] + SF_FP64_FLOOR,
+              f"ava card against CPU, {key}: card {err['card_fp32_tf32_off']}, CPU {err['cpu_fp32']} from fp64")
+        out[key] = dict(largest=scale, rel_err_to_fp64=err)
+    check(truth["scores"].shape == (int(boxes.shape[0]), 80), f"ava scores {truth['scores'].shape}")
+    return out
+
+
+def ava_serve(cfg, b: dict) -> dict:
+    """B8 keyframes of the test split (224 x 297 clips) through the eval
+    step, TF32 off and on: keyframes/s by CUDA events; and one forward's
+    device time by torch.profiler, the backbone's (``module.body``) and the
+    ROI head's (temporal mean, ``roi_align``, max, projection) apart."""
+    module = build_model(cfg, "cuda").module
+    step = test_net.make_detection_eval_step(module)
+    frames, boxes = b["frames"], b["boxes"]
+    out = dict(batch=int(frames.shape[0]), boxes=int(boxes.shape[0]), clip=list(frames.shape[1:4]))
+    for label, on in (("tf32_off", False), ("tf32_on", True)):
+        with tf32(on):
+            ms = cuda_ms(lambda: step(frames, boxes), iters=10, warmup=3)
+            with torch.inference_mode():
+                xs = module.body(frames)
+                backbone = device_time_by_kind(lambda: module.body(frames), CONV_KERNEL_KINDS)
+                head = device_time_by_kind(lambda: module.head(xs, boxes), ROI_KERNEL_KINDS)
+        out[label] = dict(ms=ms, keyframes_per_sec=1e3 * frames.shape[0] / ms, backbone_device=backbone,
+                          roi_head_device=head)
+        check(np.isfinite(ms) and head["kernel_ms"] > 0, f"ava serve {label}: {ms} ms, head {head}")
+    del module
+    torch.cuda.empty_cache()
+    return out
+
+
+def ava_train_steps(cfg, b: dict) -> dict:
+    """AVA_TRAIN_STEPS steps of ``train_net``'s detection step at B8 (the
+    train split's first batch, 224 x 224; dropout 0.5 from each step's
+    generator): ms a step, keyframes/s, peak memory, finite losses, one
+    step's device time by kind; then a checkpoint that reloads to the same
+    next loss with cuDNN's deterministic algorithms; and ``roi_align``'s
+    backward (two products, no atomics) the same bits twice."""
+    frames, boxes, labels = b["frames"], b["boxes"], b["labels"]
+    trainer = build_trainer(cfg)
+    set_lr(trainer.optimizer, trainer.lr_at(0.0))
+    losses, seconds = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(AVA_TRAIN_STEPS):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        tick = time.perf_counter()
+        losses.append(float(trainer.train_step(frames, boxes, labels, generator=gen)[0]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - tick)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"ava train: losses {losses}")
+    profile = device_time_by_kind(lambda: trainer.train_step(frames, boxes, labels), CONV_KERNEL_KINDS)
+    torch.backends.cudnn.deterministic = True
+    try:
+        path = checkpoints.save_checkpoint(str(AVA_OUT / "steps"), trainer.module, trainer.optimizer, 0, cfg)
+        twin = build_trainer(cfg)
+        checkpoints.load_checkpoint(path, twin.module, twin.optimizer)
+        nxt = [float(t.train_step(frames, boxes, labels, generator=torch.Generator(device="cuda").manual_seed(9))[0])
+               for t in (trainer, twin)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(nxt[0] == nxt[1], f"ava: next loss after reload {nxt[1]} != {nxt[0]}")
+    with torch.no_grad():
+        maps = twin.module.body(frames)
+    grads = []
+    for _ in range(2):
+        leaves = [m.detach().requires_grad_() for m in maps]
+        twin.module.head.pooled(leaves, boxes).square().sum().backward()
+        grads.append([leaf.grad for leaf in leaves])
+    check(all(torch.equal(a, b) for a, b in zip(*grads)), "ava: roi_align's backward gave other bits")
+    del trainer, twin, maps, grads
+    torch.cuda.empty_cache()
+    return dict(steps=AVA_TRAIN_STEPS, batch=int(frames.shape[0]), boxes=int(boxes.shape[0]), losses=losses,
+                step_seconds=seconds, ms_per_step=1e3 * float(np.mean(seconds[1:])),
+                keyframes_per_sec=frames.shape[0] * (len(seconds) - 1) / sum(seconds[1:]), peak_memory_gb=peak,
+                step_device_time=profile, next_losses=nxt, roi_backward_bits_twice=True)
+
+
+def ava_test_net(cfg) -> dict:
+    """``test_net.test`` over the test split: one row of scores a loaded box
+    (the predicted boxes above the threshold), the excluded keyframe in the
+    csv and out of the scoring, ``detections_latest.csv`` written with a row
+    a box and evaluated class, the frame mAP finite in [0, 1]."""
+    rows, scored = [], set()
+
+    class Recording(test_net.AVAMeter):
+        def update_stats(self, preds, ori_boxes, metadata, loss=None, lr=None):
+            rows.append(len(preds))
+            return super().update_stats(preds, ori_boxes, metadata, loss, lr)
+
+    class Scored(ava_eval.PascalDetectionEvaluator):
+        def add_single_detected_image_info(self, image_key, boxes, classes, scores):
+            scored.add(image_key)
+            return super().add_single_detected_image_info(image_key, boxes, classes, scores)
+
+    tick = time.perf_counter()
+    with patched(test_net, AVAMeter=Recording), patched(ava_eval, PascalDetectionEvaluator=Scored):
+        (views, stats), = test_net.test(cfg)
+    seconds = time.perf_counter() - tick
+    ds = construct_loader(cfg, "test").dataset
+    loaded = sum(len(boxes) for video in ds._keyframe_boxes_and_labels for boxes in video)
+    csv = pathlib.Path(cfg.OUTPUT_DIR) / "detections_latest.csv"
+    lines = csv.read_text().splitlines() if csv.exists() else []
+    excluded = f"{AVA_EXCLUDED[0]},{AVA_EXCLUDED[1]:04d}"
+    check(sum(rows) == loaded and len(lines) == loaded * len(AVA_EVALUATED),
+          f"ava test_net: {sum(rows)} rows of {loaded} boxes, {len(lines)} csv lines")
+    check(excluded not in scored and any(line.startswith(excluded) for line in lines)
+          and len(scored) == len(ds) - 1, f"ava test_net: scored {sorted(scored)}")
+    check(stats["split"] == "test_final" and np.isfinite(stats["map"]) and 0.0 <= stats["map"] <= 1.0,
+          f"ava test_net: {stats}")
+    return dict(seconds=seconds, keyframes=len(ds), boxes=loaded, batches=len(rows), csv_rows=len(lines),
+                frame_map=stats["map"], keyframes_per_sec=len(ds) / seconds)
+
+
+def ava_train_net(cfg) -> dict:
+    """``train_net.train`` for one epoch of the 16 train keyframes at B8
+    (precise BatchNorm over the backbone, a checkpoint) and its val pass
+    over the ``sec % 4 == 0`` keyframes: finite losses, the val mAP in
+    [0, 1], ``detections_latest.csv`` and the checkpoint written."""
+    losses, maps = [], []
+
+    class Recording(train_net.AVAMeter):
+        def update_stats(self, preds, ori_boxes, metadata, loss=None, lr=None):
+            if self.mode == "train":
+                losses.append(float(loss))
+            return super().update_stats(preds, ori_boxes, metadata, loss, lr)
+
+        def finalize_metrics(self, log: bool = True):
+            stats = super().finalize_metrics(log)
+            maps.append((self.mode, stats["map"]))
+            return stats
+
+    tick = time.perf_counter()
+    with patched(train_net, AVAMeter=Recording):
+        train(cfg)
+    seconds = time.perf_counter() - tick
+    out = pathlib.Path(cfg.OUTPUT_DIR)
+    check(len(losses) == AVA_VIDEOS * len(AVA_SECS) // 8 and all(np.isfinite(losses)),
+          f"ava train_net: losses {losses}")
+    check([m for m, _ in maps] == ["val"] and 0.0 <= maps[0][1] <= 1.0, f"ava train_net: val {maps}")
+    check((out / "detections_latest.csv").exists() and checkpoints.get_last_checkpoint(str(out)) is not None,
+          "ava train_net: the csv or the checkpoint is missing")
+    return dict(seconds=seconds, losses=losses, val_map=maps[0][1])
+
+
+def ava_mvit_card_against_cpu() -> dict:
+    """MViTv2-S (``MVITV2_S_OPTS``) with the ROI head at 1/32, fp32, B1 on a
+    16 x 224 x 224 clip (its relative positions take the configured grid
+    only, as in ``vtm``) with three boxes: the card's sigmoid rows and
+    pooled features against the CPU's, within MVIT_CPU_TOL of the largest."""
+    cfg = mvit_cfg("DETECTION.ENABLE", "True", "DETECTION.SPATIAL_SCALE_FACTOR", "32", "MODEL.NUM_CLASSES", "80",
+                   "MODEL.HEAD_ACT", "sigmoid", "TPU.COMPUTE_DTYPE", "float32")
+    module = build_model(cfg, "cpu").module
+    x = torch.from_numpy(np.random.default_rng(71).standard_normal((1, 16, 224, 224, 3)).astype(np.float32))
+    boxes = torch.tensor([[0.0, 10.0, 20.0, 120.0, 200.0], [0.0, 100.0, 50.0, 223.0, 223.0],
+                          [0.0, -8.0, 150.0, 40.0, 240.0]])
+
+    def outputs(x, bx):
+        seen = []
+        hook = module.head.projection.register_forward_hook(lambda m, a, out: seen.append(a[0]))
+        try:
+            with torch.inference_mode():
+                scores = module(x, bboxes=bx)[0]
+        finally:
+            hook.remove()
+        return {"scores": scores.double().cpu().numpy(), "pooled": seen[0].double().cpu().numpy()}
+
+    tick = time.perf_counter()
+    cpu = outputs(x, boxes)
+    cpu_seconds = time.perf_counter() - tick
+    module.to("cuda")
+    with tf32(False):
+        card = outputs(x.cuda(), boxes.cuda())
+    out = dict(batch=1, frames=16, crop=224, boxes=3, cpu_seconds=cpu_seconds, tol=MVIT_CPU_TOL)
+    for key in cpu:
+        scale = float(np.abs(cpu[key]).max())
+        err = float(np.abs(card[key] - cpu[key]).max()) / scale
+        check(np.isfinite(cpu[key]).all() and err <= MVIT_CPU_TOL, f"ava MViTv2-S {key}: {err} of {scale}")
+        out[key] = dict(largest=scale, rel_err=err)
+    check(cpu["scores"].shape == (3, 80), f"ava MViTv2-S scores {cpu['scores'].shape}")
+    return out
+
+
+def phase_ava(smi: str) -> None:
+    """AVA detection at full width (``AVA_OPTS``: SlowFast 32x2 R50 with
+    the ROI head, fp32, TF32 off but where said) on a tree written under
+    build/ (``write_ava``): a B2 test batch card against CPU and fp64;
+    serving at B8, TF32 off and on, with the backbone's and the ROI head's
+    device ms; 3 train steps at B8 and a reload; ``test_net.test`` over the
+    tree; one epoch of ``train_net.train`` with its val pass; MViTv2-S with
+    the ROI head card against CPU. No K1-K5b or T1-T12 may launch."""
+    shutil.rmtree(AVA_OUT, ignore_errors=True)
+    zero_launch_counts()
+    start = time.perf_counter()
+    data = write_ava(AVA_OUT / "data")
+    written = time.perf_counter() - start
+    cfg = ava_cfg(*data, "OUTPUT_DIR", str(AVA_OUT / "out"))
+    t0 = time.perf_counter()
+    figures = ava_card_against_cpu(cfg, ava_batch(cfg, "test", 2))
+    emit("ava_card_vs_cpu", seconds=time.perf_counter() - t0, factor=SF_FP64_FACTOR, floor=SF_FP64_FLOOR,
+         **figures, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    figures = ava_serve(cfg, ava_batch(cfg, "test", 8))
+    emit("ava_serve", seconds=time.perf_counter() - t0, **figures,
+         tf32_speedup=figures["tf32_off"]["ms"] / figures["tf32_on"]["ms"], nvidia_smi=smi)
+    t0 = time.perf_counter()
+    figures = ava_train_steps(cfg, ava_batch(cfg, "train", 8))
+    emit("ava_train", seconds=time.perf_counter() - t0, **figures, optimizer="sgd(momentum 0.9, wd 1e-4)",
+         dropout=cfg.MODEL.DROPOUT_RATE, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    figures = ava_test_net(ava_cfg(*data, "OUTPUT_DIR", str(AVA_OUT / "test")))
+    emit("ava_test_net", **figures, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    figures = ava_train_net(ava_cfg(*data, "OUTPUT_DIR", str(AVA_OUT / "train_net"), "SOLVER.MAX_EPOCH", "1",
+                                    "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD", "1"))
+    emit("ava_train_net", **figures, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    figures = ava_mvit_card_against_cpu()
+    emit("ava_mvit_card_vs_cpu", seconds=time.perf_counter() - t0, **figures, nvidia_smi=smi)
+    emit("ava", seconds=time.perf_counter() - start, write_seconds=written,
+         launches=check_no_attention_launches("ava"), nvidia_smi=smi)
+    shutil.rmtree(AVA_OUT, ignore_errors=True)
+
+
 # The A/B kernels: id -> (source, the TPU kernel's call site, the mode whose
 # numbers stand on the ``kernels`` line; every mode is on the ab_kernels line).
 AB_KERNELS = {
@@ -5313,6 +5694,7 @@ def main() -> int:
     phase_maskfeat(smi)
     phase_mae(smi)
     phase_contrastive(smi)
+    phase_ava(smi)
     ab_launches = phase_ab_dense()
     launches += ab_launches["K1"]  # the prod rows
     emit("done", seconds=time.perf_counter() - t0)

@@ -85,6 +85,16 @@ CONTRASTIVE_MODULES = (
     "vtm_torch.tools.train_net",
 )
 
+# AVA detection: the ROI head, the dataset and its transforms, the evaluator
+AVA_MODULES = (
+    "vtm_torch.models.roi_head",
+    "vtm_torch.data.ava",
+    "vtm_torch.data.cv2_transform",
+    "vtm_torch.data.imagenet",
+    "vtm_torch.eval.ava_eval",
+    "vtm_torch.utils.pathmgr",
+)
+
 # MViT and the reversible MViT
 MVIT_MODULES = (
     "vtm_torch.models.mvit",
@@ -126,13 +136,14 @@ def test_every_module_imports_without_jax():
     assert not set(MVIT_MODULES) - set(names)
     assert not set(MASKED_MODULES) - set(names)
     assert not set(CONTRASTIVE_MODULES) - set(names)
+    assert not set(AVA_MODULES) - set(names)
 
 
 @pytest.mark.parametrize("module", ANALYSIS_MODULES + PTV_MODULES + MVIT_MODULES + MASKED_MODULES
-                         + CONTRASTIVE_MODULES)
+                         + CONTRASTIVE_MODULES + AVA_MODULES)
 def test_analysis_modules_import_without_jax_alone(module):
     """Each of the new subpackages' modules, and the PTV, multigrid,
-    Charades, MViT, masked- and contrastive-pretraining modules, imported
+    Charades, MViT, masked- and contrastive-pretraining and AVA modules, imported
     alone in a fresh process, pulls in neither jax nor vtm."""
     code = (f"import sys, {module}; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'simplejson', 'vtm')]; assert not bad, bad")

@@ -275,12 +275,30 @@ def test_ptv_alias_and_registry():
 
 @pytest.mark.parametrize("opts, item", [
     (("TPU.MODEL_PARALLEL", "2"), "item 15"),
-    (("DETECTION.ENABLE", "True"), "item 20"),
 ])
 def test_unported_options_raise_naming_their_item(opts, item):
     cfg, _ = cfgs(mvit_opts(*opts))
     with pytest.raises(NotImplementedError, match=item):
         check_tensor_parallel(cfg)
+        build_model(cfg, "cpu")
+
+
+def test_detection_builds_the_roi_head():
+    """``DETECTION.ENABLE`` (it raised before the AVA path was ported) builds
+    the ROI head as ``head``, one row a box from ``forward(x, bboxes=...)``,
+    a ValueError without boxes; the reversible MViT has no detection path
+    (``vtm``'s assertion). The forwards against ``vtm``'s:
+    tests/test_torch_ava_detection.py."""
+    cfg, _ = cfgs(mvit_opts("DETECTION.ENABLE", "True", "DETECTION.SPATIAL_SCALE_FACTOR", "8"))
+    module = build_model(cfg, "cpu").module
+    assert type(module.head).__name__ == "ResNetRoIHead" and module.head.projection.out_features == 7
+    x = torch.randn(2, 4, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    rows, _ = module(x, bboxes=torch.tensor([[0.0, 1.0, 2.0, 20.0, 30.0], [1.0, 0.0, 0.0, 31.0, 31.0]]))
+    assert rows.shape == (2, 7) and bool(torch.isfinite(rows).all())
+    with pytest.raises(ValueError, match="boxes"):
+        module(x)
+    cfg, _ = cfgs(mvit_opts(*REV_STYLES["conv_respath"], "DETECTION.ENABLE", "True"))
+    with pytest.raises(AssertionError, match="detection"):
         build_model(cfg, "cpu")
 
 

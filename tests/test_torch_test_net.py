@@ -391,7 +391,6 @@ def test_apply_traces_the_source_for_one_call(tmp_path):
 
 
 @pytest.mark.parametrize("opts, item", [
-    (("DETECTION.ENABLE", "True"), "item 20"),
     (("TPU.MODEL_PARALLEL", "2", "MODEL.MODEL_NAME", "Motionformer"), "item 15"),
     (("LOG_MODEL_INFO", "True"), "item 4"),
     (("TENSORBOARD.ENABLE", "True"), "item 21"),
@@ -400,6 +399,15 @@ def test_apply_traces_the_source_for_one_call(tmp_path):
 def test_unported_options_raise_by_name(opts, item, tmp_path):
     cfg, _ = _cfgs(_videomae_opts("OUTPUT_DIR", str(tmp_path), *opts))
     with pytest.raises(NotImplementedError, match=item):
+        tn.test(cfg, device="cpu")
+
+
+def test_detection_needs_a_family_with_the_roi_head(tmp_path):
+    """``DETECTION.ENABLE`` is ported (tests/test_torch_ava_detection.py); on
+    VideoMAE, which has no detection head, ``test`` raises TypeError, as
+    ``vtm``'s build fails initialising it with boxes."""
+    cfg, _ = _cfgs(_videomae_opts("OUTPUT_DIR", str(tmp_path), "DETECTION.ENABLE", "True"))
+    with pytest.raises(TypeError, match="no detection head"):
         tn.test(cfg, device="cpu")
 
 

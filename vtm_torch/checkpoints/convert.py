@@ -613,8 +613,10 @@ def mvit_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
     kernel (kt, kh, kw, 1, C) -> [C, 1, kt, kh, kw]) and ``norm_{q,k,v}``;
     a fusion's ``mlp`` -> ``fuse_fn`` (``fuse_fn.1`` and its ``ln`` ->
     ``fuse_fn.0`` under ``ln+concat_linear``); Dense kernels transposed,
-    LayerNorm ``scale`` -> ``weight``; tables as they are. Any tree of the
-    params' structure goes through (gradients, updated parameters)."""
+    LayerNorm ``scale`` -> ``weight``; tables as they are; the classifier
+    ``head`` -> ``head.projection``, the ROI head's ``head/projection`` ->
+    ``head.projection``. Any tree of the params' structure goes through
+    (gradients, updated parameters)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -640,6 +642,8 @@ def mvit_state_dict_from_vtm_params(params: Mapping) -> Dict[str, torch.Tensor]:
             if key == "ln":
                 return ["fuse_fn", "0"]
             return ["fuse_fn", "1"] if "ln" in parent else ["fuse_fn"]
+        if not path and key == "head" and "projection" in parent[key]:
+            return ["head"]  # the ROI head (DETECTION.ENABLE): head/projection -> head.projection
         if not path and key in _MVIT_RENAMES:
             return _MVIT_RENAMES[key].split(".")
         return [key]

@@ -6,4 +6,4 @@ from vtm_torch.data.loader import (  # noqa: F401
     register_dataset,
     shuffle_dataset,
 )
-from vtm_torch.data import kinetics, ssv2, epickitchens, charades, synthetic, ptv  # noqa: F401
+from vtm_torch.data import kinetics, ssv2, epickitchens, charades, synthetic, ptv, imagenet, ava  # noqa: F401

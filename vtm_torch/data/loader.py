@@ -2,7 +2,8 @@
 
 A thread-pool prefetch pipeline feeding collated numpy batches; the
 entry points move them to the device. Registered: ``kinetics``, ``ssv2``,
-``epickitchens``, ``charades``, the ``ptv*`` names and ``synthetic``. Under
+``epickitchens``, ``charades``, ``imagenet``, ``ava``, the ``ptv*`` names and
+``synthetic``. AVA items (a ``boxes`` key) go through the detection collate. Under
 ``MULTIGRID.SHORT_CYCLE`` the train loader walks the short cycle's three
 phases (``train/multigrid.py::short_cycle_batch_sizes``), each item an
 (index, phase) pair that the datasets crop by.

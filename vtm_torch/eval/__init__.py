@@ -5,4 +5,4 @@ from vtm_torch.eval.metrics import (  # noqa: F401
     multitask_topk_accuracies,
     multitask_topks_correct,
 )
-from vtm_torch.eval.meters import EPICTestMeter, TestMeter, TrainMeter, ValMeter  # noqa: F401
+from vtm_torch.eval.meters import AVAMeter, EPICTestMeter, TestMeter, TrainMeter, ValMeter  # noqa: F401

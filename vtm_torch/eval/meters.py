@@ -1,6 +1,6 @@
 """Test, train and validation meters (copy of ``TestMeter``,
 ``EPICTestMeter``, ``ScalarMeter``, ``TrainMeter``, ``ValMeter``,
-``EPICTrainMeter``, ``EPICValMeter`` and ``EpochTimer`` of
+``EPICTrainMeter``, ``EPICValMeter``, ``EpochTimer`` and ``AVAMeter`` of
 ``vtm/eval/meters.py``). Stats are numpy, host-side.
 
 ``TestMeter`` accumulates multi-view clip predictions into per-video
@@ -11,7 +11,8 @@ average precision is numpy's (``average_precision``), where ``vtm`` calls
 scikit-learn.
 ``TEST.CLIP_LENGTH_HISTOGRAM`` also writes each video's (length,
 outcome) csv from the lengths ``analysis.dataset_tools.save_lengths``
-cached. The detection meter is not ported."""
+cached. ``AVAMeter`` is the detection meter (frame mAP through
+``eval/ava_eval.py``)."""
 
 from __future__ import annotations
 
@@ -590,3 +591,138 @@ class EpochTimer:
 
     def median_epoch_time(self):
         return float(np.median(self.epoch_durations))
+
+
+class AVAMeter:
+    """AVA detection meter (copy of ``vtm``'s ``AVAMeter``; reference
+    meters.py AVAMeter): accumulates per-box class scores, original boxes
+    and (video, sec) metadata over the epoch and finalizes to the frame mAP
+    through ``eval/ava_eval.py``, writing ``detections_latest.csv`` (and
+    ``groundtruth_latest.csv``) under ``OUTPUT_DIR``. Train mode keeps only
+    the windowed loss and the lr. Val mode scores against the ``sec % 4 ==
+    0`` keyframes' ground truth, as the val loader serves, unless
+    ``AVA.FULL_TEST_ON_VAL``; test mode against the full ground truth."""
+
+    def __init__(self, overall_iters: int, cfg, mode: str = "test"):
+        import os
+
+        from vtm_torch.eval import ava_eval
+
+        self.cfg = cfg
+        self.mode = mode
+        self.overall_iters = overall_iters
+        self.iter_timer = Timer()
+        self.data_timer = Timer()
+        self.all_preds = []
+        self.all_ori_boxes = []
+        self.all_metadata = []
+        ann = cfg.AVA.ANNOTATION_DIR
+        self.excluded_keys = ava_eval.read_exclusions(
+            os.path.join(ann, cfg.AVA.EXCLUSION_FILE)
+        )
+        self.categories, self.class_whitelist = ava_eval.read_labelmap(
+            os.path.join(ann, cfg.AVA.LABEL_MAP_FILE)
+        )
+        gt_filename = os.path.join(ann, cfg.AVA.GROUNDTRUTH_FILE)
+        self.full_groundtruth = ava_eval.read_csv(
+            gt_filename, self.class_whitelist
+        )
+        # val-mode gt subset (sec % 4 == 0) — must match the val
+        # loader's boxes_sample_rate keyframe subsampling, or recall is
+        # capped near 25% (reference get_ava_mini_groundtruth,
+        # meters.py:32-47, selected at :207-210)
+        self.mini_groundtruth = tuple(
+            {k: v for k, v in part.items() if int(k.split(",")[1]) % 4 == 0}
+            for part in self.full_groundtruth
+        )
+        self.full_ava_test = cfg.AVA.FULL_TEST_ON_VAL
+        self.loss = ScalarMeter(cfg.LOG_PERIOD)
+        self.loss_total = 0.0
+        self.num_samples = 0
+        self.lr = None
+        self.video_idx_to_name = None  # set by test_net / train_net from the dataset
+        self.full_map = None
+
+    def update_stats(self, preds, ori_boxes, metadata, loss=None, lr=None):
+        if self.mode == "train":
+            # train mode tracks loss/lr only (reference AVAMeter:131-137,
+            # windowed ScalarMeter — a bare last-batch float would report
+            # one noisy sample as the epoch loss)
+            self.loss.add_value(float(loss))
+            self.loss_total += float(loss)
+            self.num_samples += 1
+            self.lr = lr
+            return
+        self.all_preds.append(np.asarray(preds))
+        self.all_ori_boxes.append(np.asarray(ori_boxes))
+        self.all_metadata.append(np.asarray(metadata))
+
+    def log_epoch_stats(self, cur_epoch: int):
+        if self.mode == "train":
+            log_json_stats(
+                {"split": "train_epoch", "epoch": cur_epoch,
+                 "loss": self.loss_total / max(self.num_samples, 1),
+                 "lr": self.lr},
+                logger,
+            )
+
+    def finalize_metrics(self, log: bool = True) -> dict:
+        from vtm_torch.eval import ava_eval
+
+        preds = np.concatenate(self.all_preds)
+        ori_boxes = np.concatenate(self.all_ori_boxes)
+        metadata = np.concatenate(self.all_metadata)
+        # test (or FULL_TEST_ON_VAL) scores against the full gt; val
+        # during training against the sec%4==0 subset the loader serves
+        use_full = self.mode == "test" or (
+            self.full_ava_test and self.mode == "val"
+        )
+        self.full_map = ava_eval.evaluate_ava(
+            preds,
+            ori_boxes,
+            metadata.tolist(),
+            self.excluded_keys,
+            self.class_whitelist,
+            self.categories,
+            groundtruth=(
+                self.full_groundtruth if use_full else self.mini_groundtruth
+            ),
+            video_idx_to_name=self.video_idx_to_name,
+            output_dir=self.cfg.OUTPUT_DIR,
+        )
+        stats = {"split": f"{self.mode}_final", "map": self.full_map}
+        if log:
+            log_json_stats(stats, logger)
+        return stats
+
+    def log_iter_stats(self, cur_iter: int):
+        if (cur_iter + 1) % self.cfg.LOG_PERIOD != 0:
+            return
+        eta_sec = self.iter_timer.seconds() * (self.overall_iters - cur_iter)
+        stats = {
+            "split": f"{self.mode}_iter",
+            "cur_iter": f"{cur_iter + 1}",
+            "eta": str(datetime.timedelta(seconds=int(eta_sec))),
+            "time_diff": self.iter_timer.seconds(),
+            "mode": self.mode,
+        }
+        if self.mode == "train":
+            stats["loss"] = self.loss.get_win_median()
+            stats["lr"] = self.lr
+        log_json_stats(stats, logger)
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+        self.data_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+
+    def data_toc(self):
+        self.data_timer.pause()
+
+    def reset(self):
+        self.all_preds, self.all_ori_boxes, self.all_metadata = [], [], []
+        self.loss.reset()
+        self.loss_total = 0.0
+        self.num_samples = 0

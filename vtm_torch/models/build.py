@@ -7,6 +7,11 @@ parameter in fp32 and casts at use instead. ``TOME.LAYER_QUANTITY > 1``
 runs block ``TOME.LAYER_TO_DUPLICATE`` that many times
 (``duplication_plan``), merging ``TOME.R_VALUE`` at each of those steps.
 
+``DETECTION.ENABLE`` builds the AVA ROI head on SlowFast, ResNet and MViT
+(``models/roi_head.py``); any other model raises TypeError, where ``vtm``'s
+build fails initialising it with boxes. The PTV CSN and R(2+1)D build functions
+raise first, with upstream's NotImplementedError.
+
 The conv families (SlowFast, ResNet, X3D; ``models/slowfast.py``) merge
 nothing: their bundle holds ``MergePolicy()``, their BatchNorm statistics
 are buffers of the module, and, as in ``vtm``, ``bundle.r = ...`` and
@@ -150,5 +155,9 @@ def build_model(cfg, device: torch.device | str, fp32_params: bool = False) -> M
             f"Unknown MODEL.MODEL_NAME {name!r}; registered: {sorted(MODEL_REGISTRY)}"
         )
     bundle = MODEL_REGISTRY[name](cfg, fp32_params)
+    if cfg.DETECTION.ENABLE and not cfg.MASK.ENABLE and not getattr(bundle.module, "takes_boxes", False):
+        # vtm's build initialises such a model with boxes, which its __call__ does not take
+        raise TypeError(f"{name} has no detection head: DETECTION.ENABLE needs SlowFast, ResNet or MViT "
+                        "(vtm: __call__() got an unexpected keyword argument 'bboxes')")
     bundle.module.to(device).eval()
     return bundle

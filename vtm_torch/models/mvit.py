@@ -45,8 +45,14 @@ shrinking), not as ``F.interpolate``: ``resize_linear``.
 contrastive family's ``convnet.MLPHead`` (``fc0``, ``bn{i}``, ``fc{i}``;
 fp32, lecun-normal with zero biases, as ``vtm``'s ``_mvit_head``).
 
-Not ported: ``DETECTION.ENABLE`` (ROADMAP.md Queue 1, item 20), the
-tensor-parallel cuts (item 15, raised by
+``DETECTION.ENABLE`` (the AVA path): ``norm``, the class token stripped,
+the tokens refolded to the [T, H, W] grid and sent as one pathway through
+the ROI head (``models/roi_head.py``, named ``head``, its ``projection``
+normal(0.01) with a zero bias as in ``vtm``); ``forward(x, bboxes=...)``
+returns one row a box, and raises ValueError without boxes. The reversible
+encoder has no detection path (an AssertionError, as in ``vtm``).
+
+Not ported: the tensor-parallel cuts (ROADMAP.md Queue 1, item 15, raised by
 ``parallel/sharding.py::check_tensor_parallel``).
 """
 
@@ -65,6 +71,7 @@ from torch.utils.checkpoint import checkpoint
 from vtm_torch.merge.policy import MergePolicy
 from vtm_torch.models.common import LayerNorm, Linear, Mlp, dropout
 from vtm_torch.models.convnet import MLPHead, lecun_normal_, mlp_head_linears, round_width
+from vtm_torch.models.roi_head import ResNetRoIHead
 
 NORM_EPS = 1e-6
 
@@ -486,7 +493,10 @@ class MViTSpec:
     rev_buffer_layers: Tuple[int, ...] = ()
     rev_res_path: str = "conv"
     rev_pre_q_fusion: str = "avg"
-    detection: bool = False
+    detection: bool = False  # DETECTION.ENABLE: the ROI head
+    roi_resolution: int = 7
+    roi_scale_factor: int = 16
+    roi_aligned: bool = True
     mlp_layers: int = 1  # the contrastive family's SSL head (CONTRASTIVE.*)
     mlp_dim: int = 2048
     mlp_bn: bool = False
@@ -592,8 +602,7 @@ class MViTSpec:
 
 
 def mvit_spec_from_cfg(cfg) -> MViTSpec:
-    """``vtm``'s ``mvit_spec_from_cfg`` (the detection and contrastive-head
-    keys kept for the refusals of ``MViTModel``; ``MVIT.PATCH_2D`` and
+    """``vtm``'s ``mvit_spec_from_cfg`` (``MVIT.PATCH_2D`` and
     ``MVIT.HEAD_INIT_SCALE`` left out, which ``vtm``'s model does not read)."""
     assert cfg.DATA.TRAIN_CROP_SIZE == cfg.DATA.TEST_CROP_SIZE
     t = lambda v: tuple(tuple(e) if isinstance(e, (list, tuple)) else e for e in v)
@@ -641,6 +650,9 @@ def mvit_spec_from_cfg(cfg) -> MViTSpec:
         rev_res_path=cfg.MVIT.REV.RES_PATH,
         rev_pre_q_fusion=cfg.MVIT.REV.PRE_Q_FUSION,
         detection=cfg.DETECTION.ENABLE,
+        roi_resolution=cfg.DETECTION.ROI_XFORM_RESOLUTION,
+        roi_scale_factor=cfg.DETECTION.SPATIAL_SCALE_FACTOR,
+        roi_aligned=cfg.DETECTION.ALIGNED,
         mlp_layers=cfg.CONTRASTIVE.NUM_MLP_LAYERS,
         mlp_dim=cfg.CONTRASTIVE.MLP_DIM,
         mlp_bn=cfg.CONTRASTIVE.BN_MLP,
@@ -713,7 +725,8 @@ def init_mvit_weights(module: nn.Module, generator: torch.Generator, rel_pos_zer
 
 
 class MViTModel(nn.Module):
-    """MViT, classification path (``vtm``'s ``MViTModel``). Input
+    """MViT (``vtm``'s ``MViTModel``), with the ROI head under
+    ``DETECTION.ENABLE`` (the module docstring). Input
     [B, T, H, W, C] (or a one-element list of it); returns (logits, state):
     logits in training mode, the head's activation in eval mode. The
     position tables are resized to the input's patch grid when it differs
@@ -721,12 +734,11 @@ class MViTModel(nn.Module):
     in ``vtm``). ``act_checkpoint`` (``MODEL.ACT_CHECKPOINT``) runs each
     block under ``torch.utils.checkpoint`` when gradients are recorded."""
 
+    takes_boxes = True  # DETECTION.ENABLE builds the ROI head
+
     def __init__(self, spec: MViTSpec, dtype: torch.dtype = torch.float32, seed: int = 0,
                  fp32_params: bool = False, act_checkpoint: bool = False):
         super().__init__()
-        if spec.detection:
-            raise NotImplementedError(
-                "DETECTION.ENABLE: the AVA ROI head is not ported yet (ROADMAP.md Queue 1, item 20)")
         s = self.config = self.spec = spec
         self.dtype, self.act_checkpoint = dtype, act_checkpoint
         self.patch_embed = _PatchEmbed(s.in_chans, s.embed_dim, s.patch_kernel, s.patch_stride, s.patch_padding, dtype)
@@ -748,6 +760,7 @@ class MViTModel(nn.Module):
             from vtm_torch.models.mvit_rev import ReversibleMViT, TwoStreamFusion
 
             assert not s.cls_embed_on, "rev does not allow cls token"
+            assert not s.detection, "rev does not support detection"
             self.rev_backbone = ReversibleMViT(s, dtype)
             two_dim = 2 * s.rev_final_dim
             self.fuse = TwoStreamFusion(s.rev_respath_fuse, dim=two_dim)
@@ -765,8 +778,17 @@ class MViTModel(nn.Module):
                 for i, blk in enumerate(plan))
             head_dim = plan[-1]["dim_out"]
             self.norm = LayerNorm(head_dim, s.norm_eps)
-        self.head = _Head(head_dim, s.num_classes, s.mlp_layers, s.mlp_dim, s.mlp_bn)
-        init_mvit_weights(self, torch.Generator().manual_seed(seed), s.rel_pos_zero_init)
+        if s.detection:
+            self.head = ResNetRoIHead((head_dim,), s.num_classes, (s.roi_resolution,), (s.roi_scale_factor,),
+                                      s.dropout_rate, s.head_act, s.roi_aligned)
+        else:
+            self.head = _Head(head_dim, s.num_classes, s.mlp_layers, s.mlp_dim, s.mlp_bn)
+        generator = torch.Generator().manual_seed(seed)
+        init_mvit_weights(self, generator, s.rel_pos_zero_init)
+        if s.detection:  # vtm's ResNetRoIHead: normal(fc_init_std 0.01), zero bias
+            with torch.no_grad():
+                nn.init.normal_(self.head.projection.weight, std=0.01, generator=generator)
+                nn.init.zeros_(self.head.projection.bias)
         if s.use_fixed_sincos_pos:
             table = get_3d_sincos_pos_embed(s.embed_dim, s.patch_dims[1], s.patch_dims[0], s.cls_embed_on)
             with torch.no_grad():
@@ -825,8 +847,10 @@ class MViTModel(nn.Module):
             return None
         return tuple(draw_keep_mask(blk.drop_path, b, device, generator) for _ in range(2))
 
-    def forward(self, x, state=None, generator: Optional[torch.Generator] = None):
+    def forward(self, x, state=None, generator: Optional[torch.Generator] = None, bboxes=None):
         s = self.spec
+        if s.detection and bboxes is None:
+            raise ValueError("a detection model (DETECTION.ENABLE) takes the boxes: forward(x, bboxes=...)")
         x, thw = self.embed(x)
         b = x.shape[0]
         if s.rev_enable:
@@ -843,6 +867,12 @@ class MViTModel(nn.Module):
                     x, thw = checkpoint(blk, x, thw, masks, use_reentrant=False)
                 else:
                     x, thw = blk(x, thw, masks)
+            if s.detection:  # norm, no class token, [B, C, T, H, W] for the ROI head
+                x = self.norm(x)
+                if s.cls_embed_on:
+                    x = x[:, 1:]
+                x = x.reshape((b,) + tuple(thw) + (x.shape[-1],)).permute(0, 4, 1, 2, 3)
+                return self.head([x], bboxes, generator), state
             if s.use_mean_pooling:
                 if s.cls_embed_on:
                     x = x[:, 1:]

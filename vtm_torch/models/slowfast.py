@@ -11,8 +11,13 @@ T, H, W in eval mode. They do not merge tokens (``MergePolicy()``, as in
 says, as ``vtm``'s do, and keep their conv weights in ``channels_last_3d``
 memory. Dropout and drop-connect draw from the forward's ``generator``.
 
-The AVA ROI head (``DETECTION.ENABLE``) is not ported: ``build_model``
-raises for it, as ``test_net`` and ``train_net`` do.
+Under ``DETECTION.ENABLE`` SlowFast and ResNet build the AVA ROI head
+(``models/roi_head.py``) as ``head`` in place of the basic head, and
+``forward(x, bboxes=...)`` takes the [N, 5] boxes (batch index, x1, y1, x2,
+y2 in input pixels) and returns one row a box. Called without boxes such a
+model raises ValueError, where ``vtm``'s falls through to its basic head on
+the ROI projection's weights. X3D has no detection head (``build_model``
+raises TypeError, as ``vtm``'s build does).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from torch import nn
 
 from vtm_torch.merge.policy import MergePolicy
+from vtm_torch.models.roi_head import ResNetRoIHead
 from vtm_torch.models.convnet import (
     FuseFastToSlow,
     NormSpec,
@@ -130,6 +136,10 @@ class ConvNetSpec:
     predictor_depths: Tuple[int, ...] = ()
     mlp_dim: int = 2048
     mlp_bn: bool = False
+    detection: bool = False  # DETECTION.ENABLE: the ROI head in place of the basic head
+    roi_resolution: int = 7
+    roi_scale_factor: int = 16
+    roi_aligned: bool = True
     multi_head = False  # one head (not a field: no config sets another)
 
 
@@ -141,14 +151,7 @@ def _norm_spec(cfg) -> NormSpec:
     )
 
 
-def _refuse_detection(cfg) -> None:
-    if cfg.DETECTION.ENABLE:
-        raise NotImplementedError(
-            "DETECTION.ENABLE: the AVA ROI head is not ported yet (ROADMAP.md Queue 1, item 20)")
-
-
 def spec_from_cfg(cfg) -> ConvNetSpec:
-    _refuse_detection(cfg)
     return ConvNetSpec(
         arch=cfg.MODEL.ARCH,
         depth=cfg.RESNET.DEPTH,
@@ -180,6 +183,10 @@ def spec_from_cfg(cfg) -> ConvNetSpec:
         predictor_depths=_t(cfg.CONTRASTIVE.PREDICTOR_DEPTHS),
         mlp_dim=cfg.CONTRASTIVE.MLP_DIM,
         mlp_bn=cfg.CONTRASTIVE.BN_MLP,
+        detection=cfg.DETECTION.ENABLE,
+        roi_resolution=cfg.DETECTION.ROI_XFORM_RESOLUTION,
+        roi_scale_factor=cfg.DETECTION.SPATIAL_SCALE_FACTOR,
+        roi_aligned=cfg.DETECTION.ALIGNED,
     )
 
 
@@ -201,25 +208,44 @@ def _channels_first(xs) -> list:
 
 class _ConvNet(nn.Module):
     """What the three families share: no merging, fp32, channels_last_3d,
-    the seeded init, and ``forward(x, state=None, generator=None)``. Nothing
+    the seeded init, and ``forward(x, state=None, generator=None,
+    bboxes=None)`` (the boxes for a detection model, whose ``head`` is the
+    ROI head; the module docstring). Nothing
     is cut for tensor parallelism (``parallel/sharding.py``): ``vtm``'s name
     rules name none of their matrices (only X3D's SE ``fc1`` bias, whose cut
     storage changes no arithmetic there), so at a model width above 1 every
     rank of a model group holds the whole model."""
 
     replicated_over_model = True
+    detection = False  # built with the ROI head (DETECTION.ENABLE)
 
     def _finish(self, seed: int, fc_init_std: float) -> None:
         init_weights(self, torch.Generator().manual_seed(seed), fc_init_std)
         self.to(memory_format=torch.channels_last_3d)
 
-    def forward(self, x, state=None, generator: Optional[torch.Generator] = None):
+    def _head(self, dims, pool, s: ConvNetSpec) -> nn.Module:
+        """The ROI head under ``s.detection``, else the basic head."""
+        if s.detection:
+            self.detection = True
+            return ResNetRoIHead(dims, s.num_classes, (s.roi_resolution,) * len(dims),
+                                 (s.roi_scale_factor,) * len(dims), s.dropout_rate, s.head_act, s.roi_aligned,
+                                 s.detach_final_fc)
+        return ResNetBasicHead(dims, s.num_classes, pool, s.dropout_rate, s.head_act, s.detach_final_fc,
+                               s.mlp_layers, s.predictor_depths, s.mlp_dim, s.mlp_bn, s.norm)
+
+    def forward(self, x, state=None, generator: Optional[torch.Generator] = None, bboxes=None):
+        if self.detection:
+            if bboxes is None:
+                raise ValueError("a detection model (DETECTION.ENABLE) takes the boxes: forward(x, bboxes=...)")
+            return self.head(self.body(x, generator), bboxes, generator), state
         return self.head(self.body(x, generator), generator), state
 
 
 class SlowFastModel(_ConvNet):
     """Two-pathway SlowFast (``s1`` stems, ``s{i}_fuse`` lateral
     connections, ``s2``-``s5`` stages, ``head``)."""
+
+    takes_boxes = True  # DETECTION.ENABLE builds the ROI head
 
     def __init__(self, spec: ConvNetSpec, seed: int = 0):
         super().__init__()
@@ -254,9 +280,7 @@ class SlowFastModel(_ConvNet):
             (s.num_frames // s.alpha // pool[0][0], s.crop_size // 32 // pool[0][1], s.crop_size // 32 // pool[0][2]),
             (s.num_frames // pool[1][0], s.crop_size // 32 // pool[1][1], s.crop_size // 32 // pool[1][2]),
         )
-        self.head = ResNetBasicHead((wpg * 32, wpg * 32 // b), s.num_classes, head_pool, s.dropout_rate, s.head_act,
-                                    s.detach_final_fc, s.mlp_layers, s.predictor_depths,
-                                    s.mlp_dim, s.mlp_bn, norm)
+        self.head = self._head((wpg * 32, wpg * 32 // b), head_pool, s)
         self._finish(seed, s.fc_init_std)
 
     def body(self, x, generator=None):
@@ -271,6 +295,8 @@ class SlowFastModel(_ConvNet):
 
 class ResNetModel(_ConvNet):
     """One-pathway C2D / I3D / Slow ResNet (``s1``, ``s2``-``s5``, ``head``)."""
+
+    takes_boxes = True  # DETECTION.ENABLE builds the ROI head
 
     def __init__(self, spec: ConvNetSpec, seed: int = 0):
         super().__init__()
@@ -295,9 +321,7 @@ class ResNetModel(_ConvNet):
                 trans_func_name=s.trans_func, stride_1x1=s.stride_1x1, norm=norm))
         head_pool = None if s.global_head_pool else (
             (s.num_frames // pool[0][0], s.crop_size // 32 // pool[0][1], s.crop_size // 32 // pool[0][2]),)
-        self.head = ResNetBasicHead((wpg * 32,), s.num_classes, head_pool, s.dropout_rate, s.head_act,
-                                    s.detach_final_fc, s.mlp_layers, s.predictor_depths,
-                                    s.mlp_dim, s.mlp_bn, norm)
+        self.head = self._head((wpg * 32,), head_pool, s)
         self._finish(seed, s.fc_init_std)
 
     def body(self, x, generator=None):
@@ -342,7 +366,6 @@ class X3DSpec:
 
 
 def x3d_spec_from_cfg(cfg) -> X3DSpec:
-    _refuse_detection(cfg)
     return X3DSpec(
         depth=cfg.RESNET.DEPTH,
         num_groups=cfg.RESNET.NUM_GROUPS,

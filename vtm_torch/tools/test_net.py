@@ -27,8 +27,15 @@ its meter (rank 0 logs and writes the pickles). ``TPU.MODEL_PARALLEL`` > 1
 cuts VideoMAE and ViViT (``parallel/sharding.py``; other families raise,
 ROADMAP.md Queue 1, item 15). Per-batch generators are then seeded from
 (seed, batch, data rank). The logits come to the host as fp32 numpy after
-every batch, for the meter. Detection (AVA), model info, tensorboard and
-wandb are not ported yet and raise.
+every batch, for the meter. Model info, tensorboard and wandb are not
+ported yet and raise.
+
+Detection (``DETECTION.ENABLE``, AVA): one keyframe clip a row (no views),
+the batch's boxes through ``make_detection_eval_step``, the per-box scores
+with their original boxes and (video, second) into an ``AVAMeter``, which
+writes ``detections_latest.csv`` under ``OUTPUT_DIR`` and returns the frame
+mAP (``{"split": "test_final", "map": ...}``). It runs in one process, as
+``vtm``'s single-device step does.
 
 Runs on the first CUDA device; a machine without one raises. The CPU
 (``device="cpu"``, plain versions of the kernels) is for tests only.
@@ -45,13 +52,13 @@ import torch
 from vtm_torch.checkpoints.checkpoint import load_test_checkpoint
 from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
 from vtm_torch.data import construct_loader
-from vtm_torch.eval.meters import EPICTestMeter, TestMeter
+from vtm_torch.eval.meters import AVAMeter, EPICTestMeter, TestMeter
 from vtm_torch.models import build_model
 from vtm_torch.parallel import launch
 from vtm_torch.parallel.mesh import Mesh, entry_device, gather_rows, make_mesh, replicate
 from vtm_torch.parallel.sharding import check_tensor_parallel, shard_module
-from vtm_torch.tools.train_net import _host, _step_generator
-from vtm_torch.train.train_step import make_eval_step
+from vtm_torch.tools.train_net import _host, _one_process, _step_generator
+from vtm_torch.train.train_step import make_detection_eval_step, make_eval_step
 from vtm_torch.utils.logging import get_logger, setup_logging
 
 logger = get_logger(__name__)
@@ -62,7 +69,9 @@ SWEEP_VIEWS = [1, 3, 5, 7, 10]  # TEST.NUM_TEMPORAL_CLIPS [-1]
 def _unsupported(cfg) -> None:
     """Raise for what the JAX package's test entry point does and this one does not yet."""
     for on, what in (
-        (cfg.DETECTION.ENABLE, "DETECTION.ENABLE: AVA detection testing (ROADMAP.md Queue 1, item 20)"),
+        (cfg.DETECTION.ENABLE and cfg.TPU.MODEL_PARALLEL > 1,
+         "DETECTION.ENABLE with TPU.MODEL_PARALLEL > 1: detection runs in one process, as vtm's "
+         "single-device step (ROADMAP.md Queue 1, item 15)"),
         (cfg.LOG_MODEL_INFO, "LOG_MODEL_INFO: parameter and FLOP counts (ROADMAP.md Queue 1, item 4)"),
         (cfg.TENSORBOARD.ENABLE, "TENSORBOARD.ENABLE: the tensorboard writer (ROADMAP.md Queue 1, item 21)"),
         (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging (ROADMAP.md Queue 1, item 21)"),
@@ -111,6 +120,24 @@ def perform_test(loader, eval_step, meter, cfg, device: torch.device, mesh: Mesh
     return meter.finalize_metrics()
 
 
+def perform_detection_test(loader, eval_step, meter, device: torch.device):
+    """Every batch of the AVA ``loader`` through the detection ``eval_step``
+    (frames and the [N, 5] boxes), its per-box scores with the original
+    boxes and metadata into the ``AVAMeter``; returns the meter's final
+    stats (the frame mAP)."""
+    meter.iter_tic()
+    for cur_iter, batch in enumerate(loader):
+        frames = torch.as_tensor(np.asarray(batch["frames"]), device=device)
+        boxes = torch.as_tensor(np.asarray(batch["boxes"], np.float32), device=device)
+        meter.data_toc()
+        scores = _host(eval_step(frames, boxes))
+        meter.iter_toc()
+        meter.update_stats(scores, batch["ori_boxes"], batch["metadata"])
+        meter.log_iter_stats(cur_iter)
+        meter.iter_tic()
+    return meter.finalize_metrics()
+
+
 def _save_results(meter, save_path: str, num_view: int, sweep: bool) -> None:
     if sweep:  # one file per sweep entry: a bare path would be overwritten
         root, dot, ext = save_path.rpartition(".")
@@ -129,8 +156,11 @@ def _save_results(meter, save_path: str, num_view: int, sweep: bool) -> None:
 
 
 def test(cfg, device: Optional[torch.device | str] = None):
-    device = entry_device(device, "test_net", cfg.TEST.BATCH_SIZE, cfg.TPU.MODEL_PARALLEL)
+    detection = cfg.DETECTION.ENABLE
+    device = entry_device(device, "test_net", _test_batch(cfg), cfg.TPU.MODEL_PARALLEL)
     _unsupported(cfg)
+    if detection:
+        _one_process("detection testing")
     # no batch cap: every batch is padded to a multiple of the data width
     mesh = make_mesh(cfg.TPU.MODEL_PARALLEL, device_type=device.type)
     if mesh.rank == 0:
@@ -146,9 +176,14 @@ def test(cfg, device: Optional[torch.device | str] = None):
         bundle = load_test_checkpoint(cfg, build_model(cfg, device))
         if mesh.model > 1:
             shard_module(replicate(mesh, bundle.module), mesh)
-        eval_step = make_eval_step(bundle.module)
-
         loader = construct_loader(cfg, "test", mesh.data_rank, mesh.data)
+        if detection:  # keyframes, not views
+            meter = AVAMeter(len(loader), cfg, "test")
+            meter.video_idx_to_name = loader.dataset._video_idx_to_name
+            stats = perform_detection_test(loader, make_detection_eval_step(bundle.module), meter, device)
+            results.append((num_view, stats))
+            continue
+        eval_step = make_eval_step(bundle.module)
         num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
         if len(loader.dataset) % num_clips != 0:
             raise ValueError(
@@ -179,12 +214,18 @@ def test(cfg, device: Optional[torch.device | str] = None):
     return results
 
 
+def _test_batch(cfg) -> int:
+    """The batch that sizes the process group: 1 for detection, which runs
+    in one process."""
+    return 1 if cfg.DETECTION.ENABLE else cfg.TEST.BATCH_SIZE
+
+
 def main():
     args = parse_args()
     for path in args.cfg_files or [None]:
         cfg = load_config(args, path)
         assert_and_infer_cfg(cfg)
-        launch.run(cfg, test, cfg.TEST.BATCH_SIZE)
+        launch.run(cfg, test, _test_batch(cfg))
 
 
 if __name__ == "__main__":

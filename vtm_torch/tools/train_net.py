@@ -48,10 +48,18 @@ iterations of epoch 0 fill the queue without an update; a checkpoint every
 model's whole state (BatchNorm statistics, the momentum encoder, queues and
 banks); with ``CONTRASTIVE.KNN_ON`` a kNN eval over the val set every
 ``TRAIN.EVAL_PERIOD`` (eval mode, running statistics) logs
-``ssl_knn_eval`` with ``knn_top1``. It runs in one process too. Detection
-training, the chunked-csv rotation, tensorboard and wandb are not
-ported yet and raise where a config asks for them, naming their ROADMAP
-item. ``TRAIN.KILL_LOSS_EXPLOSION_FACTOR`` stops the run on a NaN or
+``ssl_knn_eval`` with ``knn_top1``. It runs in one process too.
+Detection (``DETECTION.ENABLE``, AVA on SlowFast, ResNet or MViT): each
+batch's frames, [N, 5] boxes and multi-hot labels go through
+``make_detection_train_step`` (``vtm``'s per-box loss, dropout from the
+step generator); the train ``AVAMeter`` keeps the loss and lr; the eval
+epoch is ``test_net.perform_detection_test`` over the val split into the
+val ``AVAMeter`` (frame mAP, ``detections_latest.csv``), which is then
+reset. Precise BatchNorm statistics run the backbone alone
+(``precise_bn.py``): the ROI head has no BatchNorm. It runs in one process,
+as ``vtm``'s single-device step does. The chunked-csv rotation,
+tensorboard and wandb are not ported yet and raise where a config asks for
+them, naming their ROADMAP item. ``TRAIN.KILL_LOSS_EXPLOSION_FACTOR`` stops the run on a NaN or
 infinite loss only, as in the JAX package.
 
 Parallelism (``vtm_torch/parallel``): ``main`` runs ``train`` in one process
@@ -93,7 +101,7 @@ from vtm_torch.checkpoints import checkpoint as cu
 from vtm_torch.checkpoints.checkpoint import load_test_checkpoint
 from vtm_torch.config import assert_and_infer_cfg, load_config, parse_args
 from vtm_torch.data import construct_loader, shuffle_dataset
-from vtm_torch.eval.meters import EPICTrainMeter, EPICValMeter, TrainMeter, ValMeter
+from vtm_torch.eval.meters import AVAMeter, EPICTrainMeter, EPICValMeter, TrainMeter, ValMeter
 from vtm_torch.eval.metrics import multitask_topk_accuracies, topk_accuracies, topk_errors
 from vtm_torch.models import ModelBundle, build_model
 from vtm_torch.models.contrastive import ContrastiveModel, build_contrastive_model, knn_predict, moco_iters_noupdate
@@ -108,6 +116,8 @@ from vtm_torch.train.optimizer import construct_optimizer, set_lr
 from vtm_torch.train.precise_bn import compute_precise_bn_stats
 from vtm_torch.train.train_step import (
     make_contrastive_train_step,
+    make_detection_eval_step,
+    make_detection_train_step,
     make_eval_step,
     make_mae_train_step,
     make_maskfeat_train_step,
@@ -160,7 +170,9 @@ def _unsupported(cfg) -> None:
     """Raise for what the JAX package's train loop does and this one does not yet."""
     check_tensor_parallel(cfg)
     for on, what in (
-        (cfg.DETECTION.ENABLE, "DETECTION.ENABLE: detection training (ROADMAP.md Queue 1, item 20)"),
+        (cfg.DETECTION.ENABLE and cfg.TPU.MODEL_PARALLEL > 1,
+         "DETECTION.ENABLE with TPU.MODEL_PARALLEL > 1: detection runs in one process, as vtm's "
+         "single-device step (ROADMAP.md Queue 1, item 15)"),
         (cfg.TENSORBOARD.ENABLE, "TENSORBOARD.ENABLE: the tensorboard writer (ROADMAP.md Queue 1, item 21)"),
         (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging (ROADMAP.md Queue 1, item 21)"),
         (cfg.DATA.LOADER_CHUNK_SIZE > 0,
@@ -200,6 +212,12 @@ def train_epoch(loader, train_step, optimizer, lr_at, cur_epoch, meter, cfg, dev
             mask = None if mask is None else torch.as_tensor(np.asarray(mask), device=device)
             meter.data_toc()
             loss, _ = train_step(frames, mask, generator)
+        elif cfg.DETECTION.ENABLE:  # the batch's boxes and their multi-hot labels
+            frames = torch.as_tensor(np.asarray(batch["frames"]), device=device)
+            boxes = torch.as_tensor(np.asarray(batch["boxes"], np.float32), device=device)
+            labels = torch.as_tensor(np.asarray(batch["label"], np.float32), device=device)
+            meter.data_toc()
+            loss, _ = train_step(frames, boxes, labels, generator=generator)
         else:
             if mixup_fn is not None:
                 mixed, targets = mixup_fn(np.asarray(batch["frames"]), np.asarray(batch["label"]))
@@ -213,8 +231,13 @@ def train_epoch(loader, train_step, optimizer, lr_at, cur_epoch, meter, cfg, dev
         loss = float(loss)
         if cfg.TRAIN.KILL_LOSS_EXPLOSION_FACTOR and not np.isfinite(loss):
             raise RuntimeError(f"NaN/inf loss at epoch {cur_epoch} iter {cur_iter}")
-        mb = batch["frames"].shape[0] * mesh.data
         meter.iter_toc()
+        if cfg.DETECTION.ENABLE:  # the AVAMeter keeps the loss and lr
+            meter.update_stats(None, None, None, loss, lr)
+            meter.log_iter_stats(cur_iter)
+            meter.iter_tic()
+            continue
+        mb = batch["frames"].shape[0] * mesh.data
         if cfg.MASK.ENABLE:  # no errors to count
             meter.update_stats(0.0, 0.0, loss, lr, mb)
         elif cfg.DATA.MULTI_LABEL:  # the loss only; the epoch's metric is the val mAP
@@ -283,6 +306,8 @@ def build_trainer(cfg, device: Optional[torch.device | str] = None,
     mesh = make_mesh(cfg.TPU.MODEL_PARALLEL, batch_cap=cfg.TRAIN.BATCH_SIZE, device_type=device.type)
     if cfg.MASK.ENABLE:
         _one_process("masked pretraining")
+    if cfg.DETECTION.ENABLE:
+        _one_process("detection training")
     if bundle is None:
         bundle = build_model(cfg, device, fp32_params=True)
     module = bundle.module
@@ -304,22 +329,27 @@ def build_trainer(cfg, device: Optional[torch.device | str] = None,
             # last trajectory projections): tests/test_torch_parallel.py
             find_unused_parameters=False,
         )
+    eval_step = make_eval_step(module)
     if cfg.MASK.ENABLE:
         train_step = masked_train_step(cfg, module, optimizer)
+    elif cfg.DETECTION.ENABLE:
+        train_step = make_detection_train_step(module, optimizer, cfg.MODEL.LOSS_FUNC,
+                                               cfg.SOLVER.ACCUMULATE_STEPS)
+        eval_step = make_detection_eval_step(module)
     else:
         train_step = make_train_step(
             stepped, optimizer, cfg.MODEL.LOSS_FUNC, multi_head,
             accumulate_steps=cfg.SOLVER.ACCUMULATE_STEPS,
             data_group=mesh.data_group if mesh.data > 1 else None,
         )
-    return Trainer(module, optimizer, lr_at, train_step, make_eval_step(module), multi_head, device, bundle,
-                   mesh)
+    return Trainer(module, optimizer, lr_at, train_step, eval_step, multi_head, device, bundle, mesh)
 
 
 def _process_batch(cfg) -> int:
     """The batch that sizes the process group: 1 for masked and contrastive
-    pretraining, which run in one process."""
-    return 1 if cfg.MASK.ENABLE or cfg.MODEL.MODEL_NAME == "ContrastiveModel" else cfg.TRAIN.BATCH_SIZE
+    pretraining and for detection, which run in one process."""
+    one = cfg.MASK.ENABLE or cfg.DETECTION.ENABLE or cfg.MODEL.MODEL_NAME == "ContrastiveModel"
+    return 1 if one else cfg.TRAIN.BATCH_SIZE
 
 
 def _one_process(what: str) -> None:
@@ -452,7 +482,11 @@ def train(cfg, device: Optional[torch.device | str] = None):
 
     train_loader = construct_loader(cfg, "train", mesh.data_rank, mesh.data)
     val_loader = construct_loader(cfg, "val", mesh.data_rank, mesh.data)
-    if multi_head:
+    if cfg.DETECTION.ENABLE:
+        train_meter = AVAMeter(len(train_loader), cfg, "train")
+        val_meter = AVAMeter(len(val_loader), cfg, "val")
+        val_meter.video_idx_to_name = val_loader.dataset._video_idx_to_name
+    elif multi_head:
         train_meter = EPICTrainMeter(len(train_loader), cfg)
         val_meter = EPICValMeter(len(val_loader), cfg)
     else:
@@ -485,7 +519,12 @@ def train(cfg, device: Optional[torch.device | str] = None):
         refresh_bn_stats(cfg, module, train_loader, device, cur_epoch, mesh, is_ckpt or is_eval)
         if is_ckpt:
             cu.save_checkpoint(cfg.OUTPUT_DIR, module, optimizer, cur_epoch, cfg)
-        if is_eval and not cfg.MASK.ENABLE:  # pretraining has no classification eval
+        if is_eval and cfg.DETECTION.ENABLE:
+            from vtm_torch.tools.test_net import perform_detection_test
+
+            perform_detection_test(val_loader, eval_step, val_meter, device)
+            val_meter.reset()
+        elif is_eval and not cfg.MASK.ENABLE:  # pretraining has no classification eval
             eval_epoch(val_loader, eval_step, val_meter, cur_epoch, device, multi_head, mesh, cfg.DATA.MULTI_LABEL)
     return module
 

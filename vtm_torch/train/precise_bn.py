@@ -38,10 +38,13 @@ def compute_precise_bn_stats(module: nn.Module, loader, num_batches: int, device
     for bn in bns:
         bn.momentum = 1.0
     module.train()
+    # a detection model runs its backbone alone: its ROI head has no
+    # BatchNorm, and vtm's model without boxes falls through to the basic head
+    forward = module.body if getattr(module, "detection", False) else module
     seen = 0
     try:
         for batch in loader:
-            module(torch.as_tensor(np.asarray(batch["frames"]), device=device), generator=generator)
+            forward(torch.as_tensor(np.asarray(batch["frames"]), device=device), generator=generator)
             for total, buf in zip(totals, stats):
                 total += buf
             seen += 1

@@ -37,7 +37,15 @@ encoder, queues and banks, in place), the backward and the update; MoCo's
 queue warm-up steps (``update_param=False``) skip the update. It runs in one
 process, as ``vtm``'s.
 
-The detection steps are not ported yet and raise.
+The detection steps (AVA, ``DETECTION.ENABLE``): ``make_detection_eval_step``
+returns the per-box scores of a forward in eval mode;
+``make_detection_train_step`` the per-box loss of ``vtm``'s formula, its
+mean over the batch's boxes in the collate's order, the backward and the
+update. ``vtm`` pads the boxes to a multiple of 8 with rows of weight 0 for
+its jit's static shapes; the eager step takes the batch's boxes as they
+are, which gives the same loss, and a batch without a box a loss of 0 (and
+an update with zero gradients, as ``vtm``'s). They run in one process, as
+``vtm``'s single-device jit does.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
@@ -122,11 +131,11 @@ def make_eval_step(module: nn.Module) -> Callable:
     return step
 
 
-def _masked_step(module: nn.Module, optimizer: torch.optim.Optimizer, accumulate_steps: int, loss_of) -> Callable:
-    """A pretraining step around ``loss_of(generator, *args) -> (loss,
-    per-depth losses)``: the module in training mode, the backward, the
-    update every ``accumulate_steps`` calls; returns the loss and the
-    per-depth losses, detached."""
+def _update_step(module: nn.Module, optimizer: torch.optim.Optimizer, accumulate_steps: int, loss_of) -> Callable:
+    """A step around ``loss_of(generator, *args) -> (loss, [tensors])`` (the
+    per-depth losses of pretraining, a detection step's logits): the module
+    in training mode, the backward, the update every ``accumulate_steps``
+    calls; returns the loss and the tensors, detached."""
     k = max(1, int(accumulate_steps))
     micro_step = 0
 
@@ -154,7 +163,7 @@ def make_mae_train_step(module: nn.Module, optimizer: torch.optim.Optimizer, acc
         preds, labels, masks = module(frames, mask, generator=generator)
         return loss_lib.multiple_mse(preds, [(l, 1.0 / len(labels)) for l in labels], masks)
 
-    return _masked_step(module, optimizer, accumulate_steps, loss_of)
+    return _update_step(module, optimizer, accumulate_steps, loss_of)
 
 
 def make_maskfeat_train_step(module: nn.Module, optimizer: torch.optim.Optimizer,
@@ -168,7 +177,7 @@ def make_maskfeat_train_step(module: nn.Module, optimizer: torch.optim.Optimizer
         preds, masks = module(frames, mask, generator=generator)
         return loss_lib.multiple_mse(preds, [(l, 1.0) for l in labels], masks)
 
-    return _masked_step(module, optimizer, accumulate_steps, loss_of)
+    return _update_step(module, optimizer, accumulate_steps, loss_of)
 
 
 def make_contrastive_train_step(model: nn.Module, optimizer: torch.optim.Optimizer) -> Callable:
@@ -203,13 +212,47 @@ def make_contrastive_train_step(model: nn.Module, optimizer: torch.optim.Optimiz
     return step
 
 
-def _not_ported(name: str):
-    def raiser(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet")
+def make_detection_eval_step(module: nn.Module) -> Callable:
+    """Returns ``step(frames, boxes, generator=None) -> [N, classes]``: a
+    forward in eval mode without autograd, one row of class scores (the
+    head's sigmoid or softmax) for each of the [N, 5] boxes (batch index,
+    x1, y1, x2, y2)."""
 
-    raiser.__name__ = name
-    return raiser
+    def step(frames, boxes, generator: Optional[torch.Generator] = None):
+        module.eval()
+        with torch.inference_mode():
+            scores, _ = module(frames, generator=generator, bboxes=boxes)
+        return scores
+
+    return step
 
 
-make_detection_eval_step = _not_ported("make_detection_eval_step")
-make_detection_train_step = _not_ported("make_detection_train_step")
+def detection_loss(logits: torch.Tensor, labels: torch.Tensor, loss_name: str) -> torch.Tensor:
+    """``vtm``'s per-box detection loss over [N, classes] logits and labels:
+    ``bce_logit`` the mean over the classes of each box, any other loss box
+    by box; then the mean over the boxes, 0 for none (``vtm``'s
+    sum(per * w) / max(sum(w), 1) with every weight 1)."""
+    labels = labels.to(logits.dtype)
+    if loss_name == "bce_logit":
+        per = F.binary_cross_entropy_with_logits(logits, labels, reduction="none").mean(dim=-1)
+    else:
+        base_loss = loss_lib.get_loss_func(loss_name)
+        per = torch.stack([base_loss(lg[None], lb[None]) for lg, lb in zip(logits, labels)]) \
+            if len(logits) else logits.sum(dim=-1)
+    return per.sum() / max(per.shape[0], 1)
+
+
+def make_detection_train_step(module: nn.Module, optimizer: torch.optim.Optimizer, loss_name: str,
+                              accumulate_steps: int = 1) -> Callable:
+    """AVA detection training: ``step(frames, boxes, labels, generator=None)
+    -> (loss, [logits])`` with the batch's [N, 5] boxes and [N, classes]
+    multi-hot labels; ``detection_loss``, the backward and the update (every
+    ``accumulate_steps`` calls). ``generator`` draws the ROI head's dropout
+    and the backbone's drop-connect masks."""
+    loss_lib.get_loss_func(loss_name)  # an unknown name raises here, as in vtm's make_detection_train_step
+
+    def loss_of(generator, frames, boxes, labels):
+        logits, _ = module(frames, generator=generator, bboxes=boxes)
+        return detection_loss(logits, labels, loss_name), [logits]
+
+    return _update_step(module, optimizer, accumulate_steps, loss_of)
