@@ -252,7 +252,9 @@ Phases, each printing one JSON line:
                   MViTv2-S with the MLP head under SimCLR at B2;
                   train_net.train of MoCo for 2 epochs of 16 clips (the
                   queue warm-up, the kNN eval, a checkpoint, an auto-resume
-                  equal to the uninterrupted run bit for bit). No K1-K5b
+                  equal to the uninterrupted run bit for bit: every later
+                  loss and the final state; the stems' max pool has a
+                  deterministic backward). No K1-K5b
      ava       -- AVA spatio-temporal action detection on SlowFast 32x2
                   R50 with the ROI head (``AVA_OPTS``: the shape of
                   PySlowFast's configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml),
@@ -271,6 +273,23 @@ Phases, each printing one JSON line:
                   detections_latest.csv, the frame mAP in [0, 1]); one epoch
                   of train_net.train with its val pass; MViTv2-S with the
                   ROI head at 1/32, card against CPU. No K1-K5b or T1-T12
+     vis       -- the visualisation and demo tail (vtm_torch/vis; tools
+                  demo_net, ava_demo_precomputed_boxes, benchmark): Grad-CAM
+                  at block 5 of VideoMAE ViT-B merged at r 150 (fp32, B2),
+                  through K1 (9 launches) and K2 (3, blocks 6-8) against the
+                  same map through the plain versions on the card, the plain
+                  run's Matchings put in place (the layers whose own
+                  Matching differed are reported), within VIS_CAM_TOL;
+                  Grad-CAM at s5 of SlowFast 8x8 R50, card against CPU;
+                  demo_net on VideoMAE ViT-B (bf16) over a 64-frame video
+                  with the threaded manager and two spawned drawing workers
+                  (K1 9 a clip, every frame written and read back); the AVA
+                  demo on write_ava's first video with the ROI head on
+                  SlowFast 32x2 R50 (no K1-K5b); the loader benchmark over
+                  32 Kinetics videos written with cv2 and over the
+                  synthetic set (batches/s, clips/s). Matplotlib (the
+                  overlay, the figures) is not on the card's machine: those
+                  run in the CPU tests only
      dist      -- the parallel paths (vtm_torch/parallel) at ViT-B width,
                   bf16, B8, each against the same run in this process: NCCL
                   at world size 1, train_net's DDP step on the EPIC config
@@ -291,8 +310,8 @@ Phases, each printing one JSON line:
                   one repeat of three calls a row): every row checked
                   against its plain version as it is printed, all twelve
                   launched
-Each serve, eval, train or dist phase, and ab_dense, sets the kernels' launch counts to
-0 just before it and reads them just after (dist adds its spawned ranks'). Then a ``{"kernels": [...]}`` line and, last,
+Each serve, eval, train, dist or vis phase, and ab_dense, sets the kernels' launch counts
+to 0 just before it and reads them just after (dist adds its spawned ranks'). Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and the script exits
 nonzero without the last line.
 """
@@ -362,6 +381,7 @@ from vtm_torch.train.optimizer import construct_optimizer, set_lr
 from vtm_torch.train.train_step import make_contrastive_train_step
 from vtm_torch.utils.benchmark import device_seconds
 from vtm_torch.vis import concatenate_images, make_spatiotemporal_video_visualization
+from vtm_torch.vis.gradcam import GradCAM
 from vtm_torch.vis.mae_vis import mae_visualize
 
 # configs/videomae/kinetics/tome_VideoMAE_B_16_224_K400.yaml, key by key,
@@ -1503,6 +1523,19 @@ AVA_VIDEOS, AVA_FRAMES, AVA_HW, AVA_SECS = 4, 185, (256, 340), (902, 903, 904, 9
 AVA_EVALUATED = tuple(i for i in range(1, 81) if i % 4)
 AVA_EXCLUDED = ("ava002", 903)
 AVA_TRAIN_STEPS = 3
+# The vis phase (vtm_torch/vis, tools/{demo_net,ava_demo_precomputed_boxes,
+# visualization,benchmark}.py): Grad-CAM on VideoMAE ViT-B merged at r 150
+# (fp32, B2) at block 5, whose backward runs K2 through blocks 6-8 (668, 518
+# and 368 tokens; blocks 9-11 are below K1's 256); the map through the kernels
+# against the map through the plain versions, both on the card, of [0, 1]
+# values: within VIS_CAM_TOL; SlowFast's map at s5, card against CPU, the
+# same; a 64-frame demo video (4 clips of 16 frames at rate 1); the loader
+# benchmark over VIS_VIDEOS videos, VIS_EPOCHS epochs.
+VIS_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_vis"
+VIS_TARGET, VIS_K2_PER_MAP = "blocks_5", 3
+VIS_CAM_TOL = 1e-3
+VIS_DEMO_FRAMES, VIS_DEMO_HW = 64, (240, 320)
+VIS_VIDEOS, VIS_VIDEO_FRAMES, VIS_VIDEO_HW, VIS_EPOCHS = 32, 96, (256, 340), 2
 # the ROI head's kernels by kind (its products, the temporal mean, the max)
 ROI_KERNEL_KINDS = (("products", "gemm"), ("products", "cutlass"), ("products", "sm90_xmma"),
                     ("reductions", "reduce_kernel"), ("elementwise", "elementwise"))
@@ -5040,10 +5073,10 @@ def ssl_train_net(smi: str) -> dict:
     top-1 an epoch (finite, in [0, 1]), a checkpoint an epoch. Then a run
     whose output directory holds only that run's checkpoint of epoch 0
     auto-resumes from it: the queue, ptr, iter, the momentum encoder and the
-    bank restored bit for bit, and its first loss that of the uninterrupted
-    run's epoch 1 bit for bit (cuDNN deterministic; the later steps' losses
-    are reported beside the uninterrupted run's: the stem's max-pool
-    backward adds with atomics on the card)."""
+    bank restored bit for bit, and every loss of its epoch 1 and its final
+    model state (parameters, statistics, queue, bank) those of the
+    uninterrupted run bit for bit (cuDNN deterministic; the stems' max pool
+    has a deterministic backward, ``convnet.max_pool3d``)."""
     def run(name):
         return moco_cfg("TRAIN.DATASET", "synthetic", "TRAIN.BATCH_SIZE", "4", "CONTRASTIVE.QUEUE_LEN", "8",
                         "CONTRASTIVE.LENGTH", "16", "SOLVER.MAX_EPOCH", "2", "TRAIN.EVAL_PERIOD", "1",
@@ -5091,10 +5124,12 @@ def ssl_train_net(smi: str) -> dict:
           f"MoCo's warm-up: {whole_seen['update']}")
     check(len(whole_seen["knn"]) == 2 and all(0.0 <= k <= 1.0 for k in whole_seen["knn"]),
           f"kNN top-1 {whole_seen['knn']}")
-    check(seen["update"] == [True] * 4 and seen["loss"][0] == whole_seen["loss"][4]
-          and all(np.isfinite(whole_seen["loss"] + seen["loss"])),
-          f"the resumed run's next loss {seen['loss'][:1]} against {whole_seen['loss'][4:5]}")
     drift = max(abs(a - b) for a, b in zip(seen["loss"], whole_seen["loss"][4:]))
+    check(seen["update"] == [True] * 4 and seen["loss"] == whole_seen["loss"][4:]
+          and all(np.isfinite(whole_seen["loss"] + seen["loss"])),
+          f"the resumed run's losses {seen['loss']} against {whole_seen['loss'][4:]} (drift {drift})")
+    unequal = [k for k, v in resumed.state_dict().items() if not torch.equal(v, whole.state_dict()[k])]
+    check(not unequal, f"the resumed run's final state differs from the uninterrupted run's: {unequal[:5]}")
     del whole, resumed, restored, saved
     torch.cuda.empty_cache()
     return dict(epochs=2, videos=16, batch=4, update=whole_seen["update"], losses=whole_seen["loss"],
@@ -5462,6 +5497,213 @@ def phase_ava(smi: str) -> None:
     shutil.rmtree(AVA_OUT, ignore_errors=True)
 
 
+def vis_videomae_gradcam() -> dict:
+    """Grad-CAM at ``VIS_TARGET`` of VideoMAE ViT-B merged (fp32, B2): the map
+    through the plain versions (``use_kernel=False`` in every block), then
+    through K1 and K2 (launches counted: K1 9 in the forward, K2 3 in the
+    backward) with the plain run's Matchings put in place, so that both runs
+    merge the same tokens (``cpu_matchings_on_the_card``; the layers whose own
+    Matching differed, by fp32 rounding on near ties, are reported); the maps
+    within VIS_CAM_TOL, the predictions within BLOCK_TOL of the largest."""
+    bundle = build_model(main_cfg("TPU.COMPUTE_DTYPE", "float32", "TEST.BATCH_SIZE", "2"), "cuda")
+    video = torch.from_numpy(np.random.default_rng(31).random((2, 16, 224, 224, 3), dtype=np.float32)).cuda()
+    cam = GradCAM(bundle, VIS_TARGET)
+    for blk in bundle.module.blocks:
+        blk.attn.use_kernel = False
+    zero_launch_counts()
+    with recording(merge_bipartite, "_match") as plain_matchings:
+        tick = time.perf_counter()
+        pmaps, ppreds = cam.localization_map(video)
+        pseconds = time.perf_counter() - tick
+    pcounts = launch_counts()
+    for blk in bundle.module.blocks:
+        blk.attn.use_kernel = True
+    own = []
+    zero_launch_counts()
+    with cpu_matchings_on_the_card(plain_matchings, own):
+        tick = time.perf_counter()
+        maps, preds = cam.localization_map(video)
+        seconds = time.perf_counter() - tick
+    counts = launch_counts()
+    check(counts["LAUNCHES"] == MERGED_K1_PER_FORWARD and counts["BWD_LAUNCHES"] == VIS_K2_PER_MAP
+          and all(n == 0 for c, n in counts.items() if c not in ("LAUNCHES", "BWD_LAUNCHES")),
+          f"vis Grad-CAM: launches {counts}")
+    check(not any(pcounts.values()), f"vis Grad-CAM plain run: launches {pcounts}")
+    check(len(own) == len(plain_matchings) == len(MERGED_COUNTS) - 1, f"vis Grad-CAM: {len(own)} Matchings")
+    differed = [i for i, (a, b) in enumerate(zip(own, plain_matchings)) if not all(
+        torch.equal(getattr(a, n), getattr(b, n)) for n in ("unm_idx", "src_idx", "dst_idx"))]
+    check(maps.shape == (2, 1568) and np.isfinite(maps).all() and maps.min() >= 0 and maps.max() <= 1,
+          f"vis Grad-CAM: map {maps.shape}")
+    err = float(np.abs(maps - pmaps).max())
+    pred_err = float(np.abs(preds - ppreds).max() / np.abs(ppreds).max())
+    check(err <= VIS_CAM_TOL and pred_err <= BLOCK_TOL, f"vis Grad-CAM: kernel against plain {err}, preds {pred_err}")
+    del bundle
+    torch.cuda.empty_cache()
+    return dict(target=VIS_TARGET, batch=2, dtype="float32", launches=counts, map_max_abs_err=err, tol=VIS_CAM_TOL,
+                preds_rel_err=pred_err, own_matching_differed_at_layers=differed, seconds_kernel=seconds,
+                seconds_plain=pseconds)
+
+
+def vis_slowfast_gradcam() -> dict:
+    """Grad-CAM at s5 of SlowFast 8x8 R50 (fp32, BatchNorms moved as the
+    slowfast phase moves them), B2 at the test crop: the card's map against
+    the CPU's within VIS_CAM_TOL; the probabilities' error is reported."""
+    cfg = sf_cfg()
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    cpu = build_model(cfg, "cpu")
+    moved_bn(cpu.module, 33, 1.0)
+    card = build_model(cfg, "cuda")
+    card.module.load_state_dict(cpu.module.state_dict())
+    x = np.random.default_rng(33).standard_normal((2, t, s, s, 3)).astype(np.float32)
+    maps, preds = GradCAM(card).localization_map(x)
+    cpu_maps, cpu_preds = GradCAM(cpu).localization_map(x)
+    err = float(np.abs(maps - cpu_maps).max())
+    pred_err = float(np.abs(preds - cpu_preds).max() / np.abs(cpu_preds).max())
+    check(maps.shape == cpu_maps.shape and maps.ndim == 4 and np.isfinite(maps).all(), f"vis SlowFast map {maps.shape}")
+    check(err <= VIS_CAM_TOL, f"vis SlowFast Grad-CAM: card against CPU {err} (probabilities {pred_err})")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return dict(target="s5", batch=2, frames=t, crop=s, grid=list(maps.shape[1:]), map_max_abs_err=err,
+                tol=VIS_CAM_TOL, preds_rel_err=pred_err)
+
+
+def write_video(path: pathlib.Path, frames: int, hw, fourcc: str, seed: int) -> None:
+    """A video of ``frames`` smooth random frames of ``hw`` through cv2."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 30, (w, h))
+    base = rng.integers(0, 255, (h // 8, w // 8, 3), dtype=np.uint8)
+    for f in range(frames):
+        frame = cv2.resize(np.roll(base, f, axis=1), (w, h), interpolation=cv2.INTER_LINEAR)
+        writer.write(frame)
+    writer.release()
+
+
+def count_frames(path) -> int:
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def vis_demo() -> dict:
+    """``demo_net.run_demo`` on VideoMAE ViT-B merged (bf16) over a
+    VIS_DEMO_FRAMES-frame video, with the threaded video manager and two
+    spawned drawing workers: a clip every 16 frames, K1's launches those of
+    a forward a clip, the output video read back with every frame."""
+    from vtm_torch.tools.demo_net import run_demo
+
+    src, out = VIS_OUT / "demo_in.avi", VIS_OUT / "demo_out.mp4"
+    write_video(src, VIS_DEMO_FRAMES, VIS_DEMO_HW, "MJPG", 34)
+    cfg = main_cfg("DEMO.ENABLE", "True", "DEMO.INPUT_VIDEO", str(src), "DEMO.OUTPUT_FILE", str(out),
+                   "DEMO.THREAD_ENABLE", "True", "DEMO.NUM_VIS_INSTANCES", "2", "OUTPUT_DIR", str(VIS_OUT))
+    zero_launch_counts()
+    tick = time.perf_counter()
+    clips = run_demo(cfg)
+    seconds = time.perf_counter() - tick
+    counts = launch_counts()
+    written = count_frames(out)
+    expected = VIS_DEMO_FRAMES // (cfg.DATA.NUM_FRAMES * cfg.DATA.SAMPLING_RATE)
+    check(clips == expected and written == VIS_DEMO_FRAMES, f"vis demo: {clips} clips, {written} frames written")
+    check(counts["LAUNCHES"] == clips * MERGED_K1_PER_FORWARD and sum(counts.values()) == counts["LAUNCHES"],
+          f"vis demo: launches {counts}")
+    return dict(clips=clips, frames=written, seconds=seconds, frames_per_s=written / seconds, launches=counts,
+                workers=2, threaded=True)
+
+
+def vis_ava_demo(data_opts) -> dict:
+    """``ava_demo_precomputed_boxes.run_demo`` on SlowFast 32x2 R50 with the
+    ROI head over a video made of ``write_ava``'s first video's frames and
+    its predicted boxes: the output video has every frame, and the frames
+    around a drawn keyframe differ from the input's."""
+    import cv2
+
+    from vtm_torch.tools.ava_demo_precomputed_boxes import run_demo
+
+    name = "ava000"
+    frames = sorted((AVA_OUT / "data" / "frames" / name).glob("*.jpg"))
+    src, out = VIS_OUT / f"{name}.avi", VIS_OUT / "ava_demo_out.mp4"
+    writer = cv2.VideoWriter(str(src), cv2.VideoWriter_fourcc(*"MJPG"), 30, AVA_HW[::-1])
+    for f in frames:
+        writer.write(cv2.imread(str(f)))
+    writer.release()
+    cfg = ava_cfg(*data_opts, "DEMO.INPUT_VIDEO", str(src), "DEMO.OUTPUT_FILE", str(out),
+                  "DEMO.PREDS_BOXES", str(AVA_OUT / "data" / "annotations" / "ava_val_predicted_boxes.csv"),
+                  "DEMO.STARTING_SECOND", "900", "OUTPUT_DIR", str(VIS_OUT))
+    tick = time.perf_counter()
+    path = run_demo(cfg)
+    seconds = time.perf_counter() - tick
+    written = count_frames(path)
+    check(written == len(frames), f"vis AVA demo: {written} of {len(frames)} frames")
+    return dict(frames=written, demo_seconds=seconds)
+
+
+def vis_loader_benchmark() -> dict:
+    """``benchmark.benchmark_data_loading`` (VIS_EPOCHS epochs, shuffled) of
+    VideoMAE's train loader (16 x 224 clips at sampling rate 1, B8, 4 workers) over
+    VIS_VIDEOS Kinetics videos written with cv2, and over the synthetic
+    dataset."""
+    from vtm_torch.tools.benchmark import benchmark_data_loading
+
+    root = VIS_OUT / "kinetics"
+    root.mkdir(parents=True)
+    rows = []
+    for v in range(VIS_VIDEOS):
+        write_video(root / f"v{v:02d}.avi", VIS_VIDEO_FRAMES, VIS_VIDEO_HW, "MJPG", 40 + v)
+        rows.append(f"{root / f'v{v:02d}.avi'} {v % 4}")
+    (root / "train.csv").write_text("\n".join(rows) + "\n")
+    common = ("TRAIN.BATCH_SIZE", "8", "DATA_LOADER.NUM_WORKERS", "4", "BENCHMARK.NUM_EPOCHS", str(VIS_EPOCHS),
+              "BENCHMARK.LOG_PERIOD", "1000", "OUTPUT_DIR", str(VIS_OUT))
+    figures = {}
+    for dataset, opts in (("kinetics", ("DATA.PATH_TO_DATA_DIR", str(root))), ("synthetic", ())):
+        stats = benchmark_data_loading(main_cfg(*common, "TRAIN.DATASET", dataset, *opts))
+        check(stats["total_batches"] == VIS_EPOCHS * (VIS_VIDEOS if dataset == "kinetics" else 16) // 8,
+              f"vis benchmark {dataset}: {stats['total_batches']} batches")
+        figures[dataset] = {k: stats[k] for k in ("total_batches", "batches_per_sec", "clips_per_sec",
+                                                   "peak_rss_bytes")}
+    return dict(batch=8, workers=4, epochs=VIS_EPOCHS, videos=VIS_VIDEOS, video_frames=VIS_VIDEO_FRAMES, video_hw=list(VIS_VIDEO_HW),
+                **figures)
+
+
+def phase_vis(smi: str) -> int:
+    """The visualisation and demo tail (``vtm_torch/vis``, tools/{demo_net,
+    ava_demo_precomputed_boxes,benchmark}.py) at full width: Grad-CAM on
+    VideoMAE ViT-B through K1 and K2 against the plain versions on the card;
+    Grad-CAM on SlowFast card against CPU; the demo with its threaded manager
+    and spawned drawing workers; the AVA demo on ``write_ava``'s tree; the
+    loader benchmark. Returns (K1, K2) launches of the Grad-CAM and demo runs."""
+    shutil.rmtree(VIS_OUT, ignore_errors=True)
+    shutil.rmtree(AVA_OUT, ignore_errors=True)
+    VIS_OUT.mkdir(parents=True)
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    gradcam = vis_videomae_gradcam()
+    emit("vis_gradcam", seconds=time.perf_counter() - t0, **gradcam, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    figures = vis_slowfast_gradcam()
+    emit("vis_slowfast_gradcam", seconds=time.perf_counter() - t0, **figures, nvidia_smi=smi)
+    demo = vis_demo()
+    emit("vis_demo", **demo, nvidia_smi=smi)
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    figures = vis_ava_demo(write_ava(AVA_OUT / "data"))
+    emit("vis_ava_demo", seconds=time.perf_counter() - t0, **figures,
+         launches=check_no_attention_launches("vis_ava_demo"), nvidia_smi=smi)
+    t0 = time.perf_counter()
+    figures = vis_loader_benchmark()
+    emit("vis_benchmark", seconds=time.perf_counter() - t0, **figures, nvidia_smi=smi)
+    emit("vis", seconds=time.perf_counter() - start, nvidia_smi=smi)
+    shutil.rmtree(VIS_OUT, ignore_errors=True)
+    shutil.rmtree(AVA_OUT, ignore_errors=True)
+    return (gradcam["launches"]["LAUNCHES"] + demo["launches"]["LAUNCHES"], gradcam["launches"]["BWD_LAUNCHES"])
+
+
 # The A/B kernels: id -> (source, the TPU kernel's call site, the mode whose
 # numbers stand on the ``kernels`` line; every mode is on the ab_kernels line).
 AB_KERNELS = {
@@ -5695,6 +5937,9 @@ def main() -> int:
     phase_mae(smi)
     phase_contrastive(smi)
     phase_ava(smi)
+    vis_k1, vis_k2 = phase_vis(smi)
+    launches += vis_k1
+    bwd_launches += vis_k2
     ab_launches = phase_ab_dense()
     launches += ab_launches["K1"]  # the prod rows
     emit("done", seconds=time.perf_counter() - t0)

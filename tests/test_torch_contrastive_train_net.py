@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 import vtm.train.optimizer as jopt
+import tools.train_net as jax_train_net
 from vtm.config import get_cfg as jax_get_cfg
 
 from vtm_torch.checkpoints import checkpoint as cu
@@ -115,17 +116,39 @@ def test_train_warms_up_evaluates_and_resumes_bit_for_bit(tmp_path, monkeypatch)
         assert torch.equal(v, w), k
 
 
+def test_chunked_csv_rotates_in_the_loop(tmp_path, monkeypatch):
+    """DATA.LOADER_CHUNK_SIZE (once refused): from the second epoch on, the
+    train loader is rebuilt at vtm's next slab (``rotate_chunked_csv``),
+    which the synthetic set ignores; the meter keeps its first length."""
+    built = []
+    construct = train_net.construct_loader
+
+    def recording(cfg, split, *args):
+        if split == "train":
+            built.append(cfg.DATA.SKIP_ROWS)
+        return construct(cfg, split, *args)
+
+    monkeypatch.setattr(train_net, "construct_loader", recording)
+    cfg = _cfg(tmp_path, "DATA.LOADER_CHUNK_SIZE", "4", "DATA.LOADER_CHUNK_OVERALL_SIZE", "8",
+               "TRAIN.EVAL_PERIOD", "10")
+    jcfg = jax_get_cfg()
+    jcfg.merge_from_list(["DATA.LOADER_CHUNK_SIZE", "4", "DATA.LOADER_CHUNK_OVERALL_SIZE", "8"])
+    monkeypatch.setattr(jax_train_net, "construct_loader", lambda c, split: c.DATA.SKIP_ROWS)
+    want = [0] + [jax_train_net.rotate_chunked_csv(jcfg, e) for e in range(1, cfg.SOLVER.MAX_EPOCH)]
+    train_net.train(cfg, device="cpu")
+    assert built == want and len(built) == cfg.SOLVER.MAX_EPOCH >= 2
+
+
 class _Stopped(Exception):
     pass
 
 
 def test_what_the_loop_refuses(tmp_path, monkeypatch):
-    """TPU.MODEL_PARALLEL > 1 names item 15, the chunked csv item 21; a
-    process group of more than one raises (one process, as in vtm); a
-    SlowFast backbone refuses the one-pathway views, as vtm's does."""
-    for opts, match in ((("TPU.MODEL_PARALLEL", "2"), "item 15"), (("DATA.LOADER_CHUNK_SIZE", "4"), "item 21")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_net.train(_cfg(tmp_path, *opts), device="cpu")
+    """TPU.MODEL_PARALLEL > 1 names item 15; a process group of more than
+    one raises (one process, as in vtm); a SlowFast backbone refuses the
+    one-pathway views, as vtm's does."""
+    with pytest.raises(NotImplementedError, match="item 15"):
+        train_net.train(_cfg(tmp_path, "TPU.MODEL_PARALLEL", "2"), device="cpu")
     with monkeypatch.context() as m:
         m.setattr(torch.distributed, "is_initialized", lambda: True)
         m.setattr(torch.distributed, "get_world_size", lambda *a: 2)

@@ -289,3 +289,45 @@ def test_caffe2_names_and_blobs_are_vtms():
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("shape, kernel, stride, padding", [
+    ((2, 4, 3, 9, 11), (1, 3, 3), (1, 2, 2), (0, 1, 1)),  # the stems' overlapping windows
+    ((1, 3, 4, 8, 8), (2, 2, 2), (2, 2, 2), (0, 0, 0)),  # a pathway pool: kernel = stride
+    ((2, 2, 5, 7, 7), (3, 3, 3), (1, 2, 2), (1, 1, 1)),  # MViT's pooling
+])
+def test_max_pool3d_backward_is_torchs_ties_included(shape, kernel, stride, padding):
+    """The one deterministic ``convnet.max_pool3d`` that the stems, the
+    pathway pools and MViT pool with: its output and input gradient equal
+    ``F.max_pool3d``'s autograd ones, on inputs of many ties (rounded, and a
+    block of zeros as ReLU leaves them), channels-last too; its backward
+    goes through ``_MaxPool3d``, and the same bits twice."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(shape, generator=gen).round()
+    x[:, :, :, : shape[3] // 2] = 0.0
+    for memory_format in (torch.contiguous_format, torch.channels_last_3d):
+        x = x.to(memory_format=memory_format)
+        grad = torch.randn(F.max_pool3d(x, kernel, stride, padding).shape, generator=gen)
+        want_x = x.clone().requires_grad_(True)
+        want = F.max_pool3d(want_x, kernel, stride, padding)
+        want.backward(grad)
+        got_x = x.clone().requires_grad_(True)
+        got = convnet.max_pool3d(got_x, kernel, stride, padding)
+        assert got.grad_fn.name() == "_MaxPool3dBackward"
+        got.backward(grad)
+        first = got_x.grad.clone()
+        got_x.grad = None
+        convnet.max_pool3d(got_x, kernel, stride, padding).backward(grad)
+        assert torch.equal(got, want) and torch.equal(first, got_x.grad)
+        torch.testing.assert_close(first, want_x.grad, rtol=0, atol=1e-6)
+    with torch.no_grad():
+        assert convnet.max_pool3d(x, kernel, stride, padding).grad_fn is None
+
+
+def test_one_max_pool_serves_the_stems_and_mvit():
+    from vtm_torch.models import mvit, ptv, slowfast
+
+    assert mvit.max_pool3d is ptv.max_pool3d is slowfast.max_pool3d is convnet.max_pool3d
+    assert not hasattr(mvit, "_MaxPool3d")

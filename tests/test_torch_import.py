@@ -1,6 +1,8 @@
 """The PyTorch package stands alone: it never imports jax, flax, optax,
 orbax, simplejson or vtm; chip_smoke.py and the entry points refuse to run
-without CUDA; kernels build into an ignored directory, for Hopper."""
+without CUDA; kernels build into an ignored directory, for Hopper. Each
+module group imported alone in a fresh process:
+``tests/test_torch_import_groups.py``."""
 
 import os
 import pathlib
@@ -115,6 +117,24 @@ ANALYSIS_MODULES = (
     "videomae", "vivit", "timesformer", "layer_duplication", "clip_splicing"))
 
 
+# the visualisation and demo tail, its drivers, the loggers and the pool timer
+VIS_MODULES = (
+    "vtm_torch.utils.class_names",
+    "vtm_torch.utils.wandb_utils",
+    "vtm_torch.vis.tensorboard_vis",
+    "vtm_torch.vis.gradcam",
+    "vtm_torch.vis.activations",
+    "vtm_torch.vis.video_visualizer",
+    "vtm_torch.vis.async_predictor",
+    "vtm_torch.vis.demo",
+    "vtm_torch.tools.visualization",
+    "vtm_torch.tools.demo_net",
+    "vtm_torch.tools.ava_demo_precomputed_boxes",
+    "vtm_torch.tools.benchmark",
+    "vtm_torch.tools.pool_times",
+)
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
@@ -137,19 +157,7 @@ def test_every_module_imports_without_jax():
     assert not set(MASKED_MODULES) - set(names)
     assert not set(CONTRASTIVE_MODULES) - set(names)
     assert not set(AVA_MODULES) - set(names)
-
-
-@pytest.mark.parametrize("module", ANALYSIS_MODULES + PTV_MODULES + MVIT_MODULES + MASKED_MODULES
-                         + CONTRASTIVE_MODULES + AVA_MODULES)
-def test_analysis_modules_import_without_jax_alone(module):
-    """Each of the new subpackages' modules, and the PTV, multigrid,
-    Charades, MViT, masked- and contrastive-pretraining and AVA modules, imported
-    alone in a fresh process, pulls in neither jax nor vtm."""
-    code = (f"import sys, {module}; bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'simplejson', 'vtm')]; assert not bad, bad")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(), capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stderr
+    assert not set(VIS_MODULES) - set(names)
 
 
 def test_chip_smoke_imports_without_jax():
@@ -175,7 +183,8 @@ def test_chip_smoke_without_cuda_fails():
 
 # the A/B entry point takes an experiment, not a config
 ENTRY_POINT_ARGS = {"vtm_torch.tools.ab_dense": ("--exp", "decomp"), "vtm_torch.tools.check_ab": (),
-                    "vtm_torch.tools.check_attention": (), "vtm_torch.tools.kernel_times": ()}
+                    "vtm_torch.tools.check_attention": (), "vtm_torch.tools.kernel_times": (),
+                    "vtm_torch.tools.pool_times": ("--exp", "pool")}
 
 
 @pytest.mark.parametrize("module", ["vtm_torch.tools.train_net", "vtm_torch.tools.model_benchmark",
@@ -183,7 +192,9 @@ ENTRY_POINT_ARGS = {"vtm_torch.tools.ab_dense": ("--exp", "decomp"), "vtm_torch.
                                     "vtm_torch.tools.check_blockdiag", "vtm_torch.tools.check_ab",
                                     "vtm_torch.tools.ab_dense", "vtm_torch.tools.check_attention",
                                     "vtm_torch.tools.kernel_times", "vtm_torch.tools.test_net",
-                                    "vtm_torch.tools.run_net"] + list(ANALYSIS_MODULES[-5:]))
+                                    "vtm_torch.tools.run_net", "vtm_torch.tools.visualization",
+                                    "vtm_torch.tools.demo_net", "vtm_torch.tools.ava_demo_precomputed_boxes",
+                                    "vtm_torch.tools.pool_times"] + list(ANALYSIS_MODULES[-5:]))
 def test_entry_points_refuse_to_run_without_cuda(module):
     """No CUDA device and no request for the CPU: the entry points raise
     instead of carrying on on the CPU."""

@@ -3,6 +3,7 @@ CPU: ``test_net.test`` (TestMeter, EPICTestMeter, the result pickles),
 ``run_net``, the test-checkpoint fallback, ``ModelBundle.r`` and
 ``vtm_torch.patch``, at tiny sizes on the synthetic dataset."""
 
+import glob
 import json
 import os
 import pathlib
@@ -393,13 +394,42 @@ def test_apply_traces_the_source_for_one_call(tmp_path):
 @pytest.mark.parametrize("opts, item", [
     (("TPU.MODEL_PARALLEL", "2", "MODEL.MODEL_NAME", "Motionformer"), "item 15"),
     (("LOG_MODEL_INFO", "True"), "item 4"),
-    (("TENSORBOARD.ENABLE", "True"), "item 21"),
-    (("WANDB.ENABLE", "True"), "item 21"),
 ], ids=lambda x: x[0] if isinstance(x, tuple) else x)
 def test_unported_options_raise_by_name(opts, item, tmp_path):
     cfg, _ = _cfgs(_videomae_opts("OUTPUT_DIR", str(tmp_path), *opts))
     with pytest.raises(NotImplementedError, match=item):
         tn.test(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("opts", [
+    ("TENSORBOARD.ENABLE", "True", "TENSORBOARD.CONFUSION_MATRIX.ENABLE", "True"),
+    ("WANDB.ENABLE", "True"),
+], ids=lambda x: x[0])
+def test_tensorboard_and_wandb_run(opts, tmp_path, monkeypatch):
+    """TENSORBOARD.ENABLE and WANDB.ENABLE (once refused) run as in vtm:
+    each sweep entry's stats logged to wandb with its views (here a stand-in
+    package records them), and its confusion matrix written to the event
+    file; the stats are those of a run without them."""
+    import sys
+    import types
+
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    logged = []
+    fake = types.SimpleNamespace(init=lambda **kw: None, log=logged.append, finish=lambda: None)
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    base = _videomae_opts("TEST.NUM_TEMPORAL_CLIPS", "[1, 2]")
+    plain, _ = _cfgs([*base, "OUTPUT_DIR", str(tmp_path / "plain")])
+    cfg, _ = _cfgs([*base, "OUTPUT_DIR", str(tmp_path / "logged"), *opts])
+    results = tn.test(cfg, device="cpu")
+    assert results == tn.test(plain, device="cpu")
+    if opts[0] == "WANDB.ENABLE":
+        assert logged == [{"num_views": v, **stats} for v, stats in results]
+        return
+    assert not logged
+    events = glob.glob(str(tmp_path / "logged" / "runs-synthetic" / "events.*"))
+    images = EventAccumulator(events[0], size_guidance={"images": 0}).Reload().Images("Confusion Matrix")
+    assert len(events) == 1 and len(images) == 2
 
 
 def test_detection_needs_a_family_with_the_roi_head(tmp_path):

@@ -728,9 +728,11 @@ def test_what_is_not_ported_raises(tmp_path):
     c = cfg.clone()
     c.merge_from_list(["BN.WEIGHT_DECAY", "0.5", "SOLVER.ZERO_WD_1D_PARAM", "True"])
     assert [g["weight_decay"] for g in topt.construct_optimizer(c, bn)[0].param_groups] == [0.5]
+    # TENSORBOARD.ENABLE is ported (tests/test_torch_vis_tail.py::test_train_writes_vtms_scalars);
+    # tensor parallelism beyond VideoMAE and ViViT is not
     c = cfg.clone()
-    c.merge_from_list(["TENSORBOARD.ENABLE", "True"])
-    with pytest.raises(NotImplementedError):
+    c.merge_from_list(["TPU.MODEL_PARALLEL", "2", "MODEL.MODEL_NAME", "Motionformer"])
+    with pytest.raises(NotImplementedError, match="item 15"):
         train(c, device="cpu")
     # detection is ported (tests/test_torch_ava_detection.py): VideoMAE has no
     # detection head, and its build raises as vtm's does

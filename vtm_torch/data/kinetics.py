@@ -23,6 +23,81 @@ from vtm_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
+# pandas' default missing-value strings (``read_csv(na_values=...)``)
+_NA_STRINGS = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND", "1.#QNAN",
+    "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
+))
+_NA = "<NA>"  # how pandas' string array prints a missing value
+
+
+def _as_bool(v: str) -> bool:
+    if v in ("True", "TRUE", "true"):
+        return True
+    if v in ("False", "FALSE", "false"):
+        return False
+    raise ValueError(v)
+
+
+def _typed_column(column):
+    """(kind, values) of one column as ``read_csv`` types it: ``int`` where
+    every field is an integer, ``bool`` where every field present is a
+    boolean, ``float`` where every field present is a number (a gap makes an
+    integer column float), else ``str``; a missing field is None."""
+    present = [v for v in column if v is not None]
+    if not present:  # all missing: a float column of NaN
+        return float, column
+    for cast in ((int,) if len(present) == len(column) else ()) + (_as_bool, float):
+        try:
+            values = [None if v is None else cast(v) for v in column]
+        except ValueError:
+            continue
+        return (bool if cast is _as_bool else cast), values
+    return str, column
+
+
+def read_csv_chunk(lines, chunksize: int, skip_rows: int):
+    """The first ``chunksize`` rows of a csv after its first ``skip_rows``
+    lines, flattened row by row as strings: what
+    ``pandas.array(next(read_csv(f, chunksize=, skiprows=)).values.flatten(),
+    dtype="string")`` gives, for ``vtm``'s chunked Kinetics loader.
+
+    As there: the lines skipped count blank ones; after them blank (or
+    whitespace-only) lines are dropped; the first line left is a header and
+    is dropped; fields split on commas (with csv quoting), so a row that
+    holds a comma gives several values, interleaved with the other rows'; a
+    first row of k fields more than the header makes every row's first k
+    fields an index, which is dropped; a short row's missing fields and
+    pandas' missing-value strings come out as ``<NA>``; columns are typed
+    (``_typed_column``) and ``values`` gives them one type: all integer
+    columns stay integers, integer and float ones become floats, any other
+    mix keeps each value's own. Raises ValueError where pandas raises:
+    nothing left after ``skip_rows``, or a row with more fields than that."""
+    import csv
+
+    rest = [line for line in lines[skip_rows:] if line.strip()]
+    if not rest:
+        raise ValueError(f"no columns to parse after skipping {skip_rows} rows")
+    rows = list(csv.reader(rest[: chunksize + 1]))
+    width = len(rows[0])
+    body = rows[1:]
+    index = max(len(body[0]) - width, 0) if body else 0
+    cells = []
+    for row in body:
+        if len(row) > width + index:
+            raise ValueError(f"expected {width + index} fields, saw {len(row)}: {row}")
+        row = row[index:]
+        cells.append([None if v in _NA_STRINGS else v for v in row] + [None] * (width - len(row)))
+    typed = [_typed_column([row[j] for row in cells]) for j in range(width)]
+    kinds = {kind for kind, _ in typed}
+    common = int if kinds == {int} else float if kinds <= {int, float} else None
+
+    def text(v):
+        return _NA if v is None else str(common(v) if common else v)
+
+    return [text(values[i]) for i in range(len(cells)) for _, values in typed]
+
+
 @register_dataset("kinetics")
 class Kinetics:
     _num_retries = 10
@@ -39,31 +114,19 @@ class Kinetics:
         self._construct_loader()
 
     def _get_chunk(self, fobj, chunksize):
-        """One LOADER_CHUNK_SIZE slab of the csv via pandas read_csv
-        (reference kinetics.py:167-181 — including its header-infer and
-        on-error skip_rows reset semantics)."""
-        import pandas
-
+        """One LOADER_CHUNK_SIZE slab of the csv, the rows ``vtm``'s pandas
+        ``read_csv(chunksize=, skiprows=)`` gives (``read_csv_chunk``), read
+        without pandas. Where the slab cannot be read (``skip_rows`` past the
+        end, a malformed row) it resets ``skip_rows`` to 0 and reads once
+        more from the start, as ``vtm`` does (reference kinetics.py:176-179)."""
         try:
-            chunk = None
-            for chunk in pandas.read_csv(
-                fobj, chunksize=chunksize, skiprows=self.skip_rows
-            ):
-                break
-            if chunk is None:
-                raise ValueError("skip_rows beyond the csv")
-        except Exception:
-            # reference resets skip_rows and retries (kinetics.py:
-            # 176-179); retry ONCE from the start of the file — the
-            # reference's unbounded recursion on a consumed file object
-            # would loop forever
+            return read_csv_chunk(fobj.read().splitlines(), chunksize, self.skip_rows)
+        except ValueError:
             if self.skip_rows == 0:
                 raise
             self.skip_rows = 0
             fobj.seek(0)
             return self._get_chunk(fobj, chunksize)
-        else:
-            return pandas.array(chunk.values.flatten(), dtype="string")
 
     def _construct_loader(self):
         csv_name = {"train": "train.csv", "val": "val.csv", "test": "test.csv"}[self.mode]
@@ -74,7 +137,7 @@ class Kinetics:
         self._path_to_videos, self._labels, self._spatial_temporal_idx = [], [], []
         with open(path_to_file) as f:
             if use_chunk:
-                rows = [str(r) for r in self._get_chunk(f, self.cfg.DATA.LOADER_CHUNK_SIZE)]
+                rows = self._get_chunk(f, self.cfg.DATA.LOADER_CHUNK_SIZE)
             else:
                 rows = f.read().splitlines()
             for clip_idx, line in enumerate(rows):

@@ -231,8 +231,37 @@ def conv3d(c_in: int, c_out: int, kernel, stride=(1, 1, 1), padding=None, dilati
     return nn.Conv3d(c_in, c_out, tuple(kernel), tuple(stride), tuple(padding), tuple(dilation), groups, bias)
 
 
+class _MaxPool3d(torch.autograd.Function):
+    """``F.max_pool3d`` whose backward is deterministic: the gradient is
+    scattered to each window's argmax by ``index_put_(accumulate=True)``
+    (sorted on CUDA), where torch's CUDA backward adds overlapping windows'
+    gradients with atomics in no fixed order. The argmax is the one
+    ``F.max_pool3d`` picks, so the gradient is the same up to that order."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride, pad):
+        out, idx = F.max_pool3d(x, kernel, stride, pad, return_indices=True)
+        ctx.save_for_backward(idx)
+        ctx.in_shape = x.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        n, c = ctx.in_shape[:2]
+        plane = math.prod(ctx.in_shape[2:])
+        flat = idx + torch.arange(n * c, device=idx.device).view(n, c, 1, 1, 1) * plane
+        out = grad.new_zeros(n * c * plane).index_put_((flat.reshape(-1),), grad.reshape(-1), accumulate=True)
+        return out.view(ctx.in_shape), None, None, None
+
+
 def max_pool3d(x: torch.Tensor, kernel, stride, padding=(0, 0, 0)) -> torch.Tensor:
-    """Max-pool; the padding counts as -inf."""
+    """A max pool (padding as -inf) with ``_MaxPool3d``'s deterministic
+    backward when a gradient is recorded: the conv stems' overlapping
+    1x3x3 windows at stride 1x2x2, the pathway pools and MViT's pooling
+    attention all pool through it."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _MaxPool3d.apply(x, tuple(kernel), tuple(stride), tuple(padding))
     return F.max_pool3d(x, tuple(kernel), tuple(stride), tuple(padding))
 
 

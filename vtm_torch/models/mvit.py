@@ -70,7 +70,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vtm_torch.merge.policy import MergePolicy
 from vtm_torch.models.common import LayerNorm, Linear, Mlp, dropout
-from vtm_torch.models.convnet import MLPHead, lecun_normal_, mlp_head_linears, round_width
+from vtm_torch.models.convnet import MLPHead, lecun_normal_, max_pool3d, mlp_head_linears, round_width
 from vtm_torch.models.roi_head import ResNetRoIHead
 
 NORM_EPS = 1e-6
@@ -194,38 +194,6 @@ def cal_rel_pos_temporal(attn, q, has_cls, q_shape, k_shape, rel_pos_t):
 
 
 # --------------------------------------------------------- pooling attn
-
-
-class _MaxPool3d(torch.autograd.Function):
-    """``F.max_pool3d`` whose backward is deterministic: the gradient is
-    scattered to each window's argmax by ``index_put_(accumulate=True)``
-    (sorted on CUDA), where torch's CUDA backward adds overlapping windows'
-    gradients with atomics in no fixed order. The argmax is the one
-    ``F.max_pool3d`` picks, so the gradient is the same up to that order."""
-
-    @staticmethod
-    def forward(ctx, x, kernel, stride, pad):
-        out, idx = F.max_pool3d(x, kernel, stride, pad, return_indices=True)
-        ctx.save_for_backward(idx)
-        ctx.in_shape = x.shape
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
-        n, c = ctx.in_shape[:2]
-        plane = math.prod(ctx.in_shape[2:])
-        flat = idx + torch.arange(n * c, device=idx.device).view(n, c, 1, 1, 1) * plane
-        out = grad.new_zeros(n * c * plane).index_put_((flat.reshape(-1),), grad.reshape(-1), accumulate=True)
-        return out.view(ctx.in_shape), None, None, None
-
-
-def max_pool3d(x: torch.Tensor, kernel, stride, pad) -> torch.Tensor:
-    """A max pool (padding as -inf) with ``_MaxPool3d``'s deterministic
-    backward when a gradient is recorded."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _MaxPool3d.apply(x, tuple(kernel), tuple(stride), tuple(pad))
-    return F.max_pool3d(x, tuple(kernel), tuple(stride), tuple(pad))
 
 
 def attention_pool(x: torch.Tensor, thw, kernel, stride, mode: str, has_cls: bool,

@@ -27,8 +27,12 @@ its meter (rank 0 logs and writes the pickles). ``TPU.MODEL_PARALLEL`` > 1
 cuts VideoMAE and ViViT (``parallel/sharding.py``; other families raise,
 ROADMAP.md Queue 1, item 15). Per-batch generators are then seeded from
 (seed, batch, data rank). The logits come to the host as fp32 numpy after
-every batch, for the meter. Model info, tensorboard and wandb are not
-ported yet and raise.
+every batch, for the meter. ``WANDB.ENABLE`` logs each sweep entry's stats
+with its ``num_views`` (``utils/wandb_utils.py``: a no-op without the
+package); ``TENSORBOARD.ENABLE`` opens a ``TensorboardWriter``, which with
+``TENSORBOARD.CONFUSION_MATRIX.ENABLE`` adds each sweep entry's confusion
+matrix of the per-video predictions; both on rank 0, as in ``vtm``. Model
+info is not ported yet and raises.
 
 Detection (``DETECTION.ENABLE``, AVA): one keyframe clip a row (no views),
 the batch's boxes through ``make_detection_eval_step``, the per-box scores
@@ -59,6 +63,7 @@ from vtm_torch.parallel.mesh import Mesh, entry_device, gather_rows, make_mesh, 
 from vtm_torch.parallel.sharding import check_tensor_parallel, shard_module
 from vtm_torch.tools.train_net import _host, _one_process, _step_generator
 from vtm_torch.train.train_step import make_detection_eval_step, make_eval_step
+from vtm_torch.utils import wandb_utils
 from vtm_torch.utils.logging import get_logger, setup_logging
 
 logger = get_logger(__name__)
@@ -73,8 +78,6 @@ def _unsupported(cfg) -> None:
          "DETECTION.ENABLE with TPU.MODEL_PARALLEL > 1: detection runs in one process, as vtm's "
          "single-device step (ROADMAP.md Queue 1, item 15)"),
         (cfg.LOG_MODEL_INFO, "LOG_MODEL_INFO: parameter and FLOP counts (ROADMAP.md Queue 1, item 4)"),
-        (cfg.TENSORBOARD.ENABLE, "TENSORBOARD.ENABLE: the tensorboard writer (ROADMAP.md Queue 1, item 21)"),
-        (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging (ROADMAP.md Queue 1, item 21)"),
     ):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -170,6 +173,28 @@ def test(cfg, device: Optional[torch.device | str] = None):
     views_list = cfg.TEST.NUM_TEMPORAL_CLIPS or [cfg.TEST.NUM_ENSEMBLE_VIEWS]
     if views_list == [-1]:
         views_list = SWEEP_VIEWS
+    tb_writer = None
+    if mesh.rank == 0:
+        wandb_utils.init(cfg)
+        if cfg.TENSORBOARD.ENABLE:
+            from vtm_torch.vis.tensorboard_vis import TensorboardWriter
+
+            tb_writer = TensorboardWriter(cfg)
+    try:
+        results = _test_views(cfg, views_list, device, mesh, tb_writer)
+    finally:
+        if tb_writer is not None:
+            tb_writer.close()
+        if mesh.rank == 0:
+            wandb_utils.finish()
+    for num_view, stats in results:
+        logger.info("views=%d -> %s", num_view, stats)
+    return results
+
+
+def _test_views(cfg, views_list, device: torch.device, mesh: Mesh, tb_writer):
+    """``test``'s sweep: [(views, stats), ...]."""
+    detection = cfg.DETECTION.ENABLE
     results = []
     for num_view in views_list:
         cfg.TEST.NUM_ENSEMBLE_VIEWS = num_view
@@ -182,6 +207,7 @@ def test(cfg, device: Optional[torch.device | str] = None):
             meter.video_idx_to_name = loader.dataset._video_idx_to_name
             stats = perform_detection_test(loader, make_detection_eval_step(bundle.module), meter, device)
             results.append((num_view, stats))
+            wandb_utils.log({"num_views": num_view, **stats})
             continue
         eval_step = make_eval_step(bundle.module)
         num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
@@ -207,10 +233,12 @@ def test(cfg, device: Optional[torch.device | str] = None):
             )
         stats = perform_test(loader, eval_step, meter, cfg, device, mesh)
         results.append((num_view, stats))
+        if mesh.rank == 0:
+            wandb_utils.log({"num_views": num_view, **stats})
+        if tb_writer is not None and hasattr(meter, "video_preds"):
+            tb_writer.plot_eval(meter.video_preds, meter.video_labels)
         if cfg.TEST.SAVE_RESULTS_PATH and mesh.rank == 0:
             _save_results(meter, cfg.TEST.SAVE_RESULTS_PATH, num_view, len(views_list) > 1)
-    for num_view, stats in results:
-        logger.info("views=%d -> %s", num_view, stats)
     return results
 
 

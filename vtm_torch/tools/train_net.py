@@ -57,10 +57,16 @@ epoch is ``test_net.perform_detection_test`` over the val split into the
 val ``AVAMeter`` (frame mAP, ``detections_latest.csv``), which is then
 reset. Precise BatchNorm statistics run the backbone alone
 (``precise_bn.py``): the ROI head has no BatchNorm. It runs in one process,
-as ``vtm``'s single-device step does. The chunked-csv rotation,
-tensorboard and wandb are not ported yet and raise where a config asks for
-them, naming their ROADMAP item. ``TRAIN.KILL_LOSS_EXPLOSION_FACTOR`` stops the run on a NaN or
-infinite loss only, as in the JAX package.
+as ``vtm``'s single-device step does. ``DATA.LOADER_CHUNK_SIZE``: each
+epoch after the first reads the next slab of the train csv
+(``rotate_chunked_csv``; the meters keep their epoch-0 construction, as in
+``vtm``), in ``train`` and ``train_contrastive``. ``TENSORBOARD.ENABLE``
+writes each supervised train step's ``Train/loss`` and ``Train/lr`` at step
+``epoch * len(loader) + iter`` (not the masked or detection steps, as in
+``vtm``); ``WANDB.ENABLE`` opens a wandb run for the loop
+(``utils/wandb_utils.py``: a no-op without the package); both on rank 0.
+``TRAIN.KILL_LOSS_EXPLOSION_FACTOR`` stops the run on a NaN or infinite loss
+only, as in the JAX package.
 
 Parallelism (``vtm_torch/parallel``): ``main`` runs ``train`` in one process
 per CUDA device the batch can use (``parallel.launch.run``; torchrun
@@ -91,6 +97,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -123,9 +130,27 @@ from vtm_torch.train.train_step import (
     make_maskfeat_train_step,
     make_train_step,
 )
+from vtm_torch.utils import wandb_utils
 from vtm_torch.utils.logging import get_logger, setup_logging
 
 logger = get_logger(__name__)
+
+
+def rotate_chunked_csv(cfg, cur_epoch: int, data_rank: int = 0, data_ways: int = 1):
+    """Per-epoch chunked-csv rotation (copy of ``vtm``'s
+    ``tools/train_net.py::rotate_chunked_csv``; reference
+    tools/train_net.py:793-804): epochs walk disjoint ``LOADER_CHUNK_SIZE``
+    slabs of the overall csv, by setting ``DATA.SKIP_ROWS``. Returns a newly
+    built train loader (this data rank's rows), or None when rotation is off
+    or at epoch 0. ``LOADER_CHUNK_OVERALL_SIZE`` left at 0 counts as one
+    chunk (the reference divides by zero there)."""
+    if cur_epoch <= 0 or cfg.DATA.LOADER_CHUNK_SIZE <= 0:
+        return None
+    num_chunks = max(math.ceil(cfg.DATA.LOADER_CHUNK_OVERALL_SIZE / cfg.DATA.LOADER_CHUNK_SIZE), 1)
+    skip_rows = cur_epoch % num_chunks * cfg.DATA.LOADER_CHUNK_SIZE
+    logger.info("chunked csv: epoch %d num_chunks %d skip_rows %d", cur_epoch, num_chunks, skip_rows)
+    cfg.DATA.SKIP_ROWS = skip_rows
+    return construct_loader(cfg, "train", data_rank, data_ways)
 
 
 def _epic_accuracies(logits, labels):
@@ -173,10 +198,6 @@ def _unsupported(cfg) -> None:
         (cfg.DETECTION.ENABLE and cfg.TPU.MODEL_PARALLEL > 1,
          "DETECTION.ENABLE with TPU.MODEL_PARALLEL > 1: detection runs in one process, as vtm's "
          "single-device step (ROADMAP.md Queue 1, item 15)"),
-        (cfg.TENSORBOARD.ENABLE, "TENSORBOARD.ENABLE: the tensorboard writer (ROADMAP.md Queue 1, item 21)"),
-        (cfg.WANDB.ENABLE, "WANDB.ENABLE: wandb logging (ROADMAP.md Queue 1, item 21)"),
-        (cfg.DATA.LOADER_CHUNK_SIZE > 0,
-         "DATA.LOADER_CHUNK_SIZE: chunked-csv rotation (ROADMAP.md Queue 1, item 21)"),
     ):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -198,7 +219,7 @@ def _update(meter, figures, multi_head: bool, *rest):
 
 
 def train_epoch(loader, train_step, optimizer, lr_at, cur_epoch, meter, cfg, device,
-                multi_head, mixup_fn=None, mesh: Mesh = Mesh()):
+                multi_head, mixup_fn=None, mesh: Mesh = Mesh(), tb_writer=None):
     data_size = len(loader)
     meter.iter_tic()
     for cur_iter, batch in enumerate(loader):
@@ -248,6 +269,8 @@ def train_epoch(loader, train_step, optimizer, lr_at, cur_epoch, meter, cfg, dev
                 _update(meter, figures, True, (float(aux[0]), float(aux[1]), loss), lr, mb)
             else:
                 _update(meter, figures, False, loss, lr, mb)
+        if tb_writer is not None and not cfg.MASK.ENABLE:
+            tb_writer.add_scalars({"Train/loss": loss, "Train/lr": lr}, global_step=data_size * cur_epoch + cur_iter)
         meter.log_iter_stats(cur_epoch, cur_iter)
         meter.iter_tic()
     meter.log_epoch_stats(cur_epoch)
@@ -411,6 +434,10 @@ def train_contrastive(cfg, device: Optional[torch.device | str] = None) -> Contr
     iters_noupdate = moco_iters_noupdate(cc, cfg.TRAIN.BATCH_SIZE) if cc.type == "moco" else 0
     meter = TrainMeter(data_size, cfg)
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        rotated = rotate_chunked_csv(cfg, cur_epoch)
+        if rotated is not None:  # the meter and the kNN labels keep epoch 0's, as in vtm
+            train_loader = rotated
+            data_size = len(train_loader)
         shuffle_dataset(train_loader, cur_epoch)
         meter.iter_tic()
         for cur_iter, batch in enumerate(train_loader):
@@ -450,9 +477,8 @@ def train(cfg, device: Optional[torch.device | str] = None):
         multigrid = MultigridSchedule()
         cfg = multigrid.init_multigrid(cfg)
     trainer = build_trainer(cfg, device)
-    module, optimizer, lr_at = trainer.module, trainer.optimizer, trainer.lr_at
-    train_step, eval_step = trainer.train_step, trainer.eval_step
-    multi_head, device, mesh = trainer.multi_head, trainer.device, trainer.mesh
+    module, optimizer = trainer.module, trainer.optimizer
+    multi_head, mesh = trainer.multi_head, trainer.mesh
     if mesh.rank == 0:
         setup_logging(cfg.OUTPUT_DIR)
     np.random.seed(cfg.RNG_SEED)
@@ -505,7 +531,34 @@ def train(cfg, device: Optional[torch.device | str] = None):
             seed=cfg.RNG_SEED,
         )
 
+    tb_writer = None
+    if mesh.rank == 0:
+        if cfg.TENSORBOARD.ENABLE:
+            from vtm_torch.vis.tensorboard_vis import TensorboardWriter
+
+            tb_writer = TensorboardWriter(cfg)
+        wandb_utils.init(cfg)
+    try:
+        _train_epochs(cfg, trainer, multigrid, start_epoch, train_loader, val_loader, train_meter, val_meter,
+                      mixup_fn, tb_writer)
+    finally:
+        if tb_writer is not None:
+            tb_writer.close()
+        if mesh.rank == 0:
+            wandb_utils.finish()
+    return module
+
+
+def _train_epochs(cfg, trainer: Trainer, multigrid, start_epoch: int, train_loader, val_loader, train_meter,
+                  val_meter, mixup_fn, tb_writer) -> None:
+    """``train``'s epoch loop."""
+    module, optimizer, lr_at = trainer.module, trainer.optimizer, trainer.lr_at
+    train_step, eval_step = trainer.train_step, trainer.eval_step
+    multi_head, device, mesh = trainer.multi_head, trainer.device, trainer.mesh
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        rotated = rotate_chunked_csv(cfg, cur_epoch, mesh.data_rank, mesh.data)
+        if rotated is not None:  # the meters keep their epoch-0 construction, as in vtm
+            train_loader = rotated
         if multigrid is not None and cfg.MULTIGRID.LONG_CYCLE and _follow_long_cycle(cfg, multigrid, cur_epoch,
                                                                                      module):
             # the train loader and its meter for the new batch
@@ -513,7 +566,7 @@ def train(cfg, device: Optional[torch.device | str] = None):
             train_meter = type(train_meter)(len(train_loader), cfg)
         shuffle_dataset(train_loader, cur_epoch)
         train_epoch(train_loader, train_step, optimizer, lr_at, cur_epoch, train_meter, cfg,
-                    device, multi_head, mixup_fn=mixup_fn, mesh=mesh)
+                    device, multi_head, mixup_fn=mixup_fn, mesh=mesh, tb_writer=tb_writer)
         is_ckpt = (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0
         is_eval = (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0
         refresh_bn_stats(cfg, module, train_loader, device, cur_epoch, mesh, is_ckpt or is_eval)
@@ -526,7 +579,6 @@ def train(cfg, device: Optional[torch.device | str] = None):
             val_meter.reset()
         elif is_eval and not cfg.MASK.ENABLE:  # pretraining has no classification eval
             eval_epoch(val_loader, eval_step, val_meter, cur_epoch, device, multi_head, mesh, cfg.DATA.MULTI_LABEL)
-    return module
 
 
 def _follow_long_cycle(cfg, multigrid: MultigridSchedule, epoch: int, module) -> bool:
