@@ -306,11 +306,20 @@ Phases, each printing one JSON line:
                   ranks, stats equal to one process's. One JSON line a
                   check, with seconds; the ranks' launches count in the
                   kernels line
+     tp        -- tensor parallelism (2 gloo ranks, one model group,
+                  probes run in dist's launch): TimeSformer, Motionformer
+                  (merged and unmerged) and MViTv2-S serving at B8 bf16
+                  against one process (logits, Matchings, K5a 12 and K3
+                  10 / 12 a rank at 6 heads); one bf16 B4 train step each,
+                  every leaf's gradient against one process's fp32 one
+                  within twice one process's bf16 error, the parameters
+                  one process's optimizer step on those gradients;
+                  LOG_MODEL_INFO of VideoMAE ViT-B, card GFLOP = CPU
      ab_dense  -- the A/B entry point (vtm_torch.tools.ab_dense --exp all,
                   one repeat of three calls a row): every row checked
                   against its plain version as it is printed, all twelve
                   launched
-Each serve, eval, train, dist or vis phase, and ab_dense, sets the kernels' launch counts
+Each serve, eval, train, dist, tp or vis phase, and ab_dense, sets the kernels' launch counts
 to 0 just before it and reads them just after (dist adds its spawned ranks'). Then a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and the script exits
 nonzero without the last line.
@@ -372,6 +381,8 @@ from vtm_torch.parallel import probes
 from vtm_torch.parallel.launch import launch_job
 from vtm_torch.tools import ab_dense
 from vtm_torch.tools.kernel_times import FWD_DIGEST_CASES, device_ms, forward_digests
+from vtm_torch.train.lr_policy import get_lr_at_epoch
+from vtm_torch.utils import model_info
 from vtm_torch.tools import test_net
 from vtm_torch.tools.model_benchmark import model_benchmark, perform_benchmark
 from vtm_torch.tools import train_net
@@ -1220,6 +1231,18 @@ DIST_LOSS_REL = 5e-3
 DIST_FLIP_SHARE = 0.01
 DIST_HEADS = 6  # ViT-B's 12 heads cut 2 ways
 DIST_EPOCH = 5.0  # the EPIC config's warm-up starts at lr 0: its step at the end of the warm-up
+TP_OUT = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
+TP_TRAIN_BATCH = 4  # clips of a tensor-parallel train step (both ranks take all of them)
+# A tensor-parallel bf16 train step's gradient, leaf by leaf, against one
+# process's fp32 gradient: within TP_GRAD_FACTOR times one process's own
+# bf16 error on that leaf (at least the median leaf's). A missing or doubled
+# all-reduce leaves a leaf some 0.5 to 1 of its norm away. Its parameters
+# after the step: one process's optimizer step on the ranks' gradients,
+# within TP_REPLAY_TOL (the same elementwise arithmetic on cut pieces).
+TP_GRAD_FACTOR = 2.0
+TP_REPLAY_TOL = 1e-6
+# XLA's cost analysis of vtm's VideoMAE ViT-B forward on the TPU (BENCH_DETAIL.json), GFLOP a clip
+XLA_GFLOPS_PER_CLIP = {"unmerged": 365.6, "merged": 151.7}
 
 
 # The slowfast phase (the conv families, fp32 as vtm computes them): the
@@ -3255,30 +3278,36 @@ def matching_agreement(a: list, b: list) -> list:
     return shares
 
 
-def dist_serve_check(name: str, ones: dict, ranks: dict, counts: dict, k1_per_forward: dict, seconds: list,
-                     smi: str):
-    """Tensor-parallel serving on two ranks, merged and unmerged, against
-    the one-process forward of the same bf16 weights. Exact: the token
-    counts, the K1 launches a rank at 6 heads, both ranks' logits and
+def dist_serve_check(name: str, ones: dict, ranks: dict, counts: dict, per_forward, seconds: list, smi: str,
+                     counter: str = "LAUNCHES", heads_key: str = "k1_heads"):
+    """Tensor-parallel serving on two ranks (merged and unmerged, or the
+    labels ``ranks`` has) against the one-process forward of the same bf16
+    weights. Exact: the token counts (``counts[label]``, and the one
+    process's), the kernel's launches a rank (``counter``, ``per_forward``;
+    none where ``counter`` is None) at 6 heads, both ranks' logits and
     Matchings. The logits: no further from the one-process fp32 forward's
     than twice the one-process bf16 forward is (or BF16_FLOOR of their
     largest): the cut's partial sums round like any other bf16 product,
     and a merged forward may flip a near tie that bf16 flips as well."""
     rows = {}
-    for label in ("merged", "unmerged"):
-        got_ranks, one = ranks[label], ones[label]
+    for label, got_ranks in ranks.items():
+        one = ones[label]
         for r, got in enumerate(got_ranks):
             check(got["mesh"] == {"data": 1, "model": 2}, f"{name} {label}: mesh {got['mesh']}")
-            check(tuple(got["tokens"]) == tuple(counts[label]) == tuple(one["bf16"]["tokens"]),
+            check(tuple(got["tokens"]) == tuple(one["bf16"]["tokens"])
+                  and (counts is None or tuple(got["tokens"]) == tuple(counts[label])),
                   f"{name} {label} rank {r}: tokens {got['tokens']}")
-            check(got["launches"]["LAUNCHES"] == k1_per_forward[label], f"{name} {label} rank {r}: K1 {got['launches']}")
-            check(set(got["k1_heads"]) == {DIST_HEADS} and len(got["k1_heads"]) == k1_per_forward[label],
-                  f"{name} {label} rank {r}: K1 heads {got['k1_heads']}")
+            if counter is not None:
+                seen = got["seen"].get(heads_key, [])
+                check(got["launches"][counter] == per_forward[label], f"{name} {label} rank {r}: {got['launches']}")
+                check(set(seen) == {DIST_HEADS} and len(seen) == per_forward[label],
+                      f"{name} {label} rank {r}: heads {seen}")
             check(torch.equal(got["logits"], got_ranks[0]["logits"]), f"{name} {label}: rank {r}'s logits differ")
             check_matchings_agree(f"{name} {label} rank {r} against rank 0", got["matchings"],
                                   got_ranks[0]["matchings"])
             check((len(got["matchings"]) > 0) == (label == "merged"), f"{name} {label}: Matchings made")
-        check(set(one["bf16"]["k1_heads"]) == {2 * DIST_HEADS}, f"{name} {label}: one-process K1 heads")
+        if counter is not None:
+            check(set(one["bf16"]["seen"].get(heads_key, [])) == {2 * DIST_HEADS}, f"{name} {label}: one-process heads")
         logits, bf16, fp32 = got_ranks[0]["logits"], one["bf16"]["logits"], one["fp32"]["logits"]
         check(bool(torch.isfinite(logits).all()) and logits.shape == bf16.shape, f"{name} {label}: logits")
         err = float((logits - fp32).abs().max())
@@ -3289,21 +3318,24 @@ def dist_serve_check(name: str, ones: dict, ranks: dict, counts: dict, k1_per_fo
         rows[label] = dict(logits_max_abs_err_vs_fp32=err, one_process_bf16_err_vs_fp32=bf16_err, tol=tol,
                            logits_max_abs_err_vs_one_process_bf16=float((logits - bf16).abs().max()),
                            logits_largest=scale, tokens=got_ranks[0]["tokens"],
-                           k1_launches_per_rank=got_ranks[0]["launches"]["LAUNCHES"],
+                           launches_per_rank=got_ranks[0]["launches"],
                            matching_agreement_with_one_process=matching_agreement(
                                got_ranks[0]["matchings"], one["bf16"]["matchings"]))
+    first = next(iter(ranks.values()))[0]
     emit(f"dist_{name}", seconds=seconds, ranks=2, backend="gloo", mesh={"data": 1, "model": 2}, batch=8,
-         k1_heads=DIST_HEADS, matchings_equal_across_ranks=True, **rows,
-         cut_shapes={k: list(v) for k, v in list(ranks["merged"][0]["cut_shapes"].items())[:3]},
+         heads_a_rank=DIST_HEADS if counter is not None else None, kernel_counter=counter,
+         matchings_equal_across_ranks=True, **rows,
+         cut_shapes={k: list(v) for k, v in list(first["cut_shapes"].items())[:3]},
          dtype="bfloat16", nvidia_smi=smi)
 
 
-def one_process_serves(cfg_fn, video) -> dict:
+def one_process_serves(cfg_fn, video, labels=("merged", "unmerged")) -> dict:
     """The one-process forwards a tensor-parallel serve is held against:
-    merged and unmerged, bf16 and fp32."""
+    merged and unmerged (or ``labels``), bf16 and fp32."""
     cuda = torch.device("cuda")
     out = {}
-    for label, opts in (("merged", ()), ("unmerged", ("TOME.ENABLE", "False"))):
+    for label in labels:
+        opts = ("TOME.ENABLE", "False") if label == "unmerged" else ()
         out[label] = {dtype: probes.eval_probe(cfg_fn("TEST.BATCH_SIZE", "8", "TPU.COMPUTE_DTYPE", dtype, *opts),
                                                cuda, None, video)
                       for dtype in ("bfloat16", "float32")}
@@ -3312,12 +3344,14 @@ def one_process_serves(cfg_fn, video) -> dict:
     return out
 
 
-def phase_dist(smi: str) -> dict:
+def phase_dist(smi: str) -> tuple:
     """The parallel paths (``vtm_torch/parallel``) at ViT-B width and depth,
     bf16, B8, through the entry points' own code: ``train_net``'s trainer,
     ``probes.eval_probe``'s cut model and ``test_net.test``, each against
-    the same run in this process. Returns the kernels' launches in the
-    phase, the ranks' included."""
+    the same run in this process. Its gloo ranks run ``tp_plan``'s probes
+    too, after their own (the launch's seconds include them). Returns the
+    kernels' launches in the phase, the ranks' included, and (each rank's
+    ``tp`` parts, their context) for ``phase_tp``."""
     shutil.rmtree(DIST_OUT, ignore_errors=True)
     cuda = torch.device("cuda")
     zero_launch_counts()  # this path's counts start here
@@ -3374,6 +3408,7 @@ def phase_dist(smi: str) -> dict:
                  for n in ("test_one", "test_two")}
     for n in eval_cfgs:
         (DIST_OUT / n).mkdir(parents=True)
+    tp_probes, tp_context = tp_plan()
     plan = [
         ("train", dp_cfg, (None, dp_frames, dp_labels), dict(want_state=False, checkpoint_dir=str(DIST_OUT / "dp"))),
         ("eval", main_cfg(*tp), (None, video), {}),
@@ -3382,10 +3417,12 @@ def phase_dist(smi: str) -> dict:
         ("eval", vivit_cfg(*tp, *unmerged), (None, vivit_video), {}),
         ("test_net", eval_cfgs["test_two"], (), {}),
     ]
+    own = len(plan)
     t0 = time.perf_counter()
     gloo = launch_job(dp_cfg, dist_rank, ["cuda:0", "cuda:0"], backend="gloo", timeout=DIST_TIMEOUT,
-                      join_timeout=DIST_JOIN_TIMEOUT, args=("gloo", plan))
+                      join_timeout=DIST_JOIN_TIMEOUT, args=("gloo", plan + tp_probes))
     gloo_seconds = time.perf_counter() - t0
+    tp_parts, gloo = [rank[own:] for rank in gloo], [rank[:own] for rank in gloo]
     for rank in gloo:
         for part in rank:
             for c in COUNTERS:
@@ -3460,7 +3497,7 @@ def phase_dist(smi: str) -> dict:
           f"dist: another path's kernels: {total}")
     shutil.rmtree(DIST_OUT, ignore_errors=True)
     emit("dist", seconds_gloo_launch=gloo_seconds, launches=total, ranks_launches=ranks_launched, nvidia_smi=smi)
-    return total
+    return total, (tp_parts, tp_context)
 
 
 def dist_rank(cfg, device, backend: str, plan) -> list:
@@ -3477,6 +3514,210 @@ def dist_rank(cfg, device, backend: str, plan) -> list:
         part["launches"] = {c: n - before[c] for c, n in probes.launch_counts().items()}
         out.append(part)
     return out
+
+
+def replay_step(cfg, grads: dict) -> dict:
+    """One process's optimizer step for ``cfg`` from the seeded start that
+    ``build_trainer`` makes, at DIST_EPOCH's learning rate, on the given
+    gradients (by name): the parameters after, fp32 on the CPU."""
+    trainer = build_trainer(cfg)
+    set_lr(trainer.optimizer, trainer.lr_at(DIST_EPOCH))
+    for n, p in trainer.module.named_parameters():
+        p.grad = grads[n].to(p.device, p.dtype)
+    trainer.optimizer.step()
+    return {n: p.detach().float().cpu() for n, p in trainer.module.named_parameters()}
+
+
+def relative_error(got: np.ndarray, want: np.ndarray) -> float:
+    """||got - want|| / ||want|| in fp64 (want not all zero)."""
+    want = want.astype(np.float64)
+    return float(np.linalg.norm(got.astype(np.float64) - want) / np.linalg.norm(want))
+
+
+def tp_train_check(name: str, cfg_fn, opts, got_ranks: list, frames, labels, fwd: str, bwd, per_step: int,
+                   seconds: list, smi: str, zero_gradients=()) -> dict:
+    """A tensor-parallel train step (two ranks, one model group, B4, bf16)
+    against one process, leaf by leaf: the loss within DIST_LOSS_REL of
+    one process's bf16 loss; each parameter's gradient on the ranks
+    (gathered whole) within TP_GRAD_FACTOR times one process's own bf16
+    gradient error on that leaf, both by relative L2 norm against one
+    process's fp32 gradient, that error taken at least at the median
+    leaf's; a gradient zero in fp32 zero on the ranks too (the parameters in
+    ``zero_gradients``, zero analytically, are rounding noise in every run
+    and not compared); the ranks' parameters after the step one process's
+    optimizer step on the ranks' gradients within TP_REPLAY_TOL. The
+    kernels' launches a rank (``fwd``, ``bwd``: counters, or None) as one
+    process's. Returns each leaf's (ranks', one process's) gradient error."""
+    cuda = torch.device("cuda")
+    cfg = cfg_fn(*opts)
+    one = probes.train_probe(cfg, cuda, None, frames, labels, generators=True, epoch=DIST_EPOCH)
+    fp32 = probes.train_probe(cfg_fn(*opts, "TPU.COMPUTE_DTYPE", "float32"), cuda, None, frames, labels,
+                              generators=True, epoch=DIST_EPOCH)["grads"]
+    lr = get_lr_at_epoch(cfg, DIST_EPOCH)
+    check(lr > 0, f"tp {name}: lr {lr} at epoch {DIST_EPOCH}")
+    for r, got in enumerate(got_ranks):
+        check(got["mesh"] == {"data": 1, "model": 2} and got["loss"] == got_ranks[0]["loss"], f"tp {name} rank {r}")
+        for counter in (fwd, bwd):
+            if counter is not None:
+                check(got["launches"][counter] == one["launches"][counter] == per_step,
+                      f"tp {name} rank {r}: {counter} {got['launches']} one process {one['launches']}")
+    loss_err = abs(got_ranks[0]["loss"] - one["loss"])
+    check(loss_err <= DIST_LOSS_REL * abs(one["loss"]), f"tp {name}: loss {got_ranks[0]['loss']} {one['loss']}")
+
+    grads = torch.load(TP_OUT / name / "grads.pt", map_location="cpu", weights_only=True)
+    check(grads.keys() == fp32.keys(), f"tp {name}: the ranks' gradients name other parameters")
+    leaves, zero = {}, 0
+    for pname, want in fp32.items():
+        if any(z in pname for z in zero_gradients):
+            continue
+        got = grads[pname].numpy()
+        if not want.any():
+            check(not got.any(), f"tp {name}: {pname}'s gradient is zero in one process, not on the ranks")
+            zero += 1
+            continue
+        leaves[pname] = (relative_error(got, want), relative_error(one["grads"][pname], want))
+    floor = float(np.median([e for _, e in leaves.values()]))
+    ratio = {n: t / (TP_GRAD_FACTOR * max(o, floor)) for n, (t, o) in leaves.items()}
+    worst_leaf = max(ratio, key=ratio.get)
+    check(ratio[worst_leaf] <= 1.0, f"tp {name}: {worst_leaf}'s gradient {leaves[worst_leaf][0]} from fp32's, "
+          f"one process's {leaves[worst_leaf][1]} (median leaf {floor})")
+
+    saved = torch.load(got_ranks[0]["checkpoint"], map_location="cpu", weights_only=True)["model_state"]
+    replayed = replay_step(cfg, grads)
+    replay_err = max(float((saved[n].float() - p).abs().max()) for n, p in replayed.items())
+    check(replay_err <= TP_REPLAY_TOL, f"tp {name}: the ranks' parameters {replay_err} from one process's "
+          "optimizer step on the ranks' gradients")
+    row = dict(seconds=seconds, ranks=2, backend="gloo", mesh={"data": 1, "model": 2}, clips=len(frames),
+               loss=got_ranks[0]["loss"], one_process_loss=one["loss"], loss_abs_err=loss_err,
+               grad_leaves=len(leaves), grad_leaves_zero=zero, grad_leaves_noise=len(fp32) - len(leaves) - zero,
+               grad_rel_err_max=max(t for t, _ in leaves.values()),
+               grad_rel_err_one_process_median=floor, grad_rel_err_one_process_max=max(o for _, o in leaves.values()),
+               # the leaves bf16 cannot resolve: one process's own error above a quarter
+               grad_leaves_one_process_over_quarter=sum(o > 0.25 for _, o in leaves.values()),
+               ranks_over_one_process_max=max(t / max(o, floor) for t, o in leaves.values()),
+               worst_leaf=worst_leaf, worst_leaf_errs=leaves[worst_leaf],
+               worst_leaf_share_of_limit=ratio[worst_leaf], replay_max_abs_err=replay_err, lr=lr,
+               launches_per_rank=got_ranks[0]["launches"], cut_parameters=len(got_ranks[0]["cut_shapes"]),
+               checkpoint="whole", nvidia_smi=smi)
+    emit(f"tp_{name}_train", **row)
+    del saved, one, fp32, grads, replayed
+    torch.cuda.empty_cache()
+    return leaves
+
+
+def tp_plan() -> tuple:
+    """The ``tp`` phase's probes for two gloo ranks sharing the card as one
+    model group (they run in the ``dist`` phase's launch, after its own, so
+    that the ranks start once), and what its checks need. Serving at B8,
+    bf16: TimeSformer ViT-B 8 x 224 and Motionformer ViT-B 16 x 224 (r 18,
+    merged and unmerged), MViTv2-S 16 x 4; one train step each at B4."""
+    shutil.rmtree(TP_OUT, ignore_errors=True)
+    tp = ("TPU.MODEL_PARALLEL", "2", "TEST.BATCH_SIZE", "8")
+    unmerged = ("TOME.ENABLE", "False")
+    videos = dict(ts=np.random.default_rng(31).random((8, 8, 224, 224, 3), dtype=np.float32),
+                  mf=np.random.default_rng(32).random((8, 16, 224, 224, 3), dtype=np.float32),
+                  mvit=np.random.default_rng(33).random((8, 16, 224, 224, 3), dtype=np.float32))
+    # all three steps in bf16, as users train; tp_train_check holds their
+    # gradients, not the optimizer's moves (a first AdamW step moves an
+    # element by lr whatever its gradient's size)
+    trains = {
+        "timesformer": (ts_train_cfg, TS_TRAIN_STEP_OPTS, "BLOCKDIAG_LAUNCHES", "BLOCKDIAG_BWD_LAUNCHES",
+                        TS_K5_PER_FORWARD["merged"], ()),
+        "motionformer": (mf_train_cfg, MF_TRAIN_STEP_OPTS, "FRAME_LAUNCHES", "FRAME_BWD_LAUNCHES",
+                         MF_K3_PER_FORWARD["merged"], MF_ZERO_GRADIENTS),
+        "mvit": (mvit_cfg, MVIT_RUN_OPTS, None, None, 0, ("attn.norm_k.bias",)),
+    }
+    batches, plan = {}, [
+        ("eval", ts_cfg(*tp), (None, videos["ts"]), {}),
+        ("eval", ts_cfg(*tp, *unmerged), (None, videos["ts"]), {}),
+        ("eval", mf_cfg(*tp), (None, videos["mf"]), {}),
+        ("eval", mf_cfg(*tp, *unmerged), (None, videos["mf"]), {}),
+        ("eval", mvit_cfg(*tp), (None, videos["mvit"]), {}),
+    ]
+    for name, (cfg_fn, opts, *_) in trains.items():
+        cfg = cfg_fn(*opts, "TRAIN.BATCH_SIZE", str(TP_TRAIN_BATCH))
+        batches[name] = dist_batch(cfg, TP_TRAIN_BATCH)
+        (TP_OUT / name).mkdir(parents=True)
+        plan.append(("train", cfg_fn(*opts, "TRAIN.BATCH_SIZE", str(TP_TRAIN_BATCH), "TPU.MODEL_PARALLEL", "2"),
+                     (None, *batches[name]), dict(want_state=False, generators=True, epoch=DIST_EPOCH,
+                                                  checkpoint_dir=str(TP_OUT / name),
+                                                  grads_file=str(TP_OUT / name / "grads.pt"))))
+    return plan, dict(videos=videos, trains=trains, batches=batches)
+
+
+def phase_tp(smi: str, gloo: list, context: dict) -> dict:
+    """Tensor parallelism beyond VideoMAE and ViViT at full width: the
+    ranks' results of ``tp_plan`` (``gloo``: each rank's parts) against the
+    same runs in this process. Serving: K5a 12 and K3 10 / 12 launches a
+    rank at 6 heads, MViTv2-S's one-head first block whole. Train steps,
+    all bf16 (``tp_train_check``): K5a + K5b, K3 + K4, MViT's plain
+    products. Then
+    ``LOG_MODEL_INFO``'s statistics of VideoMAE ViT-B merged and unmerged:
+    the card's GFLOP (the kernels' own products added) equal to the CPU
+    count of the same model. Returns the kernels' launches in the phase,
+    the ranks' included."""
+    t_phase = time.perf_counter()
+    zero_launch_counts()  # this path's counts start here
+    ranks_launched = dict.fromkeys(COUNTERS, 0)
+    unmerged = ("TOME.ENABLE", "False")
+    videos, trains, batches = context["videos"], context["trains"], context["batches"]
+    ts_video, mf_video, mvit_video = videos["ts"], videos["mf"], videos["mvit"]
+    for rank in gloo:
+        for part in rank:
+            for c in COUNTERS:
+                ranks_launched[c] += part["launches"][c]
+    seconds = lambda i: [rank[i]["seconds"] for rank in gloo]  # noqa: E731
+    result = lambda i: [rank[i]["result"] for rank in gloo]  # noqa: E731
+
+    dist_serve_check("tp_timesformer", one_process_serves(ts_cfg, ts_video),
+                     {"merged": result(0), "unmerged": result(1)}, None, TS_K5_PER_FORWARD,
+                     seconds(0) + seconds(1), smi, counter="BLOCKDIAG_LAUNCHES", heads_key="k5a_heads")
+    dist_serve_check("tp_motionformer", one_process_serves(mf_cfg, mf_video),
+                     {"merged": result(2), "unmerged": result(3)}, None, MF_K3_PER_FORWARD,
+                     seconds(2) + seconds(3), smi, counter="FRAME_LAUNCHES", heads_key="k3_heads")
+    mvit_ranks = result(4)
+    whole = [n for n in ("blocks.0.attn.qkv.weight", "blocks.1.attn.qkv.weight") if n not in mvit_ranks[0]["cut_shapes"]]
+    check(whole == ["blocks.0.attn.qkv.weight"], f"tp mvit: attentions left whole {whole}")
+    dist_serve_check("tp_mvit", one_process_serves(mvit_cfg, mvit_video, labels=("unmerged",)),
+                     {"unmerged": mvit_ranks}, None, None, seconds(4), smi, counter=None)
+    for i, (name, (cfg_fn, opts, fwd, bwd, per_step, zero)) in enumerate(trains.items()):
+        tp_train_check(name, cfg_fn, (*opts, "TRAIN.BATCH_SIZE", str(TP_TRAIN_BATCH)), result(5 + i),
+                       *batches[name], fwd, bwd, per_step, seconds(5 + i), smi, zero)
+
+    # LOG_MODEL_INFO: VideoMAE ViT-B on the card, its count against the CPU's
+    info = {}
+    for label, opts in (("merged", ()), ("unmerged", unmerged)):
+        cfg = main_cfg("TEST.BATCH_SIZE", "1", *opts)
+        bundle = build_model(cfg, torch.device("cuda"))
+        before = launch_counts()
+        stats = model_info.log_model_info(bundle, cfg)
+        k1 = flash_attention.LAUNCHES - before["LAUNCHES"]
+        del bundle
+        # the same model on the CPU, in fp32 (the dtype changes no product)
+        cpu_cfg = main_cfg("TEST.BATCH_SIZE", "1", "TPU.COMPUTE_DTYPE", "float32", *opts)
+        sample = torch.zeros((1, cpu_cfg.DATA.NUM_FRAMES, 224, 224, 3))
+        cpu_module = build_model(cpu_cfg, torch.device("cpu")).module
+        cpu_flops = model_info.flop_count(cpu_module, sample)
+        check(stats["gflops_per_clip"] == round(cpu_flops / 1e9, 3),
+              f"model info {label}: card {stats['gflops_per_clip']} GFLOP, CPU {cpu_flops / 1e9}")
+        check(k1 == (MERGED_K1_PER_FORWARD if label == "merged" else 12), f"model info {label}: {k1} K1 launches")
+        check(stats["params"] == model_info.params_count(cpu_module) and stats["hbm_bytes_limit"] > 0,
+              f"model info {label}: {stats}")
+        info[label] = dict(stats, cpu_gflops=cpu_flops / 1e9, k1_launches=k1,
+                           xla_gflops_per_clip=XLA_GFLOPS_PER_CLIP[label])
+        del cpu_module
+        torch.cuda.empty_cache()
+    emit("tp_model_info", **info, nvidia_smi=smi)
+
+    total = launch_counts()  # read right after the path ran
+    for c in COUNTERS:
+        total[c] += ranks_launched[c]
+    for c in ("FRAME_LAUNCHES", "FRAME_BWD_LAUNCHES", "BLOCKDIAG_LAUNCHES", "BLOCKDIAG_BWD_LAUNCHES"):
+        check(ranks_launched[c] > 0, f"tp: {c} never launched on the ranks")
+    shutil.rmtree(TP_OUT, ignore_errors=True)
+    emit("tp", seconds=time.perf_counter() - t_phase, rank_seconds=[sum(p["seconds"] for p in rank) for rank in gloo],
+         launches=total, ranks_launches=ranks_launched, nvidia_smi=smi)
+    return total
 
 
 def fixed_batch(cfg):
@@ -4337,11 +4578,11 @@ def pool_conv_shapes(module, cfg, *inputs) -> dict:
     counts = {}
     real = mvit_model.attention_pool
 
-    def recording(x, thw, kernel, stride, mode, has_cls, conv=None, norm=None, pad_override=None):
+    def recording(x, thw, kernel, stride, mode, has_cls, *args, **kwargs):
         if mode == "conv" and kernel:
             key = ((x.shape[0] * x.shape[1], x.shape[3]) + tuple(thw), tuple(kernel), tuple(stride))
             counts[key] = counts.get(key, 0) + 1
-        return real(x, thw, kernel, stride, mode, has_cls, conv, norm, pad_override)
+        return real(x, thw, kernel, stride, mode, has_cls, *args, **kwargs)
 
     t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
     with patched(mvit_model, attention_pool=recording), torch.inference_mode():
@@ -5924,9 +6165,15 @@ def main() -> int:
     frame_bwd_launches = phase_train(smi, **MOTIONFORMER_TRAIN)
     blockdiag_bwd_launches = phase_train(smi, **TIMESFORMER_TRAIN)
     bwd_launches += phase_train(smi, **VIVIT_TRAIN)
-    dist = phase_dist(smi)
+    dist, tp_parts = phase_dist(smi)
     launches += dist["LAUNCHES"]
     bwd_launches += dist["BWD_LAUNCHES"]
+    tp = phase_tp(smi, *tp_parts)
+    launches += tp["LAUNCHES"]
+    frame_launches += tp["FRAME_LAUNCHES"]
+    frame_bwd_launches += tp["FRAME_BWD_LAUNCHES"]
+    blockdiag_launches += tp["BLOCKDIAG_LAUNCHES"]
+    blockdiag_bwd_launches += tp["BLOCKDIAG_BWD_LAUNCHES"]
     phase_slowfast(smi)
     phase_ptv(smi)
     phase_multigrid(smi)

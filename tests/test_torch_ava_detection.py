@@ -431,12 +431,13 @@ def test_without_boxes(tree, tmp_path):
 
 
 def test_detection_runs_in_one_process_and_refuses_model_parallel(tree, tmp_path):
-    """``TPU.MODEL_PARALLEL`` 2 raises naming item 15 (no cuts for the conv
-    families); the entry points size the process group to one process; the
-    eval step gives each box its sigmoid row without autograd."""
+    """``TPU.MODEL_PARALLEL`` 2 raises with the reason (detection runs in one
+    process, as ``vtm``'s detection step does); the entry points size the
+    process group to one process; the eval step gives each box its sigmoid
+    row without autograd."""
     cfg, _ = cfgs(conv_opts("SlowFast", "slowfast") + ava_data_opts(tree) + ["TPU.MODEL_PARALLEL", "2",
                                                                              "OUTPUT_DIR", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="detection runs in one process"):
         train_net.train(cfg, device="cpu")
     assert train_net._process_batch(cfg) == 1 and test_net._test_batch(cfg) == 1
     case = DetCase("slow")

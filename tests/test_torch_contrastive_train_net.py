@@ -144,10 +144,11 @@ class _Stopped(Exception):
 
 
 def test_what_the_loop_refuses(tmp_path, monkeypatch):
-    """TPU.MODEL_PARALLEL > 1 names item 15; a process group of more than
-    one raises (one process, as in vtm); a SlowFast backbone refuses the
+    """TPU.MODEL_PARALLEL > 1 raises with the reason (contrastive
+    pretraining runs in one process); a process group of more than one
+    raises (one process, as in vtm); a SlowFast backbone refuses the
     one-pathway views, as vtm's does."""
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="contrastive pretraining runs in one process"):
         train_net.train(_cfg(tmp_path, "TPU.MODEL_PARALLEL", "2"), device="cpu")
     with monkeypatch.context() as m:
         m.setattr(torch.distributed, "is_initialized", lambda: True)

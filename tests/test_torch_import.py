@@ -141,6 +141,60 @@ def _env():
     return env
 
 
+# One fresh interpreter loads numpy and torch (what every module of the
+# package imports first) and forks a child for each job, so that each job
+# runs in a process of its own without paying torch's import again: a job
+# ["import", [modules], [packages]] imports the modules and reports any of
+# the packages loaded; ["main", module, argv] runs ``python -m module argv``.
+# The last line of stdout holds each job's [exit code, message].
+_FORKED = """
+import importlib, json, os, runpy, sys, traceback
+import numpy, torch
+jobs = json.loads(sys.argv[1])
+results = []
+for kind, target, arg in jobs:
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        code, message = 0, ""
+        try:
+            if kind == "import":
+                for module in target:
+                    importlib.import_module(module)
+                bad = sorted(m for m in sys.modules if m.split(".")[0] in arg)
+                if bad:
+                    code, message = 1, repr(bad)
+            else:
+                sys.argv = [target, *arg]
+                runpy.run_module(target, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+            message = "" if isinstance(e.code, int) or e.code is None else str(e.code)
+        except BaseException:
+            code, message = 1, traceback.format_exc()
+        os.write(w, json.dumps([code, message]).encode())
+        os._exit(0)
+    os.close(w)
+    data = b"".join(iter(lambda: os.read(r, 1 << 16), b""))
+    os.close(r)
+    os.waitpid(pid, 0)
+    results.append(json.loads(data))
+print(json.dumps(results))
+"""
+
+
+def forked(jobs: list, env=None) -> list:
+    """Each job's [exit code, message] (``_FORKED``), run in one fresh
+    interpreter."""
+    import json
+
+    proc = subprocess.run([sys.executable, "-c", _FORKED, json.dumps(jobs)], cwd=REPO, env=env or _env(),
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def test_every_module_imports_without_jax():
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_env(),
@@ -187,25 +241,32 @@ ENTRY_POINT_ARGS = {"vtm_torch.tools.ab_dense": ("--exp", "decomp"), "vtm_torch.
                     "vtm_torch.tools.pool_times": ("--exp", "pool")}
 
 
-@pytest.mark.parametrize("module", ["vtm_torch.tools.train_net", "vtm_torch.tools.model_benchmark",
-                                    "vtm_torch.tools.trace_train", "vtm_torch.tools.check_frame_bwd",
-                                    "vtm_torch.tools.check_blockdiag", "vtm_torch.tools.check_ab",
-                                    "vtm_torch.tools.ab_dense", "vtm_torch.tools.check_attention",
-                                    "vtm_torch.tools.kernel_times", "vtm_torch.tools.test_net",
-                                    "vtm_torch.tools.run_net", "vtm_torch.tools.visualization",
-                                    "vtm_torch.tools.demo_net", "vtm_torch.tools.ava_demo_precomputed_boxes",
-                                    "vtm_torch.tools.pool_times"] + list(ANALYSIS_MODULES[-5:]))
-def test_entry_points_refuse_to_run_without_cuda(module):
-    """No CUDA device and no request for the CPU: the entry points raise
-    instead of carrying on on the CPU."""
+ENTRY_POINTS = ["vtm_torch.tools.train_net", "vtm_torch.tools.model_benchmark", "vtm_torch.tools.trace_train",
+                "vtm_torch.tools.check_frame_bwd", "vtm_torch.tools.check_blockdiag", "vtm_torch.tools.check_ab",
+                "vtm_torch.tools.ab_dense", "vtm_torch.tools.check_attention", "vtm_torch.tools.kernel_times",
+                "vtm_torch.tools.test_net", "vtm_torch.tools.run_net", "vtm_torch.tools.visualization",
+                "vtm_torch.tools.demo_net", "vtm_torch.tools.ava_demo_precomputed_boxes",
+                "vtm_torch.tools.pool_times"] + list(ANALYSIS_MODULES[-5:])
+
+
+@pytest.fixture(scope="module")
+def entry_point_runs():
+    """Every entry point run as ``python -m`` without a CUDA device, each in
+    a process of its own (``forked``)."""
     env = _env()
     env["CUDA_VISIBLE_DEVICES"] = ""
-    proc = subprocess.run(
-        [sys.executable, "-m", module, *ENTRY_POINT_ARGS.get(module, ("--opts", "MODEL.MODEL_NAME", "VideoMAE"))],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode != 0
-    assert "CUDA device" in proc.stderr
+    jobs = [["main", m, list(ENTRY_POINT_ARGS.get(m, ("--opts", "MODEL.MODEL_NAME", "VideoMAE")))]
+            for m in ENTRY_POINTS]
+    return dict(zip(ENTRY_POINTS, forked(jobs, env)))
+
+
+@pytest.mark.parametrize("module", ENTRY_POINTS)
+def test_entry_points_refuse_to_run_without_cuda(module, entry_point_runs):
+    """No CUDA device and no request for the CPU: the entry points raise
+    instead of carrying on on the CPU."""
+    code, message = entry_point_runs[module]
+    assert code != 0
+    assert "CUDA device" in message
 
 
 def test_chip_smoke_alone_fails(tmp_path):

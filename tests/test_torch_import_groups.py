@@ -1,10 +1,8 @@
-"""Each module group of the PyTorch package imported alone in a fresh
-process pulls in neither jax nor vtm (the groups are
+"""Each module group of the PyTorch package imported alone in a process of
+its own pulls in neither jax nor vtm (the groups are
 ``tests/test_torch_import.py``'s; the whole package at once is tested
-there)."""
-
-import subprocess
-import sys
+there). The processes are forked from one fresh interpreter that has
+loaded numpy and torch only (``test_torch_import.forked``)."""
 
 import pytest
 
@@ -15,33 +13,37 @@ from test_torch_import import (
     MASKED_MODULES,
     MVIT_MODULES,
     PTV_MODULES,
-    REPO,
     VIS_MODULES,
-    _env,
+    forked,
 )
 
-FOREIGN = "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'simplejson', 'vtm')"
+FOREIGN = ["jax", "jaxlib", "flax", "optax", "orbax", "simplejson", "vtm"]
+ALONE = ANALYSIS_MODULES + PTV_MODULES + MVIT_MODULES + MASKED_MODULES + CONTRASTIVE_MODULES + AVA_MODULES
 
 
-def _import_alone(*modules: str, unloaded=FOREIGN) -> None:
-    code = (f"import sys, {', '.join(modules)}; bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{unloaded}]; assert not bad, bad")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(), capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stderr
+@pytest.fixture(scope="module")
+def imports():
+    """Each module of ALONE imported in a process of its own, then the
+    visualisation tail's modules together in one more: [exit code, the
+    foreign packages loaded] by job."""
+    jobs = [["import", [m], FOREIGN] for m in ALONE]
+    jobs.append(["import", list(VIS_MODULES), FOREIGN + ["matplotlib", "tensorboard", "pandas", "wandb"]])
+    results = forked(jobs)
+    return dict(zip(ALONE, results)), results[-1]
 
 
-@pytest.mark.parametrize("module", ANALYSIS_MODULES + PTV_MODULES + MVIT_MODULES + MASKED_MODULES
-                         + CONTRASTIVE_MODULES + AVA_MODULES)
-def test_analysis_modules_import_without_jax_alone(module):
+@pytest.mark.parametrize("module", ALONE)
+def test_analysis_modules_import_without_jax_alone(module, imports):
     """Each of the new subpackages' modules, and the PTV, multigrid,
     Charades, MViT, masked- and contrastive-pretraining and AVA modules, imported
-    alone in a fresh process, pulls in neither jax nor vtm."""
-    _import_alone(module)
+    alone in a process of its own, pulls in neither jax nor vtm."""
+    code, message = imports[0][module]
+    assert code == 0, message
 
 
-def test_vis_modules_import_without_jax_together():
+def test_vis_modules_import_without_jax_together(imports):
     """The visualisation tail, its drivers, the loggers and the pool timer,
-    imported together in one fresh process; nor matplotlib, tensorboard,
-    pandas or wandb, which they import when a call needs them."""
-    _import_alone(*VIS_MODULES, unloaded=FOREIGN[:-1] + ", 'matplotlib', 'tensorboard', 'pandas', 'wandb')")
+    imported together in one process of its own; nor matplotlib,
+    tensorboard, pandas or wandb, which they import when a call needs them."""
+    code, message = imports[1]
+    assert code == 0, message

@@ -212,11 +212,12 @@ def test_mae_trains_without_loader_masks(tmp_path):
 
 def test_masked_training_runs_in_one_process(monkeypatch):
     """``main`` sizes the process group by a batch of one under
-    ``MASK.ENABLE``; a tensor-parallel width raises by name, as for MViT."""
+    ``MASK.ENABLE``; a tensor-parallel width raises with the reason: masked
+    pretraining runs in one process, as ``vtm``'s step does."""
     cfg, _ = cfgs(mvit_opts(*MAE, "TRAIN.BATCH_SIZE", "8"))
     assert train_net._process_batch(cfg) == 1
     cfg.TPU.MODEL_PARALLEL = 2
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="masked pretraining runs in one process"):
         train_net.build_trainer(cfg, "cpu")
 
 

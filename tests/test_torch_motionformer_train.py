@@ -149,7 +149,8 @@ def test_loss_matching_and_gradients_match_vtm(train_mode, num_classes, r, overr
         want_loss, want_grads = jax.jit(jax.value_and_grad(_jax_loss(jmodel, multi_head)))(
             params, jnp.asarray(video), _to_jax(labels)
         )
-        (want_out, _), inter = jmodel.apply({"params": params}, jnp.asarray(video), capture_intermediates=True)
+        (want_out, _), inter = jax.jit(lambda p, v: jmodel.apply({"params": p}, v, capture_intermediates=True))(
+            params, jnp.asarray(video))
     metrics = []
     hooks = [b.attn.register_forward_hook(lambda m, i, o: metrics.append(o[1])) for b in tmodel.blocks]
     tmodel.train()  # no dropout anywhere: training mode changes nothing

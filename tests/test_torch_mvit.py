@@ -22,6 +22,7 @@ from vtm_torch.checkpoints.convert import mvit_state_dict_from_vtm_params
 from vtm_torch.models import build_model, mvit
 from vtm_torch.models.mvit import MViTModel, linear_resize_weights, mvit_spec_from_cfg, resize_linear
 from vtm_torch.parallel.sharding import check_tensor_parallel
+from vtm_torch.tools import train_net
 
 import chip_smoke
 from torch_conv_cases import assert_close_to_largest, cfgs
@@ -273,14 +274,19 @@ def test_ptv_alias_and_registry():
         assert k == k2 and torch.equal(v, w), k
 
 
+# the id this case has had since the option raised by its item
 @pytest.mark.parametrize("opts, item", [
-    (("TPU.MODEL_PARALLEL", "2"), "item 15"),
+    pytest.param(("TPU.MODEL_PARALLEL", "2"), "needs 2 processes", id="opts0-item 15"),
 ])
 def test_unported_options_raise_naming_their_item(opts, item):
+    """Tensor parallelism is ported for MViT: the check passes, and the
+    trainer called in one process needs the model group's processes (the
+    cut runs: tests/test_torch_parallel_tp_mvit*.py)."""
     cfg, _ = cfgs(mvit_opts(*opts))
-    with pytest.raises(NotImplementedError, match=item):
-        check_tensor_parallel(cfg)
-        build_model(cfg, "cpu")
+    check_tensor_parallel(cfg)
+    assert build_model(cfg, "cpu").module.supports_tensor_parallel
+    with pytest.raises(ValueError, match=item):
+        train_net.build_trainer(cfg, "cpu")
 
 
 def test_detection_builds_the_roi_head():

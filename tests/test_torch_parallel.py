@@ -29,13 +29,24 @@ from vtm_torch.models import build_model
 from vtm_torch.parallel import launch as launch_mod
 from vtm_torch.parallel import mesh
 from vtm_torch.parallel.probes import bundle_of, run_probes
-from vtm_torch.parallel.sharding import Cut, cut_rule, join, take
+from vtm_torch.parallel.sharding import Cut, check_tensor_parallel, cut_rule, join, plan_cuts, take
 from vtm_torch.tools import model_benchmark as mb
 from vtm_torch.tools import test_net as tn
 from vtm_torch.tools import train_net
 from vtm_torch.train.optimizer import construct_optimizer
 
-from torch_parallel_checks import SOLVER, Case, assert_matchings_equal, assert_step_matches, cfgs, launch
+from torch_parallel_checks import (
+    MERGE_POLICY,
+    MOTIONFORMER,
+    SOLVER,
+    TIMESFORMER,
+    Case,
+    TPCase,
+    assert_matchings_equal,
+    assert_step_matches,
+    cfgs,
+    launch,
+)
 
 torch.set_num_threads(2)
 
@@ -117,26 +128,57 @@ def test_backend_rule(backend, want):
         assert mesh.backend_for(backend) == want
 
 
-@pytest.mark.parametrize("family", ["VideoMAE", "ViViT"])
+def _tp_case(family: str):
+    """A tiny model of ``family`` in both packages and the port's module."""
+    if family in ("VideoMAE", "ViViT"):
+        case = Case(family)
+        return case, bundle_of(case.spec, None, torch.device("cpu"), fp32_params=True).module
+    if family.startswith("MViT"):
+        from torch_mvit_cases import BASE, V2
+
+        extra = ("MVIT.SEPARATE_QKV", "True") if family.endswith("separate_qkv") else ("MVIT.NUM_HEADS", "1", *V2)
+        case = TPCase("MViT", opts=[*BASE, *extra])
+    else:
+        arch = TIMESFORMER if family == "TimeSformer" else MOTIONFORMER
+        case = TPCase(family, arch, MERGE_POLICY)
+    return case, bundle_of(case.spec, case.cfg, torch.device("cpu"), fp32_params=True).module
+
+
+@pytest.mark.parametrize("family", ["VideoMAE", "ViViT", "TimeSformer", "Motionformer", "MViT", "MViT-separate_qkv"])
 def test_cut_rules_are_vtms_specs(family):
-    """Every parameter is cut as ``vtm``'s ``tp_param_specs`` cuts it:
-    columns where it says (None, model) or (model,) on a column module, rows
-    where (model, None), whole where replicated; but VideoMAE's q_bias and
-    v_bias, which the port cuts with q and v (whole in vtm)."""
-    case = Case(family)
+    """Every parameter is cut at width 2 (``plan_cuts``) as ``vtm``'s
+    ``tp_param_specs`` cuts it: columns where it says (None, model) or
+    (model,) on a column module, rows where (model, None), whole where
+    replicated; but the departures the port's in-place cuts force
+    (``parallel/sharding.py``): VideoMAE's q_bias and v_bias, cut with q and
+    v; MViT's separate q, k and v, cut by heads; MViT's block-level proj and
+    every parameter of an attention whose one head does not split (block
+    0's), whole."""
+    case, module = _tp_case(family)
     code = {(None, "model"): 1, ("model",): 1, ("model", None): 2, (): 0}
     specs = tp_param_specs(case.params)
     tree = jax.tree_util.tree_map(lambda x, s: np.full(np.shape(x), code[tuple(s)], np.float32), case.params, specs,
                                   is_leaf=lambda s: isinstance(s, jax.sharding.PartitionSpec))
     want = {k: int(v.flat[0]) for k, v in case.named(tree).items()}
-    got = {}
-    for name, state in case.spec[3].items():
-        rule = cut_rule(name, np.ndim(state))
-        got[name] = 0 if rule is None else 1 if rule[0] == 0 else 2
+    rules, _ = plan_cuts(module, 2)
+    got = {name: 0 if rule is None else 1 if rule[0] == 0 else 2 for name, rule in rules.items()}
+    assert sorted(got) == sorted(want)
     differ = {k for k in want if got[k] != want[k]}
-    assert differ == ({n for n in want if n.endswith(("q_bias", "v_bias"))} if family == "VideoMAE" else set())
-    assert all(got[k] == 1 for k in differ)
-    assert cut_rule("blocks.0.attn.qkv.weight", 2) == (0, 3)
+    expected = set()
+    cut_here = set()  # cut in the port, whole in vtm; the rest of ``expected`` the other way
+    if family == "VideoMAE":
+        cut_here = {n for n in want if n.endswith(("q_bias", "v_bias"))}
+    elif family.startswith("MViT"):
+        parts = {n: n.split(".") + ["", "", ""] for n in want}
+        whole_here = {n for n, p in parts.items() if p[0] == "blocks" and p[2] == "proj" and want[n]}  # blocks.{i}.proj
+        if family == "MViT":
+            whole_here |= {n for n in want if n.startswith("blocks.0.attn.") and want[n]}
+        cut_here = {n for n, p in parts.items() if p[2] == "attn" and p[3] in ("q", "k", "v")}
+        expected = whole_here
+    expected = expected | cut_here
+    assert differ == expected
+    assert all(got[k] == (1 if k in cut_here else 0) for k in differ)
+    assert cut_rule("blocks.0.attn.qkv.weight", 2) == (0, 3) and cut_rule("blocks.0.attn.proj_kv.weight", 2) == (0, 2)
 
 
 @pytest.mark.parametrize("dim,parts,ways", [(0, 1, 2), (0, 3, 2), (0, 3, 4), (1, 1, 2), (1, 1, 3)])
@@ -214,13 +256,17 @@ def test_every_parameter_gets_a_gradient(family, tmp_path):
     assert [n for n, p in module.named_parameters() if p.grad is None] == []
 
 
-@pytest.mark.parametrize("family", ["TimeSformer", "Motionformer"])
+@pytest.mark.parametrize("family", ["TimeSformer", "Motionformer", "MViT"])
 @pytest.mark.parametrize("entry", ["train_net", "test_net", "model_benchmark"])
 def test_tensor_parallel_families_not_cut_raise_by_item(family, entry):
+    """The families cut since VideoMAE and ViViT pass every entry point's
+    check and, called in one process, need their model group's processes
+    as VideoMAE does (the cut runs: tests/test_torch_parallel_tp_*.py)."""
     cfg = get_cfg()
     cfg.merge_from_list(["MODEL.MODEL_NAME", family, "TPU.MODEL_PARALLEL", "2"])
+    check_tensor_parallel(cfg)
     run = {"train_net": train_net.build_trainer, "test_net": tn.test, "model_benchmark": mb.model_benchmark}[entry]
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         run(cfg, device="cpu")
 
 

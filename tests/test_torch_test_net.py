@@ -391,14 +391,75 @@ def test_apply_traces_the_source_for_one_call(tmp_path):
     np.testing.assert_array_equal(traced.source.sum(dim=2, keepdim=True).numpy(), traced.size.numpy())
 
 
+# the gap of the port's GFLOP (products, FlopCounterMode) to vtm's (XLA's
+# cost analysis) on the tiny models here: XLA counts the elementwise work
+# too (VideoMAE: the port's 3.2% lower), and counts a convolution's taps
+# that land inside the input only, where the port counts every tap of a
+# padded window (SlowFast at a 32-pixel crop: the port's 22.1% higher)
+GFLOP_GAP = {"VideoMAE": (-0.05, 0.0), "SlowFast": (0.0, 0.25)}
+
+
+def _vtm_model_info(jcfg):
+    """``vtm``'s ``log_model_info`` on its model's shapes (zeros: the counts
+    need no init) and its unrounded FLOPs."""
+    import jax.numpy as jnp
+
+    from vtm.utils.model_info import flop_count as jax_flop_count
+    from vtm.utils.model_info import log_model_info as jax_log_model_info
+
+    bundle = jax_build_model(jcfg, init=False)
+    t, s = jcfg.DATA.NUM_FRAMES, jcfg.DATA.TEST_CROP_SIZE
+    sample = jnp.zeros((1, t, s, s, 3))
+    shapes = jax.eval_shape(lambda: bundle.module.init(jax.random.key(0), sample))
+    variables = jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype), shapes)
+    bundle.params, bundle.batch_stats = variables["params"], variables.get("batch_stats")
+    return jax_log_model_info(bundle, jcfg), jax_flop_count(bundle.module, bundle.params, sample, bundle.batch_stats)
+
+
+def _assert_model_info(got: dict, module, cfg, jcfg, family: str) -> None:
+    from vtm_torch.utils.model_info import flop_count
+
+    want, want_flops = _vtm_model_info(jcfg)
+    assert (got["model"], got["params"], got["param_bytes"]) == (want["model"], want["params"], want["param_bytes"])
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    flops = flop_count(module, torch.zeros(1, t, s, s, 3))
+    assert got["gflops_per_clip"] == round(flops / 1e9, 3)
+    low, high = GFLOP_GAP[family]
+    assert low <= flops / want_flops - 1 <= high, (family, flops, want_flops)
+    assert "hbm_bytes_limit" not in got  # no device memory on the CPU
+
+
+# the ids these cases have had since the options raised by name
 @pytest.mark.parametrize("opts, item", [
-    (("TPU.MODEL_PARALLEL", "2", "MODEL.MODEL_NAME", "Motionformer"), "item 15"),
-    (("LOG_MODEL_INFO", "True"), "item 4"),
-], ids=lambda x: x[0] if isinstance(x, tuple) else x)
-def test_unported_options_raise_by_name(opts, item, tmp_path):
-    cfg, _ = _cfgs(_videomae_opts("OUTPUT_DIR", str(tmp_path), *opts))
-    with pytest.raises(NotImplementedError, match=item):
+    pytest.param(("TPU.MODEL_PARALLEL", "2", "MODEL.MODEL_NAME", "Motionformer"), "needs 2 processes",
+                 id="TPU.MODEL_PARALLEL-item 15"),
+    pytest.param(("LOG_MODEL_INFO", "True"), None, id="LOG_MODEL_INFO-item 4"),
+])
+def test_unported_options_raise_by_name(opts, item, tmp_path, caplog):
+    """Both options run now: a tensor-parallel Motionformer needs its
+    processes (``test`` called in one raises as VideoMAE's would), and
+    ``LOG_MODEL_INFO`` logs ``vtm``'s statistics: the parameter count and
+    bytes equal to ``vtm``'s, the GFLOP a clip within ``GFLOP_GAP`` of
+    ``vtm``'s, on the tiny VideoMAE through ``test`` and on a tiny SlowFast
+    through ``log_model_info``."""
+    cfg, jcfg = _cfgs(_videomae_opts("OUTPUT_DIR", str(tmp_path), *opts))
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            tn.test(cfg, device="cpu")
+        return
+    from torch_conv_cases import tiny_opts
+
+    from vtm_torch.utils.model_info import log_model_info
+
+    with caplog.at_level("INFO"):
         tn.test(cfg, device="cpu")
+    lines = [json.loads(r.getMessage().split("json_stats: ", 1)[1]) for r in caplog.records
+             if '"split": "model_info"' in r.getMessage()]
+    assert len(lines) == 1 and lines[0].pop("split") == "model_info"
+    _assert_model_info(lines[0], build_model(cfg, "cpu").module, cfg, jcfg, "VideoMAE")
+    cfg, jcfg = _cfgs(tiny_opts("SlowFast", "slowfast"))
+    bundle = build_model(cfg, "cpu")
+    _assert_model_info(log_model_info(bundle, cfg), bundle.module, cfg, jcfg, "SlowFast")
 
 
 @pytest.mark.parametrize("opts", [

@@ -147,10 +147,11 @@ def test_loss_matching_and_gradients_match_vtm(num_classes):
     video, labels = _video(2, 1), _labels(num_classes, 2, 2)
 
     with jax.default_matmul_precision("highest"):
-        want_loss, want_grads = jax.value_and_grad(_jax_loss(jmodel, multi_head))(
+        want_loss, want_grads = jax.jit(jax.value_and_grad(_jax_loss(jmodel, multi_head)))(
             params, jnp.asarray(video), _to_jax(labels)
         )
-        _, inter = jmodel.apply({"params": params}, jnp.asarray(video), capture_intermediates=True)
+        _, inter = jax.jit(lambda p, v: jmodel.apply({"params": p}, v, capture_intermediates=True))(
+            params, jnp.asarray(video))
     metrics = []
     hooks = [b.attn.register_forward_hook(lambda m, i, o: metrics.append(o[1])) for b in tmodel.blocks]
     tmodel.train()  # every drop rate is 0: training mode changes nothing
@@ -729,10 +730,11 @@ def test_what_is_not_ported_raises(tmp_path):
     c.merge_from_list(["BN.WEIGHT_DECAY", "0.5", "SOLVER.ZERO_WD_1D_PARAM", "True"])
     assert [g["weight_decay"] for g in topt.construct_optimizer(c, bn)[0].param_groups] == [0.5]
     # TENSORBOARD.ENABLE is ported (tests/test_torch_vis_tail.py::test_train_writes_vtms_scalars);
-    # tensor parallelism beyond VideoMAE and ViViT is not
+    # so is tensor parallelism for Motionformer (tests/test_torch_parallel_tp_motionformer.py):
+    # called in one process it needs the model group's processes
     c = cfg.clone()
     c.merge_from_list(["TPU.MODEL_PARALLEL", "2", "MODEL.MODEL_NAME", "Motionformer"])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         train(c, device="cpu")
     # detection is ported (tests/test_torch_ava_detection.py): VideoMAE has no
     # detection head, and its build raises as vtm's does

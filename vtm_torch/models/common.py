@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vtm_torch.ops.flash_attention import _reference, tome_flash_attention
-from vtm_torch.parallel.sharding import copy_to_model, gather_heads, reduce_from_model
+from vtm_torch.parallel.sharding import copy_to_model, gather_features, reduce_from_model
 
 
 def sinusoid_encoding_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -57,7 +57,7 @@ def aggregate_metric(k: torch.Tensor, head_aggregation: str, group=None) -> torc
     if group is None:
         return k.mean(dim=1) if head_aggregation == "mean" else merge_heads(k)
     if head_aggregation == "concat":
-        return gather_heads(merge_heads(k), group)
+        return gather_features(merge_heads(k).detach(), group)
     total = k.detach().float().sum(dim=1)
     dist.all_reduce(total, group=group)
     return (total / (k.shape[1] * dist.get_world_size(group))).to(k.dtype)

@@ -165,6 +165,8 @@ class ContrastiveModel(nn.Module):
     ``index`` the samples' rows of the banks. The initial queues and banks
     are drawn uniformly in +-1 / sqrt(DIM / 3) from ``seed``."""
 
+    one_process_reason = "contrastive pretraining runs in one process, as vtm's step does"
+
     def __init__(self, backbone: nn.Module, cc: ContrastiveConfig, seed: int = 0):
         super().__init__()
         if cc.type not in ("moco", "byol", "simclr", "swav", "mem"):

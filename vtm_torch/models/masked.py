@@ -274,6 +274,8 @@ class MaskMViT(nn.Module):
     ``forward(x, mask)`` -> (per-depth predictions at every position,
     per-depth boolean masks at feature resolution)."""
 
+    one_process_reason = "masked pretraining runs in one process, as vtm's pretraining step does"
+
     def __init__(self, spec: MViTSpec, pretrain_depth=(15,), pred_hog: bool = True, time_stride_loss: bool = True,
                  decoder_depth: int = 0, decoder_embed_dim: int = 512, dec_kv_kernel=(), dec_kv_stride=(),
                  dtype: torch.dtype = torch.float32, seed: int = 0):
@@ -374,6 +376,8 @@ class MaskMViTMAE(nn.Module):
     ``noise`` replaces the draw: [B, 1, h * w] under the tube, else [rows, L].
     With a loader mask the split follows the ratio, not the mask's count,
     as in ``vtm``. The encoder must not pool and has no relative positions."""
+
+    one_process_reason = "masked pretraining runs in one process, as vtm's pretraining step does"
 
     def __init__(self, spec: MViTSpec, pretrain_depth=(15,), mask_ratio: float = 0.75, rnd_mask: bool = False,
                  per_frame_masking: bool = False, mask_tube: bool = False, time_stride_loss: bool = True,

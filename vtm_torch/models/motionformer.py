@@ -58,6 +58,7 @@ import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -78,11 +79,13 @@ from vtm_torch.models.common import (
     Mlp,
     PatchEmbed2d,
     TubeletEmbed,
+    aggregate_metric,
     merge_heads,
     split_heads,
 )
 from vtm_torch.models.timesformer import _fold_space, _unfold_space
 from vtm_torch.ops.flash_attention import _reference, tome_frame_attention
+from vtm_torch.parallel.sharding import copy_to_model, gather_features
 
 ATTN_LAYERS = ("trajectory", "joint", "divided")
 APPROX_ATTN_TYPES = ("none", "nystrom", "orthoformer", "performer")
@@ -139,7 +142,19 @@ class TrajectoryAttention(nn.Module):
     approximation as plain products) followed by a temporal attention
     along each token's trajectory. ``use_kernel=False`` sends every call
     to the plain product, so the kernel can be checked against it inside a
-    model."""
+    model.
+
+    Under tensor parallelism (``parallel/sharding.py``) it holds its local
+    heads: ``qkv`` cut by heads in q, k and v, ``proj_q`` by heads and
+    ``proj_kv`` by heads in k and v, ``proj`` by rows. The CLS row and the
+    spatial step (K3 or the approximation) run on the local heads; the
+    temporal step's projections take every head's features of the spatial
+    output, so those are gathered first (``gather_features``), and its
+    softmax is per head again. Orthoformer draws the first landmark of
+    every head and keeps its own; Performer seeds its projection from q's
+    sum over the group, so every rank draws the same matrix."""
+
+    model_group = None
 
     def __init__(self, config: MotionformerConfig):
         super().__init__()
@@ -166,15 +181,16 @@ class TrajectoryAttention(nn.Module):
         """x [B, 1 + F*s, D]; ``size`` [(B*F), s, 1] per-pseudo-frame token
         sizes or None; ``generator`` draws orthoformer's first landmark
         (None: row 0). Returns (out [B, 1 + F*s, D], metric [(B*F), s, hd])."""
-        b, n, d = x.shape
+        b, n, _ = x.shape
         h = self.num_heads
-        hd = d // h
         f = num_frames
         nb = n - 1
         s = nb // f
         scale = self.scale
 
-        q, k, v = (split_heads(t, h) for t in self.qkv(x).chunk(3, dim=-1))
+        q, k, v = (split_heads(t, h) for t in self.qkv(copy_to_model(x, self.model_group)).chunk(3, dim=-1))
+        hd = q.shape[-1]
+        d = h * hd  # this rank's features
         # the CLS row attends over every token, itself included
         cls_out = merge_heads(_reference(q[:, :, :1], k, v, None, scale))
 
@@ -205,7 +221,7 @@ class TrajectoryAttention(nn.Module):
         out = self.proj(torch.cat([cls_out, out], dim=1))
 
         # metric: (s f) fold of the body keys, mean over heads
-        return out, _fold_space(k_.mean(dim=1), b, f)
+        return out, _fold_space(aggregate_metric(k_, "mean", self.model_group), b, f)
 
     def approximate(self, q, k, v, num_frames: int, generator: Optional[torch.Generator]):
         """The approximate spatial step on [B*h, N', hd] -> [B*h, N', F, hd]."""
@@ -213,31 +229,44 @@ class TrajectoryAttention(nn.Module):
             return approx.nystrom_spatial_attn(
                 q, k, v, landmarks=self.approx_attn_dim, num_frames=num_frames, use_spatial_landmarks=True
             )
+        group = self.model_group
         if self.approx_attn_type == "orthoformer":
+            init_idx = None
+            if generator is not None and group is not None:  # every head's draw, this rank's heads kept
+                ways, rank = dist.get_world_size(group), dist.get_rank(group)
+                h = self.num_heads
+                drawn = torch.randint(0, q.shape[1], (q.shape[0] * ways,), generator=generator,
+                                      device=generator.device)
+                init_idx = drawn.view(-1, ways * h)[:, rank * h:(rank + 1) * h].reshape(-1)
             return approx.orthoformer(
-                q, k, v, num_landmarks=self.approx_attn_dim, num_frames=num_frames, generator=generator
+                q, k, v, num_landmarks=self.approx_attn_dim, num_frames=num_frames, init_idx=init_idx,
+                generator=generator,
             )
-        return approx.performer_attention(q, k, v, num_frames, m=PERFORMER_FEATURES)
+        # the seed of the whole q over the group, as one process draws it
+        return approx.performer_attention(q, k, v, num_frames, m=PERFORMER_FEATURES, group=group)
 
     def temporal(self, xq: torch.Tensor, s: int) -> torch.Tensor:
         """Temporal attention along each token's trajectory: xq [B, N', F, D]
         (the spatial step's output per frame) -> [B, N', D]. The query is
-        the token's own-frame slice."""
+        the token's own-frame slice. Under tensor parallelism xq holds this
+        rank's heads: the projections take every rank's, gathered."""
         b, nb, f, d = xq.shape
         h = self.num_heads
         hd = d // h
         scale = self.scale
+        xq_all = gather_features(xq, self.model_group)
         tokens = torch.arange(nb, device=xq.device)
-        x_diag = xq[:, tokens, tokens // s]  # [B, N', D]
+        x_diag = xq_all[:, tokens, tokens // s]  # [B, N', D * tp]
         q2 = self.proj_q(x_diag)
         if self.use_original_code:
             # v=x typo: proj_kv's v half is never used (its gradient is
             # zero). The cast at use covers fp32 parameters, as in Linear.
+            # Cut by heads in k and v, the k half is this rank's first d rows.
             w, bias = self.proj_kv.weight, self.proj_kv.bias
-            k2 = F.linear(xq, w[:d].to(xq.dtype), None if bias is None else bias[:d].to(xq.dtype))
+            k2 = F.linear(xq_all, w[:d].to(xq.dtype), None if bias is None else bias[:d].to(xq.dtype))
             val2 = xq
         else:
-            k2, val2 = self.proj_kv(xq).chunk(2, dim=-1)
+            k2, val2 = self.proj_kv(xq_all).chunk(2, dim=-1)
         # per-head logits: products in the compute dtype, summed in fp32
         z = (q2 * scale)[:, :, None, :] * k2  # [B, N', F, D]
         logits2 = z.float().view(b, nb, f, h, hd).sum(dim=-1)  # [B, N', F, h]
@@ -248,7 +277,9 @@ class TrajectoryAttention(nn.Module):
 class JointAttention(nn.Module):
     """Joint space-time attention over all tokens (plain products, as in
     ``vtm``; the token sizes and the generator are not used), returning
-    (out, metric)."""
+    (out, metric). Cut for tensor parallelism as VideoMAE's attention."""
+
+    model_group = None
 
     def __init__(self, config: MotionformerConfig):
         super().__init__()
@@ -260,9 +291,10 @@ class JointAttention(nn.Module):
         self.proj = Linear(d, d)
 
     def forward(self, x: torch.Tensor, num_frames: int, size: Optional[torch.Tensor] = None, generator=None):
-        q, k, v = (split_heads(t, self.num_heads) for t in self.qkv(x).chunk(3, dim=-1))
+        qkv = self.qkv(copy_to_model(x, self.model_group))
+        q, k, v = (split_heads(t, self.num_heads) for t in qkv.chunk(3, dim=-1))
         out = self.proj(merge_heads(_reference(q, k, v, None, self.scale)))
-        return out, _fold_space(k.mean(dim=1)[:, 1:], x.shape[0], num_frames)
+        return out, _fold_space(aggregate_metric(k, "mean", self.model_group)[:, 1:], x.shape[0], num_frames)
 
 
 class DividedAttention(nn.Module):
@@ -270,7 +302,10 @@ class DividedAttention(nn.Module):
     CLS query attends over every token; each body query attends within its
     frame (space) or, with ``to_time``, within its spatial position over
     the frames (time), with the CLS key and value prepended to every
-    group. The body is folded exactly (f n), unlike trajectory's (s f)."""
+    group. The body is folded exactly (f n), unlike trajectory's (s f).
+    Cut for tensor parallelism as VideoMAE's attention (it has no metric)."""
+
+    model_group = None
 
     def __init__(self, config: MotionformerConfig):
         super().__init__()
@@ -284,7 +319,7 @@ class DividedAttention(nn.Module):
     def forward(self, x: torch.Tensor, num_frames: int, to_time: bool) -> torch.Tensor:
         b, n, _ = x.shape
         h = self.num_heads
-        q, k, v = (split_heads(t, h) for t in self.qkv(x).chunk(3, dim=-1))
+        q, k, v = (split_heads(t, h) for t in self.qkv(copy_to_model(x, self.model_group)).chunk(3, dim=-1))
         hd = q.shape[-1]
         f = num_frames
         nb = n - 1
@@ -354,6 +389,8 @@ class Motionformer(nn.Module):
     Returns (output, MergeState): class probabilities [B, num_classes]
     fp32, or with ``train_mode`` the raw logits; a (verb, noun) pair of
     them for the twin heads."""
+
+    supports_tensor_parallel = True  # parallel/sharding.py cuts it (not the twin heads)
 
     def __init__(
         self,

@@ -27,6 +27,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 BIG_CONSTANT = 1e8
 UINT32_MAX = 2**32 - 1
@@ -227,13 +228,18 @@ def softmax_kernel_transformation(
     return ratio * (torch.exp(dash - diag[..., None] - stab) + eps)
 
 
-def projection_seed(q: torch.Tensor) -> int:
+def projection_seed(q: torch.Tensor, group=None) -> int:
     """The seed the JAX package derives from q: ceil(|sum(q)| * 1e8),
     computed in q's dtype, cast to uint32. The cast saturates as XLA's
     does: a value above 2^32 - 1 gives 2^32 - 1 and NaN gives 0, so any q
     whose entries sum beyond about 43 in magnitude gets the seed
-    4294967295 (the usual case at ViT-B width)."""
-    value = torch.ceil(torch.abs(q.sum() * BIG_CONSTANT)).item()
+    4294967295 (the usual case at ViT-B width). ``group``: q holds this
+    rank's heads, and the sum is taken over the group's, so that every
+    rank derives one seed."""
+    total = q.detach().sum()
+    if group is not None:
+        dist.all_reduce(total, group=group)
+    value = torch.ceil(torch.abs(total * BIG_CONSTANT)).item()
     return 0 if math.isnan(value) else int(min(value, UINT32_MAX))
 
 
@@ -244,17 +250,19 @@ def performer_attention(
     num_frames: int,
     m: int = 256,
     projection: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """FAVOR+ attention with a normaliser per frame: q, k, v [B, N, D] ->
     [B, N, F, D] in q's dtype (fp32 inside). ``projection`` [m, D] puts in a
-    chosen matrix; without one it is drawn from ``projection_seed(q)``
-    through a CPU ``torch.Generator``, Gaussians and QR on the CPU, then
-    moved to q's device, so one seed gives one matrix on every device. The
-    draws are torch's, not the JAX package's threefry ones."""
+    chosen matrix; without one it is drawn from ``projection_seed(q,
+    group)`` through a CPU ``torch.Generator``, Gaussians and QR on the
+    CPU, then moved to q's device, so one seed gives one matrix on every
+    device and every rank of ``group``. The draws are torch's, not the JAX
+    package's threefry ones."""
     b, n, d = q.shape
     f = num_frames
     if projection is None:
-        generator = torch.Generator().manual_seed(projection_seed(q))
+        generator = torch.Generator().manual_seed(projection_seed(q, group))
         projection = create_projection_matrix(m, d, generator)
     projection = projection.to(device=q.device, dtype=torch.float32)
     m = projection.shape[0]

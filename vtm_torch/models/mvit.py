@@ -52,8 +52,17 @@ normal(0.01) with a zero bias as in ``vtm``); ``forward(x, bboxes=...)``
 returns one row a box, and raises ValueError without boxes. The reversible
 encoder has no detection path (an AssertionError, as in ``vtm``).
 
-Not ported: the tensor-parallel cuts (ROADMAP.md Queue 1, item 15, raised by
-``parallel/sharding.py::check_tensor_parallel``).
+Tensor parallelism (``parallel/sharding.py``): each attention holds its
+local heads (``qkv``, or the separate ``q`` / ``k`` / ``v``, cut by heads;
+``proj`` by rows; ``head_dim`` unchanged), the MLPs are cut as the ViTs',
+and the block-level ``proj`` stays whole. The pooling convs, their norms
+and the relative positions act on every head alike: a rank applies them to
+its own heads through ``copy_to_model``, so their gradients are summed over
+the model group. ``pool_first`` splits its input by the whole head count,
+pools every head on every rank and passes the pooled tensors through ``f``
+into the cut projections. An attention whose heads do not split stays
+whole (``uneven_heads_stay_whole``): MViTv2-S's one-head first block at
+tp 2.
 """
 
 from __future__ import annotations
@@ -66,12 +75,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from vtm_torch.merge.policy import MergePolicy
 from vtm_torch.models.common import LayerNorm, Linear, Mlp, dropout
 from vtm_torch.models.convnet import MLPHead, lecun_normal_, max_pool3d, mlp_head_linears, round_width
 from vtm_torch.models.roi_head import ResNetRoIHead
+from vtm_torch.parallel.sharding import copy_to_model
 
 NORM_EPS = 1e-6
 
@@ -196,14 +207,20 @@ def cal_rel_pos_temporal(attn, q, has_cls, q_shape, k_shape, rel_pos_t):
 # --------------------------------------------------------- pooling attn
 
 
+def _identity(p: torch.Tensor) -> torch.Tensor:
+    return p
+
+
 def attention_pool(x: torch.Tensor, thw, kernel, stride, mode: str, has_cls: bool,
-                   conv: Optional[nn.Conv3d] = None, norm: Optional[nn.Module] = None, pad_override=None):
+                   conv: Optional[nn.Conv3d] = None, norm: Optional[nn.Module] = None, pad_override=None,
+                   shared=_identity):
     """The q/k/v pooling of ``vtm``'s ``AttentionPool`` on [B, H, L, c]:
     ``conv`` (depthwise, in the promoted dtype of x and its kernel, then
     ``norm``), ``max`` (``max_pool3d``) or ``avg`` (padding counted) over [B·H, c, T, H, W]
     (a ``channels_last_3d`` view of the channels-last tokens). The CLS
     token bypasses the pool. Returns (x, the pooled thw). An empty
-    ``kernel`` returns x as it is."""
+    ``kernel`` returns x as it is. ``shared`` maps the conv's and the
+    norm's parameters at their use (``copy_to_model`` on a rank's heads)."""
     if not kernel:
         return x, tuple(thw)
     b, h, _, c = x.shape
@@ -215,7 +232,7 @@ def attention_pool(x: torch.Tensor, thw, kernel, stride, mode: str, has_cls: boo
     pad = tuple(pad_override) if pad_override is not None else tuple(k // 2 for k in kernel)
     if mode == "conv":
         dt = torch.promote_types(x.dtype, conv.weight.dtype)
-        xg = F.conv3d(xg.to(dt), conv.weight.to(dt), None, tuple(stride), pad, 1, conv.groups)
+        xg = F.conv3d(xg.to(dt), shared(conv.weight).to(dt), None, tuple(stride), pad, 1, conv.groups)
     elif mode == "max":
         xg = max_pool3d(xg, kernel, stride, pad)
     elif mode == "avg":
@@ -227,7 +244,7 @@ def attention_pool(x: torch.Tensor, thw, kernel, stride, mode: str, has_cls: boo
     if cls_tok is not None:
         x = torch.cat([cls_tok.to(x.dtype), x], dim=2)
     if mode == "conv" and norm is not None:
-        x = norm(x)
+        x = functional_call(norm, {"weight": shared(norm.weight), "bias": shared(norm.bias)}, (x,))
     return x, new_thw
 
 
@@ -240,7 +257,14 @@ class MultiScaleAttention(nn.Module):
     or ``separate_qkv``, ``pool_first``, kernels of volume 1 (with stride
     1) dropped, the optional external ``x_res`` pooled through the same
     ``pool_q`` / ``norm_q``, residual pooling over every row but the CLS
-    row."""
+    row. Cut for tensor parallelism as the module docstring says: its
+    input (or under ``pool_first`` the pooled tensors) passes ``f`` over
+    ``model_group``, ``num_heads`` is then this rank's (``pool_heads`` the
+    whole count) and the parameters shared by the heads pass ``f`` at use.
+    The external ``x_res`` is whole on every rank and pools with them as
+    they are."""
+
+    model_group = None
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, input_size, qkv_bias: bool, kernel_q, kernel_kv,
                  stride_q, stride_kv, mode: str, has_cls: bool, pool_first: bool, rel_pos_spatial: bool,
@@ -249,7 +273,7 @@ class MultiScaleAttention(nn.Module):
         super().__init__()
         if mode == "conv_unshared":
             raise NotImplementedError("MVIT.MODE conv_unshared is out of scope, as in vtm")
-        self.dtype, self.num_heads, self.dim_out = dtype, num_heads, dim_out
+        self.dtype, self.num_heads, self.pool_heads = dtype, num_heads, num_heads
         self.head_dim = dim_out // num_heads
         self.scale = self.head_dim ** -0.5
         self.mode, self.has_cls, self.pool_first = mode, has_cls, pool_first
@@ -293,10 +317,16 @@ class MultiScaleAttention(nn.Module):
         if rel_pos_temporal:
             self.rel_pos_t = nn.Parameter(torch.zeros(2 * input_size[0] - 1, self.head_dim))
 
-    def _pool(self, nm: str, x: torch.Tensor, thw):
+    def _shared(self, p: torch.Tensor) -> torch.Tensor:
+        """A parameter every head uses, at its use on this rank's heads."""
+        return copy_to_model(p, self.model_group)
+
+    def _pool(self, nm: str, x: torch.Tensor, thw, local: bool = True):
+        """Pool x [B, heads, L, c]; ``local``: x holds this rank's heads."""
         kernel, stride = (self.kernel_q, self.stride_q) if nm == "q" else (self.kernel_kv, self.stride_kv)
         return attention_pool(x, thw, kernel, stride, self.mode, self.has_cls,
-                              getattr(self, f"pool_{nm}", None), getattr(self, f"norm_{nm}", None))
+                              getattr(self, f"pool_{nm}", None), getattr(self, f"norm_{nm}", None),
+                              shared=self._shared if local else _identity)
 
     def _heads(self, z: torch.Tensor) -> torch.Tensor:
         b, n, _ = z.shape
@@ -307,31 +337,35 @@ class MultiScaleAttention(nn.Module):
         ``x_res`` [B, heads, ., c] third when it is given."""
         b, n, _ = x.shape
         dt = self.dtype
-        if self.pool_first:
-            q = k = v = x.reshape(b, n, self.num_heads, -1).transpose(1, 2)
+        if self.pool_first:  # every head pooled on every rank: f comes after the pool
+            q = k = v = x.reshape(b, n, self.pool_heads, -1).transpose(1, 2)
         elif self.separate_qkv:
-            xd = x.to(dt)
+            xd = copy_to_model(x, self.model_group).to(dt)
             q, k, v = self._heads(self.q(xd)), self._heads(self.k(xd)), self._heads(self.v(xd))
         else:
-            qkv = self.qkv(x.to(dt)).reshape(b, n, 3, self.num_heads, self.head_dim).permute(2, 0, 3, 1, 4)
+            qkv = self.qkv(copy_to_model(x, self.model_group).to(dt))
+            qkv = qkv.reshape(b, n, 3, self.num_heads, self.head_dim).permute(2, 0, 3, 1, 4)
             q, k, v = qkv[0], qkv[1], qkv[2]
-        q, q_shape = self._pool("q", q, thw)
+        local = not self.pool_first
+        q, q_shape = self._pool("q", q, thw, local)
         pooled_res = None
         if x_res is not None:
-            pooled_res, _ = self._pool("q", x_res, thw)
-        k, k_shape = self._pool("k", k, thw)
-        v, v_shape = self._pool("v", v, thw)
+            pooled_res, _ = self._pool("q", x_res, thw, local=False)
+        k, k_shape = self._pool("k", k, thw, local)
+        v, v_shape = self._pool("v", v, thw, local)
         if self.pool_first:
             def project(z, layer):
-                return self._heads(layer(z.transpose(1, 2).reshape(b, z.shape[2], -1).to(dt)))
+                z = copy_to_model(z.transpose(1, 2).reshape(b, z.shape[2], -1), self.model_group)
+                return self._heads(layer(z.to(dt)))
 
             q, v, k = project(q, self.q), project(v, self.v), project(k, self.k)
 
         attn = torch.matmul((q * self.scale).float(), k.float().transpose(-2, -1))
         if self.rel_pos_spatial:
-            attn = cal_rel_pos_spatial(attn, q, self.has_cls, q_shape, k_shape, self.rel_pos_h, self.rel_pos_w)
+            attn = cal_rel_pos_spatial(attn, q, self.has_cls, q_shape, k_shape, self._shared(self.rel_pos_h),
+                                       self._shared(self.rel_pos_w))
         if self.rel_pos_temporal:
-            attn = cal_rel_pos_temporal(attn, q, self.has_cls, q_shape, k_shape, self.rel_pos_t)
+            attn = cal_rel_pos_temporal(attn, q, self.has_cls, q_shape, k_shape, self._shared(self.rel_pos_t))
         attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = torch.matmul(attn, v)
         if self.residual_pooling:
@@ -339,7 +373,7 @@ class MultiScaleAttention(nn.Module):
                 out = torch.cat([out[:, :, :1], out[:, :, 1:] + q[:, :, 1:].to(out.dtype)], dim=2)
             else:
                 out = out + q
-        out = self.proj(out.transpose(1, 2).reshape(b, -1, self.dim_out).to(dt))
+        out = self.proj(out.transpose(1, 2).reshape(b, out.shape[2], -1).to(dt))
         if x_res is not None:
             return out, q_shape, pooled_res
         return out, q_shape
@@ -359,7 +393,11 @@ class MultiScaleBlock(nn.Module):
     """``vtm``'s ``MultiScaleBlock``: norm1, pooling attention, the skip
     path's max pool (kernel s + 1) where q is strided, ``proj`` on the
     normed input (before the attention residual under ``dim_mul_in_att``,
-    else after norm2), layer scale, and drop path with the masks given."""
+    else after norm2), layer scale, and drop path with the masks given.
+    Under tensor parallelism ``proj`` stays whole: it takes the whole normed
+    input, which a row cut cannot."""
+
+    tp_whole = ("proj",)
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, input_size, mlp_ratio: float, qkv_bias: bool,
                  kernel_q, kernel_kv, stride_q, stride_kv, mode: str, has_cls: bool, pool_first: bool,
@@ -703,6 +741,8 @@ class MViTModel(nn.Module):
     block under ``torch.utils.checkpoint`` when gradients are recorded."""
 
     takes_boxes = True  # DETECTION.ENABLE builds the ROI head
+    supports_tensor_parallel = True  # parallel/sharding.py cuts it (detection runs in one process)
+    uneven_heads_stay_whole = True  # MViTv2-S's one-head first block at tp 2
 
     def __init__(self, spec: MViTSpec, dtype: torch.dtype = torch.float32, seed: int = 0,
                  fp32_params: bool = False, act_checkpoint: bool = False):

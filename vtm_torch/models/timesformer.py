@@ -57,12 +57,14 @@ from vtm_torch.models.common import (
     Linear,
     Mlp,
     PatchEmbed2d,
+    aggregate_metric,
     attention_core,
     merge_heads,
     proportional_attn_bias,
     split_heads,
 )
 from vtm_torch.ops.flash_attention import tome_blockdiag_attention
+from vtm_torch.parallel.sharding import copy_to_model
 
 ATTENTION_TYPES = ("divided_space_time", "space_only", "joint_space_time")
 
@@ -124,7 +126,14 @@ class TimeSformerAttention(nn.Module):
     ``frames`` rows per clip. On a CUDA tensor that call goes to the
     block-diagonal kernel; ``use_kernel=False`` sends every call to the
     plain product, so the kernel can be checked against it inside a model.
+
+    Under tensor parallelism (``parallel/sharding.py``) it holds its local
+    heads (``qkv`` cut by heads in q, k and v, ``proj`` by rows); its input
+    passes ``f`` and the metric is aggregated over ``model_group``. Both
+    paths take the head count from ``num_heads``, H / tp.
     """
+
+    model_group = None
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool, with_metric: bool = True):
         super().__init__()
@@ -137,7 +146,7 @@ class TimeSformerAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, size: Optional[torch.Tensor] = None,
                 frames: Optional[int] = None):
-        qkv = self.qkv(x)
+        qkv = self.qkv(copy_to_model(x, self.model_group))
         if frames is not None and self.use_kernel and x.is_cuda:
             out, k_mean = self.frames_attention(qkv, size, frames)
         else:
@@ -147,16 +156,22 @@ class TimeSformerAttention(nn.Module):
             return out
         return out, k_mean[:, 1:, :]
 
+    def _metric(self, k: torch.Tensor) -> Optional[torch.Tensor]:
+        """The head-mean keys [B, N, hd] of k [B, H, N, hd] over the model
+        group, or None where the module returns no metric."""
+        return aggregate_metric(k, "mean", self.model_group) if self.with_metric else None
+
     def batch_attention(self, qkv: torch.Tensor, size: Optional[torch.Tensor]):
         """Every row of the batch on its own, through ``attention_core``:
-        qkv [Bx, N, 3*D] -> (out [Bx, N, D], the head-mean keys [Bx, N, hd])."""
+        qkv [Bx, N, 3*D] -> (out [Bx, N, D], the head-mean keys [Bx, N, hd]
+        or None)."""
         q, k, v = (split_heads(t, self.num_heads) for t in qkv.chunk(3, dim=-1))
         size_bias = proportional_attn_bias(size)
         out = attention_core(
             q, k, v, self.scale, size_bias, bias_excludes_first=size_bias is not None,
             use_kernel=self.use_kernel,
         )
-        return merge_heads(out), k.mean(dim=1)
+        return merge_heads(out), self._metric(k)
 
     def frames_attention(self, qkv: torch.Tensor, size: Optional[torch.Tensor], frames: int):
         """The same for the (b t) batch of the divided spatial attention,
@@ -172,7 +187,8 @@ class TimeSformerAttention(nn.Module):
         if size is not None:  # [0, log size] per frame
             key_bias = torch.log(F.pad(size[:, :, 0].float(), (1, 0), value=1.0)).view(b, frames * n)
         out = tome_blockdiag_attention(q, k, v, key_bias, self.scale, frames=frames, exclude_first_row=True)
-        return out.view(bx, n, dim), k.mean(dim=1).view(bx, n, dim // h)
+        metric = self._metric(k)
+        return out.view(bx, n, dim), None if metric is None else metric.view(bx, n, dim // h)
 
 
 class TimeSformerBlock(nn.Module):
@@ -226,6 +242,8 @@ class TimeSformer(nn.Module):
     """Full model. Input: [B, T, H, W, C] channels-last video; returns
     (logits, MergeState): logits [B, num_classes] fp32, or a (verb, noun)
     pair of them for the twin heads."""
+
+    supports_tensor_parallel = True  # parallel/sharding.py cuts it
 
     def __init__(
         self,

@@ -67,6 +67,18 @@ FRAME_BWD_LAUNCHES = 0
 BLOCKDIAG_LAUNCHES = 0
 BLOCKDIAG_BWD_LAUNCHES = 0
 
+# Open FLOP counts (``utils/model_info.py::flop_count``): each forward
+# launch of K1, K3 and K5a adds its products, 4 * B * H * Nq * Nk * d (two
+# for q k^T, two for p v), to every list here. ``FlopCounterMode`` sees the
+# plain versions' products on the CPU, not a ctypes launch.
+PRODUCT_COUNTS: list = []
+
+
+def _count_products(flops: int) -> None:
+    for counts in PRODUCT_COUNTS:
+        counts.append(flops)
+
+
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 _ALIGN = 16  # bytes: the kernel stages rows with 16-byte loads
@@ -149,6 +161,7 @@ def _forward(q, k, v, key_bias, sm_scale, want_lse=False):
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed with cudaError_t {err}")
     LAUNCHES += 1
+    _count_products(4 * b * h * n * n * d)
     return (out, lse) if want_lse else out
 
 
@@ -398,6 +411,7 @@ def _frame_forward(q, k, v, key_bias, sm_scale, frames, want_lse=False):
     if err != 0:
         raise RuntimeError(f"frame attention kernel launch failed with cudaError_t {err}")
     FRAME_LAUNCHES += 1
+    _count_products(4 * b * h * n * n * d)  # every key of every frame
     return (out, lse) if want_lse else out
 
 
@@ -665,6 +679,7 @@ def _blockdiag_forward(q, k, v, key_bias, sm_scale, frames, exclude_first_row, p
     if err != 0:
         raise RuntimeError(f"block-diagonal attention kernel launch failed with cudaError_t {err}")
     BLOCKDIAG_LAUNCHES += 1
+    _count_products(4 * b * h * n * (n // frames) * d)  # each frame's keys
     return (out, lse) if want_lse else out
 
 

@@ -8,22 +8,29 @@ data for the launching process to hold against a one-process run:
 
   * ``train_probe``: ``train_net``'s trainer (mesh, cuts, DDP) takes a step
     on this rank's rows of a global batch; the global loss, the
-    gradients the optimizer saw and the parameters after, each gathered
-    whole (or their sha256), the Matchings of the first forward, the cut
-    shapes and the kernels' launches.
+    gradients the optimizer saw (rank 0 may also save them to a file)
+    and the parameters after, each gathered whole (or their sha256), the
+    Matchings of the first forward, the cut shapes and the kernels'
+    launches.
   * ``bn_probe``: a conv and a BatchNorm with its statistics over the
     group's global batch (``convnet.set_sync_group``), plain or with
     sub-batch splits: output rows, the gradients of the global loss and
     the running statistics after one train-mode forward;
   * ``eval_probe``: one eval forward of this rank's rows: the logits of
     the whole batch, the Matchings, the tokens entering each block, the
-    head counts the dense kernel saw and its launches;
+    head counts each attention kernel's wrapper saw (``seen``, with
+    Performer's seeds) and the launches;
   * ``run_probes``: several of these (and ``test_net.test``,
     ``model_benchmark``) in one launch, each timed.
 
-A model is built from ``cfg`` (``build_model``), or from a spec
-``(family, config kwargs, policy kwargs, state dict or None)`` for the
-tiny models the tests hold against ``vtm``.
+A model is built from ``cfg`` (``build_model``), or from a spec for the
+tiny models the tests hold against ``vtm``: ``(family, config kwargs,
+policy kwargs, state dict or None[, Performer projection])`` for VideoMAE,
+ViViT, TimeSformer and Motionformer, or ``("cfg", state dict)`` for a
+family that ``cfg`` builds at any width (MViT). A projection is put in
+place of Performer's draw (``vtm``'s, which torch's generators cannot
+make) for the probe's forward only (``projection_put_in``); the seed is
+still derived, and recorded.
 """
 
 from __future__ import annotations
@@ -40,6 +47,9 @@ from vtm_torch.merge import bipartite
 from vtm_torch.merge.policy import MergePolicy
 from vtm_torch.models import ModelBundle, build_model
 from vtm_torch.models import common
+from vtm_torch.models import motionformer, motionformer_approx, timesformer
+from vtm_torch.models.motionformer import Motionformer, MotionformerConfig
+from vtm_torch.models.timesformer import TimeSformer, TimeSformerConfig
 from vtm_torch.models.videomae import VideoMAE, VideoMAEConfig
 from vtm_torch.models.vivit import ViViT, ViViTConfig
 from vtm_torch.ops import flash_attention
@@ -48,7 +58,8 @@ from vtm_torch.parallel.sharding import full_state_dict, gather, is_cut, shard_m
 
 COUNTERS = ("LAUNCHES", "BWD_LAUNCHES", "FRAME_LAUNCHES", "FRAME_BWD_LAUNCHES",
             "BLOCKDIAG_LAUNCHES", "BLOCKDIAG_BWD_LAUNCHES")
-FAMILIES = {"VideoMAE": (VideoMAE, VideoMAEConfig), "ViViT": (ViViT, ViViTConfig)}
+FAMILIES = {"VideoMAE": (VideoMAE, VideoMAEConfig), "ViViT": (ViViT, ViViTConfig),
+            "TimeSformer": (TimeSformer, TimeSformerConfig), "Motionformer": (Motionformer, MotionformerConfig)}
 
 
 def launch_counts() -> dict:
@@ -59,7 +70,12 @@ def bundle_of(spec, cfg, device: torch.device, fp32_params: bool) -> ModelBundle
     """The model a probe runs: from ``cfg``, or from a tiny-model spec."""
     if spec is None:
         return build_model(cfg, device, fp32_params=fp32_params)
-    family, config_kw, policy_kw, state = spec
+    if spec[0] == "cfg":
+        bundle = build_model(cfg, "cpu", fp32_params=fp32_params)
+        bundle.module.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in spec[1].items()})
+        bundle.module.to(device).eval()
+        return bundle
+    family, config_kw, policy_kw, state, *_ = spec
     cls, config_cls = FAMILIES[family]
     policy = MergePolicy(**policy_kw)
     module = cls(config_cls(**config_kw), policy=policy, fp32_params=fp32_params)
@@ -68,36 +84,76 @@ def bundle_of(spec, cfg, device: torch.device, fp32_params: bool) -> ModelBundle
     return ModelBundle(module=module.to(device).eval(), policy=policy, name=family)
 
 
+@contextlib.contextmanager
+def projection_put_in(spec):
+    """Inside, Performer's draw gives the projection of a tiny-model spec
+    (its fifth item, numpy), whatever its arguments; restored after. A
+    spec without one changes nothing."""
+    projection = spec[4] if spec is not None and spec[0] != "cfg" and len(spec) > 4 else None
+    draw = motionformer_approx.create_projection_matrix
+    if projection is not None:
+        fixed = torch.as_tensor(np.asarray(projection))
+        motionformer_approx.create_projection_matrix = lambda m, d, generator: fixed
+    try:
+        yield
+    finally:
+        motionformer_approx.create_projection_matrix = draw
+
+
 def _matching_arrays(m):
     if m is None:
         return None
     return dict(n=m.n, r=m.r, **{k: getattr(m, k).cpu().numpy() for k in ("unm_idx", "src_idx", "dst_idx")})
 
 
+# (module, function, key): the attention wrappers whose head counts are recorded
+_KERNELS = ((common, "tome_flash_attention", "k1_heads"), (motionformer, "tome_frame_attention", "k3_heads"),
+            (timesformer, "tome_blockdiag_attention", "k5a_heads"))
+
+
 @contextlib.contextmanager
 def recording(seen: dict):
-    """Record every Matching made (``seen["matchings"]``) and the head
-    count of every dense-kernel call (``seen["k1_heads"]``) inside."""
-    match, kernel = bipartite._match, common.tome_flash_attention
+    """Record every Matching made (``seen["matchings"]``), the head count
+    of every call of the dense, per-frame and block-diagonal wrappers
+    (``seen["k1_heads"]``, ``"k3_heads"``, ``"k5a_heads"``) and every
+    Performer seed (``seen["seeds"]``) inside."""
+    saved = [(bipartite, "_match", bipartite._match),
+             (motionformer_approx, "projection_seed", motionformer_approx.projection_seed)]
+    saved += [(mod, name, getattr(mod, name)) for mod, name, _ in _KERNELS]
 
-    def recording_match(*args, **kwargs):
-        m = match(*args, **kwargs)
+    def recording_match(*args, _match=bipartite._match, **kwargs):
+        m = _match(*args, **kwargs)
         seen.setdefault("matchings", []).append(_matching_arrays(m))
         return m
 
-    def recording_kernel(q, *args, **kwargs):
-        seen.setdefault("k1_heads", []).append(int(q.shape[1]))
-        return kernel(q, *args, **kwargs)
+    def recording_seed(*args, _seed=motionformer_approx.projection_seed, **kwargs):
+        value = _seed(*args, **kwargs)
+        seen.setdefault("seeds", []).append(value)
+        return value
 
-    bipartite._match, common.tome_flash_attention = recording_match, recording_kernel
+    def recording_kernel(key, fn):
+        def call(q, *args, **kwargs):
+            seen.setdefault(key, []).append(int(q.shape[1]))
+            return fn(q, *args, **kwargs)
+        return call
+
+    bipartite._match, motionformer_approx.projection_seed = recording_match, recording_seed
+    for mod, name, key in _KERNELS:
+        setattr(mod, name, recording_kernel(key, getattr(mod, name)))
     try:
         yield seen
     finally:
-        bipartite._match, common.tome_flash_attention = match, kernel
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def _blocks(module):
-    return module.blocks if hasattr(module, "blocks") else module.layer
+    """The block stack whose token counts ``eval_probe`` records (none for
+    the reversible MViT)."""
+    for name in ("blocks", "layer"):
+        if hasattr(module, name):
+            return getattr(module, name)
+    return []
 
 
 def digest(t: torch.Tensor) -> str:
@@ -121,14 +177,17 @@ def _cut_shapes(module) -> dict:
 
 
 def train_probe(cfg, device, spec, frames, labels, want_state: bool = True,
-                checkpoint_dir: Optional[str] = None, generators: bool = False, epoch: float = 0.0) -> dict:
+                checkpoint_dir: Optional[str] = None, generators: bool = False, epoch: float = 0.0,
+                grads_file: Optional[str] = None) -> dict:
     """One step of ``train_net.build_trainer``'s trainer on this rank's rows
     of the global batch ``frames`` / ``labels`` (numpy), at the schedule's
     learning rate of ``epoch``. ``generators``: the step draws from
     ``train_epoch``'s generator of (epoch, iter 0). Gradients are read as
     the optimizer's step sees them (after DDP's all-reduce and the clip);
     ``want_state`` False returns sha256 digests in place of arrays.
-    ``checkpoint_dir``: ``save_checkpoint`` there after the step."""
+    ``checkpoint_dir``: ``save_checkpoint`` there after the step.
+    ``grads_file``: rank 0 also saves the whole gradients there
+    (``torch.save`` of fp32 CPU tensors by name)."""
     from vtm_torch.checkpoints import checkpoint as cu
     from vtm_torch.tools.train_net import _step_generator, build_trainer
     from vtm_torch.train.optimizer import set_lr
@@ -142,7 +201,7 @@ def train_probe(cfg, device, spec, frames, labels, want_state: bool = True,
     def read_grads(opt, args, kwargs):
         for p in (p for g in opt.param_groups for p in g["params"]):
             whole = gather(p.grad, p.tp_cut) if is_cut(p) else p.grad
-            grads[names[id(p)]] = (whole.float().cpu().numpy() if want_state else digest(whole))
+            grads[names[id(p)]] = whole.detach().to("cpu", torch.float32, copy=True)
 
     trainer.optimizer.register_step_pre_hook(read_grads)
     set_lr(trainer.optimizer, trainer.lr_at(epoch))
@@ -153,14 +212,16 @@ def train_probe(cfg, device, spec, frames, labels, want_state: bool = True,
     gen = _step_generator(device, cfg.RNG_SEED, int(epoch), 0, *mesh.rank_path) if generators else None
     seen = {}
     before = launch_counts()
-    with recording(seen):
+    with recording(seen), projection_put_in(spec):
         loss, logits, aux = trainer.train_step(local_x, local_y, gen)
     launches = {c: n - before[c] for c, n in launch_counts().items()}
     logits = process_allgather(logits, mesh.data_group)
+    if grads_file is not None and mesh.rank == 0:
+        torch.save(grads, grads_file)
+    grads = {n: (g.numpy() if want_state else digest(g)) for n, g in grads.items()}
     out = dict(rank=mesh.rank, mesh=mesh.shape, loss=float(loss), aux=[float(a) for a in aux], grads=grads,
                state=_whole_state(module, want_state), buffers=_buffers(module, want_state),
-               cut_shapes=_cut_shapes(module),
-               matchings=seen.get("matchings", []), launches=launches,
+               cut_shapes=_cut_shapes(module), matchings=seen.pop("matchings", []), seen=seen, launches=launches,
                logits=tuple(l.float().cpu() for l in logits) if isinstance(logits, tuple) else logits.float().cpu())
     if checkpoint_dir is not None:
         out["checkpoint"] = cu.save_checkpoint(checkpoint_dir, module, trainer.optimizer, 0, cfg)
@@ -196,28 +257,36 @@ def bn_probe(cfg, device, state: dict, x, weights, num_splits: int) -> dict:
                 buffers={k: v.cpu().numpy() for k, v in net.named_buffers()})
 
 
-def eval_probe(cfg, device, spec, video) -> dict:
+def eval_probe(cfg, device, spec, video, seed: Optional[int] = None, checkpoint: Optional[str] = None) -> dict:
     """One eval forward of this rank's rows of ``video`` (numpy, the
     global batch) on the model cut for ``cfg``'s mesh (weights from
-    ``cfg``'s seed or the spec's state, replicated from rank 0)."""
+    ``cfg``'s seed or the spec's state, replicated from rank 0, or loaded
+    from ``checkpoint`` after the cut); ``seed``: the forward draws from a
+    generator of that seed (Orthoformer's first landmarks, the random
+    merge modes)."""
+    from vtm_torch.checkpoints import checkpoint as cu
+
     mesh = make_mesh(cfg.TPU.MODEL_PARALLEL, batch_cap=video.shape[0], device_type=device.type)
     bundle = bundle_of(spec, cfg, device, fp32_params=False)
     module = shard_module(replicate(mesh, bundle.module), mesh)
+    if checkpoint is not None:
+        cu.load_checkpoint(checkpoint, module)
     tokens = []
     blocks = _blocks(module)
     hooks = [blk.register_forward_pre_hook(lambda m, a: tokens.append(int(a[0].shape[1]))) for blk in blocks]
-    hooks.append(blocks[-1].register_forward_hook(lambda m, a, o: tokens.append(int(o[0].shape[1]))))
+    if blocks:
+        hooks.append(blocks[-1].register_forward_hook(lambda m, a, o: tokens.append(int(o[0].shape[1]))))
     seen = {}
     before = launch_counts()
-    with torch.inference_mode(), recording(seen):
-        logits, _ = module(torch.as_tensor(shard_batch(mesh, video), device=device))
+    kwargs = {} if seed is None else dict(generator=torch.Generator(device).manual_seed(seed))
+    with torch.inference_mode(), recording(seen), projection_put_in(spec):
+        logits, _ = module(torch.as_tensor(shard_batch(mesh, video), device=device), **kwargs)
     for h in hooks:
         h.remove()
     launches = {c: n - before[c] for c, n in launch_counts().items()}
     logits = process_allgather(logits, mesh.data_group)
     return dict(rank=mesh.rank, mesh=mesh.shape, logits=logits.float().cpu(), tokens=tokens,
-                matchings=seen.get("matchings", []), k1_heads=seen.get("k1_heads", []),
-                launches=launches, cut_shapes=_cut_shapes(module))
+                matchings=seen.pop("matchings", []), seen=seen, launches=launches, cut_shapes=_cut_shapes(module))
 
 
 

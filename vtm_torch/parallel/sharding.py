@@ -22,21 +22,44 @@ Rules by parameter name (module, leaf), as in ``vtm``:
       weight and bias cut along the output features (column parallel);
   proj / attention_output / fc2 / output
       weight cut along the input features (row parallel), bias whole;
-  everything else (embeddings, norms, heads, class token) whole.
-Two departures, both forced by cutting in place rather than by spec: the
-fused ``qkv`` [3C, C] is cut as three parts, so that rank r holds heads
-r*H/tp ... of q, of k and of v; and VideoMAE's ``q_bias`` / ``v_bias``
-(whole in ``vtm``, where GSPMD reshards them) are cut with q and v.
+  everything else (embeddings, norms, heads, class token, TimeSformer's
+  ``temporal_fc``, MViT's pooling convs, their norms and the relative
+  positions) whole.
+Departures, all forced by cutting in place rather than by spec:
+  * the fused ``qkv`` [3C, C] is cut as three parts and Motionformer's
+    ``proj_kv`` [2C, C] as two, so that rank r holds heads r*H/tp ... of
+    q, of k and of v;
+  * VideoMAE's ``q_bias`` / ``v_bias`` (whole in ``vtm``, where GSPMD
+    reshards them) are cut with q and v;
+  * MViT's separate ``q`` / ``k`` / ``v`` (whole in ``vtm``, whose names
+    miss them) are cut by heads as the fused ``qkv`` is: the same local
+    heads at a tp-th of the product;
+  * MViT's block-level ``proj`` (a width change on the whole normed input)
+    stays whole (the module's ``tp_whole``);
+  * an attention whose heads do not split tp ways (MViTv2-S's one-head
+    first block at tp 2) stays whole on every rank, with no ``f`` or
+    ``g``, where the model allows it (``uneven_heads_stay_whole``, MViT);
+    VideoMAE and ViViT raise.
+
+Two more collectives serve the families cut since the first two:
+  * ``gather_features``: every rank's features in rank order, its
+    backward the reduce-scatter of the gradient (Motionformer's trajectory
+    step takes the merged heads of the spatial step into its column-cut
+    ``proj_q`` / ``proj_kv``);
+  * ``copy_to_model`` applied to a parameter at its use: the weights that
+    act on every head alike (MViT's ``pool_*``, ``norm_*``, ``rel_pos_*``)
+    see only this rank's heads, and their gradient is summed over the group.
 
 Each cut parameter carries its ``Cut`` (``param.tp_cut``), from which
 ``full_state_dict`` gathers it back and ``load_full_state_dict`` takes
 this rank's piece of a whole tensor; the optimizer's state follows the
 same cuts (``full_optimizer_state``, ``load_optimizer_state``).
 
-Cut: VideoMAE and ViViT, the dense-attention families (their classes'
+Cut: VideoMAE, ViViT, TimeSformer, Motionformer and MViT (their classes'
 ``supports_tensor_parallel``). The conv families (SlowFast, ResNet, X3D)
 stay whole on every rank of a model group (``replicated_over_model``).
-TimeSformer and Motionformer raise (ROADMAP.md Queue 1, item 15).
+Masked and contrastive pretraining run in one process, as ``vtm``'s steps
+do (``one_process_reason``).
 """
 
 from __future__ import annotations
@@ -54,8 +77,10 @@ _COL = ("qkv", "query", "key", "value", "fc1", "intermediate", "proj_q", "proj_k
 _ROW = ("proj", "attention_output", "fc2", "output")
 # VideoMAE's split biases of the fused qkv, cut with q and v
 _HEAD_BIASES = ("q_bias", "v_bias")
-# fused projections: parts cut alike (q, k, v)
-_FUSED = {"qkv": 3}
+# MViT's separate projections, cut by heads as the fused qkv (whole in vtm)
+_HEAD_COL = ("q", "k", "v")
+# fused projections: parts cut alike (q, k, v; k, v)
+_FUSED = {"qkv": 3, "proj_kv": 2}
 
 
 
@@ -67,10 +92,8 @@ def check_tensor_parallel(cfg) -> None:
     module_class = MODEL_CLASSES.get(cfg.MODEL.MODEL_NAME)
     if cfg.TPU.MODEL_PARALLEL > 1 and not (getattr(module_class, "supports_tensor_parallel", False)
                                           or getattr(module_class, "replicated_over_model", False)):
-        raise NotImplementedError(
-            f"TPU.MODEL_PARALLEL > 1 for {cfg.MODEL.MODEL_NAME}: its tensor-parallel cuts "
-            "are not ported yet (ROADMAP.md Queue 1, item 15)"
-        )
+        raise NotImplementedError(f"TPU.MODEL_PARALLEL > 1 for {cfg.MODEL.MODEL_NAME}: "
+                                  f"{getattr(module_class, 'one_process_reason', 'it has no cuts')}")
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -83,7 +106,9 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
+        # the standard strides (a conv weight's gradient may come with others
+        # on its size-1 axis, which DDP's buckets do not take)
+        grad = grad.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(grad, group=ctx.group)
         return grad, None
 
@@ -136,12 +161,37 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceFromModel.apply(x, group)
 
 
-def gather_heads(x: torch.Tensor, group) -> torch.Tensor:
-    """This rank's features [..., F] -> every rank's, in rank order along
-    the last axis (no gradient: the matching metric's use)."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.detach().contiguous(), group=group)
-    return torch.cat(parts, dim=-1)
+class _GatherFeatures(torch.autograd.Function):
+    """All-gather along the last axis forward; the reduce-scatter of the
+    gradient backward (gloo takes no reduce-scatter of CUDA tensors: there
+    an all-reduce and this rank's slice)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group = ctx.group
+        pieces = [p.contiguous() for p in grad.chunk(dist.get_world_size(group), dim=-1)]
+        rank = dist.get_rank(group)
+        if grad.is_cuda and dist.get_backend(group) == "gloo":
+            whole = grad.contiguous().clone()
+            dist.all_reduce(whole, group=group)
+            return whole.chunk(len(pieces), dim=-1)[rank].contiguous(), None
+        out = torch.empty_like(pieces[rank])
+        dist.reduce_scatter(out, pieces, group=group)
+        return out, None
+
+
+def gather_features(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's features [..., F] -> every rank's [..., F * tp] in rank
+    order, its gradient summed over ``group`` and cut back to this rank's;
+    identity without a group."""
+    return x if group is None else _GatherFeatures.apply(x, group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,11 +208,12 @@ class Cut:
 
 
 def cut_rule(name: str, ndim: int) -> Optional[Tuple[int, int]]:
-    """(dim, parts) of the parameter ``name`` (torch's dotted name), or
-    None when it stays whole."""
+    """(dim, parts) of the parameter ``name`` (torch's dotted name) by its
+    name alone, or None when it stays whole (``plan_cuts`` adds what the
+    modules say)."""
     names = name.split(".")
     leaf, module = names[-1], (names[-2] if len(names) >= 2 else "")
-    if module in _COL and ((leaf == "weight" and ndim == 2) or (leaf == "bias" and ndim == 1)):
+    if module in _COL + _HEAD_COL and ((leaf == "weight" and ndim == 2) or (leaf == "bias" and ndim == 1)):
         return 0, _FUSED.get(module, 1)
     if module in _ROW and leaf == "weight" and ndim == 2:
         return 1, 1
@@ -192,25 +243,51 @@ def gather(piece: torch.Tensor, cut: Cut) -> torch.Tensor:
     return join(parts, cut)
 
 
+def _has_column_child(sub: nn.Module) -> bool:
+    """A module that applies ``f`` at the input of a column-cut child."""
+    return any(child in _COL + _HEAD_COL for child, _ in sub.named_children())
+
+
+def _under(name: str, prefixes) -> bool:
+    return any(name == w or name.startswith(w + ".") for w in prefixes)
+
+
+def plan_cuts(module: nn.Module, ways: int):
+    """({parameter name: (dim, parts) or None}, the names of the modules
+    kept whole) for a model cut ``ways`` ways: the name rules, less the
+    modules' ``tp_whole`` children and the attentions whose heads do not
+    split (those raise unless the model's ``uneven_heads_stay_whole``)."""
+    whole = set()
+    for name, sub in module.named_modules():
+        whole.update(f"{name}.{child}" if name else child for child in getattr(sub, "tp_whole", ()))
+        if _has_column_child(sub) and hasattr(sub, "num_heads") and sub.num_heads % ways:
+            if not getattr(module, "uneven_heads_stay_whole", False):
+                raise ValueError(f"{name}: {sub.num_heads} heads do not split {ways} ways")
+            whole.add(name)
+    rules = {n: None if _under(n, whole) else cut_rule(n, p.dim()) for n, p in module.named_parameters()}
+    return rules, whole
+
+
 def shard_module(module: nn.Module, mesh) -> nn.Module:
     """Cut ``module``'s parameters for this rank of ``mesh``'s model group,
-    in place: the rules above, the attention modules' head counts divided,
+    in place: ``plan_cuts``, the attention modules' head counts divided,
     and the model group set where the model code applies ``f`` (modules
     with a column-cut child) and ``g`` (row-cut ``Linear``s). Build the
     optimizer after this. A no-op at model width 1."""
     if mesh.model == 1 or getattr(module, "replicated_over_model", False):
         return module
     if not getattr(module, "supports_tensor_parallel", False):
-        raise NotImplementedError(
-            f"{type(module).__name__}: tensor-parallel cuts are ported for VideoMAE and ViViT "
-            "only (ROADMAP.md Queue 1, item 15)"
-        )
+        raise NotImplementedError(f"{type(module).__name__}: "
+                                  f"{getattr(module, 'one_process_reason', 'it has no cuts')}")
     from vtm_torch.models.common import Linear
 
     ways, rank, group = mesh.model, mesh.model_rank, mesh.model_group
+    rules, whole = plan_cuts(module, ways)
     for name, sub in module.named_modules():
+        if _under(name, whole):
+            continue
         for pname, p in list(sub.named_parameters(recurse=False)):
-            rule = cut_rule(f"{name}.{pname}", p.dim())
+            rule = rules[f"{name}.{pname}" if name else pname]
             if rule is None:
                 continue
             cut = Cut(*rule, ways=ways, rank=rank, group=group)
@@ -220,11 +297,9 @@ def shard_module(module: nn.Module, mesh) -> nn.Module:
         leaf = name.rsplit(".", 1)[-1]
         if leaf in _ROW and isinstance(sub, Linear):
             sub.model_group = group
-        if any(child in _COL for child, _ in sub.named_children()):
+        if _has_column_child(sub):
             sub.model_group = group
             if hasattr(sub, "num_heads"):
-                if sub.num_heads % ways:
-                    raise ValueError(f"{name}: {sub.num_heads} heads do not split {ways} ways")
                 sub.num_heads //= ways
     return module
 

@@ -24,8 +24,8 @@ failed trace and goes on, a failed trace raises here.
 Parallelism: ``main`` runs one process per CUDA device the test batch can
 use (``parallel.launch.run``), over the ('data', 'model') mesh of
 ``TPU.MODEL_PARALLEL``, the placement ``test_net`` uses: each data rank
-times its rows of the batch (VideoMAE and ViViT cut for tensor
-parallelism), and clips/s is the whole batch over the slowest rank's
+times its rows of the batch (VideoMAE, ViViT, TimeSformer, Motionformer
+and MViT cut for tensor parallelism), and clips/s is the whole batch over the slowest rank's
 CUDA-event time. The statistics then also carry ``ranks``,
 ``data_parallel`` and ``model_parallel``; launches are this process's
 per forward, rank 0 prints the line, and a trace is written by each rank

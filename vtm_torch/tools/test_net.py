@@ -24,15 +24,18 @@ its rows of each global batch, padded to a multiple of the data width as
 ``vtm`` pads it; the logits of every rank are gathered in global row
 order, the padding dropped, and every rank ensembles the whole batch in
 its meter (rank 0 logs and writes the pickles). ``TPU.MODEL_PARALLEL`` > 1
-cuts VideoMAE and ViViT (``parallel/sharding.py``; other families raise,
-ROADMAP.md Queue 1, item 15). Per-batch generators are then seeded from
+cuts VideoMAE, ViViT, TimeSformer, Motionformer and MViT
+(``parallel/sharding.py``; the conv families stay whole on every rank).
+Per-batch generators are then seeded from
 (seed, batch, data rank). The logits come to the host as fp32 numpy after
 every batch, for the meter. ``WANDB.ENABLE`` logs each sweep entry's stats
 with its ``num_views`` (``utils/wandb_utils.py``: a no-op without the
 package); ``TENSORBOARD.ENABLE`` opens a ``TensorboardWriter``, which with
 ``TENSORBOARD.CONFUSION_MATRIX.ENABLE`` adds each sweep entry's confusion
-matrix of the per-video predictions; both on rank 0, as in ``vtm``. Model
-info is not ported yet and raises.
+matrix of the per-video predictions; both on rank 0, as in ``vtm``.
+``LOG_MODEL_INFO`` logs each sweep entry's model's parameter count and
+bytes, its GFLOP a clip and the device's memory (``utils/model_info.py``),
+on rank 0 before the cut.
 
 Detection (``DETECTION.ENABLE``, AVA): one keyframe clip a row (no views),
 the batch's boxes through ``make_detection_eval_step``, the per-box scores
@@ -61,10 +64,11 @@ from vtm_torch.models import build_model
 from vtm_torch.parallel import launch
 from vtm_torch.parallel.mesh import Mesh, entry_device, gather_rows, make_mesh, replicate
 from vtm_torch.parallel.sharding import check_tensor_parallel, shard_module
-from vtm_torch.tools.train_net import _host, _one_process, _step_generator
+from vtm_torch.tools.train_net import DETECTION_ONE_PROCESS, _host, _one_process, _step_generator
 from vtm_torch.train.train_step import make_detection_eval_step, make_eval_step
 from vtm_torch.utils import wandb_utils
 from vtm_torch.utils.logging import get_logger, setup_logging
+from vtm_torch.utils.model_info import log_model_info
 
 logger = get_logger(__name__)
 
@@ -72,15 +76,9 @@ SWEEP_VIEWS = [1, 3, 5, 7, 10]  # TEST.NUM_TEMPORAL_CLIPS [-1]
 
 
 def _unsupported(cfg) -> None:
-    """Raise for what the JAX package's test entry point does and this one does not yet."""
-    for on, what in (
-        (cfg.DETECTION.ENABLE and cfg.TPU.MODEL_PARALLEL > 1,
-         "DETECTION.ENABLE with TPU.MODEL_PARALLEL > 1: detection runs in one process, as vtm's "
-         "single-device step (ROADMAP.md Queue 1, item 15)"),
-        (cfg.LOG_MODEL_INFO, "LOG_MODEL_INFO: parameter and FLOP counts (ROADMAP.md Queue 1, item 4)"),
-    ):
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
+    """Raise for a tensor-parallel width on what runs in one process."""
+    if cfg.DETECTION.ENABLE and cfg.TPU.MODEL_PARALLEL > 1:
+        raise NotImplementedError(DETECTION_ONE_PROCESS)
     check_tensor_parallel(cfg)
 
 
@@ -199,6 +197,8 @@ def _test_views(cfg, views_list, device: torch.device, mesh: Mesh, tb_writer):
     for num_view in views_list:
         cfg.TEST.NUM_ENSEMBLE_VIEWS = num_view
         bundle = load_test_checkpoint(cfg, build_model(cfg, device))
+        if cfg.LOG_MODEL_INFO and mesh.rank == 0:  # the whole model, before any cut
+            log_model_info(bundle, cfg)
         if mesh.model > 1:
             shard_module(replicate(mesh, bundle.module), mesh)
         loader = construct_loader(cfg, "test", mesh.data_rank, mesh.data)

@@ -71,9 +71,10 @@ only, as in the JAX package.
 Parallelism (``vtm_torch/parallel``): ``main`` runs ``train`` in one process
 per CUDA device the batch can use (``parallel.launch.run``; torchrun
 works too). Under a process group ``build_trainer`` builds the
-('data', 'model') mesh of ``TPU.MODEL_PARALLEL``, cuts VideoMAE or ViViT
-for tensor parallelism (other families raise, ROADMAP.md Queue 1, item
-15), and wraps the module in DDP over the data group; each data rank
+('data', 'model') mesh of ``TPU.MODEL_PARALLEL``, cuts VideoMAE, ViViT,
+TimeSformer, Motionformer or MViT for tensor parallelism (masked and
+contrastive pretraining and detection run in one process, as ``vtm``'s
+steps do), and wraps the module in DDP over the data group; each data rank
 loads and steps on its rows of each global batch, with step generators
 seeded from (seed, epoch, iter, data rank), so that the ranks of one
 model group draw the same masks. Meters get the global batch's loss and
@@ -192,15 +193,14 @@ def _host(logits):
 
 
 def _unsupported(cfg) -> None:
-    """Raise for what the JAX package's train loop does and this one does not yet."""
+    """Raise for a tensor-parallel width on what runs in one process."""
     check_tensor_parallel(cfg)
-    for on, what in (
-        (cfg.DETECTION.ENABLE and cfg.TPU.MODEL_PARALLEL > 1,
-         "DETECTION.ENABLE with TPU.MODEL_PARALLEL > 1: detection runs in one process, as vtm's "
-         "single-device step (ROADMAP.md Queue 1, item 15)"),
-    ):
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.DETECTION.ENABLE and cfg.TPU.MODEL_PARALLEL > 1:
+        raise NotImplementedError(DETECTION_ONE_PROCESS)
+
+
+DETECTION_ONE_PROCESS = ("DETECTION.ENABLE with TPU.MODEL_PARALLEL > 1: detection runs in one process, "
+                         "as vtm's single-device detection step does")
 
 
 def _errors(logits, labels, multi_head: bool):
